@@ -1,0 +1,478 @@
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+The main path is the population log-likelihood matrix ("psi") of the
+closed-form models, ``pharmsol_tpu_torch.log_likelihood_matrix`` with
+``device="cuda"``, whose engine is the hand-written CUDA kernel
+``pharmsol_tpu_torch/csrc/fused_psi.cu``. Phases, each printing its own
+lines; any failure raises and the exit code is not 0:
+
+0. environment: torch, CUDA and nvcc versions, the card's name and power
+   limit;
+1. build: the kernel from the checkout's sources with nvcc, timed;
+2. kernel against its plain PyTorch twin on the card at a ragged shape
+   (R=257, S=300): all 12 structures on a multi-dose regimen, and 2-cmt oral
+   with infusion, with BLOQ+ALOQ censoring, and with two outputs plus a bias,
+   float64 within 1e-10 relative (the float32 error of kernel and twin
+   against the float64 twin is printed). float32 against the float64 twin
+   within the committed per-structure budget, on the budget's own cases;
+3. the slice at full width through the public entry point: 2-cmt oral
+   "Short" at 16384 subjects x 512 supports and 1-cmt oral at 10000 x 1000,
+   in float32 and float64, three calls each with fresh supports. Each call
+   must take the fused engine with exactly one kernel launch, give finite
+   psi of the right shape, and agree with the general engine on the card
+   (float32: 1e-3 relative; float64: 1e-10). The kernel is then held against
+   its twin at these shapes;
+4. times on the card (CUDA events, after warm-up): the kernel alone, its
+   twin, the general engine, one end-to-end call with the lowering cached
+   and the steps it is made of, and the host lowering alone.
+
+The last lines are the kernels' JSON record, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``. All data comes from a numpy
+seed. Without a CUDA device the script exits with code 2 and prints no
+result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 20261016
+SHORT_TIMES = [0.5, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 10.0, 12.0]
+KERNEL_RECORD = {
+    "name": "fused_psi",
+    "route": "cuda",
+    "source": "pharmsol_tpu_torch/csrc/fused_psi.cu",
+    "replaces": "pharmsol_tpu/ops/pallas_psi.py:805",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi() -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return proc.stdout.strip().splitlines()[0]
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor, floor: float) -> float:
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / want.abs().clamp(min=floor)).max())
+
+
+# ---------------------------------------------------------------------------
+# workloads
+# ---------------------------------------------------------------------------
+
+
+def short_subjects(pt, n: int, rng, repeat: bool = False, infusion: bool = False,
+                   censored: bool = False, two_outputs: bool = False):
+    """The reference's "Short" workload (one 100 mg oral dose, 9 observations
+    over 12 h), optionally multi-dose, with an infusion, with censored
+    observations or with a second output."""
+    subjects = []
+    for i in range(n):
+        b = pt.Subject.builder(f"s{i}").bolus(0.0, 100.0, 0)
+        if repeat:
+            b = b.bolus(6.0, 100.0, 0).bolus(12.0, 50.0, 0)
+        if infusion:
+            b = b.infusion(4.0, 120.0, 0, 2.0)
+        values = np.abs(5.0 + rng.randn(len(SHORT_TIMES)))
+        for t, v in zip(SHORT_TIMES, values):
+            b = b.observation(t, float(v), 0)
+        if censored:
+            b = b.censored_observation(14.0, 0.1, 0, pt.Censor.BLOQ)
+            b = b.censored_observation(0.25, 8.0, 0, pt.Censor.ALOQ)
+        if two_outputs:
+            for t in (1.0, 5.0, 9.0):
+                b = b.observation(t, float(abs(2.0 + rng.randn())), 1)
+        subjects.append(b.build())
+    return pt.Data(subjects)
+
+
+def jittered_support(center, n: int, rng, scale: float = 0.15) -> np.ndarray:
+    center = np.asarray(center, dtype=np.float64)
+    return np.abs(center[None, :] * (1.0 + scale * rng.randn(n, center.size)))
+
+
+def kernel_case(pt, structure: str, rng, R: int, S: int, variant: str = ""):
+    """(model, data, support, ems) of one phase-2 case."""
+    from pharmsol_tpu_torch.engine.analytical import KERNELS
+    from pharmsol_tpu_torch.utils.f32_budget import NOMINAL
+
+    fn, nstates, nparams = KERNELS[structure]
+    central = 1 if structure.endswith("_with_absorption") else 0
+    support = jittered_support(NOMINAL[structure] + [11.0], S, rng)
+    ems = pt.AssayErrorModels().add(
+        0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    if variant == "two_outputs":
+        # y0 = central / v, y1 = peripheral / vp + 0.1 v (a bias row)
+        support = np.concatenate(
+            [support, jittered_support([20.0], S, rng)], axis=1)
+        out = (lambda x, p, t, cov, c=central, v=nparams: torch.stack(
+            [x[c] / p[v], x[c + 1] / p[v + 1] + 0.1 * p[v]]))
+        nout = 2
+        ems = ems.add(1, pt.AssayErrorModel.proportional(
+            pt.ErrorPoly(0.0, 0.2), 1.0))
+    else:
+        out = (lambda x, p, t, cov, c=central, v=nparams: x[c:c + 1] / p[v])
+        nout = 1
+    model = pt.Analytical(fn, out=out, nstates=nstates, ndrugs=1, nout=nout)
+    data = short_subjects(
+        pt, R, rng, repeat=True, infusion=variant == "infusion",
+        censored=variant == "censoring", two_outputs=variant == "two_outputs")
+    return model, data, support, ems
+
+
+def plan_for(pt, model, data, support, ems, dtype):
+    from pharmsol_tpu_torch.likelihood.plans.analytical import _FusedPsiPlan
+
+    grid = model.lower(data.subjects())
+    lowered = ems.lower(model.resolve_output_label, model.nouteqs())
+    return _FusedPsiPlan(model, grid, support, lowered, torch.device("cuda"), dtype)
+
+
+def run_kernel(plan, plain: bool = False) -> torch.Tensor:
+    from pharmsol_tpu_torch.ops.fused_psi import psi_analytical, psi_analytical_plain
+
+    fn = psi_analytical_plain if plain else psi_analytical
+    return fn(*plan.streams, plan.support, structure=plan.structure,
+              obs_outeq=plan.outeq, out_coef=plan.out_coef,
+              out_bias=plan.out_bias)
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_environment() -> str:
+    from pharmsol_tpu_torch.ops import _build
+
+    nvcc = subprocess.run(
+        [_build.nvcc_path(), "--version"], capture_output=True, text=True,
+        check=True,
+    ).stdout.strip().splitlines()[-1]
+    card = nvidia_smi()
+    log(f"[0] python {sys.version.split()[0]}  torch {torch.__version__}  "
+        f"cuda {torch.version.cuda}  nvcc: {nvcc}")
+    log(f"[0] card: {card}  devices: {torch.cuda.device_count()}")
+    return card
+
+
+def phase_build() -> float:
+    from pharmsol_tpu_torch.ops import _build
+
+    path, seconds, output = _build.build(force=True, verbose=True)
+    log(f"[1] built {path.name} with nvcc in {seconds:.2f} s "
+        f"({' '.join(_build.NVCC_FLAGS)})")
+    # ptxas -v: one summary per instantiation (dtype, structure code)
+    kernel, spill = None, ""
+    for ln in output.splitlines():
+        m = re.search(r"fused_psi_kernelI([fd])Li(\d+)E", ln)
+        if m and "Compiling entry function" in ln:
+            kernel = f"{'f32' if m.group(1) == 'f' else 'f64'} code {m.group(2):>2}"
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "registers" in ln and kernel:
+            regs = ln.split("Used")[-1].split(",")[0].strip()
+            log(f"[1]   ptxas {kernel}: {regs}; {spill}")
+            kernel, spill = None, ""
+    _build.load_library()
+    return seconds
+
+
+def phase_kernels(pt, rng) -> None:
+    from pharmsol_tpu_torch.ops.fused_psi import STRUCTURES
+    from pharmsol_tpu_torch.utils.f32_budget import F32_BUDGET, f32_error
+    from pharmsol_tpu_torch.utils.f32_budget import kernel_case as budget_case
+
+    R, S = 257, 300
+    cases = [(name, "") for name in STRUCTURES] + [
+        ("two_compartments_with_absorption", v)
+        for v in ("infusion", "censoring", "two_outputs")]
+    for structure, variant in cases:
+        name = structure + (f"+{variant}" if variant else "")
+        model, data, support, ems = kernel_case(pt, structure, rng, R, S, variant)
+        plan64 = plan_for(pt, model, data, support, ems, torch.float64)
+        plan32 = plan_for(pt, model, data, support, ems, torch.float32)
+        twin64 = run_kernel(plan64, plain=True)
+        got64 = run_kernel(plan64)
+        got32 = run_kernel(plan32)
+        twin32 = run_kernel(plan32, plain=True)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(got64).all() and torch.isfinite(got32).all()):
+            raise AssertionError(f"{name}: non-finite kernel psi")
+        e64 = rel_err(got64, twin64, 1e-300)
+        ref = twin64.cpu().numpy()
+        e32 = f32_error(got32.cpu().numpy(), ref)
+        e32_twin = f32_error(twin32.cpu().numpy(), ref)
+        log(f"[2] {name:46s} {R}x{S} f64 kernel vs twin rel {e64:.3e} "
+            f"(<= 1e-10); f32 vs f64 twin: kernel {e32:.3e}, twin {e32_twin:.3e}")
+        if e64 > 1e-10:
+            raise AssertionError(f"{name}: f64 kernel vs twin {e64} > 1e-10")
+        if variant:
+            continue
+        # float32 against the committed budget, on the budget's own case
+        bmodel, bdata, bsupport, bems = budget_case(structure)
+        golden = run_kernel(plan_for(pt, bmodel, bdata, bsupport, bems,
+                                     torch.float64), plain=True)
+        got = run_kernel(plan_for(pt, bmodel, bdata, bsupport, bems,
+                                  torch.float32))
+        torch.cuda.synchronize()
+        eb = f32_error(got.cpu().numpy(), golden.cpu().numpy())
+        budget = F32_BUDGET[structure]
+        log(f"[2] {name:46s} budget case f32 kernel {eb:.3e} (<= {budget:g})")
+        if eb > budget:
+            raise AssertionError(f"{name}: f32 kernel {eb} > budget {budget}")
+
+
+def slice_workloads(pt, rng):
+    """The two full-width cells: (label, model, data, centre, S, builder s)."""
+    out = []
+    t0 = time.perf_counter()
+    data = short_subjects(pt, 16384, rng)
+    t_build = time.perf_counter() - t0
+    model = pt.Analytical(
+        pt.two_compartments_with_absorption,
+        out=lambda x, p, t, cov: x[1:2] / p[4], nstates=3, ndrugs=1, nout=1)
+    out.append(("2cmt_oral_short_16384x512", model, data,
+                [0.15, 1.2, 0.3, 0.2, 10.0], 512, t_build))
+    t0 = time.perf_counter()
+    data10k = short_subjects(pt, 10000, rng)
+    t_build = time.perf_counter() - t0
+    model1 = pt.Analytical(
+        pt.one_compartment_with_absorption,
+        out=lambda x, p, t, cov: x[1:2] / p[2], nstates=2, ndrugs=1, nout=1)
+    out.append(("1cmt_oral_10000x1000", model1, data10k,
+                [1.2, 0.2, 30.0], 1000, t_build))
+    return out
+
+
+def phase_slice(pt, rng, workloads, ems) -> int:
+    from pharmsol_tpu_torch.ops import fused_psi
+
+    supports = {}
+    for label, model, data, centre, S, _ in workloads:
+        supports[label] = [jittered_support(centre, S, rng, 0.2) for _ in range(3)]
+    # the main path's run: every launch counted here is one of its calls
+    fused_psi.LAUNCHES = 0
+    results = []
+    for dtype in (torch.float32, torch.float64):
+        pt.set_float_dtype(dtype)
+        for label, model, data, centre, S, _ in workloads:
+            for i, sp in enumerate(supports[label]):
+                before = fused_psi.LAUNCHES
+                psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
+                torch.cuda.synchronize()
+                dec = pt.last_engine_decision(model)
+                launches = fused_psi.LAUNCHES - before
+                if dec["engine"] != "fused":
+                    raise AssertionError(f"{label}: engine {dec}")
+                if launches != 1:
+                    raise AssertionError(f"{label}: {launches} launches in one call")
+                if tuple(psi.shape) != (len(data), S) or psi.device.type != "cuda":
+                    raise AssertionError(f"{label}: psi {tuple(psi.shape)} on {psi.device}")
+                if not bool(torch.isfinite(psi).all()):
+                    raise AssertionError(f"{label}: non-finite psi")
+                results.append((dtype, label, model, data, sp, psi))
+    launches = fused_psi.LAUNCHES
+    log(f"[3] main path: {len(results)} log_likelihood_matrix calls on cuda, "
+        f"engine fused, {launches} kernel launches")
+    # agreement with the general engine on the card (not counted above)
+    for dtype, label, model, data, sp, psi in results:
+        pt.set_float_dtype(dtype)
+        want = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda",
+                                        engine="general")
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            err, tol = rel_err(psi, want, 1e-3), 1e-3
+        else:
+            err, tol = rel_err(psi, want, 1e-300), 1e-10
+        log(f"[3] {label} {str(dtype)[6:]}: fused vs general rel {err:.3e} "
+            f"(<= {tol:g}); psi mean {float(psi.double().mean()):.6f}")
+        if err > tol:
+            raise AssertionError(f"{label} {dtype}: fused vs general {err} > {tol}")
+    return launches
+
+
+def phase_kernel_at_slice(pt, workloads, ems) -> dict:
+    """The kernel against its twin at the main path's shapes."""
+    errs = {}
+    for dtype in (torch.float32, torch.float64):
+        for label, model, data, centre, S, _ in workloads:
+            sp = jittered_support(centre, S, np.random.RandomState(SEED + 1), 0.2)
+            plan = plan_for(pt, model, data, sp, ems, dtype)
+            got, twin = run_kernel(plan), run_kernel(plan, plain=True)
+            torch.cuda.synchronize()
+            abs_err = float((got.double() - twin.double()).abs().max())
+            rel = rel_err(got, twin, 1.0)
+            tol = 1e-4 if dtype == torch.float32 else 1e-10
+            log(f"[3] kernel vs twin {label} {str(dtype)[6:]}: max abs "
+                f"{abs_err:.3e}, rel {rel:.3e} (<= {tol:g})")
+            if rel > tol:
+                raise AssertionError(f"{label} {dtype}: kernel vs twin {rel} > {tol}")
+            errs[(label, dtype)] = abs_err
+    return errs
+
+
+def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def wall_ms(fn, reps: int, warmup: int = 1) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def end_to_end_parts(pt, model, data, sp, ems, dtype, plan) -> dict:
+    """Wall times of the steps of one fused log_likelihood_matrix call."""
+    from pharmsol_tpu_torch.engine.sim import NO_COVARIATES
+    from pharmsol_tpu_torch.likelihood.matrix import check_error_model_coverage
+    from pharmsol_tpu_torch.ops.fused_psi import extract_linear_out, streams_from_grid
+
+    grid = model.lower(data.subjects())
+    lowered = ems.lower(model.resolve_output_label, model.nouteqs())
+    psi_rows = run_kernel(plan)
+
+    def finalize():
+        psi = plan.finalize(psi_rows)
+        return torch.where(torch.isfinite(psi), psi,
+                           torch.full_like(psi, -float("inf")))
+
+    return {
+        "lower_cached": wall_ms(lambda: model.lower(data.subjects()), 3),
+        "error_models": wall_ms(lambda: check_error_model_coverage(
+            grid, ems.lower(model.resolve_output_label, model.nouteqs())), 3),
+        "streams": wall_ms(lambda: streams_from_grid(grid.rows, lowered), 3),
+        "out_coef": wall_ms(lambda: extract_linear_out(
+            model._out, sp, model.nstates(), model.nouteqs(), NO_COVARIATES), 3),
+        "plan": wall_ms(lambda: plan_for(pt, model, data, sp, ems, dtype), 3),
+        "finalize": cuda_ms(finalize, 10),
+    }
+
+
+def phase_times(pt, workloads, ems, card: str) -> dict:
+    from pharmsol_tpu_torch.likelihood.matrix import _general_psi
+
+    times = {}
+    for dtype in (torch.float32, torch.float64):
+        pt.set_float_dtype(dtype)
+        for label, model, data, centre, S, t_build in workloads:
+            sp = jittered_support(centre, S, np.random.RandomState(SEED + 2), 0.2)
+            cells = len(data) * S
+            plan = plan_for(pt, model, data, sp, ems, dtype)
+            grid = model.lower(data.subjects())
+            lowered = ems.lower(model.resolve_output_label, model.nouteqs())
+            t = {
+                "kernel": cuda_ms(lambda: run_kernel(plan), 20),
+                "twin": cuda_ms(lambda: run_kernel(plan, plain=True), 3, 1),
+                "general": wall_ms(lambda: _general_psi(
+                    model, grid, sp, lowered, torch.device("cuda"), dtype), 3),
+                "end_to_end": wall_ms(lambda: pt.log_likelihood_matrix(
+                    model, data, sp, ems, device="cuda"), 5),
+            }
+            d = str(dtype)[6:]
+            for k, ms in t.items():
+                log(f"[4] {label} {d} {k:10s} {ms:10.3f} ms  "
+                    f"{cells / (ms * 1e-3):.4g} cells/s  ({card})")
+            parts = end_to_end_parts(pt, model, data, sp, ems, dtype, plan)
+            log(f"[4] {label} {d} end_to_end parts (ms): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in parts.items()))
+            busy = (t["kernel"] + parts["finalize"]) / t["end_to_end"]
+            log(f"[4] {label} {d} kernel+finalize share of end_to_end "
+                f"{busy:.4f} ({card})")
+            times[(label, dtype)] = t
+    for label, model, data, centre, S, t_build in workloads:
+        model._lower_cache.clear()
+        t0 = time.perf_counter()
+        model.lower(data.subjects())
+        t_lower = (time.perf_counter() - t0) * 1e3
+        log(f"[4] {label} host: subject builder {t_build * 1e3:.1f} ms, "
+            f"lowering {t_lower:.1f} ms ({len(data)} subjects)")
+    return times
+
+
+def main() -> int:
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA device", file=sys.stderr)
+        return 2
+
+    import pharmsol_tpu_torch as pt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(SEED)
+    card = phase_environment()
+    phase_build()
+    torch.cuda.synchronize()
+    phase_kernels(pt, rng)
+    torch.cuda.synchronize()
+    ems = pt.AssayErrorModels().add(
+        0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    workloads = slice_workloads(pt, rng)
+    launches = phase_slice(pt, rng, workloads, ems)
+    torch.cuda.synchronize()
+    errs = phase_kernel_at_slice(pt, workloads, ems)
+    torch.cuda.synchronize()
+    times = phase_times(pt, workloads, ems, card)
+    torch.cuda.synchronize()
+
+    main_label = workloads[0][0]
+    t32 = times[(main_label, torch.float32)]
+    t64 = times[(main_label, torch.float64)]
+    record = dict(
+        KERNEL_RECORD,
+        launches=launches,
+        max_abs_err=errs[(main_label, torch.float64)],
+        max_abs_err_f32=errs[(main_label, torch.float32)],
+        ms=t32["kernel"],
+        plain_ms=t32["twin"],
+        ms_f64=t64["kernel"],
+        plain_ms_f64=t64["twin"],
+        shape=main_label,
+    )
+    print(json.dumps({"kernels": [record]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

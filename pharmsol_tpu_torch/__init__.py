@@ -1,0 +1,61 @@
+"""pharmsol_tpu_torch: the PyTorch/CUDA port of pharmsol-tpu.
+
+A second package beside the JAX package ``pharmsol_tpu`` (the reference it is
+held against). This first slice ports the population log-likelihood matrix
+("psi") of the closed-form models: the data layer, event-grid lowering, the
+12 analytical kernels, the general psi engine, and the fused psi path, whose
+kernel is hand-written CUDA for Hopper (``csrc/fused_psi.cu``).
+
+The device is explicit: ``config.set_device`` / ``device=`` (default
+``"cpu"``). The working dtype defaults to float64 everywhere.
+"""
+
+from . import config  # noqa: F401
+from .config import device, float_dtype, set_device, set_float_dtype  # noqa: F401
+from .data.builder import SubjectBuilder  # noqa: F401
+from .data.covariate import Covariate, Covariates  # noqa: F401
+from .data.error_model import (  # noqa: F401
+    AssayErrorModel,
+    AssayErrorModels,
+    ErrorPoly,
+    Factor,
+)
+from .data.event import (  # noqa: F401
+    Bolus,
+    Censor,
+    Infusion,
+    InputLabel,
+    Observation,
+    OutputLabel,
+)
+from .data.structs import Data, Occasion, Subject  # noqa: F401
+from .errors import PharmsolError  # noqa: F401
+from .metadata import (  # noqa: F401
+    ModelKind,
+    ModelMetadata,
+    Route,
+    RouteKind,
+    ValidatedModelMetadata,
+)
+from .models.equation import Analytical, EquationBase  # noqa: F401
+from .engine import analytical as kernels  # noqa: F401
+from .engine.analytical import (  # noqa: F401
+    one_compartment,
+    one_compartment_cl,
+    one_compartment_cl_with_absorption,
+    one_compartment_with_absorption,
+    three_compartments,
+    three_compartments_cl,
+    three_compartments_cl_with_absorption,
+    three_compartments_with_absorption,
+    two_compartments,
+    two_compartments_cl,
+    two_compartments_cl_with_absorption,
+    two_compartments_with_absorption,
+)
+from .likelihood.matrix import (  # noqa: F401
+    last_engine_decision,
+    log_likelihood_matrix,
+)
+
+__version__ = "0.1.0"

@@ -1,0 +1,73 @@
+"""Carry state across from the JAX package, so both compute on equal inputs.
+
+Duck-typed: nothing here imports jax or ``pharmsol_tpu``. Events are told
+apart by their class names, error models by their public attributes.
+Support points are the same numpy ``[S, n_params]`` array in both packages.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .config import float_dtype, resolve_device
+from .data.covariate import Covariate, Covariates
+from .data.error_model import AssayErrorModel, AssayErrorModels, ErrorPoly, Factor
+from .data.event import Bolus, Censor, Infusion, Observation
+from .data.structs import Data, Occasion, Subject
+from .engine.grid import OccasionArrays, to_tensors
+
+
+def _event_from_reference(e):
+    name = type(e).__name__
+    if name == "Bolus":
+        return Bolus(float(e.time), float(e.amount), str(e.input), e.occasion)
+    if name == "Infusion":
+        return Infusion(float(e.time), float(e.amount), str(e.input),
+                        float(e.duration), e.occasion)
+    if name == "Observation":
+        return Observation(
+            float(e.time), None if e.value is None else float(e.value),
+            str(e.outeq), e.errorpoly, e.occasion, Censor(e.censoring.value),
+        )
+    raise TypeError(f"not an event of the JAX package: {e!r}")
+
+
+def _occasion_from_reference(occ) -> Occasion:
+    out = Occasion(int(occ.index))
+    out.events = [_event_from_reference(e) for e in occ.events]
+    out.sort()
+    covs = Covariates()
+    for name, cov in occ.covariates.items():
+        covs.add_covariate(
+            name, Covariate(cov.name, cov.fixed, cov.observations()))
+    out.covariates = covs
+    out._version += 1
+    return out
+
+
+def data_from_reference(data) -> Data:
+    """The port's Data for a JAX package ``Data`` (or list of Subjects)."""
+    subjects = data.subjects() if hasattr(data, "subjects") else list(data)
+    return Data([
+        Subject(s.id, [_occasion_from_reference(o) for o in s.occasions()])
+        for s in subjects
+    ])
+
+
+def error_models_from_reference(ems) -> AssayErrorModels:
+    """The port's AssayErrorModels for a JAX package ``AssayErrorModels``."""
+    out = AssayErrorModels()
+    for label, m in ems.items():
+        fp = m.factor_param
+        factor = None if fp is None else Factor(float(fp.value), bool(fp.fixed))
+        poly = None if m.poly is None else ErrorPoly(*m.poly.coefficients())
+        out.add(label, AssayErrorModel(int(m.kind), factor, poly))
+    return out
+
+
+def rows_from_reference(rows, device=None, dtype=None) -> OccasionArrays:
+    """The JAX package's stacked OccasionArrays (numpy or jax arrays) as the
+    port's OccasionArrays of tensors on ``device`` in ``dtype``."""
+    host = OccasionArrays(*(np.asarray(getattr(rows, f))
+                            for f in OccasionArrays._fields))
+    return to_tensors(host, resolve_device(device), dtype or float_dtype())

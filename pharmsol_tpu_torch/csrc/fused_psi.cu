@@ -1,0 +1,410 @@
+// Fused population psi for the closed-form PK structures, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel pharmsol_tpu/ops/pallas_psi.py::psi_oral
+// (_make_kernel, base tier: infusions, censoring, several outputs, output
+// biases; all 12 structures). Plain PyTorch twin:
+// pharmsol_tpu_torch/ops/fused_psi.py::psi_analytical_plain.
+//
+// Layout. One thread per (row, support) cell. threadIdx.x runs along the
+// supports, so the parameter rows [n_params, S], the output coefficients
+// [n_out, n_states, S] and the psi writes [R, S] are coalesced, and the 32
+// threads of a warp share one row: their reads of the row's segment streams
+// [R, M] are broadcasts. Blocks stride over rows in y; the kernel masks the
+// ragged support edge itself. No padding of R, S or M is needed, and M has
+// no limit.
+//
+// Per cell: prepare the support point once (CL remap, 2-cmt eigenvalues,
+// the 3-cmt cubic with acos, which Mosaic lacked), then for every segment
+// 1. add the observation term, read before the dose;
+// 2. add the bolus to the dose state (padded slots carry 0);
+// 3. propagate the state, only where dt > 0.
+// Censored terms use the exact log of the normal CDF through erfcx/erfc.
+//
+// What bounds it. Arithmetic issue: per cell and segment (2-cmt oral) three
+// exponentials, a logarithm and a division beside ~40 fused multiply-adds,
+// about 85 instructions; at 16384 x 512 with 10 segments that is ~7e9
+// instructions against ~3.3e13 FP32 lane-instructions/s on 132 SMs.
+// Memory is minor: 4 bytes of psi written per cell, and stream bytes that the
+// warp shares. In float64, exp and log are software routines on the FP64
+// pipes, which bound it. This first version is simple and correct: each
+// thread holds its state in registers and reads coefficients through the
+// cache; nothing is hoisted per row (log sigma), there is no shared memory
+// staging, no TMA and no tuning of the block shape yet.
+//
+// Build (plain C interface, loaded with ctypes):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+//        -Xcompiler -fPIC -o libfused_psi.so fused_psi.cu
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+template <typename T>
+struct Fn;
+
+template <>
+struct Fn<float> {
+  static __device__ __forceinline__ float exp(float x) { return expf(x); }
+  static __device__ __forceinline__ float log(float x) { return logf(x); }
+  static __device__ __forceinline__ float log1p(float x) { return log1pf(x); }
+  static __device__ __forceinline__ float erfc(float x) { return erfcf(x); }
+  static __device__ __forceinline__ float erfcx(float x) { return erfcxf(x); }
+  static __device__ __forceinline__ float sqrt(float x) { return sqrtf(x); }
+  static __device__ __forceinline__ float acos(float x) { return acosf(x); }
+  static __device__ __forceinline__ float cos(float x) { return cosf(x); }
+};
+
+template <>
+struct Fn<double> {
+  static __device__ __forceinline__ double exp(double x) { return ::exp(x); }
+  static __device__ __forceinline__ double log(double x) { return ::log(x); }
+  static __device__ __forceinline__ double log1p(double x) { return ::log1p(x); }
+  static __device__ __forceinline__ double erfc(double x) { return ::erfc(x); }
+  static __device__ __forceinline__ double erfcx(double x) { return ::erfcx(x); }
+  static __device__ __forceinline__ double sqrt(double x) { return ::sqrt(x); }
+  static __device__ __forceinline__ double acos(double x) { return ::acos(x); }
+  static __device__ __forceinline__ double cos(double x) { return ::cos(x); }
+};
+
+// log Phi(x), exact: the left tail through the scaled complementary error
+// function, the right side through log1p.
+template <typename T>
+__device__ __forceinline__ T log_ndtr(T x) {
+  const T inv_sqrt2 = T(0.70710678118654752440);
+  if (x < T(0)) {
+    return Fn<T>::log(T(0.5) * Fn<T>::erfcx(-x * inv_sqrt2)) - T(0.5) * x * x;
+  }
+  return Fn<T>::log1p(T(-0.5) * Fn<T>::erfc(x * inv_sqrt2));
+}
+
+template <typename T>
+__device__ __forceinline__ T clampv(T x, T lo, T hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// Per-cell model: NCMT compartments, ORAL adds a depot (state 0), CL takes
+// the clearance parameterization. States: [depot,] central, peripherals.
+template <typename T, int NCMT, bool ORAL, bool CL>
+struct Model {
+  static constexpr int NS = NCMT + (ORAL ? 1 : 0);
+  static constexpr int NP = (NCMT == 1 ? (CL ? 2 : 1)
+                             : NCMT == 2 ? (CL ? 4 : 3)
+                                         : (CL ? 6 : 5)) + (ORAL ? 1 : 0);
+  // micro constants
+  T ka, k[5];
+  // prepared quantities
+  T l[3], inv_denom, inv_ka_l[3], inv_ke, ss2, ss3, ratio;
+  T P[3][9];
+
+  // raw: the support's leading NP columns; CL columns are remapped to the
+  // micro constants exactly as the *_cl_models.rs reparameterizations
+  __device__ __forceinline__ void prepare(const T* raw) {
+    if (NCMT == 1) {
+      // [ke] | [cl, v] | [ka, ke] | [ka, cl, v]
+      const int o = ORAL ? 1 : 0;
+      ka = ORAL ? raw[0] : T(0);
+      k[0] = CL ? raw[o] / raw[o + 1] : raw[o];
+      inv_ke = T(1) / k[0];
+      ratio = ORAL ? ka / (ka - k[0]) : T(0);
+    } else if (NCMT == 2) {
+      // k = [ke, kcp, kpc] from [ke, kcp, kpc] | [cl, q, vc, vp] |
+      // [ke, ka, kcp, kpc] | [ka, cl, q, vc, vp]
+      if (!ORAL && !CL) {
+        k[0] = raw[0]; k[1] = raw[1]; k[2] = raw[2];
+      } else if (!ORAL && CL) {
+        k[0] = raw[0] / raw[2]; k[1] = raw[1] / raw[2]; k[2] = raw[1] / raw[3];
+      } else if (!CL) {
+        k[0] = raw[0]; ka = raw[1]; k[1] = raw[2]; k[2] = raw[3];
+      } else {
+        ka = raw[0];
+        k[0] = raw[1] / raw[3]; k[1] = raw[2] / raw[3]; k[2] = raw[2] / raw[4];
+      }
+      T ke = k[0], kcp = k[1], kpc = k[2];
+      T sum = ke + kcp + kpc;
+      T disc = sum * sum - T(4) * ke * kpc;
+      T sq = Fn<T>::sqrt(disc > T(0) ? disc : T(0));
+      l[0] = (sum + sq) * T(0.5);
+      l[1] = (sum - sq) * T(0.5);
+      inv_denom = T(1) / (l[0] - l[1]);
+      inv_ke = T(1) / ke;
+      ss2 = kcp / (ke * kpc);
+      if (ORAL) {
+        inv_ka_l[0] = T(1) / (ka - l[0]);
+        inv_ka_l[1] = T(1) / (ka - l[1]);
+      }
+    } else {
+      // k = [k10, k12, k13, k21, k31] from the same columns, or
+      // [cl, q1, q2, vc, vp1, vp2]; oral structures lead with ka
+      const int o = ORAL ? 1 : 0;
+      ka = ORAL ? raw[0] : T(0);
+      if (CL) {
+        T cl = raw[o], q1 = raw[o + 1], q2 = raw[o + 2];
+        T vc = raw[o + 3], vp1 = raw[o + 4], vp2 = raw[o + 5];
+        k[0] = cl / vc; k[1] = q1 / vc; k[2] = q2 / vc;
+        k[3] = q1 / vp1; k[4] = q2 / vp2;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 5; ++i) k[i] = raw[o + i];
+      }
+      T k10 = k[0], k12 = k[1], k13 = k[2], k21 = k[3], k31 = k[4];
+      // decay constants: trigonometric solution of the monic cubic
+      T A = k10 + k12 + k13 + k21 + k31;
+      T B = k10 * k21 + k10 * k31 + k12 * k31 + k13 * k21 + k21 * k31;
+      T C = k10 * k21 * k31;
+      T p = B - A * A / T(3);
+      T q = T(-2) * A * A * A / T(27) + A * B / T(3) - C;
+      T mp3 = -p / T(3);
+      mp3 = mp3 > T(1e-30) ? mp3 : T(1e-30);
+      T rt = Fn<T>::sqrt(mp3);
+      T pm = p < T(-1e-30) ? p : T(-1e-30);
+      T arg = clampv(T(3) * q / (T(2) * pm) / rt, T(-1), T(1));
+      T phi = Fn<T>::acos(arg) / T(3);
+      const T two_pi_3 = T(2.0943951023931954923);
+      l[0] = T(2) * rt * Fn<T>::cos(phi) + A / T(3);
+      l[1] = T(2) * rt * Fn<T>::cos(phi - two_pi_3) + A / T(3);
+      l[2] = T(2) * rt * Fn<T>::cos(phi - T(2) * two_pi_3) + A / T(3);
+      // Lagrange spectral projectors of the rate matrix
+      T a11 = -(k10 + k12 + k13);
+      T m11 = a11 * a11 + k21 * k12 + k31 * k13;
+      T m12 = k21 * (a11 - k21);
+      T m13 = k31 * (a11 - k31);
+      T m21 = k12 * (a11 - k21);
+      T m22 = k12 * k21 + k21 * k21;
+      T m23 = k12 * k31;
+      T m31 = k13 * (a11 - k31);
+      T m32 = k13 * k21;
+      T m33 = k13 * k31 + k31 * k31;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        T lk = l[j], lj = l[(j + 1) % 3], ll = l[(j + 2) % 3];
+        T s = lj + ll, pr = lj * ll;
+        T invd = T(1) / ((lj - lk) * (ll - lk));
+        P[j][0] = (m11 + s * a11 + pr) * invd;
+        P[j][1] = (m12 + s * k21) * invd;
+        P[j][2] = (m13 + s * k31) * invd;
+        P[j][3] = (m21 + s * k12) * invd;
+        P[j][4] = (m22 + s * (-k21) + pr) * invd;
+        P[j][5] = m23 * invd;
+        P[j][6] = (m31 + s * k13) * invd;
+        P[j][7] = m32 * invd;
+        P[j][8] = (m33 + s * (-k31) + pr) * invd;
+        if (ORAL) inv_ka_l[j] = T(1) / (ka - lk);
+      }
+      inv_ke = T(1) / k10;
+      ss2 = k12 / (k10 * k21);
+      ss3 = k13 / (k10 * k31);
+    }
+  }
+
+  // advance x over dt (> 0) with infusion rate `rate` into central
+  __device__ __forceinline__ void propagate(T* x, T dt, T rate, bool has_inf) const {
+    if (NCMT == 1) {
+      T ke = k[0];
+      T eke = Fn<T>::exp(-ke * dt);
+      if (!ORAL) {
+        if (has_inf) {
+          T ss = rate * inv_ke;
+          x[0] = ss + (x[0] - ss) * eke;
+        } else {
+          x[0] = x[0] * eke;
+        }
+      } else {
+        T eka = Fn<T>::exp(-ka * dt);
+        T nx1 = x[1] * eke + ratio * x[0] * (eke - eka);
+        if (has_inf) nx1 = nx1 + rate * inv_ke * (T(1) - eke);
+        x[0] = x[0] * eka;
+        x[1] = nx1;
+      }
+    } else if (NCMT == 2) {
+      constexpr int c = ORAL ? 1 : 0;
+      T ke = k[0], kcp = k[1], kpc = k[2], l1 = l[0], l2 = l[1];
+      T e1 = Fn<T>::exp(-l1 * dt);
+      T e2 = Fn<T>::exp(-l2 * dt);
+      T ss1 = T(0), ssp = T(0);
+      T y1 = x[c], y2 = x[c + 1];
+      if (has_inf) {
+        ss1 = rate * inv_ke;
+        ssp = rate * ss2;
+        y1 = y1 - ss1;
+        y2 = y2 - ssp;
+      }
+      T hom0 = ((l1 - kpc) * e1 + (kpc - l2) * e2) * y1 + kpc * (e2 - e1) * y2;
+      T hom1 = kcp * (e2 - e1) * y1 + ((l1 - ke - kcp) * e1 + (ke + kcp - l2) * e2) * y2;
+      T nx1, nx2;
+      if (ORAL) {
+        T eka = Fn<T>::exp(-ka * dt);
+        T abs0 = (l1 - kpc) * inv_ka_l[0] * (e1 - eka) + (kpc - l2) * inv_ka_l[1] * (e2 - eka);
+        T abs1 = kcp * (inv_ka_l[1] * (e2 - eka) - inv_ka_l[0] * (e1 - eka));
+        T scale = ka * x[0] * inv_denom;
+        nx1 = hom0 * inv_denom + abs0 * scale;
+        nx2 = hom1 * inv_denom + abs1 * scale;
+        x[0] = x[0] * eka;
+      } else {
+        nx1 = hom0 * inv_denom;
+        nx2 = hom1 * inv_denom;
+      }
+      if (has_inf) {
+        nx1 = nx1 + ss1;
+        nx2 = nx2 + ssp;
+      }
+      x[c] = nx1;
+      x[c + 1] = nx2;
+    } else {
+      constexpr int c = ORAL ? 1 : 0;
+      T y1 = x[c], y2 = x[c + 1], y3 = x[c + 2];
+      T nx1 = T(0), nx2 = T(0), nx3 = T(0);
+      if (has_inf) {
+        T ss1 = rate * inv_ke, ssa = rate * ss2, ssb = rate * ss3;
+        y1 = y1 - ss1; y2 = y2 - ssa; y3 = y3 - ssb;
+        nx1 = ss1; nx2 = ssa; nx3 = ssb;
+      }
+      T eka = ORAL ? Fn<T>::exp(-ka * dt) : T(0);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        T ek = Fn<T>::exp(-l[j] * dt);
+        nx1 = nx1 + ek * (P[j][0] * y1 + P[j][1] * y2 + P[j][2] * y3);
+        nx2 = nx2 + ek * (P[j][3] * y1 + P[j][4] * y2 + P[j][5] * y3);
+        nx3 = nx3 + ek * (P[j][6] * y1 + P[j][7] * y2 + P[j][8] * y3);
+        if (ORAL) {
+          // depot forcing: ka*x0 * (ek - eka)/(ka - lk) * (P @ e1)
+          T f = ka * x[0] * (ek - eka) * inv_ka_l[j];
+          nx1 = nx1 + f * P[j][0];
+          nx2 = nx2 + f * P[j][3];
+          nx3 = nx3 + f * P[j][6];
+        }
+      }
+      if (ORAL) x[0] = x[0] * eka;
+      x[c] = nx1;
+      x[c + 1] = nx2;
+      x[c + 2] = nx3;
+    }
+  }
+};
+
+// Structure code (pharmsol_tpu_torch/ops/fused_psi.py STRUCTURES order):
+// code / 4 = compartments - 1, (code / 2) % 2 = CL, code % 2 = absorption.
+template <typename T, int CODE>
+__global__ void __launch_bounds__(256) fused_psi_kernel(
+    const T* __restrict__ seg_dt, const T* __restrict__ seg_bolus,
+    const T* __restrict__ seg_rate, const T* __restrict__ obs_mask,
+    const T* __restrict__ obs_value, const T* __restrict__ obs_sigma,
+    const T* __restrict__ obs_cens, const T* __restrict__ obs_outeq,
+    const T* __restrict__ params, const T* __restrict__ coef,
+    const T* __restrict__ bias, T* __restrict__ out,
+    int R, int S, int M, int n_out) {
+  using Mdl = Model<T, CODE / 4 + 1, (CODE % 2) == 1, ((CODE / 2) % 2) == 1>;
+  constexpr int NS = Mdl::NS;
+  constexpr int NP = Mdl::NP;
+  const T LOG_2PI = T(1.8378770664093454836);
+
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= S) return;
+  const bool has_inf = seg_rate != nullptr;
+  const bool has_cens = obs_cens != nullptr;
+
+  T raw[NP];
+#pragma unroll
+  for (int j = 0; j < NP; ++j) raw[j] = params[(size_t)j * S + s];
+  Mdl mdl;
+  mdl.prepare(raw);
+
+  for (int r = blockIdx.y * blockDim.y + threadIdx.y; r < R;
+       r += gridDim.y * blockDim.y) {
+    T x[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) x[i] = T(0);
+    T ll = T(0);
+    const size_t row = (size_t)r * M;
+    for (int m = 0; m < M; ++m) {
+      const size_t i = row + m;
+      // 1. observation before dose: y_k = C_k . x (+ b_k)
+      if (obs_mask[i] > T(0)) {
+        int k = n_out > 1 ? (int)obs_outeq[i] : 0;
+        T pred = T(0);
+        if (k >= 0 && k < n_out) {
+          const T* ck = coef + (size_t)k * NS * S + s;
+          pred = ck[0] * x[0];
+#pragma unroll
+          for (int j = 1; j < NS; ++j) pred = pred + ck[(size_t)j * S] * x[j];
+          if (bias != nullptr) pred = pred + bias[(size_t)k * S + s];
+        }
+        const T sig = obs_sigma[i];
+        const T z = (obs_value[i] - pred) / sig;
+        const T sc = has_cens ? obs_cens[i] : T(0);
+        ll += (sc == T(0))
+                  ? T(-0.5) * LOG_2PI - Fn<T>::log(sig) - T(0.5) * z * z
+                  : log_ndtr(sc * z);
+      }
+      // 2. the bolus (0 on padded slots) into the dose state
+      x[0] = x[0] + seg_bolus[i];
+      // 3. propagate over the segment's span
+      const T dt = seg_dt[i];
+      if (dt > T(0)) mdl.propagate(x, dt, has_inf ? seg_rate[i] : T(0), has_inf);
+    }
+    out[(size_t)r * S + s] = ll;
+  }
+}
+
+template <typename T, int CODE>
+cudaError_t launch(const void* const* p, void* out, int R, int S, int M,
+                   int n_out, cudaStream_t stream) {
+  if (R <= 0 || S <= 0) return cudaSuccess;
+  const dim3 block(128, 2);
+  const unsigned gx = (unsigned)((S + block.x - 1) / block.x);
+  unsigned gy = (unsigned)((R + block.y - 1) / block.y);
+  if (gy > 65535u) gy = 65535u;
+  fused_psi_kernel<T, CODE><<<dim3(gx, gy), block, 0, stream>>>(
+      (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
+      (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7],
+      (const T*)p[8], (const T*)p[9], (const T*)p[10], (T*)out, R, S, M,
+      n_out);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(int code, const void* const* p, void* out, int R, int S,
+                     int M, int n_out, cudaStream_t st) {
+  switch (code) {
+    case 0: return launch<T, 0>(p, out, R, S, M, n_out, st);
+    case 1: return launch<T, 1>(p, out, R, S, M, n_out, st);
+    case 2: return launch<T, 2>(p, out, R, S, M, n_out, st);
+    case 3: return launch<T, 3>(p, out, R, S, M, n_out, st);
+    case 4: return launch<T, 4>(p, out, R, S, M, n_out, st);
+    case 5: return launch<T, 5>(p, out, R, S, M, n_out, st);
+    case 6: return launch<T, 6>(p, out, R, S, M, n_out, st);
+    case 7: return launch<T, 7>(p, out, R, S, M, n_out, st);
+    case 8: return launch<T, 8>(p, out, R, S, M, n_out, st);
+    case 9: return launch<T, 9>(p, out, R, S, M, n_out, st);
+    case 10: return launch<T, 10>(p, out, R, S, M, n_out, st);
+    case 11: return launch<T, 11>(p, out, R, S, M, n_out, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// Launch on `stream`. Pointers: seg_dt, seg_bolus, seg_rate (or null),
+// obs_mask, obs_value, obs_sigma, obs_cens (or null), obs_outeq (or null when
+// n_out == 1): [R, M]; params [n_params, S]; coef [n_out, n_states, S];
+// bias [n_out, S] (or null); out [R, S]. All float (is_f64 == 0) or double.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int fused_psi_launch(int is_f64, int code, const void* seg_dt,
+                                const void* seg_bolus, const void* seg_rate,
+                                const void* obs_mask, const void* obs_value,
+                                const void* obs_sigma, const void* obs_cens,
+                                const void* obs_outeq, const void* params,
+                                const void* coef, const void* bias, void* out,
+                                int R, int S, int M, int n_out, void* stream) {
+  const void* p[11] = {seg_dt, seg_bolus, seg_rate, obs_mask, obs_value,
+                       obs_sigma, obs_cens, obs_outeq, params, coef, bias};
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = is_f64 ? dispatch<double>(code, p, out, R, S, M, n_out, st)
+                           : dispatch<float>(code, p, out, R, S, M, n_out, st);
+  return (int)err;
+}
+
+extern "C" const char* fused_psi_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,0 +1,178 @@
+"""The segment march shared by the general psi engine.
+
+One Python loop over the sorted breakpoint stream takes the place of the JAX
+package's ``lax.scan`` (itself the reference's per-subject event loop,
+equation/mod.rs:480-516). Every step works on the whole population at once:
+states are ``[S, R, nstates]`` tensors over supports S and occasion rows R.
+
+- the observation at a breakpoint reads the state *before* its bolus
+  (observation-before-dose ordering at equal times);
+- the bolus payload is applied through the model's ``apply_bolus`` hook
+  (analytical: ``x[input] += amount``);
+- the segment is then propagated by the model's closed form.
+
+Model closures (``out``, the kernel, its prepared split) are written for one
+(state, parameter) pair, as in the JAX package, and are evaluated here
+through ``torch.func.vmap`` over supports and rows.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+from torch.func import vmap
+
+from ..errors import PharmsolError
+from .grid import OccasionArrays, build_segments
+
+
+class ModelSpec(NamedTuple):
+    """The role decomposition an analytical model lowers to."""
+
+    nstates: int
+    ninput: int
+    nout: int
+    # propagate(x, p, dt, rateiv, t0, cov) -> x_next over one smooth segment
+    propagate: Callable
+    # out(x, p, t, cov) -> y[nout]
+    out: Callable
+    # apply_bolus(x, bvec[ninput], p, t, rateiv, cov) -> x ; None -> state add
+    apply_bolus: Optional[Callable] = None
+    # hoisted-parameter path: prepare(p, cov) computes parameter-only
+    # quantities once (eigenvalues, ratios); propagate_prepared(aux, x, dt,
+    # rateiv, t0, cov) runs per segment with the dt-dependent work only.
+    prepare: Optional[Callable] = None
+    propagate_prepared: Optional[Callable] = None
+
+
+class NoCovariates:
+    """The ``cov`` argument of model closures while covariates are not
+    ported: reading one raises."""
+
+    def __call__(self, name, t=None):
+        raise PharmsolError(
+            f"covariate `{name}` read by a model closure: the PyTorch port "
+            "does not support covariates yet"
+        )
+
+    value = __call__
+
+
+NO_COVARIATES = NoCovariates()
+
+
+def default_apply_bolus(nstates: int):
+    """Analytical-state bolus: input index i adds into state i.
+
+    Parity: the V-state ``add_bolus`` impl used by Analytical models.
+    """
+
+    def apply(x, bvec, p, t, rateiv, cov):
+        pad = nstates - bvec.shape[0]
+        if pad > 0:
+            bvec = torch.cat([bvec, bvec.new_zeros(pad)])
+        elif pad < 0:
+            bvec = bvec[:nstates]
+        return x + bvec
+
+    return apply
+
+
+def simulate_occasion_ll(
+    spec: ModelSpec,
+    occ: OccasionArrays,
+    p: torch.Tensor,
+    em_kind,
+    em_factor,
+    em_poly,
+) -> torch.Tensor:
+    """Fused simulate + log-likelihood of every row at every support point.
+
+    ``occ``: OccasionArrays of tensors with a leading row axis R; ``p``:
+    support points [S, n_params]; ``em_*``: lowered error-model tensors.
+    Returns the per-row log-likelihood [S, R]. Math of the JAX package's
+    ``engine/sim.py::simulate_occasion_ll``: the per-observation
+    log-likelihood accumulates in the march, no state history is kept.
+    """
+    from ..likelihood.distributions import LOG_2PI
+    from ..likelihood.loglik import observation_sigmas
+
+    fd = p.dtype
+    cov = NO_COVARIATES
+    segs = build_segments(occ, spec.ninput)
+    R, M = segs.t.shape
+    S = p.shape[0]
+
+    # per-segment observation payload, scattered to sorted positions
+    sigma_obs, active_obs = observation_sigmas(occ, em_kind, em_factor, em_poly)
+    pos = segs.obs_pos
+    seg_sigma = torch.ones_like(segs.t).scatter(1, pos, sigma_obs)
+    seg_active = torch.zeros_like(segs.is_event).scatter(1, pos, active_obs)
+    seg_value = torch.zeros_like(segs.t).scatter(1, pos, occ.obs_value)
+    seg_cens = torch.zeros_like(segs.b_input).scatter(1, pos, occ.obs_cens)
+    seg_outeq = torch.zeros_like(segs.b_input).scatter(1, pos, occ.obs_outeq)
+
+    nout, ninput = spec.nout, spec.ninput
+
+    def out_one(x, pp, t):
+        y = spec.out(x, pp, t, cov)
+        if not isinstance(y, torch.Tensor):
+            y = torch.as_tensor(y, dtype=fd)
+        return y.to(fd).reshape(nout)
+
+    apply_bolus = spec.apply_bolus or default_apply_bolus(spec.nstates)
+
+    def bolus_one(x, bvec, pp, t, rateiv):
+        return apply_bolus(x, bvec, pp, t, rateiv, cov).to(fd)
+
+    # vmap over rows (inner) and supports (outer): x is [S, R, n], p [S, P],
+    # per-row quantities [R, ...]
+    out_b = vmap(vmap(out_one, in_dims=(0, None, 0)), in_dims=(0, 0, None))
+    bolus_b = vmap(vmap(bolus_one, in_dims=(0, 0, None, 0, 0)),
+                   in_dims=(0, None, 0, None, None))
+    # per-support propagation state: the prepared aux, else the parameters
+    if spec.prepare is not None:
+        aux = vmap(lambda pp: spec.prepare(pp, cov))(p)
+
+        def prop_one(a, x, dt, rateiv, t):
+            return spec.propagate_prepared(a, x, dt, rateiv, t, cov).to(fd)
+    else:
+        aux = p
+
+        def prop_one(pp, x, dt, rateiv, t):
+            return spec.propagate(x, pp, dt, rateiv, t, cov).to(fd)
+
+    prop_b = vmap(vmap(prop_one, in_dims=(None, 0, 0, 0, 0)),
+                  in_dims=(0, 0, None, None, None))
+
+    x = torch.zeros((S, R, spec.nstates), dtype=fd, device=p.device)
+    ll = torch.zeros((S, R), dtype=fd, device=p.device)
+    zero = torch.zeros((), dtype=fd, device=p.device)
+    for m in range(M):
+        t = segs.t[:, m]
+        dt = segs.dt[:, m]
+        rateiv = segs.rateiv[:, m]
+        # observation before bolus (pre-dose state)
+        y_all = out_b(x, p, t)  # [S, R, nout]
+        idx = seg_outeq[:, m].view(1, R, 1).expand(S, R, 1)
+        pred = torch.gather(y_all, 2, idx)[..., 0]
+        sigma = seg_sigma[:, m]
+        z = (seg_value[:, m] - pred) / sigma
+        ll_none = -0.5 * LOG_2PI - torch.log(sigma) - 0.5 * z * z
+        cens = seg_cens[:, m]
+        ll_obs = torch.where(
+            cens == 1, torch.special.log_ndtr(z),
+            torch.where(cens == 2, torch.special.log_ndtr(-z), ll_none),
+        )
+        ll = ll + torch.where(seg_active[:, m], ll_obs, zero)
+
+        b_amt = segs.b_amt[:, m]
+        bvec = torch.nn.functional.one_hot(segs.b_input[:, m], ninput).to(fd)
+        bvec = bvec * b_amt[:, None]
+        x_dosed = bolus_b(x, bvec, p, t, rateiv)
+        x = torch.where((b_amt != 0.0).view(1, R, 1), x_dosed, x)
+
+        x_prop = prop_b(aux, x, dt, rateiv, t)
+        x = torch.where((dt > 0.0).view(1, R, 1), x_prop, x)
+    return ll

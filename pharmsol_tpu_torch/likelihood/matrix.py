@@ -1,0 +1,181 @@
+"""Population likelihood: the psi matrix (subjects x support points).
+
+Parity with the reference's likelihood/matrix.rs and the JAX package's
+``likelihood/matrix.py``: ``log_likelihood_matrix(eq, data, support_points,
+error_models)`` gives the (n_subjects, n_support_points) log-likelihood
+with observation-based sigma.
+
+Two engines compute it:
+
+- ``general``: the segment march of ``engine/sim.py`` over every (support,
+  occasion row) pair as batched tensors, then a sum of occasion rows into
+  subjects. It takes any Analytical model the port supports. The JAX
+  package calls its counterpart ``xla``.
+- ``fused``: the hand-written CUDA kernel (``ops/fused_psi.py``, its plain
+  twin on the CPU) through ``plans/analytical.py::_FusedPsiPlan``. The JAX
+  package calls its counterpart ``pallas``.
+
+``engine='auto'`` takes ``fused`` on a CUDA device for every model the
+fused plan accepts, and ``general`` on the CPU. A model outside the plan's
+scope goes to ``general`` and the reason is kept
+(:func:`last_engine_decision`). No engine is ever switched because a kernel
+failed to build or launch: that error propagates.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import float_dtype, resolve_device
+from ..data.error_model import AssayErrorModels
+from ..data.structs import Data
+from ..errors import PharmsolError
+
+
+def _as_data(subjects) -> Data:
+    if isinstance(subjects, Data):
+        return subjects
+    return Data(list(subjects))
+
+
+def check_error_model_coverage(grid, lowered) -> None:
+    """Raise when a valued observation's outeq has error model None.
+
+    Parity: the reference fails likelihood computation with
+    ErrorModelError::NoneErrorModel (error_model.rs:683); the batched path
+    would otherwise silently contribute zero.
+    """
+    kind = np.asarray(lowered.kind)
+    outeq = np.asarray(grid.rows.obs_outeq)
+    active = np.asarray(grid.rows.obs_valid) & np.asarray(grid.rows.obs_has_value)
+    used = np.unique(outeq[active]) if active.any() else np.array([], dtype=int)
+    missing = [int(o) for o in used if kind[int(o)] == 0]
+    if missing:
+        raise PharmsolError(
+            f"output equation(s) {missing} have observations but error model "
+            f"None (define an assay error model for every observed output)"
+        )
+
+
+def last_engine_decision(equation) -> Optional[dict]:
+    """The engine choice made by the last ``engine='auto'`` psi call.
+
+    Returns ``{"engine": "fused"|"general", "reason": str}`` or None when
+    the equation has not been through an auto-engined
+    :func:`log_likelihood_matrix` yet.
+    """
+    return getattr(equation, "_last_engine_decision", None)
+
+
+def _auto_engine(device: torch.device) -> tuple:
+    """Pick the psi engine for ``engine='auto'``: (engine, reason)."""
+    if device.type == "cuda":
+        return "fused", "CUDA device: the fused kernel takes every model its plan accepts"
+    return "general", (
+        "CPU device: the general engine (the fused kernel's plain twin "
+        "is for parity tests)"
+    )
+
+
+def _device_rows(grid, device, dtype):
+    """The grid's rows as tensors on ``device``, cached on the grid."""
+    from ..engine.grid import to_tensors
+
+    cache = grid.__dict__.setdefault("_device_rows", {})
+    key = (str(device), dtype)
+    rows = cache.get(key)
+    if rows is None:
+        rows = cache[key] = to_tensors(grid.rows, device, dtype)
+    return rows
+
+
+def _general_psi(equation, grid, sp, lowered, device, dtype) -> torch.Tensor:
+    """General engine: batched segment march, then rows -> subjects."""
+    from ..engine.sim import simulate_occasion_ll
+
+    rows = _device_rows(grid, device, dtype)
+    p = torch.as_tensor(sp).to(device=device, dtype=dtype)
+    kind = torch.as_tensor(np.asarray(lowered.kind, dtype=np.int64), device=device)
+    factor = torch.as_tensor(lowered.factor).to(device=device, dtype=dtype)
+    poly = torch.as_tensor(lowered.poly).to(device=device, dtype=dtype)
+    ll = simulate_occasion_ll(equation.spec, rows, p, kind, factor, poly)  # [S, R]
+    row_subject = torch.as_tensor(
+        np.asarray(grid.row_subject, dtype=np.int64), device=device)
+    psi = torch.zeros((grid.n_subjects, sp.shape[0]), dtype=dtype, device=device)
+    return psi.index_add_(0, row_subject, ll.t())
+
+
+def log_likelihood_matrix(
+    equation,
+    subjects,
+    support_points,
+    error_models: AssayErrorModels,
+    on_error: str = "neg_inf",
+    engine: str = "auto",
+    device=None,
+) -> torch.Tensor:
+    """Log-likelihood of every subject at every support point.
+
+    ``support_points``: [n_support, n_params] dense in model order (numpy or
+    a tensor). Returns psi [n_subjects, n_support] as a tensor of the working
+    dtype (:func:`~pharmsol_tpu_torch.config.float_dtype`) on ``device``
+    (default :func:`~pharmsol_tpu_torch.config.device`).
+
+    ``engine``: ``'auto'`` (default), ``'general'`` or ``'fused'`` (see the
+    module docstring). The fused kernel supports every built-in structure
+    with outputs linear in the state (support columns = kernel params, then
+    the out closure's parameters), bolus/infusion regimens into input 0,
+    censoring and errorpoly overrides.
+
+    Divergence note (as in the JAX package): the reference aborts the whole
+    matrix on a simulation error; here non-finite cells are mapped to -inf
+    (``on_error='neg_inf'``) or left as NaN (``on_error='nan'``).
+    """
+    dev = resolve_device(device)
+    dtype = float_dtype()
+    data = _as_data(subjects)
+    if isinstance(support_points, torch.Tensor):
+        support_points = support_points.detach().cpu().numpy()
+    sp = np.asarray(support_points, dtype=np.float64)
+    if sp.ndim != 2:
+        raise PharmsolError("support_points must be 2D [n_support, n_params]")
+    grid = equation.lower(data.subjects())
+    if grid.cov_names:
+        raise PharmsolError(
+            f"the PyTorch port does not support covariates yet (data carries "
+            f"{', '.join(grid.cov_names)})"
+        )
+    lowered = error_models.lower(equation.resolve_output_label, equation.nouteqs())
+    check_error_model_coverage(grid, lowered)
+
+    if engine not in ("auto", "general", "fused"):
+        raise PharmsolError(
+            f"unknown psi engine `{engine}` (auto, general or fused)"
+        )
+    plan = None
+    if engine == "auto":
+        from .plans.analytical import _FusedPsiPlan
+
+        engine, reason = _auto_engine(dev)
+        if engine == "fused":
+            try:
+                plan = _FusedPsiPlan(equation, grid, sp, lowered, dev, dtype)
+            except PharmsolError as e:
+                engine, reason = "general", f"fused plan rejected the model: {e}"
+        equation._last_engine_decision = {"engine": engine, "reason": reason}
+    elif engine == "fused":
+        from .plans.analytical import _FusedPsiPlan
+
+        plan = _FusedPsiPlan(equation, grid, sp, lowered, dev, dtype)
+
+    if plan is not None:
+        psi = plan.run()
+    else:
+        psi = _general_psi(equation, grid, sp, lowered, dev, dtype)
+    if on_error == "neg_inf":
+        psi = torch.where(torch.isfinite(psi), psi,
+                          torch.full_like(psi, -float("inf")))
+    return psi

@@ -1,0 +1,253 @@
+"""Equation families of the PyTorch port: Analytical.
+
+Public surface parity with the JAX package's ``models/equation.py`` (and the
+reference ``Equation`` trait, equation/mod.rs:377-577) for what the
+population psi path needs: the builder methods
+``with_nstates/with_ndrugs/with_nout/with_metadata``, label resolution, and
+the host lowering cache.
+
+Label resolution parity (equation/mod.rs:195-273): with metadata attached,
+route/output labels resolve by name (with ``input_<n>``/``outeq_<n>`` numeric
+aliases); without metadata, bare numeric labels become dense indices.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Sequence
+
+from ..data.structs import Subject
+from ..engine.grid import PopulationGrid, lower_population
+from ..engine.sim import ModelSpec, default_apply_bolus
+from ..errors import (
+    InputOutOfRangeError,
+    PharmsolError,
+    unknown_input_label,
+    unknown_output_label,
+)
+from ..metadata import ModelKind, ModelMetadata, RouteKind, ValidatedModelMetadata
+
+
+class EquationBase:
+    """Shared lowering and label machinery for the equation families."""
+
+    kind: str = "base"
+
+    def __init__(self, nstates: int = 5, ndrugs: int = 5, nout: int = 5):
+        self._nstates = nstates
+        self._ndrugs = ndrugs
+        self._nout = nout
+        self._metadata: Optional[ValidatedModelMetadata] = None
+        self._lower_cache: Dict[tuple, PopulationGrid] = {}
+        self._spec_cache: Optional[ModelSpec] = None
+
+    # -- builder API ----------------------------------------------------------
+    def with_nstates(self, nstates: int):
+        self._nstates = int(nstates)
+        self._invalidate()
+        return self
+
+    def with_ndrugs(self, ndrugs: int):
+        self._ndrugs = int(ndrugs)
+        self._invalidate()
+        return self
+
+    def with_nout(self, nout: int):
+        self._nout = int(nout)
+        self._invalidate()
+        return self
+
+    def with_metadata(self, metadata: ModelMetadata):
+        validated = (
+            metadata
+            if isinstance(metadata, ValidatedModelMetadata)
+            else metadata.validate_for(self._model_kind())
+        )
+        self._validate_metadata_dimensions(validated)
+        self._metadata = validated
+        self._invalidate()
+        return self
+
+    def _validate_metadata_dimensions(self, md: ValidatedModelMetadata) -> None:
+        if len(md.state_names) != self._nstates:
+            raise PharmsolError(
+                f"metadata declares {len(md.state_names)} states but model has "
+                f"{self._nstates}"
+            )
+        if md.route_input_count != self._ndrugs:
+            raise PharmsolError(
+                f"metadata declares {md.route_input_count} route inputs but model "
+                f"has {self._ndrugs}"
+            )
+        if len(md.output_names) != self._nout:
+            raise PharmsolError(
+                f"metadata declares {len(md.output_names)} outputs but model has "
+                f"{self._nout}"
+            )
+
+    def _invalidate(self):
+        self._lower_cache.clear()
+        self._spec_cache = None
+
+    def _model_kind(self) -> ModelKind:
+        raise NotImplementedError
+
+    # -- reference-parity accessors ---------------------------------------------
+    def metadata(self) -> Optional[ValidatedModelMetadata]:
+        return self._metadata
+
+    def nstates(self) -> int:
+        return self._nstates
+
+    def nouteqs(self) -> int:
+        return self._nout
+
+    def ndrugs(self) -> int:
+        return self._ndrugs
+
+    # -- label resolution (equation/mod.rs:195-245) -------------------------------
+    def resolve_input_label(self, label, kind: str) -> int:
+        label_s = str(label)
+        if self._metadata is not None:
+            rk = RouteKind.BOLUS if kind == "bolus" else RouteKind.INFUSION
+            route = self._metadata.route_for_label(label_s, rk)
+            if route is None:
+                other = RouteKind.INFUSION if rk is RouteKind.BOLUS else RouteKind.BOLUS
+                if self._metadata.route_for_label(label_s, other) is not None:
+                    raise PharmsolError(
+                        f"route `{label_s}` does not support {kind} dosing"
+                    )
+                raise unknown_input_label(label_s, self._metadata.route_labels())
+            idx = route.input_index
+        else:
+            if not label_s.isdigit():
+                raise unknown_input_label(label_s)
+            idx = int(label_s)
+        if idx >= self._ndrugs:
+            raise InputOutOfRangeError(idx, self._ndrugs)
+        return idx
+
+    def resolve_output_label(self, label) -> int:
+        label_s = str(label)
+        if self._metadata is not None:
+            idx = self._metadata.output_for_label(label_s)
+            if idx is None:
+                raise unknown_output_label(label_s, self._metadata.output_labels())
+            return idx
+        if not label_s.isdigit():
+            raise unknown_output_label(label_s)
+        idx = int(label_s)
+        if idx >= self._nout:
+            raise unknown_output_label(
+                label_s, [str(i) for i in range(self._nout)]
+            )
+        return idx
+
+    # -- lowering ------------------------------------------------------------------
+    def _cov_names(self, subjects: Sequence[Subject]) -> List[str]:
+        if self._metadata is not None and self._metadata.covariate_decls:
+            return self._metadata.covariate_names()
+        names = set()
+        for s in subjects:
+            for occ in s.occasions():
+                names.update(occ.covariates.names())
+        return sorted(names)
+
+    def lower(self, subjects: Sequence[Subject]) -> PopulationGrid:
+        """Host lowering of ``subjects``, cached by their content hashes."""
+        key = tuple(s.hash() for s in subjects)
+        grid = self._lower_cache.get(key)
+        if grid is None:
+            grid = lower_population(
+                subjects,
+                self.resolve_input_label,
+                self.resolve_output_label,
+                self._cov_names(subjects),
+            )
+            if len(self._lower_cache) > 64:
+                self._lower_cache.clear()
+            self._lower_cache[key] = grid
+        return grid
+
+    # -- spec ---------------------------------------------------------------------
+    def _build_spec(self) -> ModelSpec:
+        raise NotImplementedError
+
+    @property
+    def spec(self) -> ModelSpec:
+        if self._spec_cache is None:
+            self._spec_cache = self._build_spec()
+        return self._spec_cache
+
+
+class Analytical(EquationBase):
+    """Closed-form analytical equation family.
+
+    Parity: analytical/mod.rs and the JAX package's ``Analytical``.
+    ``eq(x, p, dt, rateiv, cov) -> x`` advances one smooth segment;
+    ``out(x, p, t, cov) -> y`` maps the state to the outputs.
+
+    Secondary (seq), lag, bioavailability (fa) and init equations are part of
+    the signature but not of the port yet: passing one raises.
+    """
+
+    kind = "analytical"
+
+    def __init__(
+        self,
+        eq: Callable,
+        seq_eq: Optional[Callable] = None,
+        lag: Optional[Callable] = None,
+        fa: Optional[Callable] = None,
+        init: Optional[Callable] = None,
+        out: Optional[Callable] = None,
+        nstates: int = 5,
+        ndrugs: int = 5,
+        nout: int = 5,
+    ):
+        unported = [name for name, fn in (("seq", seq_eq), ("lag", lag),
+                                          ("fa", fa), ("init", init))
+                    if fn is not None]
+        if unported:
+            raise PharmsolError(
+                f"the PyTorch port does not support {', '.join(unported)} "
+                "equations yet (use the JAX package pharmsol_tpu)"
+            )
+        super().__init__(nstates, ndrugs, nout)
+        self._eq = eq
+        self._out = out
+
+    def _model_kind(self) -> ModelKind:
+        return ModelKind.ANALYTICAL
+
+    def _build_spec(self) -> ModelSpec:
+        eq = self._eq
+
+        def propagate(x, p, dt, rateiv, t0, cov):
+            return eq(x, p, dt, rateiv, cov)
+
+        # built-in kernels use the hoisted prepare/apply split: eigen
+        # decompositions leave the segment march
+        prepare = propagate_prepared = None
+        from ..engine.analytical import PREPARED_BY_FN
+
+        pair = PREPARED_BY_FN.get(eq)
+        if pair is not None:
+            prep_fn, apply_fn = pair
+
+            def prepare(p, cov):
+                return prep_fn(p)
+
+            def propagate_prepared(aux, x, dt, rateiv, t0, cov):
+                return apply_fn(aux, x, dt, rateiv)
+
+        out = self._out or (lambda x, p, t, cov: x[: self._nout])
+        return ModelSpec(
+            nstates=self._nstates,
+            ninput=self._ndrugs,
+            nout=self._nout,
+            propagate=propagate,
+            out=out,
+            apply_bolus=default_apply_bolus(self._nstates),
+            prepare=prepare,
+            propagate_prepared=propagate_prepared,
+        )

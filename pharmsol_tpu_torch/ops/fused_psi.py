@@ -1,0 +1,810 @@
+"""Fused psi for the closed-form structures: CUDA kernel, plain twin, streams.
+
+The population log-likelihood matrix ("psi", rows x support points) of a
+closed-form PK model is one chain of scalar recurrences per (row, support)
+cell: prepare the support point's eigen quantities once, then for every
+segment add the observation term (read before the dose), add the bolus, and
+propagate the state over the segment's span.
+
+- :func:`psi_analytical` is the wrapper. On a CUDA tensor it launches the
+  hand-written kernel ``csrc/fused_psi.cu`` (built at first use by
+  :mod:`._build`) or raises; on a CPU tensor it runs the plain twin.
+- :func:`psi_analytical_plain` is that twin: the same math in plain PyTorch
+  on ``[R, S]`` tensors. The CPU tests hold it against the JAX package's
+  ``ops/pallas_psi.py::psi_oral``; ``chip_smoke.py`` holds the kernel
+  against it on the card.
+- :func:`streams_from_grid`, :func:`segment_schedule` and
+  :func:`extract_linear_out` build the kernel's inputs on the host, as in
+  the JAX package.
+
+The stream layout is the JAX ``psi_oral``'s: segment streams ``[R, M]``,
+support ``[S, n_cols]`` whose leading columns are the structure's parameters,
+output coefficients ``[n_out, n_states, S]`` and biases ``[n_out, S]``;
+the result is ``[R, S]``. Unlike the TPU kernel there is no padding: R, S and
+M are free.
+
+Censored observations use the exact log of the normal CDF (the TPU kernel
+carried an approximation, ~6e-5 absolute, because Mosaic has no ``erf``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+LOG_2PI = math.log(2.0 * math.pi)
+
+# Kernel launches through psi_analytical on a CUDA tensor (not the twin).
+LAUNCHES = 0
+
+
+# ---------------------------------------------------------------------------
+# Structure definitions (the JAX package's ops/pallas_psi.py:127-429).
+#
+# ``prepare(params)`` does parameter-only work once (eigen quantities,
+# coefficient ratios); it receives the micro-constant parameter rows (plus
+# the 3-cmt decay constants) and returns an aux tuple. ``propagate(aux, xs,
+# dt, rate)`` advances the state over one segment; ``rate`` is None when the
+# workload has no infusions. Parameter rows are [1, S], states [R, S].
+# ---------------------------------------------------------------------------
+
+
+def _prep_1cmt_iv(p):
+    (ke,) = p
+    return (ke, 1.0 / ke)
+
+
+def _prop_1cmt_iv(aux, xs, dt, rate):
+    ke, inv_ke = aux
+    (x1,) = xs
+    e = torch.exp(-ke * dt)
+    if rate is None:
+        return [x1 * e]
+    ss = rate * inv_ke
+    return [ss + (x1 - ss) * e]
+
+
+def _prep_1cmt_oral(p):
+    ka, ke = p
+    return (ka, ke, ka / (ka - ke), 1.0 / ke)
+
+
+def _prop_1cmt_oral(aux, xs, dt, rate):
+    ka, ke, ratio, inv_ke = aux
+    x0, x1 = xs
+    eka = torch.exp(-ka * dt)
+    eke = torch.exp(-ke * dt)
+    nx1 = x1 * eke + ratio * x0 * (eke - eka)
+    if rate is not None:
+        nx1 = nx1 + rate * inv_ke * (1.0 - eke)
+    return [x0 * eka, nx1]
+
+
+def _two_cmt_eigs(ke, kcp, kpc):
+    disc = (ke + kcp + kpc) ** 2 - 4.0 * ke * kpc
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    l1 = (ke + kcp + kpc + sq) * 0.5
+    l2 = (ke + kcp + kpc - sq) * 0.5
+    return l1, l2
+
+
+def _prep_2cmt_iv(p):
+    ke, kcp, kpc = p
+    l1, l2 = _two_cmt_eigs(ke, kcp, kpc)
+    inv_denom = 1.0 / (l1 - l2)
+    return (ke, kcp, kpc, l1, l2, inv_denom, 1.0 / ke, kcp / (ke * kpc))
+
+
+def _prop_2cmt_iv(aux, xs, dt, rate):
+    ke, kcp, kpc, l1, l2, inv_denom, inv_ke, ss_ratio2 = aux
+    x1, x2 = xs
+    if rate is not None:
+        ss1 = rate * inv_ke
+        ss2 = rate * ss_ratio2
+        y1 = x1 - ss1
+        y2 = x2 - ss2
+    else:
+        y1, y2 = x1, x2
+    e1 = torch.exp(-l1 * dt)
+    e2 = torch.exp(-l2 * dt)
+    nx1 = (((l1 - kpc) * e1 + (kpc - l2) * e2) * y1
+           + kpc * (e2 - e1) * y2) * inv_denom
+    nx2 = (kcp * (e2 - e1) * y1
+           + ((l1 - ke - kcp) * e1 + (ke + kcp - l2) * e2) * y2) * inv_denom
+    if rate is not None:
+        nx1 = nx1 + ss1
+        nx2 = nx2 + ss2
+    return [nx1, nx2]
+
+
+def _prep_2cmt_oral(p):
+    ke, ka, kcp, kpc = p
+    l1, l2 = _two_cmt_eigs(ke, kcp, kpc)
+    return (ke, ka, kcp, kpc, l1, l2, 1.0 / (l1 - l2),
+            1.0 / (ka - l1), 1.0 / (ka - l2), 1.0 / ke, kcp / (ke * kpc))
+
+
+def _prop_2cmt_oral(aux, xs, dt, rate):
+    (ke, ka, kcp, kpc, l1, l2, inv_denom, inv_ka_l1, inv_ka_l2, inv_ke,
+     ss_ratio2) = aux
+    x0, x1, x2 = xs
+    e1 = torch.exp(-l1 * dt)
+    e2 = torch.exp(-l2 * dt)
+    eka = torch.exp(-ka * dt)
+    if rate is not None:
+        ss1 = rate * inv_ke
+        ss2 = rate * ss_ratio2
+        y1 = x1 - ss1
+        y2 = x2 - ss2
+    else:
+        y1, y2 = x1, x2
+    hom0 = ((l1 - kpc) * e1 + (kpc - l2) * e2) * y1 + kpc * (e2 - e1) * y2
+    hom1 = kcp * (e2 - e1) * y1 + ((l1 - ke - kcp) * e1 + (ke + kcp - l2) * e2) * y2
+    abs0 = (l1 - kpc) * inv_ka_l1 * (e1 - eka) + (kpc - l2) * inv_ka_l2 * (e2 - eka)
+    abs1 = kcp * (inv_ka_l2 * (e2 - eka) - inv_ka_l1 * (e1 - eka))
+    scale = ka * x0 * inv_denom
+    nx1 = hom0 * inv_denom + abs0 * scale
+    nx2 = hom1 * inv_denom + abs1 * scale
+    if rate is not None:
+        nx1 = nx1 + ss1
+        nx2 = nx2 + ss2
+    return [x0 * eka, nx1, nx2]
+
+
+def _prep_3cmt_projectors(k10, k12, k13, k21, k31, lam):
+    """Lagrange spectral projectors of the mammillary rate matrix:
+    ``P_k = prod_{j!=k}(A + l_j I) / prod_{j!=k}(l_j - l_k)``."""
+    a11 = -(k10 + k12 + k13)
+    m11 = a11 * a11 + k21 * k12 + k31 * k13
+    m12 = k21 * (a11 - k21)
+    m13 = k31 * (a11 - k31)
+    m21 = k12 * (a11 - k21)
+    m22 = k12 * k21 + k21 * k21
+    m23 = k12 * k31
+    m31 = k13 * (a11 - k31)
+    m32 = k13 * k21
+    m33 = k13 * k31 + k31 * k31
+    proj = []
+    for k in range(3):
+        lk = lam[k]
+        lj, ll_ = lam[(k + 1) % 3], lam[(k + 2) % 3]
+        s = lj + ll_
+        pr = lj * ll_
+        invd = 1.0 / ((lj - lk) * (ll_ - lk))
+        P = (
+            (m11 + s * a11 + pr) * invd,
+            (m12 + s * k21) * invd,
+            (m13 + s * k31) * invd,
+            (m21 + s * k12) * invd,
+            (m22 + s * (-k21) + pr) * invd,
+            m23 * invd,
+            (m31 + s * k13) * invd,
+            m32 * invd,
+            (m33 + s * (-k31) + pr) * invd,
+        )
+        proj.append((lk, P))
+    return proj
+
+
+def _prep_3cmt_iv(p):
+    k10, k12, k13, k21, k31, l1, l2, l3 = p
+    proj = _prep_3cmt_projectors(k10, k12, k13, k21, k31, (l1, l2, l3))
+    return (proj, 1.0 / k10, k12 / (k10 * k21), k13 / (k10 * k31))
+
+
+def _prop_3cmt_iv(aux, xs, dt, rate):
+    proj, inv_k10, ss_ratio2, ss_ratio3 = aux
+    x1, x2, x3 = xs
+    if rate is not None:
+        ss1 = rate * inv_k10
+        ss2 = rate * ss_ratio2
+        ss3 = rate * ss_ratio3
+        y1, y2, y3 = x1 - ss1, x2 - ss2, x3 - ss3
+        nx1, nx2, nx3 = ss1, ss2, ss3
+    else:
+        y1, y2, y3 = x1, x2, x3
+        nx1 = nx2 = nx3 = torch.zeros_like(x1)
+    for lk, P in proj:
+        ek = torch.exp(-lk * dt)
+        nx1 = nx1 + ek * (P[0] * y1 + P[1] * y2 + P[2] * y3)
+        nx2 = nx2 + ek * (P[3] * y1 + P[4] * y2 + P[5] * y3)
+        nx3 = nx3 + ek * (P[6] * y1 + P[7] * y2 + P[8] * y3)
+    return [nx1, nx2, nx3]
+
+
+def _prep_3cmt_oral(p):
+    ka, k10, k12, k13, k21, k31, l1, l2, l3 = p
+    proj = _prep_3cmt_projectors(k10, k12, k13, k21, k31, (l1, l2, l3))
+    proj = [(lk, P, 1.0 / (ka - lk)) for lk, P in proj]
+    return (ka, proj, 1.0 / k10, k12 / (k10 * k21), k13 / (k10 * k31))
+
+
+def _prop_3cmt_oral(aux, xs, dt, rate):
+    ka, proj, inv_k10, ss_ratio2, ss_ratio3 = aux
+    x0, x1, x2, x3 = xs
+    eka = torch.exp(-ka * dt)
+    if rate is not None:
+        ss1 = rate * inv_k10
+        ss2 = rate * ss_ratio2
+        ss3 = rate * ss_ratio3
+        y1, y2, y3 = x1 - ss1, x2 - ss2, x3 - ss3
+        nx1, nx2, nx3 = ss1, ss2, ss3
+    else:
+        y1, y2, y3 = x1, x2, x3
+        nx1 = nx2 = nx3 = torch.zeros_like(x1)
+    for lk, P, inv_ka_lk in proj:
+        ek = torch.exp(-lk * dt)
+        nx1 = nx1 + ek * (P[0] * y1 + P[1] * y2 + P[2] * y3)
+        nx2 = nx2 + ek * (P[3] * y1 + P[4] * y2 + P[5] * y3)
+        nx3 = nx3 + ek * (P[6] * y1 + P[7] * y2 + P[8] * y3)
+        # depot forcing: ka*x0 * (ek - eka)/(ka - lk) * (P @ e1)
+        f = ka * x0 * (ek - eka) * inv_ka_lk
+        nx1 = nx1 + f * P[0]
+        nx2 = nx2 + f * P[3]
+        nx3 = nx3 + f * P[6]
+    return [x0 * eka, nx1, nx2, nx3]
+
+
+def _prep_3cmt_eigenvalues(base_rows):
+    """Decay constants of the mammillary 3-cmt rate matrix, per support.
+
+    Trigonometric solution of the monic cubic l^3 - A l^2 + B l - C with the
+    symmetric sums of the three decay constants
+    (three_compartment_models.rs:24-45); the arccos argument is clipped to
+    [-1, 1]. ``base_rows`` is the micro-constant parameterization; for oral
+    structures the leading ka row is present and skipped.
+    """
+    k10, k12, k13, k21, k31 = base_rows[-5:]
+    A = k10 + k12 + k13 + k21 + k31
+    B = k10 * k21 + k10 * k31 + k12 * k31 + k13 * k21 + k21 * k31
+    C = k10 * k21 * k31
+    p = B - A * A / 3.0
+    q = -2.0 * A * A * A / 27.0 + A * B / 3.0 - C
+    mp3 = torch.clamp(-p / 3.0, min=1e-30)
+    rt = torch.sqrt(mp3)
+    arg = torch.clamp(3.0 * q / (2.0 * torch.clamp(p, max=-1e-30)) / rt, -1.0, 1.0)
+    phi = torch.acos(arg) / 3.0
+    two_pi_3 = 2.0 * math.pi / 3.0
+    l1 = 2.0 * rt * torch.cos(phi) + A / 3.0
+    l2 = 2.0 * rt * torch.cos(phi - two_pi_3) + A / 3.0
+    l3 = 2.0 * rt * torch.cos(phi - 2.0 * two_pi_3) + A / 3.0
+    return [l1, l2, l3]
+
+
+# CL-parameterization remaps: the same micro-constant reparameterizations as
+# engine/analytical.py one/two/three_compartments_cl* (parity: *_cl_models.rs).
+
+
+def _remap_1cmt_cl(r):
+    cl, v = r
+    return [cl / v]
+
+
+def _remap_1cmt_cl_abs(r):
+    ka, cl, v = r
+    return [ka, cl / v]
+
+
+def _remap_2cmt_cl(r):
+    cl, q, vc, vp = r
+    return [cl / vc, q / vc, q / vp]
+
+
+def _remap_2cmt_cl_abs(r):
+    ka, cl, q, vc, vp = r
+    return [cl / vc, ka, q / vc, q / vp]
+
+
+def _remap_3cmt_cl(r):
+    cl, q1, q2, vc, vp1, vp2 = r
+    return [cl / vc, q1 / vc, q2 / vc, q1 / vp1, q2 / vp2]
+
+
+def _remap_3cmt_cl_abs(r):
+    ka, cl, q1, q2, vc, vp1, vp2 = r
+    return [ka, cl / vc, q1 / vc, q2 / vc, q1 / vp1, q2 / vp2]
+
+
+def _struct(n_params, n_states, dose_state, central, prepare, propagate,
+            eigs=None, remap=None):
+    return {
+        "n_params": n_params,       # support columns consumed by the kernel
+        "n_states": n_states,
+        "dose_state": dose_state,   # bolus destination
+        "central": central,         # state index of the default central/v output
+        "prepare": prepare,
+        "propagate": propagate,
+        "eigs": eigs,               # extra decay-constant rows (3-cmt)
+        "remap": remap,             # CL -> micro-constant reparameterization
+    }
+
+
+# The order is the kernel's structure code (csrc/fused_psi.cu): code // 4 is
+# the compartment count less one, (code // 2) % 2 the CL flag, code % 2 the
+# absorption flag.
+STRUCTURES = {
+    "one_compartment": _struct(1, 1, 0, 0, _prep_1cmt_iv, _prop_1cmt_iv),
+    "one_compartment_with_absorption": _struct(
+        2, 2, 0, 1, _prep_1cmt_oral, _prop_1cmt_oral),
+    "one_compartment_cl": _struct(
+        2, 1, 0, 0, _prep_1cmt_iv, _prop_1cmt_iv, remap=_remap_1cmt_cl),
+    "one_compartment_cl_with_absorption": _struct(
+        3, 2, 0, 1, _prep_1cmt_oral, _prop_1cmt_oral, remap=_remap_1cmt_cl_abs),
+    "two_compartments": _struct(3, 2, 0, 0, _prep_2cmt_iv, _prop_2cmt_iv),
+    "two_compartments_with_absorption": _struct(
+        4, 3, 0, 1, _prep_2cmt_oral, _prop_2cmt_oral),
+    "two_compartments_cl": _struct(
+        4, 2, 0, 0, _prep_2cmt_iv, _prop_2cmt_iv, remap=_remap_2cmt_cl),
+    "two_compartments_cl_with_absorption": _struct(
+        5, 3, 0, 1, _prep_2cmt_oral, _prop_2cmt_oral, remap=_remap_2cmt_cl_abs),
+    "three_compartments": _struct(
+        5, 3, 0, 0, _prep_3cmt_iv, _prop_3cmt_iv, eigs=_prep_3cmt_eigenvalues),
+    "three_compartments_with_absorption": _struct(
+        6, 4, 0, 1, _prep_3cmt_oral, _prop_3cmt_oral,
+        eigs=_prep_3cmt_eigenvalues),
+    "three_compartments_cl": _struct(
+        6, 3, 0, 0, _prep_3cmt_iv, _prop_3cmt_iv,
+        eigs=_prep_3cmt_eigenvalues, remap=_remap_3cmt_cl),
+    "three_compartments_cl_with_absorption": _struct(
+        7, 4, 0, 1, _prep_3cmt_oral, _prop_3cmt_oral,
+        eigs=_prep_3cmt_eigenvalues, remap=_remap_3cmt_cl_abs),
+}
+STRUCTURE_CODES = {name: i for i, name in enumerate(STRUCTURES)}
+
+
+# ---------------------------------------------------------------------------
+# The wrapper and its plain twin
+# ---------------------------------------------------------------------------
+
+
+def _check_inputs(seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value,
+                  obs_sigma, obs_cens, support, structure, obs_outeq,
+                  out_coef, out_bias):
+    """Validate the stream layout; returns (sdef, coef, bias, n_out).
+
+    ``coef`` [n_out, n_states, S] and ``bias`` ([n_out, S] or None) are the
+    output rows: ``out_coef``/``out_bias`` as given, or the classic
+    convention (one output, central / v with v the support's last column)
+    when ``out_coef`` is None.
+    """
+    if structure not in STRUCTURES:
+        raise ValueError(
+            f"unknown fused psi structure `{structure}` "
+            f"(available: {', '.join(sorted(STRUCTURES))})"
+        )
+    sdef = STRUCTURES[structure]
+    n_params, n_states = sdef["n_params"], sdef["n_states"]
+    if seg_dt.dim() != 2:
+        raise ValueError(f"segment streams must be [R, M], got {tuple(seg_dt.shape)}")
+    R, M = seg_dt.shape
+    if support.dim() != 2:
+        raise ValueError(f"support must be [S, n_cols], got {tuple(support.shape)}")
+    S = support.shape[0]
+    dtype, dev = seg_dt.dtype, seg_dt.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"fused psi takes float32 or float64, got {dtype}")
+    named = {"seg_bolus": seg_bolus, "seg_rateiv": seg_rateiv,
+             "obs_mask": obs_mask, "obs_value": obs_value,
+             "obs_sigma": obs_sigma, "obs_cens": obs_cens,
+             "obs_outeq": obs_outeq}
+    for name, a in named.items():
+        if a is None:
+            continue
+        if tuple(a.shape) != (R, M):
+            raise ValueError(f"{name} must be [{R}, {M}], got {tuple(a.shape)}")
+    for name, a in dict(named, seg_dt=seg_dt, support=support,
+                        out_coef=out_coef, out_bias=out_bias).items():
+        if a is None:
+            continue
+        if a.dtype != dtype or a.device != dev:
+            raise ValueError(
+                f"{name} is {a.dtype} on {a.device}; expected {dtype} on {dev}"
+            )
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if out_coef is None:
+        if support.shape[1] != n_params + 1:
+            raise ValueError(
+                f"{structure} needs {n_params} support columns plus v (last)"
+            )
+        v = support[:, n_params]
+        coef = torch.zeros((1, n_states, S), dtype=dtype, device=dev)
+        coef[0, sdef["central"]] = 1.0 / v
+        bias = None
+        n_out = 1
+    else:
+        if support.shape[1] < n_params:
+            raise ValueError(f"{structure} needs >= {n_params} support columns")
+        n_out = out_coef.shape[0]
+        if tuple(out_coef.shape) != (n_out, n_states, S):
+            raise ValueError(
+                f"out_coef must be [n_out, {n_states}, {S}], "
+                f"got {tuple(out_coef.shape)}"
+            )
+        coef = out_coef
+        bias = out_bias
+        if bias is not None and tuple(bias.shape) != (n_out, S):
+            raise ValueError(f"out_bias must be [{n_out}, {S}], got {tuple(bias.shape)}")
+    if n_out > 1 and obs_outeq is None:
+        raise ValueError("obs_outeq stream required for multi-output psi")
+    return sdef, coef, bias, n_out
+
+
+def psi_analytical_plain(
+    seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma, obs_cens,
+    support,
+    structure: str = "two_compartments_with_absorption",
+    obs_outeq=None,
+    out_coef=None,
+    out_bias=None,
+):
+    """Plain PyTorch twin of the fused psi kernel (same arguments, [R, S]).
+
+    The math of the JAX package's ``psi_oral`` base tier, segment by
+    segment on ``[R, S]`` tensors, with the exact log of the normal CDF for
+    censored observations.
+    """
+    sdef, coef, bias, n_out = _check_inputs(
+        seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
+        obs_cens, support, structure, obs_outeq, out_coef, out_bias)
+    n_params, n_states = sdef["n_params"], sdef["n_states"]
+    R, M = seg_dt.shape
+    S = support.shape[0]
+    rows = [support[:, i].reshape(1, S) for i in range(n_params)]
+    if sdef["remap"] is not None:
+        rows = sdef["remap"](rows)
+    if sdef["eigs"] is not None:
+        rows = rows + sdef["eigs"](rows)
+    aux = sdef["prepare"](rows)
+    propagate = sdef["propagate"]
+    dose_state = sdef["dose_state"]
+    has_inf = seg_rateiv is not None
+    has_cens = obs_cens is not None
+    coef_rows = [[coef[k, i].reshape(1, S) for i in range(n_states)]
+                 for k in range(n_out)]
+    bias_rows = ([bias[k].reshape(1, S) for k in range(n_out)]
+                 if bias is not None else None)
+
+    zeros = torch.zeros((R, S), dtype=seg_dt.dtype, device=seg_dt.device)
+    xs = [zeros] * n_states
+    ll = zeros
+    for m in range(M):
+        dt = seg_dt[:, m:m + 1]
+        mask = obs_mask[:, m:m + 1] > 0
+        val = obs_value[:, m:m + 1]
+        sig = torch.where(mask, obs_sigma[:, m:m + 1],
+                          torch.ones_like(val))
+
+        # observation before dose: y_k = C_k . x (+ b_k)
+        def pred_out(k):
+            p = coef_rows[k][0] * xs[0]
+            for i in range(1, n_states):
+                p = p + coef_rows[k][i] * xs[i]
+            if bias_rows is not None:
+                p = p + bias_rows[k]
+            return p
+
+        if n_out == 1:
+            pred = pred_out(0)
+        else:
+            oe = obs_outeq[:, m:m + 1]
+            pred = zeros
+            for k in range(n_out):
+                pred = torch.where(oe == float(k), pred_out(k), pred)
+        z = (val - pred) / sig
+        term = -0.5 * LOG_2PI - torch.log(sig) - 0.5 * z * z
+        if has_cens:
+            s_c = obs_cens[:, m:m + 1]
+            term = torch.where(s_c == 0.0, term, torch.special.log_ndtr(s_c * z))
+        ll = ll + torch.where(mask, term, zeros)
+
+        xs = list(xs)
+        xs[dose_state] = xs[dose_state] + seg_bolus[:, m:m + 1]
+        rate = seg_rateiv[:, m:m + 1] if has_inf else None
+        nxs = propagate(aux, xs, dt, rate)
+        live = dt > 0.0
+        xs = [torch.where(live, nx, x) for nx, x in zip(nxs, xs)]
+    return ll
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+
+def psi_analytical(
+    seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma, obs_cens,
+    support,
+    structure: str = "two_compartments_with_absorption",
+    obs_outeq=None,
+    out_coef=None,
+    out_bias=None,
+):
+    """Fused psi [R, S] for the closed-form structures.
+
+    The counterpart of the JAX package's ``ops/pallas_psi.py::psi_oral``
+    (base tier: infusions, censoring, multiple outputs and output biases;
+    no covariates, seq, lag, fa or init). ``seg_rateiv`` and ``obs_cens``
+    are None for a workload without infusions or censoring (the kernel then
+    skips that work), and ``obs_outeq`` is None for one output. All tensors
+    share one dtype (float32 or float64) and one device, and are
+    contiguous.
+
+    On a CUDA tensor this launches ``csrc/fused_psi.cu`` (one thread per
+    (row, support) cell) and raises if the launch fails; on a CPU tensor it
+    runs :func:`psi_analytical_plain`.
+    """
+    global LAUNCHES
+    dev = seg_dt.device
+    if dev.type == "cpu":
+        return psi_analytical_plain(
+            seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
+            obs_cens, support, structure, obs_outeq, out_coef, out_bias)
+    if dev.type != "cuda":
+        raise ValueError(f"fused psi runs on cpu or cuda tensors, got {dev}")
+    sdef, coef, bias, n_out = _check_inputs(
+        seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
+        obs_cens, support, structure, obs_outeq, out_coef, out_bias)
+    R, M = seg_dt.shape
+    S = support.shape[0]
+    out = torch.empty((R, S), dtype=seg_dt.dtype, device=dev)
+    if R == 0 or S == 0:
+        return out  # nothing to launch
+    from ._build import load_library
+
+    lib = load_library()
+    n_params = sdef["n_params"]
+    # the kernel reads parameter rows [n_params, S]: coalesced along supports
+    params = support[:, :n_params].t().contiguous()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_psi_launch(
+            int(seg_dt.dtype == torch.float64), STRUCTURE_CODES[structure],
+            _ptr(seg_dt), _ptr(seg_bolus), _ptr(seg_rateiv),
+            _ptr(obs_mask), _ptr(obs_value), _ptr(obs_sigma),
+            _ptr(obs_cens),
+            _ptr(obs_outeq if n_out > 1 else None),
+            _ptr(params), _ptr(coef), _ptr(bias), _ptr(out),
+            R, S, M, n_out, ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"fused psi kernel launch failed ({structure}, R={R}, S={S}, "
+            f"M={M}): {lib.fused_psi_error_string(err).decode()}"
+        )
+    LAUNCHES += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Host-side inputs: output coefficients and segment streams
+# ---------------------------------------------------------------------------
+
+
+class _CheckedParams:
+    """Bounds-checking support-row proxy for output-coefficient extraction:
+    an out closure reading a support column that doesn't exist raises
+    IndexError for static integer indices past the row width."""
+
+    def __init__(self, p):
+        self._p = p
+
+    def __getitem__(self, idx):
+        n = self._p.shape[0]
+        if isinstance(idx, (int, np.integer)):
+            if not (-n <= idx < n):
+                raise IndexError(
+                    f"support column {idx} out of range ({n} support columns)"
+                )
+        return self._p[idx]
+
+    def __len__(self):
+        return self._p.shape[0]
+
+    def __iter__(self):
+        return iter(self._p)
+
+    def __getattr__(self, name):
+        return getattr(self._p, name)
+
+
+def extract_linear_out(out_fn, support, n_states: int, n_out: int, cov,
+                       dtype=torch.float64, ts=(0.0, 17.31)):
+    """Extract per-support linear output coefficients from an out closure.
+
+    Evaluates ``out_fn(e_i, p, t, cov)`` on the state basis per support row
+    (``torch.func.vmap`` over supports, on the host) to recover
+    ``y = C(p) x + b(p)``; verifies linearity on a fixed state and
+    time-invariance at a second t. Returns (C [S, n_out, n_states],
+    b [S, n_out]) as float64 numpy, or raises ValueError when the output is
+    not linear or not time-invariant.
+    """
+    from torch.func import vmap
+
+    sp = torch.as_tensor(np.asarray(support, dtype=np.float64)).to(dtype)
+
+    def as_vec(v):
+        if not isinstance(v, torch.Tensor):
+            v = torch.as_tensor(v, dtype=dtype)
+        return v.to(dtype).reshape(n_out)
+
+    def eval_all(t):
+        tt = torch.tensor(t, dtype=dtype)
+
+        def one(p):
+            pc = _CheckedParams(p)
+            zero = as_vec(out_fn(torch.zeros(n_states, dtype=dtype), pc, tt, cov))
+            cols = []
+            for i in range(n_states):
+                e = torch.zeros(n_states, dtype=dtype)
+                e[i] = 1.0
+                cols.append(as_vec(out_fn(e, pc, tt, cov)) - zero)
+            return torch.stack(cols, dim=1), zero  # [n_out, n_states], [n_out]
+
+        return vmap(one)(sp)
+
+    C, b = eval_all(ts[0])
+    C2, b2 = eval_all(ts[1])
+    Cn, bn = C.double().numpy(), b.double().numpy()
+    scale = np.maximum(np.abs(Cn).max(), 1e-12)
+    if (np.abs(C2.double().numpy() - Cn).max() > 1e-5 * scale
+            or np.abs(b2.double().numpy() - bn).max() > 1e-5 * scale):
+        raise ValueError("output equation depends on t")
+    # linearity probe at a fixed non-trivial state
+    x_probe = torch.as_tensor(1.0 + np.linspace(0.3, 1.7, n_states)).to(dtype)
+    tt0 = torch.tensor(ts[0], dtype=dtype)
+    direct = vmap(lambda p: as_vec(out_fn(x_probe, p, tt0, cov)))(sp)
+    direct = direct.double().numpy()
+    lin = np.einsum("ski,i->sk", Cn, x_probe.double().numpy()) + bn
+    denom = np.maximum(np.abs(direct).max(), 1e-12)
+    if np.abs(direct - lin).max() > 1e-4 * denom:
+        raise ValueError("output equation is not linear in the state")
+    return Cn, bn
+
+
+def segment_schedule(rows):
+    """Host-side replica of the engine's breakpoint sort (grid.build_segments).
+
+    Valid because the fused path has no lag/fa (the only parameter-dependent
+    time shifts). Returns ``(order, t_sorted, seg_dt, is_event)`` each
+    [R, M]: the lexsort permutation, sorted breakpoint times, segment spans,
+    and the engine's seq-reset flag (rank >= RANK_OBSERVATION).
+    """
+    from ..config import BIG_TIME
+
+    bolus_t = np.asarray(rows.bolus_t, dtype=np.float64)
+    inf_t = np.asarray(rows.inf_t, dtype=np.float64)
+    obs_t = np.asarray(rows.obs_t, dtype=np.float64)
+    inf_dur = np.asarray(rows.inf_dur, dtype=np.float64)
+    inf_end = np.where(inf_t < BIG_TIME / 2, inf_t + inf_dur, inf_t)
+    # breakpoints: [obs..., bolus..., inf-start..., inf-end...]; sort by
+    # (time, rank) with engine ranks inf-end 0 < obs 1 < bolus 2 < inf-start 3
+    times = np.concatenate([obs_t, bolus_t, inf_t, inf_end], axis=1)
+    ranks = np.concatenate(
+        [
+            np.ones_like(obs_t),
+            2.0 * np.ones_like(bolus_t),
+            3.0 * np.ones_like(inf_t),
+            np.zeros_like(inf_end),
+        ],
+        axis=1,
+    )
+    order = np.lexsort((ranks, times), axis=1)
+    t_sorted = np.take_along_axis(times, order, axis=1)
+    rank_sorted = np.take_along_axis(ranks, order, axis=1)
+    t_next = np.concatenate([t_sorted[:, 1:], t_sorted[:, -1:]], axis=1)
+    live = t_next < BIG_TIME / 2
+    seg_dt = np.where(live, np.maximum(t_next - t_sorted, 0.0), 0.0)
+    return order, t_sorted, seg_dt, rank_sorted >= 1.0
+
+
+def streams_from_grid(rows, lowered_em):
+    """Convert stacked host OccasionArrays rows into kernel segment streams.
+
+    Requirements of the fused kernel's model shape: boluses into input 0
+    (the structure's dose compartment: depot for *_with_absorption, central
+    for IV structures), infusions into input 0 (central), outputs linear in
+    the state, additive or proportional assay error. BLOQ/ALOQ-censored
+    observations contribute log CDF/CCDF terms. Multi-dose schedules and
+    mixed bolus+infusion regimens are supported; the per-segment infusion
+    rate uses the same midpoint containment as the general engine.
+    Observation sigmas use each observation's own outeq error model
+    (loglik.observation_sigmas parity), so multi-output models work.
+
+    Returns float64 numpy (seg_dt, seg_bolus, seg_rateiv, obs_mask,
+    obs_value, obs_sigma, obs_cens, obs_outeq), each [R, M]. Raises
+    ValueError for a dose into another input.
+    """
+    from ..config import BIG_TIME
+
+    bolus_t = np.asarray(rows.bolus_t, dtype=np.float64)
+    inf_t = np.asarray(rows.inf_t, dtype=np.float64)
+    valid_rows = np.asarray(rows.obs_valid) & np.asarray(rows.obs_has_value)
+    real_bolus = bolus_t < BIG_TIME / 2
+    bolus_input = np.asarray(rows.bolus_input)
+    if np.any(bolus_input[real_bolus] != 0):
+        raise ValueError(
+            "the fused psi kernel supports boluses into input 0 (the "
+            "structure's dose compartment) only"
+        )
+    NI = inf_t.shape[1]
+    if NI:
+        real_inf = inf_t < BIG_TIME / 2
+        inf_input = np.asarray(rows.inf_input)
+        if np.any(inf_input[real_inf] != 0):
+            raise ValueError(
+                "the fused psi kernel supports infusions into input 0 "
+                "(central) only"
+            )
+    obs_t = np.asarray(rows.obs_t, dtype=np.float64)
+    R, NO = obs_t.shape
+    inf_dur = np.asarray(rows.inf_dur, dtype=np.float64)
+    inf_end = np.where(inf_t < BIG_TIME / 2, inf_t + inf_dur, inf_t)
+    order, t_sorted, seg_dt, _ = segment_schedule(rows)
+
+    def scatter(unsorted):
+        return np.take_along_axis(unsorted, order, axis=1)
+
+    def with_zero_pads(obs_col, bolus_col):
+        return np.concatenate(
+            [obs_col, bolus_col, np.zeros((R, 2 * NI))], axis=1
+        )
+
+    # padded bolus slots (time >= BIG_TIME) must contribute zero dose — the
+    # kernel applies the bolus column even on dt==0 terminal segments
+    bolus_amt = np.where(
+        bolus_t < BIG_TIME / 2, np.asarray(rows.bolus_amt, dtype=np.float64), 0.0
+    )
+    seg_bolus = scatter(with_zero_pads(np.zeros_like(obs_t), bolus_amt))
+    # per-segment infusion rate: midpoint containment (engine parity)
+    if NI:
+        rate = np.where(
+            (inf_t < BIG_TIME / 2) & (inf_dur > 0),
+            np.asarray(rows.inf_amt, dtype=np.float64) / np.maximum(inf_dur, 1e-300),
+            0.0,
+        )
+        mid = t_sorted + 0.5 * seg_dt  # [R, M]
+        contained = (
+            (mid[:, :, None] >= inf_t[:, None, :])
+            & (mid[:, :, None] < inf_end[:, None, :])
+            & (seg_dt[:, :, None] > 0)
+        )
+        seg_rateiv = np.einsum("rmi,ri->rm", contained.astype(np.float64), rate)
+    else:
+        seg_rateiv = np.zeros_like(seg_dt)
+    obs_value_u = np.asarray(rows.obs_value, dtype=np.float64)
+    # observation-based sigma from each observation's outeq error model;
+    # per-observation errorpoly overrides replace the poly, keeping
+    # kind/factor (loglik.observation_sigmas parity)
+    outeq_u = np.asarray(rows.obs_outeq, dtype=np.int64)
+    kind = np.asarray(lowered_em.kind)[outeq_u]          # [R, NO]
+    factor = np.asarray(lowered_em.factor, dtype=np.float64)[outeq_u]
+    shared_poly = np.asarray(lowered_em.poly, dtype=np.float64)[outeq_u]
+    poly = np.where(
+        np.asarray(rows.obs_has_poly)[:, :, None],
+        np.asarray(rows.obs_poly, dtype=np.float64),
+        shared_poly,
+    )
+    alpha = (poly[..., 0] + poly[..., 1] * obs_value_u
+             + poly[..., 2] * obs_value_u**2 + poly[..., 3] * obs_value_u**3)
+    sigma_u = np.where(
+        kind == 1, np.sqrt(alpha**2 + factor**2), factor * alpha
+    )
+    seg_mask = scatter(with_zero_pads(valid_rows.astype(np.float64),
+                                      np.zeros_like(bolus_t)))
+    seg_value = scatter(with_zero_pads(obs_value_u, np.zeros_like(bolus_t)))
+    seg_sigma = scatter(with_zero_pads(sigma_u, np.zeros_like(bolus_t)))
+    seg_sigma = np.where(seg_mask > 0, seg_sigma, 1.0)
+    # censoring sign: +1 BLOQ (logCDF), -1 ALOQ (logCCDF), 0 uncensored
+    cens_code = np.asarray(rows.obs_cens, dtype=np.int64)
+    cens_sign = np.where(cens_code == 1, 1.0, np.where(cens_code == 2, -1.0, 0.0))
+    cens_sign = np.where(valid_rows, cens_sign, 0.0)
+    seg_cens = scatter(with_zero_pads(cens_sign, np.zeros_like(bolus_t)))
+    seg_outeq = scatter(
+        with_zero_pads(outeq_u.astype(np.float64), np.zeros_like(bolus_t))
+    )
+    return (seg_dt, seg_bolus, seg_rateiv, seg_mask, seg_value, seg_sigma,
+            seg_cens, seg_outeq)

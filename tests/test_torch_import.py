@@ -1,0 +1,96 @@
+"""The PyTorch port stands alone: no JAX, no Triton at import, explicit device."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import pharmsol_tpu_torch as pt
+from pharmsol_tpu_torch import config
+from pharmsol_tpu_torch.errors import PharmsolError
+from pharmsol_tpu_torch.ops import _build
+
+PKG = Path(pt.__file__).resolve().parent
+MODULES = sorted(PKG.rglob("*.py"))
+
+
+def _imports(tree):
+    """(module name, is top level) for every import statement."""
+    top = set(map(id, tree.body))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name, id(node) in top
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module, id(node) in top
+
+
+@pytest.mark.parametrize("path", MODULES, ids=lambda p: str(p.relative_to(PKG)))
+def test_module_imports_no_jax_and_no_toplevel_triton(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for name, top in _imports(tree):
+        root = name.split(".")[0]
+        assert root not in ("jax", "jaxlib", "pharmsol_tpu"), (path, name)
+        if root == "triton":
+            assert not top, f"{path}: triton imported at module level"
+
+
+def test_package_import_loads_no_jax():
+    code = ("import sys, pharmsol_tpu_torch, pharmsol_tpu_torch.ops.fused_psi, "
+            "pharmsol_tpu_torch.convert; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'pharmsol_tpu', 'triton')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   cwd=str(PKG.parent))
+
+
+def test_nvcc_command_targets_sm90a():
+    cmd = _build.nvcc_command(Path("libfused_psi.so"))
+    joined = " ".join(cmd)
+    assert "arch=compute_90a,code=sm_90a" in joined
+    assert "-shared" in cmd and "-O3" in cmd
+    assert all((_build.CSRC_DIR / s).exists() for s in _build.SOURCES)
+    # the C entry point the wrapper binds, and one case per structure
+    src = (_build.CSRC_DIR / "fused_psi.cu").read_text()
+    assert 'extern "C" int fused_psi_launch' in src
+    from pharmsol_tpu_torch.ops.fused_psi import STRUCTURES
+
+    for code in range(len(STRUCTURES)):
+        assert f"case {code}: return launch<T, {code}>" in src
+
+
+def test_cuda_request_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the request is valid here")
+    model = pt.Analytical(
+        pt.one_compartment, out=lambda x, p, t, cov: x[0:1] / p[1],
+        nstates=1, ndrugs=1, nout=1)
+    data = pt.Data([pt.Subject.builder("a").bolus(0.0, 100.0, 0)
+                    .observation(1.0, 5.0, 0).build()])
+    ems = pt.AssayErrorModels().add(
+        0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    sp = np.array([[0.2, 10.0]])
+    for engine in ("auto", "fused", "general"):
+        with pytest.raises(PharmsolError, match="cuda"):
+            pt.log_likelihood_matrix(model, data, sp, ems, device="cuda",
+                                     engine=engine)
+    with pytest.raises(PharmsolError):
+        config.set_device("cuda")
+    assert config.device() == torch.device("cpu")
+
+
+def test_defaults_are_cpu_and_float64():
+    assert config.device() == torch.device("cpu")
+    assert config.float_dtype() == torch.float64
+    config.set_float_dtype(np.float32)
+    try:
+        assert config.float_dtype() == torch.float32
+    finally:
+        config.set_float_dtype(torch.float64)
+    with pytest.raises(ValueError):
+        config.set_float_dtype(torch.float16)

@@ -1,0 +1,192 @@
+"""The port's slice end to end: ``log_likelihood_matrix`` against the JAX package.
+
+64 subjects x 128 support points of the 2-cmt oral "Short" workload (with a
+few subjects on richer regimens: a second dose, an infusion, censored and
+missing observations, a second occasion), float64 on the CPU. Engine
+routing, the fused path (its plain twin here) and the errors for what the
+port does not support yet are checked too.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import pharmsol_tpu as pst
+from pharmsol_tpu.likelihood.matrix import log_likelihood_matrix as jax_psi
+
+import pharmsol_tpu_torch as pt
+from pharmsol_tpu_torch import convert
+from pharmsol_tpu_torch.errors import PharmsolError
+from pharmsol_tpu_torch.likelihood import matrix
+from pharmsol_tpu_torch.ops import fused_psi
+
+N_SUBJECTS, N_SUPPORT = 64, 128
+TIMES = [0.5, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 10.0, 12.0]
+
+
+def _out(x, p, t, cov):
+    return x[1:2] / p[4]
+
+
+@pytest.fixture(scope="module")
+def slice_inputs():
+    rng = np.random.RandomState(2024)
+    subjects = []
+    for i in range(N_SUBJECTS):
+        b = pst.Subject.builder(f"id{i}").bolus(0.0, 100.0, 0)
+        if i % 4 == 1:
+            b = b.bolus(6.0, 50.0, 0)
+        if i % 8 == 2:
+            b = b.infusion(2.0, 80.0, 0, 1.0)
+        for t in TIMES:
+            b = b.observation(t, float(abs(5.0 + rng.randn())), 0)
+        if i % 8 == 3:
+            b = b.censored_observation(14.0, 0.2, 0, pst.Censor.BLOQ)
+            b = b.censored_observation(0.25, 9.0, 0, pst.Censor.ALOQ)
+        if i % 8 == 5:
+            b = b.missing_observation(5.0, 0)
+        if i % 16 == 7:
+            b = b.reset().bolus(0.0, 80.0, 0).observation(2.0, 3.0, 0)
+        subjects.append(b.build())
+    data = pst.Data(subjects)
+    center = np.array([0.15, 1.2, 0.3, 0.2, 10.0])
+    support = np.abs(center[None, :] * (1.0 + 0.2 * rng.randn(N_SUPPORT, 5)))
+    ems = pst.AssayErrorModels().add(
+        0, pst.AssayErrorModel.additive(pst.ErrorPoly(0.5, 0.1), 1.0))
+    model = pst.Analytical(pst.two_compartments_with_absorption, out=_out,
+                           nstates=3, ndrugs=1, nout=1)
+    want = jax_psi(model, data, support, ems, engine="xla")
+    return (convert.data_from_reference(data), support,
+            convert.error_models_from_reference(ems), want)
+
+
+def _model():
+    return pt.Analytical(pt.two_compartments_with_absorption, out=_out,
+                         nstates=3, ndrugs=1, nout=1)
+
+
+def test_auto_on_cpu_takes_general_and_matches_jax(slice_inputs):
+    data, support, ems, want = slice_inputs
+    model = _model()
+    assert pt.last_engine_decision(model) is None
+    psi = pt.log_likelihood_matrix(model, data, support, ems)
+    assert isinstance(psi, torch.Tensor)
+    assert psi.shape == (N_SUBJECTS, N_SUPPORT)
+    assert psi.dtype == torch.float64 and psi.device.type == "cpu"
+    decision = pt.last_engine_decision(model)
+    assert decision["engine"] == "general" and "CPU" in decision["reason"]
+    np.testing.assert_allclose(psi.numpy(), want, rtol=1e-10, atol=0)
+
+
+def test_fused_uses_the_twin_and_matches_jax(slice_inputs):
+    data, support, ems, want = slice_inputs
+    before = fused_psi.LAUNCHES
+    psi = pt.log_likelihood_matrix(_model(), data, support, ems, engine="fused")
+    assert fused_psi.LAUNCHES == before
+    np.testing.assert_allclose(psi.numpy(), want, rtol=1e-10, atol=0)
+
+
+def test_float32_slice_within_bench_criterion(slice_inputs):
+    data, support, ems, want = slice_inputs
+    pt.set_float_dtype(torch.float32)
+    try:
+        for engine in ("general", "fused"):
+            psi = pt.log_likelihood_matrix(_model(), data, support, ems,
+                                           engine=engine)
+            assert psi.dtype == torch.float32
+            rel = np.abs(psi.double().numpy() - want) / np.maximum(np.abs(want), 1e-3)
+            assert rel.max() <= 1e-3, engine  # bench.py's f32 criterion
+    finally:
+        pt.set_float_dtype(torch.float64)
+
+
+def test_auto_picks_fused_on_cuda_without_crossover():
+    engine, reason = matrix._auto_engine(torch.device("cuda"))
+    assert engine == "fused" and "CUDA" in reason
+    assert matrix._auto_engine(torch.device("cpu"))[0] == "general"
+
+
+def test_auto_records_why_the_fused_plan_rejected_a_model(slice_inputs, monkeypatch):
+    """A model outside the plan's scope goes to the general engine with the
+    reason kept (the CUDA routing, exercised here on the CPU)."""
+    data, support, ems, want = slice_inputs
+    monkeypatch.setattr(matrix, "_auto_engine",
+                        lambda device: ("fused", "forced for the test"))
+
+    def eq(x, p, t, rateiv, cov):  # not a named built-in kernel
+        return pt.two_compartments_with_absorption(x, p, t, rateiv, cov)
+
+    model = pt.Analytical(eq, out=_out, nstates=3, ndrugs=1, nout=1)
+    psi = pt.log_likelihood_matrix(model, data, support, ems)
+    decision = pt.last_engine_decision(model)
+    assert decision["engine"] == "general"
+    assert "fused plan rejected the model" in decision["reason"]
+    assert "named built-in kernel" in decision["reason"]
+    np.testing.assert_allclose(psi.numpy(), want, rtol=1e-10, atol=0)
+    with pytest.raises(PharmsolError, match="named built-in kernel"):
+        pt.log_likelihood_matrix(model, data, support, ems, engine="fused")
+    # the built-in kernel takes the fused path under the same routing
+    model = _model()
+    pt.log_likelihood_matrix(model, data, support, ems)
+    assert pt.last_engine_decision(model)["engine"] == "fused"
+
+
+def test_fused_plan_rejects_a_dose_into_another_input():
+    model = pt.Analytical(pt.one_compartment_with_absorption,
+                          out=lambda x, p, t, cov: x[1:2] / p[2],
+                          nstates=2, ndrugs=2, nout=1)
+    data = pt.Data([pt.Subject.builder("a").bolus(0.0, 100.0, 1)
+                    .observation(1.0, 5.0, 0).build()])
+    ems = pt.AssayErrorModels().add(
+        0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    sp = np.array([[1.0, 0.2, 10.0]])
+    with pytest.raises(PharmsolError, match="input 0"):
+        pt.log_likelihood_matrix(model, data, sp, ems, engine="fused")
+    general = pt.log_likelihood_matrix(model, data, sp, ems, engine="general")
+    assert torch.isfinite(general).all()
+
+
+@pytest.mark.parametrize("kw", ["seq_eq", "lag", "fa", "init"])
+def test_unported_equations_raise(kw):
+    fn = {
+        "seq_eq": lambda p, t, cov: p,
+        "lag": lambda p, t, cov: {0: 0.5},
+        "fa": lambda p, t, cov: {0: 0.8},
+        "init": lambda p, t, cov: torch.zeros(3),
+    }[kw]
+    name = "seq" if kw == "seq_eq" else kw
+    with pytest.raises(PharmsolError, match=f"does not support {name} "):
+        pt.Analytical(pt.two_compartments_with_absorption, out=_out,
+                      nstates=3, ndrugs=1, nout=1, **{kw: fn})
+
+
+def test_covariates_raise(slice_inputs):
+    _, support, ems, _ = slice_inputs
+    data = pt.Data([pt.Subject.builder("c").bolus(0.0, 100.0, 0)
+                    .covariate("wt", 0.0, 70.0).observation(1.0, 4.0, 0)
+                    .build()])
+    for engine in ("auto", "general", "fused"):
+        with pytest.raises(PharmsolError, match="does not support covariates"):
+            pt.log_likelihood_matrix(_model(), data, support, ems,
+                                     engine=engine)
+
+
+def test_unknown_engine_and_bad_support_raise(slice_inputs):
+    data, support, ems, _ = slice_inputs
+    with pytest.raises(PharmsolError, match="unknown psi engine"):
+        pt.log_likelihood_matrix(_model(), data, support, ems, engine="xla")
+    with pytest.raises(PharmsolError, match="2D"):
+        pt.log_likelihood_matrix(_model(), data, support[0], ems)
+
+
+def test_non_finite_cells_map_to_neg_inf(slice_inputs):
+    data, support, ems, _ = slice_inputs
+    sp = support[:4].copy()
+    sp[1, 4] = 0.0  # v = 0: predictions are infinite
+    for engine in ("general", "fused"):
+        psi = pt.log_likelihood_matrix(_model(), data, sp, ems, engine=engine)
+        assert torch.isneginf(psi[:, 1]).all()
+        assert torch.isfinite(psi[:, [0, 2, 3]]).all()
+        nan = pt.log_likelihood_matrix(_model(), data, sp, ems, engine=engine,
+                                       on_error="nan")
+        assert not torch.isfinite(nan[:, 1]).any()

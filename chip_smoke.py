@@ -1,32 +1,44 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-The main path is the population log-likelihood matrix ("psi") of the
-closed-form models, ``pharmsol_tpu_torch.log_likelihood_matrix`` with
-``device="cuda"``, whose engine is the hand-written CUDA kernel
-``pharmsol_tpu_torch/csrc/fused_psi.cu``. Phases, each printing its own
-lines; any failure raises and the exit code is not 0:
+The main paths are the population log-likelihood matrix ("psi") through
+``pharmsol_tpu_torch.log_likelihood_matrix`` with ``device="cuda"``: for
+closed-form models, whose engine is the hand-written CUDA kernel
+``pharmsol_tpu_torch/csrc/fused_psi.cu`` (K1a), and for ODE models, whose
+engine is ``pharmsol_tpu_torch/csrc/fused_ode.cu`` (K2a) with a right-hand
+side generated from the model's closure. Phases, each printing its own lines;
+any failure raises and the exit code is not 0:
 
 0. environment: torch, CUDA and nvcc versions, the card's name and power
    limit;
-1. build: the kernel from the checkout's sources with nvcc, timed;
-2. kernel against its plain PyTorch twin on the card at a ragged shape
-   (R=257, S=300): all 12 structures on a multi-dose regimen, and 2-cmt oral
-   with infusion, with BLOQ+ALOQ censoring, and with two outputs plus a bias,
-   float64 within 1e-10 relative (the float32 error of kernel and twin
-   against the float64 twin is printed). float32 against the float64 twin
-   within the committed per-structure budget, on the budget's own cases;
-3. the slice at full width through the public entry point: 2-cmt oral
-   "Short" at 16384 subjects x 512 supports and 1-cmt oral at 10000 x 1000,
-   in float32 and float64, three calls each with fresh supports. Each call
-   must take the fused engine with exactly one kernel launch, give finite
-   psi of the right shape, and agree with the general engine on the card
-   (float32: 1e-3 relative; float64: 1e-10). The kernel is then held against
-   its twin at these shapes;
-4. times on the card (CUDA events, after warm-up): the kernel alone, its
-   twin, the general engine, one end-to-end call with the lowering cached
-   and the steps it is made of, and the host lowering alone.
+1. build: every library from the checkout's sources with nvcc, one process
+   each, all at once, timed: the closed-form kernel and the ODE kernel for
+   each model RHS used below (``-Xptxas -v``: registers and spills);
+2. each kernel against its plain PyTorch twin on the card at a ragged shape
+   (R=257, S=300).
+   K1a: all 12 structures on a multi-dose regimen, and 2-cmt oral with
+   infusion, with BLOQ+ALOQ censoring, and with two outputs plus a bias,
+   float64 within 1e-10 relative; float32 within the committed per-structure
+   budget on the budget's own cases.
+   K2a: the bolus+infusion 2-state model, Michaelis-Menten and the
+   two-input model, each with dopri5 and tsit5, merged and segment by
+   segment, float64 within 1e-8 relative; float32 within the ``ode_dopri5``
+   and ``ode_multi_input`` budgets on their own cases. Then the 2-cmt oral
+   ODE at tolerances 1e-9 against the closed-form 2-cmt oral psi on the same
+   Short data, float64, within 1e-5 relative;
+3. the slices at full width through the public entry point, in float32 and
+   float64, three calls each with fresh supports: 2-cmt oral "Short" at
+   16384 subjects x 512 supports and 1-cmt oral at 10000 x 1000 (K1a), and
+   the Short 2-cmt oral ODE at 16384 x 512 (K2a). Each call must take the
+   fused engine with exactly one kernel launch, give finite psi of the right
+   shape, and agree with the general engine on the card (closed form:
+   float32 1e-3 relative, float64 1e-10; ODE: float64 1e-4, float32 within
+   the ``ode_dopri5`` budget of the float64 general engine). Each kernel is
+   then held against its twin at these shapes;
+4. times on the card (CUDA events, after warm-up): each kernel alone, its
+   twin, the general engine, one end-to-end call with the lowering cached and
+   the steps it is made of, and the host lowering alone.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. All data comes from a numpy
@@ -54,6 +66,12 @@ KERNEL_RECORD = {
     "route": "cuda",
     "source": "pharmsol_tpu_torch/csrc/fused_psi.cu",
     "replaces": "pharmsol_tpu/ops/pallas_psi.py:805",
+}
+ODE_KERNEL_RECORD = {
+    "name": "fused_ode",
+    "route": "cuda",
+    "source": "pharmsol_tpu_torch/csrc/fused_ode.cu",
+    "replaces": "pharmsol_tpu/ops/pallas_ode.py:1826",
 }
 
 
@@ -156,6 +174,113 @@ def run_kernel(plan, plain: bool = False) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# ODE models (the RHS of each written with torch ops, as a user would)
+# ---------------------------------------------------------------------------
+
+
+def rhs_bolus_infusion(x, p, t, b, rateiv, cov):
+    return torch.stack([-p[0] * x[0] + b[0],
+                        p[0] * x[0] - p[1] * x[1] + rateiv[0]])
+
+
+def rhs_michaelis_menten(x, p, t, b, rateiv, cov):
+    return torch.stack([-p[0] * x[0] / (p[1] + x[0]) + b[0] + rateiv[0]])
+
+
+def rhs_two_inputs(x, p, t, b, rateiv, cov):
+    return torch.stack([
+        -p[0] * x[0] + b[0] + rateiv[1],
+        -p[1] * x[1] + b[1],
+        p[0] * x[0] + p[1] * x[1] - p[2] * x[2] + rateiv[0],
+    ])
+
+
+def rhs_short(x, p, t, b, rateiv, cov):
+    """2-cmt oral as an ODE (the JAX bench.py ODE cell): p = ke, ka, kcp,
+    kpc, v, the closed form's parameter order."""
+    return torch.stack([
+        -p[1] * x[0] + b[0],
+        p[1] * x[0] - (p[0] + p[2]) * x[1] + p[3] * x[2] + rateiv[0],
+        p[2] * x[1] - p[3] * x[2],
+    ])
+
+
+# name: (rhs, nstates, ndrugs, output state, volume column, support sampler)
+ODE_MODELS = {
+    "bolus_infusion": (rhs_bolus_infusion, 2, 1, 1, 2,
+                       lambda rng, S: np.column_stack([
+                           rng.uniform(0.5, 2.0, S), rng.uniform(0.05, 0.5, S),
+                           rng.uniform(30, 90, S)])),
+    "michaelis_menten": (rhs_michaelis_menten, 1, 1, 0, 2,
+                         lambda rng, S: np.column_stack([
+                             rng.uniform(5.0, 20.0, S), rng.uniform(5.0, 30.0, S),
+                             rng.uniform(20, 60, S)])),
+    "two_inputs": (rhs_two_inputs, 3, 2, 2, 3,
+                   lambda rng, S: np.column_stack([
+                       rng.uniform(0.5, 2.0, S), rng.uniform(0.3, 1.2, S),
+                       rng.uniform(0.05, 0.5, S), rng.uniform(8, 14, S)])),
+    "short": (rhs_short, 3, 1, 1, 4,
+              lambda rng, S: jittered_support([0.15, 1.2, 0.3, 0.2, 10.0], S, rng, 0.2)),
+}
+
+
+def ode_model(pt, name: str):
+    rhs, n, ndrugs, c, v = ODE_MODELS[name][:5]
+    return pt.ODE(rhs, out=lambda x, p, t, cov, c=c, v=v: x[c:c + 1] / p[v],
+                  nstates=n, ndrugs=ndrugs, nout=1)
+
+
+def ode_subjects(pt, name: str, n: int, rng):
+    """Phase-2 data: the JAX package's test_pallas_ode.py regimen (a bolus,
+    an infusion on every third subject, 5 observations), the two-input
+    budget regimen, or Short."""
+    if name == "short":
+        return short_subjects(pt, n, rng)
+    subjects = []
+    for i in range(n):
+        b = pt.Subject.builder(f"o{i}").bolus(0.0, 100.0, 0)
+        if name == "two_inputs":
+            b = b.bolus(1.0, 60.0, 1).infusion(2.0, 40.0, 1, 1.5)
+            times = (0.5, 1.5, 3.0, 5.0, 8.0, 12.0)
+        else:
+            if i % 3 == 0:
+                b = b.infusion(2.0, 50.0, 0, 1.0)
+            times = (0.5, 1.0, 2.0, 4.0, 8.0)
+        for t in times:
+            b = b.observation(t, float(abs(3.0 + rng.randn())), 0)
+        subjects.append(b.build())
+    return pt.Data(subjects)
+
+
+def ode_plan_for(model, data, support, ems, dtype):
+    from pharmsol_tpu_torch.likelihood.plans.ode import _FusedOdePsiPlan
+
+    grid = model.lower(data.subjects())
+    lowered = ems.lower(model.resolve_output_label, model.nouteqs())
+    return _FusedOdePsiPlan(model, grid, support, lowered, torch.device("cuda"), dtype)
+
+
+def run_ode_kernel(plan, plain: bool = False, merge: bool = True) -> torch.Tensor:
+    from pharmsol_tpu_torch.ops.fused_ode import psi_ode, psi_ode_plain
+
+    fn = psi_ode_plain if plain else psi_ode
+    return fn(*plan.streams, plan.support, plan.rhs, **plan.kernel_kwargs(merge))
+
+
+def ode_build_targets():
+    """The ODE library of every RHS this script runs (one per distinct
+    generated source)."""
+    from pharmsol_tpu_torch.ops import _build
+    from pharmsol_tpu_torch.ops.rhs_codegen import generate_rhs
+
+    targets = {}
+    for name, (rhs, n, ndrugs, _, v, _s) in ODE_MODELS.items():
+        gen = generate_rhs(rhs, n, v + 1, ndrugs)
+        targets.setdefault(gen.key, (name, _build.ode_target(gen)))
+    return list(targets.values())
+
+
+# ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
@@ -177,23 +302,36 @@ def phase_environment() -> str:
 def phase_build() -> float:
     from pharmsol_tpu_torch.ops import _build
 
-    path, seconds, output = _build.build(force=True, verbose=True)
-    log(f"[1] built {path.name} with nvcc in {seconds:.2f} s "
-        f"({' '.join(_build.NVCC_FLAGS)})")
-    # ptxas -v: one summary per instantiation (dtype, structure code)
-    kernel, spill = None, ""
-    for ln in output.splitlines():
-        m = re.search(r"fused_psi_kernelI([fd])Li(\d+)E", ln)
-        if m and "Compiling entry function" in ln:
-            kernel = f"{'f32' if m.group(1) == 'f' else 'f64'} code {m.group(2):>2}"
-        elif "spill stores" in ln:
-            spill = ln.strip()
-        elif "registers" in ln and kernel:
-            regs = ln.split("Used")[-1].split(",")[0].strip()
-            log(f"[1]   ptxas {kernel}: {regs}; {spill}")
-            kernel, spill = None, ""
+    ode_targets = ode_build_targets()
+    targets = [_build.psi_target()] + [t for _, t in ode_targets]
+    names = ["fused_psi"] + [f"fused_ode ({name})" for name, _ in ode_targets]
+    t0 = time.perf_counter()
+    results = _build.build_many(targets, force=True, verbose=True)
+    wall = time.perf_counter() - t0
+    log(f"[1] built {len(results)} libraries with nvcc in {wall:.2f} s wall, "
+        f"one process each ({' '.join(_build.NVCC_FLAGS)})")
+    for name, (path, seconds, output) in zip(names, results):
+        log(f"[1]   {name}: {path.name} in {seconds:.2f} s")
+        # ptxas -v: one summary per instantiation; all of K1a, and K2a for the
+        # 3-state Short RHS
+        if name.startswith("fused_ode") and "short" not in name:
+            continue
+        kernel, spill = None, ""
+        for ln in output.splitlines():
+            m = (re.search(r"fused_psi_kernelI([fd])Li(\d+)E", ln)
+                 or re.search(r"fused_ode_kernelI([fd])Li(\d+)E", ln))
+            if m and "Compiling entry function" in ln:
+                what = ("code" if "fused_psi" in ln else
+                        "solver " + ("dopri5" if m.group(2) == "0" else "tsit5"))
+                kernel = f"{'f32' if m.group(1) == 'f' else 'f64'} {what} {m.group(2):>2}"
+            elif "spill stores" in ln:
+                spill = ln.strip()
+            elif "registers" in ln and kernel:
+                regs = ln.split("Used")[-1].split(",")[0].strip()
+                log(f"[1]   ptxas {name} {kernel}: {regs}; {spill}")
+                kernel, spill = None, ""
     _build.load_library()
-    return seconds
+    return wall
 
 
 def phase_kernels(pt, rng) -> None:
@@ -239,6 +377,73 @@ def phase_kernels(pt, rng) -> None:
         log(f"[2] {name:46s} budget case f32 kernel {eb:.3e} (<= {budget:g})")
         if eb > budget:
             raise AssertionError(f"{name}: f32 kernel {eb} > budget {budget}")
+
+
+def phase_ode_kernels(pt, rng) -> None:
+    from pharmsol_tpu_torch.utils.f32_budget import F32_BUDGET, f32_error, ode_case
+
+    R, S = 257, 300
+    ems = pt.AssayErrorModels().add(
+        0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    for name in ("bolus_infusion", "michaelis_menten", "two_inputs"):
+        data = ode_subjects(pt, name, R, rng)
+        support = ODE_MODELS[name][5](rng, S)
+        for solver in ("dopri5", "tsit5"):
+            model = ode_model(pt, name).with_solver(solver)
+            plan64 = ode_plan_for(model, data, support, ems, torch.float64)
+            plan32 = ode_plan_for(model, data, support, ems, torch.float32)
+            if plan64.merge_runs is None:
+                raise AssertionError(f"{name}: no merged runs to check")
+            for merge in (True, False):
+                twin64 = run_ode_kernel(plan64, plain=True, merge=merge)
+                got64 = run_ode_kernel(plan64, merge=merge)
+                got32 = run_ode_kernel(plan32, merge=merge)
+                torch.cuda.synchronize()
+                label = f"{name}/{solver}/{'merged' if merge else 'per-segment'}"
+                if not (torch.isfinite(got64).all() and torch.isfinite(got32).all()):
+                    raise AssertionError(f"{label}: non-finite kernel psi")
+                e64 = rel_err(got64, twin64, 1.0)
+                e32 = f32_error(got32.cpu().numpy(), twin64.cpu().numpy())
+                log(f"[2] K2a {label:40s} {R}x{S} f64 kernel vs twin rel {e64:.3e} "
+                    f"(<= 1e-8); f32 kernel vs f64 twin {e32:.3e}")
+                if e64 > 1e-8:
+                    raise AssertionError(f"{label}: f64 kernel vs twin {e64} > 1e-8")
+    for name in ("ode_dopri5", "ode_multi_input"):
+        model, data, support, bems = ode_case(name)
+        golden = run_ode_kernel(ode_plan_for(model, data, support, bems,
+                                             torch.float64), plain=True)
+        got = run_ode_kernel(ode_plan_for(model, data, support, bems, torch.float32))
+        torch.cuda.synchronize()
+        eb = f32_error(got.cpu().numpy(), golden.cpu().numpy())
+        budget = F32_BUDGET[name]
+        log(f"[2] K2a budget case {name}: f32 kernel {eb:.3e} (<= {budget:g})")
+        if eb > budget:
+            raise AssertionError(f"{name}: f32 kernel {eb} > budget {budget}")
+
+
+def phase_cross_family(pt, rng) -> None:
+    """The Short 2-cmt oral ODE at tight tolerances against the closed form."""
+    R, S = 257, 300
+    ems = pt.AssayErrorModels().add(
+        0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    data = short_subjects(pt, R, rng)
+    support = ODE_MODELS["short"][5](rng, S)
+    pt.set_float_dtype(torch.float64)
+    ode = ode_model(pt, "short").with_tolerances(1e-9, 1e-9)
+    closed = pt.Analytical(pt.two_compartments_with_absorption,
+                           out=lambda x, p, t, cov: x[1:2] / p[4],
+                           nstates=3, ndrugs=1, nout=1)
+    psi_ode = pt.log_likelihood_matrix(ode, data, support, ems, device="cuda")
+    psi_cf = pt.log_likelihood_matrix(closed, data, support, ems, device="cuda")
+    torch.cuda.synchronize()
+    for m in (ode, closed):
+        if pt.last_engine_decision(m)["engine"] != "fused":
+            raise AssertionError(f"cross-family: {pt.last_engine_decision(m)}")
+    err = rel_err(psi_ode, psi_cf, 1.0)
+    log(f"[2] cross-family: Short ODE (rtol = atol = 1e-9) vs closed form "
+        f"{R}x{S} f64 rel {err:.3e} (<= 1e-5)")
+    if not (err <= 1e-5):
+        raise AssertionError(f"ODE vs closed form {err} > 1e-5")
 
 
 def slice_workloads(pt, rng):
@@ -328,6 +533,129 @@ def phase_kernel_at_slice(pt, workloads, ems) -> dict:
                 raise AssertionError(f"{label} {dtype}: kernel vs twin {rel} > {tol}")
             errs[(label, dtype)] = abs_err
     return errs
+
+
+def phase_ode_slice(pt, rng, data, ems) -> tuple:
+    """The ODE slice: Short as a 2-cmt oral ODE, 16384 x 512, K2a."""
+    from pharmsol_tpu_torch.ops import fused_ode
+    from pharmsol_tpu_torch.utils.f32_budget import F32_BUDGET, f32_error
+
+    label = f"ode_2cmt_oral_short_{len(data)}x512"
+    model = ode_model(pt, "short")
+    supports = [ODE_MODELS["short"][5](rng, 512) for _ in range(3)]
+    # the main path's run: every launch counted here is one of its calls
+    fused_ode.LAUNCHES = 0
+    results = []
+    for dtype in (torch.float32, torch.float64):
+        pt.set_float_dtype(dtype)
+        for sp in supports:
+            before = fused_ode.LAUNCHES
+            psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
+            torch.cuda.synchronize()
+            dec = pt.last_engine_decision(model)
+            launches = fused_ode.LAUNCHES - before
+            if dec["engine"] != "fused":
+                raise AssertionError(f"{label}: engine {dec}")
+            if launches != 1:
+                raise AssertionError(f"{label}: {launches} launches in one call")
+            if tuple(psi.shape) != (len(data), 512) or psi.device.type != "cuda":
+                raise AssertionError(f"{label}: psi {tuple(psi.shape)} on {psi.device}")
+            if not bool(torch.isfinite(psi).all()):
+                raise AssertionError(f"{label}: non-finite psi")
+            results.append((dtype, sp, psi))
+    launches = fused_ode.LAUNCHES
+    log(f"[3] ODE main path: {len(results)} log_likelihood_matrix calls on cuda, "
+        f"engine fused, {launches} K2a launches")
+    # agreement with the float64 general engine on the card (not counted above)
+    pt.set_float_dtype(torch.float64)
+    general = {}
+    for i, sp in enumerate(supports):
+        t0 = time.perf_counter()
+        general[i] = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda",
+                                              engine="general")
+        torch.cuda.synchronize()
+        log(f"[3] {label} general engine f64 call {i}: "
+            f"{time.perf_counter() - t0:.3f} s wall")
+    for j, (dtype, sp, psi) in enumerate(results):
+        want = general[j % len(supports)]
+        if dtype == torch.float64:
+            err, tol = rel_err(psi, want, 1.0), 1e-4
+        else:
+            err, tol = f32_error(psi.cpu().numpy(), want.cpu().numpy()), F32_BUDGET["ode_dopri5"]
+        log(f"[3] {label} {str(dtype)[6:]}: fused vs f64 general rel {err:.3e} "
+            f"(<= {tol:g}); psi mean {float(psi.double().mean()):.6f}")
+        if err > tol:
+            raise AssertionError(f"{label} {dtype}: fused vs general {err} > {tol}")
+    return label, model, launches
+
+
+def ode_end_to_end_parts(model, data, sp, ems, dtype, plan) -> dict:
+    """Wall times of the steps of one fused ODE log_likelihood_matrix call."""
+    from pharmsol_tpu_torch.engine.sim import NO_COVARIATES
+    from pharmsol_tpu_torch.ops.fused_psi import extract_linear_out, streams_from_grid
+
+    grid = model.lower(data.subjects())
+    lowered = ems.lower(model.resolve_output_label, model.nouteqs())
+    psi_rows = run_ode_kernel(plan)
+    return {
+        "lower_cached": wall_ms(lambda: model.lower(data.subjects()), 3),
+        "streams": wall_ms(lambda: streams_from_grid(
+            grid.rows, lowered, inputs=model.ndrugs()), 3),
+        "out_coef": wall_ms(lambda: extract_linear_out(
+            model._out, sp, model.nstates(), model.nouteqs(), NO_COVARIATES), 3),
+        "plan": wall_ms(lambda: ode_plan_for(model, data, sp, ems, dtype), 3),
+        "finalize": cuda_ms(lambda: plan.finalize(psi_rows), 10),
+    }
+
+
+def phase_ode_times(pt, label, model, data, ems, card: str) -> dict:
+    """K2a alone, its twin, the general engine and one end-to-end call at the
+    main path's shape; K2a held against its twin there."""
+    from pharmsol_tpu_torch.likelihood.matrix import _general_psi
+    from pharmsol_tpu_torch.utils.f32_budget import F32_BUDGET, f32_error
+
+    out = {}
+    sp = ODE_MODELS["short"][5](np.random.RandomState(SEED + 3), 512)
+    cells = len(data) * 512
+    twin64 = None
+    for dtype in (torch.float64, torch.float32):
+        pt.set_float_dtype(dtype)
+        plan = ode_plan_for(model, data, sp, ems, dtype)
+        grid = model.lower(data.subjects())
+        lowered = ems.lower(model.resolve_output_label, model.nouteqs())
+        got, twin = run_ode_kernel(plan), run_ode_kernel(plan, plain=True)
+        torch.cuda.synchronize()
+        d = str(dtype)[6:]
+        if dtype == torch.float64:
+            twin64 = twin
+            abs_err = float((got - twin).abs().max())
+            rel, tol = rel_err(got, twin, 1.0), 1e-8
+        else:
+            abs_err = float((got.double() - twin64).abs().max())
+            rel, tol = f32_error(got.cpu().numpy(), twin64.cpu().numpy()), F32_BUDGET["ode_dopri5"]
+        log(f"[3] K2a vs twin {label} {d}: max abs {abs_err:.3e}, rel {rel:.3e} "
+            f"(<= {tol:g}{'' if dtype == torch.float64 else ', against the f64 twin'})")
+        if rel > tol:
+            raise AssertionError(f"{label} {dtype}: K2a vs twin {rel} > {tol}")
+        t = {
+            "kernel": cuda_ms(lambda: run_ode_kernel(plan), 10),
+            "twin": cuda_ms(lambda: run_ode_kernel(plan, plain=True), 2, 1),
+            "general": wall_ms(lambda: _general_psi(
+                model, grid, sp, lowered, torch.device("cuda"), dtype), 2),
+            "end_to_end": wall_ms(lambda: pt.log_likelihood_matrix(
+                model, data, sp, ems, device="cuda"), 5),
+        }
+        for k, ms in t.items():
+            log(f"[4] {label} {d} {k:10s} {ms:10.3f} ms  "
+                f"{cells / (ms * 1e-3):.4g} cells/s  ({card})")
+        parts = ode_end_to_end_parts(model, data, sp, ems, dtype, plan)
+        log(f"[4] {label} {d} end_to_end parts (ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in parts.items()))
+        log(f"[4] {label} {d} kernel+finalize share of end_to_end "
+            f"{(t['kernel'] + parts['finalize']) / t['end_to_end']:.4f} ({card})")
+        t["abs_err"] = abs_err
+        out[dtype] = t
+    return out
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -441,6 +769,8 @@ def main() -> int:
     phase_build()
     torch.cuda.synchronize()
     phase_kernels(pt, rng)
+    phase_ode_kernels(pt, rng)
+    phase_cross_family(pt, rng)
     torch.cuda.synchronize()
     ems = pt.AssayErrorModels().add(
         0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
@@ -449,7 +779,11 @@ def main() -> int:
     torch.cuda.synchronize()
     errs = phase_kernel_at_slice(pt, workloads, ems)
     torch.cuda.synchronize()
+    short_data = workloads[0][2]
+    ode_label, ode, ode_launches = phase_ode_slice(pt, rng, short_data, ems)
+    torch.cuda.synchronize()
     times = phase_times(pt, workloads, ems, card)
+    ode_times = phase_ode_times(pt, ode_label, ode, short_data, ems, card)
     torch.cuda.synchronize()
 
     main_label = workloads[0][0]
@@ -466,7 +800,19 @@ def main() -> int:
         plain_ms_f64=t64["twin"],
         shape=main_label,
     )
-    print(json.dumps({"kernels": [record]}))
+    o32, o64 = ode_times[torch.float32], ode_times[torch.float64]
+    ode_record = dict(
+        ODE_KERNEL_RECORD,
+        launches=ode_launches,
+        max_abs_err=o64["abs_err"],
+        max_abs_err_f32=o32["abs_err"],
+        ms=o32["kernel"],
+        plain_ms=o32["twin"],
+        ms_f64=o64["kernel"],
+        plain_ms_f64=o64["twin"],
+        shape=ode_label,
+    )
+    print(json.dumps({"kernels": [record, ode_record]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

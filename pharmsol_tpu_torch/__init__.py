@@ -1,10 +1,12 @@
 """pharmsol_tpu_torch: the PyTorch/CUDA port of pharmsol-tpu.
 
 A second package beside the JAX package ``pharmsol_tpu`` (the reference it is
-held against). This first slice ports the population log-likelihood matrix
-("psi") of the closed-form models: the data layer, event-grid lowering, the
-12 analytical kernels, the general psi engine, and the fused psi path, whose
-kernel is hand-written CUDA for Hopper (``csrc/fused_psi.cu``).
+held against). It ports the population log-likelihood matrix ("psi") of the
+closed-form models and of ODE models: the data layer, event-grid lowering,
+the 12 analytical kernels, the explicit ODE steppers, the general psi engine,
+and the fused psi paths, whose kernels are hand-written CUDA for Hopper
+(``csrc/fused_psi.cu``; ``csrc/fused_ode.cu`` with a right-hand side
+generated from the model's closure).
 
 The device is explicit: ``config.set_device`` / ``device=`` (default
 ``"cpu"``). The working dtype defaults to float64 everywhere.
@@ -37,7 +39,7 @@ from .metadata import (  # noqa: F401
     RouteKind,
     ValidatedModelMetadata,
 )
-from .models.equation import Analytical, EquationBase  # noqa: F401
+from .models.equation import ODE, Analytical, EquationBase  # noqa: F401
 from .engine import analytical as kernels  # noqa: F401
 from .engine.analytical import (  # noqa: F401
     one_compartment,

@@ -2,7 +2,9 @@
 
 Duck-typed: nothing here imports jax or ``pharmsol_tpu``. Events are told
 apart by their class names, error models by their public attributes.
-Support points are the same numpy ``[S, n_params]`` array in both packages.
+Support points are the same numpy ``[S, n_params]`` array in both packages;
+an ODE model's solver options are its only other state (its closure is
+written once per framework from the same formula).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from .data.error_model import AssayErrorModel, AssayErrorModels, ErrorPoly, Fact
 from .data.event import Bolus, Censor, Infusion, Observation
 from .data.structs import Data, Occasion, Subject
 from .engine.grid import OccasionArrays, to_tensors
+from .engine.ode import ODEOptions
 
 
 def _event_from_reference(e):
@@ -71,3 +74,12 @@ def rows_from_reference(rows, device=None, dtype=None) -> OccasionArrays:
     host = OccasionArrays(*(np.asarray(getattr(rows, f))
                             for f in OccasionArrays._fields))
     return to_tensors(host, resolve_device(device), dtype or float_dtype())
+
+
+def ode_options_from_reference(opts) -> ODEOptions:
+    """The port's ODEOptions for a JAX package ``ODEOptions`` (solver,
+    tolerances, h0, step budget; the JAX-only ``unroll`` is dropped)."""
+    return ODEOptions(rtol=float(opts.rtol), atol=float(opts.atol),
+                      h0=float(opts.h0), max_steps=int(opts.max_steps),
+                      solver=str(opts.solver),
+                      newton_iters=int(opts.newton_iters))

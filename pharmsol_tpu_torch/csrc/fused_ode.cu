@@ -1,0 +1,520 @@
+// Fused population psi for ODE models, explicit Runge-Kutta tier, for Hopper
+// (sm_90a).
+//
+// Replaces the TPU kernel pharmsol_tpu/ops/pallas_ode.py::psi_ode
+// (_make_ode_kernel, the explicit `integrate` march: dopri5 and tsit5, merged
+// dense output, RHS-difference boluses, several dose inputs, linear outputs,
+// censoring). Plain PyTorch twin:
+// pharmsol_tpu_torch/ops/fused_ode.py::psi_ode_plain.
+//
+// The model's right-hand side is not written here: it is generated from the
+// model's torch closure by pharmsol_tpu_torch/ops/rhs_codegen.py as one
+// straight-line function `rhs<T>(x, p, t, b, rateiv, dx)` and included
+// through PHARMSOL_ODE_RHS, so each model builds its own library.
+//
+// Layout. One thread per (row, support) cell. threadIdx.x runs along the
+// supports, so the parameter rows [P, S], the output coefficients and the psi
+// writes [R, S] are coalesced, and the 32 threads of a warp share one row:
+// their reads of the row's streams [R, M] are broadcasts. Blocks stride over
+// rows in y; the ragged support edge is masked here. No padding of R, S or M,
+// and M has no limit. States, the 7 FSAL stages, the step size and the
+// controller live in registers; the tableaus are compile-time constants.
+//
+// Per cell, for each run of segments [m0, m1) (one segment per run, or a
+// merged run whose interior breakpoints carry observations only):
+// 1. add the observation term at m0, read before the dose;
+// 2. apply each active input's bolus by the RHS difference, x += f(x, b) -
+//    f(x, 0), the general engine's own semantics;
+// 3. march the run with the adaptive embedded pair (I-controller, growth in
+//    [0.2, 5]); on the first run the step starts from the Hairer-Norsett-
+//    Wanner estimate floored at h0, later runs reuse the last step. An
+//    accepted step that crosses an interior observation captures it from the
+//    tableau's quartic interpolant, x(theta) = x + h sum_i b_i(theta) k_i, at
+//    T_eff = min(T, target - 1e-6 target); zero-offset observations read the
+//    run's start state. A lane that stalls (t + h == t) or runs out of steps
+//    is poisoned to NaN, and so are the captures it never reached; a lane that
+//    arrives non-finite does not march.
+// Censored terms use the exact log of the normal CDF through erfcx/erfc.
+//
+// What bounds it. Arithmetic issue: each trial step costs 6 RHS evaluations
+// plus ~(7 + 6) * n fused multiply-adds for the stages and the error norm,
+// a square root and a power for the controller; a 3-state PK model takes
+// ~20-40 trials over a 12 h profile, about 10^4 instructions per cell. Memory
+// is minor (one psi value written per cell). Adaptive step counts differ
+// between the lanes of a warp, so a warp runs to its slowest lane; that and
+// the float64 pow/log software routines are the known costs of this first,
+// untuned version (no shared-memory staging, no tuning of the block shape).
+//
+// Build (plain C interface, loaded with ctypes; ops/_build.py):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+//        -Xcompiler -fPIC -I<dir> -DPHARMSOL_ODE_RHS='"rhs_<key>.cuh"' \
+//        -o libfused_ode_<hash>.so fused_ode.cu
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#ifndef PHARMSOL_ODE_RHS
+#error "define PHARMSOL_ODE_RHS as the generated RHS header (ops/_build.py)"
+#endif
+#include PHARMSOL_ODE_RHS
+
+namespace {
+
+constexpr int N = PHARMSOL_RHS_NSTATES;
+constexpr int NP = PHARMSOL_RHS_NPARAMS;
+constexpr int NIN = PHARMSOL_RHS_NINPUT;
+constexpr int NS = 7;  // stages of both tableaus (FSAL: stage 7 = f(x_new))
+
+// Butcher tableaus: the constants of pharmsol_tpu_torch/engine/ode.py, as
+// the same double expressions.
+template <int SOLVER>
+struct Tab;
+
+template <>
+struct Tab<0> {  // Dormand-Prince 5(4)
+  __host__ __device__ static constexpr double a(int i, int j) {
+    constexpr double A[NS][NS] = {
+        {0, 0, 0, 0, 0, 0, 0},
+        {1.0 / 5, 0, 0, 0, 0, 0, 0},
+        {3.0 / 40, 9.0 / 40, 0, 0, 0, 0, 0},
+        {44.0 / 45, -56.0 / 15, 32.0 / 9, 0, 0, 0, 0},
+        {19372.0 / 6561, -25360.0 / 2187, 64448.0 / 6561, -212.0 / 729, 0, 0, 0},
+        {9017.0 / 3168, -355.0 / 33, 46732.0 / 5247, 49.0 / 176, -5103.0 / 18656, 0, 0},
+        {35.0 / 384, 0.0, 500.0 / 1113, 125.0 / 192, -2187.0 / 6784, 11.0 / 84, 0}};
+    return A[i][j];
+  }
+  __host__ __device__ static constexpr double b(int i) {
+    constexpr double B[NS] = {35.0 / 384, 0.0, 500.0 / 1113, 125.0 / 192,
+                              -2187.0 / 6784, 11.0 / 84, 0.0};
+    return B[i];
+  }
+  // b5 - b4, as engine/ode.py _DP_E
+  __host__ __device__ static constexpr double e(int i) {
+    constexpr double E[NS] = {
+        35.0 / 384 - 5179.0 / 57600, 0.0 - 0.0, 500.0 / 1113 - 7571.0 / 16695,
+        125.0 / 192 - 393.0 / 640, -2187.0 / 6784 - -92097.0 / 339200,
+        11.0 / 84 - 187.0 / 2100, 0.0 - 1.0 / 40};
+    return E[i];
+  }
+  __host__ __device__ static constexpr double c(int i) {
+    constexpr double C[NS] = {0.0, 1.0 / 5, 3.0 / 10, 4.0 / 5, 8.0 / 9, 1.0, 1.0};
+    return C[i];
+  }
+};
+
+template <>
+struct Tab<1> {  // Tsitouras 5(4)
+  __host__ __device__ static constexpr double a(int i, int j) {
+    constexpr double A[NS][NS] = {
+        {0, 0, 0, 0, 0, 0, 0},
+        {0.161, 0, 0, 0, 0, 0, 0},
+        {-0.008480655492356989, 0.335480655492357, 0, 0, 0, 0, 0},
+        {2.8971530571054935, -6.359448489975075, 4.3622954328695815, 0, 0, 0, 0},
+        {5.325864828439257, -11.748883564062828, 7.4955393428898365,
+         -0.09249506636175525, 0, 0, 0},
+        {5.86145544294642, -12.92096931784711, 8.159367898576159,
+         -0.071584973281401, -0.028269050394068383, 0, 0},
+        {0.09646076681806523, 0.01, 0.4798896504144996, 1.379008574103742,
+         -3.290069515436081, 2.324710524099774, 0}};
+    return A[i][j];
+  }
+  __host__ __device__ static constexpr double b(int i) { return a(NS - 1, i); }
+  __host__ __device__ static constexpr double e(int i) {
+    constexpr double E[NS] = {
+        -0.00178001105222577714, -0.0008164344596567469, 0.007880878010261995,
+        -0.1447110071732629,     0.5823571654525552,     -0.45808210592918697,
+        0.015151515151515152};
+    return E[i];
+  }
+  __host__ __device__ static constexpr double c(int i) {
+    constexpr double C[NS] = {0.0, 0.161, 0.327, 0.9, 0.9800255409045097, 1.0, 1.0};
+    return C[i];
+  }
+};
+
+template <typename T>
+struct Fn;
+
+template <>
+struct Fn<float> {
+  static __device__ __forceinline__ float log1p(float v) { return log1pf(v); }
+  static __device__ __forceinline__ float erfc(float v) { return erfcf(v); }
+  static __device__ __forceinline__ float erfcx(float v) { return erfcxf(v); }
+};
+
+template <>
+struct Fn<double> {
+  static __device__ __forceinline__ double log1p(double v) { return ::log1p(v); }
+  static __device__ __forceinline__ double erfc(double v) { return ::erfc(v); }
+  static __device__ __forceinline__ double erfcx(double v) { return ::erfcx(v); }
+};
+
+// log Phi(v), exact: the left tail through the scaled complementary error
+// function, the right side through log1p.
+template <typename T>
+__device__ __forceinline__ T log_ndtr(T v) {
+  const T inv_sqrt2 = T(0.70710678118654752440);
+  if (v < T(0)) {
+    return pm_log(T(0.5) * Fn<T>::erfcx(-v * inv_sqrt2)) - T(0.5) * v * v;
+  }
+  return Fn<T>::log1p(T(-0.5) * Fn<T>::erfc(v * inv_sqrt2));
+}
+
+template <typename T>
+struct Args {
+  const T* seg_dt;     // [R, M]
+  const T* seg_bolus;  // [nb, R, M]
+  const T* seg_rate;   // [nr, R, M] or null
+  const T* obs_mask;   // [R, M]
+  const T* obs_value;
+  const T* obs_sigma;
+  const T* obs_cens;   // or null
+  const T* obs_outeq;  // or null when n_out == 1
+  const T* seg_t0;     // [R, M]
+  const T* params;     // [NP, S]
+  const T* coef;       // [n_out, N, S]
+  const T* bias;       // [n_out, S] or null
+  const T* dense;      // [NS, 4] quartic interpolant
+  const int* bolus_in; // [nb] RHS input of each bolus plane
+  const int* rate_in;  // [nr]
+  const int* runs;     // [n_runs + 1] run boundaries
+  T* out;              // [R, S]
+  int R, S, M, nb, nr, n_out, n_runs, max_iters;
+  T rtol, atol, h0;
+};
+
+// Observation term of stream element i for state xv (0 when masked).
+template <typename T>
+__device__ __forceinline__ T obs_term(const Args<T>& a, size_t i, int s,
+                                      const T* xv) {
+  if (!(a.obs_mask[i] > T(0))) return T(0);
+  const int k = a.n_out > 1 ? (int)a.obs_outeq[i] : 0;
+  T pred = T(0);
+  if (k >= 0 && k < a.n_out) {
+    const T* ck = a.coef + (size_t)k * N * a.S + s;
+    pred = ck[0] * xv[0];
+#pragma unroll
+    for (int j = 1; j < N; ++j) pred = pred + ck[(size_t)j * a.S] * xv[j];
+    if (a.bias != nullptr) pred = pred + a.bias[(size_t)k * a.S + s];
+  }
+  const T LOG_2PI = T(1.8378770664093454836);
+  const T sig = a.obs_sigma[i];
+  const T z = (a.obs_value[i] - pred) / sig;
+  const T sc = a.obs_cens != nullptr ? a.obs_cens[i] : T(0);
+  return sc == T(0) ? T(-0.5) * LOG_2PI - pm_log(sig) - T(0.5) * z * z
+                    : log_ndtr(sc * z);
+}
+
+template <typename T>
+__device__ __forceinline__ bool all_finite(const T* v) {
+  bool ok = true;
+#pragma unroll
+  for (int j = 0; j < N; ++j) ok = ok && isfinite(v[j]);
+  return ok;
+}
+
+// The adaptive march of one run (the JAX kernel's `integrate`, explicit
+// tier). x and h are updated in place; observation terms of the run's
+// interior columns m0+1..m1-1 are added to ll in column order.
+template <typename T, int SOLVER>
+__device__ __forceinline__ void march(const Args<T>& a, T* x, T& h, T& ll,
+                                      const T* p, const T* rate, T t0,
+                                      size_t row, int s, int m0, int m1,
+                                      bool estimate_h) {
+  using Tb = Tab<SOLVER>;
+  const T rtol = a.rtol, atol = a.atol;
+  T bz[NIN];
+#pragma unroll
+  for (int j = 0; j < NIN; ++j) bz[j] = T(0);
+
+  // run length and the first interior offset, summed as the JAX kernel does
+  T target = a.seg_dt[row + m0];
+  for (int mm = m0 + 1; mm < m1; ++mm) target = target + a.seg_dt[row + mm];
+  const T thr = target - T(1e-6) * pm_max(target, T(1e-30));
+  const bool live0 = target > T(0) && all_finite(x);
+  int mm = m0 + 1;                 // next interior column
+  T Tj = a.seg_dt[row + m0];       // its offset from the run's start
+  // zero-offset observations read the run's start state
+  while (mm < m1 && Tj <= T(0)) {
+    ll += obs_term(a, row + mm, s, x);
+    Tj = Tj + a.seg_dt[row + mm];
+    ++mm;
+  }
+
+  T ks[NS][N];
+  rhs<T>(x, p, t0, bz, rate, ks[0]);
+  if (estimate_h) {
+    // Hairer-Norsett-Wanner II.4 starting step, floored at h0
+    T d0 = T(0), d1 = T(0);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const T sc = atol + rtol * pm_abs(x[j]);
+      d0 = d0 + (x[j] / sc) * (x[j] / sc);
+      d1 = d1 + (ks[0][j] / sc) * (ks[0][j] / sc);
+    }
+    d0 = pm_sqrt(d0 / T(N));
+    d1 = pm_sqrt(d1 / T(N));
+    const T h0a = (d0 > T(1e-5) && d1 > T(1e-5))
+                      ? T(0.01) * d0 / pm_max(d1, T(1e-30)) : T(1e-6);
+    T x1[N], f1[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) x1[j] = x[j] + h0a * ks[0][j];
+    rhs<T>(x1, p, t0 + h0a, bz, rate, f1);
+    T d2 = T(0);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const T sc = atol + rtol * pm_abs(x[j]);
+      const T q = (f1[j] - ks[0][j]) / sc;
+      d2 = d2 + q * q;
+    }
+    d2 = pm_sqrt(d2 / T(N)) / h0a;
+    const T dmax = pm_max(d1, d2);
+    const T h1 = dmax > T(1e-15)
+                     ? pm_pow(T(0.01) / pm_max(dmax, T(1e-30)), T(0.2))
+                     : pm_max(T(1e-6), h0a * T(1e3));
+    const T h_est = pm_min(T(100) * h0a, h1);
+    if (isfinite(h_est)) h = pm_max(h_est, a.h0);
+  }
+
+  T tau = T(0);
+  T hc = pm_min(h, pm_max(target, T(1e-14)));
+  bool live = live0;
+  for (int it = 0; it < a.max_iters && live; ++it) {
+    const T ht = pm_min(hc, pm_max(target - tau, T(1e-14)));
+#pragma unroll
+    for (int i = 1; i < NS; ++i) {
+      T xi[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        T acc = T(0);
+        bool any = false;
+#pragma unroll
+        for (int l = 0; l < i; ++l) {
+          if (Tb::a(i, l) != 0.0) {
+            acc = any ? acc + ks[l][j] * T(Tb::a(i, l)) : ks[l][j] * T(Tb::a(i, l));
+            any = true;
+          }
+        }
+        xi[j] = x[j] + ht * acc;
+      }
+      rhs<T>(xi, p, t0 + tau + T(Tb::c(i)) * ht, bz, rate, ks[i]);
+    }
+    T xn[N];
+    T err2 = T(0);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      T accb = T(0), acce = T(0);
+      bool anyb = false, anye = false;
+#pragma unroll
+      for (int l = 0; l < NS; ++l) {
+        if (Tb::b(l) != 0.0) {
+          accb = anyb ? accb + ks[l][j] * T(Tb::b(l)) : ks[l][j] * T(Tb::b(l));
+          anyb = true;
+        }
+        if (Tb::e(l) != 0.0) {
+          acce = anye ? acce + ks[l][j] * T(Tb::e(l)) : ks[l][j] * T(Tb::e(l));
+          anye = true;
+        }
+      }
+      xn[j] = x[j] + ht * accb;
+      const T scale = atol + rtol * pm_max(pm_abs(x[j]), pm_abs(xn[j]));
+      const T q = (ht * acce) / scale;
+      err2 = err2 + q * q;
+    }
+    const T ratio = pm_sqrt(err2 / T(N));
+    const bool finite = isfinite(ratio) && all_finite(xn);
+    const bool accept = ratio <= T(1) && finite;
+    const T factor =
+        finite ? pm_min(pm_max(T(0.9) * pm_pow(pm_max(ratio, T(1e-10)), T(-0.2)),
+                               T(0.2)), T(5.0))
+               : T(0.25);
+    if (accept) {
+      // dense-output captures of the interior observations this step crosses
+      while (mm < m1) {
+        const T te = pm_min(Tj, thr);
+        if (!(te <= tau + ht)) break;
+        const T th = (te - tau) / ht;
+        T xt[N];
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          T acc = T(0);
+#pragma unroll
+          for (int l = 0; l < NS; ++l) {
+            const T* P = a.dense + 4 * l;
+            acc = acc + ks[l][j] * (P[0] + th * (P[1] + th * (P[2] + th * P[3])));
+          }
+          xt[j] = x[j] + ht * th * acc;
+        }
+        ll += obs_term(a, row + mm, s, xt);
+        Tj = Tj + a.seg_dt[row + mm];
+        ++mm;
+      }
+      tau = tau + ht;
+#pragma unroll
+      for (int j = 0; j < N; ++j) x[j] = xn[j];
+      if (all_finite(ks[NS - 1])) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) ks[0][j] = ks[NS - 1][j];
+      }
+    }
+    hc = pm_max(ht * factor, T(1e-14));
+    const bool done = tau >= thr;
+    const bool stalled = (tau + hc) <= tau && !done;
+    live = !done && !stalled;
+  }
+  if (tau < thr) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[j] = T(NAN);
+  }
+  // captures an incomplete lane never reached
+  T xnan[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) xnan[j] = T(NAN);
+  for (; mm < m1; ++mm) ll += obs_term(a, row + mm, s, xnan);
+  if (live0) h = hc;
+}
+
+template <typename T, int SOLVER>
+__global__ void __launch_bounds__(256) fused_ode_kernel(const Args<T> a) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= a.S) return;
+  T p[NP];
+#pragma unroll
+  for (int j = 0; j < NP; ++j) p[j] = a.params[(size_t)j * a.S + s];
+  const size_t RM = (size_t)a.R * a.M;
+
+  for (int r = blockIdx.y * blockDim.y + threadIdx.y; r < a.R;
+       r += gridDim.y * blockDim.y) {
+    const size_t row = (size_t)r * a.M;
+    T x[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[j] = T(0);
+    T ll = T(0);
+    T h = a.h0;
+    for (int ri = 0; ri < a.n_runs; ++ri) {
+      const int m0 = a.runs[ri], m1 = a.runs[ri + 1];
+      const size_t i0 = row + m0;
+      // 1. the observation at the run's start, before its dose
+      ll += obs_term(a, i0, s, x);
+      // the run's infusion rates, one per RHS input
+      T rate[NIN];
+#pragma unroll
+      for (int j = 0; j < NIN; ++j) rate[j] = T(0);
+      for (int k = 0; k < a.nr; ++k) {
+        const T v = a.seg_rate[k * RM + i0];
+        const int in = a.rate_in[k];
+#pragma unroll
+        for (int j = 0; j < NIN; ++j) rate[j] = (j == in) ? v : rate[j];
+      }
+      const T t0 = a.seg_t0[i0];
+      // 2. boluses by the RHS difference, input by input
+      for (int k = 0; k < a.nb; ++k) {
+        const T amt = a.seg_bolus[k * RM + i0];
+        if (amt == T(0)) continue;
+        const int in = a.bolus_in[k];
+        T bv[NIN], bz[NIN], dw[N], dz[N];
+#pragma unroll
+        for (int j = 0; j < NIN; ++j) {
+          bv[j] = (j == in) ? amt : T(0);
+          bz[j] = T(0);
+        }
+        rhs<T>(x, p, t0, bv, rate, dw);
+        rhs<T>(x, p, t0, bz, rate, dz);
+#pragma unroll
+        for (int j = 0; j < N; ++j) x[j] = x[j] + (dw[j] - dz[j]);
+      }
+      // 3. the adaptive march over the run
+      march<T, SOLVER>(a, x, h, ll, p, rate, t0, row, s, m0, m1, m0 == 0);
+    }
+    a.out[(size_t)r * a.S + s] = ll;
+  }
+}
+
+template <typename T, int SOLVER>
+cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
+  if (a.R <= 0 || a.S <= 0) return cudaSuccess;
+  const dim3 block(128, 2);
+  const unsigned gx = (unsigned)((a.S + block.x - 1) / block.x);
+  unsigned gy = (unsigned)((a.R + block.y - 1) / block.y);
+  if (gy > 65535u) gy = 65535u;
+  fused_ode_kernel<T, SOLVER><<<dim3(gx, gy), block, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run(int solver, const void* const* p, const int* ints, void* out,
+                int R, int S, int M, int nb, int nr, int n_out, int n_runs,
+                double rtol, double atol, double h0, int max_iters,
+                cudaStream_t st) {
+  Args<T> a;
+  a.seg_dt = (const T*)p[0];
+  a.seg_bolus = (const T*)p[1];
+  a.seg_rate = (const T*)p[2];
+  a.obs_mask = (const T*)p[3];
+  a.obs_value = (const T*)p[4];
+  a.obs_sigma = (const T*)p[5];
+  a.obs_cens = (const T*)p[6];
+  a.obs_outeq = (const T*)p[7];
+  a.seg_t0 = (const T*)p[8];
+  a.params = (const T*)p[9];
+  a.coef = (const T*)p[10];
+  a.bias = (const T*)p[11];
+  a.dense = (const T*)p[12];
+  a.bolus_in = ints;
+  a.rate_in = ints + nb;
+  a.runs = ints + nb + nr;
+  a.out = (T*)out;
+  a.R = R; a.S = S; a.M = M; a.nb = nb; a.nr = nr; a.n_out = n_out;
+  a.n_runs = n_runs; a.max_iters = max_iters;
+  a.rtol = (T)rtol; a.atol = (T)atol; a.h0 = (T)h0;
+  switch (solver) {
+    case 0: return launch<T, 0>(a, st);
+    case 1: return launch<T, 1>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// Launch on `stream`. Pointers: seg_dt [R, M], seg_bolus [nb, R, M],
+// seg_rate [nr, R, M] (or null with nr == 0), obs_mask, obs_value, obs_sigma,
+// obs_cens (or null), obs_outeq (or null when n_out == 1), seg_t0: [R, M];
+// params [NP, S]; coef [n_out, N, S]; bias [n_out, S] (or null); dense
+// [7, 4]; ints: int32 [nb bolus inputs, nr rate inputs, n_runs + 1 run
+// boundaries]; out [R, S]. All floating data float (is_f64 == 0) or double.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int fused_ode_launch(int is_f64, int solver, const void* seg_dt,
+                                const void* seg_bolus, const void* seg_rate,
+                                const void* obs_mask, const void* obs_value,
+                                const void* obs_sigma, const void* obs_cens,
+                                const void* obs_outeq, const void* seg_t0,
+                                const void* params, const void* coef,
+                                const void* bias, const void* dense,
+                                const void* ints, void* out, int R, int S,
+                                int M, int nb, int nr, int n_out, int n_runs,
+                                double rtol, double atol, double h0,
+                                int max_iters, void* stream) {
+  const void* p[13] = {seg_dt, seg_bolus, seg_rate, obs_mask, obs_value,
+                       obs_sigma, obs_cens, obs_outeq, seg_t0, params, coef,
+                       bias, dense};
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* iv = (const int*)ints;
+  cudaError_t err =
+      is_f64 ? run<double>(solver, p, iv, out, R, S, M, nb, nr, n_out, n_runs,
+                           rtol, atol, h0, max_iters, st)
+             : run<float>(solver, p, iv, out, R, S, M, nb, nr, n_out, n_runs,
+                          rtol, atol, h0, max_iters, st);
+  return (int)err;
+}
+
+// The generated RHS this library was built with: {states, params, inputs}.
+extern "C" void fused_ode_signature(int* out3) {
+  out3[0] = N;
+  out3[1] = NP;
+  out3[2] = NIN;
+}
+
+extern "C" const char* fused_ode_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

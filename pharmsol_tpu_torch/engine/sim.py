@@ -8,12 +8,16 @@ states are ``[S, R, nstates]`` tensors over supports S and occasion rows R.
 - the observation at a breakpoint reads the state *before* its bolus
   (observation-before-dose ordering at equal times);
 - the bolus payload is applied through the model's ``apply_bolus`` hook
-  (analytical: ``x[input] += amount``);
-- the segment is then propagated by the model's closed form.
+  (analytical: ``x[input] += amount``; ODE: the RHS difference of
+  ode/mod.rs:644-687);
+- the segment is then propagated by the model's closed form, or by the ODE
+  stepper, which carries its cruise step from one segment to the next.
 
-Model closures (``out``, the kernel, its prepared split) are written for one
-(state, parameter) pair, as in the JAX package, and are evaluated here
-through ``torch.func.vmap`` over supports and rows.
+Model closures (``out``, the kernel, its prepared split, the ODE right-hand
+side) are written for one (state, parameter) pair, as in the JAX package, and
+are evaluated here through ``torch.func.vmap`` over supports and rows. The
+ODE stepper (``propagate_carry``) is itself batched over the lanes: its
+adaptive loop cannot be vmapped.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from .grid import OccasionArrays, build_segments
 
 
 class ModelSpec(NamedTuple):
-    """The role decomposition an analytical model lowers to."""
+    """The role decomposition an analytical or ODE model lowers to."""
 
     nstates: int
     ninput: int
@@ -44,6 +48,11 @@ class ModelSpec(NamedTuple):
     # rateiv, t0, cov) runs per segment with the dt-dependent work only.
     prepare: Optional[Callable] = None
     propagate_prepared: Optional[Callable] = None
+    # ODE: propagate_carry(x [S, R, n], p [S, P], dt [R], rateiv [R, ninput],
+    # t0 [R], cov, h [S, R]) -> (x_next, h_next), batched over the lanes. The
+    # march threads h (the solver's cruise step) across segments, warm-
+    # starting each segment's adaptive controller; 0.0 = no history.
+    propagate_carry: Optional[Callable] = None
 
 
 class NoCovariates:
@@ -75,6 +84,25 @@ def default_apply_bolus(nstates: int):
         elif pad < 0:
             bvec = bvec[:nstates]
         return x + bvec
+
+    return apply
+
+
+def rhs_difference_apply_bolus(diffeq: Callable):
+    """ODE bolus via RHS difference (ode/mod.rs:644-687).
+
+    ``delta = f(x, b) - f(x, 0)`` applied instantaneously: for the canonical
+    ``dx[i] += b[j]`` pattern this adds the dose; it also honors scaled or
+    multi-state mappings of ``b`` written in user RHS code.
+    """
+
+    def apply(x, bvec, p, t, rateiv, cov):
+        dx_with = diffeq(x, p, t, bvec, rateiv, cov)
+        dx_without = diffeq(x, p, t, torch.zeros_like(bvec), rateiv, cov)
+        if not isinstance(dx_with, torch.Tensor):
+            dx_with = torch.stack(list(dx_with))
+            dx_without = torch.stack(list(dx_without))
+        return x + (dx_with - dx_without).reshape(x.shape)
 
     return apply
 
@@ -131,23 +159,27 @@ def simulate_occasion_ll(
     out_b = vmap(vmap(out_one, in_dims=(0, None, 0)), in_dims=(0, 0, None))
     bolus_b = vmap(vmap(bolus_one, in_dims=(0, 0, None, 0, 0)),
                    in_dims=(0, None, 0, None, None))
-    # per-support propagation state: the prepared aux, else the parameters
-    if spec.prepare is not None:
-        aux = vmap(lambda pp: spec.prepare(pp, cov))(p)
+    # per-support propagation state: the prepared aux, else the parameters;
+    # the ODE stepper is batched already and takes neither
+    use_carry = spec.propagate_carry is not None
+    if not use_carry:
+        if spec.prepare is not None:
+            aux = vmap(lambda pp: spec.prepare(pp, cov))(p)
 
-        def prop_one(a, x, dt, rateiv, t):
-            return spec.propagate_prepared(a, x, dt, rateiv, t, cov).to(fd)
-    else:
-        aux = p
+            def prop_one(a, x, dt, rateiv, t):
+                return spec.propagate_prepared(a, x, dt, rateiv, t, cov).to(fd)
+        else:
+            aux = p
 
-        def prop_one(pp, x, dt, rateiv, t):
-            return spec.propagate(x, pp, dt, rateiv, t, cov).to(fd)
+            def prop_one(pp, x, dt, rateiv, t):
+                return spec.propagate(x, pp, dt, rateiv, t, cov).to(fd)
 
-    prop_b = vmap(vmap(prop_one, in_dims=(None, 0, 0, 0, 0)),
-                  in_dims=(0, 0, None, None, None))
+        prop_b = vmap(vmap(prop_one, in_dims=(None, 0, 0, 0, 0)),
+                      in_dims=(0, 0, None, None, None))
 
     x = torch.zeros((S, R, spec.nstates), dtype=fd, device=p.device)
     ll = torch.zeros((S, R), dtype=fd, device=p.device)
+    sc = torch.zeros((S, R), dtype=fd, device=p.device)  # carried ODE step
     zero = torch.zeros((), dtype=fd, device=p.device)
     for m in range(M):
         t = segs.t[:, m]
@@ -173,6 +205,11 @@ def simulate_occasion_ll(
         x_dosed = bolus_b(x, bvec, p, t, rateiv)
         x = torch.where((b_amt != 0.0).view(1, R, 1), x_dosed, x)
 
-        x_prop = prop_b(aux, x, dt, rateiv, t)
-        x = torch.where((dt > 0.0).view(1, R, 1), x_prop, x)
+        has_span = (dt > 0.0).view(1, R)
+        if use_carry:
+            x_prop, sc_new = spec.propagate_carry(x, p, dt, rateiv, t, cov, sc)
+            sc = torch.where(has_span, sc_new, sc)
+        else:
+            x_prop = prop_b(aux, x, dt, rateiv, t)
+        x = torch.where(has_span[..., None], x_prop, x)
     return ll

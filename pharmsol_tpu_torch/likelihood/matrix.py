@@ -9,11 +9,13 @@ Two engines compute it:
 
 - ``general``: the segment march of ``engine/sim.py`` over every (support,
   occasion row) pair as batched tensors, then a sum of occasion rows into
-  subjects. It takes any Analytical model the port supports. The JAX
+  subjects. It takes any Analytical or ODE model the port supports. The JAX
   package calls its counterpart ``xla``.
-- ``fused``: the hand-written CUDA kernel (``ops/fused_psi.py``, its plain
-  twin on the CPU) through ``plans/analytical.py::_FusedPsiPlan``. The JAX
-  package calls its counterpart ``pallas``.
+- ``fused``: a hand-written CUDA kernel (its plain twin on the CPU): for
+  closed-form models ``ops/fused_psi.py`` through
+  ``plans/analytical.py::_FusedPsiPlan``, for ODE models ``ops/fused_ode.py``
+  through ``plans/ode.py::_FusedOdePsiPlan``. The JAX package calls its
+  counterpart ``pallas``.
 
 ``engine='auto'`` takes ``fused`` on a CUDA device for every model the
 fused plan accepts, and ``general`` on the CPU. A model outside the plan's
@@ -80,6 +82,18 @@ def _auto_engine(device: torch.device) -> tuple:
     )
 
 
+def _fused_plan(equation, grid, sp, lowered, device, dtype):
+    """The fused plan of the equation's family (PharmsolError when the model
+    is outside its scope)."""
+    if getattr(equation, "kind", None) == "ode":
+        from .plans.ode import _FusedOdePsiPlan
+
+        return _FusedOdePsiPlan(equation, grid, sp, lowered, device, dtype)
+    from .plans.analytical import _FusedPsiPlan
+
+    return _FusedPsiPlan(equation, grid, sp, lowered, device, dtype)
+
+
 def _device_rows(grid, device, dtype):
     """The grid's rows as tensors on ``device``, cached on the grid."""
     from ..engine.grid import to_tensors
@@ -125,10 +139,12 @@ def log_likelihood_matrix(
     (default :func:`~pharmsol_tpu_torch.config.device`).
 
     ``engine``: ``'auto'`` (default), ``'general'`` or ``'fused'`` (see the
-    module docstring). The fused kernel supports every built-in structure
-    with outputs linear in the state (support columns = kernel params, then
-    the out closure's parameters), bolus/infusion regimens into input 0,
-    censoring and errorpoly overrides.
+    module docstring). The closed-form kernel supports every built-in
+    structure with outputs linear in the state (support columns = kernel
+    params, then the out closure's parameters), bolus/infusion regimens into
+    input 0, censoring and errorpoly overrides. The ODE kernel supports
+    dopri5 and tsit5, doses into any input, linear outputs and censoring, for
+    every RHS the CUDA generator accepts (``ops/rhs_codegen.py``).
 
     Divergence note (as in the JAX package): the reference aborts the whole
     matrix on a simulation error; here non-finite cells are mapped to -inf
@@ -157,19 +173,15 @@ def log_likelihood_matrix(
         )
     plan = None
     if engine == "auto":
-        from .plans.analytical import _FusedPsiPlan
-
         engine, reason = _auto_engine(dev)
         if engine == "fused":
             try:
-                plan = _FusedPsiPlan(equation, grid, sp, lowered, dev, dtype)
+                plan = _fused_plan(equation, grid, sp, lowered, dev, dtype)
             except PharmsolError as e:
                 engine, reason = "general", f"fused plan rejected the model: {e}"
         equation._last_engine_decision = {"engine": engine, "reason": reason}
     elif engine == "fused":
-        from .plans.analytical import _FusedPsiPlan
-
-        plan = _FusedPsiPlan(equation, grid, sp, lowered, dev, dtype)
+        plan = _fused_plan(equation, grid, sp, lowered, dev, dtype)
 
     if plan is not None:
         psi = plan.run()

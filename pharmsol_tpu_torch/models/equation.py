@@ -1,4 +1,4 @@
-"""Equation families of the PyTorch port: Analytical.
+"""Equation families of the PyTorch port: Analytical and ODE.
 
 Public surface parity with the JAX package's ``models/equation.py`` (and the
 reference ``Equation`` trait, equation/mod.rs:377-577) for what the
@@ -17,7 +17,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 from ..data.structs import Subject
 from ..engine.grid import PopulationGrid, lower_population
-from ..engine.sim import ModelSpec, default_apply_bolus
+from ..engine.ode import ODEOptions, make_ode_propagate, make_ode_propagate_carry
+from ..engine.sim import ModelSpec, default_apply_bolus, rhs_difference_apply_bolus
 from ..errors import (
     InputOutOfRangeError,
     PharmsolError,
@@ -25,6 +26,15 @@ from ..errors import (
     unknown_output_label,
 )
 from ..metadata import ModelKind, ModelMetadata, RouteKind, ValidatedModelMetadata
+
+
+def _raise_unported(**closures) -> None:
+    unported = [name for name, fn in closures.items() if fn is not None]
+    if unported:
+        raise PharmsolError(
+            f"the PyTorch port does not support {', '.join(unported)} "
+            "equations yet (use the JAX package pharmsol_tpu)"
+        )
 
 
 class EquationBase:
@@ -204,14 +214,7 @@ class Analytical(EquationBase):
         ndrugs: int = 5,
         nout: int = 5,
     ):
-        unported = [name for name, fn in (("seq", seq_eq), ("lag", lag),
-                                          ("fa", fa), ("init", init))
-                    if fn is not None]
-        if unported:
-            raise PharmsolError(
-                f"the PyTorch port does not support {', '.join(unported)} "
-                "equations yet (use the JAX package pharmsol_tpu)"
-            )
+        _raise_unported(seq=seq_eq, lag=lag, fa=fa, init=init)
         super().__init__(nstates, ndrugs, nout)
         self._eq = eq
         self._out = out
@@ -250,4 +253,88 @@ class Analytical(EquationBase):
             apply_bolus=default_apply_bolus(self._nstates),
             prepare=prepare,
             propagate_prepared=propagate_prepared,
+        )
+
+
+class ODE(EquationBase):
+    """Numerically integrated ODE equation family.
+
+    Parity: ode/mod.rs and the JAX package's ``ODE``.
+    ``diffeq(x, p, t, b, rateiv, cov) -> dx`` (the reference closure writes
+    into ``dx``; here it is returned, e.g. as ``torch.stack([...])``).
+    Boluses are applied by the RHS difference (ode/mod.rs:644-687); segment
+    boundaries replace the solver's left/right-continuity machinery.
+
+    Solvers: dopri5 (default) and tsit5. Lag, bioavailability (fa) and init
+    equations are part of the signature but not of the port yet: passing one
+    raises.
+    """
+
+    kind = "ode"
+
+    def __init__(
+        self,
+        diffeq: Callable,
+        lag: Optional[Callable] = None,
+        fa: Optional[Callable] = None,
+        init: Optional[Callable] = None,
+        out: Optional[Callable] = None,
+        nstates: int = 5,
+        ndrugs: int = 5,
+        nout: int = 5,
+    ):
+        _raise_unported(lag=lag, fa=fa, init=init)
+        super().__init__(nstates, ndrugs, nout)
+        self._diffeq = diffeq
+        self._out = out
+        self._opts = ODEOptions(solver="dopri5")
+        # generated CUDA right-hand sides, by (support columns, inputs)
+        self._rhs_cache: Dict[tuple, object] = {}
+
+    def _model_kind(self) -> ModelKind:
+        return ModelKind.ODE
+
+    def _invalidate(self):
+        super()._invalidate()
+        self._rhs_cache = {}
+
+    # -- solver configuration (ode/mod.rs:135-166) ------------------------------
+    def with_solver(self, solver: str):
+        self._opts = self._opts._replace(solver=str(solver))
+        self._invalidate()
+        return self
+
+    def with_tolerances(self, rtol: float, atol: float):
+        self._opts = self._opts._replace(rtol=float(rtol), atol=float(atol))
+        self._invalidate()
+        return self
+
+    def with_max_steps(self, max_steps: int):
+        self._opts = self._opts._replace(max_steps=int(max_steps))
+        self._invalidate()
+        return self
+
+    def with_h0(self, h0: float):
+        self._opts = self._opts._replace(h0=float(h0))
+        self._invalidate()
+        return self
+
+    def with_newton_iters(self, n: int):
+        self._opts = self._opts._replace(newton_iters=int(n))
+        self._invalidate()
+        return self
+
+    def _build_spec(self) -> ModelSpec:
+        diffeq = self._diffeq
+        n, ninput = self._nstates, self._ndrugs
+        out = self._out or (lambda x, p, t, cov: x[: self._nout])
+        return ModelSpec(
+            nstates=n,
+            ninput=ninput,
+            nout=self._nout,
+            propagate=make_ode_propagate(diffeq, n, ninput, self._opts),
+            out=out,
+            apply_bolus=rhs_difference_apply_bolus(diffeq),
+            propagate_carry=make_ode_propagate_carry(diffeq, n, ninput,
+                                                     self._opts),
         )

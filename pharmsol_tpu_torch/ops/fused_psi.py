@@ -701,22 +701,26 @@ def segment_schedule(rows):
     return order, t_sorted, seg_dt, rank_sorted >= 1.0
 
 
-def streams_from_grid(rows, lowered_em):
+def streams_from_grid(rows, lowered_em, inputs: Optional[int] = None):
     """Convert stacked host OccasionArrays rows into kernel segment streams.
 
-    Requirements of the fused kernel's model shape: boluses into input 0
-    (the structure's dose compartment: depot for *_with_absorption, central
-    for IV structures), infusions into input 0 (central), outputs linear in
-    the state, additive or proportional assay error. BLOQ/ALOQ-censored
-    observations contribute log CDF/CCDF terms. Multi-dose schedules and
-    mixed bolus+infusion regimens are supported; the per-segment infusion
-    rate uses the same midpoint containment as the general engine.
-    Observation sigmas use each observation's own outeq error model
-    (loglik.observation_sigmas parity), so multi-output models work.
+    ``inputs=None`` (the analytical plan): doses must target input 0 (the
+    structure's dose compartment: depot for *_with_absorption, central for
+    IV structures) and ``seg_bolus`` / ``seg_rateiv`` are [R, M].
+    ``inputs=k`` (the ODE plan): doses may target any input below k, and the
+    two dose streams come back stacked per input as [R, M, k].
+
+    Outputs must be linear in the state, with additive or proportional assay
+    error. BLOQ/ALOQ-censored observations contribute log CDF/CCDF terms.
+    Multi-dose schedules and mixed bolus+infusion regimens are supported; the
+    per-segment infusion rate uses the same midpoint containment as the
+    general engine. Observation sigmas use each observation's own outeq error
+    model (loglik.observation_sigmas parity), so multi-output models work.
 
     Returns float64 numpy (seg_dt, seg_bolus, seg_rateiv, obs_mask,
-    obs_value, obs_sigma, obs_cens, obs_outeq), each [R, M]. Raises
-    ValueError for a dose into another input.
+    obs_value, obs_sigma, obs_cens, obs_outeq), each [R, M] (the dose
+    streams as above). Raises ValueError for a dose into an input outside
+    that rule.
     """
     from ..config import BIG_TIME
 
@@ -725,20 +729,24 @@ def streams_from_grid(rows, lowered_em):
     valid_rows = np.asarray(rows.obs_valid) & np.asarray(rows.obs_has_value)
     real_bolus = bolus_t < BIG_TIME / 2
     bolus_input = np.asarray(rows.bolus_input)
-    if np.any(bolus_input[real_bolus] != 0):
+    if inputs is None and np.any(bolus_input[real_bolus] != 0):
         raise ValueError(
             "the fused psi kernel supports boluses into input 0 (the "
             "structure's dose compartment) only"
         )
+    if inputs is not None and np.any(bolus_input[real_bolus] >= inputs):
+        raise ValueError(f"bolus targets input >= ninput ({inputs})")
     NI = inf_t.shape[1]
+    inf_input = np.asarray(rows.inf_input)
     if NI:
         real_inf = inf_t < BIG_TIME / 2
-        inf_input = np.asarray(rows.inf_input)
-        if np.any(inf_input[real_inf] != 0):
+        if inputs is None and np.any(inf_input[real_inf] != 0):
             raise ValueError(
                 "the fused psi kernel supports infusions into input 0 "
                 "(central) only"
             )
+        if inputs is not None and np.any(inf_input[real_inf] >= inputs):
+            raise ValueError(f"infusion targets input >= ninput ({inputs})")
     obs_t = np.asarray(rows.obs_t, dtype=np.float64)
     R, NO = obs_t.shape
     inf_dur = np.asarray(rows.inf_dur, dtype=np.float64)
@@ -758,7 +766,14 @@ def streams_from_grid(rows, lowered_em):
     bolus_amt = np.where(
         bolus_t < BIG_TIME / 2, np.asarray(rows.bolus_amt, dtype=np.float64), 0.0
     )
-    seg_bolus = scatter(with_zero_pads(np.zeros_like(obs_t), bolus_amt))
+    if inputs is None:
+        seg_bolus = scatter(with_zero_pads(np.zeros_like(obs_t), bolus_amt))
+    else:
+        seg_bolus = np.stack([
+            scatter(with_zero_pads(np.zeros_like(obs_t),
+                                   np.where(bolus_input == j, bolus_amt, 0.0)))
+            for j in range(inputs)
+        ], axis=-1)  # [R, M, inputs]
     # per-segment infusion rate: midpoint containment (engine parity)
     if NI:
         rate = np.where(
@@ -772,9 +787,19 @@ def streams_from_grid(rows, lowered_em):
             & (mid[:, :, None] < inf_end[:, None, :])
             & (seg_dt[:, :, None] > 0)
         )
-        seg_rateiv = np.einsum("rmi,ri->rm", contained.astype(np.float64), rate)
-    else:
+        contained = contained.astype(np.float64)
+        if inputs is None:
+            seg_rateiv = np.einsum("rmi,ri->rm", contained, rate)
+        else:
+            seg_rateiv = np.stack([
+                np.einsum("rmi,ri->rm", contained,
+                          np.where(inf_input == j, rate, 0.0))
+                for j in range(inputs)
+            ], axis=-1)  # [R, M, inputs]
+    elif inputs is None:
         seg_rateiv = np.zeros_like(seg_dt)
+    else:
+        seg_rateiv = np.zeros(seg_dt.shape + (inputs,))
     obs_value_u = np.asarray(rows.obs_value, dtype=np.float64)
     # observation-based sigma from each observation's outeq error model;
     # per-observation errorpoly overrides replace the poly, keeping

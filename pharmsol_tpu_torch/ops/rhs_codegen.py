@@ -1,0 +1,544 @@
+"""Generate the CUDA right-hand side of an ODE model from its torch closure.
+
+The fused ODE kernel (``csrc/fused_ode.cu``) runs the user's RHS
+``diffeq(x, p, t, b, rateiv, cov) -> dx`` inside every Runge-Kutta stage of
+every thread, so the RHS has to be device code. This module traces the
+closure once with symbolic scalars and emits it as one straight-line C++
+function, which the kernel's build includes:
+
+    template <typename T>
+    __device__ __forceinline__ void rhs(const T* x, const T* p, T t,
+                                        const T* b, const T* rateiv, T* dx);
+
+It is the counterpart of two pieces of the JAX package: the lane shim
+``ops/pallas_ode.py::make_lane_rhs`` (which traced the closure straight into
+the TPU kernel) and the plan-time probe kernel
+``likelihood/plans/ode.py::_probe_kernel`` (which rejected RHS styles the TPU
+compiler could not lower). Here acceptance is the generator's own job: what
+it cannot express raises :class:`~pharmsol_tpu_torch.errors.PharmsolError`
+with the reason at plan time, and ``engine='auto'`` then takes the general
+engine and records why.
+
+Supported: ``+ - * /``, unary ``-``, ``**``, ``torch.exp``, ``torch.log``,
+``torch.sqrt``, ``torch.abs``/``abs``, ``torch.minimum``, ``torch.maximum``,
+``torch.clamp``, ``torch.where`` with comparisons (and ``& | ~`` on them),
+Python float constants, static integer indexing ``x[i]``, ``p[i]``,
+``b[j]``, ``rateiv[j]``, and a result built with ``torch.stack([...])`` or
+returned as a list or tuple. Rejected: a Python ``if`` (or ``min``/``max``,
+``and``/``or``) on a traced value, in-place writes into a tensor, covariate
+reads, whole-vector arithmetic and any other operation.
+
+After tracing, the recorded graph is evaluated in float64 on random inputs
+and held against the closure itself, so a closure that behaves differently
+under tracing is rejected too. Nothing here needs a compiler or a card.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import math
+from typing import Callable, List, NamedTuple
+
+import numpy as np
+import torch
+
+from ..errors import PharmsolError
+
+
+class GeneratedRhs(NamedTuple):
+    """The closure and the C++ header generated from it."""
+
+    diffeq: Callable
+    n_states: int
+    n_params: int
+    ninput: int
+    source: str  # the C++ header text
+    key: str  # content hash of ``source``
+
+
+# ---------------------------------------------------------------------------
+# Symbolic scalars
+# ---------------------------------------------------------------------------
+
+_CMP = {"lt": "<", "le": "<=", "gt": ">", "ge": ">=", "eq": "==", "ne": "!="}
+_BOOL_OPS = {"and": "&&", "or": "||"}
+_ARITH = {"add": "+", "sub": "-", "mul": "*", "div": "/"}
+
+
+class Sym:
+    """One scalar of the traced RHS: a leaf (state, parameter, time, bolus,
+    rate, constant) or an operation on other Syms."""
+
+    __slots__ = ("op", "args", "value", "is_bool")
+
+    def __init__(self, op, args=(), value=None, is_bool=False):
+        self.op = op
+        self.args = tuple(args)
+        self.value = value
+        self.is_bool = is_bool
+
+    # -- dispatch of torch functions ------------------------------------------
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        return _torch_op(func, args, kwargs or {})
+
+    # -- Python operators --------------------------------------------------------
+    def __add__(self, o):
+        return _arith("add", self, o)
+
+    def __radd__(self, o):
+        return _arith("add", o, self)
+
+    def __sub__(self, o):
+        return _arith("sub", self, o)
+
+    def __rsub__(self, o):
+        return _arith("sub", o, self)
+
+    def __mul__(self, o):
+        return _arith("mul", self, o)
+
+    def __rmul__(self, o):
+        return _arith("mul", o, self)
+
+    def __truediv__(self, o):
+        return _arith("div", self, o)
+
+    def __rtruediv__(self, o):
+        return _arith("div", o, self)
+
+    def __pow__(self, o):
+        return _pow(self, o)
+
+    def __rpow__(self, o):
+        return _pow(o, self)
+
+    def __neg__(self):
+        return Sym("neg", (_num(self),))
+
+    def __pos__(self):
+        return self
+
+    def __abs__(self):
+        return Sym("abs", (_num(self),))
+
+    def __lt__(self, o):
+        return _cmp("lt", self, o)
+
+    def __le__(self, o):
+        return _cmp("le", self, o)
+
+    def __gt__(self, o):
+        return _cmp("gt", self, o)
+
+    def __ge__(self, o):
+        return _cmp("ge", self, o)
+
+    def __eq__(self, o):
+        return _cmp("eq", self, o)
+
+    def __ne__(self, o):
+        return _cmp("ne", self, o)
+
+    __hash__ = object.__hash__
+
+    def __and__(self, o):
+        return _logic("and", self, o)
+
+    __rand__ = __and__
+
+    def __or__(self, o):
+        return _logic("or", self, o)
+
+    __ror__ = __or__
+
+    def __invert__(self):
+        return Sym("not", (_as_bool(self),), is_bool=True)
+
+    # -- what tracing cannot follow -----------------------------------------------
+    def __bool__(self):
+        raise PharmsolError(
+            "the RHS branches on a traced value (a Python `if`, `and`/`or`, "
+            "builtin `min`/`max` or a comparison used as a bool): use "
+            "torch.where, torch.minimum or torch.maximum"
+        )
+
+    def __float__(self):
+        raise PharmsolError(
+            "the RHS converts a traced value to a Python number (float(), "
+            "math.*): use the torch functions (torch.exp, torch.log, ...)"
+        )
+
+    __int__ = __index__ = __float__
+
+    def __getitem__(self, idx):
+        raise PharmsolError("the RHS indexes a scalar (x[i][j])")
+
+    def __setitem__(self, idx, value):
+        raise PharmsolError("the RHS writes in place into a traced value")
+
+    def __repr__(self):
+        return f"Sym({self.op})"
+
+
+class SymVec:
+    """A traced vector (``x``, ``p``, ``b``, ``rateiv`` or a stacked result):
+    static integer indexing and slicing only."""
+
+    def __init__(self, items, name: str = "vector"):
+        self._items = list(items)
+        self._name = name
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        return _torch_op(func, args, kwargs or {})
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return SymVec(self._items[idx], self._name)
+        if isinstance(idx, (int, np.integer)) and not isinstance(idx, bool):
+            n = len(self._items)
+            if not -n <= idx < n:
+                raise PharmsolError(
+                    f"the RHS reads {self._name}[{idx}], out of range "
+                    f"({n} entries)"
+                )
+            return self._items[idx]
+        raise PharmsolError(
+            f"the RHS indexes {self._name} with a {type(idx).__name__}: "
+            "only static integer indices are supported"
+        )
+
+    def __setitem__(self, idx, value):
+        raise PharmsolError(f"the RHS writes in place into {self._name}")
+
+    def __len__(self):
+        return len(self._items)
+
+    def __iter__(self):
+        return iter(self._items)
+
+    def _vector_arith(self, *_):
+        raise PharmsolError(
+            f"the RHS does whole-vector arithmetic on {self._name}: write "
+            "each component with static indices and torch.stack them"
+        )
+
+    __add__ = __radd__ = __sub__ = __rsub__ = __mul__ = __rmul__ = _vector_arith
+    __truediv__ = __rtruediv__ = __neg__ = __pow__ = _vector_arith
+
+
+def _const(v) -> Sym:
+    return Sym("const", value=float(v))
+
+
+def _num(v) -> Sym:
+    """An operand of arithmetic: a float Sym (bools are cast)."""
+    if isinstance(v, Sym):
+        return Sym("cast", (v,)) if v.is_bool else v
+    if isinstance(v, (bool, np.bool_)):
+        return _const(float(v))
+    if isinstance(v, (int, float, np.integer, np.floating)):
+        return _const(v)
+    if isinstance(v, torch.Tensor) and v.dim() == 0 and not v.requires_grad:
+        return _const(v.item())
+    if isinstance(v, SymVec):
+        v._vector_arith()
+    raise PharmsolError(f"the RHS combines a traced value with a {type(v).__name__}")
+
+
+def _as_bool(v) -> Sym:
+    if isinstance(v, Sym) and v.is_bool:
+        return v
+    if isinstance(v, (bool, np.bool_)):
+        return Sym("bconst", value=bool(v), is_bool=True)
+    raise PharmsolError("a logical operator (& | ~) on a non-comparison")
+
+
+def _arith(op, a, b) -> Sym:
+    return Sym(op, (_num(a), _num(b)))
+
+
+def _pow(a, b) -> Sym:
+    return Sym("pow", (_num(a), _num(b)))
+
+
+def _cmp(op, a, b) -> Sym:
+    return Sym(op, (_num(a), _num(b)), is_bool=True)
+
+
+def _logic(op, a, b) -> Sym:
+    return Sym(op, (_as_bool(a), _as_bool(b)), is_bool=True)
+
+
+def _torch_op(func, args, kwargs):
+    name = getattr(func, "__name__", str(func))
+    if func in (torch.exp, torch.log, torch.sqrt, torch.abs):
+        (a,) = args
+        return Sym(name, (_num(a),))
+    if func is torch.minimum or func is torch.maximum:
+        a, b = args
+        return Sym("min" if func is torch.minimum else "max", (_num(a), _num(b)))
+    if func is torch.clamp:
+        a = _num(args[0])
+        lo = kwargs.get("min", args[1] if len(args) > 1 else None)
+        hi = kwargs.get("max", args[2] if len(args) > 2 else None)
+        if lo is not None:
+            a = Sym("max", (a, _num(lo)))
+        if hi is not None:
+            a = Sym("min", (a, _num(hi)))
+        return a
+    if func is torch.where:
+        if len(args) != 3:
+            raise PharmsolError("torch.where needs (condition, a, b)")
+        c, a, b = args
+        return Sym("where", (_as_bool(c), _num(a), _num(b)))
+    if func is torch.pow:
+        a, b = args
+        return _pow(a, b)
+    if func is torch.stack:
+        seq = args[0]
+        if args[1:] or kwargs.get("dim", 0) != 0:
+            raise PharmsolError("torch.stack of the RHS result must stack along dim 0")
+        return SymVec([_num(v) for v in seq], "the result")
+    if name in ("__setitem__", "index_put_", "copy_") or name.endswith("_"):
+        raise PharmsolError(f"the RHS writes in place into a tensor (`{name}`)")
+    raise PharmsolError(f"the RHS uses `{name}`, which the CUDA generator does not support")
+
+
+class _NoCovariates:
+    def __call__(self, name, t=None):
+        raise PharmsolError(
+            f"the RHS reads covariate `{name}`: the PyTorch port does not "
+            "support covariates yet"
+        )
+
+    value = __call__
+
+
+# ---------------------------------------------------------------------------
+# Tracing, checking and emission
+# ---------------------------------------------------------------------------
+
+
+def _trace(diffeq, n_states, n_params, ninput) -> List[Sym]:
+    x = SymVec([Sym("x", value=i) for i in range(n_states)], "x")
+    p = SymVec([Sym("p", value=i) for i in range(n_params)], "p")
+    b = SymVec([Sym("b", value=j) for j in range(ninput)], "b")
+    r = SymVec([Sym("rateiv", value=j) for j in range(ninput)], "rateiv")
+    out = diffeq(x, p, Sym("t"), b, r, _NoCovariates())
+    if isinstance(out, (SymVec, list, tuple)):
+        comps = [_num(c) for c in out]
+    else:
+        raise PharmsolError(
+            f"the RHS returns a {type(out).__name__}: return "
+            "torch.stack([...]) or a list of components"
+        )
+    if len(comps) != n_states:
+        raise PharmsolError(f"the RHS returns {len(comps)} components, expected {n_states}")
+    return comps
+
+
+def _topo(outputs: List[Sym]) -> List[Sym]:
+    """Every non-leaf node, children before parents, each once."""
+    order, seen = [], set()
+    stack = [(o, False) for o in reversed(outputs)]
+    while stack:
+        node, expanded = stack.pop()
+        if id(node) in seen:
+            continue
+        if expanded or not node.args:
+            seen.add(id(node))
+            if node.args:
+                order.append(node)
+            continue
+        stack.append((node, True))
+        stack.extend((a, False) for a in reversed(node.args) if id(a) not in seen)
+    return order
+
+
+_TORCH_UNARY = {
+    "neg": torch.neg, "exp": torch.exp, "log": torch.log, "sqrt": torch.sqrt,
+    "abs": torch.abs, "not": torch.logical_not,
+    "cast": lambda a: a.to(torch.float64),
+}
+_TORCH_BINARY = {
+    "add": torch.add, "sub": torch.sub, "mul": torch.mul, "div": torch.div,
+    "pow": torch.pow, "min": torch.minimum, "max": torch.maximum,
+    "lt": torch.lt, "le": torch.le, "gt": torch.gt, "ge": torch.ge,
+    "eq": torch.eq, "ne": torch.ne, "and": torch.logical_and,
+    "or": torch.logical_or,
+}
+
+
+def evaluate(outputs: List[Sym], x, p, t, b, rateiv) -> torch.Tensor:
+    """The traced graph on float64 tensors (leading dims broadcast): the
+    reference the generated C++ must reproduce."""
+    leaves = {"x": x, "p": p, "b": b, "rateiv": rateiv}
+    val = {}
+
+    def get(node):
+        if node.op == "const":
+            return torch.tensor(node.value, dtype=torch.float64)
+        if node.op == "bconst":
+            return torch.tensor(node.value)
+        if node.op == "t":
+            return t
+        if node.op in leaves:
+            return leaves[node.op][..., node.value]
+        return val[id(node)]
+
+    for node in _topo(outputs):
+        args = [get(a) for a in node.args]
+        if node.op == "where":
+            val[id(node)] = torch.where(*args)
+        elif node.op in _TORCH_UNARY:
+            val[id(node)] = _TORCH_UNARY[node.op](args[0])
+        else:
+            val[id(node)] = _TORCH_BINARY[node.op](*args)
+    return torch.stack(torch.broadcast_tensors(*[get(o) for o in outputs]), dim=-1)
+
+
+def _literal(v: float) -> str:
+    if math.isnan(v):
+        return "T(NAN)"
+    if math.isinf(v):
+        return "T(INFINITY)" if v > 0 else "T(-INFINITY)"
+    return f"T({float(v)!r})"
+
+
+_MATH_PRELUDE = """\
+#ifndef PHARMSOL_RHS_MATH
+#define PHARMSOL_RHS_MATH
+#include <math.h>
+__device__ __forceinline__ float pm_exp(float v) { return expf(v); }
+__device__ __forceinline__ double pm_exp(double v) { return exp(v); }
+__device__ __forceinline__ float pm_log(float v) { return logf(v); }
+__device__ __forceinline__ double pm_log(double v) { return log(v); }
+__device__ __forceinline__ float pm_sqrt(float v) { return sqrtf(v); }
+__device__ __forceinline__ double pm_sqrt(double v) { return sqrt(v); }
+__device__ __forceinline__ float pm_abs(float v) { return fabsf(v); }
+__device__ __forceinline__ double pm_abs(double v) { return fabs(v); }
+__device__ __forceinline__ float pm_pow(float a, float b) { return powf(a, b); }
+__device__ __forceinline__ double pm_pow(double a, double b) { return pow(a, b); }
+// NaN-propagating, as torch.minimum / torch.maximum
+template <typename T>
+__device__ __forceinline__ T pm_min(T a, T b) { return (a < b || a != a) ? a : b; }
+template <typename T>
+__device__ __forceinline__ T pm_max(T a, T b) { return (a > b || a != a) ? a : b; }
+#endif
+"""
+
+
+def _emit(outputs: List[Sym], n_states, n_params, ninput) -> str:
+    names = {}
+
+    def ref(node) -> str:
+        if node.op == "const":
+            return _literal(node.value)
+        if node.op == "bconst":
+            return "true" if node.value else "false"
+        if node.op == "t":
+            return "t"
+        if node.op in ("x", "p", "b", "rateiv"):
+            return f"{node.op}[{node.value}]"
+        return names[id(node)]
+
+    def expr(node) -> str:
+        a = [ref(v) for v in node.args]
+        op = node.op
+        if op in _ARITH:
+            return f"{a[0]} {_ARITH[op]} {a[1]}"
+        if op in _CMP:
+            return f"{a[0]} {_CMP[op]} {a[1]}"
+        if op in _BOOL_OPS:
+            return f"{a[0]} {_BOOL_OPS[op]} {a[1]}"
+        if op == "neg":
+            return f"-{a[0]}"
+        if op == "not":
+            return f"!{a[0]}"
+        if op == "cast":
+            return f"T({a[0]})"
+        if op in ("exp", "log", "sqrt", "abs", "min", "max"):
+            return f"pm_{op}({', '.join(a)})"
+        if op == "where":
+            return f"{a[0]} ? {a[1]} : {a[2]}"
+        if op == "pow":
+            e = node.args[1]
+            if e.op == "const":
+                # the exponents torch.pow specializes, computed the same way
+                special = {2.0: f"{a[0]} * {a[0]}",
+                           3.0: f"{a[0]} * {a[0]} * {a[0]}",
+                           0.5: f"pm_sqrt({a[0]})",
+                           -0.5: f"T(1) / pm_sqrt({a[0]})",
+                           -1.0: f"T(1) / {a[0]}",
+                           -2.0: f"T(1) / ({a[0]} * {a[0]})",
+                           1.0: a[0]}
+                if e.value in special:
+                    return special[e.value]
+            return f"pm_pow({a[0]}, {a[1]})"
+        raise AssertionError(op)
+
+    body = []
+    for i, node in enumerate(_topo(outputs)):
+        names[id(node)] = f"v{i}"
+        ctype = "bool" if node.is_bool else "T"
+        body.append(f"  const {ctype} v{i} = {expr(node)};")
+    for i, o in enumerate(outputs):
+        body.append(f"  dx[{i}] = {ref(o)};")
+    return (
+        "// Generated by pharmsol_tpu_torch/ops/rhs_codegen.py from a model's\n"
+        "// torch RHS closure: do not edit.\n"
+        "#pragma once\n"
+        f"#define PHARMSOL_RHS_NSTATES {n_states}\n"
+        f"#define PHARMSOL_RHS_NPARAMS {n_params}\n"
+        f"#define PHARMSOL_RHS_NINPUT {ninput}\n"
+        + _MATH_PRELUDE
+        + "template <typename T>\n"
+        "__device__ __forceinline__ void rhs(const T* x, const T* p, T t, "
+        "const T* b, const T* rateiv, T* dx) {\n"
+        "  (void)x; (void)p; (void)t; (void)b; (void)rateiv;\n"
+        + "\n".join(body) + "\n}\n"
+    )
+
+
+def _check_against_closure(diffeq, outputs, n_states, n_params, ninput):
+    """The traced graph and the closure, on the same random float64 lane."""
+    rng = np.random.RandomState(7)
+    x = torch.as_tensor(rng.uniform(0.5, 2.0, n_states))
+    p = torch.as_tensor(rng.uniform(0.5, 2.0, n_params))
+    b = torch.as_tensor(rng.uniform(0.5, 2.0, ninput))
+    r = torch.as_tensor(rng.uniform(0.5, 2.0, ninput))
+    t = torch.tensor(1.37, dtype=torch.float64)
+    want = diffeq(x, p, t, b, r, _NoCovariates())
+    if not isinstance(want, torch.Tensor):
+        want = torch.stack([torch.as_tensor(c, dtype=torch.float64) for c in want])
+    want = want.to(torch.float64).reshape(n_states)
+    got = evaluate(outputs, x, p, t, b, r)
+    ok = torch.isclose(got, want, rtol=1e-12, atol=1e-12 * float(want.abs().max()))
+    if not bool((ok | (torch.isnan(got) & torch.isnan(want))).all()):
+        raise PharmsolError(
+            "the traced RHS disagrees with the closure evaluated on tensors "
+            "(does it branch on isinstance or on tensor shapes?)"
+        )
+
+
+def generate_rhs(diffeq: Callable, n_states: int, n_params: int,
+                 ninput: int) -> GeneratedRhs:
+    """Trace ``diffeq`` and emit its CUDA header; raises PharmsolError with
+    the reason when the closure uses something the generator cannot
+    express."""
+    ninput = max(int(ninput), 1)
+    try:
+        outputs = _trace(diffeq, n_states, n_params, ninput)
+        _check_against_closure(diffeq, outputs, n_states, n_params, ninput)
+    except PharmsolError as e:
+        raise PharmsolError(f"the ODE RHS cannot run in the CUDA kernel: {e}") from None
+    except Exception as e:
+        raise PharmsolError(
+            f"the ODE RHS cannot run in the CUDA kernel: tracing it failed "
+            f"({type(e).__name__}: {e})"
+        ) from None
+    source = _emit(outputs, n_states, n_params, ninput)
+    key = hashlib.sha256(source.encode()).hexdigest()[:16]
+    return GeneratedRhs(diffeq, int(n_states), int(n_params), ninput, source, key)

@@ -41,7 +41,8 @@ def test_module_imports_no_jax_and_no_toplevel_triton(path):
 
 def test_package_import_loads_no_jax():
     code = ("import sys, pharmsol_tpu_torch, pharmsol_tpu_torch.ops.fused_psi, "
-            "pharmsol_tpu_torch.convert; "
+            "pharmsol_tpu_torch.ops.fused_ode, pharmsol_tpu_torch.ops.rhs_codegen, "
+            "pharmsol_tpu_torch.likelihood.plans.ode, pharmsol_tpu_torch.convert; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pharmsol_tpu', 'triton')]; "
             "assert not bad, bad")
@@ -62,6 +63,22 @@ def test_nvcc_command_targets_sm90a():
 
     for code in range(len(STRUCTURES)):
         assert f"case {code}: return launch<T, {code}>" in src
+
+
+def test_ode_nvcc_command_includes_the_generated_rhs():
+    from pharmsol_tpu_torch.ops.rhs_codegen import generate_rhs
+
+    rhs = generate_rhs(lambda x, p, t, b, r, cov: [-p[0] * x[0] + b[0]], 1, 2, 1)
+    cmd = _build.ode_nvcc_command(rhs, Path("libfused_ode.so"))
+    assert "arch=compute_90a,code=sm_90a" in " ".join(cmd)
+    assert f'-DPHARMSOL_ODE_RHS="rhs_{rhs.key}.cuh"' in cmd
+    assert cmd[-1] == str(_build.CSRC_DIR / _build.ODE_SOURCE)
+    # the library name follows the kernel source and the generated header
+    other = generate_rhs(lambda x, p, t, b, r, cov: [-p[1] * x[0] + b[0]], 1, 2, 1)
+    assert _build.ode_library_path(rhs) != _build.ode_library_path(other)
+    src = (_build.CSRC_DIR / _build.ODE_SOURCE).read_text()
+    for name in ("fused_ode_launch", "fused_ode_signature", "fused_ode_error_string"):
+        assert 'extern "C"' in src and f" {name}(" in src
 
 
 def test_cuda_request_raises_without_a_card():

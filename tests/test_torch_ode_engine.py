@@ -1,0 +1,147 @@
+"""The port's general ODE engine against the JAX package's ``engine='xla'``.
+
+Both march the same segments with the same embedded pair, I-controller, h0
+and cross-segment warm start, lane by lane, so they agree to rounding: psi
+within 1e-10 relative, float64 on the CPU. Each model's RHS is written once
+per framework from the same formula; inputs come from numpy seeds.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pharmsol_tpu as pst
+from pharmsol_tpu.likelihood.matrix import log_likelihood_matrix as jax_psi
+
+import pharmsol_tpu_torch as pt
+from pharmsol_tpu_torch import convert
+from pharmsol_tpu_torch.errors import PharmsolError
+
+
+def _bolus_infusion(xp):
+    return lambda x, p, t, b, r, cov: xp.stack([
+        -p[0] * x[0] + b[0],
+        p[0] * x[0] - p[1] * x[1] + r[0],
+    ])
+
+
+def _michaelis_menten(xp):
+    return lambda x, p, t, b, r, cov: xp.stack([
+        -p[0] * x[0] / (p[1] + x[0]) + b[0] + r[0],
+    ])
+
+
+def _short(xp):  # bench.py:210-215: 2-cmt oral as an ODE
+    return lambda x, p, t, b, r, cov: xp.stack([
+        -p[1] * x[0] + b[0],
+        p[1] * x[0] - (p[0] + p[2]) * x[1] + p[3] * x[2] + r[0],
+        p[2] * x[1] - p[3] * x[2],
+    ])
+
+
+def _subjects(n, infusion_every=3, times=(0.5, 1.0, 2.0, 4.0, 8.0)):
+    out = []
+    for i in range(n):
+        sb = pst.SubjectBuilder(f"s{i}").bolus(0.0, 100.0, 0)
+        if infusion_every and i % infusion_every == 0:
+            sb = sb.infusion(2.0, 50.0, 0, 1.0)
+        for t in times:
+            sb = sb.observation(t, float(5 * np.exp(-0.3 * t) + 0.1 * i), 0)
+        out.append(sb.build())
+    return pst.Data(out)
+
+
+def _case(name, S=12):
+    """(rhs factory, out, nstates, support, data) of one model."""
+    rng = np.random.default_rng({"bolus_infusion": 0, "michaelis_menten": 3,
+                                 "short": 5}[name])
+    if name == "bolus_infusion":
+        sp = np.column_stack([rng.uniform(0.5, 2.0, S), rng.uniform(0.05, 0.5, S),
+                              rng.uniform(30, 90, S)])
+        return _bolus_infusion, (lambda x, p, t, cov: x[1:2] / p[2]), 2, sp, _subjects(6)
+    if name == "michaelis_menten":
+        sp = np.column_stack([rng.uniform(5.0, 20.0, S), rng.uniform(5.0, 30.0, S),
+                              rng.uniform(20, 60, S)])
+        return _michaelis_menten, (lambda x, p, t, cov: x[0:1] / p[2]), 1, sp, _subjects(6)
+    center = np.array([0.15, 1.2, 0.3, 0.2, 10.0])
+    sp = np.abs(center[None, :] * (1.0 + 0.2 * rng.standard_normal((S, 5))))
+    data = _subjects(6, infusion_every=0,
+                     times=(0.5, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 10.0, 12.0))
+    return _short, (lambda x, p, t, cov: x[1:2] / p[4]), 3, sp, data
+
+
+def _ems():
+    return pst.AssayErrorModels().add(
+        0, pst.AssayErrorModel.additive(pst.ErrorPoly(0.5, 0.1), 1.0))
+
+
+def _models(name, solver):
+    rhs, out, n, sp, data = _case(name)
+    jm = pst.ODE(rhs(jnp), out=out, nstates=n, ndrugs=1, nout=1).with_solver(solver)
+    tm = pt.ODE(rhs(torch), out=out, nstates=n, ndrugs=1, nout=1).with_solver(solver)
+    return jm, tm, sp, data
+
+
+@pytest.mark.parametrize("solver", ["dopri5", "tsit5"])
+@pytest.mark.parametrize("name", ["bolus_infusion", "michaelis_menten", "short"])
+def test_general_engine_matches_jax_xla(name, solver):
+    jm, tm, sp, data = _models(name, solver)
+    want = np.asarray(jax_psi(jm, data, sp, _ems(), engine="xla"))
+    got = pt.log_likelihood_matrix(tm, convert.data_from_reference(data), sp,
+                                   convert.error_models_from_reference(_ems()),
+                                   engine="general")
+    assert got.dtype == torch.float64 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=0)
+
+
+def test_exhausted_step_budget_gives_neg_inf_in_both_packages():
+    jm, tm, sp, data = _models("bolus_infusion", "dopri5")
+    jm = jm.with_max_steps(3)
+    tm = tm.with_max_steps(3)
+    want = np.asarray(jax_psi(jm, data, sp, _ems(), engine="xla"))
+    got = pt.log_likelihood_matrix(tm, convert.data_from_reference(data), sp,
+                                   convert.error_models_from_reference(_ems()),
+                                   engine="general").numpy()
+    assert np.isneginf(want).any()
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-10, atol=0)
+
+
+@pytest.mark.parametrize("solver", ["kvaerno5", "bdf", "expm", "trbdf2", "bogus"])
+def test_unsupported_solver_raises(solver):
+    _, tm, sp, data = _models("bolus_infusion", "dopri5")
+    tm = tm.with_solver(solver)
+    match = "unknown ODE solver" if solver == "bogus" else "ROADMAP Queue 1 item 8"
+    for engine in ("auto", "general", "fused"):
+        with pytest.raises(PharmsolError, match=match if engine != "fused" else "solvers"):
+            pt.log_likelihood_matrix(tm, convert.data_from_reference(data), sp,
+                                     convert.error_models_from_reference(_ems()),
+                                     engine=engine)
+
+
+def test_rhs_difference_bolus_honors_a_scaled_mapping():
+    """A bolus mapped through the RHS (here 0.8 * b into state 0 and 0.2 * b
+    into state 1) is applied as f(x, b) - f(x, 0), as the JAX engine does."""
+    def rhs(xp):
+        return lambda x, p, t, b, r, cov: xp.stack([
+            -p[0] * x[0] + 0.8 * b[0],
+            p[0] * x[0] - p[1] * x[1] + 0.2 * b[0],
+        ])
+
+    _, out, n, sp, data = _case("bolus_infusion")
+    jm = pst.ODE(rhs(jnp), out=out, nstates=n, ndrugs=1, nout=1)
+    tm = pt.ODE(rhs(torch), out=out, nstates=n, ndrugs=1, nout=1)
+    want = np.asarray(jax_psi(jm, data, sp, _ems(), engine="xla"))
+    got = pt.log_likelihood_matrix(tm, convert.data_from_reference(data), sp,
+                                   convert.error_models_from_reference(_ems()))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=0)
+
+
+@pytest.mark.parametrize("kw", ["lag", "fa", "init"])
+def test_unported_ode_equations_raise(kw):
+    fn = {"lag": lambda p, t, cov: {0: 0.5}, "fa": lambda p, t, cov: {0: 0.8},
+          "init": lambda p, t, cov: torch.zeros(2)}[kw]
+    with pytest.raises(PharmsolError, match=f"does not support {kw} "):
+        pt.ODE(_bolus_infusion(torch), nstates=2, ndrugs=1, nout=1, **{kw: fn})

@@ -1,0 +1,212 @@
+"""The CUDA RHS generator: what it accepts, what it rejects, and what it emits.
+
+Acceptance is the plan-time check that a model's RHS can run in the CUDA ODE
+kernel (the port's counterpart of the JAX plan's probe kernel). Where ``g++``
+is present, the emitted header is compiled as host C++ (``__device__`` defined
+away) and held against the torch closure on random inputs within 1e-14.
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+import pharmsol_tpu_torch as pt
+from pharmsol_tpu_torch.errors import PharmsolError
+from pharmsol_tpu_torch.likelihood import matrix
+from pharmsol_tpu_torch.ops.rhs_codegen import generate_rhs
+
+
+def _short(x, p, t, b, rateiv, cov):  # bench.py:210-214, the 2-cmt oral ODE
+    return torch.stack([
+        -p[1] * x[0] + b[0],
+        p[1] * x[0] - (p[0] + p[2]) * x[1] + p[3] * x[2] + rateiv[0],
+        p[2] * x[1] - p[3] * x[2],
+    ])
+
+
+def _two_state(x, p, t, b, rateiv, cov):
+    return torch.stack([-p[0] * x[0] + b[0],
+                        p[0] * x[0] - p[1] * x[1] + rateiv[0]])
+
+
+def _michaelis_menten(x, p, t, b, rateiv, cov):
+    return torch.stack([-p[0] * x[0] / (p[1] + x[0]) + b[0] + rateiv[0]])
+
+
+def _multi_input(x, p, t, b, rateiv, cov):
+    return torch.stack([
+        -p[0] * x[0] + b[0] + rateiv[1],
+        -p[1] * x[1] + b[1],
+        p[0] * x[0] + p[1] * x[1] - p[2] * x[2] + rateiv[0],
+    ])
+
+
+def _exotic(x, p, t, b, rateiv, cov):
+    # exp, **, where, min/max/clamp, sqrt, log, abs, unary minus, constants
+    k = p[0] * torch.exp(-0.05 * t) + p[1] ** 2 / (1.0 + x[1] ** 0.5)
+    sat = torch.where(x[0] > 2.0, x[0] ** 1.5, 2.0 * x[0])
+    return [
+        -k * sat + b[0],
+        k * sat - torch.clamp(p[1] * x[1], min=0.0, max=50.0)
+        + torch.maximum(rateiv[0], torch.minimum(x[0], x[2])),
+        torch.sqrt(abs(x[1]) + 1.0) - torch.log(1.0 + x[2]) - (-x[2]) ** 2,
+    ]
+
+
+ACCEPTED = {
+    "short": (_short, 3, 5, 1),
+    "two_state": (_two_state, 2, 3, 1),
+    "michaelis_menten": (_michaelis_menten, 1, 3, 1),
+    "multi_input": (_multi_input, 3, 4, 2),
+    "exotic": (_exotic, 3, 2, 1),
+}
+
+
+@pytest.mark.parametrize("name", list(ACCEPTED))
+def test_generator_accepts(name):
+    fn, n, n_params, ninput = ACCEPTED[name]
+    rhs = generate_rhs(fn, n, n_params, ninput)
+    assert rhs.n_states == n and rhs.n_params == n_params
+    assert "template <typename T>" in rhs.source
+    assert f"#define PHARMSOL_RHS_NSTATES {n}" in rhs.source
+    for i in range(n):
+        assert f"dx[{i}] = " in rhs.source
+    # the same formula written again gives the same source (one library)
+    assert generate_rhs(fn, n, n_params, ninput).key == rhs.key
+
+
+def _if_on_state(x, p, t, b, rateiv, cov):
+    if x[0] > 1.0:
+        return torch.stack([-p[0] * x[0] + b[0]])
+    return torch.stack([-p[1] * x[0] + b[0]])
+
+
+def _in_place(x, p, t, b, rateiv, cov):
+    dx = torch.zeros(1)
+    dx[0] = -p[0] * x[0] + b[0]
+    return dx
+
+
+def _unknown_op(x, p, t, b, rateiv, cov):
+    return torch.stack([-p[0] * torch.sin(x[0]) + b[0]])
+
+
+def _covariate(x, p, t, b, rateiv, cov):
+    return torch.stack([-p[0] * cov("wt", t) * x[0] + b[0]])
+
+
+REJECTED = {
+    "python_if": (_if_on_state, "branches on a traced value"),
+    "in_place": (_in_place, "in place"),
+    "unknown_op": (_unknown_op, "`sin`"),
+    "covariate": (_covariate, "covariate `wt`"),
+}
+
+
+@pytest.mark.parametrize("name", list(REJECTED))
+def test_generator_rejects_with_a_reason(name):
+    fn, reason = REJECTED[name]
+    with pytest.raises(PharmsolError, match=reason):
+        generate_rhs(fn, 1, 3, 1)
+
+
+def test_out_of_range_index_is_rejected():
+    with pytest.raises(PharmsolError, match=r"p\[3\], out of range"):
+        generate_rhs(lambda x, p, t, b, r, cov: [-p[3] * x[0]], 1, 3, 1)
+
+
+def _zeros_like_style(x, p, t, b, rateiv, cov):
+    dx = torch.zeros_like(x)
+    dx[0] = -p[0] * x[0] + b[0]
+    return dx
+
+
+@pytest.mark.parametrize("name, reason, general_runs", [
+    ("python_if", "branches on a traced value", False),
+    ("unknown_op", "`sin`", True),
+    ("zeros_like_style", "`zeros_like`", True),
+])
+def test_auto_records_the_rejection(name, reason, general_runs, monkeypatch):
+    """engine='auto' with the fused route (forced, as on a CUDA device) takes
+    the general engine and keeps the generator's reason; the decision is kept
+    even where the general engine cannot run the closure either."""
+    fn = {"python_if": _if_on_state, "unknown_op": _unknown_op,
+          "zeros_like_style": _zeros_like_style}[name]
+    monkeypatch.setattr(matrix, "_auto_engine",
+                        lambda device: ("fused", "forced for the test"))
+    model = pt.ODE(fn, out=lambda x, p, t, cov: x[0:1] / p[2],
+                   nstates=1, ndrugs=1, nout=1)
+    data = pt.Data([pt.Subject.builder("a").bolus(0.0, 100.0, 0)
+                    .observation(1.0, 5.0, 0).observation(4.0, 2.0, 0).build()])
+    ems = pt.AssayErrorModels().add(
+        0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    sp = np.array([[0.2, 0.3, 10.0], [0.4, 0.1, 20.0]])
+    if general_runs:
+        psi = pt.log_likelihood_matrix(model, data, sp, ems)
+        assert torch.isfinite(psi).all()
+    else:  # vmap refuses data-dependent control flow
+        with pytest.raises(RuntimeError):
+            pt.log_likelihood_matrix(model, data, sp, ems)
+    decision = pt.last_engine_decision(model)
+    assert decision["engine"] == "general"
+    assert "fused plan rejected the model" in decision["reason"]
+    assert reason in decision["reason"]
+    with pytest.raises(PharmsolError, match="cannot run in the CUDA kernel"):
+        pt.log_likelihood_matrix(model, data, sp, ems, engine="fused")
+
+
+_WRAPPER = """
+#define __device__
+#define __forceinline__ inline
+#include "rhs.h"
+extern "C" void rhs_f64(const double* x, const double* p, double t,
+                        const double* b, const double* r, double* dx) {
+  rhs<double>(x, p, t, b, r, dx);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def gxx():
+    path = shutil.which("g++")
+    if path is None:
+        pytest.skip("g++ not found: the host compile of the generated header is skipped")
+    return path
+
+
+@pytest.mark.parametrize("name", list(ACCEPTED))
+def test_generated_header_matches_the_closure(name, gxx, tmp_path):
+    fn, n, n_params, ninput = ACCEPTED[name]
+    rhs = generate_rhs(fn, n, n_params, ninput)
+    (tmp_path / "rhs.h").write_text(rhs.source)
+    (tmp_path / "wrap.cpp").write_text(_WRAPPER)
+    lib_path = tmp_path / "librhs.so"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o",
+                    str(lib_path), str(tmp_path / "wrap.cpp")], check=True,
+                   cwd=tmp_path)
+    lib = ctypes.CDLL(str(lib_path))
+    dp = ctypes.POINTER(ctypes.c_double)
+    lib.rhs_f64.argtypes = [dp, dp, ctypes.c_double, dp, dp, dp]
+    rng = np.random.RandomState(11)
+    for _ in range(50):
+        x = rng.uniform(0.0, 5.0, n)
+        p = rng.uniform(0.1, 3.0, n_params)
+        b = rng.uniform(0.0, 2.0, ninput)
+        r = rng.uniform(0.0, 2.0, ninput)
+        t = float(rng.uniform(0.0, 24.0))
+        want = fn(torch.as_tensor(x), torch.as_tensor(p),
+                  torch.tensor(t, dtype=torch.float64),
+                  torch.as_tensor(b), torch.as_tensor(r), None)
+        if not isinstance(want, torch.Tensor):
+            want = torch.stack(list(want))
+        want = want.numpy()
+        got = np.zeros(n)
+        lib.rhs_f64(*(np.ascontiguousarray(a).ctypes.data_as(dp) for a in (x, p)),
+                    t, *(np.ascontiguousarray(a).ctypes.data_as(dp) for a in (b, r)),
+                    got.ctypes.data_as(dp))
+        scale = max(np.abs(want).max(), 1.0)
+        np.testing.assert_allclose(got, want, rtol=1e-14, atol=1e-14 * scale)

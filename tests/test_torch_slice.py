@@ -190,3 +190,92 @@ def test_non_finite_cells_map_to_neg_inf(slice_inputs):
         nan = pt.log_likelihood_matrix(_model(), data, sp, ems, engine=engine,
                                        on_error="nan")
         assert not torch.isfinite(nan[:, 1]).any()
+
+
+# ---------------------------------------------------------------------------
+# The ODE slice: the Short workload's 2-cmt oral model as an ODE
+# ---------------------------------------------------------------------------
+
+
+def _ode_rhs(xp):  # bench.py:210-214
+    return lambda x, p, t, b, rateiv, cov: xp.stack([
+        -p[1] * x[0] + b[0],
+        p[1] * x[0] - (p[0] + p[2]) * x[1] + p[3] * x[2] + rateiv[0],
+        p[2] * x[1] - p[3] * x[2],
+    ])
+
+
+@pytest.fixture(scope="module")
+def ode_slice():
+    """8 Short subjects (one with an infusion, one censored) x 24 supports,
+    with non-default solver options set on the JAX model; psi of both JAX
+    engines."""
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(77)
+    subjects = []
+    for i in range(8):
+        b = pst.Subject.builder(f"o{i}").bolus(0.0, 100.0, 0)
+        if i == 2:
+            b = b.infusion(2.0, 80.0, 0, 1.0)
+        for t in TIMES:
+            b = b.observation(t, float(abs(5.0 + rng.randn())), 0)
+        if i == 3:
+            b = b.censored_observation(14.0, 0.2, 0, pst.Censor.BLOQ)
+        subjects.append(b.build())
+    data = pst.Data(subjects)
+    center = np.array([0.15, 1.2, 0.3, 0.2, 10.0])
+    support = np.abs(center[None, :] * (1.0 + 0.2 * rng.randn(24, 5)))
+    ems = pst.AssayErrorModels().add(
+        0, pst.AssayErrorModel.additive(pst.ErrorPoly(0.5, 0.1), 1.0))
+    model = (pst.ODE(_ode_rhs(jnp), out=_out, nstates=3, ndrugs=1, nout=1)
+             .with_solver("tsit5").with_tolerances(1e-6, 1e-7).with_h0(1e-2)
+             .with_max_steps(5000))
+    want = {e: np.asarray(jax_psi(model, data, support, ems, engine=e))
+            for e in ("xla", "pallas")}
+    return (convert.data_from_reference(data), support,
+            convert.error_models_from_reference(ems), model._opts, want)
+
+
+def _ode_model(jax_opts):
+    """The port's ODE with the JAX model's options carried across."""
+    o = convert.ode_options_from_reference(jax_opts)
+    return (pt.ODE(_ode_rhs(torch), out=_out, nstates=3, ndrugs=1, nout=1)
+            .with_solver(o.solver).with_tolerances(o.rtol, o.atol)
+            .with_h0(o.h0).with_max_steps(o.max_steps))
+
+
+def test_ode_options_carry_across(ode_slice):
+    *_, opts, _ = ode_slice
+    o = convert.ode_options_from_reference(opts)
+    assert (o.solver, o.rtol, o.atol, o.h0, o.max_steps) == ("tsit5", 1e-6, 1e-7, 1e-2, 5000)
+
+
+@pytest.mark.parametrize("engine, jax_engine, rtol", [
+    ("general", "xla", 1e-10), ("fused", "pallas", 1e-9)])
+def test_ode_slice_matches_jax_in_both_engines(ode_slice, engine, jax_engine, rtol):
+    data, support, ems, opts, want = ode_slice
+    psi = pt.log_likelihood_matrix(_ode_model(opts), data, support, ems,
+                                   engine=engine)
+    assert psi.shape == (8, 24) and psi.dtype == torch.float64
+    # the censored row uses the exact log-CDF here and the TPU kernel's
+    # approximation there: hold it against the JAX general engine
+    ref = want[jax_engine].copy()
+    ref[3] = want["xla"][3]
+    tol = rtol if engine == "general" else 1e-4
+    np.testing.assert_allclose(psi.numpy()[3], ref[3], rtol=tol, atol=0)
+    rows = [r for r in range(8) if r != 3]
+    np.testing.assert_allclose(psi.numpy()[rows], ref[rows], rtol=rtol, atol=0)
+    # default options differ: the carried options are what made it agree
+    default = pt.ODE(_ode_rhs(torch), out=_out, nstates=3, ndrugs=1, nout=1)
+    other = pt.log_likelihood_matrix(default, data, support, ems, engine=engine)
+    assert np.abs(other.numpy() - want[jax_engine]).max() > 1e-8
+
+
+def test_ode_auto_on_cpu_takes_general(ode_slice):
+    data, support, ems, opts, want = ode_slice
+    model = _ode_model(opts)
+    psi = pt.log_likelihood_matrix(model, data, support, ems)
+    decision = pt.last_engine_decision(model)
+    assert decision["engine"] == "general" and "CPU" in decision["reason"]
+    np.testing.assert_allclose(psi.numpy(), want["xla"], rtol=1e-10, atol=0)

@@ -5,16 +5,19 @@
 The main paths are the population log-likelihood matrix ("psi") through
 ``pharmsol_tpu_torch.log_likelihood_matrix`` with ``device="cuda"``: for
 closed-form models, whose engine is the hand-written CUDA kernel
-``pharmsol_tpu_torch/csrc/fused_psi.cu`` (K1a), and for ODE models, whose
+``pharmsol_tpu_torch/csrc/fused_psi.cu`` (K1a), for ODE models, whose
 engine is ``pharmsol_tpu_torch/csrc/fused_ode.cu`` (K2a) with a right-hand
-side generated from the model's closure. Phases, each printing its own lines;
-any failure raises and the exit code is not 0:
+side generated from the model's closure, and for SDE models, whose engine is
+the particle filter ``pharmsol_tpu_torch/csrc/fused_sde.cu`` (K3a) with the
+drift and diffusion generated the same way. Phases, each printing its own
+lines; any failure raises and the exit code is not 0:
 
 0. environment: torch, CUDA and nvcc versions, the card's name and power
    limit;
 1. build: every library from the checkout's sources with nvcc, one process
    each, all at once, timed: the closed-form kernel and the ODE kernel for
-   each model RHS used below (``-Xptxas -v``: registers and spills);
+   each model RHS used below, the SDE kernel for each SDE model below
+   (``-Xptxas -v``: registers and spills);
 2. each kernel against its plain PyTorch twin on the card at a ragged shape
    (R=257, S=300).
    K1a: all 12 structures on a multi-dose regimen, and 2-cmt oral with
@@ -38,7 +41,23 @@ any failure raises and the exit code is not 0:
    then held against its twin at these shapes;
 4. times on the card (CUDA events, after warm-up): each kernel alone, its
    twin, the general engine, one end-to-end call with the lowering cached and
-   the steps it is made of, and the host lowering alone.
+   the steps it is made of, and the host lowering alone;
+5. K3a on the README SDE model of the reference (a mean-reverting
+   elimination rate), 1000 particles, at a ragged reduced shape (37 x 45):
+   its Philox words against ``ops/philox.py``; against its twin, which draws
+   the same numbers, at zero diffusion (float64, every cell within 1e-10),
+   with noise (float64: 99.9% of cells within 1e-9; float32: 99% within
+   1e-4) and on a two-input model with an inject-to-destination route,
+   BLOQ+ALOQ censoring and ``em_control='coupled'`` (float64, 99.9% within
+   1e-9); kernel, twin and general-engine times. Then against the general
+   engine (other draws) at 32 x 16: the mean per-cell difference within four
+   standard errors; and at zero diffusion against the 1-cmt IV closed form
+   within 5e-2 (EM at rtol = atol = 1e-2);
+6. the README SDE at full width (256 subjects x 64 supports x 1000
+   particles) through the public entry point, float32 and float64, three
+   calls each with fresh supports, each taking the fused engine with exactly
+   one K3a launch and giving psi of the right shape without NaN;
+7. K3a alone at full width and one end-to-end call with its steps.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. All data comes from a numpy
@@ -50,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -73,6 +93,18 @@ ODE_KERNEL_RECORD = {
     "source": "pharmsol_tpu_torch/csrc/fused_ode.cu",
     "replaces": "pharmsol_tpu/ops/pallas_ode.py:1826",
 }
+SDE_KERNEL_RECORD = {
+    "name": "fused_sde",
+    "route": "cuda",
+    "source": "pharmsol_tpu_torch/csrc/fused_sde.cu",
+    "replaces": "pharmsol_tpu/ops/pallas_sde.py:548",
+}
+# the SDE cells: the reduced ragged shape of the kernel-vs-twin checks, the
+# statistical check against the general engine, and the full-width slice
+SDE_REDUCED = (37, 45)
+SDE_STAT = (32, 16)
+SDE_FULL = (256, 64)
+SDE_PARTICLES = 1000
 
 
 def log(msg: str) -> None:
@@ -276,7 +308,7 @@ def ode_build_targets():
     targets = {}
     for name, (rhs, n, ndrugs, _, v, _s) in ODE_MODELS.items():
         gen = generate_rhs(rhs, n, v + 1, ndrugs)
-        targets.setdefault(gen.key, (name, _build.ode_target(gen)))
+        targets.setdefault(gen.key, (name, _build.generated_target(_build.ODE, gen)))
     return list(targets.values())
 
 
@@ -299,12 +331,15 @@ def phase_environment() -> str:
     return card
 
 
-def phase_build() -> float:
+def phase_build(pt) -> float:
     from pharmsol_tpu_torch.ops import _build
 
     ode_targets = ode_build_targets()
-    targets = [_build.psi_target()] + [t for _, t in ode_targets]
-    names = ["fused_psi"] + [f"fused_ode ({name})" for name, _ in ode_targets]
+    sde_targets = sde_build_targets(pt)
+    targets = ([_build.psi_target()] + [t for _, t in ode_targets]
+               + [t for _, t in sde_targets])
+    names = (["fused_psi"] + [f"fused_ode ({name})" for name, _ in ode_targets]
+             + [f"fused_sde ({name})" for name, _ in sde_targets])
     t0 = time.perf_counter()
     results = _build.build_many(targets, force=True, verbose=True)
     wall = time.perf_counter() - t0
@@ -312,16 +347,19 @@ def phase_build() -> float:
         f"one process each ({' '.join(_build.NVCC_FLAGS)})")
     for name, (path, seconds, output) in zip(names, results):
         log(f"[1]   {name}: {path.name} in {seconds:.2f} s")
-        # ptxas -v: one summary per instantiation; all of K1a, and K2a for the
-        # 3-state Short RHS
-        if name.startswith("fused_ode") and "short" not in name:
+        # ptxas -v: one summary per instantiation; all of K1a, K2a for the
+        # 3-state Short RHS and K3a for the README model
+        if ((name.startswith("fused_ode") and "short" not in name)
+                or (name.startswith("fused_sde") and "readme" not in name)):
             continue
         kernel, spill = None, ""
         for ln in output.splitlines():
             m = (re.search(r"fused_psi_kernelI([fd])Li(\d+)E", ln)
-                 or re.search(r"fused_ode_kernelI([fd])Li(\d+)E", ln))
+                 or re.search(r"fused_ode_kernelI([fd])Li(\d+)E", ln)
+                 or re.search(r"fused_sde_kernelI([fd])Li(\d+)E", ln))
             if m and "Compiling entry function" in ln:
                 what = ("code" if "fused_psi" in ln else
+                        "particles/thread" if "fused_sde" in ln else
                         "solver " + ("dopri5" if m.group(2) == "0" else "tsit5"))
                 kernel = f"{'f32' if m.group(1) == 'f' else 'f64'} {what} {m.group(2):>2}"
             elif "spill stores" in ln:
@@ -658,6 +696,339 @@ def phase_ode_times(pt, label, model, data, ems, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# SDE models: the README model of the reference (sde_readme.rs) and a
+# two-input model with an inject-to-destination route
+# ---------------------------------------------------------------------------
+
+
+def readme_sde(pt, nparticles: int = SDE_PARTICLES):
+    """examples/sde_readme.py with torch closures: the elimination rate
+    ke_latent follows a mean-reverting diffusion around ke0; p = ke0, v,
+    sigma_ke; a bolus routed to `central`."""
+    from pharmsol_tpu_torch import metadata
+
+    md = (metadata.new("ke_diffusion").parameters(["ke0", "v", "sigma_ke"])
+          .states(["central", "ke_latent"]).outputs(["cp"])
+          .route(metadata.Route.bolus("iv").to_state("central"))
+          .particles(nparticles))
+    return pt.SDE(
+        drift=lambda x, p, t, rateiv, cov: torch.stack([-x[1] * x[0], -(x[1] - p[0])]),
+        diffusion=lambda p, t, cov: [0.0, p[2]],
+        init=lambda p, t, cov: [0.0, p[0]],
+        out=lambda x, p, t, cov: x[0:1] / p[1],
+        nparticles=nparticles, nstates=2, ndrugs=1, nout=1, seed=42,
+    ).with_metadata(md)
+
+
+def readme_data(pt, n: int, rng, labels=("iv", "cp")):
+    """A 100 mg IV bolus at 0 and observations at 1, 2, 4 and 8 h around
+    the README's 8.0, 6.2, 4.1 and 1.8; ``labels`` names the route and the
+    output."""
+    values = np.array([8.0, 6.2, 4.1, 1.8]) * np.exp(0.15 * rng.randn(n, 4))
+    subjects = []
+    for i in range(n):
+        b = pt.Subject.builder(f"r{i}").bolus(0.0, 100.0, labels[0])
+        for t, v in zip((1.0, 2.0, 4.0, 8.0), values[i]):
+            b = b.observation(t, float(v), labels[1])
+        subjects.append(b.build())
+    return pt.Data(subjects)
+
+
+def readme_ems(pt, label="cp"):
+    return pt.AssayErrorModels().add(
+        label, pt.AssayErrorModel.additive(pt.ErrorPoly(0.3, 0.1), 0.5))
+
+
+def readme_support(S: int, rng, sigma: float = 0.05) -> np.ndarray:
+    sp = jittered_support([0.2, 10.0, 0.05], S, rng, 0.15)
+    sp[:, 2] = sp[:, 2] * (sigma / 0.05)
+    return sp
+
+
+def two_input_sde(pt, nparticles: int = SDE_PARTICLES):
+    """Two inputs (a bolus route injecting into `b`, a bolus and an
+    infusion into `a`), three states, em_control='coupled'."""
+    from pharmsol_tpu_torch import metadata
+
+    md = (metadata.new("two_inputs").parameters(["k1", "k2", "v", "g"])
+          .states(["a", "b", "c"]).outputs(["cp"])
+          .route(metadata.Route.bolus("oral").to_state("b").inject_input_to_destination())
+          .route(metadata.Route.bolus("iv").to_state("a"))
+          .route(metadata.Route.infusion("iv").to_state("a"))
+          .particles(nparticles))
+    return pt.SDE(
+        drift=lambda x, p, t, r, cov: torch.stack([
+            -p[0] * x[0] + r[1], -p[1] * x[1],
+            p[0] * x[0] + p[1] * x[1] - 0.2 * x[2] + r[0]]),
+        diffusion=lambda p, t, cov: [0.0, p[3], 0.5 * p[3]],
+        out=lambda x, p, t, cov: x[2:3] / p[2],
+        nparticles=nparticles, nstates=3, ndrugs=2, nout=1, seed=7,
+        em_control="coupled",
+    ).with_metadata(md)
+
+
+def two_input_case(pt, R: int, S: int, rng):
+    subjects = []
+    for i in range(R):
+        b = (pt.Subject.builder(f"c{i}").bolus(0.0, 100.0, "oral")
+             .bolus(1.0, 60.0, "iv").infusion(2.0, 40.0, "iv", 1.5))
+        for t in (0.5, 1.5, 3.0, 5.0):
+            b = b.observation(t, float(abs(8.0 + 2.0 * rng.randn())), "cp")
+        b = (b.censored_observation(8.0, 0.5, "cp", pt.Censor.BLOQ)
+             .censored_observation(0.25, 9.0, "cp", pt.Censor.ALOQ))
+        subjects.append(b.build())
+    sp = np.column_stack([rng.uniform(0.5, 2.0, S), rng.uniform(0.3, 1.2, S),
+                          rng.uniform(8, 14, S), rng.uniform(0.05, 0.3, S)])
+    return pt.Data(subjects), sp
+
+
+def sde_plan_for(model, data, support, ems, dtype):
+    from pharmsol_tpu_torch.likelihood.plans.sde import _FusedSdePsiPlan
+
+    grid = model.lower(data.subjects())
+    lowered = ems.lower(model.resolve_output_label, model.nouteqs())
+    return _FusedSdePsiPlan(model, grid, support, lowered, torch.device("cuda"), dtype)
+
+
+def run_sde_kernel(plan, plain: bool = False) -> torch.Tensor:
+    from pharmsol_tpu_torch.ops.fused_sde import psi_sde, psi_sde_plain
+
+    fn = psi_sde_plain if plain else psi_sde
+    return fn(*plan.streams, plan.support, plan.gen, **plan.kernel_kwargs())
+
+
+def sde_build_targets(pt):
+    """The SDE library of each model this script runs."""
+    from pharmsol_tpu_torch.ops import _build
+    from pharmsol_tpu_torch.ops.rhs_codegen import generate_sde
+
+    out = []
+    for name, model, n_params in (("readme", readme_sde(pt), 3),
+                                  ("two_inputs", two_input_sde(pt), 4)):
+        spec = model.spec
+        gen = generate_sde(spec.drift, spec.diffusion, spec.nstates, n_params, spec.ninput)
+        out.append((name, _build.generated_target(_build.SDE, gen)))
+    return out
+
+
+def event_ms(fn):
+    """(result, ms) of one call, timed with CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def sde_compare(label, got, twin, tol, share):
+    """Kernel vs twin cell by cell: the share within ``tol`` relative and the
+    same non-finite cells. Returns (max abs err over finite cells, max rel)."""
+    got, twin = got.double(), twin.double()
+    fin_g, fin_t = torch.isfinite(got), torch.isfinite(twin)
+    if not bool((fin_g == fin_t).all()):
+        raise AssertionError(f"{label}: kernel and twin non-finite in different cells")
+    rel = ((got - twin).abs() / twin.abs().clamp(min=1.0))[fin_t]
+    within = float((rel <= tol).double().mean()) if rel.numel() else 1.0
+    rest = int((rel > tol).sum())
+    abs_err = float((got - twin)[fin_t].abs().max()) if rel.numel() else 0.0
+    log(f"[5] {label}: {within * 100:.2f}% of {got.numel()} cells within {tol:g} relative "
+        f"(>= {share * 100:g}%), {rest} beyond, max rel {float(rel.max()):.3e}, "
+        f"max abs {abs_err:.3e}, {int((~fin_t).sum())} non-finite in both")
+    if within < share:
+        raise AssertionError(f"{label}: {within} of cells within {tol} < {share}")
+    return abs_err, float(rel.max())
+
+
+def phase_sde_kernels(pt, rng) -> dict:
+    """K3a against its twin on the card at the reduced ragged shape, its
+    Philox words against ops/philox.py, and the times of both."""
+    from pharmsol_tpu_torch.ops import fused_sde, philox
+    from pharmsol_tpu_torch.utils.f32_budget import f32_error
+
+    R, S = SDE_REDUCED
+    out = {}
+    ems = readme_ems(pt)
+    data = readme_data(pt, R, rng)
+    model = readme_sde(pt)
+    # the kernel's own Philox words
+    gen = sde_plan_for(model, data, readme_support(2, rng), ems, torch.float64).gen
+    ctr = torch.as_tensor(rng.randint(0, 2 ** 32, (1 << 16, 4), dtype=np.int64), device="cuda")
+    ctr[0] = 0
+    ctr[1] = 2 ** 32 - 1
+    for seed in (0, 42, (1 << 40) + 7):
+        got = fused_sde.philox_words(ctr, seed, gen)
+        want = torch.stack(philox.philox4x32(*ctr.unbind(1), philox.seed_key(seed)), 1)
+        if not bool((got == want).all()):
+            raise AssertionError(f"Philox words differ from the twin's (seed {seed})")
+    kat = " ".join(f"{int(v):08x}" for v in fused_sde.philox_words(ctr[:1], 0, gen)[0])
+    log(f"[5] K3a Philox4x32-10: 65536 counters x 3 keys equal to ops/philox.py; "
+        f"counter 0 key 0 -> {kat}")
+
+    # 1. zero diffusion
+    sp0 = readme_support(S, rng, sigma=0.0)
+    plan64 = sde_plan_for(model, data, sp0, ems, torch.float64)
+    plan32 = sde_plan_for(model, data, sp0, ems, torch.float32)
+    got64, twin64 = run_sde_kernel(plan64), run_sde_kernel(plan64, plain=True)
+    got32 = run_sde_kernel(plan32)
+    torch.cuda.synchronize()
+    sde_compare(f"K3a readme sigma_ke=0 {R}x{S}x{SDE_PARTICLES} f64 vs twin", got64, twin64,
+                1e-10, 1.0)
+    log(f"[5] K3a readme sigma_ke=0 f32 kernel vs f64 twin: "
+        f"{f32_error(got32.cpu().numpy(), twin64.cpu().numpy()):.3e} (measured, no budget row)")
+
+    # 2. the README model as it is, em_control='independent'
+    sp = readme_support(S, rng)
+    for dtype, tol, share in ((torch.float64, 1e-9, 0.999), (torch.float32, 1e-4, 0.99)):
+        plan = sde_plan_for(model, data, sp, ems, dtype)
+        d = str(dtype)[6:]
+        got, k_ms = event_ms(lambda: run_sde_kernel(plan))
+        twin, t_ms = event_ms(lambda: run_sde_kernel(plan, plain=True))
+        abs_err, _ = sde_compare(f"K3a readme {R}x{S}x{SDE_PARTICLES} {d} vs twin (same Philox)",
+                                 got, twin, tol, share)
+        k_ms = cuda_ms(lambda: run_sde_kernel(plan), 3, 1)
+        out[dtype] = dict(kernel=k_ms, twin=t_ms, abs_err=abs_err)
+        general = ""
+        if dtype == torch.float64:
+            pt.set_float_dtype(dtype)
+            _, out[dtype]["general"] = event_ms(lambda: pt.log_likelihood_matrix(
+                model, data, sp, ems, device="cuda", engine="general"))
+            general = f", general engine {out[dtype]['general']:.3f} ms"
+        log(f"[5] K3a readme {R}x{S}x{SDE_PARTICLES} {d}: kernel {k_ms:.3f} ms, "
+            f"twin {t_ms:.3f} ms{general}")
+
+    # 3. two inputs, inject-to-destination, BLOQ + ALOQ, em_control='coupled'
+    model2 = two_input_sde(pt)
+    data2, sp2 = two_input_case(pt, R, S, rng)
+    ems2 = readme_ems(pt)
+    plan = sde_plan_for(model2, data2, sp2, ems2, torch.float64)
+    if plan.dose_states != (1, 1) or plan.streams[6] is None or plan.em_control != "coupled":
+        raise AssertionError(f"two-input plan: dose states {plan.dose_states}")
+    got, twin = run_sde_kernel(plan), run_sde_kernel(plan, plain=True)
+    sde_compare(f"K3a two inputs+censoring+coupled {R}x{S}x{SDE_PARTICLES} f64 vs twin",
+                got, twin, 1e-9, 0.999)
+    return out
+
+
+def phase_sde_statistical(pt, rng) -> float:
+    """K3a against the general engine (independent generators): the mean
+    per-cell psi difference within 4 standard errors of zero."""
+    R, S = SDE_STAT
+    pt.set_float_dtype(torch.float64)
+    ems = readme_ems(pt)
+    data = readme_data(pt, R, rng)
+    sp = readme_support(S, rng)
+    model = readme_sde(pt).with_noise("independent")
+    fused = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda", engine="fused")
+    general, g_ms = event_ms(lambda: pt.log_likelihood_matrix(
+        model, data, sp, ems, device="cuda", engine="general"))
+    d = (fused - general).double().flatten()
+    if not bool(torch.isfinite(d).all()):
+        raise AssertionError("statistical check: non-finite cells")
+    mean, se = float(d.mean()), float(d.std() / math.sqrt(d.numel()))
+    log(f"[5] K3a vs general engine {R}x{S}x{SDE_PARTICLES} f64: mean diff {mean:.4f}, "
+        f"standard error {se:.4f} (|mean| <= 4 SE), psi means {float(fused.mean()):.4f} / "
+        f"{float(general.mean()):.4f}; general engine {g_ms:.3f} ms")
+    if abs(mean) > 4.0 * se:
+        raise AssertionError(f"statistical check: mean {mean} beyond 4 SE {se}")
+    return g_ms
+
+
+def phase_sde_cross_family(pt, rng) -> None:
+    """At zero diffusion the README model is the 1-cmt IV model with
+    ke = ke0: the fused SDE psi against the closed form on the same data."""
+    R, S = SDE_REDUCED
+    pt.set_float_dtype(torch.float64)
+    state = rng.get_state()
+    data = readme_data(pt, R, rng)
+    rng.set_state(state)
+    plain = readme_data(pt, R, rng, labels=(0, 0))
+    sp = readme_support(S, rng, sigma=0.0)
+    model = readme_sde(pt)
+    sde = pt.log_likelihood_matrix(model, data, sp, readme_ems(pt), device="cuda")
+    if pt.last_engine_decision(model)["engine"] != "fused":
+        raise AssertionError(f"cross-family: {pt.last_engine_decision(model)}")
+    closed = pt.Analytical(pt.one_compartment, out=lambda x, p, t, cov: x[0:1] / p[1],
+                           nstates=1, ndrugs=1, nout=1)
+    cf = pt.log_likelihood_matrix(closed, plain, sp[:, :2].copy(), readme_ems(pt, 0),
+                                  device="cuda")
+    torch.cuda.synchronize()
+    err = rel_err(sde, cf, 1.0)
+    log(f"[5] cross-family: README SDE at sigma_ke=0 (fused) vs 1-cmt IV closed form "
+        f"{R}x{S} f64 rel {err:.3e} (<= 5e-2, EM at rtol = atol = 1e-2)")
+    if not (err <= 5e-2):
+        raise AssertionError(f"SDE vs closed form {err} > 5e-2")
+
+
+def phase_sde_slice(pt, rng):
+    """The README model at full width through the public entry point."""
+    from pharmsol_tpu_torch.ops import fused_sde
+
+    R, S = SDE_FULL
+    label = f"readme_sde_{R}x{S}x{SDE_PARTICLES}"
+    ems = readme_ems(pt)
+    t0 = time.perf_counter()
+    data = readme_data(pt, R, rng)
+    t_build = time.perf_counter() - t0
+    model = readme_sde(pt)
+    supports = [readme_support(S, rng) for _ in range(3)]
+    # the main path's run: every launch counted here is one of its calls
+    fused_sde.LAUNCHES = 0
+    calls = 0
+    for dtype in (torch.float32, torch.float64):
+        pt.set_float_dtype(dtype)
+        for sp in supports:
+            before = fused_sde.LAUNCHES
+            psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
+            torch.cuda.synchronize()
+            calls += 1
+            dec = pt.last_engine_decision(model)
+            if dec["engine"] != "fused":
+                raise AssertionError(f"{label}: engine {dec}")
+            if fused_sde.LAUNCHES - before != 1:
+                raise AssertionError(f"{label}: {fused_sde.LAUNCHES - before} launches in one call")
+            if tuple(psi.shape) != (R, S) or psi.device.type != "cuda":
+                raise AssertionError(f"{label}: psi {tuple(psi.shape)} on {psi.device}")
+            if bool(torch.isnan(psi).any()):
+                raise AssertionError(f"{label}: NaN psi")
+            log(f"[6] {label} {str(dtype)[6:]}: psi mean {float(psi.double().mean()):.6f}, "
+                f"{int(torch.isfinite(psi).sum())} finite of {psi.numel()}")
+    launches = fused_sde.LAUNCHES
+    log(f"[6] SDE main path: {calls} log_likelihood_matrix calls on cuda, engine fused, "
+        f"{launches} K3a launches (subject builder {t_build * 1e3:.1f} ms)")
+    return label, model, data, launches
+
+
+def phase_sde_times(pt, label, model, data, card: str) -> dict:
+    """K3a alone at full width and one end-to-end call with its steps."""
+    R, S = SDE_FULL
+    ems = readme_ems(pt)
+    sp = readme_support(S, np.random.RandomState(SEED + 5))
+    cells = R * S
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        pt.set_float_dtype(dtype)
+        d = str(dtype)[6:]
+        plan = sde_plan_for(model, data, sp, ems, dtype)
+        kernel = cuda_ms(lambda: run_sde_kernel(plan), 2, 1)
+        e2e = wall_ms(lambda: pt.log_likelihood_matrix(model, data, sp, ems, device="cuda"), 1, 0)
+        psi_rows = run_sde_kernel(plan)
+        parts = {
+            "lower_cached": wall_ms(lambda: model.lower(data.subjects()), 3),
+            "plan": wall_ms(lambda: sde_plan_for(model, data, sp, ems, dtype), 3),
+            "finalize": cuda_ms(lambda: plan.finalize(psi_rows), 10),
+        }
+        log(f"[7] {label} {d} kernel {kernel:10.3f} ms  {cells / (kernel * 1e-3):.4g} cells/s  ({card})")
+        log(f"[7] {label} {d} end_to_end {e2e:10.3f} ms; parts (ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in parts.items())
+            + f"; kernel share {kernel / e2e:.4f} ({card})")
+        out[dtype] = dict(kernel=kernel, end_to_end=e2e)
+    return out
+
+
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -766,7 +1137,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.RandomState(SEED)
     card = phase_environment()
-    phase_build()
+    phase_build(pt)
     torch.cuda.synchronize()
     phase_kernels(pt, rng)
     phase_ode_kernels(pt, rng)
@@ -784,6 +1155,13 @@ def main() -> int:
     torch.cuda.synchronize()
     times = phase_times(pt, workloads, ems, card)
     ode_times = phase_ode_times(pt, ode_label, ode, short_data, ems, card)
+    torch.cuda.synchronize()
+    sde_reduced = phase_sde_kernels(pt, rng)
+    general_ms = phase_sde_statistical(pt, rng)
+    phase_sde_cross_family(pt, rng)
+    torch.cuda.synchronize()
+    sde_label, sde, sde_data, sde_launches = phase_sde_slice(pt, rng)
+    sde_times = phase_sde_times(pt, sde_label, sde, sde_data, card)
     torch.cuda.synchronize()
 
     main_label = workloads[0][0]
@@ -812,7 +1190,27 @@ def main() -> int:
         plain_ms_f64=o64["twin"],
         shape=ode_label,
     )
-    print(json.dumps({"kernels": [record, ode_record]}))
+    r32, r64 = sde_reduced[torch.float32], sde_reduced[torch.float64]
+    sde_record = dict(
+        SDE_KERNEL_RECORD,
+        launches=sde_launches,
+        max_abs_err=r64["abs_err"],
+        max_abs_err_f32=r32["abs_err"],
+        ms=r32["kernel"],
+        plain_ms=r32["twin"],
+        ms_f64=r64["kernel"],
+        plain_ms_f64=r64["twin"],
+        shape="readme_sde_{}x{}x{}".format(*SDE_REDUCED, SDE_PARTICLES),
+        general_ms_f64=r64["general"],
+        general_ms_f64_stat=general_ms,
+        stat_shape="readme_sde_{}x{}x{}".format(*SDE_STAT, SDE_PARTICLES),
+        ms_full=sde_times[torch.float32]["kernel"],
+        ms_full_f64=sde_times[torch.float64]["kernel"],
+        end_to_end_ms_full=sde_times[torch.float32]["end_to_end"],
+        end_to_end_ms_full_f64=sde_times[torch.float64]["end_to_end"],
+        shape_full=sde_label,
+    )
+    print(json.dumps({"kernels": [record, ode_record, sde_record]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

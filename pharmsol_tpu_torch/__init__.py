@@ -2,11 +2,12 @@
 
 A second package beside the JAX package ``pharmsol_tpu`` (the reference it is
 held against). It ports the population log-likelihood matrix ("psi") of the
-closed-form models and of ODE models: the data layer, event-grid lowering,
-the 12 analytical kernels, the explicit ODE steppers, the general psi engine,
-and the fused psi paths, whose kernels are hand-written CUDA for Hopper
-(``csrc/fused_psi.cu``; ``csrc/fused_ode.cu`` with a right-hand side
-generated from the model's closure).
+closed-form models, of ODE models and of SDE models: the data layer,
+event-grid lowering, the 12 analytical kernels, the explicit ODE steppers,
+the Euler-Maruyama particle filter, the general psi engine, and the fused psi
+paths, whose kernels are hand-written CUDA for Hopper (``csrc/fused_psi.cu``;
+``csrc/fused_ode.cu`` and ``csrc/fused_sde.cu`` with device functions
+generated from the model's closures).
 
 The device is explicit: ``config.set_device`` / ``device=`` (default
 ``"cpu"``). The working dtype defaults to float64 everywhere.
@@ -40,6 +41,7 @@ from .metadata import (  # noqa: F401
     ValidatedModelMetadata,
 )
 from .models.equation import ODE, Analytical, EquationBase  # noqa: F401
+from .models.sde import SDE  # noqa: F401
 from .engine import analytical as kernels  # noqa: F401
 from .engine.analytical import (  # noqa: F401
     one_compartment,

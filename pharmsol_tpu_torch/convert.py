@@ -3,8 +3,9 @@
 Duck-typed: nothing here imports jax or ``pharmsol_tpu``. Events are told
 apart by their class names, error models by their public attributes.
 Support points are the same numpy ``[S, n_params]`` array in both packages;
-an ODE model's solver options are its only other state (its closure is
-written once per framework from the same formula).
+an ODE model's solver options and an SDE model's particle-filter options are
+their only other state (their closures are written once per framework from
+the same formula).
 """
 
 from __future__ import annotations
@@ -83,3 +84,12 @@ def ode_options_from_reference(opts) -> ODEOptions:
                       h0=float(opts.h0), max_steps=int(opts.max_steps),
                       solver=str(opts.solver),
                       newton_iters=int(opts.newton_iters))
+
+
+def sde_options_from_reference(sde) -> dict:
+    """The keyword options of the port's ``SDE`` for a JAX package ``SDE``:
+    particle count, seed, noise mode, resampling scheme and EM step control
+    (the JAX model's only state besides its closures)."""
+    return dict(nparticles=int(sde.nparticles()), seed=int(sde._seed),
+                noise=str(sde._noise), resampling=str(sde._resampling),
+                em_control=str(sde._em_control))

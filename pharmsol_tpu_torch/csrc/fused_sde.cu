@@ -1,0 +1,620 @@
+// Fused population psi for SDE models: the bootstrap particle filter with
+// adaptive Euler-Maruyama, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel pharmsol_tpu/ops/pallas_sde.py::psi_sde
+// (_make_sde_kernel, base tier: per-input boluses into their destination
+// states and infusions, init rows, censoring, several outputs with a bias,
+// both em_control modes). Plain PyTorch twin:
+// pharmsol_tpu_torch/ops/fused_sde.py::psi_sde_plain.
+//
+// The model's drift and diffusion are not written here: they are generated
+// from the model's torch closures by pharmsol_tpu_torch/ops/rhs_codegen.py as
+// `drift<T>(x, p, t, rateiv, dx)` and `diffusion<T>(p, t, g)` and included
+// through PHARMSOL_SDE_RHS, so each model builds its own library.
+//
+// Layout. One block of 256 threads per (row, support) cell, a grid of R * S
+// blocks, nothing padded. Thread t owns the particles [t * PPT, t * PPT +
+// PPT) (PPT = 1, 2, 4, 8 or 16, the smallest that covers P), whose states it
+// keeps in registers through the Euler-Maruyama march. Shared memory holds
+// the cloud [n_states][P] and the cumulative weights [P] at an observation
+// only, where particles move between threads: (n_states + 1) * P values,
+// 24 KB for 2 states x 1000 particles in float64; above 48 KB the launch opts
+// in to more, up to 227 KB.
+//
+// Per cell, for each segment m of the row:
+// 1. at a valued observation (read before the dose): the weight q of every
+//    particle (normal density, or the exact normal CDF of +-z for BLOQ/ALOQ),
+//    a block sum, ll += log(max(sum q / P, tiny)), the weights normalised and
+//    scanned into shared memory (an O(P) block scan), and stratified
+//    resampling: particle j draws u_j = (j + U_j) / P and binary-searches the
+//    cumulative weights (first index >= u_j, clamped to P - 1), then gathers
+//    its new state from the shared copy of the cloud;
+// 2. the segment's boluses added to their destination states;
+// 3. the adaptive Euler-Maruyama march (the JAX kernel's em_march): each
+//    trial advances every particle by the full step and by two half steps,
+//    the max normalised error over particles and states is reduced over the
+//    block (warp shuffles, then shared memory), and accept, the new step
+//    (clamped rsqrt law) and the end of the march are decided from that
+//    block-reduced value, so every thread takes the same branch and reaches
+//    the same barriers. The march ends at tau >= target - 1e-6 target, on a
+//    stall (tau + h == tau) or after 100000 trials; a cell that stopped short
+//    is NaN.
+//
+// Noise: Philox4x32-10 (Salmon et al. 2011, the Random123 constants) with
+// Box-Muller normals, counters a pure function of (seed, row, support,
+// segment, trial, draw slot, particle) as laid out in
+// pharmsol_tpu_torch/ops/philox.py, so the twin draws the same numbers. One
+// call gives four float32 or two float64 normals; draws are made for every
+// state, also where the diffusion is zero. They are independent per cell, as
+// the JAX kernel's; noise='common' is not honoured here, as there.
+//
+// What bounds it. Arithmetic and random numbers: per particle and trial,
+// three Philox calls of 10 rounds for 2 states (two multiply-highs and two
+// multiply-lows each round), Box-Muller (a log, a sqrt, a sin and a cos per
+// pair, software routines in float64), two drift and two diffusion
+// evaluations, and one block barrier per trial. The README model takes some
+// 3000-5000 trials per cell under em_control='independent', about 10^9
+// instructions per cell; device memory traffic is negligible (one value
+// written per cell). This first version is untuned: particles whose thread
+// has none (P not a multiple of 256) idle, and no work is shared between
+// the trials of a cell.
+//
+// Rounding. The block sums and the prefix sum run in a fixed order (thread,
+// warp butterfly, warps in order), which the twin reproduces, and the build
+// turns off the contraction of multiplies and adds into FMAs, so that every
+// operation rounds as the twin's op-by-op PyTorch does: kernel and twin draw
+// the same particles and agree to rounding, also where a resampling position
+// falls next to a cumulative weight.
+//
+// Build (plain C interface, loaded with ctypes; ops/_build.py):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+//        -Xcompiler -fPIC -fmad=false -I<dir> \
+//        -DPHARMSOL_SDE_RHS='"sde_<key>.cuh"' -o libfused_sde_<hash>.so fused_sde.cu
+
+#include <cuda_runtime.h>
+#include <float.h>
+#include <limits.h>
+#include <math.h>
+#include <stdint.h>
+
+#ifndef PHARMSOL_SDE_RHS
+#error "define PHARMSOL_SDE_RHS as the generated drift/diffusion header (ops/_build.py)"
+#endif
+#include PHARMSOL_SDE_RHS
+
+namespace {
+
+constexpr int N = PHARMSOL_RHS_NSTATES;
+constexpr int NP = PHARMSOL_RHS_NPARAMS;
+constexpr int NIN = PHARMSOL_RHS_NINPUT;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr unsigned FULL = 0xffffffffu;
+
+// the Euler-Maruyama controller of pharmsol_tpu_torch/engine/sde.py
+constexpr double EM_RTOL = 1e-2;
+constexpr double EM_ATOL = 1e-2;
+constexpr double EM_MAX_STEP = 0.1;
+constexpr double EM_MIN_STEP = 1e-6;
+constexpr double EM_SAFETY = 0.9;
+constexpr int EM_MAX_ITERS = 100000;
+constexpr uint32_t SLOT_RESAMPLE = 3;
+
+// ---------------------------------------------------------------------------
+// Philox4x32-10 and the uniforms and normals drawn from it (ops/philox.py)
+// ---------------------------------------------------------------------------
+
+struct U4 {
+  uint32_t x, y, z, w;
+};
+
+__device__ __forceinline__ U4 philox(U4 c, uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = U4{hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0};
+  }
+  return c;
+}
+
+// The counter of (particle, segment, trial, slot, group) in a cell.
+__device__ __forceinline__ U4 counter(int j, int m, int trial, uint32_t slot,
+                                      int group, int s, int r) {
+  return U4{(uint32_t)j + ((uint32_t)m << 16),
+            (uint32_t)trial + (slot << 17) + ((uint32_t)group << 20),
+            (uint32_t)s, (uint32_t)r};
+}
+
+template <typename T>
+struct Fn;
+
+template <>
+struct Fn<float> {
+  static constexpr int PER_CALL = 4;  // normals per Philox call
+  static __device__ __forceinline__ float tiny() { return FLT_MIN; }
+  static __device__ __forceinline__ float exp(float v) { return expf(v); }
+  static __device__ __forceinline__ float log(float v) { return logf(v); }
+  static __device__ __forceinline__ float sqrt(float v) { return sqrtf(v); }
+  static __device__ __forceinline__ float erf(float v) { return erff(v); }
+  static __device__ __forceinline__ float erfc(float v) { return erfcf(v); }
+  // (0, 1] from the top 24 bits of one word
+  static __device__ __forceinline__ float u24(uint32_t w) {
+    return (float)((w >> 8) + 1u) * 5.9604644775390625e-08f;
+  }
+  static __device__ __forceinline__ float uniform(U4 w) { return u24(w.x); }
+  static __device__ __forceinline__ void normals(U4 w, float* z) {
+    const float u[4] = {u24(w.x), u24(w.y), u24(w.z), u24(w.w)};
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const float rr = sqrtf(-2.0f * logf(u[2 * q]));
+      const float th = 6.283185307179586f * u[2 * q + 1];
+      z[2 * q] = rr * cosf(th);
+      z[2 * q + 1] = rr * sinf(th);
+    }
+  }
+};
+
+template <>
+struct Fn<double> {
+  static constexpr int PER_CALL = 2;
+  static __device__ __forceinline__ double tiny() { return DBL_MIN; }
+  static __device__ __forceinline__ double exp(double v) { return ::exp(v); }
+  static __device__ __forceinline__ double log(double v) { return ::log(v); }
+  static __device__ __forceinline__ double sqrt(double v) { return ::sqrt(v); }
+  static __device__ __forceinline__ double erf(double v) { return ::erf(v); }
+  static __device__ __forceinline__ double erfc(double v) { return ::erfc(v); }
+  // (0, 1] from 53 bits of two words
+  static __device__ __forceinline__ double u53(uint32_t hi, uint32_t lo) {
+    const uint64_t v = ((uint64_t)(hi >> 5) << 26) + (uint64_t)(lo >> 6) + 1ull;
+    return (double)v * 1.1102230246251565404e-16;
+  }
+  static __device__ __forceinline__ double uniform(U4 w) { return u53(w.x, w.y); }
+  static __device__ __forceinline__ void normals(U4 w, double* z) {
+    const double ua = u53(w.x, w.y), ub = u53(w.z, w.w);
+    const double rr = ::sqrt(-2.0 * ::log(ua));
+    const double th = 6.283185307179586 * ub;
+    z[0] = rr * ::cos(th);
+    z[1] = rr * ::sin(th);
+  }
+};
+
+// max that propagates NaN from either side, as torch.maximum / jnp.maximum
+template <typename T>
+__device__ __forceinline__ T nanmax(T a, T b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// The standard normal CDF, accurate in both tails (the formula of
+// jax.scipy.special.ndtr and engine/sde.py::ndtr).
+template <typename T>
+__device__ __forceinline__ T ndtr(T v) {
+  const T w = v * T(0.70710678118654752440);
+  const T z = w < T(0) ? -w : w;
+  const T y = z < T(0.70710678118654752440) ? T(1) + Fn<T>::erf(w)
+              : (w > T(0) ? T(2) - Fn<T>::erfc(z) : Fn<T>::erfc(z));
+  return T(0.5) * y;
+}
+
+// ---------------------------------------------------------------------------
+// Block-wide reductions. Every thread of the block returns the same value:
+// the warp results are combined in the same order by every thread.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ T block_max(T v, T* buf) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = nanmax(v, __shfl_xor_sync(FULL, v, off));
+  if ((threadIdx.x & 31) == 0) buf[threadIdx.x >> 5] = v;
+  __syncthreads();
+  T r = buf[0];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) r = nanmax(r, buf[w]);
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ T block_sum(T v, T* buf) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = v + __shfl_xor_sync(FULL, v, off);
+  if ((threadIdx.x & 31) == 0) buf[threadIdx.x >> 5] = v;
+  __syncthreads();
+  T r = buf[0];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) r = r + buf[w];
+  return r;
+}
+
+// Exclusive prefix sum of one value per thread, in thread order.
+template <typename T>
+__device__ __forceinline__ T block_exclusive_scan(T v, T* buf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T inc = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const T o = __shfl_up_sync(FULL, inc, off);
+    if (lane >= off) inc = inc + o;
+  }
+  T excl = __shfl_up_sync(FULL, inc, 1);
+  if (lane == 0) excl = T(0);
+  if (lane == 31) buf[warp] = inc;
+  __syncthreads();
+  T base = T(0);
+  for (int w = 0; w < warp; ++w) base = base + buf[w];
+  return base + excl;
+}
+
+template <typename T>
+struct Args {
+  const T* seg_dt;     // [R, M]
+  const T* seg_bolus;  // [nb, R, M]
+  const T* seg_rate;   // [nr, R, M] or null
+  const T* obs_mask;   // [R, M]
+  const T* obs_value;
+  const T* obs_sigma;
+  const T* obs_cens;   // or null
+  const T* obs_outeq;  // or null when n_out == 1
+  const T* seg_t0;     // [R, M]
+  const T* params;     // [NP, S]
+  const T* init;       // [N, S] or null
+  const T* init_mask;  // [R] (with init)
+  const T* coef;       // [n_out, N, S]
+  const T* bias;       // [n_out, S] or null
+  const int* dose_state;  // [nb] destination state of each bolus plane
+  const int* rate_in;     // [nr] RHS input of each rate plane
+  T* out;              // [R, S]
+  int R, S, M, P, nb, nr, n_out, coupled;
+  uint32_t k0, k1;     // Philox key
+};
+
+template <typename T, int PPT>
+__global__ void __launch_bounds__(THREADS) fused_sde_kernel(const Args<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* cloud = reinterpret_cast<T*>(smem_raw);  // [N][P]
+  T* cw = cloud + (size_t)N * a.P;             // [P]
+  __shared__ T red_max[2][WARPS];              // double-buffered by trial
+  __shared__ T red_sum[WARPS];
+  __shared__ T red_scan[WARPS];
+
+  const int r = (int)(blockIdx.x / (unsigned)a.S);
+  const int s = (int)(blockIdx.x - (unsigned)r * (unsigned)a.S);
+  const int P = a.P;
+  const int j0 = threadIdx.x * PPT;
+  const size_t row = (size_t)r * a.M;
+  const size_t RM = (size_t)a.R * a.M;
+  const T inv_P = T(1.0 / (double)P);
+  const T tiny = Fn<T>::tiny();
+  const T SQRT_2PI = T(2.5066282746310002);
+  constexpr int PC = Fn<T>::PER_CALL;
+  constexpr int G = (N + PC - 1) / PC;  // Philox calls per slot
+
+  T p[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) p[k] = a.params[(size_t)k * a.S + s];
+
+  // the initial cloud: init at t = 0 on the occasion init_mask marks
+  T x[PPT][N];
+  const T im = a.init != nullptr ? a.init_mask[r] : T(0);
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      x[k][i] = a.init != nullptr ? im * a.init[(size_t)i * a.S + s] : T(0);
+  }
+
+  T ll = T(0);
+  unsigned parity = 0;  // selects red_max's buffer, trial by trial
+  for (int m = 0; m < a.M; ++m) {
+    const size_t idx = row + m;
+
+    // 1. the observation, before the segment's dose
+    if (a.obs_mask[idx] > T(0)) {
+      const T sig = a.obs_sigma[idx];
+      const T val = a.obs_value[idx];
+      const T sc = a.obs_cens != nullptr ? a.obs_cens[idx] : T(0);
+      const int oe = a.n_out > 1 ? (int)a.obs_outeq[idx] : 0;
+      T q[PPT];
+      T qs = T(0);
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        q[k] = T(0);
+        if (j0 + k < P) {
+          T pred = T(0);
+          if (oe >= 0 && oe < a.n_out) {
+            const T* ck = a.coef + (size_t)oe * N * a.S + s;
+            pred = ck[0] * x[k][0];
+#pragma unroll
+            for (int i = 1; i < N; ++i) pred = pred + ck[(size_t)i * a.S] * x[k][i];
+            if (a.bias != nullptr) pred = pred + a.bias[(size_t)oe * a.S + s];
+          }
+          const T z = (val - pred) / sig;
+          q[k] = sc == T(0) ? Fn<T>::exp(T(-0.5) * z * z) / (sig * SQRT_2PI)
+                            : ndtr(sc * z);
+          qs = qs + q[k];
+        }
+      }
+      const T sum_q = block_sum(qs, red_sum);
+      ll = ll + Fn<T>::log(nanmax(sum_q * inv_P, tiny));
+      const T denom = nanmax(sum_q, tiny);
+      T loc[PPT];
+      T run = T(0);
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        if (j0 + k < P) run = run + q[k] / denom;
+        loc[k] = run;
+      }
+      const T base = block_exclusive_scan(run, red_scan);
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const int j = j0 + k;
+        if (j < P) {
+          cw[j] = base + loc[k];
+#pragma unroll
+          for (int i = 0; i < N; ++i) cloud[(size_t)i * P + j] = x[k][i];
+        }
+      }
+      __syncthreads();
+      // stratified resampling: u_j = (j + U_j) / P, first cw >= u_j
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const int j = j0 + k;
+        if (j < P) {
+          const U4 w = philox(counter(j, m, 0, SLOT_RESAMPLE, 0, s, r), a.k0, a.k1);
+          const T u = (T(j) + Fn<T>::uniform(w)) / T(P);
+          int lo = 0, hi = P;
+          while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (cw[mid] < u) lo = mid + 1;
+            else hi = mid;
+          }
+          const int src = lo < P - 1 ? lo : P - 1;
+#pragma unroll
+          for (int i = 0; i < N; ++i) x[k][i] = cloud[(size_t)i * P + src];
+        }
+      }
+      __syncthreads();  // the cloud and cw are rewritten at the next observation
+    }
+
+    // 2. the segment's boluses, into their destination states
+    for (int b = 0; b < a.nb; ++b) {
+      const T amt = a.seg_bolus[(size_t)b * RM + idx];
+      const int ds = a.dose_state[b];
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) x[k][i] = (i == ds) ? x[k][i] + amt : x[k][i];
+      }
+    }
+
+    // 3. the adaptive Euler-Maruyama march of the segment
+    const T dt = a.seg_dt[idx];
+    if (!(dt > T(0))) continue;
+    T rate[NIN];
+#pragma unroll
+    for (int i = 0; i < NIN; ++i) rate[i] = T(0);
+    for (int b = 0; b < a.nr; ++b) {
+      const T v = a.seg_rate[(size_t)b * RM + idx];
+      const int in = a.rate_in[b];
+#pragma unroll
+      for (int i = 0; i < NIN; ++i) rate[i] = (i == in) ? v : rate[i];
+    }
+    const T t0 = a.seg_t0[idx];
+    const T thr = dt - T(1e-6) * (dt > T(1e-30) ? dt : T(1e-30));
+    T tau = T(0);
+    T h = T(EM_MAX_STEP);
+    bool live = true;
+    for (int it = 0; it < EM_MAX_ITERS && live; ++it) {
+      const T rem = dt - tau;
+      const T h_try = h < (rem > T(1e-14) ? rem : T(1e-14)) ? h
+                      : (rem > T(1e-14) ? rem : T(1e-14));
+      const T t_abs = t0 + tau;
+      const T h_half = h_try * T(0.5);
+      const T sq_h = Fn<T>::sqrt(h_half > T(0) ? h_half : T(0));
+      const T sq = Fn<T>::sqrt(h_try > T(0) ? h_try : T(0));
+      const T t_mid = t_abs + h_half;
+      T g0[N], g1[N];
+      diffusion<T>(p, t_abs, g0);
+      diffusion<T>(p, t_mid, g1);
+      T err = T(0);
+      T y2[PPT][N];
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const int j = j0 + k;
+#pragma unroll
+        for (int i = 0; i < N; ++i) y2[k][i] = x[k][i];
+        if (j >= P) continue;
+        // the increments of the full step and of the two half steps
+        T w_full[N], w1[N], w2[N];
+        T z[3][G * PC];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          if (d == 2 && a.coupled) break;
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            Fn<T>::normals(philox(counter(j, m, it, (uint32_t)d, g, s, r), a.k0, a.k1),
+                           &z[d][g * PC]);
+        }
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          if (a.coupled) {
+            w_full[i] = (z[0][i] + z[1][i]) * sq_h;
+            w1[i] = z[0][i] * sq_h;
+            w2[i] = z[1][i] * sq_h;
+          } else {
+            w_full[i] = z[0][i] * sq;
+            w1[i] = z[1][i] * sq_h;
+            w2[i] = z[2][i] * sq_h;
+          }
+        }
+        T d0[N], ym[N], d1[N];
+        drift<T>(x[k], p, t_abs, rate, d0);
+        T y1[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          y1[i] = x[k][i] + d0[i] * h_try + g0[i] * w_full[i];
+          ym[i] = x[k][i] + d0[i] * h_half + g0[i] * w1[i];
+        }
+        drift<T>(ym, p, t_mid, rate, d1);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          y2[k][i] = ym[i] + d1[i] * h_half + g1[i] * w2[i];
+          const T xa = x[k][i] < T(0) ? -x[k][i] : x[k][i];
+          const T diff = y1[i] - y2[k][i];
+          const T e = (diff < T(0) ? -diff : diff) / (T(EM_ATOL) + T(EM_RTOL) * xa);
+          err = nanmax(err, e);
+        }
+      }
+      err = block_max(err, red_max[parity]);
+      parity ^= 1u;
+      const bool finite = isfinite(err);
+      if (err <= T(1) && finite) {
+        tau = tau + h_try;
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+#pragma unroll
+          for (int i = 0; i < N; ++i) x[k][i] = y2[k][i];
+        }
+      }
+      T e_fl = finite ? err : T(1e4);
+      e_fl = e_fl > T(1e-12) ? e_fl : T(1e-12);
+      T hn = h_try * T(EM_SAFETY) * (T(1) / Fn<T>::sqrt(e_fl));
+      hn = hn > T(EM_MIN_STEP) ? hn : T(EM_MIN_STEP);
+      h = hn < T(EM_MAX_STEP) ? hn : T(EM_MAX_STEP);
+      const bool done = tau >= thr;
+      const bool stalled = (tau + h) <= tau && !done;
+      live = !done && !stalled;
+    }
+    if (tau < thr) {
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) x[k][i] = T(NAN);
+      }
+    }
+  }
+  if (threadIdx.x == 0) a.out[(size_t)r * a.S + s] = ll;
+}
+
+template <typename T, int PPT>
+cudaError_t launch_ppt(const Args<T>& a, cudaStream_t stream) {
+  const size_t smem = (size_t)(N + 1) * a.P * sizeof(T);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_sde_kernel<T, PPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const unsigned cells = (unsigned)((long long)a.R * a.S);
+  fused_sde_kernel<T, PPT><<<cells, THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
+  if (a.R <= 0 || a.S <= 0) return cudaSuccess;
+  if ((long long)a.R * a.S > (long long)INT_MAX || a.P < 1 || a.P > THREADS * 16 ||
+      a.M > (1 << 16) || a.M < 1)
+    return cudaErrorInvalidValue;
+  const int ppt = (a.P + THREADS - 1) / THREADS;
+  if (ppt <= 1) return launch_ppt<T, 1>(a, stream);
+  if (ppt <= 2) return launch_ppt<T, 2>(a, stream);
+  if (ppt <= 4) return launch_ppt<T, 4>(a, stream);
+  if (ppt <= 8) return launch_ppt<T, 8>(a, stream);
+  return launch_ppt<T, 16>(a, stream);
+}
+
+template <typename T>
+cudaError_t run(const void* const* ptr, const int* ints, void* out, int R, int S,
+                int M, int P, int nb, int nr, int n_out, int coupled,
+                uint32_t k0, uint32_t k1, cudaStream_t stream) {
+  Args<T> a;
+  a.seg_dt = (const T*)ptr[0];
+  a.seg_bolus = (const T*)ptr[1];
+  a.seg_rate = (const T*)ptr[2];
+  a.obs_mask = (const T*)ptr[3];
+  a.obs_value = (const T*)ptr[4];
+  a.obs_sigma = (const T*)ptr[5];
+  a.obs_cens = (const T*)ptr[6];
+  a.obs_outeq = (const T*)ptr[7];
+  a.seg_t0 = (const T*)ptr[8];
+  a.params = (const T*)ptr[9];
+  a.init = (const T*)ptr[10];
+  a.init_mask = (const T*)ptr[11];
+  a.coef = (const T*)ptr[12];
+  a.bias = (const T*)ptr[13];
+  a.dose_state = ints;
+  a.rate_in = ints + nb;
+  a.out = (T*)out;
+  a.R = R; a.S = S; a.M = M; a.P = P; a.nb = nb; a.nr = nr; a.n_out = n_out;
+  a.coupled = coupled;
+  a.k0 = k0; a.k1 = k1;
+  return launch<T>(a, stream);
+}
+
+__global__ void philox_kernel(int n, const uint32_t* ctr, uint32_t k0, uint32_t k1,
+                              uint32_t* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const U4 w = philox(U4{ctr[4 * i], ctr[4 * i + 1], ctr[4 * i + 2], ctr[4 * i + 3]},
+                      k0, k1);
+  out[4 * i] = w.x;
+  out[4 * i + 1] = w.y;
+  out[4 * i + 2] = w.z;
+  out[4 * i + 3] = w.w;
+}
+
+}  // namespace
+
+// Launch on `stream`. Pointers: seg_dt [R, M], seg_bolus [nb, R, M], seg_rate
+// [nr, R, M] (or null with nr == 0), obs_mask, obs_value, obs_sigma,
+// obs_cens (or null), obs_outeq (or null when n_out == 1), seg_t0: [R, M];
+// params [NP, S]; init [N, S] and init_mask [R] (both or neither null); coef
+// [n_out, N, S]; bias [n_out, S] (or null); ints: int32 [nb destination
+// states, nr rate inputs]; out [R, S]. All floating data float (is_f64 == 0)
+// or double. (k0, k1) is the Philox key. Returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int fused_sde_launch(int is_f64, const void* seg_dt, const void* seg_bolus,
+                                const void* seg_rate, const void* obs_mask,
+                                const void* obs_value, const void* obs_sigma,
+                                const void* obs_cens, const void* obs_outeq,
+                                const void* seg_t0, const void* params,
+                                const void* init, const void* init_mask,
+                                const void* coef, const void* bias, const void* ints,
+                                void* out, int R, int S, int M, int P, int nb, int nr,
+                                int n_out, int coupled, uint32_t k0, uint32_t k1,
+                                void* stream) {
+  const void* ptr[14] = {seg_dt, seg_bolus, seg_rate, obs_mask, obs_value,
+                         obs_sigma, obs_cens, obs_outeq, seg_t0, params, init,
+                         init_mask, coef, bias};
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* iv = (const int*)ints;
+  const cudaError_t err =
+      is_f64 ? run<double>(ptr, iv, out, R, S, M, P, nb, nr, n_out, coupled, k0, k1, st)
+             : run<float>(ptr, iv, out, R, S, M, P, nb, nr, n_out, coupled, k0, k1, st);
+  return (int)err;
+}
+
+// The raw Philox4x32-10 words of n counters [n, 4] under the key (k0, k1):
+// a check of the kernel's generator against its twin, off the psi path.
+extern "C" int fused_sde_philox(int n, const void* ctr, uint32_t k0, uint32_t k1,
+                                void* out, void* stream) {
+  if (n <= 0) return 0;
+  philox_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      n, (const uint32_t*)ctr, k0, k1, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// The generated closures this library was built with: {states, params, inputs}.
+extern "C" void fused_sde_signature(int* out3) {
+  out3[0] = N;
+  out3[1] = NP;
+  out3[2] = NIN;
+}
+
+extern "C" const char* fused_sde_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

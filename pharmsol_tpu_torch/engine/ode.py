@@ -28,6 +28,7 @@ import torch
 from torch.func import vmap
 
 from ..errors import PharmsolError
+from .sim import as_vector
 
 DEFAULT_RTOL = 1e-4
 DEFAULT_ATOL = 1e-4
@@ -226,9 +227,7 @@ def lane_rhs(diffeq: Callable, nstates: int, ninput: int, cov):
 
     def one(x, p, t, rateiv):
         dx = diffeq(x, p, t, torch.zeros_like(rateiv), rateiv, cov)
-        if not isinstance(dx, torch.Tensor):
-            dx = torch.stack([torch.as_tensor(c, dtype=x.dtype) for c in dx])
-        return dx.to(x.dtype).reshape(nstates)
+        return as_vector(dx, x).reshape(nstates)
 
     return vmap(vmap(one, in_dims=(0, None, 0, 0)), in_dims=(0, 0, 0, None))
 

@@ -88,6 +88,25 @@ def default_apply_bolus(nstates: int):
     return apply
 
 
+def as_vector(v, like: torch.Tensor) -> torch.Tensor:
+    """A closure's result as a tensor of ``like``'s dtype and device: a
+    tensor as it is, a list of components (Python constants among them, as
+    ``[-k * x[0], 0.0]``) stacked."""
+    if not isinstance(v, torch.Tensor):
+        v = torch.stack([torch.as_tensor(c, dtype=like.dtype, device=like.device)
+                         for c in v])
+    return v.to(like.dtype)
+
+
+def as_components(v, n: int, shape, dtype, device) -> list:
+    """A closure's result on lanes as ``n`` tensors of ``shape`` (a stacked
+    result split along its first axis, Python constants broadcast)."""
+    comps = v.unbind(0) if isinstance(v, torch.Tensor) else list(v)
+    if len(comps) != n:
+        raise ValueError(f"closure returned {len(comps)} components, expected {n}")
+    return [torch.as_tensor(c, dtype=dtype, device=device).expand(shape) for c in comps]
+
+
 def rhs_difference_apply_bolus(diffeq: Callable):
     """ODE bolus via RHS difference (ode/mod.rs:644-687).
 
@@ -97,11 +116,8 @@ def rhs_difference_apply_bolus(diffeq: Callable):
     """
 
     def apply(x, bvec, p, t, rateiv, cov):
-        dx_with = diffeq(x, p, t, bvec, rateiv, cov)
-        dx_without = diffeq(x, p, t, torch.zeros_like(bvec), rateiv, cov)
-        if not isinstance(dx_with, torch.Tensor):
-            dx_with = torch.stack(list(dx_with))
-            dx_without = torch.stack(list(dx_without))
+        dx_with = as_vector(diffeq(x, p, t, bvec, rateiv, cov), x)
+        dx_without = as_vector(diffeq(x, p, t, torch.zeros_like(bvec), rateiv, cov), x)
         return x + (dx_with - dx_without).reshape(x.shape)
 
     return apply

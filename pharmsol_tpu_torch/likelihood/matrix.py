@@ -9,13 +9,15 @@ Two engines compute it:
 
 - ``general``: the segment march of ``engine/sim.py`` over every (support,
   occasion row) pair as batched tensors, then a sum of occasion rows into
-  subjects. It takes any Analytical or ODE model the port supports. The JAX
-  package calls its counterpart ``xla``.
+  subjects. It takes any Analytical or ODE model the port supports; SDE
+  models take the particle filter of ``engine/sde.py``. The JAX package
+  calls its counterpart ``xla``.
 - ``fused``: a hand-written CUDA kernel (its plain twin on the CPU): for
   closed-form models ``ops/fused_psi.py`` through
   ``plans/analytical.py::_FusedPsiPlan``, for ODE models ``ops/fused_ode.py``
-  through ``plans/ode.py::_FusedOdePsiPlan``. The JAX package calls its
-  counterpart ``pallas``.
+  through ``plans/ode.py::_FusedOdePsiPlan``, for SDE models
+  ``ops/fused_sde.py`` through ``plans/sde.py::_FusedSdePsiPlan``. The JAX
+  package calls its counterpart ``pallas``.
 
 ``engine='auto'`` takes ``fused`` on a CUDA device for every model the
 fused plan accepts, and ``general`` on the CPU. A model outside the plan's
@@ -85,10 +87,15 @@ def _auto_engine(device: torch.device) -> tuple:
 def _fused_plan(equation, grid, sp, lowered, device, dtype):
     """The fused plan of the equation's family (PharmsolError when the model
     is outside its scope)."""
-    if getattr(equation, "kind", None) == "ode":
+    kind = getattr(equation, "kind", None)
+    if kind == "ode":
         from .plans.ode import _FusedOdePsiPlan
 
         return _FusedOdePsiPlan(equation, grid, sp, lowered, device, dtype)
+    if kind == "sde":
+        from .plans.sde import _FusedSdePsiPlan
+
+        return _FusedSdePsiPlan(equation, grid, sp, lowered, device, dtype)
     from .plans.analytical import _FusedPsiPlan
 
     return _FusedPsiPlan(equation, grid, sp, lowered, device, dtype)
@@ -108,6 +115,7 @@ def _device_rows(grid, device, dtype):
 
 def _general_psi(equation, grid, sp, lowered, device, dtype) -> torch.Tensor:
     """General engine: batched segment march, then rows -> subjects."""
+    from ..engine.sde import simulate_occasion_sde_ll
     from ..engine.sim import simulate_occasion_ll
 
     rows = _device_rows(grid, device, dtype)
@@ -115,7 +123,14 @@ def _general_psi(equation, grid, sp, lowered, device, dtype) -> torch.Tensor:
     kind = torch.as_tensor(np.asarray(lowered.kind, dtype=np.int64), device=device)
     factor = torch.as_tensor(lowered.factor).to(device=device, dtype=dtype)
     poly = torch.as_tensor(lowered.poly).to(device=device, dtype=dtype)
-    ll = simulate_occasion_ll(equation.spec, rows, p, kind, factor, poly)  # [S, R]
+    if getattr(equation, "kind", None) == "sde":
+        # every call draws from a generator seeded by the model: one seed,
+        # one psi
+        gen = torch.Generator(device=device)
+        gen.manual_seed(equation._seed)
+        ll = simulate_occasion_sde_ll(equation.spec, rows, p, kind, factor, poly, gen)
+    else:
+        ll = simulate_occasion_ll(equation.spec, rows, p, kind, factor, poly)  # [S, R]
     row_subject = torch.as_tensor(
         np.asarray(grid.row_subject, dtype=np.int64), device=device)
     psi = torch.zeros((grid.n_subjects, sp.shape[0]), dtype=dtype, device=device)
@@ -144,7 +159,11 @@ def log_likelihood_matrix(
     params, then the out closure's parameters), bolus/infusion regimens into
     input 0, censoring and errorpoly overrides. The ODE kernel supports
     dopri5 and tsit5, doses into any input, linear outputs and censoring, for
-    every RHS the CUDA generator accepts (``ops/rhs_codegen.py``).
+    every RHS the CUDA generator accepts (``ops/rhs_codegen.py``). The SDE
+    kernel supports stratified resampling, doses into any input (and their
+    inject-to-destination states), init, linear outputs, censoring and both
+    ``em_control`` modes, for every drift and diffusion the generator
+    accepts; its draws are independent per (subject, support) cell.
 
     Divergence note (as in the JAX package): the reference aborts the whole
     matrix on a simulation error; here non-finite cells are mapped to -inf

@@ -106,9 +106,22 @@ def _active_inputs(rows, ninput: int):
         rate_inputs = tuple(sorted({int(j) for j in ii[real_i]})) or (0,)
     if max(bolus_inputs + rate_inputs) >= ninput:
         raise PharmsolError(
-            f"engine='fused' ODE psi: a dose targets input >= ndrugs ({ninput})"
+            f"engine='fused' psi: a dose targets input >= ndrugs ({ninput})"
         )
     return bolus_inputs, rate_inputs
+
+
+def _seg_t0(rows):
+    """Start time of every segment [R, M], the last real breakpoint time on
+    padding columns (as the JAX plans)."""
+    from ...config import BIG_TIME
+    from ...ops.fused_psi import segment_schedule
+
+    _, t_sorted, _, _ = segment_schedule(rows)
+    real = t_sorted < BIG_TIME / 2
+    t_real_max = np.max(np.where(real, t_sorted, -np.inf), axis=1)
+    t_real_max = np.where(np.isfinite(t_real_max), t_real_max, 0.0)
+    return np.minimum(t_sorted, t_real_max[:, None])
 
 
 class _FusedOdePsiPlan:
@@ -121,12 +134,9 @@ class _FusedOdePsiPlan:
     """
 
     def __init__(self, equation, grid, sp, lowered, device, dtype):
-        from ...config import BIG_TIME
         from ...engine.ode import TABLEAUS
         from ...engine.sim import NO_COVARIATES
-        from ...ops.fused_psi import (
-            extract_linear_out, segment_schedule, streams_from_grid,
-        )
+        from ...ops.fused_psi import extract_linear_out, streams_from_grid
         from ...ops.rhs_codegen import generate_rhs
 
         if getattr(equation, "kind", None) != "ode":
@@ -162,11 +172,7 @@ class _FusedOdePsiPlan:
          outeq) = streams
         bol = np.stack([seg_bolus3[..., j] for j in self.bolus_inputs])
         rate = np.stack([seg_rate3[..., j] for j in self.rate_inputs])
-        _, t_sorted, _, _ = segment_schedule(grid.rows)
-        real = t_sorted < BIG_TIME / 2
-        t_real_max = np.max(np.where(real, t_sorted, -np.inf), axis=1)
-        t_real_max = np.where(np.isfinite(t_real_max), t_real_max, 0.0)
-        seg_t0 = np.minimum(t_sorted, t_real_max[:, None])
+        seg_t0 = _seg_t0(grid.rows)
         self.R, self.M = seg_dt.shape
         self.S = sp.shape[0]
         self.device, self.dtype = device, dtype

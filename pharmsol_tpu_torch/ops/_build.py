@@ -6,10 +6,13 @@ they compile in seconds without PyTorch's headers:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o libfused_psi_<hash>.so csrc/fused_psi.cu
 
-The ODE kernel ``csrc/fused_ode.cu`` is built once per model right-hand side:
-the header generated from the model's closure (``ops/rhs_codegen.py``) is
-written next to the library as ``rhs_<key>.cuh`` and included through
-``-DPHARMSOL_ODE_RHS``, giving ``libfused_ode_<hash>.so``.
+The ODE kernel ``csrc/fused_ode.cu`` (:data:`ODE`) is built once per model
+right-hand side: the header generated from the model's closure
+(``ops/rhs_codegen.py``) is written next to the library as ``rhs_<key>.cuh``
+and included through ``-DPHARMSOL_ODE_RHS``, giving
+``libfused_ode_<hash>.so``. The SDE kernel ``csrc/fused_sde.cu``
+(:data:`SDE`) is built the same way once per generated drift and diffusion
+(``sde_<key>.cuh``, ``-DPHARMSOL_SDE_RHS``, ``libfused_sde_<hash>.so``).
 
 Libraries are built at first use into ``pharmsol_tpu_torch/_build/`` (listed
 in ``.gitignore``), named by a hash of the sources, the generated header and
@@ -35,14 +38,43 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("fused_psi.cu",)
-ODE_SOURCE = "fused_ode.cu"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
+
+class Generated(NamedTuple):
+    """A kernel built once per header generated from a model's closures.
+
+    ``source`` lies in ``csrc/`` and names the library and its C functions
+    (``<stem>_launch``, ``<stem>_error_string``, ``<stem>_signature``, and
+    ``functions``: name -> (argtypes, restype)); the header is
+    ``<header_prefix>_<key>.cuh``, included through ``-D<macro>``; ``flags``
+    are nvcc flags of this kernel alone.
+    """
+
+    source: str
+    header_prefix: str
+    macro: str
+    flags: tuple
+    functions: dict
+
+
+_vp, _ci, _cu, _cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_double
+ODE = Generated("fused_ode.cu", "rhs", "PHARMSOL_ODE_RHS", (), {
+    "launch": ([_ci, _ci] + [_vp] * 15 + [_ci] * 7 + [_cd] * 3 + [_ci, _vp], _ci),
+})
+# The SDE kernel rounds every multiply and add on its own (-fmad=false), as
+# its plain PyTorch twin does op by op: the two then draw the same particles,
+# and the card check holds them to 1e-9 in float64 and 1e-4 in float32.
+SDE = Generated("fused_sde.cu", "sde", "PHARMSOL_SDE_RHS", ("-fmad=false",), {
+    "launch": ([_ci] + [_vp] * 16 + [_ci] * 8 + [_cu, _cu, _vp], _ci),
+    "philox": ([_ci, _vp, _cu, _cu, _vp, _vp], _ci),
+})
+
 _LIB: Optional[ctypes.CDLL] = None
-_ODE_LIBS: Dict[str, ctypes.CDLL] = {}
+_GENERATED_LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -67,17 +99,17 @@ def nvcc_command(output: Path, extra: Sequence[str] = (),
             *(str(CSRC_DIR / s) for s in SOURCES)]
 
 
-def ode_header_name(rhs) -> str:
-    return f"rhs_{rhs.key}.cuh"
+def header_name(kind: Generated, gen) -> str:
+    return f"{kind.header_prefix}_{gen.key}.cuh"
 
 
-def ode_nvcc_command(rhs, output: Path, extra: Sequence[str] = (),
-                     nvcc: str = "nvcc") -> List[str]:
-    """The nvcc command line that builds the ODE kernel for the generated
-    ``rhs`` (its header in BUILD_DIR) into ``output``."""
-    return [nvcc, *NVCC_FLAGS, *extra, f"-I{BUILD_DIR}",
-            f'-DPHARMSOL_ODE_RHS="{ode_header_name(rhs)}"',
-            "-o", str(output), str(CSRC_DIR / ODE_SOURCE)]
+def generated_nvcc_command(kind: Generated, gen, output: Path,
+                           extra: Sequence[str] = (), nvcc: str = "nvcc") -> List[str]:
+    """The nvcc command line that builds ``kind``'s kernel for the generated
+    header ``gen`` (in BUILD_DIR) into ``output``."""
+    return [nvcc, *NVCC_FLAGS, *kind.flags, *extra, f"-I{BUILD_DIR}",
+            f'-D{kind.macro}="{header_name(kind, gen)}"',
+            "-o", str(output), str(CSRC_DIR / kind.source)]
 
 
 def source_hash() -> str:
@@ -92,12 +124,12 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfused_psi_{source_hash()}.so"
 
 
-def ode_library_path(rhs) -> Path:
+def generated_library_path(kind: Generated, gen) -> Path:
     h = hashlib.sha256()
-    h.update((CSRC_DIR / ODE_SOURCE).read_bytes())
-    h.update(rhs.source.encode())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libfused_ode_{h.hexdigest()[:16]}.so"
+    h.update((CSRC_DIR / kind.source).read_bytes())
+    h.update(gen.source.encode())
+    h.update(" ".join(NVCC_FLAGS + kind.flags).encode())
+    return BUILD_DIR / f"lib{Path(kind.source).stem}_{h.hexdigest()[:16]}.so"
 
 
 class Target(NamedTuple):
@@ -113,17 +145,22 @@ def psi_target() -> Target:
                   lambda out, extra, nvcc: nvcc_command(out, extra, nvcc))
 
 
-def ode_target(rhs) -> Target:
-    """The ODE library of ``rhs``; writes its generated header."""
+def _write_header(name: str, source: str) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    header = BUILD_DIR / ode_header_name(rhs)
-    if not header.exists() or header.read_text() != rhs.source:
+    header = BUILD_DIR / name
+    if not header.exists() or header.read_text() != source:
         fd, tmp = tempfile.mkstemp(suffix=".cuh", dir=BUILD_DIR)
         with os.fdopen(fd, "w") as fh:
-            fh.write(rhs.source)
+            fh.write(source)
         os.replace(tmp, header)
-    return Target(f"fused_ode[{rhs.key}]", ode_library_path(rhs),
-                  lambda out, extra, nvcc: ode_nvcc_command(rhs, out, extra, nvcc))
+
+
+def generated_target(kind: Generated, gen) -> Target:
+    """The library of ``kind``'s kernel for the generated header ``gen``;
+    writes the header."""
+    _write_header(header_name(kind, gen), gen.source)
+    return Target(f"{Path(kind.source).stem}[{gen.key}]", generated_library_path(kind, gen),
+                  lambda out, extra, nvcc: generated_nvcc_command(kind, gen, out, extra, nvcc))
 
 
 def _compile(target: Target, verbose: bool) -> tuple:
@@ -185,29 +222,28 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def load_ode_library(rhs) -> ctypes.CDLL:
-    """The ODE kernel library of the generated ``rhs`` (built first if
-    needed); checks that it was built for the same state, parameter and
-    input counts."""
-    target = ode_target(rhs)
+def load_generated_library(kind: Generated, gen) -> ctypes.CDLL:
+    """The library of ``kind``'s kernel for the generated header ``gen``
+    (built first if needed); checks that it was built for the same state,
+    parameter and input counts."""
+    target = generated_target(kind, gen)
     key = str(target.path)
-    lib = _ODE_LIBS.get(key)
+    lib = _GENERATED_LIBS.get(key)
     if lib is not None:
         return lib
     build_many([target])
     lib = ctypes.CDLL(key)
-    vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.fused_ode_launch.argtypes = ([ci, ci] + [vp] * 15 + [ci] * 7
-                                     + [cd] * 3 + [ci, vp])
-    lib.fused_ode_launch.restype = ci
-    lib.fused_ode_error_string.argtypes = [ci]
-    lib.fused_ode_error_string.restype = ctypes.c_char_p
+    stem = Path(kind.source).stem
+    for name, (argtypes, restype) in dict(
+            kind.functions, error_string=([_ci], ctypes.c_char_p)).items():
+        fn = getattr(lib, f"{stem}_{name}")
+        fn.argtypes, fn.restype = argtypes, restype
     sig = (ctypes.c_int * 3)()
-    lib.fused_ode_signature(sig)
-    if tuple(sig) != (rhs.n_states, rhs.n_params, rhs.ninput):
+    getattr(lib, f"{stem}_signature")(sig)
+    if tuple(sig) != (gen.n_states, gen.n_params, gen.ninput):
         raise RuntimeError(
             f"{target.path.name} was built for (states, params, inputs) = "
-            f"{tuple(sig)}, not {(rhs.n_states, rhs.n_params, rhs.ninput)}"
+            f"{tuple(sig)}, not {(gen.n_states, gen.n_params, gen.ninput)}"
         )
-    _ODE_LIBS[key] = lib
+    _GENERATED_LIBS[key] = lib
     return lib

@@ -258,7 +258,7 @@ def psi_ode_plain(
 ):
     """Plain PyTorch twin of the fused ODE psi kernel (same arguments as
     :func:`psi_ode`), on ``[R, S]`` lanes."""
-    from ..engine.sim import NO_COVARIATES
+    from ..engine.sim import NO_COVARIATES, as_components
 
     n_out, runs = _check_inputs(
         seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
@@ -285,13 +285,7 @@ def psi_ode_plain(
         if b is not None:
             bl[b[0]] = b[1]
         out = diffeq(list(xs), p_lanes, t.expand(shape), bl, rate, NO_COVARIATES)
-        if isinstance(out, torch.Tensor):
-            out = out.unbind(0)
-        comps = [torch.as_tensor(c, dtype=dtype, device=dev).expand(shape)
-                 for c in out]
-        if len(comps) != N:
-            raise ValueError(f"RHS returned {len(comps)} components, expected {N}")
-        return comps
+        return as_components(out, N, shape, dtype, dev)
 
     def col(a, m):
         return a[:, m:m + 1]
@@ -523,9 +517,9 @@ def psi_ode(
     out = torch.empty((R, S), dtype=seg_dt.dtype, device=dev)
     if R == 0 or S == 0:
         return out  # nothing to launch
-    from ._build import load_ode_library
+    from ._build import ODE, load_generated_library
 
-    lib = load_ode_library(rhs)
+    lib = load_generated_library(ODE, rhs)
     # parameter rows [P, S]: coalesced along supports
     params = support.t().contiguous()
     # one int32 table: bolus inputs, rate inputs, run boundaries

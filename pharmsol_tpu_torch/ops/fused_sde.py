@@ -1,0 +1,489 @@
+"""Fused psi for SDE models: CUDA kernel wrapper and plain twin.
+
+The population log-likelihood matrix of an SDE model is, per (row, support)
+cell, one bootstrap particle filter over the row's segments: at each valued
+observation (read before the dose) weight the cloud by the assay likelihood,
+add ``log(max(mean weight, tiny))`` and resample it; add the segment's
+boluses to their destination states; march the cloud with adaptive
+Euler-Maruyama.
+
+- :func:`psi_sde` is the wrapper. On a CUDA tensor it launches the
+  hand-written kernel ``csrc/fused_sde.cu``, built at first use with the
+  model's generated drift and diffusion (:mod:`.rhs_codegen`, :mod:`._build`),
+  or raises; on a CPU tensor it runs the plain twin.
+- :func:`psi_sde_plain` is that twin: the base tier of the JAX package's
+  ``ops/pallas_sde.py::psi_sde`` in plain PyTorch on ``[R, S, P]`` lanes,
+  with a masked loop per segment that ends when every cell is done. It calls
+  the user's closures directly. The CPU tests hold it against the JAX kernel
+  in interpret mode at zero diffusion; ``chip_smoke.py`` holds the CUDA
+  kernel against it on the card, where both draw the same Philox numbers.
+
+What the march does, as the JAX kernel's ``em_march``: one controller per
+cell, shared by its particles; each trial takes ``h = min(h, max(target -
+tau, 1e-14))``, compares the full step with two half steps, accepts when the
+max normalised error over particles and states is finite and <= 1, and sets
+``h = clip(0.9 h err^-1/2, 1e-6, 0.1)`` (err 1e4 when not finite); the march
+ends at ``tau >= target - 1e-6 target``, on a stall (``tau + h == tau``) or
+after ``EM_MAX_ITERS`` trials, and a cell that stopped short is NaN (a -inf
+psi cell). Every segment restarts at ``h = 0.1``. Resampling is stratified
+(``u_j = (j + U_j) / P``, searchsorted left, clipped to P - 1). The noise is
+Philox4x32-10 with Box-Muller (:mod:`.philox`), independent per (row,
+support) cell as the JAX kernel's; censored weights use the exact normal CDF
+(the TPU kernel's was approximate). Unlike the TPU kernel nothing is padded:
+R, S and P are free.
+
+Stream layout: ``seg_dt``, the observation streams and ``seg_t0`` are
+[R, M]; ``seg_bolus`` is [nb, R, M], one plane per active bolus input, dosing
+``dose_states``; ``seg_rateiv`` [nr, R, M] into the RHS inputs
+``rate_inputs``, or None; support [S, NP]; ``init`` [n_states, S] with
+``init_mask`` [R], or None; output coefficients [n_out, n_states, S] and
+biases [n_out, S] or None. The result is [R, S].
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from ..engine.sde import (
+    EM_ATOL, EM_MAX_ITERS, EM_MAX_STEP, EM_MIN_STEP, EM_RTOL, EM_SAFETY, ndtr,
+)
+from . import philox
+
+# Kernel launches through psi_sde on a CUDA tensor (not the twin).
+LAUNCHES = 0
+
+# Threads per block of the kernel (one block per cell), and the particles a
+# thread may own: the kernel is instantiated for these counts.
+THREADS = 256
+PARTICLES_PER_THREAD = (1, 2, 4, 8, 16)
+MAX_PARTICLES = THREADS * PARTICLES_PER_THREAD[-1]
+# dynamic shared memory a block may opt in to on Hopper (232,448 bytes)
+MAX_SHARED_BYTES = 232_448
+
+
+def shared_bytes(n_states: int, n_particles: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block: the cloud and the cumulative
+    weights, ``(n_states + 1) * P`` values."""
+    itemsize = 4 if dtype == torch.float32 else 8
+    return (n_states + 1) * n_particles * itemsize
+
+
+def particles_per_thread(n_particles: int) -> int:
+    """The particles each of the kernel's threads owns (contiguously)."""
+    need = -(-n_particles // THREADS)
+    return next(k for k in PARTICLES_PER_THREAD if k >= need)
+
+
+def check_particle_count(n_states: int, n_particles: int, dtype: torch.dtype) -> None:
+    """ValueError when the kernel cannot hold ``n_particles`` particles."""
+    if not 1 <= n_particles <= MAX_PARTICLES:
+        raise ValueError(
+            f"the fused SDE kernel takes 1..{MAX_PARTICLES} particles "
+            f"(got {n_particles})")
+    need = shared_bytes(n_states, n_particles, dtype)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"{n_particles} particles x {n_states} states need {need} bytes of "
+            f"shared memory in {dtype}, above the {MAX_SHARED_BYTES} a block has")
+
+
+# ---------------------------------------------------------------------------
+# Input checks shared by the wrapper and the twin
+# ---------------------------------------------------------------------------
+
+
+def _check_inputs(seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
+                  obs_cens, seg_t0, support, gen, obs_outeq, out_coef, out_bias,
+                  dose_states, rate_inputs, init, init_mask, n_particles, em_control):
+    """Validate the layout; returns n_out."""
+    if em_control not in ("independent", "coupled"):
+        raise ValueError(f"em_control must be 'independent' or 'coupled' (got `{em_control}`)")
+    if seg_dt.dim() != 2:
+        raise ValueError(f"segment streams must be [R, M], got {tuple(seg_dt.shape)}")
+    R, M = seg_dt.shape
+    S = support.shape[0]
+    N = gen.n_states
+    dtype, dev = seg_dt.dtype, seg_dt.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"fused SDE psi takes float32 or float64, got {dtype}")
+    if support.dim() != 2 or support.shape[1] != gen.n_params:
+        raise ValueError(
+            f"support must be [S, {gen.n_params}] (the drift was generated for "
+            f"{gen.n_params} columns), got {tuple(support.shape)}")
+    check_particle_count(N, int(n_particles), dtype)
+    if M > philox.MAX_SEGMENTS:
+        raise ValueError(f"at most {philox.MAX_SEGMENTS} segments (got {M})")
+    nb, nr = len(dose_states), len(rate_inputs)
+    if nb < 1 or min(dose_states) < 0 or max(dose_states) >= N:
+        raise ValueError(f"dose_states {dose_states} must name states < {N}")
+    if seg_rateiv is not None and (nr < 1 or max(rate_inputs) >= gen.ninput):
+        raise ValueError(f"rate_inputs {rate_inputs} must name inputs < {gen.ninput}")
+    if (init is None) != (init_mask is None):
+        raise ValueError("init [n_states, S] and init_mask [R] go together")
+    shapes = {"seg_bolus": (seg_bolus, (nb, R, M)),
+              "seg_rateiv": (seg_rateiv, (nr, R, M)),
+              "obs_mask": (obs_mask, (R, M)), "obs_value": (obs_value, (R, M)),
+              "obs_sigma": (obs_sigma, (R, M)), "obs_cens": (obs_cens, (R, M)),
+              "obs_outeq": (obs_outeq, (R, M)), "seg_t0": (seg_t0, (R, M)),
+              "init": (init, (N, S)), "init_mask": (init_mask, (R,))}
+    if out_coef is None or out_coef.dim() != 3:
+        raise ValueError("out_coef [n_out, n_states, S] is required")
+    n_out = out_coef.shape[0]
+    shapes["out_coef"] = (out_coef, (n_out, N, S))
+    shapes["out_bias"] = (out_bias, (n_out, S))
+    for name, (a, shape) in shapes.items():
+        if a is not None and tuple(a.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got {list(a.shape)}")
+    for name, a in dict(seg_dt=seg_dt, support=support,
+                        **{k: v for k, (v, _) in shapes.items()}).items():
+        if a is None:
+            continue
+        if a.dtype != dtype or a.device != dev:
+            raise ValueError(f"{name} is {a.dtype} on {a.device}; expected {dtype} on {dev}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if n_out > 1 and obs_outeq is None:
+        raise ValueError("obs_outeq stream required for multi-output psi")
+    return n_out
+
+
+# ---------------------------------------------------------------------------
+# The plain twin
+# ---------------------------------------------------------------------------
+
+# The kernel's block reductions, in its order of operations, so that the twin
+# rounds as the kernel does: thread t holds the particles [t * PPT, t * PPT +
+# PPT) (zeros past P), sums them in order, then the 32 lanes of each warp
+# combine by butterfly (own + partner, partner = lane ^ offset), then the 8
+# warp results are added in order; the prefix sum is a per-thread running sum,
+# a Hillis-Steele scan over each warp's lanes and an in-order sum of the
+# earlier warps' totals.
+_WARPS = THREADS // 32
+
+
+def _thread_major(v, ppt: int):
+    """[..., P] -> [..., THREADS, ppt], zero-padded past P."""
+    pad = THREADS * ppt - v.shape[-1]
+    if pad:
+        v = torch.cat([v, v.new_zeros(v.shape[:-1] + (pad,))], dim=-1)
+    return v.reshape(v.shape[:-1] + (THREADS, ppt))
+
+
+def _block_sum(v, ppt: int):
+    """Sum over the last axis [..., P] as the kernel's block_sum."""
+    lanes = _thread_major(v, ppt)
+    acc = lanes[..., 0]
+    for k in range(1, ppt):
+        acc = acc + lanes[..., k]
+    w = acc.reshape(acc.shape[:-1] + (_WARPS, 32))
+    lane = torch.arange(32, device=v.device)
+    for off in (16, 8, 4, 2, 1):
+        w = w + w[..., lane ^ off]
+    total = w[..., 0, 0]
+    for i in range(1, _WARPS):
+        total = total + w[..., i, 0]
+    return total
+
+
+def _block_cumsum(v, ppt: int):
+    """Inclusive prefix sum over the last axis [..., P] as the kernel's
+    per-thread running sums plus block_exclusive_scan."""
+    P = v.shape[-1]
+    lanes = _thread_major(v, ppt)
+    run, loc = lanes[..., 0], [lanes[..., 0]]
+    for k in range(1, ppt):
+        run = run + lanes[..., k]
+        loc.append(run)
+    inc = run.reshape(run.shape[:-1] + (_WARPS, 32))
+    lane = torch.arange(32, device=v.device)
+    for off in (1, 2, 4, 8, 16):
+        shifted = torch.cat([inc[..., :off], inc[..., :-off]], dim=-1)
+        inc = torch.where(lane >= off, inc + shifted, inc)
+    excl = torch.cat([torch.zeros_like(inc[..., :1]), inc[..., :-1]], dim=-1)
+    base = [torch.zeros_like(inc[..., 0, 31])]
+    for i in range(1, _WARPS):
+        base.append(base[-1] + inc[..., i - 1, 31])
+    start = (torch.stack(base, dim=-1)[..., None] + excl).reshape(run.shape)
+    cw = start[..., None] + torch.stack(loc, dim=-1)
+    return cw.reshape(cw.shape[:-2] + (THREADS * ppt,))[..., :P]
+
+
+def psi_sde_plain(
+    seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma, obs_cens,
+    seg_t0, support, gen, *, obs_outeq=None, out_coef=None, out_bias=None,
+    dose_states=(0,), rate_inputs=(0,), init=None, init_mask=None,
+    n_particles: int, seed: int = 0, em_control: str = "independent",
+):
+    """Plain PyTorch twin of the fused SDE psi kernel (same arguments as
+    :func:`psi_sde`), on ``[R, S, P]`` lanes."""
+    from ..engine.sim import NO_COVARIATES, as_components
+
+    n_out = _check_inputs(
+        seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma, obs_cens,
+        seg_t0, support, gen, obs_outeq, out_coef, out_bias, dose_states,
+        rate_inputs, init, init_mask, n_particles, em_control)
+    N, nin, P = gen.n_states, gen.ninput, int(n_particles)
+    R, M = seg_dt.shape
+    S = support.shape[0]
+    dtype, dev = seg_dt.dtype, seg_dt.device
+    shape, cell = (R, S, P), (R, S)
+    key = philox.seed_key(seed)
+    coupled = em_control == "coupled"
+    tiny = torch.finfo(dtype).tiny
+    nan = torch.full(shape, float("nan"), dtype=dtype, device=dev)
+
+    # counter fields: [draw, row, support, particle]
+    i64 = dict(dtype=torch.int64, device=dev)
+    part = torch.arange(P, **i64).view(1, 1, 1, P)
+    sup = torch.arange(S, **i64).view(1, 1, S, 1)
+    row = torch.arange(R, **i64).view(1, R, 1, 1)
+    npc = philox.normals_per_call(dtype)
+    G = -(-N // npc)
+    D = 2 if coupled else 3
+    slot = torch.arange(D, **i64).repeat_interleave(G).view(D * G, 1, 1, 1)
+    group = torch.arange(G, **i64).repeat(D).view(D * G, 1, 1, 1)
+    j_float = torch.arange(P, dtype=dtype, device=dev)
+    # a divisor on the device: a Python number would make torch multiply by
+    # its reciprocal on the card, which rounds differently from the kernel's
+    # division
+    P_t = torch.tensor(float(P), dtype=dtype, device=dev)
+    ppt = particles_per_thread(P)
+
+    def trial_normals(m, k):
+        """[D, N, R, S, P]: the normals of trial k of segment m."""
+        z = philox.normals(dtype, particle=part, segment=m, trial=k, slot=slot,
+                           group=group, support=sup, row=row, key=key)
+        return torch.stack(z, dim=1).reshape(D, G * npc, R, S, P)[:, :N]
+
+    p_lanes = [support[:, i].view(1, S, 1).expand(shape) for i in range(gen.n_params)]
+    p_cells = [support[:, i].view(1, S).expand(cell) for i in range(gen.n_params)]
+    coefs = [[out_coef[k, i].view(1, S, 1) for i in range(N)] for k in range(n_out)]
+    biases = ([out_bias[k].view(1, S, 1) for k in range(n_out)]
+              if out_bias is not None else None)
+
+    def drift(xs, t, rate):
+        out = gen.drift(list(xs), p_lanes, t.expand(shape), rate, NO_COVARIATES)
+        return as_components(out, N, shape, dtype, dev)
+
+    def diffusion(t):
+        out = gen.diffusion(p_cells, t, NO_COVARIATES)
+        return [g.unsqueeze(-1) for g in as_components(out, N, cell, dtype, dev)]
+
+    def rate_at(m):
+        lanes = [torch.zeros((), dtype=dtype, device=dev).expand(shape)] * nin
+        if seg_rateiv is not None:
+            for k, j in enumerate(rate_inputs):
+                lanes[j] = seg_rateiv[k, :, m].view(R, 1, 1).expand(shape)
+        return lanes
+
+    def prediction(xs, m):
+        per_out = []
+        for k in range(n_out):
+            pr = coefs[k][0] * xs[0]
+            for i in range(1, N):
+                pr = pr + coefs[k][i] * xs[i]
+            per_out.append(pr + biases[k] if biases is not None else pr)
+        if n_out == 1:
+            return per_out[0]
+        oe = obs_outeq[:, m].view(R, 1, 1)
+        pred = torch.zeros_like(per_out[0])
+        for k in range(n_out):
+            pred = torch.where(oe == float(k), per_out[k], pred)
+        return pred
+
+    if init is not None:
+        xs = [(init_mask.view(R, 1, 1) * init[i].view(1, S, 1)).expand(shape)
+              for i in range(N)]
+    else:
+        xs = [torch.zeros(shape, dtype=dtype, device=dev)] * N
+    ll = torch.zeros(cell, dtype=dtype, device=dev)
+    for m in range(M):
+        # observation before the dose: weight, record, resample
+        mask = obs_mask[:, m].view(R, 1, 1) > 0
+        if bool(mask.any()):
+            sig = torch.where(mask, obs_sigma[:, m].view(R, 1, 1),
+                              torch.ones((), dtype=dtype, device=dev))
+            z = (obs_value[:, m].view(R, 1, 1) - prediction(xs, m)) / sig
+            q = torch.exp(-0.5 * z * z) / (sig * math.sqrt(2.0 * math.pi))
+            if obs_cens is not None:
+                sc = obs_cens[:, m].view(R, 1, 1)
+                q = torch.where(sc == 0.0, q, ndtr(sc * z))
+            sum_q = _block_sum(q, ppt)
+            ll = ll + torch.where(mask[..., 0],
+                                  torch.log(torch.clamp(sum_q * (1.0 / P), min=tiny)),
+                                  torch.zeros_like(sum_q))
+            cw = _block_cumsum(q / torch.clamp(sum_q, min=tiny)[..., None], ppt)
+            U = philox.resample_uniform(dtype, particle=part, segment=m,
+                                        support=sup, row=row, key=key)[0]
+            u = (j_float + U) / P_t
+            idx = torch.clamp(torch.searchsorted(cw.contiguous(), u.contiguous()),
+                              max=P - 1)
+            xs = [torch.where(mask, torch.gather(x, -1, idx), x) for x in xs]
+        # boluses into their destination states
+        xs = list(xs)
+        for k, ds in enumerate(dose_states):
+            xs[ds] = xs[ds] + seg_bolus[k, :, m].view(R, 1, 1)
+        # the adaptive Euler-Maruyama march of the segment
+        dt = seg_dt[:, m].view(R, 1).expand(cell)
+        live0 = dt > 0.0
+        if not bool(live0.any()):
+            continue
+        thr = dt - 1e-6 * torch.clamp(dt, min=1e-30)
+        t0 = seg_t0[:, m].view(R, 1)
+        rate = rate_at(m)
+        tau = torch.zeros(cell, dtype=dtype, device=dev)
+        h = torch.full(cell, EM_MAX_STEP, dtype=dtype, device=dev)
+        live = live0
+        xs_c = xs
+        k = 0
+        while k < EM_MAX_ITERS and bool(live.any()):
+            h_try = torch.minimum(h, torch.clamp(dt - tau, min=1e-14))
+            t_abs = t0 + tau
+            h_half = h_try * 0.5
+            sq_h = torch.sqrt(torch.clamp(h_half, min=0.0))[..., None]
+            z = trial_normals(m, k)
+            if coupled:
+                w_full = [(a + b) * sq_h for a, b in zip(z[0], z[1])]
+                w1 = [a * sq_h for a in z[0]]
+                w2 = [b * sq_h for b in z[1]]
+            else:
+                sq = torch.sqrt(torch.clamp(h_try, min=0.0))[..., None]
+                w_full = [a * sq for a in z[0]]
+                w1 = [a * sq_h for a in z[1]]
+                w2 = [a * sq_h for a in z[2]]
+            H, Hh = h_try[..., None], h_half[..., None]
+            g0 = diffusion(t_abs)
+            d0 = drift(xs_c, t_abs[..., None], rate)
+            y1 = [x + d * H + g * w for x, d, g, w in zip(xs_c, d0, g0, w_full)]
+            ym = [x + d * Hh + g * w for x, d, g, w in zip(xs_c, d0, g0, w1)]
+            t_mid = t_abs + h_half
+            g1 = diffusion(t_mid)
+            d1 = drift(ym, t_mid[..., None], rate)
+            y2 = [x + d * Hh + g * w for x, d, g, w in zip(ym, d1, g1, w2)]
+            err = None
+            for x, a, b in zip(xs_c, y1, y2):
+                e = torch.amax(torch.abs(a - b) / (EM_ATOL + EM_RTOL * torch.abs(x)), dim=-1)
+                err = e if err is None else torch.maximum(err, e)
+            finite = torch.isfinite(err)
+            accept = live & (err <= 1.0) & finite
+            tau_n = torch.where(accept, tau + h_try, tau)
+            xs_c = [torch.where(accept[..., None], y, x) for y, x in zip(y2, xs_c)]
+            e_fl = torch.clamp(torch.where(finite, err, torch.full_like(err, 1e4)), min=1e-12)
+            h_n = torch.where(
+                live,
+                torch.clamp(h_try * EM_SAFETY * (1.0 / torch.sqrt(e_fl)), EM_MIN_STEP, EM_MAX_STEP),
+                h)
+            done = tau_n >= thr
+            stalled = live & ((tau_n + h_n) <= tau_n) & ~done
+            live = live & ~done & ~stalled
+            tau, h = tau_n, h_n
+            k += 1
+        ok = (~live0 | (tau >= thr))[..., None]
+        xs = [torch.where(live0[..., None], torch.where(ok, xc, nan), x)
+              for xc, x in zip(xs_c, xs)]
+    return ll
+
+
+# ---------------------------------------------------------------------------
+# The wrapper
+# ---------------------------------------------------------------------------
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+
+def psi_sde(
+    seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma, obs_cens,
+    seg_t0, support, gen, *, obs_outeq=None, out_coef=None, out_bias=None,
+    dose_states=(0,), rate_inputs=(0,), init=None, init_mask=None,
+    n_particles: int, seed: int = 0, em_control: str = "independent",
+):
+    """Fused SDE particle-filter psi [R, S]: the counterpart of the JAX
+    package's ``ops/pallas_sde.py::psi_sde``, base tier.
+
+    ``gen`` is the :class:`~.rhs_codegen.GeneratedSde` of the model.
+    ``seg_rateiv``, ``obs_cens`` and ``out_bias`` are None when the workload
+    has no infusions, censoring or output bias; ``obs_outeq`` is None for one
+    output; ``init`` and ``init_mask`` are None without an init equation.
+
+    On a CUDA tensor this launches ``csrc/fused_sde.cu`` (one block per
+    (row, support) cell, 256 threads over the particles) and raises if the
+    build or the launch fails; on a CPU tensor it runs :func:`psi_sde_plain`.
+    """
+    global LAUNCHES
+    args = (seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
+            obs_cens, seg_t0, support, gen)
+    kw = dict(obs_outeq=obs_outeq, out_coef=out_coef, out_bias=out_bias,
+              dose_states=tuple(int(d) for d in dose_states),
+              rate_inputs=tuple(int(j) for j in rate_inputs), init=init,
+              init_mask=init_mask, n_particles=int(n_particles), seed=int(seed),
+              em_control=em_control)
+    dev = seg_dt.device
+    if dev.type == "cpu":
+        return psi_sde_plain(*args, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"fused SDE psi runs on cpu or cuda tensors, got {dev}")
+    n_out = _check_inputs(*args, obs_outeq, out_coef, out_bias, kw["dose_states"],
+                          kw["rate_inputs"], init, init_mask, kw["n_particles"],
+                          em_control)
+    R, M = seg_dt.shape
+    S = support.shape[0]
+    out = torch.empty((R, S), dtype=seg_dt.dtype, device=dev)
+    if R == 0 or S == 0:
+        return out  # nothing to launch
+    from ._build import SDE, load_generated_library
+
+    lib = load_generated_library(SDE, gen)
+    # parameter rows [NP, S]: a block reads its support's column
+    params = support.t().contiguous()
+    rate_in = kw["rate_inputs"] if seg_rateiv is not None else ()
+    ints = torch.tensor(list(kw["dose_states"]) + list(rate_in), dtype=torch.int32,
+                        device=dev)
+    k0, k1 = philox.seed_key(kw["seed"])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_sde_launch(
+            int(seg_dt.dtype == torch.float64),
+            _ptr(seg_dt), _ptr(seg_bolus), _ptr(seg_rateiv),
+            _ptr(obs_mask), _ptr(obs_value), _ptr(obs_sigma), _ptr(obs_cens),
+            _ptr(obs_outeq if n_out > 1 else None), _ptr(seg_t0),
+            _ptr(params), _ptr(init), _ptr(init_mask), _ptr(out_coef),
+            _ptr(out_bias), _ptr(ints), _ptr(out),
+            R, S, M, kw["n_particles"], len(kw["dose_states"]), len(rate_in), n_out,
+            int(em_control == "coupled"), ctypes.c_uint32(k0), ctypes.c_uint32(k1),
+            ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"fused SDE psi kernel launch failed (R={R}, S={S}, M={M}, "
+            f"P={kw['n_particles']}): {lib.fused_sde_error_string(err).decode()}")
+    LAUNCHES += 1
+    return out
+
+
+def philox_words(counters: torch.Tensor, seed: int, gen) -> torch.Tensor:
+    """The kernel's own Philox4x32-10 words for ``counters`` [n, 4] (int64
+    on the card, each word < 2^32) under the key of ``seed``: [n, 4] int64.
+    A check of the kernel's generator against :mod:`.philox`, not part of the
+    psi path (no launch is counted)."""
+    from ._build import SDE, load_generated_library
+
+    if counters.device.type != "cuda" or counters.dim() != 2 or counters.shape[1] != 4:
+        raise ValueError("counters must be [n, 4] on a CUDA device")
+    lib = load_generated_library(SDE, gen)
+    c = counters.to(torch.int64)
+    c = torch.where(c >= 1 << 31, c - (1 << 32), c).to(torch.int32).contiguous()
+    out = torch.empty_like(c)
+    k0, k1 = philox.seed_key(seed)
+    with torch.cuda.device(counters.device):
+        stream = torch.cuda.current_stream(counters.device).cuda_stream
+        err = lib.fused_sde_philox(int(c.shape[0]), _ptr(c), ctypes.c_uint32(k0),
+                                   ctypes.c_uint32(k1), _ptr(out), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"philox check launch failed: {lib.fused_sde_error_string(err).decode()}")
+    return out.to(torch.int64) & philox.MASK32

@@ -56,6 +56,19 @@ class GeneratedRhs(NamedTuple):
     key: str  # content hash of ``source``
 
 
+class GeneratedSde(NamedTuple):
+    """An SDE's drift and diffusion closures and the C++ header generated
+    from them."""
+
+    drift: Callable
+    diffusion: Callable
+    n_states: int
+    n_params: int
+    ninput: int
+    source: str
+    key: str
+
+
 # ---------------------------------------------------------------------------
 # Symbolic scalars
 # ---------------------------------------------------------------------------
@@ -320,22 +333,34 @@ class _NoCovariates:
 # Tracing, checking and emission
 # ---------------------------------------------------------------------------
 
+# A closure's arguments in call order, before ``cov``: (name, length), length
+# None for the scalar time. The C++ function takes them in the same order.
+_ODE_ARGS = (("x", "n"), ("p", "np"), ("t", None), ("b", "nin"), ("rateiv", "nin"))
+_DRIFT_ARGS = (("x", "n"), ("p", "np"), ("t", None), ("rateiv", "nin"))
+_DIFFUSION_ARGS = (("p", "np"), ("t", None))
 
-def _trace(diffeq, n_states, n_params, ninput) -> List[Sym]:
-    x = SymVec([Sym("x", value=i) for i in range(n_states)], "x")
-    p = SymVec([Sym("p", value=i) for i in range(n_params)], "p")
-    b = SymVec([Sym("b", value=j) for j in range(ninput)], "b")
-    r = SymVec([Sym("rateiv", value=j) for j in range(ninput)], "rateiv")
-    out = diffeq(x, p, Sym("t"), b, r, _NoCovariates())
+
+def _sizes(args, n_states, n_params, ninput):
+    dims = {"n": n_states, "np": n_params, "nin": ninput, None: None}
+    return tuple((name, dims[size]) for name, size in args)
+
+
+def _trace(fn, args, n_out: int, what: str = "the RHS") -> List[Sym]:
+    leaves = [Sym(name) if size is None
+              else SymVec([Sym(name, value=i) for i in range(size)], name)
+              for name, size in args]
+    out = fn(*leaves, _NoCovariates())
+    if isinstance(out, torch.Tensor) and out.dim() == 1 and not out.requires_grad:
+        out = list(out)  # a vector of constants
     if isinstance(out, (SymVec, list, tuple)):
         comps = [_num(c) for c in out]
     else:
         raise PharmsolError(
-            f"the RHS returns a {type(out).__name__}: return "
+            f"{what} returns a {type(out).__name__}: return "
             "torch.stack([...]) or a list of components"
         )
-    if len(comps) != n_states:
-        raise PharmsolError(f"the RHS returns {len(comps)} components, expected {n_states}")
+    if len(comps) != n_out:
+        raise PharmsolError(f"{what} returns {len(comps)} components, expected {n_out}")
     return comps
 
 
@@ -371,10 +396,10 @@ _TORCH_BINARY = {
 }
 
 
-def evaluate(outputs: List[Sym], x, p, t, b, rateiv) -> torch.Tensor:
-    """The traced graph on float64 tensors (leading dims broadcast): the
-    reference the generated C++ must reproduce."""
-    leaves = {"x": x, "p": p, "b": b, "rateiv": rateiv}
+def evaluate(outputs: List[Sym], **leaves) -> torch.Tensor:
+    """The traced graph on float64 tensors (leading dims broadcast), with the
+    closure's arguments by name (``x``, ``p``, ``t``, ...): the reference the
+    generated C++ must reproduce."""
     val = {}
 
     def get(node):
@@ -382,10 +407,9 @@ def evaluate(outputs: List[Sym], x, p, t, b, rateiv) -> torch.Tensor:
             return torch.tensor(node.value, dtype=torch.float64)
         if node.op == "bconst":
             return torch.tensor(node.value)
-        if node.op == "t":
-            return t
         if node.op in leaves:
-            return leaves[node.op][..., node.value]
+            leaf = leaves[node.op]
+            return leaf if node.value is None else leaf[..., node.value]
         return val[id(node)]
 
     for node in _topo(outputs):
@@ -430,18 +454,20 @@ __device__ __forceinline__ T pm_max(T a, T b) { return (a > b || a != a) ? a : b
 """
 
 
-def _emit(outputs: List[Sym], n_states, n_params, ninput) -> str:
+def _emit_function(outputs: List[Sym], name: str, args, out_name: str) -> str:
+    """One straight-line ``template <typename T> __device__`` function
+    ``name(const T* x, ..., T t, ..., T* out_name)`` computing ``outputs``
+    from the closure's arguments ``args`` (as :func:`_trace`)."""
     names = {}
+    leaf_names = {a for a, _ in args}
 
     def ref(node) -> str:
         if node.op == "const":
             return _literal(node.value)
         if node.op == "bconst":
             return "true" if node.value else "false"
-        if node.op == "t":
-            return "t"
-        if node.op in ("x", "p", "b", "rateiv"):
-            return f"{node.op}[{node.value}]"
+        if node.op in leaf_names:
+            return node.op if node.value is None else f"{node.op}[{node.value}]"
         return names[id(node)]
 
     def expr(node) -> str:
@@ -485,42 +511,63 @@ def _emit(outputs: List[Sym], n_states, n_params, ninput) -> str:
         ctype = "bool" if node.is_bool else "T"
         body.append(f"  const {ctype} v{i} = {expr(node)};")
     for i, o in enumerate(outputs):
-        body.append(f"  dx[{i}] = {ref(o)};")
+        body.append(f"  {out_name}[{i}] = {ref(o)};")
+    params = ", ".join(f"T {a}" if size is None else f"const T* {a}"
+                       for a, size in args)
+    unused = " ".join(f"(void){a};" for a, _ in args)
     return (
-        "// Generated by pharmsol_tpu_torch/ops/rhs_codegen.py from a model's\n"
-        "// torch RHS closure: do not edit.\n"
-        "#pragma once\n"
-        f"#define PHARMSOL_RHS_NSTATES {n_states}\n"
-        f"#define PHARMSOL_RHS_NPARAMS {n_params}\n"
-        f"#define PHARMSOL_RHS_NINPUT {ninput}\n"
-        + _MATH_PRELUDE
-        + "template <typename T>\n"
-        "__device__ __forceinline__ void rhs(const T* x, const T* p, T t, "
-        "const T* b, const T* rateiv, T* dx) {\n"
-        "  (void)x; (void)p; (void)t; (void)b; (void)rateiv;\n"
+        "template <typename T>\n"
+        f"__device__ __forceinline__ void {name}({params}, T* {out_name}) {{\n"
+        f"  {unused}\n"
         + "\n".join(body) + "\n}\n"
     )
 
 
-def _check_against_closure(diffeq, outputs, n_states, n_params, ninput):
+def _header(what: str, n_states, n_params, ninput, functions) -> str:
+    return (
+        "// Generated by pharmsol_tpu_torch/ops/rhs_codegen.py from a model's\n"
+        f"// torch {what}: do not edit.\n"
+        "#pragma once\n"
+        f"#define PHARMSOL_RHS_NSTATES {n_states}\n"
+        f"#define PHARMSOL_RHS_NPARAMS {n_params}\n"
+        f"#define PHARMSOL_RHS_NINPUT {ninput}\n"
+        + _MATH_PRELUDE + "".join(functions)
+    )
+
+
+def _check_against_closure(fn, outputs, args, n_out: int, what: str = "RHS"):
     """The traced graph and the closure, on the same random float64 lane."""
     rng = np.random.RandomState(7)
-    x = torch.as_tensor(rng.uniform(0.5, 2.0, n_states))
-    p = torch.as_tensor(rng.uniform(0.5, 2.0, n_params))
-    b = torch.as_tensor(rng.uniform(0.5, 2.0, ninput))
-    r = torch.as_tensor(rng.uniform(0.5, 2.0, ninput))
-    t = torch.tensor(1.37, dtype=torch.float64)
-    want = diffeq(x, p, t, b, r, _NoCovariates())
+    leaves = {name: (torch.tensor(1.37, dtype=torch.float64) if size is None
+                     else torch.as_tensor(rng.uniform(0.5, 2.0, size)))
+              for name, size in args}
+    want = fn(*leaves.values(), _NoCovariates())
     if not isinstance(want, torch.Tensor):
         want = torch.stack([torch.as_tensor(c, dtype=torch.float64) for c in want])
-    want = want.to(torch.float64).reshape(n_states)
-    got = evaluate(outputs, x, p, t, b, r)
+    want = want.to(torch.float64).reshape(n_out)
+    got = evaluate(outputs, **leaves)
     ok = torch.isclose(got, want, rtol=1e-12, atol=1e-12 * float(want.abs().max()))
     if not bool((ok | (torch.isnan(got) & torch.isnan(want))).all()):
         raise PharmsolError(
-            "the traced RHS disagrees with the closure evaluated on tensors "
+            f"the traced {what} disagrees with the closure evaluated on tensors "
             "(does it branch on isinstance or on tensor shapes?)"
         )
+
+
+def _traced(fn, args, n_out: int, what: str, family: str) -> List[Sym]:
+    """Trace and check one closure; PharmsolError with the reason when the
+    generator cannot express it."""
+    try:
+        outputs = _trace(fn, args, n_out, f"the {what}")
+        _check_against_closure(fn, outputs, args, n_out, what)
+    except PharmsolError as e:
+        raise PharmsolError(f"the {family} {what} cannot run in the CUDA kernel: {e}") from None
+    except Exception as e:
+        raise PharmsolError(
+            f"the {family} {what} cannot run in the CUDA kernel: tracing it "
+            f"failed ({type(e).__name__}: {e})"
+        ) from None
+    return outputs
 
 
 def generate_rhs(diffeq: Callable, n_states: int, n_params: int,
@@ -529,16 +576,29 @@ def generate_rhs(diffeq: Callable, n_states: int, n_params: int,
     the reason when the closure uses something the generator cannot
     express."""
     ninput = max(int(ninput), 1)
-    try:
-        outputs = _trace(diffeq, n_states, n_params, ninput)
-        _check_against_closure(diffeq, outputs, n_states, n_params, ninput)
-    except PharmsolError as e:
-        raise PharmsolError(f"the ODE RHS cannot run in the CUDA kernel: {e}") from None
-    except Exception as e:
-        raise PharmsolError(
-            f"the ODE RHS cannot run in the CUDA kernel: tracing it failed "
-            f"({type(e).__name__}: {e})"
-        ) from None
-    source = _emit(outputs, n_states, n_params, ninput)
+    args = _sizes(_ODE_ARGS, n_states, n_params, ninput)
+    outputs = _traced(diffeq, args, n_states, "RHS", "ODE")
+    source = _header("RHS closure", n_states, n_params, ninput,
+                     [_emit_function(outputs, "rhs", args, "dx")])
     key = hashlib.sha256(source.encode()).hexdigest()[:16]
     return GeneratedRhs(diffeq, int(n_states), int(n_params), ninput, source, key)
+
+
+def generate_sde(drift: Callable, diffusion: Callable, n_states: int,
+                 n_params: int, ninput: int) -> GeneratedSde:
+    """Trace an SDE's ``drift(x, p, t, rateiv, cov)`` and ``diffusion(p, t,
+    cov)`` and emit both into one CUDA header, as ``drift<T>(x, p, t, rateiv,
+    dx)`` and ``diffusion<T>(p, t, g)``. A diffusion of constants traces to
+    literal outputs. Raises PharmsolError with the reason when either closure
+    uses something the generator cannot express."""
+    ninput = max(int(ninput), 1)
+    d_args = _sizes(_DRIFT_ARGS, n_states, n_params, ninput)
+    g_args = _sizes(_DIFFUSION_ARGS, n_states, n_params, ninput)
+    d_out = _traced(drift, d_args, n_states, "drift", "SDE")
+    g_out = _traced(diffusion, g_args, n_states, "diffusion", "SDE")
+    source = _header("SDE drift and diffusion closures", n_states, n_params, ninput,
+                     [_emit_function(d_out, "drift", d_args, "dx"),
+                      _emit_function(g_out, "diffusion", g_args, "g")])
+    key = hashlib.sha256(source.encode()).hexdigest()[:16]
+    return GeneratedSde(drift, diffusion, int(n_states), int(n_params), ninput,
+                        source, key)

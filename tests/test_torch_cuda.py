@@ -137,3 +137,137 @@ def test_rejected_rhs_routes_auto_to_general(cuda):
     assert decision["engine"] == "general" and "`sin`" in decision["reason"]
     assert psi.device.type == "cuda" and torch.isfinite(psi).all()
     assert fused_ode.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# The SDE kernel (K3a): the same Philox numbers as its twin
+# ---------------------------------------------------------------------------
+
+
+def _readme_sde(nparticles, em_control="independent"):
+    return pt.SDE(lambda x, p, t, r, cov: torch.stack([-x[1] * x[0], -(x[1] - p[0])]),
+                  lambda p, t, cov: [0.0, p[2]],
+                  init=lambda p, t, cov: [0.0, p[0]],
+                  out=lambda x, p, t, cov: x[0:1] / p[1],
+                  nparticles=nparticles, nstates=2, ndrugs=1, nout=1, seed=42,
+                  em_control=em_control)
+
+
+def _readme_inputs(R, S, sigma, seed=0):
+    rng = np.random.RandomState(seed)
+    subjects = []
+    for i in range(R):
+        b = pt.Subject.builder(f"r{i}").bolus(0.0, 100.0, 0)
+        for t, v in zip((1.0, 2.0, 4.0, 8.0), (8.0, 6.2, 4.1, 1.8)):
+            b = b.observation(t, float(v * np.exp(0.15 * rng.randn())), 0)
+        subjects.append(b.build())
+    sp = np.abs(np.array([0.2, 10.0, 0.05]) * (1 + 0.15 * rng.randn(S, 3)))
+    sp[:, 2] *= sigma / 0.05
+    ems = pt.AssayErrorModels().add(
+        0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.3, 0.1), 0.5))
+    return pt.Data(subjects), sp, ems
+
+
+def _sde_plan(model, data, sp, ems, dtype, device):
+    from pharmsol_tpu_torch.likelihood.plans.sde import _FusedSdePsiPlan
+
+    grid = model.lower(data.subjects())
+    lowered = ems.lower(model.resolve_output_label, model.nouteqs())
+    return _FusedSdePsiPlan(model, grid, sp, lowered, device, dtype)
+
+
+def _sde_run(plan, plain=False):
+    from pharmsol_tpu_torch.ops import fused_sde
+
+    fn = fused_sde.psi_sde_plain if plain else fused_sde.psi_sde
+    return fn(*plan.streams, plan.support, plan.gen, **plan.kernel_kwargs())
+
+
+def _cell_rel(got, want):
+    got, want = got.double(), want.double()
+    return (got - want).abs() / want.abs().clamp(min=1.0)
+
+
+@pytest.mark.parametrize("sigma, em_control, P", [
+    (0.0, "independent", 1000), (0.05, "independent", 300),
+    # 3 x 2100 float64 values: above 48 KB, the launch opts in to more shared memory
+    (0.2, "coupled", 2100)])
+def test_sde_kernel_matches_twin_float64(cuda, sigma, em_control, P):
+    from pharmsol_tpu_torch.ops import fused_sde
+
+    data, sp, ems = _readme_inputs(3, 5, sigma)
+    plan = _sde_plan(_readme_sde(P, em_control), data, sp, ems, torch.float64, cuda)
+    before = fused_sde.LAUNCHES
+    got = _sde_run(plan)
+    torch.cuda.synchronize()
+    assert fused_sde.LAUNCHES == before + 1
+    want = _sde_run(plan, plain=True)
+    assert torch.isfinite(got).all()
+    assert float(_cell_rel(got, want).max()) <= 1e-9
+
+
+def test_sde_kernel_float32_matches_the_float32_twin(cuda):
+    data, sp, ems = _readme_inputs(4, 5, 0.05, seed=1)
+    plan = _sde_plan(_readme_sde(500), data, sp, ems, torch.float32, cuda)
+    rel = _cell_rel(_sde_run(plan), _sde_run(plan, plain=True))
+    assert float((rel <= 1e-4).double().mean()) >= 0.99
+
+
+def test_sde_philox_words_match_the_twin(cuda):
+    from pharmsol_tpu_torch.ops import fused_sde, philox
+
+    data, sp, ems = _readme_inputs(1, 1, 0.0)
+    gen = _sde_plan(_readme_sde(8), data, sp, ems, torch.float64, cuda).gen
+    ctr = torch.as_tensor(np.random.RandomState(3).randint(0, 2 ** 32, (4096, 4), dtype=np.int64),
+                          device=cuda)
+    for seed in (0, 7, (1 << 33) + 1):
+        want = torch.stack(philox.philox4x32(*ctr.unbind(1), philox.seed_key(seed)), 1)
+        assert torch.equal(fused_sde.philox_words(ctr, seed, gen), want)
+
+
+def test_sde_entry_point_launches_once(cuda):
+    from pharmsol_tpu_torch.ops import fused_sde
+
+    data, sp, ems = _readme_inputs(3, 4, 0.0)
+    model = _readme_sde(100)
+    before = fused_sde.LAUNCHES
+    psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
+    torch.cuda.synchronize()
+    assert fused_sde.LAUNCHES == before + 1
+    assert pt.last_engine_decision(model)["engine"] == "fused"
+    want = pt.log_likelihood_matrix(model, data, sp, ems, engine="general")
+    np.testing.assert_allclose(psi.cpu().numpy(), want.numpy(), rtol=1e-9, atol=0)
+
+
+def test_sde_rejected_drift_routes_auto_to_general(cuda):
+    from pharmsol_tpu_torch.ops import fused_sde
+
+    model = pt.SDE(lambda x, p, t, r, cov: torch.stack([-p[0] * torch.sin(x[0])]),
+                   lambda p, t, cov: [0.0], out=lambda x, p, t, cov: x[0:1] / p[1],
+                   nparticles=16, nstates=1, ndrugs=1, nout=1)
+    data = pt.Data([pt.Subject.builder("a").bolus(0.0, 100.0, 0)
+                    .observation(1.0, 5.0, 0).build()])
+    ems = pt.AssayErrorModels().add(
+        0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    before = fused_sde.LAUNCHES
+    psi = pt.log_likelihood_matrix(model, data, np.array([[0.2, 10.0]]), ems, device="cuda")
+    decision = pt.last_engine_decision(model)
+    assert decision["engine"] == "general" and "`sin`" in decision["reason"]
+    assert psi.device.type == "cuda" and torch.isfinite(psi).all()
+    assert fused_sde.LAUNCHES == before
+
+
+@pytest.mark.parametrize("family", ["sde", "ode"])
+def test_general_engine_on_the_card_takes_closures_with_constants(cuda, family):
+    """Closures returning lists with Python constants (``[0.0, p[2]]``): the
+    general engine puts every component on the working device."""
+    data, sp, ems = _readme_inputs(3, 4, 0.0)
+    if family == "sde":
+        model = _readme_sde(64)
+    else:
+        model = pt.ODE(lambda x, p, t, b, r, cov: [-p[0] * x[0] + b[0], 0.0],
+                       out=lambda x, p, t, cov: x[0:1] / p[1], nstates=2, ndrugs=1, nout=1)
+    psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda", engine="general")
+    want = pt.log_likelihood_matrix(model, data, sp, ems, engine="general")
+    assert psi.device.type == "cuda"
+    np.testing.assert_allclose(psi.cpu().numpy(), want.numpy(), rtol=1e-9, atol=0)

@@ -42,7 +42,9 @@ def test_module_imports_no_jax_and_no_toplevel_triton(path):
 def test_package_import_loads_no_jax():
     code = ("import sys, pharmsol_tpu_torch, pharmsol_tpu_torch.ops.fused_psi, "
             "pharmsol_tpu_torch.ops.fused_ode, pharmsol_tpu_torch.ops.rhs_codegen, "
-            "pharmsol_tpu_torch.likelihood.plans.ode, pharmsol_tpu_torch.convert; "
+            "pharmsol_tpu_torch.likelihood.plans.ode, pharmsol_tpu_torch.convert, "
+            "pharmsol_tpu_torch.ops.fused_sde, pharmsol_tpu_torch.ops.philox, "
+            "pharmsol_tpu_torch.likelihood.plans.sde, pharmsol_tpu_torch.engine.sde; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pharmsol_tpu', 'triton')]; "
             "assert not bad, bad")
@@ -69,16 +71,49 @@ def test_ode_nvcc_command_includes_the_generated_rhs():
     from pharmsol_tpu_torch.ops.rhs_codegen import generate_rhs
 
     rhs = generate_rhs(lambda x, p, t, b, r, cov: [-p[0] * x[0] + b[0]], 1, 2, 1)
-    cmd = _build.ode_nvcc_command(rhs, Path("libfused_ode.so"))
+    cmd = _build.generated_nvcc_command(_build.ODE, rhs, Path("libfused_ode.so"))
     assert "arch=compute_90a,code=sm_90a" in " ".join(cmd)
     assert f'-DPHARMSOL_ODE_RHS="rhs_{rhs.key}.cuh"' in cmd
-    assert cmd[-1] == str(_build.CSRC_DIR / _build.ODE_SOURCE)
+    assert cmd[-1] == str(_build.CSRC_DIR / _build.ODE.source)
     # the library name follows the kernel source and the generated header
     other = generate_rhs(lambda x, p, t, b, r, cov: [-p[1] * x[0] + b[0]], 1, 2, 1)
-    assert _build.ode_library_path(rhs) != _build.ode_library_path(other)
-    src = (_build.CSRC_DIR / _build.ODE_SOURCE).read_text()
+    assert _build.generated_library_path(_build.ODE, rhs) != \
+        _build.generated_library_path(_build.ODE, other)
+    src = (_build.CSRC_DIR / _build.ODE.source).read_text()
     for name in ("fused_ode_launch", "fused_ode_signature", "fused_ode_error_string"):
         assert 'extern "C"' in src and f" {name}(" in src
+
+
+def test_sde_nvcc_command_includes_the_generated_closures():
+    from pharmsol_tpu_torch.ops.rhs_codegen import generate_sde
+
+    gen = generate_sde(lambda x, p, t, r, cov: [-p[0] * x[0]],
+                       lambda p, t, cov: [p[1]], 1, 2, 1)
+    cmd = _build.generated_nvcc_command(_build.SDE, gen, Path("libfused_sde.so"))
+    assert "arch=compute_90a,code=sm_90a" in " ".join(cmd)
+    assert "-fmad=false" in cmd  # rounds as the twin, operation by operation
+    assert f'-DPHARMSOL_SDE_RHS="sde_{gen.key}.cuh"' in cmd
+    assert cmd[-1] == str(_build.CSRC_DIR / _build.SDE.source)
+    other = generate_sde(lambda x, p, t, r, cov: [-p[0] * x[0]],
+                         lambda p, t, cov: [2.0 * p[1]], 1, 2, 1)
+    assert _build.generated_library_path(_build.SDE, gen) != \
+        _build.generated_library_path(_build.SDE, other)
+    src = (_build.CSRC_DIR / _build.SDE.source).read_text()
+    for name in ("fused_sde_launch", "fused_sde_philox", "fused_sde_signature",
+                 "fused_sde_error_string"):
+        assert 'extern "C"' in src and f" {name}(" in src
+    # one instantiation per particles-per-thread count the wrapper may pick
+    from pharmsol_tpu_torch.ops.fused_sde import PARTICLES_PER_THREAD
+
+    for k in PARTICLES_PER_THREAD:
+        assert f"launch_ppt<T, {k}>" in src
+
+
+def test_sde_is_exported():
+    assert pt.SDE.kind == "sde"
+    m = pt.SDE(lambda x, p, t, r, cov: [-p[0] * x[0]], lambda p, t, cov: [p[1]],
+               nstates=1, ndrugs=1, nout=1)
+    assert m.nparticles() == 1000
 
 
 def test_cuda_request_raises_without_a_card():

@@ -139,6 +139,23 @@ def test_rhs_difference_bolus_honors_a_scaled_mapping():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=0)
 
 
+def test_rhs_list_with_python_constants_matches_jax():
+    """An RHS returning a list whose components include a Python constant
+    (a state that does not move): the segment march and the bolus by RHS
+    difference both stack it on the working dtype and device."""
+    _, _, _, sp, data = _case("bolus_infusion")
+    out = lambda x, p, t, cov: x[0:1] / p[2]  # noqa: E731
+    jm = pst.ODE(lambda x, p, t, b, r, cov: jnp.stack([-p[0] * x[0] + b[0] + r[0], 0.0]),
+                 out=out, nstates=2, ndrugs=1, nout=1)
+    tm = pt.ODE(lambda x, p, t, b, r, cov: [-p[0] * x[0] + b[0] + r[0], 0.0],
+                out=out, nstates=2, ndrugs=1, nout=1)
+    want = np.asarray(jax_psi(jm, data, sp, _ems(), engine="xla"))
+    got = pt.log_likelihood_matrix(tm, convert.data_from_reference(data), sp,
+                                   convert.error_models_from_reference(_ems()),
+                                   engine="general")
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=0)
+
+
 @pytest.mark.parametrize("kw", ["lag", "fa", "init"])
 def test_unported_ode_equations_raise(kw):
     fn = {"lag": lambda p, t, cov: {0: 0.5}, "fa": lambda p, t, cov: {0: 0.8},

@@ -17,7 +17,7 @@ import torch
 import pharmsol_tpu_torch as pt
 from pharmsol_tpu_torch.errors import PharmsolError
 from pharmsol_tpu_torch.likelihood import matrix
-from pharmsol_tpu_torch.ops.rhs_codegen import generate_rhs
+from pharmsol_tpu_torch.ops.rhs_codegen import generate_rhs, generate_sde
 
 
 def _short(x, p, t, b, rateiv, cov):  # bench.py:210-214, the 2-cmt oral ODE
@@ -210,3 +210,117 @@ def test_generated_header_matches_the_closure(name, gxx, tmp_path):
                     got.ctypes.data_as(dp))
         scale = max(np.abs(want).max(), 1.0)
         np.testing.assert_allclose(got, want, rtol=1e-14, atol=1e-14 * scale)
+
+
+# ---------------------------------------------------------------------------
+# SDE drift and diffusion: one header, the same tracer and acceptance rules
+# ---------------------------------------------------------------------------
+
+
+def _readme_drift(x, p, t, rateiv, cov):  # examples/sde_readme.py
+    return torch.stack([-x[1] * x[0], -(x[1] - p[0])])
+
+
+def _two_input_drift(x, p, t, rateiv, cov):
+    return [-p[0] * x[0] + rateiv[1], -p[1] * x[1],
+            p[0] * x[0] + p[1] * x[1] - 0.2 * x[2] + rateiv[0]]
+
+
+SDE_ACCEPTED = {
+    "readme": (_readme_drift, lambda p, t, cov: [0.0, p[2]], 2, 3, 1),
+    "constant_diffusion": (
+        lambda x, p, t, rateiv, cov: torch.stack([-x[0] * x[1], -x[1] + p[0]]),
+        lambda p, t, cov: torch.tensor([1.0, 0.01], dtype=torch.float64), 2, 1, 1),
+    "two_inputs_time_diffusion": (
+        _two_input_drift,
+        lambda p, t, cov: [0.0, p[3] * torch.exp(-0.1 * t), torch.sqrt(p[3])], 3, 4, 2),
+}
+
+
+@pytest.mark.parametrize("name", list(SDE_ACCEPTED))
+def test_sde_generator_accepts(name):
+    drift, diffusion, n, n_params, ninput = SDE_ACCEPTED[name]
+    gen = generate_sde(drift, diffusion, n, n_params, ninput)
+    assert (gen.n_states, gen.n_params, gen.ninput) == (n, n_params, ninput)
+    assert ("void drift(const T* x, const T* p, T t, const T* rateiv, T* dx)"
+            in gen.source)
+    assert "void diffusion(const T* p, T t, T* g)" in gen.source
+    for i in range(n):
+        assert f"dx[{i}] = " in gen.source and f"g[{i}] = " in gen.source
+    assert generate_sde(drift, diffusion, n, n_params, ninput).key == gen.key
+
+
+def test_constant_diffusion_traces_to_literals():
+    drift, diffusion, n, n_params, ninput = SDE_ACCEPTED["constant_diffusion"]
+    src = generate_sde(drift, diffusion, n, n_params, ninput).source
+    assert "g[0] = T(1.0);" in src and "g[1] = T(0.01);" in src
+
+
+@pytest.mark.parametrize("which, fn, reason", [
+    ("drift", lambda x, p, t, r, cov: torch.stack([-p[0] * torch.sin(x[0]), -x[1]]), "`sin`"),
+    ("drift", lambda x, p, t, r, cov: [-p[0] * x[0]], "returns 1 components, expected 2"),
+    ("diffusion", lambda p, t, cov: [0.0, p[0] if p[0] > 0 else 0.0],
+     "branches on a traced value"),
+    ("diffusion", lambda p, t, cov: [0.0, p[0] * cov("wt", t)], "covariate `wt`"),
+])
+def test_sde_generator_rejects_with_a_reason(which, fn, reason):
+    drift = fn if which == "drift" else _readme_drift
+    diffusion = fn if which == "diffusion" else (lambda p, t, cov: [0.0, p[2]])
+    with pytest.raises(PharmsolError, match=f"SDE {which} cannot run in the CUDA kernel"):
+        generate_sde(drift, diffusion, 2, 3, 1)
+    with pytest.raises(PharmsolError, match=reason):
+        generate_sde(drift, diffusion, 2, 3, 1)
+
+
+_SDE_WRAPPER = """
+#define __device__
+#define __forceinline__ inline
+#include "sde.h"
+extern "C" void drift_f64(const double* x, const double* p, double t,
+                          const double* r, double* dx) {
+  drift<double>(x, p, t, r, dx);
+}
+extern "C" void diffusion_f64(const double* p, double t, double* g) {
+  diffusion<double>(p, t, g);
+}
+"""
+
+
+@pytest.mark.parametrize("name", list(SDE_ACCEPTED))
+def test_generated_sde_header_matches_the_closures(name, gxx, tmp_path):
+    drift, diffusion, n, n_params, ninput = SDE_ACCEPTED[name]
+    gen = generate_sde(drift, diffusion, n, n_params, ninput)
+    (tmp_path / "sde.h").write_text(gen.source)
+    (tmp_path / "wrap.cpp").write_text(_SDE_WRAPPER)
+    lib_path = tmp_path / "libsde.so"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o",
+                    str(lib_path), str(tmp_path / "wrap.cpp")], check=True,
+                   cwd=tmp_path)
+    lib = ctypes.CDLL(str(lib_path))
+    dp = ctypes.POINTER(ctypes.c_double)
+    lib.drift_f64.argtypes = [dp, dp, ctypes.c_double, dp, dp]
+    lib.diffusion_f64.argtypes = [dp, ctypes.c_double, dp]
+    rng = np.random.RandomState(13)
+
+    def ptr(a):
+        return np.ascontiguousarray(a).ctypes.data_as(dp)
+
+    def as_np(v):
+        if not isinstance(v, torch.Tensor):
+            v = torch.stack([torch.as_tensor(c, dtype=torch.float64) for c in v])
+        return v.double().numpy()
+
+    for _ in range(50):
+        x = rng.uniform(0.0, 5.0, n)
+        p = rng.uniform(0.1, 3.0, n_params)
+        r = rng.uniform(0.0, 2.0, ninput)
+        t = float(rng.uniform(0.0, 24.0))
+        tt = torch.tensor(t, dtype=torch.float64)
+        want_d = as_np(drift(torch.as_tensor(x), torch.as_tensor(p), tt, torch.as_tensor(r), None))
+        want_g = as_np(diffusion(torch.as_tensor(p), tt, None))
+        got_d, got_g = np.zeros(n), np.zeros(n)
+        lib.drift_f64(ptr(x), ptr(p), t, ptr(r), got_d.ctypes.data_as(dp))
+        lib.diffusion_f64(ptr(p), t, got_g.ctypes.data_as(dp))
+        for got, want in ((got_d, want_d), (got_g, want_g)):
+            scale = max(np.abs(want).max(), 1.0)
+            np.testing.assert_allclose(got, want, rtol=1e-14, atol=1e-14 * scale)

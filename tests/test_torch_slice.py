@@ -279,3 +279,108 @@ def test_ode_auto_on_cpu_takes_general(ode_slice):
     decision = pt.last_engine_decision(model)
     assert decision["engine"] == "general" and "CPU" in decision["reason"]
     np.testing.assert_allclose(psi.numpy(), want["xla"], rtol=1e-10, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The SDE slice: the reference's README model (examples/sde_readme.py)
+# ---------------------------------------------------------------------------
+
+
+def _sde_closures(xp):
+    """drift, diffusion, init and out of the README model: a latent
+    mean-reverting elimination rate, p = ke0, v, sigma_ke."""
+    return dict(
+        drift=lambda x, p, t, r, cov: xp.stack([-x[1] * x[0], -(x[1] - p[0])]),
+        diffusion=lambda p, t, cov: [0.0 * p[2], p[2]],
+        init=lambda p, t, cov: [0.0 * p[0], p[0]],
+        out=lambda x, p, t, cov: x[0:1] / p[1],
+    )
+
+
+def _readme_metadata(md_module, nparticles):
+    return (md_module.new("ke_diffusion").parameters(["ke0", "v", "sigma_ke"])
+            .states(["central", "ke_latent"]).outputs(["cp"])
+            .route(md_module.Route.bolus("iv").to_state("central"))
+            .particles(nparticles))
+
+
+@pytest.fixture(scope="module")
+def sde_slice():
+    """12 README subjects (labels through metadata) x 10 supports at
+    sigma_ke = 0, with non-default options on the JAX model; the JAX
+    package's xla psi."""
+    import jax.numpy as jnp
+    from pharmsol_tpu import metadata as jax_metadata
+
+    rng = np.random.RandomState(31)
+    subjects = []
+    for i in range(12):
+        b = pst.Subject.builder(f"r{i}").bolus(0.0, 100.0, "iv")
+        for t, v in zip((1.0, 2.0, 4.0, 8.0), (8.0, 6.2, 4.1, 1.8)):
+            b = b.observation(t, float(v * np.exp(0.15 * rng.randn())), "cp")
+        subjects.append(b.build())
+    data = pst.Data(subjects)
+    support = np.abs(np.array([0.2, 10.0, 0.05]) * (1 + 0.15 * rng.randn(10, 3)))
+    support[:, 2] = 0.0
+    ems = pst.AssayErrorModels().add(
+        "cp", pst.AssayErrorModel.additive(pst.ErrorPoly(0.3, 0.1), 0.5))
+    model = (pst.SDE(**_sde_closures(jnp), nparticles=24, nstates=2, ndrugs=1, nout=1,
+                     seed=42)
+             .with_metadata(_readme_metadata(jax_metadata, 24))
+             .with_em_control("coupled").with_noise("independent"))
+    want = np.asarray(jax_psi(model, data, support, ems, engine="xla"))
+    return (convert.data_from_reference(data), support,
+            convert.error_models_from_reference(ems), model, want)
+
+
+def _sde_model(jax_model):
+    """The port's README SDE with the JAX model's options carried across."""
+    from pharmsol_tpu_torch import metadata as pt_metadata
+
+    opts = convert.sde_options_from_reference(jax_model)
+    return (pt.SDE(**_sde_closures(torch), nstates=2, ndrugs=1, nout=1, **opts)
+            .with_metadata(_readme_metadata(pt_metadata, opts["nparticles"])))
+
+
+def test_sde_options_carry_across(sde_slice):
+    *_, jax_model, _ = sde_slice
+    model = _sde_model(jax_model)
+    spec = model.spec
+    assert (spec.nparticles, model._seed, spec.noise, spec.resampling, spec.em_control) == (
+        24, 42, "independent", "stratified", "coupled")
+    assert spec.bolus_dest == (0,)
+
+
+@pytest.mark.parametrize("engine", ["general", "fused"])
+def test_sde_slice_matches_jax_at_zero_diffusion(sde_slice, engine):
+    """Both engines of the port against the JAX engine, 1e-9: the fused twin
+    stops each march by the kernel's rule, the general engine by the JAX
+    engine's, and at zero diffusion the two agree to rounding."""
+    data, support, ems, jax_model, want = sde_slice
+    psi = pt.log_likelihood_matrix(_sde_model(jax_model), data, support, ems, engine=engine)
+    assert psi.shape == (12, 10) and psi.dtype == torch.float64
+    np.testing.assert_allclose(psi.numpy(), want, rtol=1e-9, atol=0)
+
+
+def test_sde_auto_on_cpu_takes_general(sde_slice):
+    data, support, ems, jax_model, want = sde_slice
+    model = _sde_model(jax_model)
+    psi = pt.log_likelihood_matrix(model, data, support, ems)
+    decision = pt.last_engine_decision(model)
+    assert decision["engine"] == "general" and "CPU" in decision["reason"]
+    np.testing.assert_allclose(psi.numpy(), want, rtol=1e-9, atol=0)
+
+
+def test_sde_slice_with_noise_in_both_engines(sde_slice):
+    """With sigma_ke on, both port engines give finite psi of the slice's
+    shape whose cell means agree within four standard errors (independent
+    draws: torch generator against Philox)."""
+    data, support, ems, jax_model, _ = sde_slice
+    sp = support.copy()
+    sp[:, 2] = 0.2
+    model = _sde_model(jax_model).with_nparticles(200)
+    general = pt.log_likelihood_matrix(model, data, sp, ems, engine="general").numpy()
+    fused = pt.log_likelihood_matrix(model, data, sp, ems, engine="fused").numpy()
+    d = (fused - general).ravel()
+    assert np.isfinite(d).all() and np.abs(d).max() > 0
+    assert abs(d.mean()) <= 4 * d.std(ddof=1) / np.sqrt(d.size)

@@ -68,7 +68,9 @@ result.
 from __future__ import annotations
 
 import argparse
+import cProfile
 import json
+import pstats
 import math
 import re
 import statistics
@@ -82,23 +84,39 @@ import torch
 SEED = 20261016
 SHORT_TIMES = [0.5, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 10.0, 12.0]
 KERNEL_RECORD = {
+    "id": "K1a",
     "name": "fused_psi",
     "route": "cuda",
     "source": "pharmsol_tpu_torch/csrc/fused_psi.cu",
     "replaces": "pharmsol_tpu/ops/pallas_psi.py:805",
 }
 ODE_KERNEL_RECORD = {
+    "id": "K2a",
     "name": "fused_ode",
     "route": "cuda",
     "source": "pharmsol_tpu_torch/csrc/fused_ode.cu",
     "replaces": "pharmsol_tpu/ops/pallas_ode.py:1826",
 }
 SDE_KERNEL_RECORD = {
+    "id": "K3a",
     "name": "fused_sde",
     "route": "cuda",
     "source": "pharmsol_tpu_torch/csrc/fused_sde.cu",
     "replaces": "pharmsol_tpu/ops/pallas_sde.py:548",
 }
+FEATURE_KERNEL_RECORD = {
+    "id": "K1b",
+    "name": "fused_psi_feature",
+    "route": "cuda",
+    "source": "pharmsol_tpu_torch/csrc/fused_psi.cu",
+    "replaces": "pharmsol_tpu/ops/pallas_psi.py:432",
+}
+# subjects of the two K1b cells (Covariate Short, time-varying 10k)
+FEATURE_SUBJECTS = (16384, 10000)
+# the card's published rates (NVIDIA H100 SXM data sheet, at 700 W): memory,
+# and float32 / float64 arithmetic outside the tensor cores
+H100_BYTES_PER_S = 3.35e12
+H100_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 # the SDE cells: the reduced ragged shape of the kernel-vs-twin checks, the
 # statistical check against the general engine, and the full-width slice
 SDE_REDUCED = (37, 45)
@@ -130,13 +148,17 @@ def rel_err(got: torch.Tensor, want: torch.Tensor, floor: float) -> float:
 
 
 def short_subjects(pt, n: int, rng, repeat: bool = False, infusion: bool = False,
-                   censored: bool = False, two_outputs: bool = False):
+                   censored: bool = False, two_outputs: bool = False,
+                   covariates=None):
     """The reference's "Short" workload (one 100 mg oral dose, 9 observations
     over 12 h), optionally multi-dose, with an infusion, with censored
-    observations or with a second output."""
+    observations, with a second output or with covariates
+    (``covariates(i, builder) -> builder``)."""
     subjects = []
     for i in range(n):
         b = pt.Subject.builder(f"s{i}").bolus(0.0, 100.0, 0)
+        if covariates is not None:
+            b = covariates(i, b)
         if repeat:
             b = b.bolus(6.0, 100.0, 0).bolus(12.0, 50.0, 0)
         if infusion:
@@ -197,12 +219,11 @@ def plan_for(pt, model, data, support, ems, dtype):
 
 
 def run_kernel(plan, plain: bool = False) -> torch.Tensor:
+    """K1a, or K1b when the plan has a feature input (or their twin)."""
     from pharmsol_tpu_torch.ops.fused_psi import psi_analytical, psi_analytical_plain
 
     fn = psi_analytical_plain if plain else psi_analytical
-    return fn(*plan.streams, plan.support, structure=plan.structure,
-              obs_outeq=plan.outeq, out_coef=plan.out_coef,
-              out_bias=plan.out_bias)
+    return fn(*plan.streams, plan.support, **plan.kernel_kwargs())
 
 
 # ---------------------------------------------------------------------------
@@ -355,10 +376,12 @@ def phase_build(pt) -> float:
         kernel, spill = None, ""
         for ln in output.splitlines():
             m = (re.search(r"fused_psi_kernelI([fd])Li(\d+)E", ln)
+                 or re.search(r"fused_psi_feature_kernelI([fd])Li(\d+)E", ln)
                  or re.search(r"fused_ode_kernelI([fd])Li(\d+)E", ln)
                  or re.search(r"fused_sde_kernelI([fd])Li(\d+)E", ln))
             if m and "Compiling entry function" in ln:
-                what = ("code" if "fused_psi" in ln else
+                what = ("K1b code" if "fused_psi_feature" in ln else
+                        "K1a code" if "fused_psi" in ln else
                         "particles/thread" if "fused_sde" in ln else
                         "solver " + ("dopri5" if m.group(2) == "0" else "tsit5"))
                 kernel = f"{'f32' if m.group(1) == 'f' else 'f64'} {what} {m.group(2):>2}"
@@ -415,6 +438,51 @@ def phase_kernels(pt, rng) -> None:
         log(f"[2] {name:46s} budget case f32 kernel {eb:.3e} (<= {budget:g})")
         if eb > budget:
             raise AssertionError(f"{name}: f32 kernel {eb} > budget {budget}")
+
+
+def phase_feature_kernels(pt) -> None:
+    """K1b against its twin on the card, every mode (FEATURE_CASES) at 64
+    subjects x 48 supports: float64 within 1e-10 relative, float32 against
+    the float64 twin within the mode's budget row; then the feature budget
+    rows on their own cases."""
+    from pharmsol_tpu_torch.utils.f32_budget import (
+        F32_BUDGET, FEATURE_BUDGETS, FEATURE_CASES, f32_error, feature_budget_case,
+        feature_case,
+    )
+
+    R, S = 64, 48
+    for i, (name, row) in enumerate(FEATURE_CASES.items()):
+        model, data, support, ems, mode = feature_case(name, R, S, seed=SEED + i)
+        plan64 = plan_for(pt, model, data, support, ems, torch.float64)
+        plan32 = plan_for(pt, model, data, support, ems, torch.float32)
+        if plan64.mode != mode or plan32.mode != mode:
+            raise AssertionError(f"K1b {name}: plan mode {plan64.mode}, expected {mode}")
+        feats = [k for k, v in plan64.features.items() if v is not None]
+        twin64 = run_kernel(plan64, plain=True)
+        got64 = run_kernel(plan64)
+        got32 = run_kernel(plan32)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(got64).all() and torch.isfinite(got32).all()):
+            raise AssertionError(f"K1b {name}: non-finite kernel psi")
+        e64 = rel_err(got64, twin64, 1e-300)
+        e32 = f32_error(got32.cpu().numpy(), twin64.cpu().numpy())
+        budget = F32_BUDGET[row]
+        log(f"[2] K1b {name:15s} {R}x{S} mode {str(mode):8s} f64 kernel vs twin rel "
+            f"{e64:.3e} (<= 1e-10); f32 kernel vs f64 twin {e32:.3e} (<= {row} "
+            f"{budget:g}); {', '.join(feats)}")
+        if e64 > 1e-10:
+            raise AssertionError(f"K1b {name}: f64 kernel vs twin {e64} > 1e-10")
+        if e32 > budget:
+            raise AssertionError(f"K1b {name}: f32 kernel {e32} > {row} {budget}")
+    for name in FEATURE_BUDGETS:
+        model, data, support, ems = feature_budget_case(name)
+        golden = run_kernel(plan_for(pt, model, data, support, ems, torch.float64), plain=True)
+        got = run_kernel(plan_for(pt, model, data, support, ems, torch.float32))
+        torch.cuda.synchronize()
+        eb = f32_error(got.cpu().numpy(), golden.cpu().numpy())
+        log(f"[2] K1b budget case {name}: f32 kernel {eb:.3e} (<= {F32_BUDGET[name]:g})")
+        if eb > F32_BUDGET[name]:
+            raise AssertionError(f"{name}: f32 kernel {eb} > budget {F32_BUDGET[name]}")
 
 
 def phase_ode_kernels(pt, rng) -> None:
@@ -629,7 +697,7 @@ def phase_ode_slice(pt, rng, data, ems) -> tuple:
 
 def ode_end_to_end_parts(model, data, sp, ems, dtype, plan) -> dict:
     """Wall times of the steps of one fused ODE log_likelihood_matrix call."""
-    from pharmsol_tpu_torch.engine.sim import NO_COVARIATES
+    from pharmsol_tpu_torch.engine.grid import CovView
     from pharmsol_tpu_torch.ops.fused_psi import extract_linear_out, streams_from_grid
 
     grid = model.lower(data.subjects())
@@ -640,7 +708,7 @@ def ode_end_to_end_parts(model, data, sp, ems, dtype, plan) -> dict:
         "streams": wall_ms(lambda: streams_from_grid(
             grid.rows, lowered, inputs=model.ndrugs()), 3),
         "out_coef": wall_ms(lambda: extract_linear_out(
-            model._out, sp, model.nstates(), model.nouteqs(), NO_COVARIATES), 3),
+            model._out, sp, model.nstates(), model.nouteqs(), CovView.empty()), 3),
         "plan": wall_ms(lambda: ode_plan_for(model, data, sp, ems, dtype), 3),
         "finalize": cuda_ms(lambda: plan.finalize(psi_rows), 10),
     }
@@ -691,6 +759,17 @@ def phase_ode_times(pt, label, model, data, ems, card: str) -> dict:
             f"{k} {v:.3f}" for k, v in parts.items()))
         log(f"[4] {label} {d} kernel+finalize share of end_to_end "
             f"{(t['kernel'] + parts['finalize']) / t['end_to_end']:.4f} ({card})")
+        from pharmsol_tpu_torch.ops.fused_ode import psi_ode_plain
+
+        counts = {}
+        kw = plan.kernel_kwargs()
+        psi_ode_plain(*plan.streams, plan.support, plan.rhs, counts=counts, **kw)
+        ops = counts["steps"] * ode_step_ops(model)
+        nbytes = plan_bytes(plan, kw, len(data), 512)
+        t["bound"], t["bound_by"] = bound(nbytes, ops, dtype)
+        log(f"[4] {label} {d} K2a bound {t['bound']:.5g} ms by {t['bound_by']} "
+            f"({nbytes / 1e6:.2f} MB, {counts['steps']} step attempts, {ops / 1e9:.3f} G "
+            f"operations); kernel at {t['bound'] / t['kernel']:.3f} of it")
         t["abs_err"] = abs_err
         out[dtype] = t
     return out
@@ -847,6 +926,7 @@ def phase_sde_kernels(pt, rng) -> dict:
     """K3a against its twin on the card at the reduced ragged shape, its
     Philox words against ops/philox.py, and the times of both."""
     from pharmsol_tpu_torch.ops import fused_sde, philox
+    from pharmsol_tpu_torch.ops.fused_sde import psi_sde_plain
     from pharmsol_tpu_torch.utils.f32_budget import f32_error
 
     R, S = SDE_REDUCED
@@ -886,11 +966,20 @@ def phase_sde_kernels(pt, rng) -> dict:
         plan = sde_plan_for(model, data, sp, ems, dtype)
         d = str(dtype)[6:]
         got, k_ms = event_ms(lambda: run_sde_kernel(plan))
-        twin, t_ms = event_ms(lambda: run_sde_kernel(plan, plain=True))
+        counts = {}
+        kw = plan.kernel_kwargs()
+        twin, t_ms = event_ms(lambda: psi_sde_plain(*plan.streams, plan.support, plan.gen,
+                                                    counts=counts, **kw))
         abs_err, _ = sde_compare(f"K3a readme {R}x{S}x{SDE_PARTICLES} {d} vs twin (same Philox)",
                                  got, twin, tol, share)
         k_ms = cuda_ms(lambda: run_sde_kernel(plan), 3, 1)
-        out[dtype] = dict(kernel=k_ms, twin=t_ms, abs_err=abs_err)
+        ops = counts["trials"] * SDE_PARTICLES * sde_trial_ops(model)
+        nbytes = plan_bytes(plan, kw, R, S)
+        b_ms, b_by = bound(nbytes, ops, dtype)
+        log(f"[5] K3a readme {R}x{S}x{SDE_PARTICLES} {d} bound {b_ms:.5g} ms by {b_by} "
+            f"({nbytes / 1e6:.3f} MB, {counts['trials']} cell trials, {ops / 1e9:.3f} G "
+            f"operations); kernel at {b_ms / k_ms:.4f} of it")
+        out[dtype] = dict(kernel=k_ms, twin=t_ms, abs_err=abs_err, bound=b_ms, bound_by=b_by)
         general = ""
         if dtype == torch.float64:
             pt.set_float_dtype(dtype)
@@ -1029,6 +1118,361 @@ def phase_sde_times(pt, label, model, data, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# bounds: the least time the card could take for a kernel's work
+# ---------------------------------------------------------------------------
+
+_ARITH = {"add", "radd", "sub", "rsub", "mul", "rmul", "truediv", "rtruediv",
+          "div", "neg", "pow", "rpow", "exp", "log", "log1p", "sqrt", "acos", "cos",
+          "clamp", "minimum", "maximum", "abs"}
+
+
+class OpCount(torch.overrides.TorchFunctionMode):
+    """Counts the elementwise floating-point operations of the torch code run
+    under it (one per output element; a transcendental counts as one)."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if getattr(func, "__name__", "").strip("_") in _ARITH and isinstance(out, torch.Tensor):
+            self.n += out.numel()
+        return out
+
+
+def count_ops(fn, *args) -> int:
+    with OpCount() as c:
+        fn(*args)
+    return c.n
+
+
+def bound(nbytes: float, ops: float, dtype) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the arithmetic rate of ``dtype``."""
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = ops / H100_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def psi_work(plan) -> tuple:
+    """(bytes, operations) of one K1a or K1b call on ``plan``'s inputs: each
+    input read once and psi written once; the operations this data needs
+    (each support prepared once, or once per row, per spanned segment or
+    per change of chain depth as the mode asks; one propagate per spanned
+    segment and per lagged dose that fires; one observation term per
+    observation), counted on the twin's own functions."""
+    from pharmsol_tpu_torch.ops.fused_psi import STRUCTURES, n_micro
+
+    sdef = STRUCTURES[plan.structure]
+    NS, NP = sdef["n_states"], sdef["n_params"]
+    R, M, S = plan.R, plan.M, plan.S
+    f = plan.features
+    item = plan.support.element_size()
+    nbytes = (tensor_bytes(*plan.streams, plan.outeq, plan.out_coef, plan.out_bias,
+                           *f.values()) + (NP + R) * S * item)  # params, psi
+    one = lambda v: torch.full((1, 1), float(v), dtype=torch.float64)  # noqa: E731
+
+    def prep(micro):
+        rows = [one(0.2 + 0.1 * i) for i in range(n_micro(sdef) if micro else NP)]
+        if not micro and sdef["remap"] is not None:
+            rows = sdef["remap"](rows)
+        if sdef["eigs"] is not None:
+            rows = rows + sdef["eigs"](rows)
+        return rows
+
+    prep_ops = count_ops(lambda: sdef["prepare"](prep(f["param_levels"] is not None
+                                                      or f["param_planes"] is not None)))
+    aux = sdef["prepare"](prep(False))
+    xs = [one(1.0)] * NS
+    prop = {r: count_ops(sdef["propagate"], aux, xs, one(0.5), one(1.0) if r else None)
+            for r in (False, True)}
+    seg_dt = plan.streams[0].double().cpu()
+    live = seg_dt > 0
+    rate = plan.streams[2]
+    with_rate = live & (rate.double().cpu() != 0) if rate is not None else torch.zeros_like(live)
+    n_obs = int((plan.streams[3].double().cpu() > 0).sum())
+    ops = S * (int(with_rate.sum()) * prop[True] + int((live & ~with_rate).sum()) * prop[False]
+               + n_obs * (2 * NS + 9))
+    mode = plan.mode
+    if mode is None:
+        ops += S * prep_ops
+    elif mode == "row":
+        ops += R * S * (prep_ops + 2 * NP)
+    elif mode == "segment":
+        ops += int(live.sum()) * S * (prep_ops + 2 * NP)
+    elif mode == "levels":
+        ops += f["param_levels"].shape[0] * S * prep_ops
+    else:
+        # planes: one prepare per (row, support) cell and change of depth
+        depth = f["seg_depth"].double().cpu()
+        prev = torch.zeros(R, dtype=torch.float64)
+        changes = 0
+        for m in range(M):
+            ch = live[:, m] & (depth[:, m] != prev)
+            changes += int(ch.sum())
+            prev = torch.where(live[:, m], depth[:, m], prev)
+        ops += changes * S * prep_ops
+    if f["lag_plane"] is not None:
+        # a dose fires iff its lag ends before the row's last breakpoint
+        t_end = seg_dt.sum(1)
+        t_dose = torch.cumsum(seg_dt, 1) - seg_dt  # from the row's first breakpoint
+        lag = f["lag_plane"].double().cpu()
+        dosed = plan.streams[1].double().cpu() != 0
+        fires = sum(int((dosed[:, m, None] & (lag < (t_end - t_dose[:, m])[:, None])).sum())
+                    for m in range(M))
+        ops += fires * (prop[False] + NS)
+    return nbytes, ops
+
+
+def plan_bytes(plan, kwargs, R: int, S: int) -> int:
+    """Bytes of an ODE or SDE plan's inputs read once and psi written once."""
+    return (tensor_bytes(*plan.streams, plan.support,
+                         *(v for v in kwargs.values() if isinstance(v, torch.Tensor)))
+            + R * S * plan.support.element_size())
+
+
+def ode_step_ops(model) -> int:
+    """Operations of one attempted step of the 7-stage FSAL explicit RK
+    (dopri5, tsit5) per cell: six right-hand sides (counted on the model's
+    closure) and the stage, solution and error sums (about 80 per state)."""
+    n, nin = model.nstates(), model.ndrugs()
+    one = torch.ones
+    rhs = count_ops(model._diffeq, one(n, dtype=torch.float64), one(8, dtype=torch.float64),
+                    torch.tensor(1.0, dtype=torch.float64), torch.zeros(nin, dtype=torch.float64),
+                    torch.zeros(nin, dtype=torch.float64), None)
+    return 6 * rhs + 80 * n
+
+
+def sde_trial_ops(model) -> int:
+    """Operations of one Euler-Maruyama trial per particle: two drift
+    evaluations (counted on the model's closure), the full and two half steps
+    and the error (about 18 per state) and the Box-Muller normals (about 6
+    each, three per state); Philox's integer work is not counted."""
+    spec = model.spec
+    n, nin = spec.nstates, spec.ninput
+    drift = count_ops(spec.drift, torch.ones(n, dtype=torch.float64),
+                      torch.ones(8, dtype=torch.float64), torch.tensor(1.0, dtype=torch.float64),
+                      torch.zeros(nin, dtype=torch.float64), None)
+    return 2 * drift + (18 + 3 * 6) * n
+
+
+# ---------------------------------------------------------------------------
+# K1b at full width: covariates, seq, lag and fa through the entry point
+# ---------------------------------------------------------------------------
+
+
+def feature_workloads(pt, rng):
+    """The two K1b cells: (label, model, data, centre, S, expected mode,
+    budget row, rows of the general-engine check, builder s)."""
+    out = []
+    n_short, n_tv = FEATURE_SUBJECTS
+    # Covariate Short: the Short regimen, each subject's weight constant;
+    # allometric (wt/70)**0.75 on the rate constants (JAX
+    # tests/test_pallas_psi.py:607-637), an absorption lag p[5] and a
+    # bioavailability p[6]: K1b in row mode with lag and fa planes
+    n = n_short
+    wt = rng.uniform(40.0, 120.0, n)
+    t0 = time.perf_counter()
+    data = short_subjects(pt, n, rng, covariates=lambda i, b: b.covariate("wt", 0.0, wt[i]))
+    t_build = time.perf_counter() - t0
+
+    def allometric(p, t, cov):
+        sc = (cov("wt", t) / 70.0) ** 0.75
+        return [p[0] * sc, p[1], p[2] * sc, p[3] * sc, p[4], p[5], p[6]]
+
+    model = pt.Analytical(
+        pt.two_compartments_with_absorption, seq_eq=allometric,
+        lag=lambda p, t, cov: {0: p[5]}, fa=lambda p, t, cov: {0: p[6]},
+        out=lambda x, p, t, cov: x[1:2] / p[4], nstates=3, ndrugs=1, nout=1)
+    # ka's centre is the Short cell's 1.2 doubled and more: the weight
+    # scaling moves the decay constants per subject, and a support whose ka
+    # meets one makes the closed form 0/0 (reachable in float32 among the
+    # 8.4 M distinct pairs)
+    out.append((f"cov_short_2cmt_oral_{n}x512", model, data,
+                [0.15, 3.0, 0.3, 0.2, 10.0, 0.5, 0.8], 512, "row", "seq_multiplier_row",
+                min(n, 2048), t_build))
+    # time-varying creatinine clearance on the benches/population_10k.py
+    # shape: knots at 0 h and 24 h, an affine effect on ke: K1b in segment
+    # mode
+    n = n_tv
+    crcl0 = rng.uniform(40.0, 140.0, n)
+    crcl24 = crcl0 * rng.uniform(0.7, 1.3, n)
+    t0 = time.perf_counter()
+    data = short_subjects(pt, n, rng, covariates=lambda i, b: b.covariate(
+        "crcl", 0.0, crcl0[i]).covariate("crcl", 24.0, crcl24[i]))
+    t_build = time.perf_counter() - t0
+    model = pt.Analytical(
+        pt.one_compartment_with_absorption,
+        seq_eq=lambda p, t, cov: [p[0], p[1] * (0.4 + 0.006 * cov("crcl", t)), p[2]],
+        out=lambda x, p, t, cov: x[1:2] / p[2], nstates=2, ndrugs=1, nout=1)
+    out.append((f"tv_crcl_1cmt_oral_{n}x1000", model, data, [1.2, 0.2, 30.0], 1000,
+                "segment", "seq_multiplier_segment", n, t_build))
+    return out
+
+
+def phase_feature_slice(pt, rng, workload, ems) -> int:
+    """One K1b cell through the public entry point: three calls in float32
+    and three in float64 with fresh supports, each on the fused engine with
+    exactly one K1b launch; then each held against the general engine on the
+    card on its first ``rows`` subjects (float64 within 1e-8, float32 within
+    1e-3 relative)."""
+    from pharmsol_tpu_torch.ops import fused_psi
+
+    label, model, data, centre, S, mode, _, rows, _ = workload
+    supports = [jittered_support(centre, S, rng, 0.2) for _ in range(3)]
+    # the main path's run: every launch counted here is one of its calls
+    fused_psi.LAUNCHES = 0
+    fused_psi.FEATURE_LAUNCHES = 0
+    results = []
+    for dtype in (torch.float32, torch.float64):
+        pt.set_float_dtype(dtype)
+        for sp in supports:
+            before = fused_psi.FEATURE_LAUNCHES
+            psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
+            torch.cuda.synchronize()
+            dec = pt.last_engine_decision(model)
+            if dec["engine"] != "fused":
+                raise AssertionError(f"{label}: engine {dec}")
+            if fused_psi.FEATURE_LAUNCHES - before != 1:
+                raise AssertionError(f"{label}: {fused_psi.FEATURE_LAUNCHES - before} "
+                                     "K1b launches in one call")
+            if tuple(psi.shape) != (len(data), S) or psi.device.type != "cuda":
+                raise AssertionError(f"{label}: psi {tuple(psi.shape)} on {psi.device}")
+            bad = int((~torch.isfinite(psi)).sum())
+            if bad:
+                raise AssertionError(f"{label} {dtype}: {bad} non-finite psi cells of "
+                                     f"{psi.numel()}")
+            results.append((dtype, sp, psi))
+    launches, k1a = fused_psi.FEATURE_LAUNCHES, fused_psi.LAUNCHES
+    log(f"[3] {label}: {len(results)} log_likelihood_matrix calls on cuda, engine "
+        f"fused, {launches} K1b launches, {k1a} K1a launches")
+    if k1a:
+        raise AssertionError(f"{label}: the main path launched K1a")
+    plan = plan_for(pt, model, data, supports[0], ems, torch.float64)
+    if plan.mode != mode:
+        raise AssertionError(f"{label}: plan mode {plan.mode}, expected {mode}")
+    log(f"[3] {label}: K1b mode {plan.mode}, inputs "
+        + ", ".join(k for k, v in plan.features.items() if v is not None))
+    sub = pt.Data(data.subjects()[:rows])
+    for dtype, sp, psi in results:
+        pt.set_float_dtype(dtype)
+        want = pt.log_likelihood_matrix(model, sub, sp, ems, device="cuda", engine="general")
+        torch.cuda.synchronize()
+        tol = 1e-8 if dtype == torch.float64 else 1e-3
+        err = rel_err(psi[:rows], want, 1.0)
+        log(f"[3] {label} {str(dtype)[6:]}: fused vs general on subjects 0-{rows - 1} "
+            f"rel {err:.3e} (<= {tol:g}); psi mean {float(psi.double().mean()):.6f}")
+        if err > tol:
+            raise AssertionError(f"{label} {dtype}: fused vs general {err} > {tol}")
+    return launches
+
+
+def phase_feature_times(pt, workload, ems, card: str) -> dict:
+    """K1b alone, its twin, the general engine (on the subjects of the
+    check), one end-to-end call and its steps, at the cell's shape; K1b held
+    against its twin there; the bound of its work."""
+    from pharmsol_tpu_torch.likelihood.matrix import _general_psi
+    from pharmsol_tpu_torch.likelihood.plans.analytical import _FusedPsiPlan
+    from pharmsol_tpu_torch.utils.f32_budget import F32_BUDGET, f32_error
+
+    label, model, data, centre, S, _, row, rows, t_build = workload
+    sp = jittered_support(centre, S, np.random.RandomState(SEED + 4), 0.2)
+    sub = pt.Data(data.subjects()[:rows])
+    out = {}
+    twin64 = None
+    for dtype in (torch.float64, torch.float32):
+        pt.set_float_dtype(dtype)
+        d = str(dtype)[6:]
+        plan = plan_for(pt, model, data, sp, ems, dtype)
+        got, twin = run_kernel(plan), run_kernel(plan, plain=True)
+        torch.cuda.synchronize()
+        if dtype == torch.float64:
+            twin64 = twin
+            rel, tol = rel_err(got, twin, 1e-300), 1e-10
+            vs64 = ""
+        else:
+            # against the float32 twin: the two round differently (fused
+            # multiply-adds), and cells whose ka lies near a decay constant
+            # amplify that through (e_k - e_ka) / (ka - l_k); so every cell
+            # within 1e-3 and 99.9% within 1e-5 relative, and the float64
+            # twin's distance measured beside the budget row of the mode's case
+            rel, tol = rel_err(got, twin, 1.0), 1e-3
+            cell = (got.double() - twin.double()).abs() / twin.double().abs().clamp(min=1.0)
+            share = float((cell <= 1e-5).double().mean())
+            if share < 0.999:
+                raise AssertionError(f"{label} {dtype}: {share} of cells within 1e-5 < 0.999")
+            vs64 = (f"; {share * 100:.4f}% of cells within 1e-5 (>= 99.9%); vs the f64 twin "
+                    f"{f32_error(got.cpu().numpy(), twin64.cpu().numpy()):.3e} ({row} "
+                    f"{F32_BUDGET[row]:g} on its own case)")
+        abs_err = float((got.double() - twin64).abs().max())
+        log(f"[3] K1b vs twin {label} {d}: max abs {abs_err:.3e}, rel {rel:.3e} "
+            f"(<= {tol:g}){vs64}")
+        if rel > tol:
+            raise AssertionError(f"{label} {dtype}: K1b vs twin {rel} > {tol}")
+        sub_grid = model.lower(sub.subjects())
+        lowered = ems.lower(model.resolve_output_label, model.nouteqs())
+        t = {
+            "kernel": cuda_ms(lambda: run_kernel(plan), 20),
+            "twin": cuda_ms(lambda: run_kernel(plan, plain=True), 3, 1),
+            "general": wall_ms(lambda: _general_psi(
+                model, sub_grid, sp, lowered, torch.device("cuda"), dtype), 3),
+            "end_to_end": wall_ms(lambda: pt.log_likelihood_matrix(
+                model, data, sp, ems, device="cuda"), 7),
+        }
+        psi_rows = run_kernel(plan)
+        grid = model.lower(data.subjects())
+        full = ems.lower(model.resolve_output_label, model.nouteqs())
+
+        def build_plan():  # the plan alone, the grid lowered already
+            return _FusedPsiPlan(model, grid, sp, full, torch.device("cuda"), dtype)
+
+        parts = {
+            "lower_cached": wall_ms(lambda: model.lower(data.subjects()), 5),
+            "plan": wall_ms(build_plan, 5),
+            "finalize": cuda_ms(lambda: plan.finalize(psi_rows), 10),
+        }
+        nbytes, ops = psi_work(plan)
+        t["bound"], t["bound_by"] = bound(nbytes, ops, dtype)
+        # where the plan's host time goes: its costliest calls, once
+        prof = cProfile.Profile()
+        prof.runcall(build_plan)
+        top = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][3])
+        top = [(fn, st[3] * 1e3) for (path, _, fn), st in top
+               if "pharmsol_tpu_torch" in path and fn != "__init__"][:6]
+        log(f"[4] {label} {str(dtype)[6:]} plan, costliest calls (ms, cumulative, profiled): "
+            + ", ".join(f"{fn} {ms:.1f}" for fn, ms in top))
+        cells = len(data) * S
+        for k in ("kernel", "twin", "end_to_end"):
+            log(f"[4] {label} {d} {k:10s} {t[k]:10.3f} ms  {cells / (t[k] * 1e-3):.4g} "
+                f"cells/s  ({card})")
+        log(f"[4] {label} {d} general    {t['general']:10.3f} ms on subjects 0-{rows - 1} "
+            f"x {S}  ({card})")
+        log(f"[4] {label} {d} end_to_end parts (ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in parts.items()))
+        log(f"[4] {label} {d} shares of end_to_end: kernel {t['kernel'] / t['end_to_end']:.4f}, "
+            f"plan {parts['plan'] / t['end_to_end']:.4f}, lowering lookup "
+            f"{parts['lower_cached'] / t['end_to_end']:.4f}, finalize "
+            f"{parts['finalize'] / t['end_to_end']:.4f} ({card})")
+        log(f"[4] {label} {d} K1b bound {t['bound']:.5g} ms by {t['bound_by']} "
+            f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations); kernel at "
+            f"{t['bound'] / t['kernel']:.3f} of it")
+        t["abs_err"] = abs_err
+        t["plan"] = parts["plan"]
+        out[dtype] = t
+    model._lower_cache.clear()
+    t0 = time.perf_counter()
+    model.lower(data.subjects())
+    log(f"[4] {label} host: subject builder {t_build * 1e3:.1f} ms, lowering "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms ({len(data)} subjects)")
+    return out
+
+
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -1058,7 +1502,7 @@ def wall_ms(fn, reps: int, warmup: int = 1) -> float:
 
 def end_to_end_parts(pt, model, data, sp, ems, dtype, plan) -> dict:
     """Wall times of the steps of one fused log_likelihood_matrix call."""
-    from pharmsol_tpu_torch.engine.sim import NO_COVARIATES
+    from pharmsol_tpu_torch.engine.grid import CovView
     from pharmsol_tpu_torch.likelihood.matrix import check_error_model_coverage
     from pharmsol_tpu_torch.ops.fused_psi import extract_linear_out, streams_from_grid
 
@@ -1077,7 +1521,7 @@ def end_to_end_parts(pt, model, data, sp, ems, dtype, plan) -> dict:
             grid, ems.lower(model.resolve_output_label, model.nouteqs())), 3),
         "streams": wall_ms(lambda: streams_from_grid(grid.rows, lowered), 3),
         "out_coef": wall_ms(lambda: extract_linear_out(
-            model._out, sp, model.nstates(), model.nouteqs(), NO_COVARIATES), 3),
+            model._out, sp, model.nstates(), model.nouteqs(), CovView.empty()), 3),
         "plan": wall_ms(lambda: plan_for(pt, model, data, sp, ems, dtype), 3),
         "finalize": cuda_ms(finalize, 10),
     }
@@ -1113,6 +1557,11 @@ def phase_times(pt, workloads, ems, card: str) -> dict:
             busy = (t["kernel"] + parts["finalize"]) / t["end_to_end"]
             log(f"[4] {label} {d} kernel+finalize share of end_to_end "
                 f"{busy:.4f} ({card})")
+            nbytes, ops = psi_work(plan)
+            t["bound"], t["bound_by"] = bound(nbytes, ops, dtype)
+            log(f"[4] {label} {d} K1a bound {t['bound']:.5g} ms by {t['bound_by']} "
+                f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations); kernel at "
+                f"{t['bound'] / t['kernel']:.3f} of it")
             times[(label, dtype)] = t
     for label, model, data, centre, S, t_build in workloads:
         model._lower_cache.clear()
@@ -1140,6 +1589,7 @@ def main() -> int:
     phase_build(pt)
     torch.cuda.synchronize()
     phase_kernels(pt, rng)
+    phase_feature_kernels(pt)
     phase_ode_kernels(pt, rng)
     phase_cross_family(pt, rng)
     torch.cuda.synchronize()
@@ -1149,6 +1599,11 @@ def main() -> int:
     launches = phase_slice(pt, rng, workloads, ems)
     torch.cuda.synchronize()
     errs = phase_kernel_at_slice(pt, workloads, ems)
+    torch.cuda.synchronize()
+    features = feature_workloads(pt, rng)
+    feature_launches = {w[0]: phase_feature_slice(pt, rng, w, ems) for w in features}
+    torch.cuda.synchronize()
+    feature_times = {w[0]: phase_feature_times(pt, w, ems, card) for w in features}
     torch.cuda.synchronize()
     short_data = workloads[0][2]
     ode_label, ode, ode_launches = phase_ode_slice(pt, rng, short_data, ems)
@@ -1167,6 +1622,8 @@ def main() -> int:
     main_label = workloads[0][0]
     t32 = times[(main_label, torch.float32)]
     t64 = times[(main_label, torch.float64)]
+    # times of the float32 runs; float64 beside them; no single PyTorch
+    # call computes any of these functions, so library_ms is null
     record = dict(
         KERNEL_RECORD,
         launches=launches,
@@ -1174,9 +1631,34 @@ def main() -> int:
         max_abs_err_f32=errs[(main_label, torch.float32)],
         ms=t32["kernel"],
         plain_ms=t32["twin"],
+        bound_ms=t32["bound"],
+        bound_by=t32["bound_by"],
+        library_ms=None,
         ms_f64=t64["kernel"],
         plain_ms_f64=t64["twin"],
+        bound_ms_f64=t64["bound"],
         shape=main_label,
+    )
+    f_label = features[0][0]
+    f32_, f64_ = feature_times[f_label][torch.float32], feature_times[f_label][torch.float64]
+    feature_record = dict(
+        FEATURE_KERNEL_RECORD,
+        launches=sum(feature_launches.values()),
+        max_abs_err=f64_["abs_err"],
+        max_abs_err_f32=f32_["abs_err"],
+        ms=f32_["kernel"],
+        plain_ms=f32_["twin"],
+        bound_ms=f32_["bound"],
+        bound_by=f32_["bound_by"],
+        library_ms=None,
+        ms_f64=f64_["kernel"],
+        plain_ms_f64=f64_["twin"],
+        bound_ms_f64=f64_["bound"],
+        shape=f_label,
+        launches_by_cell=feature_launches,
+        cells={label: {str(dt)[6:]: {k: v for k, v in t.items() if k != "bound_by"}
+                       for dt, t in by_dtype.items()}
+               for label, by_dtype in feature_times.items()},
     )
     o32, o64 = ode_times[torch.float32], ode_times[torch.float64]
     ode_record = dict(
@@ -1186,8 +1668,12 @@ def main() -> int:
         max_abs_err_f32=o32["abs_err"],
         ms=o32["kernel"],
         plain_ms=o32["twin"],
+        bound_ms=o32["bound"],
+        bound_by=o32["bound_by"],
+        library_ms=None,
         ms_f64=o64["kernel"],
         plain_ms_f64=o64["twin"],
+        bound_ms_f64=o64["bound"],
         shape=ode_label,
     )
     r32, r64 = sde_reduced[torch.float32], sde_reduced[torch.float64]
@@ -1198,8 +1684,12 @@ def main() -> int:
         max_abs_err_f32=r32["abs_err"],
         ms=r32["kernel"],
         plain_ms=r32["twin"],
+        bound_ms=r32["bound"],
+        bound_by=r32["bound_by"],
+        library_ms=None,
         ms_f64=r64["kernel"],
         plain_ms_f64=r64["twin"],
+        bound_ms_f64=r64["bound"],
         shape="readme_sde_{}x{}x{}".format(*SDE_REDUCED, SDE_PARTICLES),
         general_ms_f64=r64["general"],
         general_ms_f64_stat=general_ms,
@@ -1210,7 +1700,7 @@ def main() -> int:
         end_to_end_ms_full_f64=sde_times[torch.float64]["end_to_end"],
         shape_full=sde_label,
     )
-    print(json.dumps({"kernels": [record, ode_record, sde_record]}))
+    print(json.dumps({"kernels": [record, feature_record, ode_record, sde_record]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,15 +2,17 @@
 
 A second package beside the JAX package ``pharmsol_tpu`` (the reference it is
 held against). It ports the population log-likelihood matrix ("psi") of the
-closed-form models, of ODE models and of SDE models: the data layer,
-event-grid lowering, the 12 analytical kernels, the explicit ODE steppers,
-the Euler-Maruyama particle filter, the general psi engine, and the fused psi
-paths, whose kernels are hand-written CUDA for Hopper (``csrc/fused_psi.cu``;
+closed-form models (with covariates, secondary equations, lag, fa and
+init), of ODE models and of SDE models: the data layer, event-grid lowering,
+the 12 analytical kernels, the explicit ODE steppers, the Euler-Maruyama
+particle filter, the general psi engine, and the fused psi paths, whose
+kernels are hand-written CUDA for Hopper (``csrc/fused_psi.cu``;
 ``csrc/fused_ode.cu`` and ``csrc/fused_sde.cu`` with device functions
 generated from the model's closures).
 
-The device is explicit: ``config.set_device`` / ``device=`` (default
-``"cpu"``). The working dtype defaults to float64 everywhere.
+The entry points run on the card (``"cuda"``) unless the caller asks for
+the CPU with ``set_device("cpu")`` or ``device="cpu"``. The working dtype
+defaults to float64 everywhere.
 """
 
 from . import config  # noqa: F401

@@ -3,10 +3,10 @@
 - The working float dtype defaults to float64 on every device (the H100 has
   native f64). Set float32 explicitly for throughput runs, as the JAX
   package's ``bench.py`` does.
-- The device is explicit. :func:`set_device` / :func:`device` default to
-  ``"cpu"``, and every entry point also takes ``device=``. Nothing picks
-  CUDA by itself, and asking for CUDA on a machine without a card raises
-  instead of running on the CPU.
+- The entry points run on the card: :func:`device` defaults to ``"cuda"``.
+  The CPU is asked for with ``set_device("cpu")`` or ``device="cpu"`` (every
+  entry point takes ``device=``). On a machine without a card the default
+  raises instead of running on the CPU.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ BIG_TIME = 1e30
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 _FLOAT_DTYPE = torch.float64
-_DEVICE = torch.device("cpu")
+_DEVICE = torch.device("cuda")
 
 
 def set_float_dtype(dtype) -> None:
@@ -40,7 +40,7 @@ def float_dtype() -> torch.dtype:
 
 
 def set_device(dev) -> None:
-    """Set the default device of the entry points (default ``"cpu"``)."""
+    """Set the default device of the entry points (default ``"cuda"``)."""
     global _DEVICE
     _DEVICE = resolve_device(dev)
 
@@ -53,8 +53,9 @@ def device() -> torch.device:
 def resolve_device(dev=None) -> torch.device:
     """``dev`` (or the configured default) as a torch.device.
 
-    Raises PharmsolError for a CUDA device when no card is present: the
-    port never quietly runs on the CPU what was asked of the GPU.
+    Raises PharmsolError for a CUDA device (the default) when no card is
+    present: the port never quietly runs on the CPU what was asked of the
+    GPU.
     """
     d = _DEVICE if dev is None else torch.device(dev)
     if d.type == "cuda" and not torch.cuda.is_available():

@@ -1,17 +1,28 @@
 // Fused population psi for the closed-form PK structures, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel pharmsol_tpu/ops/pallas_psi.py::psi_oral
-// (_make_kernel, base tier: infusions, censoring, several outputs, output
-// biases; all 12 structures). Plain PyTorch twin:
+// Two kernels, one thread per (row, support) cell each:
+//
+// K1a, fused_psi_kernel: replaces the TPU kernel
+// pharmsol_tpu/ops/pallas_psi.py::psi_oral (_make_kernel, base tier:
+// infusions, censoring, several outputs, output biases; all 12 structures).
+//
+// K1b, fused_psi_feature_kernel: replaces the same TPU kernel's feature tier
+// (_make_kernel with mult_mode row / segment / levels / planes,
+// has_offsets, static has_lag / has_fa planes, has_init rows or planes;
+// pallas_psi.py:583-606, :655-723, :762-782). The lag_slots / fa_slots,
+// lag_depth and lag_post flags (kernel K1c) are not ported here.
+//
+// Plain PyTorch twin of both:
 // pharmsol_tpu_torch/ops/fused_psi.py::psi_analytical_plain.
 //
-// Layout. One thread per (row, support) cell. threadIdx.x runs along the
-// supports, so the parameter rows [n_params, S], the output coefficients
-// [n_out, n_states, S] and the psi writes [R, S] are coalesced, and the 32
-// threads of a warp share one row: their reads of the row's segment streams
-// [R, M] are broadcasts. Blocks stride over rows in y; the kernel masks the
-// ragged support edge itself. No padding of R, S or M is needed, and M has
-// no limit.
+// Layout. threadIdx.x runs along the supports, so the parameter rows
+// [n_params, S], the output coefficients [n_out, n_states, S], the psi writes
+// [R, S] and K1b's planes ([R, S] lag / fa / init planes, [L, n_micro, R, S]
+// parameter planes, S fastest) are coalesced, and the 32 threads of a warp
+// share one row: their reads of the row's segment streams [R, M] and of its
+// per-row and per-segment factors are broadcasts. Blocks stride over rows in
+// y; the kernel masks the ragged support edge itself. No padding of R, S or
+// M is needed, and M has no limit.
 //
 // Per cell: prepare the support point once (CL remap, 2-cmt eigenvalues,
 // the 3-cmt cubic with acos, which Mosaic lacked), then for every segment
@@ -20,16 +31,32 @@
 // 3. propagate the state, only where dt > 0.
 // Censored terms use the exact log of the normal CDF through erfcx/erfc.
 //
+// K1b adds, per cell: the initial state init_mask[r] * init (rows
+// [n_states, S] or planes [n_states, R, S]); effective parameters
+// raw * mult + offset per row (prepared once per row, CL remap in the
+// kernel) or per segment (prepared on every spanned segment); in levels /
+// planes mode micro-constant tables selected by the segment's chain depth,
+// prepared only when the depth changes; fa scales the bolus; with lag the
+// bolus waits in two registers (pend_amt, pend_rem) and fires inside the
+// segment where its lag elapses (strict rem < dt), adding the dose vector
+// propagated over dt - rem without infusion forcing (superposition; exact
+// for these linear kernels).
+//
 // What bounds it. Arithmetic issue: per cell and segment (2-cmt oral) three
 // exponentials, a logarithm and a division beside ~40 fused multiply-adds,
 // about 85 instructions; at 16384 x 512 with 10 segments that is ~7e9
 // instructions against ~3.3e13 FP32 lane-instructions/s on 132 SMs.
 // Memory is minor: 4 bytes of psi written per cell, and stream bytes that the
 // warp shares. In float64, exp and log are software routines on the FP64
-// pipes, which bound it. This first version is simple and correct: each
-// thread holds its state in registers and reads coefficients through the
-// cache; nothing is hoisted per row (log sigma), there is no shared memory
-// staging, no TMA and no tuning of the block shape yet.
+// pipes, which bound it. K1b adds transcendental work per cell and segment:
+// a second propagate (three more exponentials) in the segment where a lagged
+// dose fires, and a full prepare (divisions; the 3-cmt acos and cosines) on
+// every spanned segment in segment mode and on every depth change in levels
+// and planes mode, against 4-8 bytes per cell of each [R, S] plane it reads
+// once per row. The design keeps the prepared model in registers and
+// re-prepares only where the parameters change. This first version is
+// simple and correct: nothing is hoisted per row (log sigma), there is no
+// shared memory staging, no TMA and no tuning of the block shape yet.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -98,24 +125,29 @@ struct Model {
   T l[3], inv_denom, inv_ka_l[3], inv_ke, ss2, ss3, ratio;
   T P[3][9];
 
+  // micro constants of the structure: NP less the volume of a CL remap
+  static constexpr int NB = NP - (CL ? 1 : 0);
+
   // raw: the support's leading NP columns; CL columns are remapped to the
-  // micro constants exactly as the *_cl_models.rs reparameterizations
-  __device__ __forceinline__ void prepare(const T* raw) {
+  // micro constants exactly as the *_cl_models.rs reparameterizations.
+  // micro: raw holds the NB micro constants already (K1b's level tables).
+  __device__ __forceinline__ void prepare(const T* raw, bool micro = false) {
+    const bool cl = CL && !micro;
     if (NCMT == 1) {
       // [ke] | [cl, v] | [ka, ke] | [ka, cl, v]
       const int o = ORAL ? 1 : 0;
       ka = ORAL ? raw[0] : T(0);
-      k[0] = CL ? raw[o] / raw[o + 1] : raw[o];
+      k[0] = cl ? raw[o] / raw[o + 1] : raw[o];
       inv_ke = T(1) / k[0];
       ratio = ORAL ? ka / (ka - k[0]) : T(0);
     } else if (NCMT == 2) {
       // k = [ke, kcp, kpc] from [ke, kcp, kpc] | [cl, q, vc, vp] |
       // [ke, ka, kcp, kpc] | [ka, cl, q, vc, vp]
-      if (!ORAL && !CL) {
+      if (!ORAL && !cl) {
         k[0] = raw[0]; k[1] = raw[1]; k[2] = raw[2];
-      } else if (!ORAL && CL) {
+      } else if (!ORAL && cl) {
         k[0] = raw[0] / raw[2]; k[1] = raw[1] / raw[2]; k[2] = raw[1] / raw[3];
-      } else if (!CL) {
+      } else if (!cl) {
         k[0] = raw[0]; ka = raw[1]; k[1] = raw[2]; k[2] = raw[3];
       } else {
         ka = raw[0];
@@ -139,10 +171,10 @@ struct Model {
       // [cl, q1, q2, vc, vp1, vp2]; oral structures lead with ka
       const int o = ORAL ? 1 : 0;
       ka = ORAL ? raw[0] : T(0);
-      if (CL) {
-        T cl = raw[o], q1 = raw[o + 1], q2 = raw[o + 2];
+      if (cl) {
+        T cl_ = raw[o], q1 = raw[o + 1], q2 = raw[o + 2];
         T vc = raw[o + 3], vp1 = raw[o + 4], vp2 = raw[o + 5];
-        k[0] = cl / vc; k[1] = q1 / vc; k[2] = q2 / vc;
+        k[0] = cl_ / vc; k[1] = q1 / vc; k[2] = q2 / vc;
         k[3] = q1 / vp1; k[4] = q2 / vp2;
       } else {
 #pragma unroll
@@ -347,6 +379,163 @@ __global__ void __launch_bounds__(256) fused_psi_kernel(
   }
 }
 
+// K1b's feature inputs, in the wrapper's order (ops/fused_psi.py FEATURES):
+// mult [R, NP] and offset, mult_seg [R, NP, M] and offset, levels
+// [L, NB, S], planes [L, NB, R, S], depth [R, M] (1-based), lag and fa
+// [R, S], init rows [NS, S] or planes [NS, R, S], init mask [R]; nullptr is
+// off. mode: 0 none, 1 row, 2 segment, 3 levels, 4 planes.
+struct Features {
+  const void* p[12];
+  int mode, n_levels;
+};
+
+enum { MODE_NONE = 0, MODE_ROW = 1, MODE_SEGMENT = 2, MODE_LEVELS = 3, MODE_PLANES = 4 };
+
+template <typename T, int CODE>
+__global__ void __launch_bounds__(256) fused_psi_feature_kernel(
+    const T* __restrict__ seg_dt, const T* __restrict__ seg_bolus,
+    const T* __restrict__ seg_rate, const T* __restrict__ obs_mask,
+    const T* __restrict__ obs_value, const T* __restrict__ obs_sigma,
+    const T* __restrict__ obs_cens, const T* __restrict__ obs_outeq,
+    const T* __restrict__ params, const T* __restrict__ coef,
+    const T* __restrict__ bias, T* __restrict__ out, const Features f,
+    int R, int S, int M, int n_out) {
+  using Mdl = Model<T, CODE / 4 + 1, (CODE % 2) == 1, ((CODE / 2) % 2) == 1>;
+  constexpr int NS = Mdl::NS;
+  constexpr int NP = Mdl::NP;
+  constexpr int NB = Mdl::NB;
+  const T LOG_2PI = T(1.8378770664093454836);
+  const T* __restrict__ mult = (const T*)f.p[0];
+  const T* __restrict__ offset = (const T*)f.p[1];
+  const T* __restrict__ mult_seg = (const T*)f.p[2];
+  const T* __restrict__ offset_seg = (const T*)f.p[3];
+  const T* __restrict__ levels = (const T*)f.p[4];
+  const T* __restrict__ planes = (const T*)f.p[5];
+  const T* __restrict__ depth = (const T*)f.p[6];
+  const T* __restrict__ lag = (const T*)f.p[7];
+  const T* __restrict__ fa = (const T*)f.p[8];
+  const T* __restrict__ init_rows = (const T*)f.p[9];
+  const T* __restrict__ init_planes = (const T*)f.p[10];
+  const T* __restrict__ init_mask = (const T*)f.p[11];
+
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= S) return;
+  const bool has_inf = seg_rate != nullptr;
+  const bool has_cens = obs_cens != nullptr;
+  const bool has_lag = lag != nullptr;
+
+  T raw[NP];
+#pragma unroll
+  for (int j = 0; j < NP; ++j) raw[j] = params[(size_t)j * S + s];
+  Mdl mdl;
+  if (f.mode == MODE_NONE) mdl.prepare(raw);
+
+  for (int r = blockIdx.y * blockDim.y + threadIdx.y; r < R;
+       r += gridDim.y * blockDim.y) {
+    T x[NS];
+    const T im = init_mask != nullptr ? init_mask[r] : T(0);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      x[i] = T(0);
+      if (init_rows != nullptr) x[i] = im * init_rows[(size_t)i * S + s];
+      if (init_planes != nullptr) x[i] = im * init_planes[((size_t)i * R + r) * S + s];
+    }
+    if (f.mode == MODE_ROW) {
+      // each row's effective parameters, then the in-kernel CL remap
+      T eff[NP];
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        const size_t k = (size_t)r * NP + j;
+        eff[j] = raw[j] * mult[k] + (offset != nullptr ? offset[k] : T(0));
+      }
+      mdl.prepare(eff);
+    }
+    int cur = 0;  // the chain depth the model is prepared for (0: none)
+    const T lag_rs = has_lag ? lag[(size_t)r * S + s] : T(0);
+    const T fa_rs = fa != nullptr ? fa[(size_t)r * S + s] : T(1);
+    T pend_amt = T(0), pend_rem = T(0);
+    T ll = T(0);
+    const size_t row = (size_t)r * M;
+    for (int m = 0; m < M; ++m) {
+      const size_t i = row + m;
+      // 1. observation before dose: y_k = C_k . x (+ b_k)
+      if (obs_mask[i] > T(0)) {
+        int k = n_out > 1 ? (int)obs_outeq[i] : 0;
+        T pred = T(0);
+        if (k >= 0 && k < n_out) {
+          const T* ck = coef + (size_t)k * NS * S + s;
+          pred = ck[0] * x[0];
+#pragma unroll
+          for (int j = 1; j < NS; ++j) pred = pred + ck[(size_t)j * S] * x[j];
+          if (bias != nullptr) pred = pred + bias[(size_t)k * S + s];
+        }
+        const T sig = obs_sigma[i];
+        const T z = (obs_value[i] - pred) / sig;
+        const T sc = has_cens ? obs_cens[i] : T(0);
+        ll += (sc == T(0))
+                  ? T(-0.5) * LOG_2PI - Fn<T>::log(sig) - T(0.5) * z * z
+                  : log_ndtr(sc * z);
+      }
+      // 2. the bolus (0 on padded slots) scaled by fa; with lag it waits
+      const T bol = seg_bolus[i];
+      const T bol_eff = fa != nullptr ? bol * fa_rs : bol;
+      if (has_lag) {
+        if (bol != T(0)) {
+          pend_amt = bol_eff;
+          pend_rem = lag_rs;
+        }
+      } else {
+        x[0] = x[0] + bol_eff;
+      }
+      // 3. this segment's parameters, then propagate over its span
+      const T dt = seg_dt[i];
+      if (dt > T(0)) {
+        if (f.mode == MODE_SEGMENT) {
+          T eff[NP];
+#pragma unroll
+          for (int j = 0; j < NP; ++j) {
+            const size_t k = ((size_t)r * NP + j) * M + m;
+            eff[j] = raw[j] * mult_seg[k] + (offset_seg != nullptr ? offset_seg[k] : T(0));
+          }
+          mdl.prepare(eff);
+        } else if (f.mode >= MODE_LEVELS) {
+          int d = (int)depth[i];
+          d = d < 1 ? 1 : (d > f.n_levels ? f.n_levels : d);
+          if (d != cur) {
+            T micro[NB];
+#pragma unroll
+            for (int j = 0; j < NB; ++j) {
+              const size_t lj = (size_t)(d - 1) * NB + j;
+              micro[j] = f.mode == MODE_LEVELS ? levels[lj * S + s]
+                                               : planes[(lj * R + r) * S + s];
+            }
+            mdl.prepare(micro, true);
+            cur = d;
+          }
+        }
+        mdl.propagate(x, dt, has_inf ? seg_rate[i] : T(0), has_inf);
+        if (has_lag) {
+          if (pend_amt != T(0) && pend_rem < dt) {
+            // the pending dose fires inside this segment
+            T xd[NS];
+#pragma unroll
+            for (int j = 0; j < NS; ++j) xd[j] = T(0);
+            xd[0] = pend_amt;
+            mdl.propagate(xd, dt - pend_rem, T(0), false);
+#pragma unroll
+            for (int j = 0; j < NS; ++j) x[j] = x[j] + xd[j];
+            pend_amt = T(0);
+            pend_rem = T(0);
+          } else {
+            pend_rem = pend_rem - dt > T(0) ? pend_rem - dt : T(0);
+          }
+        }
+      }
+    }
+    out[(size_t)r * S + s] = ll;
+  }
+}
+
 template <typename T, int CODE>
 cudaError_t launch(const void* const* p, void* out, int R, int S, int M,
                    int n_out, cudaStream_t stream) {
@@ -383,6 +572,43 @@ cudaError_t dispatch(int code, const void* const* p, void* out, int R, int S,
   }
 }
 
+template <typename T, int CODE>
+cudaError_t launch_feature(const void* const* p, void* out, const Features& f,
+                           int R, int S, int M, int n_out, cudaStream_t stream) {
+  if (R <= 0 || S <= 0) return cudaSuccess;
+  const dim3 block(128, 2);
+  const unsigned gx = (unsigned)((S + block.x - 1) / block.x);
+  unsigned gy = (unsigned)((R + block.y - 1) / block.y);
+  if (gy > 65535u) gy = 65535u;
+  fused_psi_feature_kernel<T, CODE><<<dim3(gx, gy), block, 0, stream>>>(
+      (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
+      (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7],
+      (const T*)p[8], (const T*)p[9], (const T*)p[10], (T*)out, f, R, S, M,
+      n_out);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_feature(int code, const void* const* p, void* out,
+                             const Features& f, int R, int S, int M, int n_out,
+                             cudaStream_t st) {
+  switch (code) {
+    case 0: return launch_feature<T, 0>(p, out, f, R, S, M, n_out, st);
+    case 1: return launch_feature<T, 1>(p, out, f, R, S, M, n_out, st);
+    case 2: return launch_feature<T, 2>(p, out, f, R, S, M, n_out, st);
+    case 3: return launch_feature<T, 3>(p, out, f, R, S, M, n_out, st);
+    case 4: return launch_feature<T, 4>(p, out, f, R, S, M, n_out, st);
+    case 5: return launch_feature<T, 5>(p, out, f, R, S, M, n_out, st);
+    case 6: return launch_feature<T, 6>(p, out, f, R, S, M, n_out, st);
+    case 7: return launch_feature<T, 7>(p, out, f, R, S, M, n_out, st);
+    case 8: return launch_feature<T, 8>(p, out, f, R, S, M, n_out, st);
+    case 9: return launch_feature<T, 9>(p, out, f, R, S, M, n_out, st);
+    case 10: return launch_feature<T, 10>(p, out, f, R, S, M, n_out, st);
+    case 11: return launch_feature<T, 11>(p, out, f, R, S, M, n_out, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Launch on `stream`. Pointers: seg_dt, seg_bolus, seg_rate (or null),
@@ -402,6 +628,29 @@ extern "C" int fused_psi_launch(int is_f64, int code, const void* seg_dt,
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = is_f64 ? dispatch<double>(code, p, out, R, S, M, n_out, st)
                            : dispatch<float>(code, p, out, R, S, M, n_out, st);
+  return (int)err;
+}
+
+// K1b: the same pointers as fused_psi_launch, then `features`, the 12
+// feature pointers (null = off) in the order of struct Features, and
+// `ints` = {mode, number of levels or planes}.
+extern "C" int fused_psi_feature_launch(
+    int is_f64, int code, const void* seg_dt, const void* seg_bolus,
+    const void* seg_rate, const void* obs_mask, const void* obs_value,
+    const void* obs_sigma, const void* obs_cens, const void* obs_outeq,
+    const void* params, const void* coef, const void* bias, void* out,
+    const void* const* features, const int* ints, int R, int S, int M,
+    int n_out, void* stream) {
+  const void* p[11] = {seg_dt, seg_bolus, seg_rate, obs_mask, obs_value,
+                       obs_sigma, obs_cens, obs_outeq, params, coef, bias};
+  Features f;
+  for (int i = 0; i < 12; ++i) f.p[i] = features[i];
+  f.mode = ints[0];
+  f.n_levels = ints[1];
+  if (f.mode < MODE_NONE || f.mode > MODE_PLANES) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = is_f64 ? dispatch_feature<double>(code, p, out, f, R, S, M, n_out, st)
+                           : dispatch_feature<float>(code, p, out, f, R, S, M, n_out, st);
   return (int)err;
 }
 

@@ -13,8 +13,9 @@ Parity with LAPKB/pharmsol src/data/covariate.rs:
 
 The host-side objects here are only the authoring surface. For the engine,
 :meth:`Covariates.lower` packs every covariate into padded knot arrays
-(times + values + fixed flags). The PyTorch port lowers them alongside the
-events but does not evaluate covariates in its engines yet.
+(times + values + fixed flags), lowered alongside the events; the engines
+read them through ``engine/grid.py::CovView`` (closed-form models; ODE and
+SDE models refuse covariates so far).
 """
 
 from __future__ import annotations

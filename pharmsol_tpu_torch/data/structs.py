@@ -12,7 +12,9 @@ Parity with LAPKB/pharmsol src/data/structs.rs:
   (structs.rs:155-255).
 
 ``process_events`` with parameter-dependent lag/fa is a host-side oracle,
-kept for API parity; the PyTorch port's engines do not run lag/fa yet.
+kept for API parity; the engines apply lag and fa per support point
+(``engine/grid.py::build_segments``, and the fused kernel's pending-dose
+registers).
 """
 
 from __future__ import annotations

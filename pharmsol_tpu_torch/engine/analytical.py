@@ -2,7 +2,7 @@
 
 Each kernel advances the state over one smooth segment of length ``dt`` with
 constant infusion rate ``rateiv``:  ``x(dt) = A(dt) @ x(0) + forcing(dt)``.
-The signatures are the JAX package's (``pharmsol_tpu.engine.analytical``),
+The signatures are the JAX package's (its ``engine/analytical.py``),
 written for one (state, parameter) pair; the engine evaluates them batched
 over supports and rows through ``torch.func.vmap``.
 

@@ -17,14 +17,16 @@ Breakpoint semantics (parity notes, same as the JAX package):
 - observations read the state at their breakpoint *before* any same-time
   bolus is applied (observation sorts first).
 
-Lag and bioavailability (parameter-dependent breakpoint shifts) are not
-ported yet: the segments here depend only on the data.
+Lag and bioavailability shift and scale boluses per support point
+(structs.rs:611-666): with either, ``build_segments`` sorts every (support,
+row) pair on its own and its streams gain a leading support axis.
+Covariates are read by the model closures through :class:`CovView`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, NamedTuple, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -431,24 +433,162 @@ def to_tensors(rows: OccasionArrays, device, dtype) -> OccasionArrays:
     return OccasionArrays(**out)
 
 
-def build_segments(rows: OccasionArrays, ninput: int) -> Segments:
+class CovView:
+    """Covariate interpolation over one row's padded knot tensors.
+
+    The counterpart of the JAX package's ``engine/grid.py::CovView``
+    (:124-177), parity with covariate.rs: linear between knots, the first
+    value carried backward before the first knot, the last carried forward
+    after the last, carry-forward everywhere for fixed covariates. Written
+    for one row so that it can be rebuilt from per-row knot tensors inside
+    ``torch.func.vmap`` (the engines batch it over rows that way).
+    """
+
+    def __init__(self, knot_t, knot_v, fixed, names: Sequence[str]):
+        self.knot_t = knot_t  # [ncov, K]
+        self.knot_v = knot_v
+        self.fixed = fixed  # [ncov] bool
+        self.names = list(names)
+        self._index = {n: i for i, n in enumerate(self.names)}
+
+    @classmethod
+    def empty(cls, dtype=torch.float64, device=None) -> "CovView":
+        """A view without covariates: reading one raises DataError."""
+        z = torch.zeros((0, 1), dtype=dtype, device=device)
+        return cls(z, z, torch.zeros((0,), dtype=torch.bool, device=device), [])
+
+    def index_of(self, name) -> int:
+        if isinstance(name, (int, np.integer)):
+            return int(name)
+        if name not in self._index:
+            raise DataError(f"unknown covariate `{name}` (have {self.names})")
+        return self._index[name]
+
+    def value(self, name, t):
+        """Interpolated value of covariate ``name`` at time ``t``."""
+        ci = self.index_of(name)
+        ts = self.knot_t[ci]
+        vs = self.knot_v[ci]
+        K = ts.shape[0]
+        t = torch.as_tensor(t, dtype=ts.dtype, device=ts.device)
+        # clamp into the knot range: carries first backward / last forward
+        tc = torch.minimum(torch.maximum(t, ts[0]), ts[K - 1])
+        # rightmost knot <= tc (searchsorted 'right' - 1)
+        idx = torch.clamp((ts <= tc).sum() - 1, 0, K - 1).reshape(1)
+        nxt = torch.clamp(idx + 1, max=K - 1)
+        t0, t1 = ts.gather(0, idx)[0], ts.gather(0, nxt)[0]
+        v0, v1 = vs.gather(0, idx)[0], vs.gather(0, nxt)[0]
+        denom = torch.where(t1 > t0, t1 - t0, torch.ones_like(t1))
+        lin = torch.where(t1 > t0, v0 + (v1 - v0) * (tc - t0) / denom, v0)
+        return torch.where(self.fixed[ci], v0, lin)
+
+    def __call__(self, name, t):
+        return self.value(name, t)
+
+
+def _as_input_vector(value, ninput: int, like: torch.Tensor,
+                     fill: float = 0.0) -> torch.Tensor:
+    """A lag/fa closure's result as a dense [ninput] vector of ``like``'s
+    dtype (JAX ``engine/grid.py:586-603``): a dict {input: value} keeps
+    ``fill`` for absent inputs (the reference's HashMap), else a vector of
+    length ninput."""
+    if value is None:
+        value = [fill] * ninput
+    elif isinstance(value, dict):
+        comps = [fill] * ninput
+        for k, v in value.items():
+            comps[int(k)] = v
+        value = comps
+    if isinstance(value, torch.Tensor):
+        vec = value.to(like.dtype)
+    else:
+        vec = torch.stack([torch.as_tensor(c, dtype=like.dtype, device=like.device)
+                           for c in value])
+    if tuple(vec.shape) != (ninput,):
+        raise DataError(f"lag/fa must return a vector of length {ninput}, "
+                        f"got {tuple(vec.shape)}")
+    return vec
+
+
+def _per_bolus(fn, p, t, rows: OccasionArrays, ninput: int, fill: float,
+               names: Sequence[str]) -> torch.Tensor:
+    """``fn(p[s], t[.., r, b], cov_r)`` for every support s, row r and bolus
+    slot b, as [S, R, NB, ninput]. ``t`` is [R, NB] or [S, R, NB]."""
+    from torch.func import vmap
+
+    def one(pp, tb, kt, kv, kf):
+        return _as_input_vector(fn(pp, tb, CovView(kt, kv, kf, names)),
+                                ninput, pp, fill)
+
+    over_b = vmap(one, in_dims=(None, 0, None, None, None))
+    over_r = vmap(over_b, in_dims=(None, 0, 0, 0, 0))
+    over_s = vmap(over_r, in_dims=(0, 0 if t.dim() == 3 else None,
+                                   None, None, None))
+    return over_s(p, t, rows.cov_t, rows.cov_v, rows.cov_fixed)
+
+
+def build_segments(rows: OccasionArrays, ninput: int,
+                   p: Optional[torch.Tensor] = None,
+                   lag_fn: Optional[Callable] = None,
+                   fa_fn: Optional[Callable] = None,
+                   cov_names: Sequence[str] = ()) -> Segments:
     """Sorted segment streams for every row of ``rows`` (tensors [R, ...]).
+
+    Without ``lag_fn`` and ``fa_fn`` the segments depend on the data only
+    and every stream is [R, ...]. With either (JAX ``engine/grid.py:500-513``)
+    they depend on the support points ``p`` [S, P]: lag is evaluated at each
+    bolus's original time and shifts it, fa at the shifted time and scales
+    its amount, and every stream gains a leading axis S ([S, R, ...]).
+    """
+    if lag_fn is None and fa_fn is None:
+        return _sorted_segments(rows.obs_t, rows.bolus_t, rows.bolus_amt,
+                                rows.bolus_input, rows, ninput)
+    S = p.shape[0]
+    R, NB = rows.bolus_t.shape
+    names = tuple(cov_names)
+    real = rows.bolus_t < BIG_TIME / 2
+    pick = rows.bolus_input.view(1, R, NB, 1).expand(S, R, NB, 1)
+    bolus_t = rows.bolus_t.expand(S, R, NB)
+    if lag_fn is not None:
+        lag = _per_bolus(lag_fn, p, rows.bolus_t, rows, ninput, 0.0, names)
+        shift = lag.gather(3, pick)[..., 0]
+        bolus_t = torch.where(real, rows.bolus_t + shift, rows.bolus_t)
+    bolus_amt = rows.bolus_amt.expand(S, R, NB)
+    if fa_fn is not None:
+        fa = _per_bolus(fa_fn, p, bolus_t, rows, ninput, 1.0, names)
+        bolus_amt = bolus_amt * fa.gather(3, pick)[..., 0]
+
+    def flat(a):
+        return a.expand((S,) + tuple(a.shape)).reshape((S * R,) + tuple(a.shape[1:]))
+
+    flat_rows = rows._replace(inf_t=flat(rows.inf_t), inf_dur=flat(rows.inf_dur),
+                              inf_amt=flat(rows.inf_amt),
+                              inf_input=flat(rows.inf_input))
+    segs = _sorted_segments(flat(rows.obs_t), bolus_t.reshape(S * R, NB),
+                            bolus_amt.reshape(S * R, NB), flat(rows.bolus_input),
+                            flat_rows, ninput)
+    return Segments(*(a.reshape((S, R) + tuple(a.shape[1:])) for a in segs))
+
+
+def _sorted_segments(obs_t, bolus_t, bolus_amt, bolus_input,
+                     rows: OccasionArrays, ninput: int) -> Segments:
+    """The breakpoint sort of :func:`build_segments` on rows [R, ...], with
+    the (possibly shifted and scaled) boluses given apart.
 
     The sort reproduces ``jnp.lexsort((ranks, times))`` of the JAX package:
     a stable sort on rank, then a stable sort on time, so equal times keep
     the rank order (observation before bolus).
     """
-    fd = rows.bolus_t.dtype
-    dev = rows.bolus_t.device
-    bolus_t = rows.bolus_t
+    fd = bolus_t.dtype
+    dev = bolus_t.device
     R, NB = bolus_t.shape
     NI = rows.inf_t.shape[1]
-    NO = rows.obs_t.shape[1]
+    NO = obs_t.shape[1]
     inf_t = rows.inf_t
     inf_valid = inf_t < BIG_TIME / 2
     inf_end = torch.where(inf_valid, inf_t + rows.inf_dur, inf_t)
 
-    times = torch.cat([rows.obs_t, bolus_t, inf_t, inf_end], dim=1)
+    times = torch.cat([obs_t, bolus_t, inf_t, inf_end], dim=1)
     ranks = torch.cat(
         [
             torch.full((R, NO), RANK_OBSERVATION, dtype=torch.int64, device=dev),
@@ -460,10 +600,10 @@ def build_segments(rows: OccasionArrays, ninput: int) -> Segments:
     )
     zeros_o = torch.zeros((R, NO), dtype=fd, device=dev)
     zeros_i = torch.zeros((R, 2 * NI), dtype=fd, device=dev)
-    b_amt_unsorted = torch.cat([zeros_o, rows.bolus_amt, zeros_i], dim=1)
+    b_amt_unsorted = torch.cat([zeros_o, bolus_amt, zeros_i], dim=1)
     b_input_unsorted = torch.cat(
         [torch.zeros((R, NO), dtype=torch.int64, device=dev),
-         rows.bolus_input,
+         bolus_input,
          torch.zeros((R, 2 * NI), dtype=torch.int64, device=dev)],
         dim=1,
     )

@@ -37,8 +37,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch.func import vmap
 
-from .grid import OccasionArrays, build_segments
-from .sim import NO_COVARIATES, as_vector
+from .grid import CovView, OccasionArrays, build_segments
+from .sim import as_vector
 
 EM_RTOL = 1e-2
 EM_ATOL = 1e-2
@@ -81,7 +81,7 @@ def ndtr(x: torch.Tensor) -> torch.Tensor:
 def _batched_closures(spec: SDESpec, dtype, device):
     """drift on [S, R, P, n] clouds, diffusion on [S, R] cells, out on clouds
     and init on supports, each vmapped from the per-particle closure."""
-    n, cov = spec.nstates, NO_COVARIATES
+    n, cov = spec.nstates, CovView.empty()
 
     def drift_one(x, p, t, rateiv):
         return as_vector(spec.drift(x, p, t, rateiv, cov), x).reshape(n)

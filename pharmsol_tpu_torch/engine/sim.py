@@ -27,8 +27,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch.func import vmap
 
-from ..errors import PharmsolError
-from .grid import OccasionArrays, build_segments
+from .grid import CovView, OccasionArrays, build_segments
 
 
 class ModelSpec(NamedTuple):
@@ -41,11 +40,19 @@ class ModelSpec(NamedTuple):
     propagate: Callable
     # out(x, p, t, cov) -> y[nout]
     out: Callable
+    # init(p, t, cov) -> x0[nstates] on occasion 0; None -> zeros
+    init: Optional[Callable] = None
+    # lag/fa: (p, t, cov) -> dict {input: value} or [ninput] vector
+    lag: Optional[Callable] = None
+    fa: Optional[Callable] = None
+    # seq(p, t, cov) -> p (secondary equations; analytical only)
+    seq: Optional[Callable] = None
     # apply_bolus(x, bvec[ninput], p, t, rateiv, cov) -> x ; None -> state add
     apply_bolus: Optional[Callable] = None
-    # hoisted-parameter path: prepare(p, cov) computes parameter-only
-    # quantities once (eigenvalues, ratios); propagate_prepared(aux, x, dt,
-    # rateiv, t0, cov) runs per segment with the dt-dependent work only.
+    # hoisted-parameter path, used when seq is None: prepare(p) computes
+    # parameter-only quantities once (eigenvalues, ratios);
+    # propagate_prepared(aux, x, dt, rateiv, t0, cov) runs per segment with
+    # the dt-dependent work only.
     prepare: Optional[Callable] = None
     propagate_prepared: Optional[Callable] = None
     # ODE: propagate_carry(x [S, R, n], p [S, P], dt [R], rateiv [R, ninput],
@@ -53,22 +60,6 @@ class ModelSpec(NamedTuple):
     # march threads h (the solver's cruise step) across segments, warm-
     # starting each segment's adaptive controller; 0.0 = no history.
     propagate_carry: Optional[Callable] = None
-
-
-class NoCovariates:
-    """The ``cov`` argument of model closures while covariates are not
-    ported: reading one raises."""
-
-    def __call__(self, name, t=None):
-        raise PharmsolError(
-            f"covariate `{name}` read by a model closure: the PyTorch port "
-            "does not support covariates yet"
-        )
-
-    value = __call__
-
-
-NO_COVARIATES = NoCovariates()
 
 
 def default_apply_bolus(nstates: int):
@@ -130,102 +121,149 @@ def simulate_occasion_ll(
     em_kind,
     em_factor,
     em_poly,
+    cov_names=(),
 ) -> torch.Tensor:
     """Fused simulate + log-likelihood of every row at every support point.
 
     ``occ``: OccasionArrays of tensors with a leading row axis R; ``p``:
-    support points [S, n_params]; ``em_*``: lowered error-model tensors.
-    Returns the per-row log-likelihood [S, R]. Math of the JAX package's
-    ``engine/sim.py::simulate_occasion_ll``: the per-observation
-    log-likelihood accumulates in the march, no state history is kept.
+    support points [S, n_params]; ``em_*``: lowered error-model tensors;
+    ``cov_names``: the covariates of ``occ.cov_*``, read by the closures
+    through a per-row :class:`~.grid.CovView`. Returns the per-row
+    log-likelihood [S, R]. Math of the JAX package's
+    ``engine/sim.py::simulate_occasion_ll`` (:326-399): init on occasion 0,
+    the seq chain (parameters reset at real events, compound across
+    infusion-end sub-splits), lag and fa through the per-support segments;
+    the per-observation log-likelihood accumulates in the march, no state
+    history is kept.
     """
     from ..likelihood.distributions import LOG_2PI
     from ..likelihood.loglik import observation_sigmas
 
     fd = p.dtype
-    cov = NO_COVARIATES
-    segs = build_segments(occ, spec.ninput)
-    R, M = segs.t.shape
+    names = tuple(cov_names)
+    lagged = spec.lag is not None or spec.fa is not None
+    segs = build_segments(occ, spec.ninput, p, spec.lag, spec.fa, names)
     S = p.shape[0]
+    R = occ.obs_t.shape[0]
+    M = segs.t.shape[-1]
+    sd = 0 if lagged else None  # support axis of the segment streams
+    kt, kv, kf = occ.cov_t, occ.cov_v, occ.cov_fixed
+
+    def cells(fn, s_dims, r_dims):
+        # vmap over rows (inner) and supports (outer); the row's covariate
+        # knots are always the last three arguments
+        return vmap(vmap(fn, in_dims=r_dims + (0, 0, 0)),
+                    in_dims=s_dims + (None, None, None))
+
+    def sr(a):  # a per-(support, row) or per-row [.., R] flag as [S|1, R, 1]
+        return (a if a.dim() == 2 else a.unsqueeze(0)).unsqueeze(-1)
 
     # per-segment observation payload, scattered to sorted positions
     sigma_obs, active_obs = observation_sigmas(occ, em_kind, em_factor, em_poly)
     pos = segs.obs_pos
-    seg_sigma = torch.ones_like(segs.t).scatter(1, pos, sigma_obs)
-    seg_active = torch.zeros_like(segs.is_event).scatter(1, pos, active_obs)
-    seg_value = torch.zeros_like(segs.t).scatter(1, pos, occ.obs_value)
-    seg_cens = torch.zeros_like(segs.b_input).scatter(1, pos, occ.obs_cens)
-    seg_outeq = torch.zeros_like(segs.b_input).scatter(1, pos, occ.obs_outeq)
+
+    def scatter(base, src):
+        return base.scatter(-1, pos, src.expand(pos.shape))
+
+    seg_sigma = scatter(torch.ones_like(segs.t), sigma_obs)
+    seg_active = scatter(torch.zeros_like(segs.is_event), active_obs)
+    seg_value = scatter(torch.zeros_like(segs.t), occ.obs_value)
+    seg_cens = scatter(torch.zeros_like(segs.b_input), occ.obs_cens)
+    seg_outeq = scatter(torch.zeros_like(segs.b_input), occ.obs_outeq)
 
     nout, ninput = spec.nout, spec.ninput
 
-    def out_one(x, pp, t):
-        y = spec.out(x, pp, t, cov)
+    def out_one(x, pp, t, *knots):
+        y = spec.out(x, pp, t, CovView(*knots, names))
         if not isinstance(y, torch.Tensor):
             y = torch.as_tensor(y, dtype=fd)
         return y.to(fd).reshape(nout)
 
     apply_bolus = spec.apply_bolus or default_apply_bolus(spec.nstates)
 
-    def bolus_one(x, bvec, pp, t, rateiv):
-        return apply_bolus(x, bvec, pp, t, rateiv, cov).to(fd)
+    def bolus_one(x, bvec, pp, t, rateiv, *knots):
+        return apply_bolus(x, bvec, pp, t, rateiv, CovView(*knots, names)).to(fd)
 
-    # vmap over rows (inner) and supports (outer): x is [S, R, n], p [S, P],
-    # per-row quantities [R, ...]
-    out_b = vmap(vmap(out_one, in_dims=(0, None, 0)), in_dims=(0, 0, None))
-    bolus_b = vmap(vmap(bolus_one, in_dims=(0, 0, None, 0, 0)),
-                   in_dims=(0, None, 0, None, None))
-    # per-support propagation state: the prepared aux, else the parameters;
-    # the ODE stepper is batched already and takes neither
+    out_b = cells(out_one, (0, 0, sd), (0, None, 0))
+    bolus_b = cells(bolus_one, (0, sd, 0, sd, sd), (0, 0, None, 0, 0))
+    seq = spec.seq
     use_carry = spec.propagate_carry is not None
-    if not use_carry:
-        if spec.prepare is not None:
-            aux = vmap(lambda pp: spec.prepare(pp, cov))(p)
+    use_prepared = spec.prepare is not None and seq is None
+    if use_prepared:
+        aux = vmap(spec.prepare)(p)
 
-            def prop_one(a, x, dt, rateiv, t):
-                return spec.propagate_prepared(a, x, dt, rateiv, t, cov).to(fd)
-        else:
-            aux = p
+        def prop_one(a, x, dt, rateiv, t, *knots):
+            return spec.propagate_prepared(a, x, dt, rateiv, t,
+                                           CovView(*knots, names)).to(fd)
 
-            def prop_one(pp, x, dt, rateiv, t):
-                return spec.propagate(x, pp, dt, rateiv, t, cov).to(fd)
+        prop_b = cells(prop_one, (0, 0, sd, sd, sd), (None, 0, 0, 0, 0))
+    elif not use_carry:
+        def prop_one(pp, x, dt, rateiv, t, *knots):
+            return spec.propagate(x, pp, dt, rateiv, t, CovView(*knots, names)).to(fd)
 
-        prop_b = vmap(vmap(prop_one, in_dims=(None, 0, 0, 0, 0)),
-                      in_dims=(0, 0, None, None, None))
+        # with seq the parameters are per (support, row): p_seg [S, R, P]
+        prop_b = cells(prop_one, (0, 0, sd, sd, sd),
+                       (0 if seq is not None else None, 0, 0, 0, 0))
+    if seq is not None:
+        def seq_one(pp, t, *knots):
+            return as_vector(seq(pp, t, CovView(*knots, names)), pp)
+
+        seq_b = cells(seq_one, (0, sd), (0, 0))
+        p_cur = p.unsqueeze(1).expand(S, R, p.shape[1])
 
     x = torch.zeros((S, R, spec.nstates), dtype=fd, device=p.device)
+    if spec.init is not None:
+        t_zero = torch.zeros((), dtype=fd, device=p.device)
+
+        def init_one(pp, *knots):
+            return as_vector(spec.init(pp, t_zero, CovView(*knots, names)),
+                             pp).reshape(spec.nstates)
+
+        x0 = cells(init_one, (0,), (None,))(p, kt, kv, kf)
+        x = x + occ.init_mask.to(fd).view(1, R, 1) * x0
     ll = torch.zeros((S, R), dtype=fd, device=p.device)
     sc = torch.zeros((S, R), dtype=fd, device=p.device)  # carried ODE step
     zero = torch.zeros((), dtype=fd, device=p.device)
+    empty = CovView.empty(fd, p.device)
     for m in range(M):
-        t = segs.t[:, m]
-        dt = segs.dt[:, m]
-        rateiv = segs.rateiv[:, m]
+        t = segs.t[..., m]
+        dt = segs.dt[..., m]
+        rateiv = segs.rateiv[..., m, :]
         # observation before bolus (pre-dose state)
-        y_all = out_b(x, p, t)  # [S, R, nout]
-        idx = seg_outeq[:, m].view(1, R, 1).expand(S, R, 1)
+        y_all = out_b(x, p, t, kt, kv, kf)  # [S, R, nout]
+        idx = seg_outeq[..., m].expand(S, R).unsqueeze(-1)
         pred = torch.gather(y_all, 2, idx)[..., 0]
-        sigma = seg_sigma[:, m]
-        z = (seg_value[:, m] - pred) / sigma
+        sigma = seg_sigma[..., m]
+        z = (seg_value[..., m] - pred) / sigma
         ll_none = -0.5 * LOG_2PI - torch.log(sigma) - 0.5 * z * z
-        cens = seg_cens[:, m]
+        cens = seg_cens[..., m]
         ll_obs = torch.where(
             cens == 1, torch.special.log_ndtr(z),
             torch.where(cens == 2, torch.special.log_ndtr(-z), ll_none),
         )
-        ll = ll + torch.where(seg_active[:, m], ll_obs, zero)
+        ll = ll + torch.where(seg_active[..., m], ll_obs, zero)
 
-        b_amt = segs.b_amt[:, m]
-        bvec = torch.nn.functional.one_hot(segs.b_input[:, m], ninput).to(fd)
-        bvec = bvec * b_amt[:, None]
-        x_dosed = bolus_b(x, bvec, p, t, rateiv)
-        x = torch.where((b_amt != 0.0).view(1, R, 1), x_dosed, x)
+        b_amt = segs.b_amt[..., m]
+        bvec = torch.nn.functional.one_hot(segs.b_input[..., m], ninput).to(fd)
+        bvec = bvec * b_amt.unsqueeze(-1)
+        x_dosed = bolus_b(x, bvec, p, t, rateiv, kt, kv, kf)
+        x = torch.where(sr(b_amt != 0.0), x_dosed, x)
 
-        has_span = (dt > 0.0).view(1, R)
+        has_span = sr(dt > 0.0)
         if use_carry:
-            x_prop, sc_new = spec.propagate_carry(x, p, dt, rateiv, t, cov, sc)
-            sc = torch.where(has_span, sc_new, sc)
+            x_prop, sc_new = spec.propagate_carry(x, p, dt, rateiv, t, empty, sc)
+            sc = torch.where(has_span[..., 0], sc_new, sc)
+        elif use_prepared:
+            x_prop = prop_b(aux, x, dt, rateiv, t, kt, kv, kf)
+        elif seq is not None:
+            # p_base resets to the support point at real events and carries
+            # across infusion-end sub-splits; spanned segments apply seq at
+            # the segment's end (JAX engine/sim.py:374-380)
+            p_base = torch.where(sr(segs.is_event[..., m]), p.unsqueeze(1), p_cur)
+            p_seg = seq_b(p_base, t + dt, kt, kv, kf)
+            p_cur = torch.where(has_span, p_seg, p_base)
+            x_prop = prop_b(p_cur, x, dt, rateiv, t, kt, kv, kf)
         else:
-            x_prop = prop_b(aux, x, dt, rateiv, t)
-        x = torch.where(has_span[..., None], x_prop, x)
+            x_prop = prop_b(p, x, dt, rateiv, t, kt, kv, kf)
+        x = torch.where(has_span, x_prop, x)
     return ll

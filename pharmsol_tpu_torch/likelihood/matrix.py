@@ -118,19 +118,27 @@ def _general_psi(equation, grid, sp, lowered, device, dtype) -> torch.Tensor:
     from ..engine.sde import simulate_occasion_sde_ll
     from ..engine.sim import simulate_occasion_ll
 
+    kind_name = getattr(equation, "kind", None)
+    if grid.cov_names and kind_name in ("ode", "sde"):
+        raise PharmsolError(
+            f"the PyTorch port does not support covariates for {kind_name.upper()} "
+            f"models yet (data carries {', '.join(grid.cov_names)}); closed-form "
+            "models take them"
+        )
     rows = _device_rows(grid, device, dtype)
     p = torch.as_tensor(sp).to(device=device, dtype=dtype)
     kind = torch.as_tensor(np.asarray(lowered.kind, dtype=np.int64), device=device)
     factor = torch.as_tensor(lowered.factor).to(device=device, dtype=dtype)
     poly = torch.as_tensor(lowered.poly).to(device=device, dtype=dtype)
-    if getattr(equation, "kind", None) == "sde":
+    if kind_name == "sde":
         # every call draws from a generator seeded by the model: one seed,
         # one psi
         gen = torch.Generator(device=device)
         gen.manual_seed(equation._seed)
         ll = simulate_occasion_sde_ll(equation.spec, rows, p, kind, factor, poly, gen)
     else:
-        ll = simulate_occasion_ll(equation.spec, rows, p, kind, factor, poly)  # [S, R]
+        ll = simulate_occasion_ll(equation.spec, rows, p, kind, factor, poly,
+                                  grid.cov_names)  # [S, R]
     row_subject = torch.as_tensor(
         np.asarray(grid.row_subject, dtype=np.int64), device=device)
     psi = torch.zeros((grid.n_subjects, sp.shape[0]), dtype=dtype, device=device)
@@ -157,7 +165,9 @@ def log_likelihood_matrix(
     module docstring). The closed-form kernel supports every built-in
     structure with outputs linear in the state (support columns = kernel
     params, then the out closure's parameters), bolus/infusion regimens into
-    input 0, censoring and errorpoly overrides. The ODE kernel supports
+    input 0, censoring and errorpoly overrides, and covariates through the
+    secondary equations, lag, fa and init (``plans/analytical.py`` names
+    what it refuses). The ODE kernel supports
     dopri5 and tsit5, doses into any input, linear outputs and censoring, for
     every RHS the CUDA generator accepts (``ops/rhs_codegen.py``). The SDE
     kernel supports stratified resampling, doses into any input (and their
@@ -178,11 +188,6 @@ def log_likelihood_matrix(
     if sp.ndim != 2:
         raise PharmsolError("support_points must be 2D [n_support, n_params]")
     grid = equation.lower(data.subjects())
-    if grid.cov_names:
-        raise PharmsolError(
-            f"the PyTorch port does not support covariates yet (data carries "
-            f"{', '.join(grid.cov_names)})"
-        )
     lowered = error_models.lower(equation.resolve_output_label, equation.nouteqs())
     check_error_model_coverage(grid, lowered)
 

@@ -1,22 +1,62 @@
-"""Fused analytical psi plan (``_FusedPsiPlan``), base tier.
+"""Fused analytical psi plan (``_FusedPsiPlan``): base and feature tiers.
 
 The counterpart of the JAX package's ``likelihood/plans/analytical.py::
-_PallasPsiPlan`` for models without covariates, seq, lag, fa or init: it
-validates the model against the kernel's scope, builds the segment streams
-and the linear output coefficients on the host, moves them to the device,
-runs :func:`~pharmsol_tpu_torch.ops.fused_psi.psi_analytical` and sums the
-occasion rows into subjects on the device.
+_PallasPsiPlan`` (:81-684). It validates the model against the kernel's
+scope, builds the segment streams, the linear output coefficients and the
+feature inputs on the host, moves them to the device, runs
+:func:`~pharmsol_tpu_torch.ops.fused_psi.psi_analytical` and sums the
+occasion rows into subjects on the device. A model without seq, lag, fa or
+init runs kernel K1a; any of them runs kernel K1b:
 
-Every shape is passed as it is: the kernel takes ragged R and S, so there is
-no row or support padding, and the working dtype is kept (no forced f32).
+- init: per-support initial states, or per-(row, support) planes when the
+  init equation reads covariates;
+- seq, cheapest tier first (``plans/seq.py``): per-row affine factors
+  (``row`` mode), per-segment affine factors (``segment``), chain-depth
+  level tables (``levels``), per-(row, support) planes or segment-indexed
+  planes (``planes``);
+- lag and fa that are static in time: per-(row, support) planes.
+
+What needs kernel K1c (not ported) raises PharmsolError with the reason and
+``engine='auto'`` records it and takes the general engine: a lag or fa that
+changes with time or reads a time-varying covariate, lag combined with a
+seq chain deeper than one, and lag combined with a time-varying or
+time-dependent seq. Lag with per-segment streams, overlapping and negative
+lags raise as in the JAX plan.
+
+Every shape is passed as it is: the kernels take ragged R and S, so there is
+no row or support padding, and the working dtype is kept.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.func import vmap
 
+from ...config import BIG_TIME
 from ...errors import PharmsolError
+from .decompose import (
+    F64,
+    _InputPlaneDynamic,
+    _RowCov,
+    _check_out_covariate_free,
+    _classify_covariates,
+    _constant_covariate_values,
+    _covariate_values_at,
+    _decompose_input_plane,
+    _t64,
+    _validate_lag_no_overlap,
+)
+from .seq import (
+    _decompose_seq,
+    _decompose_seq_levels,
+    _decompose_seq_planes,
+    _decompose_seq_segplanes,
+    _decompose_seq_tv,
+    _seq_depth_stream,
+)
+
+_K1C = "kernel K1c, not ported yet — use the general engine"
 
 
 def _fused_structure_name(equation) -> str:
@@ -40,18 +80,78 @@ def _fused_structure_name(equation) -> str:
     )
 
 
+def _init_states(equation, sp, grid, n_states: int):
+    """The init equation as (init_rows [n_states, S] or None, init_planes
+    [n_states, R, S] or None) (JAX :108-194): one row per support when init
+    reads no covariate, else exact planes per (row, support) at t = 0."""
+    from ...engine.sim import as_vector
+
+    init_fn = equation._init
+    cov_vals0 = _classify_covariates(grid)[0] if grid.cov_names else {}
+    icov0 = {n: float(np.asarray(v)[0]) for n, v in cov_vals0.items()}
+    icov1 = {n: v * 1.31 + 0.17 for n, v in icov0.items()}
+    sp_t = _t64(sp)
+    t0 = torch.tensor(0.0, dtype=F64)
+
+    def init_at(covd):
+        return vmap(lambda p: as_vector(init_fn(p, t0, _RowCov(covd)), p))(sp_t).numpy()
+
+    try:
+        i_ref = init_at(icov0)
+        i_cov = init_at(icov1) if icov0 else i_ref
+    except PharmsolError:
+        raise
+    except Exception as e:
+        raise PharmsolError(f"engine='fused' could not probe the init equation: {e}") from e
+    if not np.all(np.isfinite(i_ref)):
+        raise PharmsolError("engine='fused' init probe produced non-finite values")
+    if i_ref.shape[1] != n_states:
+        raise PharmsolError(
+            f"engine='fused' expects init to return {n_states} states, got "
+            f"{i_ref.shape[1]}"
+        )
+    iscale = np.maximum(np.abs(i_ref).max(), 1e-12)
+    if not (icov0 and np.abs(i_cov - i_ref).max() > 1e-6 * iscale):
+        return (i_ref.T.copy() if np.any(i_ref != 0.0) else None), None
+    # covariate-dependent init: exact per (row, support) at t = 0
+    cov_at0 = _covariate_values_at(grid, 0.0)
+    names = tuple(grid.cov_names)
+    cov_mat = _t64(np.stack([cov_at0[n] for n in names], axis=1))  # [R, ncov]
+
+    def init_row(cv):
+        covd = {n: cv[i] for i, n in enumerate(names)}
+        return vmap(lambda p: as_vector(init_fn(p, t0, _RowCov(covd)), p))(sp_t)
+
+    try:
+        planes = vmap(init_row)(cov_mat).numpy()  # [R, S, n_states]
+    except PharmsolError:
+        raise
+    except Exception as e:
+        raise PharmsolError(
+            f"engine='fused' could not evaluate the covariate-dependent init per "
+            f"row: {e}") from e
+    if not np.all(np.isfinite(planes)):
+        raise PharmsolError(
+            "engine='fused' covariate-dependent init produced non-finite values")
+    if not np.any(planes != 0.0):
+        return None, None
+    return None, np.ascontiguousarray(np.transpose(planes, (2, 0, 1)))
+
+
 class _FusedPsiPlan:
     """Validated device inputs for one fused psi evaluation.
 
-    Raises PharmsolError when the model is outside the kernel's scope; the
+    Raises PharmsolError when the model is outside the kernels' scope; the
     caller (``engine='auto'``) then takes the general engine and records
-    the reason.
+    the reason. ``mode`` is K1b's parameter mode (None, ``row``,
+    ``segment``, ``levels``, ``planes``); ``features`` holds the feature
+    inputs on the device (all None: kernel K1a).
     """
 
     def __init__(self, equation, grid, sp, lowered, device, dtype):
-        from ...engine.sim import NO_COVARIATES
+        from ...engine.grid import CovView
         from ...ops.fused_psi import (
-            STRUCTURES, extract_linear_out, streams_from_grid,
+            FEATURES, STRUCTURES, extract_linear_out, streams_from_grid,
         )
 
         if getattr(equation, "kind", None) != "analytical":
@@ -61,23 +161,64 @@ class _FusedPsiPlan:
         self.structure = _fused_structure_name(equation)
         sdef = STRUCTURES[self.structure]
         n_kernel_params = sdef["n_params"]
+        n_states = sdef["n_states"]
         if sp.shape[1] < n_kernel_params:
             raise PharmsolError(
                 f"engine='fused' with `{self.structure}` needs support columns "
                 f"[{n_kernel_params} kernel params..., out params...], got "
                 f"{sp.shape[1]} columns"
             )
-        if grid.cov_names:
-            raise PharmsolError(
-                "the PyTorch port does not support covariates yet"
-            )
-        self.n_out = int(equation.nouteqs())
-        n_states = sdef["n_states"]
         if int(equation.nstates()) != n_states:
             raise PharmsolError(
                 f"engine='fused' with `{self.structure}` expects nstates="
                 f"{n_states}, got {equation.nstates()}"
             )
+        self.n_out = int(equation.nouteqs())
+        f = dict.fromkeys(FEATURES)
+        if equation._init is not None:
+            f["init_rows"], f["init_planes"] = _init_states(equation, sp, grid, n_states)
+
+        # the lag probe first: an active lag changes which seq tiers hold
+        ninput = int(equation.ndrugs())
+        lag_probe = None
+        lag_active = False
+        if equation._lag is not None:
+            try:
+                lag_probe = _decompose_input_plane(equation._lag, sp, grid, ninput,
+                                                   0.0, "lag")
+            except _InputPlaneDynamic as e:
+                raise PharmsolError(f"{e} (per-dose-segment lag planes are {_K1C})") from e
+            lag_active = bool(np.any(lag_probe != 0.0))
+        cov_values = {}
+        mode = None
+        if equation._seq is not None:
+            mode, cov_values = self._seq_tier(equation, sp, grid, sdef, lag_active, f)
+        if lag_active:
+            if mode == "segment":
+                raise PharmsolError(
+                    "engine='fused' does not support lag together with "
+                    "per-segment seq streams (a lag-shifted dose adds a seq-reset "
+                    "breakpoint the host-side affine chain cannot express) — use "
+                    "the general engine"
+                )
+            _validate_lag_no_overlap(lag_probe, grid)
+            f["lag_plane"] = lag_probe
+        if equation._fa is not None:
+            try:
+                fp = _decompose_input_plane(equation._fa, sp, grid, ninput, 1.0, "fa")
+            except _InputPlaneDynamic as e:
+                raise PharmsolError(f"{e} (per-dose-segment fa planes are {_K1C})") from e
+            if np.any(fp != 1.0):
+                f["fa_plane"] = fp
+        if grid.cov_names and equation._out is not None:
+            # covariates act through seq only: out() must be support-only
+            # for the per-support output coefficients to hold
+            if not cov_values:
+                cov_v3 = np.asarray(grid.rows.cov_v, dtype=np.float64)
+                cov_values = {n: cov_v3[:, c, 0] for c, n in enumerate(grid.cov_names)}
+            _check_out_covariate_free(equation, sp, cov_values, n_states)
+        self.mode = mode
+
         try:
             streams = streams_from_grid(grid.rows, lowered)
         except ValueError as e:
@@ -85,14 +226,17 @@ class _FusedPsiPlan:
         self.R, self.M = streams[0].shape
         self.S = sp.shape[0]
         self.device, self.dtype = device, dtype
+        if f["init_rows"] is not None or f["init_planes"] is not None:
+            f["init_mask"] = np.asarray(grid.rows.init_mask, np.float64).reshape(-1)
 
         # output coefficients: y_k = C_k(p) . x + b_k(p), per support point,
-        # extracted on the host in float64
+        # extracted on the host in float64 with the first row's covariates
         out_fn = equation._out or (lambda x, p, t, cov: x[: self.n_out])
+        cov0 = CovView(_t64(grid.rows.cov_t[0]), _t64(grid.rows.cov_v[0]),
+                       torch.as_tensor(np.asarray(grid.rows.cov_fixed[0]).astype(bool)),
+                       grid.cov_names)
         try:
-            C, b = extract_linear_out(
-                out_fn, sp, n_states, self.n_out, NO_COVARIATES
-            )
+            C, b = extract_linear_out(out_fn, sp, n_states, self.n_out, cov0)
         except PharmsolError:
             raise
         except Exception as e:
@@ -120,20 +264,100 @@ class _FusedPsiPlan:
         self.support = dev(sp)
         self.out_coef = dev(np.transpose(C, (1, 2, 0)))  # [n_out, n_states, S]
         self.out_bias = dev(b.T) if np.any(b) else None
+        self.features = {k: (None if v is None else dev(v)) for k, v in f.items()}
         self.row_subject = torch.as_tensor(
             np.asarray(grid.row_subject, dtype=np.int64), device=device)
         self.n_subjects = grid.n_subjects
+
+    def _seq_tier(self, equation, sp, grid, sdef, lag_active, f):
+        """Pick the cheapest seq tier that holds (JAX :229-352); fills ``f``
+        and returns (mode, the per-row covariate values it read)."""
+        seq = equation._seq
+        k = sdef["n_params"]
+        cov_values = {}
+        affine_err = None
+        if sdef["eigs"] is None:
+            # affine tiers: 1- and 2-compartment structures, as in the JAX
+            # plan (its 3-compartment eigen preparation ran per support)
+            has_real_inf = bool(np.any(np.asarray(grid.rows.inf_t) < BIG_TIME / 2))
+            cov_v = np.asarray(grid.rows.cov_v, dtype=np.float64)
+            time_varying = bool(grid.cov_names and cov_v.ndim == 3
+                                and not np.all(cov_v == cov_v[..., :1]))
+            try:
+                if time_varying or has_real_inf:
+                    # per-segment factors carry time-varying covariates and
+                    # the compounding across infusion-end sub-splits; an
+                    # active lag moves the resets, which they cannot express
+                    if not lag_active:
+                        f["param_mult_seg"], f["param_offset_seg"] = _decompose_seq_tv(
+                            seq, sp, grid, k)
+                        return "segment", cov_values
+                else:
+                    cov_values = (_constant_covariate_values(grid)
+                                  if grid.cov_names else {})
+                    try:
+                        f["param_mult"], f["param_offset"] = _decompose_seq(
+                            seq, sp, cov_values, k, n_rows_total=grid.n_rows)
+                        return "row", cov_values
+                    except PharmsolError as e:
+                        if "time-independent" not in str(e) or lag_active:
+                            raise
+                        # time-dependent but maybe affine: per-segment factors
+                        f["param_mult_seg"], f["param_offset_seg"] = _decompose_seq_tv(
+                            seq, sp, grid, k)
+                        return "segment", cov_values
+            except PharmsolError as e:
+                affine_err = e
+        # covariate-free time-independent seq of any form: chain-depth levels
+        try:
+            table, stream = _decompose_seq_levels(seq, sp, grid, sdef, k,
+                                                  lag_mode=lag_active)
+            key, mode = "param_levels", "levels"
+        except PharmsolError as level_err:
+            # time-constant covariates in any form: per-(row, support) planes
+            try:
+                table, stream = _decompose_seq_planes(seq, sp, grid, sdef, k,
+                                                      lag_mode=lag_active)
+                key, mode = "param_planes", "planes"
+            except PharmsolError as plane_err:
+                if lag_active:
+                    raise PharmsolError(
+                        "engine='fused': lag combined with a time-varying or "
+                        f"time-dependent seq needs per-column planes and a split "
+                        f"march, {_K1C} ({affine_err or plane_err or level_err})"
+                    ) from plane_err
+                # seq reading t or a time-varying covariate in any form:
+                # exact segment-indexed planes
+                try:
+                    table, stream = _decompose_seq_segplanes(seq, sp, grid, sdef, k)
+                except PharmsolError:
+                    raise affine_err or plane_err or level_err
+                key, mode = "param_planes", "planes"
+        if lag_active and table.shape[0] > 1:
+            raise PharmsolError(
+                "engine='fused': lag combined with a seq chain deeper than one "
+                "(infusion-end compounding) needs the in-kernel depth counter, "
+                f"{_K1C}"
+            )
+        if lag_active:
+            # depth 1 everywhere: the reset a lag-shifted dose moves is a
+            # no-op, so the plain depth stream holds
+            stream, _ = _seq_depth_stream(grid)
+        f[key], f["seg_depth"] = table, stream
+        return mode, cov_values
+
+    def kernel_kwargs(self) -> dict:
+        """The keyword arguments of ``psi_analytical`` besides the streams
+        and the support."""
+        return dict(structure=self.structure, obs_outeq=self.outeq,
+                    out_coef=self.out_coef, out_bias=self.out_bias, **self.features)
 
     def run(self) -> torch.Tensor:
         """psi [n_subjects, S] on the plan's device."""
         from ...ops.fused_psi import psi_analytical
 
-        psi_rows = psi_analytical(
-            *self.streams, self.support, structure=self.structure,
-            obs_outeq=self.outeq, out_coef=self.out_coef,
-            out_bias=self.out_bias,
-        )
-        return self.finalize(psi_rows)
+        return self.finalize(psi_analytical(*self.streams, self.support,
+                                            **self.kernel_kwargs()))
 
     def finalize(self, psi_rows: torch.Tensor) -> torch.Tensor:
         """Sum occasion rows [R, S] into subjects [n_subjects, S]."""

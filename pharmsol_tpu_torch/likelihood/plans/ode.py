@@ -135,7 +135,7 @@ class _FusedOdePsiPlan:
 
     def __init__(self, equation, grid, sp, lowered, device, dtype):
         from ...engine.ode import TABLEAUS
-        from ...engine.sim import NO_COVARIATES
+        from ...engine.grid import CovView
         from ...ops.fused_psi import extract_linear_out, streams_from_grid
         from ...ops.rhs_codegen import generate_rhs
 
@@ -180,7 +180,7 @@ class _FusedOdePsiPlan:
         out_fn = equation._out or (lambda x, p, t, cov: x[: self.n_out])
         try:
             C, b = extract_linear_out(out_fn, sp, n_states, self.n_out,
-                                      NO_COVARIATES)
+                                      CovView.empty())
         except PharmsolError:
             raise
         except Exception as e:

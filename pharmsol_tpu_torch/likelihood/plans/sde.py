@@ -39,7 +39,8 @@ class _FusedSdePsiPlan:
     def __init__(self, equation, grid, sp, lowered, device, dtype):
         from torch.func import vmap
 
-        from ...engine.sim import NO_COVARIATES, as_vector
+        from ...engine.grid import CovView
+        from ...engine.sim import as_vector
         from ...ops.fused_psi import extract_linear_out
         from ...ops.fused_sde import check_particle_count
         from ...ops.rhs_codegen import generate_sde
@@ -101,7 +102,7 @@ class _FusedSdePsiPlan:
         if spec.init is not None:
             try:
                 t0 = torch.zeros((), dtype=torch.float64)
-                init = vmap(lambda p: as_vector(spec.init(p, t0, NO_COVARIATES), p)
+                init = vmap(lambda p: as_vector(spec.init(p, t0, CovView.empty()), p)
                             .reshape(n_states))(torch.as_tensor(sp, dtype=torch.float64))
             except PharmsolError:
                 raise
@@ -114,7 +115,7 @@ class _FusedSdePsiPlan:
                 raise PharmsolError("engine='fused' SDE init gave non-finite values")
 
         try:
-            C, b = extract_linear_out(spec.out, sp, n_states, self.n_out, NO_COVARIATES)
+            C, b = extract_linear_out(spec.out, sp, n_states, self.n_out, CovView.empty())
         except PharmsolError:
             raise
         except Exception as e:

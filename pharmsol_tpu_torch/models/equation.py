@@ -192,12 +192,14 @@ class EquationBase:
 class Analytical(EquationBase):
     """Closed-form analytical equation family.
 
-    Parity: analytical/mod.rs and the JAX package's ``Analytical``.
-    ``eq(x, p, dt, rateiv, cov) -> x`` advances one smooth segment;
-    ``out(x, p, t, cov) -> y`` maps the state to the outputs.
-
-    Secondary (seq), lag, bioavailability (fa) and init equations are part of
-    the signature but not of the port yet: passing one raises.
+    Parity: analytical/mod.rs and the JAX package's ``Analytical``
+    (``models/equation.py:531-623``). ``eq(x, p, dt, rateiv, cov) -> x``
+    advances one smooth segment; ``out(x, p, t, cov) -> y`` maps the state to
+    the outputs. ``seq_eq(p, t, cov) -> p`` (secondary equations) accumulates
+    within an inter-event span and resets at events; ``lag`` and ``fa``
+    ``(p, t, cov) -> {input: value}`` (or a [ninput] vector) shift and scale
+    boluses; ``init(p, t, cov) -> x0`` sets the state of occasion 0. Every
+    closure reads covariates through ``cov(name, t)``.
     """
 
     kind = "analytical"
@@ -214,9 +216,12 @@ class Analytical(EquationBase):
         ndrugs: int = 5,
         nout: int = 5,
     ):
-        _raise_unported(seq=seq_eq, lag=lag, fa=fa, init=init)
         super().__init__(nstates, ndrugs, nout)
         self._eq = eq
+        self._seq = seq_eq
+        self._lag = lag
+        self._fa = fa
+        self._init = init
         self._out = out
 
     def _model_kind(self) -> ModelKind:
@@ -228,17 +233,14 @@ class Analytical(EquationBase):
         def propagate(x, p, dt, rateiv, t0, cov):
             return eq(x, p, dt, rateiv, cov)
 
-        # built-in kernels use the hoisted prepare/apply split: eigen
-        # decompositions leave the segment march
+        # built-in kernels without secondary equations use the hoisted
+        # prepare/apply split: eigen decompositions leave the segment march
         prepare = propagate_prepared = None
         from ..engine.analytical import PREPARED_BY_FN
 
-        pair = PREPARED_BY_FN.get(eq)
+        pair = PREPARED_BY_FN.get(eq) if self._seq is None else None
         if pair is not None:
-            prep_fn, apply_fn = pair
-
-            def prepare(p, cov):
-                return prep_fn(p)
+            prepare, apply_fn = pair
 
             def propagate_prepared(aux, x, dt, rateiv, t0, cov):
                 return apply_fn(aux, x, dt, rateiv)
@@ -250,6 +252,10 @@ class Analytical(EquationBase):
             nout=self._nout,
             propagate=propagate,
             out=out,
+            init=self._init,
+            lag=self._lag,
+            fa=self._fa,
+            seq=self._seq,
             apply_bolus=default_apply_bolus(self._nstates),
             prepare=prepare,
             propagate_prepared=propagate_prepared,

@@ -216,6 +216,10 @@ def load_library() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.fused_psi_launch.argtypes = [ci, ci] + [vp] * 12 + [ci] * 4 + [vp]
     lib.fused_psi_launch.restype = ci
+    # K1b: the base pointers, then an array of the 12 feature pointers and
+    # one of 2 ints (mode, levels)
+    lib.fused_psi_feature_launch.argtypes = [ci, ci] + [vp] * 14 + [ci] * 4 + [vp]
+    lib.fused_psi_feature_launch.restype = ci
     lib.fused_psi_error_string.argtypes = [ci]
     lib.fused_psi_error_string.restype = ctypes.c_char_p
     _LIB = lib

@@ -254,11 +254,14 @@ def psi_ode_plain(
     seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma, obs_cens,
     seg_t0, support, rhs, *, obs_outeq=None, out_coef=None, out_bias=None,
     bolus_inputs=(0,), rate_inputs=(0,), merge_runs=None, solver="dopri5",
-    rtol=1e-4, atol=1e-4, h0=1e-3, max_steps=10_000,
+    rtol=1e-4, atol=1e-4, h0=1e-3, max_steps=10_000, counts=None,
 ):
     """Plain PyTorch twin of the fused ODE psi kernel (same arguments as
-    :func:`psi_ode`), on ``[R, S]`` lanes."""
-    from ..engine.sim import NO_COVARIATES, as_components
+    :func:`psi_ode`), on ``[R, S]`` lanes. A ``counts`` dict receives the
+    number of step attempts over all cells (``"steps"``): the work this
+    data needs, for the kernel's bound."""
+    from ..engine.grid import CovView
+    from ..engine.sim import as_components
 
     n_out, runs = _check_inputs(
         seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
@@ -284,7 +287,7 @@ def psi_ode_plain(
         bl = [zeros] * nin
         if b is not None:
             bl[b[0]] = b[1]
-        out = diffeq(list(xs), p_lanes, t.expand(shape), bl, rate, NO_COVARIATES)
+        out = diffeq(list(xs), p_lanes, t.expand(shape), bl, rate, CovView.empty())
         return as_components(out, N, shape, dtype, dev)
 
     def col(a, m):
@@ -376,6 +379,8 @@ def psi_ode_plain(
         live = live0
         it = 0
         while it < max_steps and bool(live.any()):
+            if counts is not None:
+                counts["steps"] = counts.get("steps", 0) + int(live.sum())
             rem = target - tau
             h_try = torch.minimum(h_c, torch.clamp(rem, min=1e-14))
             ks = [k1]

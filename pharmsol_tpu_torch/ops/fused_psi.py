@@ -38,8 +38,10 @@ import torch
 
 LOG_2PI = math.log(2.0 * math.pi)
 
-# Kernel launches through psi_analytical on a CUDA tensor (not the twin).
+# Kernel launches through psi_analytical on a CUDA tensor (not the twin):
+# K1a (no feature input) and K1b (any feature input).
 LAUNCHES = 0
+FEATURE_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -434,6 +436,65 @@ def _check_inputs(seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value,
     return sdef, coef, bias, n_out
 
 
+# K1b's feature inputs, in the wrapper's argument order (psi_oral's)
+FEATURES = ("param_mult", "param_offset", "param_mult_seg", "param_offset_seg",
+            "param_levels", "param_planes", "seg_depth", "lag_plane", "fa_plane",
+            "init_rows", "init_planes", "init_mask")
+# the input that selects each parameter mode, and the mode's kernel code
+_MODE_INPUTS = {"param_mult": "row", "param_mult_seg": "segment",
+                "param_levels": "levels", "param_planes": "planes"}
+MODES = {None: 0, "row": 1, "segment": 2, "levels": 3, "planes": 4}
+
+
+def _check_features(seg_dt, support, sdef, f: dict):
+    """Validate K1b's feature inputs ``f`` (name -> tensor or None); returns
+    the parameter mode (None, ``row``, ``segment``, ``levels``, ``planes``)."""
+    R, M = seg_dt.shape
+    S = support.shape[0]
+    P, NS = sdef["n_params"], sdef["n_states"]
+    given = [name for name in _MODE_INPUTS if f[name] is not None]
+    if len(given) > 1:
+        raise ValueError(f"{' and '.join(given)} are mutually exclusive")
+    mode = _MODE_INPUTS[given[0]] if given else None
+    table = f["param_levels"] if f["param_levels"] is not None else f["param_planes"]
+    L = table.shape[0] if table is not None else 0
+    shapes = {
+        "param_mult": (R, P), "param_offset": (R, P),
+        "param_mult_seg": (R, P, M), "param_offset_seg": (R, P, M),
+        "param_levels": (L, n_micro(sdef), S), "param_planes": (L, n_micro(sdef), R, S),
+        "seg_depth": (R, M), "lag_plane": (R, S), "fa_plane": (R, S),
+        "init_rows": (NS, S), "init_planes": (NS, R, S), "init_mask": (R,),
+    }
+    for name, a in f.items():
+        if a is None:
+            continue
+        if tuple(a.shape) != shapes[name]:
+            raise ValueError(f"{name} must be {list(shapes[name])}, got {list(a.shape)}")
+        if a.dtype != seg_dt.dtype or a.device != seg_dt.device:
+            raise ValueError(f"{name} is {a.dtype} on {a.device}; expected "
+                             f"{seg_dt.dtype} on {seg_dt.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if f["param_offset"] is not None and mode != "row":
+        raise ValueError("param_offset requires param_mult")
+    if f["param_offset_seg"] is not None and mode != "segment":
+        raise ValueError("param_offset_seg requires param_mult_seg")
+    if (f["seg_depth"] is not None) != (mode in ("levels", "planes")):
+        raise ValueError("param_levels and param_planes require seg_depth, and only they")
+    has_init = f["init_rows"] is not None or f["init_planes"] is not None
+    if f["init_rows"] is not None and f["init_planes"] is not None:
+        raise ValueError("pass init_rows or init_planes, not both")
+    if (f["init_mask"] is not None) != has_init:
+        raise ValueError("init_rows and init_planes require init_mask, and only they")
+    return mode
+
+
+def n_micro(sdef) -> int:
+    """The structure's micro-constant count: its support columns less the
+    volume a CL parameterization divides by."""
+    return sdef["n_params"] - (1 if sdef["remap"] is not None else 0)
+
+
 def psi_analytical_plain(
     seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma, obs_cens,
     support,
@@ -441,37 +502,81 @@ def psi_analytical_plain(
     obs_outeq=None,
     out_coef=None,
     out_bias=None,
+    param_mult=None,
+    param_offset=None,
+    param_mult_seg=None,
+    param_offset_seg=None,
+    param_levels=None,
+    param_planes=None,
+    seg_depth=None,
+    lag_plane=None,
+    fa_plane=None,
+    init_rows=None,
+    init_planes=None,
+    init_mask=None,
 ):
-    """Plain PyTorch twin of the fused psi kernel (same arguments, [R, S]).
+    """Plain PyTorch twin of the fused psi kernels (same arguments, [R, S]).
 
-    The math of the JAX package's ``psi_oral`` base tier, segment by
+    The math of the JAX package's ``psi_oral`` (base tier and feature tier:
+    ``pallas_psi.py:583-606``, ``:678-723``, ``:762-782``), segment by
     segment on ``[R, S]`` tensors, with the exact log of the normal CDF for
     censored observations.
     """
     sdef, coef, bias, n_out = _check_inputs(
         seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
         obs_cens, support, structure, obs_outeq, out_coef, out_bias)
+    mode = _check_features(seg_dt, support, sdef, dict(zip(FEATURES, (
+        param_mult, param_offset, param_mult_seg, param_offset_seg, param_levels,
+        param_planes, seg_depth, lag_plane, fa_plane, init_rows, init_planes,
+        init_mask))))
     n_params, n_states = sdef["n_params"], sdef["n_states"]
     R, M = seg_dt.shape
     S = support.shape[0]
-    rows = [support[:, i].reshape(1, S) for i in range(n_params)]
-    if sdef["remap"] is not None:
-        rows = sdef["remap"](rows)
-    if sdef["eigs"] is not None:
-        rows = rows + sdef["eigs"](rows)
-    aux = sdef["prepare"](rows)
+    raw = [support[:, i].reshape(1, S) for i in range(n_params)]
+
+    def prepared(rows, micro=False):
+        # CL remap (unless the rows are micro constants already), the 3-cmt
+        # decay constants, then the structure's parameter-only work
+        if not micro and sdef["remap"] is not None:
+            rows = sdef["remap"](rows)
+        if sdef["eigs"] is not None:
+            rows = rows + sdef["eigs"](rows)
+        return sdef["prepare"](rows)
+
+    def affine(mult, off):  # raw * mult (+ off); mult/off [R, n_params]
+        eff = [raw[i] * mult[:, i:i + 1] for i in range(n_params)]
+        if off is not None:
+            eff = [e + off[:, i:i + 1] for i, e in enumerate(eff)]
+        return eff
+
+    if mode is None:
+        aux = prepared(raw)
+    elif mode == "row":
+        aux = prepared(affine(param_mult, param_offset))
+    if mode in ("levels", "planes"):
+        table = param_levels if mode == "levels" else param_planes
+        shape = (1, S) if mode == "levels" else (R, S)
+        table = [[table[lv, i].reshape(shape) for i in range(table.shape[1])]
+                 for lv in range(table.shape[0])]
     propagate = sdef["propagate"]
     dose_state = sdef["dose_state"]
     has_inf = seg_rateiv is not None
     has_cens = obs_cens is not None
+    has_lag = lag_plane is not None
     coef_rows = [[coef[k, i].reshape(1, S) for i in range(n_states)]
                  for k in range(n_out)]
     bias_rows = ([bias[k].reshape(1, S) for k in range(n_out)]
                  if bias is not None else None)
 
     zeros = torch.zeros((R, S), dtype=seg_dt.dtype, device=seg_dt.device)
-    xs = [zeros] * n_states
+    if init_mask is None:
+        xs = [zeros] * n_states
+    else:
+        im = init_mask.reshape(R, 1)
+        xs = [im * (init_rows[i].reshape(1, S) if init_rows is not None
+                    else init_planes[i]) + zeros for i in range(n_states)]
     ll = zeros
+    pend_amt = pend_rem = zeros
     for m in range(M):
         dt = seg_dt[:, m:m + 1]
         mask = obs_mask[:, m:m + 1] > 0
@@ -502,12 +607,47 @@ def psi_analytical_plain(
             term = torch.where(s_c == 0.0, term, torch.special.log_ndtr(s_c * z))
         ll = ll + torch.where(mask, term, zeros)
 
+        # the bolus (0 on padded slots), scaled by fa; with lag it waits in
+        # the pending registers until its lag has elapsed
         xs = list(xs)
-        xs[dose_state] = xs[dose_state] + seg_bolus[:, m:m + 1]
+        bol = seg_bolus[:, m:m + 1]
+        bol_eff = bol * fa_plane if fa_plane is not None else bol
+        if has_lag:
+            new = bol != 0.0
+            pend_amt = torch.where(new, bol_eff, pend_amt)
+            pend_rem = torch.where(new, lag_plane, pend_rem)
+        else:
+            xs[dose_state] = xs[dose_state] + bol_eff
+        if mode == "segment":
+            aux_m = prepared(affine(param_mult_seg[:, :, m], None if param_offset_seg
+                                    is None else param_offset_seg[:, :, m]))
+        elif mode in ("levels", "planes"):
+            d = seg_depth[:, m:m + 1]
+            eff = []
+            for i in range(len(table[0])):
+                e = (d == 1.0).to(d.dtype) * table[0][i]
+                for lv in range(1, len(table)):
+                    e = e + (d == float(lv + 1)).to(d.dtype) * table[lv][i]
+                eff.append(e)
+            aux_m = prepared(eff, micro=True)
+        else:
+            aux_m = aux
         rate = seg_rateiv[:, m:m + 1] if has_inf else None
-        nxs = propagate(aux, xs, dt, rate)
+        nxs = propagate(aux_m, xs, dt, rate)
         live = dt > 0.0
         xs = [torch.where(live, nx, x) for nx, x in zip(nxs, xs)]
+        if has_lag:
+            # the pending dose fires once its lag elapses inside this
+            # segment: by superposition, the dose vector propagated over the
+            # rest of the span, without infusion forcing
+            fire = (pend_amt != 0.0) & (pend_rem < dt)
+            dose_xs = [pend_amt if i == dose_state else zeros for i in range(n_states)]
+            contrib = propagate(aux_m, dose_xs, torch.clamp(dt - pend_rem, min=0.0), None)
+            xs = [torch.where(fire, x + c, x) for x, c in zip(xs, contrib)]
+            pend_amt = torch.where(fire, zeros, pend_amt)
+            pend_rem = torch.where(
+                fire, zeros,
+                torch.where(live, torch.clamp(pend_rem - dt, min=0.0), pend_rem))
     return ll
 
 
@@ -522,32 +662,65 @@ def psi_analytical(
     obs_outeq=None,
     out_coef=None,
     out_bias=None,
+    param_mult=None,
+    param_offset=None,
+    param_mult_seg=None,
+    param_offset_seg=None,
+    param_levels=None,
+    param_planes=None,
+    seg_depth=None,
+    lag_plane=None,
+    fa_plane=None,
+    init_rows=None,
+    init_planes=None,
+    init_mask=None,
 ):
     """Fused psi [R, S] for the closed-form structures.
 
-    The counterpart of the JAX package's ``ops/pallas_psi.py::psi_oral``
-    (base tier: infusions, censoring, multiple outputs and output biases;
-    no covariates, seq, lag, fa or init). ``seg_rateiv`` and ``obs_cens``
-    are None for a workload without infusions or censoring (the kernel then
-    skips that work), and ``obs_outeq`` is None for one output. All tensors
-    share one dtype (float32 or float64) and one device, and are
-    contiguous.
+    The counterpart of the JAX package's ``ops/pallas_psi.py::psi_oral``.
+    ``seg_rateiv`` and ``obs_cens`` are None for a workload without
+    infusions or censoring (the kernel then skips that work), and
+    ``obs_outeq`` is None for one output. All tensors share one dtype
+    (float32 or float64) and one device, and are contiguous.
+
+    Feature inputs (kernel K1b; all None: kernel K1a), in ``psi_oral``'s
+    order and layout:
+
+    - parameters per row, ``param_mult`` [R, n_params] (and
+      ``param_offset``): effective support columns ``p * mult + offset``;
+    - per segment, ``param_mult_seg`` [R, n_params, M] (and
+      ``param_offset_seg``);
+    - per chain level, ``param_levels`` [L, n_micro, S] or per (row,
+      support) ``param_planes`` [L, n_micro, R, S] in micro constants (the CL
+      remap applied), selected per segment by ``seg_depth`` [R, M] (1-based,
+      0 on dead segments);
+    - ``lag_plane`` / ``fa_plane`` [R, S]: each bolus waits its lag in a
+      pending slot and is scaled by fa; no two doses of a row may be
+      pending at once (the plan checks it);
+    - ``init_rows`` [n_states, S] or ``init_planes`` [n_states, R, S] with
+      ``init_mask`` [R]: the initial state on rows whose mask is 1.
 
     On a CUDA tensor this launches ``csrc/fused_psi.cu`` (one thread per
-    (row, support) cell) and raises if the launch fails; on a CPU tensor it
-    runs :func:`psi_analytical_plain`.
+    (row, support) cell): kernel K1a without features, counted in
+    ``LAUNCHES``, else kernel K1b, counted in ``FEATURE_LAUNCHES``; it
+    raises if the launch fails. On a CPU tensor it runs
+    :func:`psi_analytical_plain`.
     """
-    global LAUNCHES
+    global LAUNCHES, FEATURE_LAUNCHES
+    f = dict(zip(FEATURES, (param_mult, param_offset, param_mult_seg,
+                            param_offset_seg, param_levels, param_planes, seg_depth,
+                            lag_plane, fa_plane, init_rows, init_planes, init_mask)))
     dev = seg_dt.device
     if dev.type == "cpu":
         return psi_analytical_plain(
             seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
-            obs_cens, support, structure, obs_outeq, out_coef, out_bias)
+            obs_cens, support, structure, obs_outeq, out_coef, out_bias, **f)
     if dev.type != "cuda":
         raise ValueError(f"fused psi runs on cpu or cuda tensors, got {dev}")
     sdef, coef, bias, n_out = _check_inputs(
         seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
         obs_cens, support, structure, obs_outeq, out_coef, out_bias)
+    mode = _check_features(seg_dt, support, sdef, f)
     R, M = seg_dt.shape
     S = support.shape[0]
     out = torch.empty((R, S), dtype=seg_dt.dtype, device=dev)
@@ -559,23 +732,34 @@ def psi_analytical(
     n_params = sdef["n_params"]
     # the kernel reads parameter rows [n_params, S]: coalesced along supports
     params = support[:, :n_params].t().contiguous()
+    is_f64 = int(seg_dt.dtype == torch.float64)
+    code = STRUCTURE_CODES[structure]
+    feature = any(a is not None for a in f.values())
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_psi_launch(
-            int(seg_dt.dtype == torch.float64), STRUCTURE_CODES[structure],
-            _ptr(seg_dt), _ptr(seg_bolus), _ptr(seg_rateiv),
-            _ptr(obs_mask), _ptr(obs_value), _ptr(obs_sigma),
-            _ptr(obs_cens),
-            _ptr(obs_outeq if n_out > 1 else None),
-            _ptr(params), _ptr(coef), _ptr(bias), _ptr(out),
-            R, S, M, n_out, ctypes.c_void_p(stream),
-        )
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        base = (_ptr(seg_dt), _ptr(seg_bolus), _ptr(seg_rateiv),
+                _ptr(obs_mask), _ptr(obs_value), _ptr(obs_sigma),
+                _ptr(obs_cens), _ptr(obs_outeq if n_out > 1 else None),
+                _ptr(params), _ptr(coef), _ptr(bias), _ptr(out))
+        if not feature:
+            err = lib.fused_psi_launch(is_f64, code, *base, R, S, M, n_out, stream)
+        else:
+            table = param_levels if param_levels is not None else param_planes
+            ptrs = (ctypes.c_void_p * len(FEATURES))(
+                *(a.data_ptr() if a is not None else None for a in f.values()))
+            ints = (ctypes.c_int * 2)(MODES[mode], 0 if table is None else table.shape[0])
+            err = lib.fused_psi_feature_launch(
+                is_f64, code, *base, ctypes.cast(ptrs, ctypes.c_void_p),
+                ctypes.cast(ints, ctypes.c_void_p), R, S, M, n_out, stream)
     if err != 0:
         raise RuntimeError(
-            f"fused psi kernel launch failed ({structure}, R={R}, S={S}, "
-            f"M={M}): {lib.fused_psi_error_string(err).decode()}"
+            f"fused psi kernel launch failed ({structure}, mode {mode}, R={R}, "
+            f"S={S}, M={M}): {lib.fused_psi_error_string(err).decode()}"
         )
-    LAUNCHES += 1
+    if feature:
+        FEATURE_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
@@ -665,13 +849,16 @@ def extract_linear_out(out_fn, support, n_states: int, n_out: int, cov,
     return Cn, bn
 
 
-def segment_schedule(rows):
+def segment_schedule(rows, with_ranks: bool = False):
     """Host-side replica of the engine's breakpoint sort (grid.build_segments).
 
-    Valid because the fused path has no lag/fa (the only parameter-dependent
-    time shifts). Returns ``(order, t_sorted, seg_dt, is_event)`` each
-    [R, M]: the lexsort permutation, sorted breakpoint times, segment spans,
-    and the engine's seq-reset flag (rank >= RANK_OBSERVATION).
+    The order depends on the data only, also under lag: a lagged dose stays
+    in its original column and rides the kernel's pending-dose registers, so
+    lag never moves a breakpoint of these streams. Returns ``(order,
+    t_sorted, seg_dt, is_event)`` each [R, M]: the lexsort permutation,
+    sorted breakpoint times, segment spans, and the engine's seq-reset flag
+    (rank >= RANK_OBSERVATION); ``with_ranks=True`` appends the sorted
+    ranks (inf-end 0, observation 1, bolus 2, inf-start 3).
     """
     from ..config import BIG_TIME
 
@@ -698,6 +885,8 @@ def segment_schedule(rows):
     t_next = np.concatenate([t_sorted[:, 1:], t_sorted[:, -1:]], axis=1)
     live = t_next < BIG_TIME / 2
     seg_dt = np.where(live, np.maximum(t_next - t_sorted, 0.0), 0.0)
+    if with_ranks:
+        return order, t_sorted, seg_dt, rank_sorted >= 1.0, rank_sorted
     return order, t_sorted, seg_dt, rank_sorted >= 1.0
 
 

@@ -216,11 +216,14 @@ def psi_sde_plain(
     seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma, obs_cens,
     seg_t0, support, gen, *, obs_outeq=None, out_coef=None, out_bias=None,
     dose_states=(0,), rate_inputs=(0,), init=None, init_mask=None,
-    n_particles: int, seed: int = 0, em_control: str = "independent",
+    n_particles: int, seed: int = 0, em_control: str = "independent", counts=None,
 ):
     """Plain PyTorch twin of the fused SDE psi kernel (same arguments as
-    :func:`psi_sde`), on ``[R, S, P]`` lanes."""
-    from ..engine.sim import NO_COVARIATES, as_components
+    :func:`psi_sde`), on ``[R, S, P]`` lanes. A ``counts`` dict receives the
+    number of Euler-Maruyama trials over all cells (``"trials"``, each on
+    every particle): the work this data needs, for the kernel's bound."""
+    from ..engine.grid import CovView
+    from ..engine.sim import as_components
 
     n_out = _check_inputs(
         seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma, obs_cens,
@@ -266,11 +269,11 @@ def psi_sde_plain(
               if out_bias is not None else None)
 
     def drift(xs, t, rate):
-        out = gen.drift(list(xs), p_lanes, t.expand(shape), rate, NO_COVARIATES)
+        out = gen.drift(list(xs), p_lanes, t.expand(shape), rate, CovView.empty())
         return as_components(out, N, shape, dtype, dev)
 
     def diffusion(t):
-        out = gen.diffusion(p_cells, t, NO_COVARIATES)
+        out = gen.diffusion(p_cells, t, CovView.empty())
         return [g.unsqueeze(-1) for g in as_components(out, N, cell, dtype, dev)]
 
     def rate_at(m):
@@ -341,6 +344,8 @@ def psi_sde_plain(
         xs_c = xs
         k = 0
         while k < EM_MAX_ITERS and bool(live.any()):
+            if counts is not None:
+                counts["trials"] = counts.get("trials", 0) + int(live.sum())
             h_try = torch.minimum(h, torch.clamp(dt - tau, min=1e-14))
             t_abs = t0 + tau
             h_half = h_try * 0.5

@@ -1,12 +1,19 @@
-"""The float32 accuracy budget of the ported model classes.
+"""The float32 accuracy budget of the ported model classes, and the cases
+of kernel K1b's modes.
 
-The analytical and explicit-ODE rows of the JAX package's
-``utils/f32_budget.py`` (that module imports jax), copied as constants: the
-most a float32 psi may differ from the float64 psi of the same inputs, as
-``max |psi_f32 - psi_f64| / max(|psi_f64|, 1)`` over all cells, on the
-budget's own case (:func:`kernel_case`, :func:`ode_case`). ``NOMINAL`` are
-the parameter centres of the closed-form cases (kernel order; the volume
-column follows).
+The analytical, analytical-feature and explicit-ODE rows of the JAX
+package's ``utils/f32_budget.py`` (that module imports jax), copied as
+constants: the most a float32 psi may differ from the float64 psi of the
+same inputs, as ``max |psi_f32 - psi_f64| / max(|psi_f64|, 1)`` over all
+cells, on the budget's own case (:func:`kernel_case`, :func:`ode_case`,
+:func:`feature_budget_case`). ``NOMINAL`` are the parameter centres of the
+closed-form cases (kernel order; the volume column follows).
+
+:func:`feature_case` builds one case per mode of K1b (``FEATURE_CASES``:
+name -> the budget row its float32 result is held to). Its closures are
+plain Python arithmetic on the parameters, so the same function builds the
+model in the JAX package too when handed that package (``lib``), for the
+parity tests.
 """
 
 from __future__ import annotations
@@ -26,6 +33,13 @@ F32_BUDGET: Dict[str, float] = {
     "three_compartments_with_absorption": 1e-4,
     "three_compartments_cl": 1e-4,
     "three_compartments_cl_with_absorption": 1e-4,
+    # feature variants on one_compartment_with_absorption (JAX package
+    # :49-56, :66): seq factors per row or per segment, segment-indexed
+    # planes, per-support initial states
+    "seq_multiplier_row": 5e-5,
+    "seq_multiplier_segment": 5e-5,
+    "seq_segplanes": 5e-5,
+    "analytical_init": 5e-5,
     # adaptive stepping compounds controller decisions (JAX package :61, :65)
     "ode_dopri5": 2e-4,
     "ode_multi_input": 2e-4,   # per-input bolus/rate streams
@@ -165,3 +179,230 @@ def ode_case(name: str):
         ])
         return model, Data(subjects), support, ems
     raise KeyError(f"no ODE budget case `{name}` (have {', '.join(ODE_CASES)})")
+
+
+def feature_budget_case(name: str):
+    """The JAX package's budget case of feature row ``name``
+    (``_seq_case``, ``_seq_segplanes_case``, ``_analytical_init_case``) on
+    the same seeds: (model, data, support, ems)."""
+    import numpy as np
+
+    from ..data.error_model import AssayErrorModel, AssayErrorModels, ErrorPoly
+    from ..data.structs import Data, Subject
+    from ..engine.analytical import (
+        one_compartment_with_absorption, two_compartments,
+    )
+    from ..models.equation import Analytical
+
+    ems = AssayErrorModels().add(
+        0, AssayErrorModel.additive(ErrorPoly(0.4, 0.1), 1.0))
+    if name in ("seq_multiplier_row", "seq_multiplier_segment"):
+        # allometric scaling through seq; the segment case's infusion
+        # regimen forces per-segment factors
+        model = Analytical(
+            one_compartment_with_absorption,
+            out=lambda x, p, t, cov: x[1:2] / p[2],
+            seq_eq=lambda p, t, cov: [p[0], p[1] * (cov("wt", t) / 70.0) ** 0.75, p[2]],
+            nstates=2, ndrugs=1, nout=1,
+        )
+        rng = np.random.RandomState(97)
+        rng.randn(8 * 7)  # the shared workload's draws
+        rng2 = np.random.RandomState(97)
+        subjects = []
+        for i in range(8):
+            b = (Subject.builder(f"b{i}").bolus(0.0, 100.0, 0)
+                 .covariate("wt", 0.0, 55.0 + 5.0 * i))
+            if name == "seq_multiplier_segment":
+                b = b.bolus(12.0, 80.0, 0).infusion(4.0, 120.0, 0, 2.0)
+            for t in (1.0, 2.5, 4.0, 6.0, 9.0, 12.0, 24.0):
+                b = b.observation(float(t), float(np.abs(3 + rng2.randn())), 0)
+            subjects.append(b.build())
+        sp = np.abs(np.array([1.1, 0.2, 11.0])[None, :]
+                    * (1.0 + 0.15 * rng.randn(12, 3)))
+        return model, Data(subjects), sp, ems
+    if name == "seq_segplanes":
+        # time-varying covariate mixed with a parameter: segment-indexed planes
+        model = Analytical(
+            two_compartments,
+            out=lambda x, p, t, cov: x[0:1] / p[3],
+            seq_eq=lambda p, t, cov: [p[0] * (cov("wt", t) / 70.0) ** p[2],
+                                      p[1], p[2], p[3]],
+            nstates=2, ndrugs=1, nout=1,
+        )
+        rng = np.random.RandomState(53)
+        subjects = []
+        for i in range(8):
+            b = (Subject.builder(f"v{i}").bolus(0.0, 100.0, 0)
+                 .covariate("wt", 0.0, 55.0 + 4.0 * i)
+                 .covariate("wt", 4.0, 66.0 + 3.0 * i))
+            if i % 3 == 0:
+                b = b.infusion(2.0, 50.0, 0, 1.5)
+            for t in (0.5, 1.5, 3.0, 6.0, 10.0):
+                b = b.observation(float(t), float(np.abs(3 + rng.randn())), 0)
+            subjects.append(b.build())
+        sp = np.abs(np.column_stack([
+            0.2 * (1.0 + 0.15 * rng.randn(12)),
+            0.3 * (1.0 + 0.15 * rng.randn(12)),
+            rng.uniform(0.5, 1.0, 12),
+            11.0 * (1.0 + 0.15 * rng.randn(12)),
+        ]))
+        return model, Data(subjects), sp, ems
+    if name == "analytical_init":
+        model = Analytical(
+            one_compartment_with_absorption,
+            init=lambda p, t, cov: [0.5 * p[2], 2.0 + 0.1 * p[2]],
+            out=lambda x, p, t, cov: x[1:2] / p[2],
+            nstates=2, ndrugs=1, nout=1,
+        )
+        rng = np.random.RandomState(53)
+        subjects = []
+        for i in range(8):
+            b = Subject.builder(f"i{i}").bolus(0.0, 100.0, 0)
+            for t in (1.0, 2.5, 4.0, 6.0, 9.0, 14.0):
+                b = b.observation(float(t), float(np.abs(3 + rng.randn())), 0)
+            subjects.append(b.build())
+        sp = np.abs(np.array([1.1, 0.2, 11.0])[None, :]
+                    * (1.0 + 0.15 * rng.randn(12, 3)))
+        return model, Data(subjects), sp, ems
+    raise KeyError(f"no feature budget case `{name}` (have {', '.join(FEATURE_BUDGETS)})")
+
+
+FEATURE_BUDGETS = ("seq_multiplier_row", "seq_multiplier_segment", "seq_segplanes",
+                   "analytical_init")
+
+
+def _wt_allometric(p, t, cov):
+    return [p[0], p[1] * (cov("wt", t) / 70.0) ** 0.75, p[2]]
+
+
+def _wt_additive(p, t, cov):
+    return [p[0], p[1] + 0.001 * cov("wt", t), p[2]]
+
+
+def _mixing(p, t, cov):
+    return [p[0] * (1.0 + 0.1 * p[2]), p[1] + 0.02 * p[0], p[2], p[3]]
+
+
+def _three_cmt(p, t, cov):
+    return [p[0] * 1.1, p[1], p[2] * 0.95, p[3], p[4], p[5]]
+
+
+def _wt_mixing(p, t, cov):
+    return [p[0] * (cov("wt", t) / 70.0) ** p[4],
+            p[1] / (1.0 + p[2] * cov("wt", t) / 700.0), p[2], p[3], p[4]]
+
+
+def _wt_short(p, t, cov):
+    # (wt / 70) ** 0.75 on the rate constants of the 2-cmt oral structure
+    sc = (cov("wt", t) / 70.0) ** 0.75
+    return [p[0] * sc, p[1], p[2] * sc, p[3] * sc, p[4], p[5], p[6]]
+
+
+# name: (structure, closures, regimen, support ranges, mode, budget row).
+# Regimens: "bolus" one dose at 0; "infusion" adds an infusion to every third
+# subject; "two_doses" doses at 0 and 12 (an infusion on every fourth);
+# covariates "wt" constant per subject or "wt_tv" with a second knot at 6 h.
+_FEATURES = {
+    "row": ("one_compartment_with_absorption", dict(seq_eq=_wt_allometric),
+            ("bolus", "wt"), [(0.8, 2.0), (0.1, 0.3), (8, 15)], "row",
+            "seq_multiplier_row"),
+    "row_offset": ("one_compartment_with_absorption", dict(seq_eq=_wt_additive),
+                   ("bolus", "wt"), [(0.8, 2.0), (0.1, 0.3), (8, 15)], "row",
+                   "seq_multiplier_row"),
+    "segment": ("one_compartment_with_absorption", dict(seq_eq=_wt_allometric),
+                ("infusion", "wt"), [(0.8, 2.0), (0.1, 0.3), (8, 15)], "segment",
+                "seq_multiplier_segment"),
+    "segment_offset": ("one_compartment_with_absorption", dict(seq_eq=_wt_additive),
+                       ("infusion", "wt"), [(0.8, 2.0), (0.1, 0.3), (8, 15)],
+                       "segment", "seq_multiplier_segment"),
+    "segment_tv": ("one_compartment_with_absorption", dict(seq_eq=_wt_allometric),
+                   ("bolus", "wt_tv"), [(0.8, 2.0), (0.1, 0.3), (8, 15)], "segment",
+                   "seq_multiplier_segment"),
+    "levels": ("two_compartments", dict(seq_eq=_mixing), ("infusion", None),
+               [(0.1, 0.3), (0.2, 0.4), (0.1, 0.3), (8, 15)], "levels",
+               "two_compartments"),
+    "levels_3cmt": ("three_compartments", dict(seq_eq=_three_cmt), ("infusion", None),
+                    [(0.1, 0.3), (0.15, 0.35), (0.05, 0.2), (0.1, 0.3), (0.05, 0.15),
+                     (8, 15)], "levels", "three_compartments"),
+    "planes": ("two_compartments", dict(seq_eq=_wt_mixing), ("infusion", "wt"),
+               [(0.1, 0.3), (0.2, 0.4), (0.1, 0.3), (8, 15), (0.5, 1.0)], "planes",
+               "two_compartments"),
+    "segplanes": ("two_compartments", dict(seq_eq=_wt_mixing), ("infusion", "wt_tv"),
+                  [(0.1, 0.3), (0.2, 0.4), (0.1, 0.3), (8, 15), (0.5, 1.0)], "planes",
+                  "seq_segplanes"),
+    "lag_fa": ("two_compartments_with_absorption",
+               dict(lag=lambda p, t, cov: {0: p[5]}, fa=lambda p, t, cov: {0: p[6]}),
+               ("two_doses", None),
+               [(0.1, 0.3), (0.8, 2.0), (0.2, 0.4), (0.1, 0.3), (8, 15), (0.0, 1.2),
+                (0.5, 1.0)], None, "two_compartments_with_absorption"),
+    "lag_seq_depth1": ("one_compartment",
+                       dict(seq_eq=lambda p, t, cov: [p[0] * p[1] * cov("wt", t) / 700.0,
+                                                      p[1], p[2]],
+                            lag=lambda p, t, cov: {0: p[2]}),
+                       ("two_doses_bolus", "wt"), [(0.1, 0.3), (8, 15), (0.0, 1.5)],
+                       "planes", "one_compartment"),
+    # ka above the weight-scaled decay constants: where ka nears one, the
+    # depot term (e_k - e_ka) / (ka - l_k) cancels in float32
+    "row_lag_fa": ("two_compartments_with_absorption",
+                   dict(seq_eq=_wt_short, lag=lambda p, t, cov: {0: p[5]},
+                        fa=lambda p, t, cov: {0: p[6]}),
+                   ("two_doses_bolus", "wt"),
+                   [(0.1, 0.3), (1.8, 3.0), (0.2, 0.4), (0.1, 0.3), (8, 15), (0.0, 1.2),
+                    (0.5, 1.0)], "row", "two_compartments_with_absorption"),
+    "init_rows": ("one_compartment_with_absorption",
+                  dict(init=lambda p, t, cov: [0.5 * p[2], 2.0 + 0.1 * p[2]]),
+                  ("infusion", None), [(0.8, 2.0), (0.1, 0.3), (8, 15)], None,
+                  "analytical_init"),
+    "init_planes": ("one_compartment",
+                    dict(init=lambda p, t, cov: [cov("wt", 0.0) / p[1]]),
+                    ("bolus", "wt"), [(0.1, 0.3), (8, 15)], None, "analytical_init"),
+}
+FEATURE_CASES = {name: row[5] for name, row in _FEATURES.items()}
+
+
+def feature_case(name: str, n_subjects: int = 8, n_support: int = 12,
+                 seed: int = 0, lib=None):
+    """K1b's case ``name`` (see ``FEATURE_CASES``): (model, data, support,
+    ems, mode), with ``mode`` the parameter mode the fused plan picks.
+
+    ``lib`` is the package that builds the model and the data (default this
+    one); the JAX package builds the same case for the parity tests. The
+    single output is the central amount over the volume, the support column
+    after the kernel's.
+    """
+    import numpy as np
+
+    from ..engine.analytical import KERNELS
+
+    if lib is None:
+        import pharmsol_tpu_torch as lib
+    structure, closures, (regimen, cov), ranges, mode, _ = _FEATURES[name]
+    _, n_states, vcol = KERNELS[structure]
+    central = 1 if structure.endswith("_with_absorption") else 0
+    rng = np.random.RandomState(seed)
+    sp = np.column_stack([rng.uniform(lo, hi, n_support) for lo, hi in ranges])
+    subjects = []
+    for i in range(n_subjects):
+        b = lib.Subject.builder(f"f{i}").bolus(0.0, 100.0, 0)
+        if regimen.startswith("two_doses"):
+            b = b.bolus(12.0, 80.0, 0)
+            if regimen == "two_doses" and i % 4 == 0:
+                b = b.infusion(3.0, 50.0, 0, 1.5)
+        if regimen == "infusion" and i % 3 == 0:
+            b = b.infusion(2.0, 50.0, 0, 1.0)
+        if cov is not None:
+            b = b.covariate("wt", 0.0, 40.0 + 80.0 * rng.rand())
+            if cov == "wt_tv":
+                b = b.covariate("wt", 6.0, 40.0 + 80.0 * rng.rand())
+        times = ((0.3, 0.7, 1.5, 2.5, 5.0, 9.0, 12.5, 14.0, 20.0)
+                 if regimen.startswith("two_doses") else (0.5, 1.5, 3.0, 6.0, 10.0))
+        for t in times:
+            b = b.observation(t, float(4.0 * np.exp(-0.2 * t) * np.exp(0.2 * rng.randn())), 0)
+        subjects.append(b.build())
+    model = lib.Analytical(
+        getattr(lib, structure),
+        out=lambda x, p, t, cov, c=central, v=vcol: x[c:c + 1] / p[v],
+        nstates=n_states, ndrugs=1, nout=1, **closures)
+    ems = lib.AssayErrorModels().add(
+        0, lib.AssayErrorModel.additive(lib.ErrorPoly(0.5, 0.1), 1.0))
+    return model, lib.Data(subjects), sp, ems, mode

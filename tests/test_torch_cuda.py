@@ -17,7 +17,8 @@ from pharmsol_tpu_torch.ops.fused_psi import (
     STRUCTURES, psi_analytical, psi_analytical_plain,
 )
 from pharmsol_tpu_torch.utils.f32_budget import (
-    F32_BUDGET, ODE_CASES, f32_error, kernel_case, ode_case,
+    F32_BUDGET, FEATURE_BUDGETS, FEATURE_CASES, ODE_CASES, f32_error,
+    feature_budget_case, feature_case, kernel_case, ode_case,
 )
 
 pytestmark = pytest.mark.cuda
@@ -69,7 +70,58 @@ def test_entry_point_launches_once(cuda):
     torch.cuda.synchronize()
     assert fused_psi.LAUNCHES == before + 1
     assert pt.last_engine_decision(model)["engine"] == "fused"
-    want = pt.log_likelihood_matrix(model, data, sp, ems, engine="general")
+    want = pt.log_likelihood_matrix(model, data, sp, ems, engine="general", device="cpu")
+    np.testing.assert_allclose(psi.cpu().numpy(), want.numpy(), rtol=1e-10, atol=0)
+
+
+def _feature_plan(model, data, sp, ems, dtype, device):
+    grid = model.lower(data.subjects())
+    lowered = ems.lower(model.resolve_output_label, model.nouteqs())
+    return _FusedPsiPlan(model, grid, sp, lowered, device, dtype)
+
+
+def _run_features(plan, fn):
+    return fn(*plan.streams, plan.support, **plan.kernel_kwargs())
+
+
+@pytest.mark.parametrize("name", list(FEATURE_CASES))
+def test_feature_kernel_matches_twin(cuda, name):
+    """K1b in every mode: float64 within 1e-10 of its twin, float32 within
+    the mode's budget row of the float64 twin; one K1b launch each."""
+    model, data, sp, ems, mode = feature_case(name, n_subjects=24, n_support=40, seed=11)
+    plan = _feature_plan(model, data, sp, ems, torch.float64, cuda)
+    assert plan.mode == mode
+    before = (fused_psi.LAUNCHES, fused_psi.FEATURE_LAUNCHES)
+    got = _run_features(plan, psi_analytical)
+    torch.cuda.synchronize()
+    assert (fused_psi.LAUNCHES, fused_psi.FEATURE_LAUNCHES) == (before[0], before[1] + 1)
+    want = _run_features(plan, psi_analytical_plain)
+    torch.testing.assert_close(got, want, rtol=1e-10, atol=0)
+    got32 = _run_features(_feature_plan(model, data, sp, ems, torch.float32, cuda),
+                          psi_analytical)
+    torch.cuda.synchronize()
+    assert f32_error(got32.cpu().numpy(), want.cpu().numpy()) <= F32_BUDGET[FEATURE_CASES[name]]
+
+
+@pytest.mark.parametrize("name", FEATURE_BUDGETS)
+def test_feature_kernel_float32_within_budget(cuda, name):
+    model, data, sp, ems = feature_budget_case(name)
+    golden = _run_features(_feature_plan(model, data, sp, ems, torch.float64, cuda),
+                           psi_analytical_plain)
+    got = _run_features(_feature_plan(model, data, sp, ems, torch.float32, cuda),
+                        psi_analytical)
+    torch.cuda.synchronize()
+    assert f32_error(got.cpu().numpy(), golden.cpu().numpy()) <= F32_BUDGET[name]
+
+
+def test_entry_point_launches_k1b_once(cuda):
+    model, data, sp, ems, _ = feature_case("row_lag_fa", n_subjects=16, n_support=24)
+    before = fused_psi.FEATURE_LAUNCHES
+    psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
+    torch.cuda.synchronize()
+    assert fused_psi.FEATURE_LAUNCHES == before + 1
+    assert pt.last_engine_decision(model)["engine"] == "fused"
+    want = pt.log_likelihood_matrix(model, data, sp, ems, engine="general", device="cpu")
     np.testing.assert_allclose(psi.cpu().numpy(), want.numpy(), rtol=1e-10, atol=0)
 
 
@@ -115,7 +167,7 @@ def test_ode_entry_point_launches_once(cuda):
     torch.cuda.synchronize()
     assert fused_ode.LAUNCHES == before + 1
     assert pt.last_engine_decision(model)["engine"] == "fused"
-    want = pt.log_likelihood_matrix(model, data, sp, ems, engine="general")
+    want = pt.log_likelihood_matrix(model, data, sp, ems, engine="general", device="cpu")
     rel = np.abs(psi.cpu().numpy() - want.numpy()) / np.maximum(np.abs(want.numpy()), 1.0)
     assert rel.max() <= 1e-4
 
@@ -235,7 +287,7 @@ def test_sde_entry_point_launches_once(cuda):
     torch.cuda.synchronize()
     assert fused_sde.LAUNCHES == before + 1
     assert pt.last_engine_decision(model)["engine"] == "fused"
-    want = pt.log_likelihood_matrix(model, data, sp, ems, engine="general")
+    want = pt.log_likelihood_matrix(model, data, sp, ems, engine="general", device="cpu")
     np.testing.assert_allclose(psi.cpu().numpy(), want.numpy(), rtol=1e-9, atol=0)
 
 
@@ -268,6 +320,6 @@ def test_general_engine_on_the_card_takes_closures_with_constants(cuda, family):
         model = pt.ODE(lambda x, p, t, b, r, cov: [-p[0] * x[0] + b[0], 0.0],
                        out=lambda x, p, t, cov: x[0:1] / p[1], nstates=2, ndrugs=1, nout=1)
     psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda", engine="general")
-    want = pt.log_likelihood_matrix(model, data, sp, ems, engine="general")
+    want = pt.log_likelihood_matrix(model, data, sp, ems, engine="general", device="cpu")
     assert psi.device.type == "cuda"
     np.testing.assert_allclose(psi.cpu().numpy(), want.numpy(), rtol=1e-9, atol=0)

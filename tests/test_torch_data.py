@@ -20,6 +20,14 @@ from pharmsol_tpu_torch.engine.grid import OccasionArrays, build_segments, to_te
 from pharmsol_tpu_torch.ops.fused_psi import streams_from_grid
 
 
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port's entry points run on the card unless asked: these tests ask
+    for the CPU (and restore the default afterwards)."""
+    monkeypatch.setattr(pt.config, "_DEVICE", pt.config.device())
+    pt.set_device("cpu")
+
+
 def _subjects(scenario, rng):
     out = []
     for i in range(3):

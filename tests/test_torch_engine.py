@@ -17,6 +17,15 @@ from pharmsol_tpu.utils.f32_budget import _NOMINAL
 import pharmsol_tpu_torch as pt
 from pharmsol_tpu_torch import convert
 
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port's entry points run on the card unless asked: these tests ask
+    for the CPU (and restore the default afterwards)."""
+    monkeypatch.setattr(pt.config, "_DEVICE", pt.config.device())
+    pt.set_device("cpu")
+
+
 RTOL = 1e-10
 
 

@@ -11,7 +11,16 @@ import pytest
 
 from pharmsol_tpu.engine.analytical import KERNELS
 
+import pharmsol_tpu_torch as pt
 from test_torch_engine import _compare
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port's entry points run on the card unless asked: these tests ask
+    for the CPU (and restore the default afterwards)."""
+    monkeypatch.setattr(pt.config, "_DEVICE", pt.config.device())
+    pt.set_device("cpu")
 
 
 @pytest.mark.parametrize("name", list(KERNELS))

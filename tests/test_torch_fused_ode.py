@@ -28,6 +28,15 @@ from pharmsol_tpu_torch.ops import fused_ode
 from pharmsol_tpu_torch.ops.fused_psi import streams_from_grid
 from pharmsol_tpu_torch.utils.f32_budget import ode_case
 
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port's entry points run on the card unless asked: these tests ask
+    for the CPU (and restore the default afterwards)."""
+    monkeypatch.setattr(pt.config, "_DEVICE", pt.config.device())
+    pt.set_device("cpu")
+
+
 R_TILE, S_TILE = 8, 128
 
 

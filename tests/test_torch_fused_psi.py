@@ -37,6 +37,15 @@ from pharmsol_tpu_torch.ops.fused_psi import (
 )
 from pharmsol_tpu_torch.utils.f32_budget import F32_BUDGET, f32_error, kernel_case
 
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port's entry points run on the card unless asked: these tests ask
+    for the CPU (and restore the default afterwards)."""
+    monkeypatch.setattr(pt.config, "_DEVICE", pt.config.device())
+    pt.set_device("cpu")
+
+
 RTOL, ATOL = 5e-9, 1e-9  # tests/test_pallas_psi.py:53
 
 

@@ -28,6 +28,14 @@ from pharmsol_tpu_torch.likelihood.plans.sde import _FusedSdePsiPlan
 from pharmsol_tpu_torch.ops import fused_sde, philox
 
 
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port's entry points run on the card unless asked: these tests ask
+    for the CPU (and restore the default afterwards)."""
+    monkeypatch.setattr(pt.config, "_DEVICE", pt.config.device())
+    pt.set_device("cpu")
+
+
 def _rel(a, b):
     return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1.0)))
 

@@ -14,6 +14,15 @@ from pharmsol_tpu_torch import config
 from pharmsol_tpu_torch.errors import PharmsolError
 from pharmsol_tpu_torch.ops import _build
 
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port's entry points run on the card unless asked: these tests ask
+    for the CPU (and restore the default afterwards)."""
+    monkeypatch.setattr(pt.config, "_DEVICE", pt.config.device())
+    pt.set_device("cpu")
+
+
 PKG = Path(pt.__file__).resolve().parent
 MODULES = sorted(PKG.rglob("*.py"))
 
@@ -44,7 +53,8 @@ def test_package_import_loads_no_jax():
             "pharmsol_tpu_torch.ops.fused_ode, pharmsol_tpu_torch.ops.rhs_codegen, "
             "pharmsol_tpu_torch.likelihood.plans.ode, pharmsol_tpu_torch.convert, "
             "pharmsol_tpu_torch.ops.fused_sde, pharmsol_tpu_torch.ops.philox, "
-            "pharmsol_tpu_torch.likelihood.plans.sde, pharmsol_tpu_torch.engine.sde; "
+            "pharmsol_tpu_torch.likelihood.plans.sde, pharmsol_tpu_torch.engine.sde, "
+            "pharmsol_tpu_torch.likelihood.plans.analytical; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pharmsol_tpu', 'triton')]; "
             "assert not bad, bad")
@@ -137,6 +147,8 @@ def test_cuda_request_raises_without_a_card():
 
 
 def test_defaults_are_cpu_and_float64():
+    # the CPU asked for by this file's fixture; the default is the card
+    # (test_entry_points_default_to_the_card)
     assert config.device() == torch.device("cpu")
     assert config.float_dtype() == torch.float64
     config.set_float_dtype(np.float32)
@@ -146,3 +158,27 @@ def test_defaults_are_cpu_and_float64():
         config.set_float_dtype(torch.float64)
     with pytest.raises(ValueError):
         config.set_float_dtype(torch.float16)
+
+
+def test_entry_points_default_to_the_card():
+    """With no device= and no set_device the entry points run on the card:
+    in a fresh interpreter on a machine without one they raise instead of
+    running on the CPU."""
+    code = (
+        "import numpy as np, torch, pharmsol_tpu_torch as pt\n"
+        "assert pt.device() == torch.device('cuda')\n"
+        "if not torch.cuda.is_available():\n"
+        "    m = pt.Analytical(pt.one_compartment, out=lambda x, p, t, cov: x[0:1] / p[1],\n"
+        "                      nstates=1, ndrugs=1, nout=1)\n"
+        "    d = pt.Data([pt.Subject.builder('a').bolus(0.0, 100.0, 0)\n"
+        "                 .observation(1.0, 5.0, 0).build()])\n"
+        "    ems = pt.AssayErrorModels().add(\n"
+        "        0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))\n"
+        "    try:\n"
+        "        pt.log_likelihood_matrix(m, d, np.array([[0.2, 10.0]]), ems)\n"
+        "    except pt.PharmsolError as e:\n"
+        "        assert 'cuda' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError('ran on the CPU without being asked')\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=str(PKG.parent))

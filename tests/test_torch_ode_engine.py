@@ -19,6 +19,14 @@ from pharmsol_tpu_torch import convert
 from pharmsol_tpu_torch.errors import PharmsolError
 
 
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port's entry points run on the card unless asked: these tests ask
+    for the CPU (and restore the default afterwards)."""
+    monkeypatch.setattr(pt.config, "_DEVICE", pt.config.device())
+    pt.set_device("cpu")
+
+
 def _bolus_infusion(xp):
     return lambda x, p, t, b, r, cov: xp.stack([
         -p[0] * x[0] + b[0],

@@ -20,6 +20,14 @@ from pharmsol_tpu_torch.likelihood import matrix
 from pharmsol_tpu_torch.ops.rhs_codegen import generate_rhs, generate_sde
 
 
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port's entry points run on the card unless asked: these tests ask
+    for the CPU (and restore the default afterwards)."""
+    monkeypatch.setattr(pt.config, "_DEVICE", pt.config.device())
+    pt.set_device("cpu")
+
+
 def _short(x, p, t, b, rateiv, cov):  # bench.py:210-214, the 2-cmt oral ODE
     return torch.stack([
         -p[1] * x[0] + b[0],

@@ -26,6 +26,14 @@ from pharmsol_tpu_torch.engine import sde as engine_sde
 from pharmsol_tpu_torch.errors import PharmsolError
 
 
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port's entry points run on the card unless asked: these tests ask
+    for the CPU (and restore the default afterwards)."""
+    monkeypatch.setattr(pt.config, "_DEVICE", pt.config.device())
+    pt.set_device("cpu")
+
+
 def _rel(a, b):
     return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1.0)))
 

@@ -20,6 +20,15 @@ from pharmsol_tpu_torch.errors import PharmsolError
 from pharmsol_tpu_torch.likelihood import matrix
 from pharmsol_tpu_torch.ops import fused_psi
 
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port's entry points run on the card unless asked: these tests ask
+    for the CPU (and restore the default afterwards)."""
+    monkeypatch.setattr(pt.config, "_DEVICE", pt.config.device())
+    pt.set_device("cpu")
+
+
 N_SUBJECTS, N_SUPPORT = 64, 128
 TIMES = [0.5, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 10.0, 12.0]
 
@@ -148,6 +157,9 @@ def test_fused_plan_rejects_a_dose_into_another_input():
 
 @pytest.mark.parametrize("kw", ["seq_eq", "lag", "fa", "init"])
 def test_unported_equations_raise(kw):
+    """Closed-form models take seq, lag, fa and init; what is still not
+    ported raises: lag, fa and init of ODE models, and a seq read at a
+    time-varying covariate together with lag in the fused plan (kernel K1c)."""
     fn = {
         "seq_eq": lambda p, t, cov: p,
         "lag": lambda p, t, cov: {0: 0.5},
@@ -155,20 +167,46 @@ def test_unported_equations_raise(kw):
         "init": lambda p, t, cov: torch.zeros(3),
     }[kw]
     name = "seq" if kw == "seq_eq" else kw
+    model = pt.Analytical(pt.two_compartments_with_absorption, out=_out,
+                          nstates=3, ndrugs=1, nout=1, **{kw: fn})
+    assert getattr(model.spec, name) is fn
+    if kw == "seq_eq":
+        data = pt.Data([pt.Subject.builder("c").bolus(0.0, 100.0, 0)
+                        .covariate("wt", 0.0, 70.0).covariate("wt", 6.0, 60.0)
+                        .observation(1.0, 4.0, 0).observation(8.0, 2.0, 0).build()])
+        lagged = pt.Analytical(
+            pt.two_compartments_with_absorption, out=_out, nstates=3, ndrugs=1, nout=1,
+            seq_eq=lambda p, t, cov: [p[0] * cov("wt", t) / 70.0, p[1], p[2], p[3],
+                                      p[4], p[5]],
+            lag=lambda p, t, cov: {0: p[5]})
+        ems = pt.AssayErrorModels().add(
+            0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+        sp = np.array([[0.15, 1.2, 0.3, 0.2, 10.0, 0.4]])
+        with pytest.raises(PharmsolError, match="K1c"):
+            pt.log_likelihood_matrix(lagged, data, sp, ems, engine="fused")
+        return
     with pytest.raises(PharmsolError, match=f"does not support {name} "):
-        pt.Analytical(pt.two_compartments_with_absorption, out=_out,
-                      nstates=3, ndrugs=1, nout=1, **{kw: fn})
+        pt.ODE(lambda x, p, t, b, r, cov: x, out=_out, nstates=3, ndrugs=1, nout=1,
+               **{kw: fn})
 
 
 def test_covariates_raise(slice_inputs):
+    """Closed-form models read covariates through their closures; ODE
+    models with covariates still raise."""
     _, support, ems, _ = slice_inputs
     data = pt.Data([pt.Subject.builder("c").bolus(0.0, 100.0, 0)
                     .covariate("wt", 0.0, 70.0).observation(1.0, 4.0, 0)
                     .build()])
+    ode = pt.ODE(lambda x, p, t, b, r, cov: torch.stack(
+        [-p[1] * x[0] + b[0], p[1] * x[0] - p[0] * x[1], 0.0 * x[2]]),
+        out=_out, nstates=3, ndrugs=1, nout=1)
+    psi = {}
     for engine in ("auto", "general", "fused"):
+        psi[engine] = pt.log_likelihood_matrix(_model(), data, support, ems, engine=engine)
         with pytest.raises(PharmsolError, match="does not support covariates"):
-            pt.log_likelihood_matrix(_model(), data, support, ems,
-                                     engine=engine)
+            pt.log_likelihood_matrix(ode, data, support, ems, engine=engine)
+    torch.testing.assert_close(psi["fused"], psi["general"], rtol=1e-10, atol=0)
+    assert torch.isfinite(psi["auto"]).all()
 
 
 def test_unknown_engine_and_bad_support_raise(slice_inputs):

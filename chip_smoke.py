@@ -5,12 +5,14 @@
 The main paths are the population log-likelihood matrix ("psi") through
 ``pharmsol_tpu_torch.log_likelihood_matrix`` with ``device="cuda"``: for
 closed-form models, whose engine is the hand-written CUDA kernel
-``pharmsol_tpu_torch/csrc/fused_psi.cu`` (K1a), for ODE models, whose
-engine is ``pharmsol_tpu_torch/csrc/fused_ode.cu`` (K2a) with a right-hand
-side generated from the model's closure, and for SDE models, whose engine is
-the particle filter ``pharmsol_tpu_torch/csrc/fused_sde.cu`` (K3a) with the
-drift and diffusion generated the same way. Phases, each printing its own
-lines; any failure raises and the exit code is not 0:
+``pharmsol_tpu_torch/csrc/fused_psi.cu`` (K1a, and K1b with covariates, seq,
+lag, fa or init), for ODE models, whose engine is
+``pharmsol_tpu_torch/csrc/fused_ode.cu`` (K2a, and K2e with covariates, lag,
+fa or init) with a right-hand side generated from the model's closure, and
+for SDE models, whose engine is the particle filter
+``pharmsol_tpu_torch/csrc/fused_sde.cu`` (K3a) with the drift and diffusion
+generated the same way. Phases, each printing its own lines; any failure
+raises and the exit code is not 0:
 
 0. environment: torch, CUDA and nvcc versions, the card's name and power
    limit;
@@ -29,7 +31,14 @@ lines; any failure raises and the exit code is not 0:
    segment, float64 within 1e-8 relative; float32 within the ``ode_dopri5``
    and ``ode_multi_input`` budgets on their own cases. Then the 2-cmt oral
    ODE at tolerances 1e-9 against the closed-form 2-cmt oral psi on the same
-   Short data, float64, within 1e-5 relative;
+   Short data, float64, within 1e-5 relative.
+   K2e: every mode of ``utils/f32_budget.py::ODE_FEATURE_CASES`` (constant,
+   linear and carried-forward covariates, static lag, fa, lag + fa, lag with
+   an infusion, two inputs firing in one segment, time- and covariate-
+   dependent lag/fa slot tables, init rows and planes, tsit5) and the
+   reference's covariate model at 64 x 48, merged and per segment, float64
+   within 1e-8 relative, float32 within each case's budget row; and the
+   ``ode_lag_fa`` and ``ode_tv_covariate`` budget cases;
 3. the slices at full width through the public entry point, in float32 and
    float64, three calls each with fresh supports: 2-cmt oral "Short" at
    16384 subjects x 512 supports and 1-cmt oral at 10000 x 1000 (K1a), and
@@ -57,7 +66,14 @@ lines; any failure raises and the exit code is not 0:
    particles) through the public entry point, float32 and float64, three
    calls each with fresh supports, each taking the fused engine with exactly
    one K3a launch and giving psi of the right shape without NaN;
-7. K3a alone at full width and one end-to-end call with its steps.
+7. K3a alone at full width and one end-to-end call with its steps;
+8. the K2e slice, "ODE covariates 16384 x 512": the reference's covariate
+   example (``examples/covariates.py``: creatinine with knots at 0 and 1 h,
+   a constant age, lag, 100 mg at 0, 2 and 4 h) through the public entry
+   point, three calls per dtype, each on the fused engine with exactly one
+   K2e launch, held against the general engine on 2048 subjects (float64
+   within 1e-4); then K2e's time, its twin's, the general engine's, one
+   end-to-end call with the plan's share, and its bound.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. All data comes from a numpy
@@ -111,6 +127,17 @@ FEATURE_KERNEL_RECORD = {
     "source": "pharmsol_tpu_torch/csrc/fused_psi.cu",
     "replaces": "pharmsol_tpu/ops/pallas_psi.py:432",
 }
+ODE_FEATURE_KERNEL_RECORD = {
+    "id": "K2e",
+    "name": "fused_ode_feature",
+    "route": "cuda",
+    "source": "pharmsol_tpu_torch/csrc/fused_ode.cu",
+    "replaces": "pharmsol_tpu/ops/pallas_ode.py:546",
+}
+# the K2e slice: the reference's covariate model, subjects x supports, and
+# the subjects of its check against the general engine
+ODE_COV_SHAPE = (16384, 512)
+ODE_COV_CHECK_ROWS = 2048
 # subjects of the two K1b cells (Covariate Short, time-varying 10k)
 FEATURE_SUBJECTS = (16384, 10000)
 # the card's published rates (NVIDIA H100 SXM data sheet, at 700 W): memory,
@@ -320,15 +347,36 @@ def run_ode_kernel(plan, plain: bool = False, merge: bool = True) -> torch.Tenso
     return fn(*plan.streams, plan.support, plan.rhs, **plan.kernel_kwargs(merge))
 
 
-def ode_build_targets():
+def ode_feature_cases():
+    """K2e's phase-2 cases: every mode of ``ODE_FEATURE_CASES`` at 64
+    subjects x 48 supports, the reference's covariate model at that shape,
+    and the two feature budget rows on their own cases: name -> (model,
+    data, support, ems, budget row)."""
+    from pharmsol_tpu_torch.utils.f32_budget import (
+        ODE_FEATURE_CASES, covariate_model_case, ode_case, ode_feature_case,
+    )
+
+    cases = {name: (*ode_feature_case(name, 64, 48, seed=SEED + i), row)
+             for i, (name, row) in enumerate(ODE_FEATURE_CASES.items())}
+    cases["covariate_model"] = (*covariate_model_case(64, 48, seed=SEED), "ode_lag_fa")
+    for name in ("ode_lag_fa", "ode_tv_covariate"):
+        cases[f"budget {name}"] = (*ode_case(name), name)
+    return cases
+
+
+def ode_build_targets(feature_cases):
     """The ODE library of every RHS this script runs (one per distinct
-    generated source)."""
+    generated source): the K2a models and the K2e cases, whose RHS is
+    generated with their data's covariates by the plan."""
     from pharmsol_tpu_torch.ops import _build
     from pharmsol_tpu_torch.ops.rhs_codegen import generate_rhs
 
     targets = {}
     for name, (rhs, n, ndrugs, _, v, _s) in ODE_MODELS.items():
         gen = generate_rhs(rhs, n, v + 1, ndrugs)
+        targets.setdefault(gen.key, (name, _build.generated_target(_build.ODE, gen)))
+    for name, (model, data, support, ems, _) in feature_cases.items():
+        gen = ode_plan_for(model, data, support, ems, torch.float64).rhs
         targets.setdefault(gen.key, (name, _build.generated_target(_build.ODE, gen)))
     return list(targets.values())
 
@@ -352,10 +400,10 @@ def phase_environment() -> str:
     return card
 
 
-def phase_build(pt) -> float:
+def phase_build(pt, feature_cases) -> float:
     from pharmsol_tpu_torch.ops import _build
 
-    ode_targets = ode_build_targets()
+    ode_targets = ode_build_targets(feature_cases)
     sde_targets = sde_build_targets(pt)
     targets = ([_build.psi_target()] + [t for _, t in ode_targets]
                + [t for _, t in sde_targets])
@@ -368,22 +416,25 @@ def phase_build(pt) -> float:
         f"one process each ({' '.join(_build.NVCC_FLAGS)})")
     for name, (path, seconds, output) in zip(names, results):
         log(f"[1]   {name}: {path.name} in {seconds:.2f} s")
-        # ptxas -v: one summary per instantiation; all of K1a, K2a for the
-        # 3-state Short RHS and K3a for the README model
-        if ((name.startswith("fused_ode") and "short" not in name)
+        # ptxas -v: one summary per instantiation; all of K1a, K2a and K2e
+        # for the 3-state Short RHS and the covariate model's RHS, K3a for
+        # the README model
+        if ((name.startswith("fused_ode") and "short" not in name
+             and "covariate_model" not in name)
                 or (name.startswith("fused_sde") and "readme" not in name)):
             continue
         kernel, spill = None, ""
         for ln in output.splitlines():
             m = (re.search(r"fused_psi_kernelI([fd])Li(\d+)E", ln)
                  or re.search(r"fused_psi_feature_kernelI([fd])Li(\d+)E", ln)
-                 or re.search(r"fused_ode_kernelI([fd])Li(\d+)E", ln)
+                 or re.search(r"fused_ode_kernelI([fd])Li(\d+)ELb(\d)E", ln)
                  or re.search(r"fused_sde_kernelI([fd])Li(\d+)E", ln))
             if m and "Compiling entry function" in ln:
                 what = ("K1b code" if "fused_psi_feature" in ln else
                         "K1a code" if "fused_psi" in ln else
                         "particles/thread" if "fused_sde" in ln else
-                        "solver " + ("dopri5" if m.group(2) == "0" else "tsit5"))
+                        ("K2e" if m.group(3) == "1" else "K2a") + " solver "
+                        + ("dopri5" if m.group(2) == "0" else "tsit5"))
                 kernel = f"{'f32' if m.group(1) == 'f' else 'f64'} {what} {m.group(2):>2}"
             elif "spill stores" in ln:
                 spill = ln.strip()
@@ -525,6 +576,56 @@ def phase_ode_kernels(pt, rng) -> None:
         log(f"[2] K2a budget case {name}: f32 kernel {eb:.3e} (<= {budget:g})")
         if eb > budget:
             raise AssertionError(f"{name}: f32 kernel {eb} > budget {budget}")
+
+
+def describe_ode_features(plan) -> str:
+    """K2e's inputs in a plan, for the log."""
+    f = plan.features
+    parts = [f"{n} {m}" for n, m in zip(plan.rhs.cov_names, plan.rhs.cov_modes)]
+    for key in ("init_rows", "init_planes"):
+        if f[key] is not None:
+            parts.append(key)
+    for key, slots in (("lag_plane", "lag_slots"), ("fa_plane", "fa_slots")):
+        if f[key] is not None:
+            parts.append(f"{key.split('_')[0]} {'slots' if f[slots] else 'planes'}"
+                         f" x{f[key].shape[0]}")
+    parts.append("merged runs" if plan.merge_runs else "per segment")
+    return ", ".join(parts)
+
+
+def phase_ode_feature_kernels(pt, cases) -> None:
+    """K2e against its twin on the card in every mode (``ode_feature_cases``,
+    64 subjects x 48 supports) and on the two feature budget cases: float64
+    within 1e-8 relative, merged and segment by segment where the plan
+    merges; float32 against the float64 twin within the case's budget row;
+    every call one K2e launch and no K2a launch."""
+    from pharmsol_tpu_torch.ops import fused_ode
+    from pharmsol_tpu_torch.utils.f32_budget import F32_BUDGET, f32_error
+
+    for name, (model, data, support, ems, row) in cases.items():
+        plan64 = ode_plan_for(model, data, support, ems, torch.float64)
+        plan32 = ode_plan_for(model, data, support, ems, torch.float32)
+        for merge in ((True, False) if plan64.merge_runs is not None else (True,)):
+            twin64 = run_ode_kernel(plan64, plain=True, merge=merge)
+            before = (fused_ode.LAUNCHES, fused_ode.FEATURE_LAUNCHES)
+            got64 = run_ode_kernel(plan64, merge=merge)
+            got32 = run_ode_kernel(plan32, merge=merge)
+            torch.cuda.synchronize()
+            launches = (fused_ode.LAUNCHES - before[0], fused_ode.FEATURE_LAUNCHES - before[1])
+            label = f"{name}/{'merged' if merge else 'per-segment'}"
+            if launches != (0, 2):
+                raise AssertionError(f"K2e {label}: (K2a, K2e) launches {launches}, not (0, 2)")
+            if not (torch.isfinite(got64).all() and torch.isfinite(got32).all()):
+                raise AssertionError(f"K2e {label}: non-finite kernel psi")
+            e64 = rel_err(got64, twin64, 1.0)
+            e32 = f32_error(got32.cpu().numpy(), twin64.cpu().numpy())
+            log(f"[2] K2e {label:32s} {len(data)}x{support.shape[0]} f64 kernel vs twin rel "
+                f"{e64:.3e} (<= 1e-8); f32 kernel vs f64 twin {e32:.3e} (<= {row} "
+                f"{F32_BUDGET[row]:g}); {describe_ode_features(plan64)}")
+            if e64 > 1e-8:
+                raise AssertionError(f"K2e {label}: f64 kernel vs twin {e64} > 1e-8")
+            if e32 > F32_BUDGET[row]:
+                raise AssertionError(f"K2e {label}: f32 kernel {e32} > {row} {F32_BUDGET[row]}")
 
 
 def phase_cross_family(pt, rng) -> None:
@@ -693,6 +794,178 @@ def phase_ode_slice(pt, rng, data, ems) -> tuple:
         if err > tol:
             raise AssertionError(f"{label} {dtype}: fused vs general {err} > {tol}")
     return label, model, launches
+
+
+def phase_ode_feature_slice(pt, rng) -> tuple:
+    """The K2e slice: the reference's covariate model (creatinine with two
+    knots, a constant age, lag, three doses) at 16384 subjects x 512
+    supports through the public entry point, three calls in float32 and
+    three in float64 with fresh supports, each on the fused engine with
+    exactly one K2e launch and no K2a launch; then each held against the
+    general engine on the card on its first 2048 subjects (float64 within
+    1e-4, float32 within the ``ode_lag_fa`` budget of the float64 general
+    engine)."""
+    from pharmsol_tpu_torch.ops import fused_ode
+    from pharmsol_tpu_torch.utils.f32_budget import (
+        COVARIATE_MODEL_CENTRE, F32_BUDGET, covariate_model_case, f32_error,
+    )
+
+    n, S = ODE_COV_SHAPE
+    rows = ODE_COV_CHECK_ROWS
+    label = f"ode_covariates_{n}x{S}"
+    t0 = time.perf_counter()
+    model, data, _, ems = covariate_model_case(n, 1, seed=SEED)
+    t_build = time.perf_counter() - t0
+    supports = [jittered_support(COVARIATE_MODEL_CENTRE, S, rng) for _ in range(3)]
+    # the main path's run: every launch counted here is one of its calls
+    fused_ode.LAUNCHES = 0
+    fused_ode.FEATURE_LAUNCHES = 0
+    results = []
+    for dtype in (torch.float32, torch.float64):
+        pt.set_float_dtype(dtype)
+        for sp in supports:
+            before = fused_ode.FEATURE_LAUNCHES
+            psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
+            torch.cuda.synchronize()
+            dec = pt.last_engine_decision(model)
+            if dec["engine"] != "fused":
+                raise AssertionError(f"{label}: engine {dec}")
+            if fused_ode.FEATURE_LAUNCHES - before != 1:
+                raise AssertionError(f"{label}: {fused_ode.FEATURE_LAUNCHES - before} K2e "
+                                     "launches in one call")
+            if tuple(psi.shape) != (n, S) or psi.device.type != "cuda":
+                raise AssertionError(f"{label}: psi {tuple(psi.shape)} on {psi.device}")
+            bad = int((~torch.isfinite(psi)).sum())
+            if bad:
+                raise AssertionError(f"{label} {dtype}: {bad} non-finite psi cells")
+            results.append((dtype, sp, psi))
+    launches, k2a = fused_ode.FEATURE_LAUNCHES, fused_ode.LAUNCHES
+    log(f"[8] {label}: {len(results)} log_likelihood_matrix calls on cuda, engine fused, "
+        f"{launches} K2e launches, {k2a} K2a launches")
+    if k2a:
+        raise AssertionError(f"{label}: the main path launched K2a")
+    plan = ode_plan_for(model, data, supports[0], ems, torch.float64)
+    log(f"[8] {label}: K2e inputs {describe_ode_features(plan)}")
+    sub = pt.Data(data.subjects()[:rows])
+    pt.set_float_dtype(torch.float64)
+    general = [pt.log_likelihood_matrix(model, sub, sp, ems, device="cuda", engine="general")
+               for sp in supports]
+    torch.cuda.synchronize()
+    for j, (dtype, sp, psi) in enumerate(results):
+        want = general[j % len(supports)]
+        if dtype == torch.float64:
+            err, tol = rel_err(psi[:rows], want, 1.0), 1e-4
+        else:
+            err = f32_error(psi[:rows].cpu().numpy(), want.cpu().numpy())
+            tol = F32_BUDGET["ode_lag_fa"]
+        log(f"[8] {label} {str(dtype)[6:]}: fused vs f64 general on subjects 0-{rows - 1} "
+            f"rel {err:.3e} (<= {tol:g}); psi mean {float(psi.double().mean()):.6f}")
+        if err > tol:
+            raise AssertionError(f"{label} {dtype}: fused vs general {err} > {tol}")
+    return label, model, data, ems, launches, t_build
+
+
+def phase_ode_feature_times(pt, label, model, data, ems, t_build, card: str) -> dict:
+    """K2e alone, its twin, the general engine on the subjects of the check,
+    one end-to-end call and its steps at the slice's shape; K2e held against
+    its twin there; the bound of its work."""
+    from pharmsol_tpu_torch.likelihood.matrix import _general_psi
+    from pharmsol_tpu_torch.likelihood.plans.ode import _FusedOdePsiPlan
+    from pharmsol_tpu_torch.ops.fused_ode import psi_ode_plain
+    from pharmsol_tpu_torch.utils.f32_budget import (
+        COVARIATE_MODEL_CENTRE, F32_BUDGET, f32_error,
+    )
+
+    n, S = ODE_COV_SHAPE
+    rows = ODE_COV_CHECK_ROWS
+    sp = jittered_support(COVARIATE_MODEL_CENTRE, S, np.random.RandomState(SEED + 5))
+    sub = pt.Data(data.subjects()[:rows])
+    grid = model.lower(data.subjects())
+    sub_grid = model.lower(sub.subjects())
+    lowered = ems.lower(model.resolve_output_label, model.nouteqs())
+    out, twin64 = {}, None
+    for dtype in (torch.float64, torch.float32):
+        pt.set_float_dtype(dtype)
+        d = str(dtype)[6:]
+        plan = ode_plan_for(model, data, sp, ems, dtype)
+        kw = plan.kernel_kwargs()
+        counts = {}
+        got = run_ode_kernel(plan)
+        twin = psi_ode_plain(*plan.streams, plan.support, plan.rhs, counts=counts, **kw)
+        torch.cuda.synchronize()
+        if dtype == torch.float64:
+            # among 8.4 M cells a few take one accept/reject decision the
+            # other way at a rounding-level tie (fused multiply-adds), which
+            # moves psi by far less than the controller's error: every cell
+            # within 1e-6 relative, 99.9% within 1e-8
+            twin64 = twin
+            abs_err = float((got - twin).abs().max())
+            rel, tol = rel_err(got, twin, 1.0), 1e-6
+            cell = (got - twin).abs() / twin.abs().clamp(min=1.0)
+            share = float((cell <= 1e-8).double().mean())
+            if share < 0.999:
+                raise AssertionError(f"{label} {dtype}: {share} of cells within 1e-8 < 0.999")
+            note = f"; {share * 100:.4f}% of cells within 1e-8 (>= 99.9%)"
+        else:
+            abs_err = float((got.double() - twin64).abs().max())
+            rel, tol = f32_error(got.cpu().numpy(), twin64.cpu().numpy()), F32_BUDGET["ode_lag_fa"]
+            note = ", against the f64 twin"
+        log(f"[8] K2e vs twin {label} {d}: max abs {abs_err:.3e}, rel {rel:.3e} "
+            f"(<= {tol:g}){note}")
+        if rel > tol:
+            raise AssertionError(f"{label} {dtype}: K2e vs twin {rel} > {tol}")
+
+        def build_plan():  # the plan alone, the grid lowered already
+            return _FusedOdePsiPlan(model, grid, sp, lowered, torch.device("cuda"), dtype)
+
+        t = {
+            "kernel": cuda_ms(lambda: run_ode_kernel(plan), 10),
+            "twin": cuda_ms(lambda: run_ode_kernel(plan, plain=True), 1, 1),
+            "general": wall_ms(lambda: _general_psi(
+                model, sub_grid, sp, lowered, torch.device("cuda"), dtype), 2),
+            "end_to_end": wall_ms(lambda: pt.log_likelihood_matrix(
+                model, data, sp, ems, device="cuda"), 5),
+        }
+        psi_rows = run_ode_kernel(plan)
+        parts = {
+            "lower_cached": wall_ms(lambda: model.lower(data.subjects()), 3),
+            "plan": wall_ms(build_plan, 3),
+            "finalize": cuda_ms(lambda: plan.finalize(psi_rows), 10),
+        }
+        prof = cProfile.Profile()
+        prof.runcall(build_plan)
+        top = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][3])
+        top = [(fn, st[3] * 1e3) for (path, _, fn), st in top
+               if "pharmsol_tpu_torch" in path and fn != "__init__"][:6]
+        ops = counts["steps"] * ode_step_ops(model)
+        nbytes = plan_bytes(plan, kw, n, S)
+        t["bound"], t["bound_by"] = bound(nbytes, ops, dtype)
+        cells = n * S
+        for k in ("kernel", "twin", "end_to_end"):
+            log(f"[8] {label} {d} {k:10s} {t[k]:10.3f} ms  {cells / (t[k] * 1e-3):.4g} "
+                f"cells/s  ({card})")
+        log(f"[8] {label} {d} general    {t['general']:10.3f} ms on subjects 0-{rows - 1} "
+            f"x {S}  ({card})")
+        log(f"[8] {label} {d} end_to_end parts (ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in parts.items()))
+        log(f"[8] {label} {d} plan, costliest calls (ms, cumulative, profiled): "
+            + ", ".join(f"{fn} {ms:.1f}" for fn, ms in top))
+        log(f"[8] {label} {d} shares of end_to_end: kernel {t['kernel'] / t['end_to_end']:.4f}, "
+            f"plan {parts['plan'] / t['end_to_end']:.4f}, lowering lookup "
+            f"{parts['lower_cached'] / t['end_to_end']:.4f}, finalize "
+            f"{parts['finalize'] / t['end_to_end']:.4f} ({card})")
+        log(f"[8] {label} {d} K2e bound {t['bound']:.5g} ms by {t['bound_by']} "
+            f"({nbytes / 1e6:.2f} MB, {counts['steps']} step attempts, {ops / 1e9:.3f} G "
+            f"operations); kernel at {t['bound'] / t['kernel']:.3f} of it")
+        t["abs_err"] = abs_err
+        t["plan"] = parts["plan"]
+        out[dtype] = t
+    model._lower_cache.clear()
+    t0 = time.perf_counter()
+    model.lower(data.subjects())
+    log(f"[8] {label} host: subject builder {t_build * 1e3:.1f} ms, lowering "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms ({n} subjects)")
+    return out
 
 
 def ode_end_to_end_parts(model, data, sp, ems, dtype, plan) -> dict:
@@ -1231,9 +1504,19 @@ def psi_work(plan) -> tuple:
 
 
 def plan_bytes(plan, kwargs, R: int, S: int) -> int:
-    """Bytes of an ODE or SDE plan's inputs read once and psi written once."""
-    return (tensor_bytes(*plan.streams, plan.support,
-                         *(v for v in kwargs.values() if isinstance(v, torch.Tensor)))
+    """Bytes of an ODE or SDE plan's inputs read once and psi written once
+    (K2e's covariate streams among them)."""
+    def tensors(v):
+        if isinstance(v, torch.Tensor):
+            yield v
+        elif isinstance(v, dict):
+            for w in v.values():
+                yield from tensors(w)
+        elif isinstance(v, (tuple, list)):
+            for w in v:
+                yield from tensors(w)
+
+    return (tensor_bytes(*plan.streams, plan.support, *tensors(list(kwargs.values())))
             + R * S * plan.support.element_size())
 
 
@@ -1245,7 +1528,8 @@ def ode_step_ops(model) -> int:
     one = torch.ones
     rhs = count_ops(model._diffeq, one(n, dtype=torch.float64), one(8, dtype=torch.float64),
                     torch.tensor(1.0, dtype=torch.float64), torch.zeros(nin, dtype=torch.float64),
-                    torch.zeros(nin, dtype=torch.float64), None)
+                    torch.zeros(nin, dtype=torch.float64),
+                    lambda name, t=None: torch.tensor(50.0, dtype=torch.float64))
     return 6 * rhs + 80 * n
 
 
@@ -1586,11 +1870,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.RandomState(SEED)
     card = phase_environment()
-    phase_build(pt)
+    ode_features = ode_feature_cases()
+    phase_build(pt, ode_features)
     torch.cuda.synchronize()
     phase_kernels(pt, rng)
     phase_feature_kernels(pt)
     phase_ode_kernels(pt, rng)
+    phase_ode_feature_kernels(pt, ode_features)
     phase_cross_family(pt, rng)
     torch.cuda.synchronize()
     ems = pt.AssayErrorModels().add(
@@ -1617,6 +1903,12 @@ def main() -> int:
     torch.cuda.synchronize()
     sde_label, sde, sde_data, sde_launches = phase_sde_slice(pt, rng)
     sde_times = phase_sde_times(pt, sde_label, sde, sde_data, card)
+    torch.cuda.synchronize()
+    cov_label, cov_model, cov_data, cov_ems, cov_launches, cov_build = \
+        phase_ode_feature_slice(pt, rng)
+    torch.cuda.synchronize()
+    cov_times = phase_ode_feature_times(pt, cov_label, cov_model, cov_data, cov_ems,
+                                        cov_build, card)
     torch.cuda.synchronize()
 
     main_label = workloads[0][0]
@@ -1676,6 +1968,26 @@ def main() -> int:
         bound_ms_f64=o64["bound"],
         shape=ode_label,
     )
+    c32, c64 = cov_times[torch.float32], cov_times[torch.float64]
+    ode_feature_record = dict(
+        ODE_FEATURE_KERNEL_RECORD,
+        launches=cov_launches,
+        max_abs_err=c64["abs_err"],
+        max_abs_err_f32=c32["abs_err"],
+        ms=c32["kernel"],
+        plain_ms=c32["twin"],
+        bound_ms=c32["bound"],
+        bound_by=c32["bound_by"],
+        library_ms=None,
+        ms_f64=c64["kernel"],
+        plain_ms_f64=c64["twin"],
+        bound_ms_f64=c64["bound"],
+        shape=cov_label,
+        end_to_end_ms=c32["end_to_end"],
+        end_to_end_ms_f64=c64["end_to_end"],
+        plan_ms=c32["plan"],
+        plan_ms_f64=c64["plan"],
+    )
     r32, r64 = sde_reduced[torch.float32], sde_reduced[torch.float64]
     sde_record = dict(
         SDE_KERNEL_RECORD,
@@ -1700,7 +2012,8 @@ def main() -> int:
         end_to_end_ms_full_f64=sde_times[torch.float64]["end_to_end"],
         shape_full=sde_label,
     )
-    print(json.dumps({"kernels": [record, feature_record, ode_record, sde_record]}))
+    print(json.dumps({"kernels": [record, feature_record, ode_record, ode_feature_record,
+                                  sde_record]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,39 @@
-// Fused population psi for ODE models, explicit Runge-Kutta tier, for Hopper
-// (sm_90a).
+// Fused population psi for ODE models, explicit Runge-Kutta tier and its
+// feature tier, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel pharmsol_tpu/ops/pallas_ode.py::psi_ode
-// (_make_ode_kernel, the explicit `integrate` march: dopri5 and tsit5, merged
-// dense output, RHS-difference boluses, several dose inputs, linear outputs,
-// censoring). Plain PyTorch twin:
+// (_make_ode_kernel): K2a, the explicit `integrate` march (dopri5 and tsit5,
+// merged dense output, RHS-difference boluses, several dose inputs, linear
+// outputs, censoring), and K2e, its feature tier (covariate lanes and
+// LaneCov :417/:644-660, init :1614-1618, the lag/fa split march with slot
+// tables :1665-1807). Plain PyTorch twin:
 // pharmsol_tpu_torch/ops/fused_ode.py::psi_ode_plain.
 //
 // The model's right-hand side is not written here: it is generated from the
 // model's torch closure by pharmsol_tpu_torch/ops/rhs_codegen.py as one
-// straight-line function `rhs<T>(x, p, t, b, rateiv, dx)` and included
-// through PHARMSOL_ODE_RHS, so each model builds its own library.
+// straight-line function `rhs<T>(x, p, t, b, rateiv, cov_a, cov_b, dx)` and
+// included through PHARMSOL_ODE_RHS, so each model builds its own library.
+// A covariate reads cov_a[i] (constant over the row) or cov_a[i] +
+// cov_b[i] * t (affine within the segment).
+//
+// Two instantiations of one kernel template: FEAT = false is K2a, whose code
+// is the explicit tier's alone (no covariate, init, lag or fa work is
+// compiled in); FEAT = true is K2e. K2e's inputs ride in one struct of
+// pointers (Feat, null = off):
+// - covariates: cov_a, cov_b [NCOV, R, M]: per segment column, the constant
+//   value or the affine (a, b) of the segment (warp broadcasts);
+// - init: init_rows [N, S] or init_planes [N, R, S], times init_mask [R];
+// - lag, fa: plane stacks [n, R, S] (coalesced along supports), selected per
+//   (bolus plane, segment) by the slot tables [nb, M] of the int table (-1:
+//   no dose lands there; static planes have slot k in every column).
+// With lag, each bolus plane's pending dose lives in two registers
+// (pend_amt, pend_rem) and the segment march splits at the fire times: the
+// doses due at the breakpoint fire after its observation, new doses park
+// with their lag, one pass per bolus plane marches to the next earliest fire
+// time (equal times fire together, strict rem < dt), and the last pass runs
+// to the segment's end; pend_rem counts down on spanned segments only. A dose
+// at time t is x += f(x, b, t) - f(x, 0, t) with the segment's covariates.
+// The Hairer starting step is estimated on segment 0's first pass only.
 //
 // Layout. One thread per (row, support) cell. threadIdx.x runs along the
 // supports, so the parameter rows [P, S], the output coefficients and the psi
@@ -40,10 +63,13 @@
 // plus ~(7 + 6) * n fused multiply-adds for the stages and the error norm,
 // a square root and a power for the controller; a 3-state PK model takes
 // ~20-40 trials over a 12 h profile, about 10^4 instructions per cell. Memory
-// is minor (one psi value written per cell). Adaptive step counts differ
-// between the lanes of a warp, so a warp runs to its slowest lane; that and
-// the float64 pow/log software routines are the known costs of this first,
-// untuned version (no shared-memory staging, no tuning of the block shape).
+// is minor (one psi value written per cell, K2e's [R, S] planes read once).
+// Adaptive step counts differ between the lanes of a warp, so a warp runs to
+// its slowest lane; with lag the fire times differ per support too, so the
+// lanes of a warp split their segments at different times. That and the
+// float64 pow/log software routines (a covariate model's RHS calls pow in
+// every stage) are the known costs of this first, untuned version (no
+// shared-memory staging, no tuning of the block shape).
 //
 // Build (plain C interface, loaded with ctypes; ops/_build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -65,6 +91,8 @@ constexpr int N = PHARMSOL_RHS_NSTATES;
 constexpr int NP = PHARMSOL_RHS_NPARAMS;
 constexpr int NIN = PHARMSOL_RHS_NINPUT;
 constexpr int NS = 7;  // stages of both tableaus (FSAL: stage 7 = f(x_new))
+constexpr int NCOV = PHARMSOL_RHS_NCOV;
+constexpr int NC = NCOV > 0 ? NCOV : 1;  // register arrays of the covariates
 
 // Butcher tableaus: the constants of pharmsol_tpu_torch/engine/ode.py, as
 // the same double expressions.
@@ -161,6 +189,21 @@ __device__ __forceinline__ T log_ndtr(T v) {
   return Fn<T>::log1p(T(-0.5) * Fn<T>::erfc(v * inv_sqrt2));
 }
 
+// K2e's feature inputs (null = off).
+template <typename T>
+struct Feat {
+  const T* cov_a;        // [NCOV, R, M]
+  const T* cov_b;        // [NCOV, R, M] or null (no affine covariate)
+  const T* lag;          // [n_lag, R, S]
+  const T* fa;           // [n_fa, R, S]
+  const T* init_rows;    // [N, S]
+  const T* init_planes;  // [N, R, S]
+  const T* init_mask;    // [R]
+  const int* lag_slots;  // [nb, M]
+  const int* fa_slots;   // [nb, M]
+  int n_lag, n_fa;
+};
+
 template <typename T>
 struct Args {
   const T* seg_dt;     // [R, M]
@@ -182,6 +225,7 @@ struct Args {
   T* out;              // [R, S]
   int R, S, M, nb, nr, n_out, n_runs, max_iters;
   T rtol, atol, h0;
+  Feat<T> f;           // K2e only
 };
 
 // Observation term of stream element i for state xv (0 when masked).
@@ -214,12 +258,32 @@ __device__ __forceinline__ bool all_finite(const T* v) {
   return ok;
 }
 
-// The adaptive march of one run (the JAX kernel's `integrate`, explicit
-// tier). x and h are updated in place; observation terms of the run's
-// interior columns m0+1..m1-1 are added to ll in column order.
+// A bolus of `amt` into RHS input `in` at time t: x += f(x, b) - f(x, 0),
+// the general engine's own semantics.
+template <typename T>
+__device__ __forceinline__ void dose(T* x, const T* p, T t, int in, T amt,
+                                     const T* rate, const T* ca,
+                                     const T* cb) {
+  T bv[NIN], bz[NIN], dw[N], dz[N];
+#pragma unroll
+  for (int j = 0; j < NIN; ++j) {
+    bv[j] = (j == in) ? amt : T(0);
+    bz[j] = T(0);
+  }
+  rhs<T>(x, p, t, bv, rate, ca, cb, dw);
+  rhs<T>(x, p, t, bz, rate, ca, cb, dz);
+#pragma unroll
+  for (int j = 0; j < N; ++j) x[j] = x[j] + (dw[j] - dz[j]);
+}
+
+// The adaptive march of one run over `target` time from t0 (the JAX
+// kernel's `integrate`, explicit tier). x and h are updated in place;
+// observation terms of the run's interior columns m0+1..m1-1 are added to ll
+// in column order. ca, cb: the run's covariates.
 template <typename T, int SOLVER>
 __device__ __forceinline__ void march(const Args<T>& a, T* x, T& h, T& ll,
-                                      const T* p, const T* rate, T t0,
+                                      const T* p, const T* rate, const T* ca,
+                                      const T* cb, T t0, T target,
                                       size_t row, int s, int m0, int m1,
                                       bool estimate_h) {
   using Tb = Tab<SOLVER>;
@@ -228,9 +292,6 @@ __device__ __forceinline__ void march(const Args<T>& a, T* x, T& h, T& ll,
 #pragma unroll
   for (int j = 0; j < NIN; ++j) bz[j] = T(0);
 
-  // run length and the first interior offset, summed as the JAX kernel does
-  T target = a.seg_dt[row + m0];
-  for (int mm = m0 + 1; mm < m1; ++mm) target = target + a.seg_dt[row + mm];
   const T thr = target - T(1e-6) * pm_max(target, T(1e-30));
   const bool live0 = target > T(0) && all_finite(x);
   int mm = m0 + 1;                 // next interior column
@@ -243,7 +304,7 @@ __device__ __forceinline__ void march(const Args<T>& a, T* x, T& h, T& ll,
   }
 
   T ks[NS][N];
-  rhs<T>(x, p, t0, bz, rate, ks[0]);
+  rhs<T>(x, p, t0, bz, rate, ca, cb, ks[0]);
   if (estimate_h) {
     // Hairer-Norsett-Wanner II.4 starting step, floored at h0
     T d0 = T(0), d1 = T(0);
@@ -260,7 +321,7 @@ __device__ __forceinline__ void march(const Args<T>& a, T* x, T& h, T& ll,
     T x1[N], f1[N];
 #pragma unroll
     for (int j = 0; j < N; ++j) x1[j] = x[j] + h0a * ks[0][j];
-    rhs<T>(x1, p, t0 + h0a, bz, rate, f1);
+    rhs<T>(x1, p, t0 + h0a, bz, rate, ca, cb, f1);
     T d2 = T(0);
 #pragma unroll
     for (int j = 0; j < N; ++j) {
@@ -298,7 +359,7 @@ __device__ __forceinline__ void march(const Args<T>& a, T* x, T& h, T& ll,
         }
         xi[j] = x[j] + ht * acc;
       }
-      rhs<T>(xi, p, t0 + tau + T(Tb::c(i)) * ht, bz, rate, ks[i]);
+      rhs<T>(xi, p, t0 + tau + T(Tb::c(i)) * ht, bz, rate, ca, cb, ks[i]);
     }
     T xn[N];
     T err2 = T(0);
@@ -375,7 +436,16 @@ __device__ __forceinline__ void march(const Args<T>& a, T* x, T& h, T& ll,
   if (live0) h = hc;
 }
 
-template <typename T, int SOLVER>
+// The fa scale of bolus plane k at segment m (K2e; 1 without fa).
+template <typename T>
+__device__ __forceinline__ T fa_scale(const Args<T>& a, int k, int m,
+                                      size_t rs) {
+  if (a.f.n_fa == 0) return T(1);
+  const int slot = a.f.fa_slots[k * a.M + m];
+  return slot < 0 ? T(1) : a.f.fa[(size_t)slot * a.R * a.S + rs];
+}
+
+template <typename T, int SOLVER, bool FEAT>
 __global__ void __launch_bounds__(256) fused_ode_kernel(const Args<T> a) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= a.S) return;
@@ -387,11 +457,29 @@ __global__ void __launch_bounds__(256) fused_ode_kernel(const Args<T> a) {
   for (int r = blockIdx.y * blockDim.y + threadIdx.y; r < a.R;
        r += gridDim.y * blockDim.y) {
     const size_t row = (size_t)r * a.M;
+    const size_t rs = (size_t)r * a.S + s;  // this cell in an [R, S] plane
     T x[N];
 #pragma unroll
     for (int j = 0; j < N; ++j) x[j] = T(0);
+    if (FEAT && a.f.init_mask != nullptr) {
+      // occasion-0 rows start from init (t = 0), the others from zero
+      const T im = a.f.init_mask[r];
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        x[j] = im * (a.f.init_planes != nullptr
+                         ? a.f.init_planes[(size_t)j * a.R * a.S + rs]
+                         : a.f.init_rows[(size_t)j * a.S + s]);
+    }
     T ll = T(0);
     T h = a.h0;
+    T ca[NC], cb[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) ca[c] = cb[c] = T(0);
+    // each bolus plane's pending (lagged) dose: amount and time to fire
+    T pend_amt[NIN], pend_rem[NIN];
+#pragma unroll
+    for (int k = 0; k < NIN; ++k) pend_amt[k] = pend_rem[k] = T(0);
+
     for (int ri = 0; ri < a.n_runs; ++ri) {
       const int m0 = a.runs[ri], m1 = a.runs[ri + 1];
       const size_t i0 = row + m0;
@@ -408,37 +496,100 @@ __global__ void __launch_bounds__(256) fused_ode_kernel(const Args<T> a) {
         for (int j = 0; j < NIN; ++j) rate[j] = (j == in) ? v : rate[j];
       }
       const T t0 = a.seg_t0[i0];
-      // 2. boluses by the RHS difference, input by input
-      for (int k = 0; k < a.nb; ++k) {
-        const T amt = a.seg_bolus[k * RM + i0];
-        if (amt == T(0)) continue;
-        const int in = a.bolus_in[k];
-        T bv[NIN], bz[NIN], dw[N], dz[N];
+      if (FEAT && NCOV > 0) {
+        // the run's covariates (a merged run's streams do not change)
 #pragma unroll
-        for (int j = 0; j < NIN; ++j) {
-          bv[j] = (j == in) ? amt : T(0);
-          bz[j] = T(0);
+        for (int c = 0; c < NCOV; ++c) {
+          ca[c] = a.f.cov_a[c * RM + i0];
+          cb[c] = a.f.cov_b != nullptr ? a.f.cov_b[c * RM + i0] : T(0);
         }
-        rhs<T>(x, p, t0, bv, rate, dw);
-        rhs<T>(x, p, t0, bz, rate, dz);
-#pragma unroll
-        for (int j = 0; j < N; ++j) x[j] = x[j] + (dw[j] - dz[j]);
       }
-      // 3. the adaptive march over the run
-      march<T, SOLVER>(a, x, h, ll, p, rate, t0, row, s, m0, m1, m0 == 0);
+      if (!FEAT || a.f.n_lag == 0) {
+        // 2. boluses by the RHS difference, input by input (fa-scaled)
+        for (int k = 0; k < a.nb; ++k) {
+          T amt = a.seg_bolus[k * RM + i0];
+          if (amt == T(0)) continue;
+          if (FEAT) amt = amt * fa_scale(a, k, m0, rs);
+          dose(x, p, t0, a.bolus_in[k], amt, rate, ca, cb);
+        }
+        // 3. the adaptive march over the run; its length summed as the JAX
+        // kernel does
+        T target = a.seg_dt[i0];
+        for (int mm = m0 + 1; mm < m1; ++mm) target = target + a.seg_dt[row + mm];
+        march<T, SOLVER>(a, x, h, ll, p, rate, ca, cb, t0, target, row, s, m0,
+                         m1, m0 == 0);
+        continue;
+      }
+      // K2e with lag: the split march of one segment (runs are single
+      // segments). 2a. doses due at this breakpoint fire after its
+      // observation
+#pragma unroll
+      for (int k = 0; k < NIN; ++k) {
+        if (k >= a.nb) break;
+        if (pend_amt[k] != T(0) && pend_rem[k] <= T(0)) {
+          dose(x, p, t0, a.bolus_in[k], pend_amt[k], rate, ca, cb);
+          pend_amt[k] = T(0);
+        }
+      }
+      // 2b. arrivals park with their lag
+#pragma unroll
+      for (int k = 0; k < NIN; ++k) {
+        if (k >= a.nb) break;
+        const int slot = a.f.lag_slots[k * a.M + m0];
+        if (slot < 0) continue;
+        const T bol = a.seg_bolus[k * RM + i0];
+        if (bol != T(0)) {
+          pend_amt[k] = pend_amt[k] + bol * fa_scale(a, k, m0, rs);
+          pend_rem[k] = a.f.lag[(size_t)slot * a.R * a.S + rs];
+        }
+      }
+      // 3. one pass per bolus plane to the next earliest fire time, then to
+      // the segment's end
+      const T dt = a.seg_dt[i0];
+      T elapsed = T(0);
+#pragma unroll
+      for (int pass = 0; pass < NIN; ++pass) {
+        if (pass >= a.nb) break;
+        bool will[NIN];
+        T t_next = dt;
+#pragma unroll
+        for (int k = 0; k < NIN; ++k) {
+          will[k] = k < a.nb && pend_amt[k] != T(0) && pend_rem[k] < dt;
+          t_next = pm_min(t_next, will[k] ? pend_rem[k] : dt);
+        }
+        t_next = pm_max(t_next, elapsed);
+        march<T, SOLVER>(a, x, h, ll, p, rate, ca, cb, t0 + elapsed,
+                         t_next - elapsed, row, s, m0, m0 + 1,
+                         m0 == 0 && pass == 0);
+#pragma unroll
+        for (int k = 0; k < NIN; ++k) {
+          if (will[k] && pend_rem[k] <= t_next) {
+            dose(x, p, t0 + t_next, a.bolus_in[k], pend_amt[k], rate, ca, cb);
+            pend_amt[k] = T(0);
+          }
+        }
+        elapsed = t_next;
+      }
+      march<T, SOLVER>(a, x, h, ll, p, rate, ca, cb, t0 + elapsed,
+                       dt - elapsed, row, s, m0, m0 + 1, false);
+      if (dt > T(0)) {
+#pragma unroll
+        for (int k = 0; k < NIN; ++k)
+          if (pend_amt[k] != T(0)) pend_rem[k] = pend_rem[k] - dt;
+      }
     }
     a.out[(size_t)r * a.S + s] = ll;
   }
 }
 
-template <typename T, int SOLVER>
+template <typename T, int SOLVER, bool FEAT>
 cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
   if (a.R <= 0 || a.S <= 0) return cudaSuccess;
   const dim3 block(128, 2);
   const unsigned gx = (unsigned)((a.S + block.x - 1) / block.x);
   unsigned gy = (unsigned)((a.R + block.y - 1) / block.y);
   if (gy > 65535u) gy = 65535u;
-  fused_ode_kernel<T, SOLVER><<<dim3(gx, gy), block, 0, stream>>>(a);
+  fused_ode_kernel<T, SOLVER, FEAT><<<dim3(gx, gy), block, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -446,8 +597,9 @@ template <typename T>
 cudaError_t run(int solver, const void* const* p, const int* ints, void* out,
                 int R, int S, int M, int nb, int nr, int n_out, int n_runs,
                 double rtol, double atol, double h0, int max_iters,
-                cudaStream_t st) {
-  Args<T> a;
+                cudaStream_t st, const void* const* feat = nullptr,
+                int n_lag = 0, int n_fa = 0) {
+  Args<T> a = {};
   a.seg_dt = (const T*)p[0];
   a.seg_bolus = (const T*)p[1];
   a.seg_rate = (const T*)p[2];
@@ -468,9 +620,35 @@ cudaError_t run(int solver, const void* const* p, const int* ints, void* out,
   a.R = R; a.S = S; a.M = M; a.nb = nb; a.nr = nr; a.n_out = n_out;
   a.n_runs = n_runs; a.max_iters = max_iters;
   a.rtol = (T)rtol; a.atol = (T)atol; a.h0 = (T)h0;
+  if (feat == nullptr) {
+    switch (solver) {
+      case 0: return launch<T, 0, false>(a, st);
+      case 1: return launch<T, 1, false>(a, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  Feat<T>& f = a.f;
+  f.cov_a = (const T*)feat[0];
+  f.cov_b = (const T*)feat[1];
+  f.lag = (const T*)feat[2];
+  f.fa = (const T*)feat[3];
+  f.init_rows = (const T*)feat[4];
+  f.init_planes = (const T*)feat[5];
+  f.init_mask = (const T*)feat[6];
+  f.n_lag = n_lag;
+  f.n_fa = n_fa;
+  // the slot tables follow the run boundaries: lag's, then fa's
+  const int* slots = ints + nb + nr + n_runs + 1;
+  f.lag_slots = n_lag > 0 ? slots : nullptr;
+  f.fa_slots = n_fa > 0 ? slots + (n_lag > 0 ? nb * M : 0) : nullptr;
+  if ((NCOV > 0 && f.cov_a == nullptr) || (n_lag > 0 && f.lag == nullptr) ||
+      (n_fa > 0 && f.fa == nullptr) ||
+      ((f.init_rows != nullptr || f.init_planes != nullptr) !=
+       (f.init_mask != nullptr)))
+    return cudaErrorInvalidValue;
   switch (solver) {
-    case 0: return launch<T, 0>(a, st);
-    case 1: return launch<T, 1>(a, st);
+    case 0: return launch<T, 0, true>(a, st);
+    case 1: return launch<T, 1, true>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -505,6 +683,34 @@ extern "C" int fused_ode_launch(int is_f64, int solver, const void* seg_dt,
                            rtol, atol, h0, max_iters, st)
              : run<float>(solver, p, iv, out, R, S, M, nb, nr, n_out, n_runs,
                           rtol, atol, h0, max_iters, st);
+  return (int)err;
+}
+
+// K2e: the same launch with the feature tier. base: the 13 pointers of
+// fused_ode_launch in its order; feat: cov_a [NCOV, R, M], cov_b [NCOV, R, M]
+// (or null), lag [n_lag, R, S], fa [n_fa, R, S], init_rows [N, S],
+// init_planes [N, R, S], init_mask [R], each null when off; ints as
+// fused_ode_launch's, then the lag slot table [nb, M] when n_lag > 0 and
+// the fa slot table [nb, M] when n_fa > 0. Returns the cudaError_t of the
+// launch (cudaErrorInvalidValue for an inconsistent feature set).
+extern "C" int fused_ode_feature_launch(int is_f64, int solver,
+                                        const void* const* base,
+                                        const void* const* feat,
+                                        const void* ints, void* out, int R,
+                                        int S, int M, int nb, int nr,
+                                        int n_out, int n_runs, int n_lag,
+                                        int n_fa, double rtol, double atol,
+                                        double h0, int max_iters,
+                                        void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* iv = (const int*)ints;
+  cudaError_t err =
+      is_f64 ? run<double>(solver, base, iv, out, R, S, M, nb, nr, n_out,
+                           n_runs, rtol, atol, h0, max_iters, st, feat, n_lag,
+                           n_fa)
+             : run<float>(solver, base, iv, out, R, S, M, nb, nr, n_out,
+                          n_runs, rtol, atol, h0, max_iters, st, feat, n_lag,
+                          n_fa);
   return (int)err;
 }
 

@@ -219,17 +219,25 @@ def _erk_segment(f: Callable, x0, t0, t1, opts: ODEOptions, A, B, E, C,
     return _poison_if_unfinished(x, t, t1), hmax
 
 
-def lane_rhs(diffeq: Callable, nstates: int, ninput: int, cov):
+def lane_rhs(diffeq: Callable, nstates: int, cov):
     """``f(x, p, t, rateiv)`` on lanes ``[S, R]``: the per-(state, parameter)
     closure ``diffeq(x, p, t, b, rateiv, cov)`` vmapped over supports (outer)
     and rows (inner), with ``b`` zero (boluses are applied at breakpoints).
-    ``x`` [S, R, n], ``p`` [S, P], ``t`` [S, R], ``rateiv`` [R, ninput]."""
+    ``x`` [S, R, n], ``p`` [S, P], ``t`` [S, R], ``rateiv`` [S, R, ninput].
+    ``cov`` holds every row's covariate knots (a :class:`~.grid.CovView`
+    whose tensors lead with the row axis R); the closure sees its row's
+    view, rebuilt inside the row vmap."""
+    from .grid import CovView
 
-    def one(x, p, t, rateiv):
-        dx = diffeq(x, p, t, torch.zeros_like(rateiv), rateiv, cov)
+    names = cov.names
+
+    def one(x, p, t, rateiv, kt, kv, kf):
+        dx = diffeq(x, p, t, torch.zeros_like(rateiv), rateiv, CovView(kt, kv, kf, names))
         return as_vector(dx, x).reshape(nstates)
 
-    return vmap(vmap(one, in_dims=(0, None, 0, 0)), in_dims=(0, 0, 0, None))
+    rows = vmap(one, in_dims=(0, None, 0, 0, 0, 0, 0))
+    over = vmap(rows, in_dims=(0, 0, 0, 0, None, None, None))
+    return lambda x, p, t, rateiv: over(x, p, t, rateiv, cov.knot_t, cov.knot_v, cov.fixed)
 
 
 def make_ode_propagate_carry(diffeq: Callable, nstates: int, ninput: int,
@@ -237,18 +245,21 @@ def make_ode_propagate_carry(diffeq: Callable, nstates: int, ninput: int,
     """The engine's carry-threading propagate hook, batched over lanes.
 
     ``propagate_carry(x, p, dt, rateiv, t0, cov, h) -> (x_next, h_next)``
-    with ``x`` [S, R, n], ``p`` [S, P], ``dt``/``t0`` [R], ``rateiv``
-    [R, ninput] and ``h`` [S, R], the cruise step carried across segments
-    (0 = no history yet: start from ``opts.h0``). A failed segment poisons
-    ``x`` but not the carried step.
+    with ``x`` [S, R, n], ``p`` [S, P], ``dt``/``t0`` [R] (or [S, R] when
+    lag or fa sort every support's segments apart), ``rateiv`` [R, ninput]
+    (or [S, R, ninput]), ``cov`` every row's covariate knots (see
+    :func:`lane_rhs`) and ``h`` [S, R], the cruise step carried across
+    segments (0 = no history yet: start from ``opts.h0``). A failed segment
+    poisons ``x`` but not the carried step.
     """
     A, B, E, C = check_solver(opts.solver)
 
     def propagate_carry(x, p, dt, rateiv, t0, cov, h):
-        rhs = lane_rhs(diffeq, nstates, ninput, cov)
+        rhs = lane_rhs(diffeq, nstates, cov)
+        rate = rateiv.expand(h.shape + (rateiv.shape[-1],))
 
         def f(xx, tt):
-            return rhs(xx, p, tt, rateiv)
+            return rhs(xx, p, tt, rate)
 
         t0b = t0.expand(h.shape)
         t1 = t0b + torch.clamp(dt, min=0.0).expand(h.shape)

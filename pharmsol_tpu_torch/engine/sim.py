@@ -55,8 +55,9 @@ class ModelSpec(NamedTuple):
     # the dt-dependent work only.
     prepare: Optional[Callable] = None
     propagate_prepared: Optional[Callable] = None
-    # ODE: propagate_carry(x [S, R, n], p [S, P], dt [R], rateiv [R, ninput],
-    # t0 [R], cov, h [S, R]) -> (x_next, h_next), batched over the lanes. The
+    # ODE: propagate_carry(x [S, R, n], p [S, P], dt [R] or [S, R], rateiv
+    # [R, ninput] or [S, R, ninput], t0 like dt, cov, h [S, R]) -> (x_next,
+    # h_next), batched over the lanes; ``cov`` carries every row's knots. The
     # march threads h (the solver's cruise step) across segments, warm-
     # starting each segment's adaptive controller; 0.0 = no history.
     propagate_carry: Optional[Callable] = None
@@ -224,7 +225,7 @@ def simulate_occasion_ll(
     ll = torch.zeros((S, R), dtype=fd, device=p.device)
     sc = torch.zeros((S, R), dtype=fd, device=p.device)  # carried ODE step
     zero = torch.zeros((), dtype=fd, device=p.device)
-    empty = CovView.empty(fd, p.device)
+    row_knots = CovView(kt, kv, kf, names)  # every row's, for propagate_carry
     for m in range(M):
         t = segs.t[..., m]
         dt = segs.dt[..., m]
@@ -251,7 +252,7 @@ def simulate_occasion_ll(
 
         has_span = sr(dt > 0.0)
         if use_carry:
-            x_prop, sc_new = spec.propagate_carry(x, p, dt, rateiv, t, empty, sc)
+            x_prop, sc_new = spec.propagate_carry(x, p, dt, rateiv, t, row_knots, sc)
             sc = torch.where(has_span[..., 0], sc_new, sc)
         elif use_prepared:
             x_prop = prop_b(aux, x, dt, rateiv, t, kt, kv, kf)

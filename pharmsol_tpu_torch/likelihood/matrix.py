@@ -119,10 +119,10 @@ def _general_psi(equation, grid, sp, lowered, device, dtype) -> torch.Tensor:
     from ..engine.sim import simulate_occasion_ll
 
     kind_name = getattr(equation, "kind", None)
-    if grid.cov_names and kind_name in ("ode", "sde"):
+    if grid.cov_names and kind_name == "sde":
         raise PharmsolError(
-            f"the PyTorch port does not support covariates for {kind_name.upper()} "
-            f"models yet (data carries {', '.join(grid.cov_names)}); closed-form "
+            f"the PyTorch port does not support covariates for SDE models yet "
+            f"(data carries {', '.join(grid.cov_names)}); closed-form and ODE "
             "models take them"
         )
     rows = _device_rows(grid, device, dtype)
@@ -168,8 +168,12 @@ def log_likelihood_matrix(
     input 0, censoring and errorpoly overrides, and covariates through the
     secondary equations, lag, fa and init (``plans/analytical.py`` names
     what it refuses). The ODE kernel supports
-    dopri5 and tsit5, doses into any input, linear outputs and censoring, for
-    every RHS the CUDA generator accepts (``ops/rhs_codegen.py``). The SDE
+    dopri5 and tsit5, doses into any input, linear outputs and censoring,
+    covariates (constant per row, or affine within every segment: each knot
+    on a breakpoint), lag and fa (static planes, or per-dose-segment planes
+    when they change with time or read a time-varying covariate) and init,
+    for every RHS the CUDA generator accepts (``ops/rhs_codegen.py``;
+    ``plans/ode.py`` names what it refuses). The SDE
     kernel supports stratified resampling, doses into any input (and their
     inject-to-destination states), init, linear outputs, censoring and both
     ``em_control`` modes, for every drift and diffusion the generator

@@ -31,19 +31,16 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.func import vmap
 
 from ...config import BIG_TIME
 from ...errors import PharmsolError
 from .decompose import (
-    F64,
     _InputPlaneDynamic,
-    _RowCov,
     _check_out_covariate_free,
     _classify_covariates,
     _constant_covariate_values,
-    _covariate_values_at,
     _decompose_input_plane,
+    _init_states,
     _t64,
     _validate_lag_no_overlap,
 )
@@ -78,64 +75,6 @@ def _fused_structure_name(equation) -> str:
         "built-in kernel (one_compartment, two_compartments, "
         "*_with_absorption, *_cl, ...)"
     )
-
-
-def _init_states(equation, sp, grid, n_states: int):
-    """The init equation as (init_rows [n_states, S] or None, init_planes
-    [n_states, R, S] or None) (JAX :108-194): one row per support when init
-    reads no covariate, else exact planes per (row, support) at t = 0."""
-    from ...engine.sim import as_vector
-
-    init_fn = equation._init
-    cov_vals0 = _classify_covariates(grid)[0] if grid.cov_names else {}
-    icov0 = {n: float(np.asarray(v)[0]) for n, v in cov_vals0.items()}
-    icov1 = {n: v * 1.31 + 0.17 for n, v in icov0.items()}
-    sp_t = _t64(sp)
-    t0 = torch.tensor(0.0, dtype=F64)
-
-    def init_at(covd):
-        return vmap(lambda p: as_vector(init_fn(p, t0, _RowCov(covd)), p))(sp_t).numpy()
-
-    try:
-        i_ref = init_at(icov0)
-        i_cov = init_at(icov1) if icov0 else i_ref
-    except PharmsolError:
-        raise
-    except Exception as e:
-        raise PharmsolError(f"engine='fused' could not probe the init equation: {e}") from e
-    if not np.all(np.isfinite(i_ref)):
-        raise PharmsolError("engine='fused' init probe produced non-finite values")
-    if i_ref.shape[1] != n_states:
-        raise PharmsolError(
-            f"engine='fused' expects init to return {n_states} states, got "
-            f"{i_ref.shape[1]}"
-        )
-    iscale = np.maximum(np.abs(i_ref).max(), 1e-12)
-    if not (icov0 and np.abs(i_cov - i_ref).max() > 1e-6 * iscale):
-        return (i_ref.T.copy() if np.any(i_ref != 0.0) else None), None
-    # covariate-dependent init: exact per (row, support) at t = 0
-    cov_at0 = _covariate_values_at(grid, 0.0)
-    names = tuple(grid.cov_names)
-    cov_mat = _t64(np.stack([cov_at0[n] for n in names], axis=1))  # [R, ncov]
-
-    def init_row(cv):
-        covd = {n: cv[i] for i, n in enumerate(names)}
-        return vmap(lambda p: as_vector(init_fn(p, t0, _RowCov(covd)), p))(sp_t)
-
-    try:
-        planes = vmap(init_row)(cov_mat).numpy()  # [R, S, n_states]
-    except PharmsolError:
-        raise
-    except Exception as e:
-        raise PharmsolError(
-            f"engine='fused' could not evaluate the covariate-dependent init per "
-            f"row: {e}") from e
-    if not np.all(np.isfinite(planes)):
-        raise PharmsolError(
-            "engine='fused' covariate-dependent init produced non-finite values")
-    if not np.any(planes != 0.0):
-        return None, None
-    return None, np.ascontiguousarray(np.transpose(planes, (2, 0, 1)))
 
 
 class _FusedPsiPlan:

@@ -177,7 +177,9 @@ def _affine_solve(f_a, f_b, f_c, p_a, p_b, p_c, tol):
 class _InputPlaneDynamic(PharmsolError):
     """A lag/fa closure is time-dependent or reads a time-varying covariate
     (JAX :527): its value is not one constant per (row, support). Such
-    closures need per-dose-segment planes, kernel K1c, not ported yet."""
+    closures need per-dose-segment planes (:func:`_decompose_input_seg_planes`):
+    the ODE plan builds them for kernel K2e; the closed-form kernel's are
+    K1c, not ported yet."""
 
 
 def _decompose_input_plane(fn, sp, grid, ninput: int, fill: float,
@@ -259,6 +261,124 @@ def _decompose_input_planes(fn, sp, grid, ninput: int, fill: float,
     return np.broadcast_to(v_ref.T[:, None, :], (ninput, R, S)).copy()
 
 
+def _decompose_input_seg_planes(equation, sp, grid, ninput: int, dose_cols,
+                                t0_np) -> dict:
+    """Exact per-(row, support) lag/fa planes per dose-carrying segment (JAX
+    :204-279), for the closures :func:`_decompose_input_planes` refuses as
+    :class:`_InputPlaneDynamic`: lag evaluated at each bolus's original
+    breakpoint time (structs.rs:629), fa at the lag-shifted time per input
+    (engine/grid.py's order), with the engine's :class:`CovView`
+    interpolation, in float64 on the host.
+
+    ``dose_cols``: segment columns that carry a bolus on any row; ``t0_np``
+    [R, M]: segment start times. Returns ``{m: (lag [ninput, R, S], fa
+    [ninput, R, S])}``.
+    """
+    from ...engine.grid import CovView, _as_input_vector
+
+    lag_fn, fa_fn = equation._lag, equation._fa
+    names = tuple(grid.cov_names)
+    kt = _t64(grid.rows.cov_t)
+    kv = _t64(grid.rows.cov_v)
+    kf = torch.as_tensor(np.asarray(grid.rows.cov_fixed).astype(bool))
+    sp_t = _t64(sp)
+
+    def per_cell(p, tr, kt_r, kv_r, kf_r):
+        cv = CovView(kt_r, kv_r, kf_r, names)
+        if lag_fn is not None:
+            lag_v = _as_input_vector(lag_fn(p, tr, cv), ninput, p, 0.0)
+        else:
+            lag_v = torch.zeros(ninput, dtype=F64)
+        if fa_fn is not None:
+            fa_v = torch.stack([_as_input_vector(fa_fn(p, tr + lag_v[j], cv), ninput, p,
+                                                 1.0)[j] for j in range(ninput)])
+        else:
+            fa_v = torch.ones(ninput, dtype=F64)
+        return lag_v, fa_v
+
+    per_row = vmap(lambda tr, a, b, c: vmap(lambda p: per_cell(p, tr, a, b, c))(sp_t))
+    out = {}
+    try:
+        for m in dose_cols:
+            lag_rs, fa_rs = per_row(_t64(t0_np[:, m]), kt, kv, kf)  # [R, S, ninput]
+            lag_p = np.ascontiguousarray(np.transpose(lag_rs.numpy(), (2, 0, 1)))
+            fa_p = np.ascontiguousarray(np.transpose(fa_rs.numpy(), (2, 0, 1)))
+            if not (np.all(np.isfinite(lag_p)) and np.all(np.isfinite(fa_p))):
+                raise PharmsolError("engine='fused' lag/fa probe produced non-finite values")
+            out[int(m)] = (lag_p, fa_p)
+    except PharmsolError:
+        raise
+    except Exception as e:
+        raise PharmsolError(
+            f"engine='fused' could not evaluate the lag/fa equations per dose "
+            f"segment: {e}") from e
+    if grid.n_rows and any(np.any(v[0] < 0.0) for v in out.values()):
+        raise PharmsolError(
+            "engine='fused' does not support negative lag times — use the "
+            "general engine"
+        )
+    return out
+
+
+def _init_states(equation, sp, grid, n_states: int):
+    """The init equation as (init_rows [n_states, S] or None, init_planes
+    [n_states, R, S] or None) (JAX analytical plan :108-194, ODE plan
+    :339-411): one row per support when init reads no covariate, else exact
+    planes per (row, support) at t = 0; (None, None) when it is zero."""
+    from ...engine.sim import as_vector
+
+    init_fn = equation._init
+    cov_vals0 = _classify_covariates(grid)[0] if grid.cov_names else {}
+    icov0 = {n: float(np.asarray(v)[0]) for n, v in cov_vals0.items()}
+    icov1 = {n: v * 1.31 + 0.17 for n, v in icov0.items()}
+    sp_t = _t64(sp)
+    t0 = torch.tensor(0.0, dtype=F64)
+
+    def init_at(covd):
+        return vmap(lambda p: as_vector(init_fn(p, t0, _RowCov(covd)), p))(sp_t).numpy()
+
+    try:
+        i_ref = init_at(icov0)
+        i_cov = init_at(icov1) if icov0 else i_ref
+    except PharmsolError:
+        raise
+    except Exception as e:
+        raise PharmsolError(f"engine='fused' could not probe the init equation: {e}") from e
+    if not np.all(np.isfinite(i_ref)):
+        raise PharmsolError("engine='fused' init probe produced non-finite values")
+    if i_ref.shape[1] != n_states:
+        raise PharmsolError(
+            f"engine='fused' expects init to return {n_states} states, got "
+            f"{i_ref.shape[1]}"
+        )
+    iscale = np.maximum(np.abs(i_ref).max(), 1e-12)
+    if not (icov0 and np.abs(i_cov - i_ref).max() > 1e-6 * iscale):
+        return (i_ref.T.copy() if np.any(i_ref != 0.0) else None), None
+    # covariate-dependent init: exact per (row, support) at t = 0
+    cov_at0 = _covariate_values_at(grid, 0.0)
+    names = tuple(grid.cov_names)
+    cov_mat = _t64(np.stack([cov_at0[n] for n in names], axis=1))  # [R, ncov]
+
+    def init_row(cv):
+        covd = {n: cv[i] for i, n in enumerate(names)}
+        return vmap(lambda p: as_vector(init_fn(p, t0, _RowCov(covd)), p))(sp_t)
+
+    try:
+        planes = vmap(init_row)(cov_mat).numpy()  # [R, S, n_states]
+    except PharmsolError:
+        raise
+    except Exception as e:
+        raise PharmsolError(
+            f"engine='fused' could not evaluate the covariate-dependent init per "
+            f"row: {e}") from e
+    if not np.all(np.isfinite(planes)):
+        raise PharmsolError(
+            "engine='fused' covariate-dependent init produced non-finite values")
+    if not np.any(planes != 0.0):
+        return None, None
+    return None, np.ascontiguousarray(np.transpose(planes, (2, 0, 1)))
+
+
 def _validate_lag_no_overlap(lag_plane: np.ndarray, grid, input_j: int = None) -> None:
     """Refuse a lag under which two doses of a row could pend at once
     (JAX :645): the kernel holds one pending dose, so each row's largest lag
@@ -274,7 +394,8 @@ def _validate_lag_no_overlap(lag_plane: np.ndarray, grid, input_j: int = None) -
     if input_j is not None:
         real = real & (np.asarray(grid.rows.bolus_input) == input_j)
     ts = np.sort(np.where(real, bolus_t, np.inf), axis=1)
-    gaps = np.diff(ts, axis=1) if ts.shape[1] > 1 else np.full((ts.shape[0], 1), np.inf)
+    with np.errstate(invalid="ignore"):  # inf - inf between padding slots
+        gaps = np.diff(ts, axis=1) if ts.shape[1] > 1 else np.full((ts.shape[0], 1), np.inf)
     gaps = np.where(np.isfinite(gaps), gaps, np.inf)
     min_gap = gaps.min(axis=1)  # [R]; inf for rows with fewer than 2 doses
     lag_max = lag_plane.max(axis=1)  # [R]

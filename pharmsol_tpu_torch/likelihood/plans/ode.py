@@ -1,13 +1,13 @@
 """Fused ODE psi plan (``_FusedOdePsiPlan``) and the merged-run lowering.
 
 The counterpart of the JAX package's ``likelihood/plans/ode.py`` for its
-explicit tier: the plan validates an ODE model against the CUDA kernel's
-scope, generates the kernel's RHS from the model's closure
+explicit and feature tiers: the plan validates an ODE model against the CUDA
+kernel's scope, generates the kernel's RHS from the model's closure
 (:mod:`~pharmsol_tpu_torch.ops.rhs_codegen`, the port's counterpart of the
-JAX plan-time probe kernel), builds the segment streams, the output
-coefficients and the merged runs on the host, moves them to the device, runs
-:func:`~pharmsol_tpu_torch.ops.fused_ode.psi_ode` and sums the occasion rows
-into subjects.
+JAX plan-time probe kernel), builds the segment streams, the feature inputs,
+the output coefficients and the merged runs on the host, moves them to the
+device, runs :func:`~pharmsol_tpu_torch.ops.fused_ode.psi_ode` and sums the
+occasion rows into subjects.
 
 Boluses are applied inside the kernel by the RHS difference (two RHS calls at
 a dose boundary), which is the general engine's own semantics. So the JAX
@@ -16,10 +16,17 @@ here.
 
 In scope: dopri5 and tsit5; boluses and infusions into any input below
 ``ndrugs``, with one stream per active input; linear outputs; censoring;
-several outputs; merged runs. Out of scope, raising PharmsolError so that
-``engine='auto'`` takes the general engine and records why: covariates,
-lag, fa and init (the port's ODE class refuses the last three), other
-solvers, and RHS styles the generator rejects.
+several outputs; merged runs. With any of the following the plan runs kernel
+K2e instead of K2a: covariates (a per-row constant, or a per-segment affine
+``(a, b)`` stream, exact when every knot lies on a breakpoint); init (rows
+per support, or planes per (row, support) when it reads a covariate); lag
+and fa (static planes, or per-dose-segment planes selected by slot tables
+when they change with time or read a time-varying covariate). Out of scope,
+raising PharmsolError with the JAX plan's reason so that ``engine='auto'``
+takes the general engine and records why: other solvers, a covariate knot
+inside a segment, a lag that does not elapse before the input's next dose,
+a negative lag, an ``out`` that reads a covariate, and RHS styles the
+generator rejects.
 """
 
 from __future__ import annotations
@@ -28,6 +35,17 @@ import numpy as np
 import torch
 
 from ...errors import PharmsolError
+from .decompose import (
+    _InputPlaneDynamic,
+    _affine_covariate_streams,
+    _check_out_covariate_free,
+    _classify_covariates,
+    _decompose_input_planes,
+    _decompose_input_seg_planes,
+    _init_states,
+    _t64,
+    _validate_lag_no_overlap,
+)
 
 # merged spans are capped at this many segments (the JAX kernel holds one
 # carry lane per interior observation; the CUDA kernel keeps the cap so the
@@ -124,13 +142,81 @@ def _seg_t0(rows):
     return np.minimum(t_sorted, t_real_max[:, None])
 
 
+def _lag_fa_planes(equation, sp, grid, ninput: int, bolus_inputs, bol, seg_t0):
+    """The lag and fa inputs of kernel K2e (JAX :530-625): ``(lag_planes,
+    fa_planes, lag_slots, fa_slots)``, each plane stack [n, R, S] float64 or
+    None (a lag of 0 everywhere, an fa of 1 everywhere).
+
+    Static path: one plane per bolus plane, the closure constant in time and
+    reading no time-varying covariate (:func:`_decompose_input_planes`); the
+    lag of each input must elapse strictly before that input's next dose.
+    Dynamic path, for the other closures: exact planes per dose-carrying
+    segment (:func:`_decompose_input_seg_planes`), selected by the
+    ``[nb][M]`` slot tables (-1 where no bolus lands), with the no-overlap
+    check dose by dose. ``bol`` [nb, R, M] are the bolus streams.
+    """
+    sel = list(bolus_inputs)
+    lag_fn, fa_fn = equation._lag, equation._fa
+    lag_planes = fa_planes = None
+    if lag_fn is None and fa_fn is None:
+        return None, None, None, None
+    try:
+        if lag_fn is not None:
+            lp = _decompose_input_planes(lag_fn, sp, grid, ninput, 0.0, "lag")[sel]
+            for k, j in enumerate(bolus_inputs):
+                if np.any(lp[k] != 0.0):
+                    _validate_lag_no_overlap(lp[k], grid, input_j=j)
+            lag_planes = lp if np.any(lp != 0.0) else None
+        if fa_fn is not None:
+            fp = _decompose_input_planes(fa_fn, sp, grid, ninput, 1.0, "fa")[sel]
+            fa_planes = fp if not np.all(fp == 1.0) else None
+        return lag_planes, fa_planes, None, None
+    except _InputPlaneDynamic:
+        pass
+    nb, M = len(sel), bol.shape[2]
+    dose_cols = [m for m in range(M) if np.any(bol[:, :, m] != 0.0)]
+    seg_pl = _decompose_input_seg_planes(equation, sp, grid, ninput, dose_cols, seg_t0)
+    has_lag = lag_fn is not None and any(np.any(seg_pl[m][0][sel] != 0.0) for m in dose_cols)
+    has_fa = fa_fn is not None and any(not np.all(seg_pl[m][1][sel] == 1.0) for m in dose_cols)
+    if has_lag:
+        # each dose's lag (largest over the supports) must elapse strictly
+        # before the same input's next dose: a pending slot holds one dose
+        for k, j in enumerate(sel):
+            for r in range(bol.shape[1]):
+                cols = sorted((m for m in dose_cols if bol[k, r, m] != 0.0),
+                              key=lambda m: seg_t0[r, m])
+                for m1, m2 in zip(cols, cols[1:]):
+                    gap = seg_t0[r, m2] - seg_t0[r, m1]
+                    lag_max = seg_pl[m1][0][j, r, :].max()
+                    if lag_max >= gap:
+                        raise PharmsolError(
+                            f"engine='fused' lag support requires each dose's lag to "
+                            f"elapse strictly before the input's next dose (row {r}, "
+                            f"input {j}: max lag {lag_max:.4g} >= gap {gap:.4g}) — use "
+                            "the general engine"
+                        )
+
+    def slotted(which):
+        planes, slots = [], [[-1] * M for _ in range(nb)]
+        for m in dose_cols:
+            for k in range(nb):
+                slots[k][m] = len(planes)
+                planes.append(seg_pl[m][which][sel][k])
+        return np.stack(planes), tuple(tuple(row) for row in slots)
+
+    lag_planes, lag_slots = slotted(0) if has_lag else (None, None)
+    fa_planes, fa_slots = slotted(1) if has_fa else (None, None)
+    return lag_planes, fa_planes, lag_slots, fa_slots
+
+
 class _FusedOdePsiPlan:
     """Validated device inputs for one fused ODE psi evaluation.
 
     Same contract as :class:`~.analytical._FusedPsiPlan`: ``__init__``
     validates (raising PharmsolError for a model outside the kernel's
     scope), :meth:`run` gives psi [n_subjects, S], :meth:`finalize` sums
-    occasion rows into subjects.
+    occasion rows into subjects. ``features`` holds K2e's inputs (all None
+    or empty: kernel K2a).
     """
 
     def __init__(self, equation, grid, sp, lowered, device, dtype):
@@ -147,22 +233,32 @@ class _FusedOdePsiPlan:
                 f"engine='fused' ODE psi supports solvers {sorted(TABLEAUS)} "
                 f"(model uses `{opts.solver}`)"
             )
-        if grid.cov_names:
-            raise PharmsolError("the PyTorch port does not support covariates yet")
         self.opts = opts
         self.n_states = n_states = int(equation.nstates())
         self.n_out = int(equation.nouteqs())
         ninput = int(equation.ndrugs())
         self.bolus_inputs, self.rate_inputs = _active_inputs(grid.rows, ninput)
+        # covariates constant over every row ride one value per row; the
+        # others per-segment affine (a, b) streams (JAX :168-173)
+        cov_values, varying = _classify_covariates(grid)
+        self.cov_names = tuple(grid.cov_names)
+        self.cov_modes = tuple("affine" if n in varying else "const" for n in self.cov_names)
 
-        # the kernel's RHS, generated once per (support width, inputs):
-        # PharmsolError here is the plan-time rejection of an RHS style
-        key = (int(sp.shape[1]), ninput)
+        init_rows = init_planes = None
+        if equation._init is not None:
+            init_rows, init_planes = _init_states(equation, sp, grid, n_states)
+
+        # the kernel's RHS, generated once per (support width, inputs,
+        # covariates): PharmsolError here is the plan-time rejection of an
+        # RHS style
+        key = (int(sp.shape[1]), ninput, self.cov_names, self.cov_modes)
         self.rhs = equation._rhs_cache.get(key)
         if self.rhs is None:
             self.rhs = generate_rhs(equation._diffeq, n_states, int(sp.shape[1]),
-                                    ninput)
+                                    ninput, self.cov_names, self.cov_modes)
             equation._rhs_cache[key] = self.rhs
+        if grid.cov_names and equation._out is not None:
+            _check_out_covariate_free(equation, sp, cov_values, n_states)
 
         try:
             streams = streams_from_grid(grid.rows, lowered, inputs=ninput)
@@ -177,10 +273,27 @@ class _FusedOdePsiPlan:
         self.S = sp.shape[0]
         self.device, self.dtype = device, dtype
 
+        lag_planes, fa_planes, self.lag_slots, self.fa_slots = _lag_fa_planes(
+            equation, sp, grid, ninput, self.bolus_inputs, bol, seg_t0)
+        affine = (_affine_covariate_streams(grid, sorted(varying), seg_t0, seg_dt)
+                  if varying else {})
+        cov_streams = {}
+        for name in self.cov_names:
+            if name in affine:
+                cov_streams[name] = affine[name]
+            else:
+                vs = np.zeros((self.R, self.M))
+                vs[:, 0] = cov_values[name]
+                cov_streams[name] = vs
+
         out_fn = equation._out or (lambda x, p, t, cov: x[: self.n_out])
+        # occasion 0's covariates: _check_out_covariate_free proved out()
+        # reads none that matter
+        cov0 = CovView(_t64(grid.rows.cov_t[0]), _t64(grid.rows.cov_v[0]),
+                       torch.as_tensor(np.asarray(grid.rows.cov_fixed[0]).astype(bool)),
+                       grid.cov_names)
         try:
-            C, b = extract_linear_out(out_fn, sp, n_states, self.n_out,
-                                      CovView.empty())
+            C, b = extract_linear_out(out_fn, sp, n_states, self.n_out, cov0)
         except PharmsolError:
             raise
         except Exception as e:
@@ -190,11 +303,12 @@ class _FusedOdePsiPlan:
             ) from e
 
         # merged-march spans: breakpoints that are observation-only on every
-        # row need not stop the adaptive march
+        # row, with the rates and the covariates' affine streams unchanged,
+        # need not stop the adaptive march; none with lag
         self.merge_runs = _ode_merge_runs(
             [seg_dt, *bol, *rate], seg_t0, opts.solver,
             n_bolus_in=len(self.bolus_inputs), n_rate_in=len(self.rate_inputs),
-            affine_streams={}, has_lag=False,
+            affine_streams=affine, has_lag=lag_planes is not None,
         )
 
         def dev(a):
@@ -213,6 +327,19 @@ class _FusedOdePsiPlan:
         self.support = dev(sp)
         self.out_coef = dev(np.transpose(C, (1, 2, 0)))  # [n_out, n_states, S]
         self.out_bias = dev(b.T) if np.any(b) else None
+        has_init = init_rows is not None or init_planes is not None
+        self.features = dict(
+            cov_streams={n: (tuple(dev(x) for x in v) if isinstance(v, tuple) else dev(v))
+                         for n, v in cov_streams.items()},
+            cov_names=self.cov_names,
+            init_rows=dev(init_rows) if init_rows is not None else None,
+            init_planes=dev(init_planes) if init_planes is not None else None,
+            init_mask=(dev(np.asarray(grid.rows.init_mask, np.float64).reshape(-1))
+                       if has_init else None),
+            lag_plane=dev(lag_planes) if lag_planes is not None else None,
+            fa_plane=dev(fa_planes) if fa_planes is not None else None,
+            lag_slots=self.lag_slots, fa_slots=self.fa_slots,
+        )
         self.row_subject = torch.as_tensor(
             np.asarray(grid.row_subject, dtype=np.int64), device=device)
         self.n_subjects = grid.n_subjects
@@ -226,6 +353,7 @@ class _FusedOdePsiPlan:
             bolus_inputs=self.bolus_inputs, rate_inputs=self.rate_inputs,
             merge_runs=self.merge_runs if merge else None, solver=o.solver,
             rtol=o.rtol, atol=o.atol, h0=o.h0, max_steps=o.max_steps,
+            **self.features,
         )
 
     def run(self) -> torch.Tensor:

@@ -271,9 +271,10 @@ class ODE(EquationBase):
     Boluses are applied by the RHS difference (ode/mod.rs:644-687); segment
     boundaries replace the solver's left/right-continuity machinery.
 
-    Solvers: dopri5 (default) and tsit5. Lag, bioavailability (fa) and init
-    equations are part of the signature but not of the port yet: passing one
-    raises.
+    Solvers: dopri5 (default) and tsit5. ``lag(p, t, cov)`` and ``fa(p, t,
+    cov)`` shift and scale each bolus per support point ({input: value} or a
+    vector over the inputs), ``init(p, t, cov)`` gives the occasion-0 state
+    at t = 0; closures read covariates through ``cov(name, t)``.
     """
 
     kind = "ode"
@@ -289,12 +290,15 @@ class ODE(EquationBase):
         ndrugs: int = 5,
         nout: int = 5,
     ):
-        _raise_unported(lag=lag, fa=fa, init=init)
         super().__init__(nstates, ndrugs, nout)
         self._diffeq = diffeq
+        self._lag = lag
+        self._fa = fa
+        self._init = init
         self._out = out
         self._opts = ODEOptions(solver="dopri5")
-        # generated CUDA right-hand sides, by (support columns, inputs)
+        # generated CUDA right-hand sides, by (support columns, inputs,
+        # covariate names, covariate modes)
         self._rhs_cache: Dict[tuple, object] = {}
 
     def _model_kind(self) -> ModelKind:
@@ -340,6 +344,9 @@ class ODE(EquationBase):
             nout=self._nout,
             propagate=make_ode_propagate(diffeq, n, ninput, self._opts),
             out=out,
+            init=self._init,
+            lag=self._lag,
+            fa=self._fa,
             apply_bolus=rhs_difference_apply_bolus(diffeq),
             propagate_carry=make_ode_propagate_carry(diffeq, n, ninput,
                                                      self._opts),

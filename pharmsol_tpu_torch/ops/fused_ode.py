@@ -8,47 +8,57 @@ breakpoints of a merged run with dense output instead of stopping there.
 
 - :func:`psi_ode` is the wrapper. On a CUDA tensor it launches the
   hand-written kernel ``csrc/fused_ode.cu``, built at first use with the
-  model's generated RHS (:mod:`.rhs_codegen`, :mod:`._build`), or raises; on
-  a CPU tensor it runs the plain twin.
+  model's generated RHS (:mod:`.rhs_codegen`, :mod:`._build`): K2a, or K2e
+  when the call has any feature input (covariates, init, lag, fa). It raises
+  if the build or the launch fails; on a CPU tensor it runs the plain twin.
 - :func:`psi_ode_plain` is that twin: the explicit tier of the JAX package's
-  ``ops/pallas_ode.py::psi_ode`` (``integrate``, :708) in plain PyTorch on
-  ``[R, S]`` lanes, with a masked loop that ends when every lane is done. It
-  calls the user's closure directly. The CPU tests hold it against the JAX
-  kernel in interpret mode; ``chip_smoke.py`` holds the CUDA kernel against
-  it on the card.
+  ``ops/pallas_ode.py::psi_ode`` (``integrate``, :708) and its feature tier
+  (covariate lanes through :class:`LaneCov`, init, the lag/fa split march
+  with slot tables, :1614-1807) in plain PyTorch on ``[R, S]`` lanes, with a
+  masked loop that ends when every lane is done. It calls the user's closure
+  directly. The CPU tests hold it against the JAX kernel in interpret mode;
+  ``chip_smoke.py`` holds the CUDA kernel against it on the card.
 
 What the march does, as the JAX kernel: the I-controller with growth clamped
-to [0.2, 5]; the Hairer-Norsett-Wanner starting step on the first run,
-floored at ``h0``; the last controller step carried into the next run; the
-stall guard and NaN poisoning of a lane that runs out of steps (-inf cells);
-lanes that arrive non-finite stay dead; observations captured from the
-tableau's quartic interpolant at ``T_eff = min(T, target - 1e-6 target)``,
-zero-offset ones at the run's start. Censored observations use the exact
-log of the normal CDF (the TPU kernel's was approximate). Unlike the TPU
-kernel there is no padding: R, S and M are free.
+to [0.2, 5]; the Hairer-Norsett-Wanner starting step on the first run (with
+lag, on its first pass only), floored at ``h0``; the last controller step
+carried into the next run; the stall guard and NaN poisoning of a lane that
+runs out of steps (-inf cells); lanes that arrive non-finite stay dead;
+observations captured from the tableau's quartic interpolant at ``T_eff =
+min(T, target - 1e-6 target)``, zero-offset ones at the run's start. With
+lag, each bolus plane holds one pending dose: doses due at a breakpoint fire
+after its observation, new doses park with their lag, and the segment is
+marched in one pass per bolus plane to the next fire time (equal times fire
+together), then to its end. Censored observations use the exact log of the
+normal CDF (the TPU kernel's was approximate). Unlike the TPU kernel there is
+no padding: R, S and M are free.
 
 Stream layout: ``seg_dt``, the observation streams and ``seg_t0`` are
 [R, M]; ``seg_bolus`` is [nb, R, M], one plane per active bolus input
 (``bolus_inputs`` names the RHS input of each); ``seg_rateiv`` [nr, R, M]
 likewise (``rate_inputs``) or None; support [S, P]; output coefficients
-[n_out, n_states, S] and biases [n_out, S] or None. The result is [R, S].
+[n_out, n_states, S] and biases [n_out, S] or None. The feature inputs are
+described by :class:`Features`. The result is [R, S].
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..engine.ode import TABLEAUS
+from .rhs_codegen import LaneCov
 
 LOG_2PI = math.log(2.0 * math.pi)
 
-# Kernel launches through psi_ode on a CUDA tensor (not the twin).
+# Kernel launches through psi_ode on a CUDA tensor (not the twin): K2a,
+# and K2e (the feature tier: covariates, init, lag, fa).
 LAUNCHES = 0
+FEATURE_LAUNCHES = 0
 
 # The kernel's solver codes (csrc/fused_ode.cu).
 SOLVER_CODES = {"dopri5": 0, "tsit5": 1}
@@ -180,12 +190,81 @@ def _wsum(terms, weights):
 # ---------------------------------------------------------------------------
 
 
+class Features(NamedTuple):
+    """The feature inputs of one call, validated (:func:`_check_inputs`).
+
+    ``cov``: (name, a [R, M], b [R, M] or None) per covariate in the RHS's
+    order (a constant covariate's value sits in column 0 of ``a``);
+    ``lag``/``fa``: lists of [R, S] planes or None, selected per (bolus
+    plane, segment) by ``lag_slots``/``fa_slots`` ([nb][M] tables, -1 = no
+    dose there) or, without a table, one plane per bolus plane;
+    ``init_rows`` [N, S] or ``init_planes`` [N, R, S] with ``init_mask``
+    [R] (1 on occasion-0 rows)."""
+
+    cov: tuple = ()
+    lag: Optional[list] = None
+    fa: Optional[list] = None
+    lag_slots: Optional[tuple] = None
+    fa_slots: Optional[tuple] = None
+    init_rows: Optional[torch.Tensor] = None
+    init_planes: Optional[torch.Tensor] = None
+    init_mask: Optional[torch.Tensor] = None
+
+    @property
+    def any(self) -> bool:
+        return bool(self.cov) or self.lag is not None or self.fa is not None \
+            or self.init_mask is not None
+
+    def lag_src(self, k: int, m: int):
+        """The lag plane of bolus plane k's dose at segment m, or None."""
+        if self.lag_slots is not None:
+            si = self.lag_slots[k][m]
+            return None if si < 0 else self.lag[si]
+        return self.lag[k]
+
+    def fa_src(self, k: int, m: int):
+        """The fa plane scaling bolus plane k at segment m, or None."""
+        if self.fa is None:
+            return None
+        if self.fa_slots is not None:
+            si = self.fa_slots[k][m]
+            return None if si < 0 else self.fa[si]
+        return self.fa[k]
+
+
+def _plane_list(planes, slots, nb: int, M: int, R: int, S: int, what: str):
+    """Normalise a lag/fa argument (JAX ``psi_ode`` :2056-2087): one [R, S]
+    plane per bolus plane, or the slot-indexed list its table selects."""
+    if planes is None:
+        return None, None
+    if isinstance(planes, torch.Tensor):
+        lst = [planes] if planes.dim() == 2 else list(planes.unbind(0))
+    else:
+        lst = list(planes)
+    if slots is None:
+        expect = nb
+    else:
+        slots = tuple(tuple(int(v) for v in row) for row in slots)
+        if len(slots) != nb or any(len(row) != M for row in slots):
+            raise ValueError(f"{what} slots must be [{nb}][{M}] (bolus plane x segment)")
+        expect = max(max(row) for row in slots) + 1
+    if len(lst) != expect:
+        raise ValueError(f"{what} carries {len(lst)} planes, expected {expect}")
+    for pl in lst:
+        if tuple(pl.shape) != (R, S):
+            raise ValueError(f"{what} must be [R, S] = [{R}, {S}], got {list(pl.shape)}")
+    return lst, slots
+
+
 def _check_inputs(seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value,
                   obs_sigma, obs_cens, seg_t0, support, rhs, obs_outeq,
                   out_coef, out_bias, bolus_inputs, rate_inputs, merge_runs,
-                  solver):
-    """Validate the layout; returns (n_out, runs) with ``runs`` the (m0, m1)
-    spans tiling [0, M)."""
+                  solver, cov_streams=None, cov_names=(), init_rows=None,
+                  init_planes=None, init_mask=None, lag_plane=None,
+                  fa_plane=None, lag_slots=None, fa_slots=None):
+    """Validate the layout (the JAX wrapper's checks, :2056-2131); returns
+    (n_out, runs, features) with ``runs`` the (m0, m1) spans tiling [0, M)
+    and ``features`` a :class:`Features`."""
     if solver not in SOLVER_CODES:
         raise ValueError(
             f"fused ODE psi supports solvers {sorted(SOLVER_CODES)} (got `{solver}`)"
@@ -218,22 +297,55 @@ def _check_inputs(seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value,
     n_out = out_coef.shape[0]
     shapes["out_coef"] = (out_coef, (n_out, N, S))
     shapes["out_bias"] = (out_bias, (n_out, S))
-    for name, (a, shape) in shapes.items():
-        if a is not None and tuple(a.shape) != shape:
-            raise ValueError(f"{name} must be {list(shape)}, got {list(a.shape)}")
-    for name, a in dict(seg_dt=seg_dt, support=support,
-                        **{k: v for k, (v, _) in shapes.items()}).items():
-        if a is None:
+
+    # covariates: the names and modes the RHS was generated for
+    cov_names = tuple(str(n) for n in cov_names)
+    if cov_names != tuple(rhs.cov_names):
+        raise ValueError(f"cov_names {cov_names} differ from the RHS's {tuple(rhs.cov_names)}")
+    cov = []
+    for i, (name, mode) in enumerate(zip(cov_names, rhs.cov_modes)):
+        entry = (cov_streams or {}).get(name)
+        if entry is None:
+            raise ValueError(f"cov_streams has no stream for covariate `{name}`")
+        if isinstance(entry, tuple) != (mode == "affine"):
+            raise ValueError(f"covariate `{name}` is `{mode}` in the RHS: pass "
+                             + ("an (a, b) pair" if mode == "affine" else "one [R, M] stream"))
+        ca, cb = entry if isinstance(entry, tuple) else (entry, None)
+        shapes[f"cov {name} a"] = (ca, (R, M))
+        shapes[f"cov {name} b"] = (cb, (R, M))
+        cov.append((name, ca, cb))
+
+    if init_rows is not None and init_planes is not None:
+        raise ValueError("pass init_rows OR init_planes, not both")
+    if (init_rows is not None or init_planes is not None) != (init_mask is not None):
+        raise ValueError("init_rows / init_planes and init_mask go together")
+    shapes["init_rows"] = (init_rows, (N, S))
+    shapes["init_planes"] = (init_planes, (N, R, S))
+    shapes["init_mask"] = (init_mask, (R,))
+    lag, lag_slots = _plane_list(lag_plane, lag_slots, nb, M, R, S, "lag_plane")
+    fa, fa_slots = _plane_list(fa_plane, fa_slots, nb, M, R, S, "fa_plane")
+    for what, lst in (("lag_plane", lag), ("fa_plane", fa)):
+        for i, pl in enumerate(lst or ()):
+            shapes[f"{what} {i}"] = (pl, (R, S))
+
+    for name, (arr, shape) in shapes.items():
+        if arr is not None and tuple(arr.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got {list(arr.shape)}")
+    for name, arr in dict(seg_dt=seg_dt, support=support,
+                          **{k: v for k, (v, _) in shapes.items()}).items():
+        if arr is None:
             continue
-        if a.dtype != dtype or a.device != dev:
-            raise ValueError(f"{name} is {a.dtype} on {a.device}; expected {dtype} on {dev}")
-        if not a.is_contiguous():
+        if arr.dtype != dtype or arr.device != dev:
+            raise ValueError(f"{name} is {arr.dtype} on {arr.device}; expected {dtype} on {dev}")
+        if not arr.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if n_out > 1 and obs_outeq is None:
         raise ValueError("obs_outeq stream required for multi-output psi")
     if merge_runs is None:
         runs = tuple((m, m + 1) for m in range(M))
     else:
+        if lag is not None:
+            raise ValueError("merge_runs is incompatible with lag planes")
         runs = tuple((int(a), int(b)) for a, b in merge_runs)
         flat = [0]
         for a, b in runs:
@@ -242,7 +354,9 @@ def _check_inputs(seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value,
             flat.append(b)
         if flat[-1] != M:
             raise ValueError(f"merge_runs must cover all {M} segments, got {runs}")
-    return n_out, runs
+    feats = Features(tuple(cov), lag, fa, lag_slots, fa_slots, init_rows, init_planes,
+                     init_mask)
+    return n_out, runs, feats
 
 
 # ---------------------------------------------------------------------------
@@ -254,25 +368,28 @@ def psi_ode_plain(
     seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma, obs_cens,
     seg_t0, support, rhs, *, obs_outeq=None, out_coef=None, out_bias=None,
     bolus_inputs=(0,), rate_inputs=(0,), merge_runs=None, solver="dopri5",
-    rtol=1e-4, atol=1e-4, h0=1e-3, max_steps=10_000, counts=None,
+    rtol=1e-4, atol=1e-4, h0=1e-3, max_steps=10_000, cov_streams=None,
+    cov_names=(), init_rows=None, init_planes=None, init_mask=None,
+    lag_plane=None, fa_plane=None, lag_slots=None, fa_slots=None, counts=None,
 ):
     """Plain PyTorch twin of the fused ODE psi kernel (same arguments as
     :func:`psi_ode`), on ``[R, S]`` lanes. A ``counts`` dict receives the
     number of step attempts over all cells (``"steps"``): the work this
     data needs, for the kernel's bound."""
-    from ..engine.grid import CovView
     from ..engine.sim import as_components
 
-    n_out, runs = _check_inputs(
+    n_out, runs, ft = _check_inputs(
         seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
         obs_cens, seg_t0, support, rhs, obs_outeq, out_coef, out_bias,
-        bolus_inputs, rate_inputs, merge_runs, solver)
+        bolus_inputs, rate_inputs, merge_runs, solver, cov_streams, cov_names,
+        init_rows, init_planes, init_mask, lag_plane, fa_plane, lag_slots, fa_slots)
     A, B, E, C = TABLEAUS[solver]
     dense_P = dense_P_for(solver)
     n_stages = len(C)
     N, nin = rhs.n_states, rhs.ninput
     R, M = seg_dt.shape
     S = support.shape[0]
+    nb = len(bolus_inputs)
     dtype, dev = seg_dt.dtype, seg_dt.device
     shape = (R, S)
     zeros = torch.zeros(shape, dtype=dtype, device=dev)
@@ -282,13 +399,30 @@ def psi_ode_plain(
     biases = ([out_bias[k].reshape(1, S) for k in range(n_out)]
               if out_bias is not None else None)
     diffeq = rhs.diffeq
+    has_lag = ft.lag is not None
 
-    def f(xs, t, rate, b=None):
+    # covariate lanes: per-row constants once, affine (a, b) per segment
+    const_lanes = {name: a[:, 0:1] for name, a, b in ft.cov if b is None}
+
+    def cov_for(m):
+        lanes = dict(const_lanes)
+        for name, a, b in ft.cov:
+            if b is not None:
+                lanes[name] = (a[:, m:m + 1], b[:, m:m + 1])
+        return LaneCov(lanes)
+
+    def f(xs, t, rate, cov, b=None):
         bl = [zeros] * nin
         if b is not None:
             bl[b[0]] = b[1]
-        out = diffeq(list(xs), p_lanes, t.expand(shape), bl, rate, CovView.empty())
+        out = diffeq(list(xs), p_lanes, t.expand(shape), bl, rate, cov)
         return as_components(out, N, shape, dtype, dev)
+
+    def dose(xs, j, amt, t, rate, cov):
+        """The RHS difference (ode/mod.rs:644-687), as the general engine."""
+        d_w = f(xs, t, rate, cov, (j, amt.expand(shape)))
+        d_o = f(xs, t, rate, cov)
+        return [x + (w - o) for x, w, o in zip(xs, d_w, d_o)]
 
     def col(a, m):
         return a[:, m:m + 1]
@@ -332,12 +466,12 @@ def psi_ode_plain(
     def outeq(m):
         return col(obs_outeq, m) if obs_outeq is not None else None
 
-    def integrate(xs, h, dt_col, rate, t0_col, estimate_h, interior):
+    def integrate(xs, h, dt_col, rate, t0_col, estimate_h, interior, cov):
         target = dt_col.expand(shape)
         live0 = target > 0.0
         for s in range(N):
             live0 = live0 & torch.isfinite(xs[s])
-        k1_0 = f(xs, t0_col, rate)
+        k1_0 = f(xs, t0_col, rate, cov)
         t_end_eff = target - 1e-6 * torch.clamp(target, min=1e-30)
         n_int = len(interior) if interior else 0
         if n_int:
@@ -357,7 +491,7 @@ def psi_ode_plain(
                               0.01 * d0 / torch.clamp(d1, min=1e-30),
                               torch.full_like(d0, 1e-6))
             x1 = [x + h0a * k for x, k in zip(xs, k1_0)]
-            f1 = f(x1, t0_col + h0a, rate)
+            f1 = f(x1, t0_col + h0a, rate, cov)
             d2 = zeros
             for s in range(N):
                 sc = atol + rtol * torch.abs(xs[s])
@@ -387,7 +521,7 @@ def psi_ode_plain(
             for i in range(1, n_stages):
                 xi = [xs_c[s] + h_try * _wsum([ks[j][s] for j in range(i)], A[i])
                       for s in range(N)]
-                ks.append(f(xi, t0_col + tau + C[i] * h_try, rate))
+                ks.append(f(xi, t0_col + tau + C[i] * h_try, rate, cov))
             xs_new = [x + h_try * _wsum([k[s] for k in ks], B)
                       for s, x in enumerate(xs_c)]
             err2 = zeros
@@ -446,29 +580,83 @@ def psi_ode_plain(
             return xs_out, h_out, preds
         return xs_out, h_out, []
 
-    xs = [zeros] * N
+    if ft.init_mask is not None:
+        im = ft.init_mask.reshape(R, 1)
+        if ft.init_planes is not None:
+            xs = [im * ft.init_planes[s] + zeros for s in range(N)]
+        else:
+            xs = [im * ft.init_rows[s].reshape(1, S) + zeros for s in range(N)]
+    else:
+        xs = [zeros] * N
     ll = zeros
     h = torch.full(shape, float(h0), dtype=dtype, device=dev)
+    pend_amt = [zeros] * nb
+    pend_rem = [zeros] * nb
     for m0, m1 in runs:
         ll = ll + obs_term(m0, with_bias(sel_out(outeq(m0), [out_k(k, xs) for k in range(n_out)]),
                                          outeq(m0)))
         rate = rate_at(m0)
         t0_col = col(seg_t0, m0)
+        cov = cov_for(m0)
+
+        def amt_for(k, m=m0):
+            amt = seg_bolus[k, :, m:m + 1]
+            fp = ft.fa_src(k, m)
+            return amt * fp if fp is not None else amt
+
+        if not has_lag:
+            for k, j in enumerate(bolus_inputs):
+                amt = amt_for(k)
+                if bool((amt != 0.0).any()):
+                    xs = dose(xs, j, amt, t0_col, rate, cov)
+            dt_run = col(seg_dt, m0)
+            interior = []
+            for mm in range(m0 + 1, m1):
+                interior.append((dt_run, outeq(mm)))
+                dt_run = dt_run + col(seg_dt, mm)
+            xs, h, preds = integrate(xs, h, dt_run, rate, t0_col, m0 == 0, interior, cov)
+            for (_, oe), mm, pred in zip(interior, range(m0 + 1, m1), preds):
+                ll = ll + obs_term(mm, with_bias(pred, oe))
+            continue
+        # lag: the split march of the JAX kernel (:1752-1807). Doses due at
+        # this breakpoint fire first, after its observation; new doses park
+        # with their lag per bolus plane; one pass per plane advances to the
+        # next earliest fire time (equal times fire together), then the
+        # march runs to the segment's end
         for k, j in enumerate(bolus_inputs):
-            amt = seg_bolus[k, :, m0:m0 + 1]
-            if bool((amt != 0.0).any()):
-                # the RHS difference (ode/mod.rs:644-687), as the general engine
-                d_w = f(xs, t0_col, rate, (j, amt.expand(shape)))
-                d_o = f(xs, t0_col, rate)
-                xs = [x + (w - o) for x, w, o in zip(xs, d_w, d_o)]
-        dt_run = col(seg_dt, m0)
-        interior = []
-        for mm in range(m0 + 1, m1):
-            interior.append((dt_run, outeq(mm)))
-            dt_run = dt_run + col(seg_dt, mm)
-        xs, h, preds = integrate(xs, h, dt_run, rate, t0_col, m0 == 0, interior)
-        for (_, oe), mm, pred in zip(interior, range(m0 + 1, m1), preds):
-            ll = ll + obs_term(mm, with_bias(pred, oe))
+            fire0 = (pend_amt[k] != 0.0) & (pend_rem[k] <= 0.0)
+            if bool(fire0.any()):
+                xs = dose(xs, j, torch.where(fire0, pend_amt[k], zeros), t0_col, rate, cov)
+            pend_amt[k] = torch.where(fire0, zeros, pend_amt[k])
+        for k in range(nb):
+            lp = ft.lag_src(k, m0)
+            if lp is None:
+                continue
+            arrive = seg_bolus[k, :, m0:m0 + 1] != 0.0
+            pend_amt[k] = torch.where(arrive, pend_amt[k] + amt_for(k), pend_amt[k])
+            pend_rem[k] = torch.where(arrive, lp + zeros, pend_rem[k])
+        dt_b = col(seg_dt, m0).expand(shape)
+        elapsed = zeros
+        for pas in range(nb):
+            will = [(pend_amt[k] != 0.0) & (pend_rem[k] < dt_b) for k in range(nb)]
+            t_next = dt_b
+            for k in range(nb):
+                t_next = torch.minimum(t_next, torch.where(will[k], pend_rem[k], dt_b))
+            t_next = torch.maximum(t_next, elapsed)
+            xs, h, _ = integrate(xs, h, t_next - elapsed, rate, t0_col + elapsed,
+                                 m0 == 0 and pas == 0, [], cov)
+            for k, j in enumerate(bolus_inputs):
+                fire = will[k] & (pend_rem[k] <= t_next)
+                if bool(fire.any()):
+                    xs = dose(xs, j, torch.where(fire, pend_amt[k], zeros),
+                              t0_col + t_next, rate, cov)
+                pend_amt[k] = torch.where(fire, zeros, pend_amt[k])
+            elapsed = t_next
+        xs, h, _ = integrate(xs, h, dt_b - elapsed, rate, t0_col + elapsed, False, [], cov)
+        live = dt_b > 0.0
+        for k in range(nb):
+            pend_rem[k] = torch.where((pend_amt[k] != 0.0) & live, pend_rem[k] - dt_b,
+                                      pend_rem[k])
     return ll
 
 
@@ -485,72 +673,126 @@ def psi_ode(
     seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma, obs_cens,
     seg_t0, support, rhs, *, obs_outeq=None, out_coef=None, out_bias=None,
     bolus_inputs=(0,), rate_inputs=(0,), merge_runs=None, solver="dopri5",
-    rtol=1e-4, atol=1e-4, h0=1e-3, max_steps=10_000,
+    rtol=1e-4, atol=1e-4, h0=1e-3, max_steps=10_000, cov_streams=None,
+    cov_names=(), init_rows=None, init_planes=None, init_mask=None,
+    lag_plane=None, fa_plane=None, lag_slots=None, fa_slots=None,
 ):
     """Fused ODE psi [R, S]: the counterpart of the JAX package's
-    ``ops/pallas_ode.py::psi_ode``, explicit tier (dopri5, tsit5).
+    ``ops/pallas_ode.py::psi_ode``, explicit tier (dopri5, tsit5) and its
+    feature tier.
 
     ``rhs`` is the :class:`~.rhs_codegen.GeneratedRhs` of the model.
     ``seg_rateiv``, ``obs_cens`` and ``out_bias`` are None when the workload
     has no infusions, censoring or output bias; ``obs_outeq`` is None for one
     output. ``merge_runs``: (m0, m1) spans tiling [0, M) whose interior
     breakpoints the caller proved observation-only (no dose on any row, rates
-    unchanged, contiguous times; :func:`~..likelihood.plans.ode._ode_merge_runs`);
-    None marches segment by segment.
+    and covariate streams unchanged, contiguous times;
+    :func:`~..likelihood.plans.ode._ode_merge_runs`); None marches segment by
+    segment. Features (all optional, see :class:`Features`):
+    ``cov_streams`` {name: [R, M] stream (column 0 = the row's constant) or
+    an (a, b) pair of [R, M] streams, ``cov(t) = a + b t`` in each segment}
+    for the RHS's ``cov_names``; ``init_rows`` [N, S] or ``init_planes``
+    [N, R, S] with ``init_mask`` [R]; ``lag_plane``/``fa_plane``: one [R, S]
+    plane per bolus plane, or the slot-indexed planes ``lag_slots``/
+    ``fa_slots`` select per segment. Lag does not combine with merged runs.
 
     On a CUDA tensor this launches ``csrc/fused_ode.cu`` (one thread per
-    (row, support) cell) and raises if the build or the launch fails; on a CPU
-    tensor it runs :func:`psi_ode_plain`.
+    (row, support) cell): kernel K2a without features, K2e with any, and
+    raises if the build or the launch fails; on a CPU tensor it runs
+    :func:`psi_ode_plain`.
     """
-    global LAUNCHES
+    global LAUNCHES, FEATURE_LAUNCHES
     args = (seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
             obs_cens, seg_t0, support, rhs)
+    feat_kw = dict(cov_streams=cov_streams, cov_names=tuple(cov_names),
+                   init_rows=init_rows, init_planes=init_planes, init_mask=init_mask,
+                   lag_plane=lag_plane, fa_plane=fa_plane, lag_slots=lag_slots,
+                   fa_slots=fa_slots)
     kw = dict(obs_outeq=obs_outeq, out_coef=out_coef, out_bias=out_bias,
               bolus_inputs=tuple(bolus_inputs), rate_inputs=tuple(rate_inputs),
               merge_runs=merge_runs, solver=solver, rtol=rtol, atol=atol,
               h0=h0, max_steps=max_steps)
     dev = seg_dt.device
     if dev.type == "cpu":
-        return psi_ode_plain(*args, **kw)
+        return psi_ode_plain(*args, **kw, **feat_kw)
     if dev.type != "cuda":
         raise ValueError(f"fused ODE psi runs on cpu or cuda tensors, got {dev}")
-    n_out, runs = _check_inputs(*args, obs_outeq, out_coef, out_bias,
-                                kw["bolus_inputs"], kw["rate_inputs"],
-                                merge_runs, solver)
+    n_out, runs, ft = _check_inputs(*args, obs_outeq, out_coef, out_bias,
+                                    kw["bolus_inputs"], kw["rate_inputs"],
+                                    merge_runs, solver, **feat_kw)
     R, M = seg_dt.shape
     S = support.shape[0]
-    out = torch.empty((R, S), dtype=seg_dt.dtype, device=dev)
     if R == 0 or S == 0:
-        return out  # nothing to launch
+        return torch.empty((R, S), dtype=seg_dt.dtype, device=dev)  # nothing to launch
     from ._build import ODE, load_generated_library
 
     lib = load_generated_library(ODE, rhs)
-    # parameter rows [P, S]: coalesced along supports
-    params = support.t().contiguous()
-    # one int32 table: bolus inputs, rate inputs, run boundaries
-    rate_in = kw["rate_inputs"] if seg_rateiv is not None else ()
-    bounds = [runs[0][0]] + [b for _, b in runs]
-    ints = torch.tensor(list(kw["bolus_inputs"]) + list(rate_in) + bounds,
-                        dtype=torch.int32, device=dev)
-    dense = torch.tensor(dense_P_for(solver), dtype=seg_dt.dtype, device=dev)
-    nb, nr = len(kw["bolus_inputs"]), len(rate_in)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_ode_launch(
-            int(seg_dt.dtype == torch.float64), SOLVER_CODES[solver],
-            _ptr(seg_dt), _ptr(seg_bolus), _ptr(seg_rateiv),
-            _ptr(obs_mask), _ptr(obs_value), _ptr(obs_sigma), _ptr(obs_cens),
-            _ptr(obs_outeq if n_out > 1 else None), _ptr(seg_t0),
-            _ptr(params), _ptr(out_coef), _ptr(out_bias), _ptr(dense),
-            _ptr(ints), _ptr(out),
-            R, S, M, nb, nr, n_out, len(runs),
-            ctypes.c_double(rtol), ctypes.c_double(atol), ctypes.c_double(h0),
-            int(max_steps), ctypes.c_void_p(stream),
-        )
+        out, err = _launch(lib, stream, args, kw, n_out, runs, ft)
     if err != 0:
         raise RuntimeError(
             f"fused ODE psi kernel launch failed (R={R}, S={S}, M={M}): "
             f"{lib.fused_ode_error_string(err).decode()}"
         )
-    LAUNCHES += 1
+    if ft.any:
+        FEATURE_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
+
+
+def _launch(lib, stream: int, args, kw, n_out: int, runs, ft: Features):
+    """Pack the validated inputs for the kernel's C interface and launch K2a
+    (no features) or K2e on ``stream``: returns (out, cudaError_t code)."""
+    (seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma, obs_cens,
+     seg_t0, support, _) = args
+    R, M = seg_dt.shape
+    S = support.shape[0]
+    dev = seg_dt.device
+    out = torch.empty((R, S), dtype=seg_dt.dtype, device=dev)
+    # parameter rows [P, S]: coalesced along supports
+    params = support.t().contiguous()
+    # one int32 table: bolus inputs, rate inputs, run boundaries, then (K2e)
+    # the lag and fa slot tables [nb, M]
+    nb = len(kw["bolus_inputs"])
+    rate_in = kw["rate_inputs"] if seg_rateiv is not None else ()
+    table = list(kw["bolus_inputs"]) + list(rate_in) + [runs[0][0]] + [b for _, b in runs]
+    feat_ptrs = None
+    if ft.any:
+        for planes, slots in ((ft.lag, ft.lag_slots), (ft.fa, ft.fa_slots)):
+            if planes is not None:
+                rows = slots if slots is not None else [[k] * M for k in range(nb)]
+                table += [int(v) for row in rows for v in row]
+        # covariates as two [NCOV, R, M] stacks: a constant one's value in
+        # every column, its b row unread
+        cov_a = cov_b = None
+        if ft.cov:
+            cov_a = torch.stack([a if b is not None else a[:, :1].expand(R, M)
+                                 for _, a, b in ft.cov]).contiguous()
+            if any(b is not None for _, _, b in ft.cov):
+                cov_b = torch.stack([b if b is not None else torch.zeros_like(a)
+                                     for _, a, b in ft.cov]).contiguous()
+        lag = torch.stack(ft.lag).contiguous() if ft.lag is not None else None
+        fa = torch.stack(ft.fa).contiguous() if ft.fa is not None else None
+        feat_ptrs = (ctypes.c_void_p * 7)(*(_ptr(t) for t in (
+            cov_a, cov_b, lag, fa, ft.init_rows, ft.init_planes, ft.init_mask)))
+    ints = torch.tensor(table, dtype=torch.int32, device=dev)
+    dense = torch.tensor(dense_P_for(kw["solver"]), dtype=seg_dt.dtype, device=dev)
+    base = (_ptr(seg_dt), _ptr(seg_bolus), _ptr(seg_rateiv),
+            _ptr(obs_mask), _ptr(obs_value), _ptr(obs_sigma), _ptr(obs_cens),
+            _ptr(kw["obs_outeq"] if n_out > 1 else None), _ptr(seg_t0),
+            _ptr(params), _ptr(kw["out_coef"]), _ptr(kw["out_bias"]), _ptr(dense))
+    dims = (R, S, M, nb, len(rate_in), n_out, len(runs))
+    tols = (ctypes.c_double(kw["rtol"]), ctypes.c_double(kw["atol"]),
+            ctypes.c_double(kw["h0"]))
+    is_f64, code = int(seg_dt.dtype == torch.float64), SOLVER_CODES[kw["solver"]]
+    if feat_ptrs is None:
+        err = lib.fused_ode_launch(is_f64, code, *base, _ptr(ints), _ptr(out), *dims,
+                                   *tols, int(kw["max_steps"]), ctypes.c_void_p(stream))
+    else:
+        err = lib.fused_ode_feature_launch(
+            is_f64, code, (ctypes.c_void_p * 13)(*base), feat_ptrs, _ptr(ints),
+            _ptr(out), *dims, len(ft.lag or ()), len(ft.fa or ()), *tols,
+            int(kw["max_steps"]), ctypes.c_void_p(stream))
+    return out, err

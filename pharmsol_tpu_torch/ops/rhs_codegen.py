@@ -8,7 +8,8 @@ function, which the kernel's build includes:
 
     template <typename T>
     __device__ __forceinline__ void rhs(const T* x, const T* p, T t,
-                                        const T* b, const T* rateiv, T* dx);
+                                        const T* b, const T* rateiv,
+                                        const T* cov_a, const T* cov_b, T* dx);
 
 It is the counterpart of two pieces of the JAX package: the lane shim
 ``ops/pallas_ode.py::make_lane_rhs`` (which traced the closure straight into
@@ -23,10 +24,19 @@ Supported: ``+ - * /``, unary ``-``, ``**``, ``torch.exp``, ``torch.log``,
 ``torch.sqrt``, ``torch.abs``/``abs``, ``torch.minimum``, ``torch.maximum``,
 ``torch.clamp``, ``torch.where`` with comparisons (and ``& | ~`` on them),
 Python float constants, static integer indexing ``x[i]``, ``p[i]``,
-``b[j]``, ``rateiv[j]``, and a result built with ``torch.stack([...])`` or
+``b[j]``, ``rateiv[j]``, covariate reads ``cov(name, t)`` of the covariates
+the generator is given, and a result built with ``torch.stack([...])`` or
 returned as a list or tuple. Rejected: a Python ``if`` (or ``min``/``max``,
-``and``/``or``) on a traced value, in-place writes into a tensor, covariate
-reads, whole-vector arithmetic and any other operation.
+``and``/``or``) on a traced value, in-place writes into a tensor, reads of an
+unknown covariate, whole-vector arithmetic and any other operation.
+
+Covariates (the counterpart of the JAX kernel's ``LaneCov``,
+``ops/pallas_ode.py:417``): the kernel hands the RHS two arrays, ``cov_a``
+and ``cov_b``, one entry per covariate in the order given. A covariate in
+mode ``const`` is constant over the row and reads as ``cov_a[i]``; one in
+mode ``affine`` is affine within the segment, ``cov(t) = cov_a[i] +
+cov_b[i] * t`` at the time the closure passes, so a read at a shifted time
+is exact too. The SDE generator still rejects covariate reads.
 
 After tracing, the recorded graph is evaluated in float64 on random inputs
 and held against the closure itself, so a closure that behaves differently
@@ -54,6 +64,8 @@ class GeneratedRhs(NamedTuple):
     ninput: int
     source: str  # the C++ header text
     key: str  # content hash of ``source``
+    cov_names: tuple = ()  # the covariates of cov_a / cov_b, in order
+    cov_modes: tuple = ()  # "const" or "affine" per covariate
 
 
 class GeneratedSde(NamedTuple):
@@ -320,11 +332,62 @@ def _torch_op(func, args, kwargs):
 
 
 class _NoCovariates:
+    """The covariate argument of an SDE closure: every read is refused."""
+
     def __call__(self, name, t=None):
         raise PharmsolError(
-            f"the RHS reads covariate `{name}`: the PyTorch port does not "
-            "support covariates yet"
+            f"the closure reads covariate `{name}`: the PyTorch port's SDE "
+            "kernel does not support covariates yet"
         )
+
+    value = __call__
+
+
+COV_MODES = ("const", "affine")
+
+
+class _SymCov:
+    """The covariate argument while tracing: ``cov(name, t)`` is the leaf
+    ``cov_a[i]`` for a constant covariate and ``cov_a[i] + cov_b[i] * t``
+    for an affine one, with ``t`` the time the closure passed."""
+
+    def __init__(self, names, modes):
+        self._index = {n: i for i, n in enumerate(names)}
+        self._modes = modes
+
+    def __call__(self, name, t):
+        i = self._index.get(str(name))
+        if i is None:
+            raise PharmsolError(
+                f"the RHS reads unknown covariate `{name}` (the data carries "
+                f"{sorted(self._index) or 'none'})"
+            )
+        a = Sym("cov_a", value=i)
+        if self._modes[i] == "const":
+            return a
+        return _arith("add", a, _arith("mul", Sym("cov_b", value=i), t))
+
+    value = __call__
+
+
+class LaneCov:
+    """The covariate argument of an RHS evaluated on numbers (the JAX
+    kernel's ``LaneCov``, ``ops/pallas_ode.py:417``): each covariate is a
+    constant, or an ``(a, b)`` pair with ``cov(t) = a + b t`` inside the
+    segment, exact because the plan puts every knot on a breakpoint. The
+    fused ODE twin hands it per-row lanes; the generator's check, scalars."""
+
+    def __init__(self, values: dict):
+        self._values = values
+
+    def __call__(self, name, t):
+        try:
+            v = self._values[str(name)]
+        except KeyError:
+            raise KeyError(f"RHS reads unknown covariate `{name}`") from None
+        if isinstance(v, tuple):
+            return v[0] + v[1] * t
+        return v
 
     value = __call__
 
@@ -345,11 +408,14 @@ def _sizes(args, n_states, n_params, ninput):
     return tuple((name, dims[size]) for name, size in args)
 
 
-def _trace(fn, args, n_out: int, what: str = "the RHS") -> List[Sym]:
+def _trace(fn, args, n_out: int, what: str = "the RHS", covs=None) -> List[Sym]:
+    """Trace ``fn`` on symbolic arguments; ``covs`` is ``(names, modes)`` of
+    the covariates it may read, or None when it may read none (SDE)."""
     leaves = [Sym(name) if size is None
               else SymVec([Sym(name, value=i) for i in range(size)], name)
               for name, size in args]
-    out = fn(*leaves, _NoCovariates())
+    shim = _NoCovariates() if covs is None else _SymCov(*covs)
+    out = fn(*leaves, shim)
     if isinstance(out, torch.Tensor) and out.dim() == 1 and not out.requires_grad:
         out = list(out)  # a vector of constants
     if isinstance(out, (SymVec, list, tuple)):
@@ -523,7 +589,13 @@ def _emit_function(outputs: List[Sym], name: str, args, out_name: str) -> str:
     )
 
 
-def _header(what: str, n_states, n_params, ninput, functions) -> str:
+def _header(what: str, n_states, n_params, ninput, functions, covs=None) -> str:
+    cov_lines = ""
+    if covs is not None:
+        names, modes = covs
+        listed = ", ".join(f"{n} ({m})" for n, m in zip(names, modes)) or "none"
+        cov_lines = (f"// covariates, in cov_a/cov_b order: {listed}\n"
+                     f"#define PHARMSOL_RHS_NCOV {len(names)}\n")
     return (
         "// Generated by pharmsol_tpu_torch/ops/rhs_codegen.py from a model's\n"
         f"// torch {what}: do not edit.\n"
@@ -531,21 +603,31 @@ def _header(what: str, n_states, n_params, ninput, functions) -> str:
         f"#define PHARMSOL_RHS_NSTATES {n_states}\n"
         f"#define PHARMSOL_RHS_NPARAMS {n_params}\n"
         f"#define PHARMSOL_RHS_NINPUT {ninput}\n"
-        + _MATH_PRELUDE + "".join(functions)
+        + cov_lines + _MATH_PRELUDE + "".join(functions)
     )
 
 
-def _check_against_closure(fn, outputs, args, n_out: int, what: str = "RHS"):
-    """The traced graph and the closure, on the same random float64 lane."""
+def _check_against_closure(fn, outputs, args, n_out: int, what: str = "RHS",
+                           covs=None):
+    """The traced graph and the closure, on the same random float64 lane
+    (and random covariate coefficients)."""
     rng = np.random.RandomState(7)
     leaves = {name: (torch.tensor(1.37, dtype=torch.float64) if size is None
                      else torch.as_tensor(rng.uniform(0.5, 2.0, size)))
               for name, size in args}
-    want = fn(*leaves.values(), _NoCovariates())
+    shim, cov_leaves = _NoCovariates(), {}
+    if covs is not None:
+        names, modes = covs
+        a = torch.as_tensor(rng.uniform(0.5, 2.0, len(names)))
+        b = torch.as_tensor(rng.uniform(-0.2, 0.2, len(names)))
+        cov_leaves = {"cov_a": a, "cov_b": b}
+        shim = LaneCov({n: a[i] if m == "const" else (a[i], b[i])
+                        for i, (n, m) in enumerate(zip(names, modes))})
+    want = fn(*leaves.values(), shim)
     if not isinstance(want, torch.Tensor):
         want = torch.stack([torch.as_tensor(c, dtype=torch.float64) for c in want])
     want = want.to(torch.float64).reshape(n_out)
-    got = evaluate(outputs, **leaves)
+    got = evaluate(outputs, **leaves, **cov_leaves)
     ok = torch.isclose(got, want, rtol=1e-12, atol=1e-12 * float(want.abs().max()))
     if not bool((ok | (torch.isnan(got) & torch.isnan(want))).all()):
         raise PharmsolError(
@@ -554,12 +636,12 @@ def _check_against_closure(fn, outputs, args, n_out: int, what: str = "RHS"):
         )
 
 
-def _traced(fn, args, n_out: int, what: str, family: str) -> List[Sym]:
+def _traced(fn, args, n_out: int, what: str, family: str, covs=None) -> List[Sym]:
     """Trace and check one closure; PharmsolError with the reason when the
     generator cannot express it."""
     try:
-        outputs = _trace(fn, args, n_out, f"the {what}")
-        _check_against_closure(fn, outputs, args, n_out, what)
+        outputs = _trace(fn, args, n_out, f"the {what}", covs)
+        _check_against_closure(fn, outputs, args, n_out, what, covs)
     except PharmsolError as e:
         raise PharmsolError(f"the {family} {what} cannot run in the CUDA kernel: {e}") from None
     except Exception as e:
@@ -571,17 +653,27 @@ def _traced(fn, args, n_out: int, what: str, family: str) -> List[Sym]:
 
 
 def generate_rhs(diffeq: Callable, n_states: int, n_params: int,
-                 ninput: int) -> GeneratedRhs:
+                 ninput: int, cov_names=(), cov_modes=None) -> GeneratedRhs:
     """Trace ``diffeq`` and emit its CUDA header; raises PharmsolError with
     the reason when the closure uses something the generator cannot
-    express."""
+    express. ``cov_names`` are the covariates the closure may read, in the
+    kernel's order, ``cov_modes`` their modes (``const`` or ``affine``;
+    default all ``const``)."""
     ninput = max(int(ninput), 1)
+    cov_names = tuple(str(n) for n in cov_names)
+    cov_modes = tuple(cov_modes) if cov_modes is not None else ("const",) * len(cov_names)
+    if len(cov_modes) != len(cov_names) or any(m not in COV_MODES for m in cov_modes):
+        raise ValueError(f"cov_modes {cov_modes} must give one of {COV_MODES} per "
+                         f"covariate {cov_names}")
+    covs = (cov_names, cov_modes)
     args = _sizes(_ODE_ARGS, n_states, n_params, ninput)
-    outputs = _traced(diffeq, args, n_states, "RHS", "ODE")
+    outputs = _traced(diffeq, args, n_states, "RHS", "ODE", covs)
+    c_args = args + (("cov_a", len(cov_names)), ("cov_b", len(cov_names)))
     source = _header("RHS closure", n_states, n_params, ninput,
-                     [_emit_function(outputs, "rhs", args, "dx")])
+                     [_emit_function(outputs, "rhs", c_args, "dx")], covs)
     key = hashlib.sha256(source.encode()).hexdigest()[:16]
-    return GeneratedRhs(diffeq, int(n_states), int(n_params), ninput, source, key)
+    return GeneratedRhs(diffeq, int(n_states), int(n_params), ninput, source, key,
+                        cov_names, cov_modes)
 
 
 def generate_sde(drift: Callable, diffusion: Callable, n_states: int,

@@ -1,5 +1,5 @@
 """The float32 accuracy budget of the ported model classes, and the cases
-of kernel K1b's modes.
+of the modes of kernels K1b and K2e.
 
 The analytical, analytical-feature and explicit-ODE rows of the JAX
 package's ``utils/f32_budget.py`` (that module imports jax), copied as
@@ -13,7 +13,10 @@ closed-form cases (kernel order; the volume column follows).
 name -> the budget row its float32 result is held to). Its closures are
 plain Python arithmetic on the parameters, so the same function builds the
 model in the JAX package too when handed that package (``lib``), for the
-parity tests.
+parity tests. :func:`ode_feature_case` does the same for K2e's modes
+(``ODE_FEATURE_CASES``), and :func:`covariate_model_case` for the reference's
+covariate example; their right-hand sides stack with the ``stack`` they are
+given (``torch.stack`` by default).
 """
 
 from __future__ import annotations
@@ -43,8 +46,12 @@ F32_BUDGET: Dict[str, float] = {
     # adaptive stepping compounds controller decisions (JAX package :61, :65)
     "ode_dopri5": 2e-4,
     "ode_multi_input": 2e-4,   # per-input bolus/rate streams
+    # the feature tier (JAX package :63-64): the lag/fa split march, and a
+    # covariate through per-segment affine streams
+    "ode_lag_fa": 2e-4,
+    "ode_tv_covariate": 2e-4,
 }
-ODE_CASES = ("ode_dopri5", "ode_multi_input")
+ODE_CASES = ("ode_dopri5", "ode_multi_input", "ode_lag_fa", "ode_tv_covariate")
 
 NOMINAL: Dict[str, List[float]] = {
     "one_compartment": [0.2],
@@ -116,12 +123,16 @@ def kernel_case(name: str):
 
 def ode_case(name: str):
     """The budget's ODE case ``name``: (model, data, support, ems), the JAX
-    package's ``_ode_case`` / ``_ode_multi_input_case`` on the same seeds.
+    package's ``_ode_case`` / ``_ode_multi_input_case`` / ``_ode_lag_fa_case``
+    / ``_ode_tv_cov_case`` on the same seeds.
 
     ``ode_dopri5``: a 2-state bolus + infusion RHS on the closed-form cases'
     workload (two boluses, an infusion, 7 observations plus a BLOQ and an
     ALOQ one). ``ode_multi_input``: a 3-state RHS dosed into two inputs (a
     bolus into each, an infusion into input 1), 6 observations.
+    ``ode_lag_fa``: a 2-state oral RHS with lag and fa, two boluses.
+    ``ode_tv_covariate``: a 1-state RHS whose elimination follows a weight
+    with three knots on observation times.
     """
     import numpy as np
     import torch
@@ -176,6 +187,53 @@ def ode_case(name: str):
         support = np.column_stack([
             rng.uniform(0.5, 2.0, 12), rng.uniform(0.3, 1.2, 12),
             rng.uniform(0.05, 0.5, 12), rng.uniform(8, 14, 12),
+        ])
+        return model, Data(subjects), support, ems
+    if name == "ode_lag_fa":
+        rng = np.random.RandomState(41)
+        subjects = []
+        for i in range(8):
+            b = (Subject.builder(f"l{i}").bolus(0.0, 100.0, 0)
+                 .bolus(12.0, 80.0, 0))
+            for t in (1.0, 2.5, 4.0, 6.0, 9.0, 14.0, 24.0):
+                b = b.observation(float(t), float(np.abs(3 + rng.randn())), 0)
+            subjects.append(b.build())
+        model = ODE(
+            lambda x, p, t, b, rateiv, cov: torch.stack([
+                -p[0] * x[0] + b[0],
+                p[0] * x[0] - p[1] * x[1],
+            ]),
+            lag=lambda p, t, cov: {0: p[3]},
+            fa=lambda p, t, cov: {0: p[4]},
+            out=lambda x, p, t, cov: x[1:2] / p[2],
+            nstates=2, ndrugs=1, nout=1,
+        )
+        support = np.column_stack([
+            rng.uniform(0.5, 2.0, 12), rng.uniform(0.05, 0.5, 12),
+            rng.uniform(8, 14, 12), rng.uniform(0.0, 1.5, 12),
+            rng.uniform(0.3, 1.0, 12),
+        ])
+        return model, Data(subjects), support, ems
+    if name == "ode_tv_covariate":
+        rng = np.random.RandomState(43)
+        subjects = []
+        for i in range(8):
+            b = (Subject.builder(f"v{i}").bolus(0.0, 100.0, 0)
+                 .covariate("wt", 0.0, 55.0 + 4.0 * i)
+                 .covariate("wt", 2.5, 80.0 - 3.0 * i)
+                 .covariate("wt", 9.0, 60.0 + 2.0 * i))
+            for t in (1.0, 2.5, 4.0, 9.0, 14.0):
+                b = b.observation(float(t), float(np.abs(3 + rng.randn())), 0)
+            subjects.append(b.build())
+        model = ODE(
+            lambda x, p, t, b, rateiv, cov: torch.stack([
+                -p[0] * (cov("wt", t) / 70.0) * x[0] + b[0],
+            ]),
+            out=lambda x, p, t, cov: x[0:1] / p[1],
+            nstates=1, ndrugs=1, nout=1,
+        )
+        support = np.column_stack([
+            rng.uniform(0.1, 0.6, 12), rng.uniform(8, 14, 12),
         ])
         return model, Data(subjects), support, ems
     raise KeyError(f"no ODE budget case `{name}` (have {', '.join(ODE_CASES)})")
@@ -406,3 +464,173 @@ def feature_case(name: str, n_subjects: int = 8, n_support: int = 12,
     ems = lib.AssayErrorModels().add(
         0, lib.AssayErrorModel.additive(lib.ErrorPoly(0.5, 0.1), 1.0))
     return model, lib.Data(subjects), sp, ems, mode
+
+
+# ---------------------------------------------------------------------------
+# Kernel K2e's modes: ODE models with covariates, lag, fa and init
+# ---------------------------------------------------------------------------
+
+
+def _rhs_oral(stack):
+    return lambda x, p, t, b, r, cov: stack([
+        -p[0] * x[0] + b[0],
+        p[0] * x[0] - p[1] * x[1] + r[0],
+    ])
+
+
+def _rhs_wt(stack):
+    # allometric elimination: (wt / 70) ** 0.75
+    return lambda x, p, t, b, r, cov: stack([
+        -p[0] * x[0] + b[0],
+        p[0] * x[0] - p[1] * (cov("wt", t) / 70.0) ** 0.75 * x[1] + r[0],
+    ])
+
+
+def _rhs_two_inputs(stack):
+    # JAX tests/test_pallas_ode.py:912: two depots into one central state
+    return lambda x, p, t, b, r, cov: stack([
+        -p[0] * x[0] + b[0],
+        -1.3 * p[0] * x[1] + b[1],
+        p[0] * x[0] + 1.3 * p[0] * x[1] - p[1] * x[2],
+    ])
+
+
+_KA, _KE, _V = (0.5, 2.0), (0.05, 0.5), (30.0, 90.0)
+
+# name: (rhs, closures, regimen, covariate, extra support ranges, solver,
+#        budget row). Regimens: "bolus" 100 at 0; "two_doses" 100 at 0 and 80
+# at 6; "infusion" 50 at 0 and 40 over 2 h from 1 h; "two_inputs" 80 into
+# input 0 and 50 into input 1 at 0. Covariates: "wt" constant per subject,
+# "wt_tv" knots at 0 and 2 h (interpolated, then carried forward), "wt_fixed"
+# a carried-forward ("wt!") step at 4 h. The support is ka, ke, v and then
+# the extra columns.
+_ODE_FEATURES = {
+    "cov_const": (_rhs_wt, {}, "bolus", "wt", [], "dopri5", "ode_tv_covariate"),
+    "cov_linear": (_rhs_wt, {}, "bolus", "wt_tv", [], "dopri5", "ode_tv_covariate"),
+    "cov_fixed": (_rhs_wt, {}, "bolus", "wt_fixed", [], "dopri5", "ode_tv_covariate"),
+    "lag": (_rhs_oral, dict(lag=lambda p, t, cov: {0: p[3]}), "two_doses", None,
+            [(0.0, 1.5)], "dopri5", "ode_lag_fa"),
+    "fa": (_rhs_oral, dict(fa=lambda p, t, cov: {0: p[3]}), "two_doses", None,
+           [(0.3, 1.0)], "dopri5", "ode_lag_fa"),
+    "lag_fa": (_rhs_oral, dict(lag=lambda p, t, cov: {0: p[3]}, fa=lambda p, t, cov: {0: p[4]}),
+               "two_doses", None, [(0.0, 1.5), (0.3, 1.0)], "dopri5", "ode_lag_fa"),
+    "lag_infusion": (_rhs_oral, dict(lag=lambda p, t, cov: {0: p[3]}), "infusion", None,
+                     [(0.0, 0.9)], "dopri5", "ode_lag_fa"),
+    "two_inputs_lag": (_rhs_two_inputs, dict(lag=lambda p, t, cov: {0: p[3], 1: p[4]}),
+                       "two_inputs", None, [(0.1, 2.5), (0.1, 2.5)], "dopri5", "ode_lag_fa"),
+    "dyn_time": (_rhs_oral, dict(lag=lambda p, t, cov: {0: p[3] / (1.0 + 0.1 * t)},
+                                 fa=lambda p, t, cov: {0: p[4] / (1.0 + 0.05 * t)}),
+                 "two_doses", None, [(0.0, 1.4), (0.3, 1.0)], "dopri5", "ode_lag_fa"),
+    "dyn_cov_lag": (_rhs_oral, dict(lag=lambda p, t, cov: {0: p[3] * cov("wt", t) / 70.0}),
+                    "two_doses", "wt_tv", [(0.0, 1.1)], "dopri5", "ode_lag_fa"),
+    "init_rows": (_rhs_oral, dict(init=lambda p, t, cov: [0.0, 0.5 * p[2]]), "bolus", None,
+                  [], "dopri5", "ode_dopri5"),
+    "init_planes": (_rhs_wt, dict(init=lambda p, t, cov: [0.0, p[2] * cov("wt", t) / 140.0]),
+                    "bolus", "wt", [], "dopri5", "ode_dopri5"),
+    "tsit5_cov": (_rhs_wt, {}, "bolus", "wt_tv", [], "tsit5", "ode_tv_covariate"),
+}
+ODE_FEATURE_CASES = {name: row[6] for name, row in _ODE_FEATURES.items()}
+
+
+def ode_feature_case(name: str, n_subjects: int = 6, n_support: int = 12,
+                     seed: int = 0, lib=None, stack=None):
+    """K2e's case ``name`` (see ``ODE_FEATURE_CASES``: name -> the budget row
+    of its float32 result): (model, data, support, ems), built with ``lib``
+    (default this package) and ``stack`` (default ``torch.stack``). The
+    single output is the central amount over the volume ``p[2]``."""
+    import numpy as np
+
+    if lib is None:
+        import pharmsol_tpu_torch as lib
+    if stack is None:
+        import torch
+
+        stack = torch.stack
+    rhs, closures, regimen, cov, extra, solver, _ = _ODE_FEATURES[name]
+    rng = np.random.RandomState(seed)
+    sp = np.column_stack([rng.uniform(lo, hi, n_support) for lo, hi in [_KA, _KE, _V] + extra])
+    central = 2 if regimen == "two_inputs" else 1
+    times = {"infusion": (0.5, 1.5, 3.0, 5.0),
+             "two_inputs": (1.0, 2.0, 3.0, 4.0, 6.0, 8.0)}.get(
+        regimen, (0.5, 1.0, 2.0, 4.0, 7.0, 10.0))
+    subjects = []
+    for i in range(n_subjects):
+        b = lib.Subject.builder(f"k{i}")
+        if regimen == "infusion":
+            b = b.bolus(0.0, 50.0, 0).infusion(1.0, 40.0, 0, 2.0)
+        elif regimen == "two_inputs":
+            b = b.bolus(0.0, 80.0, 0).bolus(0.0, 50.0, 1)
+        else:
+            b = b.bolus(0.0, 100.0, 0)
+            if regimen == "two_doses":
+                b = b.bolus(6.0, 80.0, 0)
+        if cov == "wt":
+            b = b.covariate("wt", 0.0, 40.0 + 80.0 * rng.rand())
+        elif cov == "wt_tv":
+            b = (b.covariate("wt", 0.0, 40.0 + 80.0 * rng.rand())
+                 .covariate("wt", 2.0, 40.0 + 80.0 * rng.rand()))
+        elif cov == "wt_fixed":
+            b = (b.covariate("wt!", 0.0, 40.0 + 80.0 * rng.rand())
+                 .covariate("wt!", 4.0, 40.0 + 80.0 * rng.rand()))
+        for t in times:
+            b = b.observation(t, float(1.5 * np.exp(-0.2 * t) * np.exp(0.2 * rng.randn())), 0)
+        subjects.append(b.build())
+    n_states = 3 if regimen == "two_inputs" else 2
+    model = lib.ODE(rhs(stack), out=lambda x, p, t, cov, c=central: x[c:c + 1] / p[2],
+                    nstates=n_states, ndrugs=2 if regimen == "two_inputs" else 1, nout=1,
+                    **closures).with_solver(solver)
+    ems = lib.AssayErrorModels().add(
+        0, lib.AssayErrorModel.additive(lib.ErrorPoly(0.5, 0.1), 1.0))
+    return model, lib.Data(subjects), sp, ems
+
+
+COVARIATE_MODEL_CENTRE = (0.8, 0.25, 0.2, 50.0)  # ka, ke, tlag, v
+
+
+def covariate_model_case(n_subjects: int, n_support: int, seed: int = 0, lib=None,
+                         stack=None):
+    """The reference's covariate example (``examples/covariates.py:22-37``)
+    as a population: a 1-compartment oral ODE whose elimination is scaled by
+    ``(creatinine(t) / 75) ** 0.75 * (age / 25) ** 0.5``, an absorption lag
+    ``p[2]``, ``cp = x[1] / p[3]``; 100 mg at 0, 2 and 4 h, observations at
+    0.5, 1, 2, 2.5 and 8 h. Per subject: creatinine knots at 0 h (uniform
+    40-120) and 1 h (0.5-1.0 times that), a constant age (uniform 20-80).
+    Supports jittered 15% around ``COVARIATE_MODEL_CENTRE`` (the lag stays
+    below the 2 h dose gap). Returns (model, data, support, ems)."""
+    import numpy as np
+
+    if lib is None:
+        import pharmsol_tpu_torch as lib
+    if stack is None:
+        import torch
+
+        stack = torch.stack
+    rng = np.random.RandomState(seed)
+    crcl0 = rng.uniform(40.0, 120.0, n_subjects)
+    crcl1 = crcl0 * rng.uniform(0.5, 1.0, n_subjects)
+    age = rng.uniform(20.0, 80.0, n_subjects)
+    noise = np.exp(0.2 * rng.randn(n_subjects, 5))
+    subjects = []
+    for i in range(n_subjects):
+        b = (lib.Subject.builder(f"c{i}").bolus(0.0, 100.0, 0).bolus(2.0, 100.0, 0)
+             .bolus(4.0, 100.0, 0)
+             .covariate("creatinine", 0.0, float(crcl0[i]))
+             .covariate("creatinine", 1.0, float(crcl1[i]))
+             .covariate("age", 0.0, float(age[i])))
+        for j, t in enumerate((0.5, 1.0, 2.0, 2.5, 8.0)):
+            b = b.observation(t, float(2.0 * noise[i, j]), 0)
+        subjects.append(b.build())
+    model = lib.ODE(
+        lambda x, p, t, b, r, cov: stack([
+            -p[0] * x[0] + b[0],
+            p[0] * x[0] - p[1] * (cov("creatinine", t) / 75.0) ** 0.75
+            * (cov("age", t) / 25.0) ** 0.5 * x[1],
+        ]),
+        lag=lambda p, t, cov: {0: p[2]},
+        out=lambda x, p, t, cov: x[1:2] / p[3],
+        nstates=2, ndrugs=1, nout=1)
+    centre = np.asarray(COVARIATE_MODEL_CENTRE)
+    sp = np.abs(centre[None, :] * (1.0 + 0.15 * rng.randn(n_support, 4)))
+    ems = lib.AssayErrorModels().add(
+        0, lib.AssayErrorModel.additive(lib.ErrorPoly(0.1, 0.1), 1.0))
+    return model, lib.Data(subjects), sp, ems

@@ -17,8 +17,9 @@ from pharmsol_tpu_torch.ops.fused_psi import (
     STRUCTURES, psi_analytical, psi_analytical_plain,
 )
 from pharmsol_tpu_torch.utils.f32_budget import (
-    F32_BUDGET, FEATURE_BUDGETS, FEATURE_CASES, ODE_CASES, f32_error,
-    feature_budget_case, feature_case, kernel_case, ode_case,
+    F32_BUDGET, FEATURE_BUDGETS, FEATURE_CASES, ODE_CASES, ODE_FEATURE_CASES,
+    covariate_model_case, f32_error, feature_budget_case, feature_case, kernel_case,
+    ode_case, ode_feature_case,
 )
 
 pytestmark = pytest.mark.cuda
@@ -142,10 +143,11 @@ def _ode_run(plan, fn, merge=True):
 @pytest.mark.parametrize("name", list(ODE_CASES))
 def test_ode_kernel_matches_twin_float64(cuda, name, solver, merge):
     plan = _ode_plan(name, torch.float64, cuda, solver)
-    before = fused_ode.LAUNCHES
+    # K2a, or K2e for the cases with lag, fa or a covariate
+    before = fused_ode.LAUNCHES + fused_ode.FEATURE_LAUNCHES
     got = _ode_run(plan, fused_ode.psi_ode, merge)
     torch.cuda.synchronize()
-    assert fused_ode.LAUNCHES == before + 1
+    assert fused_ode.LAUNCHES + fused_ode.FEATURE_LAUNCHES == before + 1
     want = _ode_run(plan, fused_ode.psi_ode_plain, merge)
     assert torch.isfinite(got).all()
     rel = ((got - want).abs() / want.abs().clamp(min=1.0)).max()
@@ -189,6 +191,48 @@ def test_rejected_rhs_routes_auto_to_general(cuda):
     assert decision["engine"] == "general" and "`sin`" in decision["reason"]
     assert psi.device.type == "cuda" and torch.isfinite(psi).all()
     assert fused_ode.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# The ODE feature tier (K2e): covariates, lag, fa and init
+# ---------------------------------------------------------------------------
+
+
+def _k2e_case(name):
+    if name == "covariate_model":
+        return covariate_model_case(16, 20, seed=3)
+    return ode_feature_case(name, n_subjects=16, n_support=20, seed=5)
+
+
+@pytest.mark.parametrize("name", list(ODE_FEATURE_CASES) + ["covariate_model"])
+def test_k2e_matches_twin_float64(cuda, name):
+    model, data, sp, ems = _k2e_case(name)
+    grid = model.lower(data.subjects())
+    lowered = ems.lower(model.resolve_output_label, model.nouteqs())
+    plan = _FusedOdePsiPlan(model, grid, sp, lowered, cuda, torch.float64)
+    for merge in ((True, False) if plan.merge_runs is not None else (True,)):
+        before = (fused_ode.LAUNCHES, fused_ode.FEATURE_LAUNCHES)
+        got = _ode_run(plan, fused_ode.psi_ode, merge)
+        torch.cuda.synchronize()
+        assert (fused_ode.LAUNCHES, fused_ode.FEATURE_LAUNCHES) == (before[0], before[1] + 1)
+        want = _ode_run(plan, fused_ode.psi_ode_plain, merge)
+        assert torch.isfinite(got).all()
+        rel = ((got - want).abs() / want.abs().clamp(min=1.0)).max()
+        assert float(rel) <= 1e-8
+
+
+def test_auto_takes_k2e_for_the_covariate_model(cuda):
+    """The reference's covariate example through the entry point: the fused
+    plan, one K2e launch, the general engine within the controller's error."""
+    model, data, sp, ems = covariate_model_case(64, 32, seed=1)
+    before = fused_ode.FEATURE_LAUNCHES
+    psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
+    torch.cuda.synchronize()
+    assert fused_ode.FEATURE_LAUNCHES == before + 1
+    assert pt.last_engine_decision(model)["engine"] == "fused"
+    want = pt.log_likelihood_matrix(model, data, sp, ems, engine="general", device="cuda")
+    rel = (psi - want).abs() / want.abs().clamp(min=1.0)
+    assert torch.isfinite(psi).all() and float(rel.max()) <= 1e-4
 
 
 # ---------------------------------------------------------------------------

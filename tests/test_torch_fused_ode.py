@@ -26,7 +26,7 @@ from pharmsol_tpu_torch.errors import PharmsolError
 from pharmsol_tpu_torch.likelihood.plans.ode import _FusedOdePsiPlan, _ode_merge_runs
 from pharmsol_tpu_torch.ops import fused_ode
 from pharmsol_tpu_torch.ops.fused_psi import streams_from_grid
-from pharmsol_tpu_torch.utils.f32_budget import ode_case
+from pharmsol_tpu_torch.utils.f32_budget import F32_BUDGET, ODE_CASES, f32_error, ode_case
 
 
 @pytest.fixture(autouse=True)
@@ -160,19 +160,35 @@ def _plan(model, data, sp, ems):
     return _FusedOdePsiPlan(model, grid, sp, lowered, torch.device("cpu"), torch.float64)
 
 
-@pytest.mark.parametrize("name", ["ode_dopri5", "ode_multi_input"])
+@pytest.mark.parametrize("name", list(ODE_CASES))
 @pytest.mark.parametrize("merged", [True, False])
 def test_twin_against_general_engine_on_budget_cases(name, merged):
-    """Censored (BLOQ + ALOQ) and multi-input cases: the fused twin agrees with
-    the general engine at the controller's error level."""
+    """Censored (BLOQ + ALOQ), multi-input, lag + fa and time-varying
+    covariate cases: the fused twin agrees with the general engine at the
+    controller's error level (lag marches segment by segment)."""
     model, data, sp, ems = ode_case(name)
     plan = _plan(model, data, sp, ems)
-    assert plan.merge_runs is not None
+    assert (plan.merge_runs is None) == (name == "ode_lag_fa")
     got = plan.finalize(fused_ode.psi_ode(*plan.streams, plan.support, plan.rhs,
                                           **plan.kernel_kwargs(merged))).numpy()
     want = pt.log_likelihood_matrix(model, data, sp, ems, engine="general").numpy()
     assert np.isfinite(got).all()
     assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("name", list(ODE_CASES))
+def test_twin_float32_within_the_ode_budget(name):
+    """The float32 twin against the float64 twin on each budget row's own
+    case (the card holds the kernel to the same rows)."""
+    model, data, sp, ems = ode_case(name)
+    golden = pt.log_likelihood_matrix(model, data, sp, ems, engine="fused")
+    pt.set_float_dtype(torch.float32)
+    try:
+        got = pt.log_likelihood_matrix(model, data, sp, ems, engine="fused")
+    finally:
+        pt.set_float_dtype(torch.float64)
+    assert got.dtype == torch.float32
+    assert f32_error(got.numpy(), golden.numpy()) <= F32_BUDGET[name]
 
 
 def test_two_outputs_with_bias_against_general_engine():
@@ -287,12 +303,23 @@ def test_wrapper_validates_its_inputs():
 
 
 def test_plan_rejects_what_the_kernel_does_not_run():
+    """Other solvers are refused; a covariate is not: the ODE with a
+    covariate runs in every engine, and fused equals general within 1e-4."""
     model, data, sp, ems = ode_case("ode_dopri5")
     with pytest.raises(PharmsolError, match="solvers"):
         _plan(model.with_solver("kvaerno5"), data, sp, ems)
-    cov_data = pt.Data([pt.Subject.builder("c").bolus(0.0, 100.0, 0)
-                        .covariate("wt", 0.0, 70.0).observation(1.0, 4.0, 0).build()])
-    for engine in ("auto", "fused", "general"):
-        with pytest.raises(PharmsolError, match="does not support covariates"):
-            pt.log_likelihood_matrix(model.with_solver("dopri5"), cov_data, sp,
-                                     ems, engine=engine)
+    cov_model = pt.ODE(
+        lambda x, p, t, b, r, cov: torch.stack([
+            -p[0] * x[0] + b[0],
+            p[0] * x[0] - p[1] * (cov("wt", t) / 70.0) ** 0.75 * x[1] + r[0]]),
+        out=lambda x, p, t, cov: x[1:2] / p[2], nstates=2, ndrugs=1, nout=1)
+    cov_data = pt.Data([pt.Subject.builder(f"c{i}").bolus(0.0, 100.0, 0)
+                        .covariate("wt", 0.0, 50.0 + 10.0 * i).observation(1.0, 4.0, 0)
+                        .observation(4.0, 2.0, 0).build() for i in range(4)])
+    psi = {engine: pt.log_likelihood_matrix(cov_model, cov_data, sp, ems, engine=engine).numpy()
+           for engine in ("auto", "fused", "general")}
+    assert pt.last_engine_decision(cov_model)["engine"] == "general"  # auto on the CPU
+    for got in psi.values():
+        assert got.shape == (4, sp.shape[0]) and np.isfinite(got).all()
+    np.testing.assert_array_equal(psi["auto"], psi["general"])
+    assert _rel(psi["fused"], psi["general"]) <= 1e-4

@@ -166,7 +166,18 @@ def test_rhs_list_with_python_constants_matches_jax():
 
 @pytest.mark.parametrize("kw", ["lag", "fa", "init"])
 def test_unported_ode_equations_raise(kw):
-    fn = {"lag": lambda p, t, cov: {0: 0.5}, "fa": lambda p, t, cov: {0: 0.8},
-          "init": lambda p, t, cov: torch.zeros(2)}[kw]
-    with pytest.raises(PharmsolError, match=f"does not support {kw} "):
-        pt.ODE(_bolus_infusion(torch), nstates=2, ndrugs=1, nout=1, **{kw: fn})
+    """Lag, fa and init of ODE models are ported: each alone on the
+    bolus + infusion model matches JAX ``engine='xla'`` (lag shifts each
+    subject's bolus; the infusion is never lagged)."""
+    fn = {"lag": lambda p, t, cov: {0: 0.1 + 0.2 * p[0]},
+          "fa": lambda p, t, cov: {0: 0.6 + 0.1 * p[1]},
+          "init": lambda p, t, cov: [0.0, 0.05 * p[2]]}[kw]
+    _, out, _, sp, data = _case("bolus_infusion")
+    jm = pst.ODE(_bolus_infusion(jnp), out=out, nstates=2, ndrugs=1, nout=1, **{kw: fn})
+    tm = pt.ODE(_bolus_infusion(torch), out=out, nstates=2, ndrugs=1, nout=1, **{kw: fn})
+    want = np.asarray(jax_psi(jm, data, sp, _ems(), engine="xla"))
+    got = pt.log_likelihood_matrix(tm, convert.data_from_reference(data), sp,
+                                   convert.error_models_from_reference(_ems()),
+                                   engine="general").numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=0)

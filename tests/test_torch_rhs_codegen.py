@@ -65,26 +65,84 @@ def _exotic(x, p, t, b, rateiv, cov):
     ]
 
 
+def _covariates(x, p, t, b, rateiv, cov):
+    # the reference's covariate example: ke * (crcl(t)/75)**0.75 * (age/25)**0.5
+    ke = p[1] * (cov("crcl", t) / 75.0) ** 0.75 * (cov("age", t) / 25.0) ** 0.5
+    return torch.stack([-p[0] * x[0] + b[0], p[0] * x[0] - ke * x[1]])
+
+
+def _shifted_read(x, p, t, b, rateiv, cov):
+    # reads at a shifted time and through value()
+    return torch.stack([-p[0] * cov("wt", t - 1.5) / 70.0 * x[0] + b[0]
+                        + 0.01 * cov.value("wt", t)])
+
+
+# name: (closure, states, parameters, inputs, (covariate names, modes))
 ACCEPTED = {
-    "short": (_short, 3, 5, 1),
-    "two_state": (_two_state, 2, 3, 1),
-    "michaelis_menten": (_michaelis_menten, 1, 3, 1),
-    "multi_input": (_multi_input, 3, 4, 2),
-    "exotic": (_exotic, 3, 2, 1),
+    "short": (_short, 3, 5, 1, ((), ())),
+    "two_state": (_two_state, 2, 3, 1, ((), ())),
+    "michaelis_menten": (_michaelis_menten, 1, 3, 1, ((), ())),
+    "multi_input": (_multi_input, 3, 4, 2, ((), ())),
+    "exotic": (_exotic, 3, 2, 1, ((), ())),
+    "covariates": (_covariates, 2, 4, 1, (("age", "crcl"), ("const", "affine"))),
+    "covariates_const": (_covariates, 2, 4, 1, (("age", "crcl"), ("const", "const"))),
+    "shifted_read": (_shifted_read, 1, 2, 1, (("wt",), ("affine",))),
 }
 
 
 @pytest.mark.parametrize("name", list(ACCEPTED))
 def test_generator_accepts(name):
-    fn, n, n_params, ninput = ACCEPTED[name]
-    rhs = generate_rhs(fn, n, n_params, ninput)
+    fn, n, n_params, ninput, covs = ACCEPTED[name]
+    rhs = generate_rhs(fn, n, n_params, ninput, *covs)
     assert rhs.n_states == n and rhs.n_params == n_params
+    assert (rhs.cov_names, rhs.cov_modes) == covs
     assert "template <typename T>" in rhs.source
     assert f"#define PHARMSOL_RHS_NSTATES {n}" in rhs.source
+    assert f"#define PHARMSOL_RHS_NCOV {len(covs[0])}" in rhs.source
     for i in range(n):
         assert f"dx[{i}] = " in rhs.source
     # the same formula written again gives the same source (one library)
-    assert generate_rhs(fn, n, n_params, ninput).key == rhs.key
+    assert generate_rhs(fn, n, n_params, ninput, *covs).key == rhs.key
+
+
+def test_covariate_reads_trace_by_mode():
+    """A constant covariate is the leaf cov_a[i]; an affine one cov_a[i] +
+    cov_b[i] * t at the time the closure passed, and the evaluated graph
+    equals the closure given the same coefficients."""
+    from pharmsol_tpu_torch.ops.rhs_codegen import _ODE_ARGS, _sizes, _trace, evaluate
+
+    for modes in (("const", "affine"), ("affine", "affine")):
+        rhs = generate_rhs(_covariates, 2, 4, 1, ("age", "crcl"), modes)
+        src = rhs.source
+        assert "cov_a[0]" in src and "cov_a[1]" in src
+        assert ("cov_b[0]" in src) == (modes[0] == "affine")
+        assert "cov_b[1] * t" in src
+        outputs = _trace(_covariates, _sizes(_ODE_ARGS, 2, 4, 1), 2, covs=(("age", "crcl"), modes))
+        rng = np.random.RandomState(3)
+        x, p = torch.as_tensor(rng.uniform(0.5, 2, 2)), torch.as_tensor(rng.uniform(0.5, 2, 4))
+        a, b = torch.tensor([40.0, 90.0], dtype=torch.float64), torch.tensor([0.3, -2.0], dtype=torch.float64)
+        t = torch.tensor(1.7, dtype=torch.float64)
+        z = torch.zeros(1, dtype=torch.float64)
+
+        def cov(name, tt):
+            i = ("age", "crcl").index(name)
+            return a[i] if modes[i] == "const" else a[i] + b[i] * tt
+
+        got = evaluate(outputs, x=x, p=p, t=t, b=z, rateiv=z, cov_a=a, cov_b=b)
+        torch.testing.assert_close(got, _covariates(x, p, t, z, z, cov), rtol=1e-15, atol=0)
+
+
+def test_shifted_covariate_read_is_exact():
+    """cov("wt", t - 1.5) reads a + b (t - 1.5): the generated line."""
+    src = generate_rhs(_shifted_read, 1, 2, 1, ("wt",), ("affine",)).source
+    assert "t - T(1.5)" in src and "cov_b[0] * t;" in src
+
+
+def test_unknown_covariate_and_bad_modes_are_refused():
+    with pytest.raises(PharmsolError, match="unknown covariate `crcl`"):
+        generate_rhs(_covariates, 2, 4, 1, ("age", "creatinine"), ("const", "affine"))
+    with pytest.raises(ValueError, match="cov_modes"):
+        generate_rhs(_covariates, 2, 4, 1, ("age", "crcl"), ("const", "linear"))
 
 
 def _if_on_state(x, p, t, b, rateiv, cov):
@@ -111,7 +169,8 @@ REJECTED = {
     "python_if": (_if_on_state, "branches on a traced value"),
     "in_place": (_in_place, "in place"),
     "unknown_op": (_unknown_op, "`sin`"),
-    "covariate": (_covariate, "covariate `wt`"),
+    # a covariate the data does not carry (here: none)
+    "covariate": (_covariate, "unknown covariate `wt`"),
 }
 
 
@@ -172,8 +231,9 @@ _WRAPPER = """
 #define __forceinline__ inline
 #include "rhs.h"
 extern "C" void rhs_f64(const double* x, const double* p, double t,
-                        const double* b, const double* r, double* dx) {
-  rhs<double>(x, p, t, b, r, dx);
+                        const double* b, const double* r, const double* ca,
+                        const double* cb, double* dx) {
+  rhs<double>(x, p, t, b, r, ca, cb, dx);
 }
 """
 
@@ -188,8 +248,8 @@ def gxx():
 
 @pytest.mark.parametrize("name", list(ACCEPTED))
 def test_generated_header_matches_the_closure(name, gxx, tmp_path):
-    fn, n, n_params, ninput = ACCEPTED[name]
-    rhs = generate_rhs(fn, n, n_params, ninput)
+    fn, n, n_params, ninput, (names, modes) = ACCEPTED[name]
+    rhs = generate_rhs(fn, n, n_params, ninput, names, modes)
     (tmp_path / "rhs.h").write_text(rhs.source)
     (tmp_path / "wrap.cpp").write_text(_WRAPPER)
     lib_path = tmp_path / "librhs.so"
@@ -198,7 +258,7 @@ def test_generated_header_matches_the_closure(name, gxx, tmp_path):
                    cwd=tmp_path)
     lib = ctypes.CDLL(str(lib_path))
     dp = ctypes.POINTER(ctypes.c_double)
-    lib.rhs_f64.argtypes = [dp, dp, ctypes.c_double, dp, dp, dp]
+    lib.rhs_f64.argtypes = [dp, dp, ctypes.c_double, dp, dp, dp, dp, dp]
     rng = np.random.RandomState(11)
     for _ in range(50):
         x = rng.uniform(0.0, 5.0, n)
@@ -206,15 +266,24 @@ def test_generated_header_matches_the_closure(name, gxx, tmp_path):
         b = rng.uniform(0.0, 2.0, ninput)
         r = rng.uniform(0.0, 2.0, ninput)
         t = float(rng.uniform(0.0, 24.0))
-        want = fn(torch.as_tensor(x), torch.as_tensor(p),
-                  torch.tensor(t, dtype=torch.float64),
-                  torch.as_tensor(b), torch.as_tensor(r), None)
+        ca = rng.uniform(20.0, 120.0, max(len(names), 1))
+        cb = rng.uniform(-2.0, 2.0, max(len(names), 1))
+        tt = torch.tensor(t, dtype=torch.float64)
+
+        def cov(name, at):
+            i = names.index(name)
+            return (torch.tensor(ca[i]) if modes[i] == "const"
+                    else torch.tensor(ca[i]) + torch.tensor(cb[i]) * at)
+
+        cov.value = cov
+        want = fn(torch.as_tensor(x), torch.as_tensor(p), tt,
+                  torch.as_tensor(b), torch.as_tensor(r), cov)
         if not isinstance(want, torch.Tensor):
             want = torch.stack(list(want))
         want = want.numpy()
         got = np.zeros(n)
         lib.rhs_f64(*(np.ascontiguousarray(a).ctypes.data_as(dp) for a in (x, p)),
-                    t, *(np.ascontiguousarray(a).ctypes.data_as(dp) for a in (b, r)),
+                    t, *(np.ascontiguousarray(a).ctypes.data_as(dp) for a in (b, r, ca, cb)),
                     got.ctypes.data_as(dp))
         scale = max(np.abs(want).max(), 1.0)
         np.testing.assert_allclose(got, want, rtol=1e-14, atol=1e-14 * scale)
@@ -269,7 +338,8 @@ def test_constant_diffusion_traces_to_literals():
     ("drift", lambda x, p, t, r, cov: [-p[0] * x[0]], "returns 1 components, expected 2"),
     ("diffusion", lambda p, t, cov: [0.0, p[0] if p[0] > 0 else 0.0],
      "branches on a traced value"),
-    ("diffusion", lambda p, t, cov: [0.0, p[0] * cov("wt", t)], "covariate `wt`"),
+    ("diffusion", lambda p, t, cov: [0.0, p[0] * cov("wt", t)],
+     "SDE kernel does not support covariates"),
 ])
 def test_sde_generator_rejects_with_a_reason(which, fn, reason):
     drift = fn if which == "drift" else _readme_drift

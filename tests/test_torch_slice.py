@@ -157,9 +157,9 @@ def test_fused_plan_rejects_a_dose_into_another_input():
 
 @pytest.mark.parametrize("kw", ["seq_eq", "lag", "fa", "init"])
 def test_unported_equations_raise(kw):
-    """Closed-form models take seq, lag, fa and init; what is still not
-    ported raises: lag, fa and init of ODE models, and a seq read at a
-    time-varying covariate together with lag in the fused plan (kernel K1c)."""
+    """Closed-form and ODE models take seq (closed forms only), lag, fa and
+    init; what is still not ported raises: a seq read at a time-varying
+    covariate together with lag in the fused closed-form plan (kernel K1c)."""
     fn = {
         "seq_eq": lambda p, t, cov: p,
         "lag": lambda p, t, cov: {0: 0.5},
@@ -185,28 +185,32 @@ def test_unported_equations_raise(kw):
         with pytest.raises(PharmsolError, match="K1c"):
             pt.log_likelihood_matrix(lagged, data, sp, ems, engine="fused")
         return
-    with pytest.raises(PharmsolError, match=f"does not support {name} "):
-        pt.ODE(lambda x, p, t, b, r, cov: x, out=_out, nstates=3, ndrugs=1, nout=1,
-               **{kw: fn})
+    ode = pt.ODE(lambda x, p, t, b, r, cov: x, out=_out, nstates=3, ndrugs=1, nout=1,
+                 **{kw: fn})
+    assert getattr(ode.spec, name) is fn
 
 
 def test_covariates_raise(slice_inputs):
-    """Closed-form models read covariates through their closures; ODE
-    models with covariates still raise."""
+    """Closed-form and ODE models read covariates through their closures,
+    in every engine: fused equals general (closed form 1e-10, ODE at the
+    controller's error, 1e-4)."""
     _, support, ems, _ = slice_inputs
     data = pt.Data([pt.Subject.builder("c").bolus(0.0, 100.0, 0)
-                    .covariate("wt", 0.0, 70.0).observation(1.0, 4.0, 0)
-                    .build()])
+                    .covariate("wt", 0.0, 70.0).covariate("wt", 4.0, 60.0)
+                    .observation(1.0, 4.0, 0).observation(4.0, 2.0, 0).build()])
     ode = pt.ODE(lambda x, p, t, b, r, cov: torch.stack(
-        [-p[1] * x[0] + b[0], p[1] * x[0] - p[0] * x[1], 0.0 * x[2]]),
+        [-p[1] * x[0] + b[0], p[1] * x[0] - p[0] * (cov("wt", t) / 70.0) * x[1],
+         0.0 * x[2]]),
         out=_out, nstates=3, ndrugs=1, nout=1)
-    psi = {}
+    psi, psi_ode = {}, {}
     for engine in ("auto", "general", "fused"):
         psi[engine] = pt.log_likelihood_matrix(_model(), data, support, ems, engine=engine)
-        with pytest.raises(PharmsolError, match="does not support covariates"):
-            pt.log_likelihood_matrix(ode, data, support, ems, engine=engine)
+        psi_ode[engine] = pt.log_likelihood_matrix(ode, data, support, ems, engine=engine)
+        assert torch.isfinite(psi_ode[engine]).all()
     torch.testing.assert_close(psi["fused"], psi["general"], rtol=1e-10, atol=0)
     assert torch.isfinite(psi["auto"]).all()
+    torch.testing.assert_close(psi_ode["auto"], psi_ode["general"], rtol=0, atol=0)
+    torch.testing.assert_close(psi_ode["fused"], psi_ode["general"], rtol=1e-4, atol=1e-4)
 
 
 def test_unknown_engine_and_bad_support_raise(slice_inputs):

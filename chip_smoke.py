@@ -7,12 +7,15 @@ The main paths are the population log-likelihood matrix ("psi") through
 closed-form models, whose engine is the hand-written CUDA kernel
 ``pharmsol_tpu_torch/csrc/fused_psi.cu`` (K1a, and K1b with covariates, seq,
 lag, fa or init), for ODE models, whose engine is
-``pharmsol_tpu_torch/csrc/fused_ode.cu`` (K2a, and K2e with covariates, lag,
-fa or init) with a right-hand side generated from the model's closure, and
+``pharmsol_tpu_torch/csrc/fused_ode.cu`` (K2a, K2e with covariates, lag, fa
+or init, and K2d, the exact propagation of linear models with ``expm``) with
+a right-hand side generated from the model's closure, and
 for SDE models, whose engine is the particle filter
 ``pharmsol_tpu_torch/csrc/fused_sde.cu`` (K3a) with the drift and diffusion
-generated the same way. Phases, each printing its own lines; any failure
-raises and the exit code is not 0:
+generated the same way; and the population fit on top of psi,
+``pharmsol_tpu_torch.optimize.fit_population`` (NPAG), whose every cycle calls
+that entry point and whose weight solve burns in on the card. Phases, each
+printing its own lines; any failure raises and the exit code is not 0:
 
 0. environment: torch, CUDA and nvcc versions, the card's name and power
    limit;
@@ -52,7 +55,8 @@ raises and the exit code is not 0:
    twin, the general engine, one end-to-end call with the lowering cached and
    the steps it is made of, and the host lowering alone;
 5. K3a on the README SDE model of the reference (a mean-reverting
-   elimination rate), 1000 particles, at a ragged reduced shape (37 x 45):
+   elimination rate), 1000 particles, at a ragged reduced shape (19 x 23,
+   the observations to 4 h):
    its Philox words against ``ops/philox.py``; against its twin, which draws
    the same numbers, at zero diffusion (float64, every cell within 1e-10),
    with noise (float64: 99.9% of cells within 1e-9; float32: 99% within
@@ -73,7 +77,32 @@ raises and the exit code is not 0:
    point, three calls per dtype, each on the fused engine with exactly one
    K2e launch, held against the general engine on 2048 subjects (float64
    within 1e-4); then K2e's time, its twin's, the general engine's, one
-   end-to-end call with the plan's share, and its bound.
+   end-to-end call with the plan's share, and its bound;
+9. K2d against its twin at 64 x 48 on every case of
+   ``utils/f32_budget.py::EXPM_CASES`` (the 2-state oral model, the 2-cmt
+   oral RHS, the 5-state transit and mammillary model with a bolus and an
+   infusion, lag and fa, a carried-forward covariate, init with two outputs,
+   and a last segment whose scaled norm passes 2^16) and on the ``ode_expm``
+   budget case: float64 within 1e-10 relative, float32 within the
+   ``ode_expm`` row, the poisoned cells -inf in both; the generated ``rhs``
+   and ``rhs_jvp`` against the closure and ``torch.func.jvp`` of it on the
+   card within 1e-12;
+10. the population fit at full width, float64: the data of the JAX package's
+    ``benches/population_10k.py --fit`` rebuilt from numpy (10 000 subjects,
+    1000 start points, 8 cycles), fitted over the closed-form 1-cmt oral
+    model (fit A: every psi call one K1a launch; log-likelihood within 0.5
+    and fast mass within 0.01 of the JAX package's recorded fit) and over
+    the same model as a linear ODE with expm (fit B: every psi call one K2d
+    launch; log-likelihood within 1e-6 relative of fit A's), with the stage
+    times of each;
+11. the K2d slice, "ODE expm transit 16384 x 512": three calls per dtype
+    through the public entry point, each one K2d launch, held against the
+    general engine on 2048 subjects (float64 within 1e-9); K2d's time, its
+    twin's, the general engine's, one end-to-end call with its parts, its
+    bound, and for context the time of ``torch.linalg.matrix_exp`` over as
+    many blocks as the cell has passes;
+12. the NPML burn-in on the host against the card at 10 000 subjects x k
+    supports: seconds each and the log-likelihood each reaches.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. All data comes from a numpy
@@ -134,6 +163,23 @@ ODE_FEATURE_KERNEL_RECORD = {
     "source": "pharmsol_tpu_torch/csrc/fused_ode.cu",
     "replaces": "pharmsol_tpu/ops/pallas_ode.py:546",
 }
+EXPM_KERNEL_RECORD = {
+    "id": "K2d",
+    "name": "fused_ode_expm",
+    "route": "cuda",
+    "source": "pharmsol_tpu_torch/csrc/fused_ode.cu",
+    "replaces": "pharmsol_tpu/ops/pallas_ode.py:1152",
+}
+# the K2d cell: the 5-state transit and mammillary model with expm, subjects x
+# supports, and the subjects of its check against the general engine
+EXPM_SHAPE = (16384, 512)
+EXPM_CHECK_ROWS = 2048
+# the population fits: the JAX package's recorded fit of the same data
+# (benches/recorded/r05_population_fit.json: results, not times)
+FIT_SUBJECTS = 10000
+FIT_KW = dict(init_points=1000, max_cycles=8)
+FIT_RECORDED = dict(log_likelihood=4237.25, fast_mass=0.496, support=53)
+BURNIN_WIDTHS = (4, 16, 40, 128, 400, 1000)
 # the K2e slice: the reference's covariate model, subjects x supports, and
 # the subjects of its check against the general engine
 ODE_COV_SHAPE = (16384, 512)
@@ -146,14 +192,19 @@ H100_BYTES_PER_S = 3.35e12
 H100_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 # the SDE cells: the reduced ragged shape of the kernel-vs-twin checks, the
 # statistical check against the general engine, and the full-width slice
-SDE_REDUCED = (37, 45)
+SDE_REDUCED = (19, 23)
+SDE_REDUCED_OBS = 3
 SDE_STAT = (32, 16)
 SDE_FULL = (256, 64)
 SDE_PARTICLES = 1000
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the run's log, with the seconds since the script began."""
+    print(f"{msg}  [t={time.perf_counter() - _T0:.1f}s]", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -364,12 +415,28 @@ def ode_feature_cases():
     return cases
 
 
-def ode_build_targets(feature_cases):
+def expm_cases():
+    """K2d's phase-2 cases at 64 subjects x 48 supports (``EXPM_CASES``: the
+    2-state oral model, the 2-cmt oral RHS, the 5-state transit and
+    mammillary model with its bolus and infusion, lag and fa, a step
+    covariate, init with two outputs, and a poisoned last segment) and the
+    ``ode_expm`` budget case: name -> (model, data, support, ems)."""
+    from pharmsol_tpu_torch.utils.f32_budget import EXPM_CASES, expm_case, ode_case
+
+    cases = {name: expm_case(name, 64, 48, seed=SEED + i)
+             for i, name in enumerate(EXPM_CASES)}
+    cases["budget ode_expm"] = ode_case("ode_expm")
+    return cases
+
+
+def ode_build_targets(feature_cases, expm):
     """The ODE library of every RHS this script runs (one per distinct
     generated source): the K2a models and the K2e cases, whose RHS is
-    generated with their data's covariates by the plan."""
+    generated with their data's covariates by the plan, and K2d's cases and
+    the fit's ODE model, whose headers also hold ``rhs_jvp``."""
     from pharmsol_tpu_torch.ops import _build
     from pharmsol_tpu_torch.ops.rhs_codegen import generate_rhs
+    from pharmsol_tpu_torch.utils.f32_budget import population_models
 
     targets = {}
     for name, (rhs, n, ndrugs, _, v, _s) in ODE_MODELS.items():
@@ -378,6 +445,11 @@ def ode_build_targets(feature_cases):
     for name, (model, data, support, ems, _) in feature_cases.items():
         gen = ode_plan_for(model, data, support, ems, torch.float64).rhs
         targets.setdefault(gen.key, (name, _build.generated_target(_build.ODE, gen)))
+    for name, (model, data, support, ems) in expm.items():
+        gen = ode_plan_for(model, data, support, ems, torch.float64).rhs
+        targets.setdefault(gen.key, (f"expm {name}", _build.generated_target(_build.ODE, gen)))
+    gen = generate_rhs(population_models()[1]._diffeq, 2, 3, 1, jacobian=True)
+    targets.setdefault(gen.key, ("expm fit", _build.generated_target(_build.ODE, gen)))
     return list(targets.values())
 
 
@@ -400,10 +472,10 @@ def phase_environment() -> str:
     return card
 
 
-def phase_build(pt, feature_cases) -> float:
+def phase_build(pt, feature_cases, expm) -> float:
     from pharmsol_tpu_torch.ops import _build
 
-    ode_targets = ode_build_targets(feature_cases)
+    ode_targets = ode_build_targets(feature_cases, expm)
     sde_targets = sde_build_targets(pt)
     targets = ([_build.psi_target()] + [t for _, t in ode_targets]
                + [t for _, t in sde_targets])
@@ -417,10 +489,10 @@ def phase_build(pt, feature_cases) -> float:
     for name, (path, seconds, output) in zip(names, results):
         log(f"[1]   {name}: {path.name} in {seconds:.2f} s")
         # ptxas -v: one summary per instantiation; all of K1a, K2a and K2e
-        # for the 3-state Short RHS and the covariate model's RHS, K3a for
-        # the README model
+        # for the 3-state Short RHS and the covariate model's RHS, K2d for
+        # every RHS it is built for, K3a for the README model
         if ((name.startswith("fused_ode") and "short" not in name
-             and "covariate_model" not in name)
+             and "covariate_model" not in name and "expm" not in name)
                 or (name.startswith("fused_sde") and "readme" not in name)):
             continue
         kernel, spill = None, ""
@@ -433,6 +505,8 @@ def phase_build(pt, feature_cases) -> float:
                 what = ("K1b code" if "fused_psi_feature" in ln else
                         "K1a code" if "fused_psi" in ln else
                         "particles/thread" if "fused_sde" in ln else
+                        "K2d expm" + (", features" if m.group(3) == "1" else "")
+                        if m.group(2) == "2" else
                         ("K2e" if m.group(3) == "1" else "K2a") + " solver "
                         + ("dopri5" if m.group(2) == "0" else "tsit5"))
                 kernel = f"{'f32' if m.group(1) == 'f' else 'f64'} {what} {m.group(2):>2}"
@@ -1073,15 +1147,17 @@ def readme_sde(pt, nparticles: int = SDE_PARTICLES):
     ).with_metadata(md)
 
 
-def readme_data(pt, n: int, rng, labels=("iv", "cp")):
+def readme_data(pt, n: int, rng, labels=("iv", "cp"), n_obs: int = 4):
     """A 100 mg IV bolus at 0 and observations at 1, 2, 4 and 8 h around
     the README's 8.0, 6.2, 4.1 and 1.8; ``labels`` names the route and the
-    output."""
+    output. ``n_obs`` keeps the first observations only: the twin's masked
+    loop takes as many iterations as the slowest cell takes trials, so its
+    time on the card goes with the span, not with the cells."""
     values = np.array([8.0, 6.2, 4.1, 1.8]) * np.exp(0.15 * rng.randn(n, 4))
     subjects = []
     for i in range(n):
         b = pt.Subject.builder(f"r{i}").bolus(0.0, 100.0, labels[0])
-        for t, v in zip((1.0, 2.0, 4.0, 8.0), values[i]):
+        for t, v in list(zip((1.0, 2.0, 4.0, 8.0), values[i]))[:n_obs]:
             b = b.observation(t, float(v), labels[1])
         subjects.append(b.build())
     return pt.Data(subjects)
@@ -1196,8 +1272,9 @@ def sde_compare(label, got, twin, tol, share):
 
 
 def phase_sde_kernels(pt, rng) -> dict:
-    """K3a against its twin on the card at the reduced ragged shape, its
-    Philox words against ops/philox.py, and the times of both."""
+    """K3a against its twin on the card at the reduced ragged shape and, for
+    the README model, the first three observations (to 4 h), its Philox
+    words against ops/philox.py, and the times of both."""
     from pharmsol_tpu_torch.ops import fused_sde, philox
     from pharmsol_tpu_torch.ops.fused_sde import psi_sde_plain
     from pharmsol_tpu_torch.utils.f32_budget import f32_error
@@ -1205,7 +1282,7 @@ def phase_sde_kernels(pt, rng) -> dict:
     R, S = SDE_REDUCED
     out = {}
     ems = readme_ems(pt)
-    data = readme_data(pt, R, rng)
+    data = readme_data(pt, R, rng, n_obs=SDE_REDUCED_OBS)
     model = readme_sde(pt)
     # the kernel's own Philox words
     gen = sde_plan_for(model, data, readme_support(2, rng), ems, torch.float64).gen
@@ -1757,6 +1834,426 @@ def phase_feature_times(pt, workload, ems, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# K2d: linear ODE models with expm, and the population fit
+# ---------------------------------------------------------------------------
+
+
+def expm_launch_counts():
+    from pharmsol_tpu_torch.ops import fused_ode
+
+    return (fused_ode.LAUNCHES, fused_ode.FEATURE_LAUNCHES, fused_ode.EXPM_LAUNCHES)
+
+
+def phase_expm_kernels(pt, cases) -> None:
+    """K2d against its twin on the card on every case of ``expm_cases``:
+    float64 within 1e-10 relative, float32 against the float64 twin within
+    the ``ode_expm`` budget row, the same non-finite cells in both (none but
+    in the poisoned case, which must have some), every call one K2d launch
+    and no K2a or K2e launch. Then the poisoned case through the entry
+    point: -inf in the same cells on the fused and on the general engine."""
+    from pharmsol_tpu_torch.utils.f32_budget import F32_BUDGET, f32_error
+
+    budget = F32_BUDGET["ode_expm"]
+    for name, (model, data, support, ems) in cases.items():
+        plan64 = ode_plan_for(model, data, support, ems, torch.float64)
+        plan32 = ode_plan_for(model, data, support, ems, torch.float32)
+        if plan64.merge_runs is not None or plan64.solver != "expm":
+            raise AssertionError(f"K2d {name}: the plan merges runs or is not expm")
+        twin64 = run_ode_kernel(plan64, plain=True)
+        before = expm_launch_counts()
+        got64 = run_ode_kernel(plan64)
+        got32 = run_ode_kernel(plan32)
+        torch.cuda.synchronize()
+        launches = tuple(a - b for a, b in zip(expm_launch_counts(), before))
+        if launches != (0, 0, 2):
+            raise AssertionError(f"K2d {name}: (K2a, K2e, K2d) launches {launches}, not (0, 0, 2)")
+        bad = ~torch.isfinite(twin64)
+        if not (bool((~torch.isfinite(got64) == bad).all())
+                and bool((~torch.isfinite(got32) == bad).all())):
+            raise AssertionError(f"K2d {name}: kernel and twin non-finite in different cells")
+        if bool(bad.any()) != (name == "poison"):
+            raise AssertionError(f"K2d {name}: {int(bad.sum())} non-finite cells")
+        ok = ~bad
+        e64 = rel_err(got64[ok], twin64[ok], 1e-300)
+        e32 = f32_error(got32[ok].cpu().numpy(), twin64[ok].cpu().numpy())
+        log(f"[9] K2d {name:18s} {len(data)}x{support.shape[0]} n={plan64.n_states} f64 kernel "
+            f"vs twin rel {e64:.3e} (<= 1e-10); f32 kernel vs f64 twin {e32:.3e} (<= ode_expm "
+            f"{budget:g}); {int(bad.sum())} poisoned cells in both; "
+            f"{describe_ode_features(plan64)}")
+        if e64 > 1e-10:
+            raise AssertionError(f"K2d {name}: f64 kernel vs twin {e64} > 1e-10")
+        if e32 > budget:
+            raise AssertionError(f"K2d {name}: f32 kernel {e32} > ode_expm {budget}")
+    model, data, support, ems = cases["poison"]
+    pt.set_float_dtype(torch.float64)
+    fused = pt.log_likelihood_matrix(model, data, support, ems, device="cuda", engine="fused")
+    general = pt.log_likelihood_matrix(model, data, support, ems, device="cuda",
+                                       engine="general")
+    lost = torch.isneginf(fused)
+    if not (bool((lost == torch.isneginf(general)).all()) and bool(lost.any())
+            and bool(torch.isfinite(fused[~lost]).all())):
+        raise AssertionError("K2d poison: fused and general are -inf in different cells")
+    log(f"[9] K2d poison through the entry point: {int(lost.sum())} of {lost.numel()} cells "
+        f"-inf on the fused and on the general engine alike (scaled norm past 2^16); the "
+        f"others agree to {rel_err(fused[~lost], general[~lost], 1e-300):.3e}")
+
+
+def phase_rhs_jvp(pt, cases) -> None:
+    """The generated ``rhs`` and ``rhs_jvp`` as the library computes them on
+    the card against the closure and ``torch.func.jvp`` of it, float64, at
+    4096 random samples per distinct RHS: within 1e-12 of the scale."""
+    from pharmsol_tpu_torch.ops.fused_ode import rhs_jvp_on_device
+
+    n = 4096
+    seen = set()
+    rng = np.random.RandomState(SEED + 11)
+    for name, (model, data, support, ems) in cases.items():
+        gen = ode_plan_for(model, data, support, ems, torch.float64).rhs
+        if gen.key in seen:
+            continue
+        seen.add(gen.key)
+
+        def dev(a):
+            return torch.as_tensor(a, dtype=torch.float64, device="cuda")
+
+        x, v = dev(rng.randn(n, gen.n_states) * 20.0), dev(rng.randn(n, gen.n_states))
+        p = dev(rng.uniform(0.05, 3.0, (n, gen.n_params)))
+        t, rate = dev(rng.uniform(0.0, 24.0, n)), dev(rng.uniform(0.0, 50.0, (n, gen.ninput)))
+        # cov(t) = ca + cb t; a covariate of mode "const" has no slope
+        ncov = max(len(gen.cov_names), 1)
+        slope = np.zeros((1, ncov))
+        slope[0, :len(gen.cov_modes)] = [m == "affine" for m in gen.cov_modes]
+        ca = dev(rng.uniform(0.0, 2.0, (n, ncov)))
+        cb = dev(rng.uniform(-0.1, 0.1, (n, ncov)) * slope)
+        index = {nm: i for i, nm in enumerate(gen.cov_names)}
+
+        def cov(nm, tt=None):
+            i = index[nm]
+            return ca[:, i] if tt is None else ca[:, i] + cb[:, i] * tt
+
+        def closure(xs):
+            out = gen.diffeq(xs, p.t(), t, torch.zeros_like(rate.t()), rate.t(), cov)
+            return torch.stack([o + torch.zeros_like(t) for o in out]) if isinstance(
+                out, (list, tuple)) else out + torch.zeros_like(t)
+
+        want_f, want_jv = torch.func.jvp(closure, (x.t().contiguous(),), (v.t().contiguous(),))
+        f, jv = rhs_jvp_on_device(gen, x, p, t, rate, v, ca, cb)
+        torch.cuda.synchronize()
+        ef = float((f - want_f.t()).abs().max() / want_f.abs().max().clamp(min=1.0))
+        ej = float((jv - want_jv.t()).abs().max() / want_jv.abs().max().clamp(min=1.0))
+        log(f"[9] rhs_jvp {name:18s} (header {gen.key}, n={gen.n_states}): generated rhs vs "
+            f"closure {ef:.3e}, rhs_jvp vs torch.func.jvp {ej:.3e} (<= 1e-12), {n} samples")
+        if not (ef <= 1e-12 and ej <= 1e-12):
+            raise AssertionError(f"rhs_jvp {name}: rhs {ef}, jvp {ej} > 1e-12")
+
+
+def fast_mass(fit) -> float:
+    """The fitted mass of the fast eliminators (ke > 0.2)."""
+    return float(np.sum(fit.weights[fit.support[:, 1] > 0.2]))
+
+
+def phase_fit(pt, label, model, data, ems, counter, card: str) -> dict:
+    """One population fit at full width on the card through
+    ``pt.optimize.fit_population`` (float64, 10 000 subjects, 1000 start
+    points, 8 cycles), the counts set to 0 just before and read just after:
+    every psi call of the fit must be one launch of ``counter``'s kernel and
+    of no other."""
+    from pharmsol_tpu_torch.ops import fused_ode, fused_psi
+    from pharmsol_tpu_torch.utils.f32_budget import POPULATION_RANGES
+    from pharmsol_tpu_torch.utils.profiling import reset_stages, stage_counts, stage_report
+
+    pt.set_float_dtype(torch.float64)
+    reset_stages()
+    fused_psi.LAUNCHES = fused_psi.FEATURE_LAUNCHES = 0
+    fused_ode.LAUNCHES = fused_ode.FEATURE_LAUNCHES = fused_ode.EXPM_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit = pt.optimize.fit_population(model, data, ems, ranges=POPULATION_RANGES, **FIT_KW)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {"K1a": fused_psi.LAUNCHES, "K1b": fused_psi.FEATURE_LAUNCHES,
+              "K2a": fused_ode.LAUNCHES, "K2e": fused_ode.FEATURE_LAUNCHES,
+              "K2d": fused_ode.EXPM_LAUNCHES}
+    stages = stage_counts()
+    psi_calls = stages["npag/psi_device"][0]
+    dec = pt.last_engine_decision(model)
+    if dec["engine"] != "fused":
+        raise AssertionError(f"{label}: engine {dec}")
+    if counts[counter] != psi_calls or any(v for k, v in counts.items() if k != counter):
+        raise AssertionError(f"{label}: {psi_calls} psi calls, launches {counts}")
+    if not (np.isfinite(fit.log_likelihood) and np.all(np.isfinite(fit.support))
+            and abs(fit.weights.sum() - 1.0) < 1e-9
+            and fit.posterior.shape == (len(data), fit.support.shape[0])):
+        raise AssertionError(f"{label}: malformed fit")
+    mass = fast_mass(fit)
+    log(f"[10] {label}: log-likelihood {fit.log_likelihood:.6f}, {fit.support.shape[0]} support "
+        f"points (JAX package, recorded: {FIT_RECORDED['support']}), {fit.cycles} cycles, fast "
+        f"mass {mass:.6f}, max D-n {fit.d_max:.3e}; {psi_calls} psi calls = {counts[counter]} "
+        f"{counter} launches, engine {dec['engine']}; fit {seconds:.3f} s  ({card})")
+    for line in stage_report().splitlines():
+        log(f"[10] {label}   {line}")
+    dev_calls, dev_s = stages.get("npag/weights_device", (0, 0.0))
+    return dict(fit=fit, seconds=seconds, launches=counts[counter], psi_calls=psi_calls,
+                psi_s=stages["npag/psi_device"][1], weights_s=stages["npag/weights"][1],
+                weights_calls=stages["npag/weights"][0], weights_device_s=dev_s,
+                weights_device_calls=dev_calls, fast_mass=mass)
+
+
+def phase_fits(pt, card: str) -> tuple:
+    """Fit A (the closed-form 1-cmt oral model, K1a) and Fit B (the same
+    model written as a linear ODE with expm, K2d) on the data of the JAX
+    package's population benchmark, rebuilt from numpy. Fit A lands on the
+    recorded fit (log-likelihood within 0.5, fast mass within 0.01); Fit B
+    lands on Fit A (log-likelihood within 1e-6 relative, fast mass within
+    1e-3), since the exact propagation is the closed form."""
+    from pharmsol_tpu_torch.utils.f32_budget import population_10k_case, population_models
+
+    t0 = time.perf_counter()
+    data, ems, t_subjects = population_10k_case(FIT_SUBJECTS)
+    t_data = time.perf_counter() - t0
+    log(f"[10] population data: {len(data)} subjects x 9 observations from RandomState(7) in "
+        f"{t_data:.3f} s ({t_subjects:.3f} s building the subjects)")
+    closed, ode = population_models()
+    a = phase_fit(pt, "fit A closed form 10000", closed, data, ems, "K1a", card)
+    b = phase_fit(pt, "fit B expm ODE 10000", ode, data, ems, "K2d", card)
+    fa, fb = a["fit"], b["fit"]
+    d_ll = abs(fa.log_likelihood - FIT_RECORDED["log_likelihood"])
+    d_mass = abs(a["fast_mass"] - FIT_RECORDED["fast_mass"])
+    log(f"[10] fit A vs the JAX package's recorded fit: log-likelihood {fa.log_likelihood:.4f} "
+        f"vs {FIT_RECORDED['log_likelihood']} (|d| {d_ll:.4f} <= 0.5), fast mass "
+        f"{a['fast_mass']:.4f} vs {FIT_RECORDED['fast_mass']} (|d| {d_mass:.4f} <= 0.01)")
+    if not (d_ll <= 0.5 and d_mass <= 0.01):
+        raise AssertionError(f"fit A: log-likelihood off by {d_ll}, fast mass by {d_mass}")
+    r_ll = abs(fb.log_likelihood - fa.log_likelihood) / abs(fa.log_likelihood)
+    r_mass = abs(b["fast_mass"] - a["fast_mass"])
+    log(f"[10] fit B vs fit A: log-likelihood rel {r_ll:.3e} (<= 1e-6), fast mass |d| "
+        f"{r_mass:.3e} (<= 1e-3), support {fb.support.shape[0]} vs {fa.support.shape[0]}, "
+        f"cycles {fb.cycles} vs {fa.cycles}")
+    if not (r_ll <= 1e-6 and r_mass <= 1e-3):
+        raise AssertionError(f"fit B vs fit A: log-likelihood {r_ll}, fast mass {r_mass}")
+    for r in (a, b):
+        r["data_s"] = t_data
+        del r["fit"]
+    return a, b, data, ems, closed
+
+
+def expm_pass_ops(model) -> tuple:
+    """Operations of one exact propagation per cell: (fixed, per squaring).
+    Fixed: the RHS at zero and its n tangents (counted on the closure, a
+    tangent as one RHS) and the 12 Horner rounds; a round and a squaring are
+    2 n^2 (n + 1) each (n^2 + n dot products of length n)."""
+    n, nin = model.nstates(), model.ndrugs()
+    one = torch.ones
+    rhs = count_ops(model._diffeq, one(n, dtype=torch.float64), one(8, dtype=torch.float64),
+                    torch.tensor(1.0, dtype=torch.float64), torch.zeros(nin, dtype=torch.float64),
+                    torch.zeros(nin, dtype=torch.float64),
+                    lambda name, t=None: torch.tensor(1.0, dtype=torch.float64))
+    product = 2 * n * n * (n + 1)
+    return rhs * (1 + n) + 12 * product, product
+
+
+def phase_expm_slice(pt, rng) -> tuple:
+    """The K2d cell: the 5-state transit and mammillary model
+    (``examples/expm_linear_ode.py``) with expm at 16384 subjects x 512
+    supports through the public entry point, three calls per dtype with
+    fresh supports, each on the fused engine with exactly one K2d launch and
+    no K2a or K2e launch; then held against the general engine on the card
+    on its first 2048 subjects (float64 within 1e-9, float32 within the
+    ``ode_expm`` row of the float64 general engine)."""
+    from pharmsol_tpu_torch.ops import fused_ode
+    from pharmsol_tpu_torch.utils.f32_budget import (
+        F32_BUDGET, TRANSIT_CENTRE, expm_case, f32_error,
+    )
+
+    n, S = EXPM_SHAPE
+    rows = EXPM_CHECK_ROWS
+    label = f"ode_expm_transit_{n}x{S}"
+    t0 = time.perf_counter()
+    model, data, _, ems = expm_case("transit", n, 1, seed=SEED)
+    t_build = time.perf_counter() - t0
+    supports = [jittered_support(TRANSIT_CENTRE, S, rng, 0.2) for _ in range(3)]
+    # the main path's run: every launch counted here is one of its calls
+    fused_ode.LAUNCHES = fused_ode.FEATURE_LAUNCHES = fused_ode.EXPM_LAUNCHES = 0
+    results = []
+    for dtype in (torch.float32, torch.float64):
+        pt.set_float_dtype(dtype)
+        for sp in supports:
+            before = fused_ode.EXPM_LAUNCHES
+            psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
+            torch.cuda.synchronize()
+            dec = pt.last_engine_decision(model)
+            if dec["engine"] != "fused":
+                raise AssertionError(f"{label}: engine {dec}")
+            if fused_ode.EXPM_LAUNCHES - before != 1:
+                raise AssertionError(f"{label}: {fused_ode.EXPM_LAUNCHES - before} K2d launches "
+                                     "in one call")
+            if tuple(psi.shape) != (n, S) or psi.device.type != "cuda":
+                raise AssertionError(f"{label}: psi {tuple(psi.shape)} on {psi.device}")
+            bad = int((~torch.isfinite(psi)).sum())
+            if bad:
+                raise AssertionError(f"{label} {dtype}: {bad} non-finite psi cells")
+            results.append((dtype, sp, psi))
+    k2a, k2e, launches = expm_launch_counts()
+    log(f"[11] {label}: {len(results)} log_likelihood_matrix calls on cuda, engine fused, "
+        f"{launches} K2d launches, {k2a} K2a and {k2e} K2e launches")
+    if k2a or k2e:
+        raise AssertionError(f"{label}: the main path launched K2a or K2e")
+    sub = pt.Data(data.subjects()[:rows])
+    pt.set_float_dtype(torch.float64)
+    general = [pt.log_likelihood_matrix(model, sub, sp, ems, device="cuda", engine="general")
+               for sp in supports]
+    torch.cuda.synchronize()
+    for j, (dtype, sp, psi) in enumerate(results):
+        want = general[j % len(supports)]
+        if dtype == torch.float64:
+            err, tol = rel_err(psi[:rows], want, 1.0), 1e-9
+        else:
+            err = f32_error(psi[:rows].cpu().numpy(), want.cpu().numpy())
+            tol = F32_BUDGET["ode_expm"]
+        log(f"[11] {label} {str(dtype)[6:]}: fused vs f64 general on subjects 0-{rows - 1} "
+            f"rel {err:.3e} (<= {tol:g}); psi mean {float(psi.double().mean()):.6f}")
+        if err > tol:
+            raise AssertionError(f"{label} {dtype}: fused vs general {err} > {tol}")
+    return label, model, data, ems, launches, t_build
+
+
+def phase_expm_times(pt, label, model, data, ems, t_build, card: str) -> dict:
+    """K2d alone, its twin, the general engine on the subjects of the check,
+    one end-to-end call and its steps at the cell's shape; K2d held against
+    its twin there; the bound of its work; and, for context only, the time
+    ``torch.linalg.matrix_exp`` takes for as many (n + 1) x (n + 1) matrices
+    as the cell has passes (it does not compute psi)."""
+    from pharmsol_tpu_torch.likelihood.matrix import _general_psi
+    from pharmsol_tpu_torch.ops.fused_ode import psi_ode_plain
+    from pharmsol_tpu_torch.utils.f32_budget import F32_BUDGET, TRANSIT_CENTRE, f32_error
+
+    n, S = EXPM_SHAPE
+    rows = EXPM_CHECK_ROWS
+    sp = jittered_support(TRANSIT_CENTRE, S, np.random.RandomState(SEED + 6), 0.2)
+    sub_grid = model.lower(pt.Data(data.subjects()[:rows]).subjects())
+    lowered = ems.lower(model.resolve_output_label, model.nouteqs())
+    fixed_ops, squaring_ops = expm_pass_ops(model)
+    out, twin64 = {}, None
+    for dtype in (torch.float64, torch.float32):
+        pt.set_float_dtype(dtype)
+        d = str(dtype)[6:]
+        plan = ode_plan_for(model, data, sp, ems, dtype)
+        kw = plan.kernel_kwargs()
+        counts = {}
+        got = run_ode_kernel(plan)
+        twin, twin_ms = event_ms(lambda: psi_ode_plain(
+            *plan.streams, plan.support, plan.rhs, counts=counts, **kw))
+        if dtype == torch.float64:
+            twin64 = twin
+            abs_err = float((got - twin).abs().max())
+            rel, tol = rel_err(got, twin, 1.0), 1e-10
+        else:
+            abs_err = float((got.double() - twin64).abs().max())
+            rel, tol = f32_error(got.cpu().numpy(), twin64.cpu().numpy()), F32_BUDGET["ode_expm"]
+        log(f"[11] K2d vs twin {label} {d}: max abs {abs_err:.3e}, rel {rel:.3e} (<= {tol:g}"
+            f"{'' if dtype == torch.float64 else ', against the f64 twin'})")
+        if rel > tol:
+            raise AssertionError(f"{label} {dtype}: K2d vs twin {rel} > {tol}")
+        t = {
+            "kernel": cuda_ms(lambda: run_ode_kernel(plan), 10),
+            "twin": twin_ms,
+            "general": wall_ms(lambda: _general_psi(
+                model, sub_grid, sp, lowered, torch.device("cuda"), dtype), 2),
+            "end_to_end": wall_ms(lambda: pt.log_likelihood_matrix(
+                model, data, sp, ems, device="cuda"), 5),
+        }
+        parts = ode_end_to_end_parts(model, data, sp, ems, dtype, plan)
+        ops = counts["passes"] * fixed_ops + counts["squarings"] * squaring_ops
+        nbytes = plan_bytes(plan, kw, n, S)
+        t["bound"], t["bound_by"] = bound(nbytes, ops, dtype)
+        cells = n * S
+        for k in ("kernel", "twin", "end_to_end"):
+            log(f"[11] {label} {d} {k:10s} {t[k]:10.3f} ms  {cells / (t[k] * 1e-3):.4g} "
+                f"cells/s  ({card})")
+        log(f"[11] {label} {d} general    {t['general']:10.3f} ms on subjects 0-{rows - 1} "
+            f"x {S}  ({card})")
+        log(f"[11] {label} {d} end_to_end parts (ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in parts.items()))
+        log(f"[11] {label} {d} kernel+finalize share of end_to_end "
+            f"{(t['kernel'] + parts['finalize']) / t['end_to_end']:.4f}, plan "
+            f"{parts['plan'] / t['end_to_end']:.4f} ({card})")
+        log(f"[11] {label} {d} K2d bound {t['bound']:.5g} ms by {t['bound_by']} "
+            f"({nbytes / 1e6:.2f} MB, {counts['passes']} passes x {fixed_ops} + "
+            f"{counts['squarings']} squarings x {squaring_ops} = {ops / 1e9:.3f} G operations); "
+            f"kernel at {t['bound'] / t['kernel']:.3f} of it")
+        # context: a library's exponential of as many (n + 1)^2 blocks, in
+        # chunks of 2^20 (the whole batch would not fit the card)
+        size = model.nstates() + 1
+        chunk = 1 << 20
+        blocks = torch.randn(chunk, size, size, dtype=dtype, device="cuda") * 0.3
+        reps = max(1, -(-counts["passes"] // chunk))
+        per_chunk = cuda_ms(lambda: torch.linalg.matrix_exp(blocks), 3, 1)
+        t["matrix_exp"] = per_chunk * reps
+        log(f"[11] {label} {d} context: torch.linalg.matrix_exp of {counts['passes']} "
+            f"{size}x{size} blocks {t['matrix_exp']:.3f} ms ({per_chunk:.3f} ms per 2^20, "
+            f"x{reps}); it computes no psi  ({card})")
+        del blocks
+        t["abs_err"] = abs_err
+        t["plan"] = parts["plan"]
+        t["passes"], t["squarings"] = counts["passes"], counts["squarings"]
+        out[dtype] = t
+    model._lower_cache.clear()
+    t0 = time.perf_counter()
+    model.lower(data.subjects())
+    log(f"[11] {label} host: subject builder {t_build * 1e3:.1f} ms, lowering "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms ({n} subjects)")
+    return out
+
+
+def phase_burnin_threshold(pt, model, data, ems, card: str) -> list:
+    """The NPML burn-in on the host (``_burnin_host``, float64 numpy with
+    pruning) against the burn-in on the card (``_burnin_device``, float32) on
+    the fit's own psi at 10 000 subjects and k Halton supports, k in
+    ``BURNIN_WIDTHS``: seconds each (the card's with the synchronisation and
+    the copy of lam), and the log-likelihood of the lam each reaches (within
+    1e-4 relative). The port's ``_DEVICE_MIN_CELLS`` is set from these
+    lines."""
+    from pharmsol_tpu_torch.optimize import weights
+    from pharmsol_tpu_torch.optimize.npag import _halton
+    from pharmsol_tpu_torch.utils.f32_budget import POPULATION_RANGES
+
+    bounds = np.asarray(POPULATION_RANGES)
+    pt.set_float_dtype(torch.float64)
+    lines = []
+    for k in BURNIN_WIDTHS:
+        support = bounds[:, 0] + _halton(k, 3) * (bounds[:, 1] - bounds[:, 0])
+        log_psi = pt.log_likelihood_matrix(model, data, support, ems, device="cuda")
+        psi_t = torch.exp(log_psi - torch.amax(log_psi, dim=1, keepdim=True))
+        psi_f32 = psi_t.to(torch.float32)
+        psi = psi_t.cpu().numpy()
+        weights._burnin_device(psi_f32)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lam_dev = weights._burnin_device(psi_f32)
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t0
+        _, iters = weights._burnin_device_loop(psi_f32)
+        t0 = time.perf_counter()
+        lam_host = weights._burnin_host(psi)
+        t_host = time.perf_counter() - t0
+        ll_dev = float(np.sum(np.log(np.maximum(psi @ lam_dev, 1e-300))))
+        ll_host = float(np.sum(np.log(np.maximum(psi @ lam_host, 1e-300))))
+        rel = abs(ll_dev - ll_host) / max(1.0, abs(ll_host))
+        n = psi.shape[0]
+        log(f"[12] burn-in {n} x {k:4d} ({n * k:8d} cells): host {t_host:8.4f} s, card "
+            f"{t_dev:8.4f} s ({int(iters)} iterations), ratio host/card {t_host / t_dev:7.3f}; "
+            f"log-likelihood host {ll_host:.4f}, card {ll_dev:.4f}, rel {rel:.3e} (<= 1e-4)  "
+            f"({card})")
+        if rel > 1e-4:
+            raise AssertionError(f"burn-in k={k}: log-likelihoods differ by {rel} > 1e-4")
+        lines.append(dict(k=k, cells=n * k, host_s=t_host, card_s=t_dev, iterations=int(iters)))
+    faster = [ln["cells"] for ln in lines if ln["card_s"] < ln["host_s"]]
+    log(f"[12] burn-in: the card is faster from {min(faster) if faster else 'no width here'} "
+        f"cells; the port's _DEVICE_MIN_CELLS is {weights._DEVICE_MIN_CELLS}")
+    return lines
+
+
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -1857,6 +2354,52 @@ def phase_times(pt, workloads, ems, card: str) -> dict:
     return times
 
 
+def expm_record(expm_times, launches, fit_b) -> dict:
+    """K2d's entry of the kernels line."""
+    e32, e64 = expm_times[torch.float32], expm_times[torch.float64]
+    return dict(
+        EXPM_KERNEL_RECORD,
+        launches=launches + fit_b["launches"],
+        launches_width=launches,
+        launches_fit=fit_b["launches"],
+        max_abs_err=e64["abs_err"],
+        max_abs_err_f32=e32["abs_err"],
+        ms=e32["kernel"],
+        plain_ms=e32["twin"],
+        bound_ms=e32["bound"],
+        bound_by=e32["bound_by"],
+        library_ms=None,
+        ms_f64=e64["kernel"],
+        plain_ms_f64=e64["twin"],
+        bound_ms_f64=e64["bound"],
+        shape="ode_expm_transit_{}x{}".format(*EXPM_SHAPE),
+        end_to_end_ms=e32["end_to_end"],
+        end_to_end_ms_f64=e64["end_to_end"],
+        plan_ms=e32["plan"],
+        plan_ms_f64=e64["plan"],
+        passes=e64["passes"],
+        squarings=e64["squarings"],
+        matrix_exp_context_ms=e32["matrix_exp"],
+        matrix_exp_context_ms_f64=e64["matrix_exp"],
+    )
+
+
+def run_expm_slice(pt, rng, expm, card: str) -> tuple:
+    """This slice's phases: K2d and rhs_jvp checks, the two fits, the K2d
+    cell and the burn-in threshold. Returns (K2d's record, fit A, fit B)."""
+    phase_expm_kernels(pt, expm)
+    phase_rhs_jvp(pt, expm)
+    torch.cuda.synchronize()
+    fit_a, fit_b, fit_data, fit_ems, closed = phase_fits(pt, card)
+    torch.cuda.synchronize()
+    label, model, data, ems, launches, t_build = phase_expm_slice(pt, rng)
+    times = phase_expm_times(pt, label, model, data, ems, t_build, card)
+    torch.cuda.synchronize()
+    phase_burnin_threshold(pt, closed, fit_data, fit_ems, card)
+    torch.cuda.synchronize()
+    return expm_record(times, launches, fit_b), fit_a, fit_b
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     if not torch.cuda.is_available():
@@ -1870,8 +2413,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.RandomState(SEED)
     card = phase_environment()
+    expm = expm_cases()
     ode_features = ode_feature_cases()
-    phase_build(pt, ode_features)
+    phase_build(pt, ode_features, expm)
     torch.cuda.synchronize()
     phase_kernels(pt, rng)
     phase_feature_kernels(pt)
@@ -1910,6 +2454,7 @@ def main() -> int:
     cov_times = phase_ode_feature_times(pt, cov_label, cov_model, cov_data, cov_ems,
                                         cov_build, card)
     torch.cuda.synchronize()
+    expm_rec, fit_a, fit_b = run_expm_slice(pt, rng, expm, card)
 
     main_label = workloads[0][0]
     t32 = times[(main_label, torch.float32)]
@@ -1930,6 +2475,7 @@ def main() -> int:
         plain_ms_f64=t64["twin"],
         bound_ms_f64=t64["bound"],
         shape=main_label,
+        launches_fit=fit_a["launches"],
     )
     f_label = features[0][0]
     f32_, f64_ = feature_times[f_label][torch.float32], feature_times[f_label][torch.float64]
@@ -2012,8 +2558,9 @@ def main() -> int:
         end_to_end_ms_full_f64=sde_times[torch.float64]["end_to_end"],
         shape_full=sde_label,
     )
+    log("[10] fits: " + json.dumps({"fit_a": fit_a, "fit_b": fit_b}))
     print(json.dumps({"kernels": [record, feature_record, ode_record, ode_feature_record,
-                                  sde_record]}))
+                                  sde_record, expm_rec]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,12 @@ held against). It ports the population log-likelihood matrix ("psi") of the
 closed-form models (with covariates, secondary equations, lag, fa and
 init), of ODE models and of SDE models: the data layer, event-grid lowering,
 the 12 analytical kernels, the explicit ODE steppers, the Euler-Maruyama
-particle filter, the general psi engine, and the fused psi paths, whose
+particle filter, the general psi engine, the fused psi paths, whose
 kernels are hand-written CUDA for Hopper (``csrc/fused_psi.cu``;
 ``csrc/fused_ode.cu`` and ``csrc/fused_sde.cu`` with device functions
-generated from the model's closures).
+generated from the model's closures), and the NPAG population fit on top
+of psi (``optimize.fit_population``, with the NPML weight solve whose
+burn-in runs on the card).
 
 The entry points run on the card (``"cuda"``) unless the caller asks for
 the CPU with ``set_device("cpu")`` or ``device="cpu"``. The working dtype
@@ -63,5 +65,8 @@ from .likelihood.matrix import (  # noqa: F401
     last_engine_decision,
     log_likelihood_matrix,
 )
+from . import optimize  # noqa: F401
+from .optimize import ParameterOptimizer, get_e2  # noqa: F401
+from .parameters import ParameterOrder, Parameters, dense  # noqa: F401
 
 __version__ = "0.1.0"

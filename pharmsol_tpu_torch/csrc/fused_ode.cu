@@ -1,12 +1,14 @@
-// Fused population psi for ODE models, explicit Runge-Kutta tier and its
-// feature tier, for Hopper (sm_90a).
+// Fused population psi for ODE models, explicit Runge-Kutta tier, exact
+// propagation tier and their feature tier, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel pharmsol_tpu/ops/pallas_ode.py::psi_ode
 // (_make_ode_kernel): K2a, the explicit `integrate` march (dopri5 and tsit5,
 // merged dense output, RHS-difference boluses, several dose inputs, linear
-// outputs, censoring), and K2e, its feature tier (covariate lanes and
+// outputs, censoring); K2e, its feature tier (covariate lanes and
 // LaneCov :417/:644-660, init :1614-1618, the lag/fa split march with slot
-// tables :1665-1807). Plain PyTorch twin:
+// tables :1665-1807); and K2d, the exact propagation of an affine autonomous
+// RHS (`integrate_expm` :1152-1287, solver code 2, see march_expm below),
+// with or without the feature tier. Plain PyTorch twin:
 // pharmsol_tpu_torch/ops/fused_ode.py::psi_ode_plain.
 //
 // The model's right-hand side is not written here: it is generated from the
@@ -14,7 +16,11 @@
 // straight-line function `rhs<T>(x, p, t, b, rateiv, cov_a, cov_b, dx)` and
 // included through PHARMSOL_ODE_RHS, so each model builds its own library.
 // A covariate reads cov_a[i] (constant over the row) or cov_a[i] +
-// cov_b[i] * t (affine within the segment).
+// cov_b[i] * t (affine within the segment). A header generated with the
+// Jacobian (PHARMSOL_RHS_HAS_JVP) also holds `rhs_jvp<T>(x, p, t, b, rateiv,
+// cov_a, cov_b, v, jv)`, jv = (df/dx)(x) v by symbolic forward mode; such a
+// library holds K2d's instantiations and no other, a header without it the
+// explicit tier's, so a model's explicit library is what it was before K2d.
 //
 // Two instantiations of one kernel template: FEAT = false is K2a, whose code
 // is the explicit tier's alone (no covariate, init, lag or fa work is
@@ -258,6 +264,157 @@ __device__ __forceinline__ bool all_finite(const T* v) {
   return ok;
 }
 
+#ifdef PHARMSOL_RHS_HAS_JVP
+// K2d: the exact propagation of one pass over `target` time from t0, for an
+// RHS that is affine in the state and autonomous within the pass (the plan
+// proved both with float64 probes, and that no covariate has a slope; the
+// covariates read at t0 stand for the whole pass). The JAX kernel's
+// `integrate_expm` (ops/pallas_ode.py:1152-1287):
+//   u = f(0), A's columns by rhs_jvp at 0 against unit vectors, both scaled
+//   by the pass length; norm = max_i(|u_i| + sum_j |A_ij|);
+//   s = ceil(max(log2 norm, 0)); A, u scaled by 2^-s; the Taylor-13 Horner
+//   chain on the block [[A, u], [0, 0]] in (P, q) form,
+//   (P, q) <- (I + A P / d, (A q + u) / d), d = 12 .. 1; then s squarings
+//   (P, q) <- (P P, P q + q); x <- P x + q.
+// The TPU kernel squares every lane to its tile's largest count under a
+// mask, because its lanes move together; a thread squares to its own count.
+// A lane whose count passes EXPM_SQUARINGS (16), or whose result is not
+// finite, is NaN (a -inf cell); a pass of zero length leaves x untouched.
+// No library routine computes the exponential: the chain is written out
+// here. Both loops stay rolled (one product's code each, unrolled over N);
+// As, us, P, q and one product are 3 N^2 + 2 N live values a thread.
+constexpr int EXPM_TAYLOR = 13;
+constexpr int EXPM_SQUARINGS = 16;
+
+template <typename T>
+__device__ __forceinline__ T pm_log2(T v);
+template <>
+__device__ __forceinline__ float pm_log2<float>(float v) { return log2f(v); }
+template <>
+__device__ __forceinline__ double pm_log2<double>(double v) { return log2(v); }
+template <typename T>
+__device__ __forceinline__ T pm_exp2(T v);
+template <>
+__device__ __forceinline__ float pm_exp2<float>(float v) { return exp2f(v); }
+template <>
+__device__ __forceinline__ double pm_exp2<double>(double v) { return exp2(v); }
+template <typename T>
+__device__ __forceinline__ T pm_ceil(T v);
+template <>
+__device__ __forceinline__ float pm_ceil<float>(float v) { return ceilf(v); }
+template <>
+__device__ __forceinline__ double pm_ceil<double>(double v) { return ceil(v); }
+
+template <typename T>
+__device__ __forceinline__ void march_expm(T* x, const T* p, const T* rate,
+                                           const T* ca, const T* cb, T t0,
+                                           T target) {
+  if (!(target > T(0))) return;
+  T bz[NIN], zero[N];
+#pragma unroll
+  for (int j = 0; j < NIN; ++j) bz[j] = T(0);
+#pragma unroll
+  for (int j = 0; j < N; ++j) zero[j] = T(0);
+  T us[N], As[N][N];
+  rhs<T>(zero, p, t0, bz, rate, ca, cb, us);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    T e[N], col[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) e[i] = (i == j) ? T(1) : T(0);
+    rhs_jvp<T>(zero, p, t0, bz, rate, ca, cb, e, col);
+#pragma unroll
+    for (int i = 0; i < N; ++i) As[i][j] = col[i] * target;
+  }
+  T norm = T(0);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    us[i] = us[i] * target;
+    T row = pm_abs(us[i]);
+#pragma unroll
+    for (int j = 0; j < N; ++j) row = row + pm_abs(As[i][j]);
+    norm = i == 0 ? row : pm_max(norm, row);
+  }
+  norm = pm_max(norm, T(1e-30));
+  const T s_cnt = pm_ceil(pm_max(pm_log2(norm), T(0)));
+  const T sc = pm_exp2(-s_cnt);
+  T P[N][N], q[N];
+  const T inv0 = T(1.0 / EXPM_TAYLOR);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    us[i] = us[i] * sc;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      As[i][j] = As[i][j] * sc;
+      P[i][j] = As[i][j] * inv0 + (i == j ? T(1) : T(0));
+    }
+    q[i] = us[i] * inv0;
+  }
+#pragma unroll 1
+  for (int d = EXPM_TAYLOR - 1; d >= 1; --d) {
+    const T inv = T(1.0 / (double)d);
+    T Pn[N][N], qn[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        T acc = As[i][0] * P[0][j];
+#pragma unroll
+        for (int l = 1; l < N; ++l) acc = acc + As[i][l] * P[l][j];
+        Pn[i][j] = acc * inv + (i == j ? T(1) : T(0));
+      }
+      T acc = As[i][0] * q[0];
+#pragma unroll
+      for (int l = 1; l < N; ++l) acc = acc + As[i][l] * q[l];
+      qn[i] = (acc + us[i]) * inv;
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      q[i] = qn[i];
+#pragma unroll
+      for (int j = 0; j < N; ++j) P[i][j] = Pn[i][j];
+    }
+  }
+  bool bad = !(s_cnt <= T(EXPM_SQUARINGS));
+  const int n_sq = bad ? 0 : (int)s_cnt;
+#pragma unroll 1
+  for (int it = 0; it < n_sq; ++it) {
+    T Pn[N][N], qn[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        T acc = P[i][0] * P[0][j];
+#pragma unroll
+        for (int l = 1; l < N; ++l) acc = acc + P[i][l] * P[l][j];
+        Pn[i][j] = acc;
+      }
+      T acc = P[i][0] * q[0];
+#pragma unroll
+      for (int l = 1; l < N; ++l) acc = acc + P[i][l] * q[l];
+      qn[i] = acc + q[i];
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      q[i] = qn[i];
+#pragma unroll
+      for (int j = 0; j < N; ++j) P[i][j] = Pn[i][j];
+    }
+  }
+  T xn[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    T acc = P[i][0] * x[0];
+#pragma unroll
+    for (int l = 1; l < N; ++l) acc = acc + P[i][l] * x[l];
+    xn[i] = acc + q[i];
+  }
+  bad = bad || !all_finite(xn);
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = bad ? T(NAN) : xn[i];
+}
+#endif  // PHARMSOL_RHS_HAS_JVP
+
 // A bolus of `amt` into RHS input `in` at time t: x += f(x, b) - f(x, 0),
 // the general engine's own semantics.
 template <typename T>
@@ -286,6 +443,12 @@ __device__ __forceinline__ void march(const Args<T>& a, T* x, T& h, T& ll,
                                       const T* cb, T t0, T target,
                                       size_t row, int s, int m0, int m1,
                                       bool estimate_h) {
+#ifdef PHARMSOL_RHS_HAS_JVP
+  // K2d: one exact propagation; runs are single segments (expm never
+  // merges), so there is no interior observation and no step to carry
+  static_assert(SOLVER == 2, "a library with rhs_jvp holds the expm tier");
+  march_expm<T>(x, p, rate, ca, cb, t0, target);
+#else
   using Tb = Tab<SOLVER>;
   const T rtol = a.rtol, atol = a.atol;
   T bz[NIN];
@@ -434,6 +597,7 @@ __device__ __forceinline__ void march(const Args<T>& a, T* x, T& h, T& ll,
   for (int j = 0; j < N; ++j) xnan[j] = T(NAN);
   for (; mm < m1; ++mm) ll += obs_term(a, row + mm, s, xnan);
   if (live0) h = hc;
+#endif
 }
 
 // The fa scale of bolus plane k at segment m (K2e; 1 without fa).
@@ -622,8 +786,12 @@ cudaError_t run(int solver, const void* const* p, const int* ints, void* out,
   a.rtol = (T)rtol; a.atol = (T)atol; a.h0 = (T)h0;
   if (feat == nullptr) {
     switch (solver) {
+#ifdef PHARMSOL_RHS_HAS_JVP
+      case 2: return launch<T, 2, false>(a, st);
+#else
       case 0: return launch<T, 0, false>(a, st);
       case 1: return launch<T, 1, false>(a, st);
+#endif
       default: return cudaErrorInvalidValue;
     }
   }
@@ -647,8 +815,12 @@ cudaError_t run(int solver, const void* const* p, const int* ints, void* out,
        (f.init_mask != nullptr)))
     return cudaErrorInvalidValue;
   switch (solver) {
+#ifdef PHARMSOL_RHS_HAS_JVP
+    case 2: return launch<T, 2, true>(a, st);
+#else
     case 0: return launch<T, 0, true>(a, st);
     case 1: return launch<T, 1, true>(a, st);
+#endif
     default: return cudaErrorInvalidValue;
   }
 }
@@ -712,6 +884,59 @@ extern "C" int fused_ode_feature_launch(int is_f64, int solver,
                           n_runs, rtol, atol, h0, max_iters, st, feat, n_lag,
                           n_fa);
   return (int)err;
+}
+
+// The generated RHS and its Jacobian-vector product on n samples, one thread
+// each, for checks against the closure: x, v [n, N], p [n, NP], t [n],
+// rate [n, NIN], cov_a, cov_b [n, NCOV] (cov(t) = cov_a + cov_b t; unread
+// without covariates) -> f, jv [n, N]. cudaErrorNotSupported from a library
+// whose header has no rhs_jvp.
+#ifdef PHARMSOL_RHS_HAS_JVP
+template <typename T>
+__global__ void rhs_jvp_probe_kernel(int n, const T* x, const T* p, const T* t,
+                                     const T* rate, const T* cov_a,
+                                     const T* cov_b, const T* v, T* f, T* jv) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  T bz[NIN], ca[NC], cb[NC];
+#pragma unroll
+  for (int j = 0; j < NIN; ++j) bz[j] = T(0);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    ca[c] = NCOV > 0 ? cov_a[(size_t)i * NC + c] : T(0);
+    cb[c] = NCOV > 0 ? cov_b[(size_t)i * NC + c] : T(0);
+  }
+  rhs<T>(x + (size_t)i * N, p + (size_t)i * NP, t[i], bz, rate + (size_t)i * NIN,
+         ca, cb, f + (size_t)i * N);
+  rhs_jvp<T>(x + (size_t)i * N, p + (size_t)i * NP, t[i], bz,
+             rate + (size_t)i * NIN, ca, cb, v + (size_t)i * N,
+             jv + (size_t)i * N);
+}
+#endif
+
+extern "C" int fused_ode_jvp_probe(int is_f64, int n, const void* x,
+                                   const void* p, const void* t,
+                                   const void* rate, const void* cov_a,
+                                   const void* cov_b, const void* v, void* f,
+                                   void* jv, void* stream) {
+#ifdef PHARMSOL_RHS_HAS_JVP
+  cudaStream_t st = (cudaStream_t)stream;
+  const int block = 128, grid = (n + block - 1) / block;
+  if (n <= 0) return (int)cudaSuccess;
+  if (is_f64)
+    rhs_jvp_probe_kernel<double><<<grid, block, 0, st>>>(
+        n, (const double*)x, (const double*)p, (const double*)t,
+        (const double*)rate, (const double*)cov_a, (const double*)cov_b,
+        (const double*)v, (double*)f, (double*)jv);
+  else
+    rhs_jvp_probe_kernel<float><<<grid, block, 0, st>>>(
+        n, (const float*)x, (const float*)p, (const float*)t,
+        (const float*)rate, (const float*)cov_a, (const float*)cov_b,
+        (const float*)v, (float*)f, (float*)jv);
+  return (int)cudaGetLastError();
+#else
+  return (int)cudaErrorNotSupported;
+#endif
 }
 
 // The generated RHS this library was built with: {states, params, inputs}.

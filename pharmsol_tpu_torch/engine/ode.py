@@ -8,8 +8,16 @@ segment is one clean initial-value problem.
 - ``dopri5`` / ``tsit5``: embedded 5(4) pairs (Dormand-Prince, Tsitouras
   2011) with FSAL, adaptive I-controller, stall guard, and NaN poisoning of a
   lane whose step budget runs out (the population layer turns it into -inf).
-- kvaerno3/5, esdirk34, trbdf2, bdf and expm are solvers of the JAX package
-  that the port does not have yet: asking for one raises PharmsolError.
+- ``expm``: exact propagation of an RHS that is affine in the state and
+  autonomous within a segment, ``x' = A x + u``: ``A`` by forward-mode
+  differentiation of the lane RHS at zero, ``u = f(0)``, the exponential of
+  the block ``[[A, u], [0, 0]]`` by a Taylor-13 Horner chain with scaling and
+  up to 16 masked squarings. Runtime probes of superposition and autonomy
+  poison a lane that violates them. ``expm_rolled`` is the JAX package's
+  name for the same math under a rolled loop (a compile-time measure for
+  reverse mode in XLA); here it is an alias of ``expm``.
+- kvaerno3/5, esdirk34, trbdf2 and bdf are solvers of the JAX package that
+  the port does not have yet: asking for one raises PharmsolError.
 
 The JAX package vmaps a per-lane ``lax.while_loop``; here one masked Python
 loop runs over all lanes at once (``x`` is ``[*lanes, n]``): every trial
@@ -25,7 +33,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
-from torch.func import vmap
+from torch.func import jacfwd, vmap
 
 from ..errors import PharmsolError
 from .sim import as_vector
@@ -90,8 +98,9 @@ TABLEAUS = {
     "tsit5": (_TS_A, _TS_B, _TS_E, _TS_C),
 }
 # Solvers of the JAX package (engine/ode.py _SEGMENT_SOLVERS) not ported yet.
-UNPORTED_SOLVERS = ("kvaerno3", "kvaerno5", "esdirk34", "trbdf2", "bdf",
-                    "expm", "expm_rolled")
+UNPORTED_SOLVERS = ("kvaerno3", "kvaerno5", "esdirk34", "trbdf2", "bdf")
+# Exact propagation for affine systems; ``expm_rolled`` is an alias.
+EXPM_SOLVERS = ("expm", "expm_rolled")
 
 
 class ODEOptions(NamedTuple):
@@ -106,17 +115,21 @@ class ODEOptions(NamedTuple):
 
 
 def check_solver(solver: str):
-    """The (A, B, E, C) tableau of ``solver``; raises PharmsolError for a
-    solver the port does not have."""
+    """The (A, B, E, C) tableau of ``solver`` (None for the expm solvers,
+    which have none); raises PharmsolError for a solver the port does not
+    have."""
     if solver in TABLEAUS:
         return TABLEAUS[solver]
+    if solver in EXPM_SOLVERS:
+        return None
+    available = ", ".join(tuple(TABLEAUS) + EXPM_SOLVERS)
     if solver in UNPORTED_SOLVERS:
         raise PharmsolError(
             f"ODE solver `{solver}` is not ported to the PyTorch package yet "
-            f"(ROADMAP Queue 1 item 8; available: {', '.join(TABLEAUS)})"
+            f"(ROADMAP Queue 1 item 5; available: {available})"
         )
     raise PharmsolError(
-        f"unknown ODE solver `{solver}` (available: {', '.join(TABLEAUS)})"
+        f"unknown ODE solver `{solver}` (available: {available})"
     )
 
 
@@ -219,6 +232,113 @@ def _erk_segment(f: Callable, x0, t0, t1, opts: ODEOptions, A, B, E, C,
     return _poison_if_unfinished(x, t, t1), hmax
 
 
+# -- expm: exact propagation for linear (affine) systems -----------------------
+#
+# Compartment PK models beyond the 12 closed-form kernels are still almost
+# always linear: dx/dt = A(p, cov) x + u with A constant within a segment
+# (parameters fixed, rateiv constant, covariates carry-forward). The exact
+# segment solution is the matrix exponential of the augmented system
+# [[A, u], [0, 0]]: a fixed chain of small matrix products, batched over the
+# lanes, with no step controller and no tolerance error.
+
+_EXPM_SQUARINGS = 16  # covers ||[A u]|| dt up to 2^16 past the Taylor radius
+_EXPM_TAYLOR = 13  # remainder <= 1/14! ~ 1e-11 at the 1.0 radius
+
+
+def _expm_affine(A, u):
+    """(P, q) with exp([[A, u], [0, 0]]) = [[P, q], [0, 1]], batched over
+    leading dims (``A`` [..., n, n], ``u`` [..., n]).
+
+    The augmented matrix's zero bottom row is static, so every product in
+    the Taylor and squaring chains keeps the block form [[P, q], [0, 1]]:
+    a Taylor-Horner step is (P, q) <- (I + A P / d, (A q + u) / d) and a
+    squaring is (P, q) <- (P P, P q + q).
+    """
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    P = eye + A / _EXPM_TAYLOR
+    q = u / _EXPM_TAYLOR
+    for d in range(_EXPM_TAYLOR - 1, 0, -1):
+        P = eye + torch.matmul(A, P) / d
+        q = (torch.matmul(A, q[..., None])[..., 0] + u) / d
+    return P, q
+
+
+def expm_segment(f: Callable, jac: Callable, x0, t0, t1):
+    """Exact segment propagation for an affine RHS, ``x' = A x + u``, on
+    every lane: ``x0`` [*lanes, n], ``t0``/``t1`` [*lanes]; ``f(x, t)`` is the
+    RHS and ``jac(x, t)`` its state Jacobian [*lanes, n, n] on all lanes.
+
+    ``A = jac(0)`` and ``u = f(0)`` are taken per segment at its midpoint.
+    Correctness needs f affine in x and autonomous within the segment, which
+    is checked numerically here: a superposition probe (f(xa + xb) + f(0) -
+    f(xa) - f(xb) = 0) and a time-independence probe (f(xa, t0) = f(xa,
+    mid)) poison the lane to NaN on violation (the population layer turns
+    that into -inf), and so do a scaled norm beyond 2^16 and a non-finite
+    result.
+    """
+    n = x0.shape[-1]
+    span = torch.clamp(t1 - t0, min=0.0)
+    tc = t0 + 0.5 * span
+    zero = torch.zeros_like(x0)
+    f0 = f(zero, tc)
+    A = jac(zero, tc)
+
+    # runtime guards (scaled to the state/RHS magnitude)
+    xa = torch.arange(1, n + 1, dtype=x0.dtype, device=x0.device) + torch.abs(x0)
+    xb = torch.flip(xa, dims=(-1,)) * 0.7 + 1.0
+    fa_, fb_, fab = f(xa, tc), f(xb, tc), f(xa + xb, tc)
+    scale = 1.0 + torch.amax(torch.abs(fa_), dim=-1) + torch.amax(torch.abs(fb_), dim=-1)
+    nonlinear = torch.amax(torch.abs(fab + f0 - fa_ - fb_), dim=-1) > 1e-4 * scale
+    fa_t0 = f(xa, t0)
+    nonautonomous = torch.amax(torch.abs(fa_t0 - fa_), dim=-1) > 1e-4 * scale
+
+    # scaling and squaring on the affine block form; the squaring count is
+    # per lane, so each of the (at most 16) squarings is masked
+    Adt, udt = A * span[..., None, None], f0 * span[..., None]
+    norm = torch.clamp(
+        torch.amax(torch.sum(torch.abs(Adt), dim=-1) + torch.abs(udt), dim=-1), min=1e-30)
+    s = torch.ceil(torch.clamp(torch.log2(norm), min=0.0))
+    sc = torch.exp2(-s)
+    P, q = _expm_affine(Adt * sc[..., None, None], udt * sc[..., None])
+    s_fin = s[torch.isfinite(s)]
+    n_sq = min(_EXPM_SQUARINGS, int(s_fin.max()) if s_fin.numel() else 0)
+    for i in range(n_sq):
+        on = i < s
+        Pq = torch.matmul(P, q[..., None])[..., 0] + q
+        P = torch.where(on[..., None, None], torch.matmul(P, P), P)
+        q = torch.where(on[..., None], Pq, q)
+    x1 = torch.matmul(P, x0[..., None])[..., 0] + q
+    bad = (nonlinear | nonautonomous | ~(s <= _EXPM_SQUARINGS)
+           | ~torch.isfinite(x1).all(dim=-1))
+    return torch.where(bad[..., None], torch.full_like(x1, float("nan")), x1)
+
+
+def _lane_closure(diffeq: Callable, nstates: int, names):
+    """The per-lane RHS ``one(x, p, t, rateiv, knot_t, knot_v, fixed)`` of
+    :func:`lane_rhs` (``b`` zero, the row's covariate view rebuilt)."""
+    from .grid import CovView
+
+    def one(x, p, t, rateiv, kt, kv, kf):
+        dx = diffeq(x, p, t, torch.zeros_like(rateiv), rateiv, CovView(kt, kv, kf, names))
+        return as_vector(dx, x).reshape(nstates)
+
+    return one
+
+
+def _over_lanes(one: Callable):
+    """``one`` vmapped over supports (outer) and rows (inner)."""
+    rows = vmap(one, in_dims=(0, None, 0, 0, 0, 0, 0))
+    return vmap(rows, in_dims=(0, 0, 0, 0, None, None, None))
+
+
+def lane_jacobian(diffeq: Callable, nstates: int, cov):
+    """``J(x, p, t, rateiv)`` [S, R, n, n] on the lanes of :func:`lane_rhs`:
+    the state Jacobian of the closure by forward mode (``jacfwd``)."""
+    over = _over_lanes(jacfwd(_lane_closure(diffeq, nstates, cov.names), argnums=0))
+    return lambda x, p, t, rateiv: over(x, p, t, rateiv, cov.knot_t, cov.knot_v, cov.fixed)
+
+
 def lane_rhs(diffeq: Callable, nstates: int, cov):
     """``f(x, p, t, rateiv)`` on lanes ``[S, R]``: the per-(state, parameter)
     closure ``diffeq(x, p, t, b, rateiv, cov)`` vmapped over supports (outer)
@@ -227,16 +347,7 @@ def lane_rhs(diffeq: Callable, nstates: int, cov):
     ``cov`` holds every row's covariate knots (a :class:`~.grid.CovView`
     whose tensors lead with the row axis R); the closure sees its row's
     view, rebuilt inside the row vmap."""
-    from .grid import CovView
-
-    names = cov.names
-
-    def one(x, p, t, rateiv, kt, kv, kf):
-        dx = diffeq(x, p, t, torch.zeros_like(rateiv), rateiv, CovView(kt, kv, kf, names))
-        return as_vector(dx, x).reshape(nstates)
-
-    rows = vmap(one, in_dims=(0, None, 0, 0, 0, 0, 0))
-    over = vmap(rows, in_dims=(0, 0, 0, 0, None, None, None))
+    over = _over_lanes(_lane_closure(diffeq, nstates, cov.names))
     return lambda x, p, t, rateiv: over(x, p, t, rateiv, cov.knot_t, cov.knot_v, cov.fixed)
 
 
@@ -252,7 +363,7 @@ def make_ode_propagate_carry(diffeq: Callable, nstates: int, ninput: int,
     segments (0 = no history yet: start from ``opts.h0``). A failed segment
     poisons ``x`` but not the carried step.
     """
-    A, B, E, C = check_solver(opts.solver)
+    tableau = check_solver(opts.solver)
 
     def propagate_carry(x, p, dt, rateiv, t0, cov, h):
         rhs = lane_rhs(diffeq, nstates, cov)
@@ -263,7 +374,12 @@ def make_ode_propagate_carry(diffeq: Callable, nstates: int, ninput: int,
 
         t0b = t0.expand(h.shape)
         t1 = t0b + torch.clamp(dt, min=0.0).expand(h.shape)
-        x_next, h_next = _erk_segment(f, x, t0b, t1, opts, A, B, E, C,
+        if tableau is None:
+            # expm has no step to carry: it returns a zero step
+            jac = lane_jacobian(diffeq, nstates, cov)
+            x_next = expm_segment(f, lambda xx, tt: jac(xx, p, tt, rate), x, t0b, t1)
+            return x_next, torch.zeros_like(h)
+        x_next, h_next = _erk_segment(f, x, t0b, t1, opts, *tableau,
                                       h_start=h)
         h_next = torch.where(torch.isfinite(h_next) & (h_next > 0.0),
                              h_next, torch.zeros_like(h_next))

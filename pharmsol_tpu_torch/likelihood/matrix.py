@@ -28,6 +28,7 @@ failed to build or launch: that error propagates.
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -150,6 +151,7 @@ def log_likelihood_matrix(
     subjects,
     support_points,
     error_models: AssayErrorModels,
+    progress: bool = False,
     on_error: str = "neg_inf",
     engine: str = "auto",
     device=None,
@@ -182,6 +184,10 @@ def log_likelihood_matrix(
     Divergence note (as in the JAX package): the reference aborts the whole
     matrix on a simulation error; here non-finite cells are mapped to -inf
     (``on_error='neg_inf'``) or left as NaN (``on_error='nan'``).
+
+    ``progress`` (the reference's fifth argument, matrix.rs:52) prints the
+    matrix size before the general engine runs and the cell rate after, as
+    the JAX package does on its ``xla`` path; the fused path prints nothing.
     """
     dev = resolve_device(device)
     dtype = float_dtype()
@@ -211,11 +217,24 @@ def log_likelihood_matrix(
     elif engine == "fused":
         plan = _fused_plan(equation, grid, sp, lowered, dev, dtype)
 
-    if plan is not None:
-        psi = plan.run()
-    else:
-        psi = _general_psi(equation, grid, sp, lowered, dev, dtype)
+    # the progress lines belong to the general path (the JAX package's xla
+    # path); the fused path prints nothing
+    progress = progress and plan is None
+    t0 = time.perf_counter()
+    if progress:
+        print(
+            f"Computing log-likelihood matrix: {grid.n_subjects} subjects × "
+            f"{sp.shape[0]} support points..."
+        )
+    psi = plan.run() if plan is not None else _general_psi(
+        equation, grid, sp, lowered, dev, dtype)
     if on_error == "neg_inf":
         psi = torch.where(torch.isfinite(psi), psi,
                           torch.full_like(psi, -float("inf")))
+    if progress:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        n = grid.n_subjects * sp.shape[0]
+        print(f"  done: {n} cells in {dt:.3f}s ({n / max(dt, 1e-9):.0f} cells/s)")
     return psi

@@ -14,7 +14,9 @@ a dose boundary), which is the general engine's own semantics. So the JAX
 plan's host probe of a static per-unit-dose bolus map has no counterpart
 here.
 
-In scope: dopri5 and tsit5; boluses and infusions into any input below
+In scope: dopri5, tsit5 and expm (the exact propagation tier, kernel K2d,
+for an RHS that host probes find affine in the state and autonomous, with
+covariates constant within every segment; it never merges runs); boluses and infusions into any input below
 ``ndrugs``, with one stream per active input; linear outputs; censoring;
 several outputs; merged runs. With any of the following the plan runs kernel
 K2e instead of K2a: covariates (a per-row constant, or a per-segment affine
@@ -37,6 +39,7 @@ import torch
 from ...errors import PharmsolError
 from .decompose import (
     _InputPlaneDynamic,
+    _RowCov,
     _affine_covariate_streams,
     _check_out_covariate_free,
     _classify_covariates,
@@ -209,6 +212,62 @@ def _lag_fa_planes(equation, sp, grid, ninput: int, bolus_inputs, bol, seg_t0):
     return lag_planes, fa_planes, lag_slots, fa_slots
 
 
+def _check_expm_rhs(diffeq, sp, n_states: int, ninput: int, rate_inputs, cov_values):
+    """The contracts of the exact propagation tier (JAX :274-337), checked
+    once on the host in float64 over every support: the RHS is affine in the
+    state (a superposition probe) and autonomous (a probe at two times),
+    under both covariate probes and every rate probe. The kernel trusts
+    them; the general engine checks them at run time and poisons the lane.
+    Raises PharmsolError naming the probe that failed."""
+    from ...engine.sim import as_components
+
+    S = sp.shape[0]
+    p_lanes = list(_t64(sp).t())
+    x_a = np.linspace(0.7, 1.9, n_states)
+    x_b = np.flip(x_a) * 1.31 + 0.23
+    cov0 = {n: float(np.asarray(v)[0]) for n, v in cov_values.items()}
+    cov1 = {n: v * 1.31 + 0.17 for n, v in cov0.items()}
+    rate_probes = [np.zeros(ninput)]
+    for j in rate_inputs:
+        rv = np.zeros(ninput)
+        rv[j] = 1.73
+        rate_probes.append(rv)
+    zero = torch.zeros(S, dtype=torch.float64)
+
+    def ev(x, t, covd, rv):
+        out = diffeq([zero + float(v) for v in x], p_lanes, zero + t, [zero] * ninput,
+                     [zero + float(v) for v in rv], _RowCov(covd))
+        return torch.stack(as_components(out, n_states, (S,), torch.float64, zero.device),
+                           dim=1).numpy()
+
+    try:
+        for covd in (cov0, cov1):
+            for rv in rate_probes:
+                f0 = ev(np.zeros(n_states), 0.11, covd, rv)
+                fa_p = ev(x_a, 0.11, covd, rv)
+                fb_p = ev(x_b, 0.11, covd, rv)
+                fab = ev(x_a + x_b, 0.11, covd, rv)
+                pscale = 1.0 + np.abs(fa_p).max() + np.abs(fb_p).max()
+                if np.abs(fab + f0 - fa_p - fb_p).max() > 1e-6 * pscale:
+                    raise PharmsolError(
+                        "engine='fused' expm psi requires an RHS AFFINE in the "
+                        "state (dx = A(p, cov) x + u); the superposition probe "
+                        "failed — use an adaptive solver or the general engine"
+                    )
+                fa_t = ev(x_a, 17.31, covd, rv)
+                if np.abs(fa_t - fa_p).max() > 1e-6 * pscale:
+                    raise PharmsolError(
+                        "engine='fused' expm psi requires an RHS autonomous "
+                        "within segments (no direct t reads) — use the general "
+                        "engine"
+                    )
+    except PharmsolError:
+        raise
+    except Exception as e:
+        raise PharmsolError(
+            f"engine='fused' could not probe RHS affinity for expm: {e}") from e
+
+
 class _FusedOdePsiPlan:
     """Validated device inputs for one fused ODE psi evaluation.
 
@@ -220,7 +279,7 @@ class _FusedOdePsiPlan:
     """
 
     def __init__(self, equation, grid, sp, lowered, device, dtype):
-        from ...engine.ode import TABLEAUS
+        from ...engine.ode import EXPM_SOLVERS, TABLEAUS
         from ...engine.grid import CovView
         from ...ops.fused_psi import extract_linear_out, streams_from_grid
         from ...ops.rhs_codegen import generate_rhs
@@ -228,11 +287,14 @@ class _FusedOdePsiPlan:
         if getattr(equation, "kind", None) != "ode":
             raise PharmsolError("engine='fused' ODE psi needs an ODE equation")
         opts = equation._opts
-        if opts.solver not in TABLEAUS:
+        use_expm = opts.solver in EXPM_SOLVERS
+        if opts.solver not in TABLEAUS and not use_expm:
             raise PharmsolError(
-                f"engine='fused' ODE psi supports solvers {sorted(TABLEAUS)} "
-                f"(model uses `{opts.solver}`)"
+                f"engine='fused' ODE psi supports solvers "
+                f"{sorted(TABLEAUS) + ['expm']} (model uses `{opts.solver}`)"
             )
+        # the kernel's name for the solver (`expm_rolled` is an alias)
+        self.solver = "expm" if use_expm else opts.solver
         self.opts = opts
         self.n_states = n_states = int(equation.nstates())
         self.n_out = int(equation.nouteqs())
@@ -251,12 +313,17 @@ class _FusedOdePsiPlan:
         # the kernel's RHS, generated once per (support width, inputs,
         # covariates): PharmsolError here is the plan-time rejection of an
         # RHS style
-        key = (int(sp.shape[1]), ninput, self.cov_names, self.cov_modes)
+        # with expm, also its Jacobian columns (rhs_jvp): part of the key
+        key = (int(sp.shape[1]), ninput, self.cov_names, self.cov_modes, use_expm)
         self.rhs = equation._rhs_cache.get(key)
         if self.rhs is None:
             self.rhs = generate_rhs(equation._diffeq, n_states, int(sp.shape[1]),
-                                    ninput, self.cov_names, self.cov_modes)
+                                    ninput, self.cov_names, self.cov_modes,
+                                    jacobian=use_expm)
             equation._rhs_cache[key] = self.rhs
+        if use_expm:
+            _check_expm_rhs(equation._diffeq, sp, n_states, ninput, self.rate_inputs,
+                            cov_values)
         if grid.cov_names and equation._out is not None:
             _check_out_covariate_free(equation, sp, cov_values, n_states)
 
@@ -277,6 +344,19 @@ class _FusedOdePsiPlan:
             equation, sp, grid, ninput, self.bolus_inputs, bol, seg_t0)
         affine = (_affine_covariate_streams(grid, sorted(varying), seg_t0, seg_dt)
                   if varying else {})
+        if use_expm:
+            # expm is exact only for an RHS autonomous within the segment: a
+            # covariate that interpolates linearly with a nonzero slope makes
+            # it time-dependent (carry-forward covariates ride affine streams
+            # with b == 0 and stay exact)
+            for name, (_a_s, b_s) in affine.items():
+                if np.any(np.asarray(b_s, np.float64) != 0.0):
+                    raise PharmsolError(
+                        f"engine='fused' expm psi requires covariates constant "
+                        f"within segments; `{name}` interpolates linearly with "
+                        f"a nonzero slope — use an adaptive solver or the "
+                        f"general engine"
+                    )
         cov_streams = {}
         for name in self.cov_names:
             if name in affine:
@@ -306,7 +386,7 @@ class _FusedOdePsiPlan:
         # row, with the rates and the covariates' affine streams unchanged,
         # need not stop the adaptive march; none with lag
         self.merge_runs = _ode_merge_runs(
-            [seg_dt, *bol, *rate], seg_t0, opts.solver,
+            [seg_dt, *bol, *rate], seg_t0, self.solver,
             n_bolus_in=len(self.bolus_inputs), n_rate_in=len(self.rate_inputs),
             affine_streams=affine, has_lag=lag_planes is not None,
         )
@@ -351,7 +431,7 @@ class _FusedOdePsiPlan:
         return dict(
             obs_outeq=self.outeq, out_coef=self.out_coef, out_bias=self.out_bias,
             bolus_inputs=self.bolus_inputs, rate_inputs=self.rate_inputs,
-            merge_runs=self.merge_runs if merge else None, solver=o.solver,
+            merge_runs=self.merge_runs if merge else None, solver=self.solver,
             rtol=o.rtol, atol=o.atol, h0=o.h0, max_steps=o.max_steps,
             **self.features,
         )

@@ -67,6 +67,8 @@ _vp, _ci, _cu, _cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_do
 ODE = Generated("fused_ode.cu", "rhs", "PHARMSOL_ODE_RHS", (), {
     "launch": ([_ci, _ci] + [_vp] * 15 + [_ci] * 7 + [_cd] * 3 + [_ci, _vp], _ci),
     "feature_launch": ([_ci, _ci] + [_vp] * 4 + [_ci] * 9 + [_cd] * 3 + [_ci, _vp], _ci),
+    # the generated rhs and rhs_jvp on n samples (checks against the closure)
+    "jvp_probe": ([_ci, _ci] + [_vp] * 10, _ci),
 })
 # The SDE kernel rounds every multiply and add on its own (-fmad=false), as
 # its plain PyTorch twin does op by op: the two then draw the same particles,

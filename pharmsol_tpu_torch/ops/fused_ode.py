@@ -33,6 +33,18 @@ together), then to its end. Censored observations use the exact log of the
 normal CDF (the TPU kernel's was approximate). Unlike the TPU kernel there is
 no padding: R, S and M are free.
 
+With ``solver='expm'`` (kernel K2d; the JAX kernel's ``integrate_expm``,
+:1152) a pass is no step loop but one exact propagation of an RHS affine in
+the state and autonomous within the pass, ``x' = A x + u``: ``u`` is the RHS
+at the zero state, ``A``'s columns its forward-mode tangents there (the twin
+by ``torch.func.jvp`` of the closure, the kernel by the generated
+``rhs_jvp``), both scaled by the pass length; the exponential of the block
+``[[A, u], [0, 0]]`` by a Taylor-13 Horner chain after scaling by ``2^-s``,
+``s = ceil(max(log2 norm, 0))``, then ``s`` squarings per lane; a lane with
+``s > 16`` or a non-finite result is NaN (a -inf cell). Runs are never merged,
+nothing is carried between passes, and the lag/fa split, covariates (constant
+within a pass) and init are the feature tier's own.
+
 Stream layout: ``seg_dt``, the observation streams and ``seg_t0`` are
 [R, M]; ``seg_bolus`` is [nb, R, M], one plane per active bolus input
 (``bolus_inputs`` names the RHS input of each); ``seg_rateiv`` [nr, R, M]
@@ -50,18 +62,20 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..engine.ode import TABLEAUS
+from ..engine.ode import _EXPM_SQUARINGS, _EXPM_TAYLOR, TABLEAUS
 from .rhs_codegen import LaneCov
 
 LOG_2PI = math.log(2.0 * math.pi)
 
 # Kernel launches through psi_ode on a CUDA tensor (not the twin): K2a,
-# and K2e (the feature tier: covariates, init, lag, fa).
+# K2e (the feature tier: covariates, init, lag, fa), and K2d (the exact
+# propagation tier, ``solver='expm'``, with or without features).
 LAUNCHES = 0
 FEATURE_LAUNCHES = 0
+EXPM_LAUNCHES = 0
 
 # The kernel's solver codes (csrc/fused_ode.cu).
-SOLVER_CODES = {"dopri5": 0, "tsit5": 1}
+SOLVER_CODES = {"dopri5": 0, "tsit5": 1, "expm": 2}
 
 # Dormand-Prince 5(4) dense-output interpolant (Shampine 1986, the quartic of
 # scipy's RK45.P):
@@ -341,9 +355,13 @@ def _check_inputs(seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value,
             raise ValueError(f"{name} must be contiguous")
     if n_out > 1 and obs_outeq is None:
         raise ValueError("obs_outeq stream required for multi-output psi")
+    if solver == "expm" and not rhs.jacobian:
+        raise ValueError("solver `expm` needs an RHS generated with jacobian=True")
     if merge_runs is None:
         runs = tuple((m, m + 1) for m in range(M))
     else:
+        if solver == "expm":
+            raise ValueError("expm never merges (each capture costs a full propagation)")
         if lag is not None:
             raise ValueError("merge_runs is incompatible with lag planes")
         runs = tuple((int(a), int(b)) for a, b in merge_runs)
@@ -374,8 +392,10 @@ def psi_ode_plain(
 ):
     """Plain PyTorch twin of the fused ODE psi kernel (same arguments as
     :func:`psi_ode`), on ``[R, S]`` lanes. A ``counts`` dict receives the
-    number of step attempts over all cells (``"steps"``): the work this
-    data needs, for the kernel's bound."""
+    number of step attempts over all cells (``"steps"``) or, with
+    ``solver='expm'``, of exact propagations (``"passes"``) and of the
+    squarings they took (``"squarings"``): the work this data needs, for
+    the kernel's bound."""
     from ..engine.sim import as_components
 
     n_out, runs, ft = _check_inputs(
@@ -383,7 +403,8 @@ def psi_ode_plain(
         obs_cens, seg_t0, support, rhs, obs_outeq, out_coef, out_bias,
         bolus_inputs, rate_inputs, merge_runs, solver, cov_streams, cov_names,
         init_rows, init_planes, init_mask, lag_plane, fa_plane, lag_slots, fa_slots)
-    A, B, E, C = TABLEAUS[solver]
+    use_expm = solver == "expm"
+    A, B, E, C = TABLEAUS["dopri5" if use_expm else solver]
     dense_P = dense_P_for(solver)
     n_stages = len(C)
     N, nin = rhs.n_states, rhs.ninput
@@ -580,6 +601,87 @@ def psi_ode_plain(
             return xs_out, h_out, preds
         return xs_out, h_out, []
 
+    def integrate_expm(xs, h, dt_col, rate, t0_col, estimate_h, interior, cov):
+        """Exact propagation of an affine, autonomous RHS over one pass (JAX
+        ``integrate_expm``, ops/pallas_ode.py:1152): ``u = f(0)``, ``A`` by
+        forward-mode columns at 0, the Taylor-13 Horner chain on the scaled
+        block ``[[A, u], [0, 0]]`` in (P, q) form, then each lane's own count
+        of squarings (masked; the loop runs to the largest count, at most
+        16). Lanes past the squaring budget or non-finite are NaN; ``dt ==
+        0`` lanes are untouched."""
+        assert not interior, "expm never merges"
+        target = dt_col.expand(shape)
+        t_base = t0_col + zeros
+        zs = tuple(zeros for _ in range(N))
+        u = f(list(zs), t_base, rate, cov)
+        ones = torch.ones_like(zeros)
+        cols = []
+        for j in range(N):
+            tangent = tuple(ones if s == j else zeros for s in range(N))
+            _, jv = torch.func.jvp(
+                lambda *x: tuple(c + zeros for c in f(list(x), t_base, rate, cov)), zs, tangent)
+            cols.append(list(jv))
+        Adt = [[cols[j][i] * target for j in range(N)] for i in range(N)]
+        udt = [u[i] * target for i in range(N)]
+        norm = None
+        for i in range(N):
+            row = torch.abs(udt[i])
+            for j in range(N):
+                row = row + torch.abs(Adt[i][j])
+            norm = row if norm is None else torch.maximum(norm, row)
+        norm = torch.clamp(norm, min=1e-30)
+        s_cnt = torch.ceil(torch.clamp(torch.log2(norm), min=0.0))
+        sc = torch.exp2(-s_cnt)
+        As = [[Adt[i][j] * sc for j in range(N)] for i in range(N)]
+        us = [udt[i] * sc for i in range(N)]
+
+        def dot(a, b):
+            acc = a[0] * b[0]
+            for l in range(1, N):
+                acc = acc + a[l] * b[l]
+            return acc
+
+        def mm(X, Y):
+            return [[dot(X[i], [Y[l][j] for l in range(N)]) for j in range(N)]
+                    for i in range(N)]
+
+        def mv(X, v):
+            return [dot(X[i], v) for i in range(N)]
+
+        inv_d = 1.0 / float(_EXPM_TAYLOR)
+        P = [[As[i][j] * inv_d + (1.0 if i == j else 0.0) for j in range(N)]
+             for i in range(N)]
+        q = [us[i] * inv_d for i in range(N)]
+        for d in range(_EXPM_TAYLOR - 1, 0, -1):
+            inv = 1.0 / float(d)
+            AP, Aq = mm(As, P), mv(As, q)
+            P = [[AP[i][j] * inv + (1.0 if i == j else 0.0) for j in range(N)]
+                 for i in range(N)]
+            q = [(Aq[i] + us[i]) * inv for i in range(N)]
+        live = target > 0.0
+        counted = torch.where(live & torch.isfinite(s_cnt), s_cnt, zeros)
+        n_sq = int(min(float(counted.max()), float(_EXPM_SQUARINGS))) if counted.numel() else 0
+        if counts is not None:
+            counts["passes"] = counts.get("passes", 0) + int(live.sum())
+            counts["squarings"] = counts.get("squarings", 0) + int(
+                torch.clamp(counted, max=float(_EXPM_SQUARINGS)).sum())
+        for it_sq in range(n_sq):
+            on = s_cnt > float(it_sq)
+            PP, Pq = mm(P, P), mv(P, q)
+            P = [[torch.where(on, PP[i][j], P[i][j]) for j in range(N)] for i in range(N)]
+            q = [torch.where(on, Pq[i] + q[i], q[i]) for i in range(N)]
+        Px = mv(P, list(xs))
+        xs_new = [Px[i] + q[i] for i in range(N)]
+        bad = ~(s_cnt <= float(_EXPM_SQUARINGS))
+        for i in range(N):
+            bad = bad | ~torch.isfinite(xs_new[i])
+        xs_out = [torch.where(live, torch.where(bad, nan, xn), x)
+                  for xn, x in zip(xs_new, xs)]
+        return xs_out, h, []
+
+    if use_expm:
+        integrate = integrate_expm  # noqa: F811 (the pass of this solver)
+
     if ft.init_mask is not None:
         im = ft.init_mask.reshape(R, 1)
         if ft.init_planes is not None:
@@ -678,8 +780,10 @@ def psi_ode(
     lag_plane=None, fa_plane=None, lag_slots=None, fa_slots=None,
 ):
     """Fused ODE psi [R, S]: the counterpart of the JAX package's
-    ``ops/pallas_ode.py::psi_ode``, explicit tier (dopri5, tsit5) and its
-    feature tier.
+    ``ops/pallas_ode.py::psi_ode``, explicit tier (dopri5, tsit5), exact
+    propagation tier (``solver='expm'``: an RHS affine in the state and
+    autonomous within a segment, generated with ``jacobian=True``; never
+    merged) and their feature tier.
 
     ``rhs`` is the :class:`~.rhs_codegen.GeneratedRhs` of the model.
     ``seg_rateiv``, ``obs_cens`` and ``out_bias`` are None when the workload
@@ -697,11 +801,11 @@ def psi_ode(
     ``fa_slots`` select per segment. Lag does not combine with merged runs.
 
     On a CUDA tensor this launches ``csrc/fused_ode.cu`` (one thread per
-    (row, support) cell): kernel K2a without features, K2e with any, and
-    raises if the build or the launch fails; on a CPU tensor it runs
+    (row, support) cell): kernel K2a without features, K2e with any, K2d
+    with ``solver='expm'``, and raises if the build or the launch fails; on a CPU tensor it runs
     :func:`psi_ode_plain`.
     """
-    global LAUNCHES, FEATURE_LAUNCHES
+    global LAUNCHES, FEATURE_LAUNCHES, EXPM_LAUNCHES
     args = (seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
             obs_cens, seg_t0, support, rhs)
     feat_kw = dict(cov_streams=cov_streams, cov_names=tuple(cov_names),
@@ -735,7 +839,9 @@ def psi_ode(
             f"fused ODE psi kernel launch failed (R={R}, S={S}, M={M}): "
             f"{lib.fused_ode_error_string(err).decode()}"
         )
-    if ft.any:
+    if solver == "expm":
+        EXPM_LAUNCHES += 1
+    elif ft.any:
         FEATURE_LAUNCHES += 1
     else:
         LAUNCHES += 1
@@ -778,7 +884,9 @@ def _launch(lib, stream: int, args, kw, n_out: int, runs, ft: Features):
         feat_ptrs = (ctypes.c_void_p * 7)(*(_ptr(t) for t in (
             cov_a, cov_b, lag, fa, ft.init_rows, ft.init_planes, ft.init_mask)))
     ints = torch.tensor(table, dtype=torch.int32, device=dev)
-    dense = torch.tensor(dense_P_for(kw["solver"]), dtype=seg_dt.dtype, device=dev)
+    # the quartic interpolant of the explicit pairs (expm has none: unread)
+    dense = torch.tensor(dense_P_for(kw["solver"]) or dense_P_for("dopri5"),
+                         dtype=seg_dt.dtype, device=dev)
     base = (_ptr(seg_dt), _ptr(seg_bolus), _ptr(seg_rateiv),
             _ptr(obs_mask), _ptr(obs_value), _ptr(obs_sigma), _ptr(obs_cens),
             _ptr(kw["obs_outeq"] if n_out > 1 else None), _ptr(seg_t0),
@@ -796,3 +904,38 @@ def _launch(lib, stream: int, args, kw, n_out: int, runs, ft: Features):
             _ptr(out), *dims, len(ft.lag or ()), len(ft.fa or ()), *tols,
             int(kw["max_steps"]), ctypes.c_void_p(stream))
     return out, err
+
+
+def rhs_jvp_on_device(rhs, x, p, t, rate, v, cov_a=None, cov_b=None):
+    """The generated ``rhs`` and ``rhs_jvp`` of ``rhs`` (generated with
+    ``jacobian=True``) as the kernel's library computes them, on n samples:
+    ``x``, ``v`` [n, N], ``p`` [n, n_params], ``t`` [n], ``rate`` [n, ninput],
+    ``cov_a``/``cov_b`` [n, n_cov] CUDA tensors of one dtype. Returns ``(f,
+    jv)`` [n, N]: what :func:`psi_ode`'s kernel evaluates, for checks against
+    ``torch.func.jvp`` of the closure."""
+    from ._build import ODE, load_generated_library
+
+    if not rhs.jacobian:
+        raise ValueError("the RHS was generated without jacobian=True")
+    n, dev, dtype = x.shape[0], x.device, x.dtype
+    if dev.type != "cuda":
+        raise ValueError("rhs_jvp_on_device needs CUDA tensors")
+    ncov = max(len(rhs.cov_names), 1)
+    if cov_a is None:
+        cov_a = torch.zeros((n, ncov), dtype=dtype, device=dev)
+    if cov_b is None:
+        cov_b = torch.zeros_like(cov_a)
+    ins = [a.to(dtype).contiguous() for a in (x, p, t, rate, cov_a, cov_b, v)]
+    for a, width in zip(ins, (rhs.n_states, rhs.n_params, None, rhs.ninput, ncov, ncov,
+                              rhs.n_states)):
+        if a.shape[0] != n or (width is not None and tuple(a.shape[1:]) != (width,)):
+            raise ValueError(f"sample arrays must be [n, width]; got {tuple(a.shape)}")
+    f, jv = torch.empty_like(ins[0]), torch.empty_like(ins[0])
+    lib = load_generated_library(ODE, rhs)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_ode_jvp_probe(int(dtype == torch.float64), n, *(_ptr(a) for a in ins),
+                                      _ptr(f), _ptr(jv), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"rhs_jvp probe failed: {lib.fused_ode_error_string(err).decode()}")
+    return f, jv

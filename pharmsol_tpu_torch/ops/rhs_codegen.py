@@ -38,6 +38,24 @@ mode ``affine`` is affine within the segment, ``cov(t) = cov_a[i] +
 cov_b[i] * t`` at the time the closure passes, so a read at a shifted time
 is exact too. The SDE generator still rejects covariate reads.
 
+Jacobian columns (``generate_rhs(..., jacobian=True)``): the implicit and
+exact tiers of the kernel need ``df/dx``, which the JAX kernel takes by
+``jax.jvp`` of the lane closure. Here the recorded graph is differentiated
+symbolically in forward mode with respect to the state (:func:`tangents`,
+one rule per operation in ``_JVP_RULES``), and the header gains a second
+function
+
+    template <typename T>
+    __device__ __forceinline__ void rhs_jvp(const T* x, const T* p, T t,
+                                            const T* b, const T* rateiv,
+                                            const T* cov_a, const T* cov_b,
+                                            const T* v, T* jv);
+
+with ``jv = (df/dx)(x) v`` and the macro ``PHARMSOL_RHS_HAS_JVP``. Nothing is
+differenced. An operation without a rule raises PharmsolError with the
+reason. The flag is part of the header, so of its key and of the library's
+name: a model's explicit-tier library is the same with or without it.
+
 After tracing, the recorded graph is evaluated in float64 on random inputs
 and held against the closure itself, so a closure that behaves differently
 under tracing is rejected too. Nothing here needs a compiler or a card.
@@ -66,6 +84,7 @@ class GeneratedRhs(NamedTuple):
     key: str  # content hash of ``source``
     cov_names: tuple = ()  # the covariates of cov_a / cov_b, in order
     cov_modes: tuple = ()  # "const" or "affine" per covariate
+    jacobian: bool = False  # the header also holds rhs_jvp
 
 
 class GeneratedSde(NamedTuple):
@@ -489,6 +508,134 @@ def evaluate(outputs: List[Sym], **leaves) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(*[get(o) for o in outputs]), dim=-1)
 
 
+# -- forward-mode tangents of the traced graph ---------------------------------
+#
+# A tangent is a Sym, or None for an exact zero (parameters, time, rates,
+# covariates and constants carry none), so an affine RHS differentiates to
+# a handful of operations.
+
+
+def _t_add(a, b):
+    if a is None:
+        return b
+    return a if b is None else Sym("add", (a, b))
+
+
+def _t_sub(a, b):
+    if b is None:
+        return a
+    return Sym("neg", (b,)) if a is None else Sym("sub", (a, b))
+
+
+def _t_scale(t, factor):
+    return None if t is None else Sym("mul", (t, factor))
+
+
+def _jvp_mul(node, a, b, da, db):
+    return _t_add(_t_scale(da, b), _t_scale(db, a))
+
+
+def _jvp_div(node, a, b, da, db):
+    # d(a / b) = da / b - (a / b) * db / b
+    first = None if da is None else Sym("div", (da, b))
+    second = None if db is None else Sym("div", (Sym("mul", (node, db)), b))
+    return _t_sub(first, second)
+
+
+def _jvp_pow(node, a, b, da, db):
+    if db is not None:
+        raise PharmsolError(
+            "`**` with an exponent that depends on the state has no "
+            "derivative rule (it needs log of the base, undefined at the "
+            "zero state the Jacobian is taken at)"
+        )
+    if da is None:
+        return None
+    if b.op == "const":
+        e = b.value
+        if e == 1.0:
+            return da
+        if e == 2.0:
+            return Sym("mul", (Sym("mul", (_const(2.0), a)), da))
+        return Sym("mul", (Sym("mul", (b, Sym("pow", (a, _const(e - 1.0))))), da))
+    return Sym("mul", (Sym("mul", (b, Sym("pow", (a, Sym("sub", (b, _const(1.0))))))), da))
+
+
+def _jvp_abs(node, a, da):
+    if da is None:
+        return None
+    zero = _const(0.0)
+    neg = Sym("where", (Sym("lt", (a, zero), is_bool=True), Sym("neg", (da,)), zero))
+    return Sym("where", (Sym("gt", (a, zero), is_bool=True), da, neg))
+
+
+def _jvp_minmax(node, a, b, da, db):
+    # the tangent of the operand the result takes; at a tie the mean of the
+    # two, as torch's derivative
+    if da is None and db is None:
+        return None
+    zero = _const(0.0)
+    ta = zero if da is None else da
+    tb = zero if db is None else db
+    first, second = (a, b) if node.op == "min" else (b, a)
+    tie = Sym("mul", (_const(0.5), Sym("add", (ta, tb))))
+    return Sym("where", (Sym("lt", (first, second), is_bool=True), ta,
+                         Sym("where", (Sym("lt", (second, first), is_bool=True), tb, tie))))
+
+
+def _jvp_where(node, c, a, b, da, db):
+    if da is None and db is None:
+        return None
+    zero = _const(0.0)
+    return Sym("where", (c, zero if da is None else da, zero if db is None else db))
+
+
+# operation -> rule(node, *operands, *operand tangents) -> tangent or None
+_JVP_RULES = {
+    "add": lambda node, a, b, da, db: _t_add(da, db),
+    "sub": lambda node, a, b, da, db: _t_sub(da, db),
+    "mul": _jvp_mul,
+    "div": _jvp_div,
+    "pow": _jvp_pow,
+    "neg": lambda node, a, da: None if da is None else Sym("neg", (da,)),
+    "exp": lambda node, a, da: _t_scale(da, node),
+    "log": lambda node, a, da: None if da is None else Sym("div", (da, a)),
+    "sqrt": lambda node, a, da: (None if da is None else
+                                 Sym("div", (da, Sym("mul", (_const(2.0), node))))),
+    "abs": _jvp_abs,
+    "min": _jvp_minmax,
+    "max": _jvp_minmax,
+    "where": _jvp_where,
+    "cast": lambda node, a, da: None,  # a comparison's value is piecewise constant
+}
+
+
+def tangents(outputs: List[Sym], wrt: str = "x", seed: str = "v") -> List[Sym]:
+    """Forward-mode tangents of ``outputs`` with respect to the leaf vector
+    ``wrt``: Syms computing ``(d outputs / d wrt) @ seed`` from the leaves
+    and the new leaf vector ``seed``. Raises PharmsolError naming an
+    operation that has no derivative rule."""
+    tan = {}
+
+    def get(node):
+        if node.op == wrt:
+            return Sym(seed, value=node.value)
+        return tan.get(id(node))
+
+    for node in _topo(outputs):
+        if node.is_bool:
+            continue
+        rule = _JVP_RULES.get(node.op)
+        if rule is None:
+            raise PharmsolError(f"`{node.op}` has no derivative rule in the CUDA generator")
+        ops = node.args
+        if node.op == "where":
+            tan[id(node)] = rule(node, *ops, get(ops[1]), get(ops[2]))
+        else:
+            tan[id(node)] = rule(node, *ops, *[get(a) for a in ops])
+    return [_const(0.0) if get(o) is None else get(o) for o in outputs]
+
+
 def _literal(v: float) -> str:
     if math.isnan(v):
         return "T(NAN)"
@@ -589,13 +736,16 @@ def _emit_function(outputs: List[Sym], name: str, args, out_name: str) -> str:
     )
 
 
-def _header(what: str, n_states, n_params, ninput, functions, covs=None) -> str:
+def _header(what: str, n_states, n_params, ninput, functions, covs=None,
+            jacobian: bool = False) -> str:
     cov_lines = ""
     if covs is not None:
         names, modes = covs
         listed = ", ".join(f"{n} ({m})" for n, m in zip(names, modes)) or "none"
         cov_lines = (f"// covariates, in cov_a/cov_b order: {listed}\n"
                      f"#define PHARMSOL_RHS_NCOV {len(names)}\n")
+    if jacobian:
+        cov_lines += "#define PHARMSOL_RHS_HAS_JVP 1\n"
     return (
         "// Generated by pharmsol_tpu_torch/ops/rhs_codegen.py from a model's\n"
         f"// torch {what}: do not edit.\n"
@@ -653,12 +803,14 @@ def _traced(fn, args, n_out: int, what: str, family: str, covs=None) -> List[Sym
 
 
 def generate_rhs(diffeq: Callable, n_states: int, n_params: int,
-                 ninput: int, cov_names=(), cov_modes=None) -> GeneratedRhs:
+                 ninput: int, cov_names=(), cov_modes=None,
+                 jacobian: bool = False) -> GeneratedRhs:
     """Trace ``diffeq`` and emit its CUDA header; raises PharmsolError with
     the reason when the closure uses something the generator cannot
     express. ``cov_names`` are the covariates the closure may read, in the
     kernel's order, ``cov_modes`` their modes (``const`` or ``affine``;
-    default all ``const``)."""
+    default all ``const``). ``jacobian`` adds ``rhs_jvp`` (the state
+    Jacobian times a vector, by symbolic forward mode) to the header."""
     ninput = max(int(ninput), 1)
     cov_names = tuple(str(n) for n in cov_names)
     cov_modes = tuple(cov_modes) if cov_modes is not None else ("const",) * len(cov_names)
@@ -669,11 +821,19 @@ def generate_rhs(diffeq: Callable, n_states: int, n_params: int,
     args = _sizes(_ODE_ARGS, n_states, n_params, ninput)
     outputs = _traced(diffeq, args, n_states, "RHS", "ODE", covs)
     c_args = args + (("cov_a", len(cov_names)), ("cov_b", len(cov_names)))
-    source = _header("RHS closure", n_states, n_params, ninput,
-                     [_emit_function(outputs, "rhs", c_args, "dx")], covs)
+    functions = [_emit_function(outputs, "rhs", c_args, "dx")]
+    if jacobian:
+        try:
+            jv = tangents(outputs)
+        except PharmsolError as e:
+            raise PharmsolError(
+                f"the ODE RHS has no Jacobian in the CUDA kernel: {e}") from None
+        functions.append(_emit_function(jv, "rhs_jvp", c_args + (("v", n_states),), "jv"))
+    source = _header("RHS closure", n_states, n_params, ninput, functions, covs,
+                     jacobian)
     key = hashlib.sha256(source.encode()).hexdigest()[:16]
     return GeneratedRhs(diffeq, int(n_states), int(n_params), ninput, source, key,
-                        cov_names, cov_modes)
+                        cov_names, cov_modes, bool(jacobian))
 
 
 def generate_sde(drift: Callable, diffusion: Callable, n_states: int,

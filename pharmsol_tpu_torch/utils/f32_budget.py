@@ -50,8 +50,12 @@ F32_BUDGET: Dict[str, float] = {
     # covariate through per-segment affine streams
     "ode_lag_fa": 2e-4,
     "ode_tv_covariate": 2e-4,
+    # exact propagation (JAX package :62): no controller, so float32 error is
+    # the chain's own rounding
+    "ode_expm": 5e-5,
 }
-ODE_CASES = ("ode_dopri5", "ode_multi_input", "ode_lag_fa", "ode_tv_covariate")
+ODE_CASES = ("ode_dopri5", "ode_multi_input", "ode_lag_fa", "ode_tv_covariate",
+             "ode_expm")
 
 NOMINAL: Dict[str, List[float]] = {
     "one_compartment": [0.2],
@@ -121,7 +125,7 @@ def kernel_case(name: str):
     return model, Data(subjects), support, ems
 
 
-def ode_case(name: str):
+def ode_case(name: str, lib=None, stack=None):
     """The budget's ODE case ``name``: (model, data, support, ems), the JAX
     package's ``_ode_case`` / ``_ode_multi_input_case`` / ``_ode_lag_fa_case``
     / ``_ode_tv_cov_case`` on the same seeds.
@@ -132,15 +136,29 @@ def ode_case(name: str):
     bolus into each, an infusion into input 1), 6 observations.
     ``ode_lag_fa``: a 2-state oral RHS with lag and fa, two boluses.
     ``ode_tv_covariate``: a 1-state RHS whose elimination follows a weight
-    with three knots on observation times.
+    with three knots on observation times. ``ode_expm``: the ``ode_dopri5``
+    case with ``.with_solver("expm")``, the exact propagation tier (JAX
+    ``_ode_expm_case``).
+
+    Built with ``lib`` (default this package) and ``stack`` (default
+    ``torch.stack``): ``lib=pharmsol_tpu, stack=jnp.stack`` gives the JAX
+    package's model on the same data.
     """
     import numpy as np
-    import torch
 
-    from ..data.error_model import AssayErrorModel, AssayErrorModels, ErrorPoly
-    from ..data.event import Censor
-    from ..data.structs import Data, Subject
-    from ..models.equation import ODE
+    if lib is None:
+        import pharmsol_tpu_torch as lib
+    if stack is None:
+        import torch
+
+        stack = torch.stack
+    AssayErrorModel, AssayErrorModels, ErrorPoly = (
+        lib.AssayErrorModel, lib.AssayErrorModels, lib.ErrorPoly)
+    Censor, Data, Subject, ODE = lib.Censor, lib.Data, lib.Subject, lib.ODE
+
+    if name == "ode_expm":
+        model, data, support, ems = ode_case("ode_dopri5", lib, stack)
+        return model.with_solver("expm"), data, support, ems
 
     ems = AssayErrorModels().add(
         0, AssayErrorModel.additive(ErrorPoly(0.4, 0.1), 1.0))
@@ -156,7 +174,7 @@ def ode_case(name: str):
             b = b.censored_observation(0.25, 8.0, 0, Censor.ALOQ)
             subjects.append(b.build())
         model = ODE(
-            lambda x, p, t, b, rateiv, cov: torch.stack([
+            lambda x, p, t, b, rateiv, cov: stack([
                 -p[0] * x[0] + b[0],
                 p[0] * x[0] - p[1] * x[1] + rateiv[0],
             ]),
@@ -176,7 +194,7 @@ def ode_case(name: str):
                 b = b.observation(float(t), float(np.abs(3 + rng.randn())), 0)
             subjects.append(b.build())
         model = ODE(
-            lambda x, p, t, b, rateiv, cov: torch.stack([
+            lambda x, p, t, b, rateiv, cov: stack([
                 -p[0] * x[0] + b[0] + rateiv[1],
                 -p[1] * x[1] + b[1],
                 p[0] * x[0] + p[1] * x[1] - p[2] * x[2] + rateiv[0],
@@ -199,7 +217,7 @@ def ode_case(name: str):
                 b = b.observation(float(t), float(np.abs(3 + rng.randn())), 0)
             subjects.append(b.build())
         model = ODE(
-            lambda x, p, t, b, rateiv, cov: torch.stack([
+            lambda x, p, t, b, rateiv, cov: stack([
                 -p[0] * x[0] + b[0],
                 p[0] * x[0] - p[1] * x[1],
             ]),
@@ -226,7 +244,7 @@ def ode_case(name: str):
                 b = b.observation(float(t), float(np.abs(3 + rng.randn())), 0)
             subjects.append(b.build())
         model = ODE(
-            lambda x, p, t, b, rateiv, cov: torch.stack([
+            lambda x, p, t, b, rateiv, cov: stack([
                 -p[0] * (cov("wt", t) / 70.0) * x[0] + b[0],
             ]),
             out=lambda x, p, t, cov: x[0:1] / p[1],
@@ -634,3 +652,184 @@ def covariate_model_case(n_subjects: int, n_support: int, seed: int = 0, lib=Non
     ems = lib.AssayErrorModels().add(
         0, lib.AssayErrorModel.additive(lib.ErrorPoly(0.1, 0.1), 1.0))
     return model, lib.Data(subjects), sp, ems
+
+
+# ---------------------------------------------------------------------------
+# Kernel K2d's cases: linear ODE models with ``.with_solver("expm")``
+# ---------------------------------------------------------------------------
+
+
+def _rhs_transit(stack):
+    # examples/expm_linear_ode.py: transit1 -> transit2 -> central <->
+    # {periph1, periph2}; p = ktr, ke, k13, k31, k14, k41, v
+    return lambda x, p, t, b, r, cov: stack([
+        -p[0] * x[0] + b[0],
+        p[0] * x[0] - p[0] * x[1],
+        p[0] * x[1] - (p[1] + p[2] + p[4]) * x[2] + p[3] * x[3] + p[5] * x[4] + r[0],
+        p[2] * x[2] - p[3] * x[3],
+        p[4] * x[2] - p[5] * x[4],
+    ])
+
+
+def _rhs_short(stack):
+    # 2-cmt oral as an ODE; p = ke, ka, kcp, kpc, v, the closed form's order
+    return lambda x, p, t, b, r, cov: stack([
+        -p[1] * x[0] + b[0],
+        p[1] * x[0] - (p[0] + p[2]) * x[1] + p[3] * x[2] + r[0],
+        p[2] * x[1] - p[3] * x[2],
+    ])
+
+
+def _rhs_step(stack):
+    # elimination switched by a carried-forward covariate
+    return lambda x, p, t, b, r, cov: stack([
+        -p[0] * x[0] + b[0],
+        p[0] * x[0] - p[1] * (1.0 + 0.5 * cov("phase", t)) * x[1],
+    ])
+
+
+TRANSIT_CENTRE = (2.0, 0.12, 0.25, 0.15, 0.08, 0.05, 15.0)
+SHORT_CENTRE = (0.15, 1.2, 0.3, 0.2, 10.0)
+
+# name: what the case holds (the models of the JAX package's
+# tests/test_pallas_ode.py:189-292, tests/test_solvers.py:101 and
+# examples/expm_linear_ode.py)
+EXPM_CASES = {
+    "two_cmt": "2-state oral, a bolus and an infusion on every third subject",
+    "short": "2-cmt oral as a 3-state ODE, a bolus and an infusion",
+    "transit": "5-state transit chain and mammillary model, a bolus and an infusion",
+    "lag_fa": "2-state oral with lag and fa, two boluses",
+    "step_covariate": "2-state oral, elimination switched by a carried-forward covariate",
+    "init_two_outputs": "2-state oral with an initial state and two outputs",
+    "poison": "two_cmt with a last segment whose scaled norm passes 2^16 on every "
+              "other subject: those rows are -inf",
+}
+
+
+def expm_case(name: str, n_subjects: int = 6, n_support: int = 12, seed: int = 0,
+              lib=None, stack=None):
+    """K2d's case ``name`` (see ``EXPM_CASES``): (model, data, support, ems)
+    with ``.with_solver("expm")``, built with ``lib`` (default this package)
+    and ``stack`` (default ``torch.stack``)."""
+    import numpy as np
+
+    if lib is None:
+        import pharmsol_tpu_torch as lib
+    if stack is None:
+        import torch
+
+        stack = torch.stack
+    rng = np.random.RandomState(seed)
+    S = n_support
+    ems = lib.AssayErrorModels().add(
+        0, lib.AssayErrorModel.additive(lib.ErrorPoly(0.5, 0.1), 1.0))
+    oral = [rng.uniform(lo, hi, S) for lo, hi in (_KA, _KE, _V)]
+    closures, nstates, nout, central, vol = {}, 2, 1, 1, 2
+    rhs, sp = _rhs_oral, np.column_stack(oral)
+    if name == "short":
+        rhs, nstates, vol = _rhs_short, 3, 4
+        sp = np.abs(np.asarray(SHORT_CENTRE)[None, :] * (1.0 + 0.2 * rng.randn(S, 5)))
+    elif name == "transit":
+        rhs, nstates, central, vol = _rhs_transit, 5, 2, 6
+        sp = np.abs(np.asarray(TRANSIT_CENTRE)[None, :] * (1.0 + 0.2 * rng.randn(S, 7)))
+    elif name == "lag_fa":
+        closures = dict(lag=lambda p, t, cov: {0: p[3]}, fa=lambda p, t, cov: {0: p[4]})
+        sp = np.column_stack(oral + [rng.uniform(0.0, 1.5, S), rng.uniform(0.3, 1.0, S)])
+    elif name == "step_covariate":
+        rhs = _rhs_step
+    elif name == "init_two_outputs":
+        closures = dict(init=lambda p, t, cov: [0.0, p[3]])
+        sp = np.column_stack(oral + [rng.uniform(0.0, 10.0, S)])
+        nout = 2
+        ems = ems.add(1, lib.AssayErrorModel.additive(lib.ErrorPoly(1.0, 0.05), 1.0))
+    elif name not in ("two_cmt", "poison"):
+        raise KeyError(name)
+    subjects = []
+    for i in range(n_subjects):
+        b = lib.Subject.builder(f"e{i}").bolus(0.0, 100.0, 0)
+        if name in ("two_cmt", "poison") and i % 3 == 0:
+            b = b.infusion(2.0, 50.0, 0, 1.0)
+        if name in ("short", "transit"):
+            b = b.infusion(6.0, 50.0, 0, 2.0)
+        if name == "lag_fa":
+            b = b.bolus(6.0, 80.0, 0)
+        if name == "step_covariate":
+            b = b.covariate("phase!", 0.0, 0.0).covariate("phase!", 3.0, float(i % 3))
+        times = {"transit": (0.5, 1.0, 2.0, 4.0, 8.0, 12.0, 24.0),
+                 "short": (0.5, 2.0, 4.0, 7.0, 8.0, 12.0),
+                 "lag_fa": (0.5, 1.0, 2.0, 4.0, 7.0, 10.0),
+                 "step_covariate": (1.0, 3.0, 5.0, 9.0),
+                 "init_two_outputs": (0.5, 2.0, 6.0)}.get(name, (0.5, 1.0, 2.0, 4.0, 8.0))
+        for t in times:
+            b = b.observation(t, float(3.0 * np.exp(-0.2 * t) * np.exp(0.2 * rng.randn())), 0)
+            if nout == 2:
+                b = b.observation(t + 0.25, float(30.0 * np.exp(-0.9 * t)
+                                                  * np.exp(0.2 * rng.randn())), 1)
+        if name == "poison" and i % 2 == 1:
+            b = b.observation(3.0e5, 0.1, 0)
+        subjects.append(b.build())
+    if nout == 2:
+        out = lambda x, p, t, cov: stack([x[1] / p[2], x[0]])  # noqa: E731
+    else:
+        out = lambda x, p, t, cov, c=central, v=vol: x[c:c + 1] / p[v]  # noqa: E731
+    model = lib.ODE(rhs(stack), out=out, nstates=nstates, ndrugs=1, nout=nout,
+                    **closures).with_solver("expm")
+    return model, lib.Data(subjects), sp, ems
+
+
+def population_10k_case(n_subjects: int = 10000, seed: int = 7, lib=None):
+    """The data of the JAX package's population fit
+    (``benches/population_10k.py --fit``) rebuilt from numpy alone, in the
+    same draw order from ``RandomState(seed)``: a bimodal 1-compartment oral
+    population (ke around 0.08 or 0.35, ka around 1.2, v around 30), 100 mg
+    at 0, 9 observations over 12 h with 10% proportional and 0.05 additive
+    noise, and the proportional error model the fit uses. Returns (data,
+    ems, seconds to build the subjects); the models of the fit are
+    :func:`population_models`."""
+    import time
+
+    import numpy as np
+
+    if lib is None:
+        import pharmsol_tpu_torch as lib
+    N = n_subjects
+    rng = np.random.RandomState(seed)
+    ke = np.where(rng.rand(N) < 0.5, 0.08, 0.35) * np.exp(0.1 * rng.randn(N))
+    ka = 1.2 * np.exp(0.1 * rng.randn(N))
+    v = 30.0 * np.exp(0.15 * rng.randn(N))
+    times = np.array([0.5, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 10.0, 12.0])
+    ka_, ke_, v_, t_ = ka[:, None], ke[:, None], v[:, None], times[None, :]
+    conc = 100.0 * ka_ / (ka_ - ke_) * (np.exp(-ke_ * t_) - np.exp(-ka_ * t_)) / v_
+    noisy = np.abs(conc * (1.0 + 0.1 * rng.randn(N, len(times)))
+                   + 0.05 * rng.randn(N, len(times)))
+    t0 = time.perf_counter()
+    subjects = []
+    for i in range(N):
+        b = lib.Subject.builder(f"s{i}").bolus(0.0, 100.0, 0)
+        for j, t in enumerate(times):
+            b = b.observation(float(t), float(noisy[i, j]), 0)
+        subjects.append(b.build())
+    data = lib.Data(subjects)
+    ems = lib.AssayErrorModels().add(
+        0, lib.AssayErrorModel.proportional(lib.ErrorPoly(0.1, 0.1), 1.0))
+    return data, ems, time.perf_counter() - t0
+
+
+POPULATION_RANGES = [(0.3, 4.0), (0.03, 0.8), (8.0, 90.0)]  # ka, ke, v
+
+
+def population_models(lib=None, stack=None):
+    """(closed form, linear ODE with ``expm``) of the population fit: the
+    1-compartment oral model with p = ka, ke, v, once as the closed-form
+    kernel and once written as an ODE."""
+    if lib is None:
+        import pharmsol_tpu_torch as lib
+    if stack is None:
+        import torch
+
+        stack = torch.stack
+    out = lambda x, p, t, cov: x[1:2] / p[2]  # noqa: E731
+    closed = lib.Analytical(lib.one_compartment_with_absorption, out=out,
+                            nstates=2, ndrugs=1, nout=1)
+    ode = lib.ODE(_rhs_oral(stack), out=out, nstates=2, ndrugs=1, nout=1).with_solver("expm")
+    return closed, ode

@@ -17,9 +17,10 @@ from pharmsol_tpu_torch.ops.fused_psi import (
     STRUCTURES, psi_analytical, psi_analytical_plain,
 )
 from pharmsol_tpu_torch.utils.f32_budget import (
-    F32_BUDGET, FEATURE_BUDGETS, FEATURE_CASES, ODE_CASES, ODE_FEATURE_CASES,
-    covariate_model_case, f32_error, feature_budget_case, feature_case, kernel_case,
-    ode_case, ode_feature_case,
+    EXPM_CASES, F32_BUDGET, FEATURE_BUDGETS, FEATURE_CASES, ODE_CASES, ODE_FEATURE_CASES,
+    POPULATION_RANGES, covariate_model_case, expm_case, f32_error, feature_budget_case,
+    feature_case, kernel_case, ode_case, ode_feature_case, population_10k_case,
+    population_models,
 )
 
 pytestmark = pytest.mark.cuda
@@ -140,7 +141,7 @@ def _ode_run(plan, fn, merge=True):
 
 @pytest.mark.parametrize("merge", [True, False])
 @pytest.mark.parametrize("solver", ["dopri5", "tsit5"])
-@pytest.mark.parametrize("name", list(ODE_CASES))
+@pytest.mark.parametrize("name", [n for n in ODE_CASES if n != "ode_expm"])
 def test_ode_kernel_matches_twin_float64(cuda, name, solver, merge):
     plan = _ode_plan(name, torch.float64, cuda, solver)
     # K2a, or K2e for the cases with lag, fa or a covariate
@@ -154,7 +155,7 @@ def test_ode_kernel_matches_twin_float64(cuda, name, solver, merge):
     assert float(rel) <= 1e-8
 
 
-@pytest.mark.parametrize("name", list(ODE_CASES))
+@pytest.mark.parametrize("name", [n for n in ODE_CASES if n != "ode_expm"])
 def test_ode_kernel_float32_within_budget(cuda, name):
     golden = _ode_run(_ode_plan(name, torch.float64, cuda), fused_ode.psi_ode_plain)
     got = _ode_run(_ode_plan(name, torch.float32, cuda), fused_ode.psi_ode)
@@ -367,3 +368,112 @@ def test_general_engine_on_the_card_takes_closures_with_constants(cuda, family):
     want = pt.log_likelihood_matrix(model, data, sp, ems, engine="general", device="cpu")
     assert psi.device.type == "cuda"
     np.testing.assert_allclose(psi.cpu().numpy(), want.numpy(), rtol=1e-9, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# K2d (linear ODE models with expm) and the population fit
+# ---------------------------------------------------------------------------
+
+
+def _expm_plan(name, dtype, device):
+    model, data, sp, ems = ode_case(name) if name == "ode_expm" else expm_case(
+        name, 9, 20, seed=17)
+    grid = model.lower(data.subjects())
+    lowered = ems.lower(model.resolve_output_label, model.nouteqs())
+    return _FusedOdePsiPlan(model, grid, sp, lowered, device, dtype)
+
+
+@pytest.mark.parametrize("name", list(EXPM_CASES) + ["ode_expm"])
+def test_k2d_matches_twin(cuda, name):
+    """float64 within 1e-10 of the twin, float32 within the ``ode_expm`` row
+    of the float64 twin, the same lost cells, one K2d launch a call and no
+    K2a or K2e launch."""
+    plan = _expm_plan(name, torch.float64, cuda)
+    before = (fused_ode.LAUNCHES, fused_ode.FEATURE_LAUNCHES, fused_ode.EXPM_LAUNCHES)
+    got = _ode_run(plan, fused_ode.psi_ode)
+    got32 = _ode_run(_expm_plan(name, torch.float32, cuda), fused_ode.psi_ode)
+    torch.cuda.synchronize()
+    assert (fused_ode.LAUNCHES, fused_ode.FEATURE_LAUNCHES, fused_ode.EXPM_LAUNCHES) == (
+        before[0], before[1], before[2] + 2)
+    want = _ode_run(plan, fused_ode.psi_ode_plain)
+    lost = ~torch.isfinite(want)
+    assert bool(lost.any()) == (name == "poison")
+    assert torch.equal(~torch.isfinite(got), lost) and torch.equal(~torch.isfinite(got32), lost)
+    torch.testing.assert_close(got[~lost], want[~lost], rtol=1e-10, atol=0)
+    assert f32_error(got32[~lost].cpu().numpy(),
+                     want[~lost].cpu().numpy()) <= F32_BUDGET["ode_expm"]
+
+
+def test_k2d_entry_point_launches_once_and_matches_the_general_engine(cuda):
+    model, data, sp, ems = expm_case("transit", 12, 16, seed=4)
+    before = fused_ode.EXPM_LAUNCHES
+    psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
+    torch.cuda.synchronize()
+    assert fused_ode.EXPM_LAUNCHES == before + 1
+    assert pt.last_engine_decision(model)["engine"] == "fused"
+    want = pt.log_likelihood_matrix(model, data, sp, ems, engine="general", device="cpu")
+    np.testing.assert_allclose(psi.cpu().numpy(), want.numpy(), rtol=1e-9, atol=0)
+
+
+def test_nonlinear_rhs_with_expm_routes_auto_to_general(cuda):
+    model = pt.ODE(lambda x, p, t, b, r, cov: torch.stack([-p[0] * x[0] / (p[1] + x[0]) + b[0]]),
+                   out=lambda x, p, t, cov: x[0:1] / p[2], nstates=1, ndrugs=1,
+                   nout=1).with_solver("expm")
+    data = pt.Data([pt.Subject.builder("a").bolus(0.0, 100.0, 0)
+                    .observation(1.0, 5.0, 0).build()])
+    ems = pt.AssayErrorModels().add(
+        0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    before = fused_ode.EXPM_LAUNCHES
+    psi = pt.log_likelihood_matrix(model, data, np.array([[10.0, 15.0, 30.0]]), ems,
+                                   device="cuda")
+    decision = pt.last_engine_decision(model)
+    assert decision["engine"] == "general" and "AFFINE" in decision["reason"]
+    assert torch.isneginf(psi).all() and fused_ode.EXPM_LAUNCHES == before
+
+
+def test_rhs_jvp_on_the_card_matches_torch_func_jvp(cuda):
+    plan = _expm_plan("transit", torch.float64, cuda)
+    gen, n = plan.rhs, 512
+    rng = np.random.RandomState(2)
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=cuda)
+
+    x, v = dev(rng.randn(n, gen.n_states) * 20.0), dev(rng.randn(n, gen.n_states))
+    p, t = dev(rng.uniform(0.05, 3.0, (n, gen.n_params))), dev(rng.uniform(0.0, 24.0, n))
+    rate = dev(rng.uniform(0.0, 50.0, (n, gen.ninput)))
+    want_f, want_jv = torch.func.jvp(
+        lambda xs: gen.diffeq(xs, p.t(), t, torch.zeros_like(rate.t()), rate.t(), None),
+        (x.t().contiguous(),), (v.t().contiguous(),))
+    f, jv = fused_ode.rhs_jvp_on_device(gen, x, p, t, rate, v)
+    torch.testing.assert_close(f, want_f.t(), rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(jv, want_jv.t(), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("which", ["closed", "expm"])
+def test_small_fit_on_the_card_matches_the_cpu_fit(cuda, which):
+    """``fit_population`` with no device argument runs on the card (every
+    psi call one K1a or one K2d launch, the burn-in on the card from the
+    port's threshold) and lands where the CPU fit lands."""
+    from pharmsol_tpu_torch.optimize import weights
+    from pharmsol_tpu_torch.utils.profiling import reset_stages, stage_counts
+
+    data, ems, _ = population_10k_case(400)
+    closed, ode = population_models()
+    model = closed if which == "closed" else ode
+    kw = dict(ranges=POPULATION_RANGES, init_points=128, max_cycles=4)
+    reset_stages()
+    before = (fused_psi.LAUNCHES, fused_ode.EXPM_LAUNCHES)
+    assert pt.device().type == "cuda"  # the default: nothing here asked for the CPU
+    got = pt.optimize.fit_population(model, data, ems, **kw)
+    torch.cuda.synchronize()
+    stages = stage_counts()
+    calls = stages["npag/psi_device"][0]
+    launched = (fused_psi.LAUNCHES - before[0], fused_ode.EXPM_LAUNCHES - before[1])
+    assert launched == ((calls, 0) if which == "closed" else (0, calls))
+    assert 400 * 128 >= weights._DEVICE_MIN_CELLS and stages["npag/weights_device"][0] >= 1
+    want = pt.optimize.fit_population(model, data, ems, device="cpu", engine="general", **kw)
+    assert got.cycles == want.cycles
+    assert abs(got.log_likelihood - want.log_likelihood) <= 1e-6 * abs(want.log_likelihood)
+    fast = lambda fit: float(fit.weights[fit.support[:, 1] > 0.2].sum())  # noqa: E731
+    assert abs(fast(got) - fast(want)) <= 1e-3

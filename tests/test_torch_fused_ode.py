@@ -168,7 +168,7 @@ def test_twin_against_general_engine_on_budget_cases(name, merged):
     controller's error level (lag marches segment by segment)."""
     model, data, sp, ems = ode_case(name)
     plan = _plan(model, data, sp, ems)
-    assert (plan.merge_runs is None) == (name == "ode_lag_fa")
+    assert (plan.merge_runs is None) == (name in ("ode_lag_fa", "ode_expm"))
     got = plan.finalize(fused_ode.psi_ode(*plan.streams, plan.support, plan.rhs,
                                           **plan.kernel_kwargs(merged))).numpy()
     want = pt.log_likelihood_matrix(model, data, sp, ems, engine="general").numpy()

@@ -54,7 +54,9 @@ def test_package_import_loads_no_jax():
             "pharmsol_tpu_torch.likelihood.plans.ode, pharmsol_tpu_torch.convert, "
             "pharmsol_tpu_torch.ops.fused_sde, pharmsol_tpu_torch.ops.philox, "
             "pharmsol_tpu_torch.likelihood.plans.sde, pharmsol_tpu_torch.engine.sde, "
-            "pharmsol_tpu_torch.likelihood.plans.analytical; "
+            "pharmsol_tpu_torch.likelihood.plans.analytical, "
+            "pharmsol_tpu_torch.optimize.npag, pharmsol_tpu_torch.optimize.weights, "
+            "pharmsol_tpu_torch.parameters, pharmsol_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pharmsol_tpu', 'triton')]; "
             "assert not bad, bad")
@@ -180,5 +182,40 @@ def test_entry_points_default_to_the_card():
         "        assert 'cuda' in str(e), e\n"
         "    else:\n"
         "        raise AssertionError('ran on the CPU without being asked')\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=str(PKG.parent))
+
+
+def test_fit_population_defaults_to_the_card():
+    """``fit_population`` resolves its device like the entry point: the card
+    unless the caller asks for the CPU, so in a fresh interpreter on a
+    machine without one it raises instead of fitting on the CPU; it has the
+    JAX package's keywords plus ``device`` last."""
+    import inspect
+
+    names = list(inspect.signature(pt.optimize.fit_population).parameters)
+    assert names == ["equation", "data", "error_models", "ranges", "init_points", "max_cycles",
+                     "delta", "delta_min", "ll_tol", "weight_floor", "merge_tol", "max_support",
+                     "refine", "engine", "mesh", "progress", "device"]
+    assert pt.ParameterOptimizer is pt.optimize.ParameterOptimizer
+    assert pt.get_e2 is pt.optimize.get_e2 and pt.Parameters and pt.ParameterOrder and pt.dense
+    code = (
+        "import numpy as np, torch, pharmsol_tpu_torch as pt\n"
+        "m = pt.Analytical(pt.one_compartment, out=lambda x, p, t, cov: x[0:1] / p[1],\n"
+        "                  nstates=1, ndrugs=1, nout=1)\n"
+        "d = pt.Data([pt.Subject.builder('a').bolus(0.0, 100.0, 0)\n"
+        "             .observation(1.0, 5.0, 0).build()])\n"
+        "ems = pt.AssayErrorModels().add(\n"
+        "    0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))\n"
+        "kw = dict(ranges=[(0.05, 0.8), (5.0, 20.0)], init_points=8, max_cycles=1)\n"
+        "if not torch.cuda.is_available():\n"
+        "    try:\n"
+        "        pt.optimize.fit_population(m, d, ems, **kw)\n"
+        "    except pt.PharmsolError as e:\n"
+        "        assert 'cuda' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError('fitted on the CPU without being asked')\n"
+        "fit = pt.optimize.fit_population(m, d, ems, device='cpu', **kw)\n"
+        "assert np.isfinite(fit.log_likelihood)\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, cwd=str(PKG.parent))

@@ -120,8 +120,22 @@ def test_exhausted_step_budget_gives_neg_inf_in_both_packages():
 @pytest.mark.parametrize("solver", ["kvaerno5", "bdf", "expm", "trbdf2", "bogus"])
 def test_unsupported_solver_raises(solver):
     _, tm, sp, data = _models("bolus_infusion", "dopri5")
+    if solver == "expm":
+        # ported: the exact propagation runs, in every engine, and gives the
+        # JAX package's psi (michaelis_menten, not affine, is -inf in both)
+        for name in ("bolus_infusion", "michaelis_menten"):
+            jm, tm, sp, data = _models(name, "expm")
+            want = np.asarray(jax_psi(jm, data, sp, _ems(), engine="xla"))
+            got = pt.log_likelihood_matrix(tm, convert.data_from_reference(data), sp,
+                                           convert.error_models_from_reference(_ems()),
+                                           engine="general").numpy()
+            np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+            fin = np.isfinite(want)
+            assert fin.all() == (name == "bolus_infusion") and fin.any() == fin.all()
+            np.testing.assert_allclose(got[fin], want[fin], rtol=1e-10, atol=0)
+        return
     tm = tm.with_solver(solver)
-    match = "unknown ODE solver" if solver == "bogus" else "ROADMAP Queue 1 item 8"
+    match = "unknown ODE solver" if solver == "bogus" else "ROADMAP Queue 1 item 5"
     for engine in ("auto", "general", "fused"):
         with pytest.raises(PharmsolError, match=match if engine != "fused" else "solvers"):
             pt.log_likelihood_matrix(tm, convert.data_from_reference(data), sp,

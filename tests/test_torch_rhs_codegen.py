@@ -290,6 +290,135 @@ def test_generated_header_matches_the_closure(name, gxx, tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# Jacobian columns: rhs_jvp by symbolic forward mode
+# ---------------------------------------------------------------------------
+
+
+def _jvp_inputs(name, rng):
+    """Random inputs of one accepted closure and ``torch.func.jvp`` of it
+    with respect to the state: (x, p, t, b, r, ca, cb, v, f, jv)."""
+    fn, n, n_params, ninput, (names, modes) = ACCEPTED[name]
+    x, v = rng.uniform(0.2, 5.0, n), rng.uniform(-1.0, 1.0, n)
+    p = rng.uniform(0.1, 3.0, n_params)
+    b, r = rng.uniform(0.0, 2.0, ninput), rng.uniform(0.0, 2.0, ninput)
+    t = float(rng.uniform(0.0, 24.0))
+    ca = rng.uniform(20.0, 120.0, max(len(names), 1))
+    cb = rng.uniform(-2.0, 2.0, max(len(names), 1))
+
+    def cov(cname, at):
+        i = names.index(cname)
+        return (torch.tensor(ca[i]) if modes[i] == "const"
+                else torch.tensor(ca[i]) + torch.tensor(cb[i]) * at)
+
+    cov.value = cov
+
+    def closure(xs):
+        out = fn(xs, torch.as_tensor(p), torch.tensor(t, dtype=torch.float64),
+                 torch.as_tensor(b), torch.as_tensor(r), cov)
+        return out if isinstance(out, torch.Tensor) else torch.stack(list(out))
+
+    f, jv = torch.func.jvp(closure, (torch.as_tensor(x),), (torch.as_tensor(v),))
+    return x, p, t, b, r, ca, cb, v, f.numpy(), jv.numpy()
+
+
+@pytest.mark.parametrize("name", list(ACCEPTED))
+def test_tangents_of_the_trace_match_torch_func_jvp(name):
+    """The symbolic tangents evaluated in torch (no compiler needed)."""
+    from pharmsol_tpu_torch.ops.rhs_codegen import _ODE_ARGS, _sizes, _trace, evaluate, tangents
+
+    fn, n, n_params, ninput, covs = ACCEPTED[name]
+    outputs = _trace(fn, _sizes(_ODE_ARGS, n, n_params, ninput), n, covs=covs)
+    jv_syms = tangents(outputs)
+    rng = np.random.RandomState(5)
+    for _ in range(20):
+        x, p, t, b, r, ca, cb, v, f, jv = _jvp_inputs(name, rng)
+        leaves = dict(x=torch.as_tensor(x), p=torch.as_tensor(p),
+                      t=torch.tensor(t, dtype=torch.float64), b=torch.as_tensor(b),
+                      rateiv=torch.as_tensor(r), cov_a=torch.as_tensor(ca),
+                      cov_b=torch.as_tensor(cb), v=torch.as_tensor(v))
+        got = evaluate(jv_syms, **leaves).numpy()
+        np.testing.assert_allclose(got, jv, rtol=1e-13, atol=1e-13 * max(np.abs(jv).max(), 1.0))
+
+
+def test_jacobian_flag_is_part_of_the_key_and_leaves_the_plain_header_alone():
+    plain = generate_rhs(_short, 3, 5, 1)
+    with_jvp = generate_rhs(_short, 3, 5, 1, jacobian=True)
+    assert not plain.jacobian and with_jvp.jacobian and plain.key != with_jvp.key
+    assert "rhs_jvp" not in plain.source and "PHARMSOL_RHS_HAS_JVP" not in plain.source
+    assert "#define PHARMSOL_RHS_HAS_JVP 1" in with_jvp.source
+    assert "void rhs_jvp(" in with_jvp.source and "const T* v, T* jv" in with_jvp.source
+    # an affine RHS differentiates to a handful of operations: no state read
+    body = with_jvp.source[with_jvp.source.index("void rhs_jvp("):]
+    assert "x[" not in body
+    for i in range(3):
+        assert f"jv[{i}] = " in body
+    # the plain header's rhs is the same text in both
+    rhs_text = plain.source[plain.source.index("template <typename T>"):]
+    assert rhs_text.strip() in with_jvp.source
+
+
+@pytest.mark.parametrize("fn, reason", [
+    (lambda x, p, t, b, r, cov: [-(p[0] ** x[0]) + b[0]], "exponent that depends on the state"),
+    (lambda x, p, t, b, r, cov: [-(x[0] ** x[0]) + b[0]], "exponent that depends on the state"),
+])
+def test_an_operation_without_a_derivative_rule_raises(fn, reason):
+    assert generate_rhs(fn, 1, 3, 1).source  # it traces without the Jacobian
+    with pytest.raises(PharmsolError, match="no Jacobian in the CUDA kernel") as err:
+        generate_rhs(fn, 1, 3, 1, jacobian=True)
+    assert reason in str(err.value)
+
+
+def test_every_traced_operation_has_a_rule_or_is_boolean():
+    from pharmsol_tpu_torch.ops import rhs_codegen as rc
+
+    numeric = (set(rc._ARITH) | {"pow", "min", "max", "neg", "exp", "log", "sqrt", "abs",
+                                 "where", "cast"})
+    assert numeric <= set(rc._JVP_RULES)
+    with pytest.raises(PharmsolError, match="`sinh` has no derivative rule"):
+        rc.tangents([rc.Sym("sinh", (rc.Sym("x", value=0),))])
+
+
+_JVP_WRAPPER = _WRAPPER + """
+extern "C" void rhs_jvp_f64(const double* x, const double* p, double t,
+                            const double* b, const double* r, const double* ca,
+                            const double* cb, const double* v, double* jv) {
+  rhs_jvp<double>(x, p, t, b, r, ca, cb, v, jv);
+}
+"""
+
+
+@pytest.mark.parametrize("name", list(ACCEPTED))
+def test_generated_jvp_header_matches_torch_func_jvp(name, gxx, tmp_path):
+    """The header with ``rhs_jvp`` compiled with g++: ``rhs`` against the
+    closure and ``rhs_jvp`` against ``torch.func.jvp`` of it, 1e-14."""
+    fn, n, n_params, ninput, (names, modes) = ACCEPTED[name]
+    rhs = generate_rhs(fn, n, n_params, ninput, names, modes, jacobian=True)
+    (tmp_path / "rhs.h").write_text(rhs.source)
+    (tmp_path / "wrap.cpp").write_text(_JVP_WRAPPER)
+    lib_path = tmp_path / "librhs.so"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o",
+                    str(lib_path), str(tmp_path / "wrap.cpp")], check=True, cwd=tmp_path)
+    lib = ctypes.CDLL(str(lib_path))
+    dp = ctypes.POINTER(ctypes.c_double)
+    lib.rhs_f64.argtypes = [dp, dp, ctypes.c_double, dp, dp, dp, dp, dp]
+    lib.rhs_jvp_f64.argtypes = [dp, dp, ctypes.c_double, dp, dp, dp, dp, dp, dp]
+    rng = np.random.RandomState(13)
+
+    def ptr(a):
+        return np.ascontiguousarray(a).ctypes.data_as(dp)
+
+    for _ in range(50):
+        x, p, t, b, r, ca, cb, v, f, jv = _jvp_inputs(name, rng)
+        got_f, got_jv = np.zeros(n), np.zeros(n)
+        lib.rhs_f64(ptr(x), ptr(p), t, ptr(b), ptr(r), ptr(ca), ptr(cb), got_f.ctypes.data_as(dp))
+        lib.rhs_jvp_f64(ptr(x), ptr(p), t, ptr(b), ptr(r), ptr(ca), ptr(cb), ptr(v),
+                        got_jv.ctypes.data_as(dp))
+        np.testing.assert_allclose(got_f, f, rtol=1e-14, atol=1e-14 * max(np.abs(f).max(), 1.0))
+        np.testing.assert_allclose(got_jv, jv, rtol=1e-14,
+                                   atol=1e-14 * max(np.abs(jv).max(), 1.0))
+
+
+# ---------------------------------------------------------------------------
 # SDE drift and diffusion: one header, the same tracer and acceptance rules
 # ---------------------------------------------------------------------------
 

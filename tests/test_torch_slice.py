@@ -234,6 +234,40 @@ def test_non_finite_cells_map_to_neg_inf(slice_inputs):
         assert not torch.isfinite(nan[:, 1]).any()
 
 
+@pytest.mark.parametrize("how", ["fifth_false", "fifth_true", "keyword"])
+def test_progress_sits_in_the_jax_position(slice_inputs, how, capsys):
+    """``progress`` is the fifth positional argument, as in the JAX package:
+    psi is the JAX psi either way, a lost cell stays -inf (a positional True
+    once landed in ``on_error`` and let NaN through), and the JAX package's
+    two lines are printed on the general path."""
+    data, support, ems, want = slice_inputs
+    sp = support[:6].copy()
+    sp[1, 4] = 0.0  # v = 0: the JAX package maps this column to -inf
+    args = {"fifth_false": (False,), "fifth_true": (True,), "keyword": ()}[how]
+    kw = {"progress": True} if how == "keyword" else {}
+    psi = pt.log_likelihood_matrix(_model(), data, sp, ems, *args, **kw).numpy()
+    out = capsys.readouterr().out
+    keep = [0, 2, 3, 4, 5]
+    np.testing.assert_allclose(psi[:, keep], np.asarray(want)[:, keep], rtol=1e-10)
+    assert np.isneginf(psi[:, 1]).all() and not np.isnan(psi).any()
+    if how == "fifth_false":
+        assert out == ""
+    else:
+        first, last = out.splitlines()
+        assert first == (f"Computing log-likelihood matrix: {N_SUBJECTS} subjects \u00d7 "
+                         f"6 support points...")
+        assert last.startswith(f"  done: {N_SUBJECTS * 6} cells in ") and "cells/s)" in last
+    # the signature keeps the JAX order, with device last
+    import inspect
+
+    names = list(inspect.signature(pt.log_likelihood_matrix).parameters)
+    assert names == ["equation", "subjects", "support_points", "error_models", "progress",
+                     "on_error", "engine", "device"]
+    # the fused path prints nothing, as the JAX package's pallas path
+    pt.log_likelihood_matrix(_model(), data, sp, ems, True, engine="fused")
+    assert capsys.readouterr().out == ""
+
+
 # ---------------------------------------------------------------------------
 # The ODE slice: the Short workload's 2-cmt oral model as an ODE
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-// Fused population psi for ODE models, explicit Runge-Kutta tier, exact
-// propagation tier and their feature tier, for Hopper (sm_90a).
+// Fused population psi for ODE models: explicit Runge-Kutta tier, exact
+// propagation tier, SDIRK tier, BDF tier and their feature tier, for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel pharmsol_tpu/ops/pallas_ode.py::psi_ode
 // (_make_ode_kernel): K2a, the explicit `integrate` march (dopri5 and tsit5,
@@ -8,7 +9,11 @@
 // LaneCov :417/:644-660, init :1614-1618, the lag/fa split march with slot
 // tables :1665-1807); and K2d, the exact propagation of an affine autonomous
 // RHS (`integrate_expm` :1152-1287, solver code 2, see march_expm below),
-// with or without the feature tier. Plain PyTorch twin:
+// with or without the feature tier; K2b, the SDIRK tier for stiff models
+// (`integrate_sdirk` :949-1150 with `_lane_inverse` :339: trbdf2, kvaerno3 =
+// esdirk34, kvaerno5; solver codes 3, 4, 5, see march_sdirk below); and K2c,
+// the variable-order BDF tier (`integrate_bdf` :1289-1612 with `_bdf_U` :312;
+// solver code 6, see march_bdf below). Plain PyTorch twin:
 // pharmsol_tpu_torch/ops/fused_ode.py::psi_ode_plain.
 //
 // The model's right-hand side is not written here: it is generated from the
@@ -21,6 +26,10 @@
 // cov_a, cov_b, v, jv)`, jv = (df/dx)(x) v by symbolic forward mode; such a
 // library holds K2d's instantiations and no other, a header without it the
 // explicit tier's, so a model's explicit library is what it was before K2d.
+// The implicit tiers are chosen at compile time: -DPHARMSOL_ODE_SOLVER=3, 4,
+// 5 (K2b) or 6 (K2c) on a header with rhs_jvp builds that one solver's
+// instantiations and no other, with -fmad=false so that every multiply and
+// add rounds as in the twin, op by op (ops/_build.py::ode_kind).
 //
 // Two instantiations of one kernel template: FEAT = false is K2a, whose code
 // is the explicit tier's alone (no covariate, init, lag or fa work is
@@ -230,6 +239,8 @@ struct Args {
   const int* runs;     // [n_runs + 1] run boundaries
   T* out;              // [R, S]
   int R, S, M, nb, nr, n_out, n_runs, max_iters;
+  int newton_iters;    // K2b, K2c: Newton rounds per stage or step
+  int bdf_max_order;   // K2c: the order cap, 1..5
   T rtol, atol, h0;
   Feat<T> f;           // K2e only
 };
@@ -264,7 +275,11 @@ __device__ __forceinline__ bool all_finite(const T* v) {
   return ok;
 }
 
-#ifdef PHARMSOL_RHS_HAS_JVP
+#if defined(PHARMSOL_ODE_SOLVER) && !defined(PHARMSOL_RHS_HAS_JVP)
+#error "the implicit tiers need a header generated with rhs_jvp"
+#endif
+
+#if defined(PHARMSOL_RHS_HAS_JVP) && !defined(PHARMSOL_ODE_SOLVER)
 // K2d: the exact propagation of one pass over `target` time from t0, for an
 // RHS that is affine in the state and autonomous within the pass (the plan
 // proved both with float64 probes, and that no covariate has a slope; the
@@ -413,7 +428,641 @@ __device__ __forceinline__ void march_expm(T* x, const T* p, const T* rate,
 #pragma unroll
   for (int i = 0; i < N; ++i) x[i] = bad ? T(NAN) : xn[i];
 }
-#endif  // PHARMSOL_RHS_HAS_JVP
+#endif  // K2d
+
+#if defined(PHARMSOL_ODE_SOLVER)
+// ---------------------------------------------------------------------------
+// The implicit tiers (K2b, K2c). Both freeze the RHS's Jacobian once per
+// trial step, J's column j = rhs_jvp against unit vector j, and invert the
+// iteration matrix I - c J once per trial; each Newton round is then one RHS
+// and one N x N matrix-vector product. No library routine stands in for any
+// of it: the elimination, the Newton rounds, the Hermite capture and the
+// difference-array transforms are written out here, in the twin's expression
+// order (the library is built with -fmad=false), so that kernel and twin take
+// the same step decisions.
+// ---------------------------------------------------------------------------
+
+// Minv = (I - c J(x, t))^-1 by Gauss-Jordan without pivoting, the diagonal
+// clamped at 1e-30 (the JAX kernel's _lane_inverse, ops/pallas_ode.py:339):
+// the iteration matrix has a dominant positive diagonal for compartment
+// kinetics, and a singular lane gives garbage that the Newton residual check
+// rejects. This elimination decides which lanes reject: keep it as it is.
+template <typename T>
+__device__ __forceinline__ void newton_inverse(const T* x, const T* p, T t,
+                                               const T* rate, const T* ca,
+                                               const T* cb, T c,
+                                               T (*Minv)[N]) {
+  T bz[NIN];
+#pragma unroll
+  for (int j = 0; j < NIN; ++j) bz[j] = T(0);
+  T aug[N][2 * N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    T e[N], col[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) e[i] = (i == j) ? T(1) : T(0);
+    rhs_jvp<T>(x, p, t, bz, rate, ca, cb, e, col);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      aug[i][j] = (i == j ? T(1) : T(0)) - c * col[i];
+      aug[i][N + j] = (i == j) ? T(1) : T(0);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    T d = aug[k][k];
+    d = pm_abs(d) > T(1e-30) ? d : T(1e-30);
+    const T inv_d = T(1) / d;
+#pragma unroll
+    for (int j = 0; j < 2 * N; ++j) aug[k][j] = aug[k][j] * inv_d;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (i == k) continue;
+      const T factor = aug[i][k];
+#pragma unroll
+      for (int j = 0; j < 2 * N; ++j) aug[i][j] = aug[i][j] - factor * aug[k][j];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) Minv[i][j] = aug[i][N + j];
+}
+
+template <typename T>
+__device__ __forceinline__ void matvec(T (*Mx)[N], const T* v, T* out) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    T acc = Mx[i][0] * v[0];
+#pragma unroll
+    for (int j = 1; j < N; ++j) acc = acc + Mx[i][j] * v[j];
+    out[i] = acc;
+  }
+}
+
+#if PHARMSOL_ODE_SOLVER != 6
+// The embedded ESDIRK pairs of pharmsol_tpu_torch/engine/ode.py
+// (SDIRK_TABLEAUS), the same doubles: NSTG stages, A (lower triangle, the
+// diagonal gamma left out), B, BHAT, C, gamma, the controller's order and the
+// most a step may grow.
+template <int SOLVER>
+struct STab;
+
+template <>
+struct STab<3> {  // TR-BDF2 as a 3-stage ESDIRK 2(3) (Hosea & Shampine 1996)
+  static constexpr int NSTG = 3;
+  static constexpr double gamma = 0.2928932188134524;  // (2 - sqrt 2) / 2
+  static constexpr double order = 2.0, max_growth = 5.0;
+  __host__ __device__ static constexpr double a(int i, int j) {
+    constexpr double W = 0.3535533905932738;  // sqrt(2) / 4
+    constexpr double A[NSTG][NSTG] = {{0, 0, 0}, {gamma, 0, 0}, {W, W, 0}};
+    return A[i][j];
+  }
+  __host__ __device__ static constexpr double b(int i) {
+    constexpr double B[NSTG] = {0.3535533905932738, 0.3535533905932738, gamma};
+    return B[i];
+  }
+  __host__ __device__ static constexpr double bhat(int i) {
+    constexpr double BH[NSTG] = {0.21548220313557542, 0.6868867239266071,
+                                 0.09763107293781748};
+    return BH[i];
+  }
+  __host__ __device__ static constexpr double c(int i) {
+    constexpr double C[NSTG] = {0.0, 0.5857864376269049, 1.0};
+    return C[i];
+  }
+};
+
+template <>
+struct STab<4> {  // Kvaerno 3/2: 4-stage ESDIRK, stiffly accurate, L-stable
+  static constexpr int NSTG = 4;
+  static constexpr double gamma = 0.4358665215084590;
+  static constexpr double order = 3.0, max_growth = 5.0;
+  __host__ __device__ static constexpr double a(int i, int j) {
+    constexpr double A[NSTG][NSTG] = {
+        {0, 0, 0, 0},
+        {gamma, 0, 0, 0},
+        {0.490563388419108, 0.073570090080892, 0, 0},
+        {0.308809969973036, 1.490563388254106, -1.235239879727145, 0}};
+    return A[i][j];
+  }
+  __host__ __device__ static constexpr double b(int i) {
+    constexpr double B[NSTG] = {0.308809969973036, 1.490563388254106,
+                                -1.235239879727145, gamma};
+    return B[i];
+  }
+  __host__ __device__ static constexpr double bhat(int i) {
+    constexpr double BH[NSTG] = {0.490563388419108, 0.073570090080892, gamma, 0.0};
+    return BH[i];
+  }
+  __host__ __device__ static constexpr double c(int i) {
+    constexpr double C[NSTG] = {0.0, 2 * 0.4358665215084590, 1.0, 1.0};
+    return C[i];
+  }
+};
+
+template <>
+struct STab<5> {  // Kvaerno 5(4): 7-stage ESDIRK, L-stable (Kvaerno 2004)
+  static constexpr int NSTG = 7;
+  static constexpr double gamma = 0.26;
+  // the order-5 estimator is optimistic across sharp nonlinear transitions:
+  // growth stays at 1.5
+  static constexpr double order = 5.0, max_growth = 1.5;
+  __host__ __device__ static constexpr double a(int i, int j) {
+    constexpr double A[NSTG][NSTG] = {
+        {0, 0, 0, 0, 0, 0, 0},
+        {gamma, 0, 0, 0, 0, 0, 0},
+        {0.13, 0.84033320996790809, 0, 0, 0, 0, 0},
+        {0.22371961478320505, 0.47675532319799699, -0.06470895363112615, 0, 0, 0, 0},
+        {0.16648564323248321, 0.10450018841591720, 0.03631482272098715,
+         -0.13090704451073998, 0, 0, 0},
+        {0.13855640231268224, 0.0, -0.04245337201752043, 0.02446657898003141,
+         0.61943039072480676, 0, 0},
+        {0.13659751177640291, 0.0, -0.05496908796538376, -0.04118626728321046,
+         0.62993304899016403, 0.06962479448202728, 0}};
+    return A[i][j];
+  }
+  __host__ __device__ static constexpr double b(int i) {
+    return i == NSTG - 1 ? gamma : a(NSTG - 1, i);
+  }
+  __host__ __device__ static constexpr double bhat(int i) {
+    return i == NSTG - 1 ? 0.0 : (i == NSTG - 2 ? gamma : a(NSTG - 2, i));
+  }
+  __host__ __device__ static constexpr double c(int i) {
+    constexpr double C[NSTG] = {0.0, 0.52, 1.230333209967908, 0.8957659843500759,
+                                0.43639360985864756, 1.0, 1.0};
+    return C[i];
+  }
+};
+
+// The likelihood term of stream element i for an output value `pred` already
+// contracted with the observation's output row (no bias yet): obs_term's own
+// arithmetic from the bias on.
+template <typename T>
+__device__ __forceinline__ T obs_term_pred(const Args<T>& a, size_t i, int s,
+                                           int k, T pred) {
+  if (a.bias != nullptr) pred = pred + a.bias[(size_t)k * a.S + s];
+  const T LOG_2PI = T(1.8378770664093454836);
+  const T sig = a.obs_sigma[i];
+  const T z = (a.obs_value[i] - pred) / sig;
+  const T sc = a.obs_cens != nullptr ? a.obs_cens[i] : T(0);
+  return sc == T(0) ? T(-0.5) * LOG_2PI - pm_log(sig) - T(0.5) * z * z
+                    : log_ndtr(sc * z);
+}
+
+// Output row k of state vector xv: sum_j coef[k][j][s] xv[j].
+template <typename T>
+__device__ __forceinline__ T out_of(const Args<T>& a, int k, int s, const T* xv) {
+  const T* ck = a.coef + (size_t)k * N * a.S + s;
+  T v = ck[0] * xv[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) v = v + ck[(size_t)j * a.S] * xv[j];
+  return v;
+}
+
+// K2b: the adaptive SDIRK march of one run over `target` time from t0 (the
+// JAX kernel's `integrate_sdirk`, ops/pallas_ode.py:949-1150). Per trial:
+// h_try = min(h, max(rem, 1e-14)); J at the step's start; Minv = (I - h_try
+// gamma J)^-1 once; stage 0 explicit; each later stage starts from base + h
+// gamma k_{i-1} and takes newton_iters rounds z -= Minv F(z), F(z) = z - base
+// - h gamma f(z), then one more RHS for the stage slope and the WRMS of the
+// residual. The step is finite only if the largest residual is <= 0.1 and the
+// state moved by at most 10 (1 + max |x|); it is accepted if the embedded
+// error ratio is <= 1 too. Interior observations of a merged run are captured
+// by the cubic Hermite on (x0, f0, x1, f1), f1 the last stage slope (these
+// pairs are stiffly accurate), contracted with the output row first. A lane
+// that arrives non-finite or with no time to cover does not march; one that
+// stalls or runs out of trials is NaN, and so are the captures it never
+// reached. The TPU kernel's lane masks, its tile-wide loop condition and its
+// halved tiles have no counterpart: a thread runs its own loop.
+//
+// Per thread: Minv[N][N], ks[NSTG][N], z, base, F. The stage loop is unrolled
+// (the tableau is a compile-time constant, zero weights are skipped as in the
+// twin), the Newton loop is rolled. kvaerno5 at 5 states holds 35 stage
+// slopes: ptxas may spill them to local memory.
+template <typename T, int SOLVER>
+__device__ __forceinline__ void march_sdirk(const Args<T>& a, T* x, T& h, T& ll,
+                                            const T* p, const T* rate,
+                                            const T* ca, const T* cb, T t0,
+                                            T target, size_t row, int s, int m0,
+                                            int m1) {
+  using Tb = STab<SOLVER>;
+  constexpr int NSTG = Tb::NSTG;
+  const T rtol = a.rtol, atol = a.atol;
+  const T gamma = T(Tb::gamma);
+  T bz[NIN];
+#pragma unroll
+  for (int j = 0; j < NIN; ++j) bz[j] = T(0);
+
+  const T thr = target - T(1e-6) * pm_max(target, T(1e-30));
+  const bool live0 = target > T(0) && all_finite(x);
+  int mm = m0 + 1;                 // next interior column
+  T Tj = a.seg_dt[row + m0];       // its offset from the run's start
+  // zero-offset observations read the run's start state
+  while (mm < m1 && Tj <= T(0)) {
+    ll += obs_term(a, row + mm, s, x);
+    Tj = Tj + a.seg_dt[row + mm];
+    ++mm;
+  }
+
+  T tau = T(0);
+  T hc = pm_min(h, pm_max(target, T(1e-14)));
+  bool live = live0;
+  T ks[NSTG][N];
+  T Minv[N][N];
+#pragma unroll 1
+  for (int it = 0; it < a.max_iters && live; ++it) {
+    const T ht = pm_min(hc, pm_max(target - tau, T(1e-14)));
+    const T tb = t0 + tau;
+    const T hg = ht * gamma;
+    newton_inverse<T>(x, p, tb, rate, ca, cb, hg, Minv);
+    rhs<T>(x, p, tb, bz, rate, ca, cb, ks[0]);
+    T resid_max = T(0);
+#pragma unroll
+    for (int i = 1; i < NSTG; ++i) {
+      T base[N], z[N], F[N], dz[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        T acc = T(0);
+        bool any = false;
+#pragma unroll
+        for (int l = 0; l < i; ++l) {
+          if (Tb::a(i, l) != 0.0) {
+            acc = any ? acc + ks[l][j] * T(Tb::a(i, l)) : ks[l][j] * T(Tb::a(i, l));
+            any = true;
+          }
+        }
+        base[j] = x[j] + ht * acc;
+        z[j] = base[j] + hg * ks[i - 1][j];
+      }
+      const T t_st = tb + T(Tb::c(i)) * ht;
+#pragma unroll 1
+      for (int nit = 0; nit < a.newton_iters; ++nit) {
+        rhs<T>(z, p, t_st, bz, rate, ca, cb, F);
+#pragma unroll
+        for (int j = 0; j < N; ++j) F[j] = z[j] - base[j] - hg * F[j];
+        matvec<T>(Minv, F, dz);
+#pragma unroll
+        for (int j = 0; j < N; ++j) z[j] = z[j] - dz[j];
+      }
+      rhs<T>(z, p, t_st, bz, rate, ca, cb, ks[i]);
+      T r2 = T(0);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const T Fs = z[j] - base[j] - hg * ks[i][j];
+        const T q = Fs / (atol + rtol * pm_abs(z[j]));
+        r2 = r2 + q * q;
+      }
+      resid_max = pm_max(resid_max, pm_sqrt(r2 / T(N)));
+    }
+    T xn[N];
+    T err2 = T(0), growth = T(0), xmax = T(0);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      T accb = T(0), acch = T(0);
+      bool anyb = false, anyh = false;
+#pragma unroll
+      for (int l = 0; l < NSTG; ++l) {
+        if (Tb::b(l) != 0.0) {
+          accb = anyb ? accb + ks[l][j] * T(Tb::b(l)) : ks[l][j] * T(Tb::b(l));
+          anyb = true;
+        }
+        if (Tb::bhat(l) != 0.0) {
+          acch = anyh ? acch + ks[l][j] * T(Tb::bhat(l)) : ks[l][j] * T(Tb::bhat(l));
+          anyh = true;
+        }
+      }
+      xn[j] = x[j] + ht * accb;
+      const T e = ht * (accb - acch);
+      const T q = e / (atol + rtol * pm_max(pm_abs(x[j]), pm_abs(xn[j])));
+      err2 = err2 + q * q;
+      growth = pm_max(growth, pm_abs(xn[j] - x[j]));
+      xmax = pm_max(xmax, pm_abs(x[j]));
+    }
+    const T ratio = pm_sqrt(err2 / T(N));
+    // a Newton stage that did not converge invalidates the step; a tenfold
+    // jump of the state is a spurious Newton root
+    const bool finite = isfinite(ratio) && resid_max <= T(0.1) && all_finite(xn) &&
+                        growth <= T(10) * (T(1) + xmax);
+    const bool accept = ratio <= T(1) && finite;
+    const T factor =
+        finite ? pm_min(pm_max(T(0.9) * pm_pow(pm_max(ratio, T(1e-10)),
+                                               T(-1.0 / (Tb::order + 1.0))),
+                               T(0.2)), T(Tb::max_growth))
+               : T(0.25);
+    if (accept) {
+      // cubic Hermite captures of the interior observations this step crosses
+      while (mm < m1) {
+        const T te = pm_min(Tj, thr);
+        if (!(te <= tau + ht)) break;
+        const size_t io = row + mm;
+        if (a.obs_mask[io] > T(0)) {
+          const int k = a.n_out > 1 ? (int)a.obs_outeq[io] : 0;
+          T pred = T(0);
+          if (k >= 0 && k < a.n_out) {
+            const T th = (te - tau) / ht;
+            const T c0 = out_of(a, k, s, x), c1 = out_of(a, k, s, xn);
+            const T f0 = out_of(a, k, s, ks[0]), f1 = out_of(a, k, s, ks[NSTG - 1]);
+            const T d = c1 - c0;
+            const T a_ = ht * f0 - d;
+            const T b_ = d - ht * f1;
+            pred = c0 + th * d + th * (T(1) - th) * ((T(1) - th) * a_ + th * b_);
+          }
+          ll += obs_term_pred(a, io, s, k, pred);
+        }
+        Tj = Tj + a.seg_dt[io];
+        ++mm;
+      }
+      tau = tau + ht;
+#pragma unroll
+      for (int j = 0; j < N; ++j) x[j] = xn[j];
+    }
+    hc = pm_max(ht * factor, T(1e-14));
+    const bool done = tau >= thr;
+    const bool stalled = (tau + hc) <= tau && !done;
+    live = !done && !stalled;
+  }
+  if (tau < thr) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[j] = T(NAN);
+  }
+  // captures an incomplete lane never reached
+  T xnan[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) xnan[j] = T(NAN);
+  for (; mm < m1; ++mm) ll += obs_term(a, row + mm, s, xnan);
+  if (live0) h = hc;
+}
+#else  // PHARMSOL_ODE_SOLVER == 6
+
+// Variable-order BDF (1-5), fixed leading coefficient with the kappa
+// stabilisation (SUNDIALS/ode15s): alpha, the gamma sums and the error
+// constant of each order, the doubles of pharmsol_tpu_torch/engine/ode.py;
+// and U = R(1), the involutory backward-difference transform (the JAX
+// kernel's _bdf_U, ops/pallas_ode.py:312; ops/fused_ode.py::bdf_U).
+constexpr int BDF_ROWS = 8;  // D[order cap + 3], the cap at most 5
+__constant__ double BDF_ALPHA[6] = {0.0, 1.185, 1.6666666666666667,
+                                    1.9842166666666667, 2.1697916666666663,
+                                    2.283333333333333};
+__constant__ double BDF_GAMMA[6] = {0.0, 1.0, 1.5, 1.8333333333333333,
+                                    2.083333333333333, 2.283333333333333};
+__constant__ double BDF_ERROR_CONST[6] = {1.0, 0.315, 0.16666666666666666,
+                                          0.09911666666666669,
+                                          0.11354166666666668,
+                                          0.16666666666666666};
+__constant__ double BDF_U[6][6] = {
+    {1.0, 1.0, 1.0, 1.0, 1.0, 1.0},
+    {0.0, -1.0, -2.0, -3.0, -4.0, -5.0},
+    {0.0, -0.0, 1.0, 3.0, 6.0, 10.0},
+    {0.0, -0.0, 0.0, -1.0, -4.0, -10.0},
+    {0.0, -0.0, 0.0, -0.0, 1.0, 5.0},
+    {0.0, -0.0, 0.0, -0.0, 0.0, -1.0},
+};
+
+// D[0..k] <- (R(fac) U)^T D[0..k] for a step-size change by `fac` at order k:
+// tmp = R^T D with R[0][j] = 1, R[i][0] = 0 (i >= 1), R[i][j] = R[i-1][j] (i
+// - 1 - fac j) / i built by its recurrence column by column, then U^T tmp.
+// The TPU kernel applies both as 6 x 6 transforms masked to the identity
+// beyond each lane's order; a thread loops to its own order. Rows above k
+// are untouched.
+template <typename T>
+__device__ __forceinline__ void bdf_change_D(T (*D)[N], int k, T fac) {
+  T tmp[6][N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) tmp[0][j] = D[0][j];
+  for (int c = 1; c <= k; ++c) {
+    T acc[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) acc[j] = D[0][j];
+    T r = T(1);
+    for (int b = 1; b <= k; ++b) {
+      const T m = (T(b - 1) - fac * T(c)) / T(b);
+      r = b == 1 ? m : r * m;
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc[j] = acc[j] + r * D[b][j];
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) tmp[c][j] = acc[j];
+  }
+  for (int c = 0; c <= k; ++c) {
+    T acc[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) acc[j] = T(0);
+    for (int b = 0; b <= k; ++b) {
+      const T u = T(BDF_U[b][c]);
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc[j] = acc[j] + u * tmp[b][j];
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) D[c][j] = acc[j];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T bdf_rms(T ec, const T* v, const T* scales) {
+  T r2 = T(0);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const T q = (ec * v[j]) / scales[j];
+    r2 = r2 + q * q;
+  }
+  return pm_sqrt(r2 / T(N));
+}
+
+// The step factor of an error norm at order k + dord. exp(log(.) * .), not
+// pow: it is what the TPU kernel computes, and pow would move step decisions.
+template <typename T>
+__device__ __forceinline__ T bdf_fac(T e, int k, T dord) {
+  return pm_exp(pm_log(pm_max(e, T(1e-16))) * (T(-1) / (T(k) + dord)));
+}
+
+// K2c: the variable-order BDF march of one pass over `target` time from t0
+// (the JAX kernel's `integrate_bdf`, ops/pallas_ode.py:1289-1612), orders 1
+// to bdf_max_order. A thread holds the backward-difference array D[8][N], its
+// order, the count of equal steps since the last change (neq) and of
+// rejections in a row (nrej). Per trial: the step is clipped to the remaining
+// span and D rescaled to match; x_pred = sum_{i <= k} D[i], psi = sum gamma_i
+// D[i] / alpha_k, c = h / alpha_k; J at (x_pred, t_new) and Minv = (I - c
+// J)^-1 once; newton_iters rounds on (d, y); the error norm rms(error_const_k
+// d) and the residual norm decide. An accepted step updates D (D[k+2] = d -
+// D[k+1], D[k+1] = d, D[i] += D[i+1] downward); after k + 1 equal steps the
+// order is chosen among k - 1, k, k + 1 by the largest step factor, the
+// middle winning ties. Beyond the general engine's controller: the third
+// rejection in a row resets to order 1 at h / 4; an accept whose error is
+// below 0.25 grows the step 1.4x at once. A lane that arrives non-finite
+// leaves at once (it would otherwise burn the whole trial budget in every
+// later segment). Never merged: there is no interior observation. The TPU
+// kernel's float-valued order lanes with their near() bands, its select
+// chains over the tables and its masked transforms have no counterpart: the
+// order is an int and indexes D and the tables directly.
+template <typename T>
+__device__ __forceinline__ void march_bdf(const Args<T>& a, T* x, T& h,
+                                          const T* p, const T* rate,
+                                          const T* ca, const T* cb, T t0,
+                                          T target) {
+  const int MAXO = a.bdf_max_order;
+  const T rtol = a.rtol, atol = a.atol;
+  const T thr = target - T(1e-6) * pm_max(target, T(1e-30));
+  if (!(target > T(0) && all_finite(x))) {
+    // dead on entry: no march; a lane with time to cover stays NaN
+    if (T(0) < thr) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) x[j] = T(NAN);
+    }
+    return;
+  }
+  T bz[NIN];
+#pragma unroll
+  for (int j = 0; j < NIN; ++j) bz[j] = T(0);
+  T D[BDF_ROWS][N];
+  T hc = pm_min(h, pm_max(target, T(1e-14)));
+  {
+    T f0[N];
+    rhs<T>(x, p, t0, bz, rate, ca, cb, f0);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      D[0][j] = x[j];
+      D[1][j] = hc * f0[j];
+#pragma unroll
+      for (int i = 2; i < BDF_ROWS; ++i) D[i][j] = T(0);
+    }
+  }
+  T tau = T(0);
+  int order = 1, neq = 0, nrej = 0;
+  bool live = true;
+  T Minv[N][N];
+#pragma unroll 1
+  for (int it = 0; it < a.max_iters && live; ++it) {
+    // clip the step to the remaining span, rescaling the history
+    const T ht = pm_min(hc, pm_max(target - tau, T(1e-14)));
+    const T fac_clip = ht / pm_max(hc, T(1e-30));
+    if (fac_clip < T(1)) {
+      bdf_change_D<T>(D, order, fac_clip);
+      neq = 0;
+    }
+    const T alpha_k = pm_max(T(BDF_ALPHA[order]), T(1e-30));
+    const T c = ht / alpha_k;
+    T x_pred[N], psi[N], scales[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      x_pred[j] = T(0);
+      psi[j] = T(0);
+    }
+    for (int i = 0; i <= order; ++i) {
+      const T gi = T(BDF_GAMMA[i]);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        x_pred[j] = x_pred[j] + D[i][j];
+        if (i >= 1) psi[j] = psi[j] + gi * D[i][j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      psi[j] = psi[j] / alpha_k;
+      scales[j] = atol + rtol * pm_abs(x_pred[j]);
+    }
+    const T t_new = t0 + tau + ht;
+    newton_inverse<T>(x_pred, p, t_new, rate, ca, cb, c, Minv);
+    T d[N], y[N], res[N], step[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      d[j] = T(0);
+      y[j] = x_pred[j];
+    }
+#pragma unroll 1
+    for (int nit = 0; nit < a.newton_iters; ++nit) {
+      rhs<T>(y, p, t_new, bz, rate, ca, cb, res);
+#pragma unroll
+      for (int j = 0; j < N; ++j) res[j] = c * res[j] - psi[j] - d[j];
+      matvec<T>(Minv, res, step);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        d[j] = d[j] + step[j];
+        y[j] = y[j] + step[j];
+      }
+    }
+    rhs<T>(y, p, t_new, bz, rate, ca, cb, res);
+#pragma unroll
+    for (int j = 0; j < N; ++j) res[j] = c * res[j] - psi[j] - d[j];
+
+    const T err_norm = bdf_rms<T>(T(BDF_ERROR_CONST[order]), d, scales);
+    const T res_norm = bdf_rms<T>(T(1), res, scales);
+    const bool finite = isfinite(err_norm) && all_finite(y);
+    const bool converged = res_norm <= T(0.1);
+    const bool accept = err_norm <= T(1) && converged && finite;
+
+    bool do_adapt = false;
+    int order_n = order;
+    T factor;
+    if (accept) {
+      // D[k+2] = d - D[k+1]; D[k+1] = d; D[i] += D[i+1] downward: D[0] is
+      // the new solution
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        D[order + 2][j] = d[j] - D[order + 1][j];
+        D[order + 1][j] = d[j];
+      }
+      for (int i = order; i >= 0; --i) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) D[i][j] = D[i][j] + D[i + 1][j];
+      }
+      const int neq_acc = neq + 1;
+      do_adapt = neq_acc > order;
+      factor = T(1);
+      if (do_adapt) {
+        // the error norms at order - 1, order, order + 1
+        const int kp = order + 1 < 5 ? order + 1 : 5;
+        const T err_m = bdf_rms<T>(T(BDF_ERROR_CONST[order - 1]), D[order], scales);
+        const T err_p = bdf_rms<T>(T(BDF_ERROR_CONST[kp]), D[order + 2], scales);
+        T f_m = bdf_fac<T>(err_m, order, T(0));
+        const T f_0 = bdf_fac<T>(pm_max(err_norm, T(1e-16)), order, T(1));
+        T f_p = bdf_fac<T>(err_p, order, T(2));
+        f_m = (order > 1 && isfinite(f_m)) ? f_m : T(-1);
+        f_p = (order < MAXO && isfinite(f_p)) ? f_p : T(-1);
+        const bool best_p = f_p > f_0 && f_p > f_m;
+        const bool best_m = f_m > f_0 && !best_p;
+        order_n = order + (best_p ? 1 : (best_m ? -1 : 0));
+        order_n = order_n < 1 ? 1 : (order_n > MAXO ? MAXO : order_n);
+        const T fac_best = best_p ? f_p : (best_m ? f_m : f_0);
+        factor = pm_min(pm_max(T(0.9) * fac_best, T(0.2)), T(10));
+      }
+      // the quasi-constant policy grows h only after order + 1 accepts in a
+      // row: an accept whose error is clearly small grows 1.4x at once
+      const bool grow_now = !do_adapt && err_norm < T(0.25);
+      if (grow_now) factor = T(1.4);
+      neq = (!do_adapt && !grow_now) ? neq_acc : 0;
+      nrej = 0;
+      tau = tau + ht;
+    } else {
+      factor = (finite && converged)
+                   ? pm_min(pm_max(T(0.9) * bdf_fac<T>(pm_max(err_norm, T(1e-16)),
+                                                       order, T(1)),
+                                   T(0.2)), T(1))
+                   : T(0.25);
+      // the third rejection in a row resets to order 1 at h / 4: it clears a
+      // high-order history whose error estimates cannot be trusted
+      if (nrej >= 2) {
+        order_n = 1;
+        factor = T(0.25);
+        nrej = 0;
+      } else {
+        nrej = nrej + 1;
+      }
+      neq = 0;
+    }
+    order = order_n;
+    if (factor != T(1)) bdf_change_D<T>(D, order, factor);
+    hc = pm_max(ht * factor, T(1e-14));
+    const bool done = tau >= thr;
+    const bool stalled = (tau + hc) <= tau && !done;
+    live = !done && !stalled;
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) x[j] = tau < thr ? T(NAN) : D[0][j];
+  h = hc;
+}
+#endif  // PHARMSOL_ODE_SOLVER == 6
+#endif  // PHARMSOL_ODE_SOLVER
 
 // A bolus of `amt` into RHS input `in` at time t: x += f(x, b) - f(x, 0),
 // the general engine's own semantics.
@@ -443,7 +1092,15 @@ __device__ __forceinline__ void march(const Args<T>& a, T* x, T& h, T& ll,
                                       const T* cb, T t0, T target,
                                       size_t row, int s, int m0, int m1,
                                       bool estimate_h) {
-#ifdef PHARMSOL_RHS_HAS_JVP
+#if defined(PHARMSOL_ODE_SOLVER)
+  static_assert(SOLVER == PHARMSOL_ODE_SOLVER, "this library holds one implicit solver");
+#if PHARMSOL_ODE_SOLVER == 6
+  // K2c: runs are single segments (bdf never merges)
+  march_bdf<T>(a, x, h, p, rate, ca, cb, t0, target);
+#else
+  march_sdirk<T, SOLVER>(a, x, h, ll, p, rate, ca, cb, t0, target, row, s, m0, m1);
+#endif
+#elif defined(PHARMSOL_RHS_HAS_JVP)
   // K2d: one exact propagation; runs are single segments (expm never
   // merges), so there is no interior observation and no step to carry
   static_assert(SOLVER == 2, "a library with rhs_jvp holds the expm tier");
@@ -761,8 +1418,9 @@ template <typename T>
 cudaError_t run(int solver, const void* const* p, const int* ints, void* out,
                 int R, int S, int M, int nb, int nr, int n_out, int n_runs,
                 double rtol, double atol, double h0, int max_iters,
-                cudaStream_t st, const void* const* feat = nullptr,
-                int n_lag = 0, int n_fa = 0) {
+                int newton_iters, int bdf_max_order, cudaStream_t st,
+                const void* const* feat = nullptr, int n_lag = 0,
+                int n_fa = 0) {
   Args<T> a = {};
   a.seg_dt = (const T*)p[0];
   a.seg_bolus = (const T*)p[1];
@@ -783,10 +1441,15 @@ cudaError_t run(int solver, const void* const* p, const int* ints, void* out,
   a.out = (T*)out;
   a.R = R; a.S = S; a.M = M; a.nb = nb; a.nr = nr; a.n_out = n_out;
   a.n_runs = n_runs; a.max_iters = max_iters;
+  a.newton_iters = newton_iters; a.bdf_max_order = bdf_max_order;
+  if (solver == 6 && (bdf_max_order < 1 || bdf_max_order > 5))
+    return cudaErrorInvalidValue;
   a.rtol = (T)rtol; a.atol = (T)atol; a.h0 = (T)h0;
   if (feat == nullptr) {
     switch (solver) {
-#ifdef PHARMSOL_RHS_HAS_JVP
+#if defined(PHARMSOL_ODE_SOLVER)
+      case PHARMSOL_ODE_SOLVER: return launch<T, PHARMSOL_ODE_SOLVER, false>(a, st);
+#elif defined(PHARMSOL_RHS_HAS_JVP)
       case 2: return launch<T, 2, false>(a, st);
 #else
       case 0: return launch<T, 0, false>(a, st);
@@ -815,7 +1478,9 @@ cudaError_t run(int solver, const void* const* p, const int* ints, void* out,
        (f.init_mask != nullptr)))
     return cudaErrorInvalidValue;
   switch (solver) {
-#ifdef PHARMSOL_RHS_HAS_JVP
+#if defined(PHARMSOL_ODE_SOLVER)
+    case PHARMSOL_ODE_SOLVER: return launch<T, PHARMSOL_ODE_SOLVER, true>(a, st);
+#elif defined(PHARMSOL_RHS_HAS_JVP)
     case 2: return launch<T, 2, true>(a, st);
 #else
     case 0: return launch<T, 0, true>(a, st);
@@ -833,7 +1498,8 @@ cudaError_t run(int solver, const void* const* p, const int* ints, void* out,
 // params [NP, S]; coef [n_out, N, S]; bias [n_out, S] (or null); dense
 // [7, 4]; ints: int32 [nb bolus inputs, nr rate inputs, n_runs + 1 run
 // boundaries]; out [R, S]. All floating data float (is_f64 == 0) or double.
-// Returns the cudaError_t of the launch (0 on success).
+// newton_iters and bdf_max_order are read by the implicit tiers only. Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int fused_ode_launch(int is_f64, int solver, const void* seg_dt,
                                 const void* seg_bolus, const void* seg_rate,
                                 const void* obs_mask, const void* obs_value,
@@ -844,7 +1510,8 @@ extern "C" int fused_ode_launch(int is_f64, int solver, const void* seg_dt,
                                 const void* ints, void* out, int R, int S,
                                 int M, int nb, int nr, int n_out, int n_runs,
                                 double rtol, double atol, double h0,
-                                int max_iters, void* stream) {
+                                int max_iters, int newton_iters,
+                                int bdf_max_order, void* stream) {
   const void* p[13] = {seg_dt, seg_bolus, seg_rate, obs_mask, obs_value,
                        obs_sigma, obs_cens, obs_outeq, seg_t0, params, coef,
                        bias, dense};
@@ -852,9 +1519,11 @@ extern "C" int fused_ode_launch(int is_f64, int solver, const void* seg_dt,
   const int* iv = (const int*)ints;
   cudaError_t err =
       is_f64 ? run<double>(solver, p, iv, out, R, S, M, nb, nr, n_out, n_runs,
-                           rtol, atol, h0, max_iters, st)
+                           rtol, atol, h0, max_iters, newton_iters,
+                           bdf_max_order, st)
              : run<float>(solver, p, iv, out, R, S, M, nb, nr, n_out, n_runs,
-                          rtol, atol, h0, max_iters, st);
+                          rtol, atol, h0, max_iters, newton_iters,
+                          bdf_max_order, st);
   return (int)err;
 }
 
@@ -873,25 +1542,26 @@ extern "C" int fused_ode_feature_launch(int is_f64, int solver,
                                         int n_out, int n_runs, int n_lag,
                                         int n_fa, double rtol, double atol,
                                         double h0, int max_iters,
+                                        int newton_iters, int bdf_max_order,
                                         void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int* iv = (const int*)ints;
   cudaError_t err =
       is_f64 ? run<double>(solver, base, iv, out, R, S, M, nb, nr, n_out,
-                           n_runs, rtol, atol, h0, max_iters, st, feat, n_lag,
-                           n_fa)
+                           n_runs, rtol, atol, h0, max_iters, newton_iters,
+                           bdf_max_order, st, feat, n_lag, n_fa)
              : run<float>(solver, base, iv, out, R, S, M, nb, nr, n_out,
-                          n_runs, rtol, atol, h0, max_iters, st, feat, n_lag,
-                          n_fa);
+                          n_runs, rtol, atol, h0, max_iters, newton_iters,
+                          bdf_max_order, st, feat, n_lag, n_fa);
   return (int)err;
 }
 
 // The generated RHS and its Jacobian-vector product on n samples, one thread
 // each, for checks against the closure: x, v [n, N], p [n, NP], t [n],
 // rate [n, NIN], cov_a, cov_b [n, NCOV] (cov(t) = cov_a + cov_b t; unread
-// without covariates) -> f, jv [n, N]. cudaErrorNotSupported from a library
-// whose header has no rhs_jvp.
-#ifdef PHARMSOL_RHS_HAS_JVP
+// without covariates) -> f, jv [n, N]. Held by the exact propagation tier's
+// library; cudaErrorNotSupported from any other.
+#if defined(PHARMSOL_RHS_HAS_JVP) && !defined(PHARMSOL_ODE_SOLVER)
 template <typename T>
 __global__ void rhs_jvp_probe_kernel(int n, const T* x, const T* p, const T* t,
                                      const T* rate, const T* cov_a,
@@ -919,7 +1589,7 @@ extern "C" int fused_ode_jvp_probe(int is_f64, int n, const void* x,
                                    const void* rate, const void* cov_a,
                                    const void* cov_b, const void* v, void* f,
                                    void* jv, void* stream) {
-#ifdef PHARMSOL_RHS_HAS_JVP
+#if defined(PHARMSOL_RHS_HAS_JVP) && !defined(PHARMSOL_ODE_SOLVER)
   cudaStream_t st = (cudaStream_t)stream;
   const int block = 128, grid = (n + block - 1) / block;
   if (n <= 0) return (int)cudaSuccess;

@@ -16,8 +16,15 @@ segment is one clean initial-value problem.
   poison a lane that violates them. ``expm_rolled`` is the JAX package's
   name for the same math under a rolled loop (a compile-time measure for
   reverse mode in XLA); here it is an alias of ``expm``.
-- kvaerno3/5, esdirk34, trbdf2 and bdf are solvers of the JAX package that
-  the port does not have yet: asking for one raises PharmsolError.
+- ``kvaerno3`` (alias ``esdirk34``), ``kvaerno5``, ``trbdf2``: embedded ESDIRK
+  pairs for stiff systems. The first stage is explicit; every later stage is
+  solved by Newton's method with a fresh Jacobian of the stage equation each
+  iteration; a step whose Newton residual stays above 0.1 (WRMS) or whose
+  state jumps more than tenfold is rejected.
+- ``bdf``: variable-order (1-5) BDF with a fixed leading coefficient
+  (the SUNDIALS/ode15s family), the reference's default solver: a
+  backward-difference array ``D[8, n]`` per lane, the Jacobian frozen at the
+  predicted point, the order chosen among k-1, k, k+1 after k+1 equal steps.
 
 The JAX package vmaps a per-lane ``lax.while_loop``; here one masked Python
 loop runs over all lanes at once (``x`` is ``[*lanes, n]``): every trial
@@ -30,8 +37,10 @@ h0 = 1e-3).
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
@@ -92,13 +101,91 @@ _TS_E = (
     0.015151515151515152,
 )
 
+# Kvaerno 3/2: 4-stage ESDIRK, stiffly accurate, L-stable.
+_KV3_GAMMA = 0.4358665215084590
+_KV3_A = (
+    (0.0,),
+    (_KV3_GAMMA, _KV3_GAMMA),
+    (0.490563388419108, 0.073570090080892, _KV3_GAMMA),
+    (0.308809969973036, 1.490563388254106, -1.235239879727145, _KV3_GAMMA),
+)
+_KV3_C = (0.0, 2 * _KV3_GAMMA, 1.0, 1.0)
+_KV3_B = (0.308809969973036, 1.490563388254106, -1.235239879727145, _KV3_GAMMA)
+_KV3_BHAT = (0.490563388419108, 0.073570090080892, _KV3_GAMMA, 0.0)
+
+# Kvaerno 5(4): 7-stage ESDIRK, L-stable (Kvaerno 2004).
+_KV5_GAMMA = 0.26
+_KV5_A = (
+    (0.0,),
+    (_KV5_GAMMA, _KV5_GAMMA),
+    (0.13, 0.84033320996790809, _KV5_GAMMA),
+    (0.22371961478320505, 0.47675532319799699, -0.06470895363112615, _KV5_GAMMA),
+    (0.16648564323248321, 0.10450018841591720, 0.03631482272098715,
+     -0.13090704451073998, _KV5_GAMMA),
+    (0.13855640231268224, 0.0, -0.04245337201752043, 0.02446657898003141,
+     0.61943039072480676, _KV5_GAMMA),
+    (0.13659751177640291, 0.0, -0.05496908796538376, -0.04118626728321046,
+     0.62993304899016403, 0.06962479448202728, _KV5_GAMMA),
+)
+_KV5_C = (0.0, 0.52, 1.230333209967908, 0.8957659843500759, 0.43639360985864756,
+          1.0, 1.0)
+_KV5_B = _KV5_A[6]
+_KV5_BHAT = _KV5_A[5] + (0.0,)
+
+# TR-BDF2 as a 3-stage ESDIRK 2(3) (Hosea & Shampine 1996): one trapezoidal
+# half-step to t + gamma*h, one BDF2 step to t + h; L-stable, first stage
+# explicit, uniform implicit diagonal d = (2 - sqrt(2)) / 2.
+_TRBDF2_D = (2.0 - math.sqrt(2.0)) / 2.0
+_TRBDF2_W = math.sqrt(2.0) / 4.0
+_TRBDF2_A = (
+    (0.0,),
+    (_TRBDF2_D, _TRBDF2_D),
+    (_TRBDF2_W, _TRBDF2_W, _TRBDF2_D),
+)
+_TRBDF2_C = (0.0, 2.0 * _TRBDF2_D, 1.0)
+_TRBDF2_B = (_TRBDF2_W, _TRBDF2_W, _TRBDF2_D)
+_TRBDF2_BHAT = (
+    (1.0 - _TRBDF2_W) / 3.0,
+    (3.0 * _TRBDF2_W + 1.0) / 3.0,
+    _TRBDF2_D / 3.0,
+)
+
+# Variable-order BDF (1-5), fixed leading coefficient with the kappa
+# stabilisation (SUNDIALS/ode15s): alpha, the gamma sums, the error constant
+# of each order.
+BDF_MAX_ORDER = 5
+_BDF_KAPPA = (0.0, -0.1850, -1.0 / 9.0, -0.0823, -0.0415, 0.0)
+_BDF_GAMMA = tuple(float(g) for g in np.hstack(
+    ([0.0], np.cumsum(1.0 / np.arange(1, BDF_MAX_ORDER + 1)))))
+_BDF_ALPHA = tuple((1.0 - k) * g for k, g in zip(_BDF_KAPPA, _BDF_GAMMA))
+_BDF_ERROR_CONST = tuple(k * g + 1.0 / (i + 1.0)
+                         for i, (k, g) in enumerate(zip(_BDF_KAPPA, _BDF_GAMMA)))
+_BDF_MIN_FACTOR = 0.2
+_BDF_MAX_FACTOR = 10.0
+
 # (A, B, E, C) of the explicit solvers the port has.
 TABLEAUS = {
     "dopri5": (_DP_A, _DP_B5, _DP_E, _DP_C),
     "tsit5": (_TS_A, _TS_B, _TS_E, _TS_C),
 }
-# Solvers of the JAX package (engine/ode.py _SEGMENT_SOLVERS) not ported yet.
-UNPORTED_SOLVERS = ("kvaerno3", "kvaerno5", "esdirk34", "trbdf2", "bdf")
+# The embedded ESDIRK pairs: stage matrix, weights, embedded weights, nodes,
+# the implicit diagonal, the order the step controller assumes and the most a
+# step may grow. kvaerno5's estimator is optimistic across sharp nonlinear
+# transitions (TMDD target depletion), so its growth stays at 1.5; esdirk34
+# is the Kvaerno 3/2 scheme, a 4-stage ESDIRK of order 3.
+SDIRK_TABLEAUS = {
+    "trbdf2": dict(A=_TRBDF2_A, B=_TRBDF2_B, BHAT=_TRBDF2_BHAT, C=_TRBDF2_C,
+                   gamma=_TRBDF2_D, order=2.0, max_growth=5.0),
+    "kvaerno3": dict(A=_KV3_A, B=_KV3_B, BHAT=_KV3_BHAT, C=_KV3_C,
+                     gamma=_KV3_GAMMA, order=3.0, max_growth=5.0),
+    "kvaerno5": dict(A=_KV5_A, B=_KV5_B, BHAT=_KV5_BHAT, C=_KV5_C,
+                     gamma=_KV5_GAMMA, order=5.0, max_growth=1.5),
+}
+SDIRK_TABLEAUS["esdirk34"] = SDIRK_TABLEAUS["kvaerno3"]
+BDF_SOLVERS = ("bdf",)
+# Solvers of the JAX package (engine/ode.py _SEGMENT_SOLVERS) not ported yet:
+# none.
+UNPORTED_SOLVERS = ()
 # Exact propagation for affine systems; ``expm_rolled`` is an alias.
 EXPM_SOLVERS = ("expm", "expm_rolled")
 
@@ -109,25 +196,23 @@ class ODEOptions(NamedTuple):
     h0: float = DEFAULT_H0
     max_steps: int = DEFAULT_MAX_STEPS
     solver: str = "dopri5"
-    # kept for the JAX package's builder API (implicit solvers); unused by
-    # the explicit tier
+    # Newton iterations per implicit stage (ESDIRK) or step (BDF)
     newton_iters: int = 6
 
 
 def check_solver(solver: str):
-    """The (A, B, E, C) tableau of ``solver`` (None for the expm solvers,
-    which have none); raises PharmsolError for a solver the port does not
-    have."""
+    """What the solver steps with: the (A, B, E, C) tableau of an explicit
+    pair, the :data:`SDIRK_TABLEAUS` entry of an ESDIRK pair, None for
+    ``bdf`` and the expm solvers (which have no tableau); raises
+    PharmsolError for a solver the package does not have."""
     if solver in TABLEAUS:
         return TABLEAUS[solver]
-    if solver in EXPM_SOLVERS:
+    if solver in SDIRK_TABLEAUS:
+        return SDIRK_TABLEAUS[solver]
+    if solver in EXPM_SOLVERS or solver in BDF_SOLVERS:
         return None
-    available = ", ".join(tuple(TABLEAUS) + EXPM_SOLVERS)
-    if solver in UNPORTED_SOLVERS:
-        raise PharmsolError(
-            f"ODE solver `{solver}` is not ported to the PyTorch package yet "
-            f"(ROADMAP Queue 1 item 5; available: {available})"
-        )
+    available = ", ".join(tuple(TABLEAUS) + tuple(SDIRK_TABLEAUS) + BDF_SOLVERS
+                          + EXPM_SOLVERS)
     raise PharmsolError(
         f"unknown ODE solver `{solver}` (available: {available})"
     )
@@ -230,6 +315,274 @@ def _erk_segment(f: Callable, x0, t0, t1, opts: ODEOptions, A, B, E, C,
         steps = steps + moving.to(steps.dtype)
         active = cond(t, h, steps)
     return _poison_if_unfinished(x, t, t1), hmax
+
+
+# -- ESDIRK (Kvaerno, TR-BDF2) implicit methods ----------------------------------
+
+
+def _dense_solve(A, b):
+    """Solve the batched n x n systems ``A z = b`` (``A`` [*lanes, n, n],
+    ``b`` [*lanes, n]) by LU with partial pivoting. The unchecked variant: a
+    singular or non-finite lane gives a non-finite answer that the step
+    controller rejects, where the checked one would raise for the batch."""
+    return torch.linalg.solve_ex(A, b[..., None])[0][..., 0]
+
+
+def _newton_stage(f, jac, x_base, t_stage, hg, x_guess, newton_iters):
+    """Solve ``z = x_base + hg * f(z, t_stage)`` by Newton's method with a
+    fresh Jacobian each iteration; ``hg`` [*lanes, 1] is ``h * gamma``.
+    Returns ``(z, F(z))``: the residual lets the controller reject a step
+    whose fixed-count iteration did not converge."""
+    eye = torch.eye(x_base.shape[-1], dtype=x_base.dtype, device=x_base.device)
+
+    def F(z):
+        return z - x_base - hg * f(z, t_stage)
+
+    z = x_guess
+    for _ in range(newton_iters):
+        resid = F(z)
+        J = eye - hg[..., None] * jac(z, t_stage)
+        z = z - _dense_solve(J, resid)
+    return z, F(z)
+
+
+def _esdirk_segment(f: Callable, jac: Callable, x0, t0, t1, opts: ODEOptions,
+                    A, B, BHAT, C, gamma, order, max_growth, h_start=None):
+    """Adaptive embedded ESDIRK over every lane: ``(x_end, h_cruise)`` as
+    :func:`_erk_segment`; ``jac(x, t)`` is the RHS's state Jacobian
+    [*lanes, n, n]."""
+    n_stages = len(C)
+    t_done = _done_threshold(t1)
+
+    def one_step(x, t, h):
+        hh = h[..., None]
+        ks = [f(x, t)]
+        resid_max = torch.zeros_like(h)
+        for i in range(1, n_stages):
+            x_base = x
+            for j in range(i):
+                x_base = x_base + hh * A[i][j] * ks[j]
+            t_stage = t + C[i] * h
+            z, resid = _newton_stage(f, jac, x_base, t_stage, hh * gamma,
+                                     x_base + hh * gamma * ks[i - 1],
+                                     opts.newton_iters)
+            scale = opts.atol + opts.rtol * torch.abs(z)
+            resid_max = torch.maximum(
+                resid_max, torch.sqrt(torch.mean((resid / scale) ** 2, dim=-1)))
+            ks.append(f(z, t_stage))
+        x_new = x_hat = x
+        for bi, bhi, k in zip(B, BHAT, ks):
+            x_new = x_new + hh * bi * k
+            x_hat = x_hat + hh * bhi * k
+        return x_new, x_new - x_hat, resid_max
+
+    def cond(t, h, steps):
+        return (t < t_done) & (steps < opts.max_steps) & ~_h_stalled(h, t)
+
+    h = _resolve_h_start(h_start, t1 - t0, opts)
+    t = t0 + torch.zeros_like(h)
+    x = x0
+    steps = torch.zeros(h.shape, dtype=torch.int64, device=h.device)
+    hmax = h
+    active = cond(t, h, steps)
+    while bool(active.any()):
+        h_try = torch.minimum(h, t1 - t)
+        x_new, err, resid_max = one_step(x, t, h_try)
+        ratio = _error_ratio(err, x, x_new, opts.rtol, opts.atol)
+        # a Newton stage that did not converge invalidates the step even when
+        # the (equally unconverged) embedded error estimate looks small
+        finite = (torch.isfinite(x_new).all(dim=-1) & torch.isfinite(resid_max)
+                  & (resid_max <= 0.1))
+        # growth guard: at a large h a nonlinear stage equation can grow
+        # spurious roots far from the solution branch, with a tiny residual
+        # and a self-consistent embedded error. A tenfold jump of the state in
+        # one step is never a resolved trajectory at these tolerances
+        growth_ok = (torch.amax(torch.abs(x_new - x), dim=-1)
+                     <= 10.0 * (1.0 + torch.amax(torch.abs(x), dim=-1)))
+        finite = finite & growth_ok
+        accept = active & (ratio <= 1.0) & finite
+        factor = torch.where(
+            finite,
+            torch.clamp(0.9 * torch.pow(torch.clamp(ratio, min=1e-10),
+                                        -1.0 / (order + 1.0)), 0.2, max_growth),
+            torch.full_like(ratio, 0.25),
+        )
+        hmax = torch.where(accept, torch.maximum(hmax, h_try), hmax)
+        t = torch.where(accept, t + h_try, t)
+        x = torch.where(accept[..., None], x_new, x)
+        h = torch.where(active, torch.clamp(h_try * factor, min=1e-14), h)
+        steps = steps + active.to(steps.dtype)
+        active = cond(t, h, steps)
+    return _poison_if_unfinished(x, t, t1), hmax
+
+
+# -- BDF (variable order 1-5, fixed leading coefficient) -----------------------
+#
+# The reference's default solver is diffsol's BDF, the SUNDIALS/ode15s family:
+# quasi-constant step size, a backward-difference history and a
+# kappa-stabilised fixed leading coefficient. Here every lane carries a
+# difference array D[BDF_MAX_ORDER + 3, n] and its own order; order and step
+# adaptation are masked selects.
+
+
+def _bdf_R(factor):
+    """The difference-array rescaling matrix R(factor) [*lanes, 6, 6] of a
+    step-size change by ``factor`` [*lanes]: row 0 ones, column 0 zero below
+    it, ``R[i][j] = prod_{l <= i} (l - 1 - factor j) / l``."""
+    K = BDF_MAX_ORDER + 1
+    idx = torch.arange(1, K, dtype=factor.dtype, device=factor.device)
+    i, j = idx[:, None], idx[None, :]
+    M = torch.zeros(factor.shape + (K, K), dtype=factor.dtype, device=factor.device)
+    M[..., 1:, 1:] = (i - 1.0 - factor[..., None, None] * j) / i
+    M[..., 0, :] = 1.0
+    return torch.cumprod(M, dim=-2)
+
+
+def _bdf_segment(f: Callable, jac: Callable, x0, t0, t1, opts: ODEOptions,
+                 h_start=None):
+    """Variable-order BDF over every lane: ``(x_end, h_cruise)`` as
+    :func:`_erk_segment`."""
+    dtype, dev = x0.dtype, x0.device
+    n = x0.shape[-1]
+    K = BDF_MAX_ORDER + 1
+    t_done = _done_threshold(t1)
+    gamma = torch.tensor(_BDF_GAMMA, dtype=dtype, device=dev)
+    alpha = torch.tensor(_BDF_ALPHA, dtype=dtype, device=dev)
+    error_const = torch.tensor(_BDF_ERROR_CONST, dtype=dtype, device=dev)
+    eye = torch.eye(n, dtype=dtype, device=dev)
+    eye6 = torch.eye(K, dtype=dtype, device=dev)
+    idx6 = torch.arange(K, device=dev)
+    idx8 = torch.arange(BDF_MAX_ORDER + 3, device=dev)
+    U = _bdf_R(torch.ones((), dtype=dtype, device=dev))
+
+    # D[:k+1] <- (R(k, factor) @ R(k, 1)).T @ D[:k+1]; R(k, 1) is involutory,
+    # so factor 1 is the identity. Rows and columns beyond the lane's order
+    # are masked to the identity, so one 6 x 6 product serves every order
+    def change_D(D, order, factor):
+        o = order[..., None, None]
+        act = (idx6[:, None] <= o) & (idx6[None, :] <= o)
+        Rm = torch.where(act, _bdf_R(factor), eye6)
+        Um = torch.where(act, U, eye6)
+        RU = torch.matmul(Rm, Um)
+        D6 = torch.matmul(RU.transpose(-1, -2), D[..., :K, :])
+        return torch.cat([D6, D[..., K:, :]], dim=-2)
+
+    def rms(v, scale):
+        return torch.sqrt(torch.mean((v / scale) ** 2, dim=-1))
+
+    def row(D, k):
+        """D[k] per lane, ``k`` [*lanes] (clamped into the array)."""
+        k = torch.clamp(k, 0, D.shape[-2] - 1)
+        return torch.gather(D, -2, k[..., None, None].expand(k.shape + (1, n)))[..., 0, :]
+
+    def cond(t, h, steps):
+        return (t < t_done) & (steps < opts.max_steps) & ~_h_stalled(h, t)
+
+    h = _resolve_h_start(h_start, t1 - t0, opts)
+    t = t0 + torch.zeros_like(h)
+    D = torch.zeros(h.shape + (BDF_MAX_ORDER + 3, n), dtype=dtype, device=dev)
+    D[..., 0, :] = x0
+    D[..., 1, :] = h[..., None] * f(x0, t)
+    order = torch.ones(h.shape, dtype=torch.int64, device=dev)
+    neq = torch.zeros_like(order)
+    steps = torch.zeros_like(order)
+    hmax = h
+    active = cond(t, h, steps)
+    while bool(active.any()):
+        # clip the step to the remaining span, rescaling the history to match
+        h_req = torch.minimum(h, t1 - t)
+        clip_factor = h_req / h
+        clip = clip_factor < 1.0
+        D_c = torch.where(clip[..., None, None], change_D(D, order, clip_factor), D)
+        neq_c = torch.where(clip, torch.zeros_like(neq), neq)
+
+        alpha_k = alpha[order]
+        c = h_req / alpha_k
+        upto = (idx6 <= order[..., None])[..., None]
+        D6 = D_c[..., :K, :]
+        x_pred = torch.sum(torch.where(upto, D6, torch.zeros_like(D6)), dim=-2)
+        scale = opts.atol + opts.rtol * torch.abs(x_pred)
+        gmask = torch.where((idx6 >= 1) & (idx6 <= order[..., None]), gamma,
+                            torch.zeros_like(gamma))
+        psi = torch.matmul(gmask[..., None, :], D6)[..., 0, :] / alpha_k[..., None]
+        t_new = t + h_req
+
+        # Newton on g(d) = d - c f(x_pred + d, t_new) + psi with the Jacobian
+        # frozen at the predicted point
+        cc = c[..., None]
+        Am = eye - cc[..., None] * jac(x_pred, t_new)
+        d = torch.zeros_like(x_pred)
+        y = x_pred
+        for _ in range(opts.newton_iters):
+            step = _dense_solve(Am, cc * f(y, t_new) - psi - d)
+            d, y = d + step, y + step
+        resid = cc * f(y, t_new) - psi - d
+
+        err_norm = rms(error_const[order][..., None] * d, scale)
+        res_norm = rms(resid, scale)
+        finite = torch.isfinite(y).all(dim=-1) & torch.isfinite(err_norm)
+        converged = res_norm <= 0.1
+        accept = (err_norm <= 1.0) & converged & finite
+
+        # accepted-path difference update: D[k+2] = d - D[k+1]; D[k+1] = d;
+        # D[i] += D[i+1] downward; afterwards D[0] is the new solution
+        o8 = order[..., None]
+        D_acc = torch.where((idx8 == o8 + 2)[..., None],
+                            (d - row(D_c, order + 1))[..., None, :], D_c)
+        D_acc = torch.where((idx8 == o8 + 1)[..., None], d[..., None, :], D_acc)
+        rows = list(D_acc.unbind(-2))
+        for i in range(BDF_MAX_ORDER, -1, -1):
+            rows[i] = rows[i] + torch.where((i <= order)[..., None], rows[i + 1],
+                                            torch.zeros_like(rows[i]))
+        D_acc = torch.stack(rows, dim=-2)
+
+        neq_acc = neq_c + 1
+        do_adapt = accept & (neq_acc > order)
+
+        # order adaptation: the error norms at order - 1, order, order + 1;
+        # an invalid candidate is masked to -1 after the power, so it loses
+        # the argmax against the middle one (factors >= 0)
+        err_m = rms(error_const[order - 1][..., None] * row(D_acc, order), scale)
+        err_p = rms(error_const[torch.clamp(order + 1, max=BDF_MAX_ORDER)][..., None]
+                    * row(D_acc, order + 2), scale)
+        norms = torch.stack([err_m, torch.clamp(err_norm, min=1e-16), err_p], dim=-1)
+        exps = -1.0 / (order[..., None].to(dtype)
+                       + torch.tensor([0.0, 1.0, 2.0], dtype=dtype, device=dev))
+        facs = torch.pow(torch.clamp(norms, min=1e-16), exps)
+        valid = torch.stack([order > 1, torch.ones_like(accept),
+                             order < BDF_MAX_ORDER], dim=-1) & torch.isfinite(facs)
+        facs = torch.where(valid, facs, torch.full_like(facs, -1.0))
+        best = torch.argmax(facs, dim=-1)
+        order_adapted = torch.clamp(order + best - 1, 1, BDF_MAX_ORDER)
+        fac_best = torch.gather(facs, -1, best[..., None])[..., 0]
+        factor_adapt = torch.clamp(0.9 * fac_best, _BDF_MIN_FACTOR, _BDF_MAX_FACTOR)
+
+        # rejected path: shrink by the error, hard on a Newton failure
+        factor_rej = torch.where(
+            finite & converged,
+            torch.clamp(0.9 * torch.pow(torch.clamp(err_norm, min=1e-16),
+                                        -1.0 / (order.to(dtype) + 1.0)),
+                        _BDF_MIN_FACTOR, 1.0),
+            torch.full_like(err_norm, 0.25),
+        )
+        one = torch.ones_like(err_norm)
+        factor = torch.where(accept, torch.where(do_adapt, factor_adapt, one), factor_rej)
+        order_new = torch.where(do_adapt, order_adapted, order)
+        neq_new = torch.where(accept & ~do_adapt, neq_acc, torch.zeros_like(neq))
+        D_new = torch.where(accept[..., None, None], D_acc, D_c)
+        D_final = torch.where((factor == 1.0)[..., None, None], D_new,
+                              change_D(D_new, order_new, factor))
+
+        a3 = active[..., None, None]
+        D = torch.where(a3, D_final, D)
+        hmax = torch.where(active & accept, torch.maximum(hmax, h_req), hmax)
+        t = torch.where(active & accept, t_new, t)
+        h = torch.where(active, torch.clamp(h_req * factor, min=1e-14), h)
+        order = torch.where(active, order_new, order)
+        neq = torch.where(active, neq_new, neq)
+        steps = steps + active.to(steps.dtype)
+        active = cond(t, h, steps)
+    return _poison_if_unfinished(D[..., 0, :], t, t1), hmax
 
 
 # -- expm: exact propagation for linear (affine) systems -----------------------
@@ -364,23 +717,32 @@ def make_ode_propagate_carry(diffeq: Callable, nstates: int, ninput: int,
     poisons ``x`` but not the carried step.
     """
     tableau = check_solver(opts.solver)
+    solver = opts.solver
 
     def propagate_carry(x, p, dt, rateiv, t0, cov, h):
         rhs = lane_rhs(diffeq, nstates, cov)
+        lane_jac = lane_jacobian(diffeq, nstates, cov)
         rate = rateiv.expand(h.shape + (rateiv.shape[-1],))
 
         def f(xx, tt):
             return rhs(xx, p, tt, rate)
 
+        def jac(xx, tt):
+            return lane_jac(xx, p, tt, rate)
+
         t0b = t0.expand(h.shape)
         t1 = t0b + torch.clamp(dt, min=0.0).expand(h.shape)
-        if tableau is None:
+        if solver in EXPM_SOLVERS:
             # expm has no step to carry: it returns a zero step
-            jac = lane_jacobian(diffeq, nstates, cov)
-            x_next = expm_segment(f, lambda xx, tt: jac(xx, p, tt, rate), x, t0b, t1)
-            return x_next, torch.zeros_like(h)
-        x_next, h_next = _erk_segment(f, x, t0b, t1, opts, *tableau,
-                                      h_start=h)
+            return expm_segment(f, jac, x, t0b, t1), torch.zeros_like(h)
+        if solver in BDF_SOLVERS:
+            x_next, h_next = _bdf_segment(f, jac, x, t0b, t1, opts, h_start=h)
+        elif solver in SDIRK_TABLEAUS:
+            x_next, h_next = _esdirk_segment(f, jac, x, t0b, t1, opts,
+                                             h_start=h, **tableau)
+        else:
+            x_next, h_next = _erk_segment(f, x, t0b, t1, opts, *tableau,
+                                          h_start=h)
         h_next = torch.where(torch.isfinite(h_next) & (h_next > 0.0),
                              h_next, torch.zeros_like(h_next))
         return x_next, h_next

@@ -170,7 +170,8 @@ def log_likelihood_matrix(
     input 0, censoring and errorpoly overrides, and covariates through the
     secondary equations, lag, fa and init (``plans/analytical.py`` names
     what it refuses). The ODE kernel supports
-    dopri5 and tsit5, doses into any input, linear outputs and censoring,
+    dopri5 and tsit5, expm, and the stiff solvers trbdf2, kvaerno3 (=
+    esdirk34), kvaerno5 and bdf, doses into any input, linear outputs and censoring,
     covariates (constant per row, or affine within every segment: each knot
     on a breakpoint), lag and fa (static planes, or per-dose-segment planes
     when they change with time or read a time-varying covariate) and init,

@@ -14,9 +14,14 @@ a dose boundary), which is the general engine's own semantics. So the JAX
 plan's host probe of a static per-unit-dose bolus map has no counterpart
 here.
 
-In scope: dopri5, tsit5 and expm (the exact propagation tier, kernel K2d,
+In scope: dopri5, tsit5; expm (the exact propagation tier, kernel K2d,
 for an RHS that host probes find affine in the state and autonomous, with
-covariates constant within every segment; it never merges runs); boluses and infusions into any input below
+covariates constant within every segment; it never merges runs); trbdf2,
+kvaerno3 (= esdirk34) and kvaerno5 (the SDIRK tier, kernel K2b; the first two
+merge runs, captured by cubic Hermite, kvaerno5 never does) and bdf (the BDF
+tier, kernel K2c, orders 1 to ``bdf_max_order``, never merged); the implicit
+tiers and expm need the RHS's Jacobian columns, generated beside the RHS;
+boluses and infusions into any input below
 ``ndrugs``, with one stream per active input; linear outputs; censoring;
 several outputs; merged runs. With any of the following the plan runs kernel
 K2e instead of K2a: covariates (a per-row constant, or a per-segment affine
@@ -25,8 +30,8 @@ per support, or planes per (row, support) when it reads a covariate); lag
 and fa (static planes, or per-dose-segment planes selected by slot tables
 when they change with time or read a time-varying covariate). Out of scope,
 raising PharmsolError with the JAX plan's reason so that ``engine='auto'``
-takes the general engine and records why: other solvers, a covariate knot
-inside a segment, a lag that does not elapse before the input's next dose,
+takes the general engine and records why: an RHS without a Jacobian rule
+(``p ** x``) under a solver that needs one, a covariate knot inside a segment, a lag that does not elapse before the input's next dose,
 a negative lag, an ``out`` that reads a covariate, and RHS styles the
 generator rejects.
 """
@@ -59,7 +64,9 @@ _ODE_MERGE_MAX_SPAN = 16
 def _ode_merge_runs(streams, seg_t0, solver, *, n_bolus_in, n_rate_in,
                     affine_streams, has_lag):
     """Static (m0, m1) spans whose interior breakpoints the fused ODE kernel
-    may cross with dense output.
+    may cross with dense output (the explicit pairs' quartic interpolant,
+    the cubic Hermite of trbdf2 and kvaerno3/esdirk34; kvaerno5, bdf and expm
+    never merge, and neither does a model with lag).
 
     ``streams`` is ``[seg_dt, bolus per active input..., rate per active
     input..., ...]`` as numpy [R, M]. A breakpoint m (the start of column m)
@@ -72,9 +79,14 @@ def _ode_merge_runs(streams, seg_t0, solver, *, n_bolus_in, n_rate_in,
     switch is not copied: ``_FusedOdePsiPlan.kernel_kwargs(merge=False)``
     gives the per-segment march.
     """
+    from ...engine.ode import SDIRK_TABLEAUS
     from ...ops.fused_ode import dense_P_for
 
-    if dense_P_for(solver) is None or has_lag:
+    if (dense_P_for(solver) is None and solver not in SDIRK_TABLEAUS) or has_lag:
+        return None
+    if solver in SDIRK_TABLEAUS and SDIRK_TABLEAUS[solver]["order"] > 3.0:
+        # the cubic Hermite capture is order-matched only for the 2nd and 3rd
+        # order stiffly accurate pairs: kvaerno5 marches segment by segment
         return None
     dt_np = np.asarray(streams[0], np.float64)
     M = dt_np.shape[1]
@@ -278,23 +290,25 @@ class _FusedOdePsiPlan:
     or empty: kernel K2a).
     """
 
-    def __init__(self, equation, grid, sp, lowered, device, dtype):
-        from ...engine.ode import EXPM_SOLVERS, TABLEAUS
+    def __init__(self, equation, grid, sp, lowered, device, dtype,
+                 bdf_max_order: int = None):
+        from ...engine.ode import EXPM_SOLVERS, check_solver
         from ...engine.grid import CovView
+        from ...ops.fused_ode import BDF_DEFAULT_MAX_ORDER, JACOBIAN_SOLVERS
         from ...ops.fused_psi import extract_linear_out, streams_from_grid
         from ...ops.rhs_codegen import generate_rhs
 
         if getattr(equation, "kind", None) != "ode":
             raise PharmsolError("engine='fused' ODE psi needs an ODE equation")
         opts = equation._opts
+        check_solver(opts.solver)
         use_expm = opts.solver in EXPM_SOLVERS
-        if opts.solver not in TABLEAUS and not use_expm:
-            raise PharmsolError(
-                f"engine='fused' ODE psi supports solvers "
-                f"{sorted(TABLEAUS) + ['expm']} (model uses `{opts.solver}`)"
-            )
         # the kernel's name for the solver (`expm_rolled` is an alias)
         self.solver = "expm" if use_expm else opts.solver
+        need_jac = self.solver in JACOBIAN_SOLVERS
+        # the BDF tier's order cap (the JAX kernel's default unless given)
+        self.bdf_max_order = int(BDF_DEFAULT_MAX_ORDER if bdf_max_order is None
+                                 else bdf_max_order)
         self.opts = opts
         self.n_states = n_states = int(equation.nstates())
         self.n_out = int(equation.nouteqs())
@@ -313,13 +327,14 @@ class _FusedOdePsiPlan:
         # the kernel's RHS, generated once per (support width, inputs,
         # covariates): PharmsolError here is the plan-time rejection of an
         # RHS style
-        # with expm, also its Jacobian columns (rhs_jvp): part of the key
-        key = (int(sp.shape[1]), ninput, self.cov_names, self.cov_modes, use_expm)
+        # with expm or an implicit solver, also its Jacobian columns
+        # (rhs_jvp): part of the key
+        key = (int(sp.shape[1]), ninput, self.cov_names, self.cov_modes, need_jac)
         self.rhs = equation._rhs_cache.get(key)
         if self.rhs is None:
             self.rhs = generate_rhs(equation._diffeq, n_states, int(sp.shape[1]),
                                     ninput, self.cov_names, self.cov_modes,
-                                    jacobian=use_expm)
+                                    jacobian=need_jac)
             equation._rhs_cache[key] = self.rhs
         if use_expm:
             _check_expm_rhs(equation._diffeq, sp, n_states, ninput, self.rate_inputs,
@@ -433,6 +448,7 @@ class _FusedOdePsiPlan:
             bolus_inputs=self.bolus_inputs, rate_inputs=self.rate_inputs,
             merge_runs=self.merge_runs if merge else None, solver=self.solver,
             rtol=o.rtol, atol=o.atol, h0=o.h0, max_steps=o.max_steps,
+            newton_iters=o.newton_iters, bdf_max_order=self.bdf_max_order,
             **self.features,
         )
 

@@ -63,13 +63,35 @@ class Generated(NamedTuple):
 
 _vp, _ci, _cu, _cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_double
 # K2a's launch takes its 13 data pointers one by one; K2e's takes them and
-# its 7 feature pointers as two arrays, then the slot-table plane counts
+# its 7 feature pointers as two arrays, then the slot-table plane counts;
+# both end with max_iters, newton_iters, bdf_max_order and the stream
 ODE = Generated("fused_ode.cu", "rhs", "PHARMSOL_ODE_RHS", (), {
-    "launch": ([_ci, _ci] + [_vp] * 15 + [_ci] * 7 + [_cd] * 3 + [_ci, _vp], _ci),
-    "feature_launch": ([_ci, _ci] + [_vp] * 4 + [_ci] * 9 + [_cd] * 3 + [_ci, _vp], _ci),
+    "launch": ([_ci, _ci] + [_vp] * 15 + [_ci] * 7 + [_cd] * 3 + [_ci] * 3 + [_vp], _ci),
+    "feature_launch": ([_ci, _ci] + [_vp] * 4 + [_ci] * 9 + [_cd] * 3 + [_ci] * 3 + [_vp],
+                       _ci),
     # the generated rhs and rhs_jvp on n samples (checks against the closure)
     "jvp_probe": ([_ci, _ci] + [_vp] * 10, _ci),
 })
+# The tiers of the ODE kernel, one library each per generated header: a
+# header without rhs_jvp builds the explicit tier (K2a, K2e: dopri5 and
+# tsit5), one with it the exact propagation tier (K2d), unless
+# PHARMSOL_ODE_SOLVER names one implicit solver by its code (3 trbdf2,
+# 4 kvaerno3 = esdirk34, 5 kvaerno5: K2b; 6 bdf: K2c): then the library
+# holds that solver's four instantiations and no other. The implicit tiers
+# round every multiply and add on their own (-fmad=false), as their plain
+# PyTorch twin does op by op, so that kernel and twin take the same step
+# decisions.
+_ODE_STIFF_CODES = {"trbdf2": 3, "kvaerno3": 4, "esdirk34": 4, "kvaerno5": 5, "bdf": 6}
+
+
+def ode_kind(solver: str) -> Generated:
+    """The build of ``csrc/fused_ode.cu`` that holds ``solver``'s tier."""
+    code = _ODE_STIFF_CODES.get(solver)
+    if code is None:
+        return ODE
+    return ODE._replace(flags=(f"-DPHARMSOL_ODE_SOLVER={code}", "-fmad=false"))
+
+
 # The SDE kernel rounds every multiply and add on its own (-fmad=false), as
 # its plain PyTorch twin does op by op: the two then draw the same particles,
 # and the card check holds them to 1e-9 in float64 and 1e-4 in float32.
@@ -164,7 +186,9 @@ def generated_target(kind: Generated, gen) -> Target:
     """The library of ``kind``'s kernel for the generated header ``gen``;
     writes the header."""
     _write_header(header_name(kind, gen), gen.source)
-    return Target(f"{Path(kind.source).stem}[{gen.key}]", generated_library_path(kind, gen),
+    tier = "".join(f.split("=")[1] for f in kind.flags if f.startswith("-DPHARMSOL_ODE_SOLVER="))
+    name = f"{Path(kind.source).stem}[{gen.key}{':solver' + tier if tier else ''}]"
+    return Target(name, generated_library_path(kind, gen),
                   lambda out, extra, nvcc: generated_nvcc_command(kind, gen, out, extra, nvcc))
 
 

@@ -62,7 +62,16 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..engine.ode import _EXPM_SQUARINGS, _EXPM_TAYLOR, TABLEAUS
+from ..engine.ode import (
+    _BDF_ALPHA,
+    _BDF_ERROR_CONST,
+    _BDF_GAMMA,
+    _EXPM_SQUARINGS,
+    _EXPM_TAYLOR,
+    BDF_MAX_ORDER,
+    SDIRK_TABLEAUS,
+    TABLEAUS,
+)
 from .rhs_codegen import LaneCov
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -73,9 +82,36 @@ LOG_2PI = math.log(2.0 * math.pi)
 LAUNCHES = 0
 FEATURE_LAUNCHES = 0
 EXPM_LAUNCHES = 0
+# K2b (the SDIRK tier: trbdf2, kvaerno3/esdirk34, kvaerno5) and K2c (the BDF
+# tier), with or without features.
+SDIRK_LAUNCHES = 0
+BDF_LAUNCHES = 0
 
-# The kernel's solver codes (csrc/fused_ode.cu).
-SOLVER_CODES = {"dopri5": 0, "tsit5": 1, "expm": 2}
+# The kernel's solver codes (csrc/fused_ode.cu); esdirk34 is kvaerno3.
+SOLVER_CODES = {"dopri5": 0, "tsit5": 1, "expm": 2, "trbdf2": 3, "kvaerno3": 4,
+                "esdirk34": 4, "kvaerno5": 5, "bdf": 6}
+# The solvers whose march needs the RHS's Jacobian columns (rhs_jvp).
+JACOBIAN_SOLVERS = ("expm", "trbdf2", "kvaerno3", "esdirk34", "kvaerno5", "bdf")
+# The order cap of the BDF tier unless the caller says otherwise: the JAX
+# kernel's own default, so that the fused psi of the two packages agree.
+BDF_DEFAULT_MAX_ORDER = 3
+_BDF_MAX_GROWTH = 10.0
+
+
+def bdf_U():
+    """R(1), the involutory backward-difference transform, as 6 x 6 floats
+    (row 0 ones, column 0 zero below it): the constant table of the BDF
+    tier's difference-array rescaling."""
+    K = BDF_MAX_ORDER + 1
+    U = np.zeros((K, K))
+    U[0, :] = 1.0
+    for i in range(1, K):
+        for j in range(1, K):
+            U[i, j] = U[i - 1, j] * ((i - 1.0 - j) / i)
+    return U
+
+
+_BDF_U = bdf_U()
 
 # Dormand-Prince 5(4) dense-output interpolant (Shampine 1986, the quartic of
 # scipy's RK45.P):
@@ -355,13 +391,18 @@ def _check_inputs(seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value,
             raise ValueError(f"{name} must be contiguous")
     if n_out > 1 and obs_outeq is None:
         raise ValueError("obs_outeq stream required for multi-output psi")
-    if solver == "expm" and not rhs.jacobian:
-        raise ValueError("solver `expm` needs an RHS generated with jacobian=True")
+    if solver in JACOBIAN_SOLVERS and not rhs.jacobian:
+        raise ValueError(f"solver `{solver}` needs an RHS generated with jacobian=True")
     if merge_runs is None:
         runs = tuple((m, m + 1) for m in range(M))
     else:
         if solver == "expm":
             raise ValueError("expm never merges (each capture costs a full propagation)")
+        if solver == "bdf":
+            raise ValueError("bdf never merges (it has no dense-output interpolant)")
+        if solver in SDIRK_TABLEAUS and SDIRK_TABLEAUS[solver]["order"] > 3.0:
+            raise ValueError(f"{solver} never merges (the cubic Hermite capture is "
+                             "order-matched for the 2nd and 3rd order pairs only)")
         if lag is not None:
             raise ValueError("merge_runs is incompatible with lag planes")
         runs = tuple((int(a), int(b)) for a, b in merge_runs)
@@ -389,13 +430,19 @@ def psi_ode_plain(
     rtol=1e-4, atol=1e-4, h0=1e-3, max_steps=10_000, cov_streams=None,
     cov_names=(), init_rows=None, init_planes=None, init_mask=None,
     lag_plane=None, fa_plane=None, lag_slots=None, fa_slots=None, counts=None,
+    newton_iters=6, bdf_max_order=BDF_DEFAULT_MAX_ORDER,
 ):
     """Plain PyTorch twin of the fused ODE psi kernel (same arguments as
     :func:`psi_ode`), on ``[R, S]`` lanes. A ``counts`` dict receives the
-    number of step attempts over all cells (``"steps"``) or, with
+    number of step attempts over all cells (``"steps"``, and per row
+    ``"steps_by_row"`` [R]; every adaptive solver; with ``solver='bdf'`` also
+    ``"bdf_by_row"``, int64 [R, 5, 6]: per row and order k the trials, the
+    accepted steps and the order adaptations at order k, and the rescalings of
+    the difference array that the kernel performs, for the clip at order k
+    and for a step factor other than 1 at the new order k) or, with
     ``solver='expm'``, of exact propagations (``"passes"``) and of the
-    squarings they took (``"squarings"``): the work this data needs, for
-    the kernel's bound."""
+    squarings they took (``"squarings"``): the work this data needs, for the
+    kernel's bound."""
     from ..engine.sim import as_components
 
     n_out, runs, ft = _check_inputs(
@@ -404,8 +451,10 @@ def psi_ode_plain(
         bolus_inputs, rate_inputs, merge_runs, solver, cov_streams, cov_names,
         init_rows, init_planes, init_mask, lag_plane, fa_plane, lag_slots, fa_slots)
     use_expm = solver == "expm"
-    A, B, E, C = TABLEAUS["dopri5" if use_expm else solver]
+    A, B, E, C = TABLEAUS[solver if solver in TABLEAUS else "dopri5"]
     dense_P = dense_P_for(solver)
+    if not 1 <= int(bdf_max_order) <= BDF_MAX_ORDER:
+        raise ValueError(f"bdf_max_order must lie in 1..{BDF_MAX_ORDER}, got {bdf_max_order}")
     n_stages = len(C)
     N, nin = rhs.n_states, rhs.ninput
     R, M = seg_dt.shape
@@ -534,8 +583,7 @@ def psi_ode_plain(
         live = live0
         it = 0
         while it < max_steps and bool(live.any()):
-            if counts is not None:
-                counts["steps"] = counts.get("steps", 0) + int(live.sum())
+            count_trials(live)
             rem = target - tau
             h_try = torch.minimum(h_c, torch.clamp(rem, min=1e-14))
             ks = [k1]
@@ -679,8 +727,421 @@ def psi_ode_plain(
                   for xn, x in zip(xs_new, xs)]
         return xs_out, h, []
 
+    def lane_jacobian(xs_c, t_base, rate, cov):
+        """J[i][j] = df_i/dx_j on every lane: one forward-mode pass of the
+        closure per unit vector (the kernel calls the generated rhs_jvp)."""
+        ones = torch.ones_like(zeros)
+        cols = []
+        for j in range(N):
+            tangent = tuple(ones if s == j else zeros for s in range(N))
+            _, jv = torch.func.jvp(
+                lambda *x: tuple(c + zeros for c in f(list(x), t_base, rate, cov)),
+                tuple(x + zeros for x in xs_c), tangent)
+            cols.append(list(jv))
+        return [[cols[j][i] for j in range(N)] for i in range(N)]
+
+    def lane_inverse(Mx):
+        """Inverse of an N x N matrix of lanes by Gauss-Jordan without
+        pivoting, the diagonal clamped at 1e-30 (JAX ``_lane_inverse``,
+        :339): the iteration matrix has a dominant positive diagonal for
+        compartment kinetics, and a singular lane gives garbage that the
+        Newton residual check rejects."""
+        aug = [[Mx[i][j] for j in range(N)]
+               + [torch.full_like(zeros, 1.0 if j == i else 0.0) for j in range(N)]
+               for i in range(N)]
+        for k in range(N):
+            d = aug[k][k]
+            d = torch.where(torch.abs(d) > 1e-30, d, torch.full_like(d, 1e-30))
+            inv_d = 1.0 / d
+            aug[k] = [e * inv_d for e in aug[k]]
+            for i in range(N):
+                if i == k:
+                    continue
+                factor = aug[i][k]
+                aug[i] = [e_i - factor * e_k for e_i, e_k in zip(aug[i], aug[k])]
+        return [row[N:] for row in aug]
+
+    def matvec(Mx, v):
+        out = []
+        for i in range(N):
+            acc = Mx[i][0] * v[0]
+            for j in range(1, N):
+                acc = acc + Mx[i][j] * v[j]
+            out.append(acc)
+        return out
+
+    def count_trials(live):
+        if counts is not None:
+            per_row = live.sum(dim=1)
+            counts["steps"] = counts.get("steps", 0) + int(per_row.sum())
+            counts["steps_by_row"] = counts.get("steps_by_row", 0) + per_row
+
+    def count_bdf(kind, mask, order_l):
+        # kind: 0 trials, 1 accepts, 2 adaptations, 3 clip and 4 factor rescalings
+        tally = counts.setdefault("bdf_by_row", torch.zeros(
+            (R, 5, BDF_MAX_ORDER + 1), dtype=torch.int64, device=dev))
+        for k in range(1, BDF_MAX_ORDER + 1):
+            tally[:, kind, k] += (mask & (order_l > k - 0.5) & (order_l < k + 0.5)).sum(dim=1)
+
+    def integrate_sdirk(xs, h, dt_col, rate, t0_col, estimate_h, interior, cov):
+        """Adaptive SDIRK march over one run (JAX ``integrate_sdirk``,
+        ops/pallas_ode.py:949): the first stage explicit; each later stage a
+        Newton iteration on ``I - h gamma J`` with J frozen at the step's
+        start and inverted once per trial; a step whose Newton residual
+        stays above 0.1 (WRMS) or whose state jumps more than tenfold is
+        rejected. Interior observations of a merged run are captured by the
+        cubic Hermite on (x0, f0, x1, f1): these 2nd and 3rd order pairs are
+        stiffly accurate, so the last stage slope is f(x_new). No starting
+        step estimate: ``estimate_h`` is unused."""
+        tab = SDIRK_TABLEAUS[solver]
+        sA, sB, sBHAT, sC = tab["A"], tab["B"], tab["BHAT"], tab["C"]
+        gamma, order, max_growth = tab["gamma"], tab["order"], tab["max_growth"]
+        ns = len(sC)
+        target = dt_col.expand(shape)
+        # a lane that arrives non-finite must not march: every trial would
+        # reject and, at tau = 0, the stall guard could never fire
+        live0 = target > 0.0
+        for s in range(N):
+            live0 = live0 & torch.isfinite(xs[s])
+        t_end_eff = target - 1e-6 * torch.clamp(target, min=1e-30)
+        n_int = len(interior) if interior else 0
+        if n_int:
+            T_eff = [torch.minimum(Tj.expand(shape), t_end_eff) for Tj, _ in interior]
+            start = [out_k(k, xs) for k in range(n_out)]
+            preds = [torch.where(Tj.expand(shape) <= 0.0, sel_out(oe, start), zeros)
+                     for Tj, oe in interior]
+        tau = zeros
+        xs_c = [x + zeros for x in xs]
+        h_c = torch.minimum(h, torch.clamp(target, min=1e-14))
+        live = live0
+        it = 0
+        while it < max_steps and bool(live.any()):
+            count_trials(live)
+            rem = target - tau
+            h_try = torch.minimum(h_c, torch.clamp(rem, min=1e-14))
+            t_base = t0_col + tau
+            J = lane_jacobian(xs_c, t_base, rate, cov)
+            Minv = lane_inverse([[(1.0 if i == j else 0.0) - h_try * gamma * J[i][j]
+                                  for j in range(N)] for i in range(N)])
+            ks = [f(xs_c, t_base, rate, cov)]
+            resid_max = zeros
+            for i in range(1, ns):
+                base = [xs_c[s] + h_try * _wsum([ks[j][s] for j in range(i)], sA[i][:i])
+                        for s in range(N)]
+                t_st = t_base + sC[i] * h_try
+                z = [b + h_try * gamma * k for b, k in zip(base, ks[i - 1])]
+                for _ in range(newton_iters):
+                    fz = f(z, t_st, rate, cov)
+                    F = [zz - bb - h_try * gamma * ff for zz, bb, ff in zip(z, base, fz)]
+                    z = [zz - dz for zz, dz in zip(z, matvec(Minv, F))]
+                fz = f(z, t_st, rate, cov)
+                r2 = zeros
+                for s in range(N):
+                    Fs = z[s] - base[s] - h_try * gamma * fz[s]
+                    sc = atol + rtol * torch.abs(z[s])
+                    r2 = r2 + (Fs / sc) ** 2
+                resid_max = torch.maximum(resid_max, torch.sqrt(r2 / float(N)))
+                ks.append(fz)
+            xs_new = [x + h_try * _wsum([k[s] for k in ks], sB) for s, x in enumerate(xs_c)]
+            err2 = zeros
+            for s in range(N):
+                e = h_try * (_wsum([k[s] for k in ks], sB) - _wsum([k[s] for k in ks], sBHAT))
+                sc = atol + rtol * torch.maximum(torch.abs(xs_c[s]), torch.abs(xs_new[s]))
+                err2 = err2 + (e / sc) ** 2
+            ratio = torch.sqrt(err2 / float(N))
+            finite = torch.isfinite(ratio) & (resid_max <= 0.1)
+            growth = xmax = zeros
+            for s in range(N):
+                finite = finite & torch.isfinite(xs_new[s])
+                growth = torch.maximum(growth, torch.abs(xs_new[s] - xs_c[s]))
+                xmax = torch.maximum(xmax, torch.abs(xs_c[s]))
+            # a tenfold jump of the state is a spurious Newton root
+            finite = finite & (growth <= 10.0 * (1.0 + xmax))
+            accept = live & (ratio <= 1.0) & finite
+            factor = torch.where(
+                finite,
+                torch.clamp(0.9 * torch.pow(torch.clamp(ratio, min=1e-10),
+                                            -1.0 / (order + 1.0)), 0.2, max_growth),
+                torch.full_like(ratio, 0.25))
+            tau_n = torch.where(accept, tau + h_try, tau)
+            xs_n = [torch.where(accept, xn, x) for xn, x in zip(xs_new, xs_c)]
+            h_n = torch.where(live, torch.clamp(h_try * factor, min=1e-14), h_c)
+            done_n = tau_n >= t_end_eff
+            stalled = live & ((tau_n + h_n) <= tau_n) & ~done_n
+            if n_int:
+                crossed = [accept & (tau < T_eff[j]) & (T_eff[j] <= tau + h_try)
+                           for j in range(n_int)]
+                if any(bool(c.any()) for c in crossed):
+                    # cubic Hermite on (x0, f0, x1, f1), contracted with the
+                    # output coefficients first
+                    c0s = [out_k(k, xs_c) for k in range(n_out)]
+                    c1s = [out_k(k, xs_new) for k in range(n_out)]
+                    f0s = [out_k(k, ks[0]) for k in range(n_out)]
+                    f1s = [out_k(k, ks[-1]) for k in range(n_out)]
+                    for j, (_, oe) in enumerate(interior):
+                        th = (T_eff[j] - tau) / h_try
+                        per_out = []
+                        for k in range(n_out):
+                            d = c1s[k] - c0s[k]
+                            a_ = h_try * f0s[k] - d
+                            b_ = d - h_try * f1s[k]
+                            per_out.append(c0s[k] + th * d
+                                           + th * (1.0 - th) * ((1.0 - th) * a_ + th * b_))
+                        preds[j] = torch.where(crossed[j], sel_out(oe, per_out), preds[j])
+            tau, xs_c, h_c = tau_n, xs_n, h_n
+            live = live & ~done_n & ~stalled
+            it += 1
+        incomplete = tau < t_end_eff
+        xs_out = [torch.where(incomplete, nan, x) for x in xs_c]
+        h_out = torch.where(live0, h_c, h)
+        if n_int:
+            preds = [torch.where((T_eff[j] > tau) & (Tj.expand(shape) > 0.0), nan, p)
+                     for j, ((Tj, _), p) in enumerate(zip(interior, preds))]
+            return xs_out, h_out, preds
+        return xs_out, h_out, []
+
+    def integrate_bdf(xs, h, dt_col, rate, t0_col, estimate_h, interior, cov):
+        """Variable-order BDF march over one run (JAX ``integrate_bdf``,
+        ops/pallas_ode.py:1289), orders 1 to ``bdf_max_order``: per lane a
+        backward-difference array D[order cap + 3][N] and a float-valued
+        order; the Jacobian frozen at the predicted point and inverted once
+        per trial; the order chosen among k-1, k, k+1 after k+1 equal steps,
+        the middle winning ties; a hard reset to order 1 at h/4 on the third
+        rejection in a row; an immediate 1.4x growth after an accept whose
+        error is below 0.25. The rescaling ``(R(factor) U)^T D`` is two masked
+        transforms. Never merged."""
+        assert not interior, "bdf never merges"
+        MAXO = int(bdf_max_order)
+        K6 = MAXO + 1
+        target = dt_col.expand(shape)
+        live0 = target > 0.0
+        for s in range(N):
+            live0 = live0 & torch.isfinite(xs[s])
+        t_end_eff = target - 1e-6 * torch.clamp(target, min=1e-30)
+        one = torch.ones_like(zeros)
+
+        def where(cond, a, b):
+            # scalars become lanes of the working dtype (two Python floats
+            # alone would give torch's default dtype)
+            a = a if isinstance(a, torch.Tensor) else torch.full_like(zeros, a)
+            b = b if isinstance(b, torch.Tensor) else torch.full_like(zeros, b)
+            return torch.where(cond, a, b)
+
+        def near(v, k):
+            return (v > float(k) - 0.5) & (v < float(k) + 0.5)
+
+        def tab_at(table, order_l, lo, hi):
+            acc = zeros
+            for k in range(lo, hi + 1):
+                ki = min(k, len(table) - 1)
+                acc = acc + where(near(order_l, k), float(table[ki]), 0.0)
+            return acc
+
+        def rms_states(vs, scales):
+            r2 = zeros
+            for s in range(N):
+                r2 = r2 + (vs[s] / scales[s]) ** 2
+            return torch.sqrt(r2 / float(N))
+
+        def change_D(D, order_l, fac):
+            # R(fac) per lane: R[0][j] = 1, R[i][0] = 0 (i >= 1),
+            # R[i][j] = R[i-1][j] * (i - 1 - fac j) / i
+            Rl = [[None] * K6 for _ in range(K6)]
+            for i in range(1, K6):
+                for j in range(1, K6):
+                    m_ij = (float(i - 1) - fac * float(j)) / float(i)
+                    Rl[i][j] = m_ij if i == 1 else Rl[i - 1][j] * m_ij
+
+            def act(i, j):
+                return order_l >= float(max(i, j))
+
+            # tmp = Rm^T D[:K6], then out = Um^T tmp, both masked to the
+            # identity beyond the lane's order
+            tmp = [[None] * N for _ in range(K6)]
+            for a in range(K6):
+                for s in range(N):
+                    acc = D[0][s] if a == 0 else where(act(0, a), 1.0, 0.0) * D[0][s]
+                    for b in range(1, K6):
+                        if a == 0:
+                            continue
+                        ent = where(act(b, a), Rl[b][a], 1.0 if b == a else 0.0)
+                        acc = acc + ent * D[b][s]
+                    tmp[a][s] = acc
+            out = [[None] * N for _ in range(K6)]
+            for c_ in range(K6):
+                for s in range(N):
+                    acc = zeros
+                    for a in range(K6):
+                        ent = where(act(a, c_), float(_BDF_U[a][c_]),
+                                    1.0 if a == c_ else 0.0)
+                        acc = acc + ent * tmp[a][s]
+                    out[c_][s] = acc
+            return out + [row[:] for row in D[K6:]]
+
+        def fac_of(e_, order_l, dord):
+            # exp(log): what the JAX kernel computes; pow would move step
+            # decisions
+            return torch.exp(torch.log(torch.clamp(e_, min=1e-16))
+                             * (-1.0 / (order_l + dord)))
+
+        h_start = torch.minimum(h, torch.clamp(target, min=1e-14))
+        f0 = f(xs, t0_col, rate, cov)
+        D = [[zeros] * N for _ in range(MAXO + 3)]
+        D[0] = [x + zeros for x in xs]
+        D[1] = [h_start * k for k in f0]
+        tau, h_c = zeros, h_start
+        order_l, neq, nrej = one, zeros, zeros
+        live = live0
+        it = 0
+        while it < max_steps and bool(live.any()):
+            count_trials(live)
+            rem = target - tau
+            # clip the step to the remaining span, rescaling the history
+            h_try = torch.minimum(h_c, torch.clamp(rem, min=1e-14))
+            fac_clip = h_try / torch.clamp(h_c, min=1e-30)
+            clip = fac_clip < 1.0
+            D_cl = change_D(D, order_l, fac_clip)
+            D = [[torch.where(clip, D_cl[i][s], D[i][s]) for s in range(N)]
+                 for i in range(len(D))]
+            neq = torch.where(clip, zeros, neq)
+
+            alpha_k = tab_at(_BDF_ALPHA, order_l, 1, MAXO)
+            c = h_try / torch.clamp(alpha_k, min=1e-30)
+            x_pred = [zeros] * N
+            psi_v = [zeros] * N
+            for i in range(K6):
+                wi = (order_l >= float(i)).to(dtype)
+                gi = float(_BDF_GAMMA[i]) if i >= 1 else 0.0
+                for s in range(N):
+                    x_pred[s] = x_pred[s] + wi * D[i][s]
+                    if i >= 1:
+                        psi_v[s] = psi_v[s] + wi * gi * D[i][s]
+            psi_v = [p / torch.clamp(alpha_k, min=1e-30) * 1.0 for p in psi_v]
+            scales = [atol + rtol * torch.abs(x_pred[s]) for s in range(N)]
+            t_new = t0_col + tau + h_try
+
+            J = lane_jacobian(x_pred, t_new, rate, cov)
+            Minv = lane_inverse([[(1.0 if i == j else 0.0) - c * J[i][j]
+                                  for j in range(N)] for i in range(N)])
+            d_l = [zeros] * N
+            y = list(x_pred)
+            for _ in range(newton_iters):
+                fy = f(y, t_new, rate, cov)
+                res = [c * fy[s] - psi_v[s] - d_l[s] for s in range(N)]
+                step = matvec(Minv, res)
+                d_l = [dd + st for dd, st in zip(d_l, step)]
+                y = [yy + st for yy, st in zip(y, step)]
+            fy = f(y, t_new, rate, cov)
+            resid = [c * fy[s] - psi_v[s] - d_l[s] for s in range(N)]
+
+            ec_k = tab_at(_BDF_ERROR_CONST, order_l, 1, MAXO)
+            err_norm = rms_states([ec_k * dd for dd in d_l], scales)
+            res_norm = rms_states(resid, scales)
+            finite = torch.isfinite(err_norm)
+            for s in range(N):
+                finite = finite & torch.isfinite(y[s])
+            converged = res_norm <= 0.1
+            accept = live & (err_norm <= 1.0) & converged & finite
+
+            # accepted-path difference update: D[k+2] = d - D[k+1];
+            # D[k+1] = d; D[i] += D[i+1] downward
+            d_op1 = [zeros] * N
+            for k in range(2, MAXO + 2):
+                w = near(order_l + 1.0, k).to(dtype)
+                for s in range(N):
+                    d_op1[s] = d_op1[s] + w * D[k][s]
+            D_acc = []
+            for i in range(len(D)):
+                is2 = near(order_l + 2.0, i)
+                is1 = near(order_l + 1.0, i)
+                D_acc.append([torch.where(is2, d_l[s] - d_op1[s],
+                                          torch.where(is1, d_l[s], D[i][s]))
+                              for s in range(N)])
+            for i in range(MAXO, -1, -1):
+                wi = (order_l >= float(i)).to(dtype)
+                for s in range(N):
+                    D_acc[i][s] = D_acc[i][s] + wi * D_acc[i + 1][s]
+
+            neq_acc = neq + 1.0
+            do_adapt = accept & (neq_acc > order_l)
+
+            # order adaptation: the error norms at order - 1, order, order + 1
+            d_at_k = [zeros] * N
+            d_at_k2 = [zeros] * N
+            for k in range(1, MAXO + 1):
+                w = near(order_l, k).to(dtype)
+                for s in range(N):
+                    d_at_k[s] = d_at_k[s] + w * D_acc[k][s]
+                    d_at_k2[s] = d_at_k2[s] + w * D_acc[k + 2][s]
+            ec_m = tab_at(_BDF_ERROR_CONST, order_l - 1.0, 0, MAXO - 1)
+            ec_p = tab_at(_BDF_ERROR_CONST, order_l + 1.0, 2, MAXO + 1)
+            err_m = rms_states([ec_m * v for v in d_at_k], scales)
+            err_p = rms_states([ec_p * v for v in d_at_k2], scales)
+            e_mid = torch.clamp(err_norm, min=1e-16)
+            f_m = fac_of(err_m, order_l, 0.0)
+            f_0 = fac_of(e_mid, order_l, 1.0)
+            f_p = fac_of(err_p, order_l, 2.0)
+            minus = torch.full_like(zeros, -1.0)
+            f_m = torch.where((order_l > 1.0) & torch.isfinite(f_m), f_m, minus)
+            f_p = torch.where((order_l < float(MAXO)) & torch.isfinite(f_p), f_p, minus)
+            best_p = (f_p > f_0) & (f_p > f_m)
+            best_m = (f_m > f_0) & ~best_p
+            order_adapted = torch.clamp(
+                order_l + where(best_p, 1.0, where(best_m, -1.0, 0.0)),
+                1.0, float(MAXO))
+            fac_best = torch.where(best_p, f_p, torch.where(best_m, f_m, f_0))
+            factor_adapt = torch.clamp(0.9 * fac_best, 0.2, _BDF_MAX_GROWTH)
+            factor_rej = torch.where(
+                finite & converged,
+                torch.clamp(0.9 * fac_of(torch.clamp(err_norm, min=1e-16), order_l, 1.0),
+                            0.2, 1.0),
+                torch.full_like(zeros, 0.25))
+            factor = torch.where(accept, torch.where(do_adapt, factor_adapt, one),
+                                 factor_rej)
+            order_n = torch.where(do_adapt, order_adapted, order_l)
+            # a third rejection in a row resets to order 1 at h / 4: it clears
+            # a high-order history whose error estimates cannot be trusted
+            nrej_n = torch.where(accept, zeros, nrej + 1.0)
+            hard = ~accept & (nrej >= 2.0) & live
+            order_n = torch.where(hard, one, order_n)
+            factor = torch.where(hard, torch.full_like(zeros, 0.25), factor)
+            nrej_n = torch.where(hard, zeros, nrej_n)
+            # the quasi-constant policy grows h only after order + 1 accepts
+            # in a row, so a lane whose estimate flips around 1 would never
+            # grow: an accept whose error is clearly small grows 1.4x at once
+            grow_now = accept & ~do_adapt & (err_norm < 0.25)
+            factor = torch.where(grow_now, torch.full_like(zeros, 1.4), factor)
+            neq_n = torch.where(accept & ~do_adapt & ~grow_now, neq_acc, zeros)
+            D_sel = [[torch.where(accept, D_acc[i][s], D[i][s]) for s in range(N)]
+                     for i in range(len(D))]
+            D_fac = change_D(D_sel, order_n, factor)
+            refac = live & (factor != 1.0)
+            D = [[torch.where(refac, D_fac[i][s], D_sel[i][s]) for s in range(N)]
+                 for i in range(len(D))]
+            if counts is not None:
+                count_bdf(0, live, order_l)
+                count_bdf(1, accept, order_l)
+                count_bdf(2, do_adapt, order_l)
+                count_bdf(3, live & clip, order_l)
+                count_bdf(4, refac, order_n)
+            tau_n = torch.where(accept, tau + h_try, tau)
+            h_n = torch.where(live, torch.clamp(h_try * factor, min=1e-14), h_c)
+            done_n = tau_n >= t_end_eff
+            stalled = live & ((tau_n + h_n) <= tau_n) & ~done_n
+            tau, h_c, order_l, neq, nrej = tau_n, h_n, order_n, neq_n, nrej_n
+            live = live & ~done_n & ~stalled
+            it += 1
+        incomplete = tau < t_end_eff
+        xs_out = [torch.where(incomplete, nan, D[0][s]) for s in range(N)]
+        h_out = torch.where(live0, h_c, h)
+        return xs_out, h_out, []
+
     if use_expm:
         integrate = integrate_expm  # noqa: F811 (the pass of this solver)
+    elif solver in SDIRK_TABLEAUS:
+        integrate = integrate_sdirk  # noqa: F811
+    elif solver == "bdf":
+        integrate = integrate_bdf  # noqa: F811
 
     if ft.init_mask is not None:
         im = ft.init_mask.reshape(R, 1)
@@ -778,12 +1239,17 @@ def psi_ode(
     rtol=1e-4, atol=1e-4, h0=1e-3, max_steps=10_000, cov_streams=None,
     cov_names=(), init_rows=None, init_planes=None, init_mask=None,
     lag_plane=None, fa_plane=None, lag_slots=None, fa_slots=None,
+    newton_iters=6, bdf_max_order=BDF_DEFAULT_MAX_ORDER,
 ):
     """Fused ODE psi [R, S]: the counterpart of the JAX package's
     ``ops/pallas_ode.py::psi_ode``, explicit tier (dopri5, tsit5), exact
     propagation tier (``solver='expm'``: an RHS affine in the state and
-    autonomous within a segment, generated with ``jacobian=True``; never
-    merged) and their feature tier.
+    autonomous within a segment; never merged), SDIRK tier (trbdf2,
+    kvaerno3 = esdirk34, kvaerno5: ``newton_iters`` frozen-Jacobian Newton
+    rounds per stage; kvaerno5 never merged), BDF tier (``solver='bdf'``,
+    orders 1 to ``bdf_max_order``, never merged) and their feature tier.
+    Every tier but the explicit one needs an RHS generated with
+    ``jacobian=True``.
 
     ``rhs`` is the :class:`~.rhs_codegen.GeneratedRhs` of the model.
     ``seg_rateiv``, ``obs_cens`` and ``out_bias`` are None when the workload
@@ -802,10 +1268,11 @@ def psi_ode(
 
     On a CUDA tensor this launches ``csrc/fused_ode.cu`` (one thread per
     (row, support) cell): kernel K2a without features, K2e with any, K2d
-    with ``solver='expm'``, and raises if the build or the launch fails; on a CPU tensor it runs
+    with ``solver='expm'``, K2b with an SDIRK solver, K2c with ``bdf``, and
+    raises if the build or the launch fails; on a CPU tensor it runs
     :func:`psi_ode_plain`.
     """
-    global LAUNCHES, FEATURE_LAUNCHES, EXPM_LAUNCHES
+    global LAUNCHES, FEATURE_LAUNCHES, EXPM_LAUNCHES, SDIRK_LAUNCHES, BDF_LAUNCHES
     args = (seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
             obs_cens, seg_t0, support, rhs)
     feat_kw = dict(cov_streams=cov_streams, cov_names=tuple(cov_names),
@@ -815,7 +1282,8 @@ def psi_ode(
     kw = dict(obs_outeq=obs_outeq, out_coef=out_coef, out_bias=out_bias,
               bolus_inputs=tuple(bolus_inputs), rate_inputs=tuple(rate_inputs),
               merge_runs=merge_runs, solver=solver, rtol=rtol, atol=atol,
-              h0=h0, max_steps=max_steps)
+              h0=h0, max_steps=max_steps, newton_iters=int(newton_iters),
+              bdf_max_order=int(bdf_max_order))
     dev = seg_dt.device
     if dev.type == "cpu":
         return psi_ode_plain(*args, **kw, **feat_kw)
@@ -828,9 +1296,11 @@ def psi_ode(
     S = support.shape[0]
     if R == 0 or S == 0:
         return torch.empty((R, S), dtype=seg_dt.dtype, device=dev)  # nothing to launch
-    from ._build import ODE, load_generated_library
+    if not 1 <= kw["bdf_max_order"] <= BDF_MAX_ORDER:
+        raise ValueError(f"bdf_max_order must lie in 1..{BDF_MAX_ORDER}, got {bdf_max_order}")
+    from ._build import load_generated_library, ode_kind
 
-    lib = load_generated_library(ODE, rhs)
+    lib = load_generated_library(ode_kind(solver), rhs)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         out, err = _launch(lib, stream, args, kw, n_out, runs, ft)
@@ -841,6 +1311,10 @@ def psi_ode(
         )
     if solver == "expm":
         EXPM_LAUNCHES += 1
+    elif solver in SDIRK_TABLEAUS:
+        SDIRK_LAUNCHES += 1
+    elif solver == "bdf":
+        BDF_LAUNCHES += 1
     elif ft.any:
         FEATURE_LAUNCHES += 1
     else:
@@ -895,14 +1369,18 @@ def _launch(lib, stream: int, args, kw, n_out: int, runs, ft: Features):
     tols = (ctypes.c_double(kw["rtol"]), ctypes.c_double(kw["atol"]),
             ctypes.c_double(kw["h0"]))
     is_f64, code = int(seg_dt.dtype == torch.float64), SOLVER_CODES[kw["solver"]]
+    # the implicit tiers' Newton rounds and the BDF tier's order cap (unread
+    # by the explicit and expm tiers)
+    stiff = (int(kw.get("newton_iters", 0)), int(kw.get("bdf_max_order", BDF_DEFAULT_MAX_ORDER)))
     if feat_ptrs is None:
         err = lib.fused_ode_launch(is_f64, code, *base, _ptr(ints), _ptr(out), *dims,
-                                   *tols, int(kw["max_steps"]), ctypes.c_void_p(stream))
+                                   *tols, int(kw["max_steps"]), *stiff,
+                                   ctypes.c_void_p(stream))
     else:
         err = lib.fused_ode_feature_launch(
             is_f64, code, (ctypes.c_void_p * 13)(*base), feat_ptrs, _ptr(ints),
             _ptr(out), *dims, len(ft.lag or ()), len(ft.fa or ()), *tols,
-            int(kw["max_steps"]), ctypes.c_void_p(stream))
+            int(kw["max_steps"]), *stiff, ctypes.c_void_p(stream))
     return out, err
 
 
@@ -931,7 +1409,7 @@ def rhs_jvp_on_device(rhs, x, p, t, rate, v, cov_a=None, cov_b=None):
         if a.shape[0] != n or (width is not None and tuple(a.shape[1:]) != (width,)):
             raise ValueError(f"sample arrays must be [n, width]; got {tuple(a.shape)}")
     f, jv = torch.empty_like(ins[0]), torch.empty_like(ins[0])
-    lib = load_generated_library(ODE, rhs)
+    lib = load_generated_library(ODE, rhs)  # the expm tier's library holds the probe
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_ode_jvp_probe(int(dtype == torch.float64), n, *(_ptr(a) for a in ins),

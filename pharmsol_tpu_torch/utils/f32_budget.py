@@ -53,9 +53,13 @@ F32_BUDGET: Dict[str, float] = {
     # exact propagation (JAX package :62): no controller, so float32 error is
     # the chain's own rounding
     "ode_expm": 5e-5,
+    # variable-order BDF (JAX package :68-73): order and step adaptation
+    # compound float32 noise in the difference array. The JAX package has no
+    # row for the SDIRK solvers; the port holds them to this one.
+    "ode_bdf": 2e-3,
 }
 ODE_CASES = ("ode_dopri5", "ode_multi_input", "ode_lag_fa", "ode_tv_covariate",
-             "ode_expm")
+             "ode_expm", "ode_bdf")
 
 NOMINAL: Dict[str, List[float]] = {
     "one_compartment": [0.2],
@@ -138,7 +142,8 @@ def ode_case(name: str, lib=None, stack=None):
     ``ode_tv_covariate``: a 1-state RHS whose elimination follows a weight
     with three knots on observation times. ``ode_expm``: the ``ode_dopri5``
     case with ``.with_solver("expm")``, the exact propagation tier (JAX
-    ``_ode_expm_case``).
+    ``_ode_expm_case``). ``ode_bdf``: the same case with
+    ``.with_solver("bdf")`` (JAX ``_ode_bdf_case``).
 
     Built with ``lib`` (default this package) and ``stack`` (default
     ``torch.stack``): ``lib=pharmsol_tpu, stack=jnp.stack`` gives the JAX
@@ -159,6 +164,9 @@ def ode_case(name: str, lib=None, stack=None):
     if name == "ode_expm":
         model, data, support, ems = ode_case("ode_dopri5", lib, stack)
         return model.with_solver("expm"), data, support, ems
+    if name == "ode_bdf":
+        model, data, support, ems = ode_case("ode_dopri5", lib, stack)
+        return model.with_solver("bdf"), data, support, ems
 
     ems = AssayErrorModels().add(
         0, AssayErrorModel.additive(ErrorPoly(0.4, 0.1), 1.0))
@@ -774,6 +782,178 @@ def expm_case(name: str, n_subjects: int = 6, n_support: int = 12, seed: int = 0
         out = lambda x, p, t, cov, c=central, v=vol: x[c:c + 1] / p[v]  # noqa: E731
     model = lib.ODE(rhs(stack), out=out, nstates=nstates, ndrugs=1, nout=nout,
                     **closures).with_solver("expm")
+    return model, lib.Data(subjects), sp, ems
+
+
+# ---------------------------------------------------------------------------
+# Kernels K2b and K2c: ODE models with a stiff solver
+# ---------------------------------------------------------------------------
+
+
+def _rhs_binding(stack):
+    # a 2-state target-binding model: p = kel, v, kon, ksyn, kdeg
+    return lambda x, p, t, b, r, cov: stack([
+        -p[0] * x[0] - p[2] * x[0] * x[1] + b[0],
+        p[3] - p[4] * x[1] - p[2] * x[0] * x[1],
+    ])
+
+
+def _rhs_michaelis_menten(stack):
+    # dx = -vmax x / (km + x): zero order above km, first order below
+    return lambda x, p, t, b, r, cov: stack([
+        -p[0] * x[0] / (p[1] + x[0]) + b[0] + r[0],
+    ])
+
+
+def _rhs_tmdd(stack):
+    # full TMDD: drug L, target R, complex P; p = kel, kon, koff, ksyn, kdeg,
+    # kint, v. kon separates the time scales by about 1e3
+    def diffeq(x, p, t, b, r, cov):
+        bind = p[1] * x[0] * x[1] - p[2] * x[2]
+        return stack([
+            -p[0] * x[0] - bind + b[0] + r[0],
+            p[3] - p[4] * x[1] - bind,
+            bind - p[5] * x[2],
+        ])
+    return diffeq
+
+
+TMDD_CENTRE = (0.1, 100.0, 0.1, 1.0, 0.1, 0.5, 5.0)  # kel kon koff ksyn kdeg kint v
+MM_CENTRE = (80.0, 0.05, 10.0)                       # vmax, km, v
+TMDD_TIMES = (0.1, 0.5, 1.0, 2.0, 5.0, 10.0, 24.0, 48.0)
+
+# name: what the case holds (the models of the JAX package's
+# tests/test_pallas_ode.py:452-499, :725-774, tests/test_stiff.py:21-83 and
+# benches/stiff_bench.py:45-72)
+STIFF_CASES = {
+    "two_cmt": "2-state oral with a fast absorption, a bolus and an infusion on "
+               "every third subject",
+    "binding_init": "2-state target binding with the target at steady state (init)",
+    "separated_rates": "2-state oral, ka up to 500/h against ke ~ 0.3/h",
+    "lag_infusion": "2-state oral with a lag, a bolus and an infusion",
+    "michaelis_menten": "saturable elimination, km far below the concentrations, "
+                        "a bolus and an infusion",
+    "tmdd": "full 3-state TMDD with init: the stiff corpus",
+    "cov_affine": "2-state oral, elimination scaled by a weight with knots at 0 and 2 h",
+    "two_outputs_cens": "2-state oral with init, two outputs and a BLOQ observation",
+    "poison": "tmdd with kon over three decades, every other subject undosed, and a "
+              "step budget too small for the dosed subjects' stiffest supports: those "
+              "cells are -inf",
+}
+# trial budgets per segment between what an undosed subject needs to ramp its
+# step up from h0 and what the dosed subjects' stiffest supports need
+POISON_MAX_STEPS = {"kvaerno5": 32}
+POISON_MAX_STEPS_DEFAULT = 48
+
+
+def stiff_case(name: str, n_subjects: int = 6, n_support: int = 12, seed: int = 0,
+               lib=None, stack=None, solver: str = "bdf"):
+    """K2b's and K2c's case ``name`` (see ``STIFF_CASES``): (model, data,
+    support, ems) with ``.with_solver(solver)``, built with ``lib`` (default
+    this package) and ``stack`` (default ``torch.stack``); observed values
+    and supports come from ``seed``."""
+    import numpy as np
+
+    if lib is None:
+        import pharmsol_tpu_torch as lib
+    if stack is None:
+        import torch
+
+        stack = torch.stack
+    if name not in STIFF_CASES:
+        raise KeyError(f"no stiff case `{name}` (have {', '.join(STIFF_CASES)})")
+    rng = np.random.RandomState(seed)
+    S = n_support
+    ems = lib.AssayErrorModels().add(
+        0, lib.AssayErrorModel.additive(lib.ErrorPoly(0.5, 0.1), 1.0))
+    closures, nstates, nout = {}, 2, 1
+    out = lambda x, p, t, cov: x[1:2] / p[2]  # noqa: E731
+    rhs = _rhs_oral
+    times = (0.5, 1.0, 2.0, 4.0, 8.0)
+    if name == "two_cmt":
+        sp = np.column_stack([rng.uniform(5.0, 20.0, S), rng.uniform(0.05, 0.5, S),
+                              rng.uniform(30, 90, S)])
+    elif name == "binding_init":
+        rhs = _rhs_binding
+        closures = dict(init=lambda p, t, cov: [0.0, p[3] / p[4]])
+        out = lambda x, p, t, cov: x[0:1] / p[1]  # noqa: E731
+        times = (0.25, 1.0, 4.0, 12.0, 24.0)
+        sp = np.column_stack([rng.uniform(0.05, 0.2, S), rng.uniform(3.0, 6.0, S),
+                              rng.uniform(1.0, 5.0, S), rng.uniform(1.0, 3.0, S),
+                              rng.uniform(0.5, 2.0, S)])
+    elif name == "separated_rates":
+        out = lambda x, p, t, cov: x[1:2]  # noqa: E731
+        times = (0.1, 0.5, 1.0, 3.0, 8.0)
+        sp = np.column_stack([np.exp(rng.uniform(np.log(20.0), np.log(500.0), S)),
+                              rng.uniform(0.2, 0.5, S)])
+    elif name == "lag_infusion":
+        rhs = lambda st: (lambda x, p, t, b, r, cov: st([  # noqa: E731
+            -p[0] * x[0] + b[0] + r[0], p[0] * x[0] - p[1] * x[1]]))
+        closures = dict(lag=lambda p, t, cov: {0: p[3]})
+        times = (0.5, 1.0, 2.5, 4.0, 7.0)
+        sp = np.column_stack([rng.uniform(0.5, 2.0, S), rng.uniform(0.05, 0.5, S),
+                              rng.uniform(30, 90, S), rng.uniform(0.0, 1.2, S)])
+    elif name == "michaelis_menten":
+        rhs, nstates = _rhs_michaelis_menten, 1
+        out = lambda x, p, t, cov: x[0:1] / p[2]  # noqa: E731
+        times = (0.5, 1.0, 2.0, 4.0, 8.0, 12.5, 14.0, 20.0, 30.0)
+        sp = np.asarray(MM_CENTRE)[None, :] * rng.uniform(0.7, 1.3, (S, 3))
+    elif name in ("tmdd", "poison"):
+        rhs, nstates = _rhs_tmdd, 3
+        closures = dict(init=lambda p, t, cov: [0.0, p[3] / p[4], 0.0])
+        out = lambda x, p, t, cov: x[0:1] / p[6]  # noqa: E731
+        times = TMDD_TIMES
+        sp = np.asarray(TMDD_CENTRE)[None, :] * rng.uniform(0.7, 1.3, (S, 7))
+        if name == "poison":
+            # binding rates over three decades: the stiffest supports need
+            # more trials in a segment than the budget allows
+            sp[:, 1] = TMDD_CENTRE[1] * np.exp(rng.uniform(np.log(1e-3), np.log(3.0), S))
+    elif name == "cov_affine":
+        rhs = _rhs_wt
+        times = (0.5, 1.0, 2.0, 4.0, 7.0, 10.0)
+        sp = np.column_stack([rng.uniform(lo, hi, S) for lo, hi in (_KA, _KE, _V)])
+    else:  # two_outputs_cens
+        closures = dict(init=lambda p, t, cov: [0.0, p[3]])
+        nout = 2
+        out = lambda x, p, t, cov: stack([x[1] / p[2], x[0]])  # noqa: E731
+        times = (0.5, 2.0, 6.0)
+        sp = np.column_stack([rng.uniform(lo, hi, S) for lo, hi in (_KA, _KE, _V)]
+                             + [rng.uniform(0.0, 10.0, S)])
+        ems = ems.add(1, lib.AssayErrorModel.additive(lib.ErrorPoly(1.0, 0.05), 1.0))
+    subjects = []
+    for i in range(n_subjects):
+        b = lib.Subject.builder(f"q{i}")
+        if name == "michaelis_menten":
+            b = b.bolus(0.0, 500.0, 0).infusion(12.0, 300.0, 0, 2.0)
+        elif name == "tmdd" or (name == "poison" and i % 2 == 1):
+            b = b.bolus(0.0, 100.0 * (1 + 0.1 * (i % 5)), 0)
+        elif name == "poison":
+            pass  # no dose: the target rests at its steady state, every cell finishes
+        elif name == "binding_init":
+            b = b.bolus(0.0, 50.0, 0)
+        elif name == "separated_rates":
+            b = b.bolus(0.0, 50.0, 0)
+        elif name == "lag_infusion":
+            b = b.bolus(0.0, 100.0, 0).infusion(2.0, 40.0, 0, 1.5)
+        else:
+            b = b.bolus(0.0, 100.0, 0)
+            if name == "two_cmt" and i % 3 == 0:
+                b = b.infusion(2.0, 50.0, 0, 1.0)
+        if name == "cov_affine":
+            b = (b.covariate("wt", 0.0, 40.0 + 80.0 * rng.rand())
+                 .covariate("wt", 2.0, 40.0 + 80.0 * rng.rand()))
+        for t in times:
+            b = b.observation(t, float(3.0 * np.exp(-0.2 * t) * np.exp(0.2 * rng.randn())), 0)
+            if nout == 2:
+                b = b.observation(t + 0.25, float(30.0 * np.exp(-0.9 * t)
+                                                  * np.exp(0.2 * rng.randn())), 1)
+        if name == "two_outputs_cens":
+            b = b.censored_observation(9.0, 0.2, 0, lib.Censor.BLOQ)
+        subjects.append(b.build())
+    model = lib.ODE(rhs(stack), out=out, nstates=nstates, ndrugs=1, nout=nout,
+                    **closures).with_solver(solver)
+    if name == "poison":
+        model = model.with_max_steps(POISON_MAX_STEPS.get(solver, POISON_MAX_STEPS_DEFAULT))
     return model, lib.Data(subjects), sp, ems
 
 

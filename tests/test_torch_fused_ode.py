@@ -35,6 +35,12 @@ def _on_the_cpu(monkeypatch):
     for the CPU (and restore the default afterwards)."""
     monkeypatch.setattr(pt.config, "_DEVICE", pt.config.device())
     pt.set_device("cpu")
+    # lanes of a few dozen cells under a Python loop: torch's intra-op pool
+    # only costs here (2-3x on the implicit solvers' small batched solves)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 R_TILE, S_TILE = 8, 128
@@ -165,15 +171,17 @@ def _plan(model, data, sp, ems):
 def test_twin_against_general_engine_on_budget_cases(name, merged):
     """Censored (BLOQ + ALOQ), multi-input, lag + fa and time-varying
     covariate cases: the fused twin agrees with the general engine at the
-    controller's error level (lag marches segment by segment)."""
+    controller's error level (lag marches segment by segment; expm and bdf
+    never merge; bdf's kernel has three controller rules the engine lacks:
+    5e-4, the JAX tests' tolerance for it)."""
     model, data, sp, ems = ode_case(name)
     plan = _plan(model, data, sp, ems)
-    assert (plan.merge_runs is None) == (name in ("ode_lag_fa", "ode_expm"))
+    assert (plan.merge_runs is None) == (name in ("ode_lag_fa", "ode_expm", "ode_bdf"))
     got = plan.finalize(fused_ode.psi_ode(*plan.streams, plan.support, plan.rhs,
                                           **plan.kernel_kwargs(merged))).numpy()
     want = pt.log_likelihood_matrix(model, data, sp, ems, engine="general").numpy()
     assert np.isfinite(got).all()
-    assert _rel(got, want) <= 1e-4
+    assert _rel(got, want) <= (5e-4 if name == "ode_bdf" else 1e-4)
 
 
 @pytest.mark.parametrize("name", list(ODE_CASES))
@@ -296,18 +304,27 @@ def test_wrapper_validates_its_inputs():
                           **dict(kw, merge_runs=((0, 2), (3, plan.M))))
     with pytest.raises(ValueError, match="solvers"):
         fused_ode.psi_ode(*plan.streams, plan.support, plan.rhs,
-                          **dict(kw, solver="bdf"))
+                          **dict(kw, solver="rk4"))
+    # an implicit solver needs the Jacobian columns beside the RHS
+    with pytest.raises(ValueError, match="jacobian=True"):
+        fused_ode.psi_ode(*plan.streams, plan.support, plan.rhs,
+                          **dict(kw, solver="bdf", merge_runs=None))
     with pytest.raises(ValueError, match="support must be"):
         fused_ode.psi_ode(*plan.streams, plan.support[:, :2].contiguous(),
                           plan.rhs, **kw)
 
 
 def test_plan_rejects_what_the_kernel_does_not_run():
-    """Other solvers are refused; a covariate is not: the ODE with a
-    covariate runs in every engine, and fused equals general within 1e-4."""
+    """An unknown solver is refused; the stiff solvers and a covariate are
+    not: kvaerno5 gets a plan with the Jacobian columns and no merged run,
+    and the ODE with a covariate runs in every engine, fused equal to general
+    within 1e-4."""
     model, data, sp, ems = ode_case("ode_dopri5")
-    with pytest.raises(PharmsolError, match="solvers"):
-        _plan(model.with_solver("kvaerno5"), data, sp, ems)
+    with pytest.raises(PharmsolError, match="unknown ODE solver"):
+        _plan(model.with_solver("rk4"), data, sp, ems)
+    stiff = _plan(model.with_solver("kvaerno5"), data, sp, ems)
+    assert stiff.solver == "kvaerno5" and stiff.rhs.jacobian and stiff.merge_runs is None
+    model.with_solver("dopri5")
     cov_model = pt.ODE(
         lambda x, p, t, b, r, cov: torch.stack([
             -p[0] * x[0] + b[0],

@@ -5,15 +5,18 @@
 The main paths are the population log-likelihood matrix ("psi") through
 ``pharmsol_tpu_torch.log_likelihood_matrix`` with ``device="cuda"``: for
 closed-form models, whose engine is the hand-written CUDA kernel
-``pharmsol_tpu_torch/csrc/fused_psi.cu`` (K1a, and K1b with covariates, seq,
-lag, fa or init), for ODE models, whose engine is
+``pharmsol_tpu_torch/csrc/fused_psi.cu`` (K1a, K1b with covariates, seq,
+lag, fa or init, and K1c with lag and a seq chain deeper than one or a
+time-varying seq, or lag and fa that change with time), for ODE models,
+whose engine is
 ``pharmsol_tpu_torch/csrc/fused_ode.cu`` (K2a, K2e with covariates, lag, fa
 or init, K2d, the exact propagation of linear models with ``expm``, and for
 stiff models K2b, the SDIRK tier, and K2c, the BDF tier) with
 a right-hand side generated from the model's closure, and
 for SDE models, whose engine is the particle filter
-``pharmsol_tpu_torch/csrc/fused_sde.cu`` (K3a) with the drift and diffusion
-generated the same way; and the population fit on top of psi,
+``pharmsol_tpu_torch/csrc/fused_sde.cu`` (K3a, and K3b with covariates,
+lag, fa or init planes) with the drift and diffusion generated the same
+way; and the population fit on top of psi,
 ``pharmsol_tpu_torch.optimize.fit_population`` (NPAG), whose every cycle calls
 that entry point and whose weight solve burns in on the card. Phases, each
 printing its own lines; any failure raises and the exit code is not 0:
@@ -57,7 +60,7 @@ printing its own lines; any failure raises and the exit code is not 0:
    the steps it is made of, and the host lowering alone;
 5. K3a on the README SDE model of the reference (a mean-reverting
    elimination rate), 1000 particles, at a ragged reduced shape (19 x 23,
-   the observations to 4 h):
+   the first two observations, to 2 h):
    its Philox words against ``ops/philox.py``; against its twin, which draws
    the same numbers, at zero diffusion (float64, every cell within 1e-10),
    with noise (float64: 99.9% of cells within 1e-9; float32: 99% within
@@ -71,7 +74,9 @@ printing its own lines; any failure raises and the exit code is not 0:
    particles) through the public entry point, float32 and float64, three
    calls each with fresh supports, each taking the fused engine with exactly
    one K3a launch and giving psi of the right shape without NaN;
-7. K3a alone at full width and one end-to-end call with its steps;
+7. K3a alone at full width and one end-to-end call with its steps; its
+   bound at full width from the float64 twin's trials on 8 subjects spread
+   over the cell x 64 supports (kernel and twin held to each other there);
 8. the K2e slice, "ODE covariates 16384 x 512": the reference's covariate
    example (``examples/covariates.py``: creatinine with knots at 0 and 1 h,
    a constant age, lag, 100 mg at 0, 2 and 4 h) through the public entry
@@ -105,32 +110,84 @@ printing its own lines; any failure raises and the exit code is not 0:
 12. the NPML burn-in on the host against the card at 10 000 subjects x k
     supports: seconds each and the log-likelihood each reaches;
 13. K2b (the SDIRK tier: trbdf2, kvaerno3, kvaerno5) and K2c (the BDF tier,
-    order cap 3) against their twins at 64 x 48 on every case of
-    ``utils/f32_budget.py::STIFF_CASES`` (a fast absorption, target binding
-    with init, widely separated rates, lag with an infusion,
-    Michaelis-Menten, the full TMDD, an affine covariate, two outputs with a
-    censored observation, and a TMDD whose step budget is too small) and the
-    ``ode_bdf`` budget case, merged and segment by segment where the plan
+    order cap 3) against their twins at 64 x 48 on the cases of
+    ``utils/f32_budget.py::STIFF_CASES`` (the full TMDD under every solver;
+    a fast absorption, target binding with init, widely separated rates, lag
+    with an infusion, Michaelis-Menten, an affine covariate, two outputs
+    with a censored observation, and a TMDD whose step budget is too small,
+    each under one solver in turn) and the ``ode_bdf`` budget case, merged and segment by segment where the plan
     merges: float64 every cell within 1e-6 relative and 99% within 1e-8,
     float32 within the ``ode_bdf`` row (2e-3), the lost cells -inf in both;
 14. the stiff slice, "ODE TMDD stiff 16384 x 512" (the TMDD of the JAX
     package's ``benches/stiff_bench.py``, its 16 subjects widened) through
     the public entry point: bdf and trbdf2 three calls per dtype, kvaerno3
     and kvaerno5 one, each on the fused engine with exactly one K2c or K2b
-    launch; float64 held against the general engine on 256 subjects within
-    1e-3 (kvaerno5 against the kvaerno3 general engine; what it leaves its
-    own by is printed); the same call with dopri5 on 256 subjects, to count the cells the
-    explicit tier loses;
+    launch; float64 held against the general engine within 1e-3 on 256
+    subjects (bdf, trbdf2) or 64 (kvaerno3; kvaerno5 against the kvaerno3
+    general engine, what it leaves its own by printed); the same call with
+    dopri5 on 256 subjects, to count the cells the explicit tier loses;
 15. K2b's and K2c's times there per solver and dtype, the twin on 10
     subjects spread over the population (two of each dose class, the last
-    subject among them) x 512 supports, the bound from the twin's counts
-    scaled to the cell (for bdf the trials and the rescalings of the
-    difference array that the kernel performs, each priced at its order), one
-    end-to-end call with its parts, and the BDF order cap 3 against 5.
+    subject among them) x 512 supports, timed alone for bdf in float64, the
+    bound from the twin's counts scaled to the cell (for bdf the trials and
+    the rescalings of the difference array that the kernel performs, each
+    priced at its order), one end-to-end call with its parts, and the BDF
+    order cap 3 against 5;
+16. K3b against its twin at 19 x 23 x 1000 particles on every mode of
+    ``utils/f32_budget.py::SDE_FEATURE_CASES`` (a constant and an affine
+    covariate, static lag, fa, lag with fa, a dynamic lag/fa through slot
+    tables, init rows (K3a's input), covariate-dependent init planes, two
+    inputs with an inject-to-destination route): at zero diffusion float64
+    every cell within 1e-10; with noise float64 99.9% within 1e-9, float32
+    99% within 1e-4;
+17. the K3b cell, "SDE covariates 256 x 64 x 1000": the reference's
+    covariate example (``examples/covariates.py``) written as an SDE
+    (creatinine with knots at 0 and 1 h, a constant age, lag, a diffusion
+    on central with sigma in 0.02-0.2, 100 mg at 0, 2 and 4 h) through the
+    public entry point, three calls per dtype, each exactly one K3b launch,
+    psi finite;
+18. K3b's time there, kernel and twin on 8 spread subjects x 64 supports
+    (held to each other), the general engine there (float64), one
+    end-to-end call with the plan's share, and the bound from the twin's
+    trials;
+19. K1c against its twin at 257 x 300 on every case of
+    ``utils/f32_budget.py::K1C_CASES`` (lag_depth with levels and planes,
+    zero-lag lanes, lag_post with a static and a dynamic lag, a
+    time-dependent lag and fa, fa alone, a 3-compartment case): float64
+    within 1e-10, float32 within the case's row;
+20. the K1c cells through the public entry point, three calls per dtype,
+    each one K1c launch, held against the general engine on 2048 subjects
+    (float64 1e-10, float32 within the row): "lag-depth Short 16384 x 512"
+    (JAX ``tests/test_pallas_psi.py:1367-1386`` on the ``_lag_depth_subjects``
+    regimen) and "dynamic-lag creatinine 10000 x 1000" (the creatinine
+    cell's data, its creatinine read by the lag: lag and fa slot tables);
+    their times, twins, general engine, end-to-end calls with the plan's
+    share and bounds;
+21. lag_post (lag with a time-varying seq) at the widest population that
+    ``plans/seq.py::_MAX_PLANE_FLOATS`` admits for the Covariate Short model
+    with a time-varying weight, one call per dtype, held against the general
+    engine on 256 subjects.
+
+The earlier paths were cut to make room for 16-21 (each cut prints its
+time beside the time before it): phase 14's general engine on 64 subjects
+for kvaerno3 and kvaerno5, phase 15's twin timed alone for bdf in float64
+only, phase 5's SDE twin on two observations, and phase 13's (and the
+build's) stiff cases: the TMDD under every solver, every other case under
+one solver in turn.
 
 ``--only stiff`` runs phases 0, 1 (the stiff libraries alone) and 13-15, for
-work on K2b or K2c; its last line is ``{"ok": true, "partial": "stiff"}``,
-not the whole script's verdict.
+work on K2b or K2c; ``--only sde`` phases 0, 1 (the SDE libraries), 5-7 and
+16-18 (K3a, K3b); ``--only k1c`` phases 0, 1 (the closed-form library) and
+19-21. A partial run's last line is ``{"ok": true, "partial": ...}``, not
+the whole script's verdict.
+
+``--pair DIR`` holds this checkout against another one at ``DIR`` (a
+``git archive`` of the parent commit, say), in the order DIR, here, here,
+DIR, each side a process of its own that imports its own package: K3a's
+README cell (256 x 64 x 1000) through ``log_likelihood_matrix``, three
+calls per dtype after a warm one, and the registers of every closed-form
+and SDE kernel the side built (``cuobjdump -res-usage``). It prints the
+pairs and ``{"ok": true, "partial": "pair"}``.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. All data comes from a numpy
@@ -150,6 +207,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -212,10 +270,53 @@ STIFF_BDF_RECORD = {
     "source": "pharmsol_tpu_torch/csrc/fused_ode.cu",
     "replaces": "pharmsol_tpu/ops/pallas_ode.py:1289",
 }
+SDE_FEATURE_RECORD = {
+    "id": "K3b",
+    "name": "fused_sde_feature",
+    "route": "cuda",
+    "source": "pharmsol_tpu_torch/csrc/fused_sde.cu",
+    "replaces": "pharmsol_tpu/ops/pallas_sde.py:116",
+}
+K1C_RECORD = {
+    "id": "K1c",
+    "name": "fused_psi_k1c",
+    "route": "cuda",
+    "source": "pharmsol_tpu_torch/csrc/fused_psi.cu",
+    "replaces": "pharmsol_tpu/ops/pallas_psi.py:498",
+}
+# the K3b cell: the reference's covariate model as an SDE, subjects x
+# supports x the README's particles, and the subjects the twin marches (spread
+# over the population) for the kernel-vs-twin check and the bound's counts;
+# the same for the K3a cell
+SDE_COV_FULL = (256, 64)
+SDE_TWIN_ROWS = 8
+# the K1c cells: lag with a seq chain deeper than one, and a lag and an fa
+# that read a time-varying creatinine; the subjects of their check against
+# the general engine; the ragged shape of the kernel-vs-twin check; and the
+# supports of the lag_post run at the widest population the plane cap admits
+K1C_DEPTH_SHAPE = (16384, 512)
+K1C_DYN_SHAPE = (10000, 1000)
+K1C_CHECK_ROWS = 2048
+K1C_RAGGED = (257, 300)
+K1C_POST_S = 512
 # the stiff cell: the TMDD of benches/stiff_bench.py, subjects x supports; the
 # subjects of its check against the general engine, and of its twin
 STIFF_SHAPE = (16384, 512)
 STIFF_CHECK_ROWS = 256
+# kvaerno3 and kvaerno5, whose general engine is the slowest, are held on
+# fewer subjects (the kvaerno5 engine is only the printed finding)
+STIFF_CHECK_ROWS_BY_SOLVER = {"kvaerno3": 64, "kvaerno5": 64}
+# the stiff check cases at 64 x 48: the TMDD under every solver, each other
+# case of STIFF_CASES under one, in turn (every tier compared on three or
+# more cases, with the libraries of the TMDD header and one per other case)
+STIFF_ALL_SOLVER_CASES = ("tmdd",)
+# what the cut parts of this script's earlier paths took before the cuts (its
+# previous version on an NVIDIA H100 80GB HBM3 at 700 W, on a faster and a
+# slower host), printed beside what they take now: phase 14's four
+# general-engine oracles, phase 15's twins timed alone, phase 5's SDE twin,
+# the build
+BEFORE_CUTS_S = {"oracles": (76.3, 114.3), "twins_alone": 49.0, "sde_twin": (75.0, 90.0),
+                 "build": (119.88, 164.20)}
 STIFF_TWIN_ROWS = 10
 STIFF_CHECK_SHAPE = (64, 48)
 STIFF_SOLVERS = ("bdf", "trbdf2", "kvaerno3", "kvaerno5")
@@ -244,7 +345,7 @@ H100_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 # the SDE cells: the reduced ragged shape of the kernel-vs-twin checks, the
 # statistical check against the general engine, and the full-width slice
 SDE_REDUCED = (19, 23)
-SDE_REDUCED_OBS = 3
+SDE_REDUCED_OBS = 2
 SDE_STAT = (32, 16)
 SDE_FULL = (256, 64)
 SDE_PARTICLES = 1000
@@ -523,21 +624,31 @@ def phase_environment() -> str:
     return card
 
 
-def phase_build(pt, feature_cases, expm, stiff, only_stiff: bool = False) -> float:
+def phase_build(pt, feature_cases, expm, stiff, only: str = None) -> float:
+    """Every library of the run (of the part ``only`` names), one nvcc each,
+    all at once."""
     from pharmsol_tpu_torch.ops import _build
 
-    ode_targets = (stiff_build_targets(stiff) if only_stiff
+    ode_targets = (stiff_build_targets(stiff) if only == "stiff"
+                   else [] if only in ("sde", "k1c")
                    else ode_build_targets(feature_cases, expm, stiff))
-    sde_targets = [] if only_stiff else sde_build_targets(pt)
-    targets = ([_build.psi_target()] + [t for _, t in ode_targets]
-               + [t for _, t in sde_targets])
-    names = (["fused_psi"] + [f"fused_ode ({name})" for name, _ in ode_targets]
+    sde_targets = ([] if only in ("stiff", "k1c")
+                   else sde_build_targets(pt) + sde_feature_build_targets(pt))
+    psi_targets = [] if only in ("stiff", "sde") else [_build.psi_target()]
+    targets = (psi_targets + [t for _, t in ode_targets] + [t for _, t in sde_targets])
+    names = (["fused_psi"] * len(psi_targets)
+             + [f"fused_ode ({name})" for name, _ in ode_targets]
              + [f"fused_sde ({name})" for name, _ in sde_targets])
     t0 = time.perf_counter()
     results = _build.build_many(targets, force=True, verbose=True)
     wall = time.perf_counter() - t0
     log(f"[1] built {len(results)} libraries with nvcc in {wall:.2f} s wall, "
         f"one process each ({' '.join(_build.NVCC_FLAGS)})")
+    if only is None:
+        log(f"[1] cut: the stiff libraries, the TMDD header's under every solver and one per "
+            f"other case ({len(stiff_build_targets(stiff))} of them); the build took "
+            f"{wall:.1f} s with K3b's libraries among them (before the cut: "
+            f"{BEFORE_CUTS_S['build'][0]} - {BEFORE_CUTS_S['build'][1]} s)")
     for name, (path, seconds, output) in zip(names, results):
         log(f"[1]   {name}: {path.name} in {seconds:.2f} s")
         # ptxas -v: one summary per instantiation; all of K1a, K2a and K2e
@@ -546,18 +657,21 @@ def phase_build(pt, feature_cases, expm, stiff, only_stiff: bool = False) -> flo
         if ((name.startswith("fused_ode") and "short" not in name
              and "covariate_model" not in name and "expm" not in name
              and "stiff" not in name)
-                or (name.startswith("fused_sde") and "readme" not in name)):
+                or (name.startswith("fused_sde") and "readme" not in name
+                    and "covariates cell" not in name)):
             continue
         kernel, spill = None, ""
         for ln in output.splitlines():
             m = (re.search(r"fused_psi_kernelI([fd])Li(\d+)E", ln)
-                 or re.search(r"fused_psi_feature_kernelI([fd])Li(\d+)E", ln)
+                 or re.search(r"fused_psi_feature_kernelI([fd])Li(\d+)ELb(\d)E", ln)
                  or re.search(r"fused_ode_kernelI([fd])Li(\d+)ELb(\d)E", ln)
-                 or re.search(r"fused_sde_kernelI([fd])Li(\d+)E", ln))
+                 or re.search(r"fused_sde_kernelI([fd])Li(\d+)ELb(\d)E", ln))
             if m and "Compiling entry function" in ln:
-                what = ("K1b code" if "fused_psi_feature" in ln else
+                what = (("K1c code" if m.group(3) == "1" else "K1b code")
+                        if "fused_psi_feature" in ln else
                         "K1a code" if "fused_psi" in ln else
-                        "particles/thread" if "fused_sde" in ln else
+                        ("K3b" if m.group(3) == "1" else "K3a") + " particles/thread"
+                        if "fused_sde" in ln else
                         "K2d expm" + (", features" if m.group(3) == "1" else "")
                         if m.group(2) == "2" else
                         {"3": "K2b trbdf2", "4": "K2b kvaerno3", "5": "K2b kvaerno5",
@@ -573,7 +687,7 @@ def phase_build(pt, feature_cases, expm, stiff, only_stiff: bool = False) -> flo
                 regs = ln.split("Used")[-1].split(",")[0].strip()
                 log(f"[1]   ptxas {name} {kernel}: {regs}; {spill}")
                 kernel, spill = None, ""
-    if not only_stiff:
+    if psi_targets:
         _build.load_library()
     return wall
 
@@ -1310,7 +1424,7 @@ def event_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def sde_compare(label, got, twin, tol, share):
+def sde_compare(label, got, twin, tol, share, phase: int = 5):
     """Kernel vs twin cell by cell: the share within ``tol`` relative and the
     same non-finite cells. Returns (max abs err over finite cells, max rel)."""
     got, twin = got.double(), twin.double()
@@ -1321,7 +1435,7 @@ def sde_compare(label, got, twin, tol, share):
     within = float((rel <= tol).double().mean()) if rel.numel() else 1.0
     rest = int((rel > tol).sum())
     abs_err = float((got - twin)[fin_t].abs().max()) if rel.numel() else 0.0
-    log(f"[5] {label}: {within * 100:.2f}% of {got.numel()} cells within {tol:g} relative "
+    log(f"[{phase}] {label}: {within * 100:.2f}% of {got.numel()} cells within {tol:g} relative "
         f"(>= {share * 100:g}%), {rest} beyond, max rel {float(rel.max()):.3e}, "
         f"max abs {abs_err:.3e}, {int((~fin_t).sum())} non-finite in both")
     if within < share:
@@ -1568,13 +1682,25 @@ def tensor_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def psi_work(plan) -> tuple:
-    """(bytes, operations) of one K1a or K1b call on ``plan``'s inputs: each
-    input read once and psi written once; the operations this data needs
-    (each support prepared once, or once per row, per spanned segment or
-    per change of chain depth as the mode asks; one propagate per spanned
+def feature_tensors(features):
+    """The tensors among a closed-form plan's feature inputs (a lag or fa
+    argument may be a list of planes; slot tables are host tuples)."""
+    for v in features.values():
+        if isinstance(v, torch.Tensor):
+            yield v
+        elif isinstance(v, list):
+            yield from v
+
+
+def psi_work(plan, counts=None) -> tuple:
+    """(bytes, operations) of one K1a, K1b or K1c call on ``plan``'s inputs:
+    each input read once and psi written once; the operations this data
+    needs (each support prepared once, or once per row, per spanned segment
+    or per change of chain level as the mode asks; one propagate per spanned
     segment and per lagged dose that fires; one observation term per
-    observation), counted on the twin's own functions."""
+    observation), counted on the twin's own functions. K1c's in-kernel chain
+    (``seg_evcode``) and its split marches are counted by the twin
+    (``counts`` of ``psi_analytical_plain``: prepares, propagates, fires)."""
     from pharmsol_tpu_torch.ops.fused_psi import STRUCTURES, n_micro
 
     sdef = STRUCTURES[plan.structure]
@@ -1582,8 +1708,10 @@ def psi_work(plan) -> tuple:
     R, M, S = plan.R, plan.M, plan.S
     f = plan.features
     item = plan.support.element_size()
+    slots = [t for t in (f.get("lag_slots"), f.get("fa_slots")) if t is not None]
     nbytes = (tensor_bytes(*plan.streams, plan.outeq, plan.out_coef, plan.out_bias,
-                           *f.values()) + (NP + R) * S * item)  # params, psi
+                           *feature_tensors(f)) + (NP + R) * S * item  # params, psi
+              + 4 * sum(len(t) for t in slots))
     one = lambda v: torch.full((1, 1), float(v), dtype=torch.float64)  # noqa: E731
 
     def prep(micro):
@@ -1608,6 +1736,13 @@ def psi_work(plan) -> tuple:
     ops = S * (int(with_rate.sum()) * prop[True] + int((live & ~with_rate).sum()) * prop[False]
                + n_obs * (2 * NS + 9))
     mode = plan.mode
+    k1c_chain = f.get("seg_evcode") is not None or f.get("seg_postdepth") is not None
+    if k1c_chain:
+        # the twin's tally: level changes and the second part of each split
+        # march, priced with the infusion forcing where its segment has one
+        with_rate = counts["fires_with_rate"]
+        return nbytes, (ops + counts["prepares"] * prep_ops + with_rate * prop[True]
+                        + (counts["fires"] - with_rate) * prop[False])
     if mode is None:
         ops += S * prep_ops
     elif mode == "row":
@@ -1627,13 +1762,16 @@ def psi_work(plan) -> tuple:
             prev = torch.where(live[:, m], depth[:, m], prev)
         ops += changes * S * prep_ops
     if f["lag_plane"] is not None:
-        # a dose fires iff its lag ends before the row's last breakpoint
+        # a dose fires iff its lag ends before the row's last breakpoint;
+        # with slot tables each dose column has its own plane
         t_end = seg_dt.sum(1)
         t_dose = torch.cumsum(seg_dt, 1) - seg_dt  # from the row's first breakpoint
-        lag = f["lag_plane"].double().cpu()
+        planes = f["lag_plane"] if isinstance(f["lag_plane"], list) else [f["lag_plane"]]
+        lag_slots = f.get("lag_slots") or (0,) * M
         dosed = plan.streams[1].double().cpu() != 0
-        fires = sum(int((dosed[:, m, None] & (lag < (t_end - t_dose[:, m])[:, None])).sum())
-                    for m in range(M))
+        fires = sum(int((dosed[:, m, None] & (planes[lag_slots[m]].double().cpu()
+                                              < (t_end - t_dose[:, m])[:, None])).sum())
+                    for m in range(M) if lag_slots[m] >= 0)
         ops += fires * (prop[False] + NS)
     return nbytes, ops
 
@@ -1668,16 +1806,20 @@ def ode_step_ops(model) -> int:
     return 6 * rhs + 80 * n
 
 
-def sde_trial_ops(model) -> int:
+def sde_trial_ops(model, cov_names=()) -> int:
     """Operations of one Euler-Maruyama trial per particle: two drift
-    evaluations (counted on the model's closure), the full and two half steps
-    and the error (about 18 per state) and the Box-Muller normals (about 6
-    each, three per state); Philox's integer work is not counted."""
+    evaluations (counted on the model's closure, its covariate reads a
+    number each), the full and two half steps and the error (about 18 per
+    state) and the Box-Muller normals (about 6 each, three per state);
+    Philox's integer work is not counted."""
+    from pharmsol_tpu_torch.ops.rhs_codegen import LaneCov
+
     spec = model.spec
     n, nin = spec.nstates, spec.ninput
+    cov = LaneCov({name: torch.tensor(1.0, dtype=torch.float64) for name in cov_names})
     drift = count_ops(spec.drift, torch.ones(n, dtype=torch.float64),
                       torch.ones(8, dtype=torch.float64), torch.tensor(1.0, dtype=torch.float64),
-                      torch.zeros(nin, dtype=torch.float64), None)
+                      torch.zeros(nin, dtype=torch.float64), cov)
     return 2 * drift + (18 + 3 * 6) * n
 
 
@@ -1792,12 +1934,15 @@ def phase_feature_slice(pt, rng, workload, ems) -> int:
     return launches
 
 
-def phase_feature_times(pt, workload, ems, card: str) -> dict:
-    """K1b alone, its twin, the general engine (on the subjects of the
-    check), one end-to-end call and its steps, at the cell's shape; K1b held
-    against its twin there; the bound of its work."""
+def phase_feature_times(pt, workload, ems, card: str, kernel: str = "K1b",
+                        phase: int = 4) -> dict:
+    """K1b (or K1c) alone, its twin, the general engine (on the subjects of
+    the check), one end-to-end call and its steps, at the cell's shape; the
+    kernel held against its twin there; the bound of its work (K1c's chain
+    counted by the twin)."""
     from pharmsol_tpu_torch.likelihood.matrix import _general_psi
     from pharmsol_tpu_torch.likelihood.plans.analytical import _FusedPsiPlan
+    from pharmsol_tpu_torch.ops.fused_psi import psi_analytical_plain
     from pharmsol_tpu_torch.utils.f32_budget import F32_BUDGET, f32_error
 
     label, model, data, centre, S, _, row, rows, t_build = workload
@@ -1830,10 +1975,10 @@ def phase_feature_times(pt, workload, ems, card: str) -> dict:
                     f"{f32_error(got.cpu().numpy(), twin64.cpu().numpy()):.3e} ({row} "
                     f"{F32_BUDGET[row]:g} on its own case)")
         abs_err = float((got.double() - twin64).abs().max())
-        log(f"[3] K1b vs twin {label} {d}: max abs {abs_err:.3e}, rel {rel:.3e} "
+        log(f"[{phase}] {kernel} vs twin {label} {d}: max abs {abs_err:.3e}, rel {rel:.3e} "
             f"(<= {tol:g}){vs64}")
         if rel > tol:
-            raise AssertionError(f"{label} {dtype}: K1b vs twin {rel} > {tol}")
+            raise AssertionError(f"{label} {dtype}: {kernel} vs twin {rel} > {tol}")
         sub_grid = model.lower(sub.subjects())
         lowered = ems.lower(model.resolve_output_label, model.nouteqs())
         t = {
@@ -1856,7 +2001,12 @@ def phase_feature_times(pt, workload, ems, card: str) -> dict:
             "plan": wall_ms(build_plan, 5),
             "finalize": cuda_ms(lambda: plan.finalize(psi_rows), 10),
         }
-        nbytes, ops = psi_work(plan)
+        counts = {}
+        run_twin_counted = lambda: psi_analytical_plain(  # noqa: E731
+            *plan.streams, plan.support, counts=counts, **plan.kernel_kwargs())
+        if kernel == "K1c":
+            run_twin_counted()
+        nbytes, ops = psi_work(plan, counts)
         t["bound"], t["bound_by"] = bound(nbytes, ops, dtype)
         # where the plan's host time goes: its costliest calls, once
         prof = cProfile.Profile()
@@ -1864,21 +2014,21 @@ def phase_feature_times(pt, workload, ems, card: str) -> dict:
         top = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][3])
         top = [(fn, st[3] * 1e3) for (path, _, fn), st in top
                if "pharmsol_tpu_torch" in path and fn != "__init__"][:6]
-        log(f"[4] {label} {str(dtype)[6:]} plan, costliest calls (ms, cumulative, profiled): "
+        log(f"[{phase}] {label} {str(dtype)[6:]} plan, costliest calls (ms, cumulative, profiled): "
             + ", ".join(f"{fn} {ms:.1f}" for fn, ms in top))
         cells = len(data) * S
         for k in ("kernel", "twin", "end_to_end"):
-            log(f"[4] {label} {d} {k:10s} {t[k]:10.3f} ms  {cells / (t[k] * 1e-3):.4g} "
+            log(f"[{phase}] {label} {d} {k:10s} {t[k]:10.3f} ms  {cells / (t[k] * 1e-3):.4g} "
                 f"cells/s  ({card})")
-        log(f"[4] {label} {d} general    {t['general']:10.3f} ms on subjects 0-{rows - 1} "
+        log(f"[{phase}] {label} {d} general    {t['general']:10.3f} ms on subjects 0-{rows - 1} "
             f"x {S}  ({card})")
-        log(f"[4] {label} {d} end_to_end parts (ms): " + ", ".join(
+        log(f"[{phase}] {label} {d} end_to_end parts (ms): " + ", ".join(
             f"{k} {v:.3f}" for k, v in parts.items()))
-        log(f"[4] {label} {d} shares of end_to_end: kernel {t['kernel'] / t['end_to_end']:.4f}, "
+        log(f"[{phase}] {label} {d} shares of end_to_end: kernel {t['kernel'] / t['end_to_end']:.4f}, "
             f"plan {parts['plan'] / t['end_to_end']:.4f}, lowering lookup "
             f"{parts['lower_cached'] / t['end_to_end']:.4f}, finalize "
             f"{parts['finalize'] / t['end_to_end']:.4f} ({card})")
-        log(f"[4] {label} {d} K1b bound {t['bound']:.5g} ms by {t['bound_by']} "
+        log(f"[{phase}] {label} {d} {kernel} bound {t['bound']:.5g} ms by {t['bound_by']} "
             f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations); kernel at "
             f"{t['bound'] / t['kernel']:.3f} of it")
         t["abs_err"] = abs_err
@@ -1887,7 +2037,7 @@ def phase_feature_times(pt, workload, ems, card: str) -> dict:
     model._lower_cache.clear()
     t0 = time.perf_counter()
     model.lower(data.subjects())
-    log(f"[4] {label} host: subject builder {t_build * 1e3:.1f} ms, lowering "
+    log(f"[{phase}] {label} host: subject builder {t_build * 1e3:.1f} ms, lowering "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms ({len(data)} subjects)")
     return out
 
@@ -2432,14 +2582,16 @@ class StiffTwins:
 
 
 def stiff_cases():
-    """K2b's and K2c's cases at 64 subjects x 48 supports: every case of
-    ``STIFF_CASES`` under each of bdf, trbdf2, kvaerno3 and kvaerno5, and the
-    ``ode_bdf`` budget case under bdf: (name, solver) -> (model, data,
-    support, ems)."""
+    """K2b's and K2c's cases at 64 subjects x 48 supports: the TMDD under
+    each of bdf, trbdf2, kvaerno3 and kvaerno5, every other case of
+    ``STIFF_CASES`` under one of them in turn, and the ``ode_bdf`` budget
+    case under bdf: (name, solver) -> (model, data, support, ems)."""
     from pharmsol_tpu_torch.utils.f32_budget import STIFF_CASES
 
-    cases = {(name, solver): stiff_case_at(name, solver)
-             for name in STIFF_CASES for solver in STIFF_SOLVERS}
+    others = [name for name in STIFF_CASES if name not in STIFF_ALL_SOLVER_CASES]
+    pairs = [(name, solver) for name in STIFF_ALL_SOLVER_CASES for solver in STIFF_SOLVERS]
+    pairs += [(name, STIFF_SOLVERS[i % len(STIFF_SOLVERS)]) for i, name in enumerate(others)]
+    cases = {(name, solver): stiff_case_at(name, solver) for name, solver in pairs}
     cases[("budget ode_bdf", "bdf")] = stiff_case_at("budget ode_bdf", "bdf")
     return cases
 
@@ -2730,7 +2882,6 @@ def phase_stiff_slice(pt, rng) -> tuple:
     same call with dopri5 on 256 subjects: how many cells the explicit tier
     loses."""
     n, S = STIFF_SHAPE
-    rows = STIFF_CHECK_ROWS
     label = f"ode_tmdd_stiff_{n}x{S}"
     data, ems, t_build = tmdd_population(pt, n, np.random.RandomState(SEED + 8))
     supports = [tmdd_support(S, rng) for _ in range(3)]
@@ -2758,7 +2909,7 @@ def phase_stiff_slice(pt, rng) -> tuple:
                 if bool(torch.isnan(psi).any()):
                     raise AssertionError(f"{label} {solver} {dtype}: NaN in psi")
                 lost = int(torch.isneginf(psi).sum())
-                results[(solver, dtype, j)] = (psi[:rows].clone(), lost)
+                results[(solver, dtype, j)] = (psi[:STIFF_CHECK_ROWS].clone(), lost)
                 del psi
     _, _, _, k2b, k2c = stiff_launch_counts()
     log(f"[14] {label}: {len(results)} log_likelihood_matrix calls on cuda, engine fused, "
@@ -2766,17 +2917,19 @@ def phase_stiff_slice(pt, rng) -> tuple:
         f"no K2a, K2e or K2d launch")
     if stiff_launch_counts()[:3] != (0, 0, 0) or (k2b, k2c) != (10, 6):
         raise AssertionError(f"{label}: launches {stiff_launch_counts()}")
-    sub = pt.Data(data.subjects()[:rows])
     pt.set_float_dtype(torch.float64)
     oracles = {}
+    t_oracles = time.perf_counter()
     for solver in STIFF_SOLVERS:
+        rows = STIFF_CHECK_ROWS_BY_SOLVER.get(solver, STIFF_CHECK_ROWS)
+        sub = pt.Data(data.subjects()[:rows])
         # the oracle: the general engine on the first subjects, over the
         # supports none of whose cells the fused engine lost (a lost lane
         # keeps the general engine's masked loop turning for its whole step
         # budget in every segment: 1392 s where bdf lost one support), with
         # its own budget cut to STIFF_ORACLE_MAX_STEPS a segment for the same
         # reason; cells finite in both are compared
-        psi64, lost64 = results[(solver, torch.float64, 0)]
+        psi64 = results[(solver, torch.float64, 0)][0][:rows]
         keep = torch.isfinite(psi64).all(dim=0)
         cols = torch.nonzero(keep).flatten().cpu().numpy()
         oracle = tmdd_model(solver).with_max_steps(STIFF_ORACLE_MAX_STEPS)
@@ -2791,7 +2944,7 @@ def phase_stiff_slice(pt, rng) -> tuple:
                                  f"{want.numel()} cells")
         for dtype in (torch.float32, torch.float64):
             psi, lost = results[(solver, dtype, 0)]
-            psi = psi[:, keep]
+            psi = psi[:rows, keep]
             both = torch.isfinite(psi) & torch.isfinite(want)
             rel = ((psi[both].double() - want[both]).abs() / want[both].abs().clamp(min=1.0))
             err, share = float(rel.max()), float((rel <= 1e-3).double().mean())
@@ -2816,9 +2969,10 @@ def phase_stiff_slice(pt, rng) -> tuple:
                 # against it
                 ref3 = oracles["kvaerno3"]
                 same = keep & oracles["kvaerno3 keep"]
-                f3 = rel_err(results[(solver, dtype, 0)][0][:, same],
-                             ref3[:, same[oracles["kvaerno3 keep"]]], 1.0)
-                g3 = rel_err(want[:, same[keep]], ref3[:, same[oracles["kvaerno3 keep"]]], 1.0)
+                f3 = rel_err(results[(solver, dtype, 0)][0][:rows, same],
+                             ref3[:rows, same[oracles["kvaerno3 keep"]]], 1.0)
+                g3 = rel_err(want[:, same[keep]], ref3[:rows, same[oracles["kvaerno3 keep"]]],
+                             1.0)
                 log(f"[14] {label} kvaerno5 float64: fused vs the kvaerno3 general engine on "
                     f"subjects 0-{rows - 1} x {int(same.sum())} supports: max rel {f3:.3e} "
                     f"(<= 1e-3)")
@@ -2832,6 +2986,12 @@ def phase_stiff_slice(pt, rng) -> tuple:
             elif err > 1e-3:
                 raise AssertionError(f"{label} {solver}: fused vs general {err} > 1e-3")
         oracles[solver], oracles[f"{solver} keep"] = want, keep
+    t_oracles = time.perf_counter() - t_oracles
+    log(f"[14] cut: the four general-engine oracles took {t_oracles:.1f} s on 256 / 256 / 64 "
+        f"/ 64 subjects (before the cut, 256 each: {BEFORE_CUTS_S['oracles'][0]} - "
+        f"{BEFORE_CUTS_S['oracles'][1]} s): "
+        f"{BEFORE_CUTS_S['oracles'][0] - t_oracles:.1f} - "
+        f"{BEFORE_CUTS_S['oracles'][1] - t_oracles:.1f} s saved")
     # the explicit tier on the same model
     explicit = tmdd_model("dopri5")
     small = pt.Data(data.subjects()[:256])
@@ -2850,9 +3010,8 @@ def phase_stiff_times(pt, label, models, data, ems, t_build, card: str, twins) -
     alone (CUDA events); its twin on the subjects ``stiff_twin_rows`` x 512
     supports (the twin's masked Python loop would need minutes at full
     width), held against the kernel's rows there; the twin's time, taken
-    here with the card and the host to itself for bdf and trbdf2, the
-    solvers of the kernels line (the other solvers' is their worker's,
-    contended, and says so); the bound from the twin's counts per row scaled
+    here with the card and the host to itself for bdf in float64 (the other
+    solvers' and dtypes' is their worker's, contended, and says so); the bound from the twin's counts per row scaled
     to the cell (``scaled_to_cell``): for the SDIRK solvers the attempts
     times the operations of one trial, for bdf the trials, accepts,
     adaptations and rescalings, each priced at its order (``bdf_ops``); one
@@ -2901,12 +3060,18 @@ def phase_stiff_times(pt, label, models, data, ems, t_build, card: str, twins) -
             abs_err, rel, rule = held(f"{label} {solver} {d}", dtype, got, tw["psi"], twin64)
             attempts = int(scaled_to_cell(tw["steps_by_row"], n))
             twin_ms = None
-            if solver in ("bdf", "trbdf2"):
+            if solver == "bdf" and dtype == torch.float64:
                 # the twin again, alone on the card and the host
+                t_alone = time.perf_counter()
                 twin_plan = ode_plan_for(model, twin_data, sp, ems, dtype)
                 _, twin_ms = event_ms(lambda: psi_ode_plain(
                     *twin_plan.streams, twin_plan.support, twin_plan.rhs,
                     **twin_plan.kernel_kwargs()))
+                t_alone = time.perf_counter() - t_alone
+                log(f"[15] cut: the twins timed alone took {t_alone:.1f} s, bdf in float64 "
+                    f"only (before the cut, bdf and trbdf2 in both dtypes: "
+                    f"{BEFORE_CUTS_S['twins_alone']} s): "
+                    f"{BEFORE_CUTS_S['twins_alone'] - t_alone:.1f} s saved")
             t = {
                 "kernel": cuda_ms(lambda: run_ode_kernel(plan), 3, 1),
                 "twin": twin_ms,
@@ -3038,6 +3203,547 @@ def run_stiff_slice(pt, rng, cases, card: str, twins) -> list:
     times = phase_stiff_times(pt, label, models, data, ems, t_build, card, twins)
     torch.cuda.synchronize()
     return stiff_records(times, launches)
+
+
+# ---------------------------------------------------------------------------
+# K3b: SDE models with covariates, lag, fa and init; K1c: the rest of the
+# closed-form feature tier
+# ---------------------------------------------------------------------------
+
+
+def sde_has_features(plan) -> bool:
+    """Whether an SDE plan runs the feature tier (K3b) or the base (K3a)."""
+    f = plan.features
+    return bool(f["cov_streams"]) or any(f[k] is not None for k in
+                                         ("lag_planes", "fa_planes", "init_planes"))
+
+
+def sde_feature_build_targets(pt):
+    """The SDE library of each K3b check case and of the K3b cell, each of
+    the tier its plan runs (ops/_build.py::sde_kind)."""
+    from pharmsol_tpu_torch.ops import _build
+    from pharmsol_tpu_torch.utils.f32_budget import (
+        SDE_FEATURE_CASES, sde_covariate_model_case, sde_feature_case,
+    )
+
+    targets = {}
+    cases = [(name, sde_feature_case(name, *SDE_REDUCED, nparticles=SDE_PARTICLES))
+             for name in SDE_FEATURE_CASES]
+    cases.append(("covariates cell", sde_covariate_model_case(4, 4, seed=SEED)))
+    for name, (model, data, sp, ems) in cases:
+        plan = sde_plan_for(model, data, sp, ems, torch.float64)
+        kind = _build.sde_kind(sde_has_features(plan))
+        target = _build.generated_target(kind, plan.gen)
+        targets.setdefault(target.path, (f"{name}{' (K3b)' if kind is not _build.SDE else ''}",
+                                         target))
+    return list(targets.values())
+
+
+def sde_launch_counts():
+    from pharmsol_tpu_torch.ops import fused_sde
+
+    return fused_sde.LAUNCHES, fused_sde.FEATURE_LAUNCHES
+
+
+def phase_sde_feature_kernels(pt) -> dict:
+    """K3b against its twin on the card at the ragged reduced shape on every
+    mode of ``utils/f32_budget.py::SDE_FEATURE_CASES`` (a constant and an
+    affine covariate, static lag, fa, lag with fa, a dynamic lag/fa through
+    slot tables, init rows (K3a's own input), covariate-dependent init planes,
+    two inputs with an inject-to-destination route and a lag each), 1000
+    particles: at zero diffusion float64 every cell within 1e-10; with noise
+    float64 99.9% within 1e-9 and float32 99% within 1e-4 (both draw the same
+    Philox numbers); each call one launch of the tier the plan takes."""
+    from pharmsol_tpu_torch.utils.f32_budget import SDE_FEATURE_CASES, sde_feature_case
+
+    R, S = SDE_REDUCED
+    worst = {}
+    for name in SDE_FEATURE_CASES:
+        for sigma, dtype, tol, share in ((False, torch.float64, 1e-10, 1.0),
+                                         (True, torch.float64, 1e-9, 0.999),
+                                         (True, torch.float32, 1e-4, 0.99)):
+            model, data, sp, ems = sde_feature_case(name, R, S, seed=SEED,
+                                                    nparticles=SDE_PARTICLES, sigma=sigma)
+            plan = sde_plan_for(model, data, sp, ems, dtype)
+            feat = sde_has_features(plan)
+            before = sde_launch_counts()
+            got = run_sde_kernel(plan)
+            torch.cuda.synchronize()
+            launched = tuple(a - b for a, b in zip(sde_launch_counts(), before))
+            if launched != ((0, 1) if feat else (1, 0)):
+                raise AssertionError(f"K3b {name}: (K3a, K3b) launches {launched}")
+            twin = run_sde_kernel(plan, plain=True)
+            tag = (f"{'K3b' if feat else 'K3a'} {name} {'sigma' if sigma else 'sigma=0'} "
+                   f"{R}x{S}x{SDE_PARTICLES} {str(dtype)[6:]} vs twin")
+            abs_err, _ = sde_compare(tag, got, twin, tol, share, phase=16)
+            key = (dtype, sigma)
+            worst[key] = max(worst.get(key, 0.0), abs_err)
+    return worst
+
+
+def sde_trials_scaled(by_row, n_total: int) -> float:
+    """The cell's Euler-Maruyama cell trials estimated from the twin's per row
+    on the spread subjects: their mean times the cell's subjects (each
+    subject's covariates and observations are its own draws, so unlike the
+    stiff cell's dose classes no subject stands for a class exactly)."""
+    return float(np.mean(np.asarray(by_row, dtype=np.float64))) * n_total
+
+
+def spread_rows(n: int, k: int) -> np.ndarray:
+    """``k`` subjects spread evenly over ``n``, the last among them."""
+    return np.linspace(0, n - 1, k).astype(np.int64)
+
+
+def phase_sde_feature_slice(pt, rng):
+    """"SDE covariates 256 x 64 x 1000", the K3b cell: the reference's
+    covariate model as an SDE through the public entry point, float32 and
+    float64, three calls each with fresh supports, each taking the fused
+    engine with exactly one K3b launch and no K3a launch, psi finite and of
+    the right shape."""
+    from pharmsol_tpu_torch.ops import fused_sde
+    from pharmsol_tpu_torch.utils.f32_budget import sde_covariate_model_case
+
+    R, S = SDE_COV_FULL
+    label = f"sde_covariates_{R}x{S}x{SDE_PARTICLES}"
+    t0 = time.perf_counter()
+    model, data, _, ems = sde_covariate_model_case(R, 1, seed=SEED)
+    t_build = time.perf_counter() - t0
+    supports = [sde_covariate_model_case(1, S, seed=SEED + 10 + j)[2] for j in range(3)]
+    # the main path's run: every launch counted here is one of its calls
+    fused_sde.LAUNCHES = fused_sde.FEATURE_LAUNCHES = 0
+    calls = 0
+    for dtype in (torch.float32, torch.float64):
+        pt.set_float_dtype(dtype)
+        for sp in supports:
+            before = sde_launch_counts()
+            psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
+            torch.cuda.synchronize()
+            calls += 1
+            dec = pt.last_engine_decision(model)
+            if dec["engine"] != "fused":
+                raise AssertionError(f"{label}: engine {dec}")
+            launched = tuple(a - b for a, b in zip(sde_launch_counts(), before))
+            if launched != (0, 1):
+                raise AssertionError(f"{label}: (K3a, K3b) launches {launched} in one call")
+            if tuple(psi.shape) != (R, S) or psi.device.type != "cuda":
+                raise AssertionError(f"{label}: psi {tuple(psi.shape)} on {psi.device}")
+            bad = int((~torch.isfinite(psi)).sum())
+            if bad:
+                raise AssertionError(f"{label} {dtype}: {bad} non-finite psi cells")
+            log(f"[17] {label} {str(dtype)[6:]}: psi mean {float(psi.double().mean()):.6f}, "
+                f"all {psi.numel()} cells finite")
+    launches = fused_sde.FEATURE_LAUNCHES
+    log(f"[17] K3b main path: {calls} log_likelihood_matrix calls on cuda, engine fused, "
+        f"{launches} K3b launches, {fused_sde.LAUNCHES} K3a launches (subject builder "
+        f"{t_build * 1e3:.1f} ms)")
+    return label, model, data, ems, launches
+
+
+def sde_twin_rows_check(pt, model, data, sp, ems, dtype, tag, tol, share, phase: int):
+    """The kernel and the twin on ``SDE_TWIN_ROWS`` subjects spread over the
+    cell x all its supports (the same Philox counters: the rows are the
+    sub-population's): (twin ms, trials per row, kernel-vs-twin abs err)."""
+    from pharmsol_tpu_torch.ops.fused_sde import psi_sde_plain
+
+    rows = spread_rows(len(data), SDE_TWIN_ROWS)
+    sub = pt.Data([data.subjects()[int(i)] for i in rows])
+    plan = sde_plan_for(model, sub, sp, ems, dtype)
+    got = run_sde_kernel(plan)
+    counts = {}
+    kw = plan.kernel_kwargs()
+    twin, twin_ms = event_ms(lambda: psi_sde_plain(*plan.streams, plan.support, plan.gen,
+                                                   counts=counts, **kw))
+    abs_err, _ = sde_compare(f"{tag} on subjects {', '.join(str(i) for i in rows)} x "
+                             f"{sp.shape[0]} vs twin", got, twin, tol, share, phase=phase)
+    return twin_ms, counts["trials_by_row"].double().cpu().numpy(), abs_err
+
+
+def phase_sde_feature_times(pt, label, model, data, ems, card: str) -> dict:
+    """K3b alone at full width, the twin and the kernel on the spread rows
+    (held to each other), the general engine there (float64), one end-to-end
+    call with its parts and the plan's share, and the bound from the twin's
+    trials per row scaled to the cell."""
+    from pharmsol_tpu_torch.utils.f32_budget import sde_covariate_model_case
+
+    R, S = SDE_COV_FULL
+    sp = sde_covariate_model_case(1, S, seed=SEED + 20)[2]
+    cells = R * S
+    out = {}
+    for dtype, tol, share in ((torch.float64, 1e-9, 0.999), (torch.float32, 1e-4, 0.99)):
+        pt.set_float_dtype(dtype)
+        d = str(dtype)[6:]
+        plan = sde_plan_for(model, data, sp, ems, dtype)
+        kernel = cuda_ms(lambda: run_sde_kernel(plan), 2, 1)
+        twin_ms, by_row, abs_err = sde_twin_rows_check(pt, model, data, sp, ems, dtype,
+                                                       f"K3b {label} {d}", tol, share, 18)
+        trials = sde_trials_scaled(by_row, R)
+        e2e = wall_ms(lambda: pt.log_likelihood_matrix(model, data, sp, ems, device="cuda"), 1, 0)
+        psi_rows = run_sde_kernel(plan)
+        parts = {
+            "lower_cached": wall_ms(lambda: model.lower(data.subjects()), 3),
+            "plan": wall_ms(lambda: sde_plan_for(model, data, sp, ems, dtype), 3),
+            "finalize": cuda_ms(lambda: plan.finalize(psi_rows), 10),
+        }
+        ops = trials * SDE_PARTICLES * sde_trial_ops(model, plan.cov_names)
+        nbytes = plan_bytes(plan, plan.kernel_kwargs(), R, S)
+        b_ms, b_by = bound(nbytes, ops, dtype)
+        general = None
+        if dtype == torch.float64:
+            rows = spread_rows(R, SDE_TWIN_ROWS)
+            sub = pt.Data([data.subjects()[int(i)] for i in rows])
+            _, general = event_ms(lambda: pt.log_likelihood_matrix(
+                model, sub, sp, ems, device="cuda", engine="general"))
+        log(f"[18] {label} {d} kernel {kernel:10.3f} ms  {cells / (kernel * 1e-3):.4g} "
+            f"cells/s  ({card})")
+        log(f"[18] {label} {d} twin {twin_ms:.3f} ms on {SDE_TWIN_ROWS} subjects x {S}"
+            + (f"; general engine {general:.3f} ms there" if general is not None else "")
+            + f"  ({card})")
+        log(f"[18] {label} {d} end_to_end {e2e:10.3f} ms; parts (ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in parts.items())
+            + f"; kernel share {kernel / e2e:.4f}, plan share {parts['plan'] / e2e:.4f} "
+            f"({card})")
+        log(f"[18] {label} {d} K3b bound {b_ms:.5g} ms by {b_by} ({nbytes / 1e6:.3f} MB, "
+            f"{trials:.0f} cell trials estimated from the twin's {SDE_TWIN_ROWS} subjects, "
+            f"{ops / 1e9:.3f} G operations); kernel at {b_ms / kernel:.4f} of it")
+        out[dtype] = dict(kernel=kernel, twin=twin_ms, general=general, end_to_end=e2e,
+                          plan=parts["plan"], bound=b_ms, bound_by=b_by, abs_err=abs_err,
+                          trials=trials)
+    return out
+
+
+def phase_sde_full_bound(pt, model, data, card: str) -> dict:
+    """K3a's bound at the README cell's full width: the twin's trials on
+    ``SDE_TWIN_ROWS`` spread subjects x all supports (float64, kernel and
+    twin held to each other there), scaled to the cell; both dtypes priced
+    on those counts."""
+    R, S = SDE_FULL
+    ems = readme_ems(pt)
+    sp = readme_support(S, np.random.RandomState(SEED + 5))
+    pt.set_float_dtype(torch.float64)
+    twin_ms, by_row, _ = sde_twin_rows_check(pt, model, data, sp, ems, torch.float64,
+                                             "K3a readme f64", 1e-9, 0.999, 7)
+    trials = sde_trials_scaled(by_row, R)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        plan = sde_plan_for(model, data, sp, ems, dtype)
+        ops = trials * SDE_PARTICLES * sde_trial_ops(model)
+        out[dtype] = bound(plan_bytes(plan, plan.kernel_kwargs(), R, S), ops, dtype)
+        log(f"[7] K3a bound at {R}x{S}x{SDE_PARTICLES} {str(dtype)[6:]}: {out[dtype][0]:.5g} ms "
+            f"by {out[dtype][1]} ({trials:.0f} cell trials estimated from the float64 twin's "
+            f"{SDE_TWIN_ROWS} subjects, {ops / 1e9:.3f} G operations; twin {twin_ms:.3f} ms "
+            f"there)  ({card})")
+    return out
+
+
+def k1c_launch_counts():
+    from pharmsol_tpu_torch.ops import fused_psi
+
+    return fused_psi.LAUNCHES, fused_psi.FEATURE_LAUNCHES, fused_psi.K1C_LAUNCHES
+
+
+def phase_k1c_kernels(pt) -> float:
+    """K1c against its twin at 257 x 300 on every case of
+    ``utils/f32_budget.py::K1C_CASES`` (lag_depth with levels and planes,
+    zero-lag lanes, lag_post with a static and a dynamic lag, a time-dependent
+    lag and fa, fa alone, a 3-compartment case): float64 every cell within
+    1e-10 relative, float32 against the float64 twin within the case's row
+    (``lag_seq_depth``, ``seq_colplanes``, or the structure's); each call one
+    K1c launch."""
+    from pharmsol_tpu_torch.utils.f32_budget import F32_BUDGET, K1C_CASES, f32_error, k1c_case
+
+    R, S = K1C_RAGGED
+    worst = 0.0
+    for name, row in K1C_CASES.items():
+        model, data, sp, ems = k1c_case(name, R, S, seed=SEED)
+        got, twin = {}, {}
+        for dtype in (torch.float64, torch.float32):
+            plan = plan_for(pt, model, data, sp, ems, dtype)
+            before = k1c_launch_counts()
+            got[dtype] = run_kernel(plan)
+            torch.cuda.synchronize()
+            launched = tuple(a - b for a, b in zip(k1c_launch_counts(), before))
+            if launched != (0, 0, 1):
+                raise AssertionError(f"K1c {name}: (K1a, K1b, K1c) launches {launched}")
+            twin[dtype] = run_kernel(plan, plain=True)
+        rel = rel_err(got[torch.float64], twin[torch.float64], 1.0)
+        abs_err = float((got[torch.float64] - twin[torch.float64]).abs().max())
+        e32 = f32_error(got[torch.float32].double().cpu().numpy(),
+                        twin[torch.float64].cpu().numpy())
+        log(f"[19] K1c {name:17s} {R}x{S} f64 kernel vs twin rel {rel:.3e} (<= 1e-10), abs "
+            f"{abs_err:.3e}; f32 kernel vs f64 twin {e32:.3e} (<= {row} {F32_BUDGET[row]:g}); "
+            f"mode {plan.mode}, inputs "
+            + ", ".join(k for k, v in plan.features.items() if v is not None))
+        if not rel <= 1e-10 or not e32 <= F32_BUDGET[row]:
+            raise AssertionError(f"K1c {name}: f64 {rel}, f32 {e32}")
+        worst = max(worst, abs_err)
+    return worst
+
+
+def k1c_workloads(pt, rng):
+    """The two K1c cells, as ``feature_workloads``: (label, model, data,
+    centre, S, mode, budget row, rows of the general-engine check, builder
+    s)."""
+    out = []
+    # "lag-depth Short": JAX tests/test_pallas_psi.py:1367-1386, the 2-cmt
+    # oral model whose seq compounds across the end of the 1.5 h infusion
+    # while a lag and an fa act on the doses (lag_depth), on the regimen of
+    # _lag_depth_subjects (a bolus at 0 and the infusion at 1 h), widened
+    n, S = K1C_DEPTH_SHAPE
+    wt = 55.0 + 4.0 * (np.arange(n) % 8)
+    values = 5.0 * np.exp(-0.2 * np.array([0.5, 1.2, 2.1, 3.0, 4.5, 6.0, 10.0]))[None, :] \
+        * np.exp(0.1 * rng.randn(n, 7))
+    t0 = time.perf_counter()
+    subjects = []
+    for i in range(n):
+        b = (pt.Subject.builder(f"d{i}").bolus(0.0, 100.0, 0).infusion(1.0, 50.0, 0, 1.5)
+             .covariate("wt", 0.0, float(wt[i])))
+        for t, v in zip((0.5, 1.2, 2.1, 3.0, 4.5, 6.0, 10.0), values[i]):
+            b = b.observation(t, float(v), 0)
+        subjects.append(b.build())
+    data = pt.Data(subjects)
+    t_build = time.perf_counter() - t0
+    model = pt.Analytical(
+        pt.two_compartments_with_absorption, out=lambda x, p, t, cov: x[1:2] / p[4],
+        seq_eq=lambda p, t, cov: [p[0], p[1] * (1.0 + 0.1 * p[5]), p[2], p[3], p[4], p[5]],
+        lag=lambda p, t, cov: {0: p[5]}, fa=lambda p, t, cov: {0: 1.0 / (1.0 + 0.3 * p[5])},
+        nstates=3, ndrugs=1, nout=1)
+    out.append((f"lag_depth_2cmt_oral_{n}x{S}", model, data,
+                [1.4, 0.2, 0.2, 0.12, 11.5, 0.75], S, "levels", "lag_seq_depth",
+                min(n, K1C_CHECK_ROWS), t_build))
+    # "dynamic-lag creatinine": the time-varying creatinine 10 000 x 1000 cell
+    # of feature_workloads (knots at 0 and 24 h), with the creatinine read by
+    # the lag, and a bioavailability: per-dose-segment lag and fa planes
+    # (lag_slots, fa_slots). Its seq stays out: with it the lag would need
+    # lag_post's column planes, which at this width pass _MAX_PLANE_FLOATS
+    # (phase 20 runs lag_post at the widest population the cap admits)
+    n, S = K1C_DYN_SHAPE
+    crcl0 = rng.uniform(40.0, 140.0, n)
+    crcl24 = crcl0 * rng.uniform(0.7, 1.3, n)
+    t0 = time.perf_counter()
+    data = short_subjects(pt, n, rng, covariates=lambda i, b: b.covariate(
+        "crcl", 0.0, crcl0[i]).covariate("crcl", 24.0, crcl24[i]))
+    t_build = time.perf_counter() - t0
+    model = pt.Analytical(
+        pt.one_compartment_with_absorption, out=lambda x, p, t, cov: x[1:2] / p[2],
+        lag=lambda p, t, cov: {0: p[3] * cov("crcl", t) / 100.0},
+        fa=lambda p, t, cov: {0: p[4]}, nstates=2, ndrugs=1, nout=1)
+    out.append((f"dyn_lag_crcl_1cmt_oral_{n}x{S}", model, data, [1.2, 0.2, 30.0, 0.5, 0.8], S,
+                None, "one_compartment_with_absorption", min(n, K1C_CHECK_ROWS), t_build))
+    return out
+
+
+def phase_k1c_slice(pt, rng, workload, ems) -> int:
+    """One K1c cell through the public entry point: three calls in float32
+    and three in float64 with fresh supports, each on the fused engine with
+    exactly one K1c launch and no K1a or K1b launch, psi finite and of the
+    right shape; held against the general engine on the card on its first
+    ``rows`` subjects: float64 within 1e-10 relative, float32 against the
+    float64 general engine within the cell's budget row."""
+    from pharmsol_tpu_torch.ops import fused_psi
+    from pharmsol_tpu_torch.utils.f32_budget import F32_BUDGET, f32_error
+
+    label, model, data, centre, S, mode, row, rows, _ = workload
+    supports = [jittered_support(centre, S, rng, 0.2) for _ in range(3)]
+    # the main path's run: every launch counted here is one of its calls
+    fused_psi.LAUNCHES = fused_psi.FEATURE_LAUNCHES = fused_psi.K1C_LAUNCHES = 0
+    results = []
+    for dtype in (torch.float32, torch.float64):
+        pt.set_float_dtype(dtype)
+        for sp in supports:
+            before = k1c_launch_counts()
+            psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
+            torch.cuda.synchronize()
+            dec = pt.last_engine_decision(model)
+            if dec["engine"] != "fused":
+                raise AssertionError(f"{label}: engine {dec}")
+            launched = tuple(a - b for a, b in zip(k1c_launch_counts(), before))
+            if launched != (0, 0, 1):
+                raise AssertionError(f"{label}: (K1a, K1b, K1c) launches {launched}")
+            if tuple(psi.shape) != (len(data), S) or psi.device.type != "cuda":
+                raise AssertionError(f"{label}: psi {tuple(psi.shape)} on {psi.device}")
+            bad = int((~torch.isfinite(psi)).sum())
+            if bad:
+                raise AssertionError(f"{label} {dtype}: {bad} non-finite psi cells")
+            results.append((dtype, sp, psi))
+    launches = fused_psi.K1C_LAUNCHES
+    log(f"[20] {label}: {len(results)} log_likelihood_matrix calls on cuda, engine fused, "
+        f"{launches} K1c launches, {fused_psi.FEATURE_LAUNCHES} K1b, {fused_psi.LAUNCHES} K1a")
+    plan = plan_for(pt, model, data, supports[0], ems, torch.float64)
+    if plan.mode != mode:
+        raise AssertionError(f"{label}: plan mode {plan.mode}, expected {mode}")
+    log(f"[20] {label}: K1c mode {plan.mode}, inputs "
+        + ", ".join(k for k, v in plan.features.items() if v is not None))
+    sub = pt.Data(data.subjects()[:rows])
+    pt.set_float_dtype(torch.float64)
+    wants = [pt.log_likelihood_matrix(model, sub, sp, ems, device="cuda", engine="general")
+             for sp in supports]
+    torch.cuda.synchronize()
+    for j, (dtype, sp, psi) in enumerate(results):
+        want = wants[j % 3]
+        if dtype == torch.float64:
+            err, tol, what = rel_err(psi[:rows], want, 1.0), 1e-10, "rel"
+        else:
+            err = f32_error(psi[:rows].double().cpu().numpy(), want.cpu().numpy())
+            tol, what = F32_BUDGET[row], f"f32 vs f64 general ({row})"
+        log(f"[20] {label} {str(dtype)[6:]}: fused vs general on subjects 0-{rows - 1} "
+            f"{what} {err:.3e} (<= {tol:g}); psi mean {float(psi.double().mean()):.6f}")
+        if not err <= tol:
+            raise AssertionError(f"{label} {dtype}: fused vs general {err} > {tol}")
+    return launches
+
+
+def phase_lag_post_width(pt, rng, card: str) -> None:
+    """lag_post (lag with a time-varying seq) at the widest population
+    ``plans/seq.py::_MAX_PLANE_FLOATS`` admits for the Covariate Short model
+    (its weight with a second knot at 6 h, so its seq varies in time) at
+    ``K1C_POST_S`` supports: one call per dtype through the public entry
+    point, each one K1c launch, float64 held against the general engine on
+    256 subjects within 1e-10; the width and the plan's time printed."""
+    from pharmsol_tpu_torch.likelihood.plans.seq import _MAX_PLANE_FLOATS
+
+    S = K1C_POST_S
+    M = 1 + len(SHORT_TIMES)  # the dose and the observations
+    n_base, n_cols = 5, 7
+    # the column planes' caps: M x n_base x R x S, and the lane walk's
+    # (M + 1) events x R x S x support columns
+    R = int(min(_MAX_PLANE_FLOATS // (M * n_base * S),
+                _MAX_PLANE_FLOATS // ((M + 1) * n_cols * S)))
+    label = f"lag_post_cov_short_2cmt_oral_{R}x{S}"
+    wt0, wt6 = rng.uniform(40.0, 120.0, R), rng.uniform(40.0, 120.0, R)
+    data = short_subjects(pt, R, rng, covariates=lambda i, b: b.covariate(
+        "wt", 0.0, wt0[i]).covariate("wt", 6.0, wt6[i]))
+
+    def allometric(p, t, cov):
+        sc = (cov("wt", t) / 70.0) ** 0.75
+        return [p[0] * sc, p[1], p[2] * sc, p[3] * sc, p[4], p[5], p[6]]
+
+    model = pt.Analytical(
+        pt.two_compartments_with_absorption, seq_eq=allometric,
+        lag=lambda p, t, cov: {0: p[5]}, fa=lambda p, t, cov: {0: p[6]},
+        out=lambda x, p, t, cov: x[1:2] / p[4], nstates=3, ndrugs=1, nout=1)
+    ems = pt.AssayErrorModels().add(0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    sp = jittered_support([0.15, 3.0, 0.3, 0.2, 10.0, 0.5, 0.8], S, rng, 0.2)
+    log(f"[21] {label}: the widest population _MAX_PLANE_FLOATS = {_MAX_PLANE_FLOATS} admits "
+        f"at {S} supports (cut from the Covariate Short cell's 16384 subjects: the lane walk's "
+        f"{M + 1} events x R x S x {n_cols} columns and the {M} x {n_base} x R x S planes)")
+    for dtype in (torch.float32, torch.float64):
+        pt.set_float_dtype(dtype)
+        before = k1c_launch_counts()
+        t0 = time.perf_counter()
+        psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launched = tuple(a - b for a, b in zip(k1c_launch_counts(), before))
+        if pt.last_engine_decision(model)["engine"] != "fused" or launched != (0, 0, 1):
+            raise AssertionError(f"{label}: {pt.last_engine_decision(model)}, (K1a, K1b, "
+                                 f"K1c) launches {launched}")
+        if tuple(psi.shape) != (R, S) or not bool(torch.isfinite(psi).all()):
+            raise AssertionError(f"{label} {dtype}: psi {tuple(psi.shape)}, non-finite cells")
+        line = (f"[21] {label} {str(dtype)[6:]}: one K1c launch, the call {call_s:.3f} s "
+                f"({card})")
+        if dtype == torch.float64:
+            sub = pt.Data(data.subjects()[:256])
+            want = pt.log_likelihood_matrix(model, sub, sp, ems, device="cuda", engine="general")
+            err = rel_err(psi[:256], want, 1.0)
+            line += f"; fused vs general on subjects 0-255 rel {err:.3e} (<= 1e-10)"
+            if not err <= 1e-10:
+                raise AssertionError(f"{label}: fused vs general {err}")
+            t0 = time.perf_counter()
+            plan = plan_for(pt, model, data, sp, ems, dtype)
+            plan_s = time.perf_counter() - t0
+            if plan.features["seg_postdepth"] is None:
+                raise AssertionError(f"{label}: the plan took no lag_post tier")
+            line += (f"; {plan.features['param_planes'].shape[0]} slots; the plan alone "
+                     f"{plan_s:.3f} s, most of it the lane walk of {R * S} lanes")
+        log(line)
+
+
+def k1c_record(depth_times, launches, worst_ragged) -> dict:
+    """K1c's entry of the kernels line (the lag-depth cell's times)."""
+    t32, t64 = depth_times[torch.float32], depth_times[torch.float64]
+    return dict(
+        K1C_RECORD,
+        launches=sum(launches.values()),
+        launches_by_cell=launches,
+        max_abs_err=t64["abs_err"],
+        max_abs_err_f32=t32["abs_err"],
+        max_abs_err_ragged=worst_ragged,
+        ms=t32["kernel"],
+        plain_ms=t32["twin"],
+        bound_ms=t32["bound"],
+        bound_by=t32["bound_by"],
+        library_ms=None,
+        ms_f64=t64["kernel"],
+        plain_ms_f64=t64["twin"],
+        bound_ms_f64=t64["bound"],
+        shape="lag_depth_2cmt_oral_{}x{}".format(*K1C_DEPTH_SHAPE),
+        end_to_end_ms=t32["end_to_end"],
+        end_to_end_ms_f64=t64["end_to_end"],
+        plan_ms=t32["plan"],
+        plan_ms_f64=t64["plan"],
+    )
+
+
+def sde_feature_record(times, launches, worst) -> dict:
+    """K3b's entry of the kernels line."""
+    t32, t64 = times[torch.float32], times[torch.float64]
+    return dict(
+        SDE_FEATURE_RECORD,
+        launches=launches,
+        max_abs_err=t64["abs_err"],
+        max_abs_err_f32=t32["abs_err"],
+        max_abs_err_ragged_zero_diffusion=worst[(torch.float64, False)],
+        ms=t32["kernel"],
+        plain_ms=t32["twin"],
+        bound_ms=t32["bound"],
+        bound_by=t32["bound_by"],
+        library_ms=None,
+        ms_f64=t64["kernel"],
+        plain_ms_f64=t64["twin"],
+        bound_ms_f64=t64["bound"],
+        general_ms_f64=t64["general"],
+        shape="sde_covariates_{}x{}x{}".format(*SDE_COV_FULL, SDE_PARTICLES),
+        plain_shape=f"{SDE_TWIN_ROWS}x{SDE_COV_FULL[1]}x{SDE_PARTICLES}",
+        end_to_end_ms=t32["end_to_end"],
+        end_to_end_ms_f64=t64["end_to_end"],
+        plan_ms=t32["plan"],
+        plan_ms_f64=t64["plan"],
+    )
+
+
+def run_sde_feature_slice(pt, rng, card: str) -> dict:
+    """Phases 16-18: K3b's checks, its cell, its times; K3b's record."""
+    t0 = time.perf_counter()
+    worst = phase_sde_feature_kernels(pt)
+    torch.cuda.synchronize()
+    label, model, data, ems, launches = phase_sde_feature_slice(pt, rng)
+    times = phase_sde_feature_times(pt, label, model, data, ems, card)
+    torch.cuda.synchronize()
+    log(f"[18] the K3b phases took {time.perf_counter() - t0:.1f} s")
+    return sde_feature_record(times, launches, worst)
+
+
+def run_k1c_slice(pt, rng, card: str) -> dict:
+    """Phases 19-21: K1c's checks, its two cells and their times, lag_post at
+    the widest population the cap admits; K1c's record."""
+    t0 = time.perf_counter()
+    worst = phase_k1c_kernels(pt)
+    torch.cuda.synchronize()
+    ems = pt.AssayErrorModels().add(0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    workloads = k1c_workloads(pt, rng)
+    launches = {w[0]: phase_k1c_slice(pt, rng, w, ems) for w in workloads}
+    torch.cuda.synchronize()
+    times = {w[0]: phase_feature_times(pt, w, ems, card, kernel="K1c", phase=20)
+             for w in workloads}
+    torch.cuda.synchronize()
+    phase_lag_post_width(pt, rng, card)
+    torch.cuda.synchronize()
+    log(f"[21] the K1c phases took {time.perf_counter() - t0:.1f} s")
+    record = k1c_record(times[workloads[0][0]], launches, worst)
+    record["cells"] = {label: {str(dt)[6:]: {k: v for k, v in t.items() if k != "bound_by"}
+                               for dt, t in by_dtype.items()}
+                       for label, by_dtype in times.items()}
+    return record
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -3200,13 +3906,109 @@ def closing_lines(records, card: str, partial=None) -> None:
         "count": torch.cuda.device_count()}}))
 
 
+_KERNEL_NAMES = (
+    (r"fused_psi_kernelI([fd])Li(\d+)E()", "K1a"),
+    (r"fused_psi_feature_kernelI([fd])Li(\d+)E(?:Lb([01])E)?", "K1b", "K1c"),
+    (r"fused_sde_kernelI([fd])Li(\d+)E(?:Lb([01])E)?", "K3a", "K3b"),
+)
+
+
+def kernel_registers(lib: Path) -> dict:
+    """{"K3a f64 4": registers, ...} of every kernel in ``lib``, read by
+    ``cuobjdump -res-usage``; the int is the kernel's structure code or
+    particles per thread (the instantiation without a tier flag is the
+    base tier's, as before the flag was added)."""
+    from pharmsol_tpu_torch.ops import _build
+
+    tool = str(Path(_build.nvcc_path()).with_name("cuobjdump"))
+    text = subprocess.run([tool, "-res-usage", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for name, regs in re.findall(r"Function (\S+):\s*REG:(\d+)", text):
+        for pattern, *ids in _KERNEL_NAMES:
+            m = re.search(pattern, name)
+            if m:
+                kid = ids[int(m.group(3) or 0)]
+                out[f"{kid} f{'32' if m.group(1) == 'f' else '64'} {m.group(2)}"] = int(regs)
+    return out
+
+
+def pair_worker(tree: str) -> dict:
+    """One side of ``--pair``: the package of the checkout at ``tree``."""
+    sys.path.insert(0, tree)
+    import pharmsol_tpu_torch as pt
+    from pharmsol_tpu_torch.ops import _build
+
+    root = Path(pt.__file__).resolve().parent
+    if root.parent != Path(tree).resolve():
+        raise AssertionError(f"imported {root}, not the package of {tree}")
+    _build.load_library()
+    rng = np.random.RandomState(SEED)
+    R, S = SDE_FULL
+    model, data, ems = readme_sde(pt), readme_data(pt, R, rng), readme_ems(pt)
+    sp = readme_support(S, rng)
+    ms = {}
+    for dtype in (torch.float32, torch.float64):
+        pt.set_float_dtype(dtype)
+        call = lambda: pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")  # noqa: E731
+        psi = call()  # the first call builds the library
+        if not bool(torch.isfinite(psi).all()):
+            raise AssertionError(f"{tree}: psi not finite")
+        ms[str(dtype)[6:]] = [wall_ms(call, 1, 0) for _ in range(3)]
+    regs = {}
+    for lib in sorted((root / "_build").glob("libfused_*.so")):
+        if lib.name.startswith(("libfused_psi", "libfused_sde")):
+            regs.update(kernel_registers(lib))
+    return dict(tree=tree, ms=ms, regs=regs)
+
+
+def run_pair(other: str, card: str) -> None:
+    """``--pair``: this checkout against the one at ``other``, in the order
+    other, here, here, other."""
+    here = str(Path(__file__).resolve().parent)
+    other = str(Path(other).resolve())
+    sides = []
+    for tree in (other, here, here, other):
+        proc = subprocess.run([sys.executable, __file__, "--pair-worker", tree],
+                              capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("PAIR ")]
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"pair side {tree}: exit {proc.returncode}\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        sides.append(json.loads(lines[-1][5:]))
+        for d, v in sides[-1]["ms"].items():
+            log(f"[pair] {'parent' if tree == other else 'change'} {d} README "
+                f"{R_S_P_LABEL} end-to-end ms: " + ", ".join(f"{x:.3f}" for x in v)
+                + f" ({card})")
+    base, change = sides[0]["regs"], sides[1]["regs"]
+    for key in sorted(set(base) | set(change)):
+        same = "same" if base.get(key) == change.get(key) else "DIFFERENT"
+        log(f"[pair] registers {key}: parent {base.get(key)}, change {change.get(key)} ({same})")
+    print(json.dumps({"pair": {
+        "order": ["parent", "change", "change", "parent"],
+        "ms": [s["ms"] for s in sides], "registers_parent": base,
+        "registers_change": change}}))
+
+
+R_S_P_LABEL = "{}x{}x{}".format(*SDE_FULL, SDE_PARTICLES)
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--pair-worker":
+        print("PAIR " + json.dumps(pair_worker(sys.argv[2])), flush=True)
+        return 0
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["stiff"], default=None,
-                        help="run phases 0, 1 (the stiff libraries alone) and 13-15: the "
-                             "stiff ODE slice, for work on K2b or K2c; the kernels line then "
-                             "holds these two and the last line says {\"ok\": true, "
-                             "\"partial\": \"stiff\"}, not the whole script's verdict")
+    parser.add_argument("--only", choices=["stiff", "sde", "k1c"], default=None,
+                        help="run a part, for work on its kernels: 'stiff' phases 0, 1 (the "
+                             "stiff libraries alone) and 13-15 (K2b, K2c); 'sde' phases 0, 1 "
+                             "(the SDE libraries), 5-7 and 16-18 (K3a, K3b); 'k1c' phases 0, 1 "
+                             "(the closed-form library) and 19-21 (K1c). The kernels line then "
+                             "holds that part's kernels and the last line says {\"ok\": true, "
+                             "\"partial\": ...}, not the whole script's verdict")
+    parser.add_argument("--pair", metavar="DIR", default=None,
+                        help="hold this checkout against the one at DIR: K3a's README cell "
+                             "timed and the kernels' registers, in the order DIR, here, here, "
+                             "DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3219,12 +4021,25 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.RandomState(SEED)
     card = phase_environment()
+    if args.pair is not None:
+        run_pair(args.pair, card)
+        print(card)
+        print(json.dumps({"ok": True, "partial": "pair"}))
+        return 0
+    if args.only in ("sde", "k1c"):
+        phase_build(pt, {}, {}, {}, only=args.only)
+        if args.only == "sde":
+            records = [run_sde_base(pt, rng, card), run_sde_feature_slice(pt, rng, card)]
+        else:
+            records = [run_k1c_slice(pt, rng, card)]
+        closing_lines(records, card, partial=args.only)
+        return 0
     stiff = stiff_cases()
     # the stiff slice's twins run in worker processes while nvcc builds
     twins = StiffTwins(stiff)
     if args.only == "stiff":
         try:
-            phase_build(pt, {}, {}, stiff, only_stiff=True)
+            phase_build(pt, {}, {}, stiff, only="stiff")
             twins.wait()
             records = run_stiff_slice(pt, rng, stiff, card, twins)
         finally:
@@ -3242,8 +4057,54 @@ def main() -> int:
         twins.stop()
 
 
+def run_sde_base(pt, rng, card: str) -> dict:
+    """Phases 5-7: K3a's checks (timed, for the cut of its twin), its cell,
+    its times and its bound at full width; K3a's record."""
+    t0 = time.perf_counter()
+    sde_reduced = phase_sde_kernels(pt, rng)
+    t_twin = time.perf_counter() - t0
+    log(f"[5] cut: the K3a checks against the twin took {t_twin:.1f} s with "
+        f"{SDE_REDUCED_OBS} observations (before the cut, 3: {BEFORE_CUTS_S['sde_twin'][0]} - "
+        f"{BEFORE_CUTS_S['sde_twin'][1]} s): {BEFORE_CUTS_S['sde_twin'][0] - t_twin:.1f}"
+        f" - {BEFORE_CUTS_S['sde_twin'][1] - t_twin:.1f} s saved")
+    general_ms = phase_sde_statistical(pt, rng)
+    phase_sde_cross_family(pt, rng)
+    torch.cuda.synchronize()
+    sde_label, sde, sde_data, sde_launches = phase_sde_slice(pt, rng)
+    sde_times = phase_sde_times(pt, sde_label, sde, sde_data, card)
+    torch.cuda.synchronize()
+    full_bound = phase_sde_full_bound(pt, sde, sde_data, card)
+    torch.cuda.synchronize()
+    r32, r64 = sde_reduced[torch.float32], sde_reduced[torch.float64]
+    return dict(
+        SDE_KERNEL_RECORD,
+        launches=sde_launches,
+        max_abs_err=r64["abs_err"],
+        max_abs_err_f32=r32["abs_err"],
+        ms=r32["kernel"],
+        plain_ms=r32["twin"],
+        bound_ms=r32["bound"],
+        bound_by=r32["bound_by"],
+        library_ms=None,
+        ms_f64=r64["kernel"],
+        plain_ms_f64=r64["twin"],
+        bound_ms_f64=r64["bound"],
+        shape="readme_sde_{}x{}x{}".format(*SDE_REDUCED, SDE_PARTICLES),
+        general_ms_f64=r64["general"],
+        general_ms_f64_stat=general_ms,
+        stat_shape="readme_sde_{}x{}x{}".format(*SDE_STAT, SDE_PARTICLES),
+        ms_full=sde_times[torch.float32]["kernel"],
+        ms_full_f64=sde_times[torch.float64]["kernel"],
+        bound_ms_full=full_bound[torch.float32][0],
+        bound_ms_full_f64=full_bound[torch.float64][0],
+        end_to_end_ms_full=sde_times[torch.float32]["end_to_end"],
+        end_to_end_ms_full_f64=sde_times[torch.float64]["end_to_end"],
+        shape_full=sde_label,
+    )
+
+
 def run_all(pt, rng, card, args, expm, ode_features, stiff, twins) -> int:
-    """Phases 2-15 and the last lines."""
+    """Phases 2-21 and the last lines."""
     phase_kernels(pt, rng)
     phase_feature_kernels(pt)
     phase_ode_kernels(pt, rng)
@@ -3268,13 +4129,7 @@ def run_all(pt, rng, card, args, expm, ode_features, stiff, twins) -> int:
     times = phase_times(pt, workloads, ems, card)
     ode_times = phase_ode_times(pt, ode_label, ode, short_data, ems, card)
     torch.cuda.synchronize()
-    sde_reduced = phase_sde_kernels(pt, rng)
-    general_ms = phase_sde_statistical(pt, rng)
-    phase_sde_cross_family(pt, rng)
-    torch.cuda.synchronize()
-    sde_label, sde, sde_data, sde_launches = phase_sde_slice(pt, rng)
-    sde_times = phase_sde_times(pt, sde_label, sde, sde_data, card)
-    torch.cuda.synchronize()
+    sde_record = run_sde_base(pt, rng, card)
     cov_label, cov_model, cov_data, cov_ems, cov_launches, cov_build = \
         phase_ode_feature_slice(pt, rng)
     torch.cuda.synchronize()
@@ -3283,6 +4138,8 @@ def run_all(pt, rng, card, args, expm, ode_features, stiff, twins) -> int:
     torch.cuda.synchronize()
     expm_rec, fit_a, fit_b = run_expm_slice(pt, rng, expm, card)
     stiff_recs = run_stiff_slice(pt, rng, stiff, card, twins)
+    sde_feature_rec = run_sde_feature_slice(pt, rng, card)
+    k1c_rec = run_k1c_slice(pt, rng, card)
 
     main_label = workloads[0][0]
     t32 = times[(main_label, torch.float32)]
@@ -3362,33 +4219,9 @@ def run_all(pt, rng, card, args, expm, ode_features, stiff, twins) -> int:
         plan_ms=c32["plan"],
         plan_ms_f64=c64["plan"],
     )
-    r32, r64 = sde_reduced[torch.float32], sde_reduced[torch.float64]
-    sde_record = dict(
-        SDE_KERNEL_RECORD,
-        launches=sde_launches,
-        max_abs_err=r64["abs_err"],
-        max_abs_err_f32=r32["abs_err"],
-        ms=r32["kernel"],
-        plain_ms=r32["twin"],
-        bound_ms=r32["bound"],
-        bound_by=r32["bound_by"],
-        library_ms=None,
-        ms_f64=r64["kernel"],
-        plain_ms_f64=r64["twin"],
-        bound_ms_f64=r64["bound"],
-        shape="readme_sde_{}x{}x{}".format(*SDE_REDUCED, SDE_PARTICLES),
-        general_ms_f64=r64["general"],
-        general_ms_f64_stat=general_ms,
-        stat_shape="readme_sde_{}x{}x{}".format(*SDE_STAT, SDE_PARTICLES),
-        ms_full=sde_times[torch.float32]["kernel"],
-        ms_full_f64=sde_times[torch.float64]["kernel"],
-        end_to_end_ms_full=sde_times[torch.float32]["end_to_end"],
-        end_to_end_ms_full_f64=sde_times[torch.float64]["end_to_end"],
-        shape_full=sde_label,
-    )
     log("[10] fits: " + json.dumps({"fit_a": fit_a, "fit_b": fit_b}))
     closing_lines([record, feature_record, ode_record, ode_feature_record, sde_record, expm_rec,
-                   *stiff_recs], card)
+                   *stiff_recs, sde_feature_rec, k1c_rec], card)
     return 0
 
 

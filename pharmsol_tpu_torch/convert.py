@@ -88,8 +88,10 @@ def ode_options_from_reference(opts) -> ODEOptions:
 
 def sde_options_from_reference(sde) -> dict:
     """The keyword options of the port's ``SDE`` for a JAX package ``SDE``:
-    particle count, seed, noise mode, resampling scheme and EM step control
-    (the JAX model's only state besides its closures)."""
+    particle count, seed, noise mode, resampling scheme and EM step control,
+    and its lag and fa closures (plain arithmetic on ``p``, ``t`` and
+    ``cov``, which runs in either framework: the drift and diffusion are
+    written once per framework)."""
     return dict(nparticles=int(sde.nparticles()), seed=int(sde._seed),
                 noise=str(sde._noise), resampling=str(sde._resampling),
-                em_control=str(sde._em_control))
+                em_control=str(sde._em_control), lag=sde._lag, fa=sde._fa)

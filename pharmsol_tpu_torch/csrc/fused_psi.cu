@@ -6,11 +6,24 @@
 // pharmsol_tpu/ops/pallas_psi.py::psi_oral (_make_kernel, base tier:
 // infusions, censoring, several outputs, output biases; all 12 structures).
 //
-// K1b, fused_psi_feature_kernel: replaces the same TPU kernel's feature tier
-// (_make_kernel with mult_mode row / segment / levels / planes,
-// has_offsets, static has_lag / has_fa planes, has_init rows or planes;
-// pallas_psi.py:583-606, :655-723, :762-782). The lag_slots / fa_slots,
-// lag_depth and lag_post flags (kernel K1c) are not ported here.
+// K1b, fused_psi_feature_kernel<T, CODE, false>: replaces the same TPU
+// kernel's feature tier (_make_kernel with mult_mode row / segment / levels /
+// planes, has_offsets, static has_lag / has_fa planes, has_init rows or
+// planes; pallas_psi.py:583-606, :655-723, :762-782).
+//
+// K1c, fused_psi_feature_kernel<T, CODE, true>: the rest of that tier
+// (pallas_psi.py:498-527, :725-758): lag and fa planes selected per dose
+// segment by slot tables (lag_slots / fa_slots); lag_depth, lag with a seq
+// chain deeper than one, where an int depth counter dc with its `applied`
+// flag replays the engine's reset/carry rule on an event-code stream (1
+// resets, 2 compounds, 0 is a bolus column whose event moved with its lag)
+// and the segment where the dose fires runs a true split march: propagate to
+// the fire at the pre-fire level, add the pending dose, reset to depth 1 and
+// propagate the rest; lag_post, lag with a time-varying seq, where two slot
+// streams select the pre-fire and the post-fire parameters from the same
+// [L, n_base, R, S] plane tensor for the same split march. The TPU's lane
+// masks become branches: a thread is one cell. K1b's instantiations do not
+// compile any of this (a template flag), so their code and registers stay.
 //
 // Plain PyTorch twin of both:
 // pharmsol_tpu_torch/ops/fused_psi.py::psi_analytical_plain.
@@ -65,6 +78,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -379,32 +394,62 @@ __global__ void __launch_bounds__(256) fused_psi_kernel(
   }
 }
 
-// K1b's feature inputs, in the wrapper's order (ops/fused_psi.py FEATURES):
-// mult [R, NP] and offset, mult_seg [R, NP, M] and offset, levels
-// [L, NB, S], planes [L, NB, R, S], depth [R, M] (1-based), lag and fa
-// [R, S], init rows [NS, S] or planes [NS, R, S], init mask [R]; nullptr is
-// off. mode: 0 none, 1 row, 2 segment, 3 levels, 4 planes.
+// K1b's feature inputs: mult [R, NP] and offset, mult_seg [R, NP, M] and
+// offset, levels [L, NB, S], planes [L, NB, R, S], depth [R, M] (1-based),
+// lag and fa [R, S] (K1c: plane stacks [n, R, S]), init rows [NS, S] or planes
+// [NS, R, S], init mask [R]; nullptr is off. mode: 0 none, 1 row, 2 segment,
+// 3 levels, 4 planes.
 struct Features {
   const void* p[12];
   int mode, n_levels;
 };
 
+// K1c's: K1b's, then the event codes [R, M], the post slots [R, M] and the
+// int slot tables of the lag and fa planes [M] (-1: no dose there). K1b's
+// kernel takes Features alone, so its parameters are laid out as before K1c.
+struct K1cFeatures {
+  Features b;
+  const void* evcode;
+  const void* postdepth;
+  const int* lag_slots;
+  const int* fa_slots;
+};
+
+__device__ __forceinline__ const Features& base_of(const Features& f) { return f; }
+__device__ __forceinline__ const Features& base_of(const K1cFeatures& f) { return f.b; }
+
 enum { MODE_NONE = 0, MODE_ROW = 1, MODE_SEGMENT = 2, MODE_LEVELS = 3, MODE_PLANES = 4 };
 
-template <typename T, int CODE>
+// The micro constants of chain level d (1-based) of cell (r, s): levels
+// [L, NB, S] or planes [L, NB, R, S] as the mode says.
+template <typename T, int NB>
+__device__ __forceinline__ void level_micro(T (&micro)[NB], int mode,
+                                            const T* __restrict__ levels,
+                                            const T* __restrict__ planes, int d, int r,
+                                            int R, int S, int s) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const size_t lj = (size_t)(d - 1) * NB + j;
+    micro[j] = mode == MODE_LEVELS ? levels[lj * S + s] : planes[(lj * R + r) * S + s];
+  }
+}
+
+template <typename T, int CODE, bool K1C>
 __global__ void __launch_bounds__(256) fused_psi_feature_kernel(
     const T* __restrict__ seg_dt, const T* __restrict__ seg_bolus,
     const T* __restrict__ seg_rate, const T* __restrict__ obs_mask,
     const T* __restrict__ obs_value, const T* __restrict__ obs_sigma,
     const T* __restrict__ obs_cens, const T* __restrict__ obs_outeq,
     const T* __restrict__ params, const T* __restrict__ coef,
-    const T* __restrict__ bias, T* __restrict__ out, const Features f,
-    int R, int S, int M, int n_out) {
+    const T* __restrict__ bias, T* __restrict__ out,
+    const std::conditional_t<K1C, K1cFeatures, Features> fk, int R, int S, int M,
+    int n_out) {
   using Mdl = Model<T, CODE / 4 + 1, (CODE % 2) == 1, ((CODE / 2) % 2) == 1>;
   constexpr int NS = Mdl::NS;
   constexpr int NP = Mdl::NP;
   constexpr int NB = Mdl::NB;
   const T LOG_2PI = T(1.8378770664093454836);
+  const Features& f = base_of(fk);
   const T* __restrict__ mult = (const T*)f.p[0];
   const T* __restrict__ offset = (const T*)f.p[1];
   const T* __restrict__ mult_seg = (const T*)f.p[2];
@@ -417,6 +462,18 @@ __global__ void __launch_bounds__(256) fused_psi_feature_kernel(
   const T* __restrict__ init_rows = (const T*)f.p[9];
   const T* __restrict__ init_planes = (const T*)f.p[10];
   const T* __restrict__ init_mask = (const T*)f.p[11];
+  // K1c's own inputs (null in K1b's instantiation)
+  const T* __restrict__ evcode = nullptr;
+  const T* __restrict__ postdepth = nullptr;
+  const int* __restrict__ lag_slots = nullptr;
+  const int* __restrict__ fa_slots = nullptr;
+  if constexpr (K1C) {
+    evcode = (const T*)fk.evcode;
+    postdepth = (const T*)fk.postdepth;
+    lag_slots = fk.lag_slots;
+    fa_slots = fk.fa_slots;
+  }
+  [[maybe_unused]] const size_t RS = (size_t)R * S;
 
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= S) return;
@@ -453,6 +510,13 @@ __global__ void __launch_bounds__(256) fused_psi_feature_kernel(
     int cur = 0;  // the chain depth the model is prepared for (0: none)
     const T lag_rs = has_lag ? lag[(size_t)r * S + s] : T(0);
     const T fa_rs = fa != nullptr ? fa[(size_t)r * S + s] : T(1);
+    // K1c: the post-fire model (depth 1, or the column's post slot), the
+    // slot it is prepared for, and lag_depth's chain state (unused by K1b)
+    [[maybe_unused]] Mdl mfire;
+    [[maybe_unused]] int cur_fire = 0;
+    [[maybe_unused]] int dc = 0;
+    [[maybe_unused]] bool app = false;
+    [[maybe_unused]] const bool split = K1C && (evcode != nullptr || postdepth != nullptr);
     T pend_amt = T(0), pend_rem = T(0);
     T ll = T(0);
     const size_t row = (size_t)r * M;
@@ -478,17 +542,48 @@ __global__ void __launch_bounds__(256) fused_psi_feature_kernel(
       }
       // 2. the bolus (0 on padded slots) scaled by fa; with lag it waits
       const T bol = seg_bolus[i];
-      const T bol_eff = fa != nullptr ? bol * fa_rs : bol;
+      T bol_eff = fa != nullptr ? bol * fa_rs : bol;
+      bool lag_here = has_lag;
+      T lag_m = lag_rs;
+      if constexpr (K1C) {
+        // slot tables pick each dose segment's plane (-1: no dose lands)
+        if (fa != nullptr && fa_slots != nullptr) {
+          const int sl = fa_slots[m];
+          bol_eff = sl < 0 ? bol : bol * fa[(size_t)sl * RS + (size_t)r * S + s];
+        }
+        if (has_lag && lag_slots != nullptr) {
+          const int sl = lag_slots[m];
+          lag_here = sl >= 0;
+          if (lag_here) lag_m = lag[(size_t)sl * RS + (size_t)r * S + s];
+        }
+      }
       if (has_lag) {
-        if (bol != T(0)) {
+        if (lag_here && bol != T(0)) {
           pend_amt = bol_eff;
-          pend_rem = lag_rs;
+          pend_rem = lag_m;
         }
       } else {
         x[0] = x[0] + bol_eff;
       }
       // 3. this segment's parameters, then propagate over its span
       const T dt = seg_dt[i];
+      if constexpr (K1C) {
+        if (evcode != nullptr) {
+          // lag_depth: the engine's reset/carry rule on the event codes
+          const T code = evcode[i];
+          const int span = dt > T(0) ? 1 : 0;
+          if (code == T(1)) {
+            dc = span;
+            app = span != 0;
+          } else if (code == T(2)) {
+            dc += span;
+            app = span != 0;
+          } else {
+            dc += (span != 0 && !app) ? 1 : 0;
+            app = app || span != 0;
+          }
+        }
+      }
       if (dt > T(0)) {
         if (f.mode == MODE_SEGMENT) {
           T eff[NP];
@@ -499,18 +594,47 @@ __global__ void __launch_bounds__(256) fused_psi_feature_kernel(
           }
           mdl.prepare(eff);
         } else if (f.mode >= MODE_LEVELS) {
-          int d = (int)depth[i];
+          int d = (K1C && evcode != nullptr) ? dc : (int)depth[i];
           d = d < 1 ? 1 : (d > f.n_levels ? f.n_levels : d);
           if (d != cur) {
             T micro[NB];
-#pragma unroll
-            for (int j = 0; j < NB; ++j) {
-              const size_t lj = (size_t)(d - 1) * NB + j;
-              micro[j] = f.mode == MODE_LEVELS ? levels[lj * S + s]
-                                               : planes[(lj * R + r) * S + s];
-            }
+            level_micro(micro, f.mode, levels, planes, d, r, R, S, s);
             mdl.prepare(micro, true);
             cur = d;
+          }
+        }
+        if constexpr (K1C) {
+          if (split) {
+            // the true split march (pallas_psi.py:725-758): the fire resets
+            // the chain, so no superposition across it
+            const T rate = has_inf ? seg_rate[i] : T(0);
+            const bool fire = pend_amt != T(0) && pend_rem < dt;
+            if (!fire) {
+              mdl.propagate(x, dt, rate, has_inf);
+              pend_rem = pend_rem - dt > T(0) ? pend_rem - dt : T(0);
+              continue;
+            }
+            if (pend_rem > T(0)) mdl.propagate(x, pend_rem, rate, has_inf);
+            x[0] = x[0] + pend_amt;
+            // the post-fire parameters: depth 1 (lag_depth) or this
+            // column's post slot (lag_post)
+            int dp = postdepth != nullptr ? (int)postdepth[i] : 1;
+            dp = dp < 1 ? 1 : (dp > f.n_levels ? f.n_levels : dp);
+            if (dp != cur_fire) {
+              T micro[NB];
+              level_micro(micro, f.mode, levels, planes, dp, r, R, S, s);
+              mfire.prepare(micro, true);
+              cur_fire = dp;
+            }
+            const T rest = dt - pend_rem;
+            if (rest > T(0)) mfire.propagate(x, rest, rate, has_inf);
+            if (evcode != nullptr) {
+              dc = 1;
+              app = true;
+            }
+            pend_amt = T(0);
+            pend_rem = T(0);
+            continue;
           }
         }
         mdl.propagate(x, dt, has_inf ? seg_rate[i] : T(0), has_inf);
@@ -572,15 +696,15 @@ cudaError_t dispatch(int code, const void* const* p, void* out, int R, int S,
   }
 }
 
-template <typename T, int CODE>
-cudaError_t launch_feature(const void* const* p, void* out, const Features& f,
-                           int R, int S, int M, int n_out, cudaStream_t stream) {
+template <typename T, int CODE, bool K1C, typename F>
+cudaError_t launch_feature(const void* const* p, void* out, const F& f, int R, int S,
+                           int M, int n_out, cudaStream_t stream) {
   if (R <= 0 || S <= 0) return cudaSuccess;
   const dim3 block(128, 2);
   const unsigned gx = (unsigned)((S + block.x - 1) / block.x);
   unsigned gy = (unsigned)((R + block.y - 1) / block.y);
   if (gy > 65535u) gy = 65535u;
-  fused_psi_feature_kernel<T, CODE><<<dim3(gx, gy), block, 0, stream>>>(
+  fused_psi_feature_kernel<T, CODE, K1C><<<dim3(gx, gy), block, 0, stream>>>(
       (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
       (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7],
       (const T*)p[8], (const T*)p[9], (const T*)p[10], (T*)out, f, R, S, M,
@@ -588,23 +712,22 @@ cudaError_t launch_feature(const void* const* p, void* out, const Features& f,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_feature(int code, const void* const* p, void* out,
-                             const Features& f, int R, int S, int M, int n_out,
-                             cudaStream_t st) {
+template <typename T, bool K1C, typename F>
+cudaError_t dispatch_feature(int code, const void* const* p, void* out, const F& f,
+                             int R, int S, int M, int n_out, cudaStream_t st) {
   switch (code) {
-    case 0: return launch_feature<T, 0>(p, out, f, R, S, M, n_out, st);
-    case 1: return launch_feature<T, 1>(p, out, f, R, S, M, n_out, st);
-    case 2: return launch_feature<T, 2>(p, out, f, R, S, M, n_out, st);
-    case 3: return launch_feature<T, 3>(p, out, f, R, S, M, n_out, st);
-    case 4: return launch_feature<T, 4>(p, out, f, R, S, M, n_out, st);
-    case 5: return launch_feature<T, 5>(p, out, f, R, S, M, n_out, st);
-    case 6: return launch_feature<T, 6>(p, out, f, R, S, M, n_out, st);
-    case 7: return launch_feature<T, 7>(p, out, f, R, S, M, n_out, st);
-    case 8: return launch_feature<T, 8>(p, out, f, R, S, M, n_out, st);
-    case 9: return launch_feature<T, 9>(p, out, f, R, S, M, n_out, st);
-    case 10: return launch_feature<T, 10>(p, out, f, R, S, M, n_out, st);
-    case 11: return launch_feature<T, 11>(p, out, f, R, S, M, n_out, st);
+    case 0: return launch_feature<T, 0, K1C>(p, out, f, R, S, M, n_out, st);
+    case 1: return launch_feature<T, 1, K1C>(p, out, f, R, S, M, n_out, st);
+    case 2: return launch_feature<T, 2, K1C>(p, out, f, R, S, M, n_out, st);
+    case 3: return launch_feature<T, 3, K1C>(p, out, f, R, S, M, n_out, st);
+    case 4: return launch_feature<T, 4, K1C>(p, out, f, R, S, M, n_out, st);
+    case 5: return launch_feature<T, 5, K1C>(p, out, f, R, S, M, n_out, st);
+    case 6: return launch_feature<T, 6, K1C>(p, out, f, R, S, M, n_out, st);
+    case 7: return launch_feature<T, 7, K1C>(p, out, f, R, S, M, n_out, st);
+    case 8: return launch_feature<T, 8, K1C>(p, out, f, R, S, M, n_out, st);
+    case 9: return launch_feature<T, 9, K1C>(p, out, f, R, S, M, n_out, st);
+    case 10: return launch_feature<T, 10, K1C>(p, out, f, R, S, M, n_out, st);
+    case 11: return launch_feature<T, 11, K1C>(p, out, f, R, S, M, n_out, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -631,9 +754,11 @@ extern "C" int fused_psi_launch(int is_f64, int code, const void* seg_dt,
   return (int)err;
 }
 
-// K1b: the same pointers as fused_psi_launch, then `features`, the 12
-// feature pointers (null = off) in the order of struct Features, and
-// `ints` = {mode, number of levels or planes}.
+// K1b and K1c: the same pointers as fused_psi_launch, then `features`, the
+// 14 feature pointers of ops/fused_psi.py FEATURES (null = off) followed by
+// the device int32 slot tables lag_slots and fa_slots [M] (null = none), and
+// `ints` = {mode, number of levels or planes}. Slot tables, an event code
+// stream or a post slot stream select K1c, anything else K1b.
 extern "C" int fused_psi_feature_launch(
     int is_f64, int code, const void* seg_dt, const void* seg_bolus,
     const void* seg_rate, const void* obs_mask, const void* obs_value,
@@ -643,14 +768,37 @@ extern "C" int fused_psi_feature_launch(
     int n_out, void* stream) {
   const void* p[11] = {seg_dt, seg_bolus, seg_rate, obs_mask, obs_value,
                        obs_sigma, obs_cens, obs_outeq, params, coef, bias};
-  Features f;
-  for (int i = 0; i < 12; ++i) f.p[i] = features[i];
-  f.mode = ints[0];
-  f.n_levels = ints[1];
-  if (f.mode < MODE_NONE || f.mode > MODE_PLANES) return (int)cudaErrorInvalidValue;
+  // features: mult, offset, mult_seg, offset_seg, levels, planes, depth,
+  // evcode, postdepth, lag, fa, init_rows, init_planes, init_mask, lag_slots,
+  // fa_slots (ops/fused_psi.py FEATURES, then the slot tables)
+  K1cFeatures k;
+  const int base[12] = {0, 1, 2, 3, 4, 5, 6, 9, 10, 11, 12, 13};
+  for (int i = 0; i < 12; ++i) k.b.p[i] = features[base[i]];
+  k.evcode = features[7];
+  k.postdepth = features[8];
+  k.lag_slots = (const int*)features[14];
+  k.fa_slots = (const int*)features[15];
+  k.b.mode = ints[0];
+  k.b.n_levels = ints[1];
+  if (k.b.mode < MODE_NONE || k.b.mode > MODE_PLANES) return (int)cudaErrorInvalidValue;
+  const bool k1c = k.evcode != nullptr || k.postdepth != nullptr ||
+                   k.lag_slots != nullptr || k.fa_slots != nullptr;
+  // event codes and post slots drive the level select; slot tables need
+  // their planes
+  if ((k.evcode != nullptr || k.postdepth != nullptr) &&
+      (k.b.mode < MODE_LEVELS || k.b.p[7] == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((k.lag_slots != nullptr && k.b.p[7] == nullptr) ||
+      (k.fa_slots != nullptr && k.b.p[8] == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = is_f64 ? dispatch_feature<double>(code, p, out, f, R, S, M, n_out, st)
-                           : dispatch_feature<float>(code, p, out, f, R, S, M, n_out, st);
+  cudaError_t err;
+  if (k1c)
+    err = is_f64 ? dispatch_feature<double, true>(code, p, out, k, R, S, M, n_out, st)
+                 : dispatch_feature<float, true>(code, p, out, k, R, S, M, n_out, st);
+  else
+    err = is_f64 ? dispatch_feature<double, false>(code, p, out, k.b, R, S, M, n_out, st)
+                 : dispatch_feature<float, false>(code, p, out, k.b, R, S, M, n_out, st);
   return (int)err;
 }
 

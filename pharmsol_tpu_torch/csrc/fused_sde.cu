@@ -2,15 +2,43 @@
 // adaptive Euler-Maruyama, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel pharmsol_tpu/ops/pallas_sde.py::psi_sde
-// (_make_sde_kernel, base tier: per-input boluses into their destination
-// states and infusions, init rows, censoring, several outputs with a bias,
-// both em_control modes). Plain PyTorch twin:
-// pharmsol_tpu_torch/ops/fused_sde.py::psi_sde_plain.
+// (_make_sde_kernel): its base tier (K3a: per-input boluses into their
+// destination states and infusions, init rows, censoring, several outputs
+// with a bias, both em_control modes) and its feature tier (K3b: covariate
+// lanes cov_for_seg :283-288, init planes :375-383, the lag/fa pending doses
+// with their split march and slot tables :387-390, :445-538). Plain PyTorch
+// twin: pharmsol_tpu_torch/ops/fused_sde.py::psi_sde_plain.
 //
 // The model's drift and diffusion are not written here: they are generated
 // from the model's torch closures by pharmsol_tpu_torch/ops/rhs_codegen.py as
-// `drift<T>(x, p, t, rateiv, dx)` and `diffusion<T>(p, t, g)` and included
-// through PHARMSOL_SDE_RHS, so each model builds its own library.
+// `drift<T>(x, p, t, rateiv, cov_a, cov_b, dx)` and `diffusion<T>(p, t,
+// cov_a, cov_b, g)` and included through PHARMSOL_SDE_RHS, so each model
+// builds its own library. A covariate reads cov_a[i] (constant over the row)
+// or cov_a[i] + cov_b[i] * t (affine within the segment).
+//
+// Two instantiations of one kernel template: FEAT = false is K3a, whose code
+// is the base tier's alone; FEAT = true is K3b. A library holds one tier: the
+// base tier's ten instantiations (two dtypes, five particle counts per
+// thread), or with -DPHARMSOL_SDE_FEAT=1 the feature tier's
+// (ops/_build.py::sde_kind), so a model builds what it runs. K3b's inputs ride in one
+// struct of pointers (Feat, null = off):
+// - covariates: cov_a, cov_b [NCOV, R, M]: per segment column, the constant
+//   value or the affine (a, b) of the segment;
+// - init planes [N, R, S] (an init that reads a covariate), times init_mask;
+// - lag, fa: plane stacks [n, R, S], selected per (bolus plane, segment) by
+//   the slot tables [nb, M] of the int table (-1: no dose lands there;
+//   static planes have slot k in every column).
+// With lag, each bolus plane's pending dose (amount, time to fire) is held
+// by every thread of the block alike: the fire times are the cell's, so
+// every branch of the split march is uniform over the block and all threads
+// reach the same barriers. The doses due at a breakpoint fire after its
+// observation and before the arrivals; new doses park with their lag; one
+// pass per bolus plane marches to the next earliest fire time (equal times
+// fire together, strict rem < dt), each pass with the Euler-Maruyama
+// controller restarted (the engine's per-support grid split at the shifted
+// time), and the last pass runs to the segment's end; the trial count runs
+// on across the passes of a segment (ops/philox.py). A zero fa parks a zero
+// dose, which never fires, as in the JAX kernel.
 //
 // Layout. One block of 256 threads per (row, support) cell, a grid of R * S
 // blocks, nothing padded. Thread t owns the particles [t * PPT, t * PPT +
@@ -69,13 +97,20 @@
 // Build (plain C interface, loaded with ctypes; ops/_build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -fmad=false -I<dir> \
-//        -DPHARMSOL_SDE_RHS='"sde_<key>.cuh"' -o libfused_sde_<hash>.so fused_sde.cu
+//        [-DPHARMSOL_SDE_FEAT=1] -DPHARMSOL_SDE_RHS='"sde_<key>.cuh"' \
+//        -o libfused_sde_<hash>.so fused_sde.cu
 
 #include <cuda_runtime.h>
 #include <float.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#ifndef PHARMSOL_SDE_FEAT
+#define PHARMSOL_SDE_FEAT 0
+#endif
 
 #ifndef PHARMSOL_SDE_RHS
 #error "define PHARMSOL_SDE_RHS as the generated drift/diffusion header (ops/_build.py)"
@@ -87,6 +122,8 @@ namespace {
 constexpr int N = PHARMSOL_RHS_NSTATES;
 constexpr int NP = PHARMSOL_RHS_NPARAMS;
 constexpr int NIN = PHARMSOL_RHS_NINPUT;
+constexpr int NCOV = PHARMSOL_RHS_NCOV;
+constexpr int NC = NCOV > 0 ? NCOV : 1;  // register arrays of the covariates
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
@@ -248,6 +285,19 @@ __device__ __forceinline__ T block_exclusive_scan(T v, T* buf) {
   return base + excl;
 }
 
+// K3b's feature inputs (null = off).
+template <typename T>
+struct Feat {
+  const T* cov_a;        // [NCOV, R, M]
+  const T* cov_b;        // [NCOV, R, M] or null (no affine covariate)
+  const T* lag;          // [n_lag, R, S]
+  const T* fa;           // [n_fa, R, S]
+  const T* init_planes;  // [N, R, S] (with init_mask)
+  const int* lag_slots;  // [nb, M]
+  const int* fa_slots;   // [nb, M]
+  int n_lag, n_fa;
+};
+
 template <typename T>
 struct Args {
   const T* seg_dt;     // [R, M]
@@ -271,8 +321,166 @@ struct Args {
   uint32_t k0, k1;     // Philox key
 };
 
+// K3b's arguments: K3a's and the feature inputs. K3a's kernel takes Args
+// alone, so its parameters are laid out as before K3b.
+template <typename T>
+struct FeatArgs : Args<T> {
+  Feat<T> f;
+};
+
+// The fa scale of bolus plane k at segment m (K3b; 1 without fa).
+template <typename T>
+__device__ __forceinline__ T fa_scale(const FeatArgs<T>& a, int k, int m, size_t rs) {
+  if (a.f.n_fa == 0) return T(1);
+  const int slot = a.f.fa_slots[k * a.M + m];
+  return slot < 0 ? T(1) : a.f.fa[(size_t)slot * a.R * a.S + rs];
+}
+
+// The segment's infusion rate into each RHS input.
+template <typename T>
+__device__ __forceinline__ void segment_rates(const Args<T>& a, size_t idx, T (&rate)[NIN]) {
+  const size_t RM = (size_t)a.R * a.M;
+#pragma unroll
+  for (int i = 0; i < NIN; ++i) rate[i] = T(0);
+  for (int b = 0; b < a.nr; ++b) {
+    const T v = a.seg_rate[(size_t)b * RM + idx];
+    const int in = a.rate_in[b];
+#pragma unroll
+    for (int i = 0; i < NIN; ++i) rate[i] = (i == in) ? v : rate[i];
+  }
+}
+
+// Add `amt` to state ds of every particle the thread owns.
+template <int PPT, typename T>
+__device__ __forceinline__ void add_dose(T (&x)[PPT][N], int ds, T amt) {
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[k][i] = (i == ds) ? x[k][i] + amt : x[k][i];
+  }
+}
+
+// K3b's adaptive Euler-Maruyama march (the JAX kernel's em_march) of the
+// thread's particles over `target` from t0, the controller started afresh
+// (K3a keeps the same statements inline, as it had them before K3b);
+// `trial` numbers the segment's next trial and is advanced by the trials
+// made. Each trial advances every particle by the full step and by two half
+// steps, the max normalised error over particles and states is reduced over
+// the block (warp shuffles, then shared memory), and accept, the new step
+// (clamped rsqrt law) and the end of the march are decided from that
+// block-reduced value, so every thread takes the same branch and reaches the
+// same barriers. The march ends at tau >= target - 1e-6 target, on a stall
+// (tau + h == tau) or after 100000 trials; a cell that stopped short is NaN.
 template <typename T, int PPT>
-__global__ void __launch_bounds__(THREADS) fused_sde_kernel(const Args<T> a) {
+__device__ __forceinline__ void em_march(const Args<T>& a, T (&x)[PPT][N], const T* p,
+                                         const T* rate, const T* ca, const T* cb,
+                                         T t0, T target, int m, int& trial, int r,
+                                         int s, T (&red_max)[2][WARPS], unsigned& parity) {
+  if (!(target > T(0))) return;
+  constexpr int PC = Fn<T>::PER_CALL;
+  constexpr int G = (N + PC - 1) / PC;  // Philox calls per slot
+  const int P = a.P;
+  const int j0 = threadIdx.x * PPT;
+  const T thr = target - T(1e-6) * (target > T(1e-30) ? target : T(1e-30));
+  T tau = T(0);
+  T h = T(EM_MAX_STEP);
+  bool live = true;
+  int it = 0;
+  for (; it < EM_MAX_ITERS && live; ++it) {
+    const T rem = target - tau;
+    const T h_try = h < (rem > T(1e-14) ? rem : T(1e-14)) ? h
+                    : (rem > T(1e-14) ? rem : T(1e-14));
+    const T t_abs = t0 + tau;
+    const T h_half = h_try * T(0.5);
+    const T sq_h = Fn<T>::sqrt(h_half > T(0) ? h_half : T(0));
+    const T sq = Fn<T>::sqrt(h_try > T(0) ? h_try : T(0));
+    const T t_mid = t_abs + h_half;
+    T g0[N], g1[N];
+    diffusion<T>(p, t_abs, ca, cb, g0);
+    diffusion<T>(p, t_mid, ca, cb, g1);
+    T err = T(0);
+    T y2[PPT][N];
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const int j = j0 + k;
+#pragma unroll
+      for (int i = 0; i < N; ++i) y2[k][i] = x[k][i];
+      if (j >= P) continue;
+      // the increments of the full step and of the two half steps
+      T w_full[N], w1[N], w2[N];
+      T z[3][G * PC];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        if (d == 2 && a.coupled) break;
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          Fn<T>::normals(philox(counter(j, m, trial + it, (uint32_t)d, g, s, r), a.k0,
+                                a.k1),
+                         &z[d][g * PC]);
+      }
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        if (a.coupled) {
+          w_full[i] = (z[0][i] + z[1][i]) * sq_h;
+          w1[i] = z[0][i] * sq_h;
+          w2[i] = z[1][i] * sq_h;
+        } else {
+          w_full[i] = z[0][i] * sq;
+          w1[i] = z[1][i] * sq_h;
+          w2[i] = z[2][i] * sq_h;
+        }
+      }
+      T d0[N], ym[N], d1[N];
+      drift<T>(x[k], p, t_abs, rate, ca, cb, d0);
+      T y1[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        y1[i] = x[k][i] + d0[i] * h_try + g0[i] * w_full[i];
+        ym[i] = x[k][i] + d0[i] * h_half + g0[i] * w1[i];
+      }
+      drift<T>(ym, p, t_mid, rate, ca, cb, d1);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        y2[k][i] = ym[i] + d1[i] * h_half + g1[i] * w2[i];
+        const T xa = x[k][i] < T(0) ? -x[k][i] : x[k][i];
+        const T diff = y1[i] - y2[k][i];
+        const T e = (diff < T(0) ? -diff : diff) / (T(EM_ATOL) + T(EM_RTOL) * xa);
+        err = nanmax(err, e);
+      }
+    }
+    err = block_max(err, red_max[parity]);
+    parity ^= 1u;
+    const bool finite = isfinite(err);
+    if (err <= T(1) && finite) {
+      tau = tau + h_try;
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) x[k][i] = y2[k][i];
+      }
+    }
+    T e_fl = finite ? err : T(1e4);
+    e_fl = e_fl > T(1e-12) ? e_fl : T(1e-12);
+    T hn = h_try * T(EM_SAFETY) * (T(1) / Fn<T>::sqrt(e_fl));
+    hn = hn > T(EM_MIN_STEP) ? hn : T(EM_MIN_STEP);
+    h = hn < T(EM_MAX_STEP) ? hn : T(EM_MAX_STEP);
+    const bool done = tau >= thr;
+    const bool stalled = (tau + h) <= tau && !done;
+    live = !done && !stalled;
+  }
+  trial += it;
+  if (tau < thr) {
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) x[k][i] = T(NAN);
+    }
+  }
+}
+
+template <typename T, int PPT, bool FEAT>
+__global__ void __launch_bounds__(THREADS) fused_sde_kernel(
+    const std::conditional_t<FEAT, FeatArgs<T>, Args<T>> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* cloud = reinterpret_cast<T*>(smem_raw);  // [N][P]
   T* cw = cloud + (size_t)N * a.P;             // [P]
@@ -291,6 +499,7 @@ __global__ void __launch_bounds__(THREADS) fused_sde_kernel(const Args<T> a) {
   const T SQRT_2PI = T(2.5066282746310002);
   constexpr int PC = Fn<T>::PER_CALL;
   constexpr int G = (N + PC - 1) / PC;  // Philox calls per slot
+  const size_t rs = (size_t)r * a.S + s;  // this cell in an [R, S] plane
 
   T p[NP];
 #pragma unroll
@@ -305,6 +514,26 @@ __global__ void __launch_bounds__(THREADS) fused_sde_kernel(const Args<T> a) {
     for (int i = 0; i < N; ++i)
       x[k][i] = a.init != nullptr ? im * a.init[(size_t)i * a.S + s] : T(0);
   }
+  if constexpr (FEAT) {
+    if (a.f.init_planes != nullptr) {
+      // an init that reads a covariate: one value per (row, support)
+      const T im_p = a.init_mask[r];
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+          x[k][i] = im_p * a.f.init_planes[(size_t)i * a.R * a.S + rs];
+      }
+    }
+  }
+  T ca[NC], cb[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) ca[c] = cb[c] = T(0);
+  // each bolus plane's pending (lagged) dose: amount and time to fire, the
+  // same in every thread of the block
+  T pend_amt[NIN], pend_rem[NIN];
+#pragma unroll
+  for (int k = 0; k < NIN; ++k) pend_amt[k] = pend_rem[k] = T(0);
 
   T ll = T(0);
   unsigned parity = 0;  // selects red_max's buffer, trial by trial
@@ -379,159 +608,239 @@ __global__ void __launch_bounds__(THREADS) fused_sde_kernel(const Args<T> a) {
       __syncthreads();  // the cloud and cw are rewritten at the next observation
     }
 
-    // 2. the segment's boluses, into their destination states
-    for (int b = 0; b < a.nb; ++b) {
-      const T amt = a.seg_bolus[(size_t)b * RM + idx];
-      const int ds = a.dose_state[b];
-#pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-#pragma unroll
-        for (int i = 0; i < N; ++i) x[k][i] = (i == ds) ? x[k][i] + amt : x[k][i];
-      }
-    }
-
-    // 3. the adaptive Euler-Maruyama march of the segment
-    const T dt = a.seg_dt[idx];
-    if (!(dt > T(0))) continue;
-    T rate[NIN];
-#pragma unroll
-    for (int i = 0; i < NIN; ++i) rate[i] = T(0);
-    for (int b = 0; b < a.nr; ++b) {
-      const T v = a.seg_rate[(size_t)b * RM + idx];
-      const int in = a.rate_in[b];
-#pragma unroll
-      for (int i = 0; i < NIN; ++i) rate[i] = (i == in) ? v : rate[i];
-    }
-    const T t0 = a.seg_t0[idx];
-    const T thr = dt - T(1e-6) * (dt > T(1e-30) ? dt : T(1e-30));
-    T tau = T(0);
-    T h = T(EM_MAX_STEP);
-    bool live = true;
-    for (int it = 0; it < EM_MAX_ITERS && live; ++it) {
-      const T rem = dt - tau;
-      const T h_try = h < (rem > T(1e-14) ? rem : T(1e-14)) ? h
-                      : (rem > T(1e-14) ? rem : T(1e-14));
-      const T t_abs = t0 + tau;
-      const T h_half = h_try * T(0.5);
-      const T sq_h = Fn<T>::sqrt(h_half > T(0) ? h_half : T(0));
-      const T sq = Fn<T>::sqrt(h_try > T(0) ? h_try : T(0));
-      const T t_mid = t_abs + h_half;
-      T g0[N], g1[N];
-      diffusion<T>(p, t_abs, g0);
-      diffusion<T>(p, t_mid, g1);
-      T err = T(0);
-      T y2[PPT][N];
-#pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        const int j = j0 + k;
-#pragma unroll
-        for (int i = 0; i < N; ++i) y2[k][i] = x[k][i];
-        if (j >= P) continue;
-        // the increments of the full step and of the two half steps
-        T w_full[N], w1[N], w2[N];
-        T z[3][G * PC];
-#pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          if (d == 2 && a.coupled) break;
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-            Fn<T>::normals(philox(counter(j, m, it, (uint32_t)d, g, s, r), a.k0, a.k1),
-                           &z[d][g * PC]);
-        }
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          if (a.coupled) {
-            w_full[i] = (z[0][i] + z[1][i]) * sq_h;
-            w1[i] = z[0][i] * sq_h;
-            w2[i] = z[1][i] * sq_h;
-          } else {
-            w_full[i] = z[0][i] * sq;
-            w1[i] = z[1][i] * sq_h;
-            w2[i] = z[2][i] * sq_h;
-          }
-        }
-        T d0[N], ym[N], d1[N];
-        drift<T>(x[k], p, t_abs, rate, d0);
-        T y1[N];
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          y1[i] = x[k][i] + d0[i] * h_try + g0[i] * w_full[i];
-          ym[i] = x[k][i] + d0[i] * h_half + g0[i] * w1[i];
-        }
-        drift<T>(ym, p, t_mid, rate, d1);
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          y2[k][i] = ym[i] + d1[i] * h_half + g1[i] * w2[i];
-          const T xa = x[k][i] < T(0) ? -x[k][i] : x[k][i];
-          const T diff = y1[i] - y2[k][i];
-          const T e = (diff < T(0) ? -diff : diff) / (T(EM_ATOL) + T(EM_RTOL) * xa);
-          err = nanmax(err, e);
-        }
-      }
-      err = block_max(err, red_max[parity]);
-      parity ^= 1u;
-      const bool finite = isfinite(err);
-      if (err <= T(1) && finite) {
-        tau = tau + h_try;
+    if constexpr (!FEAT) {
+      // K3a: the base tier's statements
+      // 2. the segment's boluses, into their destination states
+      for (int b = 0; b < a.nb; ++b) {
+        const T amt = a.seg_bolus[(size_t)b * RM + idx];
+        const int ds = a.dose_state[b];
 #pragma unroll
         for (int k = 0; k < PPT; ++k) {
 #pragma unroll
-          for (int i = 0; i < N; ++i) x[k][i] = y2[k][i];
+          for (int i = 0; i < N; ++i) x[k][i] = (i == ds) ? x[k][i] + amt : x[k][i];
         }
       }
-      T e_fl = finite ? err : T(1e4);
-      e_fl = e_fl > T(1e-12) ? e_fl : T(1e-12);
-      T hn = h_try * T(EM_SAFETY) * (T(1) / Fn<T>::sqrt(e_fl));
-      hn = hn > T(EM_MIN_STEP) ? hn : T(EM_MIN_STEP);
-      h = hn < T(EM_MAX_STEP) ? hn : T(EM_MAX_STEP);
-      const bool done = tau >= thr;
-      const bool stalled = (tau + h) <= tau && !done;
-      live = !done && !stalled;
-    }
-    if (tau < thr) {
+
+      // 3. the adaptive Euler-Maruyama march of the segment
+      const T dt = a.seg_dt[idx];
+      if (!(dt > T(0))) continue;
+      T rate[NIN];
 #pragma unroll
-      for (int k = 0; k < PPT; ++k) {
+      for (int i = 0; i < NIN; ++i) rate[i] = T(0);
+      for (int b = 0; b < a.nr; ++b) {
+        const T v = a.seg_rate[(size_t)b * RM + idx];
+        const int in = a.rate_in[b];
 #pragma unroll
-        for (int i = 0; i < N; ++i) x[k][i] = T(NAN);
+        for (int i = 0; i < NIN; ++i) rate[i] = (i == in) ? v : rate[i];
+      }
+      const T t0 = a.seg_t0[idx];
+      const T thr = dt - T(1e-6) * (dt > T(1e-30) ? dt : T(1e-30));
+      T tau = T(0);
+      T h = T(EM_MAX_STEP);
+      bool live = true;
+      for (int it = 0; it < EM_MAX_ITERS && live; ++it) {
+        const T rem = dt - tau;
+        const T h_try = h < (rem > T(1e-14) ? rem : T(1e-14)) ? h
+                        : (rem > T(1e-14) ? rem : T(1e-14));
+        const T t_abs = t0 + tau;
+        const T h_half = h_try * T(0.5);
+        const T sq_h = Fn<T>::sqrt(h_half > T(0) ? h_half : T(0));
+        const T sq = Fn<T>::sqrt(h_try > T(0) ? h_try : T(0));
+        const T t_mid = t_abs + h_half;
+        T g0[N], g1[N];
+        diffusion<T>(p, t_abs, ca, cb, g0);
+        diffusion<T>(p, t_mid, ca, cb, g1);
+        T err = T(0);
+        T y2[PPT][N];
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          const int j = j0 + k;
+#pragma unroll
+          for (int i = 0; i < N; ++i) y2[k][i] = x[k][i];
+          if (j >= P) continue;
+          // the increments of the full step and of the two half steps
+          T w_full[N], w1[N], w2[N];
+          T z[3][G * PC];
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            if (d == 2 && a.coupled) break;
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+              Fn<T>::normals(philox(counter(j, m, it, (uint32_t)d, g, s, r), a.k0, a.k1),
+                             &z[d][g * PC]);
+          }
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+            if (a.coupled) {
+              w_full[i] = (z[0][i] + z[1][i]) * sq_h;
+              w1[i] = z[0][i] * sq_h;
+              w2[i] = z[1][i] * sq_h;
+            } else {
+              w_full[i] = z[0][i] * sq;
+              w1[i] = z[1][i] * sq_h;
+              w2[i] = z[2][i] * sq_h;
+            }
+          }
+          T d0[N], ym[N], d1[N];
+          drift<T>(x[k], p, t_abs, rate, ca, cb, d0);
+          T y1[N];
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+            y1[i] = x[k][i] + d0[i] * h_try + g0[i] * w_full[i];
+            ym[i] = x[k][i] + d0[i] * h_half + g0[i] * w1[i];
+          }
+          drift<T>(ym, p, t_mid, rate, ca, cb, d1);
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+            y2[k][i] = ym[i] + d1[i] * h_half + g1[i] * w2[i];
+            const T xa = x[k][i] < T(0) ? -x[k][i] : x[k][i];
+            const T diff = y1[i] - y2[k][i];
+            const T e = (diff < T(0) ? -diff : diff) / (T(EM_ATOL) + T(EM_RTOL) * xa);
+            err = nanmax(err, e);
+          }
+        }
+        err = block_max(err, red_max[parity]);
+        parity ^= 1u;
+        const bool finite = isfinite(err);
+        if (err <= T(1) && finite) {
+          tau = tau + h_try;
+#pragma unroll
+          for (int k = 0; k < PPT; ++k) {
+#pragma unroll
+            for (int i = 0; i < N; ++i) x[k][i] = y2[k][i];
+          }
+        }
+        T e_fl = finite ? err : T(1e4);
+        e_fl = e_fl > T(1e-12) ? e_fl : T(1e-12);
+        T hn = h_try * T(EM_SAFETY) * (T(1) / Fn<T>::sqrt(e_fl));
+        hn = hn > T(EM_MIN_STEP) ? hn : T(EM_MIN_STEP);
+        h = hn < T(EM_MAX_STEP) ? hn : T(EM_MAX_STEP);
+        const bool done = tau >= thr;
+        const bool stalled = (tau + h) <= tau && !done;
+        live = !done && !stalled;
+      }
+      if (tau < thr) {
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+#pragma unroll
+          for (int i = 0; i < N; ++i) x[k][i] = T(NAN);
+        }
+      }
+    } else {
+      // K3b: the segment's rates, start time and covariates
+      const T dt = a.seg_dt[idx];
+      T rate[NIN];
+      segment_rates(a, idx, rate);
+      const T t0 = a.seg_t0[idx];
+      if (NCOV > 0) {
+#pragma unroll
+        for (int c = 0; c < NCOV; ++c) {
+          ca[c] = a.f.cov_a[c * RM + idx];
+          cb[c] = a.f.cov_b != nullptr ? a.f.cov_b[c * RM + idx] : T(0);
+        }
+      }
+      int trial = 0;
+      const bool lagged = a.f.n_lag > 0;
+      if (!lagged) {
+        // 2. the segment's boluses (fa-scaled), into their destination states
+        for (int b = 0; b < a.nb; ++b)
+          add_dose<PPT>(x, a.dose_state[b],
+                        a.seg_bolus[(size_t)b * RM + idx] * fa_scale(a, b, m, rs));
+      } else {
+        // K3b with lag (the JAX kernel's :475-538). 2a. doses due at this
+        // breakpoint fire after its observation
+#pragma unroll
+        for (int b = 0; b < NIN; ++b) {
+          if (b >= a.nb) break;
+          if (pend_amt[b] != T(0) && pend_rem[b] <= T(0)) {
+            add_dose<PPT>(x, a.dose_state[b], pend_amt[b]);
+            pend_amt[b] = T(0);
+          }
+        }
+        // 2b. arrivals park with their lag
+#pragma unroll
+        for (int b = 0; b < NIN; ++b) {
+          if (b >= a.nb) break;
+          const int slot = a.f.lag_slots[b * a.M + m];
+          if (slot < 0) continue;
+          const T bol = a.seg_bolus[(size_t)b * RM + idx];
+          if (bol != T(0)) {
+            pend_amt[b] = pend_amt[b] + bol * fa_scale(a, b, m, rs);
+            pend_rem[b] = a.f.lag[(size_t)slot * a.R * a.S + rs];
+          }
+        }
+      }
+      // 3. the adaptive Euler-Maruyama march of the segment: one pass, or
+      // with lag one pass per bolus plane to the next earliest fire time and
+      // a last one to the segment's end (the split march)
+      const int passes = lagged ? a.nb + 1 : 1;
+      T elapsed = T(0);
+      for (int pass = 0; pass < passes; ++pass) {
+        const bool last = pass == passes - 1;
+        bool will[NIN];
+        T t_next = dt;
+#pragma unroll
+        for (int b = 0; b < NIN; ++b) {
+          will[b] = !last && b < a.nb && pend_amt[b] != T(0) && pend_rem[b] < dt;
+          const T cand = will[b] ? pend_rem[b] : dt;
+          t_next = cand < t_next ? cand : t_next;
+        }
+        t_next = t_next > elapsed ? t_next : elapsed;
+        em_march<T, PPT>(a, x, p, rate, ca, cb, t0 + elapsed, t_next - elapsed, m, trial, r,
+                         s, red_max, parity);
+#pragma unroll
+        for (int b = 0; b < NIN; ++b) {
+          if (will[b] && pend_rem[b] <= t_next) {
+            add_dose<PPT>(x, a.dose_state[b], pend_amt[b]);
+            pend_amt[b] = T(0);
+          }
+        }
+        elapsed = t_next;
+      }
+      if (lagged && dt > T(0)) {
+#pragma unroll
+        for (int b = 0; b < NIN; ++b)
+          if (pend_amt[b] != T(0)) pend_rem[b] = pend_rem[b] - dt;
       }
     }
   }
   if (threadIdx.x == 0) a.out[(size_t)r * a.S + s] = ll;
 }
 
-template <typename T, int PPT>
-cudaError_t launch_ppt(const Args<T>& a, cudaStream_t stream) {
+template <typename T, int PPT, bool FEAT, typename A>
+cudaError_t launch_ppt(const A& a, cudaStream_t stream) {
   const size_t smem = (size_t)(N + 1) * a.P * sizeof(T);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_sde_kernel<T, PPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fused_sde_kernel<T, PPT, FEAT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return e;
   }
   const unsigned cells = (unsigned)((long long)a.R * a.S);
-  fused_sde_kernel<T, PPT><<<cells, THREADS, smem, stream>>>(a);
+  fused_sde_kernel<T, PPT, FEAT><<<cells, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
+template <typename T, bool FEAT, typename A>
+cudaError_t launch(const A& a, cudaStream_t stream) {
   if (a.R <= 0 || a.S <= 0) return cudaSuccess;
   if ((long long)a.R * a.S > (long long)INT_MAX || a.P < 1 || a.P > THREADS * 16 ||
       a.M > (1 << 16) || a.M < 1)
     return cudaErrorInvalidValue;
   const int ppt = (a.P + THREADS - 1) / THREADS;
-  if (ppt <= 1) return launch_ppt<T, 1>(a, stream);
-  if (ppt <= 2) return launch_ppt<T, 2>(a, stream);
-  if (ppt <= 4) return launch_ppt<T, 4>(a, stream);
-  if (ppt <= 8) return launch_ppt<T, 8>(a, stream);
-  return launch_ppt<T, 16>(a, stream);
+  if (ppt <= 1) return launch_ppt<T, 1, FEAT>(a, stream);
+  if (ppt <= 2) return launch_ppt<T, 2, FEAT>(a, stream);
+  if (ppt <= 4) return launch_ppt<T, 4, FEAT>(a, stream);
+  if (ppt <= 8) return launch_ppt<T, 8, FEAT>(a, stream);
+  return launch_ppt<T, 16, FEAT>(a, stream);
 }
 
 template <typename T>
 cudaError_t run(const void* const* ptr, const int* ints, void* out, int R, int S,
                 int M, int P, int nb, int nr, int n_out, int coupled,
-                uint32_t k0, uint32_t k1, cudaStream_t stream) {
-  Args<T> a;
+                uint32_t k0, uint32_t k1, cudaStream_t stream,
+                const void* const* feat = nullptr, int n_lag = 0, int n_fa = 0) {
+  FeatArgs<T> a = {};
   a.seg_dt = (const T*)ptr[0];
   a.seg_bolus = (const T*)ptr[1];
   a.seg_rate = (const T*)ptr[2];
@@ -552,7 +861,36 @@ cudaError_t run(const void* const* ptr, const int* ints, void* out, int R, int S
   a.R = R; a.S = S; a.M = M; a.P = P; a.nb = nb; a.nr = nr; a.n_out = n_out;
   a.coupled = coupled;
   a.k0 = k0; a.k1 = k1;
-  return launch<T>(a, stream);
+  if (feat == nullptr) {
+#if PHARMSOL_SDE_FEAT
+    return cudaErrorInvalidValue;  // the base tier's library builds K3a
+#else
+    // K3a: closures that read a covariate need K3b's streams
+    if (NCOV > 0) return cudaErrorInvalidValue;
+    return launch<T, false>(static_cast<const Args<T>&>(a), stream);
+#endif
+  }
+#if !PHARMSOL_SDE_FEAT
+  return cudaErrorInvalidValue;  // the feature tier's library builds K3b
+#else
+  Feat<T>& f = a.f;
+  f.cov_a = (const T*)feat[0];
+  f.cov_b = (const T*)feat[1];
+  f.lag = (const T*)feat[2];
+  f.fa = (const T*)feat[3];
+  f.init_planes = (const T*)feat[4];
+  f.n_lag = n_lag;
+  f.n_fa = n_fa;
+  // the slot tables follow the rate inputs: lag's, then fa's
+  const int* slots = ints + nb + nr;
+  f.lag_slots = n_lag > 0 ? slots : nullptr;
+  f.fa_slots = n_fa > 0 ? slots + (n_lag > 0 ? nb * M : 0) : nullptr;
+  if ((NCOV > 0 && f.cov_a == nullptr) || (n_lag > 0 && f.lag == nullptr) ||
+      (n_fa > 0 && f.fa == nullptr) || nb > NIN ||
+      (f.init_planes != nullptr && (a.init != nullptr || a.init_mask == nullptr)))
+    return cudaErrorInvalidValue;
+  return launch<T, true>(a, stream);
+#endif
 }
 
 __global__ void philox_kernel(int n, const uint32_t* ctr, uint32_t k0, uint32_t k1,
@@ -595,6 +933,29 @@ extern "C" int fused_sde_launch(int is_f64, const void* seg_dt, const void* seg_
   const cudaError_t err =
       is_f64 ? run<double>(ptr, iv, out, R, S, M, P, nb, nr, n_out, coupled, k0, k1, st)
              : run<float>(ptr, iv, out, R, S, M, P, nb, nr, n_out, coupled, k0, k1, st);
+  return (int)err;
+}
+
+// K3b: the same launch with the feature tier. base: the 14 pointers of
+// fused_sde_launch in its order (init may be null with init_planes set);
+// feat: cov_a [NCOV, R, M], cov_b [NCOV, R, M] (or null), lag [n_lag, R, S],
+// fa [n_fa, R, S], init_planes [N, R, S], each null when off; ints as
+// fused_sde_launch's, then the lag slot table [nb, M] when n_lag > 0 and the
+// fa slot table [nb, M] when n_fa > 0. Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for an inconsistent feature set).
+extern "C" int fused_sde_feature_launch(int is_f64, const void* const* base,
+                                        const void* const* feat, const void* ints,
+                                        void* out, int R, int S, int M, int P, int nb,
+                                        int nr, int n_out, int coupled, int n_lag,
+                                        int n_fa, uint32_t k0, uint32_t k1,
+                                        void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* iv = (const int*)ints;
+  const cudaError_t err =
+      is_f64 ? run<double>(base, iv, out, R, S, M, P, nb, nr, n_out, coupled, k0, k1, st,
+                           feat, n_lag, n_fa)
+             : run<float>(base, iv, out, R, S, M, P, nb, nr, n_out, coupled, k0, k1, st,
+                          feat, n_lag, n_fa);
   return (int)err;
 }
 

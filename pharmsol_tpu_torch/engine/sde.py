@@ -13,7 +13,10 @@ likelihood, in the reference's semantics (sde/mod.rs, em.rs):
   normal CDF of ``+-z`` for BLOQ/ALOQ), resampled, and the cell gains
   ``log(max(mean weight, tiny))``;
 - boluses land in ``bolus_dest[input]`` (inject-to-destination routes);
-- ``init`` sets the state at t = 0 on the occasion marked by ``init_mask``.
+- ``init`` sets the state at t = 0 on the occasion marked by ``init_mask``;
+- every closure reads the row's covariates through ``cov(name, t)``; ``lag``
+  shifts each bolus (evaluated at its time) and ``fa`` scales it (evaluated
+  at the shifted time), so each support sorts its own segments.
 
 The JAX engine vmaps a per-cell ``lax.while_loop``; here one masked Python
 loop runs over every (support, row) cell at once on ``[S, R, P, n]`` clouds,
@@ -59,6 +62,8 @@ class SDESpec(NamedTuple):
     diffusion: Callable
     out: Callable  # out(x, p, t, cov) -> y[nout]
     init: Optional[Callable] = None
+    lag: Optional[Callable] = None  # lag(p, t, cov) -> {input: lag} or [ninput]
+    fa: Optional[Callable] = None  # fa(p, t, cov) -> {input: fa} or [ninput]
     # bolus destination state per input (inject-to-destination mapping or
     # identity input -> state)
     bolus_dest: Optional[tuple] = None
@@ -78,31 +83,56 @@ def ndtr(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * y
 
 
-def _batched_closures(spec: SDESpec, dtype, device):
+def _batched_closures(spec: SDESpec, rows: OccasionArrays, names, dtype, device):
     """drift on [S, R, P, n] clouds, diffusion on [S, R] cells, out on clouds
-    and init on supports, each vmapped from the per-particle closure."""
-    n, cov = spec.nstates, CovView.empty()
+    and init on supports x rows, each vmapped from the per-particle closure,
+    with each row's covariate view rebuilt from its knots inside the row vmap
+    (as ``engine/ode.py::lane_rhs``). Times are [S, R], rates [S, R, ninput]."""
+    n = spec.nstates
+    knots = (rows.cov_t, rows.cov_v, rows.cov_fixed)
 
-    def drift_one(x, p, t, rateiv):
-        return as_vector(spec.drift(x, p, t, rateiv, cov), x).reshape(n)
+    def drift_one(x, p, t, rateiv, kt, kv, kf):
+        return as_vector(spec.drift(x, p, t, rateiv, CovView(kt, kv, kf, names)),
+                         x).reshape(n)
 
-    def diffusion_one(p, t):
-        return as_vector(spec.diffusion(p, t, cov), p).reshape(n)
+    def diffusion_one(p, t, kt, kv, kf):
+        return as_vector(spec.diffusion(p, t, CovView(kt, kv, kf, names)), p).reshape(n)
 
-    def out_one(x, p, t):
-        return as_vector(spec.out(x, p, t, cov), x).reshape(spec.nout)
+    def out_one(x, p, t, kt, kv, kf):
+        return as_vector(spec.out(x, p, t, CovView(kt, kv, kf, names)),
+                         x).reshape(spec.nout)
 
-    drift = vmap(vmap(vmap(drift_one, in_dims=(0, None, None, None)),
-                      in_dims=(0, None, 0, 0)),
-                 in_dims=(0, 0, 0, None))
-    diffusion = vmap(vmap(diffusion_one, in_dims=(None, 0)), in_dims=(0, 0))
-    out = vmap(vmap(vmap(out_one, in_dims=(0, None, None)),
-                    in_dims=(0, None, 0)),
-               in_dims=(0, 0, None))
+    k3 = (0, 0, 0)
+    drift_b = vmap(vmap(vmap(drift_one, in_dims=(0, None, None, None) + (None,) * 3),
+                        in_dims=(0, None, 0, 0) + k3),
+                   in_dims=(0, 0, 0, 0) + (None,) * 3)
+    diffusion_b = vmap(vmap(diffusion_one, in_dims=(None, 0) + k3),
+                       in_dims=(0, 0) + (None,) * 3)
+    out_b = vmap(vmap(vmap(out_one, in_dims=(0, None, None) + (None,) * 3),
+                      in_dims=(0, None, 0) + k3),
+                 in_dims=(0, 0, 0) + (None,) * 3)
+
+    def drift(X, p, t, rateiv):
+        return drift_b(X, p, t, rateiv, *knots)
+
+    def diffusion(p, t):
+        return diffusion_b(p, t, *knots)
+
+    def out(X, p, t):
+        return out_b(X, p, t, *knots)
+
     init = None
     if spec.init is not None:
+        # init at t = 0, reading each row's covariates there
         t0 = torch.zeros((), dtype=dtype, device=device)
-        init = vmap(lambda p: as_vector(spec.init(p, t0, cov), p).reshape(n))
+
+        def init_one(p, kt, kv, kf):
+            return as_vector(spec.init(p, t0, CovView(kt, kv, kf, names)), p).reshape(n)
+
+        init_b = vmap(vmap(init_one, in_dims=(None,) + k3), in_dims=(0,) + (None,) * 3)
+
+        def init(p):  # [S, R, n]
+            return init_b(p, *knots)
     return drift, diffusion, out, init
 
 
@@ -172,39 +202,51 @@ def resample_positions(U, P: int):
 
 def simulate_occasion_sde_ll(spec: SDESpec, rows: OccasionArrays, p: torch.Tensor,
                              em_kind, em_factor, em_poly,
-                             generator: torch.Generator) -> torch.Tensor:
+                             generator: torch.Generator, cov_names=()) -> torch.Tensor:
     """Particle-filter log-likelihood of every row at every support point.
 
     ``rows``: OccasionArrays of tensors with a leading row axis R; ``p``:
     support points [S, n_params]; ``em_*``: lowered error-model tensors;
-    ``generator``: the source of every draw, on ``p``'s device. Returns
-    [S, R].
+    ``generator``: the source of every draw, on ``p``'s device;
+    ``cov_names``: the covariates of ``rows.cov_*``, read by the closures
+    through a per-row :class:`~.grid.CovView`. With lag or fa every support
+    sorts its own lag-shifted segments ([S, R, M] streams, JAX
+    ``engine/sde.py:185-210``). Returns [S, R].
     """
     from ..likelihood.loglik import observation_sigmas
 
     fd, dev = p.dtype, p.device
-    segs = build_segments(rows, spec.ninput)
-    R, M = segs.t.shape
+    names = tuple(cov_names)
+    segs = build_segments(rows, spec.ninput, p, spec.lag, spec.fa, names)
+    R = rows.obs_t.shape[0]
+    M = segs.t.shape[-1]
     S, P, n = p.shape[0], int(spec.nparticles), spec.nstates
-    drift, diffusion, out, init = _batched_closures(spec, fd, dev)
+    drift, diffusion, out, init = _batched_closures(spec, rows, names, fd, dev)
     coupled = spec.em_control == "coupled"
     common = spec.noise == "common"
     cell_shape = (R, P) if common else (S, R, P)
 
     sigma_obs, active_obs = observation_sigmas(rows, em_kind, em_factor, em_poly)
     pos = segs.obs_pos
-    seg_sigma = torch.ones_like(segs.t).scatter(1, pos, sigma_obs)
-    seg_active = torch.zeros_like(segs.is_event).scatter(1, pos, active_obs)
-    seg_value = torch.zeros_like(segs.t).scatter(1, pos, rows.obs_value)
-    seg_cens = torch.zeros_like(segs.b_input).scatter(1, pos, rows.obs_cens)
-    seg_outeq = torch.zeros_like(segs.b_input).scatter(1, pos, rows.obs_outeq)
+
+    def scatter(base, src):
+        return base.scatter(-1, pos, src.expand(pos.shape))
+
+    seg_sigma = scatter(torch.ones_like(segs.t), sigma_obs)
+    seg_active = scatter(torch.zeros_like(segs.is_event), active_obs)
+    seg_value = scatter(torch.zeros_like(segs.t), rows.obs_value)
+    seg_cens = scatter(torch.zeros_like(segs.b_input), rows.obs_cens)
+    seg_outeq = scatter(torch.zeros_like(segs.b_input), rows.obs_outeq)
     dest = torch.as_tensor(spec.bolus_dest if spec.bolus_dest is not None
                            else tuple(range(spec.ninput)), dtype=torch.int64,
                            device=dev)
 
+    def sr(a):  # column m of a per-row [R, M] or per-(support, row) stream as [S, R]
+        return a.expand((S,) + tuple(a.shape[-1:])) if a.dim() == 1 else a
+
     X = torch.zeros((S, R, P, n), dtype=fd, device=dev)
     if init is not None:
-        x0 = rows.init_mask.to(fd)[None, :, None] * init(p)[:, None, :]  # [S, R, n]
+        x0 = rows.init_mask.to(fd)[None, :, None] * init(p)  # [S, R, n]
         X = X + x0[:, :, None, :]
     ll = torch.zeros((S, R), dtype=fd, device=dev)
     tiny = torch.finfo(fd).tiny
@@ -216,19 +258,19 @@ def simulate_occasion_sde_ll(spec: SDESpec, rows: OccasionArrays, p: torch.Tenso
         return z if not common else z[:, None]
 
     for m in range(M):
-        t = segs.t[:, m]
-        weighted = seg_active[:, m]  # [R]
+        t = sr(segs.t[..., m])
+        weighted = sr(seg_active[..., m])  # [S, R]
         if bool(weighted.any()):
             # observation before bolus: weight, record, resample
             y_all = out(X, p, t)  # [S, R, P, nout]
-            idx = seg_outeq[:, m].view(1, R, 1, 1).expand(S, R, P, 1)
+            idx = sr(seg_outeq[..., m]).view(S, R, 1, 1).expand(S, R, P, 1)
             y = torch.gather(y_all, 3, idx)[..., 0]
-            sigma = seg_sigma[:, m].view(1, R, 1)
-            z = (seg_value[:, m].view(1, R, 1) - y) / sigma
+            sigma = sr(seg_sigma[..., m])[..., None]
+            z = (sr(seg_value[..., m])[..., None] - y) / sigma
             q_pdf = torch.exp(-0.5 * z * z) / (sigma * sqrt_2pi)
-            cens = seg_cens[:, m].view(1, R, 1)
+            cens = sr(seg_cens[..., m])[..., None]
             q = torch.where(cens == 1, ndtr(z), torch.where(cens == 2, ndtr(-z), q_pdf))
-            wv = weighted.view(1, R, 1)
+            wv = weighted[..., None]
             q = torch.where(wv, q, torch.ones_like(q))
             sum_q = q.sum(dim=-1)  # [S, R]
             w = q / torch.clamp(sum_q, min=tiny)[..., None]
@@ -238,20 +280,19 @@ def simulate_occasion_sde_ll(spec: SDESpec, rows: OccasionArrays, p: torch.Tenso
             ridx = _resample_index(w, resample_positions(U, P).expand(S, R, P))
             X_rs = torch.gather(X, 2, ridx[..., None].expand(S, R, P, n))
             X = torch.where(wv[..., None], X_rs, X)
-            ll = ll + torch.where(weighted.view(1, R),
-                                  torch.log(torch.clamp(sum_q / P, min=tiny)),
+            ll = ll + torch.where(weighted, torch.log(torch.clamp(sum_q / P, min=tiny)),
                                   torch.zeros_like(sum_q))
 
         # bolus into its destination state
-        bvec = torch.nn.functional.one_hot(dest[segs.b_input[:, m]], n).to(fd)
-        X = X + (bvec * segs.b_amt[:, m, None])[None, :, None, :]
+        bvec = torch.nn.functional.one_hot(dest[sr(segs.b_input[..., m])], n).to(fd)
+        X = X + (bvec * sr(segs.b_amt[..., m])[..., None])[:, :, None, :]
 
         # propagate
-        dt = segs.dt[:, m]
+        dt = sr(segs.dt[..., m])
         if bool((dt > 0.0).any()):
-            t0 = t.view(1, R).expand(S, R)
-            t1 = t0 + dt.view(1, R)
-            X_prop = _em_segment(drift, diffusion, X, p, t0, t1, segs.rateiv[:, m],
+            rateiv = segs.rateiv[..., m, :]
+            rateiv = rateiv.expand((S,) + tuple(rateiv.shape[-2:]))
+            X_prop = _em_segment(drift, diffusion, X, p, t, t + dt, rateiv,
                                  draw_normals, coupled)
-            X = torch.where((dt > 0.0).view(1, R, 1, 1), X_prop, X)
+            X = torch.where((dt > 0.0)[..., None, None], X_prop, X)
     return ll

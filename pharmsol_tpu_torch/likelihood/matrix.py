@@ -10,7 +10,8 @@ Two engines compute it:
 - ``general``: the segment march of ``engine/sim.py`` over every (support,
   occasion row) pair as batched tensors, then a sum of occasion rows into
   subjects. It takes any Analytical or ODE model the port supports; SDE
-  models take the particle filter of ``engine/sde.py``. The JAX package
+  models take the particle filter of ``engine/sde.py``, with covariates,
+  lag, fa and init as well. The JAX package
   calls its counterpart ``xla``.
 - ``fused``: a hand-written CUDA kernel (its plain twin on the CPU): for
   closed-form models ``ops/fused_psi.py`` through
@@ -120,12 +121,6 @@ def _general_psi(equation, grid, sp, lowered, device, dtype) -> torch.Tensor:
     from ..engine.sim import simulate_occasion_ll
 
     kind_name = getattr(equation, "kind", None)
-    if grid.cov_names and kind_name == "sde":
-        raise PharmsolError(
-            f"the PyTorch port does not support covariates for SDE models yet "
-            f"(data carries {', '.join(grid.cov_names)}); closed-form and ODE "
-            "models take them"
-        )
     rows = _device_rows(grid, device, dtype)
     p = torch.as_tensor(sp).to(device=device, dtype=dtype)
     kind = torch.as_tensor(np.asarray(lowered.kind, dtype=np.int64), device=device)
@@ -136,7 +131,8 @@ def _general_psi(equation, grid, sp, lowered, device, dtype) -> torch.Tensor:
         # one psi
         gen = torch.Generator(device=device)
         gen.manual_seed(equation._seed)
-        ll = simulate_occasion_sde_ll(equation.spec, rows, p, kind, factor, poly, gen)
+        ll = simulate_occasion_sde_ll(equation.spec, rows, p, kind, factor, poly, gen,
+                                      grid.cov_names)
     else:
         ll = simulate_occasion_ll(equation.spec, rows, p, kind, factor, poly,
                                   grid.cov_names)  # [S, R]
@@ -178,9 +174,12 @@ def log_likelihood_matrix(
     for every RHS the CUDA generator accepts (``ops/rhs_codegen.py``;
     ``plans/ode.py`` names what it refuses). The SDE
     kernel supports stratified resampling, doses into any input (and their
-    inject-to-destination states), init, linear outputs, censoring and both
-    ``em_control`` modes, for every drift and diffusion the generator
-    accepts; its draws are independent per (subject, support) cell.
+    inject-to-destination states), init (rows, or planes when it reads a
+    covariate), covariates (constant per row, or affine within every
+    segment), lag and fa (static planes, or per-dose-segment planes), linear
+    outputs, censoring and both ``em_control`` modes, for every drift and
+    diffusion the generator accepts; its draws are independent per
+    (subject, support) cell.
 
     Divergence note (as in the JAX package): the reference aborts the whole
     matrix on a simulation error; here non-finite cells are mapped to -inf

@@ -16,12 +16,20 @@ init runs kernel K1a; any of them runs kernel K1b:
   planes (``planes``);
 - lag and fa that are static in time: per-(row, support) planes.
 
-What needs kernel K1c (not ported) raises PharmsolError with the reason and
-``engine='auto'`` records it and takes the general engine: a lag or fa that
-changes with time or reads a time-varying covariate, lag combined with a
-seq chain deeper than one, and lag combined with a time-varying or
-time-dependent seq. Lag with per-segment streams, overlapping and negative
-lags raise as in the JAX plan.
+With any of the following the kernel runs its K1c paths (JAX :290-500):
+
+- lag or fa that changes with time or reads a time-varying covariate:
+  per-dose-segment planes selected by ``lag_slots``/``fa_slots``;
+- lag with a seq chain deeper than one (infusion-end compounding): the
+  event-code stream ``seg_evcode`` drives an in-kernel depth counter and a
+  split march at the fire (``lag_depth``);
+- lag with a time-varying or time-dependent seq: per-column main and post
+  planes, ``seg_depth`` and ``seg_postdepth`` (``lag_post``).
+
+Lag with per-segment streams, overlapping and negative lags, and a zero fa
+cell under ``lag_depth``/``lag_post`` (the dose would never fire its seq
+reset) raise PharmsolError as in the JAX plan, and ``engine='auto'``
+records the reason and takes the general engine.
 
 Every shape is passed as it is: the kernels take ragged R and S, so there is
 no row or support padding, and the working dtype is kept.
@@ -37,7 +45,6 @@ from ...errors import PharmsolError
 from .decompose import (
     _InputPlaneDynamic,
     _check_out_covariate_free,
-    _classify_covariates,
     _constant_covariate_values,
     _decompose_input_plane,
     _init_states,
@@ -45,16 +52,15 @@ from .decompose import (
     _validate_lag_no_overlap,
 )
 from .seq import (
+    _colplanes_dynamic_lag,
     _decompose_seq,
+    _decompose_seq_colplanes,
     _decompose_seq_levels,
     _decompose_seq_planes,
     _decompose_seq_segplanes,
     _decompose_seq_tv,
     _seq_depth_stream,
 )
-
-_K1C = "kernel K1c, not ported yet — use the general engine"
-
 
 def _fused_structure_name(equation) -> str:
     """Map an Analytical equation's kernel fn to a fused psi structure."""
@@ -84,7 +90,8 @@ class _FusedPsiPlan:
     caller (``engine='auto'``) then takes the general engine and records
     the reason. ``mode`` is K1b's parameter mode (None, ``row``,
     ``segment``, ``levels``, ``planes``); ``features`` holds the feature
-    inputs on the device (all None: kernel K1a).
+    inputs on the device (all None: kernel K1a), with K1c's ``seg_evcode``,
+    ``seg_postdepth`` and the slot tables ``lag_slots``/``fa_slots``.
     """
 
     def __init__(self, equation, grid, sp, lowered, device, dtype):
@@ -120,35 +127,40 @@ class _FusedPsiPlan:
         # the lag probe first: an active lag changes which seq tiers hold
         ninput = int(equation.ndrugs())
         lag_probe = None
-        lag_active = False
+        lag_active = dynamic = False
         if equation._lag is not None:
             try:
                 lag_probe = _decompose_input_plane(equation._lag, sp, grid, ninput,
                                                    0.0, "lag")
-            except _InputPlaneDynamic as e:
-                raise PharmsolError(f"{e} (per-dose-segment lag planes are {_K1C})") from e
-            lag_active = bool(np.any(lag_probe != 0.0))
+                lag_active = bool(np.any(lag_probe != 0.0))
+            except _InputPlaneDynamic:
+                # per-dose-segment planes, built with the streams below
+                lag_active = dynamic = True
         cov_values = {}
         mode = None
         if equation._seq is not None:
-            mode, cov_values = self._seq_tier(equation, sp, grid, sdef, lag_active, f)
-        if lag_active:
-            if mode == "segment":
-                raise PharmsolError(
-                    "engine='fused' does not support lag together with "
-                    "per-segment seq streams (a lag-shifted dose adds a seq-reset "
-                    "breakpoint the host-side affine chain cannot express) — use "
-                    "the general engine"
-                )
+            mode, cov_values = self._seq_tier(equation, sp, grid, sdef, lag_active,
+                                              dynamic, lag_probe, ninput, f)
+        if lag_active and mode == "segment":
+            raise PharmsolError(
+                "engine='fused' does not support lag together with "
+                "per-segment seq streams (a lag-shifted dose adds a seq-reset "
+                "breakpoint the host-side affine chain cannot express) — use "
+                "the general engine"
+            )
+        if lag_active and not dynamic:
             _validate_lag_no_overlap(lag_probe, grid)
             f["lag_plane"] = lag_probe
-        if equation._fa is not None:
+        if equation._fa is not None and not dynamic:
             try:
                 fp = _decompose_input_plane(equation._fa, sp, grid, ninput, 1.0, "fa")
-            except _InputPlaneDynamic as e:
-                raise PharmsolError(f"{e} (per-dose-segment fa planes are {_K1C})") from e
-            if np.any(fp != 1.0):
-                f["fa_plane"] = fp
+                if np.any(fp != 1.0):
+                    f["fa_plane"] = fp
+            except _InputPlaneDynamic:
+                # fa is taken at the lag-shifted time: both closures go per
+                # dose segment
+                dynamic = True
+                f["lag_plane"] = None
         if grid.cov_names and equation._out is not None:
             # covariates act through seq only: out() must be support-only
             # for the per-support output coefficients to hold
@@ -165,6 +177,26 @@ class _FusedPsiPlan:
         self.R, self.M = streams[0].shape
         self.S = sp.shape[0]
         self.device, self.dtype = device, dtype
+        self.lag_slots = self.fa_slots = None
+        if dynamic:
+            self._dynamic_lag_fa(equation, sp, grid, ninput, streams[1], f)
+        if f["seg_evcode"] is not None and f["lag_plane"] is None:
+            # every per-dose lag came back zero: no dose fires in the kernel,
+            # so boluses reset the chain at their own breakpoints and the
+            # plain depth stream holds
+            f["seg_evcode"] = None
+            f["seg_depth"], _ = _seq_depth_stream(grid)
+        if f["seg_evcode"] is not None or f["seg_postdepth"] is not None:
+            # the split march fires on a nonzero pending dose: an fa cell of
+            # exactly 0 would never fire the seq reset the engine applies at
+            # the shifted dose
+            fas = f["fa_plane"] if isinstance(f["fa_plane"], list) else [f["fa_plane"]]
+            if any(fp is not None and np.any(np.asarray(fp) == 0.0) for fp in fas):
+                raise PharmsolError(
+                    "engine='fused' lag combined with seq does not support "
+                    "bioavailability cells that are exactly zero (the pending "
+                    "dose would never fire its seq reset) — use the general engine")
+        self.mode = mode
         if f["init_rows"] is not None or f["init_planes"] is not None:
             f["init_mask"] = np.asarray(grid.rows.init_mask, np.float64).reshape(-1)
 
@@ -203,12 +235,31 @@ class _FusedPsiPlan:
         self.support = dev(sp)
         self.out_coef = dev(np.transpose(C, (1, 2, 0)))  # [n_out, n_states, S]
         self.out_bias = dev(b.T) if np.any(b) else None
-        self.features = {k: (None if v is None else dev(v)) for k, v in f.items()}
+        self.features = {k: (None if v is None else [dev(x) for x in v]
+                             if isinstance(v, list) else dev(v)) for k, v in f.items()}
+        self.features.update(lag_slots=self.lag_slots, fa_slots=self.fa_slots)
         self.row_subject = torch.as_tensor(
             np.asarray(grid.row_subject, dtype=np.int64), device=device)
         self.n_subjects = grid.n_subjects
 
-    def _seq_tier(self, equation, sp, grid, sdef, lag_active, f):
+    def _dynamic_lag_fa(self, equation, sp, grid, ninput, seg_bolus, f):
+        """Per-dose-segment lag and fa planes with their ``[M]`` slot tables
+        (JAX :411-483), the ODE plan's (``plans/ode.py::_lag_fa_planes``) for
+        the one bolus input: the closures evaluated on the host at each
+        bolus's breakpoint (lag at its own time, fa at the shifted one), each
+        dose's largest lag to elapse strictly before the row's next dose."""
+        from .ode import _lag_fa_planes, _seg_t0
+
+        bol = np.asarray(seg_bolus, np.float64)[None]
+        lag, fa, lag_slots, fa_slots = _lag_fa_planes(
+            equation, sp, grid, ninput, (0,), bol, _seg_t0(grid.rows))
+        f["lag_plane"] = list(lag) if lag is not None else None
+        f["fa_plane"] = list(fa) if fa is not None else None
+        self.lag_slots = lag_slots[0] if lag_slots is not None else None
+        self.fa_slots = fa_slots[0] if fa_slots is not None else None
+
+    def _seq_tier(self, equation, sp, grid, sdef, lag_active, dynamic, lag_probe,
+                  ninput, f):
         """Pick the cheapest seq tier that holds (JAX :229-352); fills ``f``
         and returns (mode, the per-row covariate values it read)."""
         seq = equation._seq
@@ -260,11 +311,18 @@ class _FusedPsiPlan:
                 key, mode = "param_planes", "planes"
             except PharmsolError as plane_err:
                 if lag_active:
-                    raise PharmsolError(
-                        "engine='fused': lag combined with a time-varying or "
-                        f"time-dependent seq needs per-column planes and a split "
-                        f"march, {_K1C} ({affine_err or plane_err or level_err})"
-                    ) from plane_err
+                    # lag with a time-varying or time-dependent seq: exact
+                    # per-column main and post planes (lag_post); the fire
+                    # times are host-known for static and dynamic lags alike
+                    try:
+                        lag_arg = (_colplanes_dynamic_lag(equation, sp, grid, ninput)
+                                   if dynamic else lag_probe)
+                        (f["param_planes"], f["seg_depth"],
+                         f["seg_postdepth"]) = _decompose_seq_colplanes(
+                            seq, sp, grid, sdef, k, lag_arg)
+                    except PharmsolError:
+                        raise affine_err or plane_err or level_err
+                    return "planes", cov_values
                 # seq reading t or a time-varying covariate in any form:
                 # exact segment-indexed planes
                 try:
@@ -273,11 +331,10 @@ class _FusedPsiPlan:
                     raise affine_err or plane_err or level_err
                 key, mode = "param_planes", "planes"
         if lag_active and table.shape[0] > 1:
-            raise PharmsolError(
-                "engine='fused': lag combined with a seq chain deeper than one "
-                "(infusion-end compounding) needs the in-kernel depth counter, "
-                f"{_K1C}"
-            )
+            # lag with a chain deeper than one: the event codes drive the
+            # in-kernel depth counter (lag_depth)
+            f[key], f["seg_evcode"] = table, stream
+            return mode, cov_values
         if lag_active:
             # depth 1 everywhere: the reset a lag-shifted dose moves is a
             # no-op, so the plain depth stream holds

@@ -14,7 +14,11 @@ first:
 - per-(row, support) parameter planes (``_decompose_seq_planes``:
   time-constant covariates in any form), ``planes`` mode;
 - segment-indexed planes (``_decompose_seq_segplanes``: seq reading t or a
-  time-varying covariate in any form, without lag), ``planes`` mode.
+  time-varying covariate in any form, without lag), ``planes`` mode;
+- with lag, the event codes of ``_seq_depth_stream(lag_mode=True)`` for a
+  chain deeper than one (kernel K1c's in-kernel depth counter), and
+  per-column main and post planes (``_decompose_seq_colplanes``: lag with a
+  time-varying or time-dependent seq, K1c's split march).
 
 Levels and planes are in the structure's micro-constant parameterization
 (the CL remap applied here); the kernel derives the eigen quantities. The
@@ -530,3 +534,242 @@ def _decompose_seq_segplanes(seq, sp, grid, sdef, n_kernel_params: int):
             "general engine"
         )
     return np.ascontiguousarray(param_planes), np.ascontiguousarray(depth)
+
+
+# lag + time-varying seq column planes: main and post chain values share one
+# slot space per row; past this many slots the select stops paying for itself
+_MAX_SEQ_COLPLANES = 24
+
+
+def _colplanes_dynamic_lag(equation, sp, grid, ninput: int) -> dict:
+    """Per-dose-column [R, S] lag planes of a lag closure that changes with
+    time or reads a time-varying covariate (JAX :733): evaluated on the host
+    at each bolus's own breakpoint time with the engine's CovView. Returns
+    ``{column m: [R, S]}`` for :func:`_decompose_seq_colplanes` (the
+    closed-form kernel doses input 0: its plane applies)."""
+    from ...ops.fused_psi import segment_schedule
+    from .decompose import _decompose_input_seg_planes
+
+    _, t_sorted, _, _, rank = segment_schedule(grid.rows, with_ranks=True)
+    real = t_sorted < BIG_TIME / 2
+    t_real_max = np.max(np.where(real, t_sorted, -np.inf), axis=1)
+    t_real_max = np.where(np.isfinite(t_real_max), t_real_max, 0.0)
+    t0 = np.minimum(t_sorted, t_real_max[:, None])
+    dose_cols = sorted(int(m) for m in np.nonzero((real & (rank == 2.0)).any(axis=0))[0])
+    if not dose_cols:
+        raise PharmsolError(
+            "engine='fused' dynamic lag with a time-varying seq found no dose "
+            "columns — use the general engine")
+    seg_pl = _decompose_input_seg_planes(equation, sp, grid, ninput, dose_cols, t0)
+    return {m: np.asarray(seg_pl[m][0][0], np.float64) for m in dose_cols}
+
+
+def _dedup_row_slots(main, post, span):
+    """Per-row slots of the main and post chain values (JAX :968-990): each
+    row's distinct [n_base, S] contents, numbered in order of first use over
+    the columns (main before post). ``main``/``post`` [M, n_base, R, S],
+    ``span`` [R, M]. Returns (slot stream [R, M], post slot stream [R, M],
+    1-based, 0 on dead columns, and per row the list of its contents).
+
+    Vectorised: each (row, column) content is keyed by a dot product with
+    fixed random weights; contents sharing a key are then checked equal, so
+    the grouping is exact."""
+    M, n_base, R, S = main.shape
+    w = np.random.RandomState(0).uniform(0.5, 1.5, (n_base, S))
+    both = np.stack([main, post], axis=1)  # [M, 2, n_base, R, S]
+    keys = np.einsum("mkbrs,bs->rmk", both, w).reshape(R, 2 * M)
+    live = np.repeat(span, 2, axis=1)  # [R, 2M]
+    depth = np.zeros((R, M), np.float64)
+    postdepth = np.zeros((R, M), np.float64)
+    planes_rows = []
+    for r in range(R):
+        cols = np.nonzero(live[r])[0]
+        if cols.size == 0:
+            planes_rows.append([])
+            continue
+        _, first, inverse = np.unique(keys[r, cols], return_index=True,
+                                      return_inverse=True)
+        rank = np.empty(first.size, np.int64)
+        rank[np.argsort(first, kind="stable")] = np.arange(first.size)
+        slot = rank[inverse]
+        reps = [None] * first.size
+        for c, sl in zip(cols, slot):
+            content = both[c // 2, c % 2, :, r, :]
+            if reps[sl] is None:
+                reps[sl] = content
+            elif not np.array_equal(reps[sl], content, equal_nan=True):
+                raise PharmsolError(
+                    "engine='fused' lag+tv-seq column planes: two chain values "
+                    "share a key — use the general engine")
+        for c, sl in zip(cols, slot):
+            (depth if c % 2 == 0 else postdepth)[r, c // 2] = sl + 1
+        planes_rows.append(reps)
+    return depth, postdepth, planes_rows
+
+
+def _decompose_seq_colplanes(seq, sp, grid, sdef, n_kernel_params: int, lag_probe):
+    """Per-column exact planes for lag combined with a time-varying or
+    time-dependent seq (JAX :764), the kernel's ``lag_post`` tier (K1c).
+
+    A lag moves each dose's seq-reset breakpoint to the per-(row, support)
+    fire time ``t_dose + lag``, host-known for a static lag plane [R, S] or
+    for per-dose-column planes ``{m: [R, S]}``
+    (:func:`_colplanes_dynamic_lag`). Each lane's merged event schedule (the
+    static observation and infusion events plus its own fire times, in the
+    engine's tie order) is walked with the closure through the row's own
+    CovView at each spanned segment's end; the walk runs over every (row,
+    support) lane at once, one event at a time. ``main[m]`` is the chain
+    value governing column m's span start, ``post[m]`` the value after a
+    fire inside column m (main where none lands). Both dedup per row into
+    one slot space. Returns (param_planes [L, n_base, R, S], seg_depth
+    [R, M] main slots, seg_postdepth [R, M] post slots), 1-based; raises
+    PharmsolError past the slot and memory caps.
+    """
+    from ...engine.grid import CovView
+    from ...ops.fused_psi import segment_schedule
+
+    _, t_sorted, seg_dt, _, rank = segment_schedule(grid.rows, with_ranks=True)
+    R, M = t_sorted.shape
+    S = sp.shape[0]
+    k = n_kernel_params
+    n_base = _n_base(sdef, k)
+    real = t_sorted < BIG_TIME / 2
+    t_real_max = np.max(np.where(real, t_sorted, -np.inf), axis=1)
+    t_real_max = np.where(np.isfinite(t_real_max), t_real_max, 0.0)
+
+    # a real zero-amount bolus resets the chain but has no dose to fire
+    b_t = np.asarray(grid.rows.bolus_t, np.float64)
+    b_a = np.asarray(grid.rows.bolus_amt, np.float64)
+    if np.any((b_t < BIG_TIME / 2) & (b_a == 0.0)):
+        raise PharmsolError(
+            "engine='fused' lag with a time-varying seq does not support "
+            "zero-amount bolus records — use the general engine")
+
+    # static chain events: observation (1) and infusion start (3) reset,
+    # infusion end (0) compounds; bolus columns (2) moved with their lag.
+    # The grid's start leads as a reset, so pre-fire spans chain from raw.
+    stat_mask = real & (rank != 2.0)
+    n_stat = stat_mask.sum(axis=1)
+    E1 = int(n_stat.max(initial=0)) + 1
+    pos = np.cumsum(stat_mask, axis=1)  # 1-based slot of each static event
+    stat_t = np.full((R, E1), BIG_TIME, np.float64)
+    stat_code = np.ones((R, E1), np.float64)
+    stat_t[:, 0] = np.where(real.any(axis=1), t_sorted[:, 0], 0.0)
+    rr, mm = np.nonzero(stat_mask)
+    stat_t[rr, pos[rr, mm]] = t_sorted[rr, mm]
+    stat_code[rr, pos[rr, mm]] = np.where(rank[rr, mm] == 0.0, 0.0, 1.0)
+
+    # doses: each row's bolus columns, fired at t + lag[r, s]
+    dose_mask = real & (rank == 2.0)
+    ND = max(int(dose_mask.sum(axis=1).max(initial=0)), 1)
+    dpos = np.cumsum(dose_mask, axis=1) - 1
+    dose_t = np.full((R, ND), BIG_TIME, np.float64)
+    dose_col = np.zeros((R, ND), np.int64)
+    has_dose = np.zeros((R, ND), bool)
+    rr, mm = np.nonzero(dose_mask)
+    dose_t[rr, dpos[rr, mm]] = t_sorted[rr, mm]
+    dose_col[rr, dpos[rr, mm]] = mm
+    has_dose[rr, dpos[rr, mm]] = True
+
+    E = E1 + ND
+    if M * n_base * R * S > _MAX_PLANE_FLOATS or E * R * S * sp.shape[1] > _MAX_PLANE_FLOATS:
+        raise PharmsolError(
+            "engine='fused' lag+tv-seq column planes would exceed the memory "
+            f"cap ({M}x{n_base}x{R}x{S} cells) — use the general engine")
+
+    # the lag of every (row, support, dose)
+    if isinstance(lag_probe, dict):
+        lag_nd = np.zeros((R, S, ND), np.float64)
+        for jd in range(ND):
+            for m in np.unique(dose_col[has_dose[:, jd], jd]):
+                rows = np.nonzero(has_dose[:, jd] & (dose_col[:, jd] == m))[0]
+                lag_nd[rows, :, jd] = lag_probe[int(m)][rows, :]
+    else:
+        lag_nd = np.broadcast_to(np.asarray(lag_probe, np.float64)[:, :, None],
+                                 (R, S, ND)).copy()
+
+    # every lane's merged schedule, sorted with the static events first on
+    # ties (stable), then walked one event at a time over all lanes
+    fire_t = dose_t[:, None, :] + lag_nd  # [R, S, ND]
+    times = np.concatenate([np.broadcast_to(stat_t[:, None, :], (R, S, E1)), fire_t], axis=2)
+    codes = np.concatenate([np.broadcast_to(stat_code[:, None, :], (R, S, E1)),
+                            np.ones((R, S, ND))], axis=2)
+    order = np.argsort(times, axis=2, kind="stable")
+    times = np.take_along_axis(times, order, axis=2)
+    codes = np.take_along_axis(codes, order, axis=2)
+    ends = np.concatenate([times[..., 1:], times[..., -1:]], axis=2)
+    t_eval = np.minimum(ends, t_real_max[:, None, None])
+
+    names = list(grid.cov_names)
+    kt, kv, kf = _knots(grid)
+    f = _seq_fn(seq)
+
+    def per_row(p_rows, t_rs, kt_r, kv_r, kf_r):
+        cv = CovView(kt_r, kv_r, kf_r, names)
+        return vmap(lambda p, t: f(p, t, cv))(p_rows, t_rs)
+
+    eval_lanes = vmap(per_row)
+    raw = _t64(sp).unsqueeze(0).expand(R, S, sp.shape[1])
+    seg_vals = np.empty((R, S, E, sp.shape[1]), np.float64)
+    try:
+        cur = raw
+        for i in range(E):
+            base = torch.where(torch.as_tensor(codes[..., i] == 1.0)[..., None], raw, cur)
+            new = eval_lanes(base, _t64(t_eval[..., i]), kt, kv, kf)
+            if new.shape[-1] != sp.shape[1]:
+                raise PharmsolError(
+                    "engine='fused' seq must return exactly the support width for "
+                    "lag+tv-seq column planes — use the general engine")
+            span = torch.as_tensor(ends[..., i] > times[..., i])[..., None]
+            cur = torch.where(span, new, base)
+            seg_vals[:, :, i, :] = cur.numpy()
+    except PharmsolError:
+        raise
+    except Exception as e:
+        raise PharmsolError(f"engine='fused' could not walk the lag+seq chain: {e}") from e
+
+    # main[m]: the segment holding column m's start (after all ties)
+    idx_main = np.clip((times[:, :, None, :] <= t_sorted[:, None, :, None]).sum(axis=3) - 1,
+                       0, E - 1)  # [R, S, M]
+    main_vals = np.take_along_axis(seg_vals, idx_main[..., None], axis=2)  # [R, S, M, nc]
+    # post[m]: the segment starting at a fire inside column m
+    post_vals = main_vals.copy()
+    for j in range(ND):
+        fire = dose_t[:, j][:, None] + lag_nd[:, :, j]  # [R, S]
+        live = has_dose[:, j][:, None] & (fire < BIG_TIME / 2)
+        if not live.any():
+            continue
+        col_j = np.clip((t_sorted[:, None, :] <= fire[:, :, None]).sum(axis=2) - 1, 0, M - 1)
+        idx_af = np.clip((times <= fire[:, :, None]).sum(axis=2) - 1, 0, E - 1)
+        val_j = np.take_along_axis(seg_vals, idx_af[:, :, None, None], axis=2)[:, :, 0, :]
+        r_ix, s_ix = np.nonzero(live)
+        post_vals[r_ix, s_ix, col_j[r_ix, s_ix], :] = val_j[r_ix, s_ix, :]
+
+    def to_base(vals):  # [R, S, M, nc] -> [M, n_base, R, S]
+        rows = _micro_rows(sdef, [vals[..., i] for i in range(k)])
+        return np.stack(rows, axis=0).transpose(3, 0, 1, 2)
+
+    depth, postdepth, planes_rows = _dedup_row_slots(
+        to_base(main_vals), to_base(post_vals), seg_dt > 0.0)
+    L = max([len(x) for x in planes_rows] + [1])
+    if L > _MAX_SEQ_COLPLANES:
+        raise PharmsolError(
+            f"engine='fused' lag+tv-seq column planes need {L} slots "
+            f"(> {_MAX_SEQ_COLPLANES}) — use the general engine")
+    if L * n_base * R * S > _MAX_PLANE_FLOATS:
+        raise PharmsolError(
+            "engine='fused' lag+tv-seq column planes would exceed the memory "
+            f"cap ({L}x{n_base}x{R}x{S} cells) — use the general engine")
+    fill = np.stack(_micro_rows(sdef, [np.asarray(sp[:, i], np.float64)
+                                       for i in range(k)]), axis=0)  # [n_base, S]
+    param_planes = np.empty((L, n_base, R, S), np.float64)
+    for r in range(R):
+        lst = planes_rows[r] or [fill]
+        for lv in range(L):
+            param_planes[lv, :, r, :] = lst[min(lv, len(lst) - 1)]
+    if not np.all(np.isfinite(param_planes)):
+        raise PharmsolError(
+            "engine='fused' lag+tv-seq column planes are non-finite — use the "
+            "general engine")
+    return (np.ascontiguousarray(param_planes), np.ascontiguousarray(depth),
+            np.ascontiguousarray(postdepth))

@@ -28,15 +28,6 @@ from ..errors import (
 from ..metadata import ModelKind, ModelMetadata, RouteKind, ValidatedModelMetadata
 
 
-def _raise_unported(**closures) -> None:
-    unported = [name for name, fn in closures.items() if fn is not None]
-    if unported:
-        raise PharmsolError(
-            f"the PyTorch port does not support {', '.join(unported)} "
-            "equations yet (use the JAX package pharmsol_tpu)"
-        )
-
-
 class EquationBase:
     """Shared lowering and label machinery for the equation families."""
 

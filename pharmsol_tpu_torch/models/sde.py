@@ -2,7 +2,7 @@
 
 Public surface parity with the JAX package's ``models/sde.py`` (and the
 reference's sde/mod.rs) for what the population psi path needs:
-``SDE(drift, diffusion, init, out, nparticles, ...)``, the options
+``SDE(drift, diffusion, lag, fa, init, out, nparticles, ...)``, the options
 ``with_nparticles/with_seed/with_noise/with_resampling/with_em_control``,
 metadata with its particle count and inject-to-destination routes, and the
 spec the general engine runs (:mod:`~pharmsol_tpu_torch.engine.sde`).
@@ -10,7 +10,11 @@ spec the general engine runs (:mod:`~pharmsol_tpu_torch.engine.sde`).
 - ``drift(x, p, t, rateiv, cov) -> dx`` and ``diffusion(p, t, cov) -> g``
   are written for one particle, as torch operations (``torch.stack([...])``
   or a list of components); ``init(p, t, cov) -> x0`` sets the state at
-  t = 0 of the first occasion.
+  t = 0 of the first occasion; ``lag(p, t, cov)`` and ``fa(p, t, cov)``
+  give each input's absorption lag and bioavailability (a dict ``{input:
+  value}`` or a vector), lag evaluated at the dose's time, fa at the
+  lag-shifted one. Every closure may read covariates through ``cov(name,
+  t)``.
 - ``noise``: ``'common'`` (default) shares the draws across support points
   in the general engine, ``'independent'`` draws per (subject, support)
   cell. The fused CUDA kernel always draws per cell, as the JAX kernel.
@@ -22,8 +26,7 @@ spec the general engine runs (:mod:`~pharmsol_tpu_torch.engine.sde`).
 Draws come from an explicit generator seeded by ``seed`` (the general
 engine) or from the Philox counters of ``ops/philox.py`` (the fused kernel):
 each run is reproducible per seed within the port, and equals the JAX
-package's only at zero diffusion. Lag and bioavailability (fa) equations and
-the single-subject API are not ported yet: passing lag or fa raises.
+package's only at zero diffusion. The single-subject API is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from typing import Callable, Dict, Optional
 
 from ..engine.sde import SDESpec
 from ..metadata import ModelKind, RouteInputPolicy, ValidatedModelMetadata
-from .equation import EquationBase, _raise_unported
+from .equation import EquationBase
 
 NOISE_MODES = ("common", "independent")
 RESAMPLING = ("stratified", "systematic")
@@ -67,10 +70,11 @@ class SDE(EquationBase):
         resampling: str = "stratified",
         em_control: str = "independent",
     ):
-        _raise_unported(lag=lag, fa=fa)
         super().__init__(nstates, ndrugs, nout)
         self._drift = drift
         self._diffusion = diffusion
+        self._lag = lag
+        self._fa = fa
         self._init = init
         self._out = out
         self._nparticles = int(nparticles)
@@ -78,7 +82,8 @@ class SDE(EquationBase):
         self._noise = _check_option("noise", noise, NOISE_MODES)
         self._resampling = _check_option("resampling", resampling, RESAMPLING)
         self._em_control = _check_option("em_control", em_control, EM_CONTROL)
-        # generated CUDA drift and diffusion, by (support columns, inputs)
+        # generated CUDA drift and diffusion, by (support columns, inputs,
+        # covariates and their modes)
         self._sde_cache: Dict[tuple, object] = {}
 
     def _model_kind(self) -> ModelKind:
@@ -162,6 +167,8 @@ class SDE(EquationBase):
             diffusion=self._diffusion,
             out=self._out or (lambda x, p, t, cov: x[: self._nout]),
             init=self._init,
+            lag=self._lag,
+            fa=self._fa,
             bolus_dest=self._bolus_dest(),
             resampling=self._resampling,
             em_control=self._em_control,

@@ -12,7 +12,9 @@ right-hand side: the header generated from the model's closure
 and included through ``-DPHARMSOL_ODE_RHS``, giving
 ``libfused_ode_<hash>.so``. The SDE kernel ``csrc/fused_sde.cu``
 (:data:`SDE`) is built the same way once per generated drift and diffusion
-(``sde_<key>.cuh``, ``-DPHARMSOL_SDE_RHS``, ``libfused_sde_<hash>.so``).
+(``sde_<key>.cuh``, ``-DPHARMSOL_SDE_RHS``, ``libfused_sde_<hash>.so``), one
+library for its base tier (K3a) and one for its feature tier (K3b,
+``-DPHARMSOL_SDE_FEAT=1``, :func:`sde_kind`).
 
 Libraries are built at first use into ``pharmsol_tpu_torch/_build/`` (listed
 in ``.gitignore``), named by a hash of the sources, the generated header and
@@ -95,10 +97,24 @@ def ode_kind(solver: str) -> Generated:
 # The SDE kernel rounds every multiply and add on its own (-fmad=false), as
 # its plain PyTorch twin does op by op: the two then draw the same particles,
 # and the card check holds them to 1e-9 in float64 and 1e-4 in float32.
+# K3a's launch takes its 16 pointers one by one; K3b's takes the 14 data
+# pointers and its 5 feature pointers as two arrays, then the slot-table plane
+# counts.
 SDE = Generated("fused_sde.cu", "sde", "PHARMSOL_SDE_RHS", ("-fmad=false",), {
     "launch": ([_ci] + [_vp] * 16 + [_ci] * 8 + [_cu, _cu, _vp], _ci),
+    "feature_launch": ([_ci] + [_vp] * 4 + [_ci] * 10 + [_cu, _cu, _vp], _ci),
     "philox": ([_ci, _vp, _cu, _cu, _vp, _vp], _ci),
 })
+
+
+
+def sde_kind(feature: bool) -> Generated:
+    """The build of ``csrc/fused_sde.cu`` that holds the base tier (K3a) or,
+    with ``feature``, the feature tier (K3b): each holds its own ten
+    instantiations (two dtypes, five particle counts per thread), so a model
+    builds only the tier it runs."""
+    return SDE._replace(flags=SDE.flags + ("-DPHARMSOL_SDE_FEAT=1",)) if feature else SDE
+
 
 _LIB: Optional[ctypes.CDLL] = None
 _GENERATED_LIBS: Dict[str, ctypes.CDLL] = {}
@@ -187,7 +203,8 @@ def generated_target(kind: Generated, gen) -> Target:
     writes the header."""
     _write_header(header_name(kind, gen), gen.source)
     tier = "".join(f.split("=")[1] for f in kind.flags if f.startswith("-DPHARMSOL_ODE_SOLVER="))
-    name = f"{Path(kind.source).stem}[{gen.key}{':solver' + tier if tier else ''}]"
+    feat = ":features" if "-DPHARMSOL_SDE_FEAT=1" in kind.flags else ""
+    name = f"{Path(kind.source).stem}[{gen.key}{':solver' + tier if tier else ''}{feat}]"
     return Target(name, generated_library_path(kind, gen),
                   lambda out, extra, nvcc: generated_nvcc_command(kind, gen, out, extra, nvcc))
 

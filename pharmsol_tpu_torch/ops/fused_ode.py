@@ -306,6 +306,46 @@ def _plane_list(planes, slots, nb: int, M: int, R: int, S: int, what: str):
     return lst, slots
 
 
+def check_features(gen, shapes: dict, R: int, M: int, S: int, nb: int, cov_streams,
+                   cov_names, init_rows, init_planes, init_mask, lag, fa, lag_slots,
+                   fa_slots, plane_names=("lag_planes", "fa_planes")) -> Features:
+    """Validate the feature inputs of the ODE or SDE kernel against the
+    generated closures ``gen`` (their ``cov_names``/``cov_modes``) and return
+    them as :class:`Features`; adds each array with its expected shape to
+    ``shapes`` for the caller's shape, dtype and device checks."""
+    N = gen.n_states
+    cov_names = tuple(str(n) for n in cov_names)
+    if cov_names != tuple(gen.cov_names):
+        raise ValueError(f"cov_names {cov_names} differ from the RHS's (the generated "
+                         f"closures') {tuple(gen.cov_names)}")
+    cov = []
+    for name, mode in zip(cov_names, gen.cov_modes):
+        entry = (cov_streams or {}).get(name)
+        if entry is None:
+            raise ValueError(f"cov_streams has no stream for covariate `{name}`")
+        if isinstance(entry, tuple) != (mode == "affine"):
+            raise ValueError(f"covariate `{name}` is `{mode}` in the closures: pass "
+                             + ("an (a, b) pair" if mode == "affine" else "one [R, M] stream"))
+        ca, cb = entry if isinstance(entry, tuple) else (entry, None)
+        shapes[f"cov {name} a"] = (ca, (R, M))
+        shapes[f"cov {name} b"] = (cb, (R, M))
+        cov.append((name, ca, cb))
+    if init_rows is not None and init_planes is not None:
+        raise ValueError("pass init_rows OR init_planes, not both")
+    if (init_rows is not None or init_planes is not None) != (init_mask is not None):
+        raise ValueError("init_rows / init_planes and init_mask go together")
+    shapes["init_rows"] = (init_rows, (N, S))
+    shapes["init_planes"] = (init_planes, (N, R, S))
+    shapes["init_mask"] = (init_mask, (R,))
+    lag, lag_slots = _plane_list(lag, lag_slots, nb, M, R, S, plane_names[0])
+    fa, fa_slots = _plane_list(fa, fa_slots, nb, M, R, S, plane_names[1])
+    for what, lst in zip(plane_names, (lag, fa)):
+        for i, pl in enumerate(lst or ()):
+            shapes[f"{what} {i}"] = (pl, (R, S))
+    return Features(tuple(cov), lag, fa, lag_slots, fa_slots, init_rows, init_planes,
+                    init_mask)
+
+
 def _check_inputs(seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value,
                   obs_sigma, obs_cens, seg_t0, support, rhs, obs_outeq,
                   out_coef, out_bias, bolus_inputs, rate_inputs, merge_runs,
@@ -348,35 +388,10 @@ def _check_inputs(seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value,
     shapes["out_coef"] = (out_coef, (n_out, N, S))
     shapes["out_bias"] = (out_bias, (n_out, S))
 
-    # covariates: the names and modes the RHS was generated for
-    cov_names = tuple(str(n) for n in cov_names)
-    if cov_names != tuple(rhs.cov_names):
-        raise ValueError(f"cov_names {cov_names} differ from the RHS's {tuple(rhs.cov_names)}")
-    cov = []
-    for i, (name, mode) in enumerate(zip(cov_names, rhs.cov_modes)):
-        entry = (cov_streams or {}).get(name)
-        if entry is None:
-            raise ValueError(f"cov_streams has no stream for covariate `{name}`")
-        if isinstance(entry, tuple) != (mode == "affine"):
-            raise ValueError(f"covariate `{name}` is `{mode}` in the RHS: pass "
-                             + ("an (a, b) pair" if mode == "affine" else "one [R, M] stream"))
-        ca, cb = entry if isinstance(entry, tuple) else (entry, None)
-        shapes[f"cov {name} a"] = (ca, (R, M))
-        shapes[f"cov {name} b"] = (cb, (R, M))
-        cov.append((name, ca, cb))
-
-    if init_rows is not None and init_planes is not None:
-        raise ValueError("pass init_rows OR init_planes, not both")
-    if (init_rows is not None or init_planes is not None) != (init_mask is not None):
-        raise ValueError("init_rows / init_planes and init_mask go together")
-    shapes["init_rows"] = (init_rows, (N, S))
-    shapes["init_planes"] = (init_planes, (N, R, S))
-    shapes["init_mask"] = (init_mask, (R,))
-    lag, lag_slots = _plane_list(lag_plane, lag_slots, nb, M, R, S, "lag_plane")
-    fa, fa_slots = _plane_list(fa_plane, fa_slots, nb, M, R, S, "fa_plane")
-    for what, lst in (("lag_plane", lag), ("fa_plane", fa)):
-        for i, pl in enumerate(lst or ()):
-            shapes[f"{what} {i}"] = (pl, (R, S))
+    feats = check_features(rhs, shapes, R, M, S, nb, cov_streams, cov_names, init_rows,
+                           init_planes, init_mask, lag_plane, fa_plane, lag_slots,
+                           fa_slots, ("lag_plane", "fa_plane"))
+    lag = feats.lag
 
     for name, (arr, shape) in shapes.items():
         if arr is not None and tuple(arr.shape) != shape:
@@ -413,8 +428,6 @@ def _check_inputs(seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value,
             flat.append(b)
         if flat[-1] != M:
             raise ValueError(f"merge_runs must cover all {M} segments, got {runs}")
-    feats = Features(tuple(cov), lag, fa, lag_slots, fa_slots, init_rows, init_planes,
-                     init_mask)
     return n_out, runs, feats
 
 

@@ -39,9 +39,11 @@ import torch
 LOG_2PI = math.log(2.0 * math.pi)
 
 # Kernel launches through psi_analytical on a CUDA tensor (not the twin):
-# K1a (no feature input) and K1b (any feature input).
+# K1a (no feature input), K1b (any feature input but K1c's) and K1c (slot
+# tables, event codes or post slots).
 LAUNCHES = 0
 FEATURE_LAUNCHES = 0
+K1C_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -436,19 +438,43 @@ def _check_inputs(seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value,
     return sdef, coef, bias, n_out
 
 
-# K1b's feature inputs, in the wrapper's argument order (psi_oral's)
+# K1b's and K1c's feature inputs, in the wrapper's argument order (psi_oral's)
 FEATURES = ("param_mult", "param_offset", "param_mult_seg", "param_offset_seg",
-            "param_levels", "param_planes", "seg_depth", "lag_plane", "fa_plane",
-            "init_rows", "init_planes", "init_mask")
+            "param_levels", "param_planes", "seg_depth", "seg_evcode", "seg_postdepth",
+            "lag_plane", "fa_plane", "init_rows", "init_planes", "init_mask")
 # the input that selects each parameter mode, and the mode's kernel code
 _MODE_INPUTS = {"param_mult": "row", "param_mult_seg": "segment",
                 "param_levels": "levels", "param_planes": "planes"}
 MODES = {None: 0, "row": 1, "segment": 2, "levels": 3, "planes": 4}
 
 
-def _check_features(seg_dt, support, sdef, f: dict):
-    """Validate K1b's feature inputs ``f`` (name -> tensor or None); returns
-    the parameter mode (None, ``row``, ``segment``, ``levels``, ``planes``)."""
+def _plane_list(planes, slots, M: int, what: str):
+    """A lag/fa argument as (list of planes, slot table): one [R, S] plane
+    (no table), or with ``slots`` (an [M] tuple of plane indices, -1 where no
+    dose lands) the sequence of planes it selects (JAX :1177-1200)."""
+    if planes is None:
+        if slots is not None:
+            raise ValueError(f"{what} slots given without planes")
+        return None, None
+    if slots is None:
+        if not isinstance(planes, torch.Tensor):
+            raise ValueError(f"{what} must be one [R, S] plane without slots")
+        return [planes], None
+    slots = tuple(int(v) for v in slots)
+    lst = list(planes.unbind(0)) if isinstance(planes, torch.Tensor) else list(planes)
+    if len(slots) != M:
+        raise ValueError(f"{what} slots must have one entry per segment ({M})")
+    if len(lst) != max(slots) + 1 or min(slots) < -1:
+        raise ValueError(f"{what} carries {len(lst)} planes, its slots select "
+                         f"{max(slots) + 1}")
+    return lst, slots
+
+
+def _check_features(seg_dt, support, sdef, f: dict, lag_slots=None, fa_slots=None):
+    """Validate the feature inputs ``f`` (name -> tensor or None; lag_plane
+    and fa_plane may be plane sequences selected by the slot tables); returns
+    (the parameter mode: None, ``row``, ``segment``, ``levels``, ``planes``;
+    the lag planes; the fa planes; lag_slots; fa_slots)."""
     R, M = seg_dt.shape
     S = support.shape[0]
     P, NS = sdef["n_params"], sdef["n_states"]
@@ -458,18 +484,24 @@ def _check_features(seg_dt, support, sdef, f: dict):
     mode = _MODE_INPUTS[given[0]] if given else None
     table = f["param_levels"] if f["param_levels"] is not None else f["param_planes"]
     L = table.shape[0] if table is not None else 0
+    lag, lag_slots = _plane_list(f["lag_plane"], lag_slots, M, "lag_plane")
+    fa, fa_slots = _plane_list(f["fa_plane"], fa_slots, M, "fa_plane")
     shapes = {
         "param_mult": (R, P), "param_offset": (R, P),
         "param_mult_seg": (R, P, M), "param_offset_seg": (R, P, M),
         "param_levels": (L, n_micro(sdef), S), "param_planes": (L, n_micro(sdef), R, S),
-        "seg_depth": (R, M), "lag_plane": (R, S), "fa_plane": (R, S),
+        "seg_depth": (R, M), "seg_evcode": (R, M), "seg_postdepth": (R, M),
         "init_rows": (NS, S), "init_planes": (NS, R, S), "init_mask": (R,),
     }
-    for name, a in f.items():
+    arrays = [(n, a) for n, a in f.items() if n not in ("lag_plane", "fa_plane")]
+    arrays += [(f"lag_plane {i}", a) for i, a in enumerate(lag or ())]
+    arrays += [(f"fa_plane {i}", a) for i, a in enumerate(fa or ())]
+    for name, a in arrays:
         if a is None:
             continue
-        if tuple(a.shape) != shapes[name]:
-            raise ValueError(f"{name} must be {list(shapes[name])}, got {list(a.shape)}")
+        want = shapes.get(name, (R, S))
+        if tuple(a.shape) != want:
+            raise ValueError(f"{name} must be {list(want)}, got {list(a.shape)}")
         if a.dtype != seg_dt.dtype or a.device != seg_dt.device:
             raise ValueError(f"{name} is {a.dtype} on {a.device}; expected "
                              f"{seg_dt.dtype} on {seg_dt.device}")
@@ -479,14 +511,23 @@ def _check_features(seg_dt, support, sdef, f: dict):
         raise ValueError("param_offset requires param_mult")
     if f["param_offset_seg"] is not None and mode != "segment":
         raise ValueError("param_offset_seg requires param_mult_seg")
-    if (f["seg_depth"] is not None) != (mode in ("levels", "planes")):
-        raise ValueError("param_levels and param_planes require seg_depth, and only they")
+    if ((f["seg_depth"] is not None) + (f["seg_evcode"] is not None)
+            != (mode in ("levels", "planes"))):
+        raise ValueError("param_levels and param_planes require seg_depth (or, with "
+                         "lag, seg_evcode), and only they")
+    if f["seg_evcode"] is not None and lag is None:
+        raise ValueError("seg_evcode (lag with a seq chain deeper than one) requires "
+                         "param_levels/param_planes and a lag_plane")
+    if f["seg_postdepth"] is not None and (mode != "planes" or f["seg_depth"] is None
+                                           or lag is None):
+        raise ValueError("seg_postdepth (lag with time-varying seq column planes) "
+                         "requires param_planes, seg_depth and a lag_plane")
     has_init = f["init_rows"] is not None or f["init_planes"] is not None
     if f["init_rows"] is not None and f["init_planes"] is not None:
         raise ValueError("pass init_rows or init_planes, not both")
     if (f["init_mask"] is not None) != has_init:
         raise ValueError("init_rows and init_planes require init_mask, and only they")
-    return mode
+    return mode, lag, fa, lag_slots, fa_slots
 
 
 def n_micro(sdef) -> int:
@@ -509,26 +550,39 @@ def psi_analytical_plain(
     param_levels=None,
     param_planes=None,
     seg_depth=None,
+    seg_evcode=None,
+    seg_postdepth=None,
     lag_plane=None,
     fa_plane=None,
+    lag_slots=None,
+    fa_slots=None,
     init_rows=None,
     init_planes=None,
     init_mask=None,
+    counts=None,
 ):
     """Plain PyTorch twin of the fused psi kernels (same arguments, [R, S]).
 
-    The math of the JAX package's ``psi_oral`` (base tier and feature tier:
-    ``pallas_psi.py:583-606``, ``:678-723``, ``:762-782``), segment by
-    segment on ``[R, S]`` tensors, with the exact log of the normal CDF for
-    censored observations.
+    The math of the JAX package's ``psi_oral`` (base tier; feature tier:
+    ``pallas_psi.py:583-606``, ``:678-723``, ``:762-782``; K1c's slot-selected
+    planes, ``lag_depth`` and ``lag_post`` paths: ``:498-527``, ``:655-690``,
+    ``:725-758``), segment by segment on ``[R, S]`` tensors, with the exact
+    log of the normal CDF for censored observations. A ``counts`` dict
+    receives the work this data needs in levels and planes mode, as the
+    kernel does it per cell: ``"propagates"`` (spanned segments, plus the
+    second part of each split march), ``"fires"`` (lagged doses that fire),
+    ``"fires_with_rate"`` (those of them in a segment with an infusion) and
+    ``"prepares"`` (a change of the chain level a cell runs at, or of the
+    post-fire level a split march prepares).
     """
     sdef, coef, bias, n_out = _check_inputs(
         seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
         obs_cens, support, structure, obs_outeq, out_coef, out_bias)
-    mode = _check_features(seg_dt, support, sdef, dict(zip(FEATURES, (
-        param_mult, param_offset, param_mult_seg, param_offset_seg, param_levels,
-        param_planes, seg_depth, lag_plane, fa_plane, init_rows, init_planes,
-        init_mask))))
+    mode, lags, fas, lag_slots, fa_slots = _check_features(
+        seg_dt, support, sdef, dict(zip(FEATURES, (
+            param_mult, param_offset, param_mult_seg, param_offset_seg, param_levels,
+            param_planes, seg_depth, seg_evcode, seg_postdepth, lag_plane, fa_plane,
+            init_rows, init_planes, init_mask))), lag_slots, fa_slots)
     n_params, n_states = sdef["n_params"], sdef["n_states"]
     R, M = seg_dt.shape
     S = support.shape[0]
@@ -562,7 +616,34 @@ def psi_analytical_plain(
     dose_state = sdef["dose_state"]
     has_inf = seg_rateiv is not None
     has_cens = obs_cens is not None
-    has_lag = lag_plane is not None
+    has_lag = lags is not None
+    lag_depth = seg_evcode is not None
+    lag_post = seg_postdepth is not None
+
+    def level_select(d):
+        """The parameter rows of depth (or slot) d [R, 1|S], 1-based."""
+        eff = []
+        for i in range(len(table[0])):
+            e = (d == 1.0).to(d.dtype) * table[0][i]
+            for lv in range(1, len(table)):
+                e = e + (d == float(lv + 1)).to(d.dtype) * table[lv][i]
+            eff.append(e)
+        return eff
+
+    def plane_at(planes, slots, m):
+        """The lag or fa plane of segment m (None: no dose lands there)."""
+        if planes is None:
+            return None
+        if slots is None:
+            return planes[0]
+        return None if slots[m] < 0 else planes[slots[m]]
+
+    if lag_depth:
+        # the in-kernel chain state: dc the applied depth of the engine
+        # segment under way, app 1 once it applied seq; after a fire the
+        # rest of its segment runs at depth 1
+        dc = app = torch.zeros((R, S), dtype=seg_dt.dtype, device=seg_dt.device)
+        aux_fire = prepared(list(table[0]), micro=True)
     coef_rows = [[coef[k, i].reshape(1, S) for i in range(n_states)]
                  for k in range(n_out)]
     bias_rows = ([bias[k].reshape(1, S) for k in range(n_out)]
@@ -611,30 +692,83 @@ def psi_analytical_plain(
         # the pending registers until its lag has elapsed
         xs = list(xs)
         bol = seg_bolus[:, m:m + 1]
-        bol_eff = bol * fa_plane if fa_plane is not None else bol
+        fp = plane_at(fas, fa_slots, m)
+        bol_eff = bol * fp if fp is not None else bol
         if has_lag:
-            new = bol != 0.0
-            pend_amt = torch.where(new, bol_eff, pend_amt)
-            pend_rem = torch.where(new, lag_plane, pend_rem)
+            lp = plane_at(lags, lag_slots, m)
+            if lp is not None:
+                new = bol != 0.0
+                pend_amt = torch.where(new, bol_eff, pend_amt)
+                pend_rem = torch.where(new, lp, pend_rem)
         else:
             xs[dose_state] = xs[dose_state] + bol_eff
+        live = dt > 0.0
         if mode == "segment":
             aux_m = prepared(affine(param_mult_seg[:, :, m], None if param_offset_seg
                                     is None else param_offset_seg[:, :, m]))
         elif mode in ("levels", "planes"):
-            d = seg_depth[:, m:m + 1]
-            eff = []
-            for i in range(len(table[0])):
-                e = (d == 1.0).to(d.dtype) * table[0][i]
-                for lv in range(1, len(table)):
-                    e = e + (d == float(lv + 1)).to(d.dtype) * table[lv][i]
-                eff.append(e)
-            aux_m = prepared(eff, micro=True)
+            if lag_depth:
+                # the engine's reset/carry rule on the event codes: 1 resets
+                # (observation, infusion start), 2 compounds (infusion end),
+                # 0 is a bolus column whose event moved with its lag: the
+                # engine segment runs on through it, applying seq once
+                code = seg_evcode[:, m:m + 1]
+                span = live.to(dt.dtype)
+                is_ev, is_ie = code == 1.0, code == 2.0
+                dc = torch.where(is_ev, span + torch.zeros_like(dc),
+                                 torch.where(is_ie, dc + span, dc + span * (1.0 - app)))
+                app = torch.where(is_ev | is_ie, span + torch.zeros_like(app),
+                                  torch.maximum(app, span))
+                d = dc
+            else:
+                d = seg_depth[:, m:m + 1]
+            aux_m = prepared(level_select(d), micro=True)
+            if lag_post:
+                aux_fire = prepared(level_select(seg_postdepth[:, m:m + 1]), micro=True)
         else:
             aux_m = aux
         rate = seg_rateiv[:, m:m + 1] if has_inf else None
+        if counts is not None and mode in ("levels", "planes"):
+            lv = (d if lag_depth else seg_depth[:, m:m + 1]).expand(R, S)
+            fired = (pend_amt != 0.0) & (pend_rem < dt) & live if has_lag else zeros.bool()
+            prev = counts.setdefault("_level", torch.zeros_like(lv))
+            counts["prepares"] = counts.get("prepares", 0) + int(
+                (live.expand(R, S) & (lv != prev)).sum())
+            counts["_level"] = torch.where(live.expand(R, S), lv, prev)
+            if lag_depth or lag_post:
+                # the post-fire model is prepared when its level changes
+                post = (seg_postdepth[:, m:m + 1] if lag_post else torch.ones_like(dt)
+                        ).expand(R, S)
+                prev_post = counts.setdefault("_post_level", torch.zeros_like(lv))
+                counts["prepares"] += int((fired & (post != prev_post)).sum())
+                counts["_post_level"] = torch.where(fired, post, prev_post)
+            counts["propagates"] = counts.get("propagates", 0) + int(
+                live.expand(R, S).sum()) + int(fired.sum())
+            counts["fires"] = counts.get("fires", 0) + int(fired.sum())
+            with_rate = fired & (rate != 0.0) if rate is not None else zeros.bool()
+            counts["fires_with_rate"] = counts.get("fires_with_rate", 0) + int(
+                with_rate.sum())
+        if lag_depth or lag_post:
+            # the true split march: the fire resets the chain, so march to
+            # it at the pre-fire parameters, add the dose, and march the rest
+            # at the post-fire ones (the infusion rides both parts)
+            fire = (pend_amt != 0.0) & (pend_rem < dt)
+            dt1 = torch.where(fire, pend_rem, dt)
+            nxs = propagate(aux_m, xs, dt1, rate)
+            xs = [torch.where(dt1 > 0.0, nx, x) for nx, x in zip(nxs, xs)]
+            xs[dose_state] = xs[dose_state] + torch.where(fire, pend_amt, zeros)
+            dt2 = torch.where(fire, dt - pend_rem, zeros)
+            nxs = propagate(aux_fire, xs, dt2, rate)
+            xs = [torch.where(dt2 > 0.0, nx, x) for nx, x in zip(nxs, xs)]
+            if lag_depth:
+                dc = torch.where(fire, torch.ones_like(dc), dc)
+                app = torch.where(fire, torch.ones_like(app), app)
+            pend_amt = torch.where(fire, zeros, pend_amt)
+            pend_rem = torch.where(
+                fire, zeros,
+                torch.where(live, torch.clamp(pend_rem - dt, min=0.0), pend_rem))
+            continue
         nxs = propagate(aux_m, xs, dt, rate)
-        live = dt > 0.0
         xs = [torch.where(live, nx, x) for nx, x in zip(nxs, xs)]
         if has_lag:
             # the pending dose fires once its lag elapses inside this
@@ -669,8 +803,12 @@ def psi_analytical(
     param_levels=None,
     param_planes=None,
     seg_depth=None,
+    seg_evcode=None,
+    seg_postdepth=None,
     lag_plane=None,
     fa_plane=None,
+    lag_slots=None,
+    fa_slots=None,
     init_rows=None,
     init_planes=None,
     init_mask=None,
@@ -700,27 +838,42 @@ def psi_analytical(
     - ``init_rows`` [n_states, S] or ``init_planes`` [n_states, R, S] with
       ``init_mask`` [R]: the initial state on rows whose mask is 1.
 
+    and kernel K1c's (JAX ``psi_oral`` :1037-1070, :1177-1216):
+
+    - ``lag_plane`` / ``fa_plane`` as sequences of [R, S] planes, selected
+      per dose segment by ``lag_slots`` / ``fa_slots`` (an [M] tuple of
+      plane indices, -1 where no dose lands);
+    - ``seg_evcode`` [R, M] in place of ``seg_depth`` (lag with a seq chain
+      deeper than one): event codes 1 reset, 2 compound, 0 a bolus column,
+      replayed by an in-kernel depth counter, with a split march at the fire;
+    - ``seg_postdepth`` [R, M] beside ``seg_depth`` (lag with a time-varying
+      seq, planes mode): the post-fire slot of each column.
+
     On a CUDA tensor this launches ``csrc/fused_psi.cu`` (one thread per
     (row, support) cell): kernel K1a without features, counted in
-    ``LAUNCHES``, else kernel K1b, counted in ``FEATURE_LAUNCHES``; it
-    raises if the launch fails. On a CPU tensor it runs
+    ``LAUNCHES``, else kernel K1b, counted in ``FEATURE_LAUNCHES``, or K1c
+    (slot tables, ``seg_evcode`` or ``seg_postdepth``), counted in
+    ``K1C_LAUNCHES``; it raises if the launch fails. On a CPU tensor it runs
     :func:`psi_analytical_plain`.
     """
-    global LAUNCHES, FEATURE_LAUNCHES
+    global LAUNCHES, FEATURE_LAUNCHES, K1C_LAUNCHES
     f = dict(zip(FEATURES, (param_mult, param_offset, param_mult_seg,
                             param_offset_seg, param_levels, param_planes, seg_depth,
-                            lag_plane, fa_plane, init_rows, init_planes, init_mask)))
+                            seg_evcode, seg_postdepth, lag_plane, fa_plane, init_rows,
+                            init_planes, init_mask)))
     dev = seg_dt.device
     if dev.type == "cpu":
         return psi_analytical_plain(
             seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
-            obs_cens, support, structure, obs_outeq, out_coef, out_bias, **f)
+            obs_cens, support, structure, obs_outeq, out_coef, out_bias, **f,
+            lag_slots=lag_slots, fa_slots=fa_slots)
     if dev.type != "cuda":
         raise ValueError(f"fused psi runs on cpu or cuda tensors, got {dev}")
     sdef, coef, bias, n_out = _check_inputs(
         seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
         obs_cens, support, structure, obs_outeq, out_coef, out_bias)
-    mode = _check_features(seg_dt, support, sdef, f)
+    mode, lags, fas, lag_slots, fa_slots = _check_features(
+        seg_dt, support, sdef, f, lag_slots, fa_slots)
     R, M = seg_dt.shape
     S = support.shape[0]
     out = torch.empty((R, S), dtype=seg_dt.dtype, device=dev)
@@ -735,6 +888,8 @@ def psi_analytical(
     is_f64 = int(seg_dt.dtype == torch.float64)
     code = STRUCTURE_CODES[structure]
     feature = any(a is not None for a in f.values())
+    k1c = (seg_evcode is not None or seg_postdepth is not None or lag_slots is not None
+           or fa_slots is not None)
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         base = (_ptr(seg_dt), _ptr(seg_bolus), _ptr(seg_rateiv),
@@ -745,18 +900,28 @@ def psi_analytical(
             err = lib.fused_psi_launch(is_f64, code, *base, R, S, M, n_out, stream)
         else:
             table = param_levels if param_levels is not None else param_planes
-            ptrs = (ctypes.c_void_p * len(FEATURES))(
-                *(a.data_ptr() if a is not None else None for a in f.values()))
+            # lag and fa as [n, R, S] plane stacks, the slot tables as int32
+            # on the card
+            f["lag_plane"] = torch.stack(lags).contiguous() if lags is not None else None
+            f["fa_plane"] = torch.stack(fas).contiguous() if fas is not None else None
+            slots = [torch.tensor(t, dtype=torch.int32, device=dev) if t is not None
+                     else None for t in (lag_slots, fa_slots)]
+            ptrs = (ctypes.c_void_p * (len(FEATURES) + 2))(
+                *(a.data_ptr() if a is not None else None
+                  for a in list(f.values()) + slots))
             ints = (ctypes.c_int * 2)(MODES[mode], 0 if table is None else table.shape[0])
             err = lib.fused_psi_feature_launch(
                 is_f64, code, *base, ctypes.cast(ptrs, ctypes.c_void_p),
                 ctypes.cast(ints, ctypes.c_void_p), R, S, M, n_out, stream)
     if err != 0:
         raise RuntimeError(
-            f"fused psi kernel launch failed ({structure}, mode {mode}, R={R}, "
+            f"fused psi kernel launch failed ({structure}, mode {mode}, "
+            f"{'K1c' if k1c else 'K1b' if feature else 'K1a'}, R={R}, "
             f"S={S}, M={M}): {lib.fused_psi_error_string(err).decode()}"
         )
-    if feature:
+    if k1c:
+        K1C_LAUNCHES += 1
+    elif feature:
         FEATURE_LAUNCHES += 1
     else:
         LAUNCHES += 1

@@ -18,9 +18,13 @@ Counter layout (four 32-bit words) and key (two words):
 
 Field widths: particle < 2^16 (the kernel takes at most 4096), segment <
 2^16 (checked by the wrapper), trial < 2^17 (a march stops after 100 000
-trials), slot < 2^3, group < 2^12.
+trials; the passes of a lagged segment share the field), slot < 2^3, group < 2^12.
 
-``trial`` counts the Euler-Maruyama trials of one segment from 0. ``slot``
+``trial`` counts the Euler-Maruyama trials of one segment from 0. With lag
+(kernel K3b) a segment's march splits at the fire times into passes, each
+with its controller restarted; the count runs on across the passes of the
+segment, so no two trials of a segment share a counter and kernel and twin
+number them alike. ``slot``
 names the draw: 0, 1, 2 are the full step and the two half steps
 (``em_control='independent'``) or 0, 1 the two half-step increments
 (``'coupled'``); :data:`SLOT_RESAMPLE` is the stratified-resampling uniform of

@@ -36,7 +36,8 @@ and ``cov_b``, one entry per covariate in the order given. A covariate in
 mode ``const`` is constant over the row and reads as ``cov_a[i]``; one in
 mode ``affine`` is affine within the segment, ``cov(t) = cov_a[i] +
 cov_b[i] * t`` at the time the closure passes, so a read at a shifted time
-is exact too. The SDE generator still rejects covariate reads.
+is exact too. The SDE generator takes covariates the same way: its drift
+and diffusion get the same two arrays.
 
 Jacobian columns (``generate_rhs(..., jacobian=True)``): the implicit and
 exact tiers of the kernel need ``df/dx``, which the JAX kernel takes by
@@ -98,6 +99,8 @@ class GeneratedSde(NamedTuple):
     ninput: int
     source: str
     key: str
+    cov_names: tuple = ()  # the covariates of cov_a / cov_b, in order
+    cov_modes: tuple = ()  # "const" or "affine" per covariate
 
 
 # ---------------------------------------------------------------------------
@@ -350,18 +353,6 @@ def _torch_op(func, args, kwargs):
     raise PharmsolError(f"the RHS uses `{name}`, which the CUDA generator does not support")
 
 
-class _NoCovariates:
-    """The covariate argument of an SDE closure: every read is refused."""
-
-    def __call__(self, name, t=None):
-        raise PharmsolError(
-            f"the closure reads covariate `{name}`: the PyTorch port's SDE "
-            "kernel does not support covariates yet"
-        )
-
-    value = __call__
-
-
 COV_MODES = ("const", "affine")
 
 
@@ -378,7 +369,7 @@ class _SymCov:
         i = self._index.get(str(name))
         if i is None:
             raise PharmsolError(
-                f"the RHS reads unknown covariate `{name}` (the data carries "
+                f"the closure reads unknown covariate `{name}` (the data carries "
                 f"{sorted(self._index) or 'none'})"
             )
         a = Sym("cov_a", value=i)
@@ -394,7 +385,8 @@ class LaneCov:
     kernel's ``LaneCov``, ``ops/pallas_ode.py:417``): each covariate is a
     constant, or an ``(a, b)`` pair with ``cov(t) = a + b t`` inside the
     segment, exact because the plan puts every knot on a breakpoint. The
-    fused ODE twin hands it per-row lanes; the generator's check, scalars."""
+    fused ODE and SDE twins hand it per-row lanes; the generator's check,
+    scalars."""
 
     def __init__(self, values: dict):
         self._values = values
@@ -403,7 +395,7 @@ class LaneCov:
         try:
             v = self._values[str(name)]
         except KeyError:
-            raise KeyError(f"RHS reads unknown covariate `{name}`") from None
+            raise KeyError(f"the closure reads unknown covariate `{name}`") from None
         if isinstance(v, tuple):
             return v[0] + v[1] * t
         return v
@@ -427,14 +419,13 @@ def _sizes(args, n_states, n_params, ninput):
     return tuple((name, dims[size]) for name, size in args)
 
 
-def _trace(fn, args, n_out: int, what: str = "the RHS", covs=None) -> List[Sym]:
+def _trace(fn, args, n_out: int, what: str = "the RHS", covs=((), ())) -> List[Sym]:
     """Trace ``fn`` on symbolic arguments; ``covs`` is ``(names, modes)`` of
-    the covariates it may read, or None when it may read none (SDE)."""
+    the covariates it may read."""
     leaves = [Sym(name) if size is None
               else SymVec([Sym(name, value=i) for i in range(size)], name)
               for name, size in args]
-    shim = _NoCovariates() if covs is None else _SymCov(*covs)
-    out = fn(*leaves, shim)
+    out = fn(*leaves, _SymCov(*covs))
     if isinstance(out, torch.Tensor) and out.dim() == 1 and not out.requires_grad:
         out = list(out)  # a vector of constants
     if isinstance(out, (SymVec, list, tuple)):
@@ -736,14 +727,12 @@ def _emit_function(outputs: List[Sym], name: str, args, out_name: str) -> str:
     )
 
 
-def _header(what: str, n_states, n_params, ninput, functions, covs=None,
+def _header(what: str, n_states, n_params, ninput, functions, covs,
             jacobian: bool = False) -> str:
-    cov_lines = ""
-    if covs is not None:
-        names, modes = covs
-        listed = ", ".join(f"{n} ({m})" for n, m in zip(names, modes)) or "none"
-        cov_lines = (f"// covariates, in cov_a/cov_b order: {listed}\n"
-                     f"#define PHARMSOL_RHS_NCOV {len(names)}\n")
+    names, modes = covs
+    listed = ", ".join(f"{n} ({m})" for n, m in zip(names, modes)) or "none"
+    cov_lines = (f"// covariates, in cov_a/cov_b order: {listed}\n"
+                 f"#define PHARMSOL_RHS_NCOV {len(names)}\n")
     if jacobian:
         cov_lines += "#define PHARMSOL_RHS_HAS_JVP 1\n"
     return (
@@ -757,22 +746,19 @@ def _header(what: str, n_states, n_params, ninput, functions, covs=None,
     )
 
 
-def _check_against_closure(fn, outputs, args, n_out: int, what: str = "RHS",
-                           covs=None):
+def _check_against_closure(fn, outputs, args, n_out: int, what: str, covs):
     """The traced graph and the closure, on the same random float64 lane
     (and random covariate coefficients)."""
     rng = np.random.RandomState(7)
     leaves = {name: (torch.tensor(1.37, dtype=torch.float64) if size is None
                      else torch.as_tensor(rng.uniform(0.5, 2.0, size)))
               for name, size in args}
-    shim, cov_leaves = _NoCovariates(), {}
-    if covs is not None:
-        names, modes = covs
-        a = torch.as_tensor(rng.uniform(0.5, 2.0, len(names)))
-        b = torch.as_tensor(rng.uniform(-0.2, 0.2, len(names)))
-        cov_leaves = {"cov_a": a, "cov_b": b}
-        shim = LaneCov({n: a[i] if m == "const" else (a[i], b[i])
-                        for i, (n, m) in enumerate(zip(names, modes))})
+    names, modes = covs
+    a = torch.as_tensor(rng.uniform(0.5, 2.0, len(names)))
+    b = torch.as_tensor(rng.uniform(-0.2, 0.2, len(names)))
+    cov_leaves = {"cov_a": a, "cov_b": b}
+    shim = LaneCov({n: a[i] if m == "const" else (a[i], b[i])
+                    for i, (n, m) in enumerate(zip(names, modes))})
     want = fn(*leaves.values(), shim)
     if not isinstance(want, torch.Tensor):
         want = torch.stack([torch.as_tensor(c, dtype=torch.float64) for c in want])
@@ -786,7 +772,7 @@ def _check_against_closure(fn, outputs, args, n_out: int, what: str = "RHS",
         )
 
 
-def _traced(fn, args, n_out: int, what: str, family: str, covs=None) -> List[Sym]:
+def _traced(fn, args, n_out: int, what: str, family: str, covs) -> List[Sym]:
     """Trace and check one closure; PharmsolError with the reason when the
     generator cannot express it."""
     try:
@@ -802,6 +788,17 @@ def _traced(fn, args, n_out: int, what: str, family: str, covs=None) -> List[Sym
     return outputs
 
 
+def _covariates(cov_names, cov_modes):
+    """``(names, modes)`` checked: one of :data:`COV_MODES` per covariate
+    (default all ``const``)."""
+    cov_names = tuple(str(n) for n in cov_names)
+    cov_modes = tuple(cov_modes) if cov_modes is not None else ("const",) * len(cov_names)
+    if len(cov_modes) != len(cov_names) or any(m not in COV_MODES for m in cov_modes):
+        raise ValueError(f"cov_modes {cov_modes} must give one of {COV_MODES} per "
+                         f"covariate {cov_names}")
+    return cov_names, cov_modes
+
+
 def generate_rhs(diffeq: Callable, n_states: int, n_params: int,
                  ninput: int, cov_names=(), cov_modes=None,
                  jacobian: bool = False) -> GeneratedRhs:
@@ -812,12 +809,7 @@ def generate_rhs(diffeq: Callable, n_states: int, n_params: int,
     default all ``const``). ``jacobian`` adds ``rhs_jvp`` (the state
     Jacobian times a vector, by symbolic forward mode) to the header."""
     ninput = max(int(ninput), 1)
-    cov_names = tuple(str(n) for n in cov_names)
-    cov_modes = tuple(cov_modes) if cov_modes is not None else ("const",) * len(cov_names)
-    if len(cov_modes) != len(cov_names) or any(m not in COV_MODES for m in cov_modes):
-        raise ValueError(f"cov_modes {cov_modes} must give one of {COV_MODES} per "
-                         f"covariate {cov_names}")
-    covs = (cov_names, cov_modes)
+    covs = cov_names, cov_modes = _covariates(cov_names, cov_modes)
     args = _sizes(_ODE_ARGS, n_states, n_params, ninput)
     outputs = _traced(diffeq, args, n_states, "RHS", "ODE", covs)
     c_args = args + (("cov_a", len(cov_names)), ("cov_b", len(cov_names)))
@@ -837,20 +829,24 @@ def generate_rhs(diffeq: Callable, n_states: int, n_params: int,
 
 
 def generate_sde(drift: Callable, diffusion: Callable, n_states: int,
-                 n_params: int, ninput: int) -> GeneratedSde:
+                 n_params: int, ninput: int, cov_names=(), cov_modes=None) -> GeneratedSde:
     """Trace an SDE's ``drift(x, p, t, rateiv, cov)`` and ``diffusion(p, t,
     cov)`` and emit both into one CUDA header, as ``drift<T>(x, p, t, rateiv,
-    dx)`` and ``diffusion<T>(p, t, g)``. A diffusion of constants traces to
-    literal outputs. Raises PharmsolError with the reason when either closure
-    uses something the generator cannot express."""
+    cov_a, cov_b, dx)`` and ``diffusion<T>(p, t, cov_a, cov_b, g)``, with the
+    covariates ``cov_names`` in modes ``cov_modes`` as :func:`generate_rhs`.
+    A diffusion of constants traces to literal outputs. Raises PharmsolError
+    with the reason when either closure uses something the generator cannot
+    express (an unknown covariate among it)."""
     ninput = max(int(ninput), 1)
+    covs = cov_names, cov_modes = _covariates(cov_names, cov_modes)
+    cov_args = (("cov_a", len(cov_names)), ("cov_b", len(cov_names)))
     d_args = _sizes(_DRIFT_ARGS, n_states, n_params, ninput)
     g_args = _sizes(_DIFFUSION_ARGS, n_states, n_params, ninput)
-    d_out = _traced(drift, d_args, n_states, "drift", "SDE")
-    g_out = _traced(diffusion, g_args, n_states, "diffusion", "SDE")
+    d_out = _traced(drift, d_args, n_states, "drift", "SDE", covs)
+    g_out = _traced(diffusion, g_args, n_states, "diffusion", "SDE", covs)
     source = _header("SDE drift and diffusion closures", n_states, n_params, ninput,
-                     [_emit_function(d_out, "drift", d_args, "dx"),
-                      _emit_function(g_out, "diffusion", g_args, "g")])
+                     [_emit_function(d_out, "drift", d_args + cov_args, "dx"),
+                      _emit_function(g_out, "diffusion", g_args + cov_args, "g")], covs)
     key = hashlib.sha256(source.encode()).hexdigest()[:16]
     return GeneratedSde(drift, diffusion, int(n_states), int(n_params), ninput,
-                        source, key)
+                        source, key, cov_names, cov_modes)

@@ -43,6 +43,12 @@ F32_BUDGET: Dict[str, float] = {
     "seq_multiplier_segment": 5e-5,
     "seq_segplanes": 5e-5,
     "analytical_init": 5e-5,
+    # kernel K1c (JAX package :53, :59): lag with a seq chain deeper than
+    # one (the in-kernel depth counter and a split march, two propagates in
+    # the segment of a fire), and lag with a time-varying seq (per-column
+    # main and post planes, the same split march; the chain is host float64)
+    "lag_seq_depth": 1e-4,
+    "seq_colplanes": 1e-4,
     # adaptive stepping compounds controller decisions (JAX package :61, :65)
     "ode_dopri5": 2e-4,
     "ode_multi_input": 2e-4,   # per-input bolus/rate streams
@@ -490,6 +496,114 @@ def feature_case(name: str, n_subjects: int = 8, n_support: int = 12,
     ems = lib.AssayErrorModels().add(
         0, lib.AssayErrorModel.additive(lib.ErrorPoly(0.5, 0.1), 1.0))
     return model, lib.Data(subjects), sp, ems, mode
+
+
+# ---------------------------------------------------------------------------
+# Kernel K1c's cases: lag with a deep or time-varying seq, dynamic lag and fa
+# ---------------------------------------------------------------------------
+
+
+def _depth_seq(p, t, cov):
+    return [p[0] * (1.0 + 0.15 * p[2]), p[1], p[2]]
+
+
+def _wt_power_seq(p, t, cov):
+    return [p[0] * (cov("wt", t) / 70.0) ** p[2], p[1], p[2]]
+
+
+def _tv_seq(p, t, cov):
+    # reads t and the time-varying weight: a seq no per-row table holds
+    return [p[0] * (1.0 + 0.02 * t) * (cov("wt", t) / 70.0) ** 0.5, p[1], p[2]]
+
+
+def _three_cmt_lag_seq(p, t, cov):
+    return [p[0] * (1.0 + 0.1 * p[6]), p[1], p[2], p[3], p[4], p[5], p[6]]
+
+
+_K1C_ONE = [(0.1, 0.3), (8, 15)]
+
+# name: (structure, closures, covariate, support ranges, budget row). The
+# regimen is test_pallas_psi.py:1304's: a bolus at 0 and a 1.5 h infusion at
+# 1 h (whose end compounds the seq chain), a second bolus at 2 h on every
+# other subject (its fire can land in the compounded region), observations
+# at 0.5, 1.2, 2.1, 3, 4.5, 6 and 10 h; "wt" constant per subject, "wt_tv"
+# with a second knot at 3 h. Every lag is below the 2 h dose gap.
+_K1C = {
+    # lag_depth: the event codes drive the in-kernel depth counter
+    "depth_levels": ("one_compartment", dict(seq_eq=_depth_seq,
+                                             lag=lambda p, t, cov: {0: p[2]}),
+                     "wt", _K1C_ONE + [(0.0, 1.8)], "lag_seq_depth"),
+    "depth_planes": ("one_compartment", dict(seq_eq=_wt_power_seq,
+                                             lag=lambda p, t, cov: {0: 1.2 * p[2]}),
+                     "wt", _K1C_ONE + [(0.2, 1.2)], "lag_seq_depth"),
+    # lag zero on some supports: those fire at offset 0 of their column
+    "zero_lag": ("one_compartment",
+                 dict(seq_eq=_depth_seq,
+                      lag=lambda p, t, cov: {0: 0.5 * (p[2] - 0.5 + abs(p[2] - 0.5))}),
+                 "wt", _K1C_ONE + [(0.0, 1.9)], "lag_seq_depth"),
+    # lag_post: main and post slot streams into one plane tensor
+    "post_static_lag": ("one_compartment", dict(seq_eq=_tv_seq,
+                                                lag=lambda p, t, cov: {0: p[2]}),
+                        "wt_tv", _K1C_ONE + [(0.0, 1.8)], "seq_colplanes"),
+    "post_dynamic_lag": ("one_compartment",
+                         dict(seq_eq=_tv_seq,
+                              lag=lambda p, t, cov: {0: p[2] * cov("wt", t) / 120.0}),
+                         "wt_tv", _K1C_ONE + [(0.0, 1.5)], "seq_colplanes"),
+    # lag and fa that change with time: per-dose-segment slot tables
+    "dynamic_lag_fa": ("one_compartment_with_absorption",
+                       dict(lag=lambda p, t, cov: {0: p[3] / (1.0 + 0.1 * t)},
+                            fa=lambda p, t, cov: {0: p[4] / (1.0 + 0.05 * t)}),
+                       None, [(0.8, 2.0), (0.1, 0.3), (8, 15), (0.0, 1.8), (0.5, 1.0)],
+                       "one_compartment_with_absorption"),
+    "fa_only": ("one_compartment_with_absorption",
+                dict(fa=lambda p, t, cov: {0: p[3] * cov("wt", t) / 70.0}),
+                "wt_tv", [(0.8, 2.0), (0.1, 0.3), (8, 15), (0.6, 1.0)],
+                "one_compartment_with_absorption"),
+    "depth_3cmt": ("three_compartments", dict(seq_eq=_three_cmt_lag_seq,
+                                              lag=lambda p, t, cov: {0: p[6]}),
+                   "wt", [(0.1, 0.3), (0.15, 0.35), (0.05, 0.2), (0.1, 0.3), (0.05, 0.15),
+                          (8, 15), (0.0, 1.8)], "lag_seq_depth"),
+}
+K1C_CASES = {name: row[4] for name, row in _K1C.items()}
+
+
+def k1c_case(name: str, n_subjects: int = 8, n_support: int = 12, seed: int = 0,
+             lib=None):
+    """K1c's case ``name`` (see ``K1C_CASES``: name -> the budget row of its
+    float32 result): (model, data, support, ems), built with ``lib``
+    (default this package; the JAX package builds the same case). The
+    single output is the central amount over the volume, the support column
+    after the kernel's."""
+    import numpy as np
+
+    from ..engine.analytical import KERNELS
+
+    if lib is None:
+        import pharmsol_tpu_torch as lib
+    structure, closures, cov, ranges, _ = _K1C[name]
+    _, n_states, vcol = KERNELS[structure]
+    central = 1 if structure.endswith("_with_absorption") else 0
+    rng = np.random.RandomState(seed)
+    sp = np.column_stack([rng.uniform(lo, hi, n_support) for lo, hi in ranges])
+    subjects = []
+    for i in range(n_subjects):
+        b = lib.Subject.builder(f"k{i}").bolus(0.0, 100.0, 0).infusion(1.0, 50.0, 0, 1.5)
+        if i % 2 == 0:
+            b = b.bolus(2.0, 60.0, 0)
+        if cov is not None:
+            b = b.covariate("wt", 0.0, 55.0 + 4.0 * (i % 16))
+            if cov == "wt_tv":
+                b = b.covariate("wt", 3.0, 60.0 + 3.0 * (i % 16))
+        for t in (0.5, 1.2, 2.1, 3.0, 4.5, 6.0, 10.0):
+            b = b.observation(t, float(5.0 * np.exp(-0.2 * t) * np.exp(0.1 * rng.randn())), 0)
+        subjects.append(b.build())
+    model = lib.Analytical(
+        getattr(lib, structure),
+        out=lambda x, p, t, cov, c=central, v=vcol: x[c:c + 1] / p[v],
+        nstates=n_states, ndrugs=1, nout=1, **closures)
+    ems = lib.AssayErrorModels().add(
+        0, lib.AssayErrorModel.additive(lib.ErrorPoly(0.5, 0.1), 1.0))
+    return model, lib.Data(subjects), sp, ems
 
 
 # ---------------------------------------------------------------------------
@@ -1013,3 +1127,169 @@ def population_models(lib=None, stack=None):
                             nstates=2, ndrugs=1, nout=1)
     ode = lib.ODE(_rhs_oral(stack), out=out, nstates=2, ndrugs=1, nout=1).with_solver("expm")
     return closed, ode
+
+
+# ---------------------------------------------------------------------------
+# Kernel K3b's modes: SDE models with covariates, lag, fa and init
+# ---------------------------------------------------------------------------
+
+
+def _drift_oral(stack):
+    # depot -> central, elimination ke; p = ka, ke, v, sigma, ...
+    return lambda x, p, t, r, cov: stack([-p[0] * x[0], p[0] * x[0] - p[1] * x[1] + r[0]])
+
+
+def _drift_wt(stack):
+    return lambda x, p, t, r, cov: stack([
+        -p[0] * x[0], p[0] * x[0] - p[1] * (cov("wt", t) / 70.0) ** 0.75 * x[1]])
+
+
+def _drift_two_inputs(stack):
+    # input 0 doses the depot, input 1 injects into central (its route)
+    return lambda x, p, t, r, cov: stack([-p[0] * x[0], p[0] * x[0] - p[1] * x[1]])
+
+
+_SDE_SIGMA = (0.002, 0.02)
+
+# name: (drift, closures, regimen, covariate, extra support ranges). The
+# support is ka, ke, v, sigma (the central state's diffusion, small: before a
+# lagged dose fires the state is zero, where the Euler-Maruyama controller
+# takes steps of the noise's size), the extra columns, then unused ones up
+# to six. Regimens: "bolus" 100 at 0; "two_doses" 100 at 0 and 60 at
+# 1 h; "two_inputs" 80 into input 0 at 0 and 50 into input 1 at 0.5 h.
+# Covariates: "wt" constant per subject, "wt_tv" knots at 0 and 0.5 h.
+# Observations at 0.25, 0.5, 1 and 1.5 h: the twin's masked loop takes as
+# many iterations as the slowest cell takes trials, so the spans stay short.
+# Every dose time is an observation time too: the fused kernel restarts its
+# step controller at a dose's own time and again at its fire, the general
+# engine only at the fire, so the two agree at zero diffusion (to rounding,
+# in both packages) only where the dose's time is a breakpoint anyway
+# (tests/test_torch_sde_features_offgrid.py pins the gap off the grid).
+_SDE_FEATURES = {
+    "cov_const": (_drift_wt, {}, "bolus", "wt", []),
+    "cov_affine": (_drift_wt, {}, "bolus", "wt_tv", []),
+    "lag": (_drift_oral, dict(lag=lambda p, t, cov: {0: p[4]}), "two_doses", None,
+            [(0.0, 0.6)]),
+    "fa": (_drift_oral, dict(fa=lambda p, t, cov: {0: p[4]}), "two_doses", None,
+           [(0.3, 1.0)]),
+    "lag_fa": (_drift_oral, dict(lag=lambda p, t, cov: {0: p[4]},
+                                 fa=lambda p, t, cov: {0: p[5]}),
+               "two_doses", None, [(0.0, 0.6), (0.3, 1.0)]),
+    "dyn_lag_fa": (_drift_oral, dict(lag=lambda p, t, cov: {0: p[4] / (1.0 + 0.1 * t)},
+                                     fa=lambda p, t, cov: {0: p[5] / (1.0 + 0.05 * t)}),
+                   "two_doses", None, [(0.0, 0.6), (0.3, 1.0)]),
+    "init_rows": (_drift_oral, dict(init=lambda p, t, cov: [0.0, 0.5 * p[2]]), "bolus",
+                  None, []),
+    "init_planes": (_drift_wt, dict(init=lambda p, t, cov: [0.0, p[2] * cov("wt", t) / 140.0]),
+                    "bolus", "wt", []),
+    "two_inputs_inject": (_drift_two_inputs,
+                          dict(lag=lambda p, t, cov: {0: p[4], 1: p[5]}),
+                          "two_inputs", None, [(0.0, 0.4), (0.0, 0.4)]),
+}
+SDE_FEATURE_CASES = tuple(_SDE_FEATURES)
+_SDE_COLUMNS = 6
+
+
+def sde_feature_case(name: str, n_subjects: int = 4, n_support: int = 8,
+                     seed: int = 0, lib=None, stack=None, nparticles: int = 32,
+                     sigma: bool = True):
+    """K3b's case ``name`` (see ``SDE_FEATURE_CASES``): (model, data,
+    support, ems), built with ``lib`` (default this package) and ``stack``
+    (default ``torch.stack``). ``sigma=False`` zeroes the diffusion column
+    (the engines then agree to rounding). The output is the central amount
+    over the volume ``p[2]``."""
+    import importlib
+
+    import numpy as np
+
+    if lib is None:
+        import pharmsol_tpu_torch as lib
+    if stack is None:
+        import torch
+
+        stack = torch.stack
+    drift, closures, regimen, cov, extra = _SDE_FEATURES[name]
+    rng = np.random.RandomState(seed)
+    # every case has six columns (unused ones last), so that the cases with
+    # one drift share one generated header, hence one library
+    ranges = [_KA, _KE, _V, _SDE_SIGMA] + extra
+    ranges += [(0.5, 1.0)] * (_SDE_COLUMNS - len(ranges))
+    sp = np.column_stack([rng.uniform(lo, hi, n_support) for lo, hi in ranges])
+    if not sigma:
+        sp[:, 3] = 0.0
+    labels = ("oral", "iv") if regimen == "two_inputs" else (0, 0)
+    subjects = []
+    for i in range(n_subjects):
+        b = lib.Subject.builder(f"q{i}").bolus(0.0, 80.0 if regimen == "two_inputs" else 100.0,
+                                               labels[0])
+        if regimen == "two_doses":
+            b = b.bolus(1.0, 60.0, 0)
+        elif regimen == "two_inputs":
+            b = b.bolus(0.5, 50.0, labels[1])
+        if cov == "wt":
+            b = b.covariate("wt", 0.0, 40.0 + 80.0 * rng.rand())
+        elif cov == "wt_tv":
+            b = (b.covariate("wt", 0.0, 40.0 + 80.0 * rng.rand())
+                 .covariate("wt", 0.5, 40.0 + 80.0 * rng.rand()))
+        for t in (0.25, 0.5, 1.0, 1.5):
+            b = b.observation(t, float(1.5 * np.exp(-0.2 * t) * np.exp(0.2 * rng.randn())),
+                              "cp" if regimen == "two_inputs" else 0)
+        subjects.append(b.build())
+    model = lib.SDE(drift(stack), lambda p, t, cov: [0.0, p[3]],
+                    out=lambda x, p, t, cov: x[1:2] / p[2], nparticles=nparticles,
+                    nstates=2, ndrugs=2 if regimen == "two_inputs" else 1, nout=1,
+                    seed=11, **closures)
+    label = 0
+    if regimen == "two_inputs":
+        md = importlib.import_module(lib.__name__ + ".metadata")
+        model = model.with_metadata(
+            md.new("two_inputs").parameters(["ka", "ke", "v", "sigma", "lag0", "lag1"])
+            .states(["depot", "central"]).outputs(["cp"])
+            .route(md.Route.bolus("oral").to_state("depot"))
+            .route(md.Route.bolus("iv").to_state("central").inject_input_to_destination())
+            .particles(nparticles))
+        label = "cp"
+    ems = lib.AssayErrorModels().add(
+        label, lib.AssayErrorModel.additive(lib.ErrorPoly(0.5, 0.1), 1.0))
+    return model, lib.Data(subjects), sp, ems
+
+
+SDE_COVARIATE_CENTRE = (0.8, 0.25, 0.2, 50.0)  # ka, ke, tlag, v
+SDE_COVARIATE_SIGMA = (0.02, 0.2)
+
+
+def sde_covariate_model_case(n_subjects: int, n_support: int, seed: int = 0, lib=None,
+                             stack=None, nparticles: int = 1000):
+    """The reference's covariate example (``examples/covariates.py:22-37``)
+    written as an SDE: states gut and central, the drift ``ka`` and ``ke *
+    (creatinine(t) / 75) ** 0.75 * (age / 25) ** 0.5``, a lag ``p[2]``, the
+    diffusion ``[0, p[4]]`` on central, ``cp = x[1] / p[3]``; the data and
+    covariates of :func:`covariate_model_case` (100 mg at 0, 2 and 4 h,
+    observations at 0.5, 1, 2, 2.5 and 8 h, creatinine knots at 0 and 1 h, a
+    constant age), drawn from ``seed``. Supports jittered 15% around
+    ``SDE_COVARIATE_CENTRE`` with sigma uniform in ``SDE_COVARIATE_SIGMA``.
+    Returns (model, data, support, ems)."""
+    import numpy as np
+
+    if lib is None:
+        import pharmsol_tpu_torch as lib
+    if stack is None:
+        import torch
+
+        stack = torch.stack
+    _, data, _, ems = covariate_model_case(n_subjects, 1, seed, lib=lib, stack=stack)
+    rng = np.random.RandomState(seed + 1)
+    centre = np.asarray(SDE_COVARIATE_CENTRE)
+    sp = np.column_stack([np.abs(centre[None, :] * (1.0 + 0.15 * rng.randn(n_support, 4))),
+                          rng.uniform(*SDE_COVARIATE_SIGMA, n_support)])
+    model = lib.SDE(
+        drift=lambda x, p, t, r, cov: stack([
+            -p[0] * x[0],
+            p[0] * x[0] - p[1] * (cov("creatinine", t) / 75.0) ** 0.75
+            * (cov("age", t) / 25.0) ** 0.5 * x[1],
+        ]),
+        diffusion=lambda p, t, cov: [0.0, p[4]],
+        lag=lambda p, t, cov: {0: p[2]},
+        out=lambda x, p, t, cov: x[1:2] / p[3],
+        nparticles=nparticles, nstates=2, ndrugs=1, nout=1, seed=17)
+    return model, data, sp, ems

@@ -17,10 +17,11 @@ from pharmsol_tpu_torch.ops.fused_psi import (
     STRUCTURES, psi_analytical, psi_analytical_plain,
 )
 from pharmsol_tpu_torch.utils.f32_budget import (
-    EXPM_CASES, F32_BUDGET, FEATURE_BUDGETS, FEATURE_CASES, ODE_CASES, ODE_FEATURE_CASES,
-    POPULATION_RANGES, covariate_model_case, expm_case, f32_error, feature_budget_case,
-    feature_case, kernel_case, ode_case, ode_feature_case, population_10k_case,
-    population_models,
+    EXPM_CASES, F32_BUDGET, FEATURE_BUDGETS, FEATURE_CASES, K1C_CASES, ODE_CASES,
+    ODE_FEATURE_CASES, POPULATION_RANGES, SDE_FEATURE_CASES, covariate_model_case, expm_case,
+    f32_error, feature_budget_case, feature_case, k1c_case, kernel_case, ode_case,
+    ode_feature_case, population_10k_case, population_models, sde_covariate_model_case,
+    sde_feature_case,
 )
 
 pytestmark = pytest.mark.cuda
@@ -563,3 +564,70 @@ def test_stiff_entry_point_launches_once_and_matches_the_general_engine(cuda, so
     want = pt.log_likelihood_matrix(model, data, sp, ems, engine="general", device="cpu")
     rel = np.abs(psi.cpu().numpy() - want.numpy()) / np.maximum(np.abs(want.numpy()), 1.0)
     assert rel.max() <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# K3b: the SDE feature tier; K1c: the rest of the closed-form feature tier
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sigma", [False, True])
+@pytest.mark.parametrize("name", list(SDE_FEATURE_CASES))
+def test_k3b_matches_twin_float64(cuda, name, sigma):
+    """Every mode of SDE_FEATURE_CASES: kernel and twin draw the same Philox
+    numbers; every cell within 1e-10 at zero diffusion, 99.9% within 1e-9
+    with noise."""
+    from pharmsol_tpu_torch.likelihood.plans.sde import _FusedSdePsiPlan
+    from pharmsol_tpu_torch.ops import fused_sde
+
+    model, data, sp, ems = sde_feature_case(name, 7, 9, seed=4, nparticles=300, sigma=sigma)
+    grid = model.lower(data.subjects())
+    lowered = ems.lower(model.resolve_output_label, model.nouteqs())
+    plan = _FusedSdePsiPlan(model, grid, sp, lowered, cuda, torch.float64)
+    kw = plan.kernel_kwargs()
+    before = (fused_sde.LAUNCHES, fused_sde.FEATURE_LAUNCHES)
+    got = fused_sde.psi_sde(*plan.streams, plan.support, plan.gen, **kw)
+    torch.cuda.synchronize()
+    feature = name != "init_rows"
+    assert (fused_sde.LAUNCHES, fused_sde.FEATURE_LAUNCHES) == (
+        before[0] + (not feature), before[1] + feature)
+    want = fused_sde.psi_sde_plain(*plan.streams, plan.support, plan.gen, **kw)
+    rel = ((got - want).abs() / want.abs().clamp(min=1.0)).flatten()
+    assert bool(torch.isfinite(rel).all())
+    if sigma:
+        assert float((rel <= 1e-9).double().mean()) >= 0.999
+    else:
+        assert float(rel.max()) <= 1e-10
+
+
+def test_k3b_entry_point_launches_once(cuda):
+    from pharmsol_tpu_torch.ops import fused_sde
+
+    model, data, sp, ems = sde_covariate_model_case(6, 5, nparticles=200)
+    before = (fused_sde.LAUNCHES, fused_sde.FEATURE_LAUNCHES)
+    psi = pt.log_likelihood_matrix(model, data, sp, ems, device=cuda, engine="fused")
+    torch.cuda.synchronize()
+    assert (fused_sde.LAUNCHES, fused_sde.FEATURE_LAUNCHES) == (before[0], before[1] + 1)
+    assert tuple(psi.shape) == (6, 5) and bool(torch.isfinite(psi).all())
+
+
+@pytest.mark.parametrize("name", list(K1C_CASES))
+def test_k1c_matches_twin(cuda, name):
+    """Every case of K1C_CASES: float64 within 1e-10 relative, float32
+    against the float64 twin within the case's budget row; one K1c launch."""
+    model, data, sp, ems = k1c_case(name, 33, 41, seed=6)
+    grid = model.lower(data.subjects())
+    lowered = ems.lower(model.resolve_output_label, model.nouteqs())
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        plan = _FusedPsiPlan(model, grid, sp, lowered, cuda, dtype)
+        kw = plan.kernel_kwargs()
+        before = fused_psi.K1C_LAUNCHES
+        out[dtype] = psi_analytical(*plan.streams, plan.support, **kw)
+        torch.cuda.synchronize()
+        assert fused_psi.K1C_LAUNCHES == before + 1
+        if dtype == torch.float64:
+            twin = psi_analytical_plain(*plan.streams, plan.support, **kw)
+    torch.testing.assert_close(out[torch.float64], twin, rtol=1e-10, atol=0)
+    assert f32_error(out[torch.float32].double().cpu().numpy(),
+                     twin.cpu().numpy()) <= F32_BUDGET[K1C_CASES[name]]

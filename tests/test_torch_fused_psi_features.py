@@ -10,8 +10,8 @@ the card (``chip_smoke.py``, ``test_torch_cuda.py``). Here, float64:
   ``engine='xla'`` within 1e-9 relative, with the plan's mode checked;
 - two cases against the JAX package's Pallas kernel in interpret mode, how
   the JAX package's own tests run it on the CPU;
-- the configurations that need kernel K1c: ``engine='fused'`` raises and
-  ``engine='auto'`` takes the general engine with the reason recorded;
+- the configurations of kernel K1c: ``engine='fused'`` runs its twin, equal
+  to the general engine, and ``engine='auto'`` keeps the fused engine;
 - float32 within the feature budget rows.
 """
 
@@ -160,18 +160,20 @@ def _ems():
 
 @pytest.mark.parametrize("name", list(K1C))
 def test_k1c_configurations_raise_and_auto_takes_the_general_engine(name, monkeypatch):
+    """Since kernel K1c these configurations no longer raise: the fused plan
+    takes them (its twin here) and equals the general engine, and ``auto``
+    on a card keeps the fused engine."""
     model, data = K1C[name]()
     sp = np.column_stack([np.linspace(0.1, 0.3, 5), np.linspace(8, 15, 5),
                           np.linspace(0.2, 0.9, 5)])
-    with pytest.raises(PharmsolError, match="K1c"):
-        pt.log_likelihood_matrix(model, data, sp, _ems(), engine="fused")
-    # auto as on a card: the plan refuses, the general engine runs
+    fused = pt.log_likelihood_matrix(model, data, sp, _ems(), engine="fused")
+    want = pt.log_likelihood_matrix(model, data, sp, _ems(), engine="general")
+    torch.testing.assert_close(fused, want, rtol=1e-10, atol=1e-10)
+    # auto as on a card: the plan accepts, the fused engine runs
     monkeypatch.setattr(matrix, "_auto_engine", lambda device: ("fused", "forced"))
     got = pt.log_likelihood_matrix(model, data, sp, _ems())
-    decision = pt.last_engine_decision(model)
-    assert decision["engine"] == "general" and "K1c" in decision["reason"]
-    want = pt.log_likelihood_matrix(model, data, sp, _ems(), engine="general")
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert pt.last_engine_decision(model)["engine"] == "fused"
+    torch.testing.assert_close(got, fused, rtol=0, atol=0)
 
 
 def test_lags_the_kernel_cannot_hold_raise():

@@ -324,13 +324,25 @@ def test_plan_rejections_raise_and_auto_records_them(what, match, monkeypatch):
 
 
 def test_covariates_raise_in_every_engine():
+    """Since kernel K3b the data's covariates no longer raise: a model that
+    reads none runs in every engine (fused and general agree at zero
+    diffusion), and a drift that reads one the data lacks still raises."""
     model = _readme()
     data = pt.Data([pt.Subject.builder("c").bolus(0.0, 100.0, "iv")
                     .covariate("wt", 0.0, 70.0).observation(1.0, 8.0, "cp").build()])
     _, sp, ems = _small()
-    for engine in ("auto", "fused", "general"):
-        with pytest.raises(PharmsolError, match="does not support covariates"):
-            pt.log_likelihood_matrix(model, data, sp, ems, engine=engine)
+    sp = sp.copy()
+    sp[:, 2] = 0.0
+    psi = {engine: pt.log_likelihood_matrix(model, data, sp, ems, engine=engine)
+           for engine in ("auto", "fused", "general")}
+    assert all(bool(torch.isfinite(v).all()) for v in psi.values())
+    assert _rel(psi["fused"].numpy(), psi["general"].numpy()) < 1e-9
+    reads = _readme()
+    reads._drift = lambda x, p, t, r, cov: torch.stack(
+        [-x[1] * x[0] * cov("crcl", t), -(x[1] - p[0])])
+    reads._invalidate()
+    with pytest.raises(PharmsolError, match="unknown covariate `crcl`"):
+        pt.log_likelihood_matrix(reads, data, sp, ems, engine="fused")
 
 
 def test_wrapper_validates_its_inputs():

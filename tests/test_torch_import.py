@@ -114,11 +114,12 @@ def test_sde_nvcc_command_includes_the_generated_closures():
     for name in ("fused_sde_launch", "fused_sde_philox", "fused_sde_signature",
                  "fused_sde_error_string"):
         assert 'extern "C"' in src and f" {name}(" in src
-    # one instantiation per particles-per-thread count the wrapper may pick
+    # one instantiation per particles-per-thread count the wrapper may pick,
+    # in each tier (K3a, K3b: the template's last argument)
     from pharmsol_tpu_torch.ops.fused_sde import PARTICLES_PER_THREAD
 
     for k in PARTICLES_PER_THREAD:
-        assert f"launch_ppt<T, {k}>" in src
+        assert f"launch_ppt<T, {k}, FEAT>" in src
 
 
 def test_sde_is_exported():

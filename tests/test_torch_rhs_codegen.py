@@ -448,9 +448,9 @@ def test_sde_generator_accepts(name):
     drift, diffusion, n, n_params, ninput = SDE_ACCEPTED[name]
     gen = generate_sde(drift, diffusion, n, n_params, ninput)
     assert (gen.n_states, gen.n_params, gen.ninput) == (n, n_params, ninput)
-    assert ("void drift(const T* x, const T* p, T t, const T* rateiv, T* dx)"
-            in gen.source)
-    assert "void diffusion(const T* p, T t, T* g)" in gen.source
+    assert ("void drift(const T* x, const T* p, T t, const T* rateiv, const T* cov_a, "
+            "const T* cov_b, T* dx)" in gen.source)
+    assert "void diffusion(const T* p, T t, const T* cov_a, const T* cov_b, T* g)" in gen.source
     for i in range(n):
         assert f"dx[{i}] = " in gen.source and f"g[{i}] = " in gen.source
     assert generate_sde(drift, diffusion, n, n_params, ninput).key == gen.key
@@ -462,13 +462,30 @@ def test_constant_diffusion_traces_to_literals():
     assert "g[0] = T(1.0);" in src and "g[1] = T(0.01);" in src
 
 
+def test_sde_generator_reads_covariates():
+    """The drift and the diffusion read covariates as the ODE RHS does:
+    ``cov_a[i]`` for a constant one, ``cov_a[i] + cov_b[i] * t`` for an
+    affine one (kernel K3b); a read of a covariate not given is refused."""
+    drift = (lambda x, p, t, r, cov: torch.stack(
+        [-p[0] * x[0], p[0] * x[0] - p[1] * (cov("crcl", t) / 75.0) ** 0.75
+         * (cov("age", t) / 25.0) ** 0.5 * x[1]]))
+    diffusion = (lambda p, t, cov: [0.0, p[2] * cov("age", t) / 25.0])
+    gen = generate_sde(drift, diffusion, 2, 3, 1, ("crcl", "age"), ("affine", "const"))
+    assert (gen.cov_names, gen.cov_modes) == (("crcl", "age"), ("affine", "const"))
+    assert "cov_b[0]" in gen.source and "cov_a[1]" in gen.source
+    assert "cov_b[1]" not in gen.source
+    assert "#define PHARMSOL_RHS_NCOV 2" in gen.source
+    with pytest.raises(PharmsolError, match="unknown covariate `age`"):
+        generate_sde(drift, diffusion, 2, 3, 1, ("crcl",), ("affine",))
+
+
 @pytest.mark.parametrize("which, fn, reason", [
     ("drift", lambda x, p, t, r, cov: torch.stack([-p[0] * torch.sin(x[0]), -x[1]]), "`sin`"),
     ("drift", lambda x, p, t, r, cov: [-p[0] * x[0]], "returns 1 components, expected 2"),
     ("diffusion", lambda p, t, cov: [0.0, p[0] if p[0] > 0 else 0.0],
      "branches on a traced value"),
     ("diffusion", lambda p, t, cov: [0.0, p[0] * cov("wt", t)],
-     "SDE kernel does not support covariates"),
+     "reads unknown covariate `wt`"),
 ])
 def test_sde_generator_rejects_with_a_reason(which, fn, reason):
     drift = fn if which == "drift" else _readme_drift
@@ -485,10 +502,10 @@ _SDE_WRAPPER = """
 #include "sde.h"
 extern "C" void drift_f64(const double* x, const double* p, double t,
                           const double* r, double* dx) {
-  drift<double>(x, p, t, r, dx);
+  drift<double>(x, p, t, r, nullptr, nullptr, dx);
 }
 extern "C" void diffusion_f64(const double* p, double t, double* g) {
-  diffusion<double>(p, t, g);
+  diffusion<double>(p, t, nullptr, nullptr, g);
 }
 """
 

@@ -308,7 +308,7 @@ def test_options_validate_and_carry_across():
           .with_em_control("coupled"))
     opts = convert.sde_options_from_reference(jm)
     assert opts == dict(nparticles=77, seed=9, noise="independent",
-                        resampling="systematic", em_control="coupled")
+                        resampling="systematic", em_control="coupled", lag=None, fa=None)
     tm = pt.SDE(lambda x, p, t, r, cov: [-p[0] * x[0]], lambda p, t, cov: [p[1]],
                 nstates=1, ndrugs=1, nout=1, **opts)
     assert tm.spec.nparticles == 77 and tm.spec.noise == "independent"
@@ -316,10 +316,19 @@ def test_options_validate_and_carry_across():
 
 @pytest.mark.parametrize("kw", ["lag", "fa"])
 def test_unported_sde_equations_raise(kw):
+    """Lag and fa are ported (kernel K3b): the model takes them into its
+    spec; a lag/fa vector of the wrong length still raises when lowered."""
     fn = {"lag": lambda p, t, cov: {0: 0.5}, "fa": lambda p, t, cov: {0: 0.8}}[kw]
-    with pytest.raises(PharmsolError, match=f"does not support {kw} "):
-        pt.SDE(lambda x, p, t, r, cov: [-p[0] * x[0]], lambda p, t, cov: [p[1]],
+    m = pt.SDE(lambda x, p, t, r, cov: [-p[0] * x[0]], lambda p, t, cov: [0.0 * p[1]],
                nstates=1, ndrugs=1, nout=1, **{kw: fn})
+    assert getattr(m.spec, kw) is fn
+    bad = pt.SDE(lambda x, p, t, r, cov: [-p[0] * x[0]], lambda p, t, cov: [0.0 * p[1]],
+                 nstates=1, ndrugs=1, nout=1, **{kw: lambda p, t, cov: [0.5, 0.5]})
+    data = pt.Data([pt.Subject.builder("a").bolus(0.0, 100.0, 0)
+                    .observation(1.0, 8.0, 0).build()])
+    ems = pt.AssayErrorModels().add(0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    with pytest.raises(PharmsolError, match="vector of length 1"):
+        pt.log_likelihood_matrix(bad, data, np.array([[0.2, 0.1]]), ems, engine="general")
 
 
 def test_metadata_particle_count_is_taken():

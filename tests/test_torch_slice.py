@@ -158,8 +158,9 @@ def test_fused_plan_rejects_a_dose_into_another_input():
 @pytest.mark.parametrize("kw", ["seq_eq", "lag", "fa", "init"])
 def test_unported_equations_raise(kw):
     """Closed-form and ODE models take seq (closed forms only), lag, fa and
-    init; what is still not ported raises: a seq read at a time-varying
-    covariate together with lag in the fused closed-form plan (kernel K1c)."""
+    init. Since kernel K1c a seq read at a time-varying covariate together
+    with lag runs in the fused closed-form plan too (its column planes), and
+    equals the general engine."""
     fn = {
         "seq_eq": lambda p, t, cov: p,
         "lag": lambda p, t, cov: {0: 0.5},
@@ -182,8 +183,9 @@ def test_unported_equations_raise(kw):
         ems = pt.AssayErrorModels().add(
             0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
         sp = np.array([[0.15, 1.2, 0.3, 0.2, 10.0, 0.4]])
-        with pytest.raises(PharmsolError, match="K1c"):
-            pt.log_likelihood_matrix(lagged, data, sp, ems, engine="fused")
+        fused = pt.log_likelihood_matrix(lagged, data, sp, ems, engine="fused")
+        general = pt.log_likelihood_matrix(lagged, data, sp, ems, engine="general")
+        torch.testing.assert_close(fused, general, rtol=1e-10, atol=1e-10)
         return
     ode = pt.ODE(lambda x, p, t, b, r, cov: x, out=_out, nstates=3, ndrugs=1, nout=1,
                  **{kw: fn})

@@ -1,22 +1,22 @@
-"""The plain twins of kernels K2b (SDIRK tier) and K2c (BDF tier) and the
-fused ODE plan for stiff solvers (float64 on the CPU; the general engine's
-side is ``tests/test_torch_stiff.py``).
+"""The plain twin of kernel K2b (the SDIRK tier: trbdf2, kvaerno3 =
+esdirk34, kvaerno5) and the fused ODE plan for those solvers (float64 on
+the CPU; the general engine's side is ``tests/test_torch_stiff.py``, the BDF
+tier's twin ``tests/test_torch_stiff_fused_bdf.py``).
 
-The twins, through the plan, against the JAX kernel in interpret mode
-(``engine='pallas'`` on the CPU, one 8 x 128 JAX tile) on every model of
-``utils/f32_budget.py::STIFF_CASES``: within 1e-9, merged and segment by
-segment where the plan merges (trbdf2, kvaerno3 = esdirk34), the BDF order
-capped at 3 as the JAX kernel caps it, lost cells equal (1e-6 on the case
-with a censored observation: the port's log-CDF is exact). Twin against the
-port's general engine at the larger of the JAX tests' own tolerances (1e-3:
-the kernel freezes the Jacobian per step, the engine renews it per Newton
-round, and bdf has three controller rules more). The merged march
+The twin, through the plan, against the JAX kernel in interpret mode
+(``engine='pallas'`` on the CPU, one 8 x 128 JAX tile) on the cases of
+``utils/f32_budget.py::STIFF_CASES`` that the SDIRK solvers take (the list
+the two files share, ``KERNEL_CASES``, covers every case and solver): within
+1e-9, merged and segment by segment where the plan merges (trbdf2, kvaerno3
+= esdirk34), lost cells equal (1e-6 on the case with a censored observation:
+the port's log-CDF is exact). Twin against the port's general engine at the
+larger of the JAX tests' own tolerances (1e-3: the kernel freezes the
+Jacobian per step, the engine renews it per Newton round). The merged march
 against a tight-tolerance integration (``tests/test_pallas_ode_merge.py:
-255``), the plan's choices, the wrapper's checks, ``auto``, and the float32
-twin within the ``ode_bdf`` row.
+255``), the plan's choices, the libraries per solver, ``auto``, and the
+float32 twin within the ``ode_bdf`` row.
 """
 
-import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -33,8 +33,7 @@ from pharmsol_tpu_torch.likelihood import matrix
 from pharmsol_tpu_torch.likelihood.plans.ode import _FusedOdePsiPlan
 from pharmsol_tpu_torch.ops import _build, fused_ode
 from pharmsol_tpu_torch.utils.f32_budget import (
-    F32_BUDGET, POPULATION_RANGES, STIFF_CASES, f32_error, ode_case,
-    population_10k_case, stiff_case,
+    F32_BUDGET, STIFF_CASES, f32_error, ode_case, stiff_case,
 )
 
 
@@ -82,13 +81,36 @@ KERNEL_CASES = [
 KERNEL_TOLERANCE = {"two_outputs_cens": 1e-6}
 
 
+# Every case but ``poison`` and ``tmdd`` (below), bdf and the SDIRK solvers in
+# turn. The JAX tests hold their kernel to their engine within 5e-4
+# on smooth models and 1e-3 on stiff ones, on their own supports
+# (tests/test_pallas_ode.py:452-499, :696-774); these cases spread theirs
+# wider, so every one is held to 1e-3.
+ENGINE_CASES = [
+    ("two_cmt", "bdf"), ("two_cmt", "kvaerno5"), ("binding_init", "trbdf2"),
+    ("separated_rates", "kvaerno3"), ("lag_infusion", "bdf"), ("michaelis_menten", "bdf"),
+    ("michaelis_menten", "trbdf2"), ("cov_affine", "esdirk34"), ("two_outputs_cens", "bdf"),
+]
+
+
+# the TMDD corpus against the general engine, under every stiff solver
+TMDD_SOLVERS = ["bdf", "kvaerno3", "trbdf2", "kvaerno5"]
+
+
+# the float32 cases: the row's own case under every stiff solver and two
+# stiff cases
+F32_CASES = [
+    ("ode_bdf", "bdf"), ("ode_bdf", "trbdf2"), ("ode_bdf", "kvaerno3"), ("ode_bdf", "kvaerno5"),
+    ("tmdd", "bdf"), ("tmdd", "trbdf2"), ("two_cmt", "kvaerno3")]
+
+
 def test_every_stiff_case_and_solver_is_covered():
     assert {c for c, _ in KERNEL_CASES} == set(STIFF_CASES)
     assert {s for _, s in KERNEL_CASES} == {"trbdf2", "kvaerno3", "esdirk34",
                                             "kvaerno5", "bdf"}
 
 
-@pytest.mark.parametrize("name, solver", KERNEL_CASES)
+@pytest.mark.parametrize("name, solver", [c for c in KERNEL_CASES if c[1] != "bdf"])
 def test_twin_matches_the_jax_kernel_in_interpret_mode(name, solver):
     """One JAX tile, 8 x 128. The JAX plan merges what the port's plan
     merges; no launch is counted (CPU tensors: the twin ran)."""
@@ -124,19 +146,7 @@ def test_per_segment_twin_matches_the_jax_kernel_without_merging(solver, monkeyp
     assert not np.array_equal(merged, got) and _rel(merged, got) <= 5e-4
 
 
-# Every case but ``poison`` and ``tmdd`` (below), bdf and the SDIRK solvers in
-# turn. The JAX tests hold their kernel to their engine within 5e-4
-# on smooth models and 1e-3 on stiff ones, on their own supports
-# (tests/test_pallas_ode.py:452-499, :696-774); these cases spread theirs
-# wider, so every one is held to 1e-3.
-ENGINE_CASES = [
-    ("two_cmt", "bdf"), ("two_cmt", "kvaerno5"), ("binding_init", "trbdf2"),
-    ("separated_rates", "kvaerno3"), ("lag_infusion", "bdf"), ("michaelis_menten", "bdf"),
-    ("michaelis_menten", "trbdf2"), ("cov_affine", "esdirk34"), ("two_outputs_cens", "bdf"),
-]
-
-
-@pytest.mark.parametrize("name, solver", ENGINE_CASES)
+@pytest.mark.parametrize("name, solver", [c for c in ENGINE_CASES if c[1] != "bdf"])
 def test_twin_matches_the_general_engine(name, solver):
     """Accuracy-level agreement at the default tolerances: the kernel freezes
     the Jacobian per step where the engine renews it per Newton round, and
@@ -153,7 +163,7 @@ def test_twin_matches_the_general_engine(name, solver):
     assert _rel(got, want) <= 1e-3
 
 
-@pytest.mark.parametrize("solver", ["bdf", "kvaerno3", "trbdf2", "kvaerno5"])
+@pytest.mark.parametrize("solver", [s for s in TMDD_SOLVERS if s != "bdf"])
 def test_tmdd_twin_matches_the_general_engine(solver):
     """The JAX package's tests/test_stiff.py:212-238 on the port: the fused
     stiff tiers on the TMDD corpus against the implicit general engine at the
@@ -226,65 +236,6 @@ def test_plan_choices_per_solver():
     assert _plan(model, data, sp, ems, bdf_max_order=5).kernel_kwargs()["bdf_max_order"] == 5
 
 
-def test_bdf_order_cap_changes_the_march_and_keeps_the_answer():
-    model, data, sp, ems = stiff_case("tmdd", 3, 4, seed=2, solver="bdf")
-    plan3, plan5 = _plan(model, data, sp, ems), _plan(model, data, sp, ems, bdf_max_order=5)
-    c3, c5 = {}, {}
-    psi3 = fused_ode.psi_ode_plain(*plan3.streams, plan3.support, plan3.rhs, counts=c3,
-                                   **plan3.kernel_kwargs())
-    psi5 = fused_ode.psi_ode_plain(*plan5.streams, plan5.support, plan5.rhs, counts=c5,
-                                   **plan5.kernel_kwargs())
-    assert c3["steps"] > 0 and c5["steps"] > 0 and c3["steps"] != c5["steps"]
-    assert torch.isfinite(psi3).all() and torch.isfinite(psi5).all()
-    assert _rel(psi5.numpy(), psi3.numpy()) <= 1e-3
-    with pytest.raises(ValueError, match="bdf_max_order"):
-        fused_ode.psi_ode_plain(*plan3.streams, plan3.support, plan3.rhs,
-                                **dict(plan3.kernel_kwargs(), bdf_max_order=6))
-
-
-@pytest.mark.parametrize("cap", [3, 5])
-def test_bdf_twin_tallies_trials_and_rescalings_by_order(cap):
-    """``counts["bdf_by_row"]``: per row and order the trials, accepts,
-    adaptations and the rescalings the kernel performs (clip < 1, factor
-    != 1); its trials are the attempts, no order passes the cap, and a
-    counted run gives the same psi as an uncounted one."""
-    model, data, sp, ems = stiff_case("tmdd", 3, 4, seed=2, solver="bdf")
-    plan = _plan(model, data, sp, ems, bdf_max_order=cap)
-    counts = {}
-    psi = fused_ode.psi_ode_plain(*plan.streams, plan.support, plan.rhs, counts=counts,
-                                  **plan.kernel_kwargs())
-    plain = fused_ode.psi_ode_plain(*plan.streams, plan.support, plan.rhs,
-                                    **plan.kernel_kwargs())
-    assert torch.equal(psi, plain)
-    tally = counts["bdf_by_row"]
-    assert tuple(tally.shape) == (3, 5, 6) and tally.dtype == torch.int64
-    assert torch.equal(tally[:, 0].sum(dim=1), counts["steps_by_row"])
-    assert int(tally[:, :, 0].sum()) == 0 and int(tally[:, :, cap + 1:].sum()) == 0
-    trials, accepts, adapts, clips, refacs = (tally[:, k].sum(dim=0) for k in range(5))
-    assert bool((accepts <= trials).all()) and bool((adapts <= accepts).all())
-    assert bool((clips <= trials).all()) and int(refacs.sum()) <= int(trials.sum())
-    assert 0 < int(clips.sum()) < int(trials.sum()) and 0 < int(refacs.sum())
-    assert int(trials[2:].sum()) > 0  # the march leaves order 1
-
-
-def test_wrapper_checks_for_the_stiff_tiers():
-    model, data, sp, ems = stiff_case("two_cmt", 4, 3, seed=1, solver="bdf")
-    plan = _plan(model, data, sp, ems)
-    kw = plan.kernel_kwargs()
-    M = plan.streams[0].shape[1]
-    with pytest.raises(ValueError, match="bdf never merges"):
-        fused_ode.psi_ode(*plan.streams, plan.support, plan.rhs,
-                          **dict(kw, merge_runs=[(0, M)]))
-    with pytest.raises(ValueError, match="kvaerno5 never merges"):
-        fused_ode.psi_ode(*plan.streams, plan.support, plan.rhs,
-                          **dict(kw, solver="kvaerno5", merge_runs=[(0, M)]))
-    explicit = _plan(model.with_solver("dopri5"), data, sp, ems)
-    with pytest.raises(ValueError, match="jacobian=True"):
-        fused_ode.psi_ode(*plan.streams, plan.support, explicit.rhs, **kw)
-    assert fused_ode.SOLVER_CODES["kvaerno3"] == fused_ode.SOLVER_CODES["esdirk34"] == 4
-    assert [fused_ode.SOLVER_CODES[s] for s in ("trbdf2", "kvaerno5", "bdf")] == [3, 5, 6]
-
-
 def test_each_stiff_solver_builds_a_library_of_its_own():
     """One nvcc command per tier: the implicit solvers name theirs with
     PHARMSOL_ODE_SOLVER and round every operation on its own; dopri5, tsit5
@@ -304,25 +255,6 @@ def test_each_stiff_solver_builds_a_library_of_its_own():
     plain = _build.generated_nvcc_command(_build.ODE, rhs, Path("out.so"))
     assert not any("PHARMSOL_ODE_SOLVER" in c or "fmad" in c for c in plain)
     assert _build.generated_library_path(_build.ODE, rhs) not in paths
-
-
-def test_kernel_tables_equal_the_twins():
-    """The constant tables written into csrc/fused_ode.cu are the twin's:
-    U = R(1) and the BDF constants, literal for literal."""
-    src = (Path(_build.CSRC_DIR) / "fused_ode.cu").read_text()
-
-    def table(name):
-        body = re.search(name + r"(?:\[\d+\])+ = \{(.*?)\};", src, re.S).group(1)
-        return np.array([float(v) for v in re.findall(r"-?\d+\.\d+(?:e-?\d+)?", body)])
-
-    np.testing.assert_array_equal(table("BDF_U").reshape(6, 6), fused_ode.bdf_U())
-    np.testing.assert_array_equal(table("BDF_ALPHA"), np.asarray(fused_ode._BDF_ALPHA))
-    np.testing.assert_array_equal(table("BDF_GAMMA"), np.asarray(fused_ode._BDF_GAMMA))
-    np.testing.assert_array_equal(table("BDF_ERROR_CONST"),
-                                  np.asarray(fused_ode._BDF_ERROR_CONST))
-    from pharmsol_tpu.ops.pallas_ode import _bdf_U as jax_bdf_U
-
-    np.testing.assert_array_equal(fused_ode.bdf_U(), jax_bdf_U())
 
 
 def test_auto_takes_the_fused_engine_for_a_stiff_solver(monkeypatch):
@@ -350,9 +282,7 @@ def test_auto_takes_the_fused_engine_for_a_stiff_solver(monkeypatch):
         psi.numpy(), pt.log_likelihood_matrix(bad, data, sp, ems, engine="general").numpy())
 
 
-@pytest.mark.parametrize("name, solver", [
-    ("ode_bdf", "bdf"), ("ode_bdf", "trbdf2"), ("ode_bdf", "kvaerno3"), ("ode_bdf", "kvaerno5"),
-    ("tmdd", "bdf"), ("tmdd", "trbdf2"), ("two_cmt", "kvaerno3")])
+@pytest.mark.parametrize("name, solver", [c for c in F32_CASES if c[1] != "bdf"])
 def test_twin_float32_within_the_bdf_budget(name, solver):
     """The float32 twin against the float64 twin within the ``ode_bdf`` row
     (2e-3), on the row's own case for every stiff solver and on two stiff
@@ -371,20 +301,3 @@ def test_twin_float32_within_the_bdf_budget(name, solver):
         pt.set_float_dtype(torch.float64)
     assert got.dtype == torch.float32 and np.isfinite(golden).all()
     assert f32_error(got.numpy(), golden) <= F32_BUDGET["ode_bdf"]
-
-
-def test_fit_population_over_a_stiff_model():
-    """``fit_population`` needs no change: the fit over the 1-cmt oral ODE
-    with bdf through the fused engine lands where the fit over the same ODE
-    with dopri5 lands (the solvers differ by their tolerance, 1e-4)."""
-    data, ems, _ = population_10k_case(16)
-    rhs = lambda x, p, t, b, r, cov: torch.stack([  # noqa: E731
-        -p[0] * x[0] + b[0], p[0] * x[0] - p[1] * x[1]])
-    out = lambda x, p, t, cov: x[1:2] / p[2]  # noqa: E731
-    kw = dict(ranges=POPULATION_RANGES, init_points=16, max_cycles=2)
-    fits = {}
-    for solver, engine in (("dopri5", "general"), ("bdf", "fused")):
-        model = pt.ODE(rhs, out=out, nstates=2, ndrugs=1, nout=1).with_solver(solver)
-        fits[solver] = pt.optimize.fit_population(model, data, ems, engine=engine, **kw)
-    assert fits["bdf"].cycles == fits["dopri5"].cycles
-    assert abs(fits["bdf"].log_likelihood - fits["dopri5"].log_likelihood) <= 0.5

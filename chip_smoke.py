@@ -76,7 +76,12 @@ printing its own lines; any failure raises and the exit code is not 0:
    one K3a launch and giving psi of the right shape without NaN;
 7. K3a alone at full width and one end-to-end call with its steps; its
    bound at full width from the float64 twin's trials on 8 subjects spread
-   over the cell x 64 supports (kernel and twin held to each other there);
+   over the cell x 64 supports (kernel and twin held to each other there),
+   recounted with Philox's integer work at the card's INT32 rate and printed
+   beside the floating-point-only count; the four-particles-a-thread
+   instantiations' registers, resident blocks per SM and the trial loop's
+   static instruction mix per particle-trial (``cuobjdump``), with the share
+   of the card's issue rate that loop reaches in the measured time;
 8. the K2e slice, "ODE covariates 16384 x 512": the reference's covariate
    example (``examples/covariates.py``: creatinine with knots at 0 and 1 h,
    a constant age, lag, 100 mg at 0, 2 and 4 h) through the public entry
@@ -148,8 +153,9 @@ printing its own lines; any failure raises and the exit code is not 0:
     psi finite;
 18. K3b's time there, kernel and twin on 8 spread subjects x 64 supports
     (held to each other), the general engine there (float64), one
-    end-to-end call with the plan's share, and the bound from the twin's
-    trials;
+    end-to-end call with the plan's share, the bound from the twin's trials
+    (recounted as in 7) and its kernels' registers, resident blocks and
+    instruction mix as in 7;
 19. K1c against its twin at 257 x 300 on every case of
     ``utils/f32_budget.py::K1C_CASES`` (lag_depth with levels and planes,
     zero-lag lanes, lag_post with a static and a dynamic lag, a
@@ -184,9 +190,14 @@ the whole script's verdict.
 ``--pair DIR`` holds this checkout against another one at ``DIR`` (a
 ``git archive`` of the parent commit, say), in the order DIR, here, here,
 DIR, each side a process of its own that imports its own package: K3a's
-README cell (256 x 64 x 1000) through ``log_likelihood_matrix``, three
-calls per dtype after a warm one, and the registers of every closed-form
-and SDE kernel the side built (``cuobjdump -res-usage``). It prints the
+README cell (256 x 64 x 1000) and K3b's "SDE covariates 256 x 64 x 1000"
+cell through ``log_likelihood_matrix``, three calls per dtype after a warm
+one, with the factor of the medians and whether the sides' ranges part;
+each side's psi of both cells, the change's held to the parent's cell by
+cell at the twin's tolerances (both draw the same Philox numbers); the
+registers of every closed-form and SDE kernel the side built (``cuobjdump
+-res-usage``), and for the SDE kernels at four particles a thread their
+resident blocks per SM and the trial loop's instruction mix. It prints the
 pairs and ``{"ok": true, "partial": "pair"}``.
 
 The last lines are the kernels' JSON record, the card's name and power
@@ -342,6 +353,22 @@ FEATURE_SUBJECTS = (16384, 10000)
 # and float32 / float64 arithmetic outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
 H100_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+# integer work: 64 INT32 lanes per SM (Hopper architecture white paper) on
+# 132 SMs at the boost clock that the data sheet's float32 rate implies
+# (67e12 = 132 SMs x 128 FP32 lanes x 2 x 1.98 GHz); and the issue rate of
+# an SM, four warp-instructions a clock (one scheduler per SM quadrant)
+H100_SMS = 132
+H100_CLOCK_HZ = 1.98e9
+H100_INT_OPS_PER_S = 64 * H100_SMS * H100_CLOCK_HZ
+H100_WARP_ISSUE_PER_S = 4 * H100_SMS * H100_CLOCK_HZ
+# an SM's limits for resident blocks (CUDA programming guide, compute
+# capability 9.0): registers, threads, blocks, shared memory (1 KB of it
+# reserved per block), and the register file's allocation unit per warp
+H100_SM_REGS = 65536
+H100_SM_THREADS = 2048
+H100_SM_BLOCKS = 32
+H100_SM_SHARED = 233472
+H100_REG_UNIT = 256
 # the SDE cells: the reduced ragged shape of the kernel-vs-twin checks, the
 # statistical check against the general engine, and the full-width slice
 SDE_REDUCED = (19, 23)
@@ -1495,13 +1522,15 @@ def phase_sde_kernels(pt, rng) -> dict:
         abs_err, _ = sde_compare(f"K3a readme {R}x{S}x{SDE_PARTICLES} {d} vs twin (same Philox)",
                                  got, twin, tol, share)
         k_ms = cuda_ms(lambda: run_sde_kernel(plan), 3, 1)
-        ops = counts["trials"] * SDE_PARTICLES * sde_trial_ops(model)
         nbytes = plan_bytes(plan, kw, R, S)
-        b_ms, b_by = bound(nbytes, ops, dtype)
-        log(f"[5] K3a readme {R}x{S}x{SDE_PARTICLES} {d} bound {b_ms:.5g} ms by {b_by} "
-            f"({nbytes / 1e6:.3f} MB, {counts['trials']} cell trials, {ops / 1e9:.3f} G "
-            f"operations); kernel at {b_ms / k_ms:.4f} of it")
-        out[dtype] = dict(kernel=k_ms, twin=t_ms, abs_err=abs_err, bound=b_ms, bound_by=b_by)
+        b = sde_bounds(nbytes, counts["trials"] * SDE_PARTICLES, model, dtype, False)
+        log(f"[5] K3a readme {R}x{S}x{SDE_PARTICLES} {d} bound {b['bound']:.5g} ms by "
+            f"{b['bound_by']} ({nbytes / 1e6:.3f} MB, {counts['trials']} cell trials, "
+            f"{b['ops'] / 1e9:.3f} G floating-point and {b['int_ops'] / 1e9:.3f} G integer "
+            f"operations; floating point alone {b['bound_float']:.5g} ms); kernel at "
+            f"{b['bound'] / k_ms:.4f} of it ({b['bound_float'] / k_ms:.4f} of the float bound)")
+        out[dtype] = dict(kernel=k_ms, twin=t_ms, abs_err=abs_err, bound=b["bound"],
+                          bound_by=b["bound_by"], bound_float=b["bound_float"])
         general = ""
         if dtype == torch.float64:
             pt.set_float_dtype(dtype)
@@ -1670,11 +1699,12 @@ def count_ops(fn, *args) -> int:
     return c.n
 
 
-def bound(nbytes: float, ops: float, dtype) -> tuple:
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the arithmetic rate of ``dtype``."""
+def bound(nbytes: float, ops: float, dtype, int_ops: float = 0.0) -> tuple:
+    """(bound_ms, bound_by): the largest of bytes over the memory rate,
+    floating-point operations over the arithmetic rate of ``dtype`` and
+    integer operations over the INT32 rate (the pipes run side by side)."""
     t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = ops / H100_OPS_PER_S[dtype]
+    t_ops = max(ops / H100_OPS_PER_S[dtype], int_ops / H100_INT_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1821,6 +1851,218 @@ def sde_trial_ops(model, cov_names=()) -> int:
                       torch.ones(8, dtype=torch.float64), torch.tensor(1.0, dtype=torch.float64),
                       torch.zeros(nin, dtype=torch.float64), cov)
     return 2 * drift + (18 + 3 * 6) * n
+
+
+def sde_trial_int_ops(n_states: int, dtype, coupled: bool) -> int:
+    """Integer operations of one Euler-Maruyama trial per particle: the
+    Philox4x32-10 calls (2 or 3 draw slots x one call per group of 4 float32
+    or 2 float64 normals), 10 rounds each, and per round the two 32 x 32 ->
+    64-bit multiplies and the two 3-input XORs (the round keys are computed
+    once a launch). The resampling uniforms, one call per particle and
+    observation, are left out."""
+    per_call = 4 if dtype == torch.float32 else 2
+    groups = -(-n_states // per_call)
+    return (2 if coupled else 3) * groups * 10 * 4
+
+
+def sde_bounds(nbytes: float, particle_trials: float, model, dtype, coupled: bool,
+               cov_names=()) -> dict:
+    """The SDE kernels' bound on this data, recounted with Philox's integer
+    work (``bound``), and the earlier count, floating-point operations only
+    (``bound_float``), so that the rows stay comparable."""
+    ops = particle_trials * sde_trial_ops(model, cov_names)
+    int_ops = particle_trials * sde_trial_int_ops(model.spec.nstates, dtype, coupled)
+    new, old = bound(nbytes, ops, dtype, int_ops), bound(nbytes, ops, dtype)
+    return dict(bound=new[0], bound_by=new[1], bound_float=old[0], ops=ops, int_ops=int_ops)
+
+
+def resident_blocks(regs: int, shared: int, threads: int = 256) -> int:
+    """Blocks of ``threads`` threads that one SM holds at once, from a
+    kernel's registers per thread and shared memory per block (the occupancy
+    rules of compute capability 9.0)."""
+    warps = -(-threads // 32)
+    per_warp = -(-max(regs, 1) * 32 // H100_REG_UNIT) * H100_REG_UNIT
+    by_regs = (H100_SM_REGS // per_warp) // warps
+    by_shared = H100_SM_SHARED // (-(-shared // 128) * 128 + 1024)
+    return min(by_regs, by_shared, H100_SM_THREADS // threads, H100_SM_BLOCKS)
+
+
+# the classes of the trial loop's static instruction mix, by SASS mnemonic
+_SASS_CLASSES = {
+    "integer": {"IMAD", "IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "ISETP", "IMNMX",
+                "VIMNMX", "VIADD", "VIADDMNMX", "LEA", "IABS", "POPC", "FLO", "BMSK", "BREV",
+                "PRMT", "SGXT", "IDP", "IMUL"},
+    "fp32": {"FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FSEL", "FCHK", "FSET", "FSWZADD"},
+    "fp64": {"DADD", "DMUL", "DFMA", "DSETP"},
+    "sfu_conversion": {"MUFU", "I2F", "F2I", "F2F", "I2FP", "F2IP", "FRND", "I2I", "F2FP"},
+    "barrier": {"BAR", "SYNCS", "MEMBAR"},
+    "shared_shuffle": {"SHFL", "LDS", "STS", "ATOMS"},
+    "memory": {"LDG", "STG", "LDL", "STL", "LD", "ST", "LDC"},
+    "move_predicate": {"MOV", "SEL", "P2R", "R2P", "PLOP3", "CS2R", "S2R", "S2UR", "R2UR",
+                       "VOTE"},
+    "control": {"BRA", "EXIT", "BSSY", "BSYNC", "CALL", "RET", "WARPSYNC", "YIELD", "JMP",
+                "BREAK", "NANOSLEEP"},
+}
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+
+
+def sass_class(op: str) -> str:
+    base = op.split(".")[0]
+    for name, ops in _SASS_CLASSES.items():
+        if base in ops:
+            return name
+    return "uniform" if base.startswith("U") else "other"
+
+
+def sass_functions(lib: Path) -> dict:
+    """{mangled name: ([(address, mnemonic, operands), ...], {label:
+    address})} of every kernel in ``lib`` (``cuobjdump -sass``)."""
+    from pharmsol_tpu_torch.ops import _build
+
+    tool = str(Path(_build.nvcc_path()).with_name("cuobjdump"))
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out, insns, labels, pending = {}, None, None, []
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            insns, labels, pending = [], {}, []
+            out[m.group(1)] = (insns, labels)
+            continue
+        if insns is None:
+            continue
+        lab = _SASS_LABEL.match(ln)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = _SASS_INSN.search(ln)
+        if m:
+            addr = int(m.group(1), 16)
+            labels.update((name, addr) for name in pending)
+            pending = []
+            insns.append((addr, m.group(2), m.group(3)))
+    return out
+
+
+def _branch_target(args: str, labels: dict):
+    m = re.search(r"0x([0-9a-f]+)\s*$", args.strip()) or re.search(r"(\.L_x_\d+)", args)
+    if m is None:
+        return None
+    return labels.get(m.group(1)) if m.group(1).startswith(".L") else int(m.group(1), 16)
+
+
+def trial_loop_mix(insns, labels=None, ppt: int = 4) -> dict:
+    """The static instruction mix of the Euler-Maruyama trial loop: the
+    smallest loop (a backward branch and its target) that holds a block
+    barrier and the wide multiplies of at least two Philox calls per
+    particle (a slow path of a transcendental that branches back into the
+    loop holds a few). ``{"all": {class: count, "total": n}, "hot": ...,
+    "loop_bytes": span}``: "all" counts every instruction laid out in the
+    loop; "hot" leaves out the cold paths inlined in it, each the span that
+    the nearest forward branch skips around an inner loop (the large-argument
+    reduction of a sine or cosine, which these arguments, in [0, 2 pi],
+    never take). None where no such loop is found."""
+    labels = labels or {}
+    branches = [(addr, _branch_target(args, labels)) for addr, op, args in insns
+                if op.startswith("BRA")]
+    branches = [(a, t) for a, t in branches if t is not None]
+    loops = sorted((a - t, t, a) for a, t in branches if t < a)
+    for _, lo, hi in loops:
+        body = [(a, op) for a, op, _ in insns if lo <= a <= hi]
+        wide = sum(op.startswith(("IMAD.WIDE", "IMAD.HI")) for _, op in body)
+        if not (any(sass_class(op) == "barrier" for _, op in body) and wide >= 2 * 10 * 2 * ppt):
+            continue
+        cold = []
+        for _, t, a in loops:
+            inner = [op for b, op in body if t <= b <= a]
+            if lo < t and a < hi and not any(sass_class(op) == "barrier" for op in inner):
+                skips = [(tt - b, b, tt) for b, tt in branches if b < t and tt > a and b >= lo]
+                if skips:
+                    cold.append(min(skips)[1:])
+        out = {"loop_bytes": hi - lo + 16}
+        for part, keep in (("all", lambda a: True),
+                           ("hot", lambda a: not any(b < a < e for b, e in cold))):
+            mix = {}
+            for a, op in body:
+                if keep(a) and not op.startswith("NOP"):
+                    mix[sass_class(op)] = mix.get(sass_class(op), 0) + 1
+            mix["total"] = sum(mix.values())
+            out[part] = mix
+        return out
+    return None
+
+
+_KERNEL_NAMES = (
+    (r"fused_psi_kernelI([fd])Li(\d+)E()", "K1a"),
+    (r"fused_psi_feature_kernelI([fd])Li(\d+)E(?:Lb([01])E)?", "K1b", "K1c"),
+    (r"fused_sde_kernelI([fd])Li(\d+)E(?:Lb([01])E)?", "K3a", "K3b"),
+)
+
+
+def kernel_key(name: str):
+    """"K3a f64 4" for a mangled kernel name (the int is the kernel's
+    structure code or particles per thread; the instantiation without a
+    tier flag is the base tier's, as before the flag was added), or None."""
+    for pattern, *ids in _KERNEL_NAMES:
+        m = re.search(pattern, name)
+        if m:
+            return f"{ids[int(m.group(3) or 0)]} f{'32' if m.group(1) == 'f' else '64'} {m.group(2)}"
+    return None
+
+
+def kernel_registers(lib: Path) -> dict:
+    """{"K3a f64 4": registers, ...} of every kernel in ``lib``."""
+    return {kernel_key(name): r["reg"] for name, r in kernel_resources(lib).items()
+            if kernel_key(name) is not None}
+
+
+def kernel_resources(lib: Path) -> dict:
+    """{mangled name: {"regs", "shared", "local", "stack"}} of every kernel
+    in ``lib`` (``cuobjdump -res-usage``)."""
+    from pharmsol_tpu_torch.ops import _build
+
+    tool = str(Path(_build.nvcc_path()).with_name("cuobjdump"))
+    text = subprocess.run([tool, "-res-usage", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for name, rest in re.findall(r"Function (\S+):\s*(.*)", text):
+        vals = dict(re.findall(r"(REG|SHARED|LOCAL|STACK):(\d+)", rest))
+        out[name] = {k.lower(): int(v) for k, v in vals.items()}
+    return out  # keys reg, shared, local, stack
+
+
+def sde_anatomy(lib: Path, n_states: int, n_particles: int, ppt: int = 4) -> dict:
+    """For the ``ppt`` particles-a-thread instantiations of the SDE kernels
+    in ``lib``: registers, stack frame (which holds the spills), resident
+    blocks per SM (from the registers and the static and dynamic shared
+    memory), and the trial loop's static instruction mix per
+    particle-trial."""
+    sass = sass_functions(lib)
+    out = {}
+    for name, r in kernel_resources(lib).items():
+        key = kernel_key(name) or ""
+        if not (key.startswith("K3") and key.endswith(f" {ppt}")):
+            continue
+        item = 4 if " f32 " in key else 8
+        shared = r.get("shared", 0) + (n_states + 1) * n_particles * item
+        mix = trial_loop_mix(*sass.get(name, ([], {})), ppt=ppt)
+        out[key] = dict(regs=r.get("reg"), stack=r.get("stack", 0),
+                        blocks_per_sm=resident_blocks(r.get("reg", 255), shared),
+                        loop=mix,
+                        per_particle_trial=({k: v / ppt for k, v in mix["hot"].items()}
+                                            if mix else None),
+                        per_particle_trial_all=({k: v / ppt for k, v in mix["all"].items()}
+                                                if mix else None))
+    return out
+
+
+def issue_share(loop_total: float, cell_trials: float, kernel_ms: float) -> float:
+    """The trial loop's issued warp-instructions over the card's issue rate
+    in the measured time: every warp of a cell's block runs the loop body
+    once per trial (``loop_total``, the static count without the cold
+    paths; a branch counts on both sides, so this is an upper estimate)."""
+    return loop_total * 8 * cell_trials / (kernel_ms * 1e-3 * H100_WARP_ISSUE_PER_S)
 
 
 # ---------------------------------------------------------------------------
@@ -3339,6 +3581,13 @@ def phase_sde_feature_slice(pt, rng):
     return label, model, data, ems, launches
 
 
+def sde_covariate_model_case_support(S: int, seed: int = SEED + 20) -> np.ndarray:
+    """Supports of the K3b cell's model (drawn as its case draws them)."""
+    from pharmsol_tpu_torch.utils.f32_budget import sde_covariate_model_case
+
+    return sde_covariate_model_case(1, S, seed=seed)[2]
+
+
 def sde_twin_rows_check(pt, model, data, sp, ems, dtype, tag, tol, share, phase: int):
     """The kernel and the twin on ``SDE_TWIN_ROWS`` subjects spread over the
     cell x all its supports (the same Philox counters: the rows are the
@@ -3384,9 +3633,10 @@ def phase_sde_feature_times(pt, label, model, data, ems, card: str) -> dict:
             "plan": wall_ms(lambda: sde_plan_for(model, data, sp, ems, dtype), 3),
             "finalize": cuda_ms(lambda: plan.finalize(psi_rows), 10),
         }
-        ops = trials * SDE_PARTICLES * sde_trial_ops(model, plan.cov_names)
         nbytes = plan_bytes(plan, plan.kernel_kwargs(), R, S)
-        b_ms, b_by = bound(nbytes, ops, dtype)
+        b = sde_bounds(nbytes, trials * SDE_PARTICLES, model, dtype,
+                       plan.em_control == "coupled", plan.cov_names)
+        b_ms, b_by = b["bound"], b["bound_by"]
         general = None
         if dtype == torch.float64:
             rows = spread_rows(R, SDE_TWIN_ROWS)
@@ -3404,10 +3654,12 @@ def phase_sde_feature_times(pt, label, model, data, ems, card: str) -> dict:
             f"({card})")
         log(f"[18] {label} {d} K3b bound {b_ms:.5g} ms by {b_by} ({nbytes / 1e6:.3f} MB, "
             f"{trials:.0f} cell trials estimated from the twin's {SDE_TWIN_ROWS} subjects, "
-            f"{ops / 1e9:.3f} G operations); kernel at {b_ms / kernel:.4f} of it")
+            f"{b['ops'] / 1e9:.3f} G floating-point and {b['int_ops'] / 1e9:.3f} G integer "
+            f"operations; floating point alone {b['bound_float']:.5g} ms); kernel at "
+            f"{b_ms / kernel:.4f} of it ({b['bound_float'] / kernel:.4f} of the float bound)")
         out[dtype] = dict(kernel=kernel, twin=twin_ms, general=general, end_to_end=e2e,
                           plan=parts["plan"], bound=b_ms, bound_by=b_by, abs_err=abs_err,
-                          trials=trials)
+                          trials=trials, bound_float=b["bound_float"])
     return out
 
 
@@ -3426,12 +3678,53 @@ def phase_sde_full_bound(pt, model, data, card: str) -> dict:
     out = {}
     for dtype in (torch.float32, torch.float64):
         plan = sde_plan_for(model, data, sp, ems, dtype)
-        ops = trials * SDE_PARTICLES * sde_trial_ops(model)
-        out[dtype] = bound(plan_bytes(plan, plan.kernel_kwargs(), R, S), ops, dtype)
-        log(f"[7] K3a bound at {R}x{S}x{SDE_PARTICLES} {str(dtype)[6:]}: {out[dtype][0]:.5g} ms "
-            f"by {out[dtype][1]} ({trials:.0f} cell trials estimated from the float64 twin's "
-            f"{SDE_TWIN_ROWS} subjects, {ops / 1e9:.3f} G operations; twin {twin_ms:.3f} ms "
-            f"there)  ({card})")
+        b = sde_bounds(plan_bytes(plan, plan.kernel_kwargs(), R, S), trials * SDE_PARTICLES,
+                       model, dtype, plan.em_control == "coupled")
+        out[dtype] = dict(b, trials=trials)
+        log(f"[7] K3a bound at {R}x{S}x{SDE_PARTICLES} {str(dtype)[6:]}: {b['bound']:.5g} ms "
+            f"by {b['bound_by']} ({trials:.0f} cell trials estimated from the float64 twin's "
+            f"{SDE_TWIN_ROWS} subjects, {b['ops'] / 1e9:.3f} G floating-point and "
+            f"{b['int_ops'] / 1e9:.3f} G integer operations; floating point alone "
+            f"{b['bound_float']:.5g} ms; twin {twin_ms:.3f} ms there)  ({card})")
+    return out
+
+
+def phase_sde_anatomy(pt, kernel_id: str, plan, times: dict, trials: dict, card: str,
+                      phase: int) -> dict:
+    """What holds the SDE kernel at the cell's width, for its four-particles-
+    a-thread instantiations: registers and spills, resident blocks per SM (the
+    CUDA runtime's count, and the count from the registers beside it), the
+    trial loop's static instruction mix per particle-trial, and the share of
+    the card's issue rate that loop reaches in the measured kernel time
+    (``times``, ``trials``: ms and cell trials per dtype)."""
+    from pharmsol_tpu_torch.ops import _build, fused_sde
+
+    feature = kernel_id == "K3b"
+    lib = _build.generated_target(_build.sde_kind(feature), plan.gen).path
+    found = sde_anatomy(lib, plan.gen.n_states, SDE_PARTICLES)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        d = f"f{'32' if dtype == torch.float32 else '64'}"
+        a = found.get(f"{kernel_id} {d} 4")
+        if a is None:
+            raise AssertionError(f"{kernel_id} {d}: no four-particles-a-thread kernel in {lib}")
+        a["blocks_per_sm_runtime"] = fused_sde.resident_blocks(plan.gen, dtype, SDE_PARTICLES,
+                                                               feature)
+        loop = a["loop"]
+        if loop is not None:
+            a["issue_share"] = issue_share(loop["hot"]["total"], trials[dtype], times[dtype])
+        mix = a["per_particle_trial"] or {}
+        log(f"[{phase}] {kernel_id} {d} 4 particles/thread: {a['regs']} registers, "
+            f"a {a['stack']}-byte stack frame, {a['blocks_per_sm_runtime']} resident blocks "
+            f"per SM ({a['blocks_per_sm']} from the registers); trial loop "
+            + (f"{loop['all']['total']} instructions laid out ({loop['loop_bytes']} bytes), "
+               f"{loop['hot']['total']} without the inlined cold paths; per particle-trial: "
+               if loop else "not found; ")
+            + ", ".join(f"{k} {v:g}" for k, v in sorted(mix.items()))
+            + (f"; issue share {a['issue_share']:.3f} of 4 warp-instructions a clock on "
+               f"{H100_SMS} SMs at {H100_CLOCK_HZ / 1e9:.2f} GHz" if "issue_share" in a else "")
+            + f"  ({card})")
+        out[d] = a
     return out
 
 
@@ -3701,6 +3994,8 @@ def sde_feature_record(times, launches, worst) -> dict:
         ms_f64=t64["kernel"],
         plain_ms_f64=t64["twin"],
         bound_ms_f64=t64["bound"],
+        bound_ms_float=t32["bound_float"],
+        bound_ms_float_f64=t64["bound_float"],
         general_ms_f64=t64["general"],
         shape="sde_covariates_{}x{}x{}".format(*SDE_COV_FULL, SDE_PARTICLES),
         plain_shape=f"{SDE_TWIN_ROWS}x{SDE_COV_FULL[1]}x{SDE_PARTICLES}",
@@ -3719,8 +4014,11 @@ def run_sde_feature_slice(pt, rng, card: str) -> dict:
     label, model, data, ems, launches = phase_sde_feature_slice(pt, rng)
     times = phase_sde_feature_times(pt, label, model, data, ems, card)
     torch.cuda.synchronize()
+    plan = sde_plan_for(model, data, sde_covariate_model_case_support(2), ems, torch.float64)
+    anatomy = phase_sde_anatomy(pt, "K3b", plan, {dt: t["kernel"] for dt, t in times.items()},
+                                {dt: t["trials"] for dt, t in times.items()}, card, 18)
     log(f"[18] the K3b phases took {time.perf_counter() - t0:.1f} s")
-    return sde_feature_record(times, launches, worst)
+    return dict(sde_feature_record(times, launches, worst), anatomy=anatomy)
 
 
 def run_k1c_slice(pt, rng, card: str) -> dict:
@@ -3906,96 +4204,144 @@ def closing_lines(records, card: str, partial=None) -> None:
         "count": torch.cuda.device_count()}}))
 
 
-_KERNEL_NAMES = (
-    (r"fused_psi_kernelI([fd])Li(\d+)E()", "K1a"),
-    (r"fused_psi_feature_kernelI([fd])Li(\d+)E(?:Lb([01])E)?", "K1b", "K1c"),
-    (r"fused_sde_kernelI([fd])Li(\d+)E(?:Lb([01])E)?", "K3a", "K3b"),
-)
+def pair_cells(pt):
+    """The two SDE cells that ``--pair`` times, each (label, model, data,
+    support, ems): K3a's README cell and K3b's covariate cell, drawn as
+    phases 6-7 and 17-18 draw them."""
+    from pharmsol_tpu_torch.utils.f32_budget import sde_covariate_model_case
+
+    rng = np.random.RandomState(SEED)
+    R, S = SDE_FULL
+    readme = ("K3a README " + R_S_P_LABEL, readme_sde(pt), readme_data(pt, R, rng),
+              readme_support(S, rng), readme_ems(pt))
+    model, data, _, ems = sde_covariate_model_case(SDE_COV_FULL[0], 1, seed=SEED)
+    cov = ("K3b covariates {}x{}x{}".format(*SDE_COV_FULL, SDE_PARTICLES), model, data,
+           sde_covariate_model_case_support(SDE_COV_FULL[1]), ems)
+    return readme, cov
 
 
-def kernel_registers(lib: Path) -> dict:
-    """{"K3a f64 4": registers, ...} of every kernel in ``lib``, read by
-    ``cuobjdump -res-usage``; the int is the kernel's structure code or
-    particles per thread (the instantiation without a tier flag is the
-    base tier's, as before the flag was added)."""
-    from pharmsol_tpu_torch.ops import _build
-
-    tool = str(Path(_build.nvcc_path()).with_name("cuobjdump"))
-    text = subprocess.run([tool, "-res-usage", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
-    out = {}
-    for name, regs in re.findall(r"Function (\S+):\s*REG:(\d+)", text):
-        for pattern, *ids in _KERNEL_NAMES:
-            m = re.search(pattern, name)
-            if m:
-                kid = ids[int(m.group(3) or 0)]
-                out[f"{kid} f{'32' if m.group(1) == 'f' else '64'} {m.group(2)}"] = int(regs)
-    return out
-
-
-def pair_worker(tree: str) -> dict:
-    """One side of ``--pair``: the package of the checkout at ``tree``."""
+def pair_worker(tree: str, psi_out: str) -> dict:
+    """One side of ``--pair``: the package of the checkout at ``tree``. Times
+    both SDE cells per dtype (three calls after a warm one that builds),
+    writes their psi to ``psi_out`` (npz), and reads each SDE library's
+    four-particles-a-thread kernels (``sde_anatomy``; resident blocks also
+    from the library's own occupancy query where it has one)."""
     sys.path.insert(0, tree)
+    import ctypes
+
     import pharmsol_tpu_torch as pt
     from pharmsol_tpu_torch.ops import _build
 
     root = Path(pt.__file__).resolve().parent
     if root.parent != Path(tree).resolve():
         raise AssertionError(f"imported {root}, not the package of {tree}")
+    cells = pair_cells(pt)
+    libs = []
+    for label, model, data, sp, ems in cells:
+        plan = sde_plan_for(model, data, sp, ems, torch.float64)
+        feature = label.startswith("K3b")
+        libs.append((_build.generated_target(_build.sde_kind(feature), plan.gen), plan, feature))
+    _build.build_many([t for t, _, _ in libs])  # both at once
     _build.load_library()
-    rng = np.random.RandomState(SEED)
-    R, S = SDE_FULL
-    model, data, ems = readme_sde(pt), readme_data(pt, R, rng), readme_ems(pt)
-    sp = readme_support(S, rng)
-    ms = {}
-    for dtype in (torch.float32, torch.float64):
-        pt.set_float_dtype(dtype)
-        call = lambda: pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")  # noqa: E731
-        psi = call()  # the first call builds the library
-        if not bool(torch.isfinite(psi).all()):
-            raise AssertionError(f"{tree}: psi not finite")
-        ms[str(dtype)[6:]] = [wall_ms(call, 1, 0) for _ in range(3)]
-    regs = {}
+    ms, psi = {}, {}
+    for label, model, data, sp, ems in cells:
+        for dtype in (torch.float32, torch.float64):
+            pt.set_float_dtype(dtype)
+            call = lambda: pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")  # noqa: E731
+            out = call()
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{tree} {label}: psi not finite")
+            key = f"{label} {str(dtype)[6:]}"
+            ms[key] = [wall_ms(call, 1, 0) for _ in range(3)]
+            psi[key] = out.double().cpu().numpy()
+    np.savez(psi_out, **psi)
+    regs, anatomy = {}, {}
     for lib in sorted((root / "_build").glob("libfused_*.so")):
         if lib.name.startswith(("libfused_psi", "libfused_sde")):
             regs.update(kernel_registers(lib))
-    return dict(tree=tree, ms=ms, regs=regs)
+    for target, plan, feature in libs:
+        found = sde_anatomy(target.path, plan.gen.n_states, SDE_PARTICLES)
+        query = getattr(ctypes.CDLL(str(target.path)), "fused_sde_occupancy", None)
+        for key, a in found.items():
+            if query is not None:
+                blocks = ctypes.c_int(0)
+                query.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                if query(int("f64" in key), SDE_PARTICLES, ctypes.addressof(blocks)) == 0:
+                    a["blocks_per_sm_runtime"] = blocks.value
+            anatomy[key] = a
+    return dict(tree=tree, ms=ms, regs=regs, anatomy=anatomy)
 
 
 def run_pair(other: str, card: str) -> None:
     """``--pair``: this checkout against the one at ``other``, in the order
-    other, here, here, other."""
+    other, here, here, other: both SDE cells' times per dtype, the factor of
+    the medians and whether the sides' ranges part; the change's psi held to
+    the parent's cell by cell at the twin's tolerances (both draw the same
+    Philox numbers); registers, resident blocks and the trial loop's
+    instruction mix of each side's four-particles-a-thread SDE kernels."""
+    import tempfile
+
     here = str(Path(__file__).resolve().parent)
     other = str(Path(other).resolve())
-    sides = []
-    for tree in (other, here, here, other):
-        proc = subprocess.run([sys.executable, __file__, "--pair-worker", tree],
-                              capture_output=True, text=True, timeout=900)
-        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("PAIR ")]
-        if proc.returncode != 0 or not lines:
-            raise AssertionError(f"pair side {tree}: exit {proc.returncode}\n"
-                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        sides.append(json.loads(lines[-1][5:]))
-        for d, v in sides[-1]["ms"].items():
-            log(f"[pair] {'parent' if tree == other else 'change'} {d} README "
-                f"{R_S_P_LABEL} end-to-end ms: " + ", ".join(f"{x:.3f}" for x in v)
-                + f" ({card})")
+    sides, psis = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, tree in enumerate((other, here, here, other)):
+            out = str(Path(tmp) / f"side{k}.npz")
+            proc = subprocess.run([sys.executable, __file__, "--pair-worker", tree, out],
+                                  capture_output=True, text=True, timeout=900)
+            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("PAIR ")]
+            if proc.returncode != 0 or not lines:
+                raise AssertionError(f"pair side {tree}: exit {proc.returncode}\n"
+                                     f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+            sides.append(json.loads(lines[-1][5:]))
+            with np.load(out) as z:
+                psis.append({key: z[key] for key in z.files})
+            side = "parent" if tree == other else "change"
+            for key, v in sides[-1]["ms"].items():
+                log(f"[pair] {side} {key} end-to-end ms: " + ", ".join(f"{x:.3f}" for x in v)
+                    + f" ({card})")
+    factors = {}
+    for key in sides[0]["ms"]:
+        par = sides[0]["ms"][key] + sides[3]["ms"][key]
+        chg = sides[1]["ms"][key] + sides[2]["ms"][key]
+        factors[key] = statistics.median(par) / statistics.median(chg)
+        apart = ("faster beyond the spread" if max(chg) < min(par) else
+                 "slower beyond the spread" if min(chg) > max(par) else "within the spread")
+        log(f"[pair] {key}: parent {min(par):.3f}-{max(par):.3f} ms, change "
+            f"{min(chg):.3f}-{max(chg):.3f} ms, factor {factors[key]:.3f} ({apart}) ({card})")
+    for key in psis[0]:
+        tol, share = (1e-9, 0.999) if key.endswith("float64") else (1e-4, 0.99)
+        for a, b, what in ((0, 3, "parent vs parent"), (1, 2, "change vs change"),
+                           (0, 1, "change vs parent")):
+            sde_compare(f"pair {key} {what}", torch.from_numpy(psis[b][key]),
+                        torch.from_numpy(psis[a][key]), tol, share, phase="pair")
     base, change = sides[0]["regs"], sides[1]["regs"]
     for key in sorted(set(base) | set(change)):
         same = "same" if base.get(key) == change.get(key) else "DIFFERENT"
         log(f"[pair] registers {key}: parent {base.get(key)}, change {change.get(key)} ({same})")
+    for key in sorted(set(sides[0]["anatomy"]) | set(sides[1]["anatomy"])):
+        for side, a in (("parent", sides[0]["anatomy"].get(key)),
+                        ("change", sides[1]["anatomy"].get(key))):
+            if a is None:
+                continue
+            mix = a["per_particle_trial"] or {}
+            log(f"[pair] {side} {key}: {a['regs']} registers, a {a['stack']}-byte stack frame, "
+                f"{a.get('blocks_per_sm_runtime', a['blocks_per_sm'])} resident blocks per SM "
+                f"({a['blocks_per_sm']} from the registers); per particle-trial: "
+                + ", ".join(f"{k} {v:g}" for k, v in sorted(mix.items())))
     print(json.dumps({"pair": {
         "order": ["parent", "change", "change", "parent"],
-        "ms": [s["ms"] for s in sides], "registers_parent": base,
-        "registers_change": change}}))
+        "ms": [s["ms"] for s in sides], "factors": factors,
+        "registers_parent": base, "registers_change": change,
+        "anatomy_parent": sides[0]["anatomy"], "anatomy_change": sides[1]["anatomy"]}}))
 
 
 R_S_P_LABEL = "{}x{}x{}".format(*SDE_FULL, SDE_PARTICLES)
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--pair-worker":
-        print("PAIR " + json.dumps(pair_worker(sys.argv[2])), flush=True)
+    if len(sys.argv) == 4 and sys.argv[1] == "--pair-worker":
+        print("PAIR " + json.dumps(pair_worker(sys.argv[2], sys.argv[3])), flush=True)
         return 0
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["stiff", "sde", "k1c"], default=None,
@@ -4007,8 +4353,9 @@ def main() -> int:
                              "\"partial\": ...}, not the whole script's verdict")
     parser.add_argument("--pair", metavar="DIR", default=None,
                         help="hold this checkout against the one at DIR: K3a's README cell "
-                             "timed and the kernels' registers, in the order DIR, here, here, "
-                             "DIR")
+                             "and K3b's covariate cell timed, their psi compared, the kernels' "
+                             "registers, resident blocks and trial-loop instruction mix, in "
+                             "the order DIR, here, here, DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4075,6 +4422,11 @@ def run_sde_base(pt, rng, card: str) -> dict:
     torch.cuda.synchronize()
     full_bound = phase_sde_full_bound(pt, sde, sde_data, card)
     torch.cuda.synchronize()
+    plan = sde_plan_for(sde, sde_data, readme_support(2, np.random.RandomState(SEED + 5)),
+                        readme_ems(pt), torch.float64)
+    anatomy = phase_sde_anatomy(
+        pt, "K3a", plan, {dt: t["kernel"] for dt, t in sde_times.items()},
+        {dt: b["trials"] for dt, b in full_bound.items()}, card, 7)
     r32, r64 = sde_reduced[torch.float32], sde_reduced[torch.float64]
     return dict(
         SDE_KERNEL_RECORD,
@@ -4095,8 +4447,13 @@ def run_sde_base(pt, rng, card: str) -> dict:
         stat_shape="readme_sde_{}x{}x{}".format(*SDE_STAT, SDE_PARTICLES),
         ms_full=sde_times[torch.float32]["kernel"],
         ms_full_f64=sde_times[torch.float64]["kernel"],
-        bound_ms_full=full_bound[torch.float32][0],
-        bound_ms_full_f64=full_bound[torch.float64][0],
+        bound_ms_float=r32["bound_float"],
+        bound_ms_float_f64=r64["bound_float"],
+        bound_ms_full=full_bound[torch.float32]["bound"],
+        bound_ms_full_f64=full_bound[torch.float64]["bound"],
+        bound_ms_full_float=full_bound[torch.float32]["bound_float"],
+        bound_ms_full_float_f64=full_bound[torch.float64]["bound_float"],
+        anatomy=anatomy,
         end_to_end_ms_full=sde_times[torch.float32]["end_to_end"],
         end_to_end_ms_full_f64=sde_times[torch.float64]["end_to_end"],
         shape_full=sde_label,

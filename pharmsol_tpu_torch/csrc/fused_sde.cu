@@ -16,12 +16,14 @@
 // builds its own library. A covariate reads cov_a[i] (constant over the row)
 // or cov_a[i] + cov_b[i] * t (affine within the segment).
 //
-// Two instantiations of one kernel template: FEAT = false is K3a, whose code
-// is the base tier's alone; FEAT = true is K3b. A library holds one tier: the
-// base tier's ten instantiations (two dtypes, five particle counts per
-// thread), or with -DPHARMSOL_SDE_FEAT=1 the feature tier's
-// (ops/_build.py::sde_kind), so a model builds what it runs. K3b's inputs ride in one
-// struct of pointers (Feat, null = off):
+// Two instantiations of one kernel template: FEAT = false is K3a, FEAT =
+// true is K3b; both run the same segment loop and the same march, FEAT adds
+// only the feature tier's reads (covariates, init planes, pending doses,
+// slot tables). A library holds one tier: the base tier's ten
+// instantiations (two dtypes, five particle counts per thread), or with
+// -DPHARMSOL_SDE_FEAT=1 the feature tier's (ops/_build.py::sde_kind), so a
+// model builds what it runs. K3b's inputs ride in one struct of pointers
+// (Feat, null = off):
 // - covariates: cov_a, cov_b [NCOV, R, M]: per segment column, the constant
 //   value or the affine (a, b) of the segment;
 // - init planes [N, R, S] (an init that reads a covariate), times init_mask;
@@ -61,38 +63,57 @@
 // 3. the adaptive Euler-Maruyama march (the JAX kernel's em_march): each
 //    trial advances every particle by the full step and by two half steps,
 //    the max normalised error over particles and states is reduced over the
-//    block (warp shuffles, then shared memory), and accept, the new step
-//    (clamped rsqrt law) and the end of the march are decided from that
-//    block-reduced value, so every thread takes the same branch and reaches
-//    the same barriers. The march ends at tau >= target - 1e-6 target, on a
-//    stall (tau + h == tau) or after 100000 trials; a cell that stopped short
-//    is NaN.
+//    block, and accept, the new step (clamped rsqrt law) and the end of the
+//    march are decided from that block-reduced value, so every thread takes
+//    the same branch and reaches the same barriers. The march ends at tau >=
+//    target - 1e-6 target, on a stall (tau + h == tau) or after 100000
+//    trials; a cell that stopped short is NaN.
 //
 // Noise: Philox4x32-10 (Salmon et al. 2011, the Random123 constants) with
 // Box-Muller normals, counters a pure function of (seed, row, support,
 // segment, trial, draw slot, particle) as laid out in
 // pharmsol_tpu_torch/ops/philox.py, so the twin draws the same numbers. One
-// call gives four float32 or two float64 normals; draws are made for every
-// state, also where the diffusion is zero. They are independent per cell, as
-// the JAX kernel's; noise='common' is not honoured here, as there.
+// call gives four float32 or two float64 normals. They are independent per
+// cell, as the JAX kernel's; noise='common' is not honoured here, as there.
 //
-// What bounds it. Arithmetic and random numbers: per particle and trial,
-// three Philox calls of 10 rounds for 2 states (two multiply-highs and two
-// multiply-lows each round), Box-Muller (a log, a sqrt, a sin and a cos per
-// pair, software routines in float64), two drift and two diffusion
-// evaluations, and one block barrier per trial. The README model takes some
-// 3000-5000 trials per cell under em_control='independent', about 10^9
-// instructions per cell; device memory traffic is negligible (one value
-// written per cell). This first version is untuned: particles whose thread
-// has none (P not a multiple of 256) idle, and no work is shared between
-// the trials of a cell.
+// What bounds it. Not memory: a cell reads a few KB and writes one value.
+// Per particle and trial the kernel issues three Philox calls of 10 rounds
+// (a 32 x 32 -> 64-bit multiply pair and two 3-input XORs a round: integer
+// work, at the card's INT32 rate the floor of the README model's trial),
+// Box-Muller (a log, a sqrt and a sin or a cos per normal; software
+// routines in float64, whose constants the loop materialises again in every
+// trial), two drift and two diffusion evaluations and one IEEE division per
+// state; then the block needs the maximum of the error before any thread
+// can go on. So it is bound by the instructions it issues, and the design
+// cuts them and keeps enough warps resident to hide their latency:
+// - the generator marks the diffusion components that trace to a literal
+//   zero (PHARMSOL_SDE_NOISY, ops/rhs_codegen.py::generate_sde): their
+//   normals, their Box-Muller halves and their g * w terms are not formed,
+//   and a Philox call whose group of states holds no noisy one is not made;
+//   every other normal is the same number, and x + d h + 0 w and x + d h
+//   differ at most in the sign of a zero (w is finite). A diffusion that is
+//   zero only at run time (sigma = 0 on a support) draws as before;
+// - the ten Philox round keys are computed once a launch on the host and
+//   read from the kernel's parameters;
+// - the launch bounds ask for three resident blocks an SM in float32 and two
+//   in float64 up to four particles a thread (min_blocks), with no spill in
+//   K3a;
+// - each particle's normals are drawn where they are used, inside the
+//   particle's step: the fewest values live at once. Drawing the next
+//   trial's normals between an arrive and a wait of the block maximum (an
+//   mbarrier) was built and measured, and lost in every cell and dtype: it
+//   keeps every particle's normals and two-half-step states live across the
+//   draw, which costs resident blocks, while the other resident blocks'
+//   warps already fill the issue slots that a block's barrier leaves idle.
+// PERF.md section 6 holds the measured registers, resident blocks, the trial
+// loop's instruction mix and the times.
 //
 // Rounding. The block sums and the prefix sum run in a fixed order (thread,
 // warp butterfly, warps in order), which the twin reproduces, and the build
 // turns off the contraction of multiplies and adds into FMAs, so that every
 // operation rounds as the twin's op-by-op PyTorch does: kernel and twin draw
 // the same particles and agree to rounding, also where a resampling position
-// falls next to a cumulative weight.
+// falls next to a cumulative weight. The maximum needs no order.
 //
 // Build (plain C interface, loaded with ctypes; ops/_build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -128,6 +149,33 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
 
+// The diffusion components that are not a literal zero (the generator's
+// mask, ops/rhs_codegen.py::generate_sde): only these draw normals.
+#ifndef PHARMSOL_SDE_NOISY
+#error "the generated header must define PHARMSOL_SDE_NOISY (ops/rhs_codegen.py)"
+#endif
+static_assert(N <= 64, "the noise mask holds at most 64 states");
+
+constexpr unsigned long long noisy_mask() {
+  constexpr bool v[N] = PHARMSOL_SDE_NOISY;
+  unsigned long long mask = 0;
+  for (int i = 0; i < N; ++i) mask |= v[i] ? 1ull << i : 0ull;
+  return mask;
+}
+
+constexpr unsigned long long NOISY_MASK = noisy_mask();  // a scalar: device code reads it
+
+__host__ __device__ constexpr bool noisy(int i) { return i < N && ((NOISY_MASK >> i) & 1ull); }
+
+// Resident blocks an SM that the launch bounds ask the register allocator
+// for, up to four particles a thread: three in float32 (24 warps), two in
+// float64 (16 warps, where K3b would take 158 registers and one block
+// unasked); one above.
+template <typename T>
+__host__ __device__ constexpr int min_blocks(int ppt) {
+  return ppt > 4 ? 1 : sizeof(T) == 4 ? 3 : 2;
+}
+
 // the Euler-Maruyama controller of pharmsol_tpu_torch/engine/sde.py
 constexpr double EM_RTOL = 1e-2;
 constexpr double EM_ATOL = 1e-2;
@@ -145,16 +193,27 @@ struct U4 {
   uint32_t x, y, z, w;
 };
 
-__device__ __forceinline__ U4 philox(U4 c, uint32_t k0, uint32_t k1) {
+// The ten round keys of a Philox key, computed once a launch on the host:
+// they ride in the kernel's parameters, which the rounds read as operands.
+struct Key {
+  uint32_t k0[10], k1[10];
+};
+
+Key key_schedule(uint32_t k0, uint32_t k1) {
+  Key key;
+  for (int r = 0; r < 10; ++r) {
+    key.k0[r] = k0 + (uint32_t)r * 0x9E3779B9u;
+    key.k1[r] = k1 + (uint32_t)r * 0xBB67AE85u;
+  }
+  return key;
+}
+
+__device__ __forceinline__ U4 philox(U4 c, const Key& key) {
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
     const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
     const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = U4{hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0};
+    c = U4{hi1 ^ c.y ^ key.k0[r], lo1, hi0 ^ c.w ^ key.k1[r], lo0};
   }
   return c;
 }
@@ -184,14 +243,20 @@ struct Fn<float> {
     return (float)((w >> 8) + 1u) * 5.9604644775390625e-08f;
   }
   static __device__ __forceinline__ float uniform(U4 w) { return u24(w.x); }
-  static __device__ __forceinline__ void normals(U4 w, float* z) {
-    const float u[4] = {u24(w.x), u24(w.y), u24(w.z), u24(w.w)};
+  // The normals of the states [base, base + 4) from one call, two
+  // Box-Muller pairs: the cos half of a pair only for a noisy first state,
+  // the sin half only for a noisy second, neither pair's log for two quiet
+  // ones.
+  static __device__ __forceinline__ void normals(U4 w, int base, float* z) {
+    const uint32_t v[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
-      const float rr = sqrtf(-2.0f * logf(u[2 * q]));
-      const float th = 6.283185307179586f * u[2 * q + 1];
-      z[2 * q] = rr * cosf(th);
-      z[2 * q + 1] = rr * sinf(th);
+      const int i = base + 2 * q;
+      if (!noisy(i) && !noisy(i + 1)) continue;
+      const float rr = sqrtf(-2.0f * logf(u24(v[2 * q])));
+      const float th = 6.283185307179586f * u24(v[2 * q + 1]);
+      if (noisy(i)) z[i] = rr * cosf(th);
+      if (noisy(i + 1)) z[i + 1] = rr * sinf(th);
     }
   }
 };
@@ -211,12 +276,14 @@ struct Fn<double> {
     return (double)v * 1.1102230246251565404e-16;
   }
   static __device__ __forceinline__ double uniform(U4 w) { return u53(w.x, w.y); }
-  static __device__ __forceinline__ void normals(U4 w, double* z) {
-    const double ua = u53(w.x, w.y), ub = u53(w.z, w.w);
-    const double rr = ::sqrt(-2.0 * ::log(ua));
-    const double th = 6.283185307179586 * ub;
-    z[0] = rr * ::cos(th);
-    z[1] = rr * ::sin(th);
+  // The normals of the states [base, base + 2) from one call, one
+  // Box-Muller pair, each half only for a noisy state.
+  static __device__ __forceinline__ void normals(U4 w, int base, double* z) {
+    if (!noisy(base) && !noisy(base + 1)) return;
+    const double rr = ::sqrt(-2.0 * ::log(u53(w.x, w.y)));
+    const double th = 6.283185307179586 * u53(w.z, w.w);
+    if (noisy(base)) z[base] = rr * ::cos(th);
+    if (noisy(base + 1)) z[base + 1] = rr * ::sin(th);
   }
 };
 
@@ -318,11 +385,10 @@ struct Args {
   const int* rate_in;     // [nr] RHS input of each rate plane
   T* out;              // [R, S]
   int R, S, M, P, nb, nr, n_out, coupled;
-  uint32_t k0, k1;     // Philox key
+  Key key;             // Philox round keys
 };
 
-// K3b's arguments: K3a's and the feature inputs. K3a's kernel takes Args
-// alone, so its parameters are laid out as before K3b.
+// K3b's arguments: K3a's and the feature inputs.
 template <typename T>
 struct FeatArgs : Args<T> {
   Feat<T> f;
@@ -360,25 +426,46 @@ __device__ __forceinline__ void add_dose(T (&x)[PPT][N], int ds, T amt) {
   }
 }
 
-// K3b's adaptive Euler-Maruyama march (the JAX kernel's em_march) of the
-// thread's particles over `target` from t0, the controller started afresh
-// (K3a keeps the same statements inline, as it had them before K3b);
+// The normals of particle j's trial `trial` of segment m: one Philox call
+// per draw slot and group of states that holds a noisy one (the counters of
+// ops/philox.py), z[slot][state] for the noisy states.
+template <typename T, typename A>
+__device__ __forceinline__ void draw(const A& a, T (&z)[3][N], int j, int m, int trial, int r,
+                                     int s) {
+  constexpr int PC = Fn<T>::PER_CALL;
+  constexpr int G = (N + PC - 1) / PC;  // Philox calls per slot
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    if (d == 2 && a.coupled) break;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      bool any = false;
+#pragma unroll
+      for (int q = 0; q < PC; ++q) any = any || noisy(g * PC + q);
+      if (any)
+        Fn<T>::normals(philox(counter(j, m, trial, (uint32_t)d, g, s, r), a.key), g * PC, z[d]);
+    }
+  }
+}
+
+// The adaptive Euler-Maruyama march (the JAX kernel's em_march) of the
+// thread's particles over `target` from t0, the controller started afresh;
 // `trial` numbers the segment's next trial and is advanced by the trials
 // made. Each trial advances every particle by the full step and by two half
-// steps, the max normalised error over particles and states is reduced over
-// the block (warp shuffles, then shared memory), and accept, the new step
-// (clamped rsqrt law) and the end of the march are decided from that
-// block-reduced value, so every thread takes the same branch and reaches the
-// same barriers. The march ends at tau >= target - 1e-6 target, on a stall
-// (tau + h == tau) or after 100000 trials; a cell that stopped short is NaN.
-template <typename T, int PPT>
-__device__ __forceinline__ void em_march(const Args<T>& a, T (&x)[PPT][N], const T* p,
+// steps (the noise terms of the noisy states only: a quiet state's are a
+// literal 0 times a finite normal), the max normalised error over particles
+// and states is reduced over the block (warp shuffles, then shared memory),
+// and accept, the new step (clamped rsqrt law) and the end of the march are
+// decided from that block-reduced value, so every thread takes the same
+// branch and reaches the same barriers. The march ends at tau >= target -
+// 1e-6 target, on a stall (tau + h == tau) or after 100000 trials; a cell
+// that stopped short is NaN.
+template <typename T, int PPT, typename A>
+__device__ __forceinline__ void em_march(const A& a, T (&x)[PPT][N], const T* p,
                                          const T* rate, const T* ca, const T* cb,
                                          T t0, T target, int m, int& trial, int r,
                                          int s, T (&red_max)[2][WARPS], unsigned& parity) {
   if (!(target > T(0))) return;
-  constexpr int PC = Fn<T>::PER_CALL;
-  constexpr int G = (N + PC - 1) / PC;  // Philox calls per slot
   const int P = a.P;
   const int j0 = threadIdx.x * PPT;
   const T thr = target - T(1e-6) * (target > T(1e-30) ? target : T(1e-30));
@@ -406,42 +493,27 @@ __device__ __forceinline__ void em_march(const Args<T>& a, T (&x)[PPT][N], const
 #pragma unroll
       for (int i = 0; i < N; ++i) y2[k][i] = x[k][i];
       if (j >= P) continue;
-      // the increments of the full step and of the two half steps
-      T w_full[N], w1[N], w2[N];
-      T z[3][G * PC];
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        if (d == 2 && a.coupled) break;
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-          Fn<T>::normals(philox(counter(j, m, trial + it, (uint32_t)d, g, s, r), a.k0,
-                                a.k1),
-                         &z[d][g * PC]);
-      }
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        if (a.coupled) {
-          w_full[i] = (z[0][i] + z[1][i]) * sq_h;
-          w1[i] = z[0][i] * sq_h;
-          w2[i] = z[1][i] * sq_h;
-        } else {
-          w_full[i] = z[0][i] * sq;
-          w1[i] = z[1][i] * sq_h;
-          w2[i] = z[2][i] * sq_h;
-        }
-      }
-      T d0[N], ym[N], d1[N];
+      T z[3][N];  // the normals of the full step and of the two half steps
+      draw<T>(a, z, j, m, trial + it, r, s);
+      T d0[N], ym[N], d1[N], y1[N];
       drift<T>(x[k], p, t_abs, rate, ca, cb, d0);
-      T y1[N];
 #pragma unroll
       for (int i = 0; i < N; ++i) {
-        y1[i] = x[k][i] + d0[i] * h_try + g0[i] * w_full[i];
-        ym[i] = x[k][i] + d0[i] * h_half + g0[i] * w1[i];
+        y1[i] = x[k][i] + d0[i] * h_try;
+        ym[i] = x[k][i] + d0[i] * h_half;
+        if (noisy(i)) {
+          const T w_full = a.coupled ? (z[0][i] + z[1][i]) * sq_h : z[0][i] * sq;
+          const T w1 = a.coupled ? z[0][i] * sq_h : z[1][i] * sq_h;
+          y1[i] = y1[i] + g0[i] * w_full;
+          ym[i] = ym[i] + g0[i] * w1;
+        }
       }
       drift<T>(ym, p, t_mid, rate, ca, cb, d1);
 #pragma unroll
       for (int i = 0; i < N; ++i) {
-        y2[k][i] = ym[i] + d1[i] * h_half + g1[i] * w2[i];
+        y2[k][i] = ym[i] + d1[i] * h_half;
+        if (noisy(i))
+          y2[k][i] = y2[k][i] + g1[i] * ((a.coupled ? z[1][i] : z[2][i]) * sq_h);
         const T xa = x[k][i] < T(0) ? -x[k][i] : x[k][i];
         const T diff = y1[i] - y2[k][i];
         const T e = (diff < T(0) ? -diff : diff) / (T(EM_ATOL) + T(EM_RTOL) * xa);
@@ -479,7 +551,7 @@ __device__ __forceinline__ void em_march(const Args<T>& a, T (&x)[PPT][N], const
 }
 
 template <typename T, int PPT, bool FEAT>
-__global__ void __launch_bounds__(THREADS) fused_sde_kernel(
+__global__ void __launch_bounds__(THREADS, min_blocks<T>(PPT)) fused_sde_kernel(
     const std::conditional_t<FEAT, FeatArgs<T>, Args<T>> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* cloud = reinterpret_cast<T*>(smem_raw);  // [N][P]
@@ -497,8 +569,6 @@ __global__ void __launch_bounds__(THREADS) fused_sde_kernel(
   const T inv_P = T(1.0 / (double)P);
   const T tiny = Fn<T>::tiny();
   const T SQRT_2PI = T(2.5066282746310002);
-  constexpr int PC = Fn<T>::PER_CALL;
-  constexpr int G = (N + PC - 1) / PC;  // Philox calls per slot
   const size_t rs = (size_t)r * a.S + s;  // this cell in an [R, S] plane
 
   T p[NP];
@@ -592,7 +662,7 @@ __global__ void __launch_bounds__(THREADS) fused_sde_kernel(
       for (int k = 0; k < PPT; ++k) {
         const int j = j0 + k;
         if (j < P) {
-          const U4 w = philox(counter(j, m, 0, SLOT_RESAMPLE, 0, s, r), a.k0, a.k1);
+          const U4 w = philox(counter(j, m, 0, SLOT_RESAMPLE, 0, s, r), a.key);
           const T u = (T(j) + Fn<T>::uniform(w)) / T(P);
           int lo = 0, hi = P;
           while (lo < hi) {
@@ -608,130 +678,13 @@ __global__ void __launch_bounds__(THREADS) fused_sde_kernel(
       __syncthreads();  // the cloud and cw are rewritten at the next observation
     }
 
-    if constexpr (!FEAT) {
-      // K3a: the base tier's statements
-      // 2. the segment's boluses, into their destination states
-      for (int b = 0; b < a.nb; ++b) {
-        const T amt = a.seg_bolus[(size_t)b * RM + idx];
-        const int ds = a.dose_state[b];
-#pragma unroll
-        for (int k = 0; k < PPT; ++k) {
-#pragma unroll
-          for (int i = 0; i < N; ++i) x[k][i] = (i == ds) ? x[k][i] + amt : x[k][i];
-        }
-      }
-
-      // 3. the adaptive Euler-Maruyama march of the segment
-      const T dt = a.seg_dt[idx];
-      if (!(dt > T(0))) continue;
-      T rate[NIN];
-#pragma unroll
-      for (int i = 0; i < NIN; ++i) rate[i] = T(0);
-      for (int b = 0; b < a.nr; ++b) {
-        const T v = a.seg_rate[(size_t)b * RM + idx];
-        const int in = a.rate_in[b];
-#pragma unroll
-        for (int i = 0; i < NIN; ++i) rate[i] = (i == in) ? v : rate[i];
-      }
-      const T t0 = a.seg_t0[idx];
-      const T thr = dt - T(1e-6) * (dt > T(1e-30) ? dt : T(1e-30));
-      T tau = T(0);
-      T h = T(EM_MAX_STEP);
-      bool live = true;
-      for (int it = 0; it < EM_MAX_ITERS && live; ++it) {
-        const T rem = dt - tau;
-        const T h_try = h < (rem > T(1e-14) ? rem : T(1e-14)) ? h
-                        : (rem > T(1e-14) ? rem : T(1e-14));
-        const T t_abs = t0 + tau;
-        const T h_half = h_try * T(0.5);
-        const T sq_h = Fn<T>::sqrt(h_half > T(0) ? h_half : T(0));
-        const T sq = Fn<T>::sqrt(h_try > T(0) ? h_try : T(0));
-        const T t_mid = t_abs + h_half;
-        T g0[N], g1[N];
-        diffusion<T>(p, t_abs, ca, cb, g0);
-        diffusion<T>(p, t_mid, ca, cb, g1);
-        T err = T(0);
-        T y2[PPT][N];
-#pragma unroll
-        for (int k = 0; k < PPT; ++k) {
-          const int j = j0 + k;
-#pragma unroll
-          for (int i = 0; i < N; ++i) y2[k][i] = x[k][i];
-          if (j >= P) continue;
-          // the increments of the full step and of the two half steps
-          T w_full[N], w1[N], w2[N];
-          T z[3][G * PC];
-#pragma unroll
-          for (int d = 0; d < 3; ++d) {
-            if (d == 2 && a.coupled) break;
-#pragma unroll
-            for (int g = 0; g < G; ++g)
-              Fn<T>::normals(philox(counter(j, m, it, (uint32_t)d, g, s, r), a.k0, a.k1),
-                             &z[d][g * PC]);
-          }
-#pragma unroll
-          for (int i = 0; i < N; ++i) {
-            if (a.coupled) {
-              w_full[i] = (z[0][i] + z[1][i]) * sq_h;
-              w1[i] = z[0][i] * sq_h;
-              w2[i] = z[1][i] * sq_h;
-            } else {
-              w_full[i] = z[0][i] * sq;
-              w1[i] = z[1][i] * sq_h;
-              w2[i] = z[2][i] * sq_h;
-            }
-          }
-          T d0[N], ym[N], d1[N];
-          drift<T>(x[k], p, t_abs, rate, ca, cb, d0);
-          T y1[N];
-#pragma unroll
-          for (int i = 0; i < N; ++i) {
-            y1[i] = x[k][i] + d0[i] * h_try + g0[i] * w_full[i];
-            ym[i] = x[k][i] + d0[i] * h_half + g0[i] * w1[i];
-          }
-          drift<T>(ym, p, t_mid, rate, ca, cb, d1);
-#pragma unroll
-          for (int i = 0; i < N; ++i) {
-            y2[k][i] = ym[i] + d1[i] * h_half + g1[i] * w2[i];
-            const T xa = x[k][i] < T(0) ? -x[k][i] : x[k][i];
-            const T diff = y1[i] - y2[k][i];
-            const T e = (diff < T(0) ? -diff : diff) / (T(EM_ATOL) + T(EM_RTOL) * xa);
-            err = nanmax(err, e);
-          }
-        }
-        err = block_max(err, red_max[parity]);
-        parity ^= 1u;
-        const bool finite = isfinite(err);
-        if (err <= T(1) && finite) {
-          tau = tau + h_try;
-#pragma unroll
-          for (int k = 0; k < PPT; ++k) {
-#pragma unroll
-            for (int i = 0; i < N; ++i) x[k][i] = y2[k][i];
-          }
-        }
-        T e_fl = finite ? err : T(1e4);
-        e_fl = e_fl > T(1e-12) ? e_fl : T(1e-12);
-        T hn = h_try * T(EM_SAFETY) * (T(1) / Fn<T>::sqrt(e_fl));
-        hn = hn > T(EM_MIN_STEP) ? hn : T(EM_MIN_STEP);
-        h = hn < T(EM_MAX_STEP) ? hn : T(EM_MAX_STEP);
-        const bool done = tau >= thr;
-        const bool stalled = (tau + h) <= tau && !done;
-        live = !done && !stalled;
-      }
-      if (tau < thr) {
-#pragma unroll
-        for (int k = 0; k < PPT; ++k) {
-#pragma unroll
-          for (int i = 0; i < N; ++i) x[k][i] = T(NAN);
-        }
-      }
-    } else {
-      // K3b: the segment's rates, start time and covariates
-      const T dt = a.seg_dt[idx];
-      T rate[NIN];
-      segment_rates(a, idx, rate);
-      const T t0 = a.seg_t0[idx];
+    // 2. the segment's rates, start time and (K3b) covariates
+    const T dt = a.seg_dt[idx];
+    T rate[NIN];
+    segment_rates(a, idx, rate);
+    const T t0 = a.seg_t0[idx];
+    int trial = 0;
+    if constexpr (FEAT) {
       if (NCOV > 0) {
 #pragma unroll
         for (int c = 0; c < NCOV; ++c) {
@@ -739,15 +692,8 @@ __global__ void __launch_bounds__(THREADS) fused_sde_kernel(
           cb[c] = a.f.cov_b != nullptr ? a.f.cov_b[c * RM + idx] : T(0);
         }
       }
-      int trial = 0;
-      const bool lagged = a.f.n_lag > 0;
-      if (!lagged) {
-        // 2. the segment's boluses (fa-scaled), into their destination states
-        for (int b = 0; b < a.nb; ++b)
-          add_dose<PPT>(x, a.dose_state[b],
-                        a.seg_bolus[(size_t)b * RM + idx] * fa_scale(a, b, m, rs));
-      } else {
-        // K3b with lag (the JAX kernel's :475-538). 2a. doses due at this
+      if (a.f.n_lag > 0) {
+        // K3b with lag (the JAX kernel's :475-538). 3a. doses due at this
         // breakpoint fire after its observation
 #pragma unroll
         for (int b = 0; b < NIN; ++b) {
@@ -757,7 +703,7 @@ __global__ void __launch_bounds__(THREADS) fused_sde_kernel(
             pend_amt[b] = T(0);
           }
         }
-        // 2b. arrivals park with their lag
+        // 3b. arrivals park with their lag
 #pragma unroll
         for (int b = 0; b < NIN; ++b) {
           if (b >= a.nb) break;
@@ -769,40 +715,47 @@ __global__ void __launch_bounds__(THREADS) fused_sde_kernel(
             pend_rem[b] = a.f.lag[(size_t)slot * a.R * a.S + rs];
           }
         }
-      }
-      // 3. the adaptive Euler-Maruyama march of the segment: one pass, or
-      // with lag one pass per bolus plane to the next earliest fire time and
-      // a last one to the segment's end (the split march)
-      const int passes = lagged ? a.nb + 1 : 1;
-      T elapsed = T(0);
-      for (int pass = 0; pass < passes; ++pass) {
-        const bool last = pass == passes - 1;
-        bool will[NIN];
-        T t_next = dt;
+        // 3c. the split march: one pass per bolus plane to the next
+        // earliest fire time, and a last one to the segment's end
+        T elapsed = T(0);
+        for (int pass = 0; pass <= a.nb; ++pass) {
+          const bool last = pass == a.nb;
+          bool will[NIN];
+          T t_next = dt;
 #pragma unroll
-        for (int b = 0; b < NIN; ++b) {
-          will[b] = !last && b < a.nb && pend_amt[b] != T(0) && pend_rem[b] < dt;
-          const T cand = will[b] ? pend_rem[b] : dt;
-          t_next = cand < t_next ? cand : t_next;
-        }
-        t_next = t_next > elapsed ? t_next : elapsed;
-        em_march<T, PPT>(a, x, p, rate, ca, cb, t0 + elapsed, t_next - elapsed, m, trial, r,
-                         s, red_max, parity);
-#pragma unroll
-        for (int b = 0; b < NIN; ++b) {
-          if (will[b] && pend_rem[b] <= t_next) {
-            add_dose<PPT>(x, a.dose_state[b], pend_amt[b]);
-            pend_amt[b] = T(0);
+          for (int b = 0; b < NIN; ++b) {
+            will[b] = !last && b < a.nb && pend_amt[b] != T(0) && pend_rem[b] < dt;
+            const T cand = will[b] ? pend_rem[b] : dt;
+            t_next = cand < t_next ? cand : t_next;
           }
-        }
-        elapsed = t_next;
-      }
-      if (lagged && dt > T(0)) {
+          t_next = t_next > elapsed ? t_next : elapsed;
+          em_march<T, PPT>(a, x, p, rate, ca, cb, t0 + elapsed, t_next - elapsed, m, trial,
+                           r, s, red_max, parity);
 #pragma unroll
-        for (int b = 0; b < NIN; ++b)
-          if (pend_amt[b] != T(0)) pend_rem[b] = pend_rem[b] - dt;
+          for (int b = 0; b < NIN; ++b) {
+            if (will[b] && pend_rem[b] <= t_next) {
+              add_dose<PPT>(x, a.dose_state[b], pend_amt[b]);
+              pend_amt[b] = T(0);
+            }
+          }
+          elapsed = t_next;
+        }
+        if (dt > T(0)) {
+#pragma unroll
+          for (int b = 0; b < NIN; ++b)
+            if (pend_amt[b] != T(0)) pend_rem[b] = pend_rem[b] - dt;
+        }
+        continue;
       }
     }
+    // 3. the segment's boluses (K3b: fa-scaled) into their destination
+    // states, and the adaptive Euler-Maruyama march of the segment
+    for (int b = 0; b < a.nb; ++b) {
+      T amt = a.seg_bolus[(size_t)b * RM + idx];
+      if constexpr (FEAT) amt = amt * fa_scale(a, b, m, rs);
+      add_dose<PPT>(x, a.dose_state[b], amt);
+    }
+    em_march<T, PPT>(a, x, p, rate, ca, cb, t0, dt, m, trial, r, s, red_max, parity);
   }
   if (threadIdx.x == 0) a.out[(size_t)r * a.S + s] = ll;
 }
@@ -860,7 +813,7 @@ cudaError_t run(const void* const* ptr, const int* ints, void* out, int R, int S
   a.out = (T*)out;
   a.R = R; a.S = S; a.M = M; a.P = P; a.nb = nb; a.nr = nr; a.n_out = n_out;
   a.coupled = coupled;
-  a.k0 = k0; a.k1 = k1;
+  a.key = key_schedule(k0, k1);
   if (feat == nullptr) {
 #if PHARMSOL_SDE_FEAT
     return cudaErrorInvalidValue;  // the base tier's library builds K3a
@@ -893,12 +846,32 @@ cudaError_t run(const void* const* ptr, const int* ints, void* out, int R, int S
 #endif
 }
 
-__global__ void philox_kernel(int n, const uint32_t* ctr, uint32_t k0, uint32_t k1,
-                              uint32_t* out) {
+template <typename T, int PPT, bool FEAT>
+cudaError_t occupancy_ppt(int P, int* blocks) {
+  const size_t smem = (size_t)(N + 1) * P * sizeof(T);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_sde_kernel<T, PPT, FEAT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fused_sde_kernel<T, PPT, FEAT>,
+                                                       THREADS, smem);
+}
+
+template <typename T, bool FEAT>
+cudaError_t occupancy(int ppt, int P, int* blocks) {
+  if (ppt <= 1) return occupancy_ppt<T, 1, FEAT>(P, blocks);
+  if (ppt <= 2) return occupancy_ppt<T, 2, FEAT>(P, blocks);
+  if (ppt <= 4) return occupancy_ppt<T, 4, FEAT>(P, blocks);
+  if (ppt <= 8) return occupancy_ppt<T, 8, FEAT>(P, blocks);
+  return occupancy_ppt<T, 16, FEAT>(P, blocks);
+}
+
+__global__ void philox_kernel(int n, const uint32_t* ctr, const Key key, uint32_t* out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const U4 w = philox(U4{ctr[4 * i], ctr[4 * i + 1], ctr[4 * i + 2], ctr[4 * i + 3]},
-                      k0, k1);
+  const U4 w = philox(U4{ctr[4 * i], ctr[4 * i + 1], ctr[4 * i + 2], ctr[4 * i + 3]}, key);
   out[4 * i] = w.x;
   out[4 * i + 1] = w.y;
   out[4 * i + 2] = w.z;
@@ -965,8 +938,20 @@ extern "C" int fused_sde_philox(int n, const void* ctr, uint32_t k0, uint32_t k1
                                 void* out, void* stream) {
   if (n <= 0) return 0;
   philox_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      n, (const uint32_t*)ctr, k0, k1, (uint32_t*)out);
+      n, (const uint32_t*)ctr, key_schedule(k0, k1), (uint32_t*)out);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the tier's kernel for P particles that one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor with the launch's dynamic
+// shared memory), into *blocks. Returns the cudaError_t.
+extern "C" int fused_sde_occupancy(int is_f64, int P, int* blocks) {
+  constexpr bool FEAT = PHARMSOL_SDE_FEAT != 0;
+  *blocks = 0;
+  if (P < 1 || P > THREADS * 16) return (int)cudaErrorInvalidValue;
+  const int ppt = (P + THREADS - 1) / THREADS;
+  return (int)(is_f64 ? occupancy<double, FEAT>(ppt, P, blocks)
+                      : occupancy<float, FEAT>(ppt, P, blocks));
 }
 
 // The generated closures this library was built with: {states, params, inputs}.

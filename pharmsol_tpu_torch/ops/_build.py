@@ -104,6 +104,8 @@ SDE = Generated("fused_sde.cu", "sde", "PHARMSOL_SDE_RHS", ("-fmad=false",), {
     "launch": ([_ci] + [_vp] * 16 + [_ci] * 8 + [_cu, _cu, _vp], _ci),
     "feature_launch": ([_ci] + [_vp] * 4 + [_ci] * 10 + [_cu, _cu, _vp], _ci),
     "philox": ([_ci, _vp, _cu, _cu, _vp, _vp], _ci),
+    # resident blocks per SM of the tier's kernel for P particles
+    "occupancy": ([_ci, _ci, _vp], _ci),
 })
 
 

@@ -615,6 +615,22 @@ def psi_sde(
     return out
 
 
+def resident_blocks(gen, dtype: torch.dtype, n_particles: int, feature: bool = False) -> int:
+    """Blocks of the kernel (of the feature tier with ``feature``) for
+    ``n_particles`` particles in ``dtype`` that one SM of the current card
+    holds at once, as the CUDA runtime reckons it for the launch's shared
+    memory: a measurement of the build, not part of the psi path."""
+    from ._build import load_generated_library, sde_kind
+
+    lib = load_generated_library(sde_kind(feature), gen)
+    blocks = ctypes.c_int(0)
+    err = lib.fused_sde_occupancy(int(dtype == torch.float64), int(n_particles),
+                                  ctypes.addressof(blocks))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: {lib.fused_sde_error_string(err).decode()}")
+    return blocks.value
+
+
 def philox_words(counters: torch.Tensor, seed: int, gen) -> torch.Tensor:
     """The kernel's own Philox4x32-10 words for ``counters`` [n, 4] (int64
     on the card, each word < 2^32) under the key of ``seed``: [n, 4] int64.

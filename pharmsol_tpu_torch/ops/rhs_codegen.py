@@ -101,6 +101,7 @@ class GeneratedSde(NamedTuple):
     key: str
     cov_names: tuple = ()  # the covariates of cov_a / cov_b, in order
     cov_modes: tuple = ()  # "const" or "affine" per covariate
+    zero_diffusion: frozenset = frozenset()  # components traced to a literal 0
 
 
 # ---------------------------------------------------------------------------
@@ -834,9 +835,14 @@ def generate_sde(drift: Callable, diffusion: Callable, n_states: int,
     cov)`` and emit both into one CUDA header, as ``drift<T>(x, p, t, rateiv,
     cov_a, cov_b, dx)`` and ``diffusion<T>(p, t, cov_a, cov_b, g)``, with the
     covariates ``cov_names`` in modes ``cov_modes`` as :func:`generate_rhs`.
-    A diffusion of constants traces to literal outputs. Raises PharmsolError
-    with the reason when either closure uses something the generator cannot
-    express (an unknown covariate among it)."""
+    A diffusion of constants traces to literal outputs. The components that
+    trace to a literal zero are ``zero_diffusion``, and the header marks the
+    others as ``PHARMSOL_SDE_NOISY`` (an initializer of one bool per state):
+    the kernel draws no noise for a component it marks quiet. A component
+    that only evaluates to zero (a parameter or a covariate that may be 0)
+    stays noisy. Raises PharmsolError with the reason when either closure
+    uses something the generator cannot express (an unknown covariate among
+    it)."""
     ninput = max(int(ninput), 1)
     covs = cov_names, cov_modes = _covariates(cov_names, cov_modes)
     cov_args = (("cov_a", len(cov_names)), ("cov_b", len(cov_names)))
@@ -844,9 +850,12 @@ def generate_sde(drift: Callable, diffusion: Callable, n_states: int,
     g_args = _sizes(_DIFFUSION_ARGS, n_states, n_params, ninput)
     d_out = _traced(drift, d_args, n_states, "drift", "SDE", covs)
     g_out = _traced(diffusion, g_args, n_states, "diffusion", "SDE", covs)
+    zero = frozenset(i for i, g in enumerate(g_out) if g.op == "const" and g.value == 0.0)
+    noisy = ", ".join("false" if i in zero else "true" for i in range(n_states))
     source = _header("SDE drift and diffusion closures", n_states, n_params, ninput,
-                     [_emit_function(d_out, "drift", d_args + cov_args, "dx"),
+                     [f"#define PHARMSOL_SDE_NOISY {{{noisy}}}\n",
+                      _emit_function(d_out, "drift", d_args + cov_args, "dx"),
                       _emit_function(g_out, "diffusion", g_args + cov_args, "g")], covs)
     key = hashlib.sha256(source.encode()).hexdigest()[:16]
     return GeneratedSde(drift, diffusion, int(n_states), int(n_params), ninput,
-                        source, key, cov_names, cov_modes)
+                        source, key, cov_names, cov_modes, zero)

@@ -355,6 +355,66 @@ def test_sde_rejected_drift_routes_auto_to_general(cuda):
     assert fused_sde.LAUNCHES == before
 
 
+def _assert_noise_cells(got, want, dtype):
+    """Kernel and twin on the same Philox numbers: float64 99.9% of cells
+    within 1e-9, float32 99% within 1e-4."""
+    rel = _cell_rel(got, want).flatten()
+    assert bool(torch.isfinite(rel).all())
+    tol, share = (1e-9, 0.999) if dtype == torch.float64 else (1e-4, 0.99)
+    assert float((rel <= tol).double().mean()) >= share
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sde_kernel_with_every_component_noisy_matches_twin(cuda, dtype):
+    """No diffusion component is a literal zero: every state draws its
+    normals (independent control, three slots)."""
+    data, sp, ems = _readme_inputs(3, 5, 0.05, seed=2)
+    model = pt.SDE(lambda x, p, t, r, cov: torch.stack([-x[1] * x[0], -(x[1] - p[0])]),
+                   lambda p, t, cov: [0.05 * p[1], p[2]],
+                   init=lambda p, t, cov: [0.0, p[0]],
+                   out=lambda x, p, t, cov: x[0:1] / p[1],
+                   nparticles=600, nstates=2, ndrugs=1, nout=1, seed=5)
+    plan = _sde_plan(model, data, sp, ems, dtype, cuda)
+    assert plan.gen.zero_diffusion == frozenset() and plan.em_control == "independent"
+    _assert_noise_cells(_sde_run(plan), _sde_run(plan, plain=True), dtype)
+
+
+def test_sde_kernel_with_diffusion_zero_at_run_time_matches_twin(cuda):
+    """The README diffusion [0, sigma] with sigma = 0 on some supports: the
+    second component stays noisy (it is zero only at run time), and its
+    cells match the twin as at zero diffusion, the others as with noise."""
+    data, sp, ems = _readme_inputs(4, 6, 0.05, seed=3)
+    sp[::2, 2] = 0.0
+    plan = _sde_plan(_readme_sde(700), data, sp, ems, torch.float64, cuda)
+    assert plan.gen.zero_diffusion == frozenset({0})
+    got, want = _sde_run(plan), _sde_run(plan, plain=True)
+    assert float(_cell_rel(got[:, ::2], want[:, ::2]).max()) <= 1e-10
+    _assert_noise_cells(got[:, 1::2], want[:, 1::2], torch.float64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["lag_fa", "two_inputs_inject"])
+def test_k3b_split_march_with_a_structural_zero_matches_twin(cuda, name, dtype):
+    """K3b's split march (lagged doses firing inside segments) on a model
+    whose first diffusion component is a literal zero."""
+    from pharmsol_tpu_torch.likelihood.plans.sde import _FusedSdePsiPlan
+    from pharmsol_tpu_torch.ops import fused_sde
+
+    model, data, sp, ems = sde_feature_case(name, 6, 7, seed=8, nparticles=500)
+    grid = model.lower(data.subjects())
+    lowered = ems.lower(model.resolve_output_label, model.nouteqs())
+    plan = _FusedSdePsiPlan(model, grid, sp, lowered, cuda, dtype)
+    assert plan.gen.zero_diffusion == frozenset({0})
+    kw = plan.kernel_kwargs()
+    assert kw["lag_planes"] is not None
+    before = fused_sde.FEATURE_LAUNCHES
+    got = fused_sde.psi_sde(*plan.streams, plan.support, plan.gen, **kw)
+    torch.cuda.synchronize()
+    assert fused_sde.FEATURE_LAUNCHES == before + 1
+    _assert_noise_cells(got, fused_sde.psi_sde_plain(*plan.streams, plan.support, plan.gen,
+                                                     **kw), dtype)
+
+
 @pytest.mark.parametrize("family", ["sde", "ode"])
 def test_general_engine_on_the_card_takes_closures_with_constants(cuda, family):
     """Closures returning lists with Python constants (``[0.0, p[2]]``): the

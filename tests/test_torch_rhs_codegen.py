@@ -496,6 +496,39 @@ def test_sde_generator_rejects_with_a_reason(which, fn, reason):
         generate_sde(drift, diffusion, 2, 3, 1)
 
 
+# diffusion -> (states, parameters, inputs, covariates, the components that
+# trace to a literal zero): only a literal 0 is quiet; a component that reads
+# a parameter or a covariate may be zero only at run time and stays noisy
+_NOISE_MASKS = {
+    "readme": (lambda p, t, cov: [0.0, p[2]], 2, 3, 1, (), {0}),
+    "two_inputs": (lambda p, t, cov: [0.0, p[3], 0.5 * p[3]], 3, 4, 2, (), {0}),
+    "every_component": (lambda p, t, cov: [p[1], p[2]], 2, 3, 1, (), set()),
+    "parameter_times_zero": (lambda p, t, cov: [0.0 * p[2], p[2]], 2, 3, 1, (), set()),
+    "covariate": (lambda p, t, cov: [cov("flag", t), p[2]], 2, 3, 1, ("flag",), set()),
+    "constants": (lambda p, t, cov: [1.0, 0.01], 2, 3, 1, (), set()),
+    "all_zero": (lambda p, t, cov: torch.zeros(2, dtype=torch.float64), 2, 3, 1, (), {0, 1}),
+}
+
+
+def _noise_mask_case(name):
+    diffusion, n, n_params, ninput, covs, quiet = _NOISE_MASKS[name]
+    drift = _two_input_drift if n == 3 else _readme_drift
+    return generate_sde(drift, diffusion, n, n_params, ninput, covs), n, quiet
+
+
+@pytest.mark.parametrize("name", list(_NOISE_MASKS))
+def test_generate_sde_marks_literal_zero_diffusion(name):
+    gen, _, quiet = _noise_mask_case(name)
+    assert gen.zero_diffusion == frozenset(quiet)
+
+
+@pytest.mark.parametrize("name", list(_NOISE_MASKS))
+def test_generated_header_carries_the_noise_mask(name):
+    gen, n, quiet = _noise_mask_case(name)
+    flags = ", ".join("false" if i in quiet else "true" for i in range(n))
+    assert f"#define PHARMSOL_SDE_NOISY {{{flags}}}\n" in gen.source
+
+
 _SDE_WRAPPER = """
 #define __device__
 #define __forceinline__ inline

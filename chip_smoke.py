@@ -137,7 +137,11 @@ printing its own lines; any failure raises and the exit code is not 0:
     bound from the twin's counts scaled to the cell (for bdf the trials and
     the rescalings of the difference array that the kernel performs, each
     priced at its order), one end-to-end call with its parts, and the BDF
-    order cap 3 against 5;
+    order cap 3 against 5; and each TMDD library's anatomy (registers, stack
+    frame, local loads and stores in its SASS, resident blocks from the
+    occupancy query) with the cell's lane-slots per trial from the twin's
+    trials by march call: synced at every march call (the parent layout),
+    one cell a lane on its own, and the persistent grid;
 16. K3b against its twin at 19 x 23 x 1000 particles on every mode of
     ``utils/f32_budget.py::SDE_FEATURE_CASES`` (a constant and an affine
     covariate, static lag, fa, lag with fa, a dynamic lag/fa through slot
@@ -190,15 +194,21 @@ the whole script's verdict.
 ``--pair DIR`` holds this checkout against another one at ``DIR`` (a
 ``git archive`` of the parent commit, say), in the order DIR, here, here,
 DIR, each side a process of its own that imports its own package: K3a's
-README cell (256 x 64 x 1000) and K3b's "SDE covariates 256 x 64 x 1000"
-cell through ``log_likelihood_matrix``, three calls per dtype after a warm
-one, with the factor of the medians and whether the sides' ranges part;
-each side's psi of both cells, the change's held to the parent's cell by
-cell at the twin's tolerances (both draw the same Philox numbers); the
-registers of every closed-form and SDE kernel the side built (``cuobjdump
--res-usage``), and for the SDE kernels at four particles a thread their
-resident blocks per SM and the trial loop's instruction mix. It prints the
-pairs and ``{"ok": true, "partial": "pair"}``.
+README cell (256 x 64 x 1000), K3b's "SDE covariates 256 x 64 x 1000" cell
+and "ODE TMDD stiff 16384 x 512" under bdf, trbdf2, kvaerno3 and kvaerno5
+through ``log_likelihood_matrix``, three calls per dtype after a warm one
+(the stiff kernel also alone, by CUDA events), with the factor of the
+medians and whether the sides' ranges part; each side's psi, the change's
+held to the parent's cell by cell (SDE at the twin's tolerances, both
+drawing the same Philox numbers; stiff by the kernel-twin rule, with the
+cells that differ at all counted); the registers of every closed-form, SDE
+and ODE kernel the side built (``cuobjdump -res-usage``; for the stiff cell
+the TMDD header's explicit, exact and implicit libraries), for the SDE
+kernels at four particles a thread their resident blocks per SM and the
+trial loop's instruction mix, for the implicit ones their anatomy, and the
+stiff cell's lane-slots per trial under each side's layout. ``--pair DIR
+--only stiff`` (or ``sde``) runs that part alone. It prints the pairs and
+``{"ok": true, "partial": "pair"}``.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. All data comes from a numpy
@@ -692,6 +702,7 @@ def phase_build(pt, feature_cases, expm, stiff, only: str = None) -> float:
             m = (re.search(r"fused_psi_kernelI([fd])Li(\d+)E", ln)
                  or re.search(r"fused_psi_feature_kernelI([fd])Li(\d+)ELb(\d)E", ln)
                  or re.search(r"fused_ode_kernelI([fd])Li(\d+)ELb(\d)E", ln)
+                 or re.search(r"fused_ode_implicit_kernelI([fd])Li(\d+)ELb(\d)E", ln)
                  or re.search(r"fused_sde_kernelI([fd])Li(\d+)ELb(\d)E", ln))
             if m and "Compiling entry function" in ln:
                 what = (("K1c code" if m.group(3) == "1" else "K1b code")
@@ -2032,6 +2043,70 @@ def kernel_resources(lib: Path) -> dict:
     return out  # keys reg, shared, local, stack
 
 
+_ODE_KERNEL = re.compile(r"fused_ode_(?:implicit_)?kernelI([fd])Li(\d+)ELb([01])E(?:Li(\d+)E)?")
+_ODE_SOLVER_NAMES = {0: "dopri5", 1: "tsit5", 2: "expm", 3: "trbdf2", 4: "kvaerno3",
+                     5: "kvaerno5", 6: "bdf"}
+
+
+def ode_kernel_key(name: str):
+    """"K2c bdf f64 features cap 3" for a mangled ODE kernel name (the
+    persistent-grid kernel of the implicit tiers carries the BDF tier's
+    largest order as a template argument), or None."""
+    m = _ODE_KERNEL.search(name)
+    if m is None:
+        return None
+    code, feat = int(m.group(2)), m.group(3) == "1"
+    kid = ("K2e" if feat else "K2a") if code < 2 else {2: "K2d", 6: "K2c"}.get(code, "K2b")
+    key = f"{kid} {_ODE_SOLVER_NAMES[code]} f{'32' if m.group(1) == 'f' else '64'}"
+    return key + (" features" if feat else "") + (f" cap {m.group(4)}" if code == 6 and m.group(4)
+                                                  else "")
+
+
+def stiff_anatomy(lib: Path) -> dict:
+    """Per kernel of an ODE library (``ode_kernel_key``): registers, stack
+    frame and local memory (``cuobjdump -res-usage``), the local loads and
+    stores in its SASS (``LDL``, ``STL``; a static count), and resident
+    blocks per SM: from the library's occupancy query where it has one (the
+    implicit tiers' persistent grid, ``blocks_per_sm_runtime``),
+    and from the registers at the block the library launches (128 threads
+    for that grid, 256 for the parent's ``dim3(128, 2)``)."""
+    from pharmsol_tpu_torch.ops import fused_ode
+
+    sass = sass_functions(lib)
+    # a parent checkout's package may have neither the query nor the grid
+    query_of = getattr(fused_ode, "implicit_occupancy_of", None)
+    query = query_of(lib) if query_of is not None else None
+    out = {}
+    for name, r in kernel_resources(lib).items():
+        key = ode_kernel_key(name)
+        if key is None:
+            continue
+        ops = [op for _, op, _ in sass.get(name, ([], {}))[0]]
+        implicit = "implicit" in name
+        threads = getattr(fused_ode, "IMPLICIT_THREADS", 128) if implicit else 256
+        a = dict(regs=r.get("reg"), stack=r.get("stack", 0), local=r.get("local", 0),
+                 ldl=sum(op.startswith("LDL") for op in ops),
+                 stl=sum(op.startswith("STL") for op in ops), threads=threads,
+                 blocks_per_sm=resident_blocks(r.get("reg", 255), r.get("shared", 0), threads))
+        if query is not None and implicit:
+            m = _ODE_KERNEL.search(name)
+            a["blocks_per_sm_runtime"] = query(m.group(1) == "d", m.group(3) == "1",
+                                               int(m.group(4) or 3))
+        out[key] = a
+    return out
+
+
+def describe_anatomy(a: dict) -> str:
+    return (f"{a['regs']} registers, {a['stack']}-byte stack frame, {a['local']} bytes local, "
+            f"{a['ldl']} LDL / {a['stl']} STL in its SASS, "
+            f"{a.get('blocks_per_sm_runtime', a['blocks_per_sm'])} resident blocks of "
+            f"{a['threads']} per SM ({a['blocks_per_sm']} from the registers"
+            + (", the runtime's query agrees" if a.get("blocks_per_sm_runtime")
+               == a["blocks_per_sm"] else
+               "" if "blocks_per_sm_runtime" not in a else ", the runtime's query differs")
+            + ")")
+
+
 def sde_anatomy(lib: Path, n_states: int, n_particles: int, ppt: int = 4) -> dict:
     """For the ``ppt`` particles-a-thread instantiations of the SDE kernels
     in ``lib``: registers, stack frame (which holds the spills), resident
@@ -2765,6 +2840,8 @@ def stiff_twin_job(job) -> dict:
                                              counts=counts, **plan.kernel_kwargs(merge)))
     out = dict(psi=psi.cpu().numpy(), steps=counts["steps"], ms=ms,
                steps_by_row=counts["steps_by_row"].cpu().numpy())
+    if kind == "cell":
+        out["trials_by_call"] = torch.stack(counts["trials_by_call"]).to(torch.int32).cpu().numpy()
     if solver == "bdf":
         out["bdf_by_row"] = counts["bdf_by_row"].cpu().numpy()
     return out
@@ -3090,23 +3167,94 @@ def bdf_ops(model, newton_iters: int, tally) -> int:
     return total
 
 
-def scaled_to_cell(by_row, n_total: int):
-    """A count of the whole stiff cell from the twin's count per row on the
-    subjects ``stiff_twin_rows``: a cell's march depends on its subject
-    through the dose alone, 100 mg x (1 + 0.1 (i mod 5)), so subject i
-    marches as any subject of its class does. Held here: the twin's two
+def by_dose_class(by_row, n_total: int) -> np.ndarray:
+    """The count of each of the five dose classes from the twin's count per
+    row on the subjects ``stiff_twin_rows``: a cell's march depends on its
+    subject through the dose alone, 100 mg x (1 + 0.1 (i mod 5)), so subject
+    i marches as any subject of its class does. Held here: the twin's two
     subjects of each class give the same counts."""
     by_row = np.asarray(by_row).astype(np.int64)
     classes = stiff_twin_rows(n_total) % 5
-    n_of = np.bincount(np.arange(n_total) % 5, minlength=5)
-    total = 0
+    out = []
     for c in range(5):
         first, second = np.nonzero(classes == c)[0]
         if not np.array_equal(by_row[first], by_row[second]):
             raise AssertionError(f"the twin's subjects {first} and {second} of dose class {c} "
                                  f"differ in their counts: {by_row[first]} vs {by_row[second]}")
-        total = total + n_of[c] * by_row[first]
-    return total
+        out.append(by_row[first])
+    return np.stack(out)
+
+
+def scaled_to_cell(by_row, n_total: int):
+    """A count of the whole stiff cell from the twin's count per row on the
+    subjects ``stiff_twin_rows`` (``by_dose_class``)."""
+    n_of = np.bincount(np.arange(n_total) % 5, minlength=5)
+    by_class = by_dose_class(by_row, n_total)
+    return (n_of.reshape((5,) + (1,) * (by_class.ndim - 1)) * by_class).sum(0)
+
+
+def warp_slots(per_lane) -> np.ndarray:
+    """32 x the largest count of each warp of 32 consecutive lanes along the
+    last axis (a ragged last warp still takes 32 slots), summed over the
+    warps."""
+    x = np.asarray(per_lane, dtype=np.int64)
+    x = np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, -x.shape[-1] % 32)])
+    return 32 * x.reshape(*x.shape[:-1], -1, 32).max(-1).sum(-1)
+
+
+def lane_slots_by_row(trials_by_call) -> dict:
+    """Lane-slots per row from the twin's trials of each lane in each march
+    call ([calls, R, S], ``psi_ode_plain``'s ``counts["trials_by_call"]``),
+    under the parent's layout (a warp is 32 supports of one row and waits
+    for its slowest lane in every march call: ``synced``) and with one cell
+    a lane marching its calls on its own (``own``); with the trials per row
+    and per cell; and each cell's passes of the persistent grid's loop
+    (``passes``: one a trial, one for a march call without a trial, and one
+    that ends the cell and starts the next)."""
+    tb = np.asarray(trials_by_call, dtype=np.int64)
+    per_cell = tb.sum(0)
+    return dict(synced=warp_slots(tb).sum(0), own=warp_slots(per_cell),
+                trials=per_cell.sum(-1), per_cell=per_cell,
+                passes=1 + np.maximum(tb, 1).sum(0))
+
+
+def lane_slots_refilled(cell_passes, n_cells: int, lanes: int) -> float:
+    """Lane-slots of the implicit tiers' persistent grid: each of ``lanes``
+    lanes marches the cells ``implicit_lane_cell`` gives it one after the
+    other, so a warp takes 32 x its busiest lane's passes. ``cell_passes``
+    maps an array of cell indices to their passes."""
+    from pharmsol_tpu_torch.ops.fused_ode import implicit_lane_cell
+
+    g = np.arange(lanes, dtype=np.int64)
+    per_lane = np.zeros(lanes, dtype=np.int64)
+    for k in range(-(-n_cells // lanes)):
+        c = implicit_lane_cell(g, k, lanes)
+        ok = c < n_cells
+        per_lane[ok] += cell_passes(c[ok])
+    return float(warp_slots(per_lane))
+
+
+def stiff_lane_slots(trials_by_call, n_total: int, lanes=None) -> dict:
+    """Lane-slots per trial of the whole stiff cell (``n_total`` subjects x
+    the twin's supports) from the twin's trials by march call on the
+    subjects ``stiff_twin_rows``: synced at every march call (the parent's
+    layout), one cell a lane on its own, and, given the grid's ``lanes``,
+    the implicit tiers' persistent grid over every cell (its passes per
+    trial: a pass without a trial counts)."""
+    from pharmsol_tpu_torch.ops.fused_ode import implicit_cell
+
+    rows = lane_slots_by_row(trials_by_call)
+    trials = float(scaled_to_cell(rows["trials"], n_total))
+    out = dict(synced=float(scaled_to_cell(rows["synced"], n_total)) / trials,
+               own=float(scaled_to_cell(rows["own"], n_total)) / trials, refilled=None,
+               trials=trials)
+    if lanes:
+        table = by_dose_class(rows["passes"], n_total)
+        S = table.shape[1]
+        out["refilled"] = lane_slots_refilled(
+            lambda c: table[implicit_cell(c, n_total)[0] % 5, implicit_cell(c, n_total)[1]],
+            n_total * S, lanes) / trials
+    return out
 
 
 def phase_stiff_slice(pt, rng) -> tuple:
@@ -3259,6 +3407,7 @@ def phase_stiff_times(pt, label, models, data, ems, t_build, card: str, twins) -
     adaptations and rescalings, each priced at its order (``bdf_ops``); one
     end-to-end call with its parts; and, for bdf, the order cap 3 against
     cap 5: attempts per cell, -inf cells and kernel time."""
+    from pharmsol_tpu_torch.ops import _build, fused_ode
     from pharmsol_tpu_torch.ops.fused_ode import psi_ode_plain
     from pharmsol_tpu_torch.utils.f32_budget import F32_BUDGET
 
@@ -3297,6 +3446,23 @@ def phase_stiff_times(pt, label, models, data, ems, t_build, card: str, twins) -
             kw = plan.kernel_kwargs()
             got = run_ode_kernel(plan)
             tw = twins.get("cell", "tmdd", solver, True, d, 3)
+            lib = _build.generated_target(_build.ode_kind(solver), plan.rhs).path
+            if dtype == torch.float64:
+                # the anatomy of the solver's library: every instantiation
+                out[(solver, "anatomy")] = anatomy = stiff_anatomy(lib)
+                for key, a in sorted(anatomy.items()):
+                    log(f"[15] anatomy {key}: {describe_anatomy(a)}  ({card})")
+            query = fused_ode.implicit_occupancy_of(lib)
+            lanes = None if query is None else fused_ode.implicit_lanes(
+                cells, query(dtype == torch.float64, False, 3) * torch.cuda.get_device_properties(
+                    0).multi_processor_count)
+            slots = stiff_lane_slots(tw["trials_by_call"], n, lanes)
+            log(f"[15] {label} {solver:8s} {d} lane-slots per trial, from the twin's trials by "
+                f"march call on {where} scaled to the cell: synced at every march call (the "
+                f"parent's layout) {slots['synced']:.4f}, one cell a lane on its own "
+                f"{slots['own']:.4f}, "
+                + ("persistent grid: this library has no occupancy query" if lanes is None else
+                   f"the persistent grid of {lanes} lanes {slots['refilled']:.4f}"))
             if dtype == torch.float64:
                 twin64 = tw["psi"]
             abs_err, rel, rule = held(f"{label} {solver} {d}", dtype, got, tw["psi"], twin64)
@@ -3360,7 +3526,7 @@ def phase_stiff_times(pt, label, models, data, ems, t_build, card: str, twins) -
                 f"scaled from the twin's {len(row_ids)} subjects to {n}); kernel at "
                 f"{t['bound'] / t['kernel']:.3f} of it")
             t.update(abs_err=abs_err, plan=parts["plan"], attempts_scaled=attempts, lost=lost,
-                     operations=ops)
+                     operations=ops, lane_slots=slots, lanes=lanes)
             out[(solver, dtype)] = t
             if solver == "bdf":
                 # the order cap: 3 (the default, the JAX kernel's) against 5
@@ -3422,14 +3588,17 @@ def stiff_records(times, launches) -> list:
             plan_ms=t32["plan"], plan_ms_f64=t64["plan"],
             attempts_scaled=t32["attempts_scaled"], attempts_scaled_f64=t64["attempts_scaled"],
             operations=t32["operations"], operations_f64=t64["operations"],
-            lost_cells=t32["lost"], lost_cells_f64=t64["lost"])
+            lost_cells=t32["lost"], lost_cells_f64=t64["lost"],
+            lane_slots=t32["lane_slots"], lane_slots_f64=t64["lane_slots"])
 
     b = entry(STIFF_SDIRK_RECORD, "trbdf2", k2b)
     b["solvers"] = {
         s: {str(dt)[6:]: {k: v for k, v in times[(s, dt)].items() if k != "bound_by"}
             for dt in (torch.float32, torch.float64)}
         for s in ("trbdf2", "kvaerno3", "kvaerno5")}
+    b["anatomy"] = {s: times[(s, "anatomy")] for s in ("trbdf2", "kvaerno3", "kvaerno5")}
     c = entry(STIFF_BDF_RECORD, "bdf", k2c)
+    c["anatomy"] = times[("bdf", "anatomy")]
     for dt, suffix in ((torch.float32, ""), (torch.float64, "_f64")):
         for k in ("cap5_ms", "cap5_attempts_scaled", "cap5_lost"):
             c[k + suffix] = times[("bdf", dt)][k]
@@ -4220,65 +4389,18 @@ def pair_cells(pt):
     return readme, cov
 
 
-def pair_worker(tree: str, psi_out: str) -> dict:
-    """One side of ``--pair``: the package of the checkout at ``tree``. Times
-    both SDE cells per dtype (three calls after a warm one that builds),
-    writes their psi to ``psi_out`` (npz), and reads each SDE library's
-    four-particles-a-thread kernels (``sde_anatomy``; resident blocks also
-    from the library's own occupancy query where it has one)."""
-    sys.path.insert(0, tree)
-    import ctypes
-
-    import pharmsol_tpu_torch as pt
-    from pharmsol_tpu_torch.ops import _build
-
-    root = Path(pt.__file__).resolve().parent
-    if root.parent != Path(tree).resolve():
-        raise AssertionError(f"imported {root}, not the package of {tree}")
-    cells = pair_cells(pt)
-    libs = []
-    for label, model, data, sp, ems in cells:
-        plan = sde_plan_for(model, data, sp, ems, torch.float64)
-        feature = label.startswith("K3b")
-        libs.append((_build.generated_target(_build.sde_kind(feature), plan.gen), plan, feature))
-    _build.build_many([t for t, _, _ in libs])  # both at once
-    _build.load_library()
-    ms, psi = {}, {}
-    for label, model, data, sp, ems in cells:
-        for dtype in (torch.float32, torch.float64):
-            pt.set_float_dtype(dtype)
-            call = lambda: pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")  # noqa: E731
-            out = call()
-            if not bool(torch.isfinite(out).all()):
-                raise AssertionError(f"{tree} {label}: psi not finite")
-            key = f"{label} {str(dtype)[6:]}"
-            ms[key] = [wall_ms(call, 1, 0) for _ in range(3)]
-            psi[key] = out.double().cpu().numpy()
-    np.savez(psi_out, **psi)
-    regs, anatomy = {}, {}
-    for lib in sorted((root / "_build").glob("libfused_*.so")):
-        if lib.name.startswith(("libfused_psi", "libfused_sde")):
-            regs.update(kernel_registers(lib))
-    for target, plan, feature in libs:
-        found = sde_anatomy(target.path, plan.gen.n_states, SDE_PARTICLES)
-        query = getattr(ctypes.CDLL(str(target.path)), "fused_sde_occupancy", None)
-        for key, a in found.items():
-            if query is not None:
-                blocks = ctypes.c_int(0)
-                query.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-                if query(int("f64" in key), SDE_PARTICLES, ctypes.addressof(blocks)) == 0:
-                    a["blocks_per_sm_runtime"] = blocks.value
-            anatomy[key] = a
-    return dict(tree=tree, ms=ms, regs=regs, anatomy=anatomy)
-
-
-def run_pair(other: str, card: str) -> None:
+def run_pair(other: str, card: str, only=None) -> None:
     """``--pair``: this checkout against the one at ``other``, in the order
-    other, here, here, other: both SDE cells' times per dtype, the factor of
-    the medians and whether the sides' ranges part; the change's psi held to
-    the parent's cell by cell at the twin's tolerances (both draw the same
-    Philox numbers); registers, resident blocks and the trial loop's
-    instruction mix of each side's four-particles-a-thread SDE kernels."""
+    other, here, here, other, each side a process of its own: the cells'
+    times per dtype (and for the stiff cell per solver, with the kernel
+    alone), the factor of the medians and whether the sides' ranges part;
+    the change's psi held to the parent's cell by cell (SDE at the twin's
+    tolerances, both drawing the same Philox numbers; stiff by the
+    kernel-twin rule, with the cells that differ at all counted); the
+    registers of every closed-form, SDE and ODE kernel each side built; the
+    SDE kernels' resident blocks and trial-loop mix at four particles a
+    thread; the stiff libraries' anatomy and the stiff cell's lane-slots per
+    trial under each side's layout. ``only``: "sde" or "stiff" alone."""
     import tempfile
 
     here = str(Path(__file__).resolve().parent)
@@ -4287,8 +4409,8 @@ def run_pair(other: str, card: str) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         for k, tree in enumerate((other, here, here, other)):
             out = str(Path(tmp) / f"side{k}.npz")
-            proc = subprocess.run([sys.executable, __file__, "--pair-worker", tree, out],
-                                  capture_output=True, text=True, timeout=900)
+            proc = subprocess.run([sys.executable, __file__, "--pair-worker", tree, out,
+                                   only or "all"], capture_output=True, text=True, timeout=900)
             lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("PAIR ")]
             if proc.returncode != 0 or not lines:
                 raise AssertionError(f"pair side {tree}: exit {proc.returncode}\n"
@@ -4299,22 +4421,36 @@ def run_pair(other: str, card: str) -> None:
             side = "parent" if tree == other else "change"
             for key, v in sides[-1]["ms"].items():
                 log(f"[pair] {side} {key} end-to-end ms: " + ", ".join(f"{x:.3f}" for x in v)
-                    + f" ({card})")
+                    + (f"; kernel alone {sides[-1]['kernel_ms'][key]:.3f} ms"
+                       if key in sides[-1]["kernel_ms"] else "") + f" ({card})")
     factors = {}
-    for key in sides[0]["ms"]:
-        par = sides[0]["ms"][key] + sides[3]["ms"][key]
-        chg = sides[1]["ms"][key] + sides[2]["ms"][key]
-        factors[key] = statistics.median(par) / statistics.median(chg)
-        apart = ("faster beyond the spread" if max(chg) < min(par) else
-                 "slower beyond the spread" if min(chg) > max(par) else "within the spread")
-        log(f"[pair] {key}: parent {min(par):.3f}-{max(par):.3f} ms, change "
-            f"{min(chg):.3f}-{max(chg):.3f} ms, factor {factors[key]:.3f} ({apart}) ({card})")
+    for what, field in (("end to end", "ms"), ("kernel alone", "kernel_ms")):
+        for key in sides[0][field]:
+            one = field == "kernel_ms"
+            par = ([sides[0][field][key], sides[3][field][key]] if one
+                   else sides[0][field][key] + sides[3][field][key])
+            chg = ([sides[1][field][key], sides[2][field][key]] if one
+                   else sides[1][field][key] + sides[2][field][key])
+            factors[f"{key} {what}"] = statistics.median(par) / statistics.median(chg)
+            apart = ("faster beyond the spread" if max(chg) < min(par) else
+                     "slower beyond the spread" if min(chg) > max(par) else "within the spread")
+            log(f"[pair] {key} {what}: parent {min(par):.3f}-{max(par):.3f} ms, change "
+                f"{min(chg):.3f}-{max(chg):.3f} ms, factor {factors[f'{key} {what}']:.3f} "
+                f"({apart}) ({card})")
     for key in psis[0]:
-        tol, share = (1e-9, 0.999) if key.endswith("float64") else (1e-4, 0.99)
         for a, b, what in ((0, 3, "parent vs parent"), (1, 2, "change vs change"),
                            (0, 1, "change vs parent")):
-            sde_compare(f"pair {key} {what}", torch.from_numpy(psis[b][key]),
-                        torch.from_numpy(psis[a][key]), tol, share, phase="pair")
+            want, got = torch.from_numpy(psis[a][key]), torch.from_numpy(psis[b][key])
+            if key.startswith("ODE TMDD"):
+                differ = int((got.double() != want.double()).sum()
+                             - (torch.isnan(got) & torch.isnan(want)).sum())
+                err, share = compare_stiff(f"pair {key} {what}", got.double(), want.double())
+                log(f"[pair] {key} {what}: {differ} of {got.numel()} cells differ at all; "
+                    f"max rel {err:.3e} (<= 1e-6), {share:.6f} within 1e-8 (>= 0.99), the "
+                    f"same lost cells ({int((~torch.isfinite(got)).sum())})")
+                continue
+            tol, share = (1e-9, 0.999) if key.endswith("float64") else (1e-4, 0.99)
+            sde_compare(f"pair {key} {what}", got, want, tol, share, phase="pair")
     base, change = sides[0]["regs"], sides[1]["regs"]
     for key in sorted(set(base) | set(change)):
         same = "same" if base.get(key) == change.get(key) else "DIFFERENT"
@@ -4329,19 +4465,178 @@ def run_pair(other: str, card: str) -> None:
                 f"{a.get('blocks_per_sm_runtime', a['blocks_per_sm'])} resident blocks per SM "
                 f"({a['blocks_per_sm']} from the registers); per particle-trial: "
                 + ", ".join(f"{k} {v:g}" for k, v in sorted(mix.items())))
+    for side, k in (("parent", 0), ("change", 1)):
+        for key, a in sorted(sides[k]["stiff_anatomy"].items()):
+            log(f"[pair] {side} anatomy {key}: {describe_anatomy(a)}")
+    slots = {}
+    if only in (None, "stiff"):
+        from pharmsol_tpu_torch.ops.fused_ode import implicit_lanes
+
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        cells = STIFF_SHAPE[0] * STIFF_SHAPE[1]
+
+        def lanes_of(solver):
+            tier = "K2c" if solver == "bdf" else "K2b"
+            a = sides[1]["stiff_anatomy"].get(
+                f"tmdd {solver}: {tier} {solver} f64" + (" cap 3" if solver == "bdf" else ""))
+            if not a or "blocks_per_sm_runtime" not in a:
+                return None
+            return implicit_lanes(cells, a["blocks_per_sm_runtime"] * sms)
+
+        slots = pair_lane_slots(lanes_of)
+        for solver, v in slots.items():
+            log(f"[pair] lane-slots per trial, {solver} float64 (the twin's trials by march call "
+                f"on {STIFF_TWIN_ROWS} subjects x {STIFF_SHAPE[1]}, scaled to the cell): parent "
+                f"{v['synced']:.4f} (synced at every march call), one cell a lane on its own "
+                f"{v['own']:.4f}, change "
+                + ("no query" if v["refilled"] is None else f"{v['refilled']:.4f}"))
     print(json.dumps({"pair": {
         "order": ["parent", "change", "change", "parent"],
-        "ms": [s["ms"] for s in sides], "factors": factors,
-        "registers_parent": base, "registers_change": change,
-        "anatomy_parent": sides[0]["anatomy"], "anatomy_change": sides[1]["anatomy"]}}))
+        "ms": [s["ms"] for s in sides], "kernel_ms": [s["kernel_ms"] for s in sides],
+        "factors": factors, "registers_parent": base, "registers_change": change,
+        "anatomy_parent": sides[0]["anatomy"], "anatomy_change": sides[1]["anatomy"],
+        "stiff_anatomy_parent": sides[0]["stiff_anatomy"],
+        "stiff_anatomy_change": sides[1]["stiff_anatomy"], "lane_slots": slots}}))
+
+
+def pair_worker(tree: str, psi_out: str, only=None) -> dict:
+    """One side of ``--pair``: the package of the checkout at ``tree``. With
+    ``only`` None or "sde": times both SDE cells per dtype (three calls after
+    a warm one that builds) and reads each SDE library's
+    four-particles-a-thread kernels (``sde_anatomy``; resident blocks also
+    from the library's own occupancy query where it has one); with None or
+    "stiff": the stiff cell under each solver and dtype (``pair_stiff``).
+    Writes every cell's psi to ``psi_out`` (npz)."""
+    sys.path.insert(0, tree)
+    import ctypes
+
+    import pharmsol_tpu_torch as pt
+    from pharmsol_tpu_torch.ops import _build
+
+    root = Path(pt.__file__).resolve().parent
+    if root.parent != Path(tree).resolve():
+        raise AssertionError(f"imported {root}, not the package of {tree}")
+    ms, psi, regs, anatomy, kernel_ms, stiff = {}, {}, {}, {}, {}, {}
+    if only in (None, "stiff"):
+        stiff = pair_stiff(pt, ms, psi, kernel_ms)
+    if only in (None, "sde"):
+        cells = pair_cells(pt)
+        libs = []
+        for label, model, data, sp, ems in cells:
+            plan = sde_plan_for(model, data, sp, ems, torch.float64)
+            feature = label.startswith("K3b")
+            libs.append((_build.generated_target(_build.sde_kind(feature), plan.gen), plan,
+                         feature))
+        _build.build_many([t for t, _, _ in libs])  # both at once
+        _build.load_library()
+        for label, model, data, sp, ems in cells:
+            for dtype in (torch.float32, torch.float64):
+                pt.set_float_dtype(dtype)
+                call = lambda: pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")  # noqa: E731
+                out = call()
+                if not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"{tree} {label}: psi not finite")
+                key = f"{label} {str(dtype)[6:]}"
+                ms[key] = [wall_ms(call, 1, 0) for _ in range(3)]
+                psi[key] = out.double().cpu().numpy()
+        for lib in sorted((root / "_build").glob("libfused_*.so")):
+            if lib.name.startswith(("libfused_psi", "libfused_sde")):
+                regs.update(kernel_registers(lib))
+        for target, plan, feature in libs:
+            found = sde_anatomy(target.path, plan.gen.n_states, SDE_PARTICLES)
+            query = getattr(ctypes.CDLL(str(target.path)), "fused_sde_occupancy", None)
+            for key, a in found.items():
+                if query is not None:
+                    blocks = ctypes.c_int(0)
+                    query.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                    if query(int("f64" in key), SDE_PARTICLES, ctypes.addressof(blocks)) == 0:
+                        a["blocks_per_sm_runtime"] = blocks.value
+                anatomy[key] = a
+    np.savez(psi_out, **psi)
+    return dict(tree=tree, ms=ms, regs=dict(regs, **stiff.get("regs", {})), anatomy=anatomy,
+                kernel_ms=kernel_ms, stiff_anatomy=stiff.get("anatomy", {}))
+
+
+def pair_stiff(pt, ms: dict, psi: dict, kernel_ms: dict) -> dict:
+    """The stiff cell on one side of ``--pair``: its libraries built at once
+    (the TMDD header under each implicit solver, and its explicit and exact
+    tiers' libraries, whose registers must not move), then per solver and
+    dtype three ``log_likelihood_matrix`` calls after a warm one (``ms``),
+    the kernel alone by CUDA events (``kernel_ms``) and psi; returns the
+    registers of every ODE kernel built, keyed by library and kernel, and
+    the implicit libraries' anatomy (``stiff_anatomy``)."""
+    from pharmsol_tpu_torch.ops import _build
+
+    n, S = STIFF_SHAPE
+    data, ems, _ = tmdd_population(pt, n, np.random.RandomState(SEED + 8))
+    sp = tmdd_support(S, np.random.RandomState(SEED + 7))
+    small = pt.Data(data.subjects()[:2])
+    libs = {}
+    for solver in STIFF_SOLVERS:
+        gen = ode_plan_for(tmdd_model(solver), small, sp, ems, torch.float64).rhs
+        libs[f"tmdd {solver}"] = _build.generated_target(_build.ode_kind(solver), gen)
+    libs["tmdd expm tier"] = _build.generated_target(_build.ODE, gen)  # the same header
+    gen = ode_plan_for(tmdd_model("dopri5"), small, sp, ems, torch.float64).rhs
+    libs["tmdd explicit tier"] = _build.generated_target(_build.ODE, gen)
+    _build.build_many(list(libs.values()))
+    label = "ODE TMDD stiff {}x{}".format(*STIFF_SHAPE)
+    for solver in STIFF_SOLVERS:
+        model = tmdd_model(solver)
+        for dtype in (torch.float32, torch.float64):
+            pt.set_float_dtype(dtype)
+            key = f"{label} {solver} {str(dtype)[6:]}"
+            call = lambda: pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")  # noqa: E731
+            out = call()
+            if tuple(out.shape) != (n, S) or bool(torch.isnan(out).any()):
+                raise AssertionError(f"{key}: psi {tuple(out.shape)}, NaN in it")
+            ms[key] = [wall_ms(call, 1, 0) for _ in range(3)]
+            psi[key] = out.cpu().numpy()
+            del out
+            plan = ode_plan_for(model, data, sp, ems, dtype)
+            kernel_ms[key] = cuda_ms(lambda: run_ode_kernel(plan), 3, 1)
+            del plan
+    regs, anatomy = {}, {}
+    for name, target in libs.items():
+        for kernel, r in kernel_resources(target.path).items():
+            key = ode_kernel_key(kernel)
+            if key is not None:
+                regs[f"{name}: {key}"] = r.get("reg")
+        if name.split()[-1] in STIFF_SOLVERS:
+            anatomy.update({f"{name}: {k}": a for k, a in stiff_anatomy(target.path).items()})
+    return dict(regs=regs, anatomy=anatomy)
+
+
+def pair_lane_slots(lanes_of) -> dict:
+    """Lane-slots per trial of the stiff cell under each solver, float64,
+    from the twin's trials by march call on ``stiff_twin_rows`` x 512 (run
+    here on the card): the parent's layout and the change's persistent grid
+    (``lanes_of(solver)`` lanes, None where the change has no query)."""
+    import pharmsol_tpu_torch as pt
+    from pharmsol_tpu_torch.ops.fused_ode import psi_ode_plain
+
+    n, S = STIFF_SHAPE
+    pt.set_float_dtype(torch.float64)
+    data, ems, _ = tmdd_population(pt, n, np.random.RandomState(SEED + 8),
+                                   rows=stiff_twin_rows(n))
+    sp = tmdd_support(S, np.random.RandomState(SEED + 7))
+    out = {}
+    for solver in STIFF_SOLVERS:
+        plan = ode_plan_for(tmdd_model(solver), data, sp, ems, torch.float64)
+        counts = {}
+        psi_ode_plain(*plan.streams, plan.support, plan.rhs, counts=counts,
+                      **plan.kernel_kwargs())
+        tbc = torch.stack(counts["trials_by_call"]).cpu().numpy()
+        out[solver] = stiff_lane_slots(tbc, n, lanes_of(solver))
+    return out
 
 
 R_S_P_LABEL = "{}x{}x{}".format(*SDE_FULL, SDE_PARTICLES)
 
 
 def main() -> int:
-    if len(sys.argv) == 4 and sys.argv[1] == "--pair-worker":
-        print("PAIR " + json.dumps(pair_worker(sys.argv[2], sys.argv[3])), flush=True)
+    if len(sys.argv) == 5 and sys.argv[1] == "--pair-worker":
+        only = None if sys.argv[4] == "all" else sys.argv[4]
+        print("PAIR " + json.dumps(pair_worker(sys.argv[2], sys.argv[3], only)), flush=True)
         return 0
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["stiff", "sde", "k1c"], default=None,
@@ -4352,10 +4647,11 @@ def main() -> int:
                              "holds that part's kernels and the last line says {\"ok\": true, "
                              "\"partial\": ...}, not the whole script's verdict")
     parser.add_argument("--pair", metavar="DIR", default=None,
-                        help="hold this checkout against the one at DIR: K3a's README cell "
-                             "and K3b's covariate cell timed, their psi compared, the kernels' "
-                             "registers, resident blocks and trial-loop instruction mix, in "
-                             "the order DIR, here, here, DIR")
+                        help="hold this checkout against the one at DIR, in the order DIR, "
+                             "here, here, DIR: K3a's README cell, K3b's covariate cell and the "
+                             "stiff cell under each solver timed, their psi compared, the "
+                             "kernels' registers and anatomy (with --only sde or --only stiff: "
+                             "that part alone)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4369,7 +4665,9 @@ def main() -> int:
     rng = np.random.RandomState(SEED)
     card = phase_environment()
     if args.pair is not None:
-        run_pair(args.pair, card)
+        if args.only not in (None, "sde", "stiff"):
+            raise SystemExit("--pair takes --only sde or --only stiff")
+        run_pair(args.pair, card, args.only)
         print(card)
         print(json.dumps({"ok": True, "partial": "pair"}))
         return 0

@@ -57,6 +57,10 @@
 // rows in y; the ragged support edge is masked here. No padding of R, S or M,
 // and M has no limit. States, the 7 FSAL stages, the step size and the
 // controller live in registers; the tableaus are compile-time constants.
+// The implicit tiers (K2b, K2c) have a layout of their own
+// (fused_ode_implicit_kernel): a persistent grid whose lanes march cell after
+// cell, one trial a pass of one loop, so that a lane never waits for its warp
+// between march calls.
 //
 // Per cell, for each run of segments [m0, m1) (one segment per run, or a
 // merged run whose interior breakpoints carry observations only):
@@ -620,32 +624,76 @@ __device__ __forceinline__ T out_of(const Args<T>& a, int k, int s, const T* xv)
   return v;
 }
 
-// K2b: the adaptive SDIRK march of one run over `target` time from t0 (the
-// JAX kernel's `integrate_sdirk`, ops/pallas_ode.py:949-1150). Per trial:
-// h_try = min(h, max(rem, 1e-14)); J at the step's start; Minv = (I - h_try
-// gamma J)^-1 once; stage 0 explicit; each later stage starts from base + h
-// gamma k_{i-1} and takes newton_iters rounds z -= Minv F(z), F(z) = z - base
-// - h gamma f(z), then one more RHS for the stage slope and the WRMS of the
-// residual. The step is finite only if the largest residual is <= 0.1 and the
-// state moved by at most 10 (1 + max |x|); it is accepted if the embedded
-// error ratio is <= 1 too. Interior observations of a merged run are captured
-// by the cubic Hermite on (x0, f0, x1, f1), f1 the last stage slope (these
-// pairs are stiffly accurate), contracted with the output row first. A lane
-// that arrives non-finite or with no time to cover does not march; one that
-// stalls or runs out of trials is NaN, and so are the captures it never
-// reached. The TPU kernel's lane masks, its tile-wide loop condition and its
-// halved tiles have no counterpart: a thread runs its own loop.
+#endif  // PHARMSOL_ODE_SOLVER != 6
+
+// What a lane of the implicit tiers carries from one trial to the next
+// (fused_ode_implicit_kernel below): its cell, the cell's parameters, state
+// and log-likelihood, the run (and with lag the pass of its segment) it
+// marches, and the position of that march call. The solver's own state
+// rides beside it (SdirkCall, BdfCall).
+template <typename T>
+struct Lane {
+  int s;                     // the cell's support
+  size_t row, rs;            // its row in [R, M] streams; the cell in [R, S]
+  T p[NP], x[N], ll, h;
+  T rate[NIN], ca[NC], cb[NC];
+  T pend_amt[NIN], pend_rem[NIN];  // K2e with lag: each bolus plane's pending dose
+  int ri, pass;              // the run; with lag the pass of its segment
+  int m0, m1;                // the march call's columns [m0, m1)
+  T t0, elapsed;             // the run's start; with lag the time marched in it
+  T tc, target, thr, tau, hc;  // the march call: start, length, end, progress, step
+  int it;                    // the call's trials so far
+  bool live;                 // the call marches on
+};
+
+#if PHARMSOL_ODE_SOLVER != 6
+// K2b: the adaptive SDIRK march of one call over `target` time from tc (the
+// JAX kernel's `integrate_sdirk`, ops/pallas_ode.py:949-1150), split into
+// its start (sdirk_begin), one trial (sdirk_trial) and its end (sdirk_end).
+// Per trial: h_try = min(h, max(rem, 1e-14)); J at the step's start; Minv =
+// (I - h_try gamma J)^-1 once; stage 0 explicit; each later stage starts
+// from base + h gamma k_{i-1} and takes newton_iters rounds z -= Minv F(z),
+// F(z) = z - base - h gamma f(z), then one more RHS for the stage slope and
+// the WRMS of the residual. The step is finite only if the largest residual
+// is <= 0.1 and the state moved by at most 10 (1 + max |x|); it is accepted
+// if the embedded error ratio is <= 1 too. Interior observations of a merged
+// run are captured by the cubic Hermite on (x0, f0, x1, f1), f1 the last
+// stage slope (these pairs are stiffly accurate), contracted with the output
+// row first. A lane that arrives non-finite or with no time to cover does not
+// march; one that stalls or runs out of trials is NaN, and so are the
+// captures it never reached. The TPU kernel's lane masks, its tile-wide loop
+// condition and its halved tiles have no counterpart.
 //
-// Per thread: Minv[N][N], ks[NSTG][N], z, base, F. The stage loop is unrolled
-// (the tableau is a compile-time constant, zero weights are skipped as in the
-// twin), the Newton loop is rolled. kvaerno5 at 5 states holds 35 stage
-// slopes: ptxas may spill them to local memory.
+// Per thread: Minv[N][N], ks[NSTG][N], z, base, F, live within one trial
+// only. The stage loop is unrolled (the tableau is a compile-time constant,
+// zero weights are skipped as in the twin), the Newton loop is rolled.
+template <typename T>
+struct SdirkCall {
+  int mm;      // next interior column
+  T Tj;        // its offset from the run's start
+  bool live0;  // the call marches at all (then it hands its step on)
+};
+
+template <typename T>
+__device__ __forceinline__ void call_begin(const Args<T>& a, Lane<T>& L, SdirkCall<T>& C) {
+  L.thr = L.target - T(1e-6) * pm_max(L.target, T(1e-30));
+  C.live0 = L.target > T(0) && all_finite(L.x);
+  C.mm = L.m0 + 1;
+  C.Tj = a.seg_dt[L.row + L.m0];
+  // zero-offset observations read the run's start state
+  while (C.mm < L.m1 && C.Tj <= T(0)) {
+    L.ll += obs_term(a, L.row + C.mm, L.s, L.x);
+    C.Tj = C.Tj + a.seg_dt[L.row + C.mm];
+    ++C.mm;
+  }
+  L.tau = T(0);
+  L.hc = pm_min(L.h, pm_max(L.target, T(1e-14)));
+  L.live = C.live0;
+  L.it = 0;
+}
+
 template <typename T, int SOLVER>
-__device__ __forceinline__ void march_sdirk(const Args<T>& a, T* x, T& h, T& ll,
-                                            const T* p, const T* rate,
-                                            const T* ca, const T* cb, T t0,
-                                            T target, size_t row, int s, int m0,
-                                            int m1) {
+__device__ __forceinline__ void call_trial(const Args<T>& a, Lane<T>& L, SdirkCall<T>& C) {
   using Tb = STab<SOLVER>;
   constexpr int NSTG = Tb::NSTG;
   const T rtol = a.rtol, atol = a.atol;
@@ -653,208 +701,255 @@ __device__ __forceinline__ void march_sdirk(const Args<T>& a, T* x, T& h, T& ll,
   T bz[NIN];
 #pragma unroll
   for (int j = 0; j < NIN; ++j) bz[j] = T(0);
-
-  const T thr = target - T(1e-6) * pm_max(target, T(1e-30));
-  const bool live0 = target > T(0) && all_finite(x);
-  int mm = m0 + 1;                 // next interior column
-  T Tj = a.seg_dt[row + m0];       // its offset from the run's start
-  // zero-offset observations read the run's start state
-  while (mm < m1 && Tj <= T(0)) {
-    ll += obs_term(a, row + mm, s, x);
-    Tj = Tj + a.seg_dt[row + mm];
-    ++mm;
-  }
-
-  T tau = T(0);
-  T hc = pm_min(h, pm_max(target, T(1e-14)));
-  bool live = live0;
   T ks[NSTG][N];
   T Minv[N][N];
-#pragma unroll 1
-  for (int it = 0; it < a.max_iters && live; ++it) {
-    const T ht = pm_min(hc, pm_max(target - tau, T(1e-14)));
-    const T tb = t0 + tau;
-    const T hg = ht * gamma;
-    newton_inverse<T>(x, p, tb, rate, ca, cb, hg, Minv);
-    rhs<T>(x, p, tb, bz, rate, ca, cb, ks[0]);
-    T resid_max = T(0);
+  const T ht = pm_min(L.hc, pm_max(L.target - L.tau, T(1e-14)));
+  const T tb = L.tc + L.tau;
+  const T hg = ht * gamma;
+  newton_inverse<T>(L.x, L.p, tb, L.rate, L.ca, L.cb, hg, Minv);
+  rhs<T>(L.x, L.p, tb, bz, L.rate, L.ca, L.cb, ks[0]);
+  T resid_max = T(0);
 #pragma unroll
-    for (int i = 1; i < NSTG; ++i) {
-      T base[N], z[N], F[N], dz[N];
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        T acc = T(0);
-        bool any = false;
-#pragma unroll
-        for (int l = 0; l < i; ++l) {
-          if (Tb::a(i, l) != 0.0) {
-            acc = any ? acc + ks[l][j] * T(Tb::a(i, l)) : ks[l][j] * T(Tb::a(i, l));
-            any = true;
-          }
-        }
-        base[j] = x[j] + ht * acc;
-        z[j] = base[j] + hg * ks[i - 1][j];
-      }
-      const T t_st = tb + T(Tb::c(i)) * ht;
-#pragma unroll 1
-      for (int nit = 0; nit < a.newton_iters; ++nit) {
-        rhs<T>(z, p, t_st, bz, rate, ca, cb, F);
-#pragma unroll
-        for (int j = 0; j < N; ++j) F[j] = z[j] - base[j] - hg * F[j];
-        matvec<T>(Minv, F, dz);
-#pragma unroll
-        for (int j = 0; j < N; ++j) z[j] = z[j] - dz[j];
-      }
-      rhs<T>(z, p, t_st, bz, rate, ca, cb, ks[i]);
-      T r2 = T(0);
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const T Fs = z[j] - base[j] - hg * ks[i][j];
-        const T q = Fs / (atol + rtol * pm_abs(z[j]));
-        r2 = r2 + q * q;
-      }
-      resid_max = pm_max(resid_max, pm_sqrt(r2 / T(N)));
-    }
-    T xn[N];
-    T err2 = T(0), growth = T(0), xmax = T(0);
+  for (int i = 1; i < NSTG; ++i) {
+    T base[N], z[N], F[N], dz[N];
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      T accb = T(0), acch = T(0);
-      bool anyb = false, anyh = false;
+      T acc = T(0);
+      bool any = false;
 #pragma unroll
-      for (int l = 0; l < NSTG; ++l) {
-        if (Tb::b(l) != 0.0) {
-          accb = anyb ? accb + ks[l][j] * T(Tb::b(l)) : ks[l][j] * T(Tb::b(l));
-          anyb = true;
-        }
-        if (Tb::bhat(l) != 0.0) {
-          acch = anyh ? acch + ks[l][j] * T(Tb::bhat(l)) : ks[l][j] * T(Tb::bhat(l));
-          anyh = true;
+      for (int l = 0; l < i; ++l) {
+        if (Tb::a(i, l) != 0.0) {
+          acc = any ? acc + ks[l][j] * T(Tb::a(i, l)) : ks[l][j] * T(Tb::a(i, l));
+          any = true;
         }
       }
-      xn[j] = x[j] + ht * accb;
-      const T e = ht * (accb - acch);
-      const T q = e / (atol + rtol * pm_max(pm_abs(x[j]), pm_abs(xn[j])));
-      err2 = err2 + q * q;
-      growth = pm_max(growth, pm_abs(xn[j] - x[j]));
-      xmax = pm_max(xmax, pm_abs(x[j]));
+      base[j] = L.x[j] + ht * acc;
+      z[j] = base[j] + hg * ks[i - 1][j];
     }
-    const T ratio = pm_sqrt(err2 / T(N));
-    // a Newton stage that did not converge invalidates the step; a tenfold
-    // jump of the state is a spurious Newton root
-    const bool finite = isfinite(ratio) && resid_max <= T(0.1) && all_finite(xn) &&
-                        growth <= T(10) * (T(1) + xmax);
-    const bool accept = ratio <= T(1) && finite;
-    const T factor =
-        finite ? pm_min(pm_max(T(0.9) * pm_pow(pm_max(ratio, T(1e-10)),
-                                               T(-1.0 / (Tb::order + 1.0))),
-                               T(0.2)), T(Tb::max_growth))
-               : T(0.25);
-    if (accept) {
-      // cubic Hermite captures of the interior observations this step crosses
-      while (mm < m1) {
-        const T te = pm_min(Tj, thr);
-        if (!(te <= tau + ht)) break;
-        const size_t io = row + mm;
-        if (a.obs_mask[io] > T(0)) {
-          const int k = a.n_out > 1 ? (int)a.obs_outeq[io] : 0;
-          T pred = T(0);
-          if (k >= 0 && k < a.n_out) {
-            const T th = (te - tau) / ht;
-            const T c0 = out_of(a, k, s, x), c1 = out_of(a, k, s, xn);
-            const T f0 = out_of(a, k, s, ks[0]), f1 = out_of(a, k, s, ks[NSTG - 1]);
-            const T d = c1 - c0;
-            const T a_ = ht * f0 - d;
-            const T b_ = d - ht * f1;
-            pred = c0 + th * d + th * (T(1) - th) * ((T(1) - th) * a_ + th * b_);
-          }
-          ll += obs_term_pred(a, io, s, k, pred);
-        }
-        Tj = Tj + a.seg_dt[io];
-        ++mm;
-      }
-      tau = tau + ht;
+    const T t_st = tb + T(Tb::c(i)) * ht;
+#pragma unroll 1
+    for (int nit = 0; nit < a.newton_iters; ++nit) {
+      rhs<T>(z, L.p, t_st, bz, L.rate, L.ca, L.cb, F);
 #pragma unroll
-      for (int j = 0; j < N; ++j) x[j] = xn[j];
+      for (int j = 0; j < N; ++j) F[j] = z[j] - base[j] - hg * F[j];
+      matvec<T>(Minv, F, dz);
+#pragma unroll
+      for (int j = 0; j < N; ++j) z[j] = z[j] - dz[j];
     }
-    hc = pm_max(ht * factor, T(1e-14));
-    const bool done = tau >= thr;
-    const bool stalled = (tau + hc) <= tau && !done;
-    live = !done && !stalled;
+    rhs<T>(z, L.p, t_st, bz, L.rate, L.ca, L.cb, ks[i]);
+    T r2 = T(0);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const T Fs = z[j] - base[j] - hg * ks[i][j];
+      const T q = Fs / (atol + rtol * pm_abs(z[j]));
+      r2 = r2 + q * q;
+    }
+    resid_max = pm_max(resid_max, pm_sqrt(r2 / T(N)));
   }
-  if (tau < thr) {
+  T xn[N];
+  T err2 = T(0), growth = T(0), xmax = T(0);
 #pragma unroll
-    for (int j = 0; j < N; ++j) x[j] = T(NAN);
+  for (int j = 0; j < N; ++j) {
+    T accb = T(0), acch = T(0);
+    bool anyb = false, anyh = false;
+#pragma unroll
+    for (int l = 0; l < NSTG; ++l) {
+      if (Tb::b(l) != 0.0) {
+        accb = anyb ? accb + ks[l][j] * T(Tb::b(l)) : ks[l][j] * T(Tb::b(l));
+        anyb = true;
+      }
+      if (Tb::bhat(l) != 0.0) {
+        acch = anyh ? acch + ks[l][j] * T(Tb::bhat(l)) : ks[l][j] * T(Tb::bhat(l));
+        anyh = true;
+      }
+    }
+    xn[j] = L.x[j] + ht * accb;
+    const T e = ht * (accb - acch);
+    const T q = e / (atol + rtol * pm_max(pm_abs(L.x[j]), pm_abs(xn[j])));
+    err2 = err2 + q * q;
+    growth = pm_max(growth, pm_abs(xn[j] - L.x[j]));
+    xmax = pm_max(xmax, pm_abs(L.x[j]));
+  }
+  const T ratio = pm_sqrt(err2 / T(N));
+  // a Newton stage that did not converge invalidates the step; a tenfold
+  // jump of the state is a spurious Newton root
+  const bool finite = isfinite(ratio) && resid_max <= T(0.1) && all_finite(xn) &&
+                      growth <= T(10) * (T(1) + xmax);
+  const bool accept = ratio <= T(1) && finite;
+  const T factor =
+      finite ? pm_min(pm_max(T(0.9) * pm_pow(pm_max(ratio, T(1e-10)),
+                                             T(-1.0 / (Tb::order + 1.0))),
+                             T(0.2)), T(Tb::max_growth))
+             : T(0.25);
+  if (accept) {
+    // cubic Hermite captures of the interior observations this step crosses
+    while (C.mm < L.m1) {
+      const T te = pm_min(C.Tj, L.thr);
+      if (!(te <= L.tau + ht)) break;
+      const size_t io = L.row + C.mm;
+      if (a.obs_mask[io] > T(0)) {
+        const int k = a.n_out > 1 ? (int)a.obs_outeq[io] : 0;
+        T pred = T(0);
+        if (k >= 0 && k < a.n_out) {
+          const T th = (te - L.tau) / ht;
+          const T c0 = out_of(a, k, L.s, L.x), c1 = out_of(a, k, L.s, xn);
+          const T f0 = out_of(a, k, L.s, ks[0]), f1 = out_of(a, k, L.s, ks[NSTG - 1]);
+          const T d = c1 - c0;
+          const T a_ = ht * f0 - d;
+          const T b_ = d - ht * f1;
+          pred = c0 + th * d + th * (T(1) - th) * ((T(1) - th) * a_ + th * b_);
+        }
+        L.ll += obs_term_pred(a, io, L.s, k, pred);
+      }
+      C.Tj = C.Tj + a.seg_dt[io];
+      ++C.mm;
+    }
+    L.tau = L.tau + ht;
+#pragma unroll
+    for (int j = 0; j < N; ++j) L.x[j] = xn[j];
+  }
+  L.hc = pm_max(ht * factor, T(1e-14));
+  const bool done = L.tau >= L.thr;
+  const bool stalled = (L.tau + L.hc) <= L.tau && !done;
+  L.live = !done && !stalled;
+  ++L.it;
+}
+
+template <typename T>
+__device__ __forceinline__ void call_end(const Args<T>& a, Lane<T>& L, SdirkCall<T>& C) {
+  if (L.tau < L.thr) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) L.x[j] = T(NAN);
   }
   // captures an incomplete lane never reached
   T xnan[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) xnan[j] = T(NAN);
-  for (; mm < m1; ++mm) ll += obs_term(a, row + mm, s, xnan);
-  if (live0) h = hc;
+  for (; C.mm < L.m1; ++C.mm) L.ll += obs_term(a, L.row + C.mm, L.s, xnan);
+  if (C.live0) L.h = L.hc;
 }
+
+template <typename T, int CAP>
+struct CallOf {
+  using type = SdirkCall<T>;
+};
 #else  // PHARMSOL_ODE_SOLVER == 6
 
 // Variable-order BDF (1-5), fixed leading coefficient with the kappa
 // stabilisation (SUNDIALS/ode15s): alpha, the gamma sums and the error
 // constant of each order, the doubles of pharmsol_tpu_torch/engine/ode.py;
 // and U = R(1), the involutory backward-difference transform (the JAX
-// kernel's _bdf_U, ops/pallas_ode.py:312; ops/fused_ode.py::bdf_U).
-constexpr int BDF_ROWS = 8;  // D[order cap + 3], the cap at most 5
-__constant__ double BDF_ALPHA[6] = {0.0, 1.185, 1.6666666666666667,
-                                    1.9842166666666667, 2.1697916666666663,
-                                    2.283333333333333};
-__constant__ double BDF_GAMMA[6] = {0.0, 1.0, 1.5, 1.8333333333333333,
-                                    2.083333333333333, 2.283333333333333};
-__constant__ double BDF_ERROR_CONST[6] = {1.0, 0.315, 0.16666666666666666,
-                                          0.09911666666666669,
-                                          0.11354166666666668,
-                                          0.16666666666666666};
-__constant__ double BDF_U[6][6] = {
-    {1.0, 1.0, 1.0, 1.0, 1.0, 1.0},
-    {0.0, -1.0, -2.0, -3.0, -4.0, -5.0},
-    {0.0, -0.0, 1.0, 3.0, 6.0, 10.0},
-    {0.0, -0.0, 0.0, -1.0, -4.0, -10.0},
-    {0.0, -0.0, 0.0, -0.0, 1.0, 5.0},
-    {0.0, -0.0, 0.0, -0.0, 0.0, -1.0},
+// kernel's _bdf_U, ops/pallas_ode.py:312; ops/fused_ode.py::bdf_U). Every
+// index into them is a compile-time constant: the loops over orders are
+// unrolled to the kernel's largest order CAP and predicated on the lane's
+// order, and a table entry at the lane's order is a chain of selects.
+struct BdfAlpha {
+  __host__ __device__ static constexpr double at(int k) {
+    constexpr double BDF_ALPHA[6] = {0.0, 1.185, 1.6666666666666667,
+                                     1.9842166666666667, 2.1697916666666663,
+                                     2.283333333333333};
+    return BDF_ALPHA[k];
+  }
 };
+struct BdfGamma {
+  __host__ __device__ static constexpr double at(int k) {
+    constexpr double BDF_GAMMA[6] = {0.0, 1.0, 1.5, 1.8333333333333333,
+                                     2.083333333333333, 2.283333333333333};
+    return BDF_GAMMA[k];
+  }
+};
+struct BdfErrorConst {
+  __host__ __device__ static constexpr double at(int k) {
+    constexpr double BDF_ERROR_CONST[6] = {1.0, 0.315, 0.16666666666666666,
+                                           0.09911666666666669, 0.11354166666666668,
+                                           0.16666666666666666};
+    return BDF_ERROR_CONST[k];
+  }
+};
+__host__ __device__ constexpr double bdf_u(int b, int c) {
+  constexpr double BDF_U[6][6] = {
+      {1.0, 1.0, 1.0, 1.0, 1.0, 1.0},
+      {0.0, -1.0, -2.0, -3.0, -4.0, -5.0},
+      {0.0, -0.0, 1.0, 3.0, 6.0, 10.0},
+      {0.0, -0.0, 0.0, -1.0, -4.0, -10.0},
+      {0.0, -0.0, 0.0, -0.0, 1.0, 5.0},
+      {0.0, -0.0, 0.0, -0.0, 0.0, -1.0},
+  };
+  return BDF_U[b][c];
+}
 
-// D[0..k] <- (R(fac) U)^T D[0..k] for a step-size change by `fac` at order k:
-// tmp = R^T D with R[0][j] = 1, R[i][0] = 0 (i >= 1), R[i][j] = R[i-1][j] (i
-// - 1 - fac j) / i built by its recurrence column by column, then U^T tmp.
-// The TPU kernel applies both as 6 x 6 transforms masked to the identity
-// beyond each lane's order; a thread loops to its own order. Rows above k
-// are untouched.
+// c ? a : b, kept a select: the compiler folds a chain of selects (or of
+// predicated stores) over the lane's order into one access at a computed
+// index, and a D indexed at run time cannot stay in registers. Every access
+// to D below is at a compile-time index and goes through keep_sel.
+#if defined(__CUDA_ARCH__)
+__device__ __forceinline__ float keep_sel(bool c, float a, float b) {
+  float r;
+  asm("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %3, 0;\n\tselp.f32 %0, %1, %2, p;\n\t}"
+      : "=f"(r) : "f"(a), "f"(b), "r"((int)c));
+  return r;
+}
+__device__ __forceinline__ double keep_sel(bool c, double a, double b) {
+  double r;
+  asm("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %3, 0;\n\tselp.f64 %0, %1, %2, p;\n\t}"
+      : "=d"(r) : "d"(a), "d"(b), "r"((int)c));
+  return r;
+}
+#else
 template <typename T>
+inline T keep_sel(bool c, T a, T b) { return c ? a : b; }
+#endif
+
+// Tab::at(k) for a run-time k in [LO, HI].
+template <typename Tab, typename T, int LO, int HI>
+__device__ __forceinline__ T bdf_at(int k) {
+  T v = T(Tab::at(LO));
+#pragma unroll
+  for (int i = LO + 1; i <= HI; ++i) v = keep_sel(k == i, T(Tab::at(i)), v);
+  return v;
+}
+
+// D[0..k] <- (R(fac) U)^T D[0..k] for a step-size change by `fac` at order k
+// <= CAP: tmp = R^T D with R[0][j] = 1, R[i][0] = 0 (i >= 1), R[i][j] =
+// R[i-1][j] (i - 1 - fac j) / i built by its recurrence column by column,
+// then U^T tmp. The TPU kernel applies both as 6 x 6 transforms masked to the
+// identity beyond each lane's order; a thread runs its own order's terms.
+// Rows above k are untouched.
+template <typename T, int CAP>
 __device__ __forceinline__ void bdf_change_D(T (*D)[N], int k, T fac) {
-  T tmp[6][N];
+  // every row to CAP is computed, the rows above k are left as they were
+  T tmp[CAP + 1][N];
 #pragma unroll
   for (int j = 0; j < N; ++j) tmp[0][j] = D[0][j];
-  for (int c = 1; c <= k; ++c) {
+#pragma unroll
+  for (int c = 1; c <= CAP; ++c) {
     T acc[N];
 #pragma unroll
     for (int j = 0; j < N; ++j) acc[j] = D[0][j];
     T r = T(1);
-    for (int b = 1; b <= k; ++b) {
+#pragma unroll
+    for (int b = 1; b <= CAP; ++b) {
       const T m = (T(b - 1) - fac * T(c)) / T(b);
       r = b == 1 ? m : r * m;
 #pragma unroll
-      for (int j = 0; j < N; ++j) acc[j] = acc[j] + r * D[b][j];
+      for (int j = 0; j < N; ++j) acc[j] = keep_sel(b <= k, acc[j] + r * D[b][j], acc[j]);
     }
 #pragma unroll
     for (int j = 0; j < N; ++j) tmp[c][j] = acc[j];
   }
-  for (int c = 0; c <= k; ++c) {
+#pragma unroll
+  for (int c = 0; c <= CAP; ++c) {
     T acc[N];
 #pragma unroll
     for (int j = 0; j < N; ++j) acc[j] = T(0);
-    for (int b = 0; b <= k; ++b) {
-      const T u = T(BDF_U[b][c]);
 #pragma unroll
-      for (int j = 0; j < N; ++j) acc[j] = acc[j] + u * tmp[b][j];
+    for (int b = 0; b <= CAP; ++b) {
+      const T u = T(bdf_u(b, c));
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc[j] = keep_sel(b <= k, acc[j] + u * tmp[b][j], acc[j]);
     }
 #pragma unroll
-    for (int j = 0; j < N; ++j) D[c][j] = acc[j];
+    for (int j = 0; j < N; ++j) D[c][j] = keep_sel(c <= k, acc[j], D[c][j]);
   }
 }
 
@@ -876,191 +971,236 @@ __device__ __forceinline__ T bdf_fac(T e, int k, T dord) {
   return pm_exp(pm_log(pm_max(e, T(1e-16))) * (T(-1) / (T(k) + dord)));
 }
 
-// K2c: the variable-order BDF march of one pass over `target` time from t0
+// K2c: the variable-order BDF march of one call over `target` time from tc
 // (the JAX kernel's `integrate_bdf`, ops/pallas_ode.py:1289-1612), orders 1
-// to bdf_max_order. A thread holds the backward-difference array D[8][N], its
-// order, the count of equal steps since the last change (neq) and of
-// rejections in a row (nrej). Per trial: the step is clipped to the remaining
-// span and D rescaled to match; x_pred = sum_{i <= k} D[i], psi = sum gamma_i
-// D[i] / alpha_k, c = h / alpha_k; J at (x_pred, t_new) and Minv = (I - c
-// J)^-1 once; newton_iters rounds on (d, y); the error norm rms(error_const_k
-// d) and the residual norm decide. An accepted step updates D (D[k+2] = d -
-// D[k+1], D[k+1] = d, D[i] += D[i+1] downward); after k + 1 equal steps the
-// order is chosen among k - 1, k, k + 1 by the largest step factor, the
-// middle winning ties. Beyond the general engine's controller: the third
-// rejection in a row resets to order 1 at h / 4; an accept whose error is
-// below 0.25 grows the step 1.4x at once. A lane that arrives non-finite
-// leaves at once (it would otherwise burn the whole trial budget in every
-// later segment). Never merged: there is no interior observation. The TPU
-// kernel's float-valued order lanes with their near() bands, its select
-// chains over the tables and its masked transforms have no counterpart: the
-// order is an int and indexes D and the tables directly.
-template <typename T>
-__device__ __forceinline__ void march_bdf(const Args<T>& a, T* x, T& h,
-                                          const T* p, const T* rate,
-                                          const T* ca, const T* cb, T t0,
-                                          T target) {
-  const int MAXO = a.bdf_max_order;
-  const T rtol = a.rtol, atol = a.atol;
-  const T thr = target - T(1e-6) * pm_max(target, T(1e-30));
-  if (!(target > T(0) && all_finite(x))) {
+// to bdf_max_order <= CAP, split into its start (call_begin), one trial
+// (call_trial) and its end (call_end). A thread holds the backward-difference
+// array D[CAP + 3][N] in registers, its order, the count of equal steps since
+// the last change (neq) and of rejections in a row (nrej). Per trial: the
+// step is clipped to the remaining span and D rescaled to match; x_pred =
+// sum_{i <= k} D[i], psi = sum gamma_i D[i] / alpha_k, c = h / alpha_k; J at
+// (x_pred, t_new) and Minv = (I - c J)^-1 once; newton_iters rounds on (d,
+// y); the error norm rms(error_const_k d) and the residual norm decide. An
+// accepted step updates D (D[k+2] = d - D[k+1], D[k+1] = d, D[i] += D[i+1]
+// downward); after k + 1 equal steps the order is chosen among k - 1, k, k + 1
+// by the largest step factor, the middle winning ties. Beyond the general
+// engine's controller: the third rejection in a row resets to order 1 at h /
+// 4; an accept whose error is below 0.25 grows the step 1.4x at once. A lane
+// that arrives non-finite leaves at once (it would otherwise burn the whole
+// trial budget in every later segment). Never merged: there is no interior
+// observation. The TPU kernel's float-valued order lanes with their near()
+// bands and its masked transforms have no counterpart: the order is an int,
+// and the loops over D are unrolled to CAP and predicated on it, so that D
+// never leaves the registers.
+template <typename T, int CAP>
+struct BdfCall {
+  T D[CAP + 3][N];
+  int order, neq, nrej;
+  bool entered;  // the call marches at all (then it hands its step on)
+};
+
+template <typename T, int CAP>
+__device__ __forceinline__ void call_begin(const Args<T>& a, Lane<T>& L, BdfCall<T, CAP>& C) {
+  L.thr = L.target - T(1e-6) * pm_max(L.target, T(1e-30));
+  L.it = 0;
+  C.entered = L.target > T(0) && all_finite(L.x);
+  L.live = C.entered;
+  if (!C.entered) {
     // dead on entry: no march; a lane with time to cover stays NaN
-    if (T(0) < thr) {
+    if (T(0) < L.thr) {
 #pragma unroll
-      for (int j = 0; j < N; ++j) x[j] = T(NAN);
+      for (int j = 0; j < N; ++j) L.x[j] = T(NAN);
     }
     return;
   }
   T bz[NIN];
 #pragma unroll
   for (int j = 0; j < NIN; ++j) bz[j] = T(0);
-  T D[BDF_ROWS][N];
-  T hc = pm_min(h, pm_max(target, T(1e-14)));
-  {
-    T f0[N];
-    rhs<T>(x, p, t0, bz, rate, ca, cb, f0);
+  L.hc = pm_min(L.h, pm_max(L.target, T(1e-14)));
+  T f0[N];
+  rhs<T>(L.x, L.p, L.tc, bz, L.rate, L.ca, L.cb, f0);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    C.D[0][j] = L.x[j];
+    C.D[1][j] = L.hc * f0[j];
+#pragma unroll
+    for (int i = 2; i < CAP + 3; ++i) C.D[i][j] = T(0);
+  }
+  L.tau = T(0);
+  C.order = 1;
+  C.neq = 0;
+  C.nrej = 0;
+}
+
+template <typename T, int SOLVER, int CAP>
+__device__ __forceinline__ void call_trial(const Args<T>& a, Lane<T>& L, BdfCall<T, CAP>& C) {
+  const int MAXO = a.bdf_max_order;
+  const T rtol = a.rtol, atol = a.atol;
+  T(*D)[N] = C.D;
+  const int order = C.order;
+  // clip the step to the remaining span, rescaling the history
+  const T ht = pm_min(L.hc, pm_max(L.target - L.tau, T(1e-14)));
+  const T fac_clip = ht / pm_max(L.hc, T(1e-30));
+  if (fac_clip < T(1)) {
+    bdf_change_D<T, CAP>(D, order, fac_clip);
+    C.neq = 0;
+  }
+  const T alpha_k = pm_max(bdf_at<BdfAlpha, T, 1, CAP>(order), T(1e-30));
+  const T c = ht / alpha_k;
+  T x_pred[N], psi[N], scales[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    x_pred[j] = T(0);
+    psi[j] = T(0);
+  }
+#pragma unroll
+  for (int i = 0; i <= CAP; ++i) {
+    const T gi = T(BdfGamma::at(i));
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      D[0][j] = x[j];
-      D[1][j] = hc * f0[j];
-#pragma unroll
-      for (int i = 2; i < BDF_ROWS; ++i) D[i][j] = T(0);
+      x_pred[j] = keep_sel(i <= order, x_pred[j] + D[i][j], x_pred[j]);
+      if (i >= 1) psi[j] = keep_sel(i <= order, psi[j] + gi * D[i][j], psi[j]);
     }
   }
-  T tau = T(0);
-  int order = 1, neq = 0, nrej = 0;
-  bool live = true;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    psi[j] = psi[j] / alpha_k;
+    scales[j] = atol + rtol * pm_abs(x_pred[j]);
+  }
+  const T t_new = L.tc + L.tau + ht;
   T Minv[N][N];
+  newton_inverse<T>(x_pred, L.p, t_new, L.rate, L.ca, L.cb, c, Minv);
+  T bz[NIN];
+#pragma unroll
+  for (int j = 0; j < NIN; ++j) bz[j] = T(0);
+  T d[N], y[N], res[N], step[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    d[j] = T(0);
+    y[j] = x_pred[j];
+  }
 #pragma unroll 1
-  for (int it = 0; it < a.max_iters && live; ++it) {
-    // clip the step to the remaining span, rescaling the history
-    const T ht = pm_min(hc, pm_max(target - tau, T(1e-14)));
-    const T fac_clip = ht / pm_max(hc, T(1e-30));
-    if (fac_clip < T(1)) {
-      bdf_change_D<T>(D, order, fac_clip);
-      neq = 0;
-    }
-    const T alpha_k = pm_max(T(BDF_ALPHA[order]), T(1e-30));
-    const T c = ht / alpha_k;
-    T x_pred[N], psi[N], scales[N];
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      x_pred[j] = T(0);
-      psi[j] = T(0);
-    }
-    for (int i = 0; i <= order; ++i) {
-      const T gi = T(BDF_GAMMA[i]);
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        x_pred[j] = x_pred[j] + D[i][j];
-        if (i >= 1) psi[j] = psi[j] + gi * D[i][j];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      psi[j] = psi[j] / alpha_k;
-      scales[j] = atol + rtol * pm_abs(x_pred[j]);
-    }
-    const T t_new = t0 + tau + ht;
-    newton_inverse<T>(x_pred, p, t_new, rate, ca, cb, c, Minv);
-    T d[N], y[N], res[N], step[N];
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      d[j] = T(0);
-      y[j] = x_pred[j];
-    }
-#pragma unroll 1
-    for (int nit = 0; nit < a.newton_iters; ++nit) {
-      rhs<T>(y, p, t_new, bz, rate, ca, cb, res);
-#pragma unroll
-      for (int j = 0; j < N; ++j) res[j] = c * res[j] - psi[j] - d[j];
-      matvec<T>(Minv, res, step);
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        d[j] = d[j] + step[j];
-        y[j] = y[j] + step[j];
-      }
-    }
-    rhs<T>(y, p, t_new, bz, rate, ca, cb, res);
+  for (int nit = 0; nit < a.newton_iters; ++nit) {
+    rhs<T>(y, L.p, t_new, bz, L.rate, L.ca, L.cb, res);
 #pragma unroll
     for (int j = 0; j < N; ++j) res[j] = c * res[j] - psi[j] - d[j];
+    matvec<T>(Minv, res, step);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      d[j] = d[j] + step[j];
+      y[j] = y[j] + step[j];
+    }
+  }
+  rhs<T>(y, L.p, t_new, bz, L.rate, L.ca, L.cb, res);
+#pragma unroll
+  for (int j = 0; j < N; ++j) res[j] = c * res[j] - psi[j] - d[j];
 
-    const T err_norm = bdf_rms<T>(T(BDF_ERROR_CONST[order]), d, scales);
-    const T res_norm = bdf_rms<T>(T(1), res, scales);
-    const bool finite = isfinite(err_norm) && all_finite(y);
-    const bool converged = res_norm <= T(0.1);
-    const bool accept = err_norm <= T(1) && converged && finite;
+  const T err_norm = bdf_rms<T>(bdf_at<BdfErrorConst, T, 1, CAP>(order), d, scales);
+  const T res_norm = bdf_rms<T>(T(1), res, scales);
+  const bool finite = isfinite(err_norm) && all_finite(y);
+  const bool converged = res_norm <= T(0.1);
+  const bool accept = err_norm <= T(1) && converged && finite;
 
-    bool do_adapt = false;
-    int order_n = order;
-    T factor;
-    if (accept) {
-      // D[k+2] = d - D[k+1]; D[k+1] = d; D[i] += D[i+1] downward: D[0] is
-      // the new solution
+  bool do_adapt = false;
+  int order_n = order;
+  T factor;
+  if (accept) {
+    // D[k+2] = d - D[k+1]; D[k+1] = d; D[i] += D[i+1] downward: D[0] is
+    // the new solution
+    // (downward, so that D[k+2] reads the old D[k+1])
+#pragma unroll
+    for (int i = CAP + 2; i >= 2; --i) {
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        D[i][j] = keep_sel(i == order + 2, d[j] - D[i - 1][j],
+                           keep_sel(i == order + 1, d[j], D[i][j]));
+    }
+#pragma unroll
+    for (int i = CAP; i >= 0; --i) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) D[i][j] = keep_sel(i <= order, D[i][j] + D[i + 1][j], D[i][j]);
+    }
+    const int neq_acc = C.neq + 1;
+    do_adapt = neq_acc > order;
+    factor = T(1);
+    if (do_adapt) {
+      // the error norms at order - 1, order, order + 1: D[order] and
+      // D[order + 2] picked by selects
+      T dm[N], dp[N];
 #pragma unroll
       for (int j = 0; j < N; ++j) {
-        D[order + 2][j] = d[j] - D[order + 1][j];
-        D[order + 1][j] = d[j];
+        dm[j] = D[1][j];
+        dp[j] = D[3][j];
       }
-      for (int i = order; i >= 0; --i) {
 #pragma unroll
-        for (int j = 0; j < N; ++j) D[i][j] = D[i][j] + D[i + 1][j];
+      for (int i = 2; i <= CAP; ++i) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          dm[j] = keep_sel(order == i, D[i][j], dm[j]);
+          dp[j] = keep_sel(order == i, D[i + 2][j], dp[j]);
+        }
       }
-      const int neq_acc = neq + 1;
-      do_adapt = neq_acc > order;
-      factor = T(1);
-      if (do_adapt) {
-        // the error norms at order - 1, order, order + 1
-        const int kp = order + 1 < 5 ? order + 1 : 5;
-        const T err_m = bdf_rms<T>(T(BDF_ERROR_CONST[order - 1]), D[order], scales);
-        const T err_p = bdf_rms<T>(T(BDF_ERROR_CONST[kp]), D[order + 2], scales);
-        T f_m = bdf_fac<T>(err_m, order, T(0));
-        const T f_0 = bdf_fac<T>(pm_max(err_norm, T(1e-16)), order, T(1));
-        T f_p = bdf_fac<T>(err_p, order, T(2));
-        f_m = (order > 1 && isfinite(f_m)) ? f_m : T(-1);
-        f_p = (order < MAXO && isfinite(f_p)) ? f_p : T(-1);
-        const bool best_p = f_p > f_0 && f_p > f_m;
-        const bool best_m = f_m > f_0 && !best_p;
-        order_n = order + (best_p ? 1 : (best_m ? -1 : 0));
-        order_n = order_n < 1 ? 1 : (order_n > MAXO ? MAXO : order_n);
-        const T fac_best = best_p ? f_p : (best_m ? f_m : f_0);
-        factor = pm_min(pm_max(T(0.9) * fac_best, T(0.2)), T(10));
-      }
-      // the quasi-constant policy grows h only after order + 1 accepts in a
-      // row: an accept whose error is clearly small grows 1.4x at once
-      const bool grow_now = !do_adapt && err_norm < T(0.25);
-      if (grow_now) factor = T(1.4);
-      neq = (!do_adapt && !grow_now) ? neq_acc : 0;
-      nrej = 0;
-      tau = tau + ht;
-    } else {
-      factor = (finite && converged)
-                   ? pm_min(pm_max(T(0.9) * bdf_fac<T>(pm_max(err_norm, T(1e-16)),
-                                                       order, T(1)),
-                                   T(0.2)), T(1))
-                   : T(0.25);
-      // the third rejection in a row resets to order 1 at h / 4: it clears a
-      // high-order history whose error estimates cannot be trusted
-      if (nrej >= 2) {
-        order_n = 1;
-        factor = T(0.25);
-        nrej = 0;
-      } else {
-        nrej = nrej + 1;
-      }
-      neq = 0;
+      const int kp = order + 1 < 5 ? order + 1 : 5;
+      const T err_m = bdf_rms<T>(bdf_at<BdfErrorConst, T, 0, CAP - 1>(order - 1), dm, scales);
+      const T err_p = bdf_rms<T>(
+          bdf_at<BdfErrorConst, T, 2, (CAP + 1 < 5 ? CAP + 1 : 5)>(kp), dp, scales);
+      T f_m = bdf_fac<T>(err_m, order, T(0));
+      const T f_0 = bdf_fac<T>(pm_max(err_norm, T(1e-16)), order, T(1));
+      T f_p = bdf_fac<T>(err_p, order, T(2));
+      f_m = (order > 1 && isfinite(f_m)) ? f_m : T(-1);
+      f_p = (order < MAXO && isfinite(f_p)) ? f_p : T(-1);
+      const bool best_p = f_p > f_0 && f_p > f_m;
+      const bool best_m = f_m > f_0 && !best_p;
+      order_n = order + (best_p ? 1 : (best_m ? -1 : 0));
+      order_n = order_n < 1 ? 1 : (order_n > MAXO ? MAXO : order_n);
+      const T fac_best = best_p ? f_p : (best_m ? f_m : f_0);
+      factor = pm_min(pm_max(T(0.9) * fac_best, T(0.2)), T(10));
     }
-    order = order_n;
-    if (factor != T(1)) bdf_change_D<T>(D, order, factor);
-    hc = pm_max(ht * factor, T(1e-14));
-    const bool done = tau >= thr;
-    const bool stalled = (tau + hc) <= tau && !done;
-    live = !done && !stalled;
+    // the quasi-constant policy grows h only after order + 1 accepts in a
+    // row: an accept whose error is clearly small grows 1.4x at once
+    const bool grow_now = !do_adapt && err_norm < T(0.25);
+    if (grow_now) factor = T(1.4);
+    C.neq = (!do_adapt && !grow_now) ? neq_acc : 0;
+    C.nrej = 0;
+    L.tau = L.tau + ht;
+  } else {
+    factor = (finite && converged)
+                 ? pm_min(pm_max(T(0.9) * bdf_fac<T>(pm_max(err_norm, T(1e-16)),
+                                                     order, T(1)),
+                                 T(0.2)), T(1))
+                 : T(0.25);
+    // the third rejection in a row resets to order 1 at h / 4: it clears a
+    // high-order history whose error estimates cannot be trusted
+    if (C.nrej >= 2) {
+      order_n = 1;
+      factor = T(0.25);
+      C.nrej = 0;
+    } else {
+      C.nrej = C.nrej + 1;
+    }
+    C.neq = 0;
   }
-#pragma unroll
-  for (int j = 0; j < N; ++j) x[j] = tau < thr ? T(NAN) : D[0][j];
-  h = hc;
+  C.order = order_n;
+  if (factor != T(1)) bdf_change_D<T, CAP>(D, order_n, factor);
+  L.hc = pm_max(ht * factor, T(1e-14));
+  const bool done = L.tau >= L.thr;
+  const bool stalled = (L.tau + L.hc) <= L.tau && !done;
+  L.live = !done && !stalled;
+  ++L.it;
 }
+
+template <typename T, int CAP>
+__device__ __forceinline__ void call_end(const Args<T>& a, Lane<T>& L, BdfCall<T, CAP>& C) {
+  if (!C.entered) return;
+#pragma unroll
+  for (int j = 0; j < N; ++j) L.x[j] = L.tau < L.thr ? T(NAN) : C.D[0][j];
+  L.h = L.hc;
+}
+
+template <typename T, int CAP>
+struct CallOf {
+  using type = BdfCall<T, CAP>;
+};
 #endif  // PHARMSOL_ODE_SOLVER == 6
 #endif  // PHARMSOL_ODE_SOLVER
 
@@ -1082,6 +1222,7 @@ __device__ __forceinline__ void dose(T* x, const T* p, T t, int in, T amt,
   for (int j = 0; j < N; ++j) x[j] = x[j] + (dw[j] - dz[j]);
 }
 
+#if !defined(PHARMSOL_ODE_SOLVER)
 // The adaptive march of one run over `target` time from t0 (the JAX
 // kernel's `integrate`, explicit tier). x and h are updated in place;
 // observation terms of the run's interior columns m0+1..m1-1 are added to ll
@@ -1092,15 +1233,7 @@ __device__ __forceinline__ void march(const Args<T>& a, T* x, T& h, T& ll,
                                       const T* cb, T t0, T target,
                                       size_t row, int s, int m0, int m1,
                                       bool estimate_h) {
-#if defined(PHARMSOL_ODE_SOLVER)
-  static_assert(SOLVER == PHARMSOL_ODE_SOLVER, "this library holds one implicit solver");
-#if PHARMSOL_ODE_SOLVER == 6
-  // K2c: runs are single segments (bdf never merges)
-  march_bdf<T>(a, x, h, p, rate, ca, cb, t0, target);
-#else
-  march_sdirk<T, SOLVER>(a, x, h, ll, p, rate, ca, cb, t0, target, row, s, m0, m1);
-#endif
-#elif defined(PHARMSOL_RHS_HAS_JVP)
+#if defined(PHARMSOL_RHS_HAS_JVP)
   // K2d: one exact propagation; runs are single segments (expm never
   // merges), so there is no interior observation and no step to carry
   static_assert(SOLVER == 2, "a library with rhs_jvp holds the expm tier");
@@ -1256,6 +1389,7 @@ __device__ __forceinline__ void march(const Args<T>& a, T* x, T& h, T& ll,
   if (live0) h = hc;
 #endif
 }
+#endif  // !PHARMSOL_ODE_SOLVER
 
 // The fa scale of bolus plane k at segment m (K2e; 1 without fa).
 template <typename T>
@@ -1266,6 +1400,7 @@ __device__ __forceinline__ T fa_scale(const Args<T>& a, int k, int m,
   return slot < 0 ? T(1) : a.f.fa[(size_t)slot * a.R * a.S + rs];
 }
 
+#if !defined(PHARMSOL_ODE_SOLVER)
 template <typename T, int SOLVER, bool FEAT>
 __global__ void __launch_bounds__(256) fused_ode_kernel(const Args<T> a) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
@@ -1413,12 +1548,324 @@ cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
   fused_ode_kernel<T, SOLVER, FEAT><<<dim3(gx, gy), block, 0, stream>>>(a);
   return cudaGetLastError();
 }
+#else  // PHARMSOL_ODE_SOLVER
+// The implicit tiers' kernel (K2b, K2c). The explicit tiers' layout (a warp
+// on 32 supports of one row, one march call per run for every lane) makes a
+// warp wait for its slowest lane in every run: on the TMDD stiff cell 28% of
+// bdf's lane-slots and 40% of kvaerno5's would idle. Here a lane marches its
+// cells end to end in one loop, each pass one trial: a lane whose march call
+// ends does that call's end and the next call's start (the run's observation
+// term, rates, covariates and boluses, or the next pass of a lagged segment)
+// before its next trial, and a lane whose cell ends writes its psi and takes
+// its next cell (CellWalk) at once. The grid is persistent: as many blocks as
+// the card holds at once (fused_ode_occupancy), IMPLICIT_THREADS threads
+// each. Every trial and every start and end of a call is the same arithmetic
+// as the twin's, in its order; a cell's psi does not depend on the lane that
+// marched it.
+//
+// What bounds it: the warp issues the union of its lanes' paths, so a pass
+// costs a trial plus every branch some lane takes (a rejection, an order
+// change, a capture, a boundary). Lanes on neighbouring rows of one support
+// take the same branches far more often than lanes on 32 supports, hence the
+// support-major walk; the warp meets before each trial (__all_sync), or the
+// lanes that took a boundary would run the trial apart from the others.
+constexpr int IMPLICIT_THREADS = 128;
+
+// The cells of lane g in a grid of `lanes` lanes, in support-major order
+// (cell c is row c mod R of support c / R, so that the 32 lanes of a warp
+// start on neighbouring rows of one support, whose marches take the same
+// branches more often than those of 32 supports of one row): pass k covers
+// the cells [k lanes, (k + 1) lanes), one a lane, rotated by one warp a pass,
+// so that a lane does not meet the same row in every pass where `lanes` is a
+// multiple of R: cell k lanes + o, o = (g + 32 k) mod lanes
+// (ops/fused_ode.py::implicit_lane_cell). The walk keeps the cell's row and
+// support and steps by lanes + 32, or by 32 where o wraps, without a division.
+struct CellWalk {
+  long long c;             // the cell, support-major over [R, S]
+  int row, support, o;     // its row and support; (g + 32 k) mod lanes
+  int lanes, R;
+  int q_far, r_far, q_near, r_near;  // lanes + 32 and 32 as supports and rows
+
+  __device__ __forceinline__ void start(int g, int lanes_, int R_) {
+    lanes = lanes_;
+    R = R_;
+    o = g;
+    c = g;
+    support = g / R;
+    row = g - support * R;
+    q_far = (lanes + 32) / R;
+    r_far = lanes + 32 - q_far * R;
+    q_near = 32 / R;
+    r_near = 32 - q_near * R;
+  }
+  __device__ __forceinline__ void next() {
+    const bool wrap = o + 32 >= lanes;
+    o = wrap ? o + 32 - lanes : o + 32;
+    c += wrap ? 32 : lanes + 32;
+    support += wrap ? q_near : q_far;
+    row += wrap ? r_near : r_far;
+    if (row >= R) {
+      row -= R;
+      ++support;
+    }
+  }
+};
+
+template <typename T, bool FEAT>
+__device__ __forceinline__ void start_cell(const Args<T>& a, Lane<T>& L, int r, int s) {
+  L.s = s;
+  L.row = (size_t)r * a.M;
+  L.rs = (size_t)r * a.S + L.s;
+#pragma unroll
+  for (int j = 0; j < NP; ++j) L.p[j] = a.params[(size_t)j * a.S + L.s];
+#pragma unroll
+  for (int j = 0; j < N; ++j) L.x[j] = T(0);
+  if (FEAT && a.f.init_mask != nullptr) {
+    // occasion-0 rows start from init (t = 0), the others from zero
+    const T im = a.f.init_mask[r];
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      L.x[j] = im * (a.f.init_planes != nullptr
+                         ? a.f.init_planes[(size_t)j * a.R * a.S + L.rs]
+                         : a.f.init_rows[(size_t)j * a.S + L.s]);
+  }
+  L.ll = T(0);
+  L.h = a.h0;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) L.ca[c] = L.cb[c] = T(0);
+#pragma unroll
+  for (int k = 0; k < NIN; ++k) L.pend_amt[k] = L.pend_rem[k] = T(0);
+  L.ri = -1;
+  L.pass = 0;
+  L.live = false;
+  L.it = 0;
+}
+
+// With lag: the end of the segment's next pass, from its start (the earliest
+// pending fire before the segment's end, not before what was marched), and
+// which bolus planes may fire there.
+template <typename T>
+__device__ __forceinline__ T lag_next(const Args<T>& a, const Lane<T>& L, T dt, bool* will) {
+  T t_next = dt;
+#pragma unroll
+  for (int k = 0; k < NIN; ++k) {
+    will[k] = k < a.nb && L.pend_amt[k] != T(0) && L.pend_rem[k] < dt;
+    t_next = pm_min(t_next, will[k] ? L.pend_rem[k] : dt);
+  }
+  return pm_max(t_next, L.elapsed);
+}
+
+// With lag: the march call of pass L.pass of the segment (one pass per bolus
+// plane to the next fire time, the last to the segment's end).
+template <typename T>
+__device__ __forceinline__ void lag_call(const Args<T>& a, Lane<T>& L, T dt, int npass) {
+  L.tc = L.t0 + L.elapsed;
+  if (L.pass < npass) {
+    bool will[NIN];
+    L.target = lag_next(a, L, dt, will) - L.elapsed;
+  } else {
+    L.target = dt - L.elapsed;
+  }
+}
+
+// The work between the lane's march call that ended (if any) and its next
+// one, as the parent's per-row loop does it: with lag, the fires at the end
+// of a pass; at a run's start the observation term (read before the dose),
+// the run's rates and covariates, and the boluses by the RHS difference (fa-
+// scaled; with lag the fires due at the breakpoint and the arrivals parked
+// with their lag). Sets the next call's columns, start and length; false when
+// the cell has no further call.
+template <typename T, bool FEAT>
+__device__ __forceinline__ bool next_call(const Args<T>& a, Lane<T>& L) {
+  const bool lag = FEAT && a.f.n_lag > 0;
+  const int npass = a.nb < NIN ? a.nb : NIN;
+  const size_t RM = (size_t)a.R * a.M;
+  if (lag && L.ri >= 0) {
+    const T dt = a.seg_dt[L.row + L.m0];
+    if (L.pass < npass) {
+      // the pass that ended: the doses due at its end fire there (what the
+      // pass's end was computed from has not changed)
+      bool will[NIN];
+      const T t_next = lag_next(a, L, dt, will);
+#pragma unroll
+      for (int k = 0; k < NIN; ++k) {
+        if (will[k] && L.pend_rem[k] <= t_next) {
+          dose(L.x, L.p, L.t0 + t_next, a.bolus_in[k], L.pend_amt[k], L.rate, L.ca, L.cb);
+          L.pend_amt[k] = T(0);
+        }
+      }
+      L.elapsed = t_next;
+      ++L.pass;
+      lag_call(a, L, dt, npass);
+      return true;
+    }
+    // the segment's last pass ended
+    if (dt > T(0)) {
+#pragma unroll
+      for (int k = 0; k < NIN; ++k)
+        if (L.pend_amt[k] != T(0)) L.pend_rem[k] = L.pend_rem[k] - dt;
+    }
+  }
+  if (++L.ri >= a.n_runs) return false;
+  L.m0 = a.runs[L.ri];
+  L.m1 = a.runs[L.ri + 1];
+  const size_t i0 = L.row + L.m0;
+  // 1. the observation at the run's start, before its dose
+  L.ll += obs_term(a, i0, L.s, L.x);
+  // the run's infusion rates, one per RHS input
+#pragma unroll
+  for (int j = 0; j < NIN; ++j) L.rate[j] = T(0);
+  for (int k = 0; k < a.nr; ++k) {
+    const T v = a.seg_rate[k * RM + i0];
+    const int in = a.rate_in[k];
+#pragma unroll
+    for (int j = 0; j < NIN; ++j) L.rate[j] = (j == in) ? v : L.rate[j];
+  }
+  L.t0 = a.seg_t0[i0];
+  if (FEAT && NCOV > 0) {
+    // the run's covariates (a merged run's streams do not change)
+#pragma unroll
+    for (int c = 0; c < NCOV; ++c) {
+      L.ca[c] = a.f.cov_a[c * RM + i0];
+      L.cb[c] = a.f.cov_b != nullptr ? a.f.cov_b[c * RM + i0] : T(0);
+    }
+  }
+  if (!lag) {
+    // 2. boluses by the RHS difference, input by input (fa-scaled)
+    for (int k = 0; k < a.nb; ++k) {
+      T amt = a.seg_bolus[k * RM + i0];
+      if (amt == T(0)) continue;
+      if (FEAT) amt = amt * fa_scale(a, k, L.m0, L.rs);
+      dose(L.x, L.p, L.t0, a.bolus_in[k], amt, L.rate, L.ca, L.cb);
+    }
+    // 3. the march over the run; its length summed as the JAX kernel does
+    T target = a.seg_dt[i0];
+    for (int mm = L.m0 + 1; mm < L.m1; ++mm) target = target + a.seg_dt[L.row + mm];
+    L.tc = L.t0;
+    L.target = target;
+    return true;
+  }
+  // K2e with lag: the split march of one segment (runs are single
+  // segments). 2a. doses due at this breakpoint fire after its observation
+#pragma unroll
+  for (int k = 0; k < NIN; ++k) {
+    if (k < a.nb && L.pend_amt[k] != T(0) && L.pend_rem[k] <= T(0)) {
+      dose(L.x, L.p, L.t0, a.bolus_in[k], L.pend_amt[k], L.rate, L.ca, L.cb);
+      L.pend_amt[k] = T(0);
+    }
+  }
+  // 2b. arrivals park with their lag
+#pragma unroll
+  for (int k = 0; k < NIN; ++k) {
+    const int slot = k < a.nb ? a.f.lag_slots[k * a.M + L.m0] : -1;
+    if (slot >= 0) {
+      const T bol = a.seg_bolus[k * RM + i0];
+      if (bol != T(0)) {
+        L.pend_amt[k] = L.pend_amt[k] + bol * fa_scale(a, k, L.m0, L.rs);
+        L.pend_rem[k] = a.f.lag[(size_t)slot * a.R * a.S + L.rs];
+      }
+    }
+  }
+  // 3. one pass per bolus plane to the next earliest fire time, then to the
+  // segment's end
+  L.m1 = L.m0 + 1;
+  L.elapsed = T(0);
+  L.pass = 0;
+  lag_call(a, L, a.seg_dt[i0], npass);
+  return true;
+}
+
+// No minimum of resident blocks: ptxas keeps D and the stage slopes in
+// registers without a spill (K2c at the TMDD: 96 / 158 registers in float32 /
+// float64, 5 / 3 blocks an SM); a bound that buys more warps spills them.
+template <typename T, int SOLVER, bool FEAT, int CAP>
+__global__ void __launch_bounds__(IMPLICIT_THREADS) fused_ode_implicit_kernel(const Args<T> a) {
+  static_assert(SOLVER == PHARMSOL_ODE_SOLVER, "this library holds one implicit solver");
+  const long long cells = (long long)a.R * a.S;
+  CellWalk W;
+  W.start(blockIdx.x * blockDim.x + threadIdx.x, gridDim.x * blockDim.x, a.R);
+  Lane<T> L;
+  typename CallOf<T, CAP>::type C;
+  // a lane without a cell stays in the loop, done, until its warp is done
+  bool done = W.c >= cells;
+  if (!done) start_cell<T, FEAT>(a, L, W.row, W.support);
+  bool in_call = false;
+  // One pass of this loop is one trial of the lane's march call, after at
+  // most one boundary: the end of the call that stopped and the start of the
+  // next (a run's or a lagged segment's pass), or the end of the cell, its
+  // psi written and the next cell started (which then waits one pass).
+  for (;;) {
+    if (!done && !(L.live && L.it < a.max_iters)) {
+      if (in_call) call_end(a, L, C);
+      in_call = next_call<T, FEAT>(a, L);
+      if (in_call) {
+        call_begin(a, L, C);
+      } else {
+        a.out[L.rs] = L.ll;
+        W.next();
+        done = W.c >= cells;
+        if (!done) start_cell<T, FEAT>(a, L, W.row, W.support);
+      }
+    }
+    // The warp meets here: without it the lanes that took a boundary and
+    // those that did not would each run the trial on their own, the trial's
+    // code issued twice in a pass.
+    if (__all_sync(0xffffffffu, done)) break;
+    if (!done && L.live && L.it < a.max_iters) call_trial<T, SOLVER>(a, L, C);
+  }
+}
+
+template <typename T, int SOLVER, bool FEAT, int CAP>
+cudaError_t implicit_occupancy(int* blocks) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, fused_ode_implicit_kernel<T, SOLVER, FEAT, CAP>, IMPLICIT_THREADS, 0);
+}
+
+// The persistent grid: `blocks` blocks (<= 0: as many as the card holds at
+// once), never more than the cells need.
+template <typename T, int SOLVER, bool FEAT, int CAP>
+cudaError_t launch_implicit(const Args<T>& a, int blocks, cudaStream_t stream) {
+  if (a.R <= 0 || a.S <= 0) return cudaSuccess;
+  if (blocks <= 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) e = implicit_occupancy<T, SOLVER, FEAT, CAP>(&per_sm);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    blocks = sms * per_sm;
+  }
+  const long long need = ((long long)a.R * a.S + IMPLICIT_THREADS - 1) / IMPLICIT_THREADS;
+  if (blocks > need) blocks = (int)need;
+  fused_ode_implicit_kernel<T, SOLVER, FEAT, CAP><<<blocks, IMPLICIT_THREADS, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The instantiation for the BDF order cap: D holds CAP + 3 rows, CAP = 3 for
+// caps 1-3 and 5 for caps 4-5 (the argument bdf_max_order stays the cap).
+template <typename T, bool FEAT>
+cudaError_t launch_solver(const Args<T>& a, int blocks, cudaStream_t stream) {
+#if PHARMSOL_ODE_SOLVER == 6
+  if (a.bdf_max_order > 3)
+    return launch_implicit<T, PHARMSOL_ODE_SOLVER, FEAT, 5>(a, blocks, stream);
+#endif
+  return launch_implicit<T, PHARMSOL_ODE_SOLVER, FEAT, 3>(a, blocks, stream);
+}
+
+template <typename T, bool FEAT>
+cudaError_t occupancy_for(int cap, int* blocks) {
+#if PHARMSOL_ODE_SOLVER == 6
+  if (cap > 3) return implicit_occupancy<T, PHARMSOL_ODE_SOLVER, FEAT, 5>(blocks);
+#endif
+  return implicit_occupancy<T, PHARMSOL_ODE_SOLVER, FEAT, 3>(blocks);
+}
+#endif  // PHARMSOL_ODE_SOLVER
 
 template <typename T>
 cudaError_t run(int solver, const void* const* p, const int* ints, void* out,
                 int R, int S, int M, int nb, int nr, int n_out, int n_runs,
                 double rtol, double atol, double h0, int max_iters,
-                int newton_iters, int bdf_max_order, cudaStream_t st,
+                int newton_iters, int bdf_max_order, int blocks, cudaStream_t st,
                 const void* const* feat = nullptr, int n_lag = 0,
                 int n_fa = 0) {
   Args<T> a = {};
@@ -1448,7 +1895,7 @@ cudaError_t run(int solver, const void* const* p, const int* ints, void* out,
   if (feat == nullptr) {
     switch (solver) {
 #if defined(PHARMSOL_ODE_SOLVER)
-      case PHARMSOL_ODE_SOLVER: return launch<T, PHARMSOL_ODE_SOLVER, false>(a, st);
+      case PHARMSOL_ODE_SOLVER: return launch_solver<T, false>(a, blocks, st);
 #elif defined(PHARMSOL_RHS_HAS_JVP)
       case 2: return launch<T, 2, false>(a, st);
 #else
@@ -1479,7 +1926,7 @@ cudaError_t run(int solver, const void* const* p, const int* ints, void* out,
     return cudaErrorInvalidValue;
   switch (solver) {
 #if defined(PHARMSOL_ODE_SOLVER)
-    case PHARMSOL_ODE_SOLVER: return launch<T, PHARMSOL_ODE_SOLVER, true>(a, st);
+    case PHARMSOL_ODE_SOLVER: return launch_solver<T, true>(a, blocks, st);
 #elif defined(PHARMSOL_RHS_HAS_JVP)
     case 2: return launch<T, 2, true>(a, st);
 #else
@@ -1498,8 +1945,9 @@ cudaError_t run(int solver, const void* const* p, const int* ints, void* out,
 // params [NP, S]; coef [n_out, N, S]; bias [n_out, S] (or null); dense
 // [7, 4]; ints: int32 [nb bolus inputs, nr rate inputs, n_runs + 1 run
 // boundaries]; out [R, S]. All floating data float (is_f64 == 0) or double.
-// newton_iters and bdf_max_order are read by the implicit tiers only. Returns
-// the cudaError_t of the launch (0 on success).
+// newton_iters, bdf_max_order and blocks are read by the implicit tiers only
+// (blocks: their persistent grid's blocks, <= 0 for as many as the card holds
+// at once). Returns the cudaError_t of the launch (0 on success).
 extern "C" int fused_ode_launch(int is_f64, int solver, const void* seg_dt,
                                 const void* seg_bolus, const void* seg_rate,
                                 const void* obs_mask, const void* obs_value,
@@ -1511,7 +1959,7 @@ extern "C" int fused_ode_launch(int is_f64, int solver, const void* seg_dt,
                                 int M, int nb, int nr, int n_out, int n_runs,
                                 double rtol, double atol, double h0,
                                 int max_iters, int newton_iters,
-                                int bdf_max_order, void* stream) {
+                                int bdf_max_order, int blocks, void* stream) {
   const void* p[13] = {seg_dt, seg_bolus, seg_rate, obs_mask, obs_value,
                        obs_sigma, obs_cens, obs_outeq, seg_t0, params, coef,
                        bias, dense};
@@ -1520,10 +1968,10 @@ extern "C" int fused_ode_launch(int is_f64, int solver, const void* seg_dt,
   cudaError_t err =
       is_f64 ? run<double>(solver, p, iv, out, R, S, M, nb, nr, n_out, n_runs,
                            rtol, atol, h0, max_iters, newton_iters,
-                           bdf_max_order, st)
+                           bdf_max_order, blocks, st)
              : run<float>(solver, p, iv, out, R, S, M, nb, nr, n_out, n_runs,
                           rtol, atol, h0, max_iters, newton_iters,
-                          bdf_max_order, st);
+                          bdf_max_order, blocks, st);
   return (int)err;
 }
 
@@ -1543,16 +1991,16 @@ extern "C" int fused_ode_feature_launch(int is_f64, int solver,
                                         int n_fa, double rtol, double atol,
                                         double h0, int max_iters,
                                         int newton_iters, int bdf_max_order,
-                                        void* stream) {
+                                        int blocks, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int* iv = (const int*)ints;
   cudaError_t err =
       is_f64 ? run<double>(solver, base, iv, out, R, S, M, nb, nr, n_out,
                            n_runs, rtol, atol, h0, max_iters, newton_iters,
-                           bdf_max_order, st, feat, n_lag, n_fa)
+                           bdf_max_order, blocks, st, feat, n_lag, n_fa)
              : run<float>(solver, base, iv, out, R, S, M, nb, nr, n_out,
                           n_runs, rtol, atol, h0, max_iters, newton_iters,
-                          bdf_max_order, st, feat, n_lag, n_fa);
+                          bdf_max_order, blocks, st, feat, n_lag, n_fa);
   return (int)err;
 }
 
@@ -1608,6 +2056,20 @@ extern "C" int fused_ode_jvp_probe(int is_f64, int n, const void* x,
   return (int)cudaErrorNotSupported;
 #endif
 }
+
+#if defined(PHARMSOL_ODE_SOLVER)
+// Resident blocks per SM of the implicit tier's kernel that a launch with
+// these arguments runs (cap: bdf_max_order; read by K2c only), the count its
+// persistent grid is sized from. Only the implicit tiers' libraries hold it.
+extern "C" int fused_ode_occupancy(int is_f64, int feat, int cap, int* blocks) {
+  cudaError_t err =
+      is_f64 ? (feat ? occupancy_for<double, true>(cap, blocks)
+                     : occupancy_for<double, false>(cap, blocks))
+             : (feat ? occupancy_for<float, true>(cap, blocks)
+                     : occupancy_for<float, false>(cap, blocks));
+  return (int)err;
+}
+#endif
 
 // The generated RHS this library was built with: {states, params, inputs}.
 extern "C" void fused_ode_signature(int* out3) {

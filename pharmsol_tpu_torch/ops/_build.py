@@ -66,10 +66,11 @@ class Generated(NamedTuple):
 _vp, _ci, _cu, _cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_double
 # K2a's launch takes its 13 data pointers one by one; K2e's takes them and
 # its 7 feature pointers as two arrays, then the slot-table plane counts;
-# both end with max_iters, newton_iters, bdf_max_order and the stream
+# both end with max_iters, newton_iters, bdf_max_order, the implicit tiers'
+# grid blocks and the stream
 ODE = Generated("fused_ode.cu", "rhs", "PHARMSOL_ODE_RHS", (), {
-    "launch": ([_ci, _ci] + [_vp] * 15 + [_ci] * 7 + [_cd] * 3 + [_ci] * 3 + [_vp], _ci),
-    "feature_launch": ([_ci, _ci] + [_vp] * 4 + [_ci] * 9 + [_cd] * 3 + [_ci] * 3 + [_vp],
+    "launch": ([_ci, _ci] + [_vp] * 15 + [_ci] * 7 + [_cd] * 3 + [_ci] * 4 + [_vp], _ci),
+    "feature_launch": ([_ci, _ci] + [_vp] * 4 + [_ci] * 9 + [_cd] * 3 + [_ci] * 4 + [_vp],
                        _ci),
     # the generated rhs and rhs_jvp on n samples (checks against the closure)
     "jvp_probe": ([_ci, _ci] + [_vp] * 10, _ci),

@@ -97,6 +97,56 @@ JACOBIAN_SOLVERS = ("expm", "trbdf2", "kvaerno3", "esdirk34", "kvaerno5", "bdf")
 BDF_DEFAULT_MAX_ORDER = 3
 _BDF_MAX_GROWTH = 10.0
 
+# The implicit tiers (K2b, K2c) run a persistent grid: blocks of
+# IMPLICIT_THREADS threads, as many as the card holds at once (the library's
+# occupancy query, :func:`implicit_occupancy_of`), and each lane marches its
+# cells one after the other, :func:`implicit_lane_cell` giving which.
+IMPLICIT_THREADS = 128
+
+
+def implicit_lane_cell(g, k, lanes):
+    """The k-th cell that lane ``g`` of a persistent grid of ``lanes`` lanes
+    marches, as ``csrc/fused_ode.cu::CellWalk`` walks them: pass k covers the
+    cells [k lanes, (k + 1) lanes), one a lane, rotated by one warp a pass, so
+    that a lane does not meet the same row in every pass where ``lanes`` is a
+    multiple of R. Cells are support-major: cell c is row ``c % R`` of
+    support ``c // R`` (:func:`implicit_cell`). Works elementwise on numpy
+    arrays; a cell past R S is no cell (the lane is done)."""
+    return k * lanes + (g + 32 * k) % lanes
+
+
+def implicit_cell(c, R: int):
+    """(row, support) of cell ``c`` of the implicit tiers' walk over R rows."""
+    return c % R, c // R
+
+
+def implicit_occupancy_of(path):
+    """The occupancy query of the implicit tiers' library at ``path`` as a
+    function ``(is_f64, feature, cap) -> resident blocks per SM`` of the
+    kernel instantiation the library launches for those (``cap``: the BDF
+    order cap; ignored by K2b), or None for a library without one (the
+    explicit and exact tiers')."""
+    fn = getattr(ctypes.CDLL(str(path)), "fused_ode_occupancy", None)
+    if fn is None:
+        return None
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def query(is_f64: bool, feature: bool, cap: int) -> int:
+        blocks = ctypes.c_int(0)
+        err = fn(int(is_f64), int(feature), int(cap), ctypes.addressof(blocks))
+        if err != 0:
+            raise RuntimeError(f"fused_ode_occupancy failed with CUDA error {err}")
+        return blocks.value
+
+    return query
+
+
+def implicit_lanes(n_cells: int, blocks: int) -> int:
+    """The lanes of the implicit tiers' grid for ``n_cells`` cells and a grid
+    of at most ``blocks`` blocks (no block without a cell)."""
+    return min(blocks, -(-n_cells // IMPLICIT_THREADS)) * IMPLICIT_THREADS
+
 
 def bdf_U():
     """R(1), the involutory backward-difference transform, as 6 x 6 floats
@@ -448,7 +498,9 @@ def psi_ode_plain(
     """Plain PyTorch twin of the fused ODE psi kernel (same arguments as
     :func:`psi_ode`), on ``[R, S]`` lanes. A ``counts`` dict receives the
     number of step attempts over all cells (``"steps"``, and per row
-    ``"steps_by_row"`` [R]; every adaptive solver; with ``solver='bdf'`` also
+    ``"steps_by_row"`` [R]; every adaptive solver; per march call, in the
+    order of the calls, ``"trials_by_call"``, a list of int64 [R, S] tensors
+    holding each lane's attempts in that call; with ``solver='bdf'`` also
     ``"bdf_by_row"``, int64 [R, 5, 6]: per row and order k the trials, the
     accepted steps and the order adaptations at order k, and the rescalings of
     the difference array that the kernel performs, for the clip at order k
@@ -550,6 +602,7 @@ def psi_ode_plain(
         return col(obs_outeq, m) if obs_outeq is not None else None
 
     def integrate(xs, h, dt_col, rate, t0_col, estimate_h, interior, cov):
+        begin_call()
         target = dt_col.expand(shape)
         live0 = target > 0.0
         for s in range(N):
@@ -783,11 +836,18 @@ def psi_ode_plain(
             out.append(acc)
         return out
 
+    def begin_call():
+        # each march call's trials per (row, support) lane
+        if counts is not None:
+            counts.setdefault("trials_by_call", []).append(
+                torch.zeros(shape, dtype=torch.int64, device=dev))
+
     def count_trials(live):
         if counts is not None:
             per_row = live.sum(dim=1)
             counts["steps"] = counts.get("steps", 0) + int(per_row.sum())
             counts["steps_by_row"] = counts.get("steps_by_row", 0) + per_row
+            counts["trials_by_call"][-1] += live
 
     def count_bdf(kind, mask, order_l):
         # kind: 0 trials, 1 accepts, 2 adaptations, 3 clip and 4 factor rescalings
@@ -810,6 +870,7 @@ def psi_ode_plain(
         sA, sB, sBHAT, sC = tab["A"], tab["B"], tab["BHAT"], tab["C"]
         gamma, order, max_growth = tab["gamma"], tab["order"], tab["max_growth"]
         ns = len(sC)
+        begin_call()
         target = dt_col.expand(shape)
         # a lane that arrives non-finite must not march: every trial would
         # reject and, at tau = 0, the stall guard could never fire
@@ -924,6 +985,7 @@ def psi_ode_plain(
         error is below 0.25. The rescaling ``(R(factor) U)^T D`` is two masked
         transforms. Never merged."""
         assert not interior, "bdf never merges"
+        begin_call()
         MAXO = int(bdf_max_order)
         K6 = MAXO + 1
         target = dt_col.expand(shape)
@@ -1252,7 +1314,7 @@ def psi_ode(
     rtol=1e-4, atol=1e-4, h0=1e-3, max_steps=10_000, cov_streams=None,
     cov_names=(), init_rows=None, init_planes=None, init_mask=None,
     lag_plane=None, fa_plane=None, lag_slots=None, fa_slots=None,
-    newton_iters=6, bdf_max_order=BDF_DEFAULT_MAX_ORDER,
+    newton_iters=6, bdf_max_order=BDF_DEFAULT_MAX_ORDER, blocks=None,
 ):
     """Fused ODE psi [R, S]: the counterpart of the JAX package's
     ``ops/pallas_ode.py::psi_ode``, explicit tier (dopri5, tsit5), exact
@@ -1279,9 +1341,12 @@ def psi_ode(
     plane per bolus plane, or the slot-indexed planes ``lag_slots``/
     ``fa_slots`` select per segment. Lag does not combine with merged runs.
 
-    On a CUDA tensor this launches ``csrc/fused_ode.cu`` (one thread per
-    (row, support) cell): kernel K2a without features, K2e with any, K2d
-    with ``solver='expm'``, K2b with an SDIRK solver, K2c with ``bdf``, and
+    On a CUDA tensor this launches ``csrc/fused_ode.cu``: kernel K2a
+    without features, K2e with any, K2d with ``solver='expm'`` (one thread
+    per (row, support) cell), K2b with an SDIRK solver and K2c with ``bdf``
+    (a persistent grid whose lanes march cell after cell:
+    :func:`implicit_lane_cell`; ``blocks`` sets its blocks, None for as many
+    as the card holds at once, and is not read by the other tiers), and
     raises if the build or the launch fails; on a CPU tensor it runs
     :func:`psi_ode_plain`.
     """
@@ -1316,7 +1381,7 @@ def psi_ode(
     lib = load_generated_library(ode_kind(solver), rhs)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        out, err = _launch(lib, stream, args, kw, n_out, runs, ft)
+        out, err = _launch(lib, stream, args, kw, n_out, runs, ft, blocks or 0)
     if err != 0:
         raise RuntimeError(
             f"fused ODE psi kernel launch failed (R={R}, S={S}, M={M}): "
@@ -1335,7 +1400,7 @@ def psi_ode(
     return out
 
 
-def _launch(lib, stream: int, args, kw, n_out: int, runs, ft: Features):
+def _launch(lib, stream: int, args, kw, n_out: int, runs, ft: Features, blocks: int = 0):
     """Pack the validated inputs for the kernel's C interface and launch K2a
     (no features) or K2e on ``stream``: returns (out, cudaError_t code)."""
     (seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma, obs_cens,
@@ -1382,9 +1447,10 @@ def _launch(lib, stream: int, args, kw, n_out: int, runs, ft: Features):
     tols = (ctypes.c_double(kw["rtol"]), ctypes.c_double(kw["atol"]),
             ctypes.c_double(kw["h0"]))
     is_f64, code = int(seg_dt.dtype == torch.float64), SOLVER_CODES[kw["solver"]]
-    # the implicit tiers' Newton rounds and the BDF tier's order cap (unread
-    # by the explicit and expm tiers)
-    stiff = (int(kw.get("newton_iters", 0)), int(kw.get("bdf_max_order", BDF_DEFAULT_MAX_ORDER)))
+    # the implicit tiers' Newton rounds, the BDF tier's order cap and their
+    # grid's blocks (unread by the explicit and expm tiers)
+    stiff = (int(kw.get("newton_iters", 0)), int(kw.get("bdf_max_order", BDF_DEFAULT_MAX_ORDER)),
+             int(blocks))
     if feat_ptrs is None:
         err = lib.fused_ode_launch(is_f64, code, *base, _ptr(ints), _ptr(out), *dims,
                                    *tols, int(kw["max_steps"]), *stiff,

@@ -592,6 +592,111 @@ def test_stiff_kernels_match_twin(cuda, name, solver):
             assert float(rel.max()) <= 1e-8
 
 
+STIFF_SOLVERS = ("bdf", "trbdf2", "kvaerno3", "kvaerno5")
+
+
+@pytest.fixture(scope="module")
+def stiff_libraries():
+    """Every (case, implicit solver) library of ``STIFF_CASES``, built at once
+    (one nvcc each) before the tests below load them one by one."""
+    from pharmsol_tpu_torch.ops import _build
+    from pharmsol_tpu_torch.utils.f32_budget import STIFF_CASES, stiff_case
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the fused psi kernel has no CPU mode)")
+    targets = []
+    for name in STIFF_CASES:
+        for solver in STIFF_SOLVERS:
+            model, data, sp, ems = stiff_case(name, 1, 2, seed=1, solver=solver)
+            plan = _FusedOdePsiPlan(model, model.lower(data.subjects()), sp,
+                                    ems.lower(model.resolve_output_label, model.nouteqs()),
+                                    torch.device("cuda"), torch.float64)
+            targets.append(_build.generated_target(_build.ode_kind(solver), plan.rhs))
+    _build.build_many(targets)
+
+
+def _stiff_rule(got, want, name):
+    """The kernel-twin rule of the implicit tiers: the same lost cells, every
+    other cell within 1e-8 relative; on the TMDD and the poison case (a
+    rounding tie in a step decision flips in a few cells of a thousand) every
+    cell within 1e-6 and 99% of them within 1e-8."""
+    lost = ~torch.isfinite(want)
+    assert torch.equal(~torch.isfinite(got), lost)
+    rel = ((got - want).abs() / want.abs().clamp(min=1.0))[~lost]
+    if rel.numel() == 0:
+        return
+    if name in ("tmdd", "poison"):
+        assert float(rel.max()) <= 1e-6
+        assert float((rel <= 1e-8).double().mean()) >= 0.99
+    else:
+        assert float(rel.max()) <= 1e-8
+
+
+@pytest.mark.parametrize("solver", STIFF_SOLVERS)
+@pytest.mark.parametrize("name", ["two_cmt", "binding_init", "separated_rates", "lag_infusion",
+                                  "michaelis_menten", "tmdd", "cov_affine", "two_outputs_cens",
+                                  "poison"])
+def test_implicit_kernels_match_twin_on_one_ragged_row(cuda, stiff_libraries, name, solver):
+    """K2b and K2c's persistent grid on one subject x 200 supports (six
+    warps and a ragged seventh), merged and per segment where the plan
+    merges, against the unchanged twin under the kernel-twin rule."""
+    from pharmsol_tpu_torch.utils.f32_budget import STIFF_CASES, stiff_case
+
+    model, data, sp, ems = stiff_case(name, 1, 200, seed=31 + list(STIFF_CASES).index(name),
+                                      solver=solver)
+    plan = _FusedOdePsiPlan(model, model.lower(data.subjects()), sp,
+                            ems.lower(model.resolve_output_label, model.nouteqs()), cuda,
+                            torch.float64)
+    for merge in ((True, False) if plan.merge_runs is not None else (False,)):
+        got = _ode_run(plan, fused_ode.psi_ode, merge)
+        torch.cuda.synchronize()
+        assert tuple(got.shape) == (1, 200)
+        _stiff_rule(got, _ode_run(plan, fused_ode.psi_ode_plain, merge), name)
+
+
+@pytest.mark.parametrize("name, solver", [("tmdd", "bdf"), ("tmdd", "kvaerno5"),
+                                          ("tmdd", "trbdf2"), ("lag_infusion", "kvaerno3"),
+                                          ("poison", "bdf"), ("poison", "kvaerno5")])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_implicit_psi_does_not_depend_on_the_grid(cuda, name, solver, dtype):
+    """Three persistent grids (one block: every lane marches several cells;
+    two blocks; as many as the card holds, where a lane marches one) give the
+    same psi bit for bit: a cell's result does not depend on the lane that
+    marched it. In float64 the poison case loses the same cells as the twin
+    (float32 is held to the float64 twin's budget elsewhere)."""
+    plan = _stiff_plan(name, solver, dtype, cuda, smoke_shape=True)
+    kw = plan.kernel_kwargs()
+    runs = [fused_ode.psi_ode(*plan.streams, plan.support, plan.rhs, blocks=b, **kw)
+            for b in (1, 2, None)]
+    torch.cuda.synchronize()
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    assert torch.equal(runs[0].view(bits), runs[1].view(bits))
+    assert torch.equal(runs[0].view(bits), runs[2].view(bits))
+    if name == "poison" and dtype == torch.float64:
+        want = _ode_run(plan, fused_ode.psi_ode_plain)
+        lost = ~torch.isfinite(want)
+        assert bool(lost.any()) and not bool(lost.all())
+        assert torch.equal(~torch.isfinite(runs[0]), lost)
+
+
+def test_implicit_grid_is_sized_by_the_occupancy_query(cuda):
+    """The implicit library reports its resident blocks per SM; the explicit
+    library has no such query."""
+    from pharmsol_tpu_torch.ops import _build
+
+    plan = _stiff_plan("tmdd", "bdf", torch.float64, cuda)
+    lib = _build.generated_target(_build.ode_kind("bdf"), plan.rhs).path
+    _ode_run(plan, fused_ode.psi_ode)
+    query = fused_ode.implicit_occupancy_of(lib)
+    for is_f64 in (False, True):
+        for cap in (3, 5):
+            assert 1 <= query(is_f64, False, cap) <= 16
+    explicit = _ode_plan("ode_dopri5", torch.float64, cuda)
+    _ode_run(explicit, fused_ode.psi_ode)
+    assert fused_ode.implicit_occupancy_of(
+        _build.generated_target(_build.ODE, explicit.rhs).path) is None
+
+
 @pytest.mark.parametrize("cap", [1, 3, 5])
 def test_bdf_order_cap_reaches_the_kernel(cuda, cap):
     plan = _stiff_plan("tmdd", "bdf", torch.float64, cuda, bdf_max_order=cap)

@@ -57,7 +57,12 @@ printing its own lines; any failure raises and the exit code is not 0:
    then held against its twin at these shapes;
 4. times on the card (CUDA events, after warm-up): each kernel alone, its
    twin, the general engine, one end-to-end call with the lowering cached and
-   the steps it is made of, and the host lowering alone;
+   the steps it is made of, and the host lowering alone; the explicit ODE
+   library's anatomy (registers, stack, LDL/STL, resident blocks from its
+   occupancy query, one trial's static SASS with its CALL and MUFU sites,
+   ``ode_anatomy``), K2a's issue slots per cell-trial, and the layout model
+   of the explicit tier (``explicit_layout_costs``) from the twin's trials by
+   march call on 64 subjects;
 5. K3a on the README SDE model of the reference (a mean-reverting
    elimination rate), 1000 particles, at a ragged reduced shape (19 x 23,
    the first two observations, to 2 h):
@@ -88,7 +93,9 @@ printing its own lines; any failure raises and the exit code is not 0:
    point, three calls per dtype, each on the fused engine with exactly one
    K2e launch, held against the general engine on 2048 subjects (float64
    within 1e-4); then K2e's time, its twin's, the general engine's, one
-   end-to-end call with the plan's share, and its bound;
+   end-to-end call with the plan's share, and its bound; the covariate
+   library's anatomy, K2e's issue slots per cell-trial and the layout model
+   as in 4;
 9. K2d against its twin at 64 x 48 on every case of
    ``utils/f32_budget.py::EXPM_CASES`` (the 2-state oral model, the 2-cmt
    oral RHS, the 5-state transit and mammillary model with a bolus and an
@@ -186,7 +193,9 @@ build's) stiff cases: the TMDD under every solver, every other case under
 one solver in turn.
 
 ``--only stiff`` runs phases 0, 1 (the stiff libraries alone) and 13-15, for
-work on K2b or K2c; ``--only sde`` phases 0, 1 (the SDE libraries), 5-7 and
+work on K2b or K2c; ``--only explicit`` phases 0, 1 (the explicit tier's
+libraries), phase 2's K2a and K2e checks, the ODE parts of 3-4 and 8, for
+work on K2a or K2e; ``--only sde`` phases 0, 1 (the SDE libraries), 5-7 and
 16-18 (K3a, K3b); ``--only k1c`` phases 0, 1 (the closed-form library) and
 19-21. A partial run's last line is ``{"ok": true, "partial": ...}``, not
 the whole script's verdict.
@@ -206,8 +215,13 @@ and ODE kernel the side built (``cuobjdump -res-usage``; for the stiff cell
 the TMDD header's explicit, exact and implicit libraries), for the SDE
 kernels at four particles a thread their resident blocks per SM and the
 trial loop's instruction mix, for the implicit ones their anatomy, and the
-stiff cell's lane-slots per trial under each side's layout. ``--pair DIR
---only stiff`` (or ``sde``) runs that part alone. It prints the pairs and
+stiff cell's lane-slots per trial under each side's layout; and "ODE Short 16384 x 512" (K2a), "ODE
+covariates 16384 x 512" (K2e) and, as a check that the exact tier did not
+move, "ODE expm transit 16384 x 512" (K2d), each with the kernel alone
+(the median of three runs of ten launches), the psi cells that differ at
+all, both sides' explicit anatomy, the layout model and each side's issue
+slots per cell-trial. ``--pair DIR --only stiff`` (or ``sde``, or
+``explicit``) runs that part alone. It prints the pairs and
 ``{"ok": true, "partial": "pair"}``.
 
 The last lines are the kernels' JSON record, the card's name and power
@@ -220,6 +234,7 @@ from __future__ import annotations
 
 import argparse
 import cProfile
+import hashlib
 import json
 import pstats
 import math
@@ -618,14 +633,12 @@ def expm_cases():
     return cases
 
 
-def ode_build_targets(feature_cases, expm, stiff=None):
-    """The ODE library of every RHS this script runs (one per distinct
-    generated source): the K2a models and the K2e cases, whose RHS is
-    generated with their data's covariates by the plan, and K2d's cases and
-    the fit's ODE model, whose headers also hold ``rhs_jvp``."""
+def explicit_build_targets(feature_cases) -> dict:
+    """The explicit tier's libraries (K2a, K2e), one per distinct generated
+    source: the K2a models' and the K2e cases', whose RHS is generated with
+    their data's covariates by the plan. {key: (name, target)}."""
     from pharmsol_tpu_torch.ops import _build
     from pharmsol_tpu_torch.ops.rhs_codegen import generate_rhs
-    from pharmsol_tpu_torch.utils.f32_budget import population_models
 
     targets = {}
     for name, (rhs, n, ndrugs, _, v, _s) in ODE_MODELS.items():
@@ -634,6 +647,19 @@ def ode_build_targets(feature_cases, expm, stiff=None):
     for name, (model, data, support, ems, _) in feature_cases.items():
         gen = ode_plan_for(model, data, support, ems, torch.float64).rhs
         targets.setdefault(gen.key, (name, _build.generated_target(_build.ODE, gen)))
+    return targets
+
+
+def ode_build_targets(feature_cases, expm, stiff=None):
+    """The ODE library of every RHS this script runs (one per distinct
+    generated source): the explicit tier's (``explicit_build_targets``), and
+    K2d's cases and the fit's ODE model, whose headers also hold
+    ``rhs_jvp``."""
+    from pharmsol_tpu_torch.ops import _build
+    from pharmsol_tpu_torch.ops.rhs_codegen import generate_rhs
+    from pharmsol_tpu_torch.utils.f32_budget import population_models
+
+    targets = explicit_build_targets(feature_cases)
     for name, (model, data, support, ems) in expm.items():
         gen = ode_plan_for(model, data, support, ems, torch.float64).rhs
         targets.setdefault(gen.key, (f"expm {name}", _build.generated_target(_build.ODE, gen)))
@@ -668,10 +694,12 @@ def phase_build(pt, feature_cases, expm, stiff, only: str = None) -> float:
 
     ode_targets = (stiff_build_targets(stiff) if only == "stiff"
                    else [] if only in ("sde", "k1c")
+                   else list(explicit_build_targets(feature_cases).values())
+                   if only == "explicit"
                    else ode_build_targets(feature_cases, expm, stiff))
-    sde_targets = ([] if only in ("stiff", "k1c")
+    sde_targets = ([] if only in ("stiff", "k1c", "explicit")
                    else sde_build_targets(pt) + sde_feature_build_targets(pt))
-    psi_targets = [] if only in ("stiff", "sde") else [_build.psi_target()]
+    psi_targets = [] if only in ("stiff", "sde", "explicit") else [_build.psi_target()]
     targets = (psi_targets + [t for _, t in ode_targets] + [t for _, t in sde_targets])
     names = (["fused_psi"] * len(psi_targets)
              + [f"fused_ode ({name})" for name, _ in ode_targets]
@@ -1243,7 +1271,12 @@ def phase_ode_feature_times(pt, label, model, data, ems, t_build, card: str) -> 
             f"operations); kernel at {t['bound'] / t['kernel']:.3f} of it")
         t["abs_err"] = abs_err
         t["plan"] = parts["plan"]
+        t["steps"] = counts["steps"]
         out[dtype] = t
+    dts = (torch.float32, torch.float64)
+    out["report"] = explicit_anatomy_report(
+        pt, "8", model, data, sp, ems, {dt: out[dt]["kernel"] for dt in dts},
+        {dt: out[dt]["steps"] for dt in dts}, card)
     model._lower_cache.clear()
     t0 = time.perf_counter()
     model.lower(data.subjects())
@@ -1328,7 +1361,12 @@ def phase_ode_times(pt, label, model, data, ems, card: str) -> dict:
             f"({nbytes / 1e6:.2f} MB, {counts['steps']} step attempts, {ops / 1e9:.3f} G "
             f"operations); kernel at {t['bound'] / t['kernel']:.3f} of it")
         t["abs_err"] = abs_err
+        t["steps"] = counts["steps"]
         out[dtype] = t
+    dts = (torch.float32, torch.float64)
+    out["report"] = explicit_anatomy_report(
+        pt, "4", model, data, sp, ems, {dt: out[dt]["kernel"] for dt in dts},
+        {dt: out[dt]["steps"] for dt in dts}, card)
     return out
 
 
@@ -2043,7 +2081,7 @@ def kernel_resources(lib: Path) -> dict:
     return out  # keys reg, shared, local, stack
 
 
-_ODE_KERNEL = re.compile(r"fused_ode_(?:implicit_)?kernelI([fd])Li(\d+)ELb([01])E(?:Li(\d+)E)?")
+_ODE_KERNEL = re.compile(r"fused_ode_(?:implicit_|explicit_)?kernelI([fd])Li(\d+)ELb([01])E(?:Li(\d+)E)?")
 _ODE_SOLVER_NAMES = {0: "dopri5", 1: "tsit5", 2: "expm", 3: "trbdf2", 4: "kvaerno3",
                      5: "kvaerno5", 6: "bdf"}
 
@@ -2062,49 +2100,113 @@ def ode_kernel_key(name: str):
                                                   else "")
 
 
-def stiff_anatomy(lib: Path) -> dict:
+def ode_trial_mix(insns, labels=None) -> dict:
+    """The static instruction mix of one explicit Runge-Kutta trial in an ODE
+    kernel's SASS. In a lane loop (a warp vote in the kernel: the persistent
+    grid rejoins its warp in every pass) it is the smallest loop holding the
+    last vote, one pass: a trial and the boundary code a pass may take (a
+    call's end, the next call's start, a cell's end), laid out together. In
+    the per-row kernel it is the trial loop: of the loops that hold a square
+    root (``MUFU.RSQ*``, the error norm's) and no smaller such loop, the one
+    with the most square roots (a dose loop holds the RHS's own twice; a
+    trial six times and the norm's). ``{"trial": {class: n, "total": n},
+    "lane_pass": whether it is a lane loop's pass, "calls": the CALL sites in it
+    (the slow paths of division, pow and the other software routines),
+    "mufu": {op: n} in it}``; None where no such loop is found. Both sides
+    of a branch count: an upper estimate."""
+    labels = labels or {}
+    branches = [(addr, _branch_target(args, labels)) for addr, op, args in insns
+                if op.startswith("BRA")]
+    loops = sorted((a - t, t, a) for a, t in branches if t is not None and t < a)
+
+    def body(lo, hi):
+        return [op for a, op, _ in insns if lo <= a <= hi]
+
+    def rsq(lo, hi):
+        return sum(op.startswith("MUFU.RSQ") for op in body(lo, hi))
+
+    votes = [a for a, op, _ in insns if op.startswith("VOTE")]
+    if votes:
+        span = next(((lo, hi) for _, lo, hi in loops if lo <= votes[-1] <= hi), None)
+    else:
+        inner = [(lo, hi) for _, lo, hi in loops if rsq(lo, hi) and not any(
+            lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi) and rsq(l2, h2) for _, l2, h2 in loops)]
+        span = max(inner, key=lambda lh: (rsq(*lh), -(lh[1] - lh[0]))) if inner else None
+    if span is None:
+        return None
+    ops = [op for op in body(*span) if not op.startswith("NOP")]
+    mix, mufu = {}, {}
+    for op in ops:
+        mix[sass_class(op)] = mix.get(sass_class(op), 0) + 1
+        if op.startswith("MUFU"):
+            mufu[op] = mufu.get(op, 0) + 1
+    mix["total"] = len(ops)
+    return dict(trial=mix, calls=sum(op.startswith("CALL") for op in ops), mufu=mufu,
+                loop_bytes=span[1] - span[0] + 16, lane_pass=bool(votes))
+
+
+def ode_anatomy(lib: Path) -> dict:
     """Per kernel of an ODE library (``ode_kernel_key``): registers, stack
     frame and local memory (``cuobjdump -res-usage``), the local loads and
-    stores in its SASS (``LDL``, ``STL``; a static count), and resident
-    blocks per SM: from the library's occupancy query where it has one (the
-    implicit tiers' persistent grid, ``blocks_per_sm_runtime``),
-    and from the registers at the block the library launches (128 threads
-    for that grid, 256 for the parent's ``dim3(128, 2)``)."""
+    stores in its SASS (``LDL``, ``STL``; a static count), resident blocks
+    per SM: from the library's occupancy query where it has one (the
+    persistent grids of the implicit tiers and, since the explicit tier's
+    redesign, of K2a and K2e: ``blocks_per_sm_runtime``), and from the
+    registers at the block the library launches (128 threads for those
+    grids, 256 for the per-row kernel's ``dim3(128, 2)``); for K2a and K2e
+    the static mix of one trial (``ode_trial_mix``)."""
     from pharmsol_tpu_torch.ops import fused_ode
 
     sass = sass_functions(lib)
-    # a parent checkout's package may have neither the query nor the grid
-    query_of = getattr(fused_ode, "implicit_occupancy_of", None)
-    query = query_of(lib) if query_of is not None else None
+    # a parent checkout's package may have neither query nor grid
+    queries = {kind: (getattr(fused_ode, f"{kind}_occupancy_of", None) or (lambda _: None))(lib)
+               for kind in ("implicit", "explicit")}
     out = {}
     for name, r in kernel_resources(lib).items():
         key = ode_kernel_key(name)
         if key is None:
             continue
-        ops = [op for _, op, _ in sass.get(name, ([], {}))[0]]
-        implicit = "implicit" in name
-        threads = getattr(fused_ode, "IMPLICIT_THREADS", 128) if implicit else 256
+        insns, labels = sass.get(name, ([], {}))
+        ops = [op for _, op, _ in insns]
+        kind = ("implicit" if "implicit_kernel" in name else
+                "explicit" if "explicit_kernel" in name else None)
+        threads = (getattr(fused_ode, f"{kind.upper()}_THREADS", 128) if kind else 256)
         a = dict(regs=r.get("reg"), stack=r.get("stack", 0), local=r.get("local", 0),
                  ldl=sum(op.startswith("LDL") for op in ops),
                  stl=sum(op.startswith("STL") for op in ops), threads=threads,
                  blocks_per_sm=resident_blocks(r.get("reg", 255), r.get("shared", 0), threads))
-        if query is not None and implicit:
-            m = _ODE_KERNEL.search(name)
-            a["blocks_per_sm_runtime"] = query(m.group(1) == "d", m.group(3) == "1",
-                                               int(m.group(4) or 3))
+        m = _ODE_KERNEL.search(name)
+        if kind == "implicit" and queries["implicit"] is not None:
+            a["blocks_per_sm_runtime"] = queries["implicit"](
+                m.group(1) == "d", m.group(3) == "1", int(m.group(4) or 3))
+        if kind == "explicit" and queries["explicit"] is not None:
+            a["blocks_per_sm_runtime"] = queries["explicit"](
+                m.group(1) == "d", m.group(3) == "1", int(m.group(2)))
+        if key.startswith(("K2a", "K2e")):
+            a["trial_mix"] = ode_trial_mix(insns, labels)
         out[key] = a
     return out
 
 
 def describe_anatomy(a: dict) -> str:
-    return (f"{a['regs']} registers, {a['stack']}-byte stack frame, {a['local']} bytes local, "
+    blocks = a.get("blocks_per_sm_runtime", a["blocks_per_sm"])
+    text = (f"{a['regs']} registers, {a['stack']}-byte stack frame, {a['local']} bytes local, "
             f"{a['ldl']} LDL / {a['stl']} STL in its SASS, "
-            f"{a.get('blocks_per_sm_runtime', a['blocks_per_sm'])} resident blocks of "
-            f"{a['threads']} per SM ({a['blocks_per_sm']} from the registers"
+            f"{blocks} resident blocks of {a['threads']} per SM "
+            f"({blocks * a['threads'] // 32} warps; {a['blocks_per_sm']} from the registers"
             + (", the runtime's query agrees" if a.get("blocks_per_sm_runtime")
                == a["blocks_per_sm"] else
                "" if "blocks_per_sm_runtime" not in a else ", the runtime's query differs")
             + ")")
+    mix = a.get("trial_mix")
+    if mix:
+        text += ("; one trial's static SASS (upper estimate): " + ", ".join(
+            f"{k} {v}" for k, v in sorted(mix["trial"].items()))
+            + f"; CALL sites {mix['calls']}; MUFU " + (", ".join(
+                f"{k} {v}" for k, v in sorted(mix["mufu"].items())) or "none")
+            + ("; a pass of the lane loop: the trial with the boundary code" if mix["lane_pass"]
+               else ""))
+    return text
 
 
 def sde_anatomy(lib: Path, n_states: int, n_particles: int, ppt: int = 4) -> dict:
@@ -3257,6 +3359,144 @@ def stiff_lane_slots(trials_by_call, n_total: int, lanes=None) -> dict:
     return out
 
 
+# the boundary's cost as a share of a trial's, for the explicit tier's
+# layout model (a boundary: a call's end, the next call's observation term,
+# rates, covariates and dose by two RHS, its starting RHS; a trial: six RHS,
+# the stage and error sums and the controller)
+LAYOUT_BETAS = (0.25, 0.5, 1.0)
+
+
+def explicit_layout_costs(trials_by_call, chain: int = 1, betas=LAYOUT_BETAS) -> dict:
+    """The explicit tier's march under three layouts, from the twin's trials
+    of each lane in each march call ([calls, R, S], ``psi_ode_plain``'s
+    ``counts["trials_by_call"]``), per trial: ``slots``, the lane-slots of the
+    passes in which some lane of the warp makes a trial; ``passes``, every
+    pass of a warp, 32 lane-slots each; ``cost[beta]``, a warp's pass priced
+    one trial where any of its lanes makes one and ``beta`` of a trial where
+    any of them is at a boundary (a call's end and the next call's start, or
+    its cell's end).
+    - ``synced`` (the per-row kernel): a warp is 32 supports of one row and
+      its lanes meet at every march call: a call costs 32 x its slowest
+      lane's trials and one boundary, the cell's end one more;
+    - ``support_synced``: the same on the support-major walk, a warp on 32
+      neighbouring rows of one support (the cells in support-major order, 32
+      at a time);
+    - ``row_lanes``: the same warps, each lane marching its calls on its own,
+      one trial a pass, the warp rejoined before each trial (a cell takes one
+      pass per trial, one per call without a trial and one to end it);
+    - ``support_lanes``: that loop on the support-major walk, a warp on 32
+      neighbouring rows of one support (``ops/fused_ode.py::
+      implicit_lane_cell``).
+    With ``chain`` > 1 each lane marches ``chain`` cells one after the other,
+    a warp taking the next 32 cells of its walk each time."""
+    tb = np.asarray(trials_by_call, dtype=np.int64)
+    n_calls, R, S = tb.shape
+    trials = float(tb.sum())
+    out = {}
+    for layout, calls in (("synced", tb.reshape(n_calls, -1)),
+                          ("support_synced", tb.transpose(0, 2, 1).reshape(n_calls, -1))):
+        worst = np.pad(calls, ((0, 0), (0, -calls.shape[1] % 32))).reshape(n_calls, -1, 32).max(-1)
+        n_bounds = 32.0 * worst.shape[1] * (n_calls + 1)
+        slots = 32.0 * float(worst.sum())
+        out[layout] = dict(slots=slots / trials,
+                           passes=(32.0 * float(np.maximum(worst, 1).sum())
+                                   + n_bounds / (n_calls + 1)) / trials,
+                           cost={b: (slots + b * n_bounds) / trials for b in betas})
+    for layout, cells in (("row_lanes", tb.transpose(1, 2, 0)),
+                          ("support_lanes", tb.transpose(2, 1, 0))):
+        cells = cells.reshape(-1, n_calls)
+        n = len(cells)
+        W = -(-n // (32 * chain))
+        lens = np.zeros((W * 32 * chain, n_calls), dtype=np.int64)
+        lens[:n] = np.maximum(cells, 1)
+        tri = np.zeros_like(lens)
+        tri[:n] = cells
+        cell_len = lens.sum(1) + (np.arange(len(lens)) < n)
+        # pass i of the chain: warp w's lane j marches cell (i W + w) 32 + j
+        order = np.arange(W * 32 * chain).reshape(chain, W, 32)
+        lane_off = np.zeros_like(order)
+        lane_off[1:] = np.cumsum(cell_len[order], axis=0)[:-1]
+        cell_off = np.empty(len(lens), dtype=np.int64)
+        cell_off[order.reshape(-1)] = lane_off.reshape(-1)
+        cell_warp = np.empty(len(lens), dtype=np.int64)
+        cell_warp[order.reshape(-1)] = np.broadcast_to(np.arange(W)[None, :, None],
+                                                       order.shape).reshape(-1)
+        warp_len = np.zeros(W, dtype=np.int64)
+        np.maximum.at(warp_len, cell_warp, cell_off + cell_len)
+        width = int(warp_len.max()) + 1
+        starts = cell_off[:, None] + np.cumsum(lens, 1) - lens  # each call's first pass
+        bnd = np.zeros((W, width), dtype=bool)
+        real = np.arange(len(lens)) < n
+        bnd[np.repeat(cell_warp[real], n_calls), starts[real].reshape(-1)] = True
+        bnd[cell_warp[real], (cell_off + cell_len - 1)[real]] = True
+        edges = np.zeros((W, width + 1), dtype=np.int64)
+        busy = tri > 0
+        w_of = np.broadcast_to(cell_warp[:, None], busy.shape)[busy]
+        np.add.at(edges, (w_of, starts[busy]), 1)
+        np.add.at(edges, (w_of, (starts + tri)[busy]), -1)
+        any_trial = np.cumsum(edges, 1)[:, :width] > 0
+        slots = 32.0 * float(any_trial.sum())
+        out[layout] = dict(slots=slots / trials, passes=32.0 * float(warp_len.sum()) / trials,
+                           cost={b: (slots + b * 32.0 * float(bnd.sum())) / trials
+                                 for b in betas})
+    return out
+
+
+def explicit_lane_report(tb, chains=(1, 8)) -> dict:
+    """The explicit cell's lane-slots per trial (``lane_slots_by_row``: synced
+    at every march call as the per-row kernel is, and one cell a lane on its
+    own) and the layout model (``explicit_layout_costs``) at one and at
+    several cells a lane, from the twin's trials by march call."""
+    rows = lane_slots_by_row(tb)
+    trials = float(rows["trials"].sum())
+    tb = np.asarray(tb)
+    return dict(synced=float(rows["synced"].sum()) / trials,
+                own=float(rows["own"].sum()) / trials,
+                calls=int(tb.shape[0]), trials_per_cell=trials / (tb.shape[1] * tb.shape[2]),
+                zero_calls=float((tb.sum((1, 2)) == 0).sum()),
+                layouts={c: explicit_layout_costs(tb, chain=c) for c in chains})
+
+
+def describe_lane_report(rep: dict) -> str:
+    text = (f"{rep['calls']} march calls a cell ({rep['zero_calls']:g} without a trial in any "
+            f"lane), {rep['trials_per_cell']:.3f} trials a cell; lane-slots per trial synced "
+            f"{rep['synced']:.4f}, one cell a lane on its own {rep['own']:.4f}")
+    for chain, lays in rep["layouts"].items():
+        text += f"; {chain} cell(s) a lane: " + "; ".join(
+            f"{name} slots {v['slots']:.4f} passes {v['passes']:.4f} cost "
+            + "/".join(f"{c:.4f}" for c in v["cost"].values())
+            for name, v in lays.items())
+    return text + " (cost at boundary shares " + "/".join(f"{b:g}" for b in LAYOUT_BETAS) + ")"
+
+
+def explicit_anatomy_report(pt, tag: str, model, data, sp, ems, kernel_ms: dict, trials: dict,
+                            card: str, rows: int = 64) -> dict:
+    """Phases 4 and 8: the explicit cell's libraries' anatomy (registers,
+    stack, LDL/STL, resident blocks, one trial's static mix with its CALL
+    and MUFU sites), the issue slots per cell-trial that the measured kernel
+    time allows (``kernel_ms`` per dtype over the cell's ``trials``), and the
+    lane model from the float64 twin's trials on ``rows`` subjects."""
+    from pharmsol_tpu_torch.ops import _build
+    from pharmsol_tpu_torch.ops.fused_ode import psi_ode_plain
+
+    sub = pt.Data(data.subjects()[:rows])
+    plan = ode_plan_for(model, sub, sp, ems, torch.float64)
+    lib = _build.generated_target(_build.ODE, plan.rhs).path
+    anatomy = ode_anatomy(lib)
+    for key, a in sorted(anatomy.items()):
+        log(f"[{tag}] anatomy {key}: {describe_anatomy(a)}")
+    for dtype, ms in kernel_ms.items():
+        slots = ms * 1e-3 * H100_CLOCK_HZ * H100_SMS * 128 / trials[dtype]
+        log(f"[{tag}] {str(dtype)[6:]}: {slots:.1f} issue slots per cell-trial at "
+            f"{ms:.3f} ms ({trials[dtype]} trials; 132 SMs x 128 lanes x 1.98 GHz) ({card})")
+    counts = {}
+    psi_ode_plain(*plan.streams, plan.support, plan.rhs, counts=counts, **plan.kernel_kwargs())
+    rep = explicit_lane_report(torch.stack(counts["trials_by_call"]).cpu().numpy())
+    log(f"[{tag}] lane model, the f64 twin on {rows} subjects x {sp.shape[0]}: "
+        + describe_lane_report(rep))
+    return dict(anatomy=anatomy, lanes=rep)
+
+
 def phase_stiff_slice(pt, rng) -> tuple:
     """The stiff cell, "ODE TMDD stiff 16384 x 512", through the public
     entry point on the card: bdf and trbdf2 three calls per dtype with fresh
@@ -3449,7 +3689,7 @@ def phase_stiff_times(pt, label, models, data, ems, t_build, card: str, twins) -
             lib = _build.generated_target(_build.ode_kind(solver), plan.rhs).path
             if dtype == torch.float64:
                 # the anatomy of the solver's library: every instantiation
-                out[(solver, "anatomy")] = anatomy = stiff_anatomy(lib)
+                out[(solver, "anatomy")] = anatomy = ode_anatomy(lib)
                 for key, a in sorted(anatomy.items()):
                     log(f"[15] anatomy {key}: {describe_anatomy(a)}  ({card})")
             query = fused_ode.implicit_occupancy_of(lib)
@@ -4441,6 +4681,14 @@ def run_pair(other: str, card: str, only=None) -> None:
         for a, b, what in ((0, 3, "parent vs parent"), (1, 2, "change vs change"),
                            (0, 1, "change vs parent")):
             want, got = torch.from_numpy(psis[a][key]), torch.from_numpy(psis[b][key])
+            if key.startswith("ODE ") and not key.startswith("ODE TMDD"):
+                differ = int((got != want).sum() - (torch.isnan(got) & torch.isnan(want)).sum())
+                cell = (got - want).abs() / want.abs().clamp(min=1.0)
+                log(f"[pair] {key} {what}: {differ} of {got.numel()} cells differ at all; "
+                    f"max abs {float((got - want).abs().max()):.3e}, max rel "
+                    f"{float(cell.max()):.3e}, {float((cell <= 1e-8).double().mean()):.6f} "
+                    f"within 1e-8")
+                continue
             if key.startswith("ODE TMDD"):
                 differ = int((got.double() != want.double()).sum()
                              - (torch.isnan(got) & torch.isnan(want)).sum())
@@ -4455,6 +4703,10 @@ def run_pair(other: str, card: str, only=None) -> None:
     for key in sorted(set(base) | set(change)):
         same = "same" if base.get(key) == change.get(key) else "DIFFERENT"
         log(f"[pair] registers {key}: parent {base.get(key)}, change {change.get(key)} ({same})")
+    for key in sorted(set(sides[0]["sass"]) | set(sides[1]["sass"])):
+        same = "the same" if sides[0]["sass"].get(key) == sides[1]["sass"].get(key) else "DIFFERENT"
+        log(f"[pair] SASS {key}: parent {sides[0]['sass'].get(key)}, change "
+            f"{sides[1]['sass'].get(key)} ({same} instructions)")
     for key in sorted(set(sides[0]["anatomy"]) | set(sides[1]["anatomy"])):
         for side, a in (("parent", sides[0]["anatomy"].get(key)),
                         ("change", sides[1]["anatomy"].get(key))):
@@ -4468,6 +4720,9 @@ def run_pair(other: str, card: str, only=None) -> None:
     for side, k in (("parent", 0), ("change", 1)):
         for key, a in sorted(sides[k]["stiff_anatomy"].items()):
             log(f"[pair] {side} anatomy {key}: {describe_anatomy(a)}")
+    explicit = {}
+    if only in (None, "explicit"):
+        explicit = pair_explicit_lanes(card, [side["kernel_ms"] for side in sides])
     slots = {}
     if only in (None, "stiff"):
         from pharmsol_tpu_torch.ops.fused_ode import implicit_lanes
@@ -4496,7 +4751,8 @@ def run_pair(other: str, card: str, only=None) -> None:
         "factors": factors, "registers_parent": base, "registers_change": change,
         "anatomy_parent": sides[0]["anatomy"], "anatomy_change": sides[1]["anatomy"],
         "stiff_anatomy_parent": sides[0]["stiff_anatomy"],
-        "stiff_anatomy_change": sides[1]["stiff_anatomy"], "lane_slots": slots}}))
+        "stiff_anatomy_change": sides[1]["stiff_anatomy"], "lane_slots": slots,
+        "explicit": explicit}}))
 
 
 def pair_worker(tree: str, psi_out: str, only=None) -> dict:
@@ -4516,7 +4772,9 @@ def pair_worker(tree: str, psi_out: str, only=None) -> dict:
     root = Path(pt.__file__).resolve().parent
     if root.parent != Path(tree).resolve():
         raise AssertionError(f"imported {root}, not the package of {tree}")
-    ms, psi, regs, anatomy, kernel_ms, stiff = {}, {}, {}, {}, {}, {}
+    ms, psi, regs, anatomy, kernel_ms, stiff, explicit = {}, {}, {}, {}, {}, {}, {}
+    if only in (None, "explicit"):
+        explicit = pair_explicit(pt, ms, psi, kernel_ms)
     if only in (None, "stiff"):
         stiff = pair_stiff(pt, ms, psi, kernel_ms)
     if only in (None, "sde"):
@@ -4553,8 +4811,127 @@ def pair_worker(tree: str, psi_out: str, only=None) -> dict:
                         a["blocks_per_sm_runtime"] = blocks.value
                 anatomy[key] = a
     np.savez(psi_out, **psi)
-    return dict(tree=tree, ms=ms, regs=dict(regs, **stiff.get("regs", {})), anatomy=anatomy,
-                kernel_ms=kernel_ms, stiff_anatomy=stiff.get("anatomy", {}))
+    return dict(tree=tree, ms=ms, regs=dict(regs, **stiff.get("regs", {}),
+                                            **explicit.get("regs", {})),
+                sass=explicit.get("sass", {}), anatomy=anatomy, kernel_ms=kernel_ms,
+                stiff_anatomy=dict(stiff.get("anatomy", {}), **explicit.get("anatomy", {})))
+
+
+def explicit_pair_cells(pt):
+    """The cells that ``--pair`` times for the explicit tier, each (label,
+    model, data, support, ems): "ODE Short 16384 x 512" (K2a) and "ODE
+    covariates 16384 x 512" (K2e) with phase 4's and phase 8's timing
+    supports, and "ODE expm transit 16384 x 512" (K2d, a check that the exact
+    tier did not move)."""
+    from pharmsol_tpu_torch.utils.f32_budget import (
+        COVARIATE_MODEL_CENTRE, TRANSIT_CENTRE, covariate_model_case, expm_case,
+    )
+
+    ems = pt.AssayErrorModels().add(
+        0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    short = short_subjects(pt, 16384, np.random.RandomState(SEED))
+    n, S = ODE_COV_SHAPE
+    cov_model, cov_data, _, cov_ems = covariate_model_case(n, 1, seed=SEED)
+    expm_model, expm_data, _, expm_ems = expm_case("transit", *EXPM_SHAPE[:1], 1, seed=SEED)
+    return [
+        ("ODE Short 16384x512", ode_model(pt, "short"), short,
+         ODE_MODELS["short"][5](np.random.RandomState(SEED + 3), 512), ems),
+        ("ODE covariates {}x{}".format(n, S), cov_model, cov_data,
+         jittered_support(COVARIATE_MODEL_CENTRE, S, np.random.RandomState(SEED + 5)), cov_ems),
+        ("ODE expm transit {}x{}".format(*EXPM_SHAPE), expm_model, expm_data,
+         jittered_support(TRANSIT_CENTRE, EXPM_SHAPE[1], np.random.RandomState(SEED + 6), 0.2),
+         expm_ems),
+    ]
+
+
+def pair_explicit(pt, ms: dict, psi: dict, kernel_ms: dict) -> dict:
+    """The explicit tier's cells on one side of ``--pair``
+    (``explicit_pair_cells``): their libraries built at once, then per cell
+    and dtype three ``log_likelihood_matrix`` calls after a warm one
+    (``ms``), the kernel alone by CUDA events (``kernel_ms``) and psi;
+    returns the registers of every kernel of those libraries and the anatomy
+    (``ode_anatomy``) of the explicit ones."""
+    from pharmsol_tpu_torch.ops import _build
+
+    cells = explicit_pair_cells(pt)
+    libs = {}
+    for label, model, data, sp, ems in cells:
+        small = pt.Data(data.subjects()[:2])
+        libs[label] = _build.generated_target(
+            _build.ODE, ode_plan_for(model, small, sp, ems, torch.float64).rhs)
+    _build.build_many(list(libs.values()))
+    for label, model, data, sp, ems in cells:
+        for dtype in (torch.float32, torch.float64):
+            pt.set_float_dtype(dtype)
+            key = f"{label} {str(dtype)[6:]}"
+            call = lambda: pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")  # noqa: E731
+            out = call()
+            if tuple(out.shape) != (len(data), sp.shape[0]) or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{key}: psi {tuple(out.shape)}, not finite")
+            ms[key] = [wall_ms(call, 1, 0) for _ in range(3)]
+            psi[key] = out.double().cpu().numpy()
+            del out
+            plan = ode_plan_for(model, data, sp, ems, dtype)
+            # the median of three runs of ten launches: each launch packs its
+            # inputs on the host (a copy that waits for the card), which a
+            # busy host can stretch
+            kernel_ms[key] = statistics.median(cuda_ms(lambda: run_ode_kernel(plan), 10)
+                                               for _ in range(3))
+            del plan
+    regs, anatomy, sass = {}, {}, {}
+    for label, target in libs.items():
+        for kernel, r in kernel_resources(target.path).items():
+            key = ode_kernel_key(kernel)
+            if key is not None:
+                regs[f"{label}: {key}"] = r.get("reg")
+        # a digest of each kernel's instructions (mnemonics and operands), so
+        # that the two sides' code can be told equal or not
+        for kernel, (insns, _) in sass_functions(target.path).items():
+            key = ode_kernel_key(kernel)
+            if key is not None:
+                text = "\n".join(f"{op}{args}" for _, op, args in insns)
+                sass[f"{label}: {key}"] = hashlib.sha256(text.encode()).hexdigest()[:16]
+        if "expm" not in label:
+            anatomy.update({f"{label}: {k}": a for k, a in ode_anatomy(target.path).items()
+                            if k.startswith("K2e" if "covariates" in label else "K2a")})
+    return dict(regs=regs, anatomy=anatomy, sass=sass)
+
+
+def pair_explicit_lanes(card: str, kernel_ms: list) -> dict:
+    """The explicit cells' lane model (``explicit_lane_report``, from the f64
+    twin's trials by march call on 64 subjects, run here on the card) and
+    each side's issue slots per cell-trial from its kernel time (``kernel_ms``
+    per side) over the twin's trials at full width."""
+    import pharmsol_tpu_torch as pt
+    from pharmsol_tpu_torch.ops.fused_ode import psi_ode_plain
+
+    out = {}
+    for label, model, data, sp, ems in explicit_pair_cells(pt)[:2]:
+        pt.set_float_dtype(torch.float64)
+        counts = {}
+        plan = ode_plan_for(model, pt.Data(data.subjects()[:64]), sp, ems, torch.float64)
+        psi_ode_plain(*plan.streams, plan.support, plan.rhs, counts=counts, **plan.kernel_kwargs())
+        rep = explicit_lane_report(torch.stack(counts["trials_by_call"]).cpu().numpy())
+        log(f"[pair] {label} lane model (f64 twin on 64 subjects x {sp.shape[0]}): "
+            + describe_lane_report(rep))
+        slots = {}
+        for dtype in (torch.float32, torch.float64):
+            d = str(dtype)[6:]
+            pt.set_float_dtype(dtype)
+            counts = {}
+            plan = ode_plan_for(model, data, sp, ems, dtype)
+            psi_ode_plain(*plan.streams, plan.support, plan.rhs, counts=counts,
+                          **plan.kernel_kwargs())
+            del plan
+            for side, k in (("parent", 0), ("change", 1)):
+                t = statistics.median([kernel_ms[k][f"{label} {d}"],
+                                       kernel_ms[3 - k][f"{label} {d}"]])
+                slots[f"{side} {d}"] = t * 1e-3 * H100_CLOCK_HZ * H100_SMS * 128 / counts["steps"]
+            log(f"[pair] {label} {d}: issue slots per cell-trial parent "
+                f"{slots['parent ' + d]:.1f}, change {slots['change ' + d]:.1f} "
+                f"({counts['steps']} trials) ({card})")
+        out[label] = dict(lanes=rep, issue_slots=slots)
+    return out
 
 
 def pair_stiff(pt, ms: dict, psi: dict, kernel_ms: dict) -> dict:
@@ -4602,7 +4979,7 @@ def pair_stiff(pt, ms: dict, psi: dict, kernel_ms: dict) -> dict:
             if key is not None:
                 regs[f"{name}: {key}"] = r.get("reg")
         if name.split()[-1] in STIFF_SOLVERS:
-            anatomy.update({f"{name}: {k}": a for k, a in stiff_anatomy(target.path).items()})
+            anatomy.update({f"{name}: {k}": a for k, a in ode_anatomy(target.path).items()})
     return dict(regs=regs, anatomy=anatomy)
 
 
@@ -4639,9 +5016,11 @@ def main() -> int:
         print("PAIR " + json.dumps(pair_worker(sys.argv[2], sys.argv[3], only)), flush=True)
         return 0
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["stiff", "sde", "k1c"], default=None,
+    parser.add_argument("--only", choices=["stiff", "sde", "k1c", "explicit"], default=None,
                         help="run a part, for work on its kernels: 'stiff' phases 0, 1 (the "
-                             "stiff libraries alone) and 13-15 (K2b, K2c); 'sde' phases 0, 1 "
+                             "stiff libraries alone) and 13-15 (K2b, K2c); 'explicit' phases "
+                             "0, 1 (the explicit tier's libraries), phase 2's K2a and K2e "
+                             "checks, 3-4 (ODE Short) and 8 (ODE covariates); 'sde' phases 0, 1 "
                              "(the SDE libraries), 5-7 and 16-18 (K3a, K3b); 'k1c' phases 0, 1 "
                              "(the closed-form library) and 19-21 (K1c). The kernels line then "
                              "holds that part's kernels and the last line says {\"ok\": true, "
@@ -4665,11 +5044,14 @@ def main() -> int:
     rng = np.random.RandomState(SEED)
     card = phase_environment()
     if args.pair is not None:
-        if args.only not in (None, "sde", "stiff"):
-            raise SystemExit("--pair takes --only sde or --only stiff")
+        if args.only not in (None, "sde", "stiff", "explicit"):
+            raise SystemExit("--pair takes --only sde, --only stiff or --only explicit")
         run_pair(args.pair, card, args.only)
         print(card)
         print(json.dumps({"ok": True, "partial": "pair"}))
+        return 0
+    if args.only == "explicit":
+        closing_lines(run_explicit(pt, rng, card), card, partial="explicit")
         return 0
     if args.only in ("sde", "k1c"):
         phase_build(pt, {}, {}, {}, only=args.only)
@@ -4758,6 +5140,74 @@ def run_sde_base(pt, rng, card: str) -> dict:
     )
 
 
+def explicit_records(ode_label, ode_launches, ode_times, cov_label, cov_launches,
+                     cov_times) -> tuple:
+    """K2a's and K2e's entries of the kernels line (times of the float32
+    runs, float64 beside them)."""
+    o32, o64 = ode_times[torch.float32], ode_times[torch.float64]
+    ode_record = dict(
+        ODE_KERNEL_RECORD,
+        launches=ode_launches,
+        max_abs_err=o64["abs_err"],
+        max_abs_err_f32=o32["abs_err"],
+        ms=o32["kernel"],
+        plain_ms=o32["twin"],
+        bound_ms=o32["bound"],
+        bound_by=o32["bound_by"],
+        library_ms=None,
+        ms_f64=o64["kernel"],
+        plain_ms_f64=o64["twin"],
+        bound_ms_f64=o64["bound"],
+        shape=ode_label,
+    )
+    c32, c64 = cov_times[torch.float32], cov_times[torch.float64]
+    ode_feature_record = dict(
+        ODE_FEATURE_KERNEL_RECORD,
+        launches=cov_launches,
+        max_abs_err=c64["abs_err"],
+        max_abs_err_f32=c32["abs_err"],
+        ms=c32["kernel"],
+        plain_ms=c32["twin"],
+        bound_ms=c32["bound"],
+        bound_by=c32["bound_by"],
+        library_ms=None,
+        ms_f64=c64["kernel"],
+        plain_ms_f64=c64["twin"],
+        bound_ms_f64=c64["bound"],
+        shape=cov_label,
+        end_to_end_ms=c32["end_to_end"],
+        end_to_end_ms_f64=c64["end_to_end"],
+        plan_ms=c32["plan"],
+        plan_ms_f64=c64["plan"],
+    )
+    return ode_record, ode_feature_record
+
+
+def run_explicit(pt, rng, card: str) -> list:
+    """``--only explicit``: phases 0-1 for the explicit tier's libraries,
+    phase 2's K2a and K2e checks, the ODE Short cell (phases 3-4) and the ODE
+    covariates cell (phase 8), with the anatomy and the lane model of each;
+    K2a's and K2e's records."""
+    cases = ode_feature_cases()
+    phase_build(pt, cases, {}, {}, only="explicit")
+    phase_ode_kernels(pt, rng)
+    phase_ode_feature_kernels(pt, cases)
+    torch.cuda.synchronize()
+    ems = pt.AssayErrorModels().add(
+        0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    short_data = short_subjects(pt, 16384, rng)
+    ode_label, ode, ode_launches = phase_ode_slice(pt, rng, short_data, ems)
+    torch.cuda.synchronize()
+    ode_times = phase_ode_times(pt, ode_label, ode, short_data, ems, card)
+    cov_label, cov_model, cov_data, cov_ems, cov_launches, cov_build = \
+        phase_ode_feature_slice(pt, rng)
+    torch.cuda.synchronize()
+    cov_times = phase_ode_feature_times(pt, cov_label, cov_model, cov_data, cov_ems,
+                                        cov_build, card)
+    return list(explicit_records(ode_label, ode_launches, ode_times, cov_label, cov_launches,
+                                 cov_times))
+
+
 def run_all(pt, rng, card, args, expm, ode_features, stiff, twins) -> int:
     """Phases 2-21 and the last lines."""
     phase_kernels(pt, rng)
@@ -4838,42 +5288,8 @@ def run_all(pt, rng, card, args, expm, ode_features, stiff, twins) -> int:
                        for dt, t in by_dtype.items()}
                for label, by_dtype in feature_times.items()},
     )
-    o32, o64 = ode_times[torch.float32], ode_times[torch.float64]
-    ode_record = dict(
-        ODE_KERNEL_RECORD,
-        launches=ode_launches,
-        max_abs_err=o64["abs_err"],
-        max_abs_err_f32=o32["abs_err"],
-        ms=o32["kernel"],
-        plain_ms=o32["twin"],
-        bound_ms=o32["bound"],
-        bound_by=o32["bound_by"],
-        library_ms=None,
-        ms_f64=o64["kernel"],
-        plain_ms_f64=o64["twin"],
-        bound_ms_f64=o64["bound"],
-        shape=ode_label,
-    )
-    c32, c64 = cov_times[torch.float32], cov_times[torch.float64]
-    ode_feature_record = dict(
-        ODE_FEATURE_KERNEL_RECORD,
-        launches=cov_launches,
-        max_abs_err=c64["abs_err"],
-        max_abs_err_f32=c32["abs_err"],
-        ms=c32["kernel"],
-        plain_ms=c32["twin"],
-        bound_ms=c32["bound"],
-        bound_by=c32["bound_by"],
-        library_ms=None,
-        ms_f64=c64["kernel"],
-        plain_ms_f64=c64["twin"],
-        bound_ms_f64=c64["bound"],
-        shape=cov_label,
-        end_to_end_ms=c32["end_to_end"],
-        end_to_end_ms_f64=c64["end_to_end"],
-        plan_ms=c32["plan"],
-        plan_ms_f64=c64["plan"],
-    )
+    ode_record, ode_feature_record = explicit_records(
+        ode_label, ode_launches, ode_times, cov_label, cov_launches, cov_times)
     log("[10] fits: " + json.dumps({"fit_a": fit_a, "fit_b": fit_b}))
     closing_lines([record, feature_record, ode_record, ode_feature_record, sde_record, expm_rec,
                    *stiff_recs, sde_feature_rec, k1c_rec], card)

@@ -26,6 +26,11 @@
 // cov_a, cov_b, v, jv)`, jv = (df/dx)(x) v by symbolic forward mode; such a
 // library holds K2d's instantiations and no other, a header without it the
 // explicit tier's, so a model's explicit library is what it was before K2d.
+// A header without it may also split rhs into `rhs_pre<T>(p, t, cov_a,
+// cov_b, pre)`, the covariate-only terms (PHARMSOL_RHS_NPRE of them), and
+// `rhs_body<T>(x, p, t, b, rateiv, cov_a, cov_b, pre, dx)`, which reads them:
+// the explicit tier computes them once per run where no covariate has a
+// slope (rhs_run).
 // The implicit tiers are chosen at compile time: -DPHARMSOL_ODE_SOLVER=3, 4,
 // 5 (K2b) or 6 (K2c) on a header with rhs_jvp builds that one solver's
 // instantiations and no other, with -fmad=false so that every multiply and
@@ -50,17 +55,20 @@
 // at time t is x += f(x, b, t) - f(x, 0, t) with the segment's covariates.
 // The Hairer starting step is estimated on segment 0's first pass only.
 //
-// Layout. One thread per (row, support) cell. threadIdx.x runs along the
-// supports, so the parameter rows [P, S], the output coefficients and the psi
-// writes [R, S] are coalesced, and the 32 threads of a warp share one row:
-// their reads of the row's streams [R, M] are broadcasts. Blocks stride over
-// rows in y; the ragged support edge is masked here. No padding of R, S or M,
-// and M has no limit. States, the 7 FSAL stages, the step size and the
-// controller live in registers; the tableaus are compile-time constants.
-// The implicit tiers (K2b, K2c) have a layout of their own
-// (fused_ode_implicit_kernel): a persistent grid whose lanes march cell after
-// cell, one trial a pass of one loop, so that a lane never waits for its warp
-// between march calls.
+// Layout. The explicit and implicit tiers run a persistent grid
+// (fused_ode_explicit_kernel, fused_ode_implicit_kernel): as many blocks of
+// 128 threads as the card holds at once, each lane marching the cells that
+// CellWalk gives it one after the other, one trial a pass of one loop, in
+// support-major order (a warp on 32 neighbouring rows of one support, whose
+// parameters, lag and grid they share). The explicit tier's warp takes its
+// march calls' boundaries together; the implicit tiers' lanes take theirs on
+// their own. K2d keeps one thread per (row, support) cell
+// (fused_ode_kernel): threadIdx.x runs along the supports, so the parameter
+// rows [P, S], the output coefficients and the psi writes [R, S] are
+// coalesced and the 32 threads of a warp share one row; blocks stride over
+// rows in y. No padding of R, S or M, and M has no limit. States, the 7 FSAL
+// stages, the step size and the controller live in registers; the tableaus
+// are compile-time constants.
 //
 // Per cell, for each run of segments [m0, m1) (one segment per run, or a
 // merged run whose interior breakpoints carry observations only):
@@ -84,11 +92,11 @@
 // ~20-40 trials over a 12 h profile, about 10^4 instructions per cell. Memory
 // is minor (one psi value written per cell, K2e's [R, S] planes read once).
 // Adaptive step counts differ between the lanes of a warp, so a warp runs to
-// its slowest lane; with lag the fire times differ per support too, so the
-// lanes of a warp split their segments at different times. That and the
-// float64 pow/log software routines (a covariate model's RHS calls pow in
-// every stage) are the known costs of this first, untuned version (no
-// shared-memory staging, no tuning of the block shape).
+// its slowest lane in each march call; the support-major walk gives a warp
+// rows of one support, whose calls need nearly the same trials. The float64
+// pow and division routines are software sequences: a covariate model's
+// covariate-only terms (the reference's creatinine pow) move out of the
+// stages into rhs_pre, once per run where no covariate has a slope.
 //
 // Build (plain C interface, loaded with ctypes; ops/_build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -112,6 +120,11 @@ constexpr int NIN = PHARMSOL_RHS_NINPUT;
 constexpr int NS = 7;  // stages of both tableaus (FSAL: stage 7 = f(x_new))
 constexpr int NCOV = PHARMSOL_RHS_NCOV;
 constexpr int NC = NCOV > 0 ? NCOV : 1;  // register arrays of the covariates
+#ifndef PHARMSOL_RHS_NPRE
+#define PHARMSOL_RHS_NPRE 0  // a header without rhs_pre / rhs_body
+#endif
+constexpr int NPRE = PHARMSOL_RHS_NPRE;
+constexpr int NQ = NPRE > 0 ? NPRE : 1;  // register array of the covariate-only terms
 
 // Butcher tableaus: the constants of pharmsol_tpu_torch/engine/ode.py, as
 // the same double expressions.
@@ -277,6 +290,54 @@ __device__ __forceinline__ bool all_finite(const T* v) {
 #pragma unroll
   for (int j = 0; j < N; ++j) ok = ok && isfinite(v[j]);
   return ok;
+}
+
+// What a lane of the persistent grids carries from one trial to the next
+// (fused_ode_explicit_kernel and fused_ode_implicit_kernel below): its cell,
+// the cell's parameters, state and log-likelihood, the run (and with lag the
+// pass of its segment) it marches, and the position of that march call. The
+// solver's own state rides beside it (RkCall, SdirkCall, BdfCall).
+template <typename T>
+struct Lane {
+  int s;                     // the cell's support
+  size_t row, rs;            // its row in [R, M] streams; the cell in [R, S]
+  T p[NP], x[N], ll, h;
+  T rate[NIN], ca[NC], cb[NC];
+  T pre[NQ];                 // the explicit tier: the run's covariate-only RHS terms
+  bool fixed;                // ... valid: no covariate has a slope in the run
+  T pend_amt[NIN], pend_rem[NIN];  // K2e with lag: each bolus plane's pending dose
+  int ri, pass;              // the run; with lag the pass of its segment
+  int m0, m1;                // the march call's columns [m0, m1)
+  T t0, elapsed;             // the run's start; with lag the time marched in it
+  T tc, target, thr, tau, hc;  // the march call: start, length, end, progress, step
+  int it;                    // the call's trials so far
+  bool live;                 // the call marches on
+};
+
+// f(x) at t on a run: with the run's covariate-only terms `pre` where they
+// are valid for the whole run (`fixed`: no covariate has a slope), else
+// from the covariates at t. rhs_pre + rhs_body compute rhs's own
+// expressions, so both give rhs's values; a header without the split (every
+// tier but the explicit one, and an RHS whose split saves nothing) calls
+// rhs.
+template <typename T>
+__device__ __forceinline__ void rhs_run(const T* pre, bool fixed, const T* x, const T* p, T t,
+                                        const T* b, const T* rate, const T* ca, const T* cb,
+                                        T* dx) {
+#if PHARMSOL_RHS_NPRE > 0
+  T q[NPRE];
+  if (fixed) {
+#pragma unroll
+    for (int i = 0; i < NPRE; ++i) q[i] = pre[i];
+  } else {
+    rhs_pre<T>(p, t, ca, cb, q);
+  }
+  rhs_body<T>(x, p, t, b, rate, ca, cb, q, dx);
+#else
+  (void)pre;
+  (void)fixed;
+  rhs<T>(x, p, t, b, rate, ca, cb, dx);
+#endif
 }
 
 #if defined(PHARMSOL_ODE_SOLVER) && !defined(PHARMSOL_RHS_HAS_JVP)
@@ -625,26 +686,6 @@ __device__ __forceinline__ T out_of(const Args<T>& a, int k, int s, const T* xv)
 }
 
 #endif  // PHARMSOL_ODE_SOLVER != 6
-
-// What a lane of the implicit tiers carries from one trial to the next
-// (fused_ode_implicit_kernel below): its cell, the cell's parameters, state
-// and log-likelihood, the run (and with lag the pass of its segment) it
-// marches, and the position of that march call. The solver's own state
-// rides beside it (SdirkCall, BdfCall).
-template <typename T>
-struct Lane {
-  int s;                     // the cell's support
-  size_t row, rs;            // its row in [R, M] streams; the cell in [R, S]
-  T p[NP], x[N], ll, h;
-  T rate[NIN], ca[NC], cb[NC];
-  T pend_amt[NIN], pend_rem[NIN];  // K2e with lag: each bolus plane's pending dose
-  int ri, pass;              // the run; with lag the pass of its segment
-  int m0, m1;                // the march call's columns [m0, m1)
-  T t0, elapsed;             // the run's start; with lag the time marched in it
-  T tc, target, thr, tau, hc;  // the march call: start, length, end, progress, step
-  int it;                    // the call's trials so far
-  bool live;                 // the call marches on
-};
 
 #if PHARMSOL_ODE_SOLVER != 6
 // K2b: the adaptive SDIRK march of one call over `target` time from tc (the
@@ -1206,66 +1247,88 @@ struct CallOf {
 
 // A bolus of `amt` into RHS input `in` at time t: x += f(x, b) - f(x, 0),
 // the general engine's own semantics.
+// (pre, fixed: the run's covariate-only terms, as rhs_run.)
 template <typename T>
 __device__ __forceinline__ void dose(T* x, const T* p, T t, int in, T amt,
                                      const T* rate, const T* ca,
-                                     const T* cb) {
+                                     const T* cb, const T* pre = nullptr,
+                                     bool fixed = false) {
   T bv[NIN], bz[NIN], dw[N], dz[N];
 #pragma unroll
   for (int j = 0; j < NIN; ++j) {
     bv[j] = (j == in) ? amt : T(0);
     bz[j] = T(0);
   }
-  rhs<T>(x, p, t, bv, rate, ca, cb, dw);
-  rhs<T>(x, p, t, bz, rate, ca, cb, dz);
+  rhs_run<T>(pre, fixed, x, p, t, bv, rate, ca, cb, dw);
+  rhs_run<T>(pre, fixed, x, p, t, bz, rate, ca, cb, dz);
 #pragma unroll
   for (int j = 0; j < N; ++j) x[j] = x[j] + (dw[j] - dz[j]);
 }
 
-#if !defined(PHARMSOL_ODE_SOLVER)
-// The adaptive march of one run over `target` time from t0 (the JAX
-// kernel's `integrate`, explicit tier). x and h are updated in place;
-// observation terms of the run's interior columns m0+1..m1-1 are added to ll
-// in column order. ca, cb: the run's covariates.
-template <typename T, int SOLVER>
-__device__ __forceinline__ void march(const Args<T>& a, T* x, T& h, T& ll,
-                                      const T* p, const T* rate, const T* ca,
-                                      const T* cb, T t0, T target,
-                                      size_t row, int s, int m0, int m1,
-                                      bool estimate_h) {
-#if defined(PHARMSOL_RHS_HAS_JVP)
-  // K2d: one exact propagation; runs are single segments (expm never
-  // merges), so there is no interior observation and no step to carry
-  static_assert(SOLVER == 2, "a library with rhs_jvp holds the expm tier");
-  march_expm<T>(x, p, rate, ca, cb, t0, target);
-#else
-  using Tb = Tab<SOLVER>;
+#if !defined(PHARMSOL_ODE_SOLVER) && !defined(PHARMSOL_RHS_HAS_JVP)
+// K2a, K2e: the adaptive march of one call over `target` time from tc (the
+// JAX kernel's `integrate`, explicit tier), split into its start
+// (call_begin), one trial (call_trial) and its end (call_end). Observation
+// terms of the run's interior columns m0+1..m1-1 are added to ll in column
+// order. The slope at the step's start (FSAL: the last stage of the accepted
+// step) carries from trial to trial; the other stages live within a trial.
+template <typename T>
+struct RkCall {
+  T k1[N];     // the slope at the step's start
+  int mm;      // next interior column
+  T Tj;        // its offset from the run's start
+  bool live0;  // the call marches at all (then it hands its step on)
+};
+
+template <typename T>
+__device__ __forceinline__ void rhs_lane(const Lane<T>& L, const T* x, T t, const T* b,
+                                         T* dx) {
+  rhs_run<T>(L.pre, L.fixed, x, L.p, t, b, L.rate, L.ca, L.cb, dx);
+}
+
+// The trial's RHS: with PRE, rhs_body on the run's covariate-only terms (a
+// run without a slope), else rhs. A compile-time choice, so that each
+// trial's code holds one RHS and no branch around the covariate terms.
+template <bool PRE, typename T>
+__device__ __forceinline__ void rhs_trial(const Lane<T>& L, const T* x, T t, const T* b,
+                                          T* dx) {
+#if PHARMSOL_RHS_NPRE > 0
+  if (PRE) {
+    rhs_body<T>(x, L.p, t, b, L.rate, L.ca, L.cb, L.pre, dx);
+    return;
+  }
+#endif
+  rhs<T>(x, L.p, t, b, L.rate, L.ca, L.cb, dx);
+}
+
+// The call's start: the zero-offset observations read the run's start
+// state; the starting slope, which a call with no time to cover (or a lane
+// that arrives non-finite) does not need; on the first run's first pass the
+// Hairer-Norsett-Wanner II.4 starting step, floored at h0.
+template <typename T>
+__device__ __forceinline__ void call_begin(const Args<T>& a, Lane<T>& L, RkCall<T>& C) {
   const T rtol = a.rtol, atol = a.atol;
   T bz[NIN];
 #pragma unroll
   for (int j = 0; j < NIN; ++j) bz[j] = T(0);
-
-  const T thr = target - T(1e-6) * pm_max(target, T(1e-30));
-  const bool live0 = target > T(0) && all_finite(x);
-  int mm = m0 + 1;                 // next interior column
-  T Tj = a.seg_dt[row + m0];       // its offset from the run's start
-  // zero-offset observations read the run's start state
-  while (mm < m1 && Tj <= T(0)) {
-    ll += obs_term(a, row + mm, s, x);
-    Tj = Tj + a.seg_dt[row + mm];
-    ++mm;
+  L.thr = L.target - T(1e-6) * pm_max(L.target, T(1e-30));
+  C.live0 = L.target > T(0) && all_finite(L.x);
+  C.mm = L.m0 + 1;
+  C.Tj = a.seg_dt[L.row + L.m0];
+  while (C.mm < L.m1 && C.Tj <= T(0)) {
+    L.ll += obs_term(a, L.row + C.mm, L.s, L.x);
+    C.Tj = C.Tj + a.seg_dt[L.row + C.mm];
+    ++C.mm;
   }
-
-  T ks[NS][N];
-  rhs<T>(x, p, t0, bz, rate, ca, cb, ks[0]);
+  const bool estimate_h = L.m0 == 0 && L.pass == 0;
+  if (C.live0 || estimate_h) rhs_lane(L, L.x, L.tc, bz, C.k1);
   if (estimate_h) {
-    // Hairer-Norsett-Wanner II.4 starting step, floored at h0
     T d0 = T(0), d1 = T(0);
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      const T sc = atol + rtol * pm_abs(x[j]);
-      d0 = d0 + (x[j] / sc) * (x[j] / sc);
-      d1 = d1 + (ks[0][j] / sc) * (ks[0][j] / sc);
+      const T sc = atol + rtol * pm_abs(L.x[j]);
+      d0 = d0 + (L.x[j] / sc) * (L.x[j] / sc);
+      d1 = d1 + (C.k1[j] / sc) * (C.k1[j] / sc);
     }
     d0 = pm_sqrt(d0 / T(N));
     d1 = pm_sqrt(d1 / T(N));
@@ -1273,13 +1336,13 @@ __device__ __forceinline__ void march(const Args<T>& a, T* x, T& h, T& ll,
                       ? T(0.01) * d0 / pm_max(d1, T(1e-30)) : T(1e-6);
     T x1[N], f1[N];
 #pragma unroll
-    for (int j = 0; j < N; ++j) x1[j] = x[j] + h0a * ks[0][j];
-    rhs<T>(x1, p, t0 + h0a, bz, rate, ca, cb, f1);
+    for (int j = 0; j < N; ++j) x1[j] = L.x[j] + h0a * C.k1[j];
+    rhs_lane(L, x1, L.tc + h0a, bz, f1);
     T d2 = T(0);
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      const T sc = atol + rtol * pm_abs(x[j]);
-      const T q = (f1[j] - ks[0][j]) / sc;
+      const T sc = atol + rtol * pm_abs(L.x[j]);
+      const T q = (f1[j] - C.k1[j]) / sc;
       d2 = d2 + q * q;
     }
     d2 = pm_sqrt(d2 / T(N)) / h0a;
@@ -1288,108 +1351,127 @@ __device__ __forceinline__ void march(const Args<T>& a, T* x, T& h, T& ll,
                      ? pm_pow(T(0.01) / pm_max(dmax, T(1e-30)), T(0.2))
                      : pm_max(T(1e-6), h0a * T(1e3));
     const T h_est = pm_min(T(100) * h0a, h1);
-    if (isfinite(h_est)) h = pm_max(h_est, a.h0);
+    if (isfinite(h_est)) L.h = pm_max(h_est, a.h0);
   }
+  L.tau = T(0);
+  L.hc = pm_min(L.h, pm_max(L.target, T(1e-14)));
+  L.live = C.live0;
+  L.it = 0;
+}
 
-  T tau = T(0);
-  T hc = pm_min(h, pm_max(target, T(1e-14)));
-  bool live = live0;
-  for (int it = 0; it < a.max_iters && live; ++it) {
-    const T ht = pm_min(hc, pm_max(target - tau, T(1e-14)));
+// One trial step of the embedded pair: six stages, the I-controller (growth
+// in [0.2, 5]), and on an accept the dense-output captures of the interior
+// observations the step crosses, from the tableau's quartic interpolant at
+// T_eff = min(T, target - 1e-6 target).
+template <typename T, int SOLVER, bool PRE>
+__device__ __forceinline__ void call_trial(const Args<T>& a, Lane<T>& L, RkCall<T>& C) {
+  using Tb = Tab<SOLVER>;
+  const T rtol = a.rtol, atol = a.atol;
+  T bz[NIN];
 #pragma unroll
-    for (int i = 1; i < NS; ++i) {
-      T xi[N];
+  for (int j = 0; j < NIN; ++j) bz[j] = T(0);
+  T ks[NS][N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) ks[0][j] = C.k1[j];
+  const T ht = pm_min(L.hc, pm_max(L.target - L.tau, T(1e-14)));
+#pragma unroll
+  for (int i = 1; i < NS; ++i) {
+    T xi[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      T acc = T(0);
+      bool any = false;
+#pragma unroll
+      for (int l = 0; l < i; ++l) {
+        if (Tb::a(i, l) != 0.0) {
+          acc = any ? acc + ks[l][j] * T(Tb::a(i, l)) : ks[l][j] * T(Tb::a(i, l));
+          any = true;
+        }
+      }
+      xi[j] = L.x[j] + ht * acc;
+    }
+    rhs_trial<PRE>(L, xi, L.tc + L.tau + T(Tb::c(i)) * ht, bz, ks[i]);
+  }
+  T xn[N];
+  T err2 = T(0);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    T accb = T(0), acce = T(0);
+    bool anyb = false, anye = false;
+#pragma unroll
+    for (int l = 0; l < NS; ++l) {
+      if (Tb::b(l) != 0.0) {
+        accb = anyb ? accb + ks[l][j] * T(Tb::b(l)) : ks[l][j] * T(Tb::b(l));
+        anyb = true;
+      }
+      if (Tb::e(l) != 0.0) {
+        acce = anye ? acce + ks[l][j] * T(Tb::e(l)) : ks[l][j] * T(Tb::e(l));
+        anye = true;
+      }
+    }
+    xn[j] = L.x[j] + ht * accb;
+    const T scale = atol + rtol * pm_max(pm_abs(L.x[j]), pm_abs(xn[j]));
+    const T q = (ht * acce) / scale;
+    err2 = err2 + q * q;
+  }
+  const T ratio = pm_sqrt(err2 / T(N));
+  const bool finite = isfinite(ratio) && all_finite(xn);
+  const bool accept = ratio <= T(1) && finite;
+  const T factor =
+      finite ? pm_min(pm_max(T(0.9) * pm_pow(pm_max(ratio, T(1e-10)), T(-0.2)),
+                             T(0.2)), T(5.0))
+             : T(0.25);
+  if (accept) {
+    // dense-output captures of the interior observations this step crosses
+    while (C.mm < L.m1) {
+      const T te = pm_min(C.Tj, L.thr);
+      if (!(te <= L.tau + ht)) break;
+      const T th = (te - L.tau) / ht;
+      T xt[N];
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         T acc = T(0);
-        bool any = false;
 #pragma unroll
-        for (int l = 0; l < i; ++l) {
-          if (Tb::a(i, l) != 0.0) {
-            acc = any ? acc + ks[l][j] * T(Tb::a(i, l)) : ks[l][j] * T(Tb::a(i, l));
-            any = true;
-          }
+        for (int l = 0; l < NS; ++l) {
+          const T* P = a.dense + 4 * l;
+          acc = acc + ks[l][j] * (P[0] + th * (P[1] + th * (P[2] + th * P[3])));
         }
-        xi[j] = x[j] + ht * acc;
+        xt[j] = L.x[j] + ht * th * acc;
       }
-      rhs<T>(xi, p, t0 + tau + T(Tb::c(i)) * ht, bz, rate, ca, cb, ks[i]);
+      L.ll += obs_term(a, L.row + C.mm, L.s, xt);
+      C.Tj = C.Tj + a.seg_dt[L.row + C.mm];
+      ++C.mm;
     }
-    T xn[N];
-    T err2 = T(0);
+    L.tau = L.tau + ht;
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      T accb = T(0), acce = T(0);
-      bool anyb = false, anye = false;
+    for (int j = 0; j < N; ++j) L.x[j] = xn[j];
+    if (all_finite(ks[NS - 1])) {
 #pragma unroll
-      for (int l = 0; l < NS; ++l) {
-        if (Tb::b(l) != 0.0) {
-          accb = anyb ? accb + ks[l][j] * T(Tb::b(l)) : ks[l][j] * T(Tb::b(l));
-          anyb = true;
-        }
-        if (Tb::e(l) != 0.0) {
-          acce = anye ? acce + ks[l][j] * T(Tb::e(l)) : ks[l][j] * T(Tb::e(l));
-          anye = true;
-        }
-      }
-      xn[j] = x[j] + ht * accb;
-      const T scale = atol + rtol * pm_max(pm_abs(x[j]), pm_abs(xn[j]));
-      const T q = (ht * acce) / scale;
-      err2 = err2 + q * q;
+      for (int j = 0; j < N; ++j) C.k1[j] = ks[NS - 1][j];
     }
-    const T ratio = pm_sqrt(err2 / T(N));
-    const bool finite = isfinite(ratio) && all_finite(xn);
-    const bool accept = ratio <= T(1) && finite;
-    const T factor =
-        finite ? pm_min(pm_max(T(0.9) * pm_pow(pm_max(ratio, T(1e-10)), T(-0.2)),
-                               T(0.2)), T(5.0))
-               : T(0.25);
-    if (accept) {
-      // dense-output captures of the interior observations this step crosses
-      while (mm < m1) {
-        const T te = pm_min(Tj, thr);
-        if (!(te <= tau + ht)) break;
-        const T th = (te - tau) / ht;
-        T xt[N];
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-          T acc = T(0);
-#pragma unroll
-          for (int l = 0; l < NS; ++l) {
-            const T* P = a.dense + 4 * l;
-            acc = acc + ks[l][j] * (P[0] + th * (P[1] + th * (P[2] + th * P[3])));
-          }
-          xt[j] = x[j] + ht * th * acc;
-        }
-        ll += obs_term(a, row + mm, s, xt);
-        Tj = Tj + a.seg_dt[row + mm];
-        ++mm;
-      }
-      tau = tau + ht;
-#pragma unroll
-      for (int j = 0; j < N; ++j) x[j] = xn[j];
-      if (all_finite(ks[NS - 1])) {
-#pragma unroll
-        for (int j = 0; j < N; ++j) ks[0][j] = ks[NS - 1][j];
-      }
-    }
-    hc = pm_max(ht * factor, T(1e-14));
-    const bool done = tau >= thr;
-    const bool stalled = (tau + hc) <= tau && !done;
-    live = !done && !stalled;
   }
-  if (tau < thr) {
+  L.hc = pm_max(ht * factor, T(1e-14));
+  const bool done = L.tau >= L.thr;
+  const bool stalled = (L.tau + L.hc) <= L.tau && !done;
+  L.live = !done && !stalled;
+  ++L.it;
+}
+
+// The call's end: a lane that stalls or runs out of trials is NaN, and so
+// are the captures it never reached; a call that marched hands its step on.
+template <typename T>
+__device__ __forceinline__ void call_end(const Args<T>& a, Lane<T>& L, RkCall<T>& C) {
+  if (L.tau < L.thr) {
 #pragma unroll
-    for (int j = 0; j < N; ++j) x[j] = T(NAN);
+    for (int j = 0; j < N; ++j) L.x[j] = T(NAN);
   }
-  // captures an incomplete lane never reached
   T xnan[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) xnan[j] = T(NAN);
-  for (; mm < m1; ++mm) ll += obs_term(a, row + mm, s, xnan);
-  if (live0) h = hc;
-#endif
+  for (; C.mm < L.m1; ++C.mm) L.ll += obs_term(a, L.row + C.mm, L.s, xnan);
+  if (C.live0) L.h = L.hc;
 }
-#endif  // !PHARMSOL_ODE_SOLVER
+#endif  // the explicit tier
 
 // The fa scale of bolus plane k at segment m (K2e; 1 without fa).
 template <typename T>
@@ -1400,7 +1482,9 @@ __device__ __forceinline__ T fa_scale(const Args<T>& a, int k, int m,
   return slot < 0 ? T(1) : a.f.fa[(size_t)slot * a.R * a.S + rs];
 }
 
-#if !defined(PHARMSOL_ODE_SOLVER)
+#if defined(PHARMSOL_RHS_HAS_JVP) && !defined(PHARMSOL_ODE_SOLVER)
+// K2d: one thread per (row, support) cell, a warp on 32 supports of one row
+// (see the layout above), one exact propagation per pass.
 template <typename T, int SOLVER, bool FEAT>
 __global__ void __launch_bounds__(256) fused_ode_kernel(const Args<T> a) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
@@ -1427,7 +1511,6 @@ __global__ void __launch_bounds__(256) fused_ode_kernel(const Args<T> a) {
                          : a.f.init_rows[(size_t)j * a.S + s]);
     }
     T ll = T(0);
-    T h = a.h0;
     T ca[NC], cb[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) ca[c] = cb[c] = T(0);
@@ -1472,8 +1555,7 @@ __global__ void __launch_bounds__(256) fused_ode_kernel(const Args<T> a) {
         // kernel does
         T target = a.seg_dt[i0];
         for (int mm = m0 + 1; mm < m1; ++mm) target = target + a.seg_dt[row + mm];
-        march<T, SOLVER>(a, x, h, ll, p, rate, ca, cb, t0, target, row, s, m0,
-                         m1, m0 == 0);
+        march_expm<T>(x, p, rate, ca, cb, t0, target);
         continue;
       }
       // K2e with lag: the split march of one segment (runs are single
@@ -1514,9 +1596,7 @@ __global__ void __launch_bounds__(256) fused_ode_kernel(const Args<T> a) {
           t_next = pm_min(t_next, will[k] ? pend_rem[k] : dt);
         }
         t_next = pm_max(t_next, elapsed);
-        march<T, SOLVER>(a, x, h, ll, p, rate, ca, cb, t0 + elapsed,
-                         t_next - elapsed, row, s, m0, m0 + 1,
-                         m0 == 0 && pass == 0);
+        march_expm<T>(x, p, rate, ca, cb, t0 + elapsed, t_next - elapsed);
 #pragma unroll
         for (int k = 0; k < NIN; ++k) {
           if (will[k] && pend_rem[k] <= t_next) {
@@ -1526,8 +1606,7 @@ __global__ void __launch_bounds__(256) fused_ode_kernel(const Args<T> a) {
         }
         elapsed = t_next;
       }
-      march<T, SOLVER>(a, x, h, ll, p, rate, ca, cb, t0 + elapsed,
-                       dt - elapsed, row, s, m0, m0 + 1, false);
+      march_expm<T>(x, p, rate, ca, cb, t0 + elapsed, dt - elapsed);
       if (dt > T(0)) {
 #pragma unroll
         for (int k = 0; k < NIN; ++k)
@@ -1548,29 +1627,10 @@ cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
   fused_ode_kernel<T, SOLVER, FEAT><<<dim3(gx, gy), block, 0, stream>>>(a);
   return cudaGetLastError();
 }
-#else  // PHARMSOL_ODE_SOLVER
-// The implicit tiers' kernel (K2b, K2c). The explicit tiers' layout (a warp
-// on 32 supports of one row, one march call per run for every lane) makes a
-// warp wait for its slowest lane in every run: on the TMDD stiff cell 28% of
-// bdf's lane-slots and 40% of kvaerno5's would idle. Here a lane marches its
-// cells end to end in one loop, each pass one trial: a lane whose march call
-// ends does that call's end and the next call's start (the run's observation
-// term, rates, covariates and boluses, or the next pass of a lagged segment)
-// before its next trial, and a lane whose cell ends writes its psi and takes
-// its next cell (CellWalk) at once. The grid is persistent: as many blocks as
-// the card holds at once (fused_ode_occupancy), IMPLICIT_THREADS threads
-// each. Every trial and every start and end of a call is the same arithmetic
-// as the twin's, in its order; a cell's psi does not depend on the lane that
-// marched it.
-//
-// What bounds it: the warp issues the union of its lanes' paths, so a pass
-// costs a trial plus every branch some lane takes (a rejection, an order
-// change, a capture, a boundary). Lanes on neighbouring rows of one support
-// take the same branches far more often than lanes on 32 supports, hence the
-// support-major walk; the warp meets before each trial (__all_sync), or the
-// lanes that took a boundary would run the trial apart from the others.
-constexpr int IMPLICIT_THREADS = 128;
+#endif  // K2d
 
+#if !defined(PHARMSOL_RHS_HAS_JVP) || defined(PHARMSOL_ODE_SOLVER)
+// The persistent grids' lanes (the explicit and implicit tiers).
 // The cells of lane g in a grid of `lanes` lanes, in support-major order
 // (cell c is row c mod R of support c / R, so that the 32 lanes of a warp
 // start on neighbouring rows of one support, whose marches take the same
@@ -1690,7 +1750,8 @@ __device__ __forceinline__ bool next_call(const Args<T>& a, Lane<T>& L) {
 #pragma unroll
       for (int k = 0; k < NIN; ++k) {
         if (will[k] && L.pend_rem[k] <= t_next) {
-          dose(L.x, L.p, L.t0 + t_next, a.bolus_in[k], L.pend_amt[k], L.rate, L.ca, L.cb);
+          dose(L.x, L.p, L.t0 + t_next, a.bolus_in[k], L.pend_amt[k], L.rate, L.ca, L.cb,
+               L.pre, L.fixed);
           L.pend_amt[k] = T(0);
         }
       }
@@ -1730,13 +1791,22 @@ __device__ __forceinline__ bool next_call(const Args<T>& a, Lane<T>& L) {
       L.cb[c] = a.f.cov_b != nullptr ? a.f.cov_b[c * RM + i0] : T(0);
     }
   }
+  // the explicit tier: the run's covariate-only RHS terms, once, where no
+  // covariate has a slope (cov_a + 0 t == cov_a: rhs's own values)
+  L.fixed = true;
+#pragma unroll
+  for (int c = 0; c < NCOV; ++c) L.fixed = L.fixed && L.cb[c] == T(0);
+#if PHARMSOL_RHS_NPRE > 0
+  if (L.fixed) rhs_pre<T>(L.p, L.t0, L.ca, L.cb, L.pre);
+#endif
   if (!lag) {
     // 2. boluses by the RHS difference, input by input (fa-scaled)
     for (int k = 0; k < a.nb; ++k) {
       T amt = a.seg_bolus[k * RM + i0];
       if (amt == T(0)) continue;
       if (FEAT) amt = amt * fa_scale(a, k, L.m0, L.rs);
-      dose(L.x, L.p, L.t0, a.bolus_in[k], amt, L.rate, L.ca, L.cb);
+      dose(L.x, L.p, L.t0, a.bolus_in[k], amt, L.rate, L.ca, L.cb,
+               L.pre, L.fixed);
     }
     // 3. the march over the run; its length summed as the JAX kernel does
     T target = a.seg_dt[i0];
@@ -1750,7 +1820,8 @@ __device__ __forceinline__ bool next_call(const Args<T>& a, Lane<T>& L) {
 #pragma unroll
   for (int k = 0; k < NIN; ++k) {
     if (k < a.nb && L.pend_amt[k] != T(0) && L.pend_rem[k] <= T(0)) {
-      dose(L.x, L.p, L.t0, a.bolus_in[k], L.pend_amt[k], L.rate, L.ca, L.cb);
+      dose(L.x, L.p, L.t0, a.bolus_in[k], L.pend_amt[k], L.rate, L.ca, L.cb,
+               L.pre, L.fixed);
       L.pend_amt[k] = T(0);
     }
   }
@@ -1774,6 +1845,130 @@ __device__ __forceinline__ bool next_call(const Args<T>& a, Lane<T>& L) {
   lag_call(a, L, a.seg_dt[i0], npass);
   return true;
 }
+#endif  // the persistent grids
+
+#if !defined(PHARMSOL_ODE_SOLVER) && !defined(PHARMSOL_RHS_HAS_JVP)
+// The explicit tier's kernel (K2a, K2e): the implicit tiers' persistent
+// grid and lane loop (below), with the warp rejoined at every march call.
+// A lane marches the cells CellWalk gives it (support-major: a warp on 32
+// neighbouring rows of one support), one trial a pass; a lane whose call has
+// ended waits until every lane of its warp has ended its own, and then they
+// take their boundaries together (a call's end, the next call's start or the
+// end of the cell, its psi written and the next cell started). The explicit
+// calls are short and many (K2e: two a segment with lag, seven of its
+// sixteen a cell without a trial), so a boundary costs a large share of a
+// trial, and a warp whose lanes took them apart would pay one in almost
+// every pass (chip_smoke.py::explicit_layout_costs); the rows of one
+// support share its parameters, lag and grid, so their calls need nearly
+// the same trials. Blocks of EXPLICIT_THREADS, as many as the card holds at
+// once (fused_ode_explicit_occupancy). Every trial and every start and end
+// of a call is the per-row kernel's arithmetic, in its order; a cell's psi
+// does not depend on the lane that marched it.
+//
+// What bounds it: the trial's instructions (six RHS, the stage and error
+// sums, the error norm's divisions and square root, the controller's pow)
+// and in float64 the resident warps; a covariate's pow moves out of the
+// stages into rhs_pre, once per run (rhs_run).
+constexpr int EXPLICIT_THREADS = 128;
+
+template <typename T, int SOLVER, bool FEAT>
+__global__ void __launch_bounds__(EXPLICIT_THREADS) fused_ode_explicit_kernel(const Args<T> a) {
+  const long long cells = (long long)a.R * a.S;
+  CellWalk W;
+  W.start(blockIdx.x * blockDim.x + threadIdx.x, gridDim.x * blockDim.x, a.R);
+  Lane<T> L;
+  RkCall<T> C;
+  // a lane without a cell stays in the loop, done, until its warp is done
+  bool done = W.c >= cells;
+  if (!done) start_cell<T, FEAT>(a, L, W.row, W.support);
+  bool in_call = false;
+  // One pass of this loop is one trial of the warp's march calls, or their
+  // boundary: every lane's call ended (or the lane is done).
+  for (;;) {
+    const bool ended = !done && !(L.live && L.it < a.max_iters);
+    if (__all_sync(0xffffffffu, ended || done) && ended) {
+      if (in_call) call_end(a, L, C);
+      in_call = next_call<T, FEAT>(a, L);
+      if (in_call) {
+        call_begin(a, L, C);
+      } else {
+        a.out[L.rs] = L.ll;
+        W.next();
+        done = W.c >= cells;
+        if (!done) start_cell<T, FEAT>(a, L, W.row, W.support);
+      }
+    }
+    if (__all_sync(0xffffffffu, done)) break;
+    if (!done && L.live && L.it < a.max_iters) {
+      // a run without a covariate slope: the trial without the covariate
+      // terms (one path for the warp where its rows share their knots)
+      if (NPRE > 0 && L.fixed) {
+        call_trial<T, SOLVER, true>(a, L, C);
+      } else {
+        call_trial<T, SOLVER, false>(a, L, C);
+      }
+    }
+  }
+}
+
+template <typename T, int SOLVER, bool FEAT>
+cudaError_t explicit_occupancy(int* blocks) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, fused_ode_explicit_kernel<T, SOLVER, FEAT>, EXPLICIT_THREADS, 0);
+}
+
+// The persistent grid: `blocks` blocks (<= 0: as many as the card holds at
+// once), never more than the cells need.
+template <typename T, int SOLVER, bool FEAT>
+cudaError_t launch_explicit(const Args<T>& a, int blocks, cudaStream_t stream) {
+  if (a.R <= 0 || a.S <= 0) return cudaSuccess;
+  if (blocks <= 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) e = explicit_occupancy<T, SOLVER, FEAT>(&per_sm);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    blocks = sms * per_sm;
+  }
+  const long long need = ((long long)a.R * a.S + EXPLICIT_THREADS - 1) / EXPLICIT_THREADS;
+  if (blocks > need) blocks = (int)need;
+  fused_ode_explicit_kernel<T, SOLVER, FEAT><<<blocks, EXPLICIT_THREADS, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, bool FEAT>
+cudaError_t explicit_occupancy_for(int solver, int* blocks) {
+  switch (solver) {
+    case 0: return explicit_occupancy<T, 0, FEAT>(blocks);
+    case 1: return explicit_occupancy<T, 1, FEAT>(blocks);
+    default: return cudaErrorInvalidValue;
+  }
+}
+#endif  // the explicit tier
+
+#if defined(PHARMSOL_ODE_SOLVER)
+// The implicit tiers' kernel (K2b, K2c). The explicit tiers' layout (a warp
+// on 32 supports of one row, one march call per run for every lane) makes a
+// warp wait for its slowest lane in every run: on the TMDD stiff cell 28% of
+// bdf's lane-slots and 40% of kvaerno5's would idle. Here a lane marches its
+// cells end to end in one loop, each pass one trial: a lane whose march call
+// ends does that call's end and the next call's start (the run's observation
+// term, rates, covariates and boluses, or the next pass of a lagged segment)
+// before its next trial, and a lane whose cell ends writes its psi and takes
+// its next cell (CellWalk) at once. The grid is persistent: as many blocks as
+// the card holds at once (fused_ode_occupancy), IMPLICIT_THREADS threads
+// each. Every trial and every start and end of a call is the same arithmetic
+// as the twin's, in its order; a cell's psi does not depend on the lane that
+// marched it.
+//
+// What bounds it: the warp issues the union of its lanes' paths, so a pass
+// costs a trial plus every branch some lane takes (a rejection, an order
+// change, a capture, a boundary). Lanes on neighbouring rows of one support
+// take the same branches far more often than lanes on 32 supports, hence the
+// support-major walk; the warp meets before each trial (__all_sync), or the
+// lanes that took a boundary would run the trial apart from the others.
+constexpr int IMPLICIT_THREADS = 128;
 
 // No minimum of resident blocks: ptxas keeps D and the stage slopes in
 // registers without a spill (K2c at the TMDD: 96 / 158 registers in float32 /
@@ -1899,8 +2094,8 @@ cudaError_t run(int solver, const void* const* p, const int* ints, void* out,
 #elif defined(PHARMSOL_RHS_HAS_JVP)
       case 2: return launch<T, 2, false>(a, st);
 #else
-      case 0: return launch<T, 0, false>(a, st);
-      case 1: return launch<T, 1, false>(a, st);
+      case 0: return launch_explicit<T, 0, false>(a, blocks, st);
+      case 1: return launch_explicit<T, 1, false>(a, blocks, st);
 #endif
       default: return cudaErrorInvalidValue;
     }
@@ -1930,8 +2125,8 @@ cudaError_t run(int solver, const void* const* p, const int* ints, void* out,
 #elif defined(PHARMSOL_RHS_HAS_JVP)
     case 2: return launch<T, 2, true>(a, st);
 #else
-    case 0: return launch<T, 0, true>(a, st);
-    case 1: return launch<T, 1, true>(a, st);
+    case 0: return launch_explicit<T, 0, true>(a, blocks, st);
+    case 1: return launch_explicit<T, 1, true>(a, blocks, st);
 #endif
     default: return cudaErrorInvalidValue;
   }
@@ -2056,6 +2251,20 @@ extern "C" int fused_ode_jvp_probe(int is_f64, int n, const void* x,
   return (int)cudaErrorNotSupported;
 #endif
 }
+
+#if !defined(PHARMSOL_ODE_SOLVER) && !defined(PHARMSOL_RHS_HAS_JVP)
+// Resident blocks per SM of the explicit tier's kernel that a launch with
+// these arguments runs (solver 0 dopri5, 1 tsit5), the count its persistent
+// grid is sized from. Only the explicit tier's libraries hold it.
+extern "C" int fused_ode_explicit_occupancy(int is_f64, int solver, int feat, int* blocks) {
+  cudaError_t err =
+      is_f64 ? (feat ? explicit_occupancy_for<double, true>(solver, blocks)
+                     : explicit_occupancy_for<double, false>(solver, blocks))
+             : (feat ? explicit_occupancy_for<float, true>(solver, blocks)
+                     : explicit_occupancy_for<float, false>(solver, blocks));
+  return (int)err;
+}
+#endif
 
 #if defined(PHARMSOL_ODE_SOLVER)
 // Resident blocks per SM of the implicit tier's kernel that a launch with

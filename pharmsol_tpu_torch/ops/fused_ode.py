@@ -97,11 +97,12 @@ JACOBIAN_SOLVERS = ("expm", "trbdf2", "kvaerno3", "esdirk34", "kvaerno5", "bdf")
 BDF_DEFAULT_MAX_ORDER = 3
 _BDF_MAX_GROWTH = 10.0
 
-# The implicit tiers (K2b, K2c) run a persistent grid: blocks of
-# IMPLICIT_THREADS threads, as many as the card holds at once (the library's
-# occupancy query, :func:`implicit_occupancy_of`), and each lane marches its
-# cells one after the other, :func:`implicit_lane_cell` giving which.
-IMPLICIT_THREADS = 128
+# The explicit and implicit tiers (K2a, K2e; K2b, K2c) run a persistent grid:
+# blocks of EXPLICIT_THREADS or IMPLICIT_THREADS threads, as many as the card
+# holds at once (the library's occupancy query, :func:`explicit_occupancy_of`,
+# :func:`implicit_occupancy_of`), and each lane marches its cells one after
+# the other, :func:`implicit_lane_cell` giving which.
+EXPLICIT_THREADS = IMPLICIT_THREADS = 128
 
 
 def implicit_lane_cell(g, k, lanes):
@@ -120,26 +121,44 @@ def implicit_cell(c, R: int):
     return c % R, c // R
 
 
+def _occupancy_query(path, symbol: str):
+    """The library's occupancy export ``symbol`` as a function of its three
+    int arguments returning resident blocks per SM, or None where the library
+    has no such export."""
+    fn = getattr(ctypes.CDLL(str(path)), symbol, None)
+    if fn is None:
+        return None
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def query(*args) -> int:
+        blocks = ctypes.c_int(0)
+        err = fn(*(int(v) for v in args), ctypes.addressof(blocks))
+        if err != 0:
+            raise RuntimeError(f"{symbol} failed with CUDA error {err}")
+        return blocks.value
+
+    return query
+
+
 def implicit_occupancy_of(path):
     """The occupancy query of the implicit tiers' library at ``path`` as a
     function ``(is_f64, feature, cap) -> resident blocks per SM`` of the
     kernel instantiation the library launches for those (``cap``: the BDF
     order cap; ignored by K2b), or None for a library without one (the
     explicit and exact tiers')."""
-    fn = getattr(ctypes.CDLL(str(path)), "fused_ode_occupancy", None)
-    if fn is None:
+    return _occupancy_query(path, "fused_ode_occupancy")
+
+
+def explicit_occupancy_of(path):
+    """The occupancy query of the explicit tier's library at ``path`` as a
+    function ``(is_f64, feature, solver_code) -> resident blocks per SM`` of
+    K2a (``feature`` false) or K2e with dopri5 (code 0) or tsit5 (1), or None
+    for a library without one (the implicit and exact tiers')."""
+    query = _occupancy_query(path, "fused_ode_explicit_occupancy")
+    if query is None:
         return None
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def query(is_f64: bool, feature: bool, cap: int) -> int:
-        blocks = ctypes.c_int(0)
-        err = fn(int(is_f64), int(feature), int(cap), ctypes.addressof(blocks))
-        if err != 0:
-            raise RuntimeError(f"fused_ode_occupancy failed with CUDA error {err}")
-        return blocks.value
-
-    return query
+    return lambda is_f64, feature, code: query(is_f64, code, feature)
 
 
 def implicit_lanes(n_cells: int, blocks: int) -> int:
@@ -1342,13 +1361,12 @@ def psi_ode(
     ``fa_slots`` select per segment. Lag does not combine with merged runs.
 
     On a CUDA tensor this launches ``csrc/fused_ode.cu``: kernel K2a
-    without features, K2e with any, K2d with ``solver='expm'`` (one thread
-    per (row, support) cell), K2b with an SDIRK solver and K2c with ``bdf``
-    (a persistent grid whose lanes march cell after cell:
+    without features, K2e with any, K2b with an SDIRK solver and K2c with
+    ``bdf`` (a persistent grid whose lanes march cell after cell:
     :func:`implicit_lane_cell`; ``blocks`` sets its blocks, None for as many
-    as the card holds at once, and is not read by the other tiers), and
-    raises if the build or the launch fails; on a CPU tensor it runs
-    :func:`psi_ode_plain`.
+    as the card holds at once), K2d with ``solver='expm'`` (one thread per
+    (row, support) cell; ``blocks`` is not read), and raises if the build or
+    the launch fails; on a CPU tensor it runs :func:`psi_ode_plain`.
     """
     global LAUNCHES, FEATURE_LAUNCHES, EXPM_LAUNCHES, SDIRK_LAUNCHES, BDF_LAUNCHES
     args = (seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
@@ -1447,8 +1465,8 @@ def _launch(lib, stream: int, args, kw, n_out: int, runs, ft: Features, blocks: 
     tols = (ctypes.c_double(kw["rtol"]), ctypes.c_double(kw["atol"]),
             ctypes.c_double(kw["h0"]))
     is_f64, code = int(seg_dt.dtype == torch.float64), SOLVER_CODES[kw["solver"]]
-    # the implicit tiers' Newton rounds, the BDF tier's order cap and their
-    # grid's blocks (unread by the explicit and expm tiers)
+    # the implicit tiers' Newton rounds, the BDF tier's order cap, and the
+    # persistent grid's blocks (unread by the expm tier)
     stiff = (int(kw.get("newton_iters", 0)), int(kw.get("bdf_max_order", BDF_DEFAULT_MAX_ORDER)),
              int(blocks))
     if feat_ptrs is None:

@@ -57,6 +57,26 @@ differenced. An operation without a rule raises PharmsolError with the
 reason. The flag is part of the header, so of its key and of the library's
 name: a model's explicit-tier library is the same with or without it.
 
+Covariate-only terms (headers without ``rhs_jvp``, for the explicit tier):
+where subexpressions that read only parameters, constants and covariate
+values feed the rest of the RHS and cost more than one operation (the
+reference's ``p[1] * (creatinine / 75) ** 0.75 * (age / 25) ** 0.5``), the
+header also holds
+
+    template <typename T>
+    __device__ __forceinline__ void rhs_pre(const T* p, T t, const T* cov_a,
+                                            const T* cov_b, T* pre);
+    template <typename T>
+    __device__ __forceinline__ void rhs_body(const T* x, const T* p, T t,
+                                             const T* b, const T* rateiv,
+                                             const T* cov_a, const T* cov_b,
+                                             const T* pre, T* dx);
+
+with ``PHARMSOL_RHS_NPRE`` terms (:func:`covariate_only_terms`): ``rhs_body``
+after ``rhs_pre`` evaluates rhs's own expressions in its order, so it gives
+rhs's values, and where no covariate has a slope ``pre`` does not depend on
+``t``: the kernel computes it once per run and keeps it in registers.
+
 After tracing, the recorded graph is evaluated in float64 on random inputs
 and held against the closure itself, so a closure that behaves differently
 under tracing is rejected too. Nothing here needs a compiler or a card.
@@ -86,6 +106,7 @@ class GeneratedRhs(NamedTuple):
     cov_names: tuple = ()  # the covariates of cov_a / cov_b, in order
     cov_modes: tuple = ()  # "const" or "affine" per covariate
     jacobian: bool = False  # the header also holds rhs_jvp
+    n_pre: int = 0  # covariate-only terms of rhs_pre / rhs_body (0: rhs alone)
 
 
 class GeneratedSde(NamedTuple):
@@ -441,17 +462,19 @@ def _trace(fn, args, n_out: int, what: str = "the RHS", covs=((), ())) -> List[S
     return comps
 
 
-def _topo(outputs: List[Sym]) -> List[Sym]:
-    """Every non-leaf node, children before parents, each once."""
+def _topo(outputs: List[Sym], stop=frozenset()) -> List[Sym]:
+    """Every non-leaf node, children before parents, each once; the nodes
+    whose ids are in ``stop`` count as leaves."""
     order, seen = [], set()
     stack = [(o, False) for o in reversed(outputs)]
     while stack:
         node, expanded = stack.pop()
         if id(node) in seen:
             continue
-        if expanded or not node.args:
+        leaf = not node.args or id(node) in stop
+        if expanded or leaf:
             seen.add(id(node))
-            if node.args:
+            if not leaf:
                 order.append(node)
             continue
         stack.append((node, True))
@@ -659,14 +682,19 @@ __device__ __forceinline__ T pm_max(T a, T b) { return (a > b || a != a) ? a : b
 """
 
 
-def _emit_function(outputs: List[Sym], name: str, args, out_name: str) -> str:
+def _emit_function(outputs: List[Sym], name: str, args, out_name: str,
+                   given=None) -> str:
     """One straight-line ``template <typename T> __device__`` function
     ``name(const T* x, ..., T t, ..., T* out_name)`` computing ``outputs``
-    from the closure's arguments ``args`` (as :func:`_trace`)."""
-    names = {}
+    from the closure's arguments ``args`` (as :func:`_trace`); ``given`` maps
+    the id of a node the caller computed already to the expression that
+    reads it (its subgraph is not emitted)."""
+    names = dict(given or {})
     leaf_names = {a for a, _ in args}
 
     def ref(node) -> str:
+        if id(node) in names:
+            return names[id(node)]
         if node.op == "const":
             return _literal(node.value)
         if node.op == "bconst":
@@ -711,7 +739,7 @@ def _emit_function(outputs: List[Sym], name: str, args, out_name: str) -> str:
         raise AssertionError(op)
 
     body = []
-    for i, node in enumerate(_topo(outputs)):
+    for i, node in enumerate(_topo(outputs, frozenset(given or ()))):
         names[id(node)] = f"v{i}"
         ctype = "bool" if node.is_bool else "T"
         body.append(f"  const {ctype} v{i} = {expr(node)};")
@@ -728,14 +756,64 @@ def _emit_function(outputs: List[Sym], name: str, args, out_name: str) -> str:
     )
 
 
+# The covariate-only terms: the subexpressions of an RHS that read only
+# parameters, constants and covariate values (a covariate read, cov_a[i] or
+# cov_a[i] + cov_b[i] * t, counts as a value), at most _MAX_PRE of them, held
+# in registers across a march call. A term enters when it costs more than one
+# operation, priced by _TERM_COST (a software routine in float64) and 1
+# otherwise.
+_MAX_PRE = 8
+_TERM_COST = {"pow": 16, "exp": 16, "log": 16, "div": 8, "sqrt": 8}
+_INVARIANT_LEAVES = ("p", "const", "bconst", "cov_a", "cov_b")
+
+
+def _is_cov_read(node) -> bool:
+    """An affine covariate read, cov_a[i] + cov_b[i] * (a time), as
+    :class:`_SymCov` traces it."""
+    return (node.op == "add" and node.args[0].op == "cov_a" and node.args[1].op == "mul"
+            and node.args[1].args[0].op == "cov_b")
+
+
+def covariate_only_terms(outputs: List[Sym]) -> List[Sym]:
+    """The smallest set of subexpressions of ``outputs`` that read only
+    parameters, constants and covariate values and feed the rest of the
+    RHS (or are outputs), each costing more than one operation; at most
+    ``_MAX_PRE``, the costliest kept, in evaluation order. With every
+    covariate's slope zero within a march call they are constant over it:
+    ``rhs_pre`` computes them once, ``rhs_body`` reads them."""
+    order = _topo(outputs)
+    inv = {}
+
+    def invariant(node) -> bool:
+        return inv[id(node)] if node.args else node.op in _INVARIANT_LEAVES
+
+    for node in order:
+        inv[id(node)] = _is_cov_read(node) or all(invariant(a) for a in node.args)
+    feeds_rest = {id(o) for o in outputs}
+    for node in order:
+        if not inv[id(node)]:
+            feeds_rest.update(id(a) for a in node.args)
+    terms = []
+    for node in order:
+        if inv[id(node)] and not node.is_bool and id(node) in feeds_rest:
+            cost = sum(_TERM_COST.get(n.op, 1) for n in _topo([node]))
+            if cost > 1:
+                terms.append((cost, node))
+    keep = {id(n) for _, n in sorted(terms, key=lambda cn: -cn[0])[:_MAX_PRE]}
+    return [n for _, n in terms if id(n) in keep]
+
+
 def _header(what: str, n_states, n_params, ninput, functions, covs,
-            jacobian: bool = False) -> str:
+            jacobian: bool = False, n_pre: int = 0) -> str:
     names, modes = covs
     listed = ", ".join(f"{n} ({m})" for n, m in zip(names, modes)) or "none"
     cov_lines = (f"// covariates, in cov_a/cov_b order: {listed}\n"
                  f"#define PHARMSOL_RHS_NCOV {len(names)}\n")
     if jacobian:
         cov_lines += "#define PHARMSOL_RHS_HAS_JVP 1\n"
+    if n_pre:
+        cov_lines += (f"// rhs_pre: {n_pre} covariate-only terms, held in registers across a "
+                      f"march call\n#define PHARMSOL_RHS_NPRE {n_pre}\n")
     return (
         "// Generated by pharmsol_tpu_torch/ops/rhs_codegen.py from a model's\n"
         f"// torch {what}: do not edit.\n"
@@ -815,6 +893,7 @@ def generate_rhs(diffeq: Callable, n_states: int, n_params: int,
     outputs = _traced(diffeq, args, n_states, "RHS", "ODE", covs)
     c_args = args + (("cov_a", len(cov_names)), ("cov_b", len(cov_names)))
     functions = [_emit_function(outputs, "rhs", c_args, "dx")]
+    pre = []
     if jacobian:
         try:
             jv = tangents(outputs)
@@ -822,11 +901,19 @@ def generate_rhs(diffeq: Callable, n_states: int, n_params: int,
             raise PharmsolError(
                 f"the ODE RHS has no Jacobian in the CUDA kernel: {e}") from None
         functions.append(_emit_function(jv, "rhs_jvp", c_args + (("v", n_states),), "jv"))
+    else:
+        # the explicit tier's split (the tiers with rhs_jvp keep rhs alone)
+        pre = covariate_only_terms(outputs)
+    if pre:
+        pre_args = (("p", n_params), ("t", None)) + c_args[-2:]
+        functions.append(_emit_function(pre, "rhs_pre", pre_args, "pre"))
+        functions.append(_emit_function(outputs, "rhs_body", c_args + (("pre", len(pre)),), "dx",
+                                        given={id(n): f"pre[{i}]" for i, n in enumerate(pre)}))
     source = _header("RHS closure", n_states, n_params, ninput, functions, covs,
-                     jacobian)
+                     jacobian, len(pre))
     key = hashlib.sha256(source.encode()).hexdigest()[:16]
     return GeneratedRhs(diffeq, int(n_states), int(n_params), ninput, source, key,
-                        cov_names, cov_modes, bool(jacobian))
+                        cov_names, cov_modes, bool(jacobian), len(pre))
 
 
 def generate_sde(drift: Callable, diffusion: Callable, n_states: int,

@@ -223,6 +223,43 @@ def test_k2e_matches_twin_float64(cuda, name):
         assert float(rel) <= 1e-8
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["ode_dopri5", "ode_lag_fa", "covariate_model", "lag_fa",
+                                  "two_inputs_lag", "cov_linear"])
+def test_explicit_psi_does_not_depend_on_the_grid(cuda, name, dtype):
+    """K2a and K2e on the persistent grid at a ragged shape (37 subjects x 45
+    supports): one block (128 lanes, each marching several cells, captures and
+    lag passes one after the other), three blocks, and as many as the card
+    holds (a lane marches one cell) give the same psi bit for bit; in float64
+    every cell within 1e-8 of the twin, one K2a or K2e launch a call."""
+    if name.startswith("ode_"):
+        model, data, sp, ems = ode_case(name)
+        subjects = data.subjects()
+        data = pt.Data([subjects[i % len(subjects)] for i in range(37)])
+        sp = np.concatenate([sp] * 4)[:45] * np.linspace(0.9, 1.1, 45)[:, None]
+    elif name == "covariate_model":
+        model, data, sp, ems = covariate_model_case(37, 45, seed=6)
+    else:
+        model, data, sp, ems = ode_feature_case(name, n_subjects=37, n_support=45, seed=6)
+    grid = model.lower(data.subjects())
+    lowered = ems.lower(model.resolve_output_label, model.nouteqs())
+    plan = _FusedOdePsiPlan(model, grid, sp, lowered, cuda, dtype)
+    kw = plan.kernel_kwargs()
+    before = fused_ode.LAUNCHES + fused_ode.FEATURE_LAUNCHES
+    runs = [fused_ode.psi_ode(*plan.streams, plan.support, plan.rhs, blocks=b, **kw)
+            for b in (1, 3, None)]
+    torch.cuda.synchronize()
+    assert fused_ode.LAUNCHES + fused_ode.FEATURE_LAUNCHES == before + 3
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    assert torch.equal(runs[0].view(bits), runs[1].view(bits))
+    assert torch.equal(runs[0].view(bits), runs[2].view(bits))
+    if dtype == torch.float64:
+        want = _ode_run(plan, fused_ode.psi_ode_plain)
+        assert torch.isfinite(want).all()
+        rel = ((runs[0] - want).abs() / want.abs().clamp(min=1.0)).max()
+        assert float(rel) <= 1e-8
+
+
 def test_auto_takes_k2e_for_the_covariate_model(cuda):
     """The reference's covariate example through the entry point: the fused
     plan, one K2e launch, the general engine within the controller's error."""
@@ -681,7 +718,8 @@ def test_implicit_psi_does_not_depend_on_the_grid(cuda, name, solver, dtype):
 
 def test_implicit_grid_is_sized_by_the_occupancy_query(cuda):
     """The implicit library reports its resident blocks per SM; the explicit
-    library has no such query."""
+    library reports its own through its query (K2a and K2e, dopri5 and
+    tsit5) and has not the implicit one."""
     from pharmsol_tpu_torch.ops import _build
 
     plan = _stiff_plan("tmdd", "bdf", torch.float64, cuda)
@@ -691,10 +729,16 @@ def test_implicit_grid_is_sized_by_the_occupancy_query(cuda):
     for is_f64 in (False, True):
         for cap in (3, 5):
             assert 1 <= query(is_f64, False, cap) <= 16
+    assert fused_ode.explicit_occupancy_of(lib) is None
     explicit = _ode_plan("ode_dopri5", torch.float64, cuda)
     _ode_run(explicit, fused_ode.psi_ode)
-    assert fused_ode.implicit_occupancy_of(
-        _build.generated_target(_build.ODE, explicit.rhs).path) is None
+    explicit_lib = _build.generated_target(_build.ODE, explicit.rhs).path
+    assert fused_ode.implicit_occupancy_of(explicit_lib) is None
+    query = fused_ode.explicit_occupancy_of(explicit_lib)
+    for is_f64 in (False, True):
+        for feature in (False, True):
+            for code in (0, 1):
+                assert 1 <= query(is_f64, feature, code) <= 16
 
 
 @pytest.mark.parametrize("cap", [1, 3, 5])

@@ -290,6 +290,94 @@ def test_generated_header_matches_the_closure(name, gxx, tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# The covariate-only terms: rhs_pre and rhs_body
+# ---------------------------------------------------------------------------
+
+
+def _param_terms(x, p, t, b, rateiv, cov):
+    # no covariate: an allometric clearance of the parameters alone
+    cl = p[0] * (p[2] / 70.0) ** 0.75
+    return torch.stack([-p[1] * x[0] + b[0], p[1] * x[0] - cl / p[3] * x[1] + rateiv[0]])
+
+
+# name: (closure, states, parameters, inputs, covariates, covariate-only terms)
+SPLIT = {
+    "covariates": ACCEPTED["covariates"][:4] + (ACCEPTED["covariates"][4], 1),
+    "covariates_const": ACCEPTED["covariates_const"][:4] + (ACCEPTED["covariates_const"][4], 1),
+    "shifted_read": ACCEPTED["shifted_read"][:4] + (ACCEPTED["shifted_read"][4], 2),
+    "param_terms": (_param_terms, 2, 4, 1, ((), ()), 1),
+    "exotic": ACCEPTED["exotic"][:4] + (ACCEPTED["exotic"][4], 1),
+    "short": ACCEPTED["short"][:4] + (ACCEPTED["short"][4], 0),
+    "michaelis_menten": ACCEPTED["michaelis_menten"][:4] + (ACCEPTED["michaelis_menten"][4], 0),
+}
+
+
+@pytest.mark.parametrize("name", list(SPLIT))
+def test_covariate_only_terms_split_the_explicit_header(name):
+    """A header without rhs_jvp splits rhs where a subexpression of
+    parameters, constants and covariate values costs more than one
+    operation; one that saves nothing (the 2-cmt oral RHS, whose only such
+    term is p[0] + p[2]) keeps rhs alone, and so does every header with
+    rhs_jvp."""
+    fn, n, n_params, ninput, covs, n_pre = SPLIT[name]
+    rhs = generate_rhs(fn, n, n_params, ninput, *covs)
+    assert rhs.n_pre == n_pre
+    assert ("void rhs_pre(" in rhs.source) == (n_pre > 0)
+    assert ("void rhs_body(" in rhs.source) == (n_pre > 0)
+    assert (f"#define PHARMSOL_RHS_NPRE {n_pre}" in rhs.source) == (n_pre > 0)
+    with_jvp = generate_rhs(fn, n, n_params, ninput, *covs, jacobian=True)
+    assert with_jvp.n_pre == 0 and "rhs_pre" not in with_jvp.source
+
+
+_SPLIT_WRAPPER = _WRAPPER + """
+extern "C" void split_f64(const double* x, const double* p, double t,
+                          const double* b, const double* r, const double* ca,
+                          const double* cb, double* dx) {
+  double pre[PHARMSOL_RHS_NPRE];
+  rhs_pre<double>(p, t, ca, cb, pre);
+  rhs_body<double>(x, p, t, b, r, ca, cb, pre, dx);
+}
+"""
+
+
+@pytest.mark.parametrize("name", [n for n, row in SPLIT.items() if row[5]])
+def test_rhs_pre_and_rhs_body_equal_rhs_bit_for_bit(name, gxx, tmp_path):
+    """rhs_pre then rhs_body give rhs's bits on random lanes, with every
+    covariate's slope zero (the runs where the kernel computes rhs_pre once)
+    and with slopes (where it computes them at each stage's time): the
+    covariate model and models without covariates. Built without
+    contraction, as the kernel's host build is."""
+    fn, n, n_params, ninput, (names, modes), _ = SPLIT[name]
+    rhs = generate_rhs(fn, n, n_params, ninput, names, modes)
+    (tmp_path / "rhs.h").write_text(rhs.source)
+    (tmp_path / "wrap.cpp").write_text(_SPLIT_WRAPPER)
+    lib_path = tmp_path / "librhs.so"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC", "-o",
+                    str(lib_path), str(tmp_path / "wrap.cpp")], check=True, cwd=tmp_path)
+    lib = ctypes.CDLL(str(lib_path))
+    dp = ctypes.POINTER(ctypes.c_double)
+    for f in (lib.rhs_f64, lib.split_f64):
+        f.argtypes = [dp, dp, ctypes.c_double, dp, dp, dp, dp, dp]
+
+    def ptr(a):
+        return np.ascontiguousarray(a).ctypes.data_as(dp)
+
+    rng = np.random.RandomState(17)
+    ncov = max(len(names), 1)
+    for lane in range(200):
+        x, p = rng.uniform(0.0, 5.0, n), rng.uniform(0.1, 3.0, n_params)
+        b, r = rng.uniform(0.0, 2.0, ninput), rng.uniform(0.0, 2.0, ninput)
+        t = float(rng.uniform(0.0, 24.0))
+        ca = rng.uniform(20.0, 120.0, ncov)
+        cb = np.zeros(ncov) if lane % 2 == 0 else rng.uniform(-2.0, 2.0, ncov)
+        want, got = np.zeros(n), np.zeros(n)
+        lib.rhs_f64(ptr(x), ptr(p), t, ptr(b), ptr(r), ptr(ca), ptr(cb), want.ctypes.data_as(dp))
+        lib.split_f64(ptr(x), ptr(p), t, ptr(b), ptr(r), ptr(ca), ptr(cb),
+                      got.ctypes.data_as(dp))
+        assert np.array_equal(got.view(np.int64), want.view(np.int64))
+
+
+# ---------------------------------------------------------------------------
 # Jacobian columns: rhs_jvp by symbolic forward mode
 # ---------------------------------------------------------------------------
 

@@ -197,8 +197,12 @@ work on K2b or K2c; ``--only explicit`` phases 0, 1 (the explicit tier's
 libraries), phase 2's K2a and K2e checks, the ODE parts of 3-4 and 8, for
 work on K2a or K2e; ``--only sde`` phases 0, 1 (the SDE libraries), 5-7 and
 16-18 (K3a, K3b); ``--only k1c`` phases 0, 1 (the closed-form library) and
-19-21. A partial run's last line is ``{"ok": true, "partial": ...}``, not
-the whole script's verdict.
+19-21; ``--only closed`` phases 0, 1 (the closed-form library), phase 2's
+K1b checks, 3-4 for the two K1b cells, 19-21 (K1c) and the feature kernel's
+anatomy on the four K1b and K1c cells (every feature instantiation's
+registers, local memory, stack and warps per SM; per cell the issue slots
+per cell-segment), for work on K1b or K1c. A partial run's last line is ``{"ok": true, "partial":
+...}``, not the whole script's verdict.
 
 ``--pair DIR`` holds this checkout against another one at ``DIR`` (a
 ``git archive`` of the parent commit, say), in the order DIR, here, here,
@@ -221,8 +225,13 @@ move, "ODE expm transit 16384 x 512" (K2d), each with the kernel alone
 (the median of three runs of ten launches), the psi cells that differ at
 all, both sides' explicit anatomy, the layout model and each side's issue
 slots per cell-trial. ``--pair DIR --only stiff`` (or ``sde``, or
-``explicit``) runs that part alone. It prints the pairs and
-``{"ok": true, "partial": "pair"}``.
+``explicit``) runs that part alone. ``--pair DIR --only closed`` times the
+four K1b and K1c cells and K1a's "Short 16384 x 512" (the kernel alone, the
+plan alone on the lowered grid and the call), holds the change's psi to the
+parent's cell by cell (float64 1e-12 relative; float32 1e-3, 99.9% within
+1e-5), and prints every closed-form kernel's registers, the feature
+instantiations' anatomy, K1a's SASS digests and each side's issue slots per
+cell-segment. It prints the pairs and ``{"ok": true, "partial": "pair"}``.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. All data comes from a numpy
@@ -693,15 +702,15 @@ def phase_build(pt, feature_cases, expm, stiff, only: str = None) -> float:
     from pharmsol_tpu_torch.ops import _build
 
     ode_targets = (stiff_build_targets(stiff) if only == "stiff"
-                   else [] if only in ("sde", "k1c")
+                   else [] if only in ("sde", "k1c", "closed")
                    else list(explicit_build_targets(feature_cases).values())
                    if only == "explicit"
                    else ode_build_targets(feature_cases, expm, stiff))
-    sde_targets = ([] if only in ("stiff", "k1c", "explicit")
+    sde_targets = ([] if only in ("stiff", "k1c", "explicit", "closed")
                    else sde_build_targets(pt) + sde_feature_build_targets(pt))
     psi_targets = [] if only in ("stiff", "sde", "explicit") else [_build.psi_target()]
     targets = (psi_targets + [t for _, t in ode_targets] + [t for _, t in sde_targets])
-    names = (["fused_psi"] * len(psi_targets)
+    names = ([t.name for t in psi_targets]
              + [f"fused_ode ({name})" for name, _ in ode_targets]
              + [f"fused_sde ({name})" for name, _ in sde_targets])
     t0 = time.perf_counter()
@@ -714,6 +723,7 @@ def phase_build(pt, feature_cases, expm, stiff, only: str = None) -> float:
             f"other case ({len(stiff_build_targets(stiff))} of them); the build took "
             f"{wall:.1f} s with K3b's libraries among them (before the cut: "
             f"{BEFORE_CUTS_S['build'][0]} - {BEFORE_CUTS_S['build'][1]} s)")
+    spilled = []
     for name, (path, seconds, output) in zip(names, results):
         log(f"[1]   {name}: {path.name} in {seconds:.2f} s")
         # ptxas -v: one summary per instantiation; all of K1a, K2a and K2e
@@ -729,11 +739,13 @@ def phase_build(pt, feature_cases, expm, stiff, only: str = None) -> float:
         for ln in output.splitlines():
             m = (re.search(r"fused_psi_kernelI([fd])Li(\d+)E", ln)
                  or re.search(r"fused_psi_feature_kernelI([fd])Li(\d+)ELb(\d)E", ln)
+                 or re.search(r"prepare_levels_kernelI([fd])Li(\d+)E()", ln)
                  or re.search(r"fused_ode_kernelI([fd])Li(\d+)ELb(\d)E", ln)
                  or re.search(r"fused_ode_implicit_kernelI([fd])Li(\d+)ELb(\d)E", ln)
                  or re.search(r"fused_sde_kernelI([fd])Li(\d+)ELb(\d)E", ln))
             if m and "Compiling entry function" in ln:
-                what = (("K1c code" if m.group(3) == "1" else "K1b code")
+                what = ("K1b/K1c level table code" if "prepare_levels" in ln else
+                        ("K1c code" if m.group(3) == "1" else "K1b code")
                         if "fused_psi_feature" in ln else
                         "K1a code" if "fused_psi" in ln else
                         ("K3b" if m.group(3) == "1" else "K3a") + " particles/thread"
@@ -752,7 +764,11 @@ def phase_build(pt, feature_cases, expm, stiff, only: str = None) -> float:
             elif "registers" in ln and kernel:
                 regs = ln.split("Used")[-1].split(",")[0].strip()
                 log(f"[1]   ptxas {name} {kernel}: {regs}; {spill}")
+                stores = re.search(r"(\d+) bytes spill stores", spill)
+                if stores and int(stores.group(1)) > 0:
+                    spilled.append(f"{name} {kernel}")
                 kernel, spill = None, ""
+    log("[1] spill stores (ptxas): " + (", ".join(spilled) if spilled else "none"))
     if psi_targets:
         _build.load_library()
     return wall
@@ -1776,10 +1792,13 @@ def psi_work(plan, counts=None) -> tuple:
     each input read once and psi written once; the operations this data
     needs (each support prepared once, or once per row, per spanned segment
     or per change of chain level as the mode asks; one propagate per spanned
-    segment and per lagged dose that fires; one observation term per
-    observation), counted on the twin's own functions. K1c's in-kernel chain
-    (``seg_evcode``) and its split marches are counted by the twin
-    (``counts`` of ``psi_analytical_plain``: prepares, propagates, fires)."""
+    segment and per lagged dose that fires; per observation and cell the
+    prediction and ``-z^2 / 2``, and per observation and row, once, its
+    ``-log(2 pi) / 2 - log sigma`` and ``1 / sigma``), counted on the twin's
+    own functions. K1c's in-kernel chain (``seg_evcode``) and its split
+    marches are counted by the twin (``counts`` of ``psi_analytical_plain``:
+    prepares, propagates, fires; in levels mode one prepare per level and
+    support)."""
     from pharmsol_tpu_torch.ops.fused_psi import STRUCTURES, n_micro
 
     sdef = STRUCTURES[plan.structure]
@@ -1812,8 +1831,8 @@ def psi_work(plan, counts=None) -> tuple:
     rate = plan.streams[2]
     with_rate = live & (rate.double().cpu() != 0) if rate is not None else torch.zeros_like(live)
     n_obs = int((plan.streams[3].double().cpu() > 0).sum())
-    ops = S * (int(with_rate.sum()) * prop[True] + int((live & ~with_rate).sum()) * prop[False]
-               + n_obs * (2 * NS + 9))
+    ops = (S * (int(with_rate.sum()) * prop[True] + int((live & ~with_rate).sum()) * prop[False]
+                + n_obs * (2 * NS + 5)) + n_obs * 4)
     mode = plan.mode
     k1c_chain = f.get("seg_evcode") is not None or f.get("seg_postdepth") is not None
     if k1c_chain:
@@ -4294,13 +4313,12 @@ def phase_k1c_slice(pt, rng, workload, ems) -> int:
     return launches
 
 
-def phase_lag_post_width(pt, rng, card: str) -> None:
-    """lag_post (lag with a time-varying seq) at the widest population
-    ``plans/seq.py::_MAX_PLANE_FLOATS`` admits for the Covariate Short model
-    (its weight with a second knot at 6 h, so its seq varies in time) at
-    ``K1C_POST_S`` supports: one call per dtype through the public entry
-    point, each one K1c launch, float64 held against the general engine on
-    256 subjects within 1e-10; the width and the plan's time printed."""
+def lag_post_cell(pt, rng):
+    """The lag_post cell (lag with a time-varying seq, K1c in planes mode):
+    the Covariate Short model, its weight with a second knot at 6 h so that
+    its seq varies in time, at the widest population
+    ``plans/seq.py::_MAX_PLANE_FLOATS`` admits at ``K1C_POST_S`` supports:
+    (label, model, data, support, ems, the number of columns)."""
     from pharmsol_tpu_torch.likelihood.plans.seq import _MAX_PLANE_FLOATS
 
     S = K1C_POST_S
@@ -4325,6 +4343,18 @@ def phase_lag_post_width(pt, rng, card: str) -> None:
         out=lambda x, p, t, cov: x[1:2] / p[4], nstates=3, ndrugs=1, nout=1)
     ems = pt.AssayErrorModels().add(0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
     sp = jittered_support([0.15, 3.0, 0.3, 0.2, 10.0, 0.5, 0.8], S, rng, 0.2)
+    return label, model, data, sp, ems, n_cols
+
+
+def phase_lag_post_width(pt, rng, card: str) -> None:
+    """The lag_post cell (``lag_post_cell``): one call per dtype through the
+    public entry point, each one K1c launch, float64 held against the
+    general engine on 256 subjects within 1e-10; the width and the plan's
+    time printed."""
+    from pharmsol_tpu_torch.likelihood.plans.seq import _MAX_PLANE_FLOATS
+
+    label, model, data, sp, ems, n_cols = lag_post_cell(pt, rng)
+    (R, S), M, n_base = (len(data), sp.shape[0]), 1 + len(SHORT_TIMES), 5
     log(f"[21] {label}: the widest population _MAX_PLANE_FLOATS = {_MAX_PLANE_FLOATS} admits "
         f"at {S} supports (cut from the Covariate Short cell's 16384 subjects: the lane walk's "
         f"{M + 1} events x R x S x {n_cols} columns and the {M} x {n_base} x R x S planes)")
@@ -4451,6 +4481,235 @@ def run_k1c_slice(pt, rng, card: str) -> dict:
                                for dt, t in by_dtype.items()}
                        for label, by_dtype in times.items()}
     return record
+
+
+def feature_record_of(label, launches, times) -> dict:
+    """K1b's entry of the kernels line (the first cell's times, every cell
+    under ``cells``)."""
+    f32_, f64_ = times[label][torch.float32], times[label][torch.float64]
+    return dict(
+        FEATURE_KERNEL_RECORD,
+        launches=sum(launches.values()),
+        max_abs_err=f64_["abs_err"],
+        max_abs_err_f32=f32_["abs_err"],
+        ms=f32_["kernel"],
+        plain_ms=f32_["twin"],
+        bound_ms=f32_["bound"],
+        bound_by=f32_["bound_by"],
+        library_ms=None,
+        ms_f64=f64_["kernel"],
+        plain_ms_f64=f64_["twin"],
+        bound_ms_f64=f64_["bound"],
+        shape=label,
+        launches_by_cell=launches,
+        cells={cell: {str(dt)[6:]: {k: v for k, v in t.items() if k != "bound_by"}
+                      for dt, t in by_dtype.items()}
+               for cell, by_dtype in times.items()},
+    )
+
+
+# the feature instantiations the closed-form anatomy prints: the four cells'
+# (2-cmt oral, code 5, and 1-cmt oral, code 1, under K1b and K1c) in both
+# dtypes, and the 3-compartment ones in float64
+FEATURE_ANATOMY_KEYS = tuple(
+    [f"{k} {d} {c}" for d in ("f32", "f64") for k in ("K1b", "K1c") for c in (1, 5)]
+    + [f"{k} f64 {c}" for k in ("K1b", "K1c") for c in (8, 9, 10, 11)])
+
+
+def feature_anatomy(lib_path: Path) -> dict:
+    """{"K1c f64 5": {"regs", "local", "stack", "warps_per_sm", "from"}} of
+    the closed-form library's feature instantiations (``cuobjdump
+    -res-usage``): warps per SM from the library's own occupancy query where
+    it has one (``fused_psi_feature_occupancy``), else from the registers at
+    the launch's 256-thread blocks."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(lib_path))
+    query = getattr(lib, "fused_psi_feature_occupancy", None)
+    out = {}
+    for name, r in kernel_resources(lib_path).items():
+        key = kernel_key(name)
+        if key not in FEATURE_ANATOMY_KEYS:
+            continue
+        a = dict(regs=r.get("reg", 0), local=r.get("local", 0), stack=r.get("stack", 0))
+        if query is not None:
+            blocks = ctypes.c_int(0)
+            query.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            kid, dt, code = key.split()
+            if query(int(dt == "f64"), int(code), int(kid == "K1c"),
+                     ctypes.addressof(blocks)) != 0:
+                raise AssertionError(f"{key}: the occupancy query failed")
+            a["warps_per_sm"], a["from"] = blocks.value * 128 // 32, "query"
+        else:
+            a["warps_per_sm"] = resident_blocks(a["regs"], r.get("shared", 0), 256) * 8
+            a["from"] = "registers, 256-thread blocks"
+        out[key] = a
+    return out
+
+
+def describe_feature_anatomy(a: dict) -> str:
+    return (f"{a['regs']} registers, {a['local']} B local, {a['stack']} B stack frame, "
+            f"{a['warps_per_sm']} warps per SM ({a['from']})")
+
+
+def cell_segments(plan) -> int:
+    """Cells x spanned segments of a closed-form plan: the segments with a
+    span, each row's, times the supports."""
+    return int((plan.streams[0] > 0).sum()) * plan.S
+
+
+def issue_slots(kernel_ms: float, cell_segs: int) -> float:
+    """The card's issue slots (4 schedulers x 32 lanes a cycle on every SM)
+    in ``kernel_ms``, per cell-segment."""
+    return kernel_ms * 1e-3 * H100_CLOCK_HZ * H100_SMS * 128 / cell_segs
+
+
+def closed_cells(pt):
+    """The four K1b and K1c cells as ``feature_workloads`` and
+    ``k1c_workloads`` draw them from the seed, with their timing support
+    (phase 4's and phase 20's): (label, kernel, model, data, support, ems,
+    instantiation key prefix)."""
+    rng = np.random.RandomState(SEED)
+    ems = pt.AssayErrorModels().add(0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    out = []
+    for kernel, cells in (("K1b", feature_workloads(pt, rng)), ("K1c", k1c_workloads(pt, rng))):
+        for w in cells:
+            label, model, data, centre, S = w[:5]
+            sp = jittered_support(centre, S, np.random.RandomState(SEED + 4), 0.2)
+            out.append((label, kernel, model, data, sp, ems))
+    return out
+
+
+def phase_closed_anatomy(pt, kernel_ms: dict, card: str) -> dict:
+    """The feature kernel's anatomy on the four cells: every instantiation's
+    registers, local memory, stack and warps per SM; per cell and dtype the
+    issue slots per cell-segment of the measured kernel time
+    (``kernel_ms[(label, dtype)]``)."""
+    from pharmsol_tpu_torch.ops import _build
+
+    inst = feature_anatomy(_build.library_path())
+    for key in FEATURE_ANATOMY_KEYS:
+        if key in inst:
+            log(f"[anatomy] {key}: {describe_feature_anatomy(inst[key])}")
+    out = {"instantiations": inst, "cells": {}}
+    for label, kernel, model, data, sp, ems in closed_cells(pt):
+        for dtype in (torch.float32, torch.float64):
+            d = str(dtype)[6:]
+            plan = plan_for(pt, model, data, sp, ems, dtype)
+            segs = cell_segments(plan)
+            rec = dict(cell_segments=segs)
+            if (label, dtype) in kernel_ms:
+                rec["kernel_ms"] = kernel_ms[(label, dtype)]
+                rec["issue_slots"] = issue_slots(rec["kernel_ms"], segs)
+            log(f"[anatomy] {label} {d} ({kernel}): {segs} cell-segments"
+                + (f", kernel {rec['kernel_ms']:.4f} ms, {rec['issue_slots']:.1f} issue slots "
+                   f"per cell-segment" if "issue_slots" in rec else "") + f" ({card})")
+            out["cells"][f"{label} {d}"] = rec
+            del plan
+    return out
+
+
+def run_closed(pt, rng, card: str) -> list:
+    """``--only closed``: phases 0-1 for the closed-form library, phase 2's
+    K1b checks, the two K1b cells (phases 3-4),
+    phases 19-21 (K1c), and the feature kernel's anatomy on the four cells;
+    K1b's and K1c's records."""
+    phase_build(pt, {}, {}, {}, only="closed")
+    phase_feature_kernels(pt)
+    torch.cuda.synchronize()
+    ems = pt.AssayErrorModels().add(0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    features = feature_workloads(pt, rng)
+    launches = {w[0]: phase_feature_slice(pt, rng, w, ems) for w in features}
+    torch.cuda.synchronize()
+    times = {w[0]: phase_feature_times(pt, w, ems, card) for w in features}
+    torch.cuda.synchronize()
+    k1c = run_k1c_slice(pt, rng, card)
+    kernel_ms = {(label, dt): t["kernel"] for label, by in times.items() for dt, t in by.items()}
+    kernel_ms.update({(label, dt): t["kernel"] for label, by in k1c["cells"].items()
+                      for dt, t in ((torch.float32, by["float32"]), (torch.float64, by["float64"]))})
+    anatomy = phase_closed_anatomy(pt, kernel_ms, card)
+    return [dict(feature_record_of(features[0][0], launches, times), anatomy=anatomy),
+            dict(k1c, anatomy=anatomy)]
+
+
+def pair_closed(pt, ms: dict, psi: dict, kernel_ms: dict, plan_ms: dict) -> dict:
+    """The closed-form cells on one side of ``--pair``: the four K1b and K1c
+    cells (``closed_cells``) and, as a check that K1a did not move, "Short
+    16384 x 512"; per cell and dtype three ``log_likelihood_matrix`` calls
+    after a warm one (``ms``), the kernel alone (the median of three runs of
+    ten launches, ``kernel_ms``), the plan alone on the lowered grid (the
+    median of five, ``plan_ms``, and its costliest calls) and psi; returns
+    the registers of every
+    closed-form kernel, the feature instantiations' anatomy and a digest of
+    each K1a kernel's SASS."""
+    from pharmsol_tpu_torch.likelihood.plans.analytical import _FusedPsiPlan
+    from pharmsol_tpu_torch.ops import _build
+
+    _build.load_library()
+    cells = closed_cells(pt)
+    short = short_subjects(pt, 16384, np.random.RandomState(SEED))
+    model = pt.Analytical(pt.two_compartments_with_absorption,
+                          out=lambda x, p, t, cov: x[1:2] / p[4], nstates=3, ndrugs=1, nout=1)
+    segments, profiles = {}, {}
+    cells.append(("Short 16384x512", "K1a", model, short,
+                  jittered_support([0.15, 1.2, 0.3, 0.2, 10.0], 512,
+                                   np.random.RandomState(SEED + 2), 0.2), cells[0][5]))
+    for label, _, model, data, sp, ems in cells:
+        grid = model.lower(data.subjects())
+        lowered = ems.lower(model.resolve_output_label, model.nouteqs())
+        for dtype in (torch.float32, torch.float64):
+            pt.set_float_dtype(dtype)
+            key = f"{label} {str(dtype)[6:]}"
+            call = lambda: pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")  # noqa: E731
+            out = call()
+            if tuple(out.shape) != (len(data), sp.shape[0]) or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{key}: psi {tuple(out.shape)}, not finite")
+            ms[key] = [wall_ms(call, 1, 0) for _ in range(3)]
+            psi[key] = out.double().cpu().numpy()
+            del out
+            build = lambda: _FusedPsiPlan(model, grid, sp, lowered,  # noqa: E731
+                                          torch.device("cuda"), dtype)
+            plan_ms[key] = statistics.median(wall_ms(build, 1, 0) for _ in range(5))
+            prof = cProfile.Profile()
+            plan = prof.runcall(build)
+            top = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][3])
+            profiles[key] = [(fn, round(st[3] * 1e3, 1)) for (path, _, fn), st in top
+                             if "pharmsol_tpu_torch" in path and fn != "__init__"][:5]
+            kernel_ms[key] = statistics.median(cuda_ms(lambda: run_kernel(plan), 10)
+                                               for _ in range(3))
+            segments[key] = cell_segments(plan)
+            del plan
+    # lag_post, planes mode (K1c's post-fire model prepared from the planes):
+    # the kernel alone and its psi, the plan built once (its lane walk takes
+    # seconds)
+    label, model, data, sp, ems, _ = lag_post_cell(pt, np.random.RandomState(SEED))
+    for dtype in (torch.float32, torch.float64):
+        pt.set_float_dtype(dtype)
+        key = f"{label} {str(dtype)[6:]}"
+        plan = plan_for(pt, model, data, sp, ems, dtype)
+        if plan.mode != "planes" or plan.features["seg_postdepth"] is None:
+            raise AssertionError(f"{key}: mode {plan.mode}, not lag_post")
+        out = run_kernel(plan)
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{key}: psi not finite")
+        psi[key] = out.double().cpu().numpy()
+        kernel_ms[key] = statistics.median(cuda_ms(lambda: run_kernel(plan), 10)
+                                           for _ in range(3))
+        segments[key] = cell_segments(plan)
+        del plan, out
+    path = _build.library_path()
+    regs, sass = {}, {}
+    for name, r in kernel_resources(path).items():
+        key = kernel_key(name)
+        if key is not None:
+            regs[key] = r.get("reg")
+    for name, (insns, _) in sass_functions(path).items():
+        key = kernel_key(name)
+        if key is not None and key.startswith("K1a"):
+            text = "\n".join(f"{op}{args}" for _, op, args in insns)
+            sass[key] = hashlib.sha256(text.encode()).hexdigest()[:16]
+    return dict(regs=regs, sass=sass, anatomy=feature_anatomy(path), segments=segments,
+                profiles=profiles)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -4664,9 +4923,10 @@ def run_pair(other: str, card: str, only=None) -> None:
                     + (f"; kernel alone {sides[-1]['kernel_ms'][key]:.3f} ms"
                        if key in sides[-1]["kernel_ms"] else "") + f" ({card})")
     factors = {}
-    for what, field in (("end to end", "ms"), ("kernel alone", "kernel_ms")):
-        for key in sides[0][field]:
-            one = field == "kernel_ms"
+    for what, field in (("end to end", "ms"), ("kernel alone", "kernel_ms"),
+                        ("plan alone", "plan_ms")):
+        for key in sides[0].get(field, {}):
+            one = field != "ms"
             par = ([sides[0][field][key], sides[3][field][key]] if one
                    else sides[0][field][key] + sides[3][field][key])
             chg = ([sides[1][field][key], sides[2][field][key]] if one
@@ -4681,6 +4941,9 @@ def run_pair(other: str, card: str, only=None) -> None:
         for a, b, what in ((0, 3, "parent vs parent"), (1, 2, "change vs change"),
                            (0, 1, "change vs parent")):
             want, got = torch.from_numpy(psis[a][key]), torch.from_numpy(psis[b][key])
+            if only == "closed":
+                compare_closed(f"pair {key} {what}", got, want, key.endswith("float64"))
+                continue
             if key.startswith("ODE ") and not key.startswith("ODE TMDD"):
                 differ = int((got != want).sum() - (torch.isnan(got) & torch.isnan(want)).sum())
                 cell = (got - want).abs() / want.abs().clamp(min=1.0)
@@ -4720,6 +4983,19 @@ def run_pair(other: str, card: str, only=None) -> None:
     for side, k in (("parent", 0), ("change", 1)):
         for key, a in sorted(sides[k]["stiff_anatomy"].items()):
             log(f"[pair] {side} anatomy {key}: {describe_anatomy(a)}")
+    for key in sorted(set(sides[0].get("closed_anatomy", {}))
+                      | set(sides[1].get("closed_anatomy", {}))):
+        for side, k in (("parent", 0), ("change", 1)):
+            a = sides[k]["closed_anatomy"].get(key)
+            if a is not None:
+                log(f"[pair] {side} {key}: {describe_feature_anatomy(a)}")
+    closed = {}
+    if only == "closed":
+        closed = pair_closed_slots(card, sides)
+        for side, k in (("parent", 0), ("change", 1)):
+            for key, top in sides[k]["profiles"].items():
+                log(f"[pair] {side} {key} plan, costliest calls (ms, cumulative, profiled): "
+                    + ", ".join(f"{fn} {ms}" for fn, ms in top))
     explicit = {}
     if only in (None, "explicit"):
         explicit = pair_explicit_lanes(card, [side["kernel_ms"] for side in sides])
@@ -4752,7 +5028,40 @@ def run_pair(other: str, card: str, only=None) -> None:
         "anatomy_parent": sides[0]["anatomy"], "anatomy_change": sides[1]["anatomy"],
         "stiff_anatomy_parent": sides[0]["stiff_anatomy"],
         "stiff_anatomy_change": sides[1]["stiff_anatomy"], "lane_slots": slots,
-        "explicit": explicit}}))
+        "explicit": explicit, "plan_ms": [s.get("plan_ms", {}) for s in sides],
+        "closed_anatomy_parent": sides[0].get("closed_anatomy", {}),
+        "closed_anatomy_change": sides[1].get("closed_anatomy", {}), "closed": closed}}))
+
+
+def compare_closed(label: str, got: torch.Tensor, want: torch.Tensor, f64: bool) -> None:
+    """Two closed-form psi of one cell held cell by cell: float64 every cell
+    within 1e-12 relative, float32 every cell within 1e-3 and 99.9% within
+    1e-5; the cells that differ at all counted."""
+    got, want = got.double(), want.double()
+    differ = int((got != want).sum())
+    cell = (got - want).abs() / want.abs().clamp(min=1.0)
+    worst = float(cell.max())
+    share = float((cell <= 1e-5).double().mean())
+    rule = "<= 1e-12" if f64 else "<= 1e-3, 99.9% within 1e-5"
+    log(f"[pair] {label}: {differ} of {got.numel()} cells differ at all; max rel {worst:.3e} "
+        f"({rule}); {share:.6f} within 1e-5")
+    if (f64 and worst > 1e-12) or (not f64 and (worst > 1e-3 or share < 0.999)):
+        raise AssertionError(f"{label}: max rel {worst}, {share} within 1e-5")
+
+
+def pair_closed_slots(card: str, sides: list) -> dict:
+    """Each side's issue slots per cell-segment in the closed-form cells
+    (``issue_slots``: the kernel alone, the median of the side's two runs,
+    over the cell's spanned segments, which the workers counted)."""
+    out = {}
+    for key, segs in sides[1]["segments"].items():
+        t = {side: statistics.median([sides[k]["kernel_ms"][key], sides[3 - k]["kernel_ms"][key]])
+             for side, k in (("parent", 0), ("change", 1))}
+        slots = {side: issue_slots(v, segs) for side, v in t.items()}
+        log(f"[pair] {key}: issue slots per cell-segment parent {slots['parent']:.1f}, change "
+            f"{slots['change']:.1f} ({segs} cell-segments) ({card})")
+        out[key] = dict(slots, cell_segments=segs)
+    return out
 
 
 def pair_worker(tree: str, psi_out: str, only=None) -> dict:
@@ -4773,6 +5082,9 @@ def pair_worker(tree: str, psi_out: str, only=None) -> dict:
     if root.parent != Path(tree).resolve():
         raise AssertionError(f"imported {root}, not the package of {tree}")
     ms, psi, regs, anatomy, kernel_ms, stiff, explicit = {}, {}, {}, {}, {}, {}, {}
+    plan_ms, closed = {}, {}
+    if only == "closed":
+        closed = pair_closed(pt, ms, psi, kernel_ms, plan_ms)
     if only in (None, "explicit"):
         explicit = pair_explicit(pt, ms, psi, kernel_ms)
     if only in (None, "stiff"):
@@ -4812,8 +5124,10 @@ def pair_worker(tree: str, psi_out: str, only=None) -> dict:
                 anatomy[key] = a
     np.savez(psi_out, **psi)
     return dict(tree=tree, ms=ms, regs=dict(regs, **stiff.get("regs", {}),
-                                            **explicit.get("regs", {})),
-                sass=explicit.get("sass", {}), anatomy=anatomy, kernel_ms=kernel_ms,
+                                            **explicit.get("regs", {}), **closed.get("regs", {})),
+                sass=dict(explicit.get("sass", {}), **closed.get("sass", {})), anatomy=anatomy,
+                kernel_ms=kernel_ms, plan_ms=plan_ms, closed_anatomy=closed.get("anatomy", {}),
+                segments=closed.get("segments", {}), profiles=closed.get("profiles", {}),
                 stiff_anatomy=dict(stiff.get("anatomy", {}), **explicit.get("anatomy", {})))
 
 
@@ -5016,21 +5330,25 @@ def main() -> int:
         print("PAIR " + json.dumps(pair_worker(sys.argv[2], sys.argv[3], only)), flush=True)
         return 0
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["stiff", "sde", "k1c", "explicit"], default=None,
+    parser.add_argument("--only", choices=["stiff", "sde", "k1c", "explicit", "closed"],
+                        default=None,
                         help="run a part, for work on its kernels: 'stiff' phases 0, 1 (the "
                              "stiff libraries alone) and 13-15 (K2b, K2c); 'explicit' phases "
                              "0, 1 (the explicit tier's libraries), phase 2's K2a and K2e "
                              "checks, 3-4 (ODE Short) and 8 (ODE covariates); 'sde' phases 0, 1 "
                              "(the SDE libraries), 5-7 and 16-18 (K3a, K3b); 'k1c' phases 0, 1 "
-                             "(the closed-form library) and 19-21 (K1c). The kernels line then "
+                             "(the closed-form library) and 19-21 (K1c); 'closed' phases 0, 1 "
+                             "(the closed-form library), phase 2's K1b checks, 3-4 for the two K1b cells, 19-21 (K1c) and the feature "
+                             "kernel's anatomy on the four cells. The kernels line then "
                              "holds that part's kernels and the last line says {\"ok\": true, "
                              "\"partial\": ...}, not the whole script's verdict")
     parser.add_argument("--pair", metavar="DIR", default=None,
                         help="hold this checkout against the one at DIR, in the order DIR, "
                              "here, here, DIR: K3a's README cell, K3b's covariate cell and the "
                              "stiff cell under each solver timed, their psi compared, the "
-                             "kernels' registers and anatomy (with --only sde or --only stiff: "
-                             "that part alone)")
+                             "kernels' registers and anatomy (with --only sde, stiff, explicit "
+                             "or closed: that part alone; closed: the four K1b and K1c cells and "
+                             "K1a's Short cell, kernel, plan and call)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5044,14 +5362,17 @@ def main() -> int:
     rng = np.random.RandomState(SEED)
     card = phase_environment()
     if args.pair is not None:
-        if args.only not in (None, "sde", "stiff", "explicit"):
-            raise SystemExit("--pair takes --only sde, --only stiff or --only explicit")
+        if args.only not in (None, "sde", "stiff", "explicit", "closed"):
+            raise SystemExit("--pair takes --only sde, stiff, explicit or closed")
         run_pair(args.pair, card, args.only)
         print(card)
         print(json.dumps({"ok": True, "partial": "pair"}))
         return 0
     if args.only == "explicit":
         closing_lines(run_explicit(pt, rng, card), card, partial="explicit")
+        return 0
+    if args.only == "closed":
+        closing_lines(run_closed(pt, rng, card), card, partial="closed")
         return 0
     if args.only in ("sde", "k1c"):
         phase_build(pt, {}, {}, {}, only=args.only)
@@ -5267,27 +5588,7 @@ def run_all(pt, rng, card, args, expm, ode_features, stiff, twins) -> int:
         shape=main_label,
         launches_fit=fit_a["launches"],
     )
-    f_label = features[0][0]
-    f32_, f64_ = feature_times[f_label][torch.float32], feature_times[f_label][torch.float64]
-    feature_record = dict(
-        FEATURE_KERNEL_RECORD,
-        launches=sum(feature_launches.values()),
-        max_abs_err=f64_["abs_err"],
-        max_abs_err_f32=f32_["abs_err"],
-        ms=f32_["kernel"],
-        plain_ms=f32_["twin"],
-        bound_ms=f32_["bound"],
-        bound_by=f32_["bound_by"],
-        library_ms=None,
-        ms_f64=f64_["kernel"],
-        plain_ms_f64=f64_["twin"],
-        bound_ms_f64=f64_["bound"],
-        shape=f_label,
-        launches_by_cell=feature_launches,
-        cells={label: {str(dt)[6:]: {k: v for k, v in t.items() if k != "bound_by"}
-                       for dt, t in by_dtype.items()}
-               for label, by_dtype in feature_times.items()},
-    )
+    feature_record = feature_record_of(features[0][0], feature_launches, feature_times)
     ode_record, ode_feature_record = explicit_records(
         ode_label, ode_launches, ode_times, cov_label, cov_launches, cov_times)
     log("[10] fits: " + json.dumps({"fit_a": fit_a, "fit_b": fit_b}))

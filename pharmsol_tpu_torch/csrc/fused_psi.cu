@@ -1,9 +1,7 @@
 // Fused population psi for the closed-form PK structures, for Hopper (sm_90a).
 //
-// Two kernels, one thread per (row, support) cell each:
-//
-// K1a, fused_psi_kernel: replaces the TPU kernel
-// pharmsol_tpu/ops/pallas_psi.py::psi_oral (_make_kernel, base tier:
+// K1a, fused_psi_kernel, one thread per (row, support) cell: replaces the TPU
+// kernel pharmsol_tpu/ops/pallas_psi.py::psi_oral (_make_kernel, base tier:
 // infusions, censoring, several outputs, output biases; all 12 structures).
 //
 // K1b, fused_psi_feature_kernel<T, CODE, false>: replaces the same TPU
@@ -22,23 +20,22 @@
 // propagate the rest; lag_post, lag with a time-varying seq, where two slot
 // streams select the pre-fire and the post-fire parameters from the same
 // [L, n_base, R, S] plane tensor for the same split march. The TPU's lane
-// masks become branches: a thread is one cell. K1b's instantiations do not
-// compile any of this (a template flag), so their code and registers stay.
+// masks become branches. K1b's instantiations do not compile any of this (a
+// template flag).
 //
-// Plain PyTorch twin of both:
+// Plain PyTorch twin of all three:
 // pharmsol_tpu_torch/ops/fused_psi.py::psi_analytical_plain.
 //
 // Layout. threadIdx.x runs along the supports, so the parameter rows
 // [n_params, S], the output coefficients [n_out, n_states, S], the psi writes
-// [R, S] and K1b's planes ([R, S] lag / fa / init planes, [L, n_micro, R, S]
+// [R, S] and the planes ([R, S] lag / fa / init planes, [L, n_micro, R, S]
 // parameter planes, S fastest) are coalesced, and the 32 threads of a warp
 // share one row: their reads of the row's segment streams [R, M] and of its
-// per-row and per-segment factors are broadcasts. Blocks stride over rows in
-// y; the kernel masks the ragged support edge itself. No padding of R, S or
-// M is needed, and M has no limit.
+// per-row and per-segment factors are broadcasts. The kernel masks the
+// ragged support edge itself: no padding of R, S or M, and M has no limit.
 //
-// Per cell: prepare the support point once (CL remap, 2-cmt eigenvalues,
-// the 3-cmt cubic with acos, which Mosaic lacked), then for every segment
+// Per cell: the support point prepared (CL remap, 2-cmt eigenvalues, the
+// 3-cmt cubic with acos, which Mosaic lacked), then for every segment
 // 1. add the observation term, read before the dose;
 // 2. add the bolus to the dose state (padded slots carry 0);
 // 3. propagate the state, only where dt > 0.
@@ -48,28 +45,35 @@
 // [n_states, S] or planes [n_states, R, S]); effective parameters
 // raw * mult + offset per row (prepared once per row, CL remap in the
 // kernel) or per segment (prepared on every spanned segment); in levels /
-// planes mode micro-constant tables selected by the segment's chain depth,
-// prepared only when the depth changes; fa scales the bolus; with lag the
-// bolus waits in two registers (pend_amt, pend_rem) and fires inside the
-// segment where its lag elapses (strict rem < dt), adding the dose vector
-// propagated over dt - rem without infusion forcing (superposition; exact
-// for these linear kernels).
+// planes mode micro-constant tables selected by the segment's chain depth;
+// fa scales the bolus; with lag the bolus waits in two registers (pend_amt,
+// pend_rem) and fires inside the segment where its lag elapses (strict rem
+// < dt), adding the dose vector propagated over dt - rem without infusion
+// forcing (superposition; exact for these linear kernels).
 //
 // What bounds it. Arithmetic issue: per cell and segment (2-cmt oral) three
-// exponentials, a logarithm and a division beside ~40 fused multiply-adds,
-// about 85 instructions; at 16384 x 512 with 10 segments that is ~7e9
-// instructions against ~3.3e13 FP32 lane-instructions/s on 132 SMs.
-// Memory is minor: 4 bytes of psi written per cell, and stream bytes that the
-// warp shares. In float64, exp and log are software routines on the FP64
-// pipes, which bound it. K1b adds transcendental work per cell and segment:
-// a second propagate (three more exponentials) in the segment where a lagged
-// dose fires, and a full prepare (divisions; the 3-cmt acos and cosines) on
-// every spanned segment in segment mode and on every depth change in levels
-// and planes mode, against 4-8 bytes per cell of each [R, S] plane it reads
-// once per row. The design keeps the prepared model in registers and
-// re-prepares only where the parameters change. This first version is
-// simple and correct: nothing is hoisted per row (log sigma), there is no
-// shared memory staging, no TMA and no tuning of the block shape yet.
+// exponentials beside ~40 fused multiply-adds; at 16384 x 512 with 10
+// segments that is ~7e9 instructions against ~3.3e13 FP32
+// lane-instructions/s on 132 SMs. Memory is minor: psi written once per
+// cell, and stream bytes that the warp shares. In float64, exp and log are
+// software routines on the FP64 pipes, which bound it.
+//
+// K1b's and K1c's design for that bound (measured against one thread a cell
+// in PERF.md): a persistent grid of 128-thread blocks, as many as the card
+// holds, each block a tile of 128 supports walking a share of the rows, so
+// that what depends on the support alone is loaded or computed once per
+// thread, not per cell: the prepared model (mode none), the first two
+// output rows, a covariate-free lag or fa given as one row per support (row
+// stride 0), and in levels mode the level models, prepared once per (level,
+// support) by prepare_levels_kernel into a [L, NPREP, S] table and loaded at
+// a change of depth; K1c's post-fire model goes into the same one model. The
+// row's observation constants are hoisted out of the cell: the launch first
+// computes, once per row, obs_const[r] (the sum of -log(2 pi) / 2 - log
+// sigma over the row's uncensored observations) and obs_isig = 1 / sigma
+// (observation_terms_kernel); the kernel starts a cell at obs_const[r] and
+// multiplies by obs_isig, so no logarithm and no division remain per cell
+// and observation. Registers are capped per dtype and structure so that no
+// instantiation spills (FeatureBlocks).
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -245,6 +249,41 @@ struct Model {
     }
   }
 
+  // The prepared fields that propagate reads, in a fixed order: K1b's and
+  // K1c's level models are prepared once per (level, support) and kept in a
+  // table of NPREP values each.
+  static constexpr int NPREP = NCMT == 1 ? (ORAL ? 4 : 2)
+                               : NCMT == 2 ? (ORAL ? 11 : 8)
+                                           : (ORAL ? 37 : 33);
+  template <class V>
+  __device__ __forceinline__ void fields(V&& v) {
+    if constexpr (NCMT == 1) {
+      v(k[0]); v(inv_ke);
+      if constexpr (ORAL) { v(ka); v(ratio); }
+    } else if constexpr (NCMT == 2) {
+      v(k[0]); v(k[1]); v(k[2]); v(l[0]); v(l[1]); v(inv_denom); v(inv_ke); v(ss2);
+      if constexpr (ORAL) { v(ka); v(inv_ka_l[0]); v(inv_ka_l[1]); }
+    } else {
+      v(l[0]); v(l[1]); v(l[2]);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+#pragma unroll
+        for (int q = 0; q < 9; ++q) v(P[j][q]);
+      }
+      v(inv_ke); v(ss2); v(ss3);
+      if constexpr (ORAL) { v(ka); v(inv_ka_l[0]); v(inv_ka_l[1]); v(inv_ka_l[2]); }
+    }
+  }
+  // field i at dst[i * stride]
+  __device__ __forceinline__ void store(T* dst, size_t stride) {
+    int i = 0;
+    fields([&](T& x) { dst[(size_t)(i++) * stride] = x; });
+  }
+  __device__ __forceinline__ void load(const T* __restrict__ src, size_t stride) {
+    int i = 0;
+    fields([&](T& x) { x = src[(size_t)(i++) * stride]; });
+  }
+
   // advance x over dt (> 0) with infusion rate `rate` into central
   __device__ __forceinline__ void propagate(T* x, T dt, T rate, bool has_inf) const {
     if (NCMT == 1) {
@@ -396,12 +435,14 @@ __global__ void __launch_bounds__(256) fused_psi_kernel(
 
 // K1b's feature inputs: mult [R, NP] and offset, mult_seg [R, NP, M] and
 // offset, levels [L, NB, S], planes [L, NB, R, S], depth [R, M] (1-based),
-// lag and fa [R, S] (K1c: plane stacks [n, R, S]), init rows [NS, S] or planes
-// [NS, R, S], init mask [R]; nullptr is off. mode: 0 none, 1 row, 2 segment,
-// 3 levels, 4 planes.
+// lag and fa [R, S] or one row per support [1, S] (row stride S or 0; K1c's
+// slot-selected stacks [n, R, S]), init rows [NS, S] or planes [NS, R, S],
+// init mask [R]; nullptr is off. mode: 0 none, 1 row, 2 segment, 3 levels,
+// 4 planes.
 struct Features {
   const void* p[12];
   int mode, n_levels;
+  int lag_row, fa_row;  // row strides of the lag and fa planes: S, or 0
 };
 
 // K1c's: K1b's, then the event codes [R, M], the post slots [R, M] and the
@@ -415,8 +456,24 @@ struct K1cFeatures {
   const int* fa_slots;
 };
 
-__device__ __forceinline__ const Features& base_of(const Features& f) { return f; }
-__device__ __forceinline__ const Features& base_of(const K1cFeatures& f) { return f.b; }
+// The feature kernel's streams: the segment streams [R, M], the observation
+// terms (obs_isig [R, M], 1 / sigma; obs_const [R], each row's sum over its
+// uncensored observations of -log(2 pi) / 2 - log sigma), the parameter rows
+// [NP, S], the output rows, psi [R, S], and the prepared level models
+// [L, NPREP, S] (levels mode); the launch fills the terms and the table
+// first.
+struct FeatureStreams {
+  const void *seg_dt, *seg_bolus, *seg_rate, *obs_mask, *obs_value, *obs_isig,
+      *obs_const, *obs_cens, *obs_outeq, *params, *coef, *bias;
+  void* out;
+  void* table;
+  int R, S, M, n_out;
+};
+
+__host__ __device__ __forceinline__ const Features& base_of(const Features& f) { return f; }
+__host__ __device__ __forceinline__ const Features& base_of(const K1cFeatures& f) {
+  return f.b;
+}
 
 enum { MODE_NONE = 0, MODE_ROW = 1, MODE_SEGMENT = 2, MODE_LEVELS = 3, MODE_PLANES = 4 };
 
@@ -434,22 +491,94 @@ __device__ __forceinline__ void level_micro(T (&micro)[NB], int mode,
   }
 }
 
+template <typename T, int CODE>
+using ModelOf = Model<T, CODE / 4 + 1, (CODE % 2) == 1, ((CODE / 2) % 2) == 1>;
+
+// The feature kernel's block: 128 supports of one row a pass, 32 to a warp.
+constexpr int FEATURE_THREADS = 128;
+
+// Blocks of 128 an SM that the register budget is set for, per dtype and
+// structure (__launch_bounds__: at most 65536 / (128 x blocks) registers a
+// thread), chosen from the ptxas report (H100, nvcc 12.9) so that no
+// instantiation spills: float32 at most 85 registers (3-compartment 170),
+// float64 128 (the 2-compartment CL oral ones, code 7, spill 4-28 B there:
+// 168), 3-compartment float64 255.
 template <typename T, int CODE, bool K1C>
-__global__ void __launch_bounds__(256) fused_psi_feature_kernel(
-    const T* __restrict__ seg_dt, const T* __restrict__ seg_bolus,
-    const T* __restrict__ seg_rate, const T* __restrict__ obs_mask,
-    const T* __restrict__ obs_value, const T* __restrict__ obs_sigma,
-    const T* __restrict__ obs_cens, const T* __restrict__ obs_outeq,
-    const T* __restrict__ params, const T* __restrict__ coef,
-    const T* __restrict__ bias, T* __restrict__ out,
-    const std::conditional_t<K1C, K1cFeatures, Features> fk, int R, int S, int M,
-    int n_out) {
-  using Mdl = Model<T, CODE / 4 + 1, (CODE % 2) == 1, ((CODE / 2) % 2) == 1>;
+struct FeatureBlocks {
+  static constexpr int NCMT = CODE / 4 + 1;
+  static constexpr int value = std::is_same<T, float>::value
+                                   ? (NCMT == 3 ? 3 : 6)
+                                   : (NCMT == 3 ? 2 : CODE == 7 ? 3 : 4);
+};
+
+// Level models prepared once per (level, support): table [L, NPREP, S].
+template <typename T, int CODE>
+__global__ void __launch_bounds__(128) prepare_levels_kernel(const T* __restrict__ levels,
+                                                             T* __restrict__ table, int S) {
+  using Mdl = ModelOf<T, CODE>;
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  const int l = blockIdx.y;
+  if (s >= S) return;
+  T micro[Mdl::NB];
+#pragma unroll
+  for (int j = 0; j < Mdl::NB; ++j) micro[j] = levels[((size_t)l * Mdl::NB + j) * S + s];
+  Mdl m;
+  m.prepare(micro, true);
+  m.store(table + (size_t)l * Mdl::NPREP * S + s, S);
+}
+
+// The observation terms of each row, once: isig [R, M] = 1 / sigma (1 where
+// the mask is off) and cst [R], the sum of -log(2 pi) / 2 - log sigma over
+// the row's uncensored observations, in the order of m.
+template <typename T>
+__global__ void __launch_bounds__(128) observation_terms_kernel(
+    const T* __restrict__ mask, const T* __restrict__ sigma, const T* __restrict__ cens,
+    T* __restrict__ isig, T* __restrict__ cst, int R, int M) {
+  const T LOG_2PI = T(1.8378770664093454836);
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  T c = T(0);
+  for (int m = 0; m < M; ++m) {
+    const size_t i = (size_t)r * M + m;
+    const bool on = mask[i] > T(0);
+    const T sig = on ? sigma[i] : T(1);
+    isig[i] = T(1) / sig;
+    if (on && (cens == nullptr || cens[i] == T(0)))
+      c = c + (T(-0.5) * LOG_2PI - Fn<T>::log(sig));
+  }
+  cst[r] = c;
+}
+
+// K1b and K1c. A persistent grid: block (x, y) owns the 128 supports of tile
+// x and walks rows y, y + gridDim.y, ...; a thread is one support and loads
+// once, before its first row, what depends on the support alone: its
+// prepared model (mode none), its output rows (up to two outputs), its lag
+// and fa where they are one row per support, and in levels mode where its
+// prepared level models lie (a table). The 32 threads of a warp share a
+// row, so the row streams stay broadcast reads.
+template <typename T, int CODE, bool K1C>
+__global__ void __launch_bounds__(FEATURE_THREADS, (FeatureBlocks<T, CODE, K1C>::value))
+    fused_psi_feature_kernel(const FeatureStreams a,
+                             const std::conditional_t<K1C, K1cFeatures, Features> fk) {
+  using Mdl = ModelOf<T, CODE>;
   constexpr int NS = Mdl::NS;
   constexpr int NP = Mdl::NP;
   constexpr int NB = Mdl::NB;
-  const T LOG_2PI = T(1.8378770664093454836);
+  constexpr int NPREP = Mdl::NPREP;
   const Features& f = base_of(fk);
+  const T* __restrict__ seg_dt = (const T*)a.seg_dt;
+  const T* __restrict__ seg_bolus = (const T*)a.seg_bolus;
+  const T* __restrict__ seg_rate = (const T*)a.seg_rate;
+  const T* __restrict__ obs_mask = (const T*)a.obs_mask;
+  const T* __restrict__ obs_value = (const T*)a.obs_value;
+  const T* __restrict__ obs_isig = (const T*)a.obs_isig;
+  const T* __restrict__ obs_const = (const T*)a.obs_const;
+  const T* __restrict__ obs_cens = (const T*)a.obs_cens;
+  const T* __restrict__ obs_outeq = (const T*)a.obs_outeq;
+  const T* __restrict__ params = (const T*)a.params;
+  const T* __restrict__ coef = (const T*)a.coef;
+  const T* __restrict__ bias = (const T*)a.bias;
+  T* __restrict__ out = (T*)a.out;
   const T* __restrict__ mult = (const T*)f.p[0];
   const T* __restrict__ offset = (const T*)f.p[1];
   const T* __restrict__ mult_seg = (const T*)f.p[2];
@@ -473,22 +602,43 @@ __global__ void __launch_bounds__(256) fused_psi_feature_kernel(
     lag_slots = fk.lag_slots;
     fa_slots = fk.fa_slots;
   }
+  const int R = a.R, S = a.S, M = a.M, n_out = a.n_out;
   [[maybe_unused]] const size_t RS = (size_t)R * S;
 
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  const int s = blockIdx.x * FEATURE_THREADS + threadIdx.x;
   if (s >= S) return;
   const bool has_inf = seg_rate != nullptr;
   const bool has_cens = obs_cens != nullptr;
   const bool has_lag = lag != nullptr;
 
-  T raw[NP];
-#pragma unroll
-  for (int j = 0; j < NP; ++j) raw[j] = params[(size_t)j * S + s];
+  // what depends on the support alone, kept across the rows (the raw
+  // parameters only as the prepared model: row and segment mode read them
+  // again where they scale them, so that no register holds them)
   Mdl mdl;
-  if (f.mode == MODE_NONE) mdl.prepare(raw);
+  if (f.mode == MODE_NONE) {
+    T raw[NP];
+#pragma unroll
+    for (int j = 0; j < NP; ++j) raw[j] = params[(size_t)j * S + s];
+    mdl.prepare(raw);
+  }
+  // levels mode: the prepared level models, this support's column of the
+  // table [L, NPREP, S] that prepare_levels_kernel filled
+  const T* lv = f.mode == MODE_LEVELS ? (const T*)a.table + s : nullptr;
+  // the output rows of the first two outputs (a third reads per observation)
+  const bool cf_kept = n_out <= 2;
+  T cf[2][NS], bs[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      cf[k][j] = (cf_kept && k < n_out) ? coef[((size_t)k * NS + j) * S + s] : T(0);
+    bs[k] = (cf_kept && k < n_out && bias != nullptr) ? bias[(size_t)k * S + s] : T(0);
+  }
+  // lag and fa given as one row per support
+  const T lag_s = (has_lag && f.lag_row == 0) ? lag[s] : T(0);
+  const T fa_s = (fa != nullptr && f.fa_row == 0) ? fa[s] : T(1);
 
-  for (int r = blockIdx.y * blockDim.y + threadIdx.y; r < R;
-       r += gridDim.y * blockDim.y) {
+  for (int r = blockIdx.y; r < R; r += gridDim.y) {
     T x[NS];
     const T im = init_mask != nullptr ? init_mask[r] : T(0);
 #pragma unroll
@@ -503,42 +653,47 @@ __global__ void __launch_bounds__(256) fused_psi_feature_kernel(
 #pragma unroll
       for (int j = 0; j < NP; ++j) {
         const size_t k = (size_t)r * NP + j;
-        eff[j] = raw[j] * mult[k] + (offset != nullptr ? offset[k] : T(0));
+        eff[j] = params[(size_t)j * S + s] * mult[k] + (offset != nullptr ? offset[k] : T(0));
       }
       mdl.prepare(eff);
     }
-    int cur = 0;  // the chain depth the model is prepared for (0: none)
-    const T lag_rs = has_lag ? lag[(size_t)r * S + s] : T(0);
-    const T fa_rs = fa != nullptr ? fa[(size_t)r * S + s] : T(1);
-    // K1c: the post-fire model (depth 1, or the column's post slot), the
-    // slot it is prepared for, and lag_depth's chain state (unused by K1b)
-    [[maybe_unused]] Mdl mfire;
-    [[maybe_unused]] int cur_fire = 0;
+    int cur = 0;  // the chain level (or slot) the model holds (0: none)
+    const T lag_rs = has_lag ? (f.lag_row != 0 ? lag[(size_t)r * S + s] : lag_s) : T(0);
+    const T fa_rs = fa != nullptr ? (f.fa_row != 0 ? fa[(size_t)r * S + s] : fa_s) : T(1);
+    // K1c: lag_depth's chain state (unused by K1b)
     [[maybe_unused]] int dc = 0;
     [[maybe_unused]] bool app = false;
     [[maybe_unused]] const bool split = K1C && (evcode != nullptr || postdepth != nullptr);
     T pend_amt = T(0), pend_rem = T(0);
-    T ll = T(0);
+    T ll = obs_const[r];
     const size_t row = (size_t)r * M;
     for (int m = 0; m < M; ++m) {
       const size_t i = row + m;
-      // 1. observation before dose: y_k = C_k . x (+ b_k)
+      // 1. observation before dose: y_k = C_k . x (+ b_k); the row's
+      // -log(2 pi) / 2 - log sigma terms are in ll's start
       if (obs_mask[i] > T(0)) {
         int k = n_out > 1 ? (int)obs_outeq[i] : 0;
         T pred = T(0);
         if (k >= 0 && k < n_out) {
-          const T* ck = coef + (size_t)k * NS * S + s;
-          pred = ck[0] * x[0];
+          if (cf_kept) {
+            auto out_k = [&](const T(&c)[NS], T b) {
+              T y = c[0] * x[0];
 #pragma unroll
-          for (int j = 1; j < NS; ++j) pred = pred + ck[(size_t)j * S] * x[j];
-          if (bias != nullptr) pred = pred + bias[(size_t)k * S + s];
+              for (int j = 1; j < NS; ++j) y = y + c[j] * x[j];
+              return y + b;
+            };
+            pred = k == 0 ? out_k(cf[0], bs[0]) : out_k(cf[1], bs[1]);
+          } else {
+            const T* ck = coef + (size_t)k * NS * S + s;
+            pred = ck[0] * x[0];
+#pragma unroll
+            for (int j = 1; j < NS; ++j) pred = pred + ck[(size_t)j * S] * x[j];
+            if (bias != nullptr) pred = pred + bias[(size_t)k * S + s];
+          }
         }
-        const T sig = obs_sigma[i];
-        const T z = (obs_value[i] - pred) / sig;
+        const T z = (obs_value[i] - pred) * obs_isig[i];
         const T sc = has_cens ? obs_cens[i] : T(0);
-        ll += (sc == T(0))
-                  ? T(-0.5) * LOG_2PI - Fn<T>::log(sig) - T(0.5) * z * z
-                  : log_ndtr(sc * z);
+        ll += (sc == T(0)) ? T(-0.5) * z * z : log_ndtr(sc * z);
       }
       // 2. the bolus (0 on padded slots) scaled by fa; with lag it waits
       const T bol = seg_bolus[i];
@@ -590,16 +745,21 @@ __global__ void __launch_bounds__(256) fused_psi_feature_kernel(
 #pragma unroll
           for (int j = 0; j < NP; ++j) {
             const size_t k = ((size_t)r * NP + j) * M + m;
-            eff[j] = raw[j] * mult_seg[k] + (offset_seg != nullptr ? offset_seg[k] : T(0));
+            eff[j] = params[(size_t)j * S + s] * mult_seg[k] +
+                     (offset_seg != nullptr ? offset_seg[k] : T(0));
           }
           mdl.prepare(eff);
         } else if (f.mode >= MODE_LEVELS) {
           int d = (K1C && evcode != nullptr) ? dc : (int)depth[i];
           d = d < 1 ? 1 : (d > f.n_levels ? f.n_levels : d);
           if (d != cur) {
-            T micro[NB];
-            level_micro(micro, f.mode, levels, planes, d, r, R, S, s);
-            mdl.prepare(micro, true);
+            if (lv != nullptr) {
+              mdl.load(lv + (size_t)(d - 1) * NPREP * S, S);
+            } else {
+              T micro[NB];
+              level_micro(micro, f.mode, levels, planes, d, r, R, S, s);
+              mdl.prepare(micro, true);
+            }
             cur = d;
           }
         }
@@ -616,18 +776,23 @@ __global__ void __launch_bounds__(256) fused_psi_feature_kernel(
             }
             if (pend_rem > T(0)) mdl.propagate(x, pend_rem, rate, has_inf);
             x[0] = x[0] + pend_amt;
-            // the post-fire parameters: depth 1 (lag_depth) or this
-            // column's post slot (lag_post)
+            // the post-fire parameters, into the one model: depth 1
+            // (lag_depth) or this column's post slot (lag_post), both in the
+            // level (slot) space of the main model
             int dp = postdepth != nullptr ? (int)postdepth[i] : 1;
             dp = dp < 1 ? 1 : (dp > f.n_levels ? f.n_levels : dp);
-            if (dp != cur_fire) {
-              T micro[NB];
-              level_micro(micro, f.mode, levels, planes, dp, r, R, S, s);
-              mfire.prepare(micro, true);
-              cur_fire = dp;
+            if (dp != cur) {
+              if (lv != nullptr) {
+                mdl.load(lv + (size_t)(dp - 1) * NPREP * S, S);
+              } else {
+                T micro[NB];
+                level_micro(micro, f.mode, levels, planes, dp, r, R, S, s);
+                mdl.prepare(micro, true);
+              }
+              cur = dp;
             }
             const T rest = dt - pend_rem;
-            if (rest > T(0)) mfire.propagate(x, rest, rate, has_inf);
+            if (rest > T(0)) mdl.propagate(x, rest, rate, has_inf);
             if (evcode != nullptr) {
               dc = 1;
               app = true;
@@ -696,40 +861,65 @@ cudaError_t dispatch(int code, const void* const* p, void* out, int R, int S,
   }
 }
 
+// Calls fn(std::integral_constant<int, code>) for the structure code.
+template <int CODE = 0, typename Fn>
+cudaError_t with_code(int code, Fn&& fn) {
+  if constexpr (CODE < 12) {
+    if (code == CODE) return fn(std::integral_constant<int, CODE>{});
+    return with_code<CODE + 1>(code, fn);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
+// Resident blocks of 128 threads an SM of the feature kernel.
+template <typename T, int CODE, bool K1C>
+cudaError_t feature_blocks_per_sm(int* blocks) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, fused_psi_feature_kernel<T, CODE, K1C>, FEATURE_THREADS, 0);
+}
+
 template <typename T, int CODE, bool K1C, typename F>
-cudaError_t launch_feature(const void* const* p, void* out, const F& f, int R, int S,
-                           int M, int n_out, cudaStream_t stream) {
-  if (R <= 0 || S <= 0) return cudaSuccess;
-  const dim3 block(128, 2);
-  const unsigned gx = (unsigned)((S + block.x - 1) / block.x);
-  unsigned gy = (unsigned)((R + block.y - 1) / block.y);
-  if (gy > 65535u) gy = 65535u;
-  fused_psi_feature_kernel<T, CODE, K1C><<<dim3(gx, gy), block, 0, stream>>>(
-      (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
-      (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7],
-      (const T*)p[8], (const T*)p[9], (const T*)p[10], (T*)out, f, R, S, M,
-      n_out);
+cudaError_t launch_feature(const FeatureStreams& a, const void* obs_sigma, const F& fk,
+                           int blocks, cudaStream_t stream) {
+  if (a.R <= 0 || a.S <= 0) return cudaSuccess;
+  const Features& f = base_of(fk);
+  const int tiles = (a.S + FEATURE_THREADS - 1) / FEATURE_THREADS;
+  observation_terms_kernel<T><<<(a.R + 127) / 128, 128, 0, stream>>>(
+      (const T*)a.obs_mask, (const T*)obs_sigma, (const T*)a.obs_cens, (T*)a.obs_isig,
+      (T*)a.obs_const, a.R, a.M);
+  if (f.mode == MODE_LEVELS) {
+    prepare_levels_kernel<T, CODE><<<dim3(tiles, f.n_levels), 128, 0, stream>>>(
+        (const T*)f.p[4], (T*)a.table, a.S);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  int per_sm = 0;
+  cudaError_t err = feature_blocks_per_sm<T, CODE, K1C>(&per_sm);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  if (blocks <= 0) {
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    blocks = per_sm * sms;
+  }
+  // a block a tile of supports and a share of the rows
+  int rows = blocks / tiles;
+  rows = rows < 1 ? 1 : (rows > a.R ? a.R : rows);
+  rows = rows > 65535 ? 65535 : rows;
+  fused_psi_feature_kernel<T, CODE, K1C><<<dim3(tiles, rows), FEATURE_THREADS, 0, stream>>>(
+      a, fk);
   return cudaGetLastError();
 }
 
 template <typename T, bool K1C, typename F>
-cudaError_t dispatch_feature(int code, const void* const* p, void* out, const F& f,
-                             int R, int S, int M, int n_out, cudaStream_t st) {
-  switch (code) {
-    case 0: return launch_feature<T, 0, K1C>(p, out, f, R, S, M, n_out, st);
-    case 1: return launch_feature<T, 1, K1C>(p, out, f, R, S, M, n_out, st);
-    case 2: return launch_feature<T, 2, K1C>(p, out, f, R, S, M, n_out, st);
-    case 3: return launch_feature<T, 3, K1C>(p, out, f, R, S, M, n_out, st);
-    case 4: return launch_feature<T, 4, K1C>(p, out, f, R, S, M, n_out, st);
-    case 5: return launch_feature<T, 5, K1C>(p, out, f, R, S, M, n_out, st);
-    case 6: return launch_feature<T, 6, K1C>(p, out, f, R, S, M, n_out, st);
-    case 7: return launch_feature<T, 7, K1C>(p, out, f, R, S, M, n_out, st);
-    case 8: return launch_feature<T, 8, K1C>(p, out, f, R, S, M, n_out, st);
-    case 9: return launch_feature<T, 9, K1C>(p, out, f, R, S, M, n_out, st);
-    case 10: return launch_feature<T, 10, K1C>(p, out, f, R, S, M, n_out, st);
-    case 11: return launch_feature<T, 11, K1C>(p, out, f, R, S, M, n_out, st);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t dispatch_feature(int code, const FeatureStreams& a, const void* obs_sigma,
+                             const F& f, int blocks, cudaStream_t st) {
+  return with_code(code, [&](auto c) {
+    return launch_feature<T, decltype(c)::value, K1C>(a, obs_sigma, f, blocks, st);
+  });
 }
 
 }  // namespace
@@ -754,20 +944,30 @@ extern "C" int fused_psi_launch(int is_f64, int code, const void* seg_dt,
   return (int)err;
 }
 
-// K1b and K1c: the same pointers as fused_psi_launch, then `features`, the
-// 14 feature pointers of ops/fused_psi.py FEATURES (null = off) followed by
-// the device int32 slot tables lag_slots and fa_slots [M] (null = none), and
-// `ints` = {mode, number of levels or planes}. Slot tables, an event code
-// stream or a post slot stream select K1c, anything else K1b.
+// K1b and K1c: the same pointers as fused_psi_launch, then `table` (levels
+// mode: the prepared level models [L, NPREP, S], which the launch fills;
+// else null), `terms` (R x (M + 1) values the launch fills: the observation
+// terms obs_isig [R, M], then obs_const [R]), `features`, the 14 feature
+// pointers of ops/fused_psi.py FEATURES (null = off) followed by the device
+// int32 slot tables lag_slots and fa_slots [M] (null = none), and `ints` =
+// {mode, number of levels or
+// planes, row stride of the lag plane, of the fa plane (S, or 0 for one row
+// per support)}; `blocks` of the persistent grid (0: as many as the card
+// holds at once). Slot tables, an event code stream or a post slot stream
+// select K1c, anything else K1b.
 extern "C" int fused_psi_feature_launch(
     int is_f64, int code, const void* seg_dt, const void* seg_bolus,
     const void* seg_rate, const void* obs_mask, const void* obs_value,
-    const void* obs_sigma, const void* obs_cens, const void* obs_outeq,
-    const void* params, const void* coef, const void* bias, void* out,
-    const void* const* features, const int* ints, int R, int S, int M,
-    int n_out, void* stream) {
-  const void* p[11] = {seg_dt, seg_bolus, seg_rate, obs_mask, obs_value,
-                       obs_sigma, obs_cens, obs_outeq, params, coef, bias};
+    const void* obs_sigma, const void* obs_cens, const void* obs_outeq, const void* params,
+    const void* coef, const void* bias, void* out, void* table, void* terms,
+    const void* const* features, const int* ints, int R, int S, int M, int n_out, int blocks,
+    void* stream) {
+  if (terms == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t RM = (size_t)R * M * (is_f64 ? sizeof(double) : sizeof(float));
+  // the kernel reads the observation terms that the launch writes first
+  const FeatureStreams a{seg_dt,    seg_bolus, seg_rate,  obs_mask, obs_value, terms,
+                         (const char*)terms + RM, obs_cens, obs_outeq, params, coef, bias,
+                         out,       table,     R,         S,        M,         n_out};
   // features: mult, offset, mult_seg, offset_seg, levels, planes, depth,
   // evcode, postdepth, lag, fa, init_rows, init_planes, init_mask, lag_slots,
   // fa_slots (ops/fused_psi.py FEATURES, then the slot tables)
@@ -780,26 +980,55 @@ extern "C" int fused_psi_feature_launch(
   k.fa_slots = (const int*)features[15];
   k.b.mode = ints[0];
   k.b.n_levels = ints[1];
+  k.b.lag_row = ints[2];
+  k.b.fa_row = ints[3];
   if (k.b.mode < MODE_NONE || k.b.mode > MODE_PLANES) return (int)cudaErrorInvalidValue;
+  if (k.b.lag_row != 0 && k.b.lag_row != S) return (int)cudaErrorInvalidValue;
+  if (k.b.fa_row != 0 && k.b.fa_row != S) return (int)cudaErrorInvalidValue;
+  if ((table != nullptr) != (k.b.mode == MODE_LEVELS)) return (int)cudaErrorInvalidValue;
   const bool k1c = k.evcode != nullptr || k.postdepth != nullptr ||
                    k.lag_slots != nullptr || k.fa_slots != nullptr;
   // event codes and post slots drive the level select; slot tables need
-  // their planes
+  // their planes, whole [n, R, S] stacks
   if ((k.evcode != nullptr || k.postdepth != nullptr) &&
       (k.b.mode < MODE_LEVELS || k.b.p[7] == nullptr))
     return (int)cudaErrorInvalidValue;
-  if ((k.lag_slots != nullptr && k.b.p[7] == nullptr) ||
-      (k.fa_slots != nullptr && k.b.p[8] == nullptr))
+  if ((k.lag_slots != nullptr && (k.b.p[7] == nullptr || k.b.lag_row == 0)) ||
+      (k.fa_slots != nullptr && (k.b.p[8] == nullptr || k.b.fa_row == 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (k1c)
-    err = is_f64 ? dispatch_feature<double, true>(code, p, out, k, R, S, M, n_out, st)
-                 : dispatch_feature<float, true>(code, p, out, k, R, S, M, n_out, st);
+    err = is_f64 ? dispatch_feature<double, true>(code, a, obs_sigma, k, blocks, st)
+                 : dispatch_feature<float, true>(code, a, obs_sigma, k, blocks, st);
   else
-    err = is_f64 ? dispatch_feature<double, false>(code, p, out, k.b, R, S, M, n_out, st)
-                 : dispatch_feature<float, false>(code, p, out, k.b, R, S, M, n_out, st);
+    err = is_f64 ? dispatch_feature<double, false>(code, a, obs_sigma, k.b, blocks, st)
+                 : dispatch_feature<float, false>(code, a, obs_sigma, k.b, blocks, st);
   return (int)err;
+}
+
+// Resident blocks an SM of the feature kernel (K1c's where k1c) for the
+// structure code.
+extern "C" int fused_psi_feature_occupancy(int is_f64, int code, int k1c, int* blocks) {
+  return (int)with_code(code, [&](auto c) {
+    constexpr int C = decltype(c)::value;
+    if (is_f64)
+      return k1c ? feature_blocks_per_sm<double, C, true>(blocks)
+                 : feature_blocks_per_sm<double, C, false>(blocks);
+    return k1c ? feature_blocks_per_sm<float, C, true>(blocks)
+               : feature_blocks_per_sm<float, C, false>(blocks);
+  });
+}
+
+// The prepared fields of one level model of the structure code (the level
+// table's NPREP).
+extern "C" int fused_psi_prep_fields(int code) {
+  int n = -1;
+  with_code(code, [&](auto c) {
+    n = ModelOf<float, decltype(c)::value>::NPREP;
+    return cudaSuccess;
+  });
+  return n;
 }
 
 extern "C" const char* fused_psi_error_string(int code) {

@@ -14,7 +14,8 @@ init runs kernel K1a; any of them runs kernel K1b:
   (``row`` mode), per-segment affine factors (``segment``), chain-depth
   level tables (``levels``), per-(row, support) planes or segment-indexed
   planes (``planes``);
-- lag and fa that are static in time: per-(row, support) planes.
+- lag and fa that are static in time: one row per support where the
+  closure reads no covariate, else per-(row, support) planes.
 
 With any of the following the kernel runs its K1c paths (JAX :290-500):
 
@@ -131,7 +132,7 @@ class _FusedPsiPlan:
         if equation._lag is not None:
             try:
                 lag_probe = _decompose_input_plane(equation._lag, sp, grid, ninput,
-                                                   0.0, "lag")
+                                                   0.0, "lag", rows=True)
                 lag_active = bool(np.any(lag_probe != 0.0))
             except _InputPlaneDynamic:
                 # per-dose-segment planes, built with the streams below
@@ -153,7 +154,8 @@ class _FusedPsiPlan:
             f["lag_plane"] = lag_probe
         if equation._fa is not None and not dynamic:
             try:
-                fp = _decompose_input_plane(equation._fa, sp, grid, ninput, 1.0, "fa")
+                fp = _decompose_input_plane(equation._fa, sp, grid, ninput, 1.0, "fa",
+                                            rows=True)
                 if np.any(fp != 1.0):
                     f["fa_plane"] = fp
             except _InputPlaneDynamic:

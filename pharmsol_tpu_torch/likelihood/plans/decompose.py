@@ -183,21 +183,24 @@ class _InputPlaneDynamic(PharmsolError):
 
 
 def _decompose_input_plane(fn, sp, grid, ninput: int, fill: float,
-                           what: str) -> np.ndarray:
-    """Input 0 of :func:`_decompose_input_planes`, [R, S] float64 (JAX :534):
-    the closed-form kernel doses input 0 only."""
-    return _decompose_input_planes(fn, sp, grid, ninput, fill, what)[0]
+                           what: str, rows: bool = False) -> np.ndarray:
+    """Input 0 of :func:`_decompose_input_planes`, [R, S] float64, or [1,
+    S] with ``rows`` for a covariate-free closure (JAX :534): the
+    closed-form kernel doses input 0 only."""
+    return _decompose_input_planes(fn, sp, grid, ninput, fill, what, rows)[0]
 
 
 def _decompose_input_planes(fn, sp, grid, ninput: int, fill: float,
-                            what: str) -> np.ndarray:
+                            what: str, rows: bool = False) -> np.ndarray:
     """A lag/fa closure as per-(input, row, support) planes (JAX :544).
 
     Probes: the value must not change with t (the engine evaluates it at
     each bolus's own time) and must not follow a time-varying covariate
     (raises :class:`_InputPlaneDynamic`). Time-constant covariates may
     enter: the closure is then evaluated per row. A covariate-free closure
-    is one support row broadcast over the rows. Returns [ninput, R, S].
+    is one support row: broadcast over the rows, or with ``rows`` kept as
+    that row (the closed-form kernels read it with a row stride of 0).
+    Returns [ninput, R, S], or [ninput, 1, S].
     """
     from ...engine.grid import _as_input_vector
 
@@ -258,6 +261,8 @@ def _decompose_input_planes(fn, sp, grid, ninput: int, fill: float,
         if not np.all(np.isfinite(plane)):
             raise PharmsolError(f"engine='fused' {what} probe produced non-finite values")
         return np.ascontiguousarray(np.transpose(plane, (2, 0, 1)))
+    if rows:
+        return np.ascontiguousarray(v_ref.T[:, None, :])
     return np.broadcast_to(v_ref.T[:, None, :], (ninput, R, S)).copy()
 
 
@@ -383,7 +388,8 @@ def _validate_lag_no_overlap(lag_plane: np.ndarray, grid, input_j: int = None) -
     """Refuse a lag under which two doses of a row could pend at once
     (JAX :645): the kernel holds one pending dose, so each row's largest lag
     must stay strictly below its smallest gap between boluses (of input
-    ``input_j``; None = all). Negative lags are refused too."""
+    ``input_j``; None = all). Negative lags are refused too. ``lag_plane``
+    is [R, S], or one row per support [1, S]."""
     if np.any(lag_plane < 0.0):
         raise PharmsolError(
             "engine='fused' does not support negative lag times — use the "
@@ -398,7 +404,7 @@ def _validate_lag_no_overlap(lag_plane: np.ndarray, grid, input_j: int = None) -
         gaps = np.diff(ts, axis=1) if ts.shape[1] > 1 else np.full((ts.shape[0], 1), np.inf)
     gaps = np.where(np.isfinite(gaps), gaps, np.inf)
     min_gap = gaps.min(axis=1)  # [R]; inf for rows with fewer than 2 doses
-    lag_max = lag_plane.max(axis=1)  # [R]
+    lag_max = np.broadcast_to(lag_plane.max(axis=1), min_gap.shape)  # [R]
     # strict: at lag == gap the arriving dose would overwrite the pending
     # one in the very column where it fires
     bad = np.nonzero(lag_max >= min_gap)[0]

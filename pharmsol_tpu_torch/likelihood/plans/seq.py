@@ -612,8 +612,9 @@ def _decompose_seq_colplanes(seq, sp, grid, sdef, n_kernel_params: int, lag_prob
     time-dependent seq (JAX :764), the kernel's ``lag_post`` tier (K1c).
 
     A lag moves each dose's seq-reset breakpoint to the per-(row, support)
-    fire time ``t_dose + lag``, host-known for a static lag plane [R, S] or
-    for per-dose-column planes ``{m: [R, S]}``
+    fire time ``t_dose + lag``, host-known for a static lag plane [R, S]
+    (or one row per support [1, S], broadcast over the rows) or for
+    per-dose-column planes ``{m: [R, S]}``
     (:func:`_colplanes_dynamic_lag`). Each lane's merged event schedule (the
     static observation and infusion events plus its own fire times, in the
     engine's tie order) is walked with the closure through the row's own

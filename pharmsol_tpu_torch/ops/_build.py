@@ -255,24 +255,35 @@ def build(force: bool = False, verbose: bool = False) -> tuple:
     return build_many([psi_target()], force, verbose)[0]
 
 
+def bind_psi_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of a build of ``csrc/fused_psi.cu``
+    (the package's, or another build of the same source)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.fused_psi_launch.argtypes = [ci, ci] + [vp] * 12 + [ci] * 4 + [vp]
+    lib.fused_psi_launch.restype = ci
+    # K1b and K1c: K1a's stream pointers and psi, the level table, the
+    # observation terms the launch fills, an array of the feature pointers
+    # and one of 4 ints (mode, levels, lag and fa row strides), R, S, M,
+    # n_out, the grid's blocks
+    lib.fused_psi_feature_launch.argtypes = [ci, ci] + [vp] * 16 + [ci] * 5 + [vp]
+    lib.fused_psi_feature_launch.restype = ci
+    lib.fused_psi_feature_occupancy.argtypes = [ci] * 3 + [vp]
+    lib.fused_psi_feature_occupancy.restype = ci
+    lib.fused_psi_prep_fields.argtypes = [ci]
+    lib.fused_psi_prep_fields.restype = ci
+    lib.fused_psi_error_string.argtypes = [ci]
+    lib.fused_psi_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     """The built closed-form kernel library (building it first if needed)."""
     global _LIB
     if _LIB is not None:
         return _LIB
     path, _, _ = build()
-    lib = ctypes.CDLL(str(path))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.fused_psi_launch.argtypes = [ci, ci] + [vp] * 12 + [ci] * 4 + [vp]
-    lib.fused_psi_launch.restype = ci
-    # K1b: the base pointers, then an array of the 12 feature pointers and
-    # one of 2 ints (mode, levels)
-    lib.fused_psi_feature_launch.argtypes = [ci, ci] + [vp] * 14 + [ci] * 4 + [vp]
-    lib.fused_psi_feature_launch.restype = ci
-    lib.fused_psi_error_string.argtypes = [ci]
-    lib.fused_psi_error_string.restype = ctypes.c_char_p
-    _LIB = lib
-    return lib
+    _LIB = bind_psi_library(ctypes.CDLL(str(path)))
+    return _LIB
 
 
 def load_generated_library(kind: Generated, gen) -> ctypes.CDLL:

@@ -29,6 +29,7 @@ carried an approximation, ~6e-5 absolute, because Mosaic has no ``erf``).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Optional
@@ -450,15 +451,16 @@ MODES = {None: 0, "row": 1, "segment": 2, "levels": 3, "planes": 4}
 
 def _plane_list(planes, slots, M: int, what: str):
     """A lag/fa argument as (list of planes, slot table): one [R, S] plane
-    (no table), or with ``slots`` (an [M] tuple of plane indices, -1 where no
-    dose lands) the sequence of planes it selects (JAX :1177-1200)."""
+    or one row per support [1, S] (no table), or with ``slots`` (an [M]
+    tuple of plane indices, -1 where no dose lands) the sequence of [R, S]
+    planes it selects (JAX :1177-1200)."""
     if planes is None:
         if slots is not None:
             raise ValueError(f"{what} slots given without planes")
         return None, None
     if slots is None:
         if not isinstance(planes, torch.Tensor):
-            raise ValueError(f"{what} must be one [R, S] plane without slots")
+            raise ValueError(f"{what} must be one [R, S] plane or [1, S] row without slots")
         return [planes], None
     slots = tuple(int(v) for v in slots)
     lst = list(planes.unbind(0)) if isinstance(planes, torch.Tensor) else list(planes)
@@ -500,8 +502,13 @@ def _check_features(seg_dt, support, sdef, f: dict, lag_slots=None, fa_slots=Non
         if a is None:
             continue
         want = shapes.get(name, (R, S))
-        if tuple(a.shape) != want:
-            raise ValueError(f"{name} must be {list(want)}, got {list(a.shape)}")
+        # a lag or fa without slots may be one row per support
+        row = ((name == "lag_plane 0" and lag_slots is None)
+               or (name == "fa_plane 0" and fa_slots is None)) and tuple(a.shape) == (1, S)
+        if tuple(a.shape) != want and not row:
+            raise ValueError(f"{name} must be {list(want)}"
+                             + (f" or [1, {S}]" if name.endswith(" 0") else "")
+                             + f", got {list(a.shape)}")
         if a.dtype != seg_dt.dtype or a.device != seg_dt.device:
             raise ValueError(f"{name} is {a.dtype} on {a.device}; expected "
                              f"{seg_dt.dtype} on {seg_dt.device}")
@@ -528,6 +535,21 @@ def _check_features(seg_dt, support, sdef, f: dict, lag_slots=None, fa_slots=Non
     if (f["init_mask"] is not None) != has_init:
         raise ValueError("init_rows and init_planes require init_mask, and only they")
     return mode, lag, fa, lag_slots, fa_slots
+
+
+def observation_terms(obs_mask, obs_sigma, obs_cens):
+    """The observation work that depends on the row alone, as K1b's and
+    K1c's launch computes it once per row before the cells: ``obs_isig``
+    [R, M], 1 / sigma (1 where the mask is off), and ``obs_const`` [R], each
+    row's sum over its uncensored observations of ``-log(2 pi) / 2 - log
+    sigma``. A cell's sum starts at ``obs_const`` and adds ``-z^2 / 2`` with
+    ``z = (y - pred) * obs_isig`` per observation (``log_ndtr(sign * z)``
+    censored)."""
+    mask = obs_mask > 0
+    sig = torch.where(mask, obs_sigma, torch.ones_like(obs_sigma))
+    keep = mask if obs_cens is None else mask & (obs_cens == 0)
+    const = torch.where(keep, -0.5 * LOG_2PI - torch.log(sig), torch.zeros_like(sig))
+    return 1.0 / sig, const.sum(1)
 
 
 def n_micro(sdef) -> int:
@@ -567,13 +589,18 @@ def psi_analytical_plain(
     ``pallas_psi.py:583-606``, ``:678-723``, ``:762-782``; K1c's slot-selected
     planes, ``lag_depth`` and ``lag_post`` paths: ``:498-527``, ``:655-690``,
     ``:725-758``), segment by segment on ``[R, S]`` tensors, with the exact
-    log of the normal CDF for censored observations. A ``counts`` dict
-    receives the work this data needs in levels and planes mode, as the
-    kernel does it per cell: ``"propagates"`` (spanned segments, plus the
-    second part of each split march), ``"fires"`` (lagged doses that fire),
-    ``"fires_with_rate"`` (those of them in a segment with an infusion) and
-    ``"prepares"`` (a change of the chain level a cell runs at, or of the
-    post-fire level a split march prepares).
+    log of the normal CDF for censored observations. The observation terms
+    are K1b's and K1c's (:func:`observation_terms`): each row's sum starts
+    at ``obs_const`` and adds ``-z^2 / 2`` with ``z = (y - pred) *
+    obs_isig``. A lag or fa row [1, S] broadcasts over
+    the rows. A ``counts`` dict receives the work this data needs in levels
+    and planes mode, as the kernel does it: ``"propagates"`` (spanned
+    segments, plus the second part of each split march), ``"fires"`` (lagged
+    doses that fire), ``"fires_with_rate"`` (those of them in a segment with
+    an infusion), ``"level_changes"`` (a cell's one model taking another
+    chain level or slot: at a segment, or for the rest of a split march) and
+    ``"prepares"`` (in levels mode one per level and support, the kernel's
+    table; in planes mode one per level change).
     """
     sdef, coef, bias, n_out = _check_inputs(
         seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
@@ -583,6 +610,7 @@ def psi_analytical_plain(
             param_mult, param_offset, param_mult_seg, param_offset_seg, param_levels,
             param_planes, seg_depth, seg_evcode, seg_postdepth, lag_plane, fa_plane,
             init_rows, init_planes, init_mask))), lag_slots, fa_slots)
+    obs_isig, obs_const = observation_terms(obs_mask, obs_sigma, obs_cens)
     n_params, n_states = sdef["n_params"], sdef["n_states"]
     R, M = seg_dt.shape
     S = support.shape[0]
@@ -656,14 +684,12 @@ def psi_analytical_plain(
         im = init_mask.reshape(R, 1)
         xs = [im * (init_rows[i].reshape(1, S) if init_rows is not None
                     else init_planes[i]) + zeros for i in range(n_states)]
-    ll = zeros
+    ll = obs_const.reshape(R, 1) + zeros
     pend_amt = pend_rem = zeros
     for m in range(M):
         dt = seg_dt[:, m:m + 1]
         mask = obs_mask[:, m:m + 1] > 0
         val = obs_value[:, m:m + 1]
-        sig = torch.where(mask, obs_sigma[:, m:m + 1],
-                          torch.ones_like(val))
 
         # observation before dose: y_k = C_k . x (+ b_k)
         def pred_out(k):
@@ -681,8 +707,8 @@ def psi_analytical_plain(
             pred = zeros
             for k in range(n_out):
                 pred = torch.where(oe == float(k), pred_out(k), pred)
-        z = (val - pred) / sig
-        term = -0.5 * LOG_2PI - torch.log(sig) - 0.5 * z * z
+        z = (val - pred) * obs_isig[:, m:m + 1]
+        term = -0.5 * z * z
         if has_cens:
             s_c = obs_cens[:, m:m + 1]
             term = torch.where(s_c == 0.0, term, torch.special.log_ndtr(s_c * z))
@@ -731,17 +757,20 @@ def psi_analytical_plain(
         if counts is not None and mode in ("levels", "planes"):
             lv = (d if lag_depth else seg_depth[:, m:m + 1]).expand(R, S)
             fired = (pend_amt != 0.0) & (pend_rem < dt) & live if has_lag else zeros.bool()
-            prev = counts.setdefault("_level", torch.zeros_like(lv))
-            counts["prepares"] = counts.get("prepares", 0) + int(
-                (live.expand(R, S) & (lv != prev)).sum())
-            counts["_level"] = torch.where(live.expand(R, S), lv, prev)
+            # the level (slot) a cell's one model holds: a spanned segment's,
+            # then after a fire the post-fire one (depth 1, or the post slot)
+            cur = counts.setdefault("_level", torch.zeros_like(lv))
+            changes = int((live.expand(R, S) & (lv != cur)).sum())
+            cur = torch.where(live.expand(R, S), lv, cur)
             if lag_depth or lag_post:
-                # the post-fire model is prepared when its level changes
                 post = (seg_postdepth[:, m:m + 1] if lag_post else torch.ones_like(dt)
                         ).expand(R, S)
-                prev_post = counts.setdefault("_post_level", torch.zeros_like(lv))
-                counts["prepares"] += int((fired & (post != prev_post)).sum())
-                counts["_post_level"] = torch.where(fired, post, prev_post)
+                changes += int((fired & (post != cur)).sum())
+                cur = torch.where(fired, post, cur)
+            counts["_level"] = cur
+            counts["level_changes"] = counts.get("level_changes", 0) + changes
+            counts["prepares"] = (len(table) * S if mode == "levels"
+                                  else counts["level_changes"])
             counts["propagates"] = counts.get("propagates", 0) + int(
                 live.expand(R, S).sum()) + int(fired.sum())
             counts["fires"] = counts.get("fires", 0) + int(fired.sum())
@@ -812,6 +841,7 @@ def psi_analytical(
     init_rows=None,
     init_planes=None,
     init_mask=None,
+    blocks=None,
 ):
     """Fused psi [R, S] for the closed-form structures.
 
@@ -832,7 +862,8 @@ def psi_analytical(
       support) ``param_planes`` [L, n_micro, R, S] in micro constants (the CL
       remap applied), selected per segment by ``seg_depth`` [R, M] (1-based,
       0 on dead segments);
-    - ``lag_plane`` / ``fa_plane`` [R, S]: each bolus waits its lag in a
+    - ``lag_plane`` / ``fa_plane`` [R, S], or one row per support [1, S]
+      for a closure that reads no covariate: each bolus waits its lag in a
       pending slot and is scaled by fa; no two doses of a row may be
       pending at once (the plan checks it);
     - ``init_rows`` [n_states, S] or ``init_planes`` [n_states, R, S] with
@@ -849,8 +880,13 @@ def psi_analytical(
     - ``seg_postdepth`` [R, M] beside ``seg_depth`` (lag with a time-varying
       seq, planes mode): the post-fire slot of each column.
 
-    On a CUDA tensor this launches ``csrc/fused_psi.cu`` (one thread per
-    (row, support) cell): kernel K1a without features, counted in
+    K1b's and K1c's launch first computes the observation terms of each row
+    (:func:`observation_terms`), then runs a persistent grid of ``blocks``
+    blocks (None: as many as the card holds at once; psi does not depend on
+    it).
+
+    On a CUDA tensor this launches ``csrc/fused_psi.cu``: kernel K1a (one
+    thread per (row, support) cell) without features, counted in
     ``LAUNCHES``, else kernel K1b, counted in ``FEATURE_LAUNCHES``, or K1c
     (slot tables, ``seg_evcode`` or ``seg_postdepth``), counted in
     ``K1C_LAUNCHES``; it raises if the launch fails. On a CPU tensor it runs
@@ -861,14 +897,37 @@ def psi_analytical(
                             param_offset_seg, param_levels, param_planes, seg_depth,
                             seg_evcode, seg_postdepth, lag_plane, fa_plane, init_rows,
                             init_planes, init_mask)))
+    args = (seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma, obs_cens,
+            support, structure, obs_outeq, out_coef, out_bias)
     dev = seg_dt.device
     if dev.type == "cpu":
-        return psi_analytical_plain(
-            seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
-            obs_cens, support, structure, obs_outeq, out_coef, out_bias, **f,
-            lag_slots=lag_slots, fa_slots=fa_slots)
+        return psi_analytical_plain(*args, **f, lag_slots=lag_slots, fa_slots=fa_slots)
     if dev.type != "cuda":
         raise ValueError(f"fused psi runs on cpu or cuda tensors, got {dev}")
+    from ._build import load_library
+
+    out, kernel = _launch(load_library(), *args, **f, lag_slots=lag_slots,
+                          fa_slots=fa_slots, blocks=blocks)
+    if kernel == "K1c":
+        K1C_LAUNCHES += 1
+    elif kernel == "K1b":
+        FEATURE_LAUNCHES += 1
+    elif kernel == "K1a":
+        LAUNCHES += 1
+    return out
+
+
+def _launch(lib, seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma, obs_cens,
+            support, structure="two_compartments_with_absorption", obs_outeq=None,
+            out_coef=None, out_bias=None, lag_slots=None, fa_slots=None, blocks=None,
+            **features):
+    """:func:`psi_analytical`'s launch through ``lib``, a loaded build of
+    ``csrc/fused_psi.cu`` (``_build.bind_psi_library``), on the tensors'
+    device; returns (psi [R, S], the kernel launched: "K1a", "K1b", "K1c",
+    or None where there was nothing to launch). Raises if the launch fails.
+    A separate function so that the tests can launch a host build of the
+    same source on CPU tensors."""
+    f = {name: features.get(name) for name in FEATURES}
     sdef, coef, bias, n_out = _check_inputs(
         seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
         obs_cens, support, structure, obs_outeq, out_coef, out_bias)
@@ -876,56 +935,62 @@ def psi_analytical(
         seg_dt, support, sdef, f, lag_slots, fa_slots)
     R, M = seg_dt.shape
     S = support.shape[0]
+    dev = seg_dt.device
     out = torch.empty((R, S), dtype=seg_dt.dtype, device=dev)
     if R == 0 or S == 0:
-        return out  # nothing to launch
-    from ._build import load_library
-
-    lib = load_library()
+        return out, None  # nothing to launch
     n_params = sdef["n_params"]
     # the kernel reads parameter rows [n_params, S]: coalesced along supports
     params = support[:, :n_params].t().contiguous()
     is_f64 = int(seg_dt.dtype == torch.float64)
     code = STRUCTURE_CODES[structure]
     feature = any(a is not None for a in f.values())
-    k1c = (seg_evcode is not None or seg_postdepth is not None or lag_slots is not None
-           or fa_slots is not None)
-    with torch.cuda.device(dev):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        base = (_ptr(seg_dt), _ptr(seg_bolus), _ptr(seg_rateiv),
-                _ptr(obs_mask), _ptr(obs_value), _ptr(obs_sigma),
-                _ptr(obs_cens), _ptr(obs_outeq if n_out > 1 else None),
-                _ptr(params), _ptr(coef), _ptr(bias), _ptr(out))
+    k1c = (f["seg_evcode"] is not None or f["seg_postdepth"] is not None
+           or lag_slots is not None or fa_slots is not None)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream
+                             if dev.type == "cuda" else None)
+    base = (_ptr(seg_dt), _ptr(seg_bolus), _ptr(seg_rateiv), _ptr(obs_mask), _ptr(obs_value),
+            _ptr(obs_sigma), _ptr(obs_cens), _ptr(obs_outeq if n_out > 1 else None),
+            _ptr(params), _ptr(coef), _ptr(bias), _ptr(out))
+    with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
         if not feature:
             err = lib.fused_psi_launch(is_f64, code, *base, R, S, M, n_out, stream)
         else:
-            table = param_levels if param_levels is not None else param_planes
-            # lag and fa as [n, R, S] plane stacks, the slot tables as int32
-            # on the card
-            f["lag_plane"] = torch.stack(lags).contiguous() if lags is not None else None
-            f["fa_plane"] = torch.stack(fas).contiguous() if fas is not None else None
+            levels = f["param_levels"] if f["param_levels"] is not None else f["param_planes"]
+            L = 0 if levels is None else levels.shape[0]
+            # lag and fa as [n, R, S] plane stacks, or without slots one row
+            # per support (row stride 0); the slot tables as int32 on the
+            # device
+            rows = []
+            for key, planes, slots in (("lag_plane", lags, lag_slots),
+                                       ("fa_plane", fas, fa_slots)):
+                one_row = (planes is not None and slots is None
+                           and tuple(planes[0].shape) == (1, S))
+                f[key] = torch.stack(planes).contiguous() if planes is not None else None
+                rows.append(0 if one_row else S)
             slots = [torch.tensor(t, dtype=torch.int32, device=dev) if t is not None
                      else None for t in (lag_slots, fa_slots)]
             ptrs = (ctypes.c_void_p * (len(FEATURES) + 2))(
                 *(a.data_ptr() if a is not None else None
                   for a in list(f.values()) + slots))
-            ints = (ctypes.c_int * 2)(MODES[mode], 0 if table is None else table.shape[0])
+            ints = (ctypes.c_int * 4)(MODES[mode], L, *rows)
+            # levels mode: the prepared level models, a table the launch fills
+            # (its width, the kernel's prepared fields per model); the
+            # observation terms [R, M] and [R], which the launch fills
+            table = (torch.empty((L, lib.fused_psi_prep_fields(code), S), dtype=seg_dt.dtype,
+                                 device=dev) if mode == "levels" else None)
+            terms = torch.empty(R * (M + 1), dtype=seg_dt.dtype, device=dev)
             err = lib.fused_psi_feature_launch(
-                is_f64, code, *base, ctypes.cast(ptrs, ctypes.c_void_p),
-                ctypes.cast(ints, ctypes.c_void_p), R, S, M, n_out, stream)
+                is_f64, code, *base, _ptr(table), _ptr(terms),
+                ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(ints, ctypes.c_void_p),
+                R, S, M, n_out, int(blocks or 0), stream)
     if err != 0:
         raise RuntimeError(
             f"fused psi kernel launch failed ({structure}, mode {mode}, "
             f"{'K1c' if k1c else 'K1b' if feature else 'K1a'}, R={R}, "
             f"S={S}, M={M}): {lib.fused_psi_error_string(err).decode()}"
         )
-    if k1c:
-        K1C_LAUNCHES += 1
-    elif feature:
-        FEATURE_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
-    return out
+    return out, "K1c" if k1c else "K1b" if feature else "K1a"
 
 
 # ---------------------------------------------------------------------------

@@ -840,3 +840,110 @@ def test_k1c_matches_twin(cuda, name):
     torch.testing.assert_close(out[torch.float64], twin, rtol=1e-10, atol=0)
     assert f32_error(out[torch.float32].double().cpu().numpy(),
                      twin.cpu().numpy()) <= F32_BUDGET[K1C_CASES[name]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["row_lag_fa", "segment", "levels", "planes", "init_planes"])
+def test_feature_grid_walks_rows_per_support(cuda, name, dtype):
+    """K1b's persistent grid at R and S that are not multiples of the
+    128-support tile (R = 301, S = 300: three tiles, the last one ragged) with
+    1 and 3 blocks a tile and the card's full grid (each block walking more
+    rows than the grid has): the same psi bit for bit, float64 within 1e-10
+    of the twin."""
+    model, data, sp, ems, mode = feature_case(name, n_subjects=301, n_support=300, seed=13)
+    plan = _feature_plan(model, data, sp, ems, dtype, cuda)
+    assert plan.mode == mode
+    kw = plan.kernel_kwargs()
+    runs = [psi_analytical(*plan.streams, plan.support, **kw, blocks=b) for b in (3, 9, None)]
+    torch.cuda.synchronize()
+    bits = [r.view(torch.int64 if dtype == torch.float64 else torch.int32) for r in runs]
+    assert torch.equal(bits[0], bits[1]) and torch.equal(bits[0], bits[2])
+    if dtype == torch.float64:
+        want = psi_analytical_plain(*plan.streams, plan.support, **kw)
+        torch.testing.assert_close(runs[2], want, rtol=1e-10, atol=0)
+
+
+@pytest.mark.parametrize("kernel", ["K1b", "K1c"])
+def test_lag_and_fa_rows_on_the_card(cuda, kernel):
+    """A covariate-free lag and fa reach the kernel as one row per support
+    (row stride 0): against the same values as [R, S] planes, bit for bit,
+    and against the twin within 1e-10 (float64)."""
+    if kernel == "K1b":
+        model, data, sp, ems, _ = feature_case("row_lag_fa", n_subjects=77, n_support=150,
+                                               seed=14)
+    else:
+        model, data, sp, ems = k1c_case("depth_levels", 77, 150, seed=14)
+    plan = _feature_plan(model, data, sp, ems, torch.float64, cuda)
+    kw = plan.kernel_kwargs()
+    R, S = plan.streams[0].shape[0], sp.shape[0]
+    assert tuple(kw["lag_plane"].shape) == (1, S)
+    rows = psi_analytical(*plan.streams, plan.support, **kw)
+    planes = psi_analytical(*plan.streams, plan.support, **dict(kw, **{
+        k: kw[k].expand(R, S).contiguous() for k in ("lag_plane", "fa_plane")
+        if kw[k] is not None}))
+    torch.cuda.synchronize()
+    assert torch.equal(rows.view(torch.int64), planes.view(torch.int64))
+    want = psi_analytical_plain(*plan.streams, plan.support, **kw)
+    torch.testing.assert_close(rows, want, rtol=1e-10, atol=0)
+
+
+@pytest.mark.parametrize("name", ["dynamic_lag_fa", "fa_only"])
+def test_k1c_slot_tables_on_a_single_row(cuda, name):
+    """One subject with one occasion (R = 1) and a lag or fa that changes
+    with time or a covariate: the per-dose slot planes, [1, S] each, reach
+    the kernel with a row stride of S; one K1c launch through
+    ``log_likelihood_matrix``, float64 within 1e-10 of the twin."""
+    model, data, sp, ems = k1c_case(name, 1, 140, seed=6)
+    plan = _feature_plan(model, data, sp, ems, torch.float64, cuda)
+    assert plan.streams[0].shape[0] == 1
+    assert plan.lag_slots is not None or plan.fa_slots is not None
+    kw = plan.kernel_kwargs()
+    got = psi_analytical(*plan.streams, plan.support, **kw)
+    torch.testing.assert_close(got, psi_analytical_plain(*plan.streams, plan.support, **kw),
+                               rtol=1e-10, atol=0)
+    before = fused_psi.K1C_LAUNCHES
+    psi = pt.log_likelihood_matrix(model, data, sp, ems, device=cuda, engine="fused")
+    torch.cuda.synchronize()
+    assert fused_psi.K1C_LAUNCHES == before + 1
+    torch.testing.assert_close(psi, plan.finalize(got), rtol=1e-10, atol=0)
+
+
+@pytest.mark.parametrize("case", ["levels", "levels_3cmt", "depth_levels", "depth_3cmt"])
+def test_level_tables_prepared_once_per_support(cuda, case):
+    """Levels mode (K1b's level tables, K1c's lag_depth): the level models
+    prepared once per (level, support) into the table that the launch's
+    prologue kernel fills, loaded at each change of depth; float64 within
+    1e-10 of the twin on a grid of 5 blocks and on the card's full grid,
+    the two bit for bit alike."""
+    if case.startswith("levels"):
+        model, data, sp, ems, _ = feature_case(case, n_subjects=70, n_support=260, seed=15)
+    else:
+        model, data, sp, ems = k1c_case(case, 70, 260, seed=15)
+    plan = _feature_plan(model, data, sp, ems, torch.float64, cuda)
+    assert plan.mode == "levels"
+    kw = plan.kernel_kwargs()
+    got = psi_analytical(*plan.streams, plan.support, **kw, blocks=5)
+    full = psi_analytical(*plan.streams, plan.support, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, psi_analytical_plain(*plan.streams, plan.support, **kw),
+                               rtol=1e-10, atol=0)
+    assert torch.equal(got.view(torch.int64), full.view(torch.int64))
+
+
+def test_feature_grid_is_sized_by_the_occupancy_query(cuda):
+    """The feature kernel's occupancy query answers for every structure,
+    dtype and tier (1-16 blocks of 128 an SM), and the level table's width
+    per structure is positive."""
+    from pharmsol_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    import ctypes
+
+    for code in range(len(STRUCTURES)):
+        assert lib.fused_psi_prep_fields(code) > 0
+        for is_f64 in (0, 1):
+            for k1c in (0, 1):
+                blocks = ctypes.c_int(0)
+                assert lib.fused_psi_feature_occupancy(is_f64, code, k1c,
+                                                       ctypes.addressof(blocks)) == 0
+                assert 1 <= blocks.value <= 16

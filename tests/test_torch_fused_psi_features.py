@@ -87,8 +87,10 @@ def test_plan_inputs():
     wt = np.asarray(model.lower(data.subjects()).rows.cov_v)[:, 0, 0]
     np.testing.assert_allclose(f["param_mult"][:, 0].numpy(), (wt / 70.0) ** 0.75)
     np.testing.assert_allclose(f["param_mult"][:, 1].numpy(), 1.0)
-    np.testing.assert_allclose(f["lag_plane"].numpy(), np.broadcast_to(sp[:, 5], (5, 7)))
-    np.testing.assert_allclose(f["fa_plane"].numpy(), np.broadcast_to(sp[:, 6], (5, 7)))
+    # lag and fa read no covariate: one row per support, not an [R, S] plane
+    assert tuple(f["lag_plane"].shape) == (1, 7) and tuple(f["fa_plane"].shape) == (1, 7)
+    np.testing.assert_allclose(f["lag_plane"].numpy(), sp[None, :, 5])
+    np.testing.assert_allclose(f["fa_plane"].numpy(), sp[None, :, 6])
     assert f["seg_depth"] is None and f["init_mask"] is None
     # no feature at all: K1a's inputs
     base = pt.Analytical(pt.one_compartment, out=lambda x, p, t, cov: x[0:1] / p[1],

@@ -97,7 +97,8 @@ def test_lag_with_seq_depth_gt1_levels():
 def test_twin_tallies_each_fire_by_the_infusion_of_its_segment():
     """The twin's ``counts`` (the work a bound is priced on): every lagged
     dose that fires, those of them that land inside the 1-2.5 h infusion,
-    and one post-fire prepare per cell that fires (its level stays 1)."""
+    the level models prepared once per level and support (the kernel's
+    table in levels mode) and at least one level each cell's model takes."""
     rng = np.random.RandomState(31)
     sp = np.column_stack([rng.uniform(0.1, 0.3, 12), rng.uniform(8, 15, 12),
                           rng.uniform(0.0, 1.8, 12)])
@@ -116,7 +117,8 @@ def test_twin_tallies_each_fire_by_the_infusion_of_its_segment():
     assert counts["fires_with_rate"] == (8 * int(in_infusion.sum())
                                          + int(second.sum()) * int((2.0 + lag < 2.5).sum()))
     assert 0 < counts["fires_with_rate"] < counts["fires"]
-    assert counts["prepares"] >= 8 * 12
+    assert counts["prepares"] == plan.features["param_levels"].shape[0] * 12
+    assert counts["level_changes"] >= 8 * 12
 
 
 def test_lag_with_seq_depth_gt1_planes():

@@ -198,11 +198,13 @@ libraries), phase 2's K2a and K2e checks, the ODE parts of 3-4 and 8, for
 work on K2a or K2e; ``--only sde`` phases 0, 1 (the SDE libraries), 5-7 and
 16-18 (K3a, K3b); ``--only k1c`` phases 0, 1 (the closed-form library) and
 19-21; ``--only closed`` phases 0, 1 (the closed-form library), phase 2's
-K1b checks, 3-4 for the two K1b cells, 19-21 (K1c) and the feature kernel's
-anatomy on the four K1b and K1c cells (every feature instantiation's
-registers, local memory, stack and warps per SM; per cell the issue slots
-per cell-segment), for work on K1b or K1c. A partial run's last line is ``{"ok": true, "partial":
-...}``, not the whole script's verdict.
+K1a and K1b checks, 3-4 for the two K1a and the two K1b cells, 19-21 (K1c)
+and the closed-form kernel's anatomy on the two K1a and the four K1b and K1c
+cells (every K1a instantiation's and the cells' K1b and K1c ones'
+registers, local memory, stack, local loads and stores and warps per SM;
+per cell the issue slots per cell-segment), for work on K1a, K1b or K1c.
+A partial run's last line is ``{"ok": true, "partial": ...}``, not the
+whole script's verdict.
 
 ``--pair DIR`` holds this checkout against another one at ``DIR`` (a
 ``git archive`` of the parent commit, say), in the order DIR, here, here,
@@ -226,12 +228,13 @@ move, "ODE expm transit 16384 x 512" (K2d), each with the kernel alone
 all, both sides' explicit anatomy, the layout model and each side's issue
 slots per cell-trial. ``--pair DIR --only stiff`` (or ``sde``, or
 ``explicit``) runs that part alone. ``--pair DIR --only closed`` times the
-four K1b and K1c cells and K1a's "Short 16384 x 512" (the kernel alone, the
-plan alone on the lowered grid and the call), holds the change's psi to the
-parent's cell by cell (float64 1e-12 relative; float32 1e-3, 99.9% within
-1e-5), and prints every closed-form kernel's registers, the feature
-instantiations' anatomy, K1a's SASS digests and each side's issue slots per
-cell-segment. It prints the pairs and ``{"ok": true, "partial": "pair"}``.
+four K1b and K1c cells and K1a's "Short 16384 x 512" and "1-cmt 10000 x
+1000" (the kernel alone, the plan alone on the lowered grid and the call),
+holds the change's psi to the parent's cell by cell (float64 1e-12
+relative; float32 1e-3, 99.9% within 1e-5), and prints every closed-form
+kernel's registers, the instantiations' anatomy, the SASS digest of every
+K1a, K1b and K1c kernel and each side's issue slots per cell-segment. It
+prints the pairs and ``{"ok": true, "partial": "pair"}``.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. All data comes from a numpy
@@ -737,17 +740,15 @@ def phase_build(pt, feature_cases, expm, stiff, only: str = None) -> float:
             continue
         kernel, spill = None, ""
         for ln in output.splitlines():
-            m = (re.search(r"fused_psi_kernelI([fd])Li(\d+)E", ln)
-                 or re.search(r"fused_psi_feature_kernelI([fd])Li(\d+)ELb(\d)E", ln)
+            m = (re.search(r"fused_psi_feature_kernelI([fd])Li(\d+)ELi(\d)E", ln)
                  or re.search(r"prepare_levels_kernelI([fd])Li(\d+)E()", ln)
                  or re.search(r"fused_ode_kernelI([fd])Li(\d+)ELb(\d)E", ln)
                  or re.search(r"fused_ode_implicit_kernelI([fd])Li(\d+)ELb(\d)E", ln)
                  or re.search(r"fused_sde_kernelI([fd])Li(\d+)ELb(\d)E", ln))
             if m and "Compiling entry function" in ln:
                 what = ("K1b/K1c level table code" if "prepare_levels" in ln else
-                        ("K1c code" if m.group(3) == "1" else "K1b code")
+                        ("K1a code", "K1b code", "K1c code")[int(m.group(3))]
                         if "fused_psi_feature" in ln else
-                        "K1a code" if "fused_psi" in ln else
                         ("K3b" if m.group(3) == "1" else "K3a") + " particles/thread"
                         if "fused_sde" in ln else
                         "K2d expm" + (", features" if m.group(3) == "1" else "")
@@ -2062,6 +2063,9 @@ def trial_loop_mix(insns, labels=None, ppt: int = 4) -> dict:
 
 
 _KERNEL_NAMES = (
+    # the closed-form tiers of one kernel body (int TIER); before that, K1a's
+    # own kernel and K1b/K1c's (bool K1C)
+    (r"fused_psi_feature_kernelI([fd])Li(\d+)ELi([012])E", "K1a", "K1b", "K1c"),
     (r"fused_psi_kernelI([fd])Li(\d+)E()", "K1a"),
     (r"fused_psi_feature_kernelI([fd])Li(\d+)E(?:Lb([01])E)?", "K1b", "K1c"),
     (r"fused_sde_kernelI([fd])Li(\d+)E(?:Lb([01])E)?", "K3a", "K3b"),
@@ -4508,36 +4512,49 @@ def feature_record_of(label, launches, times) -> dict:
     )
 
 
-# the feature instantiations the closed-form anatomy prints: the four cells'
-# (2-cmt oral, code 5, and 1-cmt oral, code 1, under K1b and K1c) in both
+# the instantiations the closed-form anatomy prints: every K1a one, the four
+# K1b and K1c cells' (2-cmt oral, code 5, and 1-cmt oral, code 1) in both
 # dtypes, and the 3-compartment ones in float64
-FEATURE_ANATOMY_KEYS = tuple(
-    [f"{k} {d} {c}" for d in ("f32", "f64") for k in ("K1b", "K1c") for c in (1, 5)]
+CLOSED_ANATOMY_KEYS = tuple(
+    [f"K1a {d} {c}" for d in ("f32", "f64") for c in range(12)]
+    + [f"{k} {d} {c}" for d in ("f32", "f64") for k in ("K1b", "K1c") for c in (1, 5)]
     + [f"{k} f64 {c}" for k in ("K1b", "K1c") for c in (8, 9, 10, 11)])
 
 
-def feature_anatomy(lib_path: Path) -> dict:
-    """{"K1c f64 5": {"regs", "local", "stack", "warps_per_sm", "from"}} of
-    the closed-form library's feature instantiations (``cuobjdump
-    -res-usage``): warps per SM from the library's own occupancy query where
-    it has one (``fused_psi_feature_occupancy``), else from the registers at
-    the launch's 256-thread blocks."""
+def closed_anatomy(lib_path: Path) -> dict:
+    """{"K1c f64 5": {"regs", "local", "stack", "ldl", "stl", "warps_per_sm",
+    "from"}} of the closed-form library's instantiations (``cuobjdump
+    -res-usage``; LDL and STL, local loads and stores, counted in the SASS):
+    warps per SM from the library's own occupancy query where it has one
+    for the tier (``fused_psi_occupancy``, every tier; before it,
+    ``fused_psi_feature_occupancy``, K1b and K1c), else from the registers
+    at the launch's 256-thread blocks (K1a's one thread a cell)."""
     import ctypes
 
     lib = ctypes.CDLL(str(lib_path))
-    query = getattr(lib, "fused_psi_feature_occupancy", None)
+    tiered = getattr(lib, "fused_psi_occupancy", None)
+    flagged = getattr(lib, "fused_psi_feature_occupancy", None)
+    for q in (tiered, flagged):
+        if q is not None:
+            q.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    local = {}
+    for name, (insns, _) in sass_functions(lib_path).items():
+        ops = [op.split(".")[0] for _, op, _ in insns]
+        local[kernel_key(name)] = (ops.count("LDL"), ops.count("STL"))
     out = {}
     for name, r in kernel_resources(lib_path).items():
         key = kernel_key(name)
-        if key not in FEATURE_ANATOMY_KEYS:
+        if key not in CLOSED_ANATOMY_KEYS:
             continue
         a = dict(regs=r.get("reg", 0), local=r.get("local", 0), stack=r.get("stack", 0))
+        a["ldl"], a["stl"] = local.get(key, (None, None))
+        kid, dt, code = key.split()
+        query, arg = ((tiered, ("K1a", "K1b", "K1c").index(kid)) if tiered is not None
+                      else (flagged, int(kid == "K1c")) if flagged is not None and kid != "K1a"
+                      else (None, None))
         if query is not None:
             blocks = ctypes.c_int(0)
-            query.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-            kid, dt, code = key.split()
-            if query(int(dt == "f64"), int(code), int(kid == "K1c"),
-                     ctypes.addressof(blocks)) != 0:
+            if query(int(dt == "f64"), int(code), arg, ctypes.addressof(blocks)) != 0:
                 raise AssertionError(f"{key}: the occupancy query failed")
             a["warps_per_sm"], a["from"] = blocks.value * 128 // 32, "query"
         else:
@@ -4547,8 +4564,9 @@ def feature_anatomy(lib_path: Path) -> dict:
     return out
 
 
-def describe_feature_anatomy(a: dict) -> str:
+def describe_closed_anatomy(a: dict) -> str:
     return (f"{a['regs']} registers, {a['local']} B local, {a['stack']} B stack frame, "
+            f"{a.get('ldl')} LDL / {a.get('stl')} STL in the SASS, "
             f"{a['warps_per_sm']} warps per SM ({a['from']})")
 
 
@@ -4580,19 +4598,20 @@ def closed_cells(pt):
     return out
 
 
-def phase_closed_anatomy(pt, kernel_ms: dict, card: str) -> dict:
-    """The feature kernel's anatomy on the four cells: every instantiation's
-    registers, local memory, stack and warps per SM; per cell and dtype the
-    issue slots per cell-segment of the measured kernel time
-    (``kernel_ms[(label, dtype)]``)."""
+def phase_closed_anatomy(pt, kernel_ms: dict, card: str, k1a_cells=()) -> dict:
+    """The closed-form kernel's anatomy on the four K1b and K1c cells and on
+    ``k1a_cells`` (label, kernel, model, data, support, ems): every
+    instantiation's registers, local memory, stack, local loads and stores
+    and warps per SM; per cell and dtype the issue slots per cell-segment of
+    the measured kernel time (``kernel_ms[(label, dtype)]``)."""
     from pharmsol_tpu_torch.ops import _build
 
-    inst = feature_anatomy(_build.library_path())
-    for key in FEATURE_ANATOMY_KEYS:
+    inst = closed_anatomy(_build.library_path())
+    for key in CLOSED_ANATOMY_KEYS:
         if key in inst:
-            log(f"[anatomy] {key}: {describe_feature_anatomy(inst[key])}")
+            log(f"[anatomy] {key}: {describe_closed_anatomy(inst[key])}")
     out = {"instantiations": inst, "cells": {}}
-    for label, kernel, model, data, sp, ems in closed_cells(pt):
+    for label, kernel, model, data, sp, ems in list(k1a_cells) + closed_cells(pt):
         for dtype in (torch.float32, torch.float64):
             d = str(dtype)[6:]
             plan = plan_for(pt, model, data, sp, ems, dtype)
@@ -4609,15 +4628,52 @@ def phase_closed_anatomy(pt, kernel_ms: dict, card: str) -> dict:
     return out
 
 
+def k1a_record(workloads, launches, errs, times, fit_a=None) -> dict:
+    """K1a's entry of the kernels line: the main cell's times in float32,
+    float64 beside them; no single PyTorch call computes psi, so
+    library_ms is null."""
+    main_label = workloads[0][0]
+    t32 = times[(main_label, torch.float32)]
+    t64 = times[(main_label, torch.float64)]
+    rec = dict(
+        KERNEL_RECORD,
+        launches=launches,
+        max_abs_err=errs[(main_label, torch.float64)],
+        max_abs_err_f32=errs[(main_label, torch.float32)],
+        ms=t32["kernel"],
+        plain_ms=t32["twin"],
+        bound_ms=t32["bound"],
+        bound_by=t32["bound_by"],
+        library_ms=None,
+        ms_f64=t64["kernel"],
+        plain_ms_f64=t64["twin"],
+        bound_ms_f64=t64["bound"],
+        shape=main_label,
+    )
+    if fit_a is not None:
+        rec["launches_fit"] = fit_a["launches"]
+    return rec
+
+
 def run_closed(pt, rng, card: str) -> list:
     """``--only closed``: phases 0-1 for the closed-form library, phase 2's
-    K1b checks, the two K1b cells (phases 3-4),
-    phases 19-21 (K1c), and the feature kernel's anatomy on the four cells;
-    K1b's and K1c's records."""
+    K1a and K1b checks, the two K1a cells and the two K1b cells (phases
+    3-4), phases 19-21 (K1c), and the closed-form kernel's anatomy on the
+    six cells; K1a's, K1b's and K1c's records."""
     phase_build(pt, {}, {}, {}, only="closed")
+    # K1a's draws from a generator of their own: K1b's and K1c's cells get
+    # the draws they had before K1a joined this part
+    k1a_rng = np.random.RandomState(SEED + 7)
+    phase_kernels(pt, k1a_rng)
     phase_feature_kernels(pt)
     torch.cuda.synchronize()
     ems = pt.AssayErrorModels().add(0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    workloads = slice_workloads(pt, k1a_rng)
+    k1a_launches = phase_slice(pt, k1a_rng, workloads, ems)
+    torch.cuda.synchronize()
+    errs = phase_kernel_at_slice(pt, workloads, ems)
+    k1a_times = phase_times(pt, workloads, ems, card)
+    torch.cuda.synchronize()
     features = feature_workloads(pt, rng)
     launches = {w[0]: phase_feature_slice(pt, rng, w, ems) for w in features}
     torch.cuda.synchronize()
@@ -4627,21 +4683,25 @@ def run_closed(pt, rng, card: str) -> list:
     kernel_ms = {(label, dt): t["kernel"] for label, by in times.items() for dt, t in by.items()}
     kernel_ms.update({(label, dt): t["kernel"] for label, by in k1c["cells"].items()
                       for dt, t in ((torch.float32, by["float32"]), (torch.float64, by["float64"]))})
-    anatomy = phase_closed_anatomy(pt, kernel_ms, card)
-    return [dict(feature_record_of(features[0][0], launches, times), anatomy=anatomy),
+    kernel_ms.update({key: t["kernel"] for key, t in k1a_times.items()})
+    k1a_cells = [(label, "K1a", model, data,
+                  jittered_support(centre, S, np.random.RandomState(SEED + 2), 0.2), ems)
+                 for label, model, data, centre, S, _ in workloads]
+    anatomy = phase_closed_anatomy(pt, kernel_ms, card, k1a_cells)
+    return [dict(k1a_record(workloads, k1a_launches, errs, k1a_times), anatomy=anatomy),
+            dict(feature_record_of(features[0][0], launches, times), anatomy=anatomy),
             dict(k1c, anatomy=anatomy)]
 
 
 def pair_closed(pt, ms: dict, psi: dict, kernel_ms: dict, plan_ms: dict) -> dict:
     """The closed-form cells on one side of ``--pair``: the four K1b and K1c
-    cells (``closed_cells``) and, as a check that K1a did not move, "Short
-    16384 x 512"; per cell and dtype three ``log_likelihood_matrix`` calls
+    cells (``closed_cells``) and K1a's two, "Short 16384 x 512" and "1-cmt
+    10000 x 1000"; per cell and dtype three ``log_likelihood_matrix`` calls
     after a warm one (``ms``), the kernel alone (the median of three runs of
     ten launches, ``kernel_ms``), the plan alone on the lowered grid (the
     median of five, ``plan_ms``, and its costliest calls) and psi; returns
-    the registers of every
-    closed-form kernel, the feature instantiations' anatomy and a digest of
-    each K1a kernel's SASS."""
+    the registers of every closed-form kernel, the instantiations' anatomy
+    and a digest of each K1a, K1b and K1c kernel's SASS."""
     from pharmsol_tpu_torch.likelihood.plans.analytical import _FusedPsiPlan
     from pharmsol_tpu_torch.ops import _build
 
@@ -4654,6 +4714,12 @@ def pair_closed(pt, ms: dict, psi: dict, kernel_ms: dict, plan_ms: dict) -> dict
     cells.append(("Short 16384x512", "K1a", model, short,
                   jittered_support([0.15, 1.2, 0.3, 0.2, 10.0], 512,
                                    np.random.RandomState(SEED + 2), 0.2), cells[0][5]))
+    one = pt.Analytical(pt.one_compartment_with_absorption,
+                        out=lambda x, p, t, cov: x[1:2] / p[2], nstates=2, ndrugs=1, nout=1)
+    cells.append(("1-cmt 10000x1000", "K1a", one,
+                  short_subjects(pt, 10000, np.random.RandomState(SEED + 3)),
+                  jittered_support([1.2, 0.2, 30.0], 1000, np.random.RandomState(SEED + 2), 0.2),
+                  cells[0][5]))
     for label, _, model, data, sp, ems in cells:
         grid = model.lower(data.subjects())
         lowered = ems.lower(model.resolve_output_label, model.nouteqs())
@@ -4705,10 +4771,10 @@ def pair_closed(pt, ms: dict, psi: dict, kernel_ms: dict, plan_ms: dict) -> dict
             regs[key] = r.get("reg")
     for name, (insns, _) in sass_functions(path).items():
         key = kernel_key(name)
-        if key is not None and key.startswith("K1a"):
+        if key is not None and key.startswith("K1"):
             text = "\n".join(f"{op}{args}" for _, op, args in insns)
             sass[key] = hashlib.sha256(text.encode()).hexdigest()[:16]
-    return dict(regs=regs, sass=sass, anatomy=feature_anatomy(path), segments=segments,
+    return dict(regs=regs, sass=sass, anatomy=closed_anatomy(path), segments=segments,
                 profiles=profiles)
 
 
@@ -4988,7 +5054,7 @@ def run_pair(other: str, card: str, only=None) -> None:
         for side, k in (("parent", 0), ("change", 1)):
             a = sides[k]["closed_anatomy"].get(key)
             if a is not None:
-                log(f"[pair] {side} {key}: {describe_feature_anatomy(a)}")
+                log(f"[pair] {side} {key}: {describe_closed_anatomy(a)}")
     closed = {}
     if only == "closed":
         closed = pair_closed_slots(card, sides)
@@ -5338,8 +5404,9 @@ def main() -> int:
                              "checks, 3-4 (ODE Short) and 8 (ODE covariates); 'sde' phases 0, 1 "
                              "(the SDE libraries), 5-7 and 16-18 (K3a, K3b); 'k1c' phases 0, 1 "
                              "(the closed-form library) and 19-21 (K1c); 'closed' phases 0, 1 "
-                             "(the closed-form library), phase 2's K1b checks, 3-4 for the two K1b cells, 19-21 (K1c) and the feature "
-                             "kernel's anatomy on the four cells. The kernels line then "
+                             "(the closed-form library), phase 2's K1a and K1b checks, 3-4 for "
+                             "the two K1a and the two K1b cells, 19-21 (K1c) and the "
+                             "closed-form kernel's anatomy on the six cells. The kernels line then "
                              "holds that part's kernels and the last line says {\"ok\": true, "
                              "\"partial\": ...}, not the whole script's verdict")
     parser.add_argument("--pair", metavar="DIR", default=None,
@@ -5348,7 +5415,7 @@ def main() -> int:
                              "stiff cell under each solver timed, their psi compared, the "
                              "kernels' registers and anatomy (with --only sde, stiff, explicit "
                              "or closed: that part alone; closed: the four K1b and K1c cells and "
-                             "K1a's Short cell, kernel, plan and call)")
+                             "K1a's two cells, kernel, plan and call)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5567,27 +5634,9 @@ def run_all(pt, rng, card, args, expm, ode_features, stiff, twins) -> int:
     sde_feature_rec = run_sde_feature_slice(pt, rng, card)
     k1c_rec = run_k1c_slice(pt, rng, card)
 
-    main_label = workloads[0][0]
-    t32 = times[(main_label, torch.float32)]
-    t64 = times[(main_label, torch.float64)]
     # times of the float32 runs; float64 beside them; no single PyTorch
     # call computes any of these functions, so library_ms is null
-    record = dict(
-        KERNEL_RECORD,
-        launches=launches,
-        max_abs_err=errs[(main_label, torch.float64)],
-        max_abs_err_f32=errs[(main_label, torch.float32)],
-        ms=t32["kernel"],
-        plain_ms=t32["twin"],
-        bound_ms=t32["bound"],
-        bound_by=t32["bound_by"],
-        library_ms=None,
-        ms_f64=t64["kernel"],
-        plain_ms_f64=t64["twin"],
-        bound_ms_f64=t64["bound"],
-        shape=main_label,
-        launches_fit=fit_a["launches"],
-    )
+    record = k1a_record(workloads, launches, errs, times, fit_a)
     feature_record = feature_record_of(features[0][0], feature_launches, feature_times)
     ode_record, ode_feature_record = explicit_records(
         ode_label, ode_launches, ode_times, cov_label, cov_launches, cov_times)

@@ -1,16 +1,18 @@
 // Fused population psi for the closed-form PK structures, for Hopper (sm_90a).
 //
-// K1a, fused_psi_kernel, one thread per (row, support) cell: replaces the TPU
-// kernel pharmsol_tpu/ops/pallas_psi.py::psi_oral (_make_kernel, base tier:
+// One kernel body, fused_psi_feature_kernel<T, CODE, TIER>, in three tiers.
+//
+// K1a, TIER_K1A: replaces the TPU kernel
+// pharmsol_tpu/ops/pallas_psi.py::psi_oral (_make_kernel, base tier:
 // infusions, censoring, several outputs, output biases; all 12 structures).
 //
-// K1b, fused_psi_feature_kernel<T, CODE, false>: replaces the same TPU
-// kernel's feature tier (_make_kernel with mult_mode row / segment / levels /
-// planes, has_offsets, static has_lag / has_fa planes, has_init rows or
-// planes; pallas_psi.py:583-606, :655-723, :762-782).
+// K1b, TIER_K1B: replaces the same TPU kernel's feature tier (_make_kernel
+// with mult_mode row / segment / levels / planes, has_offsets, static
+// has_lag / has_fa planes, has_init rows or planes; pallas_psi.py:583-606,
+// :655-723, :762-782).
 //
-// K1c, fused_psi_feature_kernel<T, CODE, true>: the rest of that tier
-// (pallas_psi.py:498-527, :725-758): lag and fa planes selected per dose
+// K1c, TIER_K1C: the rest of that tier (pallas_psi.py:498-527, :725-758):
+// lag and fa planes selected per dose
 // segment by slot tables (lag_slots / fa_slots); lag_depth, lag with a seq
 // chain deeper than one, where an int depth counter dc with its `applied`
 // flag replays the engine's reset/carry rule on an event-code stream (1
@@ -20,8 +22,9 @@
 // propagate the rest; lag_post, lag with a time-varying seq, where two slot
 // streams select the pre-fire and the post-fire parameters from the same
 // [L, n_base, R, S] plane tensor for the same split march. The TPU's lane
-// masks become branches. K1b's instantiations do not compile any of this (a
-// template flag).
+// masks become branches. K1b's instantiations do not compile any of this,
+// and K1a's compile none of the feature code (the tier is a template
+// parameter).
 //
 // Plain PyTorch twin of all three:
 // pharmsol_tpu_torch/ops/fused_psi.py::psi_analytical_plain.
@@ -34,8 +37,8 @@
 // per-row and per-segment factors are broadcasts. The kernel masks the
 // ragged support edge itself: no padding of R, S or M, and M has no limit.
 //
-// Per cell: the support point prepared (CL remap, 2-cmt eigenvalues, the
-// 3-cmt cubic with acos, which Mosaic lacked), then for every segment
+// Per support: the point prepared (CL remap, 2-cmt eigenvalues, the 3-cmt
+// cubic with acos, which Mosaic lacked); per cell, for every segment
 // 1. add the observation term, read before the dose;
 // 2. add the bolus to the dose state (padded slots carry 0);
 // 3. propagate the state, only where dt > 0.
@@ -58,22 +61,23 @@
 // cell, and stream bytes that the warp shares. In float64, exp and log are
 // software routines on the FP64 pipes, which bound it.
 //
-// K1b's and K1c's design for that bound (measured against one thread a cell
-// in PERF.md): a persistent grid of 128-thread blocks, as many as the card
-// holds, each block a tile of 128 supports walking a share of the rows, so
-// that what depends on the support alone is loaded or computed once per
-// thread, not per cell: the prepared model (mode none), the first two
-// output rows, a covariate-free lag or fa given as one row per support (row
-// stride 0), and in levels mode the level models, prepared once per (level,
-// support) by prepare_levels_kernel into a [L, NPREP, S] table and loaded at
-// a change of depth; K1c's post-fire model goes into the same one model. The
+// The design for that bound (measured against one thread a cell in
+// PERF.md), all three tiers: a persistent grid of 128-thread blocks, as many
+// as the card holds, each block a tile of 128 supports walking a share of
+// the rows, so that what depends on the support alone is loaded or computed
+// once per thread, not per cell: the prepared model (K1a, K1b's mode none),
+// the first two output rows, a covariate-free lag or fa given as one row per
+// support (row stride 0), and in levels mode the level models, prepared once
+// per (level, support) by prepare_levels_kernel into a [L, NPREP, S] table
+// and loaded at a change of depth; K1c's post-fire model goes into the same
+// one model. The
 // row's observation constants are hoisted out of the cell: the launch first
 // computes, once per row, obs_const[r] (the sum of -log(2 pi) / 2 - log
 // sigma over the row's uncensored observations) and obs_isig = 1 / sigma
 // (observation_terms_kernel); the kernel starts a cell at obs_const[r] and
 // multiplies by obs_isig, so no logarithm and no division remain per cell
-// and observation. Registers are capped per dtype and structure so that no
-// instantiation spills (FeatureBlocks).
+// and observation. Registers are capped per tier, dtype and structure so
+// that no instantiation spills (TierBlocks).
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -369,69 +373,10 @@ struct Model {
   }
 };
 
-// Structure code (pharmsol_tpu_torch/ops/fused_psi.py STRUCTURES order):
-// code / 4 = compartments - 1, (code / 2) % 2 = CL, code % 2 = absorption.
-template <typename T, int CODE>
-__global__ void __launch_bounds__(256) fused_psi_kernel(
-    const T* __restrict__ seg_dt, const T* __restrict__ seg_bolus,
-    const T* __restrict__ seg_rate, const T* __restrict__ obs_mask,
-    const T* __restrict__ obs_value, const T* __restrict__ obs_sigma,
-    const T* __restrict__ obs_cens, const T* __restrict__ obs_outeq,
-    const T* __restrict__ params, const T* __restrict__ coef,
-    const T* __restrict__ bias, T* __restrict__ out,
-    int R, int S, int M, int n_out) {
-  using Mdl = Model<T, CODE / 4 + 1, (CODE % 2) == 1, ((CODE / 2) % 2) == 1>;
-  constexpr int NS = Mdl::NS;
-  constexpr int NP = Mdl::NP;
-  const T LOG_2PI = T(1.8378770664093454836);
+enum { MODE_NONE = 0, MODE_ROW = 1, MODE_SEGMENT = 2, MODE_LEVELS = 3, MODE_PLANES = 4 };
 
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const bool has_inf = seg_rate != nullptr;
-  const bool has_cens = obs_cens != nullptr;
-
-  T raw[NP];
-#pragma unroll
-  for (int j = 0; j < NP; ++j) raw[j] = params[(size_t)j * S + s];
-  Mdl mdl;
-  mdl.prepare(raw);
-
-  for (int r = blockIdx.y * blockDim.y + threadIdx.y; r < R;
-       r += gridDim.y * blockDim.y) {
-    T x[NS];
-#pragma unroll
-    for (int i = 0; i < NS; ++i) x[i] = T(0);
-    T ll = T(0);
-    const size_t row = (size_t)r * M;
-    for (int m = 0; m < M; ++m) {
-      const size_t i = row + m;
-      // 1. observation before dose: y_k = C_k . x (+ b_k)
-      if (obs_mask[i] > T(0)) {
-        int k = n_out > 1 ? (int)obs_outeq[i] : 0;
-        T pred = T(0);
-        if (k >= 0 && k < n_out) {
-          const T* ck = coef + (size_t)k * NS * S + s;
-          pred = ck[0] * x[0];
-#pragma unroll
-          for (int j = 1; j < NS; ++j) pred = pred + ck[(size_t)j * S] * x[j];
-          if (bias != nullptr) pred = pred + bias[(size_t)k * S + s];
-        }
-        const T sig = obs_sigma[i];
-        const T z = (obs_value[i] - pred) / sig;
-        const T sc = has_cens ? obs_cens[i] : T(0);
-        ll += (sc == T(0))
-                  ? T(-0.5) * LOG_2PI - Fn<T>::log(sig) - T(0.5) * z * z
-                  : log_ndtr(sc * z);
-      }
-      // 2. the bolus (0 on padded slots) into the dose state
-      x[0] = x[0] + seg_bolus[i];
-      // 3. propagate over the segment's span
-      const T dt = seg_dt[i];
-      if (dt > T(0)) mdl.propagate(x, dt, has_inf ? seg_rate[i] : T(0), has_inf);
-    }
-    out[(size_t)r * S + s] = ll;
-  }
-}
+// The tiers of the one kernel body: K1a (no feature input), K1b, K1c.
+enum { TIER_K1A = 0, TIER_K1B = 1, TIER_K1C = 2 };
 
 // K1b's feature inputs: mult [R, NP] and offset, mult_seg [R, NP, M] and
 // offset, levels [L, NB, S], planes [L, NB, R, S], depth [R, M] (1-based),
@@ -456,7 +401,18 @@ struct K1cFeatures {
   const int* fa_slots;
 };
 
-// The feature kernel's streams: the segment streams [R, M], the observation
+// K1a's: none. Its instantiations read no feature pointer, and the mode and
+// row strides are mode none's constants, so every branch on them folds away
+// when the base tier compiles.
+struct NoFeatures {
+  static constexpr int mode = MODE_NONE, n_levels = 0, lag_row = 0, fa_row = 0;
+};
+
+template <int TIER>
+using FeaturesOf = std::conditional_t<
+    TIER == TIER_K1C, K1cFeatures, std::conditional_t<TIER == TIER_K1B, Features, NoFeatures>>;
+
+// The kernel's streams (every tier): the segment streams [R, M], the observation
 // terms (obs_isig [R, M], 1 / sigma; obs_const [R], each row's sum over its
 // uncensored observations of -log(2 pi) / 2 - log sigma), the parameter rows
 // [NP, S], the output rows, psi [R, S], and the prepared level models
@@ -474,8 +430,7 @@ __host__ __device__ __forceinline__ const Features& base_of(const Features& f) {
 __host__ __device__ __forceinline__ const Features& base_of(const K1cFeatures& f) {
   return f.b;
 }
-
-enum { MODE_NONE = 0, MODE_ROW = 1, MODE_SEGMENT = 2, MODE_LEVELS = 3, MODE_PLANES = 4 };
+__host__ __device__ __forceinline__ const NoFeatures& base_of(const NoFeatures& f) { return f; }
 
 // The micro constants of chain level d (1-based) of cell (r, s): levels
 // [L, NB, S] or planes [L, NB, R, S] as the mode says.
@@ -494,21 +449,25 @@ __device__ __forceinline__ void level_micro(T (&micro)[NB], int mode,
 template <typename T, int CODE>
 using ModelOf = Model<T, CODE / 4 + 1, (CODE % 2) == 1, ((CODE / 2) % 2) == 1>;
 
-// The feature kernel's block: 128 supports of one row a pass, 32 to a warp.
+// The kernel's block: 128 supports of one row a pass, 32 to a warp.
 constexpr int FEATURE_THREADS = 128;
 
-// Blocks of 128 an SM that the register budget is set for, per dtype and
-// structure (__launch_bounds__: at most 65536 / (128 x blocks) registers a
-// thread), chosen from the ptxas report (H100, nvcc 12.9) so that no
-// instantiation spills: float32 at most 85 registers (3-compartment 170),
-// float64 128 (the 2-compartment CL oral ones, code 7, spill 4-28 B there:
-// 168), 3-compartment float64 255.
-template <typename T, int CODE, bool K1C>
-struct FeatureBlocks {
+// Blocks of 128 an SM that the register budget is set for, per tier, dtype
+// and structure (__launch_bounds__: at most 65536 / (128 x blocks)
+// registers a thread), chosen from the ptxas report (H100, nvcc 12.9) so
+// that no instantiation spills. K1b and K1c: float32 at most 85 registers
+// (3-compartment 170), float64 128 (the 2-compartment CL oral ones, code 7,
+// spill 4-28 B there: 168), 3-compartment float64 255. K1a: float32 no cap
+// (the compiler's own 31-90 registers spill nothing, and a cap of 64 ran
+// the Short cell 9% slower), float64 1- and 2-compartment 102 (code 7 128;
+// a cap of 85 ran slower), 3-compartment 255.
+template <typename T, int CODE, int TIER>
+struct TierBlocks {
   static constexpr int NCMT = CODE / 4 + 1;
-  static constexpr int value = std::is_same<T, float>::value
-                                   ? (NCMT == 3 ? 3 : 6)
-                                   : (NCMT == 3 ? 2 : CODE == 7 ? 3 : 4);
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr int value =
+      TIER == TIER_K1A ? (F32 ? 1 : (NCMT == 3 ? 2 : CODE == 7 ? 4 : 5))
+                       : (F32 ? (NCMT == 3 ? 3 : 6) : (NCMT == 3 ? 2 : CODE == 7 ? 3 : 4));
 };
 
 // Level models prepared once per (level, support): table [L, NPREP, S].
@@ -549,23 +508,66 @@ __global__ void __launch_bounds__(128) observation_terms_kernel(
   cst[r] = c;
 }
 
-// K1b and K1c. A persistent grid: block (x, y) owns the 128 supports of tile
-// x and walks rows y, y + gridDim.y, ...; a thread is one support and loads
-// once, before its first row, what depends on the support alone: its
-// prepared model (mode none), its output rows (up to two outputs), its lag
-// and fa where they are one row per support, and in levels mode where its
-// prepared level models lie (a table). The 32 threads of a warp share a
-// row, so the row streams stay broadcast reads.
-template <typename T, int CODE, bool K1C>
-__global__ void __launch_bounds__(FEATURE_THREADS, (FeatureBlocks<T, CODE, K1C>::value))
-    fused_psi_feature_kernel(const FeatureStreams a,
-                             const std::conditional_t<K1C, K1cFeatures, Features> fk) {
+// Values per (row, segment) in the launch's scratch, before the rows'
+// observation constants: K1a's float32 segment records (8), else 1 / sigma.
+template <typename T, int TIER>
+__host__ __device__ constexpr int per_segment() {
+  return TIER == TIER_K1A && std::is_same<T, float>::value ? 8 : 1;
+}
+
+// K1a's float32 segment records, once per row: rec [R, M] of {dt, bolus,
+// rate, value, 1 / sigma, censoring sign, outeq, mask} (two float4), and
+// cst [R] as observation_terms_kernel computes it. A segment's values then
+// arrive in two 16-byte loads issued together, none of them behind the
+// observation's branch (in float32 the march waits on its loads; in float64
+// the software exps hide them, and the records gained nothing there).
+__global__ void __launch_bounds__(128) segment_records_kernel(
+    const float* __restrict__ seg_dt, const float* __restrict__ seg_bolus,
+    const float* __restrict__ seg_rate, const float* __restrict__ mask,
+    const float* __restrict__ value, const float* __restrict__ sigma,
+    const float* __restrict__ cens, const float* __restrict__ outeq, float4* __restrict__ rec,
+    float* __restrict__ cst, int R, int M) {
+  const float LOG_2PI = 1.8378770664093454836f;
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  float c = 0.0f;
+  for (int m = 0; m < M; ++m) {
+    const size_t i = (size_t)r * M + m;
+    const bool on = mask[i] > 0.0f;
+    const float sig = on ? sigma[i] : 1.0f;
+    const float sc = cens != nullptr ? cens[i] : 0.0f;
+    rec[2 * i] = float4{seg_dt[i], seg_bolus[i], seg_rate != nullptr ? seg_rate[i] : 0.0f,
+                        value[i]};
+    rec[2 * i + 1] = float4{1.0f / sig, sc, outeq != nullptr ? outeq[i] : 0.0f, mask[i]};
+    if (on && sc == 0.0f) c = c + (-0.5f * LOG_2PI - logf(sig));
+  }
+  cst[r] = c;
+}
+
+// K1a, K1b and K1c, one kernel body, the tier a template parameter. A
+// persistent grid: block (x, y) owns the 128 supports of tile x and walks
+// rows y, y + gridDim.y, ...; a thread is one support and loads once, before
+// its first row, what depends on the support alone: its prepared model (K1a,
+// and K1b's mode none), its output rows (up to two outputs), its lag and fa
+// where they are one row per support, and in levels mode where its prepared
+// level models lie (a table). The 32 threads of a warp share a row, so the
+// row streams stay broadcast reads. K1a's instantiations compile none of the
+// feature code: its feature pointers are null constants and its mode is
+// none (NoFeatures), and the lag, fa, init and level work sits behind
+// `if constexpr (FEAT)`.
+template <typename T, int CODE, int TIER>
+__global__ void __launch_bounds__(FEATURE_THREADS, (TierBlocks<T, CODE, TIER>::value))
+    fused_psi_feature_kernel(const FeatureStreams a, const FeaturesOf<TIER> fk) {
   using Mdl = ModelOf<T, CODE>;
   constexpr int NS = Mdl::NS;
   constexpr int NP = Mdl::NP;
   constexpr int NB = Mdl::NB;
   constexpr int NPREP = Mdl::NPREP;
-  const Features& f = base_of(fk);
+  constexpr bool FEAT = TIER != TIER_K1A;
+  constexpr bool K1C = TIER == TIER_K1C;
+  // K1a in float32 reads its segments as records (segment_records_kernel)
+  constexpr bool RECORDS = per_segment<T, TIER>() == 8;
+  const auto& f = base_of(fk);
   const T* __restrict__ seg_dt = (const T*)a.seg_dt;
   const T* __restrict__ seg_bolus = (const T*)a.seg_bolus;
   const T* __restrict__ seg_rate = (const T*)a.seg_rate;
@@ -579,19 +581,34 @@ __global__ void __launch_bounds__(FEATURE_THREADS, (FeatureBlocks<T, CODE, K1C>:
   const T* __restrict__ coef = (const T*)a.coef;
   const T* __restrict__ bias = (const T*)a.bias;
   T* __restrict__ out = (T*)a.out;
-  const T* __restrict__ mult = (const T*)f.p[0];
-  const T* __restrict__ offset = (const T*)f.p[1];
-  const T* __restrict__ mult_seg = (const T*)f.p[2];
-  const T* __restrict__ offset_seg = (const T*)f.p[3];
-  const T* __restrict__ levels = (const T*)f.p[4];
-  const T* __restrict__ planes = (const T*)f.p[5];
-  const T* __restrict__ depth = (const T*)f.p[6];
-  const T* __restrict__ lag = (const T*)f.p[7];
-  const T* __restrict__ fa = (const T*)f.p[8];
-  const T* __restrict__ init_rows = (const T*)f.p[9];
-  const T* __restrict__ init_planes = (const T*)f.p[10];
-  const T* __restrict__ init_mask = (const T*)f.p[11];
-  // K1c's own inputs (null in K1b's instantiation)
+  // K1b's inputs (null in K1a's instantiation)
+  const T* __restrict__ mult = nullptr;
+  const T* __restrict__ offset = nullptr;
+  const T* __restrict__ mult_seg = nullptr;
+  const T* __restrict__ offset_seg = nullptr;
+  const T* __restrict__ levels = nullptr;
+  const T* __restrict__ planes = nullptr;
+  const T* __restrict__ depth = nullptr;
+  const T* __restrict__ lag = nullptr;
+  const T* __restrict__ fa = nullptr;
+  const T* __restrict__ init_rows = nullptr;
+  const T* __restrict__ init_planes = nullptr;
+  const T* __restrict__ init_mask = nullptr;
+  if constexpr (FEAT) {
+    mult = (const T*)f.p[0];
+    offset = (const T*)f.p[1];
+    mult_seg = (const T*)f.p[2];
+    offset_seg = (const T*)f.p[3];
+    levels = (const T*)f.p[4];
+    planes = (const T*)f.p[5];
+    depth = (const T*)f.p[6];
+    lag = (const T*)f.p[7];
+    fa = (const T*)f.p[8];
+    init_rows = (const T*)f.p[9];
+    init_planes = (const T*)f.p[10];
+    init_mask = (const T*)f.p[11];
+  }
+  // K1c's own inputs (null in K1a's and K1b's instantiations)
   const T* __restrict__ evcode = nullptr;
   const T* __restrict__ postdepth = nullptr;
   const int* __restrict__ lag_slots = nullptr;
@@ -660,7 +677,7 @@ __global__ void __launch_bounds__(FEATURE_THREADS, (FeatureBlocks<T, CODE, K1C>:
     int cur = 0;  // the chain level (or slot) the model holds (0: none)
     const T lag_rs = has_lag ? (f.lag_row != 0 ? lag[(size_t)r * S + s] : lag_s) : T(0);
     const T fa_rs = fa != nullptr ? (f.fa_row != 0 ? fa[(size_t)r * S + s] : fa_s) : T(1);
-    // K1c: lag_depth's chain state (unused by K1b)
+    // K1c: lag_depth's chain state (unused by K1a and K1b)
     [[maybe_unused]] int dc = 0;
     [[maybe_unused]] bool app = false;
     [[maybe_unused]] const bool split = K1C && (evcode != nullptr || postdepth != nullptr);
@@ -669,10 +686,39 @@ __global__ void __launch_bounds__(FEATURE_THREADS, (FeatureBlocks<T, CODE, K1C>:
     const size_t row = (size_t)r * M;
     for (int m = 0; m < M; ++m) {
       const size_t i = row + m;
+      // the segment's values: from its record (K1a, float32), else from the
+      // streams where they are used
+      [[maybe_unused]] float4 rec0, rec1;
+      if constexpr (RECORDS) {
+        rec0 = ((const float4*)a.obs_isig)[2 * i];
+        rec1 = ((const float4*)a.obs_isig)[2 * i + 1];
+      }
+      auto dt_at = [&]() -> T { if constexpr (RECORDS) return rec0.x; else return seg_dt[i]; };
+      auto bolus_at = [&]() -> T {
+        if constexpr (RECORDS) return rec0.y; else return seg_bolus[i];
+      };
+      auto rate_at = [&]() -> T {
+        if constexpr (RECORDS) return rec0.z; else return seg_rate[i];
+      };
+      auto value_at = [&]() -> T {
+        if constexpr (RECORDS) return rec0.w; else return obs_value[i];
+      };
+      auto isig_at = [&]() -> T {
+        if constexpr (RECORDS) return rec1.x; else return obs_isig[i];
+      };
+      auto cens_at = [&]() -> T {
+        if constexpr (RECORDS) return rec1.y; else return obs_cens[i];
+      };
+      auto outeq_at = [&]() -> T {
+        if constexpr (RECORDS) return rec1.z; else return obs_outeq[i];
+      };
+      auto mask_at = [&]() -> T {
+        if constexpr (RECORDS) return rec1.w; else return obs_mask[i];
+      };
       // 1. observation before dose: y_k = C_k . x (+ b_k); the row's
       // -log(2 pi) / 2 - log sigma terms are in ll's start
-      if (obs_mask[i] > T(0)) {
-        int k = n_out > 1 ? (int)obs_outeq[i] : 0;
+      if (mask_at() > T(0)) {
+        int k = n_out > 1 ? (int)outeq_at() : 0;
         T pred = T(0);
         if (k >= 0 && k < n_out) {
           if (cf_kept) {
@@ -691,37 +737,41 @@ __global__ void __launch_bounds__(FEATURE_THREADS, (FeatureBlocks<T, CODE, K1C>:
             if (bias != nullptr) pred = pred + bias[(size_t)k * S + s];
           }
         }
-        const T z = (obs_value[i] - pred) * obs_isig[i];
-        const T sc = has_cens ? obs_cens[i] : T(0);
+        const T z = (value_at() - pred) * isig_at();
+        const T sc = has_cens ? cens_at() : T(0);
         ll += (sc == T(0)) ? T(-0.5) * z * z : log_ndtr(sc * z);
       }
       // 2. the bolus (0 on padded slots) scaled by fa; with lag it waits
-      const T bol = seg_bolus[i];
-      T bol_eff = fa != nullptr ? bol * fa_rs : bol;
-      bool lag_here = has_lag;
-      T lag_m = lag_rs;
-      if constexpr (K1C) {
-        // slot tables pick each dose segment's plane (-1: no dose lands)
-        if (fa != nullptr && fa_slots != nullptr) {
-          const int sl = fa_slots[m];
-          bol_eff = sl < 0 ? bol : bol * fa[(size_t)sl * RS + (size_t)r * S + s];
-        }
-        if (has_lag && lag_slots != nullptr) {
-          const int sl = lag_slots[m];
-          lag_here = sl >= 0;
-          if (lag_here) lag_m = lag[(size_t)sl * RS + (size_t)r * S + s];
-        }
-      }
-      if (has_lag) {
-        if (lag_here && bol != T(0)) {
-          pend_amt = bol_eff;
-          pend_rem = lag_m;
-        }
+      const T bol = bolus_at();
+      if constexpr (!FEAT) {
+        x[0] = x[0] + bol;
       } else {
-        x[0] = x[0] + bol_eff;
+        T bol_eff = fa != nullptr ? bol * fa_rs : bol;
+        bool lag_here = has_lag;
+        T lag_m = lag_rs;
+        if constexpr (K1C) {
+          // slot tables pick each dose segment's plane (-1: no dose lands)
+          if (fa != nullptr && fa_slots != nullptr) {
+            const int sl = fa_slots[m];
+            bol_eff = sl < 0 ? bol : bol * fa[(size_t)sl * RS + (size_t)r * S + s];
+          }
+          if (has_lag && lag_slots != nullptr) {
+            const int sl = lag_slots[m];
+            lag_here = sl >= 0;
+            if (lag_here) lag_m = lag[(size_t)sl * RS + (size_t)r * S + s];
+          }
+        }
+        if (has_lag) {
+          if (lag_here && bol != T(0)) {
+            pend_amt = bol_eff;
+            pend_rem = lag_m;
+          }
+        } else {
+          x[0] = x[0] + bol_eff;
+        }
       }
       // 3. this segment's parameters, then propagate over its span
-      const T dt = seg_dt[i];
+      const T dt = dt_at();
       if constexpr (K1C) {
         if (evcode != nullptr) {
           // lag_depth: the engine's reset/carry rule on the event codes
@@ -767,7 +817,7 @@ __global__ void __launch_bounds__(FEATURE_THREADS, (FeatureBlocks<T, CODE, K1C>:
           if (split) {
             // the true split march (pallas_psi.py:725-758): the fire resets
             // the chain, so no superposition across it
-            const T rate = has_inf ? seg_rate[i] : T(0);
+            const T rate = has_inf ? rate_at() : T(0);
             const bool fire = pend_amt != T(0) && pend_rem < dt;
             if (!fire) {
               mdl.propagate(x, dt, rate, has_inf);
@@ -802,62 +852,28 @@ __global__ void __launch_bounds__(FEATURE_THREADS, (FeatureBlocks<T, CODE, K1C>:
             continue;
           }
         }
-        mdl.propagate(x, dt, has_inf ? seg_rate[i] : T(0), has_inf);
-        if (has_lag) {
-          if (pend_amt != T(0) && pend_rem < dt) {
-            // the pending dose fires inside this segment
-            T xd[NS];
+        mdl.propagate(x, dt, has_inf ? rate_at() : T(0), has_inf);
+        if constexpr (FEAT) {
+          if (has_lag) {
+            if (pend_amt != T(0) && pend_rem < dt) {
+              // the pending dose fires inside this segment
+              T xd[NS];
 #pragma unroll
-            for (int j = 0; j < NS; ++j) xd[j] = T(0);
-            xd[0] = pend_amt;
-            mdl.propagate(xd, dt - pend_rem, T(0), false);
+              for (int j = 0; j < NS; ++j) xd[j] = T(0);
+              xd[0] = pend_amt;
+              mdl.propagate(xd, dt - pend_rem, T(0), false);
 #pragma unroll
-            for (int j = 0; j < NS; ++j) x[j] = x[j] + xd[j];
-            pend_amt = T(0);
-            pend_rem = T(0);
-          } else {
-            pend_rem = pend_rem - dt > T(0) ? pend_rem - dt : T(0);
+              for (int j = 0; j < NS; ++j) x[j] = x[j] + xd[j];
+              pend_amt = T(0);
+              pend_rem = T(0);
+            } else {
+              pend_rem = pend_rem - dt > T(0) ? pend_rem - dt : T(0);
+            }
           }
         }
       }
     }
     out[(size_t)r * S + s] = ll;
-  }
-}
-
-template <typename T, int CODE>
-cudaError_t launch(const void* const* p, void* out, int R, int S, int M,
-                   int n_out, cudaStream_t stream) {
-  if (R <= 0 || S <= 0) return cudaSuccess;
-  const dim3 block(128, 2);
-  const unsigned gx = (unsigned)((S + block.x - 1) / block.x);
-  unsigned gy = (unsigned)((R + block.y - 1) / block.y);
-  if (gy > 65535u) gy = 65535u;
-  fused_psi_kernel<T, CODE><<<dim3(gx, gy), block, 0, stream>>>(
-      (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
-      (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7],
-      (const T*)p[8], (const T*)p[9], (const T*)p[10], (T*)out, R, S, M,
-      n_out);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(int code, const void* const* p, void* out, int R, int S,
-                     int M, int n_out, cudaStream_t st) {
-  switch (code) {
-    case 0: return launch<T, 0>(p, out, R, S, M, n_out, st);
-    case 1: return launch<T, 1>(p, out, R, S, M, n_out, st);
-    case 2: return launch<T, 2>(p, out, R, S, M, n_out, st);
-    case 3: return launch<T, 3>(p, out, R, S, M, n_out, st);
-    case 4: return launch<T, 4>(p, out, R, S, M, n_out, st);
-    case 5: return launch<T, 5>(p, out, R, S, M, n_out, st);
-    case 6: return launch<T, 6>(p, out, R, S, M, n_out, st);
-    case 7: return launch<T, 7>(p, out, R, S, M, n_out, st);
-    case 8: return launch<T, 8>(p, out, R, S, M, n_out, st);
-    case 9: return launch<T, 9>(p, out, R, S, M, n_out, st);
-    case 10: return launch<T, 10>(p, out, R, S, M, n_out, st);
-    case 11: return launch<T, 11>(p, out, R, S, M, n_out, st);
-    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -872,30 +888,40 @@ cudaError_t with_code(int code, Fn&& fn) {
   }
 }
 
-// Resident blocks of 128 threads an SM of the feature kernel.
-template <typename T, int CODE, bool K1C>
-cudaError_t feature_blocks_per_sm(int* blocks) {
+// Resident blocks of 128 threads an SM of the tier's kernel.
+template <typename T, int CODE, int TIER>
+cudaError_t blocks_per_sm(int* blocks) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, fused_psi_feature_kernel<T, CODE, K1C>, FEATURE_THREADS, 0);
+      blocks, fused_psi_feature_kernel<T, CODE, TIER>, FEATURE_THREADS, 0);
 }
 
-template <typename T, int CODE, bool K1C, typename F>
-cudaError_t launch_feature(const FeatureStreams& a, const void* obs_sigma, const F& fk,
-                           int blocks, cudaStream_t stream) {
+template <typename T, int CODE, int TIER, typename F>
+cudaError_t launch_tier(const FeatureStreams& a, const void* obs_sigma, const F& fk,
+                        int blocks, cudaStream_t stream) {
   if (a.R <= 0 || a.S <= 0) return cudaSuccess;
-  const Features& f = base_of(fk);
   const int tiles = (a.S + FEATURE_THREADS - 1) / FEATURE_THREADS;
-  observation_terms_kernel<T><<<(a.R + 127) / 128, 128, 0, stream>>>(
-      (const T*)a.obs_mask, (const T*)obs_sigma, (const T*)a.obs_cens, (T*)a.obs_isig,
-      (T*)a.obs_const, a.R, a.M);
-  if (f.mode == MODE_LEVELS) {
-    prepare_levels_kernel<T, CODE><<<dim3(tiles, f.n_levels), 128, 0, stream>>>(
-        (const T*)f.p[4], (T*)a.table, a.S);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+  if constexpr (per_segment<T, TIER>() == 8) {
+    segment_records_kernel<<<(a.R + 127) / 128, 128, 0, stream>>>(
+        (const float*)a.seg_dt, (const float*)a.seg_bolus, (const float*)a.seg_rate,
+        (const float*)a.obs_mask, (const float*)a.obs_value, (const float*)obs_sigma,
+        (const float*)a.obs_cens, (const float*)a.obs_outeq, (float4*)a.obs_isig,
+        (float*)a.obs_const, a.R, a.M);
+  } else {
+    observation_terms_kernel<T><<<(a.R + 127) / 128, 128, 0, stream>>>(
+        (const T*)a.obs_mask, (const T*)obs_sigma, (const T*)a.obs_cens, (T*)a.obs_isig,
+        (T*)a.obs_const, a.R, a.M);
+  }
+  if constexpr (TIER != TIER_K1A) {
+    const Features& f = base_of(fk);
+    if (f.mode == MODE_LEVELS) {
+      prepare_levels_kernel<T, CODE><<<dim3(tiles, f.n_levels), 128, 0, stream>>>(
+          (const T*)f.p[4], (T*)a.table, a.S);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
   }
   int per_sm = 0;
-  cudaError_t err = feature_blocks_per_sm<T, CODE, K1C>(&per_sm);
+  cudaError_t err = blocks_per_sm<T, CODE, TIER>(&per_sm);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   if (blocks <= 0) {
@@ -909,52 +935,80 @@ cudaError_t launch_feature(const FeatureStreams& a, const void* obs_sigma, const
   int rows = blocks / tiles;
   rows = rows < 1 ? 1 : (rows > a.R ? a.R : rows);
   rows = rows > 65535 ? 65535 : rows;
-  fused_psi_feature_kernel<T, CODE, K1C><<<dim3(tiles, rows), FEATURE_THREADS, 0, stream>>>(
+  fused_psi_feature_kernel<T, CODE, TIER><<<dim3(tiles, rows), FEATURE_THREADS, 0, stream>>>(
       a, fk);
   return cudaGetLastError();
 }
 
-template <typename T, bool K1C, typename F>
-cudaError_t dispatch_feature(int code, const FeatureStreams& a, const void* obs_sigma,
-                             const F& f, int blocks, cudaStream_t st) {
+template <typename T, int TIER, typename F>
+cudaError_t dispatch_tier(int code, const FeatureStreams& a, const void* obs_sigma,
+                          const F& f, int blocks, cudaStream_t st) {
   return with_code(code, [&](auto c) {
-    return launch_feature<T, decltype(c)::value, K1C>(a, obs_sigma, f, blocks, st);
+    return launch_tier<T, decltype(c)::value, TIER>(a, obs_sigma, f, blocks, st);
   });
+}
+
+// per_segment of the tier (K1b's and K1c's are K1b's) and dtype
+int per_segment_of(int is_f64, int tier) {
+  if (tier == TIER_K1A)
+    return is_f64 ? per_segment<double, TIER_K1A>() : per_segment<float, TIER_K1A>();
+  return is_f64 ? per_segment<double, TIER_K1B>() : per_segment<float, TIER_K1B>();
+}
+
+// The streams of a launch: `terms` holds `per_seg` values per (row,
+// segment), obs_isig [R, M] or K1a's float32 records, then obs_const [R];
+// the launch fills them before the kernel reads them.
+FeatureStreams streams_of(const void* seg_dt, const void* seg_bolus, const void* seg_rate,
+                          const void* obs_mask, const void* obs_value, const void* obs_cens,
+                          const void* obs_outeq, const void* params, const void* coef,
+                          const void* bias, void* out, void* table, void* terms, int R, int S,
+                          int M, int n_out, int is_f64, int per_seg) {
+  const size_t RM = (size_t)R * M * per_seg * (is_f64 ? sizeof(double) : sizeof(float));
+  return FeatureStreams{seg_dt,    seg_bolus, seg_rate,  obs_mask, obs_value, terms,
+                        (const char*)terms + RM, obs_cens, obs_outeq, params, coef, bias,
+                        out,       table,     R,         S,        M,         n_out};
 }
 
 }  // namespace
 
-// Launch on `stream`. Pointers: seg_dt, seg_bolus, seg_rate (or null),
-// obs_mask, obs_value, obs_sigma, obs_cens (or null), obs_outeq (or null when
-// n_out == 1): [R, M]; params [n_params, S]; coef [n_out, n_states, S];
-// bias [n_out, S] (or null); out [R, S]. All float (is_f64 == 0) or double.
-// Returns the cudaError_t of the launch (0 on success).
+// K1a, launched on `stream`. Pointers: seg_dt, seg_bolus, seg_rate (or
+// null), obs_mask, obs_value, obs_sigma, obs_cens (or null), obs_outeq (or
+// null when n_out == 1): [R, M]; params [n_params, S]; coef [n_out,
+// n_states, S]; bias [n_out, S] (or null); out [R, S]; `terms`,
+// fused_psi_terms_size values that the launch fills first (float64: the
+// observation terms obs_isig [R, M]; float32: the segment records [R, M, 8];
+// then obs_const [R]); `blocks` of the persistent grid (0: as many as the
+// card holds at once). All float (is_f64 == 0) or double. Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int fused_psi_launch(int is_f64, int code, const void* seg_dt,
                                 const void* seg_bolus, const void* seg_rate,
                                 const void* obs_mask, const void* obs_value,
                                 const void* obs_sigma, const void* obs_cens,
                                 const void* obs_outeq, const void* params,
-                                const void* coef, const void* bias, void* out,
-                                int R, int S, int M, int n_out, void* stream) {
-  const void* p[11] = {seg_dt, seg_bolus, seg_rate, obs_mask, obs_value,
-                       obs_sigma, obs_cens, obs_outeq, params, coef, bias};
+                                const void* coef, const void* bias, void* out, void* terms,
+                                int R, int S, int M, int n_out, int blocks, void* stream) {
+  if (terms == nullptr) return (int)cudaErrorInvalidValue;
+  const FeatureStreams a = streams_of(seg_dt, seg_bolus, seg_rate, obs_mask, obs_value,
+                                      obs_cens, obs_outeq, params, coef, bias, out, nullptr,
+                                      terms, R, S, M, n_out, is_f64,
+                                      per_segment_of(is_f64, TIER_K1A));
+  const NoFeatures none;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = is_f64 ? dispatch<double>(code, p, out, R, S, M, n_out, st)
-                           : dispatch<float>(code, p, out, R, S, M, n_out, st);
+  cudaError_t err =
+      is_f64 ? dispatch_tier<double, TIER_K1A>(code, a, obs_sigma, none, blocks, st)
+             : dispatch_tier<float, TIER_K1A>(code, a, obs_sigma, none, blocks, st);
   return (int)err;
 }
 
-// K1b and K1c: the same pointers as fused_psi_launch, then `table` (levels
+// K1b and K1c: the same pointers as fused_psi_launch, with `table` (levels
 // mode: the prepared level models [L, NPREP, S], which the launch fills;
-// else null), `terms` (R x (M + 1) values the launch fills: the observation
-// terms obs_isig [R, M], then obs_const [R]), `features`, the 14 feature
+// else null) before `terms`, then `features`, the 14 feature
 // pointers of ops/fused_psi.py FEATURES (null = off) followed by the device
 // int32 slot tables lag_slots and fa_slots [M] (null = none), and `ints` =
 // {mode, number of levels or
 // planes, row stride of the lag plane, of the fa plane (S, or 0 for one row
-// per support)}; `blocks` of the persistent grid (0: as many as the card
-// holds at once). Slot tables, an event code stream or a post slot stream
-// select K1c, anything else K1b.
+// per support)}; `blocks` as for K1a. Slot tables, an event code stream or a
+// post slot stream select K1c, anything else K1b.
 extern "C" int fused_psi_feature_launch(
     int is_f64, int code, const void* seg_dt, const void* seg_bolus,
     const void* seg_rate, const void* obs_mask, const void* obs_value,
@@ -963,11 +1017,10 @@ extern "C" int fused_psi_feature_launch(
     const void* const* features, const int* ints, int R, int S, int M, int n_out, int blocks,
     void* stream) {
   if (terms == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t RM = (size_t)R * M * (is_f64 ? sizeof(double) : sizeof(float));
-  // the kernel reads the observation terms that the launch writes first
-  const FeatureStreams a{seg_dt,    seg_bolus, seg_rate,  obs_mask, obs_value, terms,
-                         (const char*)terms + RM, obs_cens, obs_outeq, params, coef, bias,
-                         out,       table,     R,         S,        M,         n_out};
+  const FeatureStreams a = streams_of(seg_dt, seg_bolus, seg_rate, obs_mask, obs_value,
+                                      obs_cens, obs_outeq, params, coef, bias, out, table,
+                                      terms, R, S, M, n_out, is_f64,
+                                      per_segment_of(is_f64, TIER_K1B));
   // features: mult, offset, mult_seg, offset_seg, levels, planes, depth,
   // evcode, postdepth, lag, fa, init_rows, init_planes, init_mask, lag_slots,
   // fa_slots (ops/fused_psi.py FEATURES, then the slot tables)
@@ -999,24 +1052,38 @@ extern "C" int fused_psi_feature_launch(
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (k1c)
-    err = is_f64 ? dispatch_feature<double, true>(code, a, obs_sigma, k, blocks, st)
-                 : dispatch_feature<float, true>(code, a, obs_sigma, k, blocks, st);
+    err = is_f64 ? dispatch_tier<double, TIER_K1C>(code, a, obs_sigma, k, blocks, st)
+                 : dispatch_tier<float, TIER_K1C>(code, a, obs_sigma, k, blocks, st);
   else
-    err = is_f64 ? dispatch_feature<double, false>(code, a, obs_sigma, k.b, blocks, st)
-                 : dispatch_feature<float, false>(code, a, obs_sigma, k.b, blocks, st);
+    err = is_f64 ? dispatch_tier<double, TIER_K1B>(code, a, obs_sigma, k.b, blocks, st)
+                 : dispatch_tier<float, TIER_K1B>(code, a, obs_sigma, k.b, blocks, st);
   return (int)err;
 }
 
-// Resident blocks an SM of the feature kernel (K1c's where k1c) for the
+// The values of a launch's `terms` scratch for the tier (0 K1a, 1 K1b,
+// 2 K1c): R x (M x the values per segment + 1).
+extern "C" long long fused_psi_terms_size(int is_f64, int tier, int R, int M) {
+  return (long long)R * ((long long)M * per_segment_of(is_f64, tier) + 1);
+}
+
+// Resident blocks an SM of the tier's kernel (0 K1a, 1 K1b, 2 K1c) for the
 // structure code.
-extern "C" int fused_psi_feature_occupancy(int is_f64, int code, int k1c, int* blocks) {
-  return (int)with_code(code, [&](auto c) {
+extern "C" int fused_psi_occupancy(int is_f64, int code, int tier, int* blocks) {
+  return (int)with_code(code, [&](auto c) -> cudaError_t {
     constexpr int C = decltype(c)::value;
-    if (is_f64)
-      return k1c ? feature_blocks_per_sm<double, C, true>(blocks)
-                 : feature_blocks_per_sm<double, C, false>(blocks);
-    return k1c ? feature_blocks_per_sm<float, C, true>(blocks)
-               : feature_blocks_per_sm<float, C, false>(blocks);
+    switch (tier) {
+      case TIER_K1A:
+        return is_f64 ? blocks_per_sm<double, C, TIER_K1A>(blocks)
+                      : blocks_per_sm<float, C, TIER_K1A>(blocks);
+      case TIER_K1B:
+        return is_f64 ? blocks_per_sm<double, C, TIER_K1B>(blocks)
+                      : blocks_per_sm<float, C, TIER_K1B>(blocks);
+      case TIER_K1C:
+        return is_f64 ? blocks_per_sm<double, C, TIER_K1C>(blocks)
+                      : blocks_per_sm<float, C, TIER_K1C>(blocks);
+      default:
+        return cudaErrorInvalidValue;
+    }
   });
 }
 

@@ -259,16 +259,22 @@ def bind_psi_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the argument and result types of a build of ``csrc/fused_psi.cu``
     (the package's, or another build of the same source)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.fused_psi_launch.argtypes = [ci, ci] + [vp] * 12 + [ci] * 4 + [vp]
+    # K1a: the stream pointers, psi and the observation terms the launch
+    # fills; R, S, M, n_out, the grid's blocks
+    lib.fused_psi_launch.argtypes = [ci, ci] + [vp] * 13 + [ci] * 5 + [vp]
     lib.fused_psi_launch.restype = ci
     # K1b and K1c: K1a's stream pointers and psi, the level table, the
-    # observation terms the launch fills, an array of the feature pointers
-    # and one of 4 ints (mode, levels, lag and fa row strides), R, S, M,
-    # n_out, the grid's blocks
+    # observation terms, an array of the feature pointers and one of 4 ints
+    # (mode, levels, lag and fa row strides), R, S, M, n_out, the grid's
+    # blocks
     lib.fused_psi_feature_launch.argtypes = [ci, ci] + [vp] * 16 + [ci] * 5 + [vp]
     lib.fused_psi_feature_launch.restype = ci
-    lib.fused_psi_feature_occupancy.argtypes = [ci] * 3 + [vp]
-    lib.fused_psi_feature_occupancy.restype = ci
+    # the launch's scratch (values) for is_f64, tier, R, M
+    lib.fused_psi_terms_size.argtypes = [ci] * 4
+    lib.fused_psi_terms_size.restype = ctypes.c_longlong
+    # resident blocks an SM: is_f64, code, tier (0 K1a, 1 K1b, 2 K1c)
+    lib.fused_psi_occupancy.argtypes = [ci] * 3 + [vp]
+    lib.fused_psi_occupancy.restype = ci
     lib.fused_psi_prep_fields.argtypes = [ci]
     lib.fused_psi_prep_fields.restype = ci
     lib.fused_psi_error_string.argtypes = [ci]

@@ -538,8 +538,8 @@ def _check_features(seg_dt, support, sdef, f: dict, lag_slots=None, fa_slots=Non
 
 
 def observation_terms(obs_mask, obs_sigma, obs_cens):
-    """The observation work that depends on the row alone, as K1b's and
-    K1c's launch computes it once per row before the cells: ``obs_isig``
+    """The observation work that depends on the row alone, as the kernels'
+    launch computes it once per row before the cells: ``obs_isig``
     [R, M], 1 / sigma (1 where the mask is off), and ``obs_const`` [R], each
     row's sum over its uncensored observations of ``-log(2 pi) / 2 - log
     sigma``. A cell's sum starts at ``obs_const`` and adds ``-z^2 / 2`` with
@@ -590,7 +590,7 @@ def psi_analytical_plain(
     planes, ``lag_depth`` and ``lag_post`` paths: ``:498-527``, ``:655-690``,
     ``:725-758``), segment by segment on ``[R, S]`` tensors, with the exact
     log of the normal CDF for censored observations. The observation terms
-    are K1b's and K1c's (:func:`observation_terms`): each row's sum starts
+    are the kernels' (:func:`observation_terms`): each row's sum starts
     at ``obs_const`` and adds ``-z^2 / 2`` with ``z = (y - pred) *
     obs_isig``. A lag or fa row [1, S] broadcasts over
     the rows. A ``counts`` dict receives the work this data needs in levels
@@ -880,13 +880,13 @@ def psi_analytical(
     - ``seg_postdepth`` [R, M] beside ``seg_depth`` (lag with a time-varying
       seq, planes mode): the post-fire slot of each column.
 
-    K1b's and K1c's launch first computes the observation terms of each row
+    The launch first computes the observation terms of each row
     (:func:`observation_terms`), then runs a persistent grid of ``blocks``
     blocks (None: as many as the card holds at once; psi does not depend on
     it).
 
-    On a CUDA tensor this launches ``csrc/fused_psi.cu``: kernel K1a (one
-    thread per (row, support) cell) without features, counted in
+    On a CUDA tensor this launches ``csrc/fused_psi.cu``: kernel K1a (the
+    base tier of the one kernel body) without features, counted in
     ``LAUNCHES``, else kernel K1b, counted in ``FEATURE_LAUNCHES``, or K1c
     (slot tables, ``seg_evcode`` or ``seg_postdepth``), counted in
     ``K1C_LAUNCHES``; it raises if the launch fails. On a CPU tensor it runs
@@ -952,9 +952,15 @@ def _launch(lib, seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma, 
     base = (_ptr(seg_dt), _ptr(seg_bolus), _ptr(seg_rateiv), _ptr(obs_mask), _ptr(obs_value),
             _ptr(obs_sigma), _ptr(obs_cens), _ptr(obs_outeq if n_out > 1 else None),
             _ptr(params), _ptr(coef), _ptr(bias), _ptr(out))
+    # the launch's scratch, which it fills first: the observation terms
+    # [R, M] (K1a in float32: the segment records) and [R]
+    tier = 2 if k1c else 1 if feature else 0
+    terms = torch.empty(lib.fused_psi_terms_size(is_f64, tier, R, M), dtype=seg_dt.dtype,
+                        device=dev)
     with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
         if not feature:
-            err = lib.fused_psi_launch(is_f64, code, *base, R, S, M, n_out, stream)
+            err = lib.fused_psi_launch(is_f64, code, *base, _ptr(terms), R, S, M, n_out,
+                                       int(blocks or 0), stream)
         else:
             levels = f["param_levels"] if f["param_levels"] is not None else f["param_planes"]
             L = 0 if levels is None else levels.shape[0]
@@ -975,11 +981,9 @@ def _launch(lib, seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma, 
                   for a in list(f.values()) + slots))
             ints = (ctypes.c_int * 4)(MODES[mode], L, *rows)
             # levels mode: the prepared level models, a table the launch fills
-            # (its width, the kernel's prepared fields per model); the
-            # observation terms [R, M] and [R], which the launch fills
+            # (its width, the kernel's prepared fields per model)
             table = (torch.empty((L, lib.fused_psi_prep_fields(code), S), dtype=seg_dt.dtype,
                                  device=dev) if mode == "levels" else None)
-            terms = torch.empty(R * (M + 1), dtype=seg_dt.dtype, device=dev)
             err = lib.fused_psi_feature_launch(
                 is_f64, code, *base, _ptr(table), _ptr(terms),
                 ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(ints, ctypes.c_void_p),

@@ -931,9 +931,9 @@ def test_level_tables_prepared_once_per_support(cuda, case):
 
 
 def test_feature_grid_is_sized_by_the_occupancy_query(cuda):
-    """The feature kernel's occupancy query answers for every structure,
-    dtype and tier (1-16 blocks of 128 an SM), and the level table's width
-    per structure is positive."""
+    """The kernel's occupancy query answers for every structure, dtype and
+    tier, K1a, K1b and K1c (1-16 blocks of 128 an SM), refuses a tier it does
+    not have, and the level table's width per structure is positive."""
     from pharmsol_tpu_torch.ops import _build
 
     lib = _build.load_library()
@@ -942,8 +942,36 @@ def test_feature_grid_is_sized_by_the_occupancy_query(cuda):
     for code in range(len(STRUCTURES)):
         assert lib.fused_psi_prep_fields(code) > 0
         for is_f64 in (0, 1):
-            for k1c in (0, 1):
+            for tier in (0, 1, 2):
                 blocks = ctypes.c_int(0)
-                assert lib.fused_psi_feature_occupancy(is_f64, code, k1c,
-                                                       ctypes.addressof(blocks)) == 0
+                assert lib.fused_psi_occupancy(is_f64, code, tier,
+                                               ctypes.addressof(blocks)) == 0
                 assert 1 <= blocks.value <= 16
+            assert lib.fused_psi_occupancy(is_f64, code, 3, ctypes.addressof(blocks)) != 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["one_compartment_with_absorption",
+                                  "two_compartments_with_absorption",
+                                  "three_compartments_cl_with_absorption", "three_outputs"])
+def test_k1a_grid_walks_rows_per_support(cuda, case, dtype):
+    """K1a's persistent grid at R = 301 and S = 300 (three tiles of 128
+    supports, the last one ragged) with 1 and 3 blocks a tile, more blocks
+    than the grid has rows, and the card's full grid: one K1a launch each,
+    the same psi bit for bit, float64 within 1e-10 of the twin."""
+    from test_torch_k1_host import K1A_GRID_CASES, k1a_case
+
+    structure, _, _, opts = K1A_GRID_CASES[case]
+    model, data, sp, ems = k1a_case(structure, 301, 300, seed=17, **opts)
+    plan = _feature_plan(model, data, sp, ems, dtype, cuda)
+    kw = plan.kernel_kwargs()
+    before = fused_psi.LAUNCHES
+    runs = [psi_analytical(*plan.streams, plan.support, **kw, blocks=b)
+            for b in (3, 9, 3 * 301 + 1, None)]
+    torch.cuda.synchronize()
+    assert fused_psi.LAUNCHES == before + 4
+    bits = [r.view(torch.int64 if dtype == torch.float64 else torch.int32) for r in runs]
+    assert all(torch.equal(bits[0], b) for b in bits[1:])
+    if dtype == torch.float64:
+        want = psi_analytical_plain(*plan.streams, plan.support, **kw)
+        torch.testing.assert_close(runs[3], want, rtol=1e-10, atol=0)

@@ -70,13 +70,14 @@ def test_nvcc_command_targets_sm90a():
     assert "arch=compute_90a,code=sm_90a" in joined
     assert "-shared" in cmd and "-O3" in cmd
     assert all((_build.CSRC_DIR / s).exists() for s in _build.SOURCES)
-    # the C entry point the wrapper binds, and one case per structure
+    # the C entry point the wrapper binds, and one instantiation per
+    # structure: the dispatch walks every structure code
     src = (_build.CSRC_DIR / "fused_psi.cu").read_text()
     assert 'extern "C" int fused_psi_launch' in src
     from pharmsol_tpu_torch.ops.fused_psi import STRUCTURES
 
-    for code in range(len(STRUCTURES)):
-        assert f"case {code}: return launch<T, {code}>" in src
+    assert f"if constexpr (CODE < {len(STRUCTURES)})" in src
+    assert "dispatch_tier<double, TIER_K1A>" in src and "dispatch_tier<float, TIER_K1A>" in src
 
 
 def test_ode_nvcc_command_includes_the_generated_rhs():

@@ -5,9 +5,9 @@ The CUDA kernels run only on the card (``tests/test_torch_cuda.py``), but
 their source is plain C++: with the CUDA qualifiers defined away by a shim
 ``cuda_runtime.h`` and every ``<<<grid, block, smem, stream>>>`` launch
 replaced by loops over its blocks and threads, g++ builds the same
-persistent grid of K1b and K1c (a block a tile of supports walking rows,
-the support's prepared model, output rows and lag/fa row kept across rows,
-the level models in a table prepared once per level and support) into a
+persistent grid of K1a, K1b and K1c (a block a tile of supports walking
+rows, the support's prepared model, output rows and lag/fa row kept across
+rows, the level models in a table prepared once per level and support) into a
 library that ``ops/fused_psi.py::_launch`` (``psi_analytical``'s launch)
 runs on CPU tensors. The shim's card holds 3 SMs x 2 blocks,
 so a grid is smaller than every case's rows and each block walks several.
@@ -27,7 +27,7 @@ from pharmsol_tpu_torch.likelihood.plans.analytical import _FusedPsiPlan
 from pharmsol_tpu_torch.ops import _build
 from pharmsol_tpu_torch.ops.fused_psi import STRUCTURES, _launch, psi_analytical_plain
 from pharmsol_tpu_torch.utils.f32_budget import (
-    FEATURE_CASES, K1C_CASES, feature_case, k1c_case, kernel_case,
+    FEATURE_CASES, K1C_CASES, NOMINAL, feature_case, k1c_case, kernel_case,
 )
 
 from test_torch_implicit_host import SHIM
@@ -87,7 +87,7 @@ def host_lib(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel's source for the host")
     d = tmp_path_factory.mktemp("psi_host")
-    (d / "cuda_runtime.h").write_text(SHIM)
+    (d / "cuda_runtime.h").write_text(SHIM + "struct float4 { float x, y, z, w; };\n")
     src = host_source((_build.CSRC_DIR / "fused_psi.cu").read_text())
     assert "<<<" not in src
     (d / "fused_psi_host.cpp").write_text(src)
@@ -105,10 +105,10 @@ def _on_the_cpu(monkeypatch):
     pt.set_device("cpu")
 
 
-def _plan(model, data, sp, ems):
+def _plan(model, data, sp, ems, dtype=torch.float64):
     return _FusedPsiPlan(model, model.lower(data.subjects()), sp,
                          ems.lower(model.resolve_output_label, model.nouteqs()),
-                         torch.device("cpu"), torch.float64)
+                         torch.device("cpu"), dtype)
 
 
 def _rel(got, want):
@@ -131,6 +131,101 @@ def test_k1a_host_build_matches_the_twin(host_lib, name):
     assert all(v is None for v in plan.features.values())
     got, want = _both(plan, host_lib)
     assert torch.isfinite(want).all() and _rel(got, want) <= 1e-10
+
+
+def k1a_case(structure, n_subjects, n_support, seed, n_out=1, one_segment=False,
+             dose_only_row=False):
+    """A K1a case (model, data, support, ems): ``n_subjects`` rows of two
+    boluses, a 2 h infusion, five observations and a BLOQ and an ALOQ one
+    (the observations cycling through ``n_out`` outputs; three outputs for
+    a structure of two states or more, the third with a bias);
+    ``one_segment``: one observation each and no dose (M = 1);
+    ``dose_only_row``: the first subject has its doses and no observation
+    (its row's observation constant is 0). ``n_support`` supports jittered
+    15% around ``NOMINAL`` with the volume (last column) around 11."""
+    from pharmsol_tpu_torch.engine.analytical import KERNELS
+
+    rng = np.random.RandomState(seed)
+    fn, nstates, nparams = KERNELS[structure]
+    c = 1 if structure.endswith("_with_absorption") else 0
+    subjects = []
+    for i in range(n_subjects):
+        b = pt.Subject.builder(f"k{i}")
+        if one_segment:
+            subjects.append(b.observation(2.0, float(abs(3 + rng.randn())), 0).build())
+            continue
+        b = b.bolus(0.0, 100.0, 0).bolus(12.0, 80.0, 0).infusion(4.0, 120.0, 0, 2.0)
+        if not (dose_only_row and i == 0):
+            for j, t in enumerate((1.0, 2.5, 6.0, 9.0, 24.0)):
+                b = b.observation(t, float(abs(3 + rng.randn())), j % n_out)
+            b = b.censored_observation(30.0, 0.1, 0, pt.Censor.BLOQ)
+            b = b.censored_observation(0.25, 8.0, n_out - 1, pt.Censor.ALOQ)
+        subjects.append(b.build())
+    if n_out == 1:
+        out = lambda x, p, t, cov: x[c:c + 1] / p[nparams]  # noqa: E731
+    else:
+        out = lambda x, p, t, cov: torch.stack(  # noqa: E731
+            [x[c] / p[nparams], x[c + 1] / (2.0 * p[nparams]),
+             0.5 * x[c] / p[nparams] + 0.01 * x[0] + 0.1 * p[nparams]])
+    model = pt.Analytical(fn, out=out, nstates=nstates, ndrugs=1, nout=n_out)
+    support = np.abs(np.array(NOMINAL[structure] + [11.0])[None, :]
+                     * (1.0 + 0.15 * rng.randn(n_support, nparams + 1)))
+    ems = pt.AssayErrorModels()
+    for k in range(n_out):
+        ems = ems.add(k, pt.AssayErrorModel.additive(pt.ErrorPoly(0.4, 0.1), 1.0))
+    return model, pt.Data(subjects), support, ems
+
+
+# K1a's persistent-grid cases: (structure, rows, supports, k1a_case options)
+_ORAL2 = "two_compartments_with_absorption"
+K1A_GRID_CASES = {
+    **{name: (name, 13, 150, {}) for name in STRUCTURES},
+    "one_row": (_ORAL2, 1, 150, {}),
+    "one_support": (_ORAL2, 13, 1, {}),
+    "support_257": (_ORAL2, 9, 257, {}),
+    "one_segment": (_ORAL2, 7, 140, {"one_segment": True}),
+    "row_without_observations": (_ORAL2, 9, 140, {"dose_only_row": True}),
+    "three_outputs": (_ORAL2, 9, 140, {"n_out": 3}),
+    "three_outputs_3cmt": ("three_compartments_cl_with_absorption", 9, 140, {"n_out": 3}),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", list(K1A_GRID_CASES))
+def test_k1a_persistent_grid_matches_the_twin(host_lib, case, dtype):
+    """K1a's launch on its persistent grid (the observation terms, in
+    float32 the segment records, computed first; a block a tile of supports
+    walking rows) at grids of 1 and 2 blocks, the shim's full card (6) and
+    more blocks than the grid has rows: every cell within 1e-10 of the twin
+    in float64, and in float32 within 1e-4 of the float32 twin (the same
+    float32 arithmetic in another order, with the host's and torch's exp and
+    log; 3.3e-6 at most on these cases), psi the same bit for bit whatever
+    the grid. The cases: the 12 structures (boluses, an infusion, BLOQ and
+    ALOQ), one row, one support, 257 supports (a ragged third tile), one
+    segment a row (M = 1), a row with no observation, three outputs (the
+    output rows read per observation)."""
+    structure, R, S, opts = K1A_GRID_CASES[case]
+    model, data, sp, ems = k1a_case(structure, R, S, seed=11, **opts)
+    plan = _plan(model, data, sp, ems, dtype)
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    kw = plan.kernel_kwargs()
+    assert all(kw[name] is None for name in plan.features)
+    streams = plan.streams
+    assert streams[0].shape[0] == R
+    if opts.get("one_segment"):
+        assert streams[0].shape[1] == 1
+    if opts.get("dose_only_row"):
+        assert not bool((streams[3][0] > 0).any())
+    if opts.get("n_out", 1) == 3:
+        assert tuple(kw["out_coef"].shape)[0] == 3 and kw["obs_outeq"] is not None
+    runs = []
+    for blocks in (1, 2, None, 2 * R * ((S + 127) // 128) + 1):
+        got, want = _both(plan, host_lib, blocks=blocks)
+        assert torch.isfinite(want).all() and _rel(got, want) <= tol, blocks
+        runs.append(got.view(torch.int64 if dtype == torch.float64 else torch.int32))
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    if opts.get("dose_only_row"):
+        assert bool((got[0] == 0).all())
 
 
 @pytest.mark.parametrize("name", list(FEATURE_CASES))

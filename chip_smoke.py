@@ -183,7 +183,29 @@ printing its own lines; any failure raises and the exit code is not 0:
 21. lag_post (lag with a time-varying seq) at the widest population that
     ``plans/seq.py::_MAX_PLANE_FLOATS`` admits for the Covariate Short model
     with a time-varying weight, one call per dtype, held against the general
-    engine on 256 subjects.
+    engine on 256 subjects;
+22. the single-subject API and the per-subject batch log-likelihood on the
+    card (the general engine's segment march: no kernel of the table runs
+    here, and the launch counts stay 0): the 16 reference scenarios of
+    ``tests/test_reference_goldens.py`` (float64; a copy of their events and
+    parameters is kept here) through ``estimate_predictions`` of the
+    Analytical and the ODE model, the analytical predictions against the
+    committed ``tests/goldens/reference_scenarios.json`` (rtol 1e-9, atol
+    1e-12), the ODE against the analytical ones (REL 1e-2 / ABS 1e-6), and
+    ``estimate_log_likelihood`` of both; ``log_likelihood_batch`` over
+    phase 10's 10 000 subjects (1-cmt oral), a parameter row each drawn from
+    the seed, a combined residual model, one call per dtype (finite,
+    [10000]), held against the same call on the CPU on 256 subjects
+    (float64 1e-10 relative, float32 within the closed form's budget row of
+    the float64 result) and against ``estimate_predictions`` plus
+    ``ResidualErrorModels.total_log_likelihood`` on 8 (float64 1e-10); the
+    README SDE's predictions for one subject at 1000 particles (finite; at
+    zero diffusion the CPU's within 1e-9) and the covariate ODE example's
+    (the CPU's within 1e-10); then CUDA-event times, after warm-up with the
+    lowering cached and the prediction cache off, of one
+    ``estimate_predictions`` (a Short subject, closed form and ODE), one
+    ``estimate_log_likelihood`` and one ``log_likelihood_batch`` at 10 000
+    subjects with its host and device parts.
 
 The earlier paths were cut to make room for 16-21 (each cut prints its
 time beside the time before it): phase 14's general engine on 64 subjects
@@ -202,9 +224,10 @@ K1a and K1b checks, 3-4 for the two K1a and the two K1b cells, 19-21 (K1c)
 and the closed-form kernel's anatomy on the two K1a and the four K1b and K1c
 cells (every K1a instantiation's and the cells' K1b and K1c ones'
 registers, local memory, stack, local loads and stores and warps per SM;
-per cell the issue slots per cell-segment), for work on K1a, K1b or K1c.
-A partial run's last line is ``{"ok": true, "partial": ...}``, not the
-whole script's verdict.
+per cell the issue slots per cell-segment), for work on K1a, K1b or K1c;
+``--only single`` phases 0 and 22 (no library is built). A partial run's
+last line is ``{"ok": true, "partial": ...}``, not the whole script's
+verdict.
 
 ``--pair DIR`` holds this checkout against another one at ``DIR`` (a
 ``git archive`` of the parent commit, say), in the order DIR, here, here,
@@ -5390,13 +5413,385 @@ def pair_lane_slots(lanes_of) -> dict:
 R_S_P_LABEL = "{}x{}x{}".format(*SDE_FULL, SDE_PARTICLES)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the single-subject API and the per-subject batch log-likelihood
+# ---------------------------------------------------------------------------
+
+# the 16 scenarios of tests/test_reference_goldens.py (ode_optimizations.rs
+# :205-1184, numerical_stability.rs :139-312): (name, model pair, events,
+# parameters); their analytical predictions are pinned in GOLDENS_PATH
+def _obs(*times):
+    return [("obs", t) for t in times]
+
+
+GOLDEN_SCENARIOS = [
+    ("single_iv_bolus", "one_cmt",
+     [("bolus", 0.0, 100.0, 0)] + _obs(1.0, 2.0, 4.0, 8.0, 12.0, 24.0), [0.1, 50.0]),
+    ("multiple_iv_boluses", "one_cmt",
+     [("bolus", 0.0, 100.0, 0), ("bolus", 4.0, 50.0, 0), ("bolus", 8.0, 75.0, 0)]
+     + _obs(1.0, 2.0, 4.0, 5.0, 6.0, 8.0, 10.0, 12.0, 24.0), [0.1, 50.0]),
+    ("oral_bolus_with_absorption", "absorption",
+     [("bolus", 0.0, 100.0, 0)] + _obs(0.5, 1.0, 2.0, 4.0, 8.0, 12.0, 24.0), [1.0, 0.1, 50.0]),
+    ("multiple_oral_doses", "absorption",
+     [("bolus", 0.0, 100.0, 0), ("bolus", 8.0, 100.0, 0), ("bolus", 16.0, 100.0, 0)]
+     + _obs(1.0, 2.0, 4.0, 8.0, 9.0, 10.0, 12.0, 16.0, 17.0, 20.0, 24.0), [1.0, 0.1, 50.0]),
+    ("single_infusion", "one_cmt",
+     [("infusion", 0.0, 100.0, 0, 2.0)] + _obs(0.5, 1.0, 2.0, 3.0, 4.0, 8.0, 12.0),
+     [0.1, 50.0]),
+    ("overlapping_infusions", "one_cmt",
+     [("infusion", 0.0, 100.0, 0, 4.0), ("infusion", 2.0, 50.0, 0, 2.0)]
+     + _obs(1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 8.0, 12.0), [0.1, 50.0]),
+    ("bolus_plus_infusion", "one_cmt",
+     [("bolus", 0.0, 100.0, 0), ("infusion", 0.0, 200.0, 0, 8.0)]
+     + _obs(1.0, 2.0, 4.0, 8.0, 10.0, 12.0, 24.0), [0.1, 50.0]),
+    ("complex_dosing_scenario", "absorption",
+     [("bolus", 0.0, 100.0, 0), ("bolus", 6.0, 150.0, 0), ("bolus", 12.0, 100.0, 0)]
+     + _obs(1.0, 2.0, 4.0, 6.0, 7.0, 8.0, 12.0, 14.0, 18.0, 24.0), [1.0, 0.1, 50.0]),
+    ("mixed_bolus_infusion_iv", "one_cmt",
+     [("bolus", 0.0, 100.0, 0), ("infusion", 4.0, 200.0, 0, 4.0), ("bolus", 8.0, 50.0, 0)]
+     + _obs(1.0, 2.0, 4.0, 5.0, 6.0, 8.0, 9.0, 10.0, 12.0, 24.0), [0.1, 50.0]),
+    ("bolus_at_observation_time", "one_cmt",
+     [("bolus", 0.0, 100.0, 0), ("bolus", 2.0, 50.0, 0)] + _obs(0.0, 1.0, 2.0, 3.0, 4.0),
+     [0.1, 50.0]),
+    ("very_fast_elimination", "one_cmt",
+     [("bolus", 0.0, 100.0, 0)] + _obs(0.1, 0.2, 0.5, 1.0, 2.0), [2.0, 50.0]),
+    ("very_slow_elimination", "one_cmt",
+     [("bolus", 0.0, 100.0, 0)] + _obs(24.0, 48.0, 72.0, 96.0, 168.0), [0.01, 50.0]),
+    ("rapid_absorption", "absorption",
+     [("bolus", 0.0, 100.0, 0)] + _obs(0.1, 0.25, 0.5, 1.0, 2.0, 4.0), [10.0, 0.1, 50.0]),
+    ("stability_infusion", "one_cmt",
+     [("bolus", 0.0, 100.0, 0), ("infusion", 24.0, 150.0, 0, 3.0)]
+     + _obs(0.0, 1.0, 2.0, 4.0, 8.0, 12.0, 24.0, 25.0, 26.0, 27.0, 28.0, 32.0, 36.0),
+     [0.1, 1.0]),
+    ("stability_absorption", "absorption",
+     [("bolus", 0.0, 100.0, 0), ("infusion", 24.0, 150.0, 0, 3.0), ("bolus", 48.0, 100.0, 1)]
+     + _obs(0.0, 1.0, 2.0, 4.0, 8.0, 12.0, 24.0, 25.0, 26.0, 27.0, 28.0, 32.0, 36.0, 48.0,
+            49.0, 50.0, 52.0, 56.0, 60.0),
+     [1.0, 0.1, 1.0]),
+    ("stability_two_compartment", "two_cmt",
+     [("bolus", 0.0, 100.0, 0), ("infusion", 24.0, 150.0, 0, 3.0)]
+     + _obs(0.0, 1.0, 2.0, 4.0, 8.0, 12.0, 24.0, 25.0, 26.0, 27.0, 28.0, 32.0, 36.0),
+     [0.1, 3.0, 1.0, 1.0]),
+]
+GOLDENS_PATH = Path(__file__).resolve().parent / "tests" / "goldens" / "reference_scenarios.json"
+GOLDEN_REL, GOLDEN_ABS = 1e-2, 1e-6  # ode_optimizations.rs:14-15
+# the batch: phase 10's population, subjects held against the CPU and by hand
+SINGLE_BATCH, SINGLE_HELD, SINGLE_BY_HAND = 10000, 256, 8
+
+
+def golden_pair(pt, kind: str):
+    """The reference scenarios' (Analytical, ODE) pair, torch closures."""
+    if kind == "one_cmt":
+        out = lambda x, p, t, cov: x[:1] / p[1]  # noqa: E731
+        return (pt.Analytical(pt.one_compartment, out=out, nstates=1, ndrugs=1, nout=1),
+                pt.ODE(lambda x, p, t, b, rateiv, cov: torch.stack(
+                    [-p[0] * x[0] + b[0] + rateiv[0]]), out=out, nstates=1, ndrugs=1, nout=1))
+    if kind == "absorption":
+        out = lambda x, p, t, cov: x[1:2] / p[2]  # noqa: E731
+        return (pt.Analytical(pt.one_compartment_with_absorption, out=out, nstates=2,
+                              ndrugs=2, nout=1),
+                pt.ODE(lambda x, p, t, b, rateiv, cov: torch.stack([
+                    -p[0] * x[0] + b[0], p[0] * x[0] - p[1] * x[1] + b[1] + rateiv[0]]),
+                    out=out, nstates=2, ndrugs=2, nout=1))
+    out = lambda x, p, t, cov: x[:1] / p[3]  # noqa: E731
+    return (pt.Analytical(pt.two_compartments, out=out, nstates=2, ndrugs=1, nout=1),
+            pt.ODE(lambda x, p, t, b, rateiv, cov: torch.stack([
+                rateiv[0] - p[0] * x[0] - p[1] * x[0] + p[2] * x[1] + b[0],
+                p[1] * x[0] - p[2] * x[1]]), out=out, nstates=2, ndrugs=1, nout=1))
+
+
+def golden_subject(pt, sid: str, events):
+    b = pt.Subject.builder(sid)
+    for ev in events:
+        if ev[0] == "bolus":
+            b = b.bolus(ev[1], ev[2], ev[3])
+        elif ev[0] == "infusion":
+            b = b.infusion(ev[1], ev[2], ev[3], ev[4])
+        else:
+            b = b.observation(ev[1], ev[2] if len(ev) > 2 else 0.0, 0)
+    return b.build()
+
+
+def kernel_launches() -> dict:
+    """Every launch counter of the table's kernels."""
+    from pharmsol_tpu_torch.ops import fused_ode, fused_psi, fused_sde
+
+    return {f"{mod.__name__.rsplit('.', 1)[-1]}.{name}": getattr(mod, name)
+            for mod in (fused_psi, fused_ode, fused_sde)
+            for name in dir(mod) if name.endswith("LAUNCHES")}
+
+
+def reset_kernel_launches() -> None:
+    from pharmsol_tpu_torch.ops import fused_ode, fused_psi, fused_sde
+
+    for mod in (fused_psi, fused_ode, fused_sde):
+        for name in dir(mod):
+            if name.endswith("LAUNCHES"):
+                setattr(mod, name, 0)
+
+
+def phase_golden_scenarios(pt) -> dict:
+    """Phase 22, the 16 reference scenarios on the card, float64."""
+    pt.set_float_dtype(torch.float64)
+    goldens = json.loads(GOLDENS_PATH.read_text())
+    if sorted(goldens) != sorted(s[0] for s in GOLDEN_SCENARIOS):
+        raise AssertionError("[22] the scenarios differ from the committed goldens' names")
+    worst_golden = worst_ode = 0.0
+    for name, kind, events, params in GOLDEN_SCENARIOS:
+        analytical, ode = golden_pair(pt, kind)
+        subject = golden_subject(pt, name, events)
+        got = np.asarray(analytical.estimate_predictions(subject, params, device="cuda")
+                         .flat_predictions())
+        want = np.asarray(goldens[name])
+        np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12, err_msg=name)
+        worst_golden = max(worst_golden, float(np.max(np.abs(got - want)
+                                                      / np.maximum(np.abs(want), 1e-300))))
+        pred_ode = np.asarray(ode.estimate_predictions(subject, params, device="cuda")
+                              .flat_predictions())
+        abs_err = np.abs(pred_ode - got)
+        rel_err = abs_err / np.maximum(np.abs(got), GOLDEN_ABS)
+        ok = (abs_err <= GOLDEN_ABS) | (rel_err <= GOLDEN_REL)
+        if not ok.all():
+            raise AssertionError(f"[22] {name}: ODE {pred_ode[~ok]} against analytical "
+                                 f"{got[~ok]} beyond REL {GOLDEN_REL} / ABS {GOLDEN_ABS}")
+        worst_ode = max(worst_ode, float(np.max(np.where(abs_err <= GOLDEN_ABS, 0.0, rel_err))))
+    analytical, ode = golden_pair(pt, "one_cmt")
+    subject = golden_subject(pt, "ll", [("bolus", 0.0, 100.0, 0), ("obs", 1.0, 1.8),
+                                        ("obs", 2.0, 1.6), ("obs", 4.0, 1.3), ("obs", 8.0, 0.8)])
+    ems = pt.AssayErrorModels().add(
+        0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.0, 0.1, 0.0, 0.0), 0.0))
+    ll_a = analytical.estimate_log_likelihood(subject, [0.1, 50.0], ems, device="cuda")
+    ll_o = ode.estimate_log_likelihood(subject, [0.1, 50.0], ems, device="cuda")
+    ll_cpu = analytical.estimate_log_likelihood(subject, [0.1, 50.0], ems, device="cpu")
+    if not (math.isfinite(ll_a) and abs(ll_a - ll_o) / max(abs(ll_a), 1e-10) < 1e-2
+            and abs(ll_a - ll_cpu) <= 1e-10 * abs(ll_cpu)):
+        raise AssertionError(f"[22] log-likelihoods: analytical {ll_a}, ODE {ll_o}, "
+                             f"CPU {ll_cpu}")
+    log(f"[22] 16 reference scenarios on the card, float64: analytical against the "
+        f"committed goldens worst {worst_golden:.2e} relative (rtol 1e-9); ODE against "
+        f"analytical worst {worst_ode:.2e} relative (REL {GOLDEN_REL}, ABS {GOLDEN_ABS}); "
+        f"log-likelihood analytical {ll_a:.10f}, ODE {ll_o:.10f}")
+    return {"golden_worst_rel": worst_golden, "ode_worst_rel": worst_ode,
+            "ll_analytical": ll_a, "ll_ode": ll_o}
+
+
+def single_batch_case(pt):
+    """Phase 10's population (1-cmt oral, 10 000 subjects), a parameter row
+    per subject (ka, ke, v) drawn from the seed, and a combined residual
+    model: (model, data, parameters, residual models)."""
+    from pharmsol_tpu_torch.utils.f32_budget import population_10k_case, population_models
+
+    data, _, _ = population_10k_case(SINGLE_BATCH)
+    rng = np.random.RandomState(SEED + 22)
+    params = np.column_stack([
+        1.2 * np.exp(0.2 * rng.randn(SINGLE_BATCH)),
+        np.where(rng.rand(SINGLE_BATCH) < 0.5, 0.08, 0.35) * np.exp(0.1 * rng.randn(SINGLE_BATCH)),
+        30.0 * np.exp(0.15 * rng.randn(SINGLE_BATCH)),
+    ])
+    rems = pt.ResidualErrorModels().add(0, pt.ResidualErrorModel.combined(0.05, 0.1))
+    return population_models()[0], data, params, rems
+
+
+def phase_single_batch(pt, model, data, params, rems) -> dict:
+    """Phase 22, ``log_likelihood_batch`` at full width in both dtypes, held
+    against the CPU and against the single-subject API."""
+    from pharmsol_tpu_torch.utils.f32_budget import F32_BUDGET, f32_error
+
+    held = pt.Data(data.subjects()[:SINGLE_HELD])
+    pt.set_float_dtype(torch.float64)
+    cpu = pt.log_likelihood_batch(model, held, params[:SINGLE_HELD], rems, device="cpu")
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        pt.set_float_dtype(dtype)
+        ll = pt.log_likelihood_batch(model, data, params, rems, device="cuda")
+        if ll.shape != (SINGLE_BATCH,) or ll.device.type != "cuda" or ll.dtype != dtype:
+            raise AssertionError(f"[22] batch: {tuple(ll.shape)} {ll.device} {ll.dtype}")
+        if not bool(torch.isfinite(ll).all()):
+            raise AssertionError(f"[22] batch {dtype}: {int((~torch.isfinite(ll)).sum())} "
+                                 f"subjects not finite")
+        got = ll[:SINGLE_HELD].double().cpu()
+        if dtype == torch.float64:
+            err = rel_err(got, cpu, 1e-300)
+            if err > 1e-10:
+                raise AssertionError(f"[22] batch float64 against the CPU: {err:.2e} > 1e-10")
+        else:
+            err = f32_error(got.numpy(), cpu.numpy())
+            row = F32_BUDGET["one_compartment_with_absorption"]
+            if err > row:
+                raise AssertionError(f"[22] batch float32 against the CPU's float64: "
+                                     f"{err:.2e} > {row}")
+        out[str(dtype).rsplit(".", 1)[-1]] = {"against_cpu": err, "sum": float(ll.double().sum())}
+    pt.set_float_dtype(torch.float64)
+    ll = pt.log_likelihood_batch(model, data, params, rems, device="cuda")
+    worst = 0.0
+    for i, s in enumerate(data.subjects()[:SINGLE_BY_HAND]):
+        preds = model.estimate_predictions(s, params[i], device="cuda")
+        want = rems.total_log_likelihood((0, p.observation, p.prediction)
+                                         for p in preds.predictions())
+        worst = max(worst, abs(float(ll[i]) - want) / abs(want))
+    if worst > 1e-10:
+        raise AssertionError(f"[22] batch against estimate_predictions + "
+                             f"total_log_likelihood: {worst:.2e} > 1e-10")
+    out["by_hand"] = worst
+    log(f"[22] log_likelihood_batch at {SINGLE_BATCH} subjects on the card (1-cmt oral, "
+        f"combined residual): float64 finite, {out['float64']['against_cpu']:.2e} relative "
+        f"against the CPU on {SINGLE_HELD} (1e-10); float32 finite, "
+        f"{out['float32']['against_cpu']:.2e} against the CPU's float64 (row "
+        f"{F32_BUDGET['one_compartment_with_absorption']}); {worst:.2e} against "
+        f"estimate_predictions + total_log_likelihood on {SINGLE_BY_HAND} (1e-10)")
+    return out
+
+
+def phase_single_models(pt) -> dict:
+    """Phase 22, an SDE and an ODE subject on the card against the CPU."""
+    from pharmsol_tpu_torch.utils.f32_budget import covariate_model_case
+
+    out = {}
+    sde = readme_sde(pt)
+    subject = readme_data(pt, 1, np.random.RandomState(SEED + 22)).subjects()[0]
+    for dtype in (torch.float64, torch.float32):
+        pt.set_float_dtype(dtype)
+        preds = np.asarray(sde.estimate_predictions(subject, [0.2, 10.0, 0.05], device="cuda")
+                           .flat_predictions())
+        if preds.shape != (4,) or not np.all(np.isfinite(preds)):
+            raise AssertionError(f"[22] README SDE {dtype}: {preds}")
+        out[f"sde_{str(dtype)[-2:]}"] = preds.tolist()
+        log(f"[22] README SDE, 1000 particles, {dtype}: "
+            f"{', '.join(f'{v:.4f}' for v in preds)}")
+    pt.set_float_dtype(torch.float64)
+    quiet = [0.2, 10.0, 0.0]
+    card = np.asarray(sde.estimate_predictions(subject, quiet, device="cuda").flat_predictions())
+    cpu = np.asarray(sde.estimate_predictions(subject, quiet, device="cpu").flat_predictions())
+    sde_err = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+    if sde_err > 1e-9:
+        raise AssertionError(f"[22] README SDE at zero diffusion against the CPU: {sde_err:.2e}")
+    log(f"[22] README SDE at zero diffusion: {sde_err:.2e} relative against the CPU (1e-9)")
+    model, data, sp, _ = covariate_model_case(4, 4)
+    ode_err = 0.0
+    for i, s in enumerate(data.subjects()):
+        card = np.asarray(model.estimate_predictions(s, sp[i], device="cuda").flat_predictions())
+        cpu = np.asarray(model.estimate_predictions(s, sp[i], device="cpu").flat_predictions())
+        ode_err = max(ode_err, float(np.max(np.abs(card - cpu) / np.abs(cpu))))
+    if ode_err > 1e-10:
+        raise AssertionError(f"[22] covariate ODE against the CPU: {ode_err:.2e}")
+    pt.set_float_dtype(torch.float32)
+    f32 = np.asarray(model.estimate_predictions(data.subjects()[0], sp[0], device="cuda")
+                     .flat_predictions())
+    pt.set_float_dtype(torch.float64)
+    if not np.all(np.isfinite(f32)):
+        raise AssertionError(f"[22] covariate ODE float32: {f32}")
+    log(f"[22] covariate ODE example: {ode_err:.2e} relative against the CPU on 4 subjects "
+        f"(1e-10), float32 finite")
+    out.update(sde_zero_diffusion=sde_err, covariate_ode=ode_err)
+    return out
+
+
+def device_busy_ms(fn) -> float:
+    """The card's busy time over one call of ``fn``: the sum of its kernels'
+    own device times in a ``torch.profiler`` trace (0 when the profiler
+    saw no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+
+
+def phase_single_times(pt, model, data, params, rems, card: str) -> dict:
+    """Phase 22's times on the card, CUDA events after warm-up, lowering
+    cached, prediction cache off."""
+    from pharmsol_tpu_torch.likelihood.matrix import _device_rows
+    from pharmsol_tpu_torch.utils.f32_budget import population_models
+
+    subject = short_subjects(pt, 1, np.random.RandomState(SEED + 22)).subjects()[0]
+    closed = pt.Analytical(pt.two_compartments_with_absorption,
+                           out=lambda x, p, t, cov: x[1:2] / p[4], nstates=3, ndrugs=1, nout=1)
+    ode = ode_model(pt, "short")
+    sp = [0.15, 1.2, 0.3, 0.2, 10.0]
+    ems = pt.AssayErrorModels().add(
+        0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    times = {}
+    for dtype in (torch.float32, torch.float64):
+        pt.set_float_dtype(dtype)
+        for m in (closed, ode, model):
+            m.disable_cache()
+        t = {
+            "predictions_closed": cuda_ms(
+                lambda: closed.estimate_predictions(subject, sp, device="cuda"), 20),
+            "predictions_ode": cuda_ms(
+                lambda: ode.estimate_predictions(subject, sp, device="cuda"), 5),
+            "log_likelihood_closed": cuda_ms(
+                lambda: closed.estimate_log_likelihood(subject, sp, ems, device="cuda"), 20),
+            "batch": cuda_ms(
+                lambda: pt.log_likelihood_batch(model, data, params, rems, device="cuda"), 5),
+        }
+        # the batch's parts: the host lowering (a model with no cache), the
+        # host steps before the march with the lowering cached, the march
+        # and reduction alone, and the card's busy time in one call
+        fresh = population_models()[0]
+        t0 = time.perf_counter()
+        fresh.lower(data.subjects())
+        t["batch_host_lowering"] = (time.perf_counter() - t0) * 1e3
+        fd, dev = pt.float_dtype(), torch.device("cuda")
+
+        def prep():
+            grid = model.lower(data.subjects())
+            rems.lower(model.resolve_output_label, model.nouteqs())
+            rows = _device_rows(grid, dev, fd)
+            rs = torch.as_tensor(np.asarray(grid.row_subject, dtype=np.int64), device=dev)
+            return grid, rows, torch.as_tensor(params, dtype=fd, device=dev)[rs]
+
+        t["batch_host_prep"] = wall_ms(prep, 3)
+        grid, rows, p_rows = prep()
+        t["batch_march"] = cuda_ms(
+            lambda: model._batch_predictions(rows, p_rows, grid.cov_names), 5)
+        t["batch_device_busy"] = device_busy_ms(
+            lambda: pt.log_likelihood_batch(model, data, params, rems, device="cuda"))
+        times[str(dtype).rsplit(".", 1)[-1]] = t
+    pt.set_float_dtype(torch.float64)
+    for dt, t in times.items():
+        log(f"[22] times on {card}, {dt}: estimate_predictions Short closed form "
+            f"{t['predictions_closed']:.3f} ms, ODE {t['predictions_ode']:.3f} ms; "
+            f"estimate_log_likelihood {t['log_likelihood_closed']:.3f} ms; "
+            f"log_likelihood_batch {SINGLE_BATCH} subjects {t['batch']:.3f} ms (host lowering "
+            f"uncached {t['batch_host_lowering']:.1f} ms, host steps with it cached "
+            f"{t['batch_host_prep']:.3f} ms, march + reduction {t['batch_march']:.3f} ms, "
+            f"card busy {t['batch_device_busy']:.3f} ms)")
+    return times
+
+
+def run_single(pt, card: str) -> dict:
+    """Phase 22: the single-subject API and the per-subject batch on the
+    card. Every kernel's launch count is 0 before and stays 0: this path
+    runs the general engine's march."""
+    reset_kernel_launches()
+    goldens = phase_golden_scenarios(pt)
+    torch.cuda.synchronize()
+    model, data, params, rems = single_batch_case(pt)
+    batch = phase_single_batch(pt, model, data, params, rems)
+    models = phase_single_models(pt)
+    times = phase_single_times(pt, model, data, params, rems, card)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in kernel_launches().items() if v}
+    if launched:
+        raise AssertionError(f"[22] a kernel of the table launched on this path: {launched}")
+    record = {"goldens": goldens, "batch": batch, "models": models, "times": times,
+              "card": card}
+    log("[22] single: " + json.dumps(record))
+    return record
+
+
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--pair-worker":
         only = None if sys.argv[4] == "all" else sys.argv[4]
         print("PAIR " + json.dumps(pair_worker(sys.argv[2], sys.argv[3], only)), flush=True)
         return 0
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["stiff", "sde", "k1c", "explicit", "closed"],
+    parser.add_argument("--only", choices=["stiff", "sde", "k1c", "explicit", "closed",
+                                           "single"],
                         default=None,
                         help="run a part, for work on its kernels: 'stiff' phases 0, 1 (the "
                              "stiff libraries alone) and 13-15 (K2b, K2c); 'explicit' phases "
@@ -5406,7 +5801,9 @@ def main() -> int:
                              "(the closed-form library) and 19-21 (K1c); 'closed' phases 0, 1 "
                              "(the closed-form library), phase 2's K1a and K1b checks, 3-4 for "
                              "the two K1a and the two K1b cells, 19-21 (K1c) and the "
-                             "closed-form kernel's anatomy on the six cells. The kernels line then "
+                             "closed-form kernel's anatomy on the six cells; 'single' phases 0 "
+                             "and 22 (the single-subject API and the per-subject batch, no "
+                             "library built). The kernels line then "
                              "holds that part's kernels and the last line says {\"ok\": true, "
                              "\"partial\": ...}, not the whole script's verdict")
     parser.add_argument("--pair", metavar="DIR", default=None,
@@ -5434,6 +5831,10 @@ def main() -> int:
         run_pair(args.pair, card, args.only)
         print(card)
         print(json.dumps({"ok": True, "partial": "pair"}))
+        return 0
+    if args.only == "single":
+        run_single(pt, card)
+        closing_lines([], card, partial="single")
         return 0
     if args.only == "explicit":
         closing_lines(run_explicit(pt, rng, card), card, partial="explicit")
@@ -5597,7 +5998,7 @@ def run_explicit(pt, rng, card: str) -> list:
 
 
 def run_all(pt, rng, card, args, expm, ode_features, stiff, twins) -> int:
-    """Phases 2-21 and the last lines."""
+    """Phases 2-22 and the last lines."""
     phase_kernels(pt, rng)
     phase_feature_kernels(pt)
     phase_ode_kernels(pt, rng)
@@ -5633,6 +6034,7 @@ def run_all(pt, rng, card, args, expm, ode_features, stiff, twins) -> int:
     stiff_recs = run_stiff_slice(pt, rng, stiff, card, twins)
     sde_feature_rec = run_sde_feature_slice(pt, rng, card)
     k1c_rec = run_k1c_slice(pt, rng, card)
+    run_single(pt, card)
 
     # times of the float32 runs; float64 beside them; no single PyTorch
     # call computes any of these functions, so library_ms is null

@@ -3,14 +3,19 @@
 A second package beside the JAX package ``pharmsol_tpu`` (the reference it is
 held against). It ports the population log-likelihood matrix ("psi") of the
 closed-form models (with covariates, secondary equations, lag, fa and
-init), of ODE models and of SDE models: the data layer, event-grid lowering,
+init), of ODE models and of SDE models: the data layer (with the Pmetrics
+CSV reader and writer, DataRow ingestion, JSON serde and the AUC helpers),
+event-grid lowering,
 the 12 analytical kernels, the explicit ODE steppers, the Euler-Maruyama
 particle filter, the general psi engine, the fused psi paths, whose
 kernels are hand-written CUDA for Hopper (``csrc/fused_psi.cu``;
 ``csrc/fused_ode.cu`` and ``csrc/fused_sde.cu`` with device functions
 generated from the model's closures), and the NPAG population fit on top
 of psi (``optimize.fit_population``, with the NPML weight solve whose
-burn-in runs on the card).
+burn-in runs on the card); and the single-subject API
+(``estimate_predictions``, ``estimate_log_likelihood``, ``simulate_subject``)
+and the per-subject batch log-likelihood (``log_likelihood_batch``) over the
+general engine's segment march.
 
 The entry points run on the card (``"cuda"``) unless the caller asks for
 the CPU with ``set_device("cpu")`` or ``device="cpu"``. The working dtype
@@ -28,13 +33,18 @@ from .data.error_model import (  # noqa: F401
     Factor,
 )
 from .data.event import (  # noqa: F401
+    AUCMethod,
+    BLQRule,
     Bolus,
     Censor,
     Infusion,
     InputLabel,
     Observation,
     OutputLabel,
+    Route as AdminRoute,
 )
+from .data.residual_error import ResidualErrorModel, ResidualErrorModels  # noqa: F401
+from .data.serde import from_json, load_json, save_json, to_json  # noqa: F401
 from .data.structs import Data, Occasion, Subject  # noqa: F401
 from .errors import PharmsolError  # noqa: F401
 from .metadata import (  # noqa: F401
@@ -63,6 +73,7 @@ from .engine.analytical import (  # noqa: F401
 )
 from .likelihood.matrix import (  # noqa: F401
     last_engine_decision,
+    log_likelihood_batch,
     log_likelihood_matrix,
 )
 from . import optimize  # noqa: F401

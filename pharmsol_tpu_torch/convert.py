@@ -16,6 +16,7 @@ from .config import float_dtype, resolve_device
 from .data.covariate import Covariate, Covariates
 from .data.error_model import AssayErrorModel, AssayErrorModels, ErrorPoly, Factor
 from .data.event import Bolus, Censor, Infusion, Observation
+from .data.residual_error import ResidualErrorModel, ResidualErrorModels, ResidualKind
 from .data.structs import Data, Occasion, Subject
 from .engine.grid import OccasionArrays, to_tensors
 from .engine.ode import ODEOptions
@@ -66,6 +67,17 @@ def error_models_from_reference(ems) -> AssayErrorModels:
         factor = None if fp is None else Factor(float(fp.value), bool(fp.fixed))
         poly = None if m.poly is None else ErrorPoly(*m.poly.coefficients())
         out.add(label, AssayErrorModel(int(m.kind), factor, poly))
+    return out
+
+
+def residual_error_models_from_reference(rems) -> ResidualErrorModels:
+    """The port's ResidualErrorModels for a JAX package
+    ``ResidualErrorModels`` (kind by its value, ``a`` and ``b``)."""
+    out = ResidualErrorModels()
+    for label in rems.labels():
+        m = rems.get(label)
+        out.add(label, ResidualErrorModel(ResidualKind(m.kind.value), float(m.a),
+                                          float(m.b)))
     return out
 
 

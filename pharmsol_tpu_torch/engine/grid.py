@@ -513,7 +513,8 @@ def _as_input_vector(value, ninput: int, like: torch.Tensor,
 def _per_bolus(fn, p, t, rows: OccasionArrays, ninput: int, fill: float,
                names: Sequence[str]) -> torch.Tensor:
     """``fn(p[s], t[.., r, b], cov_r)`` for every support s, row r and bolus
-    slot b, as [S, R, NB, ninput]. ``t`` is [R, NB] or [S, R, NB]."""
+    slot b, as [S, R, NB, ninput]. ``t`` is [R, NB] or [S, R, NB]; ``p`` is
+    [S, P], or [S, R, P] with a parameter row per (support, row) cell."""
     from torch.func import vmap
 
     def one(pp, tb, kt, kv, kf):
@@ -521,7 +522,7 @@ def _per_bolus(fn, p, t, rows: OccasionArrays, ninput: int, fill: float,
                                 ninput, pp, fill)
 
     over_b = vmap(one, in_dims=(None, 0, None, None, None))
-    over_r = vmap(over_b, in_dims=(None, 0, 0, 0, 0))
+    over_r = vmap(over_b, in_dims=(0 if p.dim() == 3 else None, 0, 0, 0, 0))
     over_s = vmap(over_r, in_dims=(0, 0 if t.dim() == 3 else None,
                                    None, None, None))
     return over_s(p, t, rows.cov_t, rows.cov_v, rows.cov_fixed)
@@ -539,6 +540,8 @@ def build_segments(rows: OccasionArrays, ninput: int,
     they depend on the support points ``p`` [S, P]: lag is evaluated at each
     bolus's original time and shifts it, fa at the shifted time and scales
     its amount, and every stream gains a leading axis S ([S, R, ...]).
+    ``p`` may also be [S, R, P], a parameter row per (support, row) cell
+    (the per-row mode of ``engine/sim.py::SegmentMarch``, S = 1).
     """
     if lag_fn is None and fa_fn is None:
         return _sorted_segments(rows.obs_t, rows.bolus_t, rows.bolus_amt,

@@ -679,29 +679,38 @@ def _lane_closure(diffeq: Callable, nstates: int, names):
     return one
 
 
-def _over_lanes(one: Callable):
-    """``one`` vmapped over supports (outer) and rows (inner)."""
-    rows = vmap(one, in_dims=(0, None, 0, 0, 0, 0, 0))
-    return vmap(rows, in_dims=(0, 0, 0, 0, None, None, None))
+def _over_lanes(one: Callable, cov):
+    """``one`` vmapped over supports (outer) and rows (inner), called with
+    every row's covariate knots: the parameters are shared by the rows
+    (``p`` [S, P]) or given per lane (``p`` [S, R, P])."""
+    shared = vmap(vmap(one, in_dims=(0, None, 0, 0, 0, 0, 0)),
+                  in_dims=(0, 0, 0, 0, None, None, None))
+    per_lane = vmap(vmap(one, in_dims=(0, 0, 0, 0, 0, 0, 0)),
+                    in_dims=(0, 0, 0, 0, None, None, None))
+
+    def over(x, p, t, rateiv):
+        fn = per_lane if p.dim() == 3 else shared
+        return fn(x, p, t, rateiv, cov.knot_t, cov.knot_v, cov.fixed)
+
+    return over
 
 
 def lane_jacobian(diffeq: Callable, nstates: int, cov):
     """``J(x, p, t, rateiv)`` [S, R, n, n] on the lanes of :func:`lane_rhs`:
     the state Jacobian of the closure by forward mode (``jacfwd``)."""
-    over = _over_lanes(jacfwd(_lane_closure(diffeq, nstates, cov.names), argnums=0))
-    return lambda x, p, t, rateiv: over(x, p, t, rateiv, cov.knot_t, cov.knot_v, cov.fixed)
+    return _over_lanes(jacfwd(_lane_closure(diffeq, nstates, cov.names), argnums=0), cov)
 
 
 def lane_rhs(diffeq: Callable, nstates: int, cov):
     """``f(x, p, t, rateiv)`` on lanes ``[S, R]``: the per-(state, parameter)
     closure ``diffeq(x, p, t, b, rateiv, cov)`` vmapped over supports (outer)
     and rows (inner), with ``b`` zero (boluses are applied at breakpoints).
-    ``x`` [S, R, n], ``p`` [S, P], ``t`` [S, R], ``rateiv`` [S, R, ninput].
-    ``cov`` holds every row's covariate knots (a :class:`~.grid.CovView`
-    whose tensors lead with the row axis R); the closure sees its row's
-    view, rebuilt inside the row vmap."""
-    over = _over_lanes(_lane_closure(diffeq, nstates, cov.names))
-    return lambda x, p, t, rateiv: over(x, p, t, rateiv, cov.knot_t, cov.knot_v, cov.fixed)
+    ``x`` [S, R, n], ``p`` [S, P] (or [S, R, P], a parameter row per lane),
+    ``t`` [S, R], ``rateiv`` [S, R, ninput]. ``cov`` holds every row's
+    covariate knots (a :class:`~.grid.CovView` whose tensors lead with the
+    row axis R); the closure sees its row's view, rebuilt inside the row
+    vmap."""
+    return _over_lanes(_lane_closure(diffeq, nstates, cov.names), cov)
 
 
 def make_ode_propagate_carry(diffeq: Callable, nstates: int, ninput: int,
@@ -709,7 +718,8 @@ def make_ode_propagate_carry(diffeq: Callable, nstates: int, ninput: int,
     """The engine's carry-threading propagate hook, batched over lanes.
 
     ``propagate_carry(x, p, dt, rateiv, t0, cov, h) -> (x_next, h_next)``
-    with ``x`` [S, R, n], ``p`` [S, P], ``dt``/``t0`` [R] (or [S, R] when
+    with ``x`` [S, R, n], ``p`` [S, P] (or [S, R, P], a parameter row per
+    lane), ``dt``/``t0`` [R] (or [S, R] when
     lag or fa sort every support's segments apart), ``rateiv`` [R, ninput]
     (or [S, R, ninput]), ``cov`` every row's covariate knots (see
     :func:`lane_rhs`) and ``h`` [S, R], the cruise step carried across

@@ -18,6 +18,12 @@ likelihood, in the reference's semantics (sde/mod.rs, em.rs):
   shifts each bolus (evaluated at its time) and ``fa`` scales it (evaluated
   at the shifted time), so each support sorts its own segments.
 
+The filter (:func:`simulate_occasion_sde_ll`) and the prediction march
+(:func:`simulate_occasion_sde`: no weighting, the particle means at each
+observation, the JAX engine's ``filter_on=False``) run one segment loop
+(``_march``); the prediction march also takes one parameter row per
+occasion row (``per_row``), for the per-subject batch.
+
 The JAX engine vmaps a per-cell ``lax.while_loop``; here one masked Python
 loop runs over every (support, row) cell at once on ``[S, R, P, n]`` clouds,
 one step controller per cell, the error being the max over the cell's
@@ -83,12 +89,15 @@ def ndtr(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * y
 
 
-def _batched_closures(spec: SDESpec, rows: OccasionArrays, names, dtype, device):
+def _batched_closures(spec: SDESpec, rows: OccasionArrays, names, dtype, device,
+                      per_row: bool = False):
     """drift on [S, R, P, n] clouds, diffusion on [S, R] cells, out on clouds
     and init on supports x rows, each vmapped from the per-particle closure,
     with each row's covariate view rebuilt from its knots inside the row vmap
-    (as ``engine/ode.py::lane_rhs``). Times are [S, R], rates [S, R, ninput]."""
+    (as ``engine/ode.py::lane_rhs``). Times are [S, R], rates [S, R, ninput];
+    the parameters [S, n_params], or with ``per_row`` [S, R, n_params]."""
     n = spec.nstates
+    pr = 0 if per_row else None  # row axis of the parameters
     knots = (rows.cov_t, rows.cov_v, rows.cov_fixed)
 
     def drift_one(x, p, t, rateiv, kt, kv, kf):
@@ -104,12 +113,12 @@ def _batched_closures(spec: SDESpec, rows: OccasionArrays, names, dtype, device)
 
     k3 = (0, 0, 0)
     drift_b = vmap(vmap(vmap(drift_one, in_dims=(0, None, None, None) + (None,) * 3),
-                        in_dims=(0, None, 0, 0) + k3),
+                        in_dims=(0, pr, 0, 0) + k3),
                    in_dims=(0, 0, 0, 0) + (None,) * 3)
-    diffusion_b = vmap(vmap(diffusion_one, in_dims=(None, 0) + k3),
+    diffusion_b = vmap(vmap(diffusion_one, in_dims=(pr, 0) + k3),
                        in_dims=(0, 0) + (None,) * 3)
     out_b = vmap(vmap(vmap(out_one, in_dims=(0, None, None) + (None,) * 3),
-                      in_dims=(0, None, 0) + k3),
+                      in_dims=(0, pr, 0) + k3),
                  in_dims=(0, 0, 0) + (None,) * 3)
 
     def drift(X, p, t, rateiv):
@@ -129,7 +138,7 @@ def _batched_closures(spec: SDESpec, rows: OccasionArrays, names, dtype, device)
         def init_one(p, kt, kv, kf):
             return as_vector(spec.init(p, t0, CovView(kt, kv, kf, names)), p).reshape(n)
 
-        init_b = vmap(vmap(init_one, in_dims=(None,) + k3), in_dims=(0,) + (None,) * 3)
+        init_b = vmap(vmap(init_one, in_dims=(pr,) + k3), in_dims=(0,) + (None,) * 3)
 
         def init(p):  # [S, R, n]
             return init_b(p, *knots)
@@ -200,6 +209,109 @@ def resample_positions(U, P: int):
     return (j + U) / P
 
 
+class SDESim(NamedTuple):
+    """The prediction march's results: the particle means of the JAX
+    package's ``engine/sde.py::SDESim`` (:74-79) for every cell."""
+
+    pred_mean: torch.Tensor  # [S, R, NO] mean prediction over the particles
+    state_mean: torch.Tensor  # [S, R, NO, nstates] mean pre-bolus state
+
+
+def _march(spec: SDESpec, rows: OccasionArrays, p: torch.Tensor, segs,
+           generator: torch.Generator, names, observe, per_row: bool = False) -> None:
+    """The segment loop shared by the filter and the prediction march.
+
+    ``p`` [S, n_params] (or, with ``per_row``, [1, R, n_params]); ``segs``
+    the streams of ``build_segments`` for ``p``. At each segment
+    ``observe(m, X, t, out)`` is handed the clouds ``X`` [S, R, P, n] before
+    the bolus (observation before dose), the breakpoint times ``t`` [S, R]
+    and the batched ``out`` closure, and returns the clouds to go on with;
+    then the bolus lands in its destination state and the segment is
+    propagated with adaptive Euler-Maruyama.
+    """
+    fd, dev = p.dtype, p.device
+    R = rows.obs_t.shape[0]
+    M = segs.t.shape[-1]
+    S, P, n = p.shape[0], int(spec.nparticles), spec.nstates
+    drift, diffusion, out, init = _batched_closures(spec, rows, names, fd, dev, per_row)
+    coupled = spec.em_control == "coupled"
+    common = spec.noise == "common"
+    cell_shape = (R, P) if common else (S, R, P)
+    dest = torch.as_tensor(spec.bolus_dest if spec.bolus_dest is not None
+                           else tuple(range(spec.ninput)), dtype=torch.int64,
+                           device=dev)
+
+    def sr(a):  # column m of a per-row [R, M] or per-(support, row) stream as [S, R]
+        return a.expand((S,) + tuple(a.shape[-1:])) if a.dim() == 1 else a
+
+    X = torch.zeros((S, R, P, n), dtype=fd, device=dev)
+    if init is not None:
+        x0 = rows.init_mask.to(fd)[None, :, None] * init(p)  # [S, R, n]
+        X = X + x0[:, :, None, :]
+
+    def draw_normals():
+        z = torch.randn((2 if coupled else 3, *cell_shape, n), generator=generator,
+                        dtype=fd, device=dev)
+        return z if not common else z[:, None]
+
+    for m in range(M):
+        t = sr(segs.t[..., m])
+        X = observe(m, X, t, out)
+
+        # bolus into its destination state
+        bvec = torch.nn.functional.one_hot(dest[sr(segs.b_input[..., m])], n).to(fd)
+        X = X + (bvec * sr(segs.b_amt[..., m])[..., None])[:, :, None, :]
+
+        # propagate
+        dt = sr(segs.dt[..., m])
+        if bool((dt > 0.0).any()):
+            rateiv = segs.rateiv[..., m, :]
+            rateiv = rateiv.expand((S,) + tuple(rateiv.shape[-2:]))
+            X_prop = _em_segment(drift, diffusion, X, p, t, t + dt, rateiv,
+                                 draw_normals, coupled)
+            X = torch.where((dt > 0.0)[..., None, None], X_prop, X)
+
+
+def simulate_occasion_sde(spec: SDESpec, rows: OccasionArrays, p: torch.Tensor,
+                          generator: torch.Generator, cov_names=(),
+                          per_row: bool = False) -> SDESim:
+    """Particle-mean predictions of every row at every support point: the
+    JAX package's ``simulate_occasion_sde`` with ``filter_on=False``
+    (:185-339; the reference's path without error models). The clouds
+    advance with no weighting and no resampling; at each observation slot
+    the prediction is the mean over particles of the slot's output, the
+    state the mean pre-bolus state.
+
+    ``p``: support points [S, n_params], or with ``per_row`` one parameter
+    row per occasion row [R, n_params] (S = 1); ``generator`` draws the
+    noise. Returns :class:`SDESim` over [S, R, NO].
+    """
+    names = tuple(cov_names)
+    if per_row:
+        p = p.unsqueeze(0)  # [1, R, P]: one cell per row
+    segs = build_segments(rows, spec.ninput, p, spec.lag, spec.fa, names)
+    pos = segs.obs_pos
+    seg_outeq = torch.zeros_like(segs.b_input).scatter(-1, pos, rows.obs_outeq.expand(pos.shape))
+    preds, states = [], []
+
+    def record(m, X, t, out):
+        S, R, P = X.shape[:3]
+        idx = seg_outeq[..., m].expand(S, R).view(S, R, 1, 1).expand(S, R, P, 1)
+        preds.append(torch.gather(out(X, p, t), 3, idx)[..., 0].mean(dim=-1))
+        states.append(X.mean(dim=2))
+        return X
+
+    _march(spec, rows, p, segs, generator, names, record, per_row)
+    pred_all = torch.stack(preds, dim=-1)  # [S, R, M]
+    state_all = torch.stack(states, dim=2)  # [S, R, M, n]
+    S, R, _, n = state_all.shape
+    pos = pos.expand((S,) + tuple(pos.shape[-2:]))  # [S, R, NO]
+    return SDESim(
+        pred_mean=torch.gather(pred_all, 2, pos),
+        state_mean=torch.gather(state_all, 2, pos.unsqueeze(-1).expand(pos.shape + (n,))),
+    )
+
+
 def simulate_occasion_sde_ll(spec: SDESpec, rows: OccasionArrays, p: torch.Tensor,
                              em_kind, em_factor, em_poly,
                              generator: torch.Generator, cov_names=()) -> torch.Tensor:
@@ -219,12 +331,9 @@ def simulate_occasion_sde_ll(spec: SDESpec, rows: OccasionArrays, p: torch.Tenso
     names = tuple(cov_names)
     segs = build_segments(rows, spec.ninput, p, spec.lag, spec.fa, names)
     R = rows.obs_t.shape[0]
-    M = segs.t.shape[-1]
-    S, P, n = p.shape[0], int(spec.nparticles), spec.nstates
-    drift, diffusion, out, init = _batched_closures(spec, rows, names, fd, dev)
-    coupled = spec.em_control == "coupled"
-    common = spec.noise == "common"
-    cell_shape = (R, P) if common else (S, R, P)
+    S, P = p.shape[0], int(spec.nparticles)
+    n = spec.nstates
+    cell_shape = (R, P) if spec.noise == "common" else (S, R, P)
 
     sigma_obs, active_obs = observation_sigmas(rows, em_kind, em_factor, em_poly)
     pos = segs.obs_pos
@@ -237,62 +346,40 @@ def simulate_occasion_sde_ll(spec: SDESpec, rows: OccasionArrays, p: torch.Tenso
     seg_value = scatter(torch.zeros_like(segs.t), rows.obs_value)
     seg_cens = scatter(torch.zeros_like(segs.b_input), rows.obs_cens)
     seg_outeq = scatter(torch.zeros_like(segs.b_input), rows.obs_outeq)
-    dest = torch.as_tensor(spec.bolus_dest if spec.bolus_dest is not None
-                           else tuple(range(spec.ninput)), dtype=torch.int64,
-                           device=dev)
 
     def sr(a):  # column m of a per-row [R, M] or per-(support, row) stream as [S, R]
         return a.expand((S,) + tuple(a.shape[-1:])) if a.dim() == 1 else a
 
-    X = torch.zeros((S, R, P, n), dtype=fd, device=dev)
-    if init is not None:
-        x0 = rows.init_mask.to(fd)[None, :, None] * init(p)  # [S, R, n]
-        X = X + x0[:, :, None, :]
     ll = torch.zeros((S, R), dtype=fd, device=dev)
     tiny = torch.finfo(fd).tiny
     sqrt_2pi = math.sqrt(2.0 * math.pi)
 
-    def draw_normals():
-        z = torch.randn((2 if coupled else 3, *cell_shape, n), generator=generator,
-                        dtype=fd, device=dev)
-        return z if not common else z[:, None]
-
-    for m in range(M):
-        t = sr(segs.t[..., m])
+    def weigh(m, X, t, out):
+        # observation before bolus: weight, record, resample
+        nonlocal ll
         weighted = sr(seg_active[..., m])  # [S, R]
-        if bool(weighted.any()):
-            # observation before bolus: weight, record, resample
-            y_all = out(X, p, t)  # [S, R, P, nout]
-            idx = sr(seg_outeq[..., m]).view(S, R, 1, 1).expand(S, R, P, 1)
-            y = torch.gather(y_all, 3, idx)[..., 0]
-            sigma = sr(seg_sigma[..., m])[..., None]
-            z = (sr(seg_value[..., m])[..., None] - y) / sigma
-            q_pdf = torch.exp(-0.5 * z * z) / (sigma * sqrt_2pi)
-            cens = sr(seg_cens[..., m])[..., None]
-            q = torch.where(cens == 1, ndtr(z), torch.where(cens == 2, ndtr(-z), q_pdf))
-            wv = weighted[..., None]
-            q = torch.where(wv, q, torch.ones_like(q))
-            sum_q = q.sum(dim=-1)  # [S, R]
-            w = q / torch.clamp(sum_q, min=tiny)[..., None]
-            u_shape = (cell_shape[:-1] + (1,) if spec.resampling == "systematic"
-                       else cell_shape)
-            U = torch.rand(u_shape, generator=generator, dtype=fd, device=dev)
-            ridx = _resample_index(w, resample_positions(U, P).expand(S, R, P))
-            X_rs = torch.gather(X, 2, ridx[..., None].expand(S, R, P, n))
-            X = torch.where(wv[..., None], X_rs, X)
-            ll = ll + torch.where(weighted, torch.log(torch.clamp(sum_q / P, min=tiny)),
-                                  torch.zeros_like(sum_q))
+        if not bool(weighted.any()):
+            return X
+        y_all = out(X, p, t)  # [S, R, P, nout]
+        idx = sr(seg_outeq[..., m]).view(S, R, 1, 1).expand(S, R, P, 1)
+        y = torch.gather(y_all, 3, idx)[..., 0]
+        sigma = sr(seg_sigma[..., m])[..., None]
+        z = (sr(seg_value[..., m])[..., None] - y) / sigma
+        q_pdf = torch.exp(-0.5 * z * z) / (sigma * sqrt_2pi)
+        cens = sr(seg_cens[..., m])[..., None]
+        q = torch.where(cens == 1, ndtr(z), torch.where(cens == 2, ndtr(-z), q_pdf))
+        wv = weighted[..., None]
+        q = torch.where(wv, q, torch.ones_like(q))
+        sum_q = q.sum(dim=-1)  # [S, R]
+        w = q / torch.clamp(sum_q, min=tiny)[..., None]
+        u_shape = (cell_shape[:-1] + (1,) if spec.resampling == "systematic"
+                   else cell_shape)
+        U = torch.rand(u_shape, generator=generator, dtype=fd, device=dev)
+        ridx = _resample_index(w, resample_positions(U, P).expand(S, R, P))
+        X_rs = torch.gather(X, 2, ridx[..., None].expand(S, R, P, n))
+        ll = ll + torch.where(weighted, torch.log(torch.clamp(sum_q / P, min=tiny)),
+                              torch.zeros_like(sum_q))
+        return torch.where(wv[..., None], X_rs, X)
 
-        # bolus into its destination state
-        bvec = torch.nn.functional.one_hot(dest[sr(segs.b_input[..., m])], n).to(fd)
-        X = X + (bvec * sr(segs.b_amt[..., m])[..., None])[:, :, None, :]
-
-        # propagate
-        dt = sr(segs.dt[..., m])
-        if bool((dt > 0.0).any()):
-            rateiv = segs.rateiv[..., m, :]
-            rateiv = rateiv.expand((S,) + tuple(rateiv.shape[-2:]))
-            X_prop = _em_segment(drift, diffusion, X, p, t, t + dt, rateiv,
-                                 draw_normals, coupled)
-            X = torch.where((dt > 0.0)[..., None, None], X_prop, X)
+    _march(spec, rows, p, segs, generator, names, weigh)
     return ll

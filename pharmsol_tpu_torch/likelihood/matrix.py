@@ -1,9 +1,13 @@
-"""Population likelihood: the psi matrix (subjects x support points).
+"""Population likelihood: the psi matrix (subjects x support points), and
+the per-subject batch.
 
 Parity with the reference's likelihood/matrix.rs and the JAX package's
 ``likelihood/matrix.py``: ``log_likelihood_matrix(eq, data, support_points,
 error_models)`` gives the (n_subjects, n_support_points) log-likelihood
-with observation-based sigma.
+with observation-based sigma; ``log_likelihood_batch(eq, data, parameters,
+residual_error_models)`` the log-likelihood of each subject under its own
+parameter row with prediction-based sigma (the general engine's march in
+its per-row mode), and ``log_likelihood_subject`` that of one subject.
 
 Two engines compute it:
 
@@ -37,8 +41,10 @@ import torch
 
 from ..config import float_dtype, resolve_device
 from ..data.error_model import AssayErrorModels
+from ..data.residual_error import ResidualErrorModels, residual_sigma_array
 from ..data.structs import Data
 from ..errors import PharmsolError
+from .distributions import LOG_2PI
 
 
 def _as_data(subjects) -> Data:
@@ -115,27 +121,20 @@ def _device_rows(grid, device, dtype):
     return rows
 
 
-def _general_psi(equation, grid, sp, lowered, device, dtype) -> torch.Tensor:
-    """General engine: batched segment march, then rows -> subjects."""
-    from ..engine.sde import simulate_occasion_sde_ll
-    from ..engine.sim import simulate_occasion_ll
-
-    kind_name = getattr(equation, "kind", None)
-    rows = _device_rows(grid, device, dtype)
-    p = torch.as_tensor(sp).to(device=device, dtype=dtype)
+def lowered_tensors(lowered, device, dtype) -> tuple:
+    """Lowered assay error models as (kind, factor, poly) tensors."""
     kind = torch.as_tensor(np.asarray(lowered.kind, dtype=np.int64), device=device)
     factor = torch.as_tensor(lowered.factor).to(device=device, dtype=dtype)
     poly = torch.as_tensor(lowered.poly).to(device=device, dtype=dtype)
-    if kind_name == "sde":
-        # every call draws from a generator seeded by the model: one seed,
-        # one psi
-        gen = torch.Generator(device=device)
-        gen.manual_seed(equation._seed)
-        ll = simulate_occasion_sde_ll(equation.spec, rows, p, kind, factor, poly, gen,
-                                      grid.cov_names)
-    else:
-        ll = simulate_occasion_ll(equation.spec, rows, p, kind, factor, poly,
-                                  grid.cov_names)  # [S, R]
+    return kind, factor, poly
+
+
+def _general_psi(equation, grid, sp, lowered, device, dtype) -> torch.Tensor:
+    """General engine: batched segment march, then rows -> subjects."""
+    rows = _device_rows(grid, device, dtype)
+    p = torch.as_tensor(sp).to(device=device, dtype=dtype)
+    ll = equation._ll_rows(rows, p, *lowered_tensors(lowered, device, dtype),
+                           grid.cov_names)  # [S, R]
     row_subject = torch.as_tensor(
         np.asarray(grid.row_subject, dtype=np.int64), device=device)
     psi = torch.zeros((grid.n_subjects, sp.shape[0]), dtype=dtype, device=device)
@@ -238,3 +237,74 @@ def log_likelihood_matrix(
         n = grid.n_subjects * sp.shape[0]
         print(f"  done: {n} cells in {dt:.3f}s ({n / max(dt, 1e-9):.0f} cells/s)")
     return psi
+
+
+def log_likelihood_batch(
+    equation,
+    subjects,
+    parameters,
+    residual_error_models: ResidualErrorModels,
+    device=None,
+) -> torch.Tensor:
+    """Per-subject log-likelihood with a parameter row per subject.
+
+    The SAEM/FOCE surface (the JAX package's ``log_likelihood_batch``,
+    likelihood/matrix.py:317-389): ``parameters`` [n_subjects, n_params]
+    dense in model order, prediction-based sigma through
+    ``residual_error_models``. One batched march over every occasion row,
+    each under its subject's parameter row (``engine/sim.py::SegmentMarch``
+    in its per-row mode: one cell per row), then a sum of rows into
+    subjects. Returns [n_subjects] as a tensor of the working dtype on
+    ``device`` (default: the card); -inf for a subject whose simulation
+    fails (NaN) or that has an active observation on an output without a
+    residual model.
+    """
+    dev = resolve_device(device)
+    dtype = float_dtype()
+    data = _as_data(subjects)
+    if isinstance(parameters, torch.Tensor):
+        parameters = parameters.detach().cpu().numpy()
+    p = np.asarray(parameters, dtype=np.float64)
+    if p.ndim != 2 or p.shape[0] != len(data):
+        raise PharmsolError(
+            f"parameters has {p.shape[0] if p.ndim == 2 else '?'} rows but there "
+            f"are {len(data)} subjects"
+        )
+    grid = equation.lower(data.subjects())
+    lowered = residual_error_models.lower(equation.resolve_output_label,
+                                          equation.nouteqs())
+    rows = _device_rows(grid, dev, dtype)
+    row_subject = torch.as_tensor(np.asarray(grid.row_subject, dtype=np.int64), device=dev)
+    p_rows = torch.as_tensor(p, dtype=dtype, device=dev)[row_subject]  # [R, n_params]
+    pred = equation._batch_predictions(rows, p_rows, grid.cov_names)  # [R, NO]
+
+    outeq = rows.obs_outeq
+    kind = torch.as_tensor(np.asarray(lowered.kind, dtype=np.int64), device=dev)[outeq]
+    a = torch.as_tensor(lowered.a, dtype=dtype, device=dev)[outeq]
+    b = torch.as_tensor(lowered.b, dtype=dtype, device=dev)[outeq]
+    sigma = residual_sigma_array(kind, a, b, pred)
+    z = (rows.obs_value - pred) / sigma
+    ll = -0.5 * (LOG_2PI + 2.0 * torch.log(sigma) + z * z)
+    active = rows.obs_valid & rows.obs_has_value
+    total = torch.where(active, ll, torch.zeros_like(ll)).sum(dim=-1)  # [R]
+    # an active observation with no model (kind 0) poisons the subject
+    missing = (active & (kind == 0)).any(dim=-1)
+    total = torch.where(missing, torch.full_like(total, -float("inf")), total)
+    out = torch.zeros((grid.n_subjects,), dtype=dtype, device=dev)
+    out = out.index_add_(0, row_subject, total)
+    return torch.where(torch.isfinite(out) | torch.isneginf(out), out,
+                       torch.full_like(out, -float("inf")))
+
+
+def log_likelihood_subject(equation, subject, parameters,
+                           residual_error_models: ResidualErrorModels,
+                           device=None) -> float:
+    """Single-subject prediction-based log-likelihood (mod.rs:205)."""
+    res = log_likelihood_batch(
+        equation,
+        Data([subject]),
+        np.asarray(parameters, dtype=np.float64).reshape(1, -1),
+        residual_error_models,
+        device=device,
+    )
+    return float(res[0])

@@ -26,14 +26,21 @@ spec the general engine runs (:mod:`~pharmsol_tpu_torch.engine.sde`).
 Draws come from an explicit generator seeded by ``seed`` (the general
 engine) or from the Philox counters of ``ops/philox.py`` (the fused kernel):
 each run is reproducible per seed within the port, and equals the JAX
-package's only at zero diffusion. The single-subject API is not ported yet.
+package's only at zero diffusion.
+
+The single-subject API and the per-subject batch run the general engine:
+``estimate_predictions`` advances the clouds with no weighting (the
+reference's path without error models) and reports the particle means;
+``estimate_log_likelihood`` is the particle filter, one psi cell.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
-from ..engine.sde import SDESpec
+import torch
+
+from ..engine.sde import SDESim, SDESpec, simulate_occasion_sde, simulate_occasion_sde_ll
 from ..metadata import ModelKind, RouteInputPolicy, ValidatedModelMetadata
 from .equation import EquationBase
 
@@ -174,3 +181,24 @@ class SDE(EquationBase):
             em_control=self._em_control,
             noise=self._noise,
         )
+
+    # -- the rows' marches -----------------------------------------------------------
+    def _generator(self, device) -> torch.Generator:
+        """A generator seeded by the model: one seed, one result."""
+        gen = torch.Generator(device=device)
+        gen.manual_seed(self._seed)
+        return gen
+
+    def _sim_rows(self, rows, p, cov_names) -> SDESim:
+        return simulate_occasion_sde(self.spec, rows, p, self._generator(p.device), cov_names)
+
+    def _ll_rows(self, rows, p, em_kind, em_factor, em_poly, cov_names):
+        return simulate_occasion_sde_ll(self.spec, rows, p, em_kind, em_factor, em_poly,
+                                        self._generator(p.device), cov_names)
+
+    def _batch_predictions(self, rows, p_rows, cov_names):
+        return simulate_occasion_sde(self.spec, rows, p_rows, self._generator(p_rows.device),
+                                     cov_names, per_row=True).pred_mean[0]
+
+    def _assemble_subject_predictions(self, subject, grid, sim: SDESim):
+        return self._assemble(subject, sim.pred_mean, sim.state_mean)

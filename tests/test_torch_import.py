@@ -56,7 +56,10 @@ def test_package_import_loads_no_jax():
             "pharmsol_tpu_torch.likelihood.plans.sde, pharmsol_tpu_torch.engine.sde, "
             "pharmsol_tpu_torch.likelihood.plans.analytical, "
             "pharmsol_tpu_torch.optimize.npag, pharmsol_tpu_torch.optimize.weights, "
-            "pharmsol_tpu_torch.parameters, pharmsol_tpu_torch.utils.profiling; "
+            "pharmsol_tpu_torch.parameters, pharmsol_tpu_torch.utils.profiling, "
+            "pharmsol_tpu_torch.data.pmetrics, pharmsol_tpu_torch.data.row, "
+            "pharmsol_tpu_torch.data.serde, pharmsol_tpu_torch.data.auc, "
+            "pharmsol_tpu_torch.likelihood.prediction, pharmsol_tpu_torch.likelihood.progress; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pharmsol_tpu', 'triton')]; "
             "assert not bad, bad")
@@ -167,23 +170,35 @@ def test_defaults_are_cpu_and_float64():
 def test_entry_points_default_to_the_card():
     """With no device= and no set_device the entry points run on the card:
     in a fresh interpreter on a machine without one they raise instead of
-    running on the CPU."""
+    running on the CPU. So do the single-subject API, the per-subject batch
+    and population_predictions; with device="cpu" they run."""
     code = (
         "import numpy as np, torch, pharmsol_tpu_torch as pt\n"
+        "from pharmsol_tpu_torch.likelihood.prediction import population_predictions\n"
         "assert pt.device() == torch.device('cuda')\n"
+        "m = pt.Analytical(pt.one_compartment, out=lambda x, p, t, cov: x[0:1] / p[1],\n"
+        "                  nstates=1, ndrugs=1, nout=1)\n"
+        "s = pt.Subject.builder('a').bolus(0.0, 100.0, 0).observation(1.0, 5.0, 0).build()\n"
+        "d = pt.Data([s])\n"
+        "ems = pt.AssayErrorModels().add(\n"
+        "    0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))\n"
+        "rems = pt.ResidualErrorModels().add(0, pt.ResidualErrorModel.combined(0.5, 0.1))\n"
+        "sp = np.array([[0.2, 10.0]])\n"
+        "calls = [lambda **kw: pt.log_likelihood_matrix(m, d, sp, ems, **kw),\n"
+        "         lambda **kw: m.estimate_predictions(s, sp[0], **kw),\n"
+        "         lambda **kw: m.estimate_log_likelihood(s, sp[0], ems, **kw),\n"
+        "         lambda **kw: pt.log_likelihood_batch(m, d, sp, rems, **kw),\n"
+        "         lambda **kw: population_predictions(m, [s], sp, **kw)]\n"
         "if not torch.cuda.is_available():\n"
-        "    m = pt.Analytical(pt.one_compartment, out=lambda x, p, t, cov: x[0:1] / p[1],\n"
-        "                      nstates=1, ndrugs=1, nout=1)\n"
-        "    d = pt.Data([pt.Subject.builder('a').bolus(0.0, 100.0, 0)\n"
-        "                 .observation(1.0, 5.0, 0).build()])\n"
-        "    ems = pt.AssayErrorModels().add(\n"
-        "        0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))\n"
-        "    try:\n"
-        "        pt.log_likelihood_matrix(m, d, np.array([[0.2, 10.0]]), ems)\n"
-        "    except pt.PharmsolError as e:\n"
-        "        assert 'cuda' in str(e), e\n"
-        "    else:\n"
-        "        raise AssertionError('ran on the CPU without being asked')\n"
+        "    for call in calls:\n"
+        "        try:\n"
+        "            call()\n"
+        "        except pt.PharmsolError as e:\n"
+        "            assert 'cuda' in str(e), e\n"
+        "        else:\n"
+        "            raise AssertionError('ran on the CPU without being asked')\n"
+        "for call in calls:\n"
+        "    call(device='cpu')\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, cwd=str(PKG.parent))
 

@@ -205,7 +205,31 @@ printing its own lines; any failure raises and the exit code is not 0:
     lowering cached and the prediction cache off, of one
     ``estimate_predictions`` (a Short subject, closed form and ODE), one
     ``estimate_log_likelihood`` and one ``log_likelihood_batch`` at 10 000
-    subjects with its host and device parts.
+    subjects with its host and device parts;
+23. the authoring surfaces: models written as DSL text and with the
+    declarative API (``utils/authoring_cases.py``; no closure written by
+    hand) through ``log_likelihood_matrix`` at full width in both dtypes,
+    each call with every launch count set to 0 just before and read just
+    after (engine fused, one launch of the cell's kernel and of no other):
+    "DSL Short 16384 x 512" (the 1-cmt oral structure with its parameters
+    declared in another order: K1a), "DSL creatinine 10000 x 1000" (a
+    derived ``ke`` from a time-varying weight: K1b through the kernel-input
+    decomposition), "DSL ODE Short 16384 x 512" (K2a), "declarative ODE
+    covariates 16384 x 512" (``examples/covariates.py`` as ``ode_model``:
+    K2e) and "declarative SDE README 256 x 64 x 1000"
+    (``examples/sde_readme.py`` as ``sde_model``: K3a), each held against
+    the hand-written closure model's psi (every cell equal where both run
+    the same library, float64 1e-12 where the header differs) or the
+    general engine on 256 subjects (float64 1e-10), its float32 psi against
+    its float64 one (every cell 1e-3, 99.9% within the budget row), the
+    kernel against its twin (the SDE's cut to 2 x 8 subjects x supports),
+    with the kernel, plan, decomposition and end-to-end times; a DSL model
+    reading every intrinsic the RHS generator took for the DSL on K2a at 64
+    x 48 (against its twin and the general engine); a ``.pkm``
+    artifact of the creatinine model saved, loaded and run (psi equal to
+    the source's); and the NPAG fit over the DSL 1-cmt model against the
+    closure fit on phase 10's population (cycles, support count,
+    log-likelihood within 1e-8).
 
 The earlier paths were cut to make room for 16-21 (each cut prints its
 time beside the time before it): phase 14's general engine on 64 subjects
@@ -225,7 +249,9 @@ and the closed-form kernel's anatomy on the two K1a and the four K1b and K1c
 cells (every K1a instantiation's and the cells' K1b and K1c ones'
 registers, local memory, stack, local loads and stores and warps per SM;
 per cell the issue slots per cell-segment), for work on K1a, K1b or K1c;
-``--only single`` phases 0 and 22 (no library is built). A partial run's
+``--only single`` phases 0 and 22 (no library is built); ``--only
+authoring`` phases 0, 1 (the closed-form library and the ODE and SDE
+libraries of phase 23's models) and 23. A partial run's
 last line is ``{"ok": true, "partial": ...}``, not the whole script's
 verdict.
 
@@ -728,12 +754,17 @@ def phase_build(pt, feature_cases, expm, stiff, only: str = None) -> float:
     from pharmsol_tpu_torch.ops import _build
 
     ode_targets = (stiff_build_targets(stiff) if only == "stiff"
-                   else [] if only in ("sde", "k1c", "closed")
+                   else [] if only in ("sde", "k1c", "closed", "authoring")
                    else list(explicit_build_targets(feature_cases).values())
                    if only == "explicit"
                    else ode_build_targets(feature_cases, expm, stiff))
-    sde_targets = ([] if only in ("stiff", "k1c", "explicit", "closed")
+    sde_targets = ([] if only in ("stiff", "k1c", "explicit", "closed", "authoring")
                    else sde_build_targets(pt) + sde_feature_build_targets(pt))
+    if only in (None, "authoring"):
+        # phase 23's models: a library each only where their header is new
+        ode_new, sde_new = authoring_build_targets(pt)
+        ode_targets = dedupe_targets(ode_targets + list(ode_new.values()))
+        sde_targets = dedupe_targets(sde_targets + list(sde_new.values()))
     psi_targets = [] if only in ("stiff", "sde", "explicit") else [_build.psi_target()]
     targets = (psi_targets + [t for _, t in ode_targets] + [t for _, t in sde_targets])
     names = ([t.name for t in psi_targets]
@@ -1512,6 +1543,16 @@ def run_sde_kernel(plan, plain: bool = False) -> torch.Tensor:
 
     fn = psi_sde_plain if plain else psi_sde
     return fn(*plan.streams, plan.support, plan.gen, **plan.kernel_kwargs())
+
+
+def dedupe_targets(named) -> list:
+    """(name, target) pairs, the first of each library path."""
+    seen, out = set(), []
+    for name, target in named:
+        if target.path not in seen:
+            seen.add(target.path)
+            out.append((name, target))
+    return out
 
 
 def sde_build_targets(pt):
@@ -2626,7 +2667,7 @@ def fast_mass(fit) -> float:
     return float(np.sum(fit.weights[fit.support[:, 1] > 0.2]))
 
 
-def phase_fit(pt, label, model, data, ems, counter, card: str) -> dict:
+def phase_fit(pt, label, model, data, ems, counter, card: str, phase: int = 10) -> dict:
     """One population fit at full width on the card through
     ``pt.optimize.fit_population`` (float64, 10 000 subjects, 1000 start
     points, 8 cycles), the counts set to 0 just before and read just after:
@@ -2660,12 +2701,12 @@ def phase_fit(pt, label, model, data, ems, counter, card: str) -> dict:
             and fit.posterior.shape == (len(data), fit.support.shape[0])):
         raise AssertionError(f"{label}: malformed fit")
     mass = fast_mass(fit)
-    log(f"[10] {label}: log-likelihood {fit.log_likelihood:.6f}, {fit.support.shape[0]} support "
+    log(f"[{phase}] {label}: log-likelihood {fit.log_likelihood:.6f}, {fit.support.shape[0]} support "
         f"points (JAX package, recorded: {FIT_RECORDED['support']}), {fit.cycles} cycles, fast "
         f"mass {mass:.6f}, max D-n {fit.d_max:.3e}; {psi_calls} psi calls = {counts[counter]} "
         f"{counter} launches, engine {dec['engine']}; fit {seconds:.3f} s  ({card})")
     for line in stage_report().splitlines():
-        log(f"[10] {label}   {line}")
+        log(f"[{phase}] {label}   {line}")
     dev_calls, dev_s = stages.get("npag/weights_device", (0, 0.0))
     return dict(fit=fit, seconds=seconds, launches=counts[counter], psi_calls=psi_calls,
                 psi_s=stages["npag/psi_device"][1], weights_s=stages["npag/weights"][1],
@@ -5784,6 +5825,431 @@ def run_single(pt, card: str) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the authoring surfaces (DSL text, the declarative API, .pkm)
+# ---------------------------------------------------------------------------
+
+# the cells of phase 23 (subjects x supports), the subjects of the creatinine
+# cell's check against the general engine, and the README SDE's twin check
+# (subjects x supports, its first two observations: cut, the twin's particle
+# loop goes with the span; phase 5 holds K3a against its twin at 19 x 23)
+AUTHORING_SHORT = (16384, 512)
+AUTHORING_CREATININE = (10000, 1000)
+AUTHORING_CHECK_ROWS = 256
+AUTHORING_SDE_TWIN = (2, 8)
+# each cell's kernel and its launch counter (kernel_launches' keys)
+AUTHORING_COUNTERS = {"K1a": "fused_psi.LAUNCHES", "K1b": "fused_psi.FEATURE_LAUNCHES",
+                      "K2a": "fused_ode.LAUNCHES", "K2e": "fused_ode.FEATURE_LAUNCHES",
+                      "K3a": "fused_sde.LAUNCHES"}
+
+
+def authoring_build_targets(pt) -> tuple:
+    """The libraries of phase 23's ODE and SDE models, generated from the
+    authored closures as their plans generate them: ({key: (name, target)}
+    for the explicit ODE tier, the same for the SDE kernel). The DSL ODE
+    Short model's and the README SDE's headers are their closure models'
+    (the same libraries); the covariate example's declares its covariates
+    in its own order (a library of its own)."""
+    from pharmsol_tpu_torch.dsl import compile_model
+    from pharmsol_tpu_torch.ops import _build
+    from pharmsol_tpu_torch.ops.rhs_codegen import generate_sde
+    from pharmsol_tpu_torch.utils import authoring_cases as ac
+    from pharmsol_tpu_torch.utils.f32_budget import covariate_model_case
+
+    ode, sde = {}, {}
+    short = compile_model(ac.DSL_ODE_SHORT).model
+    gen = ode_plan_for(short, ac.short_data(2, 0), ac.jittered(ac.ODE_SHORT_CENTRE, 2, 0),
+                       ac.ems_for(), torch.float64).rhs
+    ode.setdefault(gen.key, ("authoring dsl_ode_short", _build.generated_target(_build.ODE, gen)))
+    _, data, sp, ems = covariate_model_case(2, 2, named=True)
+    gen = ode_plan_for(ac.covariates_ode_model(), data, sp, ems, torch.float64).rhs
+    ode.setdefault(gen.key, ("authoring covariate_model declarative",
+                             _build.generated_target(_build.ODE, gen)))
+    gen = ode_plan_for(compile_model(ac.DSL_INTRINSICS).model, ac.short_data(2, 0),
+                       ac.jittered(ac.INTRINSICS_CENTRE, 2, 0), ac.ems_for(), torch.float64).rhs
+    ode.setdefault(gen.key, ("authoring dsl intrinsics", _build.generated_target(_build.ODE, gen)))
+    spec = ac.readme_sde_model().spec
+    gen = generate_sde(spec.drift, spec.diffusion, spec.nstates, 3, spec.ninput)
+    sde.setdefault(gen.key, ("readme declarative", _build.generated_target(_build.SDE, gen)))
+    return ode, sde
+
+
+def authoring_cells(pt) -> list:
+    """Phase 23's cells, each a dict: its label and kernel; the model written
+    through an authoring surface with its data, support and error models,
+    and the host time of writing it (DSL compile or declarative build); the
+    hand-written closure model it is held against (None: the general
+    engine) with its data and support; the plan builder and kernel runner;
+    the float32 budget row (None: held against the closure's float32 psi)
+    and the twin's tolerance."""
+    from pharmsol_tpu_torch.dsl import compile_model
+    from pharmsol_tpu_torch.utils import authoring_cases as ac
+    from pharmsol_tpu_torch.utils.f32_budget import COVARIATE_MODEL_CENTRE, covariate_model_case
+
+    def timed(build):
+        t0 = time.perf_counter()
+        out = build()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    cells = []
+    n, S = AUTHORING_SHORT
+    short_named = ac.short_data(n, SEED + 30)
+    short_bare = ac.short_data(n, SEED + 30, named=False)
+    closure_1cmt = pt.Analytical(pt.one_compartment_with_absorption,
+                                 out=lambda x, p, t, cov: x[1:2] / p[2], nstates=2, ndrugs=1,
+                                 nout=1)
+    model, ms = timed(lambda: compile_model(ac.DSL_SHORT).model)
+    sp = ac.jittered(ac.SHORT_CENTRE, S, SEED + 31)
+    cells.append(dict(
+        label=f"dsl_short_1cmt_oral_{n}x{S}", kernel="K1a", model=model, data=short_named,
+        sp=sp, ems=ac.ems_for(), compile_ms=ms, closure=closure_1cmt, c_data=short_bare,
+        c_sp=np.ascontiguousarray(sp[:, [2, 1, 0]]), c_ems=ac.ems_for(label=0),
+        plan=plan_for_model, run=run_kernel, row="one_compartment_with_absorption",
+        twin_tol=1e-10, n_params=2))
+    nc, Sc = AUTHORING_CREATININE
+    model, ms = timed(lambda: compile_model(ac.DSL_CREATININE).model)
+    cells.append(dict(
+        label=f"dsl_creatinine_1cmt_oral_{nc}x{Sc}", kernel="K1b", model=model,
+        data=ac.creatinine_data(nc, SEED + 32), sp=ac.jittered(ac.CREATININE_CENTRE, Sc, SEED + 33),
+        ems=ac.ems_for(), compile_ms=ms, closure=None, plan=plan_for_model, run=run_kernel,
+        row="seq_multiplier_segment", twin_tol=1e-10, n_params=2))
+    model, ms = timed(lambda: compile_model(ac.DSL_ODE_SHORT).model)
+    sp = ac.jittered(ac.ODE_SHORT_CENTRE, S, SEED + 34)
+    cells.append(dict(
+        label=f"dsl_ode_short_{n}x{S}", kernel="K2a", model=model, data=short_named, sp=sp,
+        ems=ac.ems_for(), compile_ms=ms, closure=ode_model(pt, "short"), c_data=short_bare,
+        c_sp=sp, c_ems=ac.ems_for(label=0), plan=ode_plan_for, run=run_ode_kernel,
+        row="ode_dopri5", twin_tol=1e-8))
+    closure, c_data, _, c_ems = covariate_model_case(n, 1, seed=SEED + 35)
+    _, data, _, ems = covariate_model_case(n, 1, seed=SEED + 35, named=True)
+    model, ms = timed(ac.covariates_ode_model)
+    sp = jittered_support(COVARIATE_MODEL_CENTRE, S, np.random.RandomState(SEED + 36))
+    cells.append(dict(
+        label=f"declarative_ode_covariates_{n}x{S}", kernel="K2e", model=model, data=data,
+        sp=sp, ems=ems, compile_ms=ms, closure=closure, c_data=c_data, c_sp=sp, c_ems=c_ems,
+        plan=ode_plan_for, run=run_ode_kernel, row="ode_lag_fa", twin_tol=1e-8))
+    R, Ss = SDE_FULL
+    data = readme_data(pt, R, np.random.RandomState(SEED + 37))
+    model, ms = timed(ac.readme_sde_model)
+    sp = readme_support(Ss, np.random.RandomState(SEED + 38))
+    cells.append(dict(
+        label=f"declarative_readme_sde_{R}x{Ss}x{SDE_PARTICLES}", kernel="K3a", model=model,
+        data=data, sp=sp, ems=readme_ems(pt), compile_ms=ms, closure=readme_sde(pt),
+        c_data=data, c_sp=sp, c_ems=readme_ems(pt), plan=sde_plan_for, run=run_sde_kernel,
+        row=None, twin_tol=1e-9))
+    return cells
+
+
+def authoring_same_library(cell) -> bool:
+    """Whether the authored model and its closure run the same library: the
+    closed-form kernel always; an ODE or SDE model where the two generate
+    the same header."""
+    if cell["kernel"] in ("K1a", "K1b"):
+        return True
+    plans = [cell["plan"](m, d, sp[:2], e, torch.float64) for m, d, sp, e in (
+        (cell["model"], cell["data"], cell["sp"], cell["ems"]),
+        (cell["closure"], cell["c_data"], cell["c_sp"], cell["c_ems"]))]
+    keys = [(p.gen if cell["kernel"] == "K3a" else p.rhs).key for p in plans]
+    return keys[0] == keys[1]
+
+
+def plan_for_model(model, data, support, ems, dtype):
+    """``plan_for`` with the package imported here (the closed-form plan)."""
+    import pharmsol_tpu_torch as pt
+
+    return plan_for(pt, model, data, support, ems, dtype)
+
+
+def authoring_times(pt, cell, dtype, card: str) -> dict:
+    """The cell's kernel alone (CUDA events), its plan on the lowered grid
+    and one call end to end (host clock), and for a closed form the
+    kernel-input decomposition alone; ms."""
+    from pharmsol_tpu_torch.likelihood.plans.decompose import _decompose_kernel_inputs
+
+    model, data, sp, ems = cell["model"], cell["data"], cell["sp"], cell["ems"]
+    sde = cell["kernel"] == "K3a"
+    plan = cell["plan"](model, data, sp, ems, dtype)
+    t = {
+        "kernel": cuda_ms(lambda: cell["run"](plan), 1 if sde else 10, 0 if sde else 1),
+        "plan": wall_ms(lambda: cell["plan"](model, data, sp, ems, dtype), 3),
+        "end_to_end": wall_ms(lambda: pt.log_likelihood_matrix(model, data, sp, ems,
+                                                               device="cuda"),
+                              1 if sde else 3, 0 if sde else 1),
+    }
+    if cell["kernel"] in ("K1a", "K1b"):
+        grid = model.lower(data.subjects())
+        t["decompose"] = wall_ms(lambda: _decompose_kernel_inputs(
+            model._kernel_inputs, sp, grid, cell["n_params"], True), 3, 0)
+    cells = len(data) * sp.shape[0]
+    d = str(dtype)[6:]
+    log(f"[23] {cell['label']} {d}: kernel {t['kernel']:.3f} ms ({cells / (t['kernel'] * 1e-3):.4g} "
+        f"cells/s), plan {t['plan']:.3f} ms, end to end {t['end_to_end']:.3f} ms, kernel share "
+        f"{t['kernel'] / t['end_to_end']:.4f}"
+        + (f"; kernel-input decomposition {t['decompose']:.3f} ms = "
+           f"{t['decompose'] / t['end_to_end']:.4f} of the call" if "decompose" in t else "")
+        + f"  ({card})")
+    return t
+
+
+def authoring_cell(pt, cell, card: str) -> dict:
+    """One phase-23 cell: per dtype, one call through the entry point with
+    every launch counter set to 0 just before and read just after (the
+    engine fused, exactly one launch of the cell's kernel and of no other);
+    psi held against the closure model (every cell equal where both run the
+    same library, else float64 within 1e-12 relative) or against the
+    general engine on the first subjects (float64 1e-10, float32 1e-3); the
+    float32 psi against the float64 one (every cell within 1e-3, 99.9%
+    within the model's budget row); the kernel against its twin on the
+    same plan (float64: the closed forms every cell within 1e-10, the ODE
+    tiers every cell within 1e-6 and 99.9% within 1e-8, the SDE at the
+    twin's Philox numbers on a cut shape); the times."""
+    from pharmsol_tpu_torch.utils.f32_budget import F32_BUDGET, f32_error
+
+    t_cell = time.perf_counter()
+    label, kernel = cell["label"], cell["kernel"]
+    model, data, sp, ems = cell["model"], cell["data"], cell["sp"], cell["ems"]
+    sde = kernel == "K3a"
+    rec = {"kernel": kernel, "compile_ms": cell["compile_ms"], "launches": 0}
+    same = cell["closure"] is not None and authoring_same_library(cell)
+    rec["same_library_as_closure"] = same
+    psi64 = None
+    for dtype in (torch.float64, torch.float32):
+        pt.set_float_dtype(dtype)
+        d = str(dtype)[6:]
+        reset_kernel_launches()
+        psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in kernel_launches().items() if v}
+        dec = pt.last_engine_decision(model)
+        if dec["engine"] != "fused":
+            raise AssertionError(f"[23] {label} {d}: engine {dec}")
+        if launched != {AUTHORING_COUNTERS[kernel]: 1}:
+            raise AssertionError(f"[23] {label} {d}: launches {launched}, expected one {kernel}")
+        rec["launches"] += 1
+        if tuple(psi.shape) != (len(data), sp.shape[0]) or psi.device.type != "cuda":
+            raise AssertionError(f"[23] {label}: psi {tuple(psi.shape)} on {psi.device}")
+        if bool(torch.isnan(psi).any()) or (not sde and not bool(torch.isfinite(psi).all())):
+            raise AssertionError(f"[23] {label} {d}: non-finite psi")
+        if cell["closure"] is not None:
+            want = pt.log_likelihood_matrix(cell["closure"], cell["c_data"], cell["c_sp"],
+                                            cell["c_ems"], device="cuda")
+            torch.cuda.synchronize()
+            fin = torch.isfinite(want)
+            if not bool((torch.isfinite(psi) == fin).all()):
+                raise AssertionError(f"[23] {label} {d}: finite cells differ from the closure's")
+            err = rel_err(psi[fin], want[fin], 1.0)
+            diff = int((psi[fin] != want[fin]).sum())
+            # the same library on the same inputs: every cell equal; another
+            # header (the covariates declared in another order): float64
+            # within 1e-12, float32 held by its budget row below
+            rule = ("every cell equal" if same else
+                    "rel <= 1e-12" if dtype == torch.float64 else "not held (budget row)")
+            log(f"[23] {label} {d}: engine fused, {launched}; vs the closure model rel {err:.3e}, "
+                f"{diff} of {int(fin.sum())} cells differ at all (same library: {same}; "
+                f"{rule})")
+            if (same and diff) or (not same and dtype == torch.float64 and err > 1e-12):
+                raise AssertionError(f"[23] {label} {d}: vs the closure: rel {err}, {diff} "
+                                     "cells differ")
+            rec[f"vs_closure_{d}"] = err
+            rec[f"cells_differ_{d}"] = diff
+        else:
+            rows = AUTHORING_CHECK_ROWS
+            sub = pt.Data(data.subjects()[:rows])
+            want = pt.log_likelihood_matrix(model, sub, sp, ems, device="cuda", engine="general")
+            torch.cuda.synchronize()
+            err = rel_err(psi[:rows], want, 1.0)
+            tol = 1e-10 if dtype == torch.float64 else 1e-3
+            log(f"[23] {label} {d}: engine fused, {launched}; vs the general engine on subjects "
+                f"0-{rows - 1} rel {err:.3e} (<= {tol:g})")
+            if err > tol:
+                raise AssertionError(f"[23] {label} {d}: vs the general engine {err} > {tol}")
+            rec[f"vs_general_{d}"] = err
+        if dtype == torch.float64:
+            psi64 = psi
+        elif cell["row"] is not None:
+            # the budget row of the model's class, held as the earlier phases
+            # hold float32 at full width: the closed form is 0/0-prone in
+            # float32 where a support's ka meets a decay constant (ROADMAP
+            # Queue 1 item 5), so every cell within 1e-3 and 99.9% within
+            # the row
+            err = f32_error(psi.cpu().numpy(), psi64.cpu().numpy())
+            budget = F32_BUDGET[cell["row"]]
+            cellwise = ((psi.double() - psi64.double()).abs()
+                        / psi64.double().abs().clamp(min=1.0))
+            share = float((cellwise <= budget).double().mean())
+            log(f"[23] {label} f32 vs its f64 psi: max {err:.3e} (<= 1e-3), {share * 100:.4f}% "
+                f"of cells within {cell['row']} {budget:g} (>= 99.9%), "
+                f"{int((cellwise > budget).sum())} beyond")
+            if err > 1e-3 or share < 0.999:
+                raise AssertionError(f"[23] {label}: f32 max {err}, {share} within {budget}")
+            rec["f32_vs_f64"] = err
+            rec["f32_share_within_row"] = share
+        rec[f"times_{d}"] = authoring_times(pt, cell, dtype, card)
+    # the kernel against its twin on the same plan (float64)
+    pt.set_float_dtype(torch.float64)
+    if sde:
+        Rt, St = AUTHORING_SDE_TWIN
+        sub = readme_data(pt, Rt, np.random.RandomState(SEED + 39), n_obs=2)
+        plan = sde_plan_for(model, sub, sp[:St], ems, torch.float64)
+        got, twin = run_sde_kernel(plan), run_sde_kernel(plan, plain=True)
+        torch.cuda.synchronize()
+        abs_err, rel = sde_compare(f"{label} kernel vs twin at {Rt}x{St}x{SDE_PARTICLES} (cut) "
+                                   "f64", got, twin, cell["twin_tol"], 0.999, phase=23)
+    else:
+        plan = cell["plan"](model, data, sp, ems, torch.float64)
+        got, twin = cell["run"](plan), cell["run"](plan, plain=True)
+        torch.cuda.synchronize()
+        abs_err = float((got - twin).abs().max())
+        rel = rel_err(got, twin, 1.0)
+        # the adaptive ODE march: every cell within 1e-6 and 99.9% within
+        # 1e-8 (a step decision can flip at a rounding tie), as phases 2-8
+        # hold K2a and K2e; the closed forms: every cell within 1e-10
+        every = 1e-6 if kernel in ("K2a", "K2e") else cell["twin_tol"]
+        cellwise = (got - twin).abs() / twin.abs().clamp(min=1.0)
+        share = float((cellwise <= cell["twin_tol"]).double().mean())
+        log(f"[23] {label} kernel vs twin f64: max abs {abs_err:.3e}, rel {rel:.3e} "
+            f"(<= {every:g}), {share * 100:.4f}% of cells within {cell['twin_tol']:g} "
+            f"(>= 99.9%)")
+        if rel > every or share < 0.999:
+            raise AssertionError(f"[23] {label}: kernel vs twin {rel}, {share} within "
+                                 f"{cell['twin_tol']}")
+    rec["twin_rel"] = rel
+    rec["seconds"] = time.perf_counter() - t_cell
+    log(f"[23] {label}: {rec['launches']} {kernel} launches on the entry point's calls, cell "
+        f"{rec['seconds']:.1f} s, written in {cell['compile_ms']:.1f} ms (host)")
+    return rec
+
+
+def authoring_intrinsics(pt) -> dict:
+    """The DSL model that reads every intrinsic the RHS generator took for
+    the DSL (floor, ceil, round, sin, cos, tan, log10, log2) on K2a, 64
+    Short subjects x 48 supports: per dtype one call through the entry point
+    (fused, one K2a launch); the kernel against its twin (float64: every
+    cell within 1e-6, 99.9% within 1e-8) and against the general engine
+    (float64 1e-4, the controller's error)."""
+    from pharmsol_tpu_torch.dsl import compile_model
+    from pharmsol_tpu_torch.utils import authoring_cases as ac
+
+    model = compile_model(ac.DSL_INTRINSICS).model
+    data, sp, ems = ac.short_data(64, SEED + 40), ac.jittered(ac.INTRINSICS_CENTRE, 48, SEED + 41), \
+        ac.ems_for()
+    rec = {}
+    for dtype in (torch.float64, torch.float32):
+        pt.set_float_dtype(dtype)
+        reset_kernel_launches()
+        psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in kernel_launches().items() if v}
+        dec = pt.last_engine_decision(model)
+        if dec["engine"] != "fused" or launched != {"fused_ode.LAUNCHES": 1}:
+            raise AssertionError(f"[23] intrinsics: engine {dec}, launches {launched}")
+        if not bool(torch.isfinite(psi).all()):
+            raise AssertionError("[23] intrinsics: non-finite psi")
+        if dtype == torch.float64:
+            plan = ode_plan_for(model, data, sp, ems, dtype)
+            got, twin = run_ode_kernel(plan), run_ode_kernel(plan, plain=True)
+            general = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda",
+                                               engine="general")
+            torch.cuda.synchronize()
+            rel = rel_err(got, twin, 1.0)
+            share = float(((got - twin).abs() / twin.abs().clamp(min=1.0) <= 1e-8)
+                          .double().mean())
+            vs_general = rel_err(psi, general, 1.0)
+            log(f"[23] DSL intrinsics 64x48 f64: {launched}; kernel vs twin rel {rel:.3e} "
+                f"(<= 1e-6), {share * 100:.4f}% within 1e-8 (>= 99.9%); fused vs general "
+                f"{vs_general:.3e} (<= 1e-4)")
+            if rel > 1e-6 or share < 0.999 or vs_general > 1e-4:
+                raise AssertionError(f"[23] intrinsics: twin {rel} / {share}, general "
+                                     f"{vs_general}")
+            rec.update(twin_rel=rel, vs_general=vs_general)
+    return rec
+
+
+def authoring_artifact(pt, cell) -> dict:
+    """The DSL creatinine model saved as a .pkm artifact, loaded back and run
+    on the card at full width: psi equal to the model compiled from source
+    (float64 and float32), one K1b launch a call."""
+    from pharmsol_tpu_torch.dsl import compile_model, load_runtime_artifact
+    from pharmsol_tpu_torch.utils import authoring_cases as ac
+
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    path = out_dir / "dsl_creatinine.pkm"
+    compile_model(ac.DSL_CREATININE).save_artifact(str(path))
+    t0 = time.perf_counter()
+    loaded = load_runtime_artifact(str(path), validate=True).model
+    load_ms = (time.perf_counter() - t0) * 1e3
+    rec = {"load_ms": load_ms}
+    for dtype in (torch.float64, torch.float32):
+        pt.set_float_dtype(dtype)
+        reset_kernel_launches()
+        got = pt.log_likelihood_matrix(loaded, cell["data"], cell["sp"], cell["ems"],
+                                       device="cuda")
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in kernel_launches().items() if v}
+        want = pt.log_likelihood_matrix(cell["model"], cell["data"], cell["sp"], cell["ems"],
+                                        device="cuda")
+        equal = bool(torch.equal(got, want))
+        log(f"[23] .pkm {path.name} ({path.stat().st_size} bytes, loaded in {load_ms:.1f} ms) "
+            f"{str(dtype)[6:]}: {launched}, psi equal to the source's: {equal}")
+        if launched != {"fused_psi.FEATURE_LAUNCHES": 1} or not equal:
+            raise AssertionError(f"[23] .pkm: launches {launched}, psi equal {equal}")
+        rec[f"equal_{str(dtype)[6:]}"] = equal
+    return rec
+
+
+def authoring_fits(pt, card: str) -> dict:
+    """The NPAG fit over the DSL 1-cmt closed form against the same fit over
+    the closure model, on phase 10's population (float64, 10 000 subjects,
+    1000 start points, 8 cycles): the same cycles and support count,
+    log-likelihood within 1e-8 relative; each fit's psi calls one K1a launch
+    each (``phase_fit``)."""
+    from pharmsol_tpu_torch.dsl import compile_model
+    from pharmsol_tpu_torch.utils import authoring_cases as ac
+    from pharmsol_tpu_torch.utils.f32_budget import population_10k_case, population_models
+
+    data, ems, _ = population_10k_case(FIT_SUBJECTS)
+    named, named_ems, _ = population_10k_case(FIT_SUBJECTS, named=True)
+    a = phase_fit(pt, "fit closure 1-cmt 10000", population_models()[0], data, ems, "K1a",
+                  card, phase=23)
+    b = phase_fit(pt, "fit DSL 1-cmt 10000", compile_model(ac.DSL_POPULATION).model, named,
+                  named_ems, "K1a", card, phase=23)
+    fa, fb = a.pop("fit"), b.pop("fit")
+    r_ll = abs(fb.log_likelihood - fa.log_likelihood) / abs(fa.log_likelihood)
+    log(f"[23] DSL fit vs closure fit: log-likelihood {fb.log_likelihood:.6f} vs "
+        f"{fa.log_likelihood:.6f} rel {r_ll:.3e} (<= 1e-8), cycles {fb.cycles} vs {fa.cycles}, "
+        f"support {fb.support.shape[0]} vs {fa.support.shape[0]}")
+    if not (r_ll <= 1e-8 and fb.cycles == fa.cycles
+            and fb.support.shape == fa.support.shape):
+        raise AssertionError(f"[23] DSL fit vs closure fit: ll rel {r_ll}, cycles "
+                             f"{fb.cycles}/{fa.cycles}, support {fb.support.shape}/"
+                             f"{fa.support.shape}")
+    return {"closure": a, "dsl": b, "log_likelihood": fb.log_likelihood, "ll_rel": r_ll,
+            "cycles": fb.cycles, "support": int(fb.support.shape[0])}
+
+
+def run_authoring(pt, card: str) -> dict:
+    """Phase 23: models written as DSL text and with the declarative API (no
+    closure written by hand) through the entry points, on the existing
+    kernels at full width, in float32 and float64, held against their
+    closure models, their twins and the general engine; a .pkm artifact run
+    on the card; the NPAG fit over the DSL closed form."""
+    t0 = time.perf_counter()
+    cells = authoring_cells(pt)
+    log(f"[23] the authoring cells' data and models in {time.perf_counter() - t0:.1f} s")
+    record = {"cells": {}, "card": card}
+    for cell in cells:
+        record["cells"][cell["label"]] = authoring_cell(pt, cell, card)
+    record["intrinsics"] = authoring_intrinsics(pt)
+    record["artifact"] = authoring_artifact(pt, cells[1])
+    record["fits"] = authoring_fits(pt, card)
+    pt.set_float_dtype(torch.float64)
+    record["seconds"] = time.perf_counter() - t0
+    log(f"[23] authoring: {record['seconds']:.1f} s for the phase  ({card})")
+    log("[23] authoring: " + json.dumps(record, default=float))
+    return record
+
+
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--pair-worker":
         only = None if sys.argv[4] == "all" else sys.argv[4]
@@ -5791,7 +6257,7 @@ def main() -> int:
         return 0
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["stiff", "sde", "k1c", "explicit", "closed",
-                                           "single"],
+                                           "single", "authoring"],
                         default=None,
                         help="run a part, for work on its kernels: 'stiff' phases 0, 1 (the "
                              "stiff libraries alone) and 13-15 (K2b, K2c); 'explicit' phases "
@@ -5803,7 +6269,11 @@ def main() -> int:
                              "the two K1a and the two K1b cells, 19-21 (K1c) and the "
                              "closed-form kernel's anatomy on the six cells; 'single' phases 0 "
                              "and 22 (the single-subject API and the per-subject batch, no "
-                             "library built). The kernels line then "
+                             "library built); 'authoring' phases 0, 1 (the closed-form library "
+                             "and the ODE and SDE libraries of its models) and 23 (models "
+                             "written as DSL text and with the declarative API on K1a, K1b, "
+                             "K2a, K2e and K3a, a .pkm artifact, the NPAG fit over the DSL "
+                             "model). The kernels line then "
                              "holds that part's kernels and the last line says {\"ok\": true, "
                              "\"partial\": ...}, not the whole script's verdict")
     parser.add_argument("--pair", metavar="DIR", default=None,
@@ -5835,6 +6305,11 @@ def main() -> int:
     if args.only == "single":
         run_single(pt, card)
         closing_lines([], card, partial="single")
+        return 0
+    if args.only == "authoring":
+        phase_build(pt, {}, {}, {}, only="authoring")
+        run_authoring(pt, card)
+        closing_lines([], card, partial="authoring")
         return 0
     if args.only == "explicit":
         closing_lines(run_explicit(pt, rng, card), card, partial="explicit")
@@ -5998,7 +6473,7 @@ def run_explicit(pt, rng, card: str) -> list:
 
 
 def run_all(pt, rng, card, args, expm, ode_features, stiff, twins) -> int:
-    """Phases 2-22 and the last lines."""
+    """Phases 2-23 and the last lines."""
     phase_kernels(pt, rng)
     phase_feature_kernels(pt)
     phase_ode_kernels(pt, rng)
@@ -6035,6 +6510,7 @@ def run_all(pt, rng, card, args, expm, ode_features, stiff, twins) -> int:
     sde_feature_rec = run_sde_feature_slice(pt, rng, card)
     k1c_rec = run_k1c_slice(pt, rng, card)
     run_single(pt, card)
+    run_authoring(pt, card)
 
     # times of the float32 runs; float64 beside them; no single PyTorch
     # call computes any of these functions, so library_ms is null

@@ -15,7 +15,10 @@ of psi (``optimize.fit_population``, with the NPML weight solve whose
 burn-in runs on the card); and the single-subject API
 (``estimate_predictions``, ``estimate_log_likelihood``, ``simulate_subject``)
 and the per-subject batch log-likelihood (``log_likelihood_batch``) over the
-general engine's segment march.
+general engine's segment march; and the authoring surfaces: the runtime
+model DSL (``dsl.compile_model``, ``.pkm`` artifacts) and the declarative
+API (``ode_model``, ``analytical_model``, ``sde_model``), whose models run
+through the same engines and kernels.
 
 The entry points run on the card (``"cuda"``) unless the caller asks for
 the CPU with ``set_device("cpu")`` or ``device="cpu"``. The working dtype
@@ -48,14 +51,19 @@ from .data.serde import from_json, load_json, save_json, to_json  # noqa: F401
 from .data.structs import Data, Occasion, Subject  # noqa: F401
 from .errors import PharmsolError  # noqa: F401
 from .metadata import (  # noqa: F401
+    AnalyticalKernel,
+    CovariateDecl,
     ModelKind,
     ModelMetadata,
     Route,
     RouteKind,
     ValidatedModelMetadata,
 )
+from .metadata import new as metadata_new  # noqa: F401
 from .models.equation import ODE, Analytical, EquationBase  # noqa: F401
+from .models.declarative import analytical_model, ode_model, sde_model  # noqa: F401
 from .models.sde import SDE  # noqa: F401
+from . import dsl  # noqa: F401
 from .engine import analytical as kernels  # noqa: F401
 from .engine.analytical import (  # noqa: F401
     one_compartment,
@@ -81,3 +89,22 @@ from .optimize import ParameterOptimizer, get_e2  # noqa: F401
 from .parameters import ParameterOrder, Parameters, dense  # noqa: F401
 
 __version__ = "0.1.0"
+
+
+class metadata:  # noqa: N801 - namespace shim: pharmsol::metadata::new parity
+    """``pharmsol_tpu_torch.metadata``: the JAX package's shim (``new``,
+    ``Route``, ``CovariateDecl``), with the metadata module's other public
+    names as well, so that ``from pharmsol_tpu_torch import metadata``
+    reads like the module it shadows."""
+
+    new = staticmethod(metadata_new)
+    from .metadata import (  # noqa: F401
+        AnalyticalKernel,
+        CovariateDecl,
+        ModelKind,
+        ModelMetadata,
+        Route,
+        RouteKind,
+        ValidatedModelMetadata,
+    )
+

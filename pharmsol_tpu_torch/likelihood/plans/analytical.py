@@ -8,6 +8,12 @@ feature inputs on the host, moves them to the device, runs
 occasion rows into subjects on the device. A model without seq, lag, fa or
 init runs kernel K1a; any of them runs kernel K1b:
 
+- a kernel-input mapping (the declarative and DSL closed forms:
+  ``_fused_structure``, ``_kernel_inputs``, ``_bolus_dest``): the kernel
+  reads the remapped support, and row or segment multipliers and offsets
+  where the mapping reads covariates or time
+  (``plans/decompose.py::_decompose_kernel_inputs``); a pure reorder or
+  derive over the parameters is K1a;
 - init: per-support initial states, or per-(row, support) planes when the
   init equation reads covariates;
 - seq, cheapest tier first (``plans/seq.py``): per-row affine factors
@@ -48,6 +54,7 @@ from .decompose import (
     _check_out_covariate_free,
     _constant_covariate_values,
     _decompose_input_plane,
+    _decompose_kernel_inputs,
     _init_states,
     _t64,
     _validate_lag_no_overlap,
@@ -64,10 +71,20 @@ from .seq import (
 )
 
 def _fused_structure_name(equation) -> str:
-    """Map an Analytical equation's kernel fn to a fused psi structure."""
+    """Map an Analytical equation to a fused psi structure: the structure a
+    declarative or DSL closed form declares (JAX ``_pallas_structure_name``
+    :19-45), else the built-in kernel its ``eq`` is."""
     from ...engine.analytical import KERNELS
     from ...ops.fused_psi import STRUCTURES
 
+    declared = getattr(equation, "_fused_structure", None)
+    if declared is not None:  # the authoring surfaces name it directly
+        if declared not in STRUCTURES:
+            raise PharmsolError(
+                f"analytical structure `{declared}` has no fused psi "
+                f"structure (available: {', '.join(sorted(STRUCTURES))})"
+            )
+        return declared
     eq_fn = getattr(equation, "_eq", None)
     for name, (fn, _, _) in KERNELS.items():
         if fn is eq_fn:
@@ -109,7 +126,20 @@ class _FusedPsiPlan:
         sdef = STRUCTURES[self.structure]
         n_kernel_params = sdef["n_params"]
         n_states = sdef["n_states"]
-        if sp.shape[1] < n_kernel_params:
+        # the authoring surfaces map their declared columns onto the
+        # kernel's parameters (JAX :87-107): the width check holds only for
+        # kernel-order supports, and their boluses must land where the
+        # structure doses
+        kernel_inputs = getattr(equation, "_kernel_inputs", None)
+        if kernel_inputs is not None:
+            dest = getattr(equation, "_bolus_dest", None)
+            if dest and int(dest[0]) != int(sdef["dose_state"]):
+                raise PharmsolError(
+                    f"engine='fused' with `{self.structure}` expects the bolus "
+                    f"route to target state {sdef['dose_state']}, this model "
+                    f"doses state {dest[0]} — use the general engine"
+                )
+        elif sp.shape[1] < n_kernel_params:
             raise PharmsolError(
                 f"engine='fused' with `{self.structure}` needs support columns "
                 f"[{n_kernel_params} kernel params..., out params...], got "
@@ -139,7 +169,14 @@ class _FusedPsiPlan:
                 lag_active = dynamic = True
         cov_values = {}
         mode = None
-        if equation._seq is not None:
+        sp_kernel = None
+        if kernel_inputs is not None:
+            (sp_kernel, f["param_mult"], f["param_offset"], f["param_mult_seg"],
+             f["param_offset_seg"]) = _decompose_kernel_inputs(
+                kernel_inputs, sp, grid, n_kernel_params, allow_mult=sdef["eigs"] is None)
+            mode = ("row" if f["param_mult"] is not None
+                    else "segment" if f["param_mult_seg"] is not None else None)
+        elif equation._seq is not None:
             mode, cov_values = self._seq_tier(equation, sp, grid, sdef, lag_active,
                                               dynamic, lag_probe, ninput, f)
         if lag_active and mode == "segment":
@@ -234,7 +271,9 @@ class _FusedPsiPlan:
             dev(cens) if np.any(cens) else None,
         )
         self.outeq = dev(outeq) if self.n_out > 1 else None
-        self.support = dev(sp)
+        # the kernel reads the remapped support of a kernel-input mapping;
+        # the output coefficients above keep the declared one
+        self.support = dev(sp if sp_kernel is None else sp_kernel)
         self.out_coef = dev(np.transpose(C, (1, 2, 0)))  # [n_out, n_states, S]
         self.out_bias = dev(b.T) if np.any(b) else None
         self.features = {k: (None if v is None else [dev(x) for x in v]

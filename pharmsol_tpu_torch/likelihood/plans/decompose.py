@@ -444,3 +444,160 @@ def _check_out_covariate_free(equation, sp, cov_values, n_states) -> None:
             "equation; this model's out() reads a covariate — use the general "
             "engine"
         )
+
+
+def _decompose_kernel_inputs(kernel_inputs, sp, grid, n_kernel_params: int,
+                             allow_mult: bool):
+    """Anchored decomposition of a kernel-input mapping (JAX :355-531).
+
+    The declarative and DSL closed forms (``models/declarative.py::
+    analytical_model``, ``dsl/runtime.py``) compute the kernel's parameters
+    as ``kp(p, t, cov)`` from the DECLARED parameters (any order, derived
+    values), so the support is not in kernel order. Writing ``kp_i(p, t,
+    cov) = b_i(p) * g_i(t, cov) + h_i(t, cov)`` (covariate scaling and
+    additive effects), everything the kernel needs factors through an
+    anchor A = (t = 0, the first row's first-knot covariates):
+
+    - the kernel support ``sp_k[s, i] = kp_i(sp_s, A)``, per support;
+    - g and h per (row, segment), solved from two parameter probes (kp at
+      ``p_ref`` and ``p_alt``, at the anchor and at each segment's end with
+      its row's covariates), checked at a third probe ``p_val``.
+
+    No reset/carry chain applies: the propagate re-derives from the raw
+    parameters at every segment end. Every (row, segment) pair is probed in
+    one nested ``torch.func.vmap`` over the rows' :class:`CovView` and the
+    segment-end times, in float64 on the host.
+
+    Returns (sp_kernel [S, P], mult_row [R, P] | None, off_row | None,
+    mult_seg [R, P, M] | None, off_seg | None): time-constant effects
+    collapse to K1b's row mode, purely multiplicative ones drop the offsets,
+    and a mapping with neither time nor covariate effect is K1a on the
+    remapped support.
+    """
+    from ...engine.grid import CovView
+    from ...ops.fused_psi import segment_schedule
+
+    tol = 1e-9
+    names = list(grid.cov_names)
+    cov_t = np.asarray(grid.rows.cov_t, dtype=np.float64)  # [R, C, K]
+    cov_v = np.asarray(grid.rows.cov_v, dtype=np.float64)
+    fixed = np.asarray(grid.rows.cov_fixed).astype(bool)
+    if fixed.ndim == 1 and cov_t.ndim == 3:
+        fixed = np.broadcast_to(fixed[None, :], cov_t.shape[:2])
+
+    if names:
+        anchor_view = CovView(torch.zeros((len(names), 1), dtype=F64),
+                              _t64(cov_v[0, :, :1]),
+                              torch.zeros((len(names),), dtype=torch.bool), names)
+    else:
+        anchor_view = CovView.empty(F64)
+
+    def kp_vec(vals):
+        return torch.stack([torch.as_tensor(v, dtype=F64) for v in vals])
+
+    def kp_at_anchor(p_rows, t=0.0):
+        tt = torch.tensor(float(t), dtype=F64)
+        return vmap(lambda p: kp_vec(kernel_inputs(p, tt, anchor_view)))(
+            _t64(p_rows)).numpy()
+
+    def probe_failed(e):
+        return PharmsolError(
+            f"engine='fused' could not probe the kernel-input mapping: {e}")
+
+    p_ref = np.where(np.abs(sp[0]) > 1e-30, sp[0], 1.0)
+    p_alt = p_ref * 1.37 + 0.011
+    if np.any(np.abs(p_ref - p_alt) < 1e-9):
+        p_alt = p_ref * 1.61 + 0.173
+    p_val = p_ref * 0.73 + 0.311
+    try:
+        sp_kernel = kp_at_anchor(sp)
+        kp_ref = kp_at_anchor(p_ref[None, :])[0]  # [P]
+        kp_ref_t = kp_at_anchor(p_ref[None, :], t=123.456)[0]
+    except PharmsolError:
+        raise
+    except Exception as e:
+        raise probe_failed(e) from e
+    if not (np.all(np.isfinite(sp_kernel)) and np.all(np.isfinite(kp_ref))):
+        raise PharmsolError(
+            "engine='fused' kernel inputs are non-finite at the probe points "
+            "— use the general engine"
+        )
+
+    time_dependent = not np.allclose(kp_ref, kp_ref_t, rtol=tol, atol=tol)
+    cov_varying = bool(names) and cov_t.ndim == 3
+    if cov_varying:
+        cov_varying = not bool(np.all(cov_v == cov_v[0:1, :, 0:1]))
+    if not time_dependent and not cov_varying:
+        # a pure reindex/derive over parameters: K1a on the remapped support
+        return sp_kernel, None, None, None, None
+
+    if not allow_mult:
+        raise PharmsolError(
+            "engine='fused' does not support a covariate- or time-dependent "
+            "derive with 3-compartment structures (their eigen preparation is "
+            "per support) — use the general engine"
+        )
+
+    _, t_sorted, seg_dt, _ = segment_schedule(grid.rows)
+    R, M = t_sorted.shape
+    real = t_sorted < BIG_TIME / 2
+    t_real_max = np.max(np.where(real, t_sorted, -np.inf), axis=1)
+    t_real_max = np.where(np.isfinite(t_real_max), t_real_max, 0.0)
+    te = _t64(np.minimum(t_sorted + seg_dt, t_real_max[:, None]))  # [R, M]
+    kt, kv = _t64(cov_t), _t64(cov_v)
+    kf = torch.as_tensor(np.ascontiguousarray(fixed))
+
+    def kp_cells(p, cols=slice(None)):
+        """kp at every (row, segment end) of the columns ``cols``: [R, P, m]."""
+        p_t = _t64(p)
+
+        def one(kt_r, kv_r, kf_r, t_r):
+            view = CovView(kt_r, kv_r, kf_r, names)
+            return kp_vec(kernel_inputs(p_t, t_r, view))
+
+        cells = vmap(vmap(one, in_dims=(None, None, None, 0)))(kt, kv, kf, te[:, cols])
+        return cells.permute(0, 2, 1).numpy()
+
+    sample = sorted({0, M // 2, M - 1})
+    try:
+        kp_alt = kp_at_anchor(p_alt[None, :])[0]
+        kp_val = kp_at_anchor(p_val[None, :])[0]
+        f_ref = kp_cells(p_ref)
+        f_alt = kp_cells(p_alt)
+        f_val = dict(zip(sample, np.moveaxis(kp_cells(p_val, sample), 2, 0)))
+    except PharmsolError:
+        raise
+    except Exception as e:
+        raise probe_failed(e) from e
+    denom = (kp_ref - kp_alt)[None, :, None]
+    if np.any(np.abs(denom) < 1e-30):
+        raise PharmsolError(
+            "engine='fused' kernel-input mapping is parameter-degenerate at "
+            "the probe points — use the general engine"
+        )
+    g = (f_ref - f_alt) / denom  # [R, P, M]
+    h = f_ref - kp_ref[None, :, None] * g
+    for m in sample:
+        pred = kp_val[None, :] * g[:, :, m] + h[:, :, m]
+        scale = np.maximum(np.abs(f_val[m]), 1.0)
+        if not (np.all(np.isfinite(pred))
+                and np.all(np.abs(pred - f_val[m]) <= tol * 100 * scale)):
+            raise PharmsolError(
+                "engine='fused' requires affinely separable derive closures "
+                "(kp_i = b_i(p) * g_i(t, cov) + h_i(t, cov)); this one mixes "
+                "anchored parameter structure with the covariate effect — use "
+                "the general engine"
+            )
+    if not (np.all(np.isfinite(g)) and np.all(np.isfinite(h))):
+        raise PharmsolError(
+            "engine='fused' derive produced non-finite factors — use the "
+            "general engine"
+        )
+    off_zero = np.allclose(h, 0.0, atol=tol * 10)
+    if (np.allclose(g, g[:, :, :1], rtol=1e-12, atol=1e-12)
+            and np.allclose(h, h[:, :, :1], rtol=1e-12, atol=1e-12)):
+        g_row = np.ascontiguousarray(g[:, :, 0])
+        h_row = None if off_zero else np.ascontiguousarray(h[:, :, 0])
+        return sp_kernel, g_row, h_row, None, None
+    return (sp_kernel, None, None, np.ascontiguousarray(g),
+            None if off_zero else np.ascontiguousarray(h))

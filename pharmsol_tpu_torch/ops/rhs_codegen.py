@@ -21,7 +21,9 @@ with the reason at plan time, and ``engine='auto'`` then takes the general
 engine and records why.
 
 Supported: ``+ - * /``, unary ``-``, ``**``, ``torch.exp``, ``torch.log``,
-``torch.sqrt``, ``torch.abs``/``abs``, ``torch.minimum``, ``torch.maximum``,
+``torch.sqrt``, ``torch.abs``/``abs``, ``torch.floor``, ``torch.ceil``,
+``torch.round`` (half to even), ``torch.sin``, ``torch.cos``, ``torch.tan``,
+``torch.log10``, ``torch.log2`` (the DSL's intrinsics), ``torch.minimum``, ``torch.maximum``,
 ``torch.clamp``, ``torch.where`` with comparisons (and ``& | ~`` on them),
 Python float constants, static integer indexing ``x[i]``, ``p[i]``,
 ``b[j]``, ``rateiv[j]``, covariate reads ``cov(name, t)`` of the covariates
@@ -340,9 +342,18 @@ def _logic(op, a, b) -> Sym:
     return Sym(op, (_as_bool(a), _as_bool(b)), is_bool=True)
 
 
+# unary torch functions the generator emits, by Sym op name
+_UNARY_FUNCS = {"exp": torch.exp, "log": torch.log, "sqrt": torch.sqrt, "abs": torch.abs,
+                "floor": torch.floor, "ceil": torch.ceil, "round": torch.round,
+                "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+                "log10": torch.log10, "log2": torch.log2}
+
+
 def _torch_op(func, args, kwargs):
     name = getattr(func, "__name__", str(func))
-    if func in (torch.exp, torch.log, torch.sqrt, torch.abs):
+    if name in _UNARY_FUNCS and func is _UNARY_FUNCS[name]:
+        if kwargs or len(args) != 1:
+            raise PharmsolError(f"torch.{name} takes one argument in the RHS")
         (a,) = args
         return Sym(name, (_num(a),))
     if func is torch.minimum or func is torch.maximum:
@@ -482,11 +493,10 @@ def _topo(outputs: List[Sym], stop=frozenset()) -> List[Sym]:
     return order
 
 
-_TORCH_UNARY = {
-    "neg": torch.neg, "exp": torch.exp, "log": torch.log, "sqrt": torch.sqrt,
-    "abs": torch.abs, "not": torch.logical_not,
-    "cast": lambda a: a.to(torch.float64),
-}
+_TORCH_UNARY = dict(
+    _UNARY_FUNCS, neg=torch.neg, **{"not": torch.logical_not},
+    cast=lambda a: a.to(torch.float64),
+)
 _TORCH_BINARY = {
     "add": torch.add, "sub": torch.sub, "mul": torch.mul, "div": torch.div,
     "pow": torch.pow, "min": torch.minimum, "max": torch.maximum,
@@ -618,6 +628,20 @@ _JVP_RULES = {
     "sqrt": lambda node, a, da: (None if da is None else
                                  Sym("div", (da, Sym("mul", (_const(2.0), node))))),
     "abs": _jvp_abs,
+    # piecewise constant: a zero derivative, as torch's
+    "floor": lambda node, a, da: None,
+    "ceil": lambda node, a, da: None,
+    "round": lambda node, a, da: None,
+    "sin": lambda node, a, da: _t_scale(da, Sym("cos", (a,))),
+    "cos": lambda node, a, da: (None if da is None else
+                                Sym("neg", (Sym("mul", (da, Sym("sin", (a,)))),))),
+    # d tan = (1 + tan^2) da
+    "tan": lambda node, a, da: _t_scale(da, Sym("add", (_const(1.0),
+                                                        Sym("mul", (node, node))))),
+    "log10": lambda node, a, da: (None if da is None else
+                                  Sym("div", (da, Sym("mul", (a, _const(math.log(10.0))))))),
+    "log2": lambda node, a, da: (None if da is None else
+                                 Sym("div", (da, Sym("mul", (a, _const(math.log(2.0))))))),
     "min": _jvp_minmax,
     "max": _jvp_minmax,
     "where": _jvp_where,
@@ -681,6 +705,30 @@ __device__ __forceinline__ T pm_max(T a, T b) { return (a > b || a != a) ? a : b
 #endif
 """
 
+# the DSL intrinsics' device functions, defined in a header only where its
+# functions call them (the headers of other models stay as they were);
+# round is half to even, as torch.round (rint in the default rounding mode)
+_EXTRA_MATH = {
+    "floor": ("floorf", "floor"), "ceil": ("ceilf", "ceil"), "round": ("rintf", "rint"),
+    "sin": ("sinf", "sin"), "cos": ("cosf", "cos"), "tan": ("tanf", "tan"),
+    "log10": ("log10f", "log10"), "log2": ("log2f", "log2"),
+}
+
+
+def _extra_math(functions) -> str:
+    """The :data:`_EXTRA_MATH` definitions the emitted ``functions`` call."""
+    text = "".join(functions)
+    lines = []
+    for op, (f32, f64) in _EXTRA_MATH.items():
+        if f"pm_{op}(" in text:
+            lines.append(f"#ifndef PHARMSOL_RHS_MATH_{op.upper()}\n"
+                         f"#define PHARMSOL_RHS_MATH_{op.upper()}\n"
+                         f"__device__ __forceinline__ float pm_{op}(float v) "
+                         f"{{ return {f32}(v); }}\n"
+                         f"__device__ __forceinline__ double pm_{op}(double v) "
+                         f"{{ return {f64}(v); }}\n#endif\n")
+    return "".join(lines)
+
 
 def _emit_function(outputs: List[Sym], name: str, args, out_name: str,
                    given=None) -> str:
@@ -718,7 +766,7 @@ def _emit_function(outputs: List[Sym], name: str, args, out_name: str,
             return f"!{a[0]}"
         if op == "cast":
             return f"T({a[0]})"
-        if op in ("exp", "log", "sqrt", "abs", "min", "max"):
+        if op in ("exp", "log", "sqrt", "abs", "min", "max") or op in _EXTRA_MATH:
             return f"pm_{op}({', '.join(a)})"
         if op == "where":
             return f"{a[0]} ? {a[1]} : {a[2]}"
@@ -763,7 +811,8 @@ def _emit_function(outputs: List[Sym], name: str, args, out_name: str,
 # operation, priced by _TERM_COST (a software routine in float64) and 1
 # otherwise.
 _MAX_PRE = 8
-_TERM_COST = {"pow": 16, "exp": 16, "log": 16, "div": 8, "sqrt": 8}
+_TERM_COST = {"pow": 16, "exp": 16, "log": 16, "div": 8, "sqrt": 8, "sin": 16, "cos": 16,
+              "tan": 16, "log10": 16, "log2": 16}
 _INVARIANT_LEAVES = ("p", "const", "bconst", "cov_a", "cov_b")
 
 
@@ -821,7 +870,7 @@ def _header(what: str, n_states, n_params, ninput, functions, covs,
         f"#define PHARMSOL_RHS_NSTATES {n_states}\n"
         f"#define PHARMSOL_RHS_NPARAMS {n_params}\n"
         f"#define PHARMSOL_RHS_NINPUT {ninput}\n"
-        + cov_lines + _MATH_PRELUDE + "".join(functions)
+        + cov_lines + _MATH_PRELUDE + _extra_math(functions) + "".join(functions)
     )
 
 

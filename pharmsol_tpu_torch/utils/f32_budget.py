@@ -728,7 +728,7 @@ COVARIATE_MODEL_CENTRE = (0.8, 0.25, 0.2, 50.0)  # ka, ke, tlag, v
 
 
 def covariate_model_case(n_subjects: int, n_support: int, seed: int = 0, lib=None,
-                         stack=None):
+                         stack=None, named: bool = False):
     """The reference's covariate example (``examples/covariates.py:22-37``)
     as a population: a 1-compartment oral ODE whose elimination is scaled by
     ``(creatinine(t) / 75) ** 0.75 * (age / 25) ** 0.5``, an absorption lag
@@ -736,7 +736,9 @@ def covariate_model_case(n_subjects: int, n_support: int, seed: int = 0, lib=Non
     0.5, 1, 2, 2.5 and 8 h. Per subject: creatinine knots at 0 h (uniform
     40-120) and 1 h (0.5-1.0 times that), a constant age (uniform 20-80).
     Supports jittered 15% around ``COVARIATE_MODEL_CENTRE`` (the lag stays
-    below the 2 h dose gap). Returns (model, data, support, ems)."""
+    below the 2 h dose gap). ``named``: the data's route and output are
+    ``oral`` and ``cp`` (the example's labels, for its ``ode_model``), else
+    input and output 0. Returns (model, data, support, ems)."""
     import numpy as np
 
     if lib is None:
@@ -750,15 +752,16 @@ def covariate_model_case(n_subjects: int, n_support: int, seed: int = 0, lib=Non
     crcl1 = crcl0 * rng.uniform(0.5, 1.0, n_subjects)
     age = rng.uniform(20.0, 80.0, n_subjects)
     noise = np.exp(0.2 * rng.randn(n_subjects, 5))
+    oral, cp = ("oral", "cp") if named else (0, 0)
     subjects = []
     for i in range(n_subjects):
-        b = (lib.Subject.builder(f"c{i}").bolus(0.0, 100.0, 0).bolus(2.0, 100.0, 0)
-             .bolus(4.0, 100.0, 0)
+        b = (lib.Subject.builder(f"c{i}").bolus(0.0, 100.0, oral).bolus(2.0, 100.0, oral)
+             .bolus(4.0, 100.0, oral)
              .covariate("creatinine", 0.0, float(crcl0[i]))
              .covariate("creatinine", 1.0, float(crcl1[i]))
              .covariate("age", 0.0, float(age[i])))
         for j, t in enumerate((0.5, 1.0, 2.0, 2.5, 8.0)):
-            b = b.observation(t, float(2.0 * noise[i, j]), 0)
+            b = b.observation(t, float(2.0 * noise[i, j]), cp)
         subjects.append(b.build())
     model = lib.ODE(
         lambda x, p, t, b, r, cov: stack([
@@ -772,7 +775,7 @@ def covariate_model_case(n_subjects: int, n_support: int, seed: int = 0, lib=Non
     centre = np.asarray(COVARIATE_MODEL_CENTRE)
     sp = np.abs(centre[None, :] * (1.0 + 0.15 * rng.randn(n_support, 4)))
     ems = lib.AssayErrorModels().add(
-        0, lib.AssayErrorModel.additive(lib.ErrorPoly(0.1, 0.1), 1.0))
+        cp, lib.AssayErrorModel.additive(lib.ErrorPoly(0.1, 0.1), 1.0))
     return model, lib.Data(subjects), sp, ems
 
 
@@ -1071,14 +1074,17 @@ def stiff_case(name: str, n_subjects: int = 6, n_support: int = 12, seed: int = 
     return model, lib.Data(subjects), sp, ems
 
 
-def population_10k_case(n_subjects: int = 10000, seed: int = 7, lib=None):
+def population_10k_case(n_subjects: int = 10000, seed: int = 7, lib=None,
+                        named: bool = False):
     """The data of the JAX package's population fit
     (``benches/population_10k.py --fit``) rebuilt from numpy alone, in the
     same draw order from ``RandomState(seed)``: a bimodal 1-compartment oral
     population (ke around 0.08 or 0.35, ka around 1.2, v around 30), 100 mg
     at 0, 9 observations over 12 h with 10% proportional and 0.05 additive
-    noise, and the proportional error model the fit uses. Returns (data,
-    ems, seconds to build the subjects); the models of the fit are
+    noise, and the proportional error model the fit uses. ``named``: the
+    route and output are ``oral`` and ``cp`` (for a model written through
+    the authoring surfaces), else input and output 0. Returns (data, ems,
+    seconds to build the subjects); the models of the fit are
     :func:`population_models`."""
     import time
 
@@ -1096,16 +1102,17 @@ def population_10k_case(n_subjects: int = 10000, seed: int = 7, lib=None):
     conc = 100.0 * ka_ / (ka_ - ke_) * (np.exp(-ke_ * t_) - np.exp(-ka_ * t_)) / v_
     noisy = np.abs(conc * (1.0 + 0.1 * rng.randn(N, len(times)))
                    + 0.05 * rng.randn(N, len(times)))
+    oral, cp = ("oral", "cp") if named else (0, 0)
     t0 = time.perf_counter()
     subjects = []
     for i in range(N):
-        b = lib.Subject.builder(f"s{i}").bolus(0.0, 100.0, 0)
+        b = lib.Subject.builder(f"s{i}").bolus(0.0, 100.0, oral)
         for j, t in enumerate(times):
-            b = b.observation(float(t), float(noisy[i, j]), 0)
+            b = b.observation(float(t), float(noisy[i, j]), cp)
         subjects.append(b.build())
     data = lib.Data(subjects)
     ems = lib.AssayErrorModels().add(
-        0, lib.AssayErrorModel.proportional(lib.ErrorPoly(0.1, 0.1), 1.0))
+        cp, lib.AssayErrorModel.proportional(lib.ErrorPoly(0.1, 0.1), 1.0))
     return data, ems, time.perf_counter() - t0
 
 

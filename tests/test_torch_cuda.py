@@ -180,7 +180,7 @@ def test_rejected_rhs_routes_auto_to_general(cuda):
     """An RHS the CUDA generator rejects takes the general engine with the
     reason kept, and never a silent twin."""
     model = pt.ODE(
-        lambda x, p, t, b, r, cov: torch.stack([-p[0] * torch.sin(x[0]) + b[0]]),
+        lambda x, p, t, b, r, cov: torch.stack([-p[0] * torch.tanh(x[0]) + b[0]]),
         out=lambda x, p, t, cov: x[0:1] / p[1], nstates=1, ndrugs=1, nout=1)
     data = pt.Data([pt.Subject.builder("a").bolus(0.0, 100.0, 0)
                     .observation(1.0, 5.0, 0).build()])
@@ -190,7 +190,7 @@ def test_rejected_rhs_routes_auto_to_general(cuda):
     before = fused_ode.LAUNCHES
     psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
     decision = pt.last_engine_decision(model)
-    assert decision["engine"] == "general" and "`sin`" in decision["reason"]
+    assert decision["engine"] == "general" and "`tanh`" in decision["reason"]
     assert psi.device.type == "cuda" and torch.isfinite(psi).all()
     assert fused_ode.LAUNCHES == before
 
@@ -377,7 +377,7 @@ def test_sde_entry_point_launches_once(cuda):
 def test_sde_rejected_drift_routes_auto_to_general(cuda):
     from pharmsol_tpu_torch.ops import fused_sde
 
-    model = pt.SDE(lambda x, p, t, r, cov: torch.stack([-p[0] * torch.sin(x[0])]),
+    model = pt.SDE(lambda x, p, t, r, cov: torch.stack([-p[0] * torch.tanh(x[0])]),
                    lambda p, t, cov: [0.0], out=lambda x, p, t, cov: x[0:1] / p[1],
                    nparticles=16, nstates=1, ndrugs=1, nout=1)
     data = pt.Data([pt.Subject.builder("a").bolus(0.0, 100.0, 0)
@@ -387,7 +387,7 @@ def test_sde_rejected_drift_routes_auto_to_general(cuda):
     before = fused_sde.LAUNCHES
     psi = pt.log_likelihood_matrix(model, data, np.array([[0.2, 10.0]]), ems, device="cuda")
     decision = pt.last_engine_decision(model)
-    assert decision["engine"] == "general" and "`sin`" in decision["reason"]
+    assert decision["engine"] == "general" and "`tanh`" in decision["reason"]
     assert psi.device.type == "cuda" and torch.isfinite(psi).all()
     assert fused_sde.LAUNCHES == before
 

@@ -283,7 +283,7 @@ def _small():
 @pytest.mark.parametrize("what, match", [
     ("systematic", "stratified"),
     ("nonlinear_out", "linear"),
-    ("drift_sin", "`sin`"),
+    ("drift_sin", "`tanh`"),  # a function the generator does not take
     ("diffusion_if", "branches on a traced value"),
     ("particles", "particles"),
 ])
@@ -296,7 +296,7 @@ def test_plan_rejections_raise_and_auto_records_them(what, match, monkeypatch):
         model._out = lambda x, p, t, cov: (x[0:1] / p[1]) ** 2
         model._invalidate()
     elif what == "drift_sin":
-        model._drift = lambda x, p, t, r, cov: torch.stack([-x[1] * torch.sin(x[0]),
+        model._drift = lambda x, p, t, r, cov: torch.stack([-x[1] * torch.tanh(x[0]),
                                                             -(x[1] - p[0])])
         model._invalidate()
     elif what == "diffusion_if":

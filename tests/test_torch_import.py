@@ -67,6 +67,34 @@ def test_package_import_loads_no_jax():
                    cwd=str(PKG.parent))
 
 
+def test_authoring_surfaces_import_without_jax():
+    """The DSL package and the declarative API load no JAX module."""
+    code = ("import sys, pharmsol_tpu_torch.dsl, pharmsol_tpu_torch.dsl.interp, "
+            "pharmsol_tpu_torch.dsl.runtime, pharmsol_tpu_torch.dsl.pure, "
+            "pharmsol_tpu_torch.models.declarative, pharmsol_tpu_torch.utils.authoring_cases; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'pharmsol_tpu', 'triton')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=str(PKG.parent))
+
+
+@pytest.mark.parametrize("name", [
+    "analytical_model", "ode_model", "sde_model", "AnalyticalKernel", "CovariateDecl",
+    "metadata_new", "dsl.compile_model", "dsl.compile_module",
+    "dsl.compile_module_source_to_runtime", "dsl.load_runtime_artifact",
+    "dsl.save_artifact", "dsl.validate_artifact", "dsl.parse_model", "dsl.DslError",
+    "metadata.new", "metadata.Route", "metadata.CovariateDecl",
+])
+def test_authoring_names_match_the_jax_package(name):
+    """The JAX package's top-level names for the authoring surfaces exist in
+    the port under the same names (its ``__init__.py:38-48, :72-74``)."""
+    obj = pt
+    for part in name.split("."):
+        obj = getattr(obj, part)
+    assert obj is not None
+    assert pt.metadata.new("m").parameters(["ke"]) is not None
+
+
 def test_nvcc_command_targets_sm90a():
     cmd = _build.nvcc_command(Path("libfused_psi.so"))
     joined = " ".join(cmd)

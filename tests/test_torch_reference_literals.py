@@ -14,10 +14,11 @@ the residual error models (residual_error.rs), ADDL/II expansion and
 ``build_data`` (row.rs), the AUC helpers (auc.rs and nca/calc.rs's two
 segment literals), the Pmetrics CSV fixtures (pmetrics.rs, covariate.rs),
 covariate interpolation (covariate.rs), the event constructors (event.rs)
-and the model accessors over metadata (metadata.rs:1084-1123).
+the model accessors over metadata (metadata.rs:1084-1123) and the DSL
+analyzer's expectations (analyze.rs:2953-3091, ``_3.py``:764-815).
 
 Waiting for their slices: the NCA cases (nca/calc.rs, nca/tests.rs,
-nca/sparse.rs, nca/summary.rs), the DSL cases, the metadata builder's shape
+nca/sparse.rs, nca/summary.rs), the metadata builder's shape
 and validation cases, and the data container, sorting, lag/fa
 ``process_events``, ``expand`` and builder cases of structs.rs and
 builder.rs.
@@ -358,3 +359,49 @@ def test_model_accessors_over_metadata():
     assert model.metadata().route("iv").destination == "central"
     assert model.metadata().output_index("cp") == 0
     assert [label for label, _ in model.assay_error_models().items()] == ["cp"]
+
+
+# -- pharmsol-dsl/src/analyze.rs: the analyzer's expectations (:2953-3180) ----------
+
+_ANALYTICAL_OK = """
+name = analytical_ok
+kind = analytical
+params = ka, ke0, v
+derived = ke
+states = depot, central
+outputs = cp
+bolus(oral) -> depot
+ke = ke0
+structure = one_compartment_with_absorption
+out(cp) = central / v
+"""
+
+
+def test_analytical_structure_requirement_satisfied_by_derive():
+    """analyze.rs:2953-2979: derived `ke` satisfies the kernel requirement
+    and the plan binds one_compartment_with_absorption."""
+    rt = pt.dsl.compile_model(_ANALYTICAL_OK)
+    assert rt.analyzed.kernel_plan is not None
+    assert rt.analyzed.kernel_plan.kernel == "one_compartment_with_absorption"
+
+
+def test_analytical_structure_missing_name_suggests():
+    """analyze.rs:3036-3061: `kel` instead of `ke` -> requires `ke` with a
+    did-you-mean suggestion; `ka` and `kel` are both distance-1 from `ke`,
+    ties break lexicographically -> `ka`."""
+    src = _ANALYTICAL_OK.replace("params = ka, ke0, v", "params = ka, kel, v")
+    src = src.replace("derived = ke\n", "").replace("ke = ke0\n", "")
+    with pytest.raises(pt.dsl.DslError) as err:
+        pt.dsl.compile_model(src)
+    d = next(d for d in err.value.diagnostics if d.code == "DSL2030")
+    assert "requires" in d.message and "ke" in d.message
+    assert d.suggestion == "ka"
+
+
+def test_analytical_params_derive_overlap_rejected():
+    """analyze.rs:3063-3091 (+3227-3250): a name in both params and derived
+    is rejected."""
+    src = _ANALYTICAL_OK.replace("params = ka, ke0, v", "params = ka, ke, v")
+    with pytest.raises(pt.dsl.DslError) as err:
+        pt.dsl.compile_model(src)
+    assert any(d.code in ("DSL2029", "DSL2005") for d in err.value.diagnostics)

@@ -65,6 +65,16 @@ def _exotic(x, p, t, b, rateiv, cov):
     ]
 
 
+def _dsl_intrinsics(x, p, t, b, rateiv, cov):
+    # the DSL's intrinsics beyond exp/log/sqrt/abs/pow/min/max: floor, ceil,
+    # round (half to even), sin, cos, tan, log10, log2
+    k = p[0] * (1.0 + 0.1 * torch.sin(x[0]) + 0.1 * torch.cos(t) + 0.05 * torch.tan(0.2 * x[1]))
+    step = torch.floor(p[1]) + torch.ceil(0.5 * x[1]) - torch.round(2.0 * x[0])
+    return [-k * x[0] + b[0],
+            k * x[0] - 0.01 * step - torch.log10(1.0 + x[1]) * torch.log2(2.0 + x[0])
+            + rateiv[0]]
+
+
 def _covariates(x, p, t, b, rateiv, cov):
     # the reference's covariate example: ke * (crcl(t)/75)**0.75 * (age/25)**0.5
     ke = p[1] * (cov("crcl", t) / 75.0) ** 0.75 * (cov("age", t) / 25.0) ** 0.5
@@ -84,6 +94,7 @@ ACCEPTED = {
     "michaelis_menten": (_michaelis_menten, 1, 3, 1, ((), ())),
     "multi_input": (_multi_input, 3, 4, 2, ((), ())),
     "exotic": (_exotic, 3, 2, 1, ((), ())),
+    "dsl_intrinsics": (_dsl_intrinsics, 2, 2, 1, ((), ())),
     "covariates": (_covariates, 2, 4, 1, (("age", "crcl"), ("const", "affine"))),
     "covariates_const": (_covariates, 2, 4, 1, (("age", "crcl"), ("const", "const"))),
     "shifted_read": (_shifted_read, 1, 2, 1, (("wt",), ("affine",))),
@@ -158,7 +169,7 @@ def _in_place(x, p, t, b, rateiv, cov):
 
 
 def _unknown_op(x, p, t, b, rateiv, cov):
-    return torch.stack([-p[0] * torch.sin(x[0]) + b[0]])
+    return torch.stack([-p[0] * torch.tanh(x[0]) + b[0]])
 
 
 def _covariate(x, p, t, b, rateiv, cov):
@@ -168,7 +179,7 @@ def _covariate(x, p, t, b, rateiv, cov):
 REJECTED = {
     "python_if": (_if_on_state, "branches on a traced value"),
     "in_place": (_in_place, "in place"),
-    "unknown_op": (_unknown_op, "`sin`"),
+    "unknown_op": (_unknown_op, "`tanh`"),
     # a covariate the data does not carry (here: none)
     "covariate": (_covariate, "unknown covariate `wt`"),
 }
@@ -194,7 +205,7 @@ def _zeros_like_style(x, p, t, b, rateiv, cov):
 
 @pytest.mark.parametrize("name, reason, general_runs", [
     ("python_if", "branches on a traced value", False),
-    ("unknown_op", "`sin`", True),
+    ("unknown_op", "`tanh`", True),
     ("zeros_like_style", "`zeros_like`", True),
 ])
 def test_auto_records_the_rejection(name, reason, general_runs, monkeypatch):
@@ -460,7 +471,8 @@ def test_every_traced_operation_has_a_rule_or_is_boolean():
     from pharmsol_tpu_torch.ops import rhs_codegen as rc
 
     numeric = (set(rc._ARITH) | {"pow", "min", "max", "neg", "exp", "log", "sqrt", "abs",
-                                 "where", "cast"})
+                                 "where", "cast", "floor", "ceil", "round", "sin", "cos",
+                                 "tan", "log10", "log2"})
     assert numeric <= set(rc._JVP_RULES)
     with pytest.raises(PharmsolError, match="`sinh` has no derivative rule"):
         rc.tangents([rc.Sym("sinh", (rc.Sym("x", value=0),))])
@@ -568,7 +580,7 @@ def test_sde_generator_reads_covariates():
 
 
 @pytest.mark.parametrize("which, fn, reason", [
-    ("drift", lambda x, p, t, r, cov: torch.stack([-p[0] * torch.sin(x[0]), -x[1]]), "`sin`"),
+    ("drift", lambda x, p, t, r, cov: torch.stack([-p[0] * torch.tanh(x[0]), -x[1]]), "`tanh`"),
     ("drift", lambda x, p, t, r, cov: [-p[0] * x[0]], "returns 1 components, expected 2"),
     ("diffusion", lambda p, t, cov: [0.0, p[0] if p[0] > 0 else 0.0],
      "branches on a traced value"),

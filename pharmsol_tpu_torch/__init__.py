@@ -18,7 +18,11 @@ and the per-subject batch log-likelihood (``log_likelihood_batch``) over the
 general engine's segment march; and the authoring surfaces: the runtime
 model DSL (``dsl.compile_model``, ``.pkm`` artifacts) and the declarative
 API (``ode_model``, ``analytical_model``, ``sde_model``), whose models run
-through the same engines and kernels.
+through the same engines and kernels; and the estimation layer beside NPAG:
+the differentiable likelihood (``log_likelihood_fn`` on every model class,
+continuous forward sensitivities for the adaptive ODE solvers in
+``engine/sens.py``) and ``optimize.fit_map``, ``fit_laplace``,
+``laplace_standard_errors`` and ``fit_saem``.
 
 The entry points run on the card (``"cuda"``) unless the caller asks for
 the CPU with ``set_device("cpu")`` or ``device="cpu"``. The working dtype

@@ -317,6 +317,12 @@ def _erk_segment(f: Callable, x0, t0, t1, opts: ODEOptions, A, B, E, C,
     return _poison_if_unfinished(x, t, t1), hmax
 
 
+def dopri5_segment(f: Callable, x0, t0, t1, opts: ODEOptions, h_start=None):
+    """One segment by Dormand-Prince 5(4): :func:`_erk_segment` with its
+    tableau (the JAX package's ``engine/ode.py::dopri5_segment``)."""
+    return _erk_segment(f, x0, t0, t1, opts, *TABLEAUS["dopri5"], h_start=h_start)
+
+
 # -- ESDIRK (Kvaerno, TR-BDF2) implicit methods ----------------------------------
 
 
@@ -414,6 +420,17 @@ def _esdirk_segment(f: Callable, jac: Callable, x0, t0, t1, opts: ODEOptions,
         steps = steps + active.to(steps.dtype)
         active = cond(t, h, steps)
     return _poison_if_unfinished(x, t, t1), hmax
+
+
+def kvaerno3_segment(f: Callable, jac: Callable, x0, t0, t1, opts: ODEOptions,
+                     h_start=None):
+    """One segment by Kvaerno 3/2 (``engine/ode.py::kvaerno3_segment``);
+    ``jac(x, t)`` is the RHS's state Jacobian, which the JAX stepper takes
+    by forward mode itself. The other named steppers of the JAX package
+    are the same calls with the tableaus of ``TABLEAUS``,
+    ``SDIRK_TABLEAUS`` and :func:`_bdf_segment`."""
+    return _esdirk_segment(f, jac, x0, t0, t1, opts, **SDIRK_TABLEAUS["kvaerno3"],
+                           h_start=h_start)
 
 
 # -- BDF (variable order 1-5, fixed leading coefficient) -----------------------
@@ -701,6 +718,20 @@ def lane_jacobian(diffeq: Callable, nstates: int, cov):
     return _over_lanes(jacfwd(_lane_closure(diffeq, nstates, cov.names), argnums=0), cov)
 
 
+def _lanes_at_once(diffeq: Callable, nstates: int):
+    """``f(x, p, t, rateiv)`` of a closure that takes every lane at once
+    (``diffeq.lanes``, the sensitivity tower's straight-line programs):
+    shared parameters [S, P] broadcast over the rows, no vmap."""
+
+    def over(x, p, t, rateiv):
+        if p.dim() == x.dim() - 1:
+            p = p.unsqueeze(-2)
+        dx = diffeq(x, p, t, torch.zeros_like(rateiv), rateiv, None)
+        return dx.expand(x.shape[:-1] + (nstates,))
+
+    return over
+
+
 def lane_rhs(diffeq: Callable, nstates: int, cov):
     """``f(x, p, t, rateiv)`` on lanes ``[S, R]``: the per-(state, parameter)
     closure ``diffeq(x, p, t, b, rateiv, cov)`` vmapped over supports (outer)
@@ -709,7 +740,10 @@ def lane_rhs(diffeq: Callable, nstates: int, cov):
     ``t`` [S, R], ``rateiv`` [S, R, ninput]. ``cov`` holds every row's
     covariate knots (a :class:`~.grid.CovView` whose tensors lead with the
     row axis R); the closure sees its row's view, rebuilt inside the row
-    vmap."""
+    vmap. A closure marked ``lanes`` (it reads no covariate and takes any
+    leading dims) is called once on every lane instead."""
+    if getattr(diffeq, "lanes", False):
+        return _lanes_at_once(diffeq, nstates)
     return _over_lanes(_lane_closure(diffeq, nstates, cov.names), cov)
 
 

@@ -146,7 +146,6 @@ class SegmentMarch:
 
     def __init__(self, spec: ModelSpec, occ: OccasionArrays, p: torch.Tensor,
                  cov_names=(), per_row: bool = False):
-        fd = p.dtype
         names = tuple(cov_names)
         if per_row:
             p = p.unsqueeze(0)  # [1, R, P]: one cell per row
@@ -161,10 +160,7 @@ class SegmentMarch:
         nout = spec.nout
 
         def out_one(x, pp, t, *knots):
-            y = spec.out(x, pp, t, CovView(*knots, names))
-            if not isinstance(y, torch.Tensor):
-                y = torch.as_tensor(y, dtype=fd)
-            return y.to(fd).reshape(nout)
+            return as_vector(spec.out(x, pp, t, CovView(*knots, names)), x).reshape(nout)
 
         self._out_b = self.cells(out_one, (0, 0, sd), (0, pr, 0))
         # the outputs at the observation slots [S, R, NO]: one more inner vmap

@@ -15,8 +15,12 @@ reference ``Equation`` trait, equation/mod.rs:377-577):
 Each single-subject call runs the general engine's segment march
 (``engine/sim.py``) on one row per occasion, on the card unless the caller
 passes ``device="cpu"`` or has called ``set_device("cpu")``; the results
-come back to the host as Python floats. The differentiable surface of the
-JAX package (``log_likelihood_fn``) is not ported.
+come back to the host as Python floats.
+
+``log_likelihood_fn(data, error_models)`` is the differentiable surface: a
+torch function of the dense parameter vector that ``torch.autograd`` and
+``torch.func`` differentiate (the closed forms and ``expm`` end to end; the
+adaptive ODE steppers through their own masked loop, by ``torch.autograd``).
 
 Label resolution parity (equation/mod.rs:195-273): with metadata attached,
 route/output labels resolve by name (with ``input_<n>``/``outeq_<n>`` numeric
@@ -274,6 +278,74 @@ class EquationBase:
         p = torch.as_tensor(_as_dense_params(parameters), dtype=fd, device=dev)
         em = lowered_tensors(lowered_em, dev, fd)
         return self._ll_rows(_device_rows(grid, dev, fd), p[None], *em, grid.cov_names)[0]
+
+    # -- the differentiable surface ------------------------------------------------------
+    def log_likelihood_fn(self, data, error_models: AssayErrorModels,
+                          per_subject: bool = False, device=None) -> Callable:
+        """A differentiable function ``params -> log-likelihood``.
+
+        The counterpart of the JAX package's ``log_likelihood_fn``
+        (``models/equation.py:391``): the event grid is lowered once on the
+        host and the returned closure is a torch function of the dense
+        parameter vector [n_params] (model order) on ``device`` (default:
+        the card) that ``torch.autograd`` and ``torch.func`` differentiate.
+        ``data`` is a Data or one Subject; returns the total log-likelihood
+        (a scalar) or with ``per_subject=True`` one per subject
+        [n_subjects], with observation-based sigma (the psi cell).
+
+        The closed forms and ``expm`` (a Taylor chain of ordinary torch
+        operations, so no rolled copy is needed) are differentiable in
+        either mode. The adaptive ODE steppers march a masked Python loop:
+        ``torch.autograd`` differentiates it (the derivative of the discrete
+        march, which ``jax.jacfwd`` gives in the JAX package);
+        ``torch.func.jacfwd`` cannot batch its loop. SDE likelihoods
+        (particle resampling) are not differentiable.
+        """
+        ll_rows, (rows, kind, factor, poly), row_subject, n_subjects, _ = \
+            self._ll_fn_parts(data, error_models, device=device)
+        dev, fd = rows.obs_t.device, float_dtype()
+
+        def fn(p):
+            p = (p.to(device=dev, dtype=fd) if isinstance(p, torch.Tensor)
+                 else torch.as_tensor(np.asarray(p, dtype=np.float64), dtype=fd, device=dev))
+            lls = ll_rows(rows, p, kind, factor, poly)
+            if per_subject:
+                return lls.new_zeros(n_subjects).index_add(0, row_subject, lls)
+            return lls.sum()
+
+        return fn
+
+    def _ll_fn_parts(self, data, error_models: AssayErrorModels, device=None):
+        """The lowering behind :meth:`log_likelihood_fn` and the gradient
+        fitters (the JAX package's ``_ll_fn_parts``, :429).
+
+        Returns ``(ll_rows, operands, row_subject, n_subjects, key)``:
+        ``ll_rows(rows, p, kind, factor, poly) -> per-row lls [R]`` is a
+        pure function of its operands, the lowered data travelling as
+        arguments, so a caller can run it on another Data of the same
+        shapes; ``operands = (rows, kind, factor, poly)`` for this data on
+        ``device``; ``key`` names the program's structure (the covariate
+        layout) for caches kept on the model.
+        """
+        from ..likelihood.matrix import (
+            _device_rows,
+            check_error_model_coverage,
+            lowered_tensors,
+        )
+
+        dev, fd = resolve_device(device), float_dtype()
+        subjects = list(data.subjects()) if hasattr(data, "subjects") else [data]
+        grid = self.lower(subjects)
+        lowered = error_models.lower(self.resolve_output_label, self._nout)
+        check_error_model_coverage(grid, lowered)
+        names = tuple(grid.cov_names)
+
+        def ll_rows(rows, p, kind, factor, poly):
+            return self._ll_rows(rows, p.unsqueeze(0), kind, factor, poly, names)[0]
+
+        operands = (_device_rows(grid, dev, fd),) + lowered_tensors(lowered, dev, fd)
+        row_subject = torch.as_tensor(np.asarray(grid.row_subject, dtype=np.int64), device=dev)
+        return ll_rows, operands, row_subject, int(grid.n_subjects), names
 
     # -- public API (reference Equation trait) ------------------------------------------
     def _cache_key(self, *parts, device) -> Optional[tuple]:

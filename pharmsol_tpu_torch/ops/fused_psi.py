@@ -1042,12 +1042,15 @@ def extract_linear_out(out_fn, support, n_states: int, n_out: int, cov,
     """
     from torch.func import vmap
 
+    from ..engine.sim import as_vector
+
     sp = torch.as_tensor(np.asarray(support, dtype=np.float64)).to(dtype)
+    like = torch.zeros((), dtype=dtype)
 
     def as_vec(v):
-        if not isinstance(v, torch.Tensor):
-            v = torch.as_tensor(v, dtype=dtype)
-        return v.to(dtype).reshape(n_out)
+        # a list of components (a support batch's tensors, Python constants)
+        # is stacked, as the general engine's outputs are
+        return as_vector(v, like).reshape(n_out)
 
     def eval_all(t):
         tt = torch.tensor(t, dtype=dtype)

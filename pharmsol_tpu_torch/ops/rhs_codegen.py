@@ -649,16 +649,18 @@ _JVP_RULES = {
 }
 
 
-def tangents(outputs: List[Sym], wrt: str = "x", seed: str = "v") -> List[Sym]:
+def tangents(outputs: List[Sym], wrt: str = "x", seed: str = "v",
+             seed_offset: int = 0) -> List[Sym]:
     """Forward-mode tangents of ``outputs`` with respect to the leaf vector
     ``wrt``: Syms computing ``(d outputs / d wrt) @ seed`` from the leaves
-    and the new leaf vector ``seed``. Raises PharmsolError naming an
+    and the new leaf vector ``seed`` (element i of ``wrt`` seeded by element
+    ``i + seed_offset`` of ``seed``). Raises PharmsolError naming an
     operation that has no derivative rule."""
     tan = {}
 
     def get(node):
         if node.op == wrt:
-            return Sym(seed, value=node.value)
+            return Sym(seed, value=node.value + seed_offset)
         return tan.get(id(node))
 
     for node in _topo(outputs):

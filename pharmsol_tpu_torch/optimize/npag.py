@@ -144,14 +144,14 @@ def fit_population(
     the reference's shallow Nelder-Mead point refinement
     (optimize/parameters.rs:19-120) before the last weight solve.
     ``mesh``: the JAX package shards psi over the devices of a mesh; the
-    port has no multi-device split yet (ROADMAP Queue 1 item 14), so
+    port has no multi-device split yet (ROADMAP Queue 1 item 10), so
     anything but ``None`` raises. ``device``: where psi and the burn-in
     run, the card unless the caller asks for the CPU.
     """
     if mesh is not None:
         raise PharmsolError(
             "fit_population(mesh=...) is not ported: the multi-device split "
-            "is ROADMAP Queue 1 item 14; pass mesh=None"
+            "is ROADMAP Queue 1 item 10; pass mesh=None"
         )
     dev = resolve_device(device)
     names: Optional[tuple] = None

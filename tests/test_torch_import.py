@@ -43,7 +43,7 @@ def test_module_imports_no_jax_and_no_toplevel_triton(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for name, top in _imports(tree):
         root = name.split(".")[0]
-        assert root not in ("jax", "jaxlib", "pharmsol_tpu"), (path, name)
+        assert root not in ("jax", "jaxlib", "optax", "pharmsol_tpu"), (path, name)
         if root == "triton":
             assert not top, f"{path}: triton imported at module level"
 
@@ -59,9 +59,13 @@ def test_package_import_loads_no_jax():
             "pharmsol_tpu_torch.parameters, pharmsol_tpu_torch.utils.profiling, "
             "pharmsol_tpu_torch.data.pmetrics, pharmsol_tpu_torch.data.row, "
             "pharmsol_tpu_torch.data.serde, pharmsol_tpu_torch.data.auc, "
-            "pharmsol_tpu_torch.likelihood.prediction, pharmsol_tpu_torch.likelihood.progress; "
+            "pharmsol_tpu_torch.likelihood.prediction, pharmsol_tpu_torch.likelihood.progress, "
+            "pharmsol_tpu_torch.engine.sens, pharmsol_tpu_torch.optimize.map, "
+            "pharmsol_tpu_torch.optimize.laplace, pharmsol_tpu_torch.optimize.fim, "
+            "pharmsol_tpu_torch.optimize.saem, pharmsol_tpu_torch.optimize._lbfgs, "
+            "pharmsol_tpu_torch.optimize._condll, pharmsol_tpu_torch.optimize._coveffects; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'pharmsol_tpu', 'triton')]; "
+            "('jax', 'jaxlib', 'optax', 'pharmsol_tpu', 'triton')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True,
                    cwd=str(PKG.parent))
@@ -198,8 +202,14 @@ def test_defaults_are_cpu_and_float64():
 def test_entry_points_default_to_the_card():
     """With no device= and no set_device the entry points run on the card:
     in a fresh interpreter on a machine without one they raise instead of
-    running on the CPU. So do the single-subject API, the per-subject batch
-    and population_predictions; with device="cpu" they run."""
+    running on the CPU. So do the single-subject API, the per-subject batch,
+    population_predictions, log_likelihood_fn and the estimation layer
+    (fit_map, fit_laplace, fit_saem); with device="cpu" they run."""
+    import inspect
+
+    for fn in (pt.optimize.fit_map, pt.optimize.fit_laplace, pt.optimize.fit_saem,
+               pt.ODE.log_likelihood_fn):
+        assert list(inspect.signature(fn).parameters)[-1] == "device", fn
     code = (
         "import numpy as np, torch, pharmsol_tpu_torch as pt\n"
         "from pharmsol_tpu_torch.likelihood.prediction import population_predictions\n"
@@ -212,11 +222,20 @@ def test_entry_points_default_to_the_card():
         "    0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))\n"
         "rems = pt.ResidualErrorModels().add(0, pt.ResidualErrorModel.combined(0.5, 0.1))\n"
         "sp = np.array([[0.2, 10.0]])\n"
+        "s2 = pt.Subject.builder('b').bolus(0.0, 90.0, 0).observation(1.0, 6.0, 0).build()\n"
+        "d2 = pt.Data([s, s2])\n"
+        "opt = pt.optimize\n"
         "calls = [lambda **kw: pt.log_likelihood_matrix(m, d, sp, ems, **kw),\n"
         "         lambda **kw: m.estimate_predictions(s, sp[0], **kw),\n"
         "         lambda **kw: m.estimate_log_likelihood(s, sp[0], ems, **kw),\n"
         "         lambda **kw: pt.log_likelihood_batch(m, d, sp, rems, **kw),\n"
-        "         lambda **kw: population_predictions(m, [s], sp, **kw)]\n"
+        "         lambda **kw: population_predictions(m, [s], sp, **kw),\n"
+        "         lambda **kw: m.log_likelihood_fn(d, ems, **kw)(sp[0]),\n"
+        "         lambda **kw: opt.fit_map(m, d, ems, sp[0], max_iters=1, **kw),\n"
+        "         lambda **kw: opt.fit_laplace(m, d2, rems, sp[0], max_iters=1,\n"
+        "                                      compute_se=False, inner_steps=2, **kw),\n"
+        "         lambda **kw: opt.fit_saem(m, d2, rems, sp[0], n_burn=1, n_iters=1,\n"
+        "                                   mh_steps=1, **kw)]\n"
         "if not torch.cuda.is_available():\n"
         "    for call in calls:\n"
         "        try:\n"

@@ -143,7 +143,7 @@ def test_fit_population_named_ranges_and_refine():
 
 
 def test_fit_population_a_mesh_raises():
-    with pytest.raises(PharmsolError, match="Queue 1 item 14"):
+    with pytest.raises(PharmsolError, match="Queue 1 item 10"):
         fit_population(_model(), _population(1), _ems(), RANGES, init_points=8,
                        mesh=object())
 

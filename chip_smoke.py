@@ -80,7 +80,7 @@ printing its own lines; any failure raises and the exit code is not 0:
    calls each with fresh supports, each taking the fused engine with exactly
    one K3a launch and giving psi of the right shape without NaN;
 7. K3a alone at full width and one end-to-end call with its steps; its
-   bound at full width from the float64 twin's trials on 8 subjects spread
+   bound at full width from the float64 twin's trials on 2 subjects spread
    over the cell x 64 supports (kernel and twin held to each other there),
    recounted with Philox's integer work at the card's INT32 rate and printed
    beside the floating-point-only count; the four-particles-a-thread
@@ -134,10 +134,10 @@ printing its own lines; any failure raises and the exit code is not 0:
     package's ``benches/stiff_bench.py``, its 16 subjects widened) through
     the public entry point: bdf and trbdf2 three calls per dtype, kvaerno3
     and kvaerno5 one, each on the fused engine with exactly one K2c or K2b
-    launch; float64 held against the general engine within 1e-3 on 256
-    subjects (bdf, trbdf2) or 64 (kvaerno3; kvaerno5 against the kvaerno3
-    general engine, what it leaves its own by printed); the same call with
-    dopri5 on 256 subjects, to count the cells the explicit tier loses;
+    launch; float64 held within 1e-3 against the bdf general engine on 256
+    subjects (every solver: the same equations at the same tolerances); the
+    same call with dopri5 on 256 subjects, to count the cells the explicit
+    tier loses;
 15. K2b's and K2c's times there per solver and dtype, the twin on 10
     subjects spread over the population (two of each dose class, the last
     subject among them) x 512 supports, timed alone for bdf in float64, the
@@ -162,7 +162,7 @@ printing its own lines; any failure raises and the exit code is not 0:
     on central with sigma in 0.02-0.2, 100 mg at 0, 2 and 4 h) through the
     public entry point, three calls per dtype, each exactly one K3b launch,
     psi finite;
-18. K3b's time there, kernel and twin on 8 spread subjects x 64 supports
+18. K3b's time there, kernel and twin on 2 spread subjects x 64 supports
     (held to each other), the general engine there (float64), one
     end-to-end call with the plan's share, the bound from the twin's trials
     (recounted as in 7) and its kernels' registers, resident blocks and
@@ -182,8 +182,8 @@ printing its own lines; any failure raises and the exit code is not 0:
     share and bounds;
 21. lag_post (lag with a time-varying seq) at the widest population that
     ``plans/seq.py::_MAX_PLANE_FLOATS`` admits for the Covariate Short model
-    with a time-varying weight, one call per dtype, held against the general
-    engine on 256 subjects;
+    with a time-varying weight, one float64 call, held against the general
+    engine on 256 subjects, and one float32 call on a quarter of them;
 22. the single-subject API and the per-subject batch log-likelihood on the
     card (the general engine's segment march: no kernel of the table runs
     here, and the launch counts stay 0): the 16 reference scenarios of
@@ -199,10 +199,11 @@ printing its own lines; any failure raises and the exit code is not 0:
     (float64 1e-10 relative, float32 within the closed form's budget row of
     the float64 result) and against ``estimate_predictions`` plus
     ``ResidualErrorModels.total_log_likelihood`` on 8 (float64 1e-10); the
-    README SDE's predictions for one subject at 1000 particles (finite; at
-    zero diffusion the CPU's within 1e-9) and the covariate ODE example's
-    (the CPU's within 1e-10); then CUDA-event times, after warm-up with the
-    lowering cached and the prediction cache off, of one
+    README SDE's predictions for one subject at 1000 particles (finite, float32
+    on its first two observations; at zero diffusion the CPU's within 1e-9)
+    and the covariate ODE example's (the CPU's within 1e-10); then
+    CUDA-event times per dtype (float32 at a quarter of the repetitions),
+    after warm-up with the lowering cached and the prediction cache off, of one
     ``estimate_predictions`` (a Short subject, closed form and ODE), one
     ``estimate_log_likelihood`` and one ``log_likelihood_batch`` at 10 000
     subjects with its host and device parts;
@@ -244,18 +245,54 @@ printing its own lines; any failure raises and the exit code is not 0:
     of the dopri5 Laplace path through the forward sensitivities (the JAX
     package's adaptive-ODE Laplace test's 4 subjects and settings, 2 of its
     15 outer iterations, then the SEs there: not a converged fit);
-    ``fit_saem`` at its defaults on the 200 subjects (the CPU generator's
+    ``fit_saem`` on the 200 subjects (50 burn-in and 25 averaging
+    iterations, a quarter of its defaults) (the CPU generator's
     draws on both: the ll trace's first 20 entries 1e-8, estimates 1e-6,
     the MH decisions that flipped, seconds, the iteration loop's ms per
     iteration, the card's busy share of one iteration by
-    ``torch.profiler``).
+    ``torch.profiler``);
+25. the replicate layer in float64 on the card, each result held against
+    the CPU (``run_diagnostics``: the card's timed calls first, alone, then
+    the CPU references in one-thread worker processes beside the untimed
+    card checks), no kernel of the table launched, the closed-form Laplace
+    objective's evaluations replayed from CUDA graphs:
+    ``bootstrap_laplace`` (200 replicates), ``sse_laplace`` (200), ``vpc``
+    (500) and ``npde`` (1000) of the bootstrap's full fit, ``llp`` (the
+    default grid, 48 lanes) on phase 24's 200 subjects, and ``scm`` on the
+    JAX package's ``tests/test_scm.py`` population (20 subjects, the weight
+    and noise candidates; its fits cut to ``DIAG_SCM_MAX_ITERS`` outer
+    iterations and its screens to ``DIAG_SCM_REFIT_ITERS`` steps), the
+    refits cut to ``DIAG_REFIT_ITERS`` L-BFGS steps and the SSE and llp fits
+    warm-started at the bootstrap's, without standard errors; the timed
+    work alone: the calls, one batched objective + gradient at B = 200 x 200
+    subjects, eager and replayed (host clock, CUDA events; the card busy
+    for the replay's event time), 8 lanes refitted one at a time (B = 1)
+    against all 200 at once;
+    then the CPU references; the bootstrap's first 8 lanes against
+    those lanes refitted alone on the card (1e-10), the first 8 lanes of the
+    bootstrap and the SSE and llp's ``DIAG_LLP_HELD`` lanes against the CPU
+    (1e-8), the SSE simulations against the CPU's (1e-10), vpc and npde
+    (1e-9), scm's effects and final log-likelihood (1e-6);
+    In a whole run phases 24 and 25 time their card work one after the
+    other and then share one window of CPU references (``RefWindow``);
+26. ``batch_nca_device`` on the card in float64 at the JAX package's 5000
+    x 32 test profiles and at 100 000 x 32, its ms by CUDA events, then
+    every key against the host ``batch_nca`` within 1e-9 relative; no
+    kernel of the table.
 
 The earlier paths were cut to make room for 16-21 (each cut prints its
 time beside the time before it): phase 14's general engine on 64 subjects
 for kvaerno3 and kvaerno5, phase 15's twin timed alone for bdf in float64
 only, phase 5's SDE twin on two observations, and phase 13's (and the
 build's) stiff cases: the TMDD under every solver, every other case under
-one solver in turn.
+one solver in turn. And for 25-26: phase 14's four solvers held to bdf's
+general engine on 256 subjects (trbdf2 and kvaerno3 had their own), by
+depth the SDE twins of phases 7 and 18 on 2 spread subjects, phase 21's
+float32 lag_post call on a quarter of its subjects, phase 22's float32
+README SDE on two observations and its float32 times at a quarter of the
+repetitions, phase 23's declarative SDE twin on one observation, phase 24's
+SAEM fit at a quarter of its default iterations, the SDE kernels of 7 and 18 timed
+once, the plans' profiles of 4, 8 and 20 in float64 only.
 
 ``--only stiff`` runs phases 0, 1 (the stiff libraries alone) and 13-15, for
 work on K2b or K2c; ``--only explicit`` phases 0, 1 (the explicit tier's
@@ -271,7 +308,8 @@ per cell the issue slots per cell-segment), for work on K1a, K1b or K1c;
 ``--only single`` phases 0 and 22 (no library is built); ``--only
 authoring`` phases 0, 1 (the closed-form library and the ODE and SDE
 libraries of phase 23's models) and 23; ``--only estimation`` phases 0 and
-24 (no library is built). A partial run's
+24, ``--only diagnostics`` phases 0 and 25, ``--only nca`` phases 0 and 26
+(no library is built). A partial run's
 last line is ``{"ok": true, "partial": ...}``, not the whole script's
 verdict.
 
@@ -406,7 +444,7 @@ K1C_RECORD = {
 # over the population) for the kernel-vs-twin check and the bound's counts;
 # the same for the K3a cell
 SDE_COV_FULL = (256, 64)
-SDE_TWIN_ROWS = 8
+SDE_TWIN_ROWS = 2
 # the K1c cells: lag with a seq chain deeper than one, and a lag and an fa
 # that read a time-varying creatinine; the subjects of their check against
 # the general engine; the ragged shape of the kernel-vs-twin check; and the
@@ -416,13 +454,17 @@ K1C_DYN_SHAPE = (10000, 1000)
 K1C_CHECK_ROWS = 2048
 K1C_RAGGED = (257, 300)
 K1C_POST_S = 512
+# the lag_post float32 call on a quarter of those subjects (its plan's lane
+# walk is host time that goes with the width)
+K1C_POST_F32_SHARE = 4
 # the stiff cell: the TMDD of benches/stiff_bench.py, subjects x supports; the
 # subjects of its check against the general engine, and of its twin
 STIFF_SHAPE = (16384, 512)
 STIFF_CHECK_ROWS = 256
-# kvaerno3 and kvaerno5, whose general engine is the slowest, are held on
-# fewer subjects (kvaerno5 to kvaerno3's general engine)
-STIFF_CHECK_ROWS_BY_SOLVER = {"kvaerno3": 64, "kvaerno5": 64}
+# the general engine that holds each solver's kernel in phase 14: bdf's, the
+# fastest, for all four (the same equations at the same tolerances; trbdf2's
+# and kvaerno3's own took 23.1 and 35.2 s on 16 subjects: PERF.md §6)
+STIFF_ORACLE = "bdf"
 # the stiff check cases at 64 x 48: the TMDD under every solver, each other
 # case of STIFF_CASES under one, in turn (every tier compared on three or
 # more cases, with the libraries of the TMDD header and one per other case)
@@ -430,9 +472,10 @@ STIFF_ALL_SOLVER_CASES = ("tmdd",)
 # what the cut parts of this script's earlier paths took before the cuts (its
 # previous version on an NVIDIA H100 80GB HBM3 at 700 W, on a faster and a
 # slower host), printed beside what they take now: phase 14's general-engine
-# oracles (with kvaerno5's own on 64 subjects; before that, 256 subjects
-# each), phase 15's twins timed alone, phase 5's SDE twin, the build
-BEFORE_CUTS_S = {"oracles": (83.1, 76.3, 114.3), "twins_alone": 49.0, "sde_twin": (75.0, 90.0),
+# oracles (trbdf2's and kvaerno3's own on 256 and 64 subjects), phase 15's
+# twins timed alone, phase 5's SDE twin, the build
+BEFORE_CUTS_S = {"oracles_256": (42.6, 83.1),
+                 "twins_alone": 49.0, "sde_twin": (75.0, 90.0),
                  "build": (119.88, 164.20)}
 STIFF_TWIN_ROWS = 10
 STIFF_CHECK_SHAPE = (64, 48)
@@ -1335,11 +1378,14 @@ def phase_ode_feature_times(pt, label, model, data, ems, t_build, card: str) -> 
             "plan": wall_ms(build_plan, 3),
             "finalize": cuda_ms(lambda: plan.finalize(psi_rows), 10),
         }
-        prof = cProfile.Profile()
-        prof.runcall(build_plan)
-        top = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][3])
-        top = [(fn, st[3] * 1e3) for (path, _, fn), st in top
-               if "pharmsol_tpu_torch" in path and fn != "__init__"][:6]
+        # the plan's costliest calls, in float64
+        top = []
+        if dtype == torch.float64:
+            prof = cProfile.Profile()
+            prof.runcall(build_plan)
+            top = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][3])
+            top = [(fn, st[3] * 1e3) for (path, _, fn), st in top
+                   if "pharmsol_tpu_torch" in path and fn != "__init__"][:6]
         ops = counts["steps"] * ode_step_ops(model)
         nbytes = plan_bytes(plan, kw, n, S)
         t["bound"], t["bound_by"] = bound(nbytes, ops, dtype)
@@ -1351,8 +1397,9 @@ def phase_ode_feature_times(pt, label, model, data, ems, t_build, card: str) -> 
             f"x {S}  ({card})")
         log(f"[8] {label} {d} end_to_end parts (ms): " + ", ".join(
             f"{k} {v:.3f}" for k, v in parts.items()))
-        log(f"[8] {label} {d} plan, costliest calls (ms, cumulative, profiled): "
-            + ", ".join(f"{fn} {ms:.1f}" for fn, ms in top))
+        if top:
+            log(f"[8] {label} {d} plan, costliest calls (ms, cumulative, profiled): "
+                + ", ".join(f"{fn} {ms:.1f}" for fn, ms in top))
         log(f"[8] {label} {d} shares of end_to_end: kernel {t['kernel'] / t['end_to_end']:.4f}, "
             f"plan {parts['plan'] / t['end_to_end']:.4f}, lowering lookup "
             f"{parts['lower_cached'] / t['end_to_end']:.4f}, finalize "
@@ -1803,7 +1850,8 @@ def phase_sde_times(pt, label, model, data, card: str) -> dict:
         pt.set_float_dtype(dtype)
         d = str(dtype)[6:]
         plan = sde_plan_for(model, data, sp, ems, dtype)
-        kernel = cuda_ms(lambda: run_sde_kernel(plan), 2, 1)
+        # one run (1.8-3.3 s), the kernel warm from phase 6
+        kernel = cuda_ms(lambda: run_sde_kernel(plan), 1, 0)
         e2e = wall_ms(lambda: pt.log_likelihood_matrix(model, data, sp, ems, device="cuda"), 1, 0)
         psi_rows = run_sde_kernel(plan)
         parts = {
@@ -2534,14 +2582,16 @@ def phase_feature_times(pt, workload, ems, card: str, kernel: str = "K1b",
             run_twin_counted()
         nbytes, ops = psi_work(plan, counts)
         t["bound"], t["bound_by"] = bound(nbytes, ops, dtype)
-        # where the plan's host time goes: its costliest calls, once
-        prof = cProfile.Profile()
-        prof.runcall(build_plan)
-        top = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][3])
-        top = [(fn, st[3] * 1e3) for (path, _, fn), st in top
-               if "pharmsol_tpu_torch" in path and fn != "__init__"][:6]
-        log(f"[{phase}] {label} {str(dtype)[6:]} plan, costliest calls (ms, cumulative, profiled): "
-            + ", ".join(f"{fn} {ms:.1f}" for fn, ms in top))
+        # where the plan's host time goes: its costliest calls, once, in
+        # float64
+        if dtype == torch.float64:
+            prof = cProfile.Profile()
+            prof.runcall(build_plan)
+            top = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][3])
+            top = [(fn, st[3] * 1e3) for (path, _, fn), st in top
+                   if "pharmsol_tpu_torch" in path and fn != "__init__"][:6]
+            log(f"[{phase}] {label} {str(dtype)[6:]} plan, costliest calls (ms, cumulative, "
+                f"profiled): " + ", ".join(f"{fn} {ms:.1f}" for fn, ms in top))
         cells = len(data) * S
         for k in ("kernel", "twin", "end_to_end"):
             log(f"[{phase}] {label} {d} {k:10s} {t[k]:10.3f} ms  {cells / (t[k] * 1e-3):.4g} "
@@ -3610,14 +3660,12 @@ def phase_stiff_slice(pt, rng) -> tuple:
     supports, kvaerno3 and kvaerno5 one call per dtype; each on the fused
     engine with exactly one K2c (bdf) or K2b launch and no other, psi of the
     right shape without NaN, the share of -inf cells printed; float64 held
-    against the general engine on the first 256 subjects, over the supports
-    the fused engine lost no cell of, within 1e-3 (the tolerance of the JAX
-    package's tests/test_stiff.py:212-238; kvaerno5 is held at 1e-3 to the
-    kvaerno3 general engine, and what it leaves its own general engine by is
-    printed as a finding: the two differ by more at this spread of supports,
-    in the JAX package too). Then the
-    same call with dopri5 on 256 subjects: how many cells the explicit tier
-    loses."""
+    within 1e-3 (the tolerance of the JAX package's
+    tests/test_stiff.py:212-238), over the supports the fused engine lost no
+    cell of, against bdf's general engine on the first STIFF_CHECK_ROWS
+    subjects (every solver: the same equations at the same tolerance). Then
+    the same call with dopri5 on 256 subjects: how many cells the explicit
+    tier loses."""
     n, S = STIFF_SHAPE
     label = f"ode_tmdd_stiff_{n}x{S}"
     data, ems, t_build = tmdd_population(pt, n, np.random.RandomState(SEED + 8))
@@ -3655,78 +3703,62 @@ def phase_stiff_slice(pt, rng) -> tuple:
     if stiff_launch_counts()[:3] != (0, 0, 0) or (k2b, k2c) != (10, 6):
         raise AssertionError(f"{label}: launches {stiff_launch_counts()}")
     pt.set_float_dtype(torch.float64)
-    oracles = {}
-    t_oracles = time.perf_counter()
-    for solver in STIFF_SOLVERS:
-        rows = STIFF_CHECK_ROWS_BY_SOLVER.get(solver, STIFF_CHECK_ROWS)
-        # the oracle: the general engine on the first subjects, over the
-        # supports none of whose cells the fused engine lost (a lost lane
-        # keeps the general engine's masked loop turning for its whole step
-        # budget in every segment: 1392 s where bdf lost one support), with
-        # its own budget cut to STIFF_ORACLE_MAX_STEPS a segment for the same
-        # reason; cells finite in both are compared
-        psi64 = results[(solver, torch.float64, 0)][0][:rows]
-        keep = torch.isfinite(psi64).all(dim=0)
+
+    def general(solver, rows):
+        """The oracle: ``solver``'s general engine on the first ``rows``
+        subjects, over the supports none of whose cells the fused engine
+        lost there (a lost lane keeps the general engine's masked loop
+        turning for its whole step budget in every segment: 1392 s where bdf
+        lost one support), with its own budget cut to STIFF_ORACLE_MAX_STEPS
+        a segment for the same reason; (psi, the supports kept, seconds)."""
+        keep = torch.isfinite(results[(solver, torch.float64, 0)][0][:rows]).all(dim=0)
         cols = torch.nonzero(keep).flatten().cpu().numpy()
-        if solver == "kvaerno5":
-            # the reference's kvaerno5 kernel (Jacobian frozen over the
-            # step, growth 1.5) and its engine (Jacobian renewed in every
-            # Newton round) are two integrations at rtol = atol = 1e-4 that
-            # differ by more than 1e-3 at this spread of supports (the JAX
-            # kernel does the same: the twin equals it to 1e-9 in interpret
-            # mode; PERF.md §7). The kernel is held to the kvaerno3 general
-            # engine, the same equations at the same tolerance with the
-            # engine that renews J; its own general engine, a printed
-            # finding only, was cut (its time is printed with the cut)
-            ref3, keep3 = oracles["kvaerno3"], oracles["kvaerno3 keep"]
-            same = keep & keep3
-            for dtype in (torch.float32, torch.float64):
-                psi, lost = results[(solver, dtype, 0)]
-                f3 = rel_err(psi[:rows, same], ref3[:rows, same[keep3]], 1.0)
-                log(f"[14] {label} kvaerno5 {str(dtype)[6:]}: {lost} of {n * S} cells -inf "
-                    f"({lost / (n * S):.2e}); fused vs the f64 kvaerno3 general engine on "
-                    f"subjects 0-{rows - 1} x {int(same.sum())} supports: max rel {f3:.3e}"
-                    + (" (<= 1e-3)" if dtype == torch.float64 else
-                       " (printed, not held: the float32 march is held to the twin)"))
-            if not f3 <= 1e-3:
-                raise AssertionError(f"{label} kvaerno5: fused vs the kvaerno3 general "
-                                     f"engine {f3} > 1e-3")
-            continue
         oracle = tmdd_model(solver).with_max_steps(STIFF_ORACLE_MAX_STEPS)
-        sub = pt.Data(data.subjects()[:rows])
         t0 = time.perf_counter()
-        want = pt.log_likelihood_matrix(oracle, sub, supports[0][cols], ems, device="cuda",
-                                        engine="general")
+        want = pt.log_likelihood_matrix(oracle, pt.Data(data.subjects()[:rows]),
+                                        supports[0][cols], ems, device="cuda", engine="general")
         torch.cuda.synchronize()
-        general_s = time.perf_counter() - t0
-        oracle_lost = int((~torch.isfinite(want)).sum())
-        if oracle_lost > 0.01 * want.numel():
-            raise AssertionError(f"{label} {solver}: the general engine lost {oracle_lost} of "
+        lost = int((~torch.isfinite(want)).sum())
+        if lost > 0.01 * want.numel():
+            raise AssertionError(f"{label} {solver}: the general engine lost {lost} of "
                                  f"{want.numel()} cells")
+        return want, keep, time.perf_counter() - t0, lost
+
+    def hold(solver, rows, ref, keep_ref, ref_name, extra=""):
+        """``solver``'s fused psi on the first ``rows`` subjects against
+        ``ref`` (a general engine's, over its supports ``keep_ref``), cells
+        finite in both: float64 within 1e-3, float32 printed (the float32
+        march is held to the twin)."""
         for dtype in (torch.float32, torch.float64):
             psi, lost = results[(solver, dtype, 0)]
-            psi = psi[:rows, keep]
-            both = torch.isfinite(psi) & torch.isfinite(want)
-            rel = ((psi[both].double() - want[both]).abs() / want[both].abs().clamp(min=1.0))
+            same = torch.isfinite(psi[:rows]).all(dim=0) & keep_ref
+            got, want = psi[:rows, same], ref[:, same[keep_ref]]
+            both = torch.isfinite(got) & torch.isfinite(want)
+            rel = (got[both].double() - want[both]).abs() / want[both].abs().clamp(min=1.0)
             err, share = float(rel.max()), float((rel <= 1e-3).double().mean())
-            line = (f"[14] {label} {solver:8s} {str(dtype)[6:]}: {lost} of {n * S} cells -inf "
-                    f"({lost / (n * S):.2e}); fused vs f64 general on subjects 0-{rows - 1} x "
-                    f"{len(cols)} supports: max rel {err:.3e}, {share:.6f} of the cells within "
-                    f"1e-3")
-            if dtype == torch.float32:
-                log(line + " (printed, not held: the float32 march is held to the twin)")
-                continue
-            log(line + f"; general engine {general_s:.1f} s there ({STIFF_ORACLE_MAX_STEPS} "
-                f"steps a segment), {oracle_lost} of its cells -inf")
-            if err > 1e-3:
-                raise AssertionError(f"{label} {solver}: fused vs general {err} > 1e-3")
-        oracles[solver], oracles[f"{solver} keep"] = want, keep
+            log(f"[14] {label} {solver:8s} {str(dtype)[6:]}: {lost} of {n * S} cells -inf "
+                f"({lost / (n * S):.2e}); fused vs the f64 {ref_name} general engine on subjects "
+                f"0-{rows - 1} x {int(same.sum())} supports: max rel {err:.3e}, {share:.6f} of "
+                f"the cells within 1e-3"
+                + (f" (<= 1e-3){extra}" if dtype == torch.float64 else
+                   " (printed, not held: the float32 march is held to the twin)"))
+        if not err <= 1e-3:
+            raise AssertionError(f"{label} {solver}: fused vs the {ref_name} general engine "
+                                 f"{err} > 1e-3")
+
+    t_oracles = time.perf_counter()
+    rows = STIFF_CHECK_ROWS
+    want, keep, general_s, oracle_lost = general(STIFF_ORACLE, rows)
+    for solver in sorted(STIFF_SOLVERS, key=lambda x: x != STIFF_ORACLE):
+        hold(solver, rows, want, keep, STIFF_ORACLE, extra=(
+            f"; general engine {general_s:.1f} s there ({STIFF_ORACLE_MAX_STEPS} steps a "
+            f"segment), {oracle_lost} of its cells -inf" if solver == STIFF_ORACLE else ""))
     t_oracles = time.perf_counter() - t_oracles
-    log(f"[14] cut: the general-engine oracles took {t_oracles:.1f} s, bdf, trbdf2 and "
-        f"kvaerno3 on 256 / 256 / 64 subjects, kvaerno5 held to kvaerno3's (before the cuts, "
-        f"its own on 64: {BEFORE_CUTS_S['oracles'][0]} s; 256 each: "
-        f"{BEFORE_CUTS_S['oracles'][1]} - {BEFORE_CUTS_S['oracles'][2]} s): "
-        f"{BEFORE_CUTS_S['oracles'][0] - t_oracles:.1f} s saved")
+    log(f"[14] cut: the general-engine oracle took {t_oracles:.1f} s, {STIFF_ORACLE}'s on "
+        f"{rows} subjects holding all four solvers (trbdf2's and kvaerno3's own on 256 and "
+        f"64, kvaerno5 held to kvaerno3's: {BEFORE_CUTS_S['oracles_256'][0]} - "
+        f"{BEFORE_CUTS_S['oracles_256'][1]} s): "
+        f"{BEFORE_CUTS_S['oracles_256'][0] - t_oracles:.1f} s saved")
     # the explicit tier on the same model
     explicit = tmdd_model("dopri5")
     small = pt.Data(data.subjects()[:256])
@@ -4136,7 +4168,8 @@ def phase_sde_feature_times(pt, label, model, data, ems, card: str) -> dict:
         pt.set_float_dtype(dtype)
         d = str(dtype)[6:]
         plan = sde_plan_for(model, data, sp, ems, dtype)
-        kernel = cuda_ms(lambda: run_sde_kernel(plan), 2, 1)
+        # one run, the kernel warm from phase 17
+        kernel = cuda_ms(lambda: run_sde_kernel(plan), 1, 0)
         twin_ms, by_row, abs_err = sde_twin_rows_check(pt, model, data, sp, ems, dtype,
                                                        f"K3b {label} {d}", tol, share, 18)
         trials = sde_trials_scaled(by_row, R)
@@ -4432,11 +4465,34 @@ def lag_post_cell(pt, rng):
     return label, model, data, sp, ems, n_cols
 
 
+def entry_point_plan(pt, model, data, sp, ems) -> tuple:
+    """One ``log_likelihood_matrix`` call on the card, with the fused plan it
+    builds and the seconds it took to build: (psi, plan, plan seconds)."""
+    from pharmsol_tpu_torch.likelihood import matrix
+
+    real, seen = matrix._fused_plan, []
+
+    def recording(*args):
+        t0 = time.perf_counter()
+        seen.append(real(*args))
+        seen.append(time.perf_counter() - t0)
+        return seen[-2]
+
+    matrix._fused_plan = recording
+    try:
+        psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
+    finally:
+        matrix._fused_plan = real
+    return psi, seen[0], seen[1]
+
+
 def phase_lag_post_width(pt, rng, card: str) -> None:
-    """The lag_post cell (``lag_post_cell``): one call per dtype through the
-    public entry point, each one K1c launch, float64 held against the
-    general engine on 256 subjects within 1e-10; the width and the plan's
-    time printed."""
+    """The lag_post cell (``lag_post_cell``): one float64 call through the
+    public entry point, one K1c launch, held against the general engine on
+    256 subjects within 1e-10, the width and the time of the plan built in
+    that call printed; then
+    one float32 call on the first ``1 / K1C_POST_F32_SHARE`` of the
+    subjects, one K1c launch and psi finite."""
     from pharmsol_tpu_torch.likelihood.plans.seq import _MAX_PLANE_FLOATS
 
     label, model, data, sp, ems, n_cols = lag_post_cell(pt, rng)
@@ -4444,21 +4500,25 @@ def phase_lag_post_width(pt, rng, card: str) -> None:
     log(f"[21] {label}: the widest population _MAX_PLANE_FLOATS = {_MAX_PLANE_FLOATS} admits "
         f"at {S} supports (cut from the Covariate Short cell's 16384 subjects: the lane walk's "
         f"{M + 1} events x R x S x {n_cols} columns and the {M} x {n_base} x R x S planes)")
-    for dtype in (torch.float32, torch.float64):
+    for dtype in (torch.float64, torch.float32):
         pt.set_float_dtype(dtype)
+        if dtype == torch.float32:
+            data = pt.Data(data.subjects()[:R // K1C_POST_F32_SHARE])
         before = k1c_launch_counts()
         t0 = time.perf_counter()
-        psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
+        psi, plan, plan_s = entry_point_plan(pt, model, data, sp, ems)
         torch.cuda.synchronize()
         call_s = time.perf_counter() - t0
         launched = tuple(a - b for a, b in zip(k1c_launch_counts(), before))
+        if plan.features["seg_postdepth"] is None:
+            raise AssertionError(f"{label}: the plan took no lag_post tier")
         if pt.last_engine_decision(model)["engine"] != "fused" or launched != (0, 0, 1):
             raise AssertionError(f"{label}: {pt.last_engine_decision(model)}, (K1a, K1b, "
                                  f"K1c) launches {launched}")
-        if tuple(psi.shape) != (R, S) or not bool(torch.isfinite(psi).all()):
+        if tuple(psi.shape) != (len(data), S) or not bool(torch.isfinite(psi).all()):
             raise AssertionError(f"{label} {dtype}: psi {tuple(psi.shape)}, non-finite cells")
-        line = (f"[21] {label} {str(dtype)[6:]}: one K1c launch, the call {call_s:.3f} s "
-                f"({card})")
+        line = (f"[21] {label} {str(dtype)[6:]}: {len(data)} subjects, one K1c launch, the "
+                f"call {call_s:.3f} s ({card})")
         if dtype == torch.float64:
             sub = pt.Data(data.subjects()[:256])
             want = pt.log_likelihood_matrix(model, sub, sp, ems, device="cuda", engine="general")
@@ -4466,14 +4526,10 @@ def phase_lag_post_width(pt, rng, card: str) -> None:
             line += f"; fused vs general on subjects 0-255 rel {err:.3e} (<= 1e-10)"
             if not err <= 1e-10:
                 raise AssertionError(f"{label}: fused vs general {err}")
-            t0 = time.perf_counter()
-            plan = plan_for(pt, model, data, sp, ems, dtype)
-            plan_s = time.perf_counter() - t0
-            if plan.features["seg_postdepth"] is None:
-                raise AssertionError(f"{label}: the plan took no lag_post tier")
-            line += (f"; {plan.features['param_planes'].shape[0]} slots; the plan alone "
-                     f"{plan_s:.3f} s, most of it the lane walk of {R * S} lanes")
+            line += (f"; {plan.features['param_planes'].shape[0]} slots; the plan {plan_s:.3f} "
+                     f"s of the call, most of it the lane walk of {R * S} lanes")
         log(line)
+    pt.set_float_dtype(torch.float64)
 
 
 def k1c_record(depth_times, launches, worst_ragged) -> dict:
@@ -5708,14 +5764,17 @@ def phase_single_models(pt) -> dict:
     out = {}
     sde = readme_sde(pt)
     subject = readme_data(pt, 1, np.random.RandomState(SEED + 22)).subjects()[0]
-    for dtype in (torch.float64, torch.float32):
+    # float32 on the subject's first two observations (2 h of the 8: the
+    # march is host-paced, its time goes with the span)
+    short = readme_data(pt, 1, np.random.RandomState(SEED + 22), n_obs=2).subjects()[0]
+    for dtype, subj, n_obs in ((torch.float64, subject, 4), (torch.float32, short, 2)):
         pt.set_float_dtype(dtype)
-        preds = np.asarray(sde.estimate_predictions(subject, [0.2, 10.0, 0.05], device="cuda")
+        preds = np.asarray(sde.estimate_predictions(subj, [0.2, 10.0, 0.05], device="cuda")
                            .flat_predictions())
-        if preds.shape != (4,) or not np.all(np.isfinite(preds)):
+        if preds.shape != (n_obs,) or not np.all(np.isfinite(preds)):
             raise AssertionError(f"[22] README SDE {dtype}: {preds}")
         out[f"sde_{str(dtype)[-2:]}"] = preds.tolist()
-        log(f"[22] README SDE, 1000 particles, {dtype}: "
+        log(f"[22] README SDE, 1000 particles, {dtype}, {n_obs} observations: "
             f"{', '.join(f'{v:.4f}' for v in preds)}")
     pt.set_float_dtype(torch.float64)
     quiet = [0.2, 10.0, 0.0]
@@ -5756,7 +5815,17 @@ def device_busy_ms(fn) -> float:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    return kernel_ms(prof)
+
+
+def kernel_ms(prof) -> float:
+    """The device time of a ``torch.profiler`` trace's kernels, ms: the
+    device's own events only (an operator's row repeats the time of the
+    kernels it launched, so a sum over every row counts it twice)."""
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
 
 
 def phase_single_times(pt, model, data, params, rems, card: str) -> dict:
@@ -5773,19 +5842,22 @@ def phase_single_times(pt, model, data, params, rems, card: str) -> dict:
     ems = pt.AssayErrorModels().add(
         0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
     times = {}
-    for dtype in (torch.float32, torch.float64):
+    # float32's row at a quarter of float64's repetitions
+    for dtype, cut in ((torch.float64, 1), (torch.float32, 4)):
         pt.set_float_dtype(dtype)
         for m in (closed, ode, model):
             m.disable_cache()
         t = {
             "predictions_closed": cuda_ms(
-                lambda: closed.estimate_predictions(subject, sp, device="cuda"), 20),
+                lambda: closed.estimate_predictions(subject, sp, device="cuda"), 20 // cut),
             "predictions_ode": cuda_ms(
-                lambda: ode.estimate_predictions(subject, sp, device="cuda"), 5),
+                lambda: ode.estimate_predictions(subject, sp, device="cuda"), 5 // cut + 1),
             "log_likelihood_closed": cuda_ms(
-                lambda: closed.estimate_log_likelihood(subject, sp, ems, device="cuda"), 20),
+                lambda: closed.estimate_log_likelihood(subject, sp, ems, device="cuda"),
+                20 // cut),
             "batch": cuda_ms(
-                lambda: pt.log_likelihood_batch(model, data, params, rems, device="cuda"), 5),
+                lambda: pt.log_likelihood_batch(model, data, params, rems, device="cuda"),
+                5 // cut + 1),
         }
         # the batch's parts: the host lowering (a model with no cache), the
         # host steps before the march with the lowering cached, the march
@@ -5803,10 +5875,10 @@ def phase_single_times(pt, model, data, params, rems, card: str) -> dict:
             rs = torch.as_tensor(np.asarray(grid.row_subject, dtype=np.int64), device=dev)
             return grid, rows, torch.as_tensor(params, dtype=fd, device=dev)[rs]
 
-        t["batch_host_prep"] = wall_ms(prep, 3)
+        t["batch_host_prep"] = wall_ms(prep, 3 // cut + 1)
         grid, rows, p_rows = prep()
         t["batch_march"] = cuda_ms(
-            lambda: model._batch_predictions(rows, p_rows, grid.cov_names), 5)
+            lambda: model._batch_predictions(rows, p_rows, grid.cov_names), 5 // cut + 1)
         t["batch_device_busy"] = device_busy_ms(
             lambda: pt.log_likelihood_batch(model, data, params, rems, device="cuda"))
         times[str(dtype).rsplit(".", 1)[-1]] = t
@@ -5849,12 +5921,13 @@ def run_single(pt, card: str) -> dict:
 
 # the cells of phase 23 (subjects x supports), the subjects of the creatinine
 # cell's check against the general engine, and the README SDE's twin check
-# (subjects x supports, its first two observations: cut, the twin's particle
+# (subjects x supports, their first observation: cut, the twin's particle
 # loop goes with the span; phase 5 holds K3a against its twin at 19 x 23)
 AUTHORING_SHORT = (16384, 512)
 AUTHORING_CREATININE = (10000, 1000)
 AUTHORING_CHECK_ROWS = 256
 AUTHORING_SDE_TWIN = (2, 8)
+AUTHORING_SDE_TWIN_OBS = 1
 # each cell's kernel and its launch counter (kernel_launches' keys)
 AUTHORING_COUNTERS = {"K1a": "fused_psi.LAUNCHES", "K1b": "fused_psi.FEATURE_LAUNCHES",
                       "K2a": "fused_ode.LAUNCHES", "K2e": "fused_ode.FEATURE_LAUNCHES",
@@ -6103,11 +6176,13 @@ def authoring_cell(pt, cell, card: str) -> dict:
             rec["f32_vs_f64"] = err
             rec["f32_share_within_row"] = share
         rec[f"times_{d}"] = authoring_times(pt, cell, dtype, card)
-    # the kernel against its twin on the same plan (float64)
+    # the kernel against its twin on the same plan (float64); an SDE cell's
+    # on its subjects' first AUTHORING_SDE_TWIN_OBS observations (the twin's
+    # masked loop takes time with the span)
     pt.set_float_dtype(torch.float64)
     if sde:
         Rt, St = AUTHORING_SDE_TWIN
-        sub = readme_data(pt, Rt, np.random.RandomState(SEED + 39), n_obs=2)
+        sub = readme_data(pt, Rt, np.random.RandomState(SEED + 39), n_obs=AUTHORING_SDE_TWIN_OBS)
         plan = sde_plan_for(model, sub, sp[:St], ems, torch.float64)
         got, twin = run_sde_kernel(plan), run_sde_kernel(plan, plain=True)
         torch.cuda.synchronize()
@@ -6286,10 +6361,15 @@ EST_THETA0 = (0.4, 8.0)
 # (tests/test_laplace.py::test_laplace_forward_mode_adaptive_ode: 4
 # subjects, 2 observations each, omega0 0.3, 12 inner steps), cut from its 15
 # outer iterations to 2, then the standard errors there: a check of the
-# path, not a fit (every objective evaluation takes seconds on the card)
+# path, not a fit (every objective evaluation takes seconds on the card). The
+# Hessian's smallest eigenvalue there is printed beside the result (after 1
+# iteration it is negative and there are no SEs to hold)
 EST_ODE_SUBJECTS = 4
 EST_ODE_THETA0 = (0.45, 7.0)
 EST_ODE_KW = dict(omega0=0.3, inner_steps=12, max_iters=2)
+# (d): the SAEM fit at a quarter of the defaults' 200 burn-in and 100
+# averaging iterations
+EST_SAEM_KW = dict(n_burn=50, n_iters=25)
 # card against CPU
 EST_TOL = dict(ll_value=1e-12, ll_grad=1e-10, map=1e-8, laplace=1e-6, se=1e-5,
                saem_trace=1e-8, saem=1e-6)
@@ -6426,15 +6506,19 @@ def est_closed_laplace(pt, device) -> dict:
 
 def est_ode_check(pt, device) -> dict:
     """(c)'s dopri5 Laplace check on ``device``: ``EST_ODE_KW``'s outer
-    iterations, then the standard errors there."""
+    iterations, then the standard errors there, and the smallest eigenvalue
+    of the Hessian they invert (the SEs exist where it is positive)."""
     _, ode, _ = est_models(pt)
     rems = pt.ResidualErrorModels().add(0, pt.ResidualErrorModel.proportional(0.1))
+    intro = {}
     t0 = time.perf_counter()
     fit = pt.optimize.fit_laplace(ode, est_ode_population(pt, EST_ODE_SUBJECTS), rems,
-                                  list(EST_ODE_THETA0), device=device, **EST_ODE_KW)
+                                  list(EST_ODE_THETA0), device=device, _introspect=intro,
+                                  **EST_ODE_KW)
     return dict(theta=fit.theta, omega=fit.omega,
                 sigma=np.array([fit.residual_models.get(0).b]), se=fit.standard_errors,
-                iterations=fit.iterations, s=time.perf_counter() - t0)
+                iterations=fit.iterations, s=time.perf_counter() - t0,
+                min_eig=float(np.linalg.eigvalsh(intro["hessian"])[0]))
 
 
 def est_saem(pt, device) -> dict:
@@ -6442,7 +6526,7 @@ def est_saem(pt, device) -> dict:
     seconds and its iteration loop's seconds."""
     intro = {}
     t0 = time.perf_counter()
-    sae = est_saem_fit(pt, device, intro)
+    sae = est_saem_fit(pt, device, intro, **EST_SAEM_KW)
     return dict(theta=sae.theta, omega=sae.omega,
                 sigma=np.array([sae.residual_models.get(0).b]), ll_trace=sae.ll_trace,
                 accepted=intro["accepted"], accept_rate=sae.accept_rate,
@@ -6501,13 +6585,49 @@ def est_iteration_busy(pt) -> float:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             est_saem_fit(pt, "cuda", n_burn=n_burn, n_iters=1)
             torch.cuda.synchronize()
-        busy[n_burn] = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+        busy[n_burn] = kernel_ms(prof)
     if busy[2] <= busy[1]:
         raise AssertionError(f"[24] the profiler saw no device time in an SAEM iteration: {busy}")
     return busy[2] - busy[1]
 
 
-def run_estimation(pt, card: str) -> dict:
+class RefWindow:
+    """The CPU reference processes of phases 24 and 25 and the untimed card
+    work beside them: each phase adds its jobs (``add``) and its card work
+    (``beside``) after its own timed card work; ``run`` starts one process a
+    job, runs the card work, waits for every job and returns their results
+    by key and the window's seconds. A whole run shares one window between
+    the two phases, after both phases' timed work; a partial run gives each
+    its own."""
+
+    def __init__(self):
+        self.jobs, self.card = [], []
+
+    def add(self, key, fn, args):
+        self.jobs.append((key, fn, args))
+
+    def beside(self, fn):
+        self.card.append(fn)
+
+    def run(self) -> tuple:
+        import multiprocessing as mp
+
+        t0 = time.perf_counter()
+        pool = mp.get_context("spawn").Pool(len(self.jobs))
+        try:
+            handles = {key: pool.apply_async(fn, args) for key, fn, args in self.jobs}
+            pool.close()
+            for fn in self.card:
+                fn()
+            torch.cuda.synchronize()
+            done = {key: h.get(timeout=1800) for key, h in handles.items()}
+        finally:
+            pool.terminate()
+            pool.join()
+        return done, time.perf_counter() - t0
+
+
+def run_estimation(pt, card: str, window: RefWindow = None):
     """Phase 24: the estimation layer on the card in float64, every result
     held against the port's own CPU float64 result on the same inputs. The
     card's timed work runs first with no other process of this script
@@ -6515,9 +6635,9 @@ def run_estimation(pt, card: str) -> dict:
     process per part of ``EST_PARTS`` (:func:`est_worker`), while the card
     runs the untimed MAP fits. No kernel of the table runs
     on this path (the general engine's per-row march): every launch count is
-    0 before and stays 0."""
-    import multiprocessing as mp
-
+    0 before and stays 0. Given a shared ``window`` (a whole run), the
+    references and the MAP fits join it and this returns the phase's
+    checks, ``finish(done, window_s)``, for when it has run."""
     t_phase = time.perf_counter()
     pt.set_float_dtype(torch.float64)
     reset_kernel_launches()
@@ -6548,19 +6668,23 @@ def run_estimation(pt, card: str) -> dict:
     busy_ms = est_iteration_busy(pt)
     torch.cuda.synchronize()
     t_card = time.perf_counter() - t_phase
-    t0 = time.perf_counter()
-    pool = mp.get_context("spawn").Pool(len(EST_PARTS))
-    try:
-        jobs = {part: pool.apply_async(est_worker, (part,)) for part in EST_PARTS}
-        pool.close()
-        # (b) meanwhile
-        card_fits.update(EST_PARTS[EST_UNTIMED](pt, "cuda"))
-        torch.cuda.synchronize()
-        done = {part: job.get(timeout=1800) for part, job in jobs.items()}
-    finally:
-        pool.terminate()
-        pool.join()
-    t_cpu = time.perf_counter() - t0
+    shared = window is not None
+    window = window if shared else RefWindow()
+    for part in EST_PARTS:
+        window.add(("24", part), est_worker, (part,))
+    # (b) meanwhile
+    window.beside(lambda: card_fits.update(EST_PARTS[EST_UNTIMED](pt, "cuda")))
+    if shared:
+        return lambda done, t_cpu: est_finish(card, card_fits, held, ll_ms, busy_ms, t_card,
+                                              done, t_cpu, shared)
+    done, t_cpu = window.run()
+    return est_finish(card, card_fits, held, ll_ms, busy_ms, t_card, done, t_cpu, shared)
+
+
+def est_finish(card, card_fits, held, ll_ms, busy_ms, t_card, done, t_cpu, shared) -> dict:
+    """Phase 24's checks once its CPU references are in: each card result
+    against the CPU's; the phase's lines and record."""
+    done = {part: done[("24", part)] for part in EST_PARTS}
     launched = {k: v for k, v in kernel_launches().items() if v}
     if launched:
         raise AssertionError(f"[24] a kernel of the table launched on this path: {launched}")
@@ -6609,12 +6733,15 @@ def run_estimation(pt, card: str) -> dict:
     for key in ("theta", "omega", "sigma"):
         errs["laplace ode " + key] = est_close("ODE fit_laplace " + key, c[key], w[key],
                                                EST_TOL["laplace"])
-    errs["laplace ode se"] = est_close("ODE fit_laplace SEs", c["se"], w["se"], EST_TOL["se"])
+    eig = f"the Hessian's smallest eigenvalue {c['min_eig']:.6g} on the card, " \
+          f"{w['min_eig']:.6g} on the CPU"
+    errs["laplace ode se"] = est_close(f"ODE fit_laplace SEs ({eig})", c["se"], w["se"],
+                                       EST_TOL["se"])
     log(f"[24] fit_laplace check, dopri5 ODE through the forward sensitivities, "
         f"{EST_ODE_SUBJECTS} subjects, {EST_ODE_KW} (not a converged fit): {c['iterations']} "
-        f"outer iterations, then the SEs there, {c['s']:.1f} s on the card; estimates "
-        f"{max(errs['laplace ode ' + k] for k in ('theta', 'omega', 'sigma')):.2e}, SEs "
-        f"{errs['laplace ode se']:.2e} against the CPU")
+        f"outer iterations, then the SEs there ({eig}), {c['s']:.1f} s on the card; "
+        f"estimates {max(errs['laplace ode ' + k] for k in ('theta', 'omega', 'sigma')):.2e}, "
+        f"SEs {errs['laplace ode se']:.2e} against the CPU")
     c, w = card_fits["saem"], cpu["saem"]
     flips = int(np.sum(c["accepted"] != w["accepted"]))
     first = (int(np.argmax(np.any(c["accepted"] != w["accepted"], axis=(1, 2))))
@@ -6626,7 +6753,7 @@ def run_estimation(pt, card: str) -> dict:
     n_it = len(c["ll_trace"])
     it_ms = 1e3 * c["loop_s"] / n_it
     busy = dict(busy_ms=busy_ms, iteration_ms=it_ms, share=busy_ms / it_ms)
-    log(f"[24] fit_saem, {EST_POP} subjects, defaults (200 + 100 iterations, 5 MH steps): "
+    log(f"[24] fit_saem, {EST_POP} subjects, {EST_SAEM_KW} (5 MH steps): "
         f"{c['s']:.2f} s on the card, its iteration loop {it_ms:.2f} ms per iteration; one "
         f"iteration's card "
         f"busy {busy_ms:.2f} ms ({100 * busy['share']:.1f}% of the loop's ms per iteration); "
@@ -6634,15 +6761,501 @@ def run_estimation(pt, card: str) -> dict:
         + (f" (first at iteration {first})" if flips else "")
         + f"; ll trace (first 20) {errs['saem trace']:.2e}, estimates "
         f"{max(errs['saem ' + k] for k in ('theta', 'omega', 'sigma')):.2e} against the CPU")
-    t_all = time.perf_counter() - t_phase
+    t_all = t_card + t_cpu
     log(f"[24] phase 24: {t_all:.1f} s ({t_card:.1f} s of timed card work alone, then "
         f"{t_cpu:.1f} s of CPU references in {len(EST_PARTS)} processes of 2 threads beside "
-        f"the card's MAP fits: " + ", ".join(f"{k} {v:.1f} s" for k, v in worker_s.items())
+        f"the card's MAP fits" + (", a window shared with phase 25's" if shared else "")
+        + ": " + ", ".join(f"{k} {v:.1f} s" for k, v in worker_s.items())
         + "; these CPU seconds are not a comparison with the card's)")
     record = dict(ll_ms=ll_ms, errs=errs, saem_flips=flips, saem_busy=busy,
                   seconds={k: v["s"] for k, v in card_fits.items() if "s" in v},
                   workers_s=worker_s, card_s=t_card, cpu_s=t_cpu, phase_s=t_all, card=card)
     log("[24] estimation: " + json.dumps(record, default=float))
+    return record
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the replicate layer; phase 26: NCA's device batch
+# ---------------------------------------------------------------------------
+
+# the replicate layer on phase 24's population (EST_POP subjects, the JAX
+# package's tests/test_laplace.py data) at the API's widths: 200 bootstrap
+# and SSE replicates, 500 VPC and 1000 NPDE replicates, llp's default grid
+# (n_grid 12 a side: 2 x 2 x 12 = 48 lanes); the refits cut from the API's 40
+# L-BFGS steps (scm: 60) to DIAG_REFIT_ITERS (from the full fit's optimum
+# the first bootstrap lanes' largest gradient entry falls from about 50 to
+# 5e-2 in 10 steps and to 3e-6 in 16, chip_tools/refit_trace.py; a lane that
+# has converged spends each later step in a line search at the objective's
+# noise floor, up to 20 evaluations of every lane: at 16 steps the bootstrap
+# took 33 s on the card), and the SSE and llp fits
+# warm-started at the bootstrap's full fit (its estimates as theta0 and
+# omega0, its fitted residual model), for the script's time limit
+# the device of phases 25 and 26
+CARD = "cuda"
+DIAG_N_BOOT = 200
+DIAG_N_SIM = 200
+DIAG_VPC_REP = 500
+DIAG_NPDE_REP = 1000
+DIAG_REFIT_ITERS = 10
+DIAG_LANES = 8            # the lanes held alone on the card and on the CPU
+DIAG_SOLO_ITERS = 1       # the one-lane-at-a-time refits (B = 1), for the s a step
+# llp's lanes held against the CPU: the two farthest from the optimum on each
+# side of each parameter (its lanes run parameter by parameter, low side then
+# high, n_grid = 12 points a side, nearest first); they converge within the
+# refit's steps, where the nearest reach the noise floor by step 8 and then
+# search 18-19 evaluations a step, a cost the CPU reference would repeat
+DIAG_LLP_HELD = [b * 12 + r for b in range(4) for r in (10, 11)]
+# the stepwise search on the JAX package's tests/test_scm.py population
+DIAG_SCM_POP = 20
+DIAG_SCM_CANDIDATES = [(0, "wt", "power", 70.0), (0, "junk", "power", 1.0)]
+# its fits cut to DIAG_SCM_MAX_ITERS outer iterations (fit_laplace's 100) and
+# its candidate screens to DIAG_SCM_REFIT_ITERS L-BFGS steps (scm's 60): its
+# CPU reference is a whole search, host-paced, the longest of phase 25's (at 2
+# and 4 the search added no effect)
+DIAG_SCM_MAX_ITERS = 3
+DIAG_SCM_REFIT_ITERS = 3
+DIAG_TOL = dict(lanes=1e-10, cpu=1e-8, sims=1e-10, diag=1e-9, scm=1e-6)
+
+
+def diag_scm_population(pt, n: int = DIAG_SCM_POP, seed: int = 11, beta_true: float = 0.9):
+    """``tests/test_scm.py::_population`` rebuilt from numpy in its draw
+    order: ke with a strong weight power effect, a pure-noise covariate
+    ``junk``, 100 at 0 and five observations with 6% proportional noise."""
+    rng = np.random.default_rng(seed)
+    subjects = []
+    for i in range(n):
+        wt = float(rng.uniform(45.0, 110.0))
+        junk = float(rng.uniform(0.5, 2.0))
+        ke = 0.25 * np.exp(beta_true * np.log(wt / 70.0) + 0.10 * rng.standard_normal())
+        v = 10.0 * np.exp(0.15 * rng.standard_normal())
+        b = (pt.Subject.builder(f"s{i}").bolus(0.0, 100.0, 0)
+             .covariate("wt", 0.0, wt).covariate("junk", 0.0, junk))
+        for t in (0.5, 2.0, 6.0, 12.0, 24.0):
+            c = 100.0 * np.exp(-ke * t) / v
+            b = b.observation(float(t), float(c * (1 + 0.06 * rng.standard_normal())), 0)
+        subjects.append(b.build())
+    return pt.Data(subjects)
+
+
+def diag_scm_rems(pt):
+    return pt.ResidualErrorModels().add(0, pt.ResidualErrorModel.proportional(0.06))
+
+
+def diag_warm(full) -> tuple:
+    """The warm start of the SSE and llp fits: the bootstrap's full fit's
+    estimates, omegas and fitted residual models."""
+    return list(full.theta), dict(omega0=np.asarray(full.omega)), full.residual_models
+
+
+def diag_card_calls(pt) -> dict:
+    """Phase 25's timed calls on the card, each with its seconds."""
+    from pharmsol_tpu_torch.optimize import (bootstrap_laplace, llp, npde, scm, sse_laplace,
+                                             vpc)
+
+    closed, _, rems = est_models(pt)
+    pop = est_laplace_population(pt, EST_POP)
+    out, s = {}, {}
+    t0 = time.perf_counter()
+    bi = {}
+    boot = bootstrap_laplace(closed, pop, rems, list(EST_THETA0), n_boot=DIAG_N_BOOT,
+                             refit_iters=DIAG_REFIT_ITERS, device=CARD, _introspect=bi)
+    s["bootstrap_laplace"] = time.perf_counter() - t0
+    full = boot.full
+    theta0, kw, fitted = diag_warm(full)
+    t0 = time.perf_counter()
+    si = {}
+    # the SSE's and llp's full fits without their standard errors: neither
+    # reads them (llp takes its own Hessian)
+    sse = sse_laplace(closed, pop, fitted, theta0, n_sim=DIAG_N_SIM,
+                      refit_iters=DIAG_REFIT_ITERS, device=CARD, _introspect=si,
+                      compute_se=False, **kw)
+    s["sse_laplace"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    v = vpc(closed, pop, fitted, full, n_rep=DIAG_VPC_REP, device=CARD)
+    s["vpc"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d = npde(closed, pop, fitted, full, n_rep=DIAG_NPDE_REP, device=CARD)
+    s["npde"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    li = {}
+    prof = llp(closed, pop, fitted, theta0, refit_iters=DIAG_REFIT_ITERS, device=CARD,
+               _introspect=li, compute_se=False, **kw)
+    s["llp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = scm(closed, diag_scm_population(pt), diag_scm_rems(pt), [0.3, 9.0],
+              DIAG_SCM_CANDIDATES, refit_iters=DIAG_SCM_REFIT_ITERS, compute_se=False,
+              max_iters=DIAG_SCM_MAX_ITERS, device=CARD)
+    s["scm"] = time.perf_counter() - t0
+    out.update(seconds=s, boot=boot, boot_intro=bi, sse=sse, sse_intro=si, vpc=v, npde=d,
+               llp=prof, llp_intro=li, scm=res, full=full)
+    return out
+
+
+def diag_lanes(intro, key: str, lanes, z0, device, iters: int = None):
+    """``lanes`` of a replicate program's refit, alone: bootstrap (the weights
+    ``lanes``), SSE (the simulated observations) or llp (masks and pins),
+    from the warm start ``z0``."""
+    from pharmsol_tpu_torch.optimize.bootstrap import _vectorized_refits
+
+    iters = DIAG_REFIT_ITERS if iters is None else iters
+    f64 = dict(dtype=torch.float64, device=device)
+    z0 = torch.as_tensor(np.asarray(z0), **f64)
+    vg = intro["lanes_value_and_grad"]
+    if key == "boot":
+        return _vectorized_refits(intro["neg_laplace_w_lanes"], z0,
+                                  torch.as_tensor(lanes, **f64), iters, vg)
+    if key == "sse":
+        ones = torch.ones((len(lanes), int(intro["layout"]["n_sub"])), **f64)
+        return _vectorized_refits(lambda z, y: intro["neg_laplace_wy_lanes"](z, ones, y), z0,
+                                  torch.as_tensor(lanes, **f64), iters, vg)
+    M, V = (torch.as_tensor(a, **f64) for a in lanes)
+    ones = torch.ones((M.shape[0], int(intro["layout"]["n_sub"])), **f64)
+
+    def obj(z, mv):
+        return intro["neg_laplace_w_lanes"](torch.where(mv[0] > 0, mv[1][:, None], z), ones)
+
+    return _vectorized_refits(obj, z0, (M, V), iters, vg)
+
+
+def diag_intro(pt, device, rems, **kw) -> dict:
+    """The Laplace objective's pieces over phase 24's population on
+    ``device`` (no fit)."""
+    closed, _, _ = est_models(pt)
+    intro = {}
+    pt.optimize.fit_laplace(closed, est_laplace_population(pt, EST_POP), rems,
+                            list(EST_THETA0), _introspect=intro, _build_only=True,
+                            device=device, **kw)
+    return intro
+
+
+def diag_worker(part: str, payload: dict) -> tuple:
+    """One of phase 25's CPU reference processes, float64 on the CPU: the
+    first ``DIAG_LANES`` lanes of a refit program from the card's warm start
+    (``boot``, ``sse``, ``llp``), the simulations of the VPC, NPDE and SSE
+    (``sims``), or the stepwise search (``scm``); and its seconds."""
+    import pharmsol_tpu_torch as pt
+
+    # one thread each: an evaluation is host-paced, and the five workers
+    # beside the card's process fill the host's eight cores
+    torch.set_num_threads(1)
+    pt.set_float_dtype(torch.float64)
+    pt.set_device("cpu")
+    t0 = time.perf_counter()
+    if part in ("boot", "sse", "llp"):
+        intro = diag_intro(pt, "cpu", payload["rems"])
+        out = diag_lanes(intro, part, payload["lanes"], payload["z0"], "cpu")
+    elif part == "sims":
+        from pharmsol_tpu_torch.optimize import npde, vpc
+        from pharmsol_tpu_torch.optimize.diagnostics import _simulate
+
+        closed, _, _ = est_models(pt)
+        pop = est_laplace_population(pt, EST_POP)
+        full, rems = payload["full"], payload["rems"]
+        out = dict(sse=_simulate(closed, pop, rems, payload["sse_full"], DIAG_N_SIM, 0, True,
+                                 32)[1],
+                   vpc=vpc(closed, pop, rems, full, n_rep=DIAG_VPC_REP),
+                   npde=npde(closed, pop, rems, full, n_rep=DIAG_NPDE_REP))
+    else:
+        from pharmsol_tpu_torch.optimize import scm
+
+        closed, _, _ = est_models(pt)
+        res = scm(closed, diag_scm_population(pt), diag_scm_rems(pt), [0.3, 9.0],
+                  DIAG_SCM_CANDIDATES, refit_iters=DIAG_SCM_REFIT_ITERS, compute_se=False,
+                  max_iters=DIAG_SCM_MAX_ITERS)
+        out = dict(effects=res.effects, ll=res.final.log_likelihood,
+                   steps=[(s.action, s.effect, s.lrt) for s in res.steps])
+    return out, time.perf_counter() - t0
+
+
+class _Fit:
+    """A diagonal-omega fit's population surface (estimates, omegas,
+    transform), picklable for the workers."""
+
+    def __init__(self, theta, omega, transform):
+        self.theta = np.asarray(theta)
+        self.omega = np.asarray(omega)
+        self.omega_cov = None
+        self.transform = transform
+        self.beta = None
+
+
+def diag_close(label: str, got, want, tol: float) -> float:
+    got, want = np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64)
+    if got.shape != want.shape:
+        raise AssertionError(f"[25] {label}: shape {got.shape} against {want.shape}")
+    fin = np.isfinite(want)
+    if not np.array_equal(fin, np.isfinite(got)):
+        raise AssertionError(f"[25] {label}: finite where the reference is not, or not where "
+                             f"it is")
+    err = float(np.max(np.abs(got[fin] - want[fin]) / np.maximum(np.abs(want[fin]), 1e-300),
+                       initial=0.0))
+    if err > tol:
+        raise AssertionError(f"[25] {label}: {err:.2e} > {tol:.0e}")
+    return err
+
+
+def diag_objective_ms(intro, W) -> dict:
+    """One batched objective + gradient evaluation at B = len(W) lanes,
+    eager and replayed from its CUDA graph (as the refits run it): ms by the
+    host clock and by CUDA events. The card's busy time in an evaluation is
+    the replay's CUDA-event time (the graph runs the eager evaluation's
+    kernels back to back); its share of each wall time is printed."""
+    from pharmsol_tpu_torch.optimize._lbfgs import batch_value_and_grad_fn
+
+    f64 = dict(dtype=torch.float64, device=CARD)
+    w = torch.as_tensor(W, **f64)
+    z = torch.as_tensor(intro["z_opt"], **f64).expand(w.shape[0], -1).clone()
+    out = dict(lanes=int(w.shape[0]))
+    for tag, graph in (("eager", False), ("graph", True)):
+        vg = batch_value_and_grad_fn(lambda Z: intro["neg_laplace_w_lanes"](Z, w), graph=graph)
+        # eager (warm from the refits): one host-clock run, one CUDA-event
+        # run (about a second each); the graph: its warm-up and capture, then
+        # replays
+        host = wall_ms(lambda: vg(z), 1 if not graph else 3, warmup=0 if not graph else 2)
+        events = cuda_ms(lambda: vg(z), 1 if not graph else 5, warmup=0)
+        out[tag] = dict(host_ms=host, events_ms=events)
+    busy = out["graph"]["events_ms"]
+    for tag in ("eager", "graph"):
+        out[tag].update(busy_ms=busy, busy_share=busy / out[tag]["host_ms"])
+    return out
+
+
+def diag_refit_s(intro, W, one_at_a_time: bool) -> float:
+    """Seconds of ``DIAG_SOLO_ITERS`` bootstrap L-BFGS steps from the full
+    fit's optimum for the lanes of ``W``: one lane at a time (B = 1, one CUDA
+    graph whose weight buffer takes each lane's weights in turn) or all at
+    once (B = len(W)); each graph captured before the clock starts."""
+    from pharmsol_tpu_torch.optimize._lbfgs import BatchLbfgs
+
+    f64 = dict(dtype=torch.float64, device=CARD)
+    W = torch.as_tensor(W, **f64)
+    lanes = [W[j:j + 1] for j in range(W.shape[0])] if one_at_a_time else [W]
+    buf = lanes[0].clone()
+    vg = intro["lanes_value_and_grad"](lambda Z: intro["neg_laplace_w_lanes"](Z, buf))
+    z0 = torch.as_tensor(intro["z_opt"], **f64).expand(buf.shape[0], -1).clone()
+    vg(z0)
+    vg(z0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for w in lanes:
+        buf.copy_(w)
+        opt = BatchLbfgs()
+        z, state = z0.clone(), opt.init(z0)
+        for _ in range(DIAG_SOLO_ITERS):
+            value, grad = opt.value_and_grad_from_state(vg, z, state)
+            z, state = opt.step(vg, z, state, value, grad)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def run_diagnostics(pt, card: str, window: RefWindow = None):
+    """Phase 25: the replicate layer on the card in float64. The timed work
+    first with no other process of the script running (the calls, one
+    batched objective evaluation at B = DIAG_N_BOOT, lanes refitted one at a
+    time against all at once); then the CPU references in worker processes
+    (the held lanes of each refit program, the simulations, the stepwise
+    search) while the card refits the bootstrap's first lanes alone (lane
+    independence). No kernel of the table runs here. Given a shared
+    ``window`` (a whole run), its references join it and this returns the
+    phase's checks, ``finish(done, window_s)``."""
+    t_phase = time.perf_counter()
+    pt.set_float_dtype(torch.float64)
+    reset_kernel_launches()
+    card_out = diag_card_calls(pt)
+    secs = card_out["seconds"]
+    bi, si, li = card_out["boot_intro"], card_out["sse_intro"], card_out["llp_intro"]
+    full = card_out["full"]
+    k = DIAG_LANES
+    # the timings, still with no other process of the script running: one
+    # batched evaluation, and lanes refitted one at a time against all at once
+    objective = diag_objective_ms(bi, bi["refits"]["W"])
+    solo_s = diag_refit_s(bi, bi["refits"]["W"][:k], one_at_a_time=True)
+    batched_s = diag_refit_s(bi, bi["refits"]["W"], one_at_a_time=False)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t_phase
+    jobs_in = {
+        "boot": dict(rems=est_models(pt)[2], lanes=bi["refits"]["W"][:k], z0=bi["z_opt"]),
+        "sse": dict(rems=full.residual_models, lanes=si["refits"]["Y"][:k], z0=si["z_opt"]),
+        "llp": dict(rems=full.residual_models, z0=li["z_opt"],
+                    lanes=(li["refits"]["M"][DIAG_LLP_HELD], li["refits"]["V"][DIAG_LLP_HELD])),
+        # the SSE simulates from its own full fit (warm-started at the
+        # bootstrap's), whose estimates are its generating values
+        "sims": dict(full=_Fit(full.theta, full.omega, full.transform),
+                     sse_full=_Fit(card_out["sse"].generating["theta"],
+                                   card_out["sse"].generating["omega"], full.transform),
+                     rems=full.residual_models),
+        "scm": {}}
+    shared = window is not None
+    window = window if shared else RefWindow()
+    for part, payload in jobs_in.items():
+        window.add(("25", part), diag_worker, (part, payload))
+    # meanwhile, on the card: the bootstrap's first lanes alone
+    held_alone = {}
+    window.beside(lambda: held_alone.update(z=diag_lanes(
+        bi, "boot", jobs_in["boot"]["lanes"], bi["z_opt"], CARD)))
+
+    def finish(done, t_cpu):
+        done = {part: done[("25", part)] for part in jobs_in}
+        alone = held_alone["z"]
+        launched = {n: v for n, v in kernel_launches().items() if v}
+        if launched:
+            raise AssertionError(f"[25] a kernel of the table launched on this path: {launched}")
+
+        errs = {}
+        held = {"boot": list(range(k)), "sse": list(range(k)), "llp": DIAG_LLP_HELD}
+        for key, intro in {"boot": bi, "sse": si, "llp": li}.items():
+            Z = intro["refits"]["Z"]
+            if not np.all(np.isfinite(Z)):
+                raise AssertionError(f"[25] {key}: a non-finite refit")
+            if key == "boot":
+                errs["boot lanes alone"] = diag_close(
+                    f"bootstrap: the first {k} of {DIAG_N_BOOT} lanes against them alone",
+                    Z[:k], alone[0], DIAG_TOL["lanes"])
+            errs[key + " cpu"] = diag_close(f"{key}: lanes {held[key]} against the CPU",
+                                            Z[held[key]], done[key][0][0], DIAG_TOL["cpu"])
+        cpu_sims = done["sims"][0]
+        errs["sse sims"] = diag_close("SSE simulations against the CPU", si["refits"]["Y"],
+                                      cpu_sims["sse"], DIAG_TOL["sims"])
+        v, d = card_out["vpc"], card_out["npde"]
+        errs["vpc"] = max(diag_close("vpc " + f, getattr(v, f), getattr(cpu_sims["vpc"], f),
+                                     DIAG_TOL["diag"])
+                          for f in ("observed", "predicted", "pi_low", "pi_high"))
+        errs["npde"] = diag_close("npde", d.npde, cpu_sims["npde"].npde, DIAG_TOL["diag"])
+        res, cpu_scm = card_out["scm"], done["scm"][0]
+        if res.effects != cpu_scm["effects"]:
+            raise AssertionError(f"[25] scm: {res.effects} on the card, {cpu_scm['effects']} on "
+                                 f"the CPU")
+        errs["scm"] = diag_close("scm final log-likelihood", res.final.log_likelihood,
+                                 cpu_scm["ll"], DIAG_TOL["scm"])
+        boot, sse, prof = card_out["boot"], card_out["sse"], card_out["llp"]
+        if boot.n_failed or sse.n_failed:
+            raise AssertionError(f"[25] failed refits: bootstrap {boot.n_failed}, "
+                                 f"SSE {sse.n_failed}")
+        pp = prof.parameters
+        if not all(np.isfinite(p.estimate) and p.deviance[len(p.deviance) // 2] == 0.0
+                   for p in pp.values()):
+            raise AssertionError(f"[25] llp: {prof.summary()}")
+        if not (np.isfinite(d.mean) and np.isfinite(v.coverage())):
+            raise AssertionError(f"[25] vpc / npde: {v.coverage()} {d.summary()}")
+        log(f"[25] bootstrap_laplace, {EST_POP} subjects, n_boot {DIAG_N_BOOT}, refit_iters "
+            f"{DIAG_REFIT_ITERS}: {secs['bootstrap_laplace']:.2f} s on {card} (its full fit "
+            f"{full.iterations} iterations); SEs theta {boot.se()['theta'].tolist()}")
+        log(f"[25] sse_laplace, n_sim {DIAG_N_SIM}: {secs['sse_laplace']:.2f} s; relative bias "
+            f"theta {sse.relative_bias()['theta'].tolist()}")
+        log(f"[25] vpc, n_rep {DIAG_VPC_REP}: {secs['vpc']:.2f} s, coverage {v.coverage():.3f}; "
+            f"npde, n_rep {DIAG_NPDE_REP}: {secs['npde']:.2f} s, {d.summary()}")
+        log(f"[25] llp, {sum(len(p.grid) - 1 for p in pp.values())} lanes: {secs['llp']:.2f} s; "
+            + "; ".join(f"{n} [{p.lower:.4g}, {p.upper:.4g}]" for n, p in pp.items()))
+        log(f"[25] scm, {DIAG_SCM_POP} subjects, {len(DIAG_SCM_CANDIDATES)} candidates: "
+            f"{secs['scm']:.2f} s, {res.n_fits} fits, effects {list(res.effects)}")
+        for tag, o in ((t, objective[t]) for t in ("eager", "graph")):
+            log(f"[25] one batched objective + gradient ({tag}), B = {objective['lanes']} x "
+                f"{EST_POP} subjects: {o['host_ms']:.1f} ms (host clock), {o['events_ms']:.1f} "
+                f"ms (CUDA events), card busy {o['busy_ms']:.2f} ms (the replay's events), "
+                f"{100 * o['busy_share']:.1f}% of the host clock")
+        log(f"[25] {k} bootstrap lanes refitted one at a time (B = 1), {DIAG_SOLO_ITERS} steps "
+            f"each: {solo_s:.2f} s; all {DIAG_N_BOOT} lanes at once, the same steps: "
+            f"{batched_s:.2f} s (replayed from CUDA graphs, their capture not timed)")
+        log("[25] the bootstrap's first lanes against them alone (1e-10); each program's "
+            "against the CPU (1e-8), the simulations (1e-10), vpc and npde (1e-9), scm (1e-6): "
+            + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
+        t_all = t_card + t_cpu
+        worker_s = {part: s for part, (_, s) in done.items()}
+        log(f"[25] phase 25: {t_all:.1f} s ({t_card:.1f} s of timed card work alone, then "
+            f"{t_cpu:.1f} s of CPU references in {len(jobs_in)} processes of 1 thread beside "
+            f"the untimed card checks" + (", a window shared with phase 24's" if shared else "")
+            + ": " + ", ".join(f"{n} {s:.1f} s" for n, s in worker_s.items()) + ")")
+        record = dict(seconds=secs, objective=objective, solo_s=solo_s, batched_s=batched_s,
+                      errs=errs, workers_s=worker_s, card_s=t_card, cpu_s=t_cpu, phase_s=t_all,
+                      launches=kernel_launches(), card=card)
+        log("[25] diagnostics: " + json.dumps(record, default=float))
+        return record
+
+    if shared:
+        return finish
+    done, t_cpu = window.run()
+    return finish(done, t_cpu)
+
+
+# phase 26: the device NCA batch at the JAX test's 5000 x 32 profiles and at
+# a trial-sized population, against the host batch
+NCA_SIZES = ((5000, 32), (100000, 32))
+NCA_TOL = 1e-9
+
+
+def nca_profiles(n: int, T: int, seed: int):
+    """``tests/test_nca_batch.py::make_profiles`` from numpy: 1-cmt oral
+    profiles with log-normal ka, ke and V on a shared grid to 24 h."""
+    rng = np.random.RandomState(seed)
+    t = np.linspace(0.25, 24.0, T)
+    ka = 1.2 * np.exp(0.2 * rng.randn(n))
+    ke = 0.2 * np.exp(0.3 * rng.randn(n))
+    v = 30.0 * np.exp(0.2 * rng.randn(n))
+    c = 100.0 * ka[:, None] / (ka - ke)[:, None] * (
+        np.exp(-ke[:, None] * t[None, :]) - np.exp(-ka[:, None] * t[None, :])) / v[:, None]
+    return t, np.abs(c) + 1e-9
+
+
+def nca_host(n: int, T: int) -> tuple:
+    """The host batch of phase 26's profiles and its s."""
+    from pharmsol_tpu_torch.nca.batch import batch_nca
+
+    t, c = nca_profiles(n, T, 1)
+    t0 = time.perf_counter()
+    out = batch_nca(t, c, dose=100.0)
+    return out, time.perf_counter() - t0
+
+
+def run_nca(pt, card: str) -> dict:
+    """Phase 26: ``batch_nca_device`` on the card in float64 at each size of
+    ``NCA_SIZES``, its ms by CUDA events; then every key against the host
+    ``batch_nca`` (in this process, after the card's timings) within
+    ``NCA_TOL`` relative, NaN where the host has NaN. No kernel of the
+    table."""
+    from pharmsol_tpu_torch.nca.batch_device import batch_nca_device
+
+    t_phase = time.perf_counter()
+    pt.set_float_dtype(torch.float64)
+    reset_kernel_launches()
+    card_out, ms = {}, {}
+    for n, T in NCA_SIZES:
+        t, c = nca_profiles(n, T, 1)
+        tt = torch.as_tensor(t, device=CARD)
+        cc = torch.as_tensor(c, device=CARD)
+        card_out[(n, T)] = batch_nca_device(tt, cc, dose=100.0, device=CARD)
+        ms[f"{n}x{T}"] = cuda_ms(lambda: batch_nca_device(tt, cc, dose=100.0, as_numpy=False,
+                                                          device=CARD), 10)
+    host = {size: nca_host(*size) for size in NCA_SIZES}
+    launched = {k: v for k, v in kernel_launches().items() if v}
+    if launched:
+        raise AssertionError(f"[26] a kernel of the table launched on this path: {launched}")
+    errs, host_s = {}, {}
+    for size in NCA_SIZES:
+        want, s = host[size]
+        got = card_out[size]
+        host_s[f"{size[0]}x{size[1]}"] = s
+        if set(got) != set(want):
+            raise AssertionError(f"[26] keys {sorted(set(got) ^ set(want))}")
+        worst = 0.0
+        for key, w in want.items():
+            g = np.asarray(got[key], dtype=np.float64)
+            w = np.asarray(w, dtype=np.float64)
+            nan = np.isnan(w)
+            if not np.array_equal(nan, np.isnan(g)):
+                raise AssertionError(f"[26] {size} {key}: NaN where the host has none, or not")
+            e = float(np.max(np.abs(g[~nan] - w[~nan]) / np.maximum(np.abs(w[~nan]), 1e-300),
+                             initial=0.0))
+            if e > NCA_TOL:
+                raise AssertionError(f"[26] {size} {key}: {e:.2e} > {NCA_TOL:.0e}")
+            worst = max(worst, e)
+        errs[f"{size[0]}x{size[1]}"] = worst
+        n_lz = int(np.sum(np.isfinite(np.asarray(got["lambda_z"]))))
+        log(f"[26] batch_nca_device {size[0]} x {size[1]} on {card}: "
+            f"{ms[f'{size[0]}x{size[1]}']:.3f} ms (CUDA events), lambda_z found for {n_lz}; "
+            f"against the host batch ({s:.2f} s on the host): {worst:.2e}")
+    t_all = time.perf_counter() - t_phase
+    record = dict(ms=ms, errs=errs, host_s=host_s, phase_s=t_all, card=card)
+    log(f"[26] phase 26: {t_all:.1f} s; nca: " + json.dumps(record, default=float))
     return record
 
 
@@ -6653,7 +7266,8 @@ def main() -> int:
         return 0
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["stiff", "sde", "k1c", "explicit", "closed",
-                                           "single", "authoring", "estimation"],
+                                           "single", "authoring", "estimation", "diagnostics",
+                                           "nca"],
                         default=None,
                         help="run a part, for work on its kernels: 'stiff' phases 0, 1 (the "
                              "stiff libraries alone) and 13-15 (K2b, K2c); 'explicit' phases "
@@ -6671,7 +7285,11 @@ def main() -> int:
                              "K2a, K2e and K3a, a .pkm artifact, the NPAG fit over the DSL "
                              "model); 'estimation' phases 0 and 24 (log_likelihood_fn, "
                              "fit_map, fit_laplace, laplace_standard_errors and fit_saem on the "
-                             "card against the CPU, no library built). The kernels line then "
+                             "card against the CPU, no library built); 'diagnostics' phases 0 "
+                             "and 25 (bootstrap_laplace, sse_laplace, vpc, npde, llp and scm "
+                             "on the card against the CPU, no library built); 'nca' phases 0 "
+                             "and 26 (batch_nca_device on the card against the host batch, no "
+                             "library built). The kernels line then "
                              "holds that part's kernels and the last line says {\"ok\": true, "
                              "\"partial\": ...}, not the whole script's verdict")
     parser.add_argument("--pair", metavar="DIR", default=None,
@@ -6707,6 +7325,14 @@ def main() -> int:
     if args.only == "estimation":
         run_estimation(pt, card)
         closing_lines([], card, partial="estimation")
+        return 0
+    if args.only == "diagnostics":
+        run_diagnostics(pt, card)
+        closing_lines([], card, partial="diagnostics")
+        return 0
+    if args.only == "nca":
+        run_nca(pt, card)
+        closing_lines([], card, partial="nca")
         return 0
     if args.only == "authoring":
         phase_build(pt, {}, {}, {}, only="authoring")
@@ -6913,7 +7539,15 @@ def run_all(pt, rng, card, args, expm, ode_features, stiff, twins) -> int:
     k1c_rec = run_k1c_slice(pt, rng, card)
     run_single(pt, card)
     run_authoring(pt, card)
-    run_estimation(pt, card)
+    # phases 24 and 25 time their card work alone, one after the other, then
+    # share one window of CPU references beside their untimed card work
+    window = RefWindow()
+    finish_estimation = run_estimation(pt, card, window)
+    finish_diagnostics = run_diagnostics(pt, card, window)
+    done, window_s = window.run()
+    finish_estimation(done, window_s)
+    finish_diagnostics(done, window_s)
+    run_nca(pt, card)
 
     # times of the float32 runs; float64 beside them; no single PyTorch
     # call computes any of these functions, so library_ms is null

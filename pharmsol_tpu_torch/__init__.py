@@ -68,6 +68,7 @@ from .models.equation import ODE, Analytical, EquationBase  # noqa: F401
 from .models.declarative import analytical_model, ode_model, sde_model  # noqa: F401
 from .models.sde import SDE  # noqa: F401
 from . import dsl  # noqa: F401
+from . import nca  # noqa: F401  (attaches .nca/.superposition/metrics methods)
 from .engine import analytical as kernels  # noqa: F401
 from .engine.analytical import (  # noqa: F401
     one_compartment,

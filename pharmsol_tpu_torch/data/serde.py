@@ -1,14 +1,13 @@
-"""Versioned JSON (de)serialization for the data layer.
+"""Versioned JSON (de)serialization for the data layer and NCA results.
 
 Parity: every reference data type derives serde ``Serialize/Deserialize``
 (LAPKB/pharmsol src/data/structs.rs:37,351; covariate.rs:322;
-event.rs:106-114; error_model.rs) so PMcore-style callers can persist
-populations. The format is the JAX package's ``data/serde.py``, so a file
-written by either package loads in the other: plain-JSON dicts with a
-``schema`` version tag at the roots, round-trip-stable (build -> dump ->
-load -> identical content hash). The NCA result's schema waits for the
-port's NCA layer: until then an NCA result is an unsupported root, and its
-schema an unknown one.
+event.rs:106-114; error_model.rs; nca/types.rs NCAResult) so PMcore-style
+callers can persist populations and results. The format is the JAX
+package's ``data/serde.py``, so a file written by either package loads in
+the other: plain-JSON dicts with a ``schema`` version tag at the ``Data`` /
+``NCAResult`` roots, round-trip-stable (build -> dump -> load -> identical
+content hash).
 
 Schema v1 shapes::
 
@@ -19,25 +18,29 @@ Schema v1 shapes::
     Covariate   {"fixed": bool, "observations": [[t, v]...]}
     AssayErrorModels  {"schema": "pharmsol-error-models-v1", "models": {label: ...}}
     ResidualErrorModels {"schema": "pharmsol-residual-models-v1", ...}
+    NCAResult   {"schema": "pharmsol-nca-result-v1", ...}
 
 All functions are pure host-side.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import enum
 import json
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 from ..errors import PharmsolError
 from .covariate import Covariate, Covariates
 from .error_model import AssayErrorModel, AssayErrorModels, ErrorPoly, Factor
-from .event import Bolus, Censor, Infusion, Observation
+from .event import Bolus, Censor, Infusion, Observation, Route
 from .residual_error import ResidualErrorModel, ResidualErrorModels, ResidualKind
 from .structs import Data, Occasion, Subject
 
 DATA_SCHEMA = "pharmsol-data-v1"
 ERROR_MODELS_SCHEMA = "pharmsol-error-models-v1"
 RESIDUAL_MODELS_SCHEMA = "pharmsol-residual-models-v1"
+NCA_RESULT_SCHEMA = "pharmsol-nca-result-v1"
 
 
 def _expect_schema(d: dict, expected: str) -> None:
@@ -225,6 +228,136 @@ def residual_error_models_from_dict(d: dict) -> ResidualErrorModels:
     return rems
 
 
+# -- NCA results -----------------------------------------------------------------
+
+def _enum_value(v):
+    return v.value if isinstance(v, enum.Enum) else v
+
+
+def _dataclass_to_dict(obj) -> Optional[dict]:
+    if obj is None:
+        return None
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v) and not isinstance(v, type):
+            v = _dataclass_to_dict(v)
+        elif isinstance(v, list):
+            v = [_enum_value(x) for x in v]
+        else:
+            v = _enum_value(v)
+        out[f.name] = v
+    return out
+
+
+def nca_result_to_dict(result) -> dict:
+    """Serialize an NCAResult (nca/types.py) to a plain-JSON dict."""
+    from ..nca.types import NCAResult
+
+    if not isinstance(result, NCAResult):
+        raise PharmsolError(f"not an NCAResult: {type(result).__name__}")
+    rp = result.route_params
+    return {
+        "schema": NCA_RESULT_SCHEMA,
+        "subject_id": result.subject_id,
+        "occasion": result.occasion,
+        "dose_amount": result.dose_amount,
+        "route": _enum_value(result.route),
+        "infusion_duration": result.infusion_duration,
+        "exposure": _dataclass_to_dict(result.exposure),
+        "terminal": _dataclass_to_dict(result.terminal),
+        "clearance": _dataclass_to_dict(result.clearance),
+        "route_params": (
+            {"kind": rp.kind, "params": _dataclass_to_dict(rp.params)}
+            if rp is not None else None
+        ),
+        "steady_state": _dataclass_to_dict(result.steady_state),
+        "multi_dose": _dataclass_to_dict(result.multi_dose),
+        "quality": [
+            {
+                "kind": w.kind,
+                "message": w.message,
+                "severity": w.severity.value,
+                "data": {k: _enum_value(v) if not isinstance(v, list)
+                         else [_enum_value(x) for x in v]
+                         for k, v in w.data.items()},
+            }
+            for w in result.quality.warnings
+        ],
+    }
+
+
+def _dataclass_from_dict(cls, d: Optional[dict], enum_fields: Optional[dict] = None):
+    if d is None:
+        return None
+    enum_fields = enum_fields or {}
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        conv = enum_fields.get(f.name)
+        if conv is not None and v is not None:
+            v = conv(v)
+        kwargs[f.name] = v
+    return cls(**kwargs)
+
+
+def nca_result_from_dict(d: dict):
+    from ..nca.types import (
+        C0Method, ClearanceParams, ExposureParams, IVBolusParams,
+        IVInfusionParams, MultiDoseParams, NCAResult, Quality, RegressionStats,
+        RouteParams, Severity, SteadyStateParams, TerminalParams, Warning_,
+    )
+
+    _expect_schema(d, NCA_RESULT_SCHEMA)
+    terminal_d = d.get("terminal")
+    terminal = None
+    if terminal_d is not None:
+        reg = _dataclass_from_dict(RegressionStats, terminal_d.get("regression"))
+        terminal = _dataclass_from_dict(
+            TerminalParams, {**terminal_d, "regression": None}
+        )
+        terminal.regression = reg
+    rp_d = d.get("route_params")
+    route_params = None
+    if rp_d is not None:
+        kind = rp_d["kind"]
+        if kind == "iv_bolus":
+            route_params = RouteParams.iv_bolus(
+                _dataclass_from_dict(
+                    IVBolusParams, rp_d["params"], {"c0_method": C0Method}
+                )
+            )
+        elif kind == "iv_infusion":
+            route_params = RouteParams.iv_infusion(
+                _dataclass_from_dict(IVInfusionParams, rp_d["params"])
+            )
+        else:
+            route_params = RouteParams.extravascular()
+    quality = Quality(
+        warnings=[
+            Warning_(w["kind"], w["message"], Severity(w["severity"]),
+                     dict(w.get("data", {})))
+            for w in d.get("quality", [])
+        ]
+    )
+    return NCAResult(
+        subject_id=d.get("subject_id"),
+        occasion=d.get("occasion"),
+        dose_amount=d.get("dose_amount"),
+        route=Route(d["route"]) if d.get("route") else None,
+        infusion_duration=d.get("infusion_duration"),
+        exposure=_dataclass_from_dict(ExposureParams, d.get("exposure")),
+        terminal=terminal,
+        clearance=_dataclass_from_dict(ClearanceParams, d.get("clearance")),
+        route_params=route_params,
+        steady_state=_dataclass_from_dict(SteadyStateParams, d.get("steady_state")),
+        multi_dose=_dataclass_from_dict(MultiDoseParams, d.get("multi_dose")),
+        quality=quality,
+    )
+
+
 # -- JSON string / file convenience ----------------------------------------------
 
 def to_json(obj, indent: Optional[int] = None) -> str:
@@ -233,6 +366,8 @@ def to_json(obj, indent: Optional[int] = None) -> str:
 
 
 def _dispatch_to_dict(obj) -> dict:
+    from ..nca.types import NCAResult
+
     if isinstance(obj, Data):
         return data_to_dict(obj)
     if isinstance(obj, Subject):
@@ -241,9 +376,11 @@ def _dispatch_to_dict(obj) -> dict:
         return assay_error_models_to_dict(obj)
     if isinstance(obj, ResidualErrorModels):
         return residual_error_models_to_dict(obj)
+    if isinstance(obj, NCAResult):
+        return nca_result_to_dict(obj)
     raise PharmsolError(
         f"cannot serialize {type(obj).__name__}; supported roots: Data, "
-        f"Subject, AssayErrorModels, ResidualErrorModels"
+        f"Subject, AssayErrorModels, ResidualErrorModels, NCAResult"
     )
 
 
@@ -260,6 +397,8 @@ def from_json(text: str):
         return assay_error_models_from_dict(d)
     if schema == RESIDUAL_MODELS_SCHEMA:
         return residual_error_models_from_dict(d)
+    if schema == NCA_RESULT_SCHEMA:
+        return nca_result_from_dict(d)
     raise PharmsolError(f"unknown schema `{schema}`")
 
 

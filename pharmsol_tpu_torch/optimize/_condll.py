@@ -55,6 +55,8 @@ class CondLL(NamedTuple):
     # per-occasion-row params [R, p] natural scale -> predictions [R, O]
     pred_rows_at: Callable = None
     device: torch.device = None
+    rows: object = None                # the lowered rows on the device
+    make_pred: Callable = None         # rows -> pred_rows_at over them
 
 
 def _solver(eq):
@@ -108,22 +110,10 @@ def build_cond_ll(
     sub_np = np.asarray(grid.row_subject).astype(np.int64)
     row_subject = torch.as_tensor(sub_np, device=dev)
 
-    if kind == "ode" and solver not in REVERSE_DIFF_SOLVERS:
-        from ..engine.sens import make_sens_pred, supports_forward_sens
-
-        if supports_forward_sens(eq):
-            # adaptive solvers: derivatives integrate the augmented
-            # sensitivity system instead of differentiating the stepper
-            pred_at = make_sens_pred(eq, rows, names)
-        else:
-            def pred_at(p_rows):
-                return eq._batch_predictions(rows, p_rows, names)
-    else:
-        def pred_at(p_rows):
-            return eq._batch_predictions(rows, p_rows, names)
-
+    make_pred = _pred_maker(eq, names)
+    pred_at = make_pred(rows)
+    kinds_t = torch.as_tensor(kinds_np.astype(np.int64), device=dev)
     obs_outeq = rows.obs_outeq
-    obs_value = rows.obs_value
     active = rows.obs_valid & rows.obs_has_value
     act_np = active.cpu().numpy()
     oe_np = obs_outeq.cpu().numpy()
@@ -138,31 +128,7 @@ def build_cond_ll(
     n_obs_per_outeq = np.zeros(nout, dtype=np.float64)
     for o in range(nout):
         n_obs_per_outeq[o] = float(np.sum(act_np & (oe_np == o)))
-
-    kind_per_obs = torch.as_tensor(kinds_np.astype(np.int64), device=dev)[obs_outeq]
-
-    def pred_rows(theta_rows):
-        """Raw predictions [R, O] at per-subject parameter rows."""
-        return pred_at(theta_rows[row_subject])
-
-    def ll_parts(theta_rows, sig_a, sig_b, y=None, per_row=False):
-        """Conditional LL per subject and the per-observation (r2, f2).
-
-        ``y [R, O]`` overrides the lowered observation values (the
-        replicate-refit hook); ``per_row=True`` reads ``theta_rows`` as
-        per-occasion-row parameters ``[R, p]`` (the IOV hook).
-        """
-        obs = obs_value if y is None else y
-        preds = pred_at(theta_rows if per_row else theta_rows[row_subject])
-        sigma = residual_sigma_array(kind_per_obs, sig_a[obs_outeq], sig_b[obs_outeq], preds)
-        z = (obs - preds) / sigma
-        ll = -0.5 * (LOG_2PI + 2.0 * torch.log(sigma) + z * z)
-        zero = torch.zeros((), dtype=preds.dtype, device=preds.device)
-        per_row_ll = torch.where(active, ll, zero).sum(dim=-1)
-        ll_i = per_row_ll.new_zeros(n_sub).index_add(0, row_subject, per_row_ll)
-        r2 = torch.where(active, (obs - preds) ** 2, zero)
-        f2 = torch.where(active, preds * preds, zero)
-        return ll_i, r2, f2
+    pred_rows, ll_parts = _cond_parts(pred_at, rows, row_subject, n_sub, kinds_t)
 
     occ_np = np.asarray(grid.rows.occasion_index).reshape(-1).astype(np.int64)
     n_occ = np.zeros(n_sub, dtype=np.int64)
@@ -179,7 +145,7 @@ def build_cond_ll(
         lowered_b=np.asarray(lowered.b, dtype=np.float64),
         n_obs_per_outeq=n_obs_per_outeq,
         obs_outeq=obs_outeq,
-        obs_value=obs_value,
+        obs_value=rows.obs_value,
         obs_time=rows.obs_t,
         active=active,
         row_subject=row_subject,
@@ -188,7 +154,99 @@ def build_cond_ll(
         n_occ_max=int(n_occ.max()) if n_sub else 1,
         pred_rows_at=pred_at,
         device=dev,
+        rows=rows,
+        make_pred=make_pred,
     )
+
+
+def _pred_maker(eq, names) -> Callable:
+    """``rows -> pred_at``: the predictions [R, O] of every row under its own
+    parameter row. The adaptive ODE solvers take their derivatives from the
+    augmented sensitivity systems instead of differentiating the stepper."""
+    if getattr(eq, "kind", None) == "ode" and _solver(eq) not in REVERSE_DIFF_SOLVERS:
+        from ..engine.sens import make_sens_pred, supports_forward_sens
+
+        if supports_forward_sens(eq):
+            return lambda rows: make_sens_pred(eq, rows, names)
+
+    def make(rows):
+        def pred_at(p_rows):
+            return eq._batch_predictions(rows, p_rows, names)
+
+        return pred_at
+
+    return make
+
+
+def _per_obs(sig: torch.Tensor, obs_outeq: torch.Tensor) -> torch.Tensor:
+    """One residual parameter per observation: ``sig`` is [nout] (shared)
+    or [R, nout] (a row of its own per grid row)."""
+    return sig[obs_outeq] if sig.dim() == 1 else torch.gather(sig, 1, obs_outeq)
+
+
+def _cond_parts(pred_at, rows, row_subject, n_sub: int, kinds_t):
+    """``(pred_rows, ll_parts)`` over the rows ``rows`` of ``n_sub``
+    subjects."""
+    obs_outeq, obs_value = rows.obs_outeq, rows.obs_value
+    active = rows.obs_valid & rows.obs_has_value
+    kind_per_obs = kinds_t[obs_outeq]
+
+    def pred_rows(theta_rows):
+        """Raw predictions [R, O] at per-subject parameter rows."""
+        return pred_at(theta_rows[row_subject])
+
+    def ll_parts(theta_rows, sig_a, sig_b, y=None, per_row=False):
+        """Conditional LL per subject and the per-observation (r2, f2).
+
+        ``y [R, O]`` overrides the lowered observation values (the
+        replicate-refit hook); ``per_row=True`` reads ``theta_rows`` as
+        per-occasion-row parameters ``[R, p]`` (the IOV hook); ``sig_a`` /
+        ``sig_b`` are [nout], or [R, nout] with a row per grid row.
+        """
+        obs = obs_value if y is None else y
+        preds = pred_at(theta_rows if per_row else theta_rows[row_subject])
+        sigma = residual_sigma_array(kind_per_obs, _per_obs(sig_a, obs_outeq),
+                                     _per_obs(sig_b, obs_outeq), preds)
+        z = (obs - preds) / sigma
+        ll = -0.5 * (LOG_2PI + 2.0 * torch.log(sigma) + z * z)
+        zero = torch.zeros((), dtype=preds.dtype, device=preds.device)
+        per_row_ll = torch.where(active, ll, zero).sum(dim=-1)
+        ll_i = per_row_ll.new_zeros(n_sub).index_add(0, row_subject, per_row_ll)
+        r2 = torch.where(active, (obs - preds) ** 2, zero)
+        f2 = torch.where(active, preds * preds, zero)
+        return ll_i, r2, f2
+
+    return pred_rows, ll_parts
+
+
+def tile_cond_ll(cond: CondLL, n_lanes: int) -> CondLL:
+    """The conditional LL over ``n_lanes`` copies of ``cond``'s population,
+    lane-major: subject ``b * n_sub + i`` is lane b's copy of subject i and
+    grid row ``b * R + r`` lane b's copy of row r. The rows are gathered by
+    index on the device (the population is not lowered again), so one call
+    evaluates every lane's subjects at once; the lanes share no operation
+    that mixes them."""
+    if n_lanes == 1:
+        return cond
+    if cond.rows is None:
+        raise PharmsolError("this conditional LL cannot be tiled (no device rows)")
+    dev = cond.device
+    R = int(cond.row_subject.shape[0])
+    n_sub = cond.n_sub
+    ridx = torch.arange(R, device=dev).repeat(n_lanes)
+    lane_of_row = torch.arange(n_lanes, device=dev).repeat_interleave(R)
+    rows = type(cond.rows)(*(a[ridx] for a in cond.rows))
+    row_subject = cond.row_subject[ridx] + n_sub * lane_of_row
+    kinds_t = torch.as_tensor(cond.kinds_np.astype(np.int64), device=dev)
+    pred_at = cond.make_pred(rows)
+    pred_rows, ll_parts = _cond_parts(pred_at, rows, row_subject, n_lanes * n_sub, kinds_t)
+    return cond._replace(
+        ll_parts=ll_parts, pred_rows=pred_rows, subjects=list(cond.subjects) * n_lanes,
+        n_sub=n_lanes * n_sub, n_obs_per_outeq=cond.n_obs_per_outeq * n_lanes,
+        obs_outeq=rows.obs_outeq, obs_value=rows.obs_value, obs_time=rows.obs_t,
+        active=rows.obs_valid & rows.obs_has_value, row_subject=row_subject,
+        row_occasion=cond.row_occasion[ridx], n_occ=np.tile(cond.n_occ, n_lanes),
+        pred_rows_at=pred_at, rows=rows)
 
 
 def resolve_transform(transform, p: int) -> tuple:

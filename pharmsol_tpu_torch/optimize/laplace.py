@@ -50,10 +50,11 @@ from ._condll import (
     fitted_residual_models,
     named_theta0,
     resolve_transform,
+    tile_cond_ll,
     to_natural,
 )
 from ._coveffects import resolve_covariate_effects
-from ._lbfgs import Lbfgs, value_and_grad_fn
+from ._lbfgs import Lbfgs, batch_value_and_grad_fn, value_and_grad_fn
 
 
 class LaplaceResult(NamedTuple):
@@ -184,7 +185,9 @@ def _resolve_iov(iov, p: int, names) -> tuple:
 
 
 class _InnerModes(torch.autograd.Function):
-    """``u*(m, prec, prec_iov, sig_a, sig_b)``: the inner modes, by the
+    """``u*(m, prec, prec_iov, sig_a, sig_b)`` (per subject: ``m`` [N, p],
+    ``prec`` [N, p, p], ``prec_iov`` [N, q]; per grid row: ``sig_a``,
+    ``sig_b`` [R, nout]): the inner modes, by the
     damped Newton loop forward and by the implicit function theorem
     backward. At the fixed point ``r(u*, args) = grad_u G(u*, args) = 0``,
     so ``du*/dargs = H^-1 dr/dargs`` with ``H = -hess_u G``: the backward
@@ -217,7 +220,7 @@ class _InnerModes(torch.autograd.Function):
                 aliases = [a.detach().requires_grad_(True) for a in args]
             g, H = lap.grad_hess(u, *aliases, y, create_graph=create)
             H = H + lap.ridge * lap.eye_d
-            uu = torch.linalg.solve(H, w.unsqueeze(-1))[..., 0]  # H is symmetric
+            uu = torch.linalg.solve_ex(H, w.unsqueeze(-1))[0][..., 0]  # H is symmetric
             grads = torch.autograd.grad(g, aliases, grad_outputs=uu, create_graph=create,
                                         allow_unused=True)
         grads = [None if not need else gr for gr, need in zip(grads, ctx.needs_input_grad)]
@@ -226,7 +229,12 @@ class _InnerModes(torch.autograd.Function):
 
 class _Laplace:
     """The Laplace objective's pieces over one population (see
-    :func:`fit_laplace`)."""
+    :func:`fit_laplace`), or over ``B`` copies of it whose subjects each
+    carry their lane's prior (a ``tile_cond_ll`` population): the prior
+    precisions come per subject (``prec`` [N, p, p], ``prec_iov`` [N, q]) and
+    the residual parameters per grid row (``sig_a``, ``sig_b`` [R, nout]).
+    Subjects share no operation that mixes them, so a NaN in one lane stays
+    in its lane."""
 
     def __init__(self, cond, p, d_in, k_max, q, is_log, onehot_iov, inner_steps, fd, dev):
         self.cond, self.p, self.d_in, self.k_max, self.q = cond, p, d_in, k_max, q
@@ -255,10 +263,10 @@ class _Laplace:
         """Per-subject 0.5 u' P u under the block-diagonal prior."""
         p, q = self.p, self.q
         eta = u[:, :p]
-        quad = 0.5 * torch.sum((eta @ prec) * eta, dim=-1)
+        quad = 0.5 * torch.sum((eta.unsqueeze(1) @ prec)[:, 0] * eta, dim=-1)
         if q:
             kap = u[:, p:].reshape(self.n_sub, self.k_max, q)
-            quad = quad + 0.5 * torch.sum(kap * kap * prec_iov[None, None, :], dim=(1, 2))
+            quad = quad + 0.5 * torch.sum(kap * kap * prec_iov[:, None, :], dim=(1, 2))
         return quad
 
     def objective(self, u, m, prec, prec_iov, sig_a, sig_b, y=None):
@@ -272,18 +280,26 @@ class _Laplace:
         Hessian-vector products with basis vectors broadcast over the
         subjects. The gradient keeps its graph (the implicit rule
         differentiates it); the Hessian does with ``create_graph``."""
-        total = torch.sum(self.objective(u, m, prec, prec_iov, sig_a, sig_b, y))
-        (g,) = torch.autograd.grad(total, u, create_graph=True)
+        return self.value_grad_hess(u, m, prec, prec_iov, sig_a, sig_b, y, create_graph)[1:]
+
+    def value_grad_hess(self, u, m, prec, prec_iov, sig_a, sig_b, y=None, create_graph=False):
+        """:meth:`grad_hess` with the per-subject joint log-density [n_sub]
+        it differentiates, from the same forward pass."""
+        f = self.objective(u, m, prec, prec_iov, sig_a, sig_b, y)
+        (g,) = torch.autograd.grad(torch.sum(f), u, create_graph=True)
         # the d products in one batched backward pass
         basis = self.eye_d[:, None, :].expand(self.d_in, self.n_sub, self.d_in)
         (cols,) = torch.autograd.grad(g, u, grad_outputs=basis, retain_graph=True,
                                       create_graph=create_graph, is_grads_batched=True)
         H = -cols.transpose(0, 1)  # [n_sub, k, d]: negative, a precision
-        return g, H
+        return f, g, H
 
     def newton(self, m, prec, prec_iov, sig_a, sig_b, y=None):
         """Per-subject Levenberg-Marquardt damped Newton to the modes, a
-        fixed number of steps, on detached values."""
+        fixed number of steps, on detached values. One forward pass a step:
+        the candidate's objective, gradient and Hessian come together, and
+        a subject that rejects its candidate keeps those of its current
+        point (each subject's are its own)."""
         args = [a.detach() for a in (m, prec, prec_iov, sig_a, sig_b)]
         y = None if y is None else y.detach()
         eye_d = self.eye_d
@@ -292,24 +308,32 @@ class _Laplace:
             with torch.no_grad():
                 return self.objective(e, *args, y)
 
+        def obj_grad_hess(e):
+            with torch.enable_grad():
+                f, g, H = self.value_grad_hess(e.detach().requires_grad_(True), *args, y)
+            return f.detach(), g.detach(), H.detach()
+
         u = torch.zeros((self.n_sub, self.d_in), dtype=self.fd, device=self.dev)
         lam = torch.full((self.n_sub,), 1e-2, dtype=self.fd, device=self.dev)
-        f = obj(u)
-        for _ in range(self.inner_steps):
-            with torch.enable_grad():
-                ul = u.detach().requires_grad_(True)
-                g, H = self.grad_hess(ul, *args, y)
-            g, H = g.detach(), H.detach()
+        f, g, H = obj_grad_hess(u)
+        for step in range(self.inner_steps):
             Hd = H + (self.ridge + lam[:, None, None]) * eye_d[None]
-            delta = torch.linalg.solve(Hd, g.unsqueeze(-1))[..., 0]
+            delta = torch.linalg.solve_ex(Hd, g.unsqueeze(-1))[0][..., 0]
             # overflow guard only: the damping does the real step control
             norm = torch.sqrt(torch.sum(delta * delta, dim=-1, keepdim=True))
             delta = delta * torch.clamp(6.0 / torch.clamp(norm, min=1e-12), max=1.0)
             cand = u + delta
-            fc = obj(cand)
+            last = step == self.inner_steps - 1
+            if last:
+                fc = obj(cand)
+            else:
+                fc, gc, Hc = obj_grad_hess(cand)
             better = torch.isfinite(fc) & (fc >= f)
             u = torch.where(better[:, None], cand, u)
             f = torch.where(better, fc, f)
+            if not last:
+                g = torch.where(better[:, None], gc, g)
+                H = torch.where(better[:, None, None], Hc, H)
             lam = torch.clamp(torch.where(better, lam * 0.25, lam * 8.0), 1e-10, 1e10)
         return u
 
@@ -409,6 +433,10 @@ def fit_laplace(
                 )
 
     dev, fd = cond.device, float_dtype()
+    # a closed form's objective reads no device value on the host: on the
+    # card its evaluations replay from a CUDA graph (``_lbfgs.cuda_graphed``),
+    # here and in the replicate programs, which take ``lanes_value_and_grad``
+    graph = dev.type == "cuda" and getattr(equation, "kind", None) == "analytical"
 
     def tens(a, dtype=fd):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -434,70 +462,127 @@ def fit_laplace(
     if ce is not None:
         x_eff, onehot_eff = tens(ce.x), tens(ce.onehot)
 
+    def unpack_lanes(psi, x=None, onehot=None):
+        """psi [B, dim] -> (m, L, om_iov, sig_a, sig_b) per lane: the
+        transformed-scale prior means [B, n_sub, p], D = L L' (Cholesky
+        omega, [B, p, p]), the occasion-level SDs [B, q] and the residual
+        parameters [B, nout]. ``x [B, n_sub, n_eff]`` / ``onehot [B, n_eff,
+        p]`` override the covariate design."""
+        B = psi.shape[0]
+        mu = psi[:, :p]
+        if n_eff:
+            beta = psi[:, p:o_ld]
+            xd = x_eff.expand(B, n_sub, n_eff) if x is None else x
+            oh = onehot_eff.expand(B, n_eff, p) if onehot is None else onehot
+            m = mu[:, None, :] + (xd * beta[:, None, :]) @ oh
+        else:
+            m = mu[:, None, :].expand(B, n_sub, p)
+        lane = torch.arange(B, device=dev)[:, None]
+        L = torch.diag_embed(torch.exp(psi[:, o_ld:o_off]))
+        if n_off:
+            L = L.index_put((lane, tril[0][None], tril[1][None]), psi[:, o_off:o_iov])
+        om_iov = torch.exp(psi[:, o_iov:o_sig])
+        sig_a, sig_b = base_a.expand(B, -1), base_b.expand(B, -1)
+        if n_sig:
+            sig = torch.exp(psi[:, o_sig:])
+            if a_idx.numel():
+                sig_a = sig_a.index_put((lane, a_idx[None]), sig[:, a_pos])
+            if b_idx.numel():
+                sig_b = sig_b.index_put((lane, b_idx[None]), sig[:, b_pos])
+        return m, L, om_iov, sig_a, sig_b
+
     def unpack(psi, x=None, onehot=None):
         """psi -> (m, L, om_iov, sig_a, sig_b): per-subject transformed-scale
         prior means [n_sub, p], D = L L' (Cholesky omega) and the
         occasion-level SDs [q]. ``x [n_sub, n_eff]`` / ``onehot [n_eff,
         p]`` override the covariate design."""
-        mu = psi[:p]
-        if n_eff:
-            beta = psi[p:o_ld]
-            xd = x_eff if x is None else x
-            oh = onehot_eff if onehot is None else onehot
-            m = mu[None, :] + (xd * beta[None, :]) @ oh
-        else:
-            m = mu[None, :].expand(n_sub, p)
-        L = torch.diag(torch.exp(psi[o_ld:o_off]))
-        if n_off:
-            L = L.index_put(tril, psi[o_off:o_iov])
-        om_iov = torch.exp(psi[o_iov:o_sig])
-        sig_a, sig_b = base_a, base_b
-        if n_sig:
-            sig = torch.exp(psi[o_sig:])
-            if a_idx.numel():
-                sig_a = sig_a.index_put((a_idx,), sig[a_pos])
-            if b_idx.numel():
-                sig_b = sig_b.index_put((b_idx,), sig[b_pos])
-        return m, L, om_iov, sig_a, sig_b
+        out = unpack_lanes(psi[None], None if x is None else x[None],
+                           None if onehot is None else onehot[None])
+        return tuple(a[0] for a in out)
 
     def precision(L):
-        l_inv = torch.linalg.solve_triangular(L, eye, upper=False)
-        return l_inv.T @ l_inv
+        l_inv = torch.linalg.solve_triangular(L, eye.expand(L.shape), upper=False)
+        return l_inv.transpose(-1, -2) @ l_inv
 
-    def joint_grad_hess(u, m, prec, prec_iov, sig_a, sig_b, y=None):
+    laps = {1: lap}
+
+    def lap_of(n_lanes: int) -> _Laplace:
+        """The objective's pieces over ``n_lanes`` copies of the population
+        (built once per lane count)."""
+        if n_lanes not in laps:
+            laps[n_lanes] = _Laplace(tile_cond_ll(cond, n_lanes), p, d_in, k_max, q, is_log_t,
+                                     onehot_iov, inner_steps, fd, dev)
+        return laps[n_lanes]
+
+    def per_subject(lp, prec, prec_iov, sig_a, sig_b):
+        """Shared (one lane's) prior and residual parameters, broadcast to
+        ``lp``'s subjects and grid rows."""
+        n, R = lp.n_sub, lp.cond.row_subject.shape[0]
+        return (prec.expand(n, p, p), prec_iov.expand(n, q), sig_a.expand(R, -1),
+                sig_b.expand(R, -1))
+
+    def joint_grad_hess(u, m, prec, prec_iov, sig_a, sig_b, y=None, lp=None):
+        """The joint log-density's per-subject gradient and negated Hessian
+        at ``u``; ``prec`` [p, p], ``prec_iov`` [q], ``sig_a``, ``sig_b``
+        [nout] are one lane's (``lp=None``) or already per subject / row."""
+        if lp is None:
+            lp = lap
+            prec, prec_iov, sig_a, sig_b = per_subject(lp, prec, prec_iov, sig_a, sig_b)
         with torch.enable_grad():
             u = u if u.requires_grad else u.detach().requires_grad_(True)
-            return lap.grad_hess(u, m, prec, prec_iov, sig_a, sig_b, y, create_graph=True)
+            return lp.grad_hess(u, m, prec, prec_iov, sig_a, sig_b, y, create_graph=True)
 
-    def neg_laplace_wxy(psi, w, y, x=None, onehot=None):
-        """Weighted marginal objective: ``w_i`` scales subject i's
-        contribution (a case-bootstrap replicate's multiplicities), ``y``
-        swaps the observation values, ``(x, onehot)`` the covariate
-        design."""
+    def neg_laplace_wxy_lanes(psi, w, y, x=None, onehot=None):
+        """The weighted marginal objective of ``B`` independent lanes at once
+        (``psi [B, dim]`` -> ``[B]``): ``w [B, n_sub]`` scales each
+        subject's contribution (a case-bootstrap replicate's
+        multiplicities), ``y [B, R, O]`` (or None) swaps the observation
+        values, ``(x [B, n_sub, n_eff], onehot [B, n_eff, p])`` the
+        covariate design. The lanes are folded into the subject axis: one
+        evaluation runs every lane's subjects' inner modes, conditional
+        likelihood and Hessians, and the gradient of the sum is the stack of
+        the lanes' gradients."""
+        B = psi.shape[0]
+        lp = lap_of(B)
+        R = cond.row_subject.shape[0]
+        sub_lane = torch.arange(B, device=dev).repeat_interleave(n_sub)
+        row_lane = torch.arange(B, device=dev).repeat_interleave(R)
         with torch.enable_grad():
-            m, L, om_iov, sig_a, sig_b = unpack(psi, x, onehot)
-            prec = precision(L)
-            prec_iov = 1.0 / (om_iov * om_iov)
-            u = lap.modes(m, prec, prec_iov, sig_a, sig_b, y)
-            ll_i = lap.cond_ll(u, m, sig_a, sig_b, y)
-            _, H = joint_grad_hess(u, m, prec, prec_iov, sig_a, sig_b, y)
-            H = H + lap.ridge * lap.eye_d[None]
+            m, L, om_iov, sig_a, sig_b = unpack_lanes(psi, x, onehot)
+            m = m.reshape(B * n_sub, p)
+            prec = precision(L)[sub_lane]
+            prec_iov = (1.0 / (om_iov * om_iov))[sub_lane]
+            sig_a, sig_b = sig_a[row_lane], sig_b[row_lane]
+            yy = None if y is None else y.reshape((B * R,) + tuple(y.shape[2:]))
+            u = lp.modes(m, prec, prec_iov, sig_a, sig_b, yy)
+            ll_i = lp.cond_ll(u, m, sig_a, sig_b, yy)
+            _, H = joint_grad_hess(u, m, prec, prec_iov, sig_a, sig_b, yy, lp=lp)
+            H = H + lp.ridge * lp.eye_d[None]
             chol, info = torch.linalg.cholesky_ex(H)
             logdet_h = 2.0 * torch.sum(
                 torch.log(torch.clamp(torch.diagonal(chol, dim1=1, dim2=2), min=1e-300)),
                 dim=-1)
             # a Hessian that is not positive definite has no Cholesky factor
             logdet_h = torch.where(info == 0, logdet_h, torch.full_like(logdet_h, float("nan")))
-            quad = lap.prior_quad(u, prec, prec_iov)
+            quad = lp.prior_quad(u, prec, prec_iov)
             # log det of the block-diagonal prior covariance per subject:
             # 2 tr log L plus K_max occasion blocks (padded kappas cancel
             # exactly against their prior block in logdet_h)
-            logdet_d = 2.0 * torch.sum(psi[o_ld:o_off])
+            logdet_d = 2.0 * torch.sum(psi[:, o_ld:o_off], dim=-1)
             if q:
-                logdet_d = logdet_d + 2.0 * k_max * torch.sum(psi[o_iov:o_sig])
-            obj_i = ll_i - quad - 0.5 * logdet_d - 0.5 * logdet_h
-            out = -torch.sum(w * obj_i)
+                logdet_d = logdet_d + 2.0 * k_max * torch.sum(psi[:, o_iov:o_sig], dim=-1)
+            obj_i = ll_i - quad - 0.5 * logdet_d[sub_lane] - 0.5 * logdet_h
+            out = -torch.sum(w * obj_i.reshape(B, n_sub), dim=-1)
         return out if psi.requires_grad else out.detach()
+
+    def neg_laplace_wxy(psi, w, y, x=None, onehot=None):
+        """Weighted marginal objective: ``w_i`` scales subject i's
+        contribution (a case-bootstrap replicate's multiplicities), ``y``
+        swaps the observation values, ``(x, onehot)`` the covariate
+        design: one lane of :func:`neg_laplace_wxy_lanes`."""
+        return neg_laplace_wxy_lanes(psi[None], w[None], None if y is None else y[None],
+                                     None if x is None else x[None],
+                                     None if onehot is None else onehot[None])[0]
 
     ones_w = torch.ones((n_sub,), dtype=fd, device=dev)
 
@@ -510,8 +595,14 @@ def fit_laplace(
     def neg_laplace(psi):
         return neg_laplace_wxy(psi, ones_w, None)
 
+    def neg_laplace_wy_lanes(psi, w, y):
+        return neg_laplace_wxy_lanes(psi, w, y)
+
+    def neg_laplace_w_lanes(psi, w):
+        return neg_laplace_wxy_lanes(psi, w, None)
+
     def inner_modes(m, prec, prec_iov, sig_a, sig_b, y=None):
-        return lap.modes(m, prec, prec_iov, sig_a, sig_b, y)
+        return lap.modes(m, *per_subject(lap, prec, prec_iov, sig_a, sig_b), y)
 
     mu0 = np.where(is_log, np.log(theta0), theta0)
     sig0 = [np.log((cond.lowered_a if f == "a" else cond.lowered_b)[o]) for o, f in slots]
@@ -525,6 +616,10 @@ def fit_laplace(
             neg_laplace_w=neg_laplace_w,
             neg_laplace_wy=neg_laplace_wy,
             neg_laplace_wxy=neg_laplace_wxy,
+            neg_laplace_w_lanes=neg_laplace_w_lanes,
+            neg_laplace_wy_lanes=neg_laplace_wy_lanes,
+            neg_laplace_wxy_lanes=neg_laplace_wxy_lanes,
+            lanes_value_and_grad=lambda fn: batch_value_and_grad_fn(fn, graph=graph),
             layout=dict(p=p, n_eff=n_eff, o_ld=o_ld, o_off=o_off,
                         n_off=n_off, is_log=is_log, full_omega=full_omega,
                         n_sub=n_sub, tril=(tril_r, tril_c),
@@ -543,7 +638,7 @@ def fit_laplace(
         )
 
     opt = Lbfgs()
-    vg = value_and_grad_fn(neg_laplace)
+    vg = value_and_grad_fn(neg_laplace, graph=graph)
     z = psi0
     state = opt.init(psi0)
     gnorm = np.inf
@@ -563,7 +658,8 @@ def fit_laplace(
         m, L, om_iov, sig_a, sig_b = unpack(z)
         prec = precision(L)
         prec_iov = 1.0 / (om_iov * om_iov)
-    u_opt = lap.newton(m, prec, prec_iov, sig_a, sig_b).cpu().numpy().astype(np.float64)
+    u_opt = lap.newton(m, *per_subject(lap, prec, prec_iov, sig_a, sig_b)).cpu().numpy().astype(
+        np.float64)
     eta = u_opt[:, :p]
     kappa = u_opt[:, p:].reshape(n_sub, k_max, q) if q else None
     loglik = -float(neg_laplace(z))
@@ -587,6 +683,8 @@ def fit_laplace(
         # implicit rule when the inner Newton is not fully converged:
         # symmetrize so that it degrades SEs instead of poisoning them
         H = 0.5 * (H + H.T)
+        if _introspect is not None:
+            _introspect["hessian"] = H
         try:
             cov = np.linalg.inv(H)
         except np.linalg.LinAlgError:  # singular Hessian: point estimates only

@@ -975,3 +975,97 @@ def test_k1a_grid_walks_rows_per_support(cuda, case, dtype):
     if dtype == torch.float64:
         want = psi_analytical_plain(*plan.streams, plan.support, **kw)
         torch.testing.assert_close(runs[3], want, rtol=1e-10, atol=0)
+
+
+# -- the replicate layer and the device NCA batch (no kernel of the table) ---------
+
+
+def _replicate_pieces(device):
+    """The Laplace objective's pieces over 6 one-compartment subjects on
+    ``device`` (no fit) and bootstrap weights for 4 lanes."""
+    rng = np.random.default_rng(5)
+    subjects = []
+    for i in range(6):
+        ke = 0.25 * np.exp(0.3 * rng.standard_normal())
+        v = 10.0 * np.exp(0.15 * rng.standard_normal())
+        b = pt.Subject.builder(f"s{i}").bolus(0.0, 100.0, 0)
+        for t in (0.5, 2.0, 6.0, 12.0, 24.0):
+            b = b.observation(t, float(100.0 * np.exp(-ke * t) / v
+                                       * (1 + 0.08 * rng.standard_normal())), 0)
+        subjects.append(b.build())
+    model = pt.Analytical(pt.one_compartment, out=lambda x, p, t, cov: x[0:1] / p[1],
+                          nstates=1, ndrugs=1, nout=1)
+    rems = pt.ResidualErrorModels().add(0, pt.ResidualErrorModel.proportional(0.2))
+    intro = {}
+    pt.optimize.fit_laplace(model, pt.Data(subjects), rems, [0.4, 8.0], _introspect=intro,
+                            _build_only=True, device=device)
+    W = rng.integers(0, 3, size=(4, 6)).astype(float)
+    return intro, W
+
+
+def test_batched_objective_and_refits_on_the_card_match_the_cpu(cuda):
+    """One batched objective + gradient at 4 lanes (1e-12 / 1e-10) and a
+    4-lane refit of 5 steps (1e-8; on the card replayed from its CUDA graph,
+    as the API runs it), card against CPU, float64."""
+    from pharmsol_tpu_torch.optimize._lbfgs import batch_value_and_grad_fn
+    from pharmsol_tpu_torch.optimize.bootstrap import _vectorized_refits
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        intro, W = _replicate_pieces(dev)
+        w = torch.tensor(W, device=dev)
+        fn = intro["neg_laplace_w_lanes"]
+        z = intro["psi0"].expand(4, -1).clone()
+        v, g = batch_value_and_grad_fn(lambda Z: fn(Z, w))(z)
+        Z, G, F = _vectorized_refits(fn, intro["psi0"], w, 5, intro["lanes_value_and_grad"])
+        out[dev] = (v.cpu().numpy(), g.cpu().numpy(), Z, F)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-12)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(out["cuda"][2], out["cpu"][2], rtol=1e-8, atol=1e-12)
+    np.testing.assert_allclose(out["cuda"][3], out["cpu"][3], rtol=1e-8)
+
+
+def test_cuda_graph_replays_equal_the_eager_evaluations(cuda):
+    """``_lbfgs.cuda_graphed``: the first call eager, the second captured,
+    every later one a replay; each result equal to the eager one on the same
+    input (a log-barrier objective, batched and scalar); a new shape raises."""
+    from pharmsol_tpu_torch.optimize._lbfgs import batch_value_and_grad_fn, value_and_grad_fn
+
+    c = torch.tensor([3.0, 2.0, 4.0], dtype=torch.float64, device=cuda)[:, None]
+
+    def fn(Z):
+        return torch.sum((Z - c) ** 2, dim=-1) - 4.0 * torch.sum(torch.log(Z), dim=-1)
+
+    eager, graph = batch_value_and_grad_fn(fn), batch_value_and_grad_fn(fn, graph=True)
+    one, one_graph = (value_and_grad_fn(lambda z: fn(z[None])[0]),
+                      value_and_grad_fn(lambda z: fn(z[None])[0], graph=True))
+    for k in range(4):
+        z = torch.full((3, 2), 0.5 + k, dtype=torch.float64, device=cuda)
+        for a, b in zip(eager(z), graph(z)):
+            torch.testing.assert_close(b, a, rtol=0, atol=0)
+        v, g = one(z[0])
+        vv, gg = one_graph(z[0])
+        assert vv == v
+        torch.testing.assert_close(gg, g, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="captured for"):
+        graph(torch.full((3, 3), 1.5, dtype=torch.float64, device=cuda))
+
+
+def test_batch_nca_device_on_the_card_matches_the_host(cuda):
+    from pharmsol_tpu_torch.nca.batch import batch_nca
+    from pharmsol_tpu_torch.nca.batch_device import batch_nca_device
+
+    rng = np.random.RandomState(2)
+    t = np.linspace(0.25, 24.0, 32)
+    ka = 1.2 * np.exp(0.2 * rng.randn(500))
+    ke = 0.2 * np.exp(0.3 * rng.randn(500))
+    v = 30.0 * np.exp(0.2 * rng.randn(500))
+    c = np.abs(100.0 * ka[:, None] / (ka - ke)[:, None] * (
+        np.exp(-ke[:, None] * t[None, :]) - np.exp(-ka[:, None] * t[None, :])) / v[:, None]) + 1e-9
+    host = batch_nca(t, c, dose=100.0)
+    dev = batch_nca_device(t, c, dose=100.0, device=cuda)
+    assert set(dev) == set(host)
+    for key, h in host.items():
+        nan = np.isnan(h)
+        np.testing.assert_array_equal(np.isnan(dev[key]), nan, err_msg=key)
+        np.testing.assert_allclose(dev[key][~nan], h[~nan], rtol=1e-9, err_msg=key)

@@ -2,9 +2,9 @@
 (``data/pmetrics.py``), DataRow ingestion (``data/row.py``), JSON serde
 (``data/serde.py``) and the AUC helpers (``data/auc.py``).
 
-Mirrors ``tests/test_data_layer.py`` and ``tests/test_serde.py`` (less the
-NCA-result cases, which wait for the port's NCA layer: an NCA result is an
-unsupported root until then). Every input is made once (a CSV text, rows
+Mirrors ``tests/test_data_layer.py`` and ``tests/test_serde.py`` (the
+NCA-result round trip is in ``tests/test_torch_nca.py``, beside the port's
+NCA layer). Every input is made once (a CSV text, rows
 drawn from a seed with numpy, a subject) and read by both packages; subjects
 compare equal through ``convert.data_from_reference`` and their content
 hashes, the AUC helpers exactly (the same float64 arithmetic), JSON and CSV
@@ -229,12 +229,15 @@ def test_error_models_round_trip_and_match_jax():
 
 
 def test_unsupported_roots_and_schemas_raise():
-    """A schema mismatch, an unknown root and the NCA result's schema (its
-    serde waits for the port's NCA layer) raise PharmsolError."""
+    """A schema mismatch and an unknown root raise PharmsolError; the NCA
+    result's schema is a supported root since the port has its NCA layer
+    (an empty one loads as the JAX package loads it)."""
+    with pytest.raises(PharmsolError, match="schema"):
+        pt.from_json(json.dumps({"schema": "pharmsol-nca-result-v1-bogus"}))
     with pytest.raises(PharmsolError, match="schema"):
         pt.from_json(json.dumps({"schema": "bogus-v9"}))
-    with pytest.raises(PharmsolError, match="schema"):
-        pt.from_json(json.dumps({"schema": "pharmsol-nca-result-v1"}))
+    empty = json.dumps({"schema": "pharmsol-nca-result-v1"})
+    assert pt.to_json(pt.from_json(empty)) == pst.to_json(pst.from_json(empty))
     with pytest.raises(PharmsolError, match="cannot serialize"):
         pt.to_json(object())
     with pytest.raises(PharmsolError, match="schema mismatch"):

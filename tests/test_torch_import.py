@@ -283,3 +283,66 @@ def test_fit_population_defaults_to_the_card():
         "assert np.isfinite(fit.log_likelihood)\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, cwd=str(PKG.parent))
+
+
+def test_replicate_layer_and_nca_default_to_the_card():
+    """The replicate layer and the device NCA batch take ``device`` and
+    resolve it like the other entry points: in a fresh interpreter on a
+    machine without a card they raise instead of running on the CPU; with
+    device="cpu" the quick ones run. Their modules import no JAX, optax or
+    JAX package module (``test_module_imports_no_jax_and_no_toplevel_triton``
+    covers every file; here the package's import graph)."""
+    import inspect
+
+    opt = pt.optimize
+    for fn in (opt.bootstrap_laplace, opt.sse, opt.sse_laplace, opt.llp, opt.scm, opt.vpc,
+               opt.npde, opt.gof, pt.nca.batch_nca_device):
+        assert "device" in inspect.signature(fn).parameters, fn
+    code = (
+        "import sys, numpy as np, torch, pharmsol_tpu_torch as pt\n"
+        "from types import SimpleNamespace\n"
+        "import pharmsol_tpu_torch.optimize.bootstrap, pharmsol_tpu_torch.optimize.sse\n"
+        "import pharmsol_tpu_torch.optimize.profile, pharmsol_tpu_torch.optimize.scm\n"
+        "import pharmsol_tpu_torch.optimize.diagnostics, pharmsol_tpu_torch.nca.batch_device\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax',\n"
+        "                                                     'pharmsol_tpu')]\n"
+        "assert not bad, bad\n"
+        "m = pt.Analytical(pt.one_compartment, out=lambda x, p, t, cov: x[0:1] / p[1],\n"
+        "                  nstates=1, ndrugs=1, nout=1)\n"
+        "subs = [pt.Subject.builder(f's{i}').bolus(0.0, 100.0, 0).covariate('wt', 0.0, 60.0 + i)\n"
+        "        .observation(1.0, 8.0 - i, 0).observation(4.0, 5.0 - i, 0).build()\n"
+        "        for i in range(3)]\n"
+        "d = pt.Data(subs)\n"
+        "rems = pt.ResidualErrorModels().add(0, pt.ResidualErrorModel.proportional(0.2))\n"
+        "pop = SimpleNamespace(theta=np.array([0.25, 10.0]), omega=np.array([0.2, 0.1]),\n"
+        "                      omega_cov=None, transform=('log', 'log'),\n"
+        "                      individual_parameters=np.array([[0.25, 10.0]] * 3))\n"
+        "opt = pt.optimize\n"
+        "fit = dict(max_iters=1, compute_se=False, inner_steps=2)\n"
+        "t = np.linspace(0.5, 12.0, 8)\n"
+        "prof = 10.0 * np.exp(-0.2 * t)[None, :] * np.ones((4, 1))\n"
+        "slow = [lambda **kw: opt.bootstrap_laplace(m, d, rems, [0.25, 10.0], n_boot=2,\n"
+        "                                           refit_iters=1, **fit, **kw),\n"
+        "        lambda **kw: opt.sse_laplace(m, d, rems, [0.25, 10.0], n_sim=2, refit_iters=1,\n"
+        "                                     **fit, **kw),\n"
+        "        lambda **kw: opt.llp(m, d, rems, [0.25, 10.0], n_grid=3, refit_iters=1,\n"
+        "                             **fit, **kw),\n"
+        "        lambda **kw: opt.scm(m, d, rems, [0.25, 10.0], [(0, 'wt', 'power', 70.0)],\n"
+        "                             refit_iters=1, **fit, **kw),\n"
+        "        lambda **kw: opt.sse(m, d, rems, pop, lambda x: pop, n_sim=2, **kw)]\n"
+        "quick = [lambda **kw: opt.vpc(m, d, rems, pop, n_rep=20, **kw),\n"
+        "         lambda **kw: opt.npde(m, d, rems, pop, n_rep=100, **kw),\n"
+        "         lambda **kw: opt.gof(m, d, rems, pop, **kw),\n"
+        "         lambda **kw: pt.nca.batch_nca_device(t, prof, dose=100.0, **kw)]\n"
+        "if not torch.cuda.is_available():\n"
+        "    for call in slow + quick:\n"
+        "        try:\n"
+        "            call()\n"
+        "        except pt.PharmsolError as e:\n"
+        "            assert 'cuda' in str(e), e\n"
+        "        else:\n"
+        "            raise AssertionError('ran on the CPU without being asked')\n"
+        "for call in quick:\n"
+        "    call(device='cpu')\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=str(PKG.parent))

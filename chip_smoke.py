@@ -65,15 +65,15 @@ printing its own lines; any failure raises and the exit code is not 0:
    march call on 64 subjects;
 5. K3a on the README SDE model of the reference (a mean-reverting
    elimination rate), 1000 particles, at a ragged reduced shape (19 x 23,
-   the first two observations, to 2 h):
+   the first observation, to 1 h):
    its Philox words against ``ops/philox.py``; against its twin, which draws
    the same numbers, at zero diffusion (float64, every cell within 1e-10),
    with noise (float64: 99.9% of cells within 1e-9; float32: 99% within
    1e-4) and on a two-input model with an inject-to-destination route,
    BLOQ+ALOQ censoring and ``em_control='coupled'`` (float64, 99.9% within
    1e-9); kernel, twin and general-engine times. Then against the general
-   engine (other draws) at 32 x 16: the mean per-cell difference within four
-   standard errors; and at zero diffusion against the 1-cmt IV closed form
+   engine (other draws) at 32 x 16 on the first two observations: the mean
+   per-cell difference within four standard errors; and at zero diffusion against the 1-cmt IV closed form
    within 5e-2 (EM at rtol = atol = 1e-2);
 6. the README SDE at full width (256 subjects x 64 supports x 1000
    particles) through the public entry point, float32 and float64, three
@@ -162,7 +162,7 @@ printing its own lines; any failure raises and the exit code is not 0:
     on central with sigma in 0.02-0.2, 100 mg at 0, 2 and 4 h) through the
     public entry point, three calls per dtype, each exactly one K3b launch,
     psi finite;
-18. K3b's time there, kernel and twin on 2 spread subjects x 64 supports
+18. K3b's time there, kernel and twin on one subject (subject 0) x 64 supports
     (held to each other), the general engine there (float64), one
     end-to-end call with the plan's share, the bound from the twin's trials
     (recounted as in 7) and its kernels' registers, resident blocks and
@@ -217,8 +217,9 @@ printing its own lines; any failure raises and the exit code is not 0:
     derived ``ke`` from a time-varying weight: K1b through the kernel-input
     decomposition), "DSL ODE Short 16384 x 512" (K2a), "declarative ODE
     covariates 16384 x 512" (``examples/covariates.py`` as ``ode_model``:
-    K2e) and "declarative SDE README 256 x 64 x 1000"
-    (``examples/sde_readme.py`` as ``sde_model``: K3a), each held against
+    K2e) and "declarative SDE README 64 x 64 x 1000" (``examples/sde_readme.py``
+    as ``sde_model``: K3a; phase 7's cell cut to a quarter of its
+    subjects), each held against
     the hand-written closure model's psi (every cell equal where both run
     the same library, float64 1e-12 where the header differs) or the
     general engine on 256 subjects (float64 1e-10), its float32 psi against
@@ -245,8 +246,8 @@ printing its own lines; any failure raises and the exit code is not 0:
     of the dopri5 Laplace path through the forward sensitivities (the JAX
     package's adaptive-ODE Laplace test's 4 subjects and settings, 2 of its
     15 outer iterations, then the SEs there: not a converged fit);
-    ``fit_saem`` on the 200 subjects (50 burn-in and 25 averaging
-    iterations, a quarter of its defaults) (the CPU generator's
+    ``fit_saem`` on the 200 subjects (25 burn-in and 12 averaging
+    iterations, an eighth of its defaults) (the CPU generator's
     draws on both: the ll trace's first 20 entries 1e-8, estimates 1e-6,
     the MH decisions that flipped, seconds, the iteration loop's ms per
     iteration, the card's busy share of one iteration by
@@ -256,7 +257,7 @@ printing its own lines; any failure raises and the exit code is not 0:
     the CPU references in one-thread worker processes beside the untimed
     card checks), no kernel of the table launched, the closed-form Laplace
     objective's evaluations replayed from CUDA graphs:
-    ``bootstrap_laplace`` (200 replicates), ``sse_laplace`` (200), ``vpc``
+    ``bootstrap_laplace`` (200 replicates), ``sse_laplace`` (100), ``vpc``
     (500) and ``npde`` (1000) of the bootstrap's full fit, ``llp`` (the
     default grid, 48 lanes) on phase 24's 200 subjects, and ``scm`` on the
     JAX package's ``tests/test_scm.py`` population (20 subjects, the weight
@@ -278,7 +279,35 @@ printing its own lines; any failure raises and the exit code is not 0:
 26. ``batch_nca_device`` on the card in float64 at the JAX package's 5000
     x 32 test profiles and at 100 000 x 32, its ms by CUDA events, then
     every key against the host ``batch_nca`` within 1e-9 relative; no
-    kernel of the table.
+    kernel of the table;
+27. the device split on the one card (``parallel/mesh.py``; meshes (8, 1)
+    and (4, 2) over eight times ``cuda:0`` and (1, 1) over ``cuda:0``):
+    ``log_likelihood_matrix_sharded(engine="fused")`` against the whole
+    ``log_likelihood_matrix(engine="fused")`` on six cells at 4096 subjects
+    x 512 supports, Short (K1a), Covariate Short (K1b), lag-depth Short
+    (K1c), ODE Short (K2a), ODE expm transit (K2d), and the README SDE at
+    64 x 64 x 1000 at zero diffusion (K3a): float64 every cell within 1e-12
+    relative on every mesh, float32 on (8, 1) within 1e-5, the launch
+    counters set to 0 just before each split call and read just after (one
+    launch per subjects shard, no other kernel), and the (8, 1) call run in
+    ``utils/profiling.py::profile_trace``: 8 events of the cell's kernel in
+    the trace file and its psi within 1e-12 of the whole call's (up to three
+    captures, each failed one printed; the K1a cell's capture runs again
+    after phase 26); each call's ms (the median of 5 after a warm-up, host
+    work included, after the export worker's artifact has come);
+    ``log_likelihood_batch_sharded`` against
+    ``log_likelihood_batch`` at phase 22's 10 000 subjects (1e-12);
+    ``fit_population`` on the (4, 2) mesh against the fit without one on
+    phase 10's population (4 cycles of phase 10's 8: supports 1e-10,
+    weights 1e-8, every psi call 4 K1a launches); ``export_psi`` of the
+    Short model at 1024 x 512, traced on the card by a worker process that
+    starts with the script (beside the build), loaded and run against the general
+    engine (1e-12; the transit model exports as well, but its
+    trace takes about a minute of host time: ``tests/test_torch_export.py``
+    exports ``expm``); ``read_pmetrics_native`` on a generated 100 000-row
+    CSV against the Python reader (the same Data) and ``run_pkm_host`` on
+    ``tests/test_pkm_host.py``'s ODE artifact against the engine on the
+    card (1e-8).
 
 The earlier paths were cut to make room for 16-21 (each cut prints its
 time beside the time before it): phase 14's general engine on 64 subjects
@@ -292,7 +321,13 @@ float32 lag_post call on a quarter of its subjects, phase 22's float32
 README SDE on two observations and its float32 times at a quarter of the
 repetitions, phase 23's declarative SDE twin on one observation, phase 24's
 SAEM fit at a quarter of its default iterations, the SDE kernels of 7 and 18 timed
-once, the plans' profiles of 4, 8 and 20 in float64 only.
+once, the plans' profiles of 4, 8 and 20 in float64 only. And for 27, by
+depth: phase 5's SDE twin on the first observation (it had two) and its
+statistical check on the first two (it had four), phase 24's SAEM fit at 25 + 12 iterations (it had 50 + 25) and phase 25's
+``sse_laplace`` at 100 simulations (it had 200); then, for phase 27's
+medians and its trace check after phase 26, the SDE twins of phases 7 and
+18 on one subject (they had two) and phase 23's declarative SDE cell on 64
+subjects (it had 256).
 
 ``--only stiff`` runs phases 0, 1 (the stiff libraries alone) and 13-15, for
 work on K2b or K2c; ``--only explicit`` phases 0, 1 (the explicit tier's
@@ -309,7 +344,8 @@ per cell the issue slots per cell-segment), for work on K1a, K1b or K1c;
 authoring`` phases 0, 1 (the closed-form library and the ODE and SDE
 libraries of phase 23's models) and 23; ``--only estimation`` phases 0 and
 24, ``--only diagnostics`` phases 0 and 25, ``--only nca`` phases 0 and 26
-(no library is built). A partial run's
+(no library is built); ``--only mesh`` phases 0, 1 (the closed-form
+library and phase 27's ODE and SDE libraries) and 27. A partial run's
 last line is ``{"ok": true, "partial": ...}``, not the whole script's
 verdict.
 
@@ -444,7 +480,7 @@ K1C_RECORD = {
 # over the population) for the kernel-vs-twin check and the bound's counts;
 # the same for the K3a cell
 SDE_COV_FULL = (256, 64)
-SDE_TWIN_ROWS = 2
+SDE_TWIN_ROWS = 1
 # the K1c cells: lag with a seq chain deeper than one, and a lag and an fa
 # that read a time-varying creatinine; the subjects of their check against
 # the general engine; the ragged shape of the kernel-vs-twin check; and the
@@ -521,8 +557,9 @@ H100_REG_UNIT = 256
 # the SDE cells: the reduced ragged shape of the kernel-vs-twin checks, the
 # statistical check against the general engine, and the full-width slice
 SDE_REDUCED = (19, 23)
-SDE_REDUCED_OBS = 2
+SDE_REDUCED_OBS = 1
 SDE_STAT = (32, 16)
+SDE_STAT_OBS = 2
 SDE_FULL = (256, 64)
 SDE_PARTICLES = 1000
 
@@ -585,6 +622,54 @@ def short_subjects(pt, n: int, rng, repeat: bool = False, infusion: bool = False
 def jittered_support(center, n: int, rng, scale: float = 0.15) -> np.ndarray:
     center = np.asarray(center, dtype=np.float64)
     return np.abs(center[None, :] * (1.0 + scale * rng.randn(n, center.size)))
+
+
+def short_model(pt):
+    """The Short cell's model: 2-cmt oral, p = ke, ka, kcp, kpc, v."""
+    return pt.Analytical(pt.two_compartments_with_absorption,
+                         out=lambda x, p, t, cov: x[1:2] / p[4], nstates=3, ndrugs=1, nout=1)
+
+
+def covariate_short_model(pt):
+    """The Covariate Short cell's model: allometric (wt/70)**0.75 on the rate
+    constants (JAX tests/test_pallas_psi.py:607-637), an absorption lag p[5]
+    and a bioavailability p[6]."""
+    def allometric(p, t, cov):
+        sc = (cov("wt", t) / 70.0) ** 0.75
+        return [p[0] * sc, p[1], p[2] * sc, p[3] * sc, p[4], p[5], p[6]]
+
+    return pt.Analytical(
+        pt.two_compartments_with_absorption, seq_eq=allometric,
+        lag=lambda p, t, cov: {0: p[5]}, fa=lambda p, t, cov: {0: p[6]},
+        out=lambda x, p, t, cov: x[1:2] / p[4], nstates=3, ndrugs=1, nout=1)
+
+
+# the lag-depth cell's support centre
+LAG_DEPTH_CENTRE = [1.4, 0.2, 0.2, 0.12, 11.5, 0.75]
+
+
+def lag_depth_cell(pt, rng, n: int) -> tuple:
+    """The lag-depth Short cell at ``n`` subjects: JAX
+    tests/test_pallas_psi.py:1367-1386, the 2-cmt oral model whose seq
+    compounds across the end of the 1.5 h infusion while a lag and an fa act
+    on the doses (lag_depth), on the regimen of _lag_depth_subjects (a bolus
+    at 0 and the infusion at 1 h), widened: (model, data)."""
+    wt = 55.0 + 4.0 * (np.arange(n) % 8)
+    times = (0.5, 1.2, 2.1, 3.0, 4.5, 6.0, 10.0)
+    values = 5.0 * np.exp(-0.2 * np.array(times))[None, :] * np.exp(0.1 * rng.randn(n, 7))
+    subjects = []
+    for i in range(n):
+        b = (pt.Subject.builder(f"d{i}").bolus(0.0, 100.0, 0).infusion(1.0, 50.0, 0, 1.5)
+             .covariate("wt", 0.0, float(wt[i])))
+        for t, v in zip(times, values[i]):
+            b = b.observation(t, float(v), 0)
+        subjects.append(b.build())
+    model = pt.Analytical(
+        pt.two_compartments_with_absorption, out=lambda x, p, t, cov: x[1:2] / p[4],
+        seq_eq=lambda p, t, cov: [p[0], p[1] * (1.0 + 0.1 * p[5]), p[2], p[3], p[4], p[5]],
+        lag=lambda p, t, cov: {0: p[5]}, fa=lambda p, t, cov: {0: 1.0 / (1.0 + 0.3 * p[5])},
+        nstates=3, ndrugs=1, nout=1)
+    return model, pt.Data(subjects)
 
 
 def kernel_case(pt, structure: str, rng, R: int, S: int, variant: str = ""):
@@ -1105,10 +1190,7 @@ def slice_workloads(pt, rng):
     t0 = time.perf_counter()
     data = short_subjects(pt, 16384, rng)
     t_build = time.perf_counter() - t0
-    model = pt.Analytical(
-        pt.two_compartments_with_absorption,
-        out=lambda x, p, t, cov: x[1:2] / p[4], nstates=3, ndrugs=1, nout=1)
-    out.append(("2cmt_oral_short_16384x512", model, data,
+    out.append(("2cmt_oral_short_16384x512", short_model(pt), data,
                 [0.15, 1.2, 0.3, 0.2, 10.0], 512, t_build))
     t0 = time.perf_counter()
     data10k = short_subjects(pt, 10000, rng)
@@ -1756,7 +1838,7 @@ def phase_sde_statistical(pt, rng) -> float:
     R, S = SDE_STAT
     pt.set_float_dtype(torch.float64)
     ems = readme_ems(pt)
-    data = readme_data(pt, R, rng)
+    data = readme_data(pt, R, rng, n_obs=SDE_STAT_OBS)
     sp = readme_support(S, rng)
     model = readme_sde(pt).with_noise("independent")
     fused = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda", engine="fused")
@@ -1766,7 +1848,8 @@ def phase_sde_statistical(pt, rng) -> float:
     if not bool(torch.isfinite(d).all()):
         raise AssertionError("statistical check: non-finite cells")
     mean, se = float(d.mean()), float(d.std() / math.sqrt(d.numel()))
-    log(f"[5] K3a vs general engine {R}x{S}x{SDE_PARTICLES} f64: mean diff {mean:.4f}, "
+    log(f"[5] K3a vs general engine {R}x{S}x{SDE_PARTICLES} f64, the first {SDE_STAT_OBS} "
+        f"observations: mean diff {mean:.4f}, "
         f"standard error {se:.4f} (|mean| <= 4 SE), psi means {float(fused.mean()):.4f} / "
         f"{float(general.mean()):.4f}; general engine {g_ms:.3f} ms")
     if abs(mean) > 4.0 * se:
@@ -2417,14 +2500,7 @@ def feature_workloads(pt, rng):
     data = short_subjects(pt, n, rng, covariates=lambda i, b: b.covariate("wt", 0.0, wt[i]))
     t_build = time.perf_counter() - t0
 
-    def allometric(p, t, cov):
-        sc = (cov("wt", t) / 70.0) ** 0.75
-        return [p[0] * sc, p[1], p[2] * sc, p[3] * sc, p[4], p[5], p[6]]
-
-    model = pt.Analytical(
-        pt.two_compartments_with_absorption, seq_eq=allometric,
-        lag=lambda p, t, cov: {0: p[5]}, fa=lambda p, t, cov: {0: p[6]},
-        out=lambda x, p, t, cov: x[1:2] / p[4], nstates=3, ndrugs=1, nout=1)
+    model = covariate_short_model(pt)
     # ka's centre is the Short cell's 1.2 doubled and more: the weight
     # scaling moves the decay constants per subject, and a support whose ka
     # meets one makes the closed form 0/0 (reachable in float32 among the
@@ -4329,26 +4405,11 @@ def k1c_workloads(pt, rng):
     # while a lag and an fa act on the doses (lag_depth), on the regimen of
     # _lag_depth_subjects (a bolus at 0 and the infusion at 1 h), widened
     n, S = K1C_DEPTH_SHAPE
-    wt = 55.0 + 4.0 * (np.arange(n) % 8)
-    values = 5.0 * np.exp(-0.2 * np.array([0.5, 1.2, 2.1, 3.0, 4.5, 6.0, 10.0]))[None, :] \
-        * np.exp(0.1 * rng.randn(n, 7))
     t0 = time.perf_counter()
-    subjects = []
-    for i in range(n):
-        b = (pt.Subject.builder(f"d{i}").bolus(0.0, 100.0, 0).infusion(1.0, 50.0, 0, 1.5)
-             .covariate("wt", 0.0, float(wt[i])))
-        for t, v in zip((0.5, 1.2, 2.1, 3.0, 4.5, 6.0, 10.0), values[i]):
-            b = b.observation(t, float(v), 0)
-        subjects.append(b.build())
-    data = pt.Data(subjects)
+    model, data = lag_depth_cell(pt, rng, n)
     t_build = time.perf_counter() - t0
-    model = pt.Analytical(
-        pt.two_compartments_with_absorption, out=lambda x, p, t, cov: x[1:2] / p[4],
-        seq_eq=lambda p, t, cov: [p[0], p[1] * (1.0 + 0.1 * p[5]), p[2], p[3], p[4], p[5]],
-        lag=lambda p, t, cov: {0: p[5]}, fa=lambda p, t, cov: {0: 1.0 / (1.0 + 0.3 * p[5])},
-        nstates=3, ndrugs=1, nout=1)
     out.append((f"lag_depth_2cmt_oral_{n}x{S}", model, data,
-                [1.4, 0.2, 0.2, 0.12, 11.5, 0.75], S, "levels", "lag_seq_depth",
+                LAG_DEPTH_CENTRE, S, "levels", "lag_seq_depth",
                 min(n, K1C_CHECK_ROWS), t_build))
     # "dynamic-lag creatinine": the time-varying creatinine 10 000 x 1000 cell
     # of feature_workloads (knots at 0 and 24 h), with the creatinine read by
@@ -5693,10 +5754,11 @@ def phase_golden_scenarios(pt) -> dict:
 def single_batch_case(pt):
     """Phase 10's population (1-cmt oral, 10 000 subjects), a parameter row
     per subject (ka, ke, v) drawn from the seed, and a combined residual
-    model: (model, data, parameters, residual models)."""
+    model: (model, data, parameters, residual models, the fit's assay
+    error models)."""
     from pharmsol_tpu_torch.utils.f32_budget import population_10k_case, population_models
 
-    data, _, _ = population_10k_case(SINGLE_BATCH)
+    data, ems, _ = population_10k_case(SINGLE_BATCH)
     rng = np.random.RandomState(SEED + 22)
     params = np.column_stack([
         1.2 * np.exp(0.2 * rng.randn(SINGLE_BATCH)),
@@ -5704,7 +5766,7 @@ def single_batch_case(pt):
         30.0 * np.exp(0.15 * rng.randn(SINGLE_BATCH)),
     ])
     rems = pt.ResidualErrorModels().add(0, pt.ResidualErrorModel.combined(0.05, 0.1))
-    return population_models()[0], data, params, rems
+    return population_models()[0], data, params, rems, ems
 
 
 def phase_single_batch(pt, model, data, params, rems) -> dict:
@@ -5901,7 +5963,7 @@ def run_single(pt, card: str) -> dict:
     reset_kernel_launches()
     goldens = phase_golden_scenarios(pt)
     torch.cuda.synchronize()
-    model, data, params, rems = single_batch_case(pt)
+    model, data, params, rems, _ = single_batch_case(pt)
     batch = phase_single_batch(pt, model, data, params, rems)
     models = phase_single_models(pt)
     times = phase_single_times(pt, model, data, params, rems, card)
@@ -5926,6 +5988,7 @@ def run_single(pt, card: str) -> dict:
 AUTHORING_SHORT = (16384, 512)
 AUTHORING_CREATININE = (10000, 1000)
 AUTHORING_CHECK_ROWS = 256
+AUTHORING_SDE = (64, 64)
 AUTHORING_SDE_TWIN = (2, 8)
 AUTHORING_SDE_TWIN_OBS = 1
 # each cell's kernel and its launch counter (kernel_launches' keys)
@@ -6019,7 +6082,7 @@ def authoring_cells(pt) -> list:
         label=f"declarative_ode_covariates_{n}x{S}", kernel="K2e", model=model, data=data,
         sp=sp, ems=ems, compile_ms=ms, closure=closure, c_data=c_data, c_sp=sp, c_ems=c_ems,
         plan=ode_plan_for, run=run_ode_kernel, row="ode_lag_fa", twin_tol=1e-8))
-    R, Ss = SDE_FULL
+    R, Ss = AUTHORING_SDE
     data = readme_data(pt, R, np.random.RandomState(SEED + 37))
     model, ms = timed(ac.readme_sde_model)
     sp = readme_support(Ss, np.random.RandomState(SEED + 38))
@@ -6369,7 +6432,7 @@ EST_ODE_THETA0 = (0.45, 7.0)
 EST_ODE_KW = dict(omega0=0.3, inner_steps=12, max_iters=2)
 # (d): the SAEM fit at a quarter of the defaults' 200 burn-in and 100
 # averaging iterations
-EST_SAEM_KW = dict(n_burn=50, n_iters=25)
+EST_SAEM_KW = dict(n_burn=25, n_iters=12)
 # card against CPU
 EST_TOL = dict(ll_value=1e-12, ll_grad=1e-10, map=1e-8, laplace=1e-6, se=1e-5,
                saem_trace=1e-8, saem=1e-6)
@@ -6793,7 +6856,7 @@ def est_finish(card, card_fits, held, ll_ms, busy_ms, t_card, done, t_cpu, share
 # the device of phases 25 and 26
 CARD = "cuda"
 DIAG_N_BOOT = 200
-DIAG_N_SIM = 200
+DIAG_N_SIM = 100
 DIAG_VPC_REP = 500
 DIAG_NPDE_REP = 1000
 DIAG_REFIT_ITERS = 10
@@ -7259,6 +7322,486 @@ def run_nca(pt, card: str) -> dict:
     return record
 
 
+
+# phase 27: the device split, the psi export and the native host library
+MESH_SHAPES = ((8, 1), (4, 2), (1, 1))
+MESH_SUBJECTS = 4096           # the closed-form and ODE cells, x 512 supports
+MESH_SDE = (64, 64)            # the README SDE at zero diffusion, x 1000 particles
+MESH_F32 = 1e-5                # float32 split against whole, tighter than every row
+MESH_REPS = 5                  # timed calls (median) after one warm-up
+MESH_FIT_CYCLES = 4            # phase 10's fit runs 8
+MESH_EXPORT_SUBJECTS = 1024    # traced in a worker process beside the build
+MESH_CSV_SUBJECTS = 10000      # x 10 rows: a 100 000-row CSV
+# the kernel function each trace event of a cell's kernel names
+MESH_TRACE_NAMES = {"K1a": "fused_psi_feature_kernel", "K1b": "fused_psi_feature_kernel",
+                    "K1c": "fused_psi_feature_kernel", "K2a": "fused_ode_explicit_kernel",
+                    "K2d": "fused_ode_kernel", "K3a": "fused_sde_kernel"}
+
+
+def mesh_counters() -> dict:
+    """Each phase-27 kernel's launch counter, read now."""
+    from pharmsol_tpu_torch.ops import fused_ode, fused_psi, fused_sde
+
+    return {"K1a": fused_psi.LAUNCHES, "K1b": fused_psi.FEATURE_LAUNCHES,
+            "K1c": fused_psi.K1C_LAUNCHES, "K2a": fused_ode.LAUNCHES,
+            "K2d": fused_ode.EXPM_LAUNCHES, "K3a": fused_sde.LAUNCHES}
+
+
+def mesh_cells(pt, rng) -> list:
+    """Phase 27's cells, (kernel, label, model, data, support, ems): the
+    widths of phases 3-21 at ``MESH_SUBJECTS`` subjects (the SDE at
+    ``MESH_SDE``, zero diffusion)."""
+    from pharmsol_tpu_torch.utils.f32_budget import TRANSIT_CENTRE, expm_case
+
+    n, S = MESH_SUBJECTS, 512
+    ems = pt.AssayErrorModels().add(
+        0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    short = short_subjects(pt, n, rng)
+    cells = [("K1a", f"Short {n}x{S}", short_model(pt), short,
+              jittered_support([0.15, 1.2, 0.3, 0.2, 10.0], S, rng), ems)]
+    wt = rng.uniform(40.0, 120.0, n)
+    cov = short_subjects(pt, n, rng, covariates=lambda i, b: b.covariate("wt", 0.0, wt[i]))
+    cells.append(("K1b", f"Covariate Short {n}x{S}", covariate_short_model(pt), cov,
+                  jittered_support([0.15, 3.0, 0.3, 0.2, 10.0, 0.5, 0.8], S, rng), ems))
+    model, data = lag_depth_cell(pt, rng, n)
+    cells.append(("K1c", f"lag-depth Short {n}x{S}", model, data,
+                  jittered_support(LAG_DEPTH_CENTRE, S, rng), ems))
+    cells.append(("K2a", f"ODE Short {n}x{S}", ode_model(pt, "short"), short,
+                  ODE_MODELS["short"][5](rng, S), ems))
+    model, data, _, expm_ems = expm_case("transit", n, 1, seed=SEED)
+    cells.append(("K2d", f"ODE expm transit {n}x{S}", model, data,
+                  jittered_support(TRANSIT_CENTRE, S, rng, 0.2), expm_ems))
+    n_sde, s_sde = MESH_SDE
+    cells.append(("K3a", f"SDE README {n_sde}x{s_sde}x{SDE_PARTICLES} zero diffusion",
+                  readme_sde(pt), readme_data(pt, n_sde, rng),
+                  readme_support(s_sde, rng, sigma=0.0), readme_ems(pt)))
+    return cells
+
+
+def cuda_meshes(pt) -> dict:
+    """Phase 27's meshes: (8, 1) and (4, 2) over eight times ``cuda:0``,
+    (1, 1) over ``cuda:0``."""
+    from pharmsol_tpu_torch.parallel import population_mesh
+
+    return {shape: population_mesh(shape=shape, devices=["cuda:0"] * (shape[0] * shape[1]))
+            for shape in MESH_SHAPES}
+
+
+def traced_launches(pt, fn) -> tuple:
+    """Run ``fn`` inside ``profile_trace``: (result, the trace file's kernel
+    events, its launch calls: the host events whose name holds
+    ``LaunchKernel``). The capture first runs one small operation on the
+    card and waits for it, so that ``fn``'s first launches fall inside a
+    running trace."""
+    import tempfile
+
+    from pharmsol_tpu_torch.utils.profiling import profile_trace
+
+    with tempfile.TemporaryDirectory() as d:
+        with profile_trace(d) as capture:
+            torch.ones(1, device="cuda").add_(1.0)
+            torch.cuda.synchronize()
+            out = fn()
+        with open(capture.path) as f:
+            events = json.load(f)["traceEvents"]
+    return (out, [e for e in events if e.get("cat") == "kernel"],
+            [e for e in events if "LaunchKernel" in str(e.get("name", ""))])
+
+
+def kernel_events(events: list, function: str) -> list:
+    """The trace's events of the kernel function ``function`` (its name
+    before the template arguments or the parameter list)."""
+    pattern = re.compile(rf"(?<!\w){function}\s*[<(]")
+    return [e for e in events if pattern.search(e["name"])]
+
+
+def mesh_trace_check(pt, label: str, kernel: str, run, whole: torch.Tensor) -> dict:
+    """The (8, 1) split call ``run`` inside ``traced_launches``: its launch
+    counter at 8, its psi within 1e-12 of ``whole``, and 8 events of the
+    cell's kernel in the trace. Up to three captures; each capture that
+    holds fewer events is printed (its kernel events' and launch calls'
+    times, microseconds after the first launch call) before the next."""
+    function = MESH_TRACE_NAMES[kernel]
+    failed = []
+    for attempt in range(1, 4):
+        reset_kernel_launches()
+        psi, kernels, launches = traced_launches(pt, run)
+        if mesh_counters()[kernel] != 8:
+            raise AssertionError(f"[27] {label}: {mesh_counters()[kernel]} launches in the "
+                                 f"traced (8, 1) call")
+        err = split_err(f"[27] {label}, traced (8, 1)", psi, whole)
+        if not err <= 1e-12:
+            raise AssertionError(f"[27] {label}: the traced (8, 1) call {err:.3e} > 1e-12")
+        mine = kernel_events(kernels, function)
+        if len(mine) == 8:
+            return dict(traced=8, captures=attempt, traced_err=err, failed_captures=failed)
+        t0 = min((e["ts"] for e in launches), default=0.0)
+        detail = (f"capture {attempt}: {len(mine)} {function} events at "
+                  f"{[round(e['ts'] - t0, 1) for e in mine]} (dur "
+                  f"{[round(e.get('dur', 0.0), 1) for e in mine]}), {len(kernels)} kernel "
+                  f"events in all, {len(launches)} launch calls at "
+                  f"{[round(e['ts'] - t0, 1) for e in launches]}")
+        log(f"[27] {label}: the (8, 1) trace lost events; {detail}")
+        failed.append(detail)
+    raise AssertionError(f"[27] {label}: the (8, 1) trace holds fewer than 8 {function} "
+                         f"events in each of 3 captures: {failed}")
+
+
+def split_err(what: str, got: torch.Tensor, whole: torch.Tensor) -> float:
+    """The split psi's largest relative difference from the whole call's
+    over the finite cells, which must be the same cells."""
+    fin = torch.isfinite(whole)
+    if (got.shape != whole.shape or not torch.equal(fin, torch.isfinite(got))
+            or not bool(fin.any())):
+        raise AssertionError(f"{what}: the split psi's shape or finite cells differ")
+    return rel_err(got[fin], whole[fin], 1.0)
+
+
+def mesh_cell(pt, cell, meshes, card: str) -> dict:
+    """One phase-27 cell: the unsharded fused call against the split call
+    on each mesh, float64 every cell within 1e-12 relative and float32 on
+    (8, 1) within ``MESH_F32``; the launch counters set to 0 just before each
+    split call and read just after (one launch per subjects shard), and the
+    (8, 1) call traced: one kernel event per shard."""
+    from pharmsol_tpu_torch.parallel import log_likelihood_matrix_sharded
+
+    kernel, label, model, data, sp, ems = cell
+    out = {"label": label, "ms": {}, "errs": {}, "launches": {}}
+    for dtype in (torch.float64, torch.float32):
+        pt.set_float_dtype(dtype)
+        whole = pt.log_likelihood_matrix(model, data, sp, ems, engine="fused", device="cuda")
+        torch.cuda.synchronize()
+        tag = "f64" if dtype == torch.float64 else "f32"
+        out["ms"][f"whole {tag}"] = wall_ms(lambda: pt.log_likelihood_matrix(
+            model, data, sp, ems, engine="fused", device="cuda"), MESH_REPS)
+        shapes = MESH_SHAPES if dtype == torch.float64 else MESH_SHAPES[:1]
+        for shape in shapes:
+            mesh = meshes[shape]
+            reset_kernel_launches()
+            got = log_likelihood_matrix_sharded(model, data, sp, ems, mesh=mesh, engine="fused")
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in mesh_counters().items() if v}
+            if counts != {kernel: shape[0]}:
+                raise AssertionError(f"[27] {label} {shape}: launches {counts}, expected "
+                                     f"{shape[0]} of {kernel}")
+            if got.shape != whole.shape or got.device != whole.device:
+                raise AssertionError(f"[27] {label} {shape}: psi {tuple(got.shape)} on "
+                                     f"{got.device}")
+            err = split_err(f"[27] {label} {shape}", got, whole)
+            tol = 1e-12 if dtype == torch.float64 else MESH_F32
+            if not err <= tol:
+                raise AssertionError(f"[27] {label} {shape} {tag}: {err:.3e} > {tol:.0e}")
+            key = f"{shape[0]}x{shape[1]} {tag}"
+            out["errs"][key] = err
+            out["launches"][key] = counts[kernel]
+            out["ms"][key] = wall_ms(lambda: log_likelihood_matrix_sharded(
+                model, data, sp, ems, mesh=mesh, engine="fused"), MESH_REPS)
+        if dtype == torch.float64:
+            def split_8x1(mesh=meshes[(8, 1)]):
+                return log_likelihood_matrix_sharded(model, data, sp, ems, mesh=mesh,
+                                                     engine="fused")
+
+            trace = mesh_trace_check(pt, label, kernel, split_8x1, whole)
+            out["traced"], out["trace_captures"] = trace["traced"], trace["captures"]
+            out["errs"]["traced 8x1 f64"] = trace["traced_err"]
+            out["failed_captures"] = trace["failed_captures"]
+            if kernel == "K1a":
+                out["recheck"] = (label, kernel, split_8x1, whole)
+            # shards of fewer rows than one wave, and shards of padding alone
+            # (3 occasion rows over 8 shards: the last row repeated)
+            few = pt.Data(data.subjects()[:3])
+            want = pt.log_likelihood_matrix(model, few, sp, ems, engine="fused", device="cuda")
+            reset_kernel_launches()
+            got = log_likelihood_matrix_sharded(model, few, sp, ems, mesh=meshes[(8, 1)],
+                                                engine="fused")
+            torch.cuda.synchronize()
+            err = split_err(f"[27] {label}, 3 subjects", got, want)
+            if not (err <= 1e-12 and mesh_counters()[kernel] == 8):
+                raise AssertionError(f"[27] {label}, 3 subjects on (8, 1): {err:.3e}, "
+                                     f"{mesh_counters()[kernel]} launches")
+            out["errs"]["3 subjects 8x1 f64"] = err
+    log(f"[27] {label} ({kernel}): split against whole "
+        + ", ".join(f"{k} {v:.2e}" for k, v in out["errs"].items())
+        + f"; launches {out['launches']}, (8, 1) trace {out['traced']} "
+        f"{MESH_TRACE_NAMES[kernel]} events (capture {out['trace_captures']}); ms (median "
+        f"of {MESH_REPS} after a warm-up, host work included) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out["ms"].items()) + f"  ({card})")
+    return out
+
+
+def mesh_batch_and_fit(pt, meshes, card: str) -> dict:
+    """``log_likelihood_batch_sharded`` against ``log_likelihood_batch`` at
+    10 000 subjects (float64, 1e-12), and ``fit_population`` on the (4, 2)
+    mesh against the same fit without one on phase 10's closed-form
+    population (``MESH_FIT_CYCLES`` cycles): supports 1e-10, weights 1e-8,
+    every psi call four K1a launches."""
+    from pharmsol_tpu_torch.parallel import log_likelihood_batch_sharded
+    from pharmsol_tpu_torch.utils.f32_budget import POPULATION_RANGES
+    from pharmsol_tpu_torch.utils.profiling import reset_stages, stage_counts
+
+    pt.set_float_dtype(torch.float64)
+    out = {}
+    model, data, params, rems, ems = single_batch_case(pt)
+    want = pt.log_likelihood_batch(model, data, params, rems, device="cuda")
+    out["batch ms whole"] = wall_ms(lambda: pt.log_likelihood_batch(
+        model, data, params, rems, device="cuda"), MESH_REPS)
+    for shape in ((8, 1), (4, 2)):
+        got = log_likelihood_batch_sharded(model, data, params, rems, mesh=meshes[shape])
+        err = rel_err(got, want, 1.0)
+        if not (got.shape == want.shape and err <= 1e-12):
+            raise AssertionError(f"[27] batch {shape}: {err:.3e}")
+        out[f"batch err {shape[0]}x{shape[1]}"] = err
+        out[f"batch ms {shape[0]}x{shape[1]}"] = wall_ms(lambda: log_likelihood_batch_sharded(
+            model, data, params, rems, mesh=meshes[shape]), MESH_REPS)
+    closed = model
+    kw = dict(ranges=POPULATION_RANGES, init_points=FIT_KW["init_points"],
+              max_cycles=MESH_FIT_CYCLES)
+    t0 = time.perf_counter()
+    base = pt.optimize.fit_population(closed, data, ems, device="cuda", **kw)
+    torch.cuda.synchronize()
+    out["fit s whole"] = time.perf_counter() - t0
+    reset_stages()
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    split = pt.optimize.fit_population(closed, data, ems, mesh=meshes[(4, 2)], **kw)
+    torch.cuda.synchronize()
+    out["fit s 4x2"] = time.perf_counter() - t0
+    psi_calls = stage_counts()["npag/psi_device"][0]
+    counts = {k: v for k, v in mesh_counters().items() if v}
+    if counts != {"K1a": 4 * psi_calls}:
+        raise AssertionError(f"[27] fit on (4, 2): {psi_calls} psi calls, launches {counts}")
+    if base.support.shape != split.support.shape:
+        raise AssertionError(f"[27] fit: {split.support.shape} against {base.support.shape}")
+    e_sup = float(np.max(np.abs(split.support - base.support) / np.abs(base.support)))
+    e_w = float(np.max(np.abs(split.weights - base.weights)
+                       / np.maximum(np.abs(base.weights), 1e-300)))
+    if not (e_sup <= 1e-10 and e_w <= 1e-8):
+        raise AssertionError(f"[27] fit: supports {e_sup:.3e}, weights {e_w:.3e}")
+    out.update(fit_support_err=e_sup, fit_weight_err=e_w, fit_cycles=split.cycles,
+               fit_psi_calls=psi_calls, fit_launches=counts["K1a"])
+    log(f"[27] log_likelihood_batch_sharded at {len(params)} subjects against the whole batch: "
+        f"{out['batch err 8x1']:.2e} (8, 1), {out['batch err 4x2']:.2e} (4, 2); ms (median "
+        f"of {MESH_REPS} after a warm-up, host work included) whole "
+        f"{out['batch ms whole']:.2f}, (8, 1) {out['batch ms 8x1']:.2f}, (4, 2) "
+        f"{out['batch ms 4x2']:.2f}  ({card})")
+    log(f"[27] fit_population on the (4, 2) mesh ({MESH_FIT_CYCLES} cycles; phase 10 runs "
+        f"{FIT_KW['max_cycles']}): {split.cycles} cycles, {split.support.shape[0]} supports, "
+        f"{psi_calls} psi calls = {counts['K1a']} K1a launches; supports {e_sup:.2e}, weights "
+        f"{e_w:.2e} against the fit without a mesh; {out['fit s 4x2']:.3f} s against "
+        f"{out['fit s whole']:.3f} s (one fit each)  ({card})")
+    return out
+
+
+def export_case(pt):
+    """The export's population: the Short model and regimen at
+    ``MESH_EXPORT_SUBJECTS`` subjects x 512 supports from its own seed, so
+    that the export worker and this process build the same one: (model,
+    data, support, ems)."""
+    rng = np.random.RandomState(SEED + 270)
+    ems = pt.AssayErrorModels().add(
+        0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    return (short_model(pt), short_subjects(pt, MESH_EXPORT_SUBJECTS, rng),
+            jittered_support([0.15, 1.2, 0.3, 0.2, 10.0], 512, rng), ems)
+
+
+def export_worker() -> tuple:
+    """In a process of its own: the native library's and the ``.pkm`` host's
+    g++ builds (into the checkout's ``_build/``, where phase 27 finds them),
+    then ``export_psi`` of ``export_case`` traced on the card in float64;
+    (the artifact's bytes, seconds to trace and save). Both are host work,
+    so they run beside the build."""
+    import pharmsol_tpu_torch as pt
+    from pharmsol_tpu_torch.native import native_available, pkm_host_available
+    from pharmsol_tpu_torch.ops import export_psi
+
+    native_available()
+    pkm_host_available()
+    pt.set_float_dtype(torch.float64)
+    model, data, sp, ems = export_case(pt)
+    grid = model.lower(data.subjects())
+    low = ems.lower(model.resolve_output_label, model.nouteqs())
+    t0 = time.perf_counter()
+    blob = export_psi(model, grid, sp.shape, low, device="cuda")
+    return blob, time.perf_counter() - t0
+
+
+def mesh_export(pt, artifact, card: str) -> dict:
+    """The export worker's artifact (``artifact``: its bytes, seconds to
+    trace and save, seconds phase 27 waited for it) loaded and run on the
+    card, against ``engine='general'`` within 1e-12."""
+    from pharmsol_tpu_torch.ops import load_exported
+
+    pt.set_float_dtype(torch.float64)
+    blob, t_export, t_wait = artifact
+    model, data, sp, ems = export_case(pt)
+    grid = model.lower(data.subjects())
+    low = ems.lower(model.resolve_output_label, model.nouteqs())
+    fn = load_exported(blob)
+    args = (grid.rows, grid.row_subject, sp, low.kind, low.factor, low.poly)
+    psi = fn(*args)
+    want = pt.log_likelihood_matrix(model, data, sp, ems, engine="general", device="cuda")
+    err = rel_err(psi, want, 1.0)
+    if not (psi.device.type == "cuda" and psi.shape == want.shape and err <= 1e-12):
+        raise AssertionError(f"[27] export: {tuple(psi.shape)} on {psi.device}, {err:.3e}")
+    ms = wall_ms(lambda: fn(*args), 3)
+    ms_general = wall_ms(lambda: pt.log_likelihood_matrix(model, data, sp, ems,
+                                                          engine="general", device="cuda"), 3)
+    log(f"[27] export_psi Short {len(data)}x{sp.shape[0]}: {len(blob)} bytes, traced and saved "
+        f"in {t_export:.1f} s in a worker process started with the script (waited "
+        f"{t_wait:.1f} s for it here); the loaded call {ms:.2f} ms against the general engine's "
+        f"{ms_general:.2f} ms (both with host work, median of 3); {err:.2e}  ({card})")
+    return dict(bytes=len(blob), export_s=t_export, wait_s=t_wait, ms=ms,
+                general_ms=ms_general, err=err)
+
+
+def mesh_native(pt, card: str) -> dict:
+    """``read_pmetrics_native`` on a generated 100 000-row CSV against the
+    Python reader (the same subjects, occasions and events), and
+    ``run_pkm_host`` on the ODE artifact of ``tests/test_pkm_host.py``
+    against the port's engine on the card (rtol 1e-10, atol 1e-12) within
+    1e-8."""
+    import io
+    import tempfile
+
+    from pharmsol_tpu_torch.data.pmetrics import read_pmetrics
+    from pharmsol_tpu_torch.dsl import compile_model, save_artifact
+    from pharmsol_tpu_torch.dsl.pure import PureCovariate
+    from pharmsol_tpu_torch.native import (
+        native_available, pkm_host_available, read_pmetrics_native, run_pkm_host,
+    )
+
+    if not (native_available() and pkm_host_available()):
+        raise AssertionError("[27] the native library or the pkm host did not build")
+    rows = ["ID,EVID,TIME,DUR,DOSE,ADDL,II,INPUT,OUT,OUTEQ,C0,C1,C2,C3,WT"]
+    for sid in range(MESH_CSV_SUBJECTS):
+        rows.append(f"s{sid},1,0,0,100,.,.,0,.,.,.,.,.,.,{60 + sid % 30}")
+        for t in range(9):
+            rows.append(f"s{sid},0,{t + 1},.,.,.,.,.,{50 - t},0,.,.,.,.,{60 + sid % 30}")
+    text = "\n".join(rows) + "\n"
+    t0 = time.perf_counter()
+    nat = read_pmetrics_native(text)
+    ms_native = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    py = read_pmetrics(io.StringIO(text))
+    ms_python = (time.perf_counter() - t0) * 1e3
+
+    def events(data):
+        return [(s.id, [(type(e).__name__, e.time, getattr(e, "amount", None),
+                         getattr(e, "value", None)) for occ in s.occasions()
+                        for e in occ.events],
+                 [(n, occ.covariates.get(n).observations()) for occ in s.occasions()
+                  for n in occ.covariates.names()]) for s in data.subjects()]
+
+    if len(nat) != MESH_CSV_SUBJECTS or events(nat) != events(py):
+        raise AssertionError("[27] the native reader's Data differs from the Python reader's")
+    src = ("name = portable\nkind = ode\nparams = ka, cl, v\ncovariates = wt@linear\n"
+           "states = depot, central\nderived = ke\noutputs = cp\nbolus(oral) -> depot\n"
+           "ke = cl * pow(wt / 70.0, 0.75) / v\ndx(depot) = -ka * depot\n"
+           "dx(central) = ka * depot - ke * central\nout(cp) = central / v\n")
+    runtime = compile_model(src)
+    params, obs_times = [1.2, 4.0, 35.0], [1.0, 4.0, 12.0]
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/ode.pkm"
+        save_artifact(runtime, path)
+        t0 = time.perf_counter()
+        host = run_pkm_host(path, params, [(0.0, 100.0, 0)], obs_times,
+                            cov={"wt": PureCovariate([(0.0, 80.0)])}, dt=0.005)
+        ms_host = (time.perf_counter() - t0) * 1e3
+    s = pt.Subject.builder("s").bolus(0.0, 100.0, "oral").covariate("wt", 0.0, 80.0)
+    for t in obs_times:
+        s = s.observation(t, 0.0, "cp")
+    card_pred = np.asarray(runtime.model.with_tolerances(1e-10, 1e-12).estimate_predictions(
+        s.build(), params, device="cuda").flat_predictions())
+    got = np.array([h[0] for h in host])
+    err = float(np.max(np.abs(got - card_pred) / np.abs(card_pred)))
+    if not err <= 1e-8:
+        raise AssertionError(f"[27] pkm host against the card: {err:.3e}")
+    log(f"[27] read_pmetrics_native on {len(rows) - 1} rows: {ms_native:.1f} ms, the Python "
+        f"reader {ms_python:.1f} ms, the same Data; run_pkm_host (ODE artifact, RK4 dt 0.005) "
+        f"{ms_host:.1f} ms, against the engine on the card {err:.2e}  ({card})")
+    return dict(csv_rows=len(rows) - 1, native_ms=ms_native, python_ms=ms_python,
+                pkm_ms=ms_host, pkm_err=err)
+
+
+class ExportWorker:
+    """Phase 27's ``export_worker`` in a process of its own, started when
+    the script starts: its host tracing runs beside the build, and phase 27
+    collects the artifact (``pending``)."""
+
+    def __init__(self):
+        import multiprocessing as mp
+
+        self.pool = mp.get_context("spawn").Pool(1)
+        self.pending = self.pool.apply_async(export_worker)
+        self.pool.close()
+
+    def stop(self):
+        self.pool.terminate()
+        self.pool.join()
+
+
+def run_mesh(pt, card: str, export: ExportWorker) -> tuple:
+    """Phase 27: the device split on the one card (meshes of ``cuda:0``),
+    the psi export and the native host library. It first waits for the
+    export worker, so that no host tracing runs beside its timings. Returns
+    (each cell's launches by kernel for the kernels line, a function that
+    runs the K1a cell's trace check again)."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    blob, t_export = export.pending.get(timeout=600)
+    artifact = (blob, t_export, time.perf_counter() - t0)
+    rng = np.random.RandomState(SEED + 27)
+    meshes = cuda_meshes(pt)
+    cells = mesh_cells(pt, rng)
+    t_cells = time.perf_counter() - t_phase
+    results = {cell[0]: mesh_cell(pt, cell, meshes, card) for cell in cells}
+    fit = mesh_batch_and_fit(pt, meshes, card)
+    native = mesh_native(pt, card)
+    export = mesh_export(pt, artifact, card)
+    pt.set_float_dtype(torch.float64)
+    t_all = time.perf_counter() - t_phase
+    recheck_args = results["K1a"].pop("recheck")
+    record = dict(cells=results, batch_fit=fit, export=export, native=native,
+                  data_s=t_cells, phase_s=t_all, card=card)
+    log(f"[27] phase 27: {t_all:.1f} s ({t_cells:.1f} s building the cells' data, "
+        f"{artifact[2]:.1f} s waiting for the export worker); mesh: "
+        + json.dumps(record, default=float))
+
+    def recheck(after: str) -> None:
+        label, kernel, run, whole = recheck_args
+        pt.set_float_dtype(torch.float64)
+        trace = mesh_trace_check(pt, label, kernel, run, whole)
+        log(f"[27] {label} ({kernel}) after {after}: the (8, 1) trace holds "
+            f"{trace['traced']} {MESH_TRACE_NAMES[kernel]} events (capture "
+            f"{trace['captures']}), psi {trace['traced_err']:.2e} from the whole call's  "
+            f"({card})")
+
+    return ({k: dict(v["launches"], traced_8x1=v["traced"]) for k, v in results.items()},
+            recheck)
+
+
+def mesh_build(pt) -> None:
+    """``--only mesh``'s phase 1: the closed-form library and phase 27's
+    others, the ODE Short RHS (K2a), the transit RHS (K2d) and the README
+    SDE (K3a), one nvcc each, all at once."""
+    from pharmsol_tpu_torch.ops import _build
+    from pharmsol_tpu_torch.ops.rhs_codegen import generate_rhs
+    from pharmsol_tpu_torch.utils.f32_budget import expm_case
+
+    rhs, n, ndrugs, _, v, _ = ODE_MODELS["short"]
+    model, data, sp, ems = expm_case("transit", 2, 2, seed=SEED)
+    targets = [_build.psi_target(),
+               _build.generated_target(_build.ODE, generate_rhs(rhs, n, v + 1, ndrugs)),
+               _build.generated_target(_build.ODE,
+                                       ode_plan_for(model, data, sp, ems, torch.float64).rhs),
+               dict(sde_build_targets(pt))["readme"]]
+    t0 = time.perf_counter()
+    _build.build_many(targets, force=True)
+    log(f"[1] built {len(targets)} libraries with nvcc in {time.perf_counter() - t0:.2f} s "
+        f"wall, one process each")
+    _build.load_library()
+
+
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--pair-worker":
         only = None if sys.argv[4] == "all" else sys.argv[4]
@@ -7267,7 +7810,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["stiff", "sde", "k1c", "explicit", "closed",
                                            "single", "authoring", "estimation", "diagnostics",
-                                           "nca"],
+                                           "nca", "mesh"],
                         default=None,
                         help="run a part, for work on its kernels: 'stiff' phases 0, 1 (the "
                              "stiff libraries alone) and 13-15 (K2b, K2c); 'explicit' phases "
@@ -7289,7 +7832,10 @@ def main() -> int:
                              "and 25 (bootstrap_laplace, sse_laplace, vpc, npde, llp and scm "
                              "on the card against the CPU, no library built); 'nca' phases 0 "
                              "and 26 (batch_nca_device on the card against the host batch, no "
-                             "library built). The kernels line then "
+                             "library built); 'mesh' phases 0, 1 (the closed-form library and "
+                             "the ODE Short, transit and README SDE libraries) and 27 (the "
+                             "device split over meshes of cuda:0, export_psi, the native "
+                             "reader and the .pkm host). The kernels line then "
                              "holds that part's kernels and the last line says {\"ok\": true, "
                              "\"partial\": ...}, not the whole script's verdict")
     parser.add_argument("--pair", metavar="DIR", default=None,
@@ -7334,6 +7880,16 @@ def main() -> int:
         run_nca(pt, card)
         closing_lines([], card, partial="nca")
         return 0
+    if args.only == "mesh":
+        export = ExportWorker()
+        try:
+            mesh_build(pt)
+            traced_launches(pt, lambda: None)
+            run_mesh(pt, card, export)
+        finally:
+            export.stop()
+        closing_lines([], card, partial="mesh")
+        return 0
     if args.only == "authoring":
         phase_build(pt, {}, {}, {}, only="authoring")
         run_authoring(pt, card)
@@ -7365,15 +7921,20 @@ def main() -> int:
             twins.stop()
         closing_lines(records, card, partial="stiff")
         return 0
+    # phase 27's export traces in a worker process while nvcc builds
+    export = ExportWorker()
     try:
         expm = expm_cases()
         ode_features = ode_feature_cases()
         phase_build(pt, ode_features, expm, stiff)
         torch.cuda.synchronize()
+        # the profiler's first start (seconds) while the stiff twins finish
+        traced_launches(pt, lambda: None)
         twins.wait()
-        return run_all(pt, rng, card, args, expm, ode_features, stiff, twins)
+        return run_all(pt, rng, card, args, expm, ode_features, stiff, twins, export)
     finally:
         twins.stop()
+        export.stop()
 
 
 def run_sde_base(pt, rng, card: str) -> dict:
@@ -7500,8 +8061,11 @@ def run_explicit(pt, rng, card: str) -> list:
                                  cov_times))
 
 
-def run_all(pt, rng, card, args, expm, ode_features, stiff, twins) -> int:
-    """Phases 2-23 and the last lines."""
+def run_all(pt, rng, card, args, expm, ode_features, stiff, twins, export) -> int:
+    """Phases 27, 2-26 and the last lines: phase 27 runs first, in the
+    state ``--only mesh`` leaves it, and its K1a trace check runs again
+    after phase 26, after the other phases' profilers and CUDA graphs."""
+    mesh_launches, mesh_recheck = run_mesh(pt, card, export)
     phase_kernels(pt, rng)
     phase_feature_kernels(pt)
     phase_ode_kernels(pt, rng)
@@ -7548,6 +8112,9 @@ def run_all(pt, rng, card, args, expm, ode_features, stiff, twins) -> int:
     finish_estimation(done, window_s)
     finish_diagnostics(done, window_s)
     run_nca(pt, card)
+    # phase 27's trace check again, after every other phase's profilers and
+    # CUDA graphs
+    mesh_recheck("phases 2-26")
 
     # times of the float32 runs; float64 beside them; no single PyTorch
     # call computes any of these functions, so library_ms is null
@@ -7556,6 +8123,10 @@ def run_all(pt, rng, card, args, expm, ode_features, stiff, twins) -> int:
     ode_record, ode_feature_record = explicit_records(
         ode_label, ode_launches, ode_times, cov_label, cov_launches, cov_times)
     log("[10] fits: " + json.dumps({"fit_a": fit_a, "fit_b": fit_b}))
+    # phase 27's launches: one per subjects shard on each mesh, and the
+    # (8, 1) call's kernel events in its trace
+    for rec in (record, feature_record, ode_record, expm_rec, sde_record, k1c_rec):
+        rec["mesh_launches"] = mesh_launches[rec["id"]]
     closing_lines([record, feature_record, ode_record, ode_feature_record, sde_record, expm_rec,
                    *stiff_recs, sde_feature_rec, k1c_rec], card)
     return 0

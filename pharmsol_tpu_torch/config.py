@@ -39,6 +39,13 @@ def float_dtype() -> torch.dtype:
     return _FLOAT_DTYPE
 
 
+def int_dtype() -> torch.dtype:
+    """The integer dtype of the index streams a kernel reads (int32, as the
+    JAX package's ``config.int_dtype``); torch's own indexing (``gather``,
+    ``index_add_``) keeps int64."""
+    return torch.int32
+
+
 def set_device(dev) -> None:
     """Set the default device of the entry points (default ``"cuda"``)."""
     global _DEVICE

@@ -40,6 +40,7 @@ __all__ = [
     "three_compartments_cl",
     "three_compartments_cl_with_absorption",
     "KERNELS",
+    "pm_wrap",
 ]
 
 
@@ -263,6 +264,18 @@ def three_compartments_cl_with_absorption(x, p, t, rateiv, cov=None):
     return three_compartments_with_absorption(
         x, torch.stack([ka, k10, k12, k13, k21, k31]), t, rateiv, cov
     )
+
+
+def pm_wrap(kernel):
+    """Pmetrics padded-layout wrapper: dummy slot 0 in x and rateiv
+    (analytical/mod.rs:62-90)."""
+
+    def pm_kernel(x, p, t, rateiv, cov=None):
+        compact = kernel(x[1:], p, t, rateiv[1:], cov)
+        return torch.cat([compact.new_zeros(1), compact])
+
+    pm_kernel.__name__ = f"pm_{kernel.__name__}"
+    return pm_kernel
 
 
 # Registry: kernel name -> (fn, nstates, nparams). Names match the
@@ -527,3 +540,18 @@ PREPARED_KERNELS = {
 
 # kernel function object -> prepared pair, for spec construction
 PREPARED_BY_FN = {KERNELS[name][0]: pair for name, pair in PREPARED_KERNELS.items()}
+
+
+# Named Pmetrics-padded wrappers (analytical/mod.rs pm_* export parity).
+pm_one_compartment = pm_wrap(one_compartment)
+pm_one_compartment_with_absorption = pm_wrap(one_compartment_with_absorption)
+pm_one_compartment_cl = pm_wrap(one_compartment_cl)
+pm_one_compartment_cl_with_absorption = pm_wrap(one_compartment_cl_with_absorption)
+pm_two_compartments = pm_wrap(two_compartments)
+pm_two_compartments_with_absorption = pm_wrap(two_compartments_with_absorption)
+pm_two_compartments_cl = pm_wrap(two_compartments_cl)
+pm_two_compartments_cl_with_absorption = pm_wrap(two_compartments_cl_with_absorption)
+pm_three_compartments = pm_wrap(three_compartments)
+pm_three_compartments_with_absorption = pm_wrap(three_compartments_with_absorption)
+pm_three_compartments_cl = pm_wrap(three_compartments_cl)
+pm_three_compartments_cl_with_absorption = pm_wrap(three_compartments_cl_with_absorption)

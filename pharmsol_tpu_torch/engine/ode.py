@@ -671,8 +671,13 @@ def expm_segment(f: Callable, jac: Callable, x0, t0, t1):
     s = torch.ceil(torch.clamp(torch.log2(norm), min=0.0))
     sc = torch.exp2(-s)
     P, q = _expm_affine(Adt * sc[..., None, None], udt * sc[..., None])
-    s_fin = s[torch.isfinite(s)]
-    n_sq = min(_EXPM_SQUARINGS, int(s_fin.max()) if s_fin.numel() else 0)
+    if torch.compiler.is_exporting():
+        # a traced program cannot read the count on the host: every
+        # squaring, each masked (the same result)
+        n_sq = _EXPM_SQUARINGS
+    else:
+        s_fin = s[torch.isfinite(s)]
+        n_sq = min(_EXPM_SQUARINGS, int(s_fin.max()) if s_fin.numel() else 0)
     for i in range(n_sq):
         on = i < s
         Pq = torch.matmul(P, q[..., None])[..., 0] + q
@@ -747,6 +752,20 @@ def lane_rhs(diffeq: Callable, nstates: int, cov):
     return _over_lanes(_lane_closure(diffeq, nstates, cov.names), cov)
 
 
+def _affine_columns(f: Callable) -> Callable:
+    """``jac(x, t)`` [*lanes, n, n] of an RHS that is affine in the state:
+    column j is ``f(e_j, t) - f(0, t)`` (``expm_segment`` checks the
+    affinity it relies on)."""
+
+    def jac(x, t):
+        n = x.shape[-1]
+        f0 = f(torch.zeros_like(x), t)
+        eye = torch.eye(n, dtype=x.dtype, device=x.device)
+        return torch.stack([f(eye[j].expand(x.shape), t) - f0 for j in range(n)], dim=-1)
+
+    return jac
+
+
 def make_ode_propagate_carry(diffeq: Callable, nstates: int, ninput: int,
                              opts: ODEOptions):
     """The engine's carry-threading propagate hook, batched over lanes.
@@ -777,6 +796,10 @@ def make_ode_propagate_carry(diffeq: Callable, nstates: int, ninput: int,
         t0b = t0.expand(h.shape)
         t1 = t0b + torch.clamp(dt, min=0.0).expand(h.shape)
         if solver in EXPM_SOLVERS:
+            if torch.compiler.is_exporting():
+                # torch.export cannot trace forward mode (jacfwd): the
+                # Jacobian of the affine RHS by its columns f(e_j) - f(0)
+                jac = _affine_columns(f)
             # expm has no step to carry: it returns a zero step
             return expm_segment(f, jac, x, t0b, t1), torch.zeros_like(h)
         if solver in BDF_SOLVERS:

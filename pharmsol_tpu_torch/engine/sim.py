@@ -359,3 +359,105 @@ def simulate_occasion_ll(
         )
         ll = ll + torch.where(seg_active[..., m], ll_obs, zero)
     return ll
+
+
+def _compose_prefix(A: torch.Tensor, b: torch.Tensor) -> tuple:
+    """Inclusive prefix compositions of the affine maps ``x -> A_m x + b_m``
+    along the segment axis (``A`` [..., M, n, n], ``b`` [..., M, n]): entry m
+    of the result applies maps 0..m in order. A log-depth scan
+    (Hillis-Steele): ceil(log2 M) rounds, each one batched ``torch.matmul``
+    composing every entry with the one ``d`` segments before it."""
+    M = A.shape[-3]
+    d = 1
+    while d < M:
+        A_hi, b_hi = A[..., d:, :, :], b[..., d:, :]
+        A_lo, b_lo = A[..., :-d, :, :], b[..., :-d, :]
+        A = torch.cat([A[..., :d, :, :], torch.matmul(A_hi, A_lo)], dim=-3)
+        b = torch.cat([b[..., :d, :],
+                       torch.matmul(A_hi, b_lo.unsqueeze(-1))[..., 0] + b_hi], dim=-2)
+        d *= 2
+    return A, b
+
+
+def simulate_occasion_assoc(spec: ModelSpec, occ: OccasionArrays, p: torch.Tensor,
+                            cov_names=(), per_row: bool = False) -> OccasionSim:
+    """Sequence-parallel occasion simulation by a log-depth scan over the
+    segments' affine maps (the JAX package's ``engine/sim.py::
+    simulate_occasion_assoc``, :205-303, over ``lax.associative_scan``).
+
+    The reference marches segments strictly serially
+    (analytical/mod.rs:298-370); this path has no reference counterpart.
+    Every closed-form compartment kernel is affine in the state, so a
+    segment (bolus add, then propagate over dt with constant infusion
+    forcing) is ``x -> A_m x + b_m``. Each segment's map is built from n+1
+    applications of the kernel to every (support, row) cell (``c = f(0)``,
+    ``A e_j = f(e_j) - c``), then the states before each segment come from
+    :func:`_compose_prefix` instead of the serial march. Results as
+    :func:`simulate_occasion`.
+
+    Preconditions (``Analytical.with_scan`` checks them): no seq equation
+    and the default bolus application, so that the propagator is affine.
+    """
+    march = SegmentMarch(spec, occ, p, cov_names, per_row)
+    segs, p, names, sd = march.segs, march.p, march.names, march.sd
+    fd, dev = p.dtype, p.device
+    S, R, n = march.S, march.R, spec.nstates
+    pr = 0 if per_row else None
+    kt, kv, kf = occ.cov_t, occ.cov_v, occ.cov_fixed
+    use_prepared = spec.prepare is not None and spec.seq is None
+    if use_prepared:
+        aux = vmap(vmap(spec.prepare))(p) if per_row else vmap(spec.prepare)(p)
+
+        def prop_one(a, x, dt, rateiv, t, *knots):
+            return spec.propagate_prepared(a, x, dt, rateiv, t,
+                                           CovView(*knots, names)).to(fd)
+    else:
+        aux = p
+
+        def prop_one(pp, x, dt, rateiv, t, *knots):
+            return spec.propagate(x, pp, dt, rateiv, t, CovView(*knots, names)).to(fd)
+
+    prop_b = march.cells(prop_one, (0, 0, sd, sd, sd), (pr, 0, 0, 0, 0))
+
+    x0 = torch.zeros((S, R, n), dtype=fd, device=dev)
+    if spec.init is not None:
+        t_zero = torch.zeros((), dtype=fd, device=dev)
+
+        def init_one(pp, *knots):
+            return as_vector(spec.init(pp, t_zero, CovView(*knots, names)),
+                             pp).reshape(n)
+
+        x0 = x0 + occ.init_mask.to(fd).view(1, R, 1) * march.cells(
+            init_one, (0,), (pr,))(p, kt, kv, kf)
+
+    eye = torch.eye(n, dtype=fd, device=dev)
+    basis = [torch.zeros((S, R, n), dtype=fd, device=dev)] + [
+        eye[j].expand(S, R, n) for j in range(n)]
+    M = segs.t.shape[-1]
+    As, bs = [], []
+    for m in range(M):
+        t, dt = segs.t[..., m], segs.dt[..., m]
+        rateiv = segs.rateiv[..., m, :]
+        # the bolus as an affine offset (input i adds into state i)
+        bvec = torch.nn.functional.one_hot(segs.b_input[..., m], spec.ninput).to(fd)
+        bvec = bvec * segs.b_amt[..., m].unsqueeze(-1)
+        pad = n - spec.ninput
+        d = (torch.cat([bvec, bvec.new_zeros(bvec.shape[:-1] + (pad,))], dim=-1)
+             if pad > 0 else bvec[..., :n]).expand(S, R, n)
+        f = [prop_b(aux, x, dt, rateiv, t, kt, kv, kf) for x in basis]
+        c = f[0]
+        A = torch.stack([fj - c for fj in f[1:]], dim=-1)  # column j = A e_j
+        span = (dt > 0.0).expand(S, R)
+        As.append(torch.where(span[..., None, None], A, eye))
+        bs.append(torch.where(span[..., None],
+                              torch.matmul(A, d.unsqueeze(-1))[..., 0] + c, d))
+    Ap, bp = _compose_prefix(torch.stack(As, dim=2), torch.stack(bs, dim=2))
+    x_after = torch.matmul(Ap, x0[:, :, None, :, None])[..., 0] + bp  # [S, R, M, n]
+    xs = torch.cat([x0.unsqueeze(2), x_after[:, :, :-1]], dim=2)
+    pos = segs.obs_pos
+    pos = pos.expand((S,) + tuple(pos.shape[-2:]))  # [S, R, NO]
+    state = torch.gather(xs, 2, pos.unsqueeze(-1).expand(pos.shape + (n,)))
+    y_all = march.out_at_observations(state)
+    idx = occ.obs_outeq.expand(pos.shape).unsqueeze(-1)
+    pred = torch.gather(y_all, 3, idx)[..., 0]
+    return OccasionSim(pred=pred, state=state, y_all=y_all)

@@ -276,8 +276,18 @@ def log_likelihood_batch(
     rows = _device_rows(grid, dev, dtype)
     row_subject = torch.as_tensor(np.asarray(grid.row_subject, dtype=np.int64), device=dev)
     p_rows = torch.as_tensor(p, dtype=dtype, device=dev)[row_subject]  # [R, n_params]
-    pred = equation._batch_predictions(rows, p_rows, grid.cov_names)  # [R, NO]
+    total = _batch_row_totals(equation, rows, p_rows, grid.cov_names, lowered, dev, dtype)
+    out = torch.zeros((grid.n_subjects,), dtype=dtype, device=dev)
+    out = out.index_add_(0, row_subject, total)
+    return torch.where(torch.isfinite(out) | torch.isneginf(out), out,
+                       torch.full_like(out, -float("inf")))
 
+
+def _batch_row_totals(equation, rows, p_rows, cov_names, lowered, dev, dtype):
+    """The batch log-likelihood of every occasion row [R] under its own
+    parameter row (``p_rows`` [R, n_params]); -inf for a row with an active
+    observation on an output without a residual model."""
+    pred = equation._batch_predictions(rows, p_rows, cov_names)  # [R, NO]
     outeq = rows.obs_outeq
     kind = torch.as_tensor(np.asarray(lowered.kind, dtype=np.int64), device=dev)[outeq]
     a = torch.as_tensor(lowered.a, dtype=dtype, device=dev)[outeq]
@@ -289,11 +299,7 @@ def log_likelihood_batch(
     total = torch.where(active, ll, torch.zeros_like(ll)).sum(dim=-1)  # [R]
     # an active observation with no model (kind 0) poisons the subject
     missing = (active & (kind == 0)).any(dim=-1)
-    total = torch.where(missing, torch.full_like(total, -float("inf")), total)
-    out = torch.zeros((grid.n_subjects,), dtype=dtype, device=dev)
-    out = out.index_add_(0, row_subject, total)
-    return torch.where(torch.isfinite(out) | torch.isneginf(out), out,
-                       torch.full_like(out, -float("inf")))
+    return torch.where(missing, torch.full_like(total, -float("inf")), total)
 
 
 def log_likelihood_subject(equation, subject, parameters,

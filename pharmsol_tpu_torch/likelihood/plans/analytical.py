@@ -69,6 +69,7 @@ from .seq import (
     _decompose_seq_tv,
     _seq_depth_stream,
 )
+from .split import RowSplit
 
 def _fused_structure_name(equation) -> str:
     """Map an Analytical equation to a fused psi structure: the structure a
@@ -101,7 +102,7 @@ def _fused_structure_name(equation) -> str:
     )
 
 
-class _FusedPsiPlan:
+class _FusedPsiPlan(RowSplit):
     """Validated device inputs for one fused psi evaluation.
 
     Raises PharmsolError when the model is outside the kernels' scope; the
@@ -389,12 +390,33 @@ class _FusedPsiPlan:
         return dict(structure=self.structure, obs_outeq=self.outeq,
                     out_coef=self.out_coef, out_bias=self.out_bias, **self.features)
 
-    def run(self) -> torch.Tensor:
-        """psi [n_subjects, S] on the plan's device."""
+    def launch_spec(self):
+        """``psi_analytical``'s arguments with their row axes
+        (:class:`~.split.RowSplit`): the segment and observation streams,
+        the row and segment parameter factors, the depth streams, the lag/fa
+        planes and the init mask on axis 0, the init planes on axis 1, the
+        parameter planes on axis 2; the support, the output coefficients,
+        the level tables, the init rows and a lag/fa row per support
+        ``[1, S]`` shared."""
         from ...ops.fused_psi import psi_analytical
 
-        return self.finalize(psi_analytical(*self.streams, self.support,
-                                            **self.kernel_kwargs()))
+        kw = self.kernel_kwargs()
+        n = len(self.streams)
+        axes = {i: 0 for i in range(n)}
+        axes.update(dict.fromkeys(
+            ("obs_outeq", "param_mult", "param_offset", "param_mult_seg",
+             "param_offset_seg", "seg_depth", "seg_evcode", "seg_postdepth",
+             "init_mask"), 0), init_planes=1, param_planes=2)
+        axes.update(dict.fromkeys((n, "out_coef", "out_bias", "param_levels", "init_rows")))
+        for key in ("lag_plane", "fa_plane"):
+            v = kw[key]
+            shared = isinstance(v, torch.Tensor) and v.shape[0] == 1 and self.R > 1
+            axes[key] = None if shared else 0
+        return psi_analytical, (*self.streams, self.support), kw, axes
+
+    def run(self) -> torch.Tensor:
+        """psi [n_subjects, S] on the plan's device."""
+        return self.finalize(self.run_rows())
 
     def finalize(self, psi_rows: torch.Tensor) -> torch.Tensor:
         """Sum occasion rows [R, S] into subjects [n_subjects, S]."""

@@ -54,6 +54,7 @@ from .decompose import (
     _t64,
     _validate_lag_no_overlap,
 )
+from .split import RowSplit
 
 # merged spans are capped at this many segments (the JAX kernel holds one
 # carry lane per interior observation; the CUDA kernel keeps the cap so the
@@ -280,7 +281,7 @@ def _check_expm_rhs(diffeq, sp, n_states: int, ninput: int, rate_inputs, cov_val
             f"engine='fused' could not probe RHS affinity for expm: {e}") from e
 
 
-class _FusedOdePsiPlan:
+class _FusedOdePsiPlan(RowSplit):
     """Validated device inputs for one fused ODE psi evaluation.
 
     Same contract as :class:`~.analytical._FusedPsiPlan`: ``__init__``
@@ -452,13 +453,22 @@ class _FusedOdePsiPlan:
             **self.features,
         )
 
-    def run(self) -> torch.Tensor:
-        """psi [n_subjects, S] on the plan's device."""
+    def launch_spec(self):
+        """``psi_ode``'s arguments with their row axes
+        (:class:`~.split.RowSplit`): the bolus and rate stacks ``[n, R, M]``,
+        the lag/fa planes ``[n, R, S]`` and the init planes on axis 1, the
+        other streams, the covariate streams and the init mask on axis 0;
+        the support, the output coefficients and the init rows shared."""
         from ...ops.fused_ode import psi_ode
 
-        psi_rows = psi_ode(*self.streams, self.support, self.rhs,
-                           **self.kernel_kwargs())
-        return self.finalize(psi_rows)
+        axes = {0: 0, 1: 1, 2: 1, 3: 0, 4: 0, 5: 0, 6: 0, 7: 0, 8: None, "obs_outeq": 0,
+                "out_coef": None, "out_bias": None, "cov_streams": 0, "init_rows": None,
+                "init_mask": 0, "init_planes": 1, "lag_plane": 1, "fa_plane": 1}
+        return psi_ode, (*self.streams, self.support, self.rhs), self.kernel_kwargs(), axes
+
+    def run(self) -> torch.Tensor:
+        """psi [n_subjects, S] on the plan's device."""
+        return self.finalize(self.run_rows())
 
     def finalize(self, psi_rows: torch.Tensor) -> torch.Tensor:
         """Sum occasion rows [R, S] into subjects [n_subjects, S]."""

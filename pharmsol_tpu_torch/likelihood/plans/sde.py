@@ -34,9 +34,10 @@ import numpy as np
 import torch
 
 from ...errors import PharmsolError
+from .split import RowSplit
 
 
-class _FusedSdePsiPlan:
+class _FusedSdePsiPlan(RowSplit):
     """Validated device inputs for one fused SDE psi evaluation.
 
     Same contract as :class:`~.ode._FusedOdePsiPlan`: ``__init__`` validates
@@ -190,12 +191,22 @@ class _FusedSdePsiPlan:
             seed=self.seed, em_control=self.em_control, **self.features,
         )
 
-    def run(self) -> torch.Tensor:
-        """psi [n_subjects, S] on the plan's device."""
+    def launch_spec(self):
+        """``psi_sde``'s arguments with their row axes
+        (:class:`~.split.RowSplit`), laid out as the ODE plan's. The
+        kernel's Philox counter holds the row index within the launch, so a
+        row block draws other numbers than the same rows in a whole launch
+        (as the JAX package's per-shard keys do)."""
         from ...ops.fused_sde import psi_sde
 
-        psi_rows = psi_sde(*self.streams, self.support, self.gen, **self.kernel_kwargs())
-        return self.finalize(psi_rows)
+        axes = {0: 0, 1: 1, 2: 1, 3: 0, 4: 0, 5: 0, 6: 0, 7: 0, 8: None, "obs_outeq": 0,
+                "out_coef": None, "out_bias": None, "init": None, "init_mask": 0,
+                "cov_streams": 0, "init_planes": 1, "lag_planes": 1, "fa_planes": 1}
+        return psi_sde, (*self.streams, self.support, self.gen), self.kernel_kwargs(), axes
+
+    def run(self) -> torch.Tensor:
+        """psi [n_subjects, S] on the plan's device."""
+        return self.finalize(self.run_rows())
 
     def finalize(self, psi_rows: torch.Tensor) -> torch.Tensor:
         """Sum occasion rows [R, S] into subjects [n_subjects, S]."""

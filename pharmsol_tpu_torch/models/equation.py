@@ -45,6 +45,7 @@ from ..engine.sim import (
     default_apply_bolus,
     rhs_difference_apply_bolus,
     simulate_occasion,
+    simulate_occasion_assoc,
     simulate_occasion_ll,
 )
 from ..errors import (
@@ -54,6 +55,7 @@ from ..errors import (
     unknown_input_label,
     unknown_output_label,
 )
+from ..likelihood.loglik import occasion_log_likelihood
 from ..likelihood.prediction import Prediction, SubjectPredictions
 from ..metadata import ModelKind, ModelMetadata, RouteKind, ValidatedModelMetadata
 from ..utils.cache import DEFAULT_CACHE_SIZE, LruCache
@@ -502,6 +504,43 @@ class Analytical(EquationBase):
         self._fa = fa
         self._init = init
         self._out = out
+        self._scan_mode = "serial"
+
+    def with_scan(self, mode: str):
+        """Segment-scan strategy: 'serial' (the segment march, default) or
+        'associative' (a log-depth scan over affine per-segment
+        propagators, ``engine/sim.py::simulate_occasion_assoc``; no
+        reference counterpart). Associative requires an affine propagator
+        (no seq equation, default bolus application); it serves the general
+        engine's psi, predictions and batch, and the fused plans are
+        unchanged, as in the JAX package (``models/equation.py:562-580``)."""
+        if mode not in ("serial", "associative"):
+            raise PharmsolError("scan mode must be 'serial' or 'associative'")
+        if mode == "associative" and self._seq is not None:
+            raise PharmsolError(
+                "associative scan requires an affine propagator: models with "
+                "a seq equation must use the serial scan"
+            )
+        self._scan_mode = mode
+        self._invalidate()
+        return self
+
+    def _sim_rows(self, rows, p, cov_names):
+        if self._scan_mode == "associative":
+            return simulate_occasion_assoc(self.spec, rows, p, cov_names)
+        return super()._sim_rows(rows, p, cov_names)
+
+    def _ll_rows(self, rows, p, em_kind, em_factor, em_poly, cov_names):
+        if self._scan_mode == "associative":
+            pred = simulate_occasion_assoc(self.spec, rows, p, cov_names).pred
+            return occasion_log_likelihood(rows, pred, em_kind, em_factor, em_poly)
+        return super()._ll_rows(rows, p, em_kind, em_factor, em_poly, cov_names)
+
+    def _batch_predictions(self, rows, p_rows, cov_names):
+        if self._scan_mode == "associative":
+            return simulate_occasion_assoc(self.spec, rows, p_rows, cov_names,
+                                           per_row=True).pred[0]
+        return super()._batch_predictions(rows, p_rows, cov_names)
 
     def _model_kind(self) -> ModelKind:
         return ModelKind.ANALYTICAL

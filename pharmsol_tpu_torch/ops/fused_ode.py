@@ -62,6 +62,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..config import int_dtype
 from ..engine.ode import (
     _BDF_ALPHA,
     _BDF_ERROR_CONST,
@@ -1453,7 +1454,7 @@ def _launch(lib, stream: int, args, kw, n_out: int, runs, ft: Features, blocks: 
         fa = torch.stack(ft.fa).contiguous() if ft.fa is not None else None
         feat_ptrs = (ctypes.c_void_p * 7)(*(_ptr(t) for t in (
             cov_a, cov_b, lag, fa, ft.init_rows, ft.init_planes, ft.init_mask)))
-    ints = torch.tensor(table, dtype=torch.int32, device=dev)
+    ints = torch.tensor(table, dtype=int_dtype(), device=dev)
     # the quartic interpolant of the explicit pairs (expm has none: unread)
     dense = torch.tensor(dense_P_for(kw["solver"]) or dense_P_for("dopri5"),
                          dtype=seg_dt.dtype, device=dev)

@@ -37,6 +37,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..config import int_dtype
+
 LOG_2PI = math.log(2.0 * math.pi)
 
 # Kernel launches through psi_analytical on a CUDA tensor (not the twin):
@@ -974,7 +976,7 @@ def _launch(lib, seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma, 
                            and tuple(planes[0].shape) == (1, S))
                 f[key] = torch.stack(planes).contiguous() if planes is not None else None
                 rows.append(0 if one_row else S)
-            slots = [torch.tensor(t, dtype=torch.int32, device=dev) if t is not None
+            slots = [torch.tensor(t, dtype=int_dtype(), device=dev) if t is not None
                      else None for t in (lag_slots, fa_slots)]
             ptrs = (ctypes.c_void_p * (len(FEATURES) + 2))(
                 *(a.data_ptr() if a is not None else None

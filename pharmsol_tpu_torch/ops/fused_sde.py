@@ -55,6 +55,7 @@ from typing import Optional
 
 import torch
 
+from ..config import int_dtype
 from ..engine.sde import (
     EM_ATOL, EM_MAX_ITERS, EM_MAX_STEP, EM_MIN_STEP, EM_RTOL, EM_SAFETY, ndtr,
 )
@@ -571,7 +572,7 @@ def psi_sde(
             if planes is not None:
                 rows = slots if slots is not None else [[k] * M for k in range(nb)]
                 table += [int(v) for row in rows for v in row]
-    ints = torch.tensor(table, dtype=torch.int32, device=dev)
+    ints = torch.tensor(table, dtype=int_dtype(), device=dev)
     k0, k1 = philox.seed_key(kw["seed"])
     base = (seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma, obs_cens,
             obs_outeq if n_out > 1 else None, seg_t0, params, init, init_mask, out_coef,

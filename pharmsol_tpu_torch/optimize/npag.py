@@ -143,17 +143,28 @@ def fit_population(
     log-likelihood gain. ``refine='nm'`` polishes the final support with
     the reference's shallow Nelder-Mead point refinement
     (optimize/parameters.rs:19-120) before the last weight solve.
-    ``mesh``: the JAX package shards psi over the devices of a mesh; the
-    port has no multi-device split yet (ROADMAP Queue 1 item 10), so
-    anything but ``None`` raises. ``device``: where psi and the burn-in
-    run, the card unless the caller asks for the CPU.
+    ``mesh``: a :class:`~pharmsol_tpu_torch.parallel.mesh.Mesh` routes
+    every psi evaluation through the device split
+    (``parallel/mesh.py::log_likelihood_matrix_sharded``, with ``engine``),
+    as the JAX package does; the weight burn-in and the host solve read psi
+    on the mesh's first device. ``device``: where psi and the burn-in run
+    without a mesh, the card unless the caller asks for the CPU; with a
+    mesh it must be None or the mesh's first device.
     """
-    if mesh is not None:
-        raise PharmsolError(
-            "fit_population(mesh=...) is not ported: the multi-device split "
-            "is ROADMAP Queue 1 item 10; pass mesh=None"
-        )
-    dev = resolve_device(device)
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        from ..parallel.mesh import Mesh
+
+        if not isinstance(mesh, Mesh):
+            raise PharmsolError(
+                f"mesh must be a pharmsol_tpu_torch.parallel.Mesh (population_mesh()), "
+                f"got {type(mesh).__name__}")
+        dev = mesh.first_device
+        if device is not None and resolve_device(device) != dev:
+            raise PharmsolError(
+                f"fit_population: device `{device}` is not the mesh's first device "
+                f"`{dev}`")
     names: Optional[tuple] = None
     if isinstance(ranges, dict):
         metadata = getattr(equation, "metadata", None)
@@ -188,9 +199,15 @@ def fit_population(
 
     def psi_of(support: np.ndarray, require_finite: bool = True):
         with stage("npag/psi_device", dev):
-            log_psi = log_likelihood_matrix(
-                equation, data, support, error_models, engine=engine, device=dev
-            )
+            if mesh is not None:
+                from ..parallel.mesh import log_likelihood_matrix_sharded
+
+                log_psi = log_likelihood_matrix_sharded(
+                    equation, data, support, error_models, mesh=mesh, engine=engine)
+            else:
+                log_psi = log_likelihood_matrix(
+                    equation, data, support, error_models, engine=engine, device=dev
+                )
         # row-shift before exponentiating: weights are scale-invariant
         # per row and the shifts add back into the reported loglik
         log_psi = log_psi.to(torch.float64)

@@ -346,3 +346,32 @@ def test_replicate_layer_and_nca_default_to_the_card():
         "    call(device='cpu')\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, cwd=str(PKG.parent))
+
+
+def test_mesh_export_and_native_import_without_jax():
+    """The device split, the export module and the native host library load
+    no JAX module (nor Triton)."""
+    code = ("import sys, pharmsol_tpu_torch.parallel, pharmsol_tpu_torch.parallel.mesh, "
+            "pharmsol_tpu_torch.native, pharmsol_tpu_torch.native.loader, "
+            "pharmsol_tpu_torch.native.pmetrics, pharmsol_tpu_torch.native.pkm_host, "
+            "pharmsol_tpu_torch.ops.export, pharmsol_tpu_torch.likelihood.plans.split; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'optax', 'pharmsol_tpu', 'triton')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=str(PKG.parent))
+
+
+def test_population_mesh_defaults_to_the_card():
+    """``population_mesh()`` puts every CUDA device on the subjects axis:
+    without a card it raises (no CPU mesh unless the caller names the
+    devices), as the other entry points do."""
+    from pharmsol_tpu_torch.parallel import population_mesh
+
+    if torch.cuda.is_available():
+        mesh = population_mesh()
+        assert mesh.shape == {"subjects": torch.cuda.device_count(), "support": 1}
+        assert all(d.type == "cuda" for d in mesh.devices.flat)
+    else:
+        with pytest.raises(PharmsolError, match="cuda"):
+            population_mesh()
+    assert population_mesh(devices=["cpu"]).first_device == torch.device("cpu")

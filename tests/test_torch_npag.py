@@ -2,8 +2,8 @@
 (``pharmsol_tpu_torch/optimize/npag.py``).
 
 The cases of the JAX package's ``tests/test_npag.py`` on the port (the
-sharded one becomes "a mesh raises": the multi-device split is not ported),
-then the same small fit in both packages from the same numpy draws, float64
+sharded one is ``test_torch_npag_mesh.py``; here a mesh that is not a
+``parallel.Mesh`` raises), then the same small fit in both packages from the same numpy draws, float64
 on the CPU: JAX ``engine='xla'`` against the port's ``engine='general'`` give
 the same cycles and support count, support and weights within 1e-6 and the
 log-likelihood within 1e-8 relative; ``engine='fused'`` runs the same fit on
@@ -143,7 +143,7 @@ def test_fit_population_named_ranges_and_refine():
 
 
 def test_fit_population_a_mesh_raises():
-    with pytest.raises(PharmsolError, match="Queue 1 item 10"):
+    with pytest.raises(PharmsolError, match=r"population_mesh\(\)"):
         fit_population(_model(), _population(1), _ems(), RANGES, init_points=8,
                        mesh=object())
 

@@ -76,7 +76,7 @@ printing its own lines; any failure raises and the exit code is not 0:
    per-cell difference within four standard errors; and at zero diffusion against the 1-cmt IV closed form
    within 5e-2 (EM at rtol = atol = 1e-2);
 6. the README SDE at full width (256 subjects x 64 supports x 1000
-   particles) through the public entry point, float32 and float64, three
+   particles) through the public entry point, float32 and float64, two
    calls each with fresh supports, each taking the fused engine with exactly
    one K3a launch and giving psi of the right shape without NaN;
 7. K3a alone at full width and one end-to-end call with its steps; its
@@ -199,8 +199,8 @@ printing its own lines; any failure raises and the exit code is not 0:
     (float64 1e-10 relative, float32 within the closed form's budget row of
     the float64 result) and against ``estimate_predictions`` plus
     ``ResidualErrorModels.total_log_likelihood`` on 8 (float64 1e-10); the
-    README SDE's predictions for one subject at 1000 particles (finite, float32
-    on its first two observations; at zero diffusion the CPU's within 1e-9)
+    README SDE's predictions for one subject at 1000 particles (finite, on its
+    first two observations; at zero diffusion the CPU's within 1e-9)
     and the covariate ODE example's (the CPU's within 1e-10); then
     CUDA-event times per dtype (float32 at a quarter of the repetitions),
     after warm-up with the lowering cached and the prediction cache off, of one
@@ -307,7 +307,30 @@ printing its own lines; any failure raises and the exit code is not 0:
     exports ``expm``); ``read_pmetrics_native`` on a generated 100 000-row
     CSV against the Python reader (the same Data) and ``run_pkm_host`` on
     ``tests/test_pkm_host.py``'s ODE artifact against the engine on the
-    card (1e-8).
+    card (1e-8);
+28. the closure styles the RHS generator takes (``utils/style_cases.py``),
+    each entry-point call with every launch count set to 0 just before and
+    read just after (engine fused, one launch of the cell's kernel, no
+    other): "ODE Short 16384 x 512" and "ODE TMDD stiff 16384 x 512" under
+    bdf written vector-style (``torch.zeros_like``, writes, whole-vector
+    arithmetic) against the list-style cells in float32 and float64 (the
+    same header key, psi equal in every cell, K2a's and K2c's times and
+    the end-to-end calls beside the list-style cells'); the math model
+    (every operation of the elementwise set, a state-dependent power, a
+    time-varying weight and a lag) at 64 x 48 in the explicit library
+    without and with features (K2a, K2e: float64 within 1e-8 of the twin),
+    the kvaerno3 (K2b) and bdf (K2c) libraries (every cell 1e-6, 99% within
+    1e-8), float32 within the ``ode_dopri5`` / ``ode_bdf`` rows; the transit
+    model written as whole-vector arithmetic (the list-style key; K2d
+    within 1e-10, float32 within ``ode_expm``); the README SDE with a tanh
+    drift term at 8 x 8 x 1000 on K3a (zero diffusion 1e-10, noise 99.9%
+    within 1e-9).
+
+For 28 (each cut prints its time beside the time before it): phase 7's
+twin for the bound runs in a worker process beside the build (phase 6's
+cell takes its data from a seed of its own for it); by depth, phase 22's
+float64 README SDE predictions on two observations (four), phase 6's README
+SDE cell at two calls per dtype (three).
 
 The earlier paths were cut to make room for 16-21 (each cut prints its
 time beside the time before it): phase 14's general engine on 64 subjects
@@ -345,9 +368,9 @@ authoring`` phases 0, 1 (the closed-form library and the ODE and SDE
 libraries of phase 23's models) and 23; ``--only estimation`` phases 0 and
 24, ``--only diagnostics`` phases 0 and 25, ``--only nca`` phases 0 and 26
 (no library is built); ``--only mesh`` phases 0, 1 (the closed-form
-library and phase 27's ODE and SDE libraries) and 27. A partial run's
-last line is ``{"ok": true, "partial": ...}``, not the whole script's
-verdict.
+library and phase 27's ODE and SDE libraries) and 27; ``--only styles``
+phases 0, 1 (phase 28's libraries) and 28. A partial run's last line is
+``{"ok": true, "partial": ...}``, not the whole script's verdict.
 
 ``--pair DIR`` holds this checkout against another one at ``DIR`` (a
 ``git archive`` of the parent commit, say), in the order DIR, here, here,
@@ -481,6 +504,7 @@ K1C_RECORD = {
 # the same for the K3a cell
 SDE_COV_FULL = (256, 64)
 SDE_TWIN_ROWS = 1
+SDE_CELL_CALLS = 2  # phase 6's calls per dtype
 # the K1c cells: lag with a seq chain deeper than one, and a lag and an fa
 # that read a time-varying creatinine; the subjects of their check against
 # the general engine; the ragged shape of the kernel-vs-twin check; and the
@@ -512,7 +536,12 @@ STIFF_ALL_SOLVER_CASES = ("tmdd",)
 # twins timed alone, phase 5's SDE twin, the build
 BEFORE_CUTS_S = {"oracles_256": (42.6, 83.1),
                  "twins_alone": 49.0, "sde_twin": (75.0, 90.0),
-                 "build": (119.88, 164.20)}
+                 "build": (119.88, 164.20),
+                 # and for phase 28 (the run before these cuts): phase 22's
+                 # float64 README SDE predictions (4 observations), the README
+                 # SDE cell's six calls, phase 7's bound twin in the main
+                 # process
+                 "single_sde_f64": 16.2, "sde_cell_calls": 15.1, "sde_bound_twin": 48.9}
 STIFF_TWIN_ROWS = 10
 STIFF_CHECK_SHAPE = (64, 48)
 STIFF_SOLVERS = ("bdf", "trbdf2", "kvaerno3", "kvaerno5")
@@ -902,18 +931,25 @@ def phase_build(pt, feature_cases, expm, stiff, only: str = None) -> float:
     from pharmsol_tpu_torch.ops import _build
 
     ode_targets = (stiff_build_targets(stiff) if only == "stiff"
-                   else [] if only in ("sde", "k1c", "closed", "authoring")
+                   else [] if only in ("sde", "k1c", "closed", "authoring", "styles")
                    else list(explicit_build_targets(feature_cases).values())
                    if only == "explicit"
                    else ode_build_targets(feature_cases, expm, stiff))
-    sde_targets = ([] if only in ("stiff", "k1c", "explicit", "closed", "authoring")
+    sde_targets = ([] if only in ("stiff", "k1c", "explicit", "closed", "authoring", "styles")
                    else sde_build_targets(pt) + sde_feature_build_targets(pt))
     if only in (None, "authoring"):
         # phase 23's models: a library each only where their header is new
         ode_new, sde_new = authoring_build_targets(pt)
         ode_targets = dedupe_targets(ode_targets + list(ode_new.values()))
         sde_targets = dedupe_targets(sde_targets + list(sde_new.values()))
-    psi_targets = [] if only in ("stiff", "sde", "explicit") else [_build.psi_target()]
+    if only in (None, "styles"):
+        # phase 28's: the math model's and the tanh SDE's headers are new, the
+        # vector-style models share their list-style models' libraries
+        ode_new, sde_new = style_build_targets(pt)
+        ode_targets = dedupe_targets(ode_targets + ode_new)
+        sde_targets = dedupe_targets(sde_targets + sde_new)
+    psi_targets = ([] if only in ("stiff", "sde", "explicit", "styles")
+                   else [_build.psi_target()])
     targets = (psi_targets + [t for _, t in ode_targets] + [t for _, t in sde_targets])
     names = ([t.name for t in psi_targets]
              + [f"fused_ode ({name})" for name, _ in ode_targets]
@@ -1596,10 +1632,11 @@ def phase_ode_times(pt, label, model, data, ems, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def readme_sde(pt, nparticles: int = SDE_PARTICLES):
+def readme_sde(pt, nparticles: int = SDE_PARTICLES, drift=None):
     """examples/sde_readme.py with torch closures: the elimination rate
     ke_latent follows a mean-reverting diffusion around ke0; p = ke0, v,
-    sigma_ke; a bolus routed to `central`."""
+    sigma_ke; a bolus routed to `central`. ``drift`` replaces the README's
+    (phase 28's tanh drift)."""
     from pharmsol_tpu_torch import metadata
 
     md = (metadata.new("ke_diffusion").parameters(["ke0", "v", "sigma_ke"])
@@ -1607,7 +1644,8 @@ def readme_sde(pt, nparticles: int = SDE_PARTICLES):
           .route(metadata.Route.bolus("iv").to_state("central"))
           .particles(nparticles))
     return pt.SDE(
-        drift=lambda x, p, t, rateiv, cov: torch.stack([-x[1] * x[0], -(x[1] - p[0])]),
+        drift=drift or (lambda x, p, t, rateiv, cov: torch.stack([-x[1] * x[0],
+                                                                  -(x[1] - p[0])])),
         diffusion=lambda p, t, cov: [0.0, p[2]],
         init=lambda p, t, cov: [0.0, p[0]],
         out=lambda x, p, t, cov: x[0:1] / p[1],
@@ -1891,13 +1929,19 @@ def phase_sde_slice(pt, rng):
     label = f"readme_sde_{R}x{S}x{SDE_PARTICLES}"
     ems = readme_ems(pt)
     t0 = time.perf_counter()
-    data = readme_data(pt, R, rng)
+    # from a seed of its own, so that phase 7's twin can rebuild it in a worker
+    # process; the shared generator takes the draws it took before
+    data = readme_data(pt, R, np.random.RandomState(SEED + 6))
     t_build = time.perf_counter() - t0
+    rng.randn(R, 4)
     model = readme_sde(pt)
-    supports = [readme_support(S, rng) for _ in range(3)]
+    # two calls per dtype since phase 28's cut (were three; the third support
+    # is still drawn, so later phases draw what they drew)
+    supports = [readme_support(S, rng) for _ in range(3)][:SDE_CELL_CALLS]
     # the main path's run: every launch counted here is one of its calls
     fused_sde.LAUNCHES = 0
     calls = 0
+    t_calls = time.perf_counter()
     for dtype in (torch.float32, torch.float64):
         pt.set_float_dtype(dtype)
         for sp in supports:
@@ -1917,8 +1961,12 @@ def phase_sde_slice(pt, rng):
             log(f"[6] {label} {str(dtype)[6:]}: psi mean {float(psi.double().mean()):.6f}, "
                 f"{int(torch.isfinite(psi).sum())} finite of {psi.numel()}")
     launches = fused_sde.LAUNCHES
+    t_calls = time.perf_counter() - t_calls
     log(f"[6] SDE main path: {calls} log_likelihood_matrix calls on cuda, engine fused, "
         f"{launches} K3a launches (subject builder {t_build * 1e3:.1f} ms)")
+    log(f"[6] cut: the calls took {t_calls:.1f} s, {SDE_CELL_CALLS} per dtype (before the cut, "
+        f"3: {BEFORE_CUTS_S['sde_cell_calls']} s): "
+        f"{BEFORE_CUTS_S['sde_cell_calls'] - t_calls:.1f} s saved")
     return label, model, data, launches
 
 
@@ -2763,7 +2811,8 @@ def phase_rhs_jvp(pt, cases) -> None:
     """The generated ``rhs`` and ``rhs_jvp`` as the library computes them on
     the card against the closure and ``torch.func.jvp`` of it, float64, at
     4096 random samples per distinct RHS: within 1e-12 of the scale."""
-    from pharmsol_tpu_torch.ops.fused_ode import rhs_jvp_on_device
+    from pharmsol_tpu_torch.ops.fused_ode import call_rhs, rhs_jvp_on_device
+    from pharmsol_tpu_torch.ops.rhs_codegen import LaneCov
 
     n = 4096
     seen = set()
@@ -2786,16 +2835,13 @@ def phase_rhs_jvp(pt, cases) -> None:
         slope[0, :len(gen.cov_modes)] = [m == "affine" for m in gen.cov_modes]
         ca = dev(rng.uniform(0.0, 2.0, (n, ncov)))
         cb = dev(rng.uniform(-0.1, 0.1, (n, ncov)) * slope)
-        index = {nm: i for i, nm in enumerate(gen.cov_names)}
+        cov = LaneCov({nm: ca[:, i] if mode == "const" else (ca[:, i], cb[:, i])
+                       for i, (nm, mode) in enumerate(zip(gen.cov_names, gen.cov_modes))})
 
-        def cov(nm, tt=None):
-            i = index[nm]
-            return ca[:, i] if tt is None else ca[:, i] + cb[:, i] * tt
-
-        def closure(xs):
-            out = gen.diffeq(xs, p.t(), t, torch.zeros_like(rate.t()), rate.t(), cov)
-            return torch.stack([o + torch.zeros_like(t) for o in out]) if isinstance(
-                out, (list, tuple)) else out + torch.zeros_like(t)
+        def closure(xs):  # the closure in its style, on n lanes
+            return torch.stack(call_rhs(gen, list(xs), list(p.t()), t,
+                                        [torch.zeros_like(t)] * gen.ninput, list(rate.t()),
+                                        cov, (n,), torch.float64, "cuda"))
 
         want_f, want_jv = torch.func.jvp(closure, (x.t().contiguous(),), (v.t().contiguous(),))
         f, jv = rhs_jvp_on_device(gen, x, p, t, rate, v, ca, cb)
@@ -3151,7 +3197,8 @@ def stiff_twin_job(job) -> dict:
     inputs are rebuilt from the same seeds as the main process's. ``job`` is
     (kind, name, solver, merge, dtype name, order cap): kind ``check`` is the
     case at 64 x 48, kind ``cell`` the stiff cell's subjects
-    ``stiff_twin_rows`` x 512 supports. Returns psi [R, S] as numpy, the
+    ``stiff_twin_rows`` x 512 supports, kind ``style`` phase 28's math model
+    at 64 x 48. Returns psi [R, S] as numpy, the
     attempts, the attempts per row, for bdf the twin's tally of trials,
     accepts, adaptations and rescalings per row and order, and the twin's
     time by CUDA events (the worker shares the card and the host with the
@@ -3160,10 +3207,14 @@ def stiff_twin_job(job) -> dict:
     from pharmsol_tpu_torch.ops.fused_ode import psi_ode_plain
 
     kind, name, solver, merge, dtype_name, cap = job
+    if kind == "sde_bound":
+        return sde_bound_twin_job(job)
     dtype = getattr(torch, dtype_name)
     pt.set_float_dtype(dtype)
     if kind == "check":
         model, data, support, ems = stiff_case_at(name, solver)
+    elif kind == "style":
+        model, data, support, ems = style_math_case(solver)
     else:
         data, ems, _ = tmdd_population(pt, STIFF_SHAPE[0], np.random.RandomState(SEED + 8),
                                        rows=stiff_twin_rows(STIFF_SHAPE[0]))
@@ -3200,17 +3251,17 @@ def stiff_twin_jobs(cases) -> list:
 
 
 class StiffTwins:
-    """The twins of :func:`stiff_twin_jobs`, computed by ``STIFF_TWIN_WORKERS``
-    worker processes on the card while the main process builds the
-    libraries (nvcc needs no card); :meth:`wait` blocks until all are done,
-    :meth:`get` gives one."""
+    """The twins of ``jobs`` (:func:`stiff_twin_jobs`, :func:`style_twin_jobs`),
+    computed by ``STIFF_TWIN_WORKERS`` worker processes on the card while the
+    main process builds the libraries (nvcc needs no card); :meth:`wait`
+    blocks until all are done, :meth:`get` gives one."""
 
-    def __init__(self, cases):
+    def __init__(self, jobs):
         import multiprocessing as mp
 
-        self.jobs = stiff_twin_jobs(cases)
-        # the longest first (bdf's twin is the slowest)
-        self.jobs.sort(key=lambda j: (j[2] != "bdf", j[0] != "cell"))
+        self.jobs = list(jobs)
+        # the longest first (phase 7's SDE twin, then bdf's)
+        self.jobs.sort(key=lambda j: (j[0] != "sde_bound", j[2] != "bdf", j[0] != "cell"))
         self.pool = mp.get_context("spawn").Pool(STIFF_TWIN_WORKERS)
         self.pending = {job: self.pool.apply_async(stiff_twin_job, (job,)) for job in self.jobs}
         self.pool.close()
@@ -3221,14 +3272,13 @@ class StiffTwins:
         t0 = time.perf_counter()
         for res in self.pending.values():
             res.wait(timeout=900)
-        log(f"[1] {len(self.jobs)} plain twins of the stiff slice done in "
+        log(f"[1] {len(self.jobs)} plain twins of the stiff slice, phase 7 and phase 28 done in "
             f"{STIFF_TWIN_WORKERS} worker processes, started before the build; waited "
             f"{time.perf_counter() - t0:.1f} s more for them")
 
     def get(self, *job) -> dict:
         res = self.pending[job].get(timeout=900)
-        res = dict(res, psi=torch.as_tensor(res["psi"], device="cuda"))
-        return res
+        return dict(res, psi=torch.as_tensor(res["psi"], device="cuda"))
 
     def stop(self) -> None:
         self.pool.terminate()
@@ -4286,17 +4336,61 @@ def phase_sde_feature_times(pt, label, model, data, ems, card: str) -> dict:
     return out
 
 
-def phase_sde_full_bound(pt, model, data, card: str) -> dict:
+def sde_bound_twin_job(job) -> dict:
+    """Phase 7's float64 twin on ``SDE_TWIN_ROWS`` spread subjects of the
+    README cell x its supports, in a worker process of :class:`StiffTwins`
+    while the libraries build (the masked loop is host-paced, about 50 s);
+    the inputs rebuilt from phase 6's and 7's seeds. Returns psi, the trials
+    per row and the twin's time (contended)."""
+    import pharmsol_tpu_torch as pt
+    from pharmsol_tpu_torch.ops.fused_sde import psi_sde_plain
+
+    pt.set_float_dtype(torch.float64)
+    plan = sde_bound_plan(pt, readme_sde(pt),
+                          readme_data(pt, SDE_FULL[0], np.random.RandomState(SEED + 6)))
+    counts = {}
+    psi, ms = event_ms(lambda: psi_sde_plain(*plan.streams, plan.support, plan.gen,
+                                             counts=counts, **plan.kernel_kwargs()))
+    return dict(psi=psi.cpu().numpy(), ms=ms,
+                trials_by_row=counts["trials_by_row"].double().cpu().numpy())
+
+
+SDE_BOUND_JOB = ("sde_bound", "readme", "", True, "float64", 3)
+
+
+def sde_bound_plan(pt, model, data):
+    """The float64 plan of phase 7's twin: the cell's ``SDE_TWIN_ROWS``
+    spread subjects x its supports."""
+    rows = spread_rows(len(data), SDE_TWIN_ROWS)
+    sub = pt.Data([data.subjects()[int(i)] for i in rows])
+    return sde_plan_for(model, sub, readme_support(SDE_FULL[1], np.random.RandomState(SEED + 5)),
+                        readme_ems(pt), torch.float64)
+
+
+def phase_sde_full_bound(pt, model, data, card: str, twins=None) -> dict:
     """K3a's bound at the README cell's full width: the twin's trials on
     ``SDE_TWIN_ROWS`` spread subjects x all supports (float64, kernel and
     twin held to each other there), scaled to the cell; both dtypes priced
-    on those counts."""
+    on those counts. With ``twins`` the twin comes from its worker process
+    (``SDE_BOUND_JOB``), else it runs here."""
     R, S = SDE_FULL
     ems = readme_ems(pt)
     sp = readme_support(S, np.random.RandomState(SEED + 5))
     pt.set_float_dtype(torch.float64)
-    twin_ms, by_row, _ = sde_twin_rows_check(pt, model, data, sp, ems, torch.float64,
-                                             "K3a readme f64", 1e-9, 0.999, 7)
+    if twins is None:
+        twin_ms, by_row, _ = sde_twin_rows_check(pt, model, data, sp, ems, torch.float64,
+                                                 "K3a readme f64", 1e-9, 0.999, 7)
+    else:
+        t0 = time.perf_counter()
+        res = twins.get(*SDE_BOUND_JOB)
+        plan = sde_bound_plan(pt, model, data)
+        sde_compare(f"K3a readme f64 on subjects "
+                    f"{', '.join(str(i) for i in spread_rows(len(data), SDE_TWIN_ROWS))} x {S} "
+                    "vs twin (its worker's)", run_sde_kernel(plan), res["psi"], 1e-9, 0.999, 7)
+        twin_ms, by_row = res["ms"], res["trials_by_row"]
+        log(f"[7] cut: the bound's twin ran in a worker process beside the build ({twin_ms:.1f} "
+            f"ms there, contended); here {time.perf_counter() - t0:.1f} s (before the cut, "
+            f"here: {BEFORE_CUTS_S['sde_bound_twin']} s)")
     trials = sde_trials_scaled(by_row, R)
     out = {}
     for dtype in (torch.float32, torch.float64):
@@ -5826,13 +5920,20 @@ def phase_single_models(pt) -> dict:
     out = {}
     sde = readme_sde(pt)
     subject = readme_data(pt, 1, np.random.RandomState(SEED + 22)).subjects()[0]
-    # float32 on the subject's first two observations (2 h of the 8: the
-    # march is host-paced, its time goes with the span)
+    # both dtypes on the subject's first two observations (2 h of the 8: the
+    # march is host-paced, its time goes with the span; float64 took all four
+    # before phase 28's cut)
     short = readme_data(pt, 1, np.random.RandomState(SEED + 22), n_obs=2).subjects()[0]
-    for dtype, subj, n_obs in ((torch.float64, subject, 4), (torch.float32, short, 2)):
+    for dtype, subj, n_obs in ((torch.float64, short, 2), (torch.float32, short, 2)):
         pt.set_float_dtype(dtype)
+        t0 = time.perf_counter()
         preds = np.asarray(sde.estimate_predictions(subj, [0.2, 10.0, 0.05], device="cuda")
                            .flat_predictions())
+        if dtype == torch.float64:
+            t_sde = time.perf_counter() - t0
+            log(f"[22] cut: the float64 README SDE predictions took {t_sde:.1f} s on 2 "
+                f"observations (before the cut, 4: {BEFORE_CUTS_S['single_sde_f64']} s): "
+                f"{BEFORE_CUTS_S['single_sde_f64'] - t_sde:.1f} s saved")
         if preds.shape != (n_obs,) or not np.all(np.isfinite(preds)):
             raise AssertionError(f"[22] README SDE {dtype}: {preds}")
         out[f"sde_{str(dtype)[-2:]}"] = preds.tolist()
@@ -6855,6 +6956,9 @@ def est_finish(card, card_fits, held, ll_ms, busy_ms, t_card, done, t_cpu, share
 # omega0, its fitted residual model), for the script's time limit
 # the device of phases 25 and 26
 CARD = "cuda"
+# not cut for phase 28: the refits at 5 steps with llp's grid at 6 points a
+# side left llp's held lanes unconverged, card and CPU parting by 2.1e-8 (>
+# 1e-8); the bootstrap at 100 replicates took as long as at 200 (host-paced)
 DIAG_N_BOOT = 200
 DIAG_N_SIM = 100
 DIAG_VPC_REP = 500
@@ -7802,6 +7906,303 @@ def mesh_build(pt) -> None:
     _build.load_library()
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the closure styles (vector-style code, the elementwise set, a
+# state-dependent power) on the kernels
+# ---------------------------------------------------------------------------
+
+STYLE_SHORT = (16384, 512)      # the K2a cell, vector-style
+STYLE_TMDD = (16384, 512)       # the K2c cell (bdf), vector-style
+STYLE_CHECK = (64, 48)          # the math model and the transit model, kernel vs twin
+STYLE_SDE = (8, 8)              # the tanh README SDE, x SDE_PARTICLES, first observation
+STYLE_REPS = 5                  # kernel alone: CUDA events over this many launches
+STYLE_SOLVERS = {"K2a": "dopri5", "K2e": "dopri5", "K2b": "kvaerno3", "K2c": "bdf"}
+STYLE_IDS = {"K2a": ODE_KERNEL_RECORD, "K2e": ODE_FEATURE_KERNEL_RECORD,
+             "K2b": STIFF_SDIRK_RECORD, "K2c": STIFF_BDF_RECORD, "K2d": EXPM_KERNEL_RECORD,
+             "K3a": SDE_KERNEL_RECORD}
+
+
+def style_math_case(solver: str, features: bool = True):
+    """Phase 28's math model (``utils/style_cases.py::math_case``: every
+    operation of the generator's elementwise set and a state-dependent
+    power; with ``features`` a time-varying weight and a lag) at
+    ``STYLE_CHECK``, from its own seed."""
+    from pharmsol_tpu_torch.utils.style_cases import math_case
+
+    return math_case(*STYLE_CHECK, seed=SEED + 40, solver=solver, features=features)
+
+
+def style_twin_jobs() -> list:
+    """The float64 twins of the math model under the stiff solvers, run by
+    :class:`StiffTwins` while the libraries build."""
+    return [("style", "math", solver, True, "float64", 3) for solver in ("bdf", "kvaerno3")]
+
+
+def style_vector_models(pt):
+    """The vector-style spellings of the ODE Short, TMDD (bdf) and transit
+    (expm) models, each with its list-style model: name -> (list, vector)."""
+    from pharmsol_tpu_torch.utils import style_cases as sc
+    from pharmsol_tpu_torch.utils.f32_budget import expm_case
+
+    short = ode_model(pt, "short")
+    tmdd = tmdd_model("bdf")
+    transit = expm_case("transit", 1, 1)[0]
+
+    def spelled(model, rhs, solver):
+        return pt.ODE(rhs, init=model._init, out=model._out, nstates=model.nstates(),
+                      ndrugs=model.ndrugs(), nout=model.nouteqs()).with_solver(solver)
+
+    return {"short": (short, spelled(short, sc.short_vector, "dopri5")),
+            "tmdd": (tmdd, spelled(tmdd, sc.tmdd_vector, "bdf")),
+            "transit": (transit, spelled(transit, sc.transit_vector, "expm"))}
+
+
+def tanh_sde(pt, nparticles: int = SDE_PARTICLES):
+    from pharmsol_tpu_torch.utils.style_cases import readme_tanh_drift
+
+    return readme_sde(pt, nparticles, drift=readme_tanh_drift)
+
+
+def style_build_targets(pt) -> tuple:
+    """Phase 28's libraries: (ode, sde) lists of (name, target). The
+    vector-style models share their list-style models' headers, so their
+    libraries (the Short explicit, the TMDD bdf and the transit expm one)
+    are the other phases' (listed here for ``--only styles``); the math
+    model adds its explicit libraries with and without features, its bdf
+    and kvaerno3 libraries, and the tanh SDE its K3a library."""
+    from pharmsol_tpu_torch.ops import _build
+    from pharmsol_tpu_torch.ops.rhs_codegen import generate_rhs, generate_sde
+
+    ode = []
+    for name, (listed, _) in style_vector_models(pt).items():
+        solver = listed._opts.solver
+        gen = generate_rhs(listed._diffeq, listed.nstates(), {"short": 5}.get(name, 7), 1,
+                           jacobian=solver != "dopri5")
+        ode.append((f"style {name} {solver}",
+                    _build.generated_target(_build.ode_kind(solver), gen)))
+    for kernel, solver in STYLE_SOLVERS.items():
+        model, data, support, ems = style_math_case(solver, features=kernel != "K2a")
+        gen = ode_plan_for(model, data, support, ems, torch.float64).rhs
+        ode.append((f"style math {kernel} {solver}",
+                    _build.generated_target(_build.ode_kind(solver), gen)))
+    spec = tanh_sde(pt).spec
+    gen = generate_sde(spec.drift, spec.diffusion, spec.nstates, 3, spec.ninput)
+    return dedupe_targets(ode), [("style tanh readme", _build.generated_target(_build.SDE, gen))]
+
+
+def style_launches(kernel: str) -> int:
+    from pharmsol_tpu_torch.ops import fused_ode, fused_sde
+
+    return {"K2a": lambda: fused_ode.LAUNCHES, "K2e": lambda: fused_ode.FEATURE_LAUNCHES,
+            "K2d": lambda: fused_ode.EXPM_LAUNCHES, "K2b": lambda: fused_ode.SDIRK_LAUNCHES,
+            "K2c": lambda: fused_ode.BDF_LAUNCHES, "K3a": lambda: fused_sde.LAUNCHES}[kernel]()
+
+
+def style_call(pt, label: str, kernel: str, model, data, sp, ems, out: dict) -> torch.Tensor:
+    """One entry-point call on the card with every launch count set to 0 just
+    before and read just after: the fused engine, one launch of ``kernel``
+    and of no other, psi of the data's shape without NaN; the launch is
+    tallied in ``out[kernel]["launches"]``."""
+    reset_kernel_launches()
+    psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in kernel_launches().items() if v}
+    dec = pt.last_engine_decision(model)
+    if dec["engine"] != "fused" or style_launches(kernel) != 1 or len(launched) != 1:
+        raise AssertionError(f"{label}: engine {dec['engine']} ({dec.get('reason')}), "
+                             f"launches {launched}, wanted one {kernel}")
+    if tuple(psi.shape) != (len(data), sp.shape[0]) or bool(torch.isnan(psi).any()):
+        raise AssertionError(f"{label}: psi {tuple(psi.shape)}, NaN {bool(torch.isnan(psi).any())}")
+    rec = out.setdefault(kernel, {})
+    rec["launches"] = rec.get("launches", 0) + 1
+    return psi
+
+
+def style_cell(pt, name: str, kernel: str, listed, vector, data, supports, ems, card: str,
+               out: dict) -> None:
+    """A vector-style cell against its list-style cell at full width: the
+    same header key, the vector model's style ``stacked``, in each dtype one
+    entry-point call per model on the same supports (one ``kernel`` launch
+    each) and psi equal cell for cell; each model's kernel alone and its
+    end-to-end call, side by side."""
+    n, S = len(data), supports[0].shape[0]
+    label = f"style {name} vector {n}x{S}"
+    keys = []
+    for model in (listed, vector):
+        plan = ode_plan_for(model, data, supports[0], ems, torch.float64)
+        keys.append((plan.rhs.key, plan.rhs.style))
+    if keys[0][0] != keys[1][0] or [k[1] for k in keys] != ["lanes", "stacked"]:
+        raise AssertionError(f"{label}: header keys and styles {keys}")
+    log(f"[28] {label}: header key {keys[1][0]} equal to the list-style cell's "
+        f"(styles lanes / stacked)")
+    for dtype, sp in zip((torch.float32, torch.float64), supports):
+        d = str(dtype)[6:]
+        pt.set_float_dtype(dtype)
+        want = style_call(pt, f"{label} list {d}", kernel, listed, data, sp, ems, {})
+        got = style_call(pt, f"{label} {d}", kernel, vector, data, sp, ems, out)
+        same = bool(((got == want) | (torch.isneginf(got) & torch.isneginf(want))).all())
+        diff = float((got - want).nan_to_num(0.0, 0.0, 0.0).abs().max())
+        log(f"[28] {label} {d}: one {kernel} launch per call; psi against the list-style "
+            f"cell's: max abs diff {diff:.2e}, every cell equal {same}")
+        if not same:
+            raise AssertionError(f"{label} {d}: psi differs from the list-style cell's")
+        times = {}
+        for tag, model in (("list", listed), ("vector", vector)):
+            plan = ode_plan_for(model, data, sp, ems, dtype)
+            times[tag] = (cuda_ms(lambda: run_ode_kernel(plan), STYLE_REPS, 1),
+                          wall_ms(lambda: pt.log_likelihood_matrix(model, data, sp, ems,
+                                                                   device="cuda"), 3))
+            del plan
+        log(f"[28] {label} {d}: {kernel} alone {times['vector'][0]:.3f} ms (list-style "
+            f"{times['list'][0]:.3f}), end to end {times['vector'][1]:.3f} ms (list-style "
+            f"{times['list'][1]:.3f}) ({card})")
+        rec = out.setdefault(kernel, {})
+        rec[f"cell_{d}"] = dict(shape=f"{name}_vector_{n}x{S}", kernel_ms=times["vector"][0],
+                                list_kernel_ms=times["list"][0],
+                                end_to_end_ms=times["vector"][1],
+                                list_end_to_end_ms=times["list"][1], max_abs_diff=diff)
+        del got, want
+
+
+def style_hold(label: str, kernel: str, got64, twin64, got32, row: str, twin32_fn) -> dict:
+    """Kernel against twin by the script's rules: K2a, K2e 1e-8 relative,
+    K2b, K2c every cell 1e-6 and 99% within 1e-8 (:func:`compare_stiff`), K2d
+    1e-10; float32 against the float64 twin within the budget row ``row``
+    (:func:`hold_f32`)."""
+    from pharmsol_tpu_torch.utils.f32_budget import F32_BUDGET
+
+    abs_err = float((got64 - twin64)[torch.isfinite(twin64)].abs().max())
+    if kernel in ("K2b", "K2c"):
+        err, share = compare_stiff(label, got64, twin64)
+        rule = f"max {err:.3e} (<= 1e-6), {share * 100:.2f}% within 1e-8 (>= 99%)"
+    else:
+        tol = 1e-10 if kernel == "K2d" else 1e-8
+        err = rel_err(got64, twin64, 1.0)
+        if err > tol or not bool((torch.isfinite(got64) == torch.isfinite(twin64)).all()):
+            raise AssertionError(f"{label}: kernel vs twin {err} > {tol}")
+        rule = f"max rel {err:.3e} (<= {tol:g})"
+    err32, note = hold_f32(label + " f32", got32, twin64, F32_BUDGET[row], twin32_fn)
+    log(f"[28] {label}: f64 kernel vs twin {rule}, max abs {abs_err:.3e}; f32 kernel vs f64 "
+        f"twin {err32:.3e} (<= {F32_BUDGET[row]:g}, {row}){note}")
+    return dict(max_abs_err=abs_err, rel_err=err, f32_err=err32)
+
+
+def style_checks(pt, twins, out: dict, card: str) -> None:
+    """The new headers at STYLE_CHECK: the math model in the explicit (K2a
+    without features, K2e with them), kvaerno3 (K2b) and bdf (K2c)
+    libraries and the transit model written as whole-vector arithmetic
+    (K2d, the list-style key): each once through the entry point (one launch
+    of its kernel), then the kernel against its twin."""
+    from pharmsol_tpu_torch.utils.f32_budget import expm_case
+
+    for kernel, solver in STYLE_SOLVERS.items():
+        model, data, support, ems = style_math_case(solver, features=kernel != "K2a")
+        label = f"style math {kernel} {solver} {STYLE_CHECK[0]}x{STYLE_CHECK[1]}"
+        pt.set_float_dtype(torch.float64)
+        style_call(pt, label, kernel, model, data, support, ems, out)
+        plan64 = ode_plan_for(model, data, support, ems, torch.float64)
+        plan32 = ode_plan_for(model, data, support, ems, torch.float32)
+        if plan64.rhs.style != "lanes" or "pm_tanh(" not in plan64.rhs.source:
+            raise AssertionError(f"{label}: header {plan64.rhs.key} style {plan64.rhs.style}")
+        got64, got32 = run_ode_kernel(plan64), run_ode_kernel(plan32)
+        torch.cuda.synchronize()
+        if kernel in ("K2b", "K2c"):
+            twin64 = twins.get("style", "math", solver, True, "float64", 3)["psi"]
+        else:
+            twin64 = run_ode_kernel(plan64, plain=True)
+        rec = style_hold(label, kernel, got64, twin64, got32,
+                         "ode_dopri5" if solver == "dopri5" else "ode_bdf",
+                         lambda: run_ode_kernel(plan32, plain=True))
+        rec["ms_f64"] = cuda_ms(lambda: run_ode_kernel(plan64), STYLE_REPS, 1)
+        rec["ms"] = cuda_ms(lambda: run_ode_kernel(plan32), STYLE_REPS, 1)
+        rec["header"] = plan64.rhs.key
+        log(f"[28] {label}: {kernel} alone {rec['ms']:.3f} / {rec['ms_f64']:.3f} ms "
+            f"(f32 / f64) ({card})")
+        out.setdefault(kernel, {})["math"] = rec
+    listed, vector = style_vector_models(pt)["transit"]
+    lmodel, data, support, ems = expm_case("transit", *STYLE_CHECK, seed=SEED + 41)
+    label = f"style transit vector expm {STYLE_CHECK[0]}x{STYLE_CHECK[1]}"
+    style_call(pt, label, "K2d", vector, data, support, ems, out)
+    plan64 = ode_plan_for(vector, data, support, ems, torch.float64)
+    plan32 = ode_plan_for(vector, data, support, ems, torch.float32)
+    want_key = ode_plan_for(lmodel, data, support, ems, torch.float64).rhs.key
+    if plan64.rhs.key != want_key or plan64.rhs.style != "stacked":
+        raise AssertionError(f"{label}: key {plan64.rhs.key} (list {want_key}), "
+                             f"style {plan64.rhs.style}")
+    got64, got32 = run_ode_kernel(plan64), run_ode_kernel(plan32)
+    twin64 = run_ode_kernel(plan64, plain=True)
+    rec = style_hold(label + f" (list-style key {want_key})", "K2d", got64, twin64, got32,
+                     "ode_expm", lambda: run_ode_kernel(plan32, plain=True))
+    rec["ms_f64"] = cuda_ms(lambda: run_ode_kernel(plan64), STYLE_REPS, 1)
+    rec["ms"] = cuda_ms(lambda: run_ode_kernel(plan32), STYLE_REPS, 1)
+    rec["header"] = plan64.rhs.key
+    log(f"[28] {label}: K2d alone {rec['ms']:.3f} / {rec['ms_f64']:.3f} ms (f32 / f64) ({card})")
+    out.setdefault("K2d", {})["transit_vector"] = rec
+
+
+def style_sde(pt, rng, out: dict, card: str) -> None:
+    """K3a on the README SDE with a tanh drift term at STYLE_SDE x
+    SDE_PARTICLES, the first observation: once through the entry point (one
+    K3a launch), then against its twin at zero diffusion (every cell within
+    1e-10) and with noise (float64, 99.9% within 1e-9, the twin's Philox
+    numbers)."""
+    R, S = STYLE_SDE
+    model, ems = tanh_sde(pt), readme_ems(pt)
+    data = readme_data(pt, R, rng, n_obs=1)
+    label = f"style tanh README SDE {R}x{S}x{SDE_PARTICLES}"
+    sp0, sp = readme_support(S, rng, sigma=0.0), readme_support(S, rng)
+    pt.set_float_dtype(torch.float64)
+    style_call(pt, label, "K3a", model, data, sp, ems, out)
+    plan0 = sde_plan_for(model, data, sp0, ems, torch.float64)
+    if "pm_tanh(" not in plan0.gen.source:
+        raise AssertionError(f"{label}: the drift's header holds no tanh")
+    got, twin = run_sde_kernel(plan0), run_sde_kernel(plan0, plain=True)
+    abs0, rel0 = sde_compare(f"{label} sigma_ke=0 f64 vs twin", got, twin, 1e-10, 1.0, 28)
+    plan = sde_plan_for(model, data, sp, ems, torch.float64)
+    got, twin = run_sde_kernel(plan), run_sde_kernel(plan, plain=True)
+    abs_n, rel_n = sde_compare(f"{label} f64 vs twin (same Philox)", got, twin, 1e-9, 0.999, 28)
+    out["K3a"]["tanh_readme"] = rec = dict(
+        max_abs_err=max(abs0, abs_n), zero_diffusion_rel=rel0, noise_rel=rel_n,
+        ms_f64=cuda_ms(lambda: run_sde_kernel(plan), 3, 1), header=plan.gen.key)
+    log(f"[28] {label}: K3a alone {rec['ms_f64']:.3f} ms (f64) ({card})")
+
+
+def run_styles(pt, rng, card: str, twins, short_data=None) -> dict:
+    """Phase 28: the vector-style ODE Short (K2a) and TMDD bdf (K2c) cells
+    against their list-style cells at full width, the math model on K2a,
+    K2e, K2b and K2c and the vector-style transit model on K2d at 64 x 48,
+    and the tanh README SDE on K3a. Returns, per kernel, what the phase
+    measured (``launches``: its entry-point calls' launches)."""
+    t0 = time.perf_counter()
+    out = {}
+    ems = pt.AssayErrorModels().add(
+        0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    models = style_vector_models(pt)
+    if short_data is None:
+        short_data = short_subjects(pt, STYLE_SHORT[0], rng)
+    supports = [ODE_MODELS["short"][5](np.random.RandomState(SEED + 42 + i), STYLE_SHORT[1])
+                for i in range(2)]
+    style_cell(pt, "ode_short", "K2a", *models["short"], short_data, supports, ems, card, out)
+    tmdd_data, tmdd_ems, _ = tmdd_population(pt, STYLE_TMDD[0], np.random.RandomState(SEED + 8))
+    supports = [tmdd_support(STYLE_TMDD[1], np.random.RandomState(SEED + 44 + i))
+                for i in range(2)]
+    style_cell(pt, "ode_tmdd_bdf", "K2c", *models["tmdd"], tmdd_data, supports, tmdd_ems,
+               card, out)
+    del tmdd_data
+    style_checks(pt, twins, out, card)
+    style_sde(pt, rng, out, card)
+    pt.set_float_dtype(torch.float64)
+    log(f"[28] the closure styles: K2a, K2e, K2b, K2c, K2d and K3a on vector-style and "
+        f"elementwise-set headers, every check within its rule, in "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    return out
+
+
+def style_records(styles: dict) -> list:
+    """``--only styles``'s kernels line: phase 28's numbers per kernel."""
+    return [dict(STYLE_IDS[k], styles=v) for k, v in styles.items()]
+
+
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--pair-worker":
         only = None if sys.argv[4] == "all" else sys.argv[4]
@@ -7810,7 +8211,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["stiff", "sde", "k1c", "explicit", "closed",
                                            "single", "authoring", "estimation", "diagnostics",
-                                           "nca", "mesh"],
+                                           "nca", "mesh", "styles"],
                         default=None,
                         help="run a part, for work on its kernels: 'stiff' phases 0, 1 (the "
                              "stiff libraries alone) and 13-15 (K2b, K2c); 'explicit' phases "
@@ -7835,7 +8236,10 @@ def main() -> int:
                              "library built); 'mesh' phases 0, 1 (the closed-form library and "
                              "the ODE Short, transit and README SDE libraries) and 27 (the "
                              "device split over meshes of cuda:0, export_psi, the native "
-                             "reader and the .pkm host). The kernels line then "
+                             "reader and the .pkm host); 'styles' phases 0, 1 (phase 28's "
+                             "libraries) and 28 (vector-style closures, the elementwise set "
+                             "and a state-dependent power on K2a, K2e, K2b, K2c, K2d and K3a). "
+                             "The kernels line then "
                              "holds that part's kernels and the last line says {\"ok\": true, "
                              "\"partial\": ...}, not the whole script's verdict")
     parser.add_argument("--pair", metavar="DIR", default=None,
@@ -7909,9 +8313,22 @@ def main() -> int:
             records = [run_k1c_slice(pt, rng, card)]
         closing_lines(records, card, partial=args.only)
         return 0
+    if args.only == "styles":
+        # the math model's stiff twins run in worker processes while nvcc builds
+        twins = StiffTwins(style_twin_jobs())
+        try:
+            phase_build(pt, {}, {}, {}, only="styles")
+            twins.wait()
+            records = style_records(run_styles(pt, rng, card, twins))
+        finally:
+            twins.stop()
+        closing_lines(records, card, partial="styles")
+        return 0
     stiff = stiff_cases()
-    # the stiff slice's twins run in worker processes while nvcc builds
-    twins = StiffTwins(stiff)
+    # the stiff slice's and phase 28's twins run in worker processes while
+    # nvcc builds
+    twins = StiffTwins(stiff_twin_jobs(stiff) + ([] if args.only == "stiff"
+                                                 else style_twin_jobs() + [SDE_BOUND_JOB]))
     if args.only == "stiff":
         try:
             phase_build(pt, {}, {}, stiff, only="stiff")
@@ -7937,9 +8354,10 @@ def main() -> int:
         export.stop()
 
 
-def run_sde_base(pt, rng, card: str) -> dict:
+def run_sde_base(pt, rng, card: str, twins=None) -> dict:
     """Phases 5-7: K3a's checks (timed, for the cut of its twin), its cell,
-    its times and its bound at full width; K3a's record."""
+    its times and its bound at full width (its twin from ``twins``' worker
+    where given); K3a's record."""
     t0 = time.perf_counter()
     sde_reduced = phase_sde_kernels(pt, rng)
     t_twin = time.perf_counter() - t0
@@ -7953,7 +8371,7 @@ def run_sde_base(pt, rng, card: str) -> dict:
     sde_label, sde, sde_data, sde_launches = phase_sde_slice(pt, rng)
     sde_times = phase_sde_times(pt, sde_label, sde, sde_data, card)
     torch.cuda.synchronize()
-    full_bound = phase_sde_full_bound(pt, sde, sde_data, card)
+    full_bound = phase_sde_full_bound(pt, sde, sde_data, card, twins)
     torch.cuda.synchronize()
     plan = sde_plan_for(sde, sde_data, readme_support(2, np.random.RandomState(SEED + 5)),
                         readme_ems(pt), torch.float64)
@@ -8090,7 +8508,7 @@ def run_all(pt, rng, card, args, expm, ode_features, stiff, twins, export) -> in
     times = phase_times(pt, workloads, ems, card)
     ode_times = phase_ode_times(pt, ode_label, ode, short_data, ems, card)
     torch.cuda.synchronize()
-    sde_record = run_sde_base(pt, rng, card)
+    sde_record = run_sde_base(pt, rng, card, twins)
     cov_label, cov_model, cov_data, cov_ems, cov_launches, cov_build = \
         phase_ode_feature_slice(pt, rng)
     torch.cuda.synchronize()
@@ -8115,6 +8533,7 @@ def run_all(pt, rng, card, args, expm, ode_features, stiff, twins, export) -> in
     # phase 27's trace check again, after every other phase's profilers and
     # CUDA graphs
     mesh_recheck("phases 2-26")
+    styles = run_styles(pt, rng, card, twins, short_data=workloads[0][2])
 
     # times of the float32 runs; float64 beside them; no single PyTorch
     # call computes any of these functions, so library_ms is null
@@ -8127,6 +8546,10 @@ def run_all(pt, rng, card, args, expm, ode_features, stiff, twins, export) -> in
     # (8, 1) call's kernel events in its trace
     for rec in (record, feature_record, ode_record, expm_rec, sde_record, k1c_rec):
         rec["mesh_launches"] = mesh_launches[rec["id"]]
+    # phase 28's numbers on the new headers and the vector-style cells
+    for rec in (ode_record, ode_feature_record, sde_record, expm_rec, *stiff_recs):
+        if rec["id"] in styles:
+            rec["styles"] = styles[rec["id"]]
     closing_lines([record, feature_record, ode_record, ode_feature_record, sde_record, expm_rec,
                    *stiff_recs, sde_feature_rec, k1c_rec], card)
     return 0

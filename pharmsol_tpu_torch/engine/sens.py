@@ -113,9 +113,10 @@ class _Program:
 
 def _traced_rhs(eq, n_params: int):
     """The model's RHS as a traced graph over ``n_params`` parameters (its
-    own when it is a symbolic level already), or None where the generator
-    cannot express the closure (a covariate read, an unsupported operation):
-    the augmented model then differentiates the closure by ``torch.func``."""
+    own when it is a symbolic level already; list-style or vector-style, as
+    the generator takes it), or None where the generator cannot express the
+    closure (a covariate read, an unsupported operation): the augmented
+    model then differentiates the closure by ``torch.func``."""
     from ..errors import PharmsolError
     from ..ops.rhs_codegen import _ODE_ARGS, _sizes, _traced
 
@@ -124,7 +125,7 @@ def _traced_rhs(eq, n_params: int):
         return graph
     args = _sizes(_ODE_ARGS, eq._nstates, n_params, max(eq._ndrugs, 1))
     try:
-        return _traced(eq._diffeq, args, eq._nstates, "RHS", "ODE", ((), ()))
+        return _traced(eq._diffeq, args, eq._nstates, "RHS", "ODE", ((), ()))[0]
     except PharmsolError:
         return None
 

@@ -178,8 +178,9 @@ class _InputPlaneDynamic(PharmsolError):
     """A lag/fa closure is time-dependent or reads a time-varying covariate
     (JAX :527): its value is not one constant per (row, support). Such
     closures need per-dose-segment planes (:func:`_decompose_input_seg_planes`):
-    the ODE plan builds them for kernel K2e; the closed-form kernel's are
-    K1c, not ported yet."""
+    the fused plans catch this and take slot tables of those planes instead
+    (the closed-form plan for kernel K1c, the ODE and SDE plans for K2e and
+    K3b)."""
 
 
 def _decompose_input_plane(fn, sp, grid, ninput: int, fill: float,
@@ -229,15 +230,14 @@ def _decompose_input_planes(fn, sp, grid, ninput: int, fill: float,
     scale = np.maximum(np.abs(v_ref).max(), 1e-12)
     if np.abs(v_t - v_ref).max() > 1e-9 * scale:
         raise _InputPlaneDynamic(
-            f"engine='fused' requires a time-independent {what} equation (the "
-            "engine evaluates it at each bolus's own time; per-dose planes are "
-            "kernel K1c, not ported) — use the general engine"
+            f"the {what} equation changes with time (the engine evaluates it at "
+            "each bolus's own time): no static plane; the fused plans take "
+            "per-dose planes and slot tables"
         )
     if varying and np.abs(v_var - v_ref).max() > 1e-9 * scale:
         raise _InputPlaneDynamic(
-            f"engine='fused' requires the {what} equation not to read a "
-            "time-varying covariate (per-dose planes are kernel K1c, not "
-            "ported) — use the general engine"
+            f"the {what} equation reads a time-varying covariate: no static "
+            "plane; the fused plans take per-dose planes and slot tables"
         )
     if not np.all(np.isfinite(v_ref)):
         raise PharmsolError(f"engine='fused' {what} probe produced non-finite values")

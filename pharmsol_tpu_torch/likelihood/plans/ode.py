@@ -30,10 +30,14 @@ per support, or planes per (row, support) when it reads a covariate); lag
 and fa (static planes, or per-dose-segment planes selected by slot tables
 when they change with time or read a time-varying covariate). Out of scope,
 raising PharmsolError with the JAX plan's reason so that ``engine='auto'``
-takes the general engine and records why: an RHS without a Jacobian rule
-(``p ** x``) under a solver that needs one, a covariate knot inside a segment, a lag that does not elapse before the input's next dose,
-a negative lag, an ``out`` that reads a covariate, and RHS styles the
-generator rejects.
+takes the general engine and records why: an RHS with an operation that has
+no Jacobian rule under a solver that needs one, a covariate knot inside a
+segment, a lag that does not elapse before the input's next dose,
+a negative lag, an ``out`` that reads a covariate, and closures the
+generator rejects. The RHS is taken list-style or, where that fails on
+lists, vector-style (``torch.zeros_like(x)``, writes with static indices,
+whole-vector arithmetic), as the JAX plan's lane-then-stacked retry; the
+host probes call it in that style.
 """
 
 from __future__ import annotations
@@ -225,14 +229,15 @@ def _lag_fa_planes(equation, sp, grid, ninput: int, bolus_inputs, bol, seg_t0):
     return lag_planes, fa_planes, lag_slots, fa_slots
 
 
-def _check_expm_rhs(diffeq, sp, n_states: int, ninput: int, rate_inputs, cov_values):
+def _check_expm_rhs(rhs, sp, n_states: int, ninput: int, rate_inputs, cov_values):
     """The contracts of the exact propagation tier (JAX :274-337), checked
     once on the host in float64 over every support: the RHS is affine in the
     state (a superposition probe) and autonomous (a probe at two times),
     under both covariate probes and every rate probe. The kernel trusts
     them; the general engine checks them at run time and poisons the lane.
+    ``rhs`` is the model's GeneratedRhs: its closure is called in its style.
     Raises PharmsolError naming the probe that failed."""
-    from ...engine.sim import as_components
+    from ...ops.fused_ode import call_rhs
 
     S = sp.shape[0]
     p_lanes = list(_t64(sp).t())
@@ -248,10 +253,10 @@ def _check_expm_rhs(diffeq, sp, n_states: int, ninput: int, rate_inputs, cov_val
     zero = torch.zeros(S, dtype=torch.float64)
 
     def ev(x, t, covd, rv):
-        out = diffeq([zero + float(v) for v in x], p_lanes, zero + t, [zero] * ninput,
-                     [zero + float(v) for v in rv], _RowCov(covd))
-        return torch.stack(as_components(out, n_states, (S,), torch.float64, zero.device),
-                           dim=1).numpy()
+        out = call_rhs(rhs, [zero + float(v) for v in x], p_lanes, zero + t, [zero] * ninput,
+                       [zero + float(v) for v in rv], _RowCov(covd), (S,), torch.float64,
+                       zero.device)
+        return torch.stack(out, dim=1).numpy()
 
     try:
         for covd in (cov0, cov1):
@@ -327,7 +332,8 @@ class _FusedOdePsiPlan(RowSplit):
 
         # the kernel's RHS, generated once per (support width, inputs,
         # covariates): PharmsolError here is the plan-time rejection of an
-        # RHS style
+        # RHS the generator cannot express in either style (lanes, then
+        # vector-style code: ``self.rhs.style``, JAX ``rhs_style``)
         # with expm or an implicit solver, also its Jacobian columns
         # (rhs_jvp): part of the key
         key = (int(sp.shape[1]), ninput, self.cov_names, self.cov_modes, need_jac)
@@ -338,8 +344,7 @@ class _FusedOdePsiPlan(RowSplit):
                                     jacobian=need_jac)
             equation._rhs_cache[key] = self.rhs
         if use_expm:
-            _check_expm_rhs(equation._diffeq, sp, n_states, ninput, self.rate_inputs,
-                            cov_values)
+            _check_expm_rhs(self.rhs, sp, n_states, ninput, self.rate_inputs, cov_values)
         if grid.cov_names and equation._out is not None:
             _check_out_covariate_free(equation, sp, cov_values, n_states)
 

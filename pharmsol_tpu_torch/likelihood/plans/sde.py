@@ -25,7 +25,11 @@ resampling (and ``noise='common'`` is not honoured: the kernel draws per
 cell, as the JAX kernel), a covariate knot inside a segment, a lag that
 reaches the input's next dose, a negative lag, an ``out`` that reads a
 covariate, drift or diffusion styles the generator rejects, and particle
-counts the kernel's shared memory cannot hold.
+counts the kernel's shared memory cannot hold. The drift and diffusion take
+the generator's elementwise set (``tanh``, ``log1p``, ``erf``, ...) and must
+be list-style: the plan refuses vector-style code (``torch.zeros_like``,
+writes, whole-vector arithmetic), as the JAX plan, which traces lane shims
+only (:238-270), and the twin calls them with lists of lanes.
 """
 
 from __future__ import annotations

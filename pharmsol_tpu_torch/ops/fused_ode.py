@@ -16,8 +16,10 @@ breakpoints of a merged run with dense output instead of stopping there.
   (covariate lanes through :class:`LaneCov`, init, the lag/fa split march
   with slot tables, :1614-1807) in plain PyTorch on ``[R, S]`` lanes, with a
   masked loop that ends when every lane is done. It calls the user's closure
-  directly. The CPU tests hold it against the JAX kernel in interpret mode;
-  ``chip_smoke.py`` holds the CUDA kernel against it on the card.
+  directly, in the style the generator found (:func:`call_rhs`: lists of
+  lanes, or vector-style code under ``vmap``). The CPU tests hold it
+  against the JAX kernel in interpret mode; ``chip_smoke.py`` holds the CUDA
+  kernel against it on the card.
 
 What the march does, as the JAX kernel: the I-controller with growth clamped
 to [0.2, 5]; the Hairer-Norsett-Wanner starting step on the first run (with
@@ -501,6 +503,44 @@ def _check_inputs(seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value,
     return n_out, runs, feats
 
 
+def call_rhs(rhs, xs, p, t, b, rate, cov, shape, dtype, device) -> list:
+    """The closure of ``rhs`` (a :class:`~.rhs_codegen.GeneratedRhs`) on lanes
+    of ``shape``, called in its style: ``xs``, ``p``, ``b`` and ``rate`` are
+    lists of per-state, per-parameter and per-input lanes (tensors that
+    broadcast to ``shape``, or numbers), ``t`` a lane, ``cov`` the covariate
+    argument. A ``"lanes"`` closure takes the lists as they are. A
+    ``"stacked"`` one (vector-style code, JAX ``make_stacked_rhs``,
+    ops/pallas_ode.py:495) is called under ``torch.func.vmap`` over the
+    lanes with vectors of one lane, as the general engine calls it, so its
+    reductions sum the states of a lane (JAX's ``[n, rows, sp]`` arrays sum
+    across lanes too); a :class:`~.rhs_codegen.LaneCov` argument's lanes are
+    mapped with it. Returns ``n_states`` lanes of ``shape``."""
+    from ..engine.sim import as_components, as_vector
+
+    N = rhs.n_states
+    if rhs.style == "lanes":
+        return as_components(rhs.diffeq(list(xs), list(p), t, list(b), list(rate), cov),
+                             N, shape, dtype, device)
+    L = math.prod(shape)
+
+    def flat(v):
+        return torch.as_tensor(v, dtype=dtype, device=device).expand(shape).reshape(L)
+
+    def stack(vs):
+        return torch.stack([flat(v) for v in vs], dim=1)  # [L, n]
+
+    lanes = cov._values if isinstance(cov, LaneCov) else {}
+    cov_lanes = {k: tuple(flat(u) for u in v) if isinstance(v, tuple) else flat(v)
+                 for k, v in lanes.items()}
+
+    def one(x, pp, tt, bb, rr, cv):
+        out = rhs.diffeq(x, pp, tt, bb, rr, LaneCov(cv) if lanes else cov)
+        return as_vector(out, x).reshape(N)
+
+    out = torch.func.vmap(one)(stack(xs), stack(p), flat(t), stack(b), stack(rate), cov_lanes)
+    return list(out.t().reshape((N,) + tuple(shape)).unbind(0))
+
+
 # ---------------------------------------------------------------------------
 # The plain twin
 # ---------------------------------------------------------------------------
@@ -528,8 +568,6 @@ def psi_ode_plain(
     ``solver='expm'``, of exact propagations (``"passes"``) and of the
     squarings they took (``"squarings"``): the work this data needs, for the
     kernel's bound."""
-    from ..engine.sim import as_components
-
     n_out, runs, ft = _check_inputs(
         seg_dt, seg_bolus, seg_rateiv, obs_mask, obs_value, obs_sigma,
         obs_cens, seg_t0, support, rhs, obs_outeq, out_coef, out_bias,
@@ -553,7 +591,6 @@ def psi_ode_plain(
     coefs = [[out_coef[k, i].reshape(1, S) for i in range(N)] for k in range(n_out)]
     biases = ([out_bias[k].reshape(1, S) for k in range(n_out)]
               if out_bias is not None else None)
-    diffeq = rhs.diffeq
     has_lag = ft.lag is not None
 
     # covariate lanes: per-row constants once, affine (a, b) per segment
@@ -570,8 +607,7 @@ def psi_ode_plain(
         bl = [zeros] * nin
         if b is not None:
             bl[b[0]] = b[1]
-        out = diffeq(list(xs), p_lanes, t.expand(shape), bl, rate, cov)
-        return as_components(out, N, shape, dtype, dev)
+        return call_rhs(rhs, xs, p_lanes, t.expand(shape), bl, rate, cov, shape, dtype, dev)
 
     def dose(xs, j, amt, t, rate, cov):
         """The RHS difference (ode/mod.rs:644-687), as the general engine."""

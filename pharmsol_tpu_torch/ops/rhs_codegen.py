@@ -11,26 +11,55 @@ function, which the kernel's build includes:
                                         const T* b, const T* rateiv,
                                         const T* cov_a, const T* cov_b, T* dx);
 
-It is the counterpart of two pieces of the JAX package: the lane shim
+It is the counterpart of three pieces of the JAX package: the lane shim
 ``ops/pallas_ode.py::make_lane_rhs`` (which traced the closure straight into
-the TPU kernel) and the plan-time probe kernel
-``likelihood/plans/ode.py::_probe_kernel`` (which rejected RHS styles the TPU
-compiler could not lower). Here acceptance is the generator's own job: what
-it cannot express raises :class:`~pharmsol_tpu_torch.errors.PharmsolError`
-with the reason at plan time, and ``engine='auto'`` then takes the general
-engine and records why.
+the TPU kernel), its stacked-array fallback ``make_stacked_rhs`` (:495) and
+the plan-time probe kernel ``likelihood/plans/ode.py::_probe_kernel`` (which
+rejected RHS styles the TPU compiler could not lower). Here acceptance is the
+generator's own job: what it cannot express raises
+:class:`~pharmsol_tpu_torch.errors.PharmsolError` with the reason at plan
+time, and ``engine='auto'`` then takes the general engine and records why.
 
-Supported: ``+ - * /``, unary ``-``, ``**``, ``torch.exp``, ``torch.log``,
-``torch.sqrt``, ``torch.abs``/``abs``, ``torch.floor``, ``torch.ceil``,
-``torch.round`` (half to even), ``torch.sin``, ``torch.cos``, ``torch.tan``,
-``torch.log10``, ``torch.log2`` (the DSL's intrinsics), ``torch.minimum``, ``torch.maximum``,
+Two closure styles, tried in the JAX plan's order (:412-460):
+
+- ``"lanes"``: the closure's vectors are lists of per-state scalars (static
+  integer indexing, slicing, iteration) and its result a list, a tuple or
+  ``torch.stack([...])``. Every model that traces so keeps this style, its
+  header and its key; the fused twins call it with lists of lanes.
+- ``"stacked"``, only where the closure fails on lists: its vectors are
+  value vectors, as a 1-D tensor is: ``torch.zeros_like`` / ``ones_like`` /
+  ``full_like``, ``torch.zeros(n)`` / ``ones(n)``, constant 1-D tensors,
+  ``v[i] = e``, ``v[i] += e`` and slice assignment with static indices,
+  slicing, elementwise arithmetic between a vector and a scalar or vectors
+  of one length (another length raises), the unary functions below
+  elementwise, ``torch.cat`` of vectors, ``torch.stack`` of scalars and
+  ``sum`` over the state axis. The trace stays functional: a write makes
+  a new item, and an add of 0, a product with 1 where a write lands on a
+  vector ``zeros_like`` or ``ones_like`` made is folded, so a vector-style
+  spelling traces to the graph, header and key of its list-style spelling.
+  The twins call such a closure under ``torch.func.vmap`` over the lanes, as
+  the general engine does, so a reduction sums the states of one lane (the
+  JAX ``make_stacked_rhs`` hands ``[n, rows, sp]`` arrays, and its
+  ``x.sum()`` sums across lanes too). A write of a traced value into a
+  tensor no argument batches (``torch.zeros(n)``, ``torch.tensor``) is
+  refused: ``vmap`` cannot run it.
+
+Operations: ``+ - * /``, unary ``-``, ``**`` (also with an exponent that
+depends on the state), ``torch.exp``, ``torch.log``, ``torch.sqrt``,
+``torch.abs``/``abs``, ``torch.floor``, ``torch.ceil``, ``torch.round`` (half
+to even), ``torch.sin``, ``torch.cos``, ``torch.tan``, ``torch.log10``,
+``torch.log2`` (the DSL's intrinsics), ``torch.tanh``, ``sinh``, ``cosh``,
+``asin``, ``acos``, ``atan``, ``atan2``, ``sigmoid``, ``log1p``, ``expm1``,
+``erf``, ``erfc``, ``square``, ``rsqrt``, ``reciprocal``, ``sign`` (and their
+``torch.special`` and ``arc*`` names), ``torch.minimum``, ``torch.maximum``,
 ``torch.clamp``, ``torch.where`` with comparisons (and ``& | ~`` on them),
 Python float constants, static integer indexing ``x[i]``, ``p[i]``,
-``b[j]``, ``rateiv[j]``, covariate reads ``cov(name, t)`` of the covariates
-the generator is given, and a result built with ``torch.stack([...])`` or
-returned as a list or tuple. Rejected: a Python ``if`` (or ``min``/``max``,
-``and``/``or``) on a traced value, in-place writes into a tensor, reads of an
-unknown covariate, whole-vector arithmetic and any other operation.
+``b[j]``, ``rateiv[j]`` and covariate reads ``cov(name, t)`` of the
+covariates the generator is given. Rejected: a Python ``if`` (or
+``min``/``max``, ``and``/``or``) on a traced value, a conversion of one to a
+Python number (``float``, ``math.*``), data-dependent indexing, writes into
+the closure's own arguments, reads of an unknown covariate and any other
+operation.
 
 Covariates (the counterpart of the JAX kernel's ``LaneCov``,
 ``ops/pallas_ode.py:417``): the kernel hands the RHS two arrays, ``cov_a``
@@ -80,8 +109,9 @@ rhs's values, and where no covariate has a slope ``pre`` does not depend on
 ``t``: the kernel computes it once per run and keeps it in registers.
 
 After tracing, the recorded graph is evaluated in float64 on random inputs
-and held against the closure itself, so a closure that behaves differently
-under tracing is rejected too. Nothing here needs a compiler or a card.
+and held against the closure itself (a stacked closure under ``vmap``, as
+the twins call it), so a closure that behaves differently under tracing is
+rejected too. Nothing here needs a compiler or a card.
 """
 
 from __future__ import annotations
@@ -109,6 +139,7 @@ class GeneratedRhs(NamedTuple):
     cov_modes: tuple = ()  # "const" or "affine" per covariate
     jacobian: bool = False  # the header also holds rhs_jvp
     n_pre: int = 0  # covariate-only terms of rhs_pre / rhs_body (0: rhs alone)
+    style: str = "lanes"  # "lanes" (lists of per-state lanes) or "stacked" (vectors)
 
 
 class GeneratedSde(NamedTuple):
@@ -136,17 +167,28 @@ _BOOL_OPS = {"and": "&&", "or": "||"}
 _ARITH = {"add": "+", "sub": "-", "mul": "*", "div": "/"}
 
 
+class _VectorStyle(PharmsolError):
+    """The closure uses vector-style code, which the lane tracer does not
+    take: the ODE generator traces it again with value vectors."""
+
+
+# whether the trace runs with value vectors (the "stacked" style)
+_VALUE_VECTORS = False
+
+
 class Sym:
     """One scalar of the traced RHS: a leaf (state, parameter, time, bolus,
-    rate, constant) or an operation on other Syms."""
+    rate, constant) or an operation on other Syms. ``fill`` marks a constant
+    that ``zeros_like`` and the like made, which arithmetic folds away."""
 
-    __slots__ = ("op", "args", "value", "is_bool")
+    __slots__ = ("op", "args", "value", "is_bool", "fill")
 
-    def __init__(self, op, args=(), value=None, is_bool=False):
+    def __init__(self, op, args=(), value=None, is_bool=False, fill=False):
         self.op = op
         self.args = tuple(args)
         self.value = value
         self.is_bool = is_bool
+        self.fill = fill
 
     # -- dispatch of torch functions ------------------------------------------
     @classmethod
@@ -252,36 +294,91 @@ class Sym:
         return f"Sym({self.op})"
 
 
-class SymVec:
-    """A traced vector (``x``, ``p``, ``b``, ``rateiv`` or a stacked result):
-    static integer indexing and slicing only."""
+_UNBATCHED_WRITE = (
+    "the RHS writes a traced value in place into a tensor that no argument of "
+    "the closure batches (torch.zeros(n), torch.tensor): the engines call the "
+    "closure under vmap, which cannot; start from torch.zeros_like(x)")
 
-    def __init__(self, items, name: str = "vector"):
+
+def _lanes_only(what: str):
+    """Refuse vector-style code under the lane tracer (the ODE generator then
+    traces the closure again with value vectors)."""
+    if not _VALUE_VECTORS:
+        raise _VectorStyle(f"the RHS {what}")
+
+
+class SymVec:
+    """A traced vector (``x``, ``p``, ``b``, ``rateiv``, a stacked result or,
+    in the stacked style, any vector the closure makes). Under the lane
+    tracer it takes what a list takes: static integer indexing, slicing,
+    iteration. Under the value-vector tracer it is a 1-D tensor of Syms:
+    writes with static indices (not into the closure's own arguments, the
+    ``readonly`` ones), elementwise arithmetic and functions, ``sum`` over
+    its one axis. ``batched`` says whether ``vmap`` over the lanes batches
+    it: the arguments and whatever derives from them do; ``torch.zeros(n)``
+    does not, and a traced value cannot be written into it."""
+
+    def __init__(self, items, name: str = "vector", batched: bool = True,
+                 readonly: bool = False):
         self._items = list(items)
         self._name = name
+        self._batched = batched
+        self._readonly = readonly
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
         return _torch_op(func, args, kwargs or {})
 
-    def __getitem__(self, idx):
+    def _index(self, idx) -> list:
+        """The static positions ``idx`` selects, or an int for one item."""
+        n = len(self._items)
         if isinstance(idx, slice):
-            return SymVec(self._items[idx], self._name)
+            return list(range(n))[idx]
         if isinstance(idx, (int, np.integer)) and not isinstance(idx, bool):
-            n = len(self._items)
             if not -n <= idx < n:
                 raise PharmsolError(
                     f"the RHS reads {self._name}[{idx}], out of range "
                     f"({n} entries)"
                 )
-            return self._items[idx]
+            return int(idx) % n
         raise PharmsolError(
             f"the RHS indexes {self._name} with a {type(idx).__name__}: "
-            "only static integer indices are supported"
+            "only static integer indices are supported (no data-dependent "
+            "indexing)"
         )
 
+    def __getitem__(self, idx):
+        at = self._index(idx)
+        if isinstance(at, int):
+            return self._items[at]
+        return SymVec([self._items[i] for i in at], self._name, self._batched)
+
     def __setitem__(self, idx, value):
-        raise PharmsolError(f"the RHS writes in place into {self._name}")
+        _lanes_only(f"writes in place into {self._name}")
+        if self._readonly:
+            raise PharmsolError(
+                f"the RHS writes in place into its argument {self._name}: "
+                f"write into a copy (torch.zeros_like({self._name}))")
+        at = self._index(idx)
+        if isinstance(at, int):
+            vals = _items_of(value)
+            if vals is not None and len(vals) != 1:
+                raise PharmsolError(
+                    f"the RHS writes {len(vals)} values into one entry of {self._name}")
+            new = {at: _num(vals[0] if vals is not None else value)}
+        else:
+            vals = _items_of(value)
+            if vals is None:
+                vals = [value] * len(at)
+            if len(vals) != len(at):
+                raise PharmsolError(
+                    f"the RHS writes {len(vals)} values into {len(at)} entries of "
+                    f"{self._name} (vectors of different lengths)")
+            new = {i: _num(v) for i, v in zip(at, vals)}
+        if not self._batched and any(v.op != "const" for v in new.values()):
+            raise PharmsolError(_UNBATCHED_WRITE)
+        for i, v in new.items():
+            self._items[i] = v
 
     def __len__(self):
         return len(self._items)
@@ -290,17 +387,127 @@ class SymVec:
         return iter(self._items)
 
     def _vector_arith(self, *_):
-        raise PharmsolError(
+        raise _VectorStyle(
             f"the RHS does whole-vector arithmetic on {self._name}: write "
             "each component with static indices and torch.stack them"
         )
 
-    __add__ = __radd__ = __sub__ = __rsub__ = __mul__ = __rmul__ = _vector_arith
-    __truediv__ = __rtruediv__ = __neg__ = __pow__ = _vector_arith
+    def _binary(op, reflected=False):
+        def method(self, o):
+            if not _VALUE_VECTORS:
+                self._vector_arith()
+            a, b = (o, self) if reflected else (self, o)
+            return _pow(a, b) if op == "pow" else _arith(op, a, b)
+        return method
+
+    __add__, __radd__ = _binary("add"), _binary("add", True)
+    __sub__, __rsub__ = _binary("sub"), _binary("sub", True)
+    __mul__, __rmul__ = _binary("mul"), _binary("mul", True)
+    __truediv__, __rtruediv__ = _binary("div"), _binary("div", True)
+    __pow__, __rpow__ = _binary("pow"), _binary("pow", True)
+    del _binary
+
+    def __neg__(self):
+        if not _VALUE_VECTORS:
+            self._vector_arith()
+        return _elementwise(lambda u: Sym("neg", (_num(u),)), self)
+
+    def __pos__(self):
+        return self
+
+    def __abs__(self):
+        return _torch_op(torch.abs, (self,), {})
+
+    def _compare(op):
+        def method(self, o):
+            _lanes_only(f"compares {self._name} as a vector")
+            return _cmp(op, self, o)
+        return method
+
+    __lt__, __le__, __gt__ = _compare("lt"), _compare("le"), _compare("gt")
+    __ge__, __eq__, __ne__ = _compare("ge"), _compare("eq"), _compare("ne")
+    __hash__ = object.__hash__
+    del _compare
+
+    def sum(self, dim=None, keepdim=False, dtype=None):
+        _lanes_only(f"sums {self._name}")
+        if dim not in (None, 0, -1, (0,), (-1,)) or keepdim:
+            raise PharmsolError(
+                f"the RHS sums {self._name} over dim={dim} (keepdim={keepdim}): "
+                "only the state axis (dim 0) is summed")
+        if not self._items:
+            return _const(0.0)
+        acc = self._items[0]
+        for v in self._items[1:]:
+            acc = _arith("add", acc, v)
+        return _num(acc)
+
+    # what vector code reads of a tensor (x.shape[0], dtype=x.dtype, ...)
+    @property
+    def shape(self):
+        _lanes_only(f"reads the shape of {self._name}")
+        return torch.Size([len(self._items)])
+
+    @property
+    def dtype(self):
+        _lanes_only(f"reads the dtype of {self._name}")
+        return torch.float64
+
+    @property
+    def device(self):
+        _lanes_only(f"reads the device of {self._name}")
+        return torch.device("cpu")
+
+    def __repr__(self):
+        return f"SymVec({self._name}, {len(self._items)})"
 
 
 def _const(v) -> Sym:
     return Sym("const", value=float(v))
+
+
+def _fill(v) -> Sym:
+    return Sym("const", value=float(v), fill=True)
+
+
+def _items_of(v):
+    """The items of a vector operand (a SymVec, a 1-D constant tensor, a list
+    or tuple in the stacked style), or None for a scalar."""
+    if isinstance(v, SymVec):
+        return v._items
+    if isinstance(v, torch.Tensor) and v.dim() == 1 and not v.requires_grad:
+        return [_const(c) for c in v.tolist()]
+    if isinstance(v, (list, tuple)) and _VALUE_VECTORS:
+        return list(v)
+    return None
+
+
+def _is_vector(v) -> bool:
+    return (isinstance(v, SymVec)
+            or (isinstance(v, torch.Tensor) and v.dim() == 1 and not v.requires_grad))
+
+
+def _is_batched(v) -> bool:
+    if isinstance(v, SymVec):
+        return v._batched
+    return isinstance(v, Sym) and not v.args and v.op not in ("const", "bconst")
+
+
+def _elementwise(fn, *args):
+    """``fn`` of scalars applied item by item where an argument is a vector
+    (scalars broadcast; vectors must have one length)."""
+    if not any(_is_vector(a) for a in args):
+        return fn(*args)
+    _lanes_only("does elementwise arithmetic on a vector")
+    items = [_items_of(a) if _is_vector(a) else None for a in args]
+    lengths = sorted({len(v) for v in items if v is not None})
+    if len(lengths) > 1:
+        raise PharmsolError(
+            f"the RHS combines vectors of lengths {lengths} elementwise")
+    out = [fn(*[v[i] if v is not None else a for v, a in zip(items, args)])
+           for i in range(lengths[0])]
+    batched = any(_is_batched(a) or (isinstance(a, Sym) and a.args) for a in args)
+    return SymVec(out, "a vector", batched=batched)
 
 
 def _num(v) -> Sym:
@@ -314,7 +521,9 @@ def _num(v) -> Sym:
     if isinstance(v, torch.Tensor) and v.dim() == 0 and not v.requires_grad:
         return _const(v.item())
     if isinstance(v, SymVec):
-        v._vector_arith()
+        if not _VALUE_VECTORS:
+            v._vector_arith()
+        raise PharmsolError(f"the RHS uses the vector {v._name} where a scalar is needed")
     raise PharmsolError(f"the RHS combines a traced value with a {type(v).__name__}")
 
 
@@ -326,16 +535,42 @@ def _as_bool(v) -> Sym:
     raise PharmsolError("a logical operator (& | ~) on a non-comparison")
 
 
-def _arith(op, a, b) -> Sym:
-    return Sym(op, (_num(a), _num(b)))
+def _is_fill(v, value: float) -> bool:
+    return isinstance(v, Sym) and v.fill and v.value == value
 
 
-def _pow(a, b) -> Sym:
-    return Sym("pow", (_num(a), _num(b)))
+def _fold(op, a: Sym, b: Sym):
+    """``a op b`` where one side is a fill that leaves the other unchanged,
+    ``0 + e``, ``e + 0``, ``1 * e``, ``e * 1`` (a write onto a vector
+    zeros_like or ones_like made), else None."""
+    if op == "add":
+        if _is_fill(a, 0.0):
+            return b
+        if _is_fill(b, 0.0):
+            return a
+    elif op == "mul":
+        if _is_fill(a, 1.0):
+            return b
+        if _is_fill(b, 1.0):
+            return a
+    return None
 
 
-def _cmp(op, a, b) -> Sym:
-    return Sym(op, (_num(a), _num(b)), is_bool=True)
+def _arith(op, a, b):
+    def scalar(u, w):
+        u, w = _num(u), _num(w)
+        folded = _fold(op, u, w)
+        return Sym(op, (u, w)) if folded is None else folded
+
+    return _elementwise(scalar, a, b)
+
+
+def _pow(a, b):
+    return _elementwise(lambda u, w: Sym("pow", (_num(u), _num(w))), a, b)
+
+
+def _cmp(op, a, b):
+    return _elementwise(lambda u, w: Sym(op, (_num(u), _num(w)), is_bool=True), a, b)
 
 
 def _logic(op, a, b) -> Sym:
@@ -346,43 +581,158 @@ def _logic(op, a, b) -> Sym:
 _UNARY_FUNCS = {"exp": torch.exp, "log": torch.log, "sqrt": torch.sqrt, "abs": torch.abs,
                 "floor": torch.floor, "ceil": torch.ceil, "round": torch.round,
                 "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
-                "log10": torch.log10, "log2": torch.log2}
+                "log10": torch.log10, "log2": torch.log2,
+                "tanh": torch.tanh, "sinh": torch.sinh, "cosh": torch.cosh,
+                "asin": torch.asin, "acos": torch.acos, "atan": torch.atan,
+                "sigmoid": torch.sigmoid, "log1p": torch.log1p, "expm1": torch.expm1,
+                "erf": torch.erf, "erfc": torch.erfc, "square": torch.square,
+                "rsqrt": torch.rsqrt, "reciprocal": torch.reciprocal, "sign": torch.sign}
+# binary torch functions beyond + - * / ** (the Sym op name of each)
+_BINARY_FUNCS = {"atan2": torch.atan2, "min": torch.minimum, "max": torch.maximum}
+# the same functions under their other torch names
+_ALIASES = {torch.arcsin: "asin", torch.arccos: "acos", torch.arctan: "atan",
+            torch.arctan2: "atan2", torch.special.expit: "sigmoid",
+            torch.special.erf: "erf", torch.special.erfc: "erfc",
+            torch.special.expm1: "expm1", torch.special.log1p: "log1p",
+            torch.negative: "neg", torch.neg: "neg"}
+# Tensor-method and torch-function names of + - * / ** and the comparisons
+# (a tensor operand dispatches to the traced one under these names);
+# reflected ones swap their operands
+_ARITH_NAMES = {"add": "add", "sub": "sub", "mul": "mul", "div": "div", "pow": "pow",
+                "__radd__": "radd", "__rsub__": "rsub", "__rmul__": "rmul",
+                "__rdiv__": "rdiv", "__rtruediv__": "rdiv", "__rpow__": "rpow"}
+_CMP_NAMES = {"lt", "le", "gt", "ge", "eq", "ne"}
+
+
+def _unary_op_of(func):
+    """The Sym op name of a unary torch function or Tensor method, or None."""
+    if func in _ALIASES and _ALIASES[func] not in _BINARY_FUNCS:
+        return _ALIASES[func]
+    name = getattr(func, "__name__", None)
+    if name in _UNARY_FUNCS and (func is _UNARY_FUNCS[name]
+                                 or func is getattr(torch.Tensor, name, None)):
+        return name
+    return None
+
+
+def _vector_of(seq, what: str) -> SymVec:
+    """``torch.stack`` of scalars (a SymVec of them)."""
+    items = [_num(v) for v in seq]
+    return SymVec(items, what, batched=any(v.op != "const" for v in items))
+
+
+def _made(func, args, kwargs):
+    """A vector ``torch.zeros(n)`` or ``ones(n)`` makes under the
+    value-vector tracer (a SymVec no argument batches), or None for anything
+    else (which then runs as it is)."""
+    if func not in (torch.zeros, torch.ones) or len(args) > 1:
+        return None  # torch.zeros(2, 3): not a vector
+    size = args[0] if args else kwargs.get("size")
+    if isinstance(size, (list, tuple, torch.Size)) and len(size) == 1:
+        size = size[0]
+    if not isinstance(size, (int, np.integer)) or isinstance(size, bool):
+        return None
+    return SymVec([_fill(0.0 if func is torch.zeros else 1.0) for _ in range(int(size))],
+                  "a tensor torch made", batched=False)
+
+
+def _holds_traced(v) -> bool:
+    if isinstance(v, (Sym, SymVec)):
+        return True
+    if isinstance(v, (list, tuple)):
+        return any(_holds_traced(u) for u in v)
+    return False
+
+
+class _ValueVectors(torch.overrides.TorchFunctionMode):
+    """The value-vector tracer's view of torch: a call that reads a traced
+    value goes to :func:`_torch_op`; ``torch.zeros(n)`` and the like make
+    SymVecs (so that writes into them are traced); the rest runs."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if _holds_traced(args) or _holds_traced(list(kwargs.values())):
+            return _torch_op(func, args, kwargs)
+        made = _made(func, args, kwargs)
+        return made if made is not None else func(*args, **kwargs)
 
 
 def _torch_op(func, args, kwargs):
     name = getattr(func, "__name__", str(func))
-    if name in _UNARY_FUNCS and func is _UNARY_FUNCS[name]:
+    kwargs = {k: v for k, v in kwargs.items() if k not in ("dtype", "device", "out")
+              or (k == "out" and v is not None)}
+    op = _unary_op_of(func)
+    if op is not None:
         if kwargs or len(args) != 1:
             raise PharmsolError(f"torch.{name} takes one argument in the RHS")
         (a,) = args
-        return Sym(name, (_num(a),))
-    if func is torch.minimum or func is torch.maximum:
+        return _elementwise(lambda u: Sym(op, (_num(u),)), a)
+    binary = _ALIASES.get(func) or next(
+        (op for op, f in _BINARY_FUNCS.items() if f is func), None)
+    if binary is not None:
         a, b = args
-        return Sym("min" if func is torch.minimum else "max", (_num(a), _num(b)))
+        return _elementwise(lambda u, w: Sym(binary, (_num(u), _num(w))), a, b)
+    if name in _ARITH_NAMES and len(args) == 2 and not kwargs:
+        op = _ARITH_NAMES[name]
+        a, b = args
+        if op.startswith("r"):
+            op, a, b = op[1:], b, a
+        return _pow(a, b) if op == "pow" else _arith(op, a, b)
+    if name in _CMP_NAMES and len(args) == 2 and not kwargs:
+        return _cmp(name, *args)
     if func is torch.clamp:
-        a = _num(args[0])
+        a = args[0]
         lo = kwargs.get("min", args[1] if len(args) > 1 else None)
         hi = kwargs.get("max", args[2] if len(args) > 2 else None)
         if lo is not None:
-            a = Sym("max", (a, _num(lo)))
+            a = _elementwise(lambda u, w: Sym("max", (_num(u), _num(w))), a, lo)
         if hi is not None:
-            a = Sym("min", (a, _num(hi)))
+            a = _elementwise(lambda u, w: Sym("min", (_num(u), _num(w))), a, hi)
         return a
     if func is torch.where:
         if len(args) != 3:
             raise PharmsolError("torch.where needs (condition, a, b)")
-        c, a, b = args
-        return Sym("where", (_as_bool(c), _num(a), _num(b)))
-    if func is torch.pow:
-        a, b = args
-        return _pow(a, b)
+        return _elementwise(lambda c, u, w: Sym("where", (_as_bool(c), _num(u), _num(w))),
+                            *args)
     if func is torch.stack:
         seq = args[0]
         if args[1:] or kwargs.get("dim", 0) != 0:
             raise PharmsolError("torch.stack of the RHS result must stack along dim 0")
-        return SymVec([_num(v) for v in seq], "the result")
+        if any(_is_vector(v) for v in seq):
+            raise PharmsolError("the RHS stacks vectors into a matrix: torch.cat them")
+        return _vector_of(seq, "the result")
+    if func in (torch.zeros_like, torch.ones_like, torch.full_like):
+        (a, *rest) = args
+        _lanes_only(f"uses `{name}`")
+        value = {torch.zeros_like: 0.0, torch.ones_like: 1.0}.get(func)
+        if value is None:
+            value = rest[0] if rest else kwargs.get("fill_value")
+            if not isinstance(value, (int, float, np.integer, np.floating)):
+                raise PharmsolError("torch.full_like in the RHS takes a Python number")
+        if isinstance(a, Sym):
+            return _fill(value)
+        return SymVec([_fill(value) for _ in a], "a vector", batched=a._batched)
+    if func is torch.cat:
+        _lanes_only(f"uses `{name}`")
+        if args[1:] or kwargs.get("dim", kwargs.get("axis", 0)) not in (0, -1):
+            raise PharmsolError("torch.cat in the RHS joins vectors along dim 0")
+        items, batched = [], False
+        for v in args[0]:
+            got = _items_of(v) if _is_vector(v) else None
+            if got is None:
+                raise PharmsolError("torch.cat in the RHS joins vectors, not scalars")
+            items += got
+            batched = batched or _is_batched(v)
+        return SymVec(items, "a vector", batched=batched)
+    if func is torch.sum or name == "sum":
+        a, *rest = args
+        if not isinstance(a, SymVec):
+            raise PharmsolError("the RHS sums a scalar")
+        return a.sum(*rest, **kwargs)
     if name in ("__setitem__", "index_put_", "copy_") or name.endswith("_"):
-        raise PharmsolError(f"the RHS writes in place into a tensor (`{name}`)")
+        if _VALUE_VECTORS:
+            raise PharmsolError(_UNBATCHED_WRITE)
+        raise _VectorStyle(f"the RHS writes in place into a tensor (`{name}`)")
     raise PharmsolError(f"the RHS uses `{name}`, which the CUDA generator does not support")
 
 
@@ -452,22 +802,33 @@ def _sizes(args, n_states, n_params, ninput):
     return tuple((name, dims[size]) for name, size in args)
 
 
-def _trace(fn, args, n_out: int, what: str = "the RHS", covs=((), ())) -> List[Sym]:
+def _trace(fn, args, n_out: int, what: str = "the RHS", covs=((), ()),
+           vectors: bool = False) -> List[Sym]:
     """Trace ``fn`` on symbolic arguments; ``covs`` is ``(names, modes)`` of
-    the covariates it may read."""
+    the covariates it may read. ``vectors``: with value vectors (the
+    stacked style); without, vector-style code raises :class:`_VectorStyle`."""
+    global _VALUE_VECTORS
     leaves = [Sym(name) if size is None
-              else SymVec([Sym(name, value=i) for i in range(size)], name)
+              else SymVec([Sym(name, value=i) for i in range(size)], name, readonly=True)
               for name, size in args]
-    out = fn(*leaves, _SymCov(*covs))
-    if isinstance(out, torch.Tensor) and out.dim() == 1 and not out.requires_grad:
-        out = list(out)  # a vector of constants
-    if isinstance(out, (SymVec, list, tuple)):
-        comps = [_num(c) for c in out]
-    else:
-        raise PharmsolError(
-            f"{what} returns a {type(out).__name__}: return "
-            "torch.stack([...]) or a list of components"
-        )
+    _VALUE_VECTORS = vectors
+    try:
+        if vectors:
+            with _ValueVectors():
+                out = fn(*leaves, _SymCov(*covs))
+        else:
+            out = fn(*leaves, _SymCov(*covs))
+        if isinstance(out, torch.Tensor) and out.dim() == 1 and not out.requires_grad:
+            out = list(out)  # a vector of constants
+        if isinstance(out, (SymVec, list, tuple)):
+            comps = [_num(c) for c in out]
+        else:
+            raise PharmsolError(
+                f"{what} returns a {type(out).__name__}: return "
+                "torch.stack([...]) or a list of components"
+            )
+    finally:
+        _VALUE_VECTORS = False
     if len(comps) != n_out:
         raise PharmsolError(f"{what} returns {len(comps)} components, expected {n_out}")
     return comps
@@ -502,7 +863,7 @@ _TORCH_BINARY = {
     "pow": torch.pow, "min": torch.minimum, "max": torch.maximum,
     "lt": torch.lt, "le": torch.le, "gt": torch.gt, "ge": torch.ge,
     "eq": torch.eq, "ne": torch.ne, "and": torch.logical_and,
-    "or": torch.logical_or,
+    "or": torch.logical_or, "atan2": torch.atan2,
 }
 
 
@@ -568,22 +929,47 @@ def _jvp_div(node, a, b, da, db):
 
 
 def _jvp_pow(node, a, b, da, db):
-    if db is not None:
-        raise PharmsolError(
-            "`**` with an exponent that depends on the state has no "
-            "derivative rule (it needs log of the base, undefined at the "
-            "zero state the Jacobian is taken at)"
-        )
+    # d(a^u) = u a^(u-1) da + a^u ln(a) du; ln taken at 1 where a == 0, as
+    # JAX's rule (0 there; NaN where a < 0)
+    base = None
     if da is None:
-        return None
-    if b.op == "const":
+        pass
+    elif b.op == "const":
         e = b.value
         if e == 1.0:
-            return da
-        if e == 2.0:
-            return Sym("mul", (Sym("mul", (_const(2.0), a)), da))
-        return Sym("mul", (Sym("mul", (b, Sym("pow", (a, _const(e - 1.0))))), da))
-    return Sym("mul", (Sym("mul", (b, Sym("pow", (a, Sym("sub", (b, _const(1.0))))))), da))
+            base = da
+        elif e == 2.0:
+            base = Sym("mul", (Sym("mul", (_const(2.0), a)), da))
+        else:
+            base = Sym("mul", (Sym("mul", (b, Sym("pow", (a, _const(e - 1.0))))), da))
+    else:
+        base = Sym("mul", (Sym("mul", (b, Sym("pow", (a, Sym("sub", (b, _const(1.0))))))), da))
+    if db is None:
+        return base
+    safe = Sym("where", (Sym("eq", (a, _const(0.0)), is_bool=True), _const(1.0), a))
+    return _t_add(base, Sym("mul", (Sym("mul", (node, Sym("log", (safe,)))), db)))
+
+
+def _t_div(t, divisor):
+    return None if t is None else Sym("div", (t, divisor))
+
+
+def _one_minus_square(a):
+    return Sym("sub", (_const(1.0), Sym("mul", (a, a))))
+
+
+def _erf_slope(a, sign: float):
+    # d erf(a) / da = 2 / sqrt(pi) exp(-a^2); erfc's the negative
+    return Sym("mul", (_const(sign * 2.0 / math.sqrt(math.pi)),
+                       Sym("exp", (Sym("neg", (Sym("mul", (a, a)),)),))))
+
+
+def _jvp_atan2(node, y, x, dy, dx):
+    # d atan2(y, x) = (x dy - y dx) / (x^2 + y^2)
+    if dy is None and dx is None:
+        return None
+    num = _t_sub(_t_scale(dy, x), _t_scale(dx, y))
+    return Sym("div", (num, Sym("add", (Sym("mul", (x, x)), Sym("mul", (y, y))))))
 
 
 def _jvp_abs(node, a, da):
@@ -646,6 +1032,28 @@ _JVP_RULES = {
     "max": _jvp_minmax,
     "where": _jvp_where,
     "cast": lambda node, a, da: None,  # a comparison's value is piecewise constant
+    # the elementwise set, each in operations that have rules themselves (the
+    # sensitivity tower differentiates the tangents again)
+    "tanh": lambda node, a, da: _t_scale(da, Sym("sub", (_const(1.0), Sym("mul", (node, node))))),
+    "sinh": lambda node, a, da: _t_scale(da, Sym("cosh", (a,))),
+    "cosh": lambda node, a, da: _t_scale(da, Sym("sinh", (a,))),
+    "asin": lambda node, a, da: _t_div(da, Sym("sqrt", (_one_minus_square(a),))),
+    "acos": lambda node, a, da: (None if da is None else Sym(
+        "neg", (Sym("div", (da, Sym("sqrt", (_one_minus_square(a),)))),))),
+    "atan": lambda node, a, da: _t_div(da, Sym("add", (_const(1.0), Sym("mul", (a, a))))),
+    "atan2": _jvp_atan2,
+    "sigmoid": lambda node, a, da: _t_scale(da, Sym("mul", (node, Sym("sub", (_const(1.0),
+                                                                            node))))),
+    "log1p": lambda node, a, da: _t_div(da, Sym("add", (_const(1.0), a))),
+    "expm1": lambda node, a, da: _t_scale(da, Sym("add", (node, _const(1.0)))),
+    "erf": lambda node, a, da: _t_scale(da, _erf_slope(a, 1.0)),
+    "erfc": lambda node, a, da: _t_scale(da, _erf_slope(a, -1.0)),
+    "square": lambda node, a, da: _t_scale(da, Sym("mul", (_const(2.0), a))),
+    # d rsqrt = -rsqrt^3 / 2, d (1 / a) = -(1 / a)^2
+    "rsqrt": lambda node, a, da: _t_scale(da, Sym("mul", (_const(-0.5), Sym(
+        "mul", (node, Sym("mul", (node, node))))))),
+    "reciprocal": lambda node, a, da: _t_scale(da, Sym("neg", (Sym("mul", (node, node)),))),
+    "sign": lambda node, a, da: None,  # piecewise constant
 }
 
 
@@ -707,13 +1115,29 @@ __device__ __forceinline__ T pm_max(T a, T b) { return (a > b || a != a) ? a : b
 #endif
 """
 
-# the DSL intrinsics' device functions, defined in a header only where its
-# functions call them (the headers of other models stay as they were);
-# round is half to even, as torch.round (rint in the default rounding mode)
+# the device functions of the operations beyond the prelude's, defined in a
+# header only where its functions call them (the headers of other models stay
+# as they were): each the body for float and for double, of ``v`` (of ``a``
+# and ``b`` for atan2); round is half to even, as torch.round (rint in the
+# default rounding mode); sigmoid, rsqrt and reciprocal divide as torch does
+# on the host
 _EXTRA_MATH = {
-    "floor": ("floorf", "floor"), "ceil": ("ceilf", "ceil"), "round": ("rintf", "rint"),
-    "sin": ("sinf", "sin"), "cos": ("cosf", "cos"), "tan": ("tanf", "tan"),
-    "log10": ("log10f", "log10"), "log2": ("log2f", "log2"),
+    "floor": ("floorf(v)", "floor(v)"), "ceil": ("ceilf(v)", "ceil(v)"),
+    "round": ("rintf(v)", "rint(v)"),
+    "sin": ("sinf(v)", "sin(v)"), "cos": ("cosf(v)", "cos(v)"), "tan": ("tanf(v)", "tan(v)"),
+    "log10": ("log10f(v)", "log10(v)"), "log2": ("log2f(v)", "log2(v)"),
+    "tanh": ("tanhf(v)", "tanh(v)"), "sinh": ("sinhf(v)", "sinh(v)"),
+    "cosh": ("coshf(v)", "cosh(v)"), "asin": ("asinf(v)", "asin(v)"),
+    "acos": ("acosf(v)", "acos(v)"), "atan": ("atanf(v)", "atan(v)"),
+    "atan2": ("atan2f(a, b)", "atan2(a, b)"),
+    "sigmoid": ("1.0f / (1.0f + expf(-v))", "1.0 / (1.0 + exp(-v))"),
+    "log1p": ("log1pf(v)", "log1p(v)"), "expm1": ("expm1f(v)", "expm1(v)"),
+    "erf": ("erff(v)", "erf(v)"), "erfc": ("erfcf(v)", "erfc(v)"),
+    "square": ("v * v", "v * v"),
+    "rsqrt": ("1.0f / sqrtf(v)", "1.0 / sqrt(v)"),
+    "reciprocal": ("1.0f / v", "1.0 / v"),
+    # NaN stays NaN and a zero keeps its sign, as torch.sign
+    "sign": ("v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : v)", "v > 0.0 ? 1.0 : (v < 0.0 ? -1.0 : v)"),
 }
 
 
@@ -723,12 +1147,13 @@ def _extra_math(functions) -> str:
     lines = []
     for op, (f32, f64) in _EXTRA_MATH.items():
         if f"pm_{op}(" in text:
+            params = "{0} a, {0} b" if op in _BINARY_FUNCS else "{0} v"
             lines.append(f"#ifndef PHARMSOL_RHS_MATH_{op.upper()}\n"
                          f"#define PHARMSOL_RHS_MATH_{op.upper()}\n"
-                         f"__device__ __forceinline__ float pm_{op}(float v) "
-                         f"{{ return {f32}(v); }}\n"
-                         f"__device__ __forceinline__ double pm_{op}(double v) "
-                         f"{{ return {f64}(v); }}\n#endif\n")
+                         f"__device__ __forceinline__ float pm_{op}({params.format('float')}) "
+                         f"{{ return {f32}; }}\n"
+                         f"__device__ __forceinline__ double pm_{op}({params.format('double')}) "
+                         f"{{ return {f64}; }}\n#endif\n")
     return "".join(lines)
 
 
@@ -814,7 +1239,9 @@ def _emit_function(outputs: List[Sym], name: str, args, out_name: str,
 # otherwise.
 _MAX_PRE = 8
 _TERM_COST = {"pow": 16, "exp": 16, "log": 16, "div": 8, "sqrt": 8, "sin": 16, "cos": 16,
-              "tan": 16, "log10": 16, "log2": 16}
+              "tan": 16, "log10": 16, "log2": 16, "tanh": 16, "sinh": 16, "cosh": 16,
+              "asin": 16, "acos": 16, "atan": 16, "atan2": 16, "sigmoid": 16, "log1p": 16,
+              "expm1": 16, "erf": 16, "erfc": 16, "rsqrt": 8, "reciprocal": 8}
 _INVARIANT_LEAVES = ("p", "const", "bconst", "cov_a", "cov_b")
 
 
@@ -876,25 +1303,38 @@ def _header(what: str, n_states, n_params, ninput, functions, covs,
     )
 
 
-def _check_against_closure(fn, outputs, args, n_out: int, what: str, covs):
+def _check_against_closure(fn, outputs, args, n_out: int, what: str, covs,
+                           style: str = "lanes"):
     """The traced graph and the closure, on the same random float64 lane
-    (and random covariate coefficients)."""
+    (and random covariate coefficients); a stacked closure on two lanes
+    under ``vmap``, as the twins call it."""
     rng = np.random.RandomState(7)
-    leaves = {name: (torch.tensor(1.37, dtype=torch.float64) if size is None
-                     else torch.as_tensor(rng.uniform(0.5, 2.0, size)))
-              for name, size in args}
     names, modes = covs
-    a = torch.as_tensor(rng.uniform(0.5, 2.0, len(names)))
-    b = torch.as_tensor(rng.uniform(-0.2, 0.2, len(names)))
+    lanes = () if style == "lanes" else (2,)
+    leaves = {name: (torch.full(lanes, 1.37, dtype=torch.float64) if size is None
+                     else torch.as_tensor(rng.uniform(0.5, 2.0, lanes + (size,))))
+              for name, size in args}
+    a = torch.as_tensor(rng.uniform(0.5, 2.0, lanes + (len(names),)))
+    b = torch.as_tensor(rng.uniform(-0.2, 0.2, lanes + (len(names),)))
     cov_leaves = {"cov_a": a, "cov_b": b}
-    shim = LaneCov({n: a[i] if m == "const" else (a[i], b[i])
-                    for i, (n, m) in enumerate(zip(names, modes))})
-    want = fn(*leaves.values(), shim)
-    if not isinstance(want, torch.Tensor):
-        want = torch.stack([torch.as_tensor(c, dtype=torch.float64) for c in want])
-    want = want.to(torch.float64).reshape(n_out)
+
+    def closure(*vals):
+        *arg_vals, ca, cb = vals
+        shim = LaneCov({n: ca[..., i] if m == "const" else (ca[..., i], cb[..., i])
+                        for i, (n, m) in enumerate(zip(names, modes))})
+        out = fn(*arg_vals, shim)
+        if not isinstance(out, torch.Tensor):
+            out = torch.stack([torch.as_tensor(c, dtype=torch.float64) for c in out])
+        return out.to(torch.float64).reshape(n_out)
+
+    if style == "lanes":
+        want = closure(*leaves.values(), a, b)
+    else:
+        want = torch.func.vmap(closure)(*leaves.values(), a, b)
     got = evaluate(outputs, **leaves, **cov_leaves)
-    ok = torch.isclose(got, want, rtol=1e-12, atol=1e-12 * float(want.abs().max()))
+    # NaN where both are NaN (asin of a lane out of its domain, say)
+    scale = float(torch.nan_to_num(want.abs(), nan=0.0).max()) if want.numel() else 0.0
+    ok = torch.isclose(got, want, rtol=1e-12, atol=1e-12 * scale)
     if not bool((ok | (torch.isnan(got) & torch.isnan(want))).all()):
         raise PharmsolError(
             f"the traced {what} disagrees with the closure evaluated on tensors "
@@ -902,12 +1342,33 @@ def _check_against_closure(fn, outputs, args, n_out: int, what: str, covs):
         )
 
 
-def _traced(fn, args, n_out: int, what: str, family: str, covs) -> List[Sym]:
-    """Trace and check one closure; PharmsolError with the reason when the
-    generator cannot express it."""
+def _traced(fn, args, n_out: int, what: str, family: str, covs,
+            stacked: bool = True) -> tuple:
+    """Trace and check one closure in the first style that takes it, lanes
+    and then (where ``stacked``) value vectors, as the JAX plan tries
+    ``make_lane_rhs`` and then ``make_stacked_rhs``: ``(outputs, style)``;
+    PharmsolError with the reason when the generator cannot express it."""
+
+    def attempt(vectors: bool):
+        return _trace(fn, args, n_out, f"the {what}", covs, vectors=vectors)
+
     try:
-        outputs = _trace(fn, args, n_out, f"the {what}", covs)
-        _check_against_closure(fn, outputs, args, n_out, what, covs)
+        try:
+            outputs, style = attempt(False), "lanes"
+        except _VectorStyle as e:
+            if not stacked:
+                raise PharmsolError(
+                    f"{e}: vector-style code, which the fused {family} plan does not "
+                    "take (it traces lanes only, as the JAX package's): write each "
+                    "component and return a list or torch.stack([...])") from None
+            outputs, style = attempt(True), "stacked"
+        except PharmsolError:
+            raise
+        except Exception:
+            if not stacked:
+                raise
+            outputs, style = attempt(True), "stacked"
+        _check_against_closure(fn, outputs, args, n_out, what, covs, style)
     except PharmsolError as e:
         raise PharmsolError(f"the {family} {what} cannot run in the CUDA kernel: {e}") from None
     except Exception as e:
@@ -915,7 +1376,7 @@ def _traced(fn, args, n_out: int, what: str, family: str, covs) -> List[Sym]:
             f"the {family} {what} cannot run in the CUDA kernel: tracing it "
             f"failed ({type(e).__name__}: {e})"
         ) from None
-    return outputs
+    return outputs, style
 
 
 def _covariates(cov_names, cov_modes):
@@ -937,11 +1398,14 @@ def generate_rhs(diffeq: Callable, n_states: int, n_params: int,
     express. ``cov_names`` are the covariates the closure may read, in the
     kernel's order, ``cov_modes`` their modes (``const`` or ``affine``;
     default all ``const``). ``jacobian`` adds ``rhs_jvp`` (the state
-    Jacobian times a vector, by symbolic forward mode) to the header."""
+    Jacobian times a vector, by symbolic forward mode) to the header. The
+    result's ``style`` says how the closure traced: ``"lanes"``, or
+    ``"stacked"`` where it fails on lists (the header does not say: a
+    vector-style spelling of a list-style RHS has its header and key)."""
     ninput = max(int(ninput), 1)
     covs = cov_names, cov_modes = _covariates(cov_names, cov_modes)
     args = _sizes(_ODE_ARGS, n_states, n_params, ninput)
-    outputs = _traced(diffeq, args, n_states, "RHS", "ODE", covs)
+    outputs, style = _traced(diffeq, args, n_states, "RHS", "ODE", covs)
     c_args = args + (("cov_a", len(cov_names)), ("cov_b", len(cov_names)))
     functions = [_emit_function(outputs, "rhs", c_args, "dx")]
     pre = []
@@ -964,7 +1428,7 @@ def generate_rhs(diffeq: Callable, n_states: int, n_params: int,
                      jacobian, len(pre))
     key = hashlib.sha256(source.encode()).hexdigest()[:16]
     return GeneratedRhs(diffeq, int(n_states), int(n_params), ninput, source, key,
-                        cov_names, cov_modes, bool(jacobian), len(pre))
+                        cov_names, cov_modes, bool(jacobian), len(pre), style)
 
 
 def generate_sde(drift: Callable, diffusion: Callable, n_states: int,
@@ -980,14 +1444,15 @@ def generate_sde(drift: Callable, diffusion: Callable, n_states: int,
     that only evaluates to zero (a parameter or a covariate that may be 0)
     stays noisy. Raises PharmsolError with the reason when either closure
     uses something the generator cannot express (an unknown covariate among
-    it)."""
+    it); vector-style code is refused, as the JAX SDE plan refuses it, so
+    both closures are called with lists of lanes."""
     ninput = max(int(ninput), 1)
     covs = cov_names, cov_modes = _covariates(cov_names, cov_modes)
     cov_args = (("cov_a", len(cov_names)), ("cov_b", len(cov_names)))
     d_args = _sizes(_DRIFT_ARGS, n_states, n_params, ninput)
     g_args = _sizes(_DIFFUSION_ARGS, n_states, n_params, ninput)
-    d_out = _traced(drift, d_args, n_states, "drift", "SDE", covs)
-    g_out = _traced(diffusion, g_args, n_states, "diffusion", "SDE", covs)
+    d_out, _ = _traced(drift, d_args, n_states, "drift", "SDE", covs, stacked=False)
+    g_out, _ = _traced(diffusion, g_args, n_states, "diffusion", "SDE", covs, stacked=False)
     zero = frozenset(i for i, g in enumerate(g_out) if g.op == "const" and g.value == 0.0)
     noisy = ", ".join("false" if i in zero else "true" for i in range(n_states))
     source = _header("SDE drift and diffusion closures", n_states, n_params, ninput,

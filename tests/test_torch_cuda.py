@@ -21,7 +21,7 @@ from pharmsol_tpu_torch.utils.f32_budget import (
     ODE_FEATURE_CASES, POPULATION_RANGES, SDE_FEATURE_CASES, covariate_model_case, expm_case,
     f32_error, feature_budget_case, feature_case, k1c_case, kernel_case, ode_case,
     ode_feature_case, population_10k_case, population_models, sde_covariate_model_case,
-    sde_feature_case,
+    sde_feature_case, stiff_case,
 )
 
 pytestmark = pytest.mark.cuda
@@ -177,22 +177,35 @@ def test_ode_entry_point_launches_once(cuda):
 
 
 def test_rejected_rhs_routes_auto_to_general(cuda):
-    """An RHS the CUDA generator rejects takes the general engine with the
-    reason kept, and never a silent twin."""
-    model = pt.ODE(
-        lambda x, p, t, b, r, cov: torch.stack([-p[0] * torch.tanh(x[0]) + b[0]]),
-        out=lambda x, p, t, cov: x[0:1] / p[1], nstates=1, ndrugs=1, nout=1)
+    """An RHS the CUDA generator rejects (``torch.lgamma``, outside its
+    operation set) takes the general engine with the reason kept, and never
+    a silent twin; the ``tanh`` RHS this test held runs fused since the
+    elementwise set, one K2a launch, equal to the general engine within the
+    controller's error."""
     data = pt.Data([pt.Subject.builder("a").bolus(0.0, 100.0, 0)
                     .observation(1.0, 5.0, 0).build()])
     ems = pt.AssayErrorModels().add(
         0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
     sp = np.array([[0.2, 10.0], [0.3, 20.0]])
+    model = pt.ODE(
+        lambda x, p, t, b, r, cov: torch.stack([-p[0] * torch.lgamma(2.0 + x[0]) + b[0]]),
+        out=lambda x, p, t, cov: x[0:1] / p[1], nstates=1, ndrugs=1, nout=1)
     before = fused_ode.LAUNCHES
     psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
     decision = pt.last_engine_decision(model)
-    assert decision["engine"] == "general" and "`tanh`" in decision["reason"]
+    assert decision["engine"] == "general" and "`lgamma`" in decision["reason"]
     assert psi.device.type == "cuda" and torch.isfinite(psi).all()
     assert fused_ode.LAUNCHES == before
+    taken = pt.ODE(
+        lambda x, p, t, b, r, cov: torch.stack([-p[0] * torch.tanh(x[0]) + b[0]]),
+        out=lambda x, p, t, cov: x[0:1] / p[1], nstates=1, ndrugs=1, nout=1)
+    psi = pt.log_likelihood_matrix(taken, data, sp, ems, device="cuda")
+    torch.cuda.synchronize()
+    assert pt.last_engine_decision(taken)["engine"] == "fused"
+    assert fused_ode.LAUNCHES == before + 1
+    want = pt.log_likelihood_matrix(taken, data, sp, ems, engine="general", device="cpu")
+    rel = np.abs(psi.cpu().numpy() - want.numpy()) / np.maximum(np.abs(want.numpy()), 1.0)
+    assert rel.max() <= 1e-4
 
 
 # ---------------------------------------------------------------------------
@@ -375,21 +388,35 @@ def test_sde_entry_point_launches_once(cuda):
 
 
 def test_sde_rejected_drift_routes_auto_to_general(cuda):
+    """A vector-style drift, which the SDE plans of both packages refuse,
+    takes the general engine with the reason kept; the ``tanh`` drift this
+    test held runs fused since the elementwise set, one K3a launch, equal
+    to the general engine at zero diffusion."""
     from pharmsol_tpu_torch.ops import fused_sde
 
-    model = pt.SDE(lambda x, p, t, r, cov: torch.stack([-p[0] * torch.tanh(x[0])]),
-                   lambda p, t, cov: [0.0], out=lambda x, p, t, cov: x[0:1] / p[1],
-                   nparticles=16, nstates=1, ndrugs=1, nout=1)
     data = pt.Data([pt.Subject.builder("a").bolus(0.0, 100.0, 0)
                     .observation(1.0, 5.0, 0).build()])
     ems = pt.AssayErrorModels().add(
         0, pt.AssayErrorModel.additive(pt.ErrorPoly(0.5, 0.1), 1.0))
+    sp = np.array([[0.2, 10.0]])
+    model = pt.SDE(lambda x, p, t, r, cov: -p[0] * torch.tanh(x),
+                   lambda p, t, cov: [0.0], out=lambda x, p, t, cov: x[0:1] / p[1],
+                   nparticles=16, nstates=1, ndrugs=1, nout=1)
     before = fused_sde.LAUNCHES
-    psi = pt.log_likelihood_matrix(model, data, np.array([[0.2, 10.0]]), ems, device="cuda")
+    psi = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
     decision = pt.last_engine_decision(model)
-    assert decision["engine"] == "general" and "`tanh`" in decision["reason"]
+    assert decision["engine"] == "general" and "vector-style code" in decision["reason"]
     assert psi.device.type == "cuda" and torch.isfinite(psi).all()
     assert fused_sde.LAUNCHES == before
+    taken = pt.SDE(lambda x, p, t, r, cov: torch.stack([-p[0] * torch.tanh(x[0])]),
+                   lambda p, t, cov: [0.0], out=lambda x, p, t, cov: x[0:1] / p[1],
+                   nparticles=16, nstates=1, ndrugs=1, nout=1)
+    psi = pt.log_likelihood_matrix(taken, data, sp, ems, device="cuda")
+    torch.cuda.synchronize()
+    assert pt.last_engine_decision(taken)["engine"] == "fused"
+    assert fused_sde.LAUNCHES == before + 1
+    want = pt.log_likelihood_matrix(taken, data, sp, ems, engine="general", device="cpu")
+    np.testing.assert_allclose(psi.cpu().numpy(), want.numpy(), rtol=1e-9, atol=0)
 
 
 def _assert_noise_cells(got, want, dtype):
@@ -540,12 +567,88 @@ def test_rhs_jvp_on_the_card_matches_torch_func_jvp(cuda):
     x, v = dev(rng.randn(n, gen.n_states) * 20.0), dev(rng.randn(n, gen.n_states))
     p, t = dev(rng.uniform(0.05, 3.0, (n, gen.n_params))), dev(rng.uniform(0.0, 24.0, n))
     rate = dev(rng.uniform(0.0, 50.0, (n, gen.ninput)))
-    want_f, want_jv = torch.func.jvp(
-        lambda xs: gen.diffeq(xs, p.t(), t, torch.zeros_like(rate.t()), rate.t(), None),
-        (x.t().contiguous(),), (v.t().contiguous(),))
+
+    def closure(xs):  # the closure in its style, on n lanes
+        return torch.stack(fused_ode.call_rhs(
+            gen, list(xs), list(p.t()), t, [torch.zeros_like(t)] * gen.ninput, list(rate.t()),
+            None, (n,), torch.float64, cuda))
+
+    want_f, want_jv = torch.func.jvp(closure, (x.t().contiguous(),), (v.t().contiguous(),))
     f, jv = fused_ode.rhs_jvp_on_device(gen, x, p, t, rate, v)
     torch.testing.assert_close(f, want_f.t(), rtol=1e-12, atol=1e-12)
     torch.testing.assert_close(jv, want_jv.t(), rtol=1e-12, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# The closure styles: vector-style spellings and the elementwise set
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name, solver", [("short", "dopri5"), ("tmdd", "bdf"),
+                                          ("transit", "expm")])
+def test_style_vector_spelling_runs_the_list_style_library(cuda, name, solver):
+    """A vector-style spelling's plan has the list-style header key; through
+    the entry point it launches the same kernel once and gives the
+    list-style model's psi in every cell."""
+    from pharmsol_tpu_torch.utils import style_cases as sc
+
+    vector, _ = sc.VECTOR_SPELLINGS[name]
+    if name == "tmdd":
+        model, data, sp, ems = stiff_case("tmdd", 6, 8, seed=3, solver="bdf")
+    else:  # the 2-cmt oral RHS and the transit chain, list-style
+        model, data, sp, ems = expm_case(name, 6, 8, seed=3)
+        model = model.with_solver(solver)
+    spelled = pt.ODE(vector, init=model._init, out=model._out, nstates=model.nstates(),
+                     ndrugs=1, nout=model.nouteqs()).with_solver(solver)
+    grid, lowered = model.lower(data.subjects()), ems.lower(model.resolve_output_label, 1)
+    keys = [_FusedOdePsiPlan(m, grid, sp, lowered, cuda, torch.float64).rhs
+            for m in (model, spelled)]
+    assert keys[0].key == keys[1].key and (keys[0].style, keys[1].style) == ("lanes", "stacked")
+    want = pt.log_likelihood_matrix(model, data, sp, ems, device="cuda")
+    counts = (fused_ode.LAUNCHES, fused_ode.EXPM_LAUNCHES, fused_ode.BDF_LAUNCHES)
+    got = pt.log_likelihood_matrix(spelled, data, sp, ems, device="cuda")
+    torch.cuda.synchronize()
+    assert pt.last_engine_decision(spelled)["engine"] == "fused"
+    launched = [a - b for a, b in zip((fused_ode.LAUNCHES, fused_ode.EXPM_LAUNCHES,
+                                       fused_ode.BDF_LAUNCHES), counts)]
+    assert launched == {"dopri5": [1, 0, 0], "expm": [0, 1, 0], "bdf": [0, 0, 1]}[solver]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kernel, solver", [("K2a", "dopri5"), ("K2e", "dopri5"),
+                                            ("K2b", "kvaerno3"), ("K2c", "bdf")])
+def test_style_math_model_kernel_matches_twin(cuda, kernel, solver):
+    """The math model (every operation of the elementwise set, a state
+    exponent; K2e with a time-varying weight and a lag) against its twin,
+    float64: K2a and K2e within 1e-8, K2b and K2c every cell 1e-6 and 99%
+    within 1e-8."""
+    from pharmsol_tpu_torch.utils.style_cases import math_case
+
+    model, data, sp, ems = math_case(8, 6, seed=9, solver=solver, features=kernel != "K2a")
+    grid, lowered = model.lower(data.subjects()), ems.lower(model.resolve_output_label, 1)
+    plan = _FusedOdePsiPlan(model, grid, sp, lowered, cuda, torch.float64)
+    assert "pm_tanh(" in plan.rhs.source and "pm_erfc(" in plan.rhs.source
+    got, want = _ode_run(plan, fused_ode.psi_ode), _ode_run(plan, fused_ode.psi_ode_plain)
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    rel = _cell_rel(got, want)
+    if kernel in ("K2a", "K2e"):
+        assert float(rel.max()) <= 1e-8
+    else:
+        assert float(rel.max()) <= 1e-6 and float((rel <= 1e-8).double().mean()) >= 0.99
+
+
+def test_style_tanh_sde_kernel_matches_twin(cuda):
+    """K3a on a drift with a tanh term: at zero diffusion every cell within
+    1e-10 of the twin."""
+    from pharmsol_tpu_torch.utils.style_cases import readme_tanh_drift
+
+    data, sp, ems = _readme_inputs(3, 4, 0.0)
+    base = _readme_sde(200)
+    model = pt.SDE(readme_tanh_drift, base._diffusion, init=base._init, out=base._out,
+                   nparticles=200, nstates=2, ndrugs=1, nout=1, seed=42)
+    plan = _sde_plan(model, data, sp, ems, torch.float64, cuda)
+    assert "pm_tanh(" in plan.gen.source
+    assert float(_cell_rel(_sde_run(plan), _sde_run(plan, plain=True)).max()) <= 1e-10
 
 
 @pytest.mark.parametrize("which", ["closed", "expm"])

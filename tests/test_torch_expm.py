@@ -160,13 +160,26 @@ def test_plan_refusals_raise_and_auto_records_them(kind, reason, monkeypatch):
 
 
 def test_a_jacobian_the_generator_cannot_write_is_a_refusal(monkeypatch):
-    """``p ** x`` traces, but its state derivative has no rule: the plan
-    raises with the reason and ``auto`` records it."""
+    """``p ** x`` traces; with the rule of ``pow`` taken away (every traced
+    operation has one since ``**`` took a state-dependent exponent, so the
+    refusal needs an operation without one) its state derivative has none:
+    the plan raises with the reason and ``auto`` records it. With the rule,
+    the Jacobian is written and the plan refuses the closure for what it
+    is, not affine in the state."""
+    from pharmsol_tpu_torch.ops import rhs_codegen as rc
+
     model, data, sp, ems = _rejected("nonlinear")
     sp = np.array([[0.5, 15.0, 30.0]])
-    bad = pt.ODE(lambda x, p, t, b, r, cov: torch.stack([-(p[0] ** x[0]) + b[0]]),
-                 out=lambda x, p, t, cov: x[0:1] / p[2], nstates=1, ndrugs=1,
-                 nout=1).with_solver("expm")
+
+    def power_model():
+        return pt.ODE(lambda x, p, t, b, r, cov: torch.stack([-(p[0] ** x[0]) + b[0]]),
+                      out=lambda x, p, t, cov: x[0:1] / p[2], nstates=1, ndrugs=1,
+                      nout=1).with_solver("expm")
+
+    with pytest.raises(PharmsolError, match="AFFINE in the state"):
+        pt.log_likelihood_matrix(power_model(), data, sp, ems, engine="fused")
+    monkeypatch.delitem(rc._JVP_RULES, "pow")
+    bad = power_model()
     with pytest.raises(PharmsolError, match="no Jacobian in the CUDA kernel"):
         pt.log_likelihood_matrix(bad, data, sp, ems, engine="fused")
     monkeypatch.setattr(matrix, "_auto_engine", lambda device: ("fused", "forced for the test"))

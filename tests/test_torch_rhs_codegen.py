@@ -7,6 +7,7 @@ away) and held against the torch closure on random inputs within 1e-14.
 """
 
 import ctypes
+import math
 import shutil
 import subprocess
 
@@ -169,6 +170,13 @@ def _in_place(x, p, t, b, rateiv, cov):
 
 
 def _unknown_op(x, p, t, b, rateiv, cov):
+    # a `math` function of a traced value: neither package's fused plan can
+    # trace it (the JAX plan's lane and stacked probes both fail)
+    return torch.stack([-p[0] * math.tanh(x[0]) + b[0]])
+
+
+def _tanh_op(x, p, t, b, rateiv, cov):
+    # refused until the generator took the elementwise set
     return torch.stack([-p[0] * torch.tanh(x[0]) + b[0]])
 
 
@@ -179,7 +187,7 @@ def _covariate(x, p, t, b, rateiv, cov):
 REJECTED = {
     "python_if": (_if_on_state, "branches on a traced value"),
     "in_place": (_in_place, "in place"),
-    "unknown_op": (_unknown_op, "`tanh`"),
+    "unknown_op": (_unknown_op, "converts a traced value to a Python number"),
     # a covariate the data does not carry (here: none)
     "covariate": (_covariate, "unknown covariate `wt`"),
 }
@@ -198,22 +206,36 @@ def test_out_of_range_index_is_rejected():
 
 
 def _zeros_like_style(x, p, t, b, rateiv, cov):
+    # refused until the generator took vector-style code
     dx = torch.zeros_like(x)
     dx[0] = -p[0] * x[0] + b[0]
     return dx
 
 
+def _masked_write(x, p, t, b, rateiv, cov):
+    # vector-style with a data-dependent index: neither package's fused plan
+    # takes it (JAX: `.at[x > 1.0]`, a non-concrete boolean index)
+    dx = torch.zeros_like(x)
+    dx[x > 1.0] = -p[0] * x[0]
+    dx[0] = dx[0] + b[0]
+    return dx
+
+
 @pytest.mark.parametrize("name, reason, general_runs", [
     ("python_if", "branches on a traced value", False),
-    ("unknown_op", "`tanh`", True),
-    ("zeros_like_style", "`zeros_like`", True),
+    ("unknown_op", "converts a traced value to a Python number", False),
+    ("zeros_like_style", "no data-dependent indexing", False),
 ])
 def test_auto_records_the_rejection(name, reason, general_runs, monkeypatch):
     """engine='auto' with the fused route (forced, as on a CUDA device) takes
     the general engine and keeps the generator's reason; the decision is kept
-    even where the general engine cannot run the closure either."""
+    even where the general engine cannot run the closure either. The
+    closures of the two cases the generator refused before it took the
+    elementwise set and vector-style code (``torch.tanh``, ``zeros_like``)
+    now run fused and equal the general engine within the controller's
+    error."""
     fn = {"python_if": _if_on_state, "unknown_op": _unknown_op,
-          "zeros_like_style": _zeros_like_style}[name]
+          "zeros_like_style": _masked_write}[name]
     monkeypatch.setattr(matrix, "_auto_engine",
                         lambda device: ("fused", "forced for the test"))
     model = pt.ODE(fn, out=lambda x, p, t, cov: x[0:1] / p[2],
@@ -226,7 +248,7 @@ def test_auto_records_the_rejection(name, reason, general_runs, monkeypatch):
     if general_runs:
         psi = pt.log_likelihood_matrix(model, data, sp, ems)
         assert torch.isfinite(psi).all()
-    else:  # vmap refuses data-dependent control flow
+    else:  # vmap refuses data-dependent control flow, .item() and masks
         with pytest.raises(RuntimeError):
             pt.log_likelihood_matrix(model, data, sp, ems)
     decision = pt.last_engine_decision(model)
@@ -235,6 +257,14 @@ def test_auto_records_the_rejection(name, reason, general_runs, monkeypatch):
     assert reason in decision["reason"]
     with pytest.raises(PharmsolError, match="cannot run in the CUDA kernel"):
         pt.log_likelihood_matrix(model, data, sp, ems, engine="fused")
+    former = {"unknown_op": _tanh_op, "zeros_like_style": _zeros_like_style}.get(name)
+    if former is not None:
+        taken = pt.ODE(former, out=lambda x, p, t, cov: x[0:1] / p[2],
+                       nstates=1, ndrugs=1, nout=1)
+        fused = pt.log_likelihood_matrix(taken, data, sp, ems).numpy()
+        assert pt.last_engine_decision(taken)["engine"] == "fused"
+        general = pt.log_likelihood_matrix(taken, data, sp, ems, engine="general").numpy()
+        assert np.max(np.abs(fused - general) / np.maximum(np.abs(general), 1.0)) <= 1e-4
 
 
 _WRAPPER = """
@@ -457,10 +487,18 @@ def test_jacobian_flag_is_part_of_the_key_and_leaves_the_plain_header_alone():
 
 
 @pytest.mark.parametrize("fn, reason", [
-    (lambda x, p, t, b, r, cov: [-(p[0] ** x[0]) + b[0]], "exponent that depends on the state"),
-    (lambda x, p, t, b, r, cov: [-(x[0] ** x[0]) + b[0]], "exponent that depends on the state"),
+    (lambda x, p, t, b, r, cov: [-(p[0] ** x[0]) + b[0]], "`pow` has no derivative rule"),
+    (lambda x, p, t, b, r, cov: [-(x[0] ** x[0]) + b[0]], "`pow` has no derivative rule"),
 ])
-def test_an_operation_without_a_derivative_rule_raises(fn, reason):
+def test_an_operation_without_a_derivative_rule_raises(fn, reason, monkeypatch):
+    """Every traced operation has a rule since ``**`` took a state-dependent
+    exponent (these two closures were refused): with the rule of ``pow``
+    taken away, the Jacobian is refused with the reason; with it, the
+    header holds ``rhs_jvp``."""
+    from pharmsol_tpu_torch.ops import rhs_codegen as rc
+
+    assert generate_rhs(fn, 1, 3, 1, jacobian=True).jacobian
+    monkeypatch.delitem(rc._JVP_RULES, "pow")
     assert generate_rhs(fn, 1, 3, 1).source  # it traces without the Jacobian
     with pytest.raises(PharmsolError, match="no Jacobian in the CUDA kernel") as err:
         generate_rhs(fn, 1, 3, 1, jacobian=True)
@@ -472,10 +510,11 @@ def test_every_traced_operation_has_a_rule_or_is_boolean():
 
     numeric = (set(rc._ARITH) | {"pow", "min", "max", "neg", "exp", "log", "sqrt", "abs",
                                  "where", "cast", "floor", "ceil", "round", "sin", "cos",
-                                 "tan", "log10", "log2"})
+                                 "tan", "log10", "log2"}
+               | set(rc._UNARY_FUNCS) | set(rc._BINARY_FUNCS))
     assert numeric <= set(rc._JVP_RULES)
-    with pytest.raises(PharmsolError, match="`sinh` has no derivative rule"):
-        rc.tangents([rc.Sym("sinh", (rc.Sym("x", value=0),))])
+    with pytest.raises(PharmsolError, match="`lgamma` has no derivative rule"):
+        rc.tangents([rc.Sym("lgamma", (rc.Sym("x", value=0),))])
 
 
 _JVP_WRAPPER = _WRAPPER + """
@@ -580,7 +619,9 @@ def test_sde_generator_reads_covariates():
 
 
 @pytest.mark.parametrize("which, fn, reason", [
-    ("drift", lambda x, p, t, r, cov: torch.stack([-p[0] * torch.tanh(x[0]), -x[1]]), "`tanh`"),
+    # vector-style code, which the SDE plans of both packages refuse (the
+    # elementwise set is taken: a tanh drift traces)
+    ("drift", lambda x, p, t, r, cov: -p[0] * torch.tanh(x), "vector-style code"),
     ("drift", lambda x, p, t, r, cov: [-p[0] * x[0]], "returns 1 components, expected 2"),
     ("diffusion", lambda p, t, cov: [0.0, p[0] if p[0] > 0 else 0.0],
      "branches on a traced value"),

@@ -259,8 +259,13 @@ def test_each_stiff_solver_builds_a_library_of_its_own():
 
 def test_auto_takes_the_fused_engine_for_a_stiff_solver(monkeypatch):
     """``auto`` on a card (forced here) takes the fused plan for every stiff
-    solver; an RHS with ``p ** x`` has no Jacobian rule: the plan refuses it
-    with the reason, ``auto`` records it and takes the general engine."""
+    solver; an RHS with ``p ** x`` has a Jacobian rule since ``**`` took a
+    state-dependent exponent (its fused psi equals the general engine within
+    the stiff rule); with the rule of ``pow`` taken away it has none: the
+    plan refuses it with the reason, ``auto`` records it and takes the
+    general engine."""
+    from pharmsol_tpu_torch.ops import rhs_codegen as rc
+
     monkeypatch.setattr(matrix, "_auto_engine", lambda device: ("fused", "forced for the test"))
     for solver in ("trbdf2", "kvaerno3", "esdirk34", "kvaerno5", "bdf"):
         model, data, sp, ems = stiff_case("michaelis_menten", 2, 3, seed=1, solver=solver)
@@ -270,9 +275,19 @@ def test_auto_takes_the_fused_engine_for_a_stiff_solver(monkeypatch):
         np.testing.assert_array_equal(auto, fused)
     _, data, _, ems = stiff_case("michaelis_menten", 2, 3, seed=1)
     sp = np.array([[0.5, 15.0, 30.0]])
-    bad = pt.ODE(lambda x, p, t, b, r, cov: torch.stack([-(p[0] ** x[0]) + b[0] + r[0]]),
-                 out=lambda x, p, t, cov: x[0:1] / p[2], nstates=1, ndrugs=1,
-                 nout=1).with_solver("bdf")
+
+    def power_model():
+        return pt.ODE(lambda x, p, t, b, r, cov: torch.stack([-(p[0] ** x[0]) + b[0] + r[0]]),
+                      out=lambda x, p, t, cov: x[0:1] / p[2], nstates=1, ndrugs=1,
+                      nout=1).with_solver("bdf")
+
+    taken = power_model()
+    fused = pt.log_likelihood_matrix(taken, data, sp, ems).numpy()
+    assert pt.last_engine_decision(taken)["engine"] == "fused"
+    assert _rel(fused, pt.log_likelihood_matrix(taken, data, sp, ems,
+                                                engine="general").numpy()) <= 1e-3
+    monkeypatch.delitem(rc._JVP_RULES, "pow")
+    bad = power_model()
     with pytest.raises(PharmsolError, match="no Jacobian in the CUDA kernel"):
         pt.log_likelihood_matrix(bad, data, sp, ems, engine="fused")
     psi = pt.log_likelihood_matrix(bad, data, sp, ems)

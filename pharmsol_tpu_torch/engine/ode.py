@@ -26,12 +26,16 @@ segment is one clean initial-value problem.
   backward-difference array ``D[8, n]`` per lane, the Jacobian frozen at the
   predicted point, the order chosen among k-1, k, k+1 after k+1 equal steps.
 
-The JAX package vmaps a per-lane ``lax.while_loop``; here one masked Python
-loop runs over all lanes at once (``x`` is ``[*lanes, n]``): every trial
+The JAX package vmaps a per-lane ``lax.while_loop``; here one masked loop
+runs over all lanes at once (``x`` is ``[*lanes, n]``): every trial
 computes the step on every lane, and only the lanes whose loop condition
 holds take its result. The loop ends when no lane is active. Per lane this is
 the JAX loop step for step (``unroll`` 1, its CPU setting), so the two agree
-to rounding. Default tolerances follow ode/mod.rs:40-41 (rtol = atol = 1e-4,
+to rounding. Each march is a step body, a pure function of its carry, run by
+``lanes.py::march``: eagerly a Python loop, under ``torch.export`` a
+``while_loop``, where the RHS and the implicit solvers' Jacobian are the
+closure's traced lane programs (``lanes.py::RhsLanes``) instead of
+``vmap`` and ``jacfwd``. Default tolerances follow ode/mod.rs:40-41 (rtol = atol = 1e-4,
 h0 = 1e-3).
 """
 
@@ -45,6 +49,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ..errors import PharmsolError
+from .lanes import RhsLanes, march, repeat
 from .sim import as_vector
 
 DEFAULT_RTOL = 1e-4
@@ -281,17 +286,10 @@ def _erk_segment(f: Callable, x0, t0, t1, opts: ODEOptions, A, B, E, C,
                 err = err + hh * ei * k
         return x_new, err, ks[-1]
 
-    def cond(t, h, steps):
+    def cond(x, t, h, k1, steps, hmax):
         return (t < t_done) & (steps < opts.max_steps) & ~_h_stalled(h, t)
 
-    h = _resolve_h_start(h_start, t1 - t0, opts)
-    t = t0 + torch.zeros_like(h)
-    x = x0
-    k1 = f(x0, t)
-    steps = torch.zeros(h.shape, dtype=torch.int64, device=h.device)
-    hmax = h
-    active = cond(t, h, steps)
-    while bool(active.any()):
+    def body(active, x, t, h, k1, steps, hmax):
         done = t >= t_done
         h_try = torch.minimum(h, torch.clamp(t1 - t, min=1e-14))
         x_new, err, k_last = one_step(x, t, h_try, k1)
@@ -312,8 +310,12 @@ def _erk_segment(f: Callable, x0, t0, t1, opts: ODEOptions, A, B, E, C,
         moving = active & ~done
         h = torch.where(moving, torch.clamp(h_try * factor, min=1e-14), h)
         hmax = torch.where(accept, torch.maximum(hmax, h_try), hmax)
-        steps = steps + moving.to(steps.dtype)
-        active = cond(t, h, steps)
+        return x, t, h, k1, steps + moving.to(steps.dtype), hmax
+
+    h = _resolve_h_start(h_start, t1 - t0, opts)
+    t = t0 + torch.zeros_like(h)
+    steps = torch.zeros(h.shape, dtype=torch.int64, device=h.device)
+    x, t, _, _, _, hmax = march(cond, body, (x0, t, h, f(x0, t), steps, h.clone()))
     return _poison_if_unfinished(x, t, t1), hmax
 
 
@@ -344,11 +346,11 @@ def _newton_stage(f, jac, x_base, t_stage, hg, x_guess, newton_iters):
     def F(z):
         return z - x_base - hg * f(z, t_stage)
 
-    z = x_guess
-    for _ in range(newton_iters):
-        resid = F(z)
+    def newton(z):
         J = eye - hg[..., None] * jac(z, t_stage)
-        z = z - _dense_solve(J, resid)
+        return (z - _dense_solve(J, F(z)),)
+
+    z, = repeat(newton_iters, newton, (x_guess,))
     return z, F(z)
 
 
@@ -382,16 +384,10 @@ def _esdirk_segment(f: Callable, jac: Callable, x0, t0, t1, opts: ODEOptions,
             x_hat = x_hat + hh * bhi * k
         return x_new, x_new - x_hat, resid_max
 
-    def cond(t, h, steps):
+    def cond(x, t, h, steps, hmax):
         return (t < t_done) & (steps < opts.max_steps) & ~_h_stalled(h, t)
 
-    h = _resolve_h_start(h_start, t1 - t0, opts)
-    t = t0 + torch.zeros_like(h)
-    x = x0
-    steps = torch.zeros(h.shape, dtype=torch.int64, device=h.device)
-    hmax = h
-    active = cond(t, h, steps)
-    while bool(active.any()):
+    def body(active, x, t, h, steps, hmax):
         h_try = torch.minimum(h, t1 - t)
         x_new, err, resid_max = one_step(x, t, h_try)
         ratio = _error_ratio(err, x, x_new, opts.rtol, opts.atol)
@@ -417,8 +413,12 @@ def _esdirk_segment(f: Callable, jac: Callable, x0, t0, t1, opts: ODEOptions,
         t = torch.where(accept, t + h_try, t)
         x = torch.where(accept[..., None], x_new, x)
         h = torch.where(active, torch.clamp(h_try * factor, min=1e-14), h)
-        steps = steps + active.to(steps.dtype)
-        active = cond(t, h, steps)
+        return x, t, h, steps + active.to(steps.dtype), hmax
+
+    h = _resolve_h_start(h_start, t1 - t0, opts)
+    t = t0 + torch.zeros_like(h)
+    steps = torch.zeros(h.shape, dtype=torch.int64, device=h.device)
+    x, t, _, _, hmax = march(cond, body, (x0, t, h, steps, h.clone()))
     return _poison_if_unfinished(x, t, t1), hmax
 
 
@@ -449,9 +449,11 @@ def _bdf_R(factor):
     K = BDF_MAX_ORDER + 1
     idx = torch.arange(1, K, dtype=factor.dtype, device=factor.device)
     i, j = idx[:, None], idx[None, :]
-    M = torch.zeros(factor.shape + (K, K), dtype=factor.dtype, device=factor.device)
-    M[..., 1:, 1:] = (i - 1.0 - factor[..., None, None] * j) / i
-    M[..., 0, :] = 1.0
+    inner = (i - 1.0 - factor[..., None, None] * j) / i
+    like = dict(dtype=factor.dtype, device=factor.device)
+    M = torch.cat([torch.ones(factor.shape + (1, K), **like),
+                   torch.cat([torch.zeros(factor.shape + (K - 1, 1), **like), inner], dim=-1)],
+                  dim=-2)
     return torch.cumprod(M, dim=-2)
 
 
@@ -463,14 +465,24 @@ def _bdf_segment(f: Callable, jac: Callable, x0, t0, t1, opts: ODEOptions,
     n = x0.shape[-1]
     K = BDF_MAX_ORDER + 1
     t_done = _done_threshold(t1)
-    gamma = torch.tensor(_BDF_GAMMA, dtype=dtype, device=dev)
-    alpha = torch.tensor(_BDF_ALPHA, dtype=dtype, device=dev)
-    error_const = torch.tensor(_BDF_ERROR_CONST, dtype=dtype, device=dev)
     eye = torch.eye(n, dtype=dtype, device=dev)
     eye6 = torch.eye(K, dtype=dtype, device=dev)
     idx6 = torch.arange(K, device=dev)
     idx8 = torch.arange(BDF_MAX_ORDER + 3, device=dev)
     U = _bdf_R(torch.ones((), dtype=dtype, device=dev))
+
+    def table(values):
+        """``values`` as a [K] tensor, by selects (a traced program lifts a
+        tensor made of Python numbers to a constant, which its loop bodies
+        cannot close over); the bodies index it per lane."""
+        out = torch.full((K,), values[0], dtype=dtype, device=dev)
+        for i, v in enumerate(values[1:], 1):
+            out = torch.where(idx6 == i, v, out)
+        return out
+
+    gamma = table(_BDF_GAMMA)
+    alpha = table(_BDF_ALPHA)
+    error_const = table(_BDF_ERROR_CONST)
 
     # D[:k+1] <- (R(k, factor) @ R(k, 1)).T @ D[:k+1]; R(k, 1) is involutory,
     # so factor 1 is the identity. Rows and columns beyond the lane's order
@@ -492,20 +504,10 @@ def _bdf_segment(f: Callable, jac: Callable, x0, t0, t1, opts: ODEOptions,
         k = torch.clamp(k, 0, D.shape[-2] - 1)
         return torch.gather(D, -2, k[..., None, None].expand(k.shape + (1, n)))[..., 0, :]
 
-    def cond(t, h, steps):
+    def cond(D, t, h, order, neq, steps, hmax):
         return (t < t_done) & (steps < opts.max_steps) & ~_h_stalled(h, t)
 
-    h = _resolve_h_start(h_start, t1 - t0, opts)
-    t = t0 + torch.zeros_like(h)
-    D = torch.zeros(h.shape + (BDF_MAX_ORDER + 3, n), dtype=dtype, device=dev)
-    D[..., 0, :] = x0
-    D[..., 1, :] = h[..., None] * f(x0, t)
-    order = torch.ones(h.shape, dtype=torch.int64, device=dev)
-    neq = torch.zeros_like(order)
-    steps = torch.zeros_like(order)
-    hmax = h
-    active = cond(t, h, steps)
-    while bool(active.any()):
+    def body(active, D, t, h, order, neq, steps, hmax):
         # clip the step to the remaining span, rescaling the history to match
         h_req = torch.minimum(h, t1 - t)
         clip_factor = h_req / h
@@ -528,11 +530,11 @@ def _bdf_segment(f: Callable, jac: Callable, x0, t0, t1, opts: ODEOptions,
         # frozen at the predicted point
         cc = c[..., None]
         Am = eye - cc[..., None] * jac(x_pred, t_new)
-        d = torch.zeros_like(x_pred)
-        y = x_pred
-        for _ in range(opts.newton_iters):
+        def newton(d, y):
             step = _dense_solve(Am, cc * f(y, t_new) - psi - d)
-            d, y = d + step, y + step
+            return d + step, y + step
+
+        d, y = repeat(opts.newton_iters, newton, (torch.zeros_like(x_pred), x_pred))
         resid = cc * f(y, t_new) - psi - d
 
         err_norm = rms(error_const[order][..., None] * d, scale)
@@ -564,7 +566,7 @@ def _bdf_segment(f: Callable, jac: Callable, x0, t0, t1, opts: ODEOptions,
                     * row(D_acc, order + 2), scale)
         norms = torch.stack([err_m, torch.clamp(err_norm, min=1e-16), err_p], dim=-1)
         exps = -1.0 / (order[..., None].to(dtype)
-                       + torch.tensor([0.0, 1.0, 2.0], dtype=dtype, device=dev))
+                       + torch.arange(3, dtype=dtype, device=dev))
         facs = torch.pow(torch.clamp(norms, min=1e-16), exps)
         valid = torch.stack([order > 1, torch.ones_like(accept),
                              order < BDF_MAX_ORDER], dim=-1) & torch.isfinite(facs)
@@ -589,16 +591,23 @@ def _bdf_segment(f: Callable, jac: Callable, x0, t0, t1, opts: ODEOptions,
         D_new = torch.where(accept[..., None, None], D_acc, D_c)
         D_final = torch.where((factor == 1.0)[..., None, None], D_new,
                               change_D(D_new, order_new, factor))
-
         a3 = active[..., None, None]
-        D = torch.where(a3, D_final, D)
-        hmax = torch.where(active & accept, torch.maximum(hmax, h_req), hmax)
-        t = torch.where(active & accept, t_new, t)
-        h = torch.where(active, torch.clamp(h_req * factor, min=1e-14), h)
-        order = torch.where(active, order_new, order)
-        neq = torch.where(active, neq_new, neq)
-        steps = steps + active.to(steps.dtype)
-        active = cond(t, h, steps)
+        return (torch.where(a3, D_final, D),
+                torch.where(active & accept, t_new, t),
+                torch.where(active, torch.clamp(h_req * factor, min=1e-14), h),
+                torch.where(active, order_new, order),
+                torch.where(active, neq_new, neq),
+                steps + active.to(steps.dtype),
+                torch.where(active & accept, torch.maximum(hmax, h_req), hmax))
+
+    h = _resolve_h_start(h_start, t1 - t0, opts)
+    t = t0 + torch.zeros_like(h)
+    D = torch.zeros(h.shape + (BDF_MAX_ORDER + 3, n), dtype=dtype, device=dev)
+    D[..., 0, :] = x0
+    D[..., 1, :] = h[..., None] * f(x0, t)
+    order = torch.ones(h.shape, dtype=torch.int64, device=dev)
+    D, t, _, _, _, _, hmax = march(cond, body, (D, t, h, order, torch.zeros_like(order),
+                                                torch.zeros_like(order), h.clone()))
     return _poison_if_unfinished(D[..., 0, :], t, t1), hmax
 
 
@@ -781,17 +790,33 @@ def make_ode_propagate_carry(diffeq: Callable, nstates: int, ninput: int,
     """
     tableau = check_solver(opts.solver)
     solver = opts.solver
+    # the adaptive solvers' lane programs under torch.export, by (parameters,
+    # inputs, covariates)
+    programs = {}
+
+    def lanes(n_params: int, ninput: int, cov_names) -> RhsLanes:
+        """The RHS (and Jacobian) lane programs an exported march runs, traced
+        on first use: ``export_psi`` asks before it traces the program."""
+        key = (int(n_params), int(ninput), tuple(cov_names))
+        if key not in programs:
+            programs[key] = RhsLanes(diffeq, nstates, *key, jacobian=solver not in TABLEAUS)
+        return programs[key]
 
     def propagate_carry(x, p, dt, rateiv, t0, cov, h):
-        rhs = lane_rhs(diffeq, nstates, cov)
-        lane_jac = lane_jacobian(diffeq, nstates, cov)
         rate = rateiv.expand(h.shape + (rateiv.shape[-1],))
+        if torch.compiler.is_exporting() and solver not in EXPM_SOLVERS:
+            # a while_loop body can hold neither vmap nor jacfwd: the RHS and
+            # its Jacobian as straight-line programs on every lane
+            f, jac = lanes(p.shape[-1], rate.shape[-1], cov.names).bind(p, rate, cov)
+        else:
+            rhs = lane_rhs(diffeq, nstates, cov)
+            lane_jac = lane_jacobian(diffeq, nstates, cov)
 
-        def f(xx, tt):
-            return rhs(xx, p, tt, rate)
+            def f(xx, tt):
+                return rhs(xx, p, tt, rate)
 
-        def jac(xx, tt):
-            return lane_jac(xx, p, tt, rate)
+            def jac(xx, tt):
+                return lane_jac(xx, p, tt, rate)
 
         t0b = t0.expand(h.shape)
         t1 = t0b + torch.clamp(dt, min=0.0).expand(h.shape)
@@ -814,6 +839,7 @@ def make_ode_propagate_carry(diffeq: Callable, nstates: int, ninput: int,
                              h_next, torch.zeros_like(h_next))
         return x_next, h_next
 
+    propagate_carry.lanes = lanes
     return propagate_carry
 
 

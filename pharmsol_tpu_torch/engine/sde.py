@@ -35,7 +35,11 @@ Noise comes from one explicit ``torch.Generator``: ``noise='common'`` draws
 ``[R, P, n]`` per trial and shares it across supports (common random numbers,
 as the JAX engine's default), ``'independent'`` draws ``[S, R, P, n]``. The
 numbers differ from JAX's threefry, so the two engines agree exactly only at
-zero diffusion and statistically otherwise.
+zero diffusion and statistically otherwise. A program traced by
+``torch.export`` cannot hold a host generator: there every draw comes from
+the Philox counters of ``ops/philox.py`` (the fused kernel's layout), keyed
+by the model's seed, and each Euler-Maruyama march is a ``while_loop``
+(``lanes.py::march``) whose carry counts the trials.
 """
 
 from __future__ import annotations
@@ -46,7 +50,9 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch.func import vmap
 
+from ..ops import philox
 from .grid import CovView, OccasionArrays, build_segments
+from .lanes import march
 from .sim import as_vector
 
 EM_RTOL = 1e-2
@@ -150,22 +156,18 @@ def _em_segment(drift, diffusion, X, p, t0, t1, rateiv, draw_normals,
     """Advance the clouds ``X`` [S, R, P, n] from ``t0`` to ``t1`` [S, R]
     with adaptive Euler-Maruyama, one controller per cell.
 
-    ``draw_normals()`` gives the standard normals of the next trial,
+    ``draw_normals(trial)`` gives the standard normals of the next trial,
     broadcastable to ``X``, with a leading axis of 2 (coupled: the two
     half-step increments) or 3 (independent: the full step and the two half
-    steps, em.rs).
+    steps, em.rs). ``trial`` is the trial's 0-d count from 0, carried in the
+    march (the Philox draws, which a traced program keys by it).
     """
-    h = torch.full_like(t0, EM_MAX_STEP)
-    t = t0.clone()
-    iters = torch.zeros(t0.shape, dtype=torch.int64, device=t0.device)
-
-    def cond():
+    def cond(X, t, h, iters, trial):
         return (t < t1 - 1e-14) & (iters < EM_MAX_ITERS) & ((t + h) > t)
 
-    active = cond()
-    while bool(active.any()):
+    def body(active, X, t, h, iters, trial):
         hc = torch.minimum(h, t1 - t)
-        z = draw_normals()
+        z = draw_normals(trial)
         hh = hc[..., None, None]
         half = torch.sqrt(hh / 2.0)
         if coupled:
@@ -181,15 +183,70 @@ def _em_segment(drift, diffusion, X, p, t0, t1, rateiv, draw_normals,
         tol = EM_ATOL + EM_RTOL * torch.abs(X)
         err = torch.amax(torch.abs(y1 - y2) / tol, dim=(-2, -1))
         accept = active & (err <= 1.0)
-        t = torch.where(accept, t + hc, t)
-        X = torch.where(accept[..., None, None], y2, X)
         new_h = torch.clamp(hc * EM_SAFETY * torch.rsqrt(torch.clamp(err, min=1e-12)),
                             EM_MIN_STEP, EM_MAX_STEP)
-        h = torch.where(active, new_h, h)
-        iters = iters + active.to(iters.dtype)
-        active = cond()
+        return (torch.where(accept[..., None, None], y2, X),
+                torch.where(accept, t + hc, t),
+                torch.where(active, new_h, h),
+                iters + active.to(iters.dtype),
+                trial + 1)
+
+    iters = torch.zeros(t0.shape, dtype=torch.int64, device=t0.device)
+    trial = torch.zeros((), dtype=torch.int64, device=t0.device)
+    X, t, _, _, _ = march(cond, body, (X, t0.clone(), torch.full_like(t0, EM_MAX_STEP),
+                                       iters, trial))
     done = t >= t1 - 1e-14 * torch.clamp(torch.abs(t1), min=1.0)
     return torch.where(done[..., None, None], X, torch.full_like(X, float("nan")))
+
+
+class _Noise:
+    """The march's draws: from a ``torch.Generator`` (the eager engine), or,
+    with ``philox_seed``, from the Philox counters of ``ops/philox.py``
+    keyed by (seed, row, support, particle, segment, trial), which a traced
+    program can compute. ``common`` noise is shared across supports (the
+    support counter 0)."""
+
+    def __init__(self, generator, philox_seed, S, R, P, n, common, coupled, dtype, device):
+        self.generator, self.common, self.dtype, self.device = generator, common, dtype, device
+        self.cell_shape = (R, P) if common else (S, R, P)
+        self.n, self.D = n, 2 if coupled else 3
+        self.key = None if philox_seed is None else philox.seed_key(philox_seed)
+        if self.key is not None:
+            i64 = dict(dtype=torch.int64, device=device)
+            npc = philox.normals_per_call(dtype)
+            G = -(-n // npc)
+            self.npc, self.G = npc, G
+            self.slot = torch.arange(self.D, **i64).repeat_interleave(G).view(-1, 1, 1, 1)
+            self.group = torch.arange(G, **i64).repeat(self.D).view(-1, 1, 1, 1)
+            self.part = torch.arange(P, **i64)
+            self.sup = torch.arange(1 if common else S, **i64).view(-1, 1, 1)
+            self.row = torch.arange(R, **i64).view(R, 1)
+
+    def normals(self, m: int, trial) -> torch.Tensor:
+        """[D, S or 1, R, P, n]: the normals of trial ``trial`` of segment m."""
+        if self.key is None:
+            z = torch.randn((self.D, *self.cell_shape, self.n), generator=self.generator,
+                            dtype=self.dtype, device=self.device)
+            return z[:, None] if self.common else z
+        z = philox.normals(self.dtype, particle=self.part, segment=m, trial=trial,
+                           slot=self.slot, group=self.group, support=self.sup, row=self.row,
+                           key=self.key)  # npc x [D * G, S|1, R, P]
+        z = torch.stack(z, dim=1)
+        z = z.reshape((self.D, self.G * self.npc) + z.shape[2:])[:, :self.n]
+        return z.movedim(1, -1)
+
+    def uniforms(self, m: int, systematic: bool) -> torch.Tensor:
+        """The resampling uniforms of an observation in segment m: one per
+        particle ([(S,) R, P]), or one per cell ([(S,) R, 1]) when
+        ``systematic``."""
+        shape = self.cell_shape[:-1] + (1,) if systematic else self.cell_shape
+        if self.key is None:
+            return torch.rand(shape, generator=self.generator, dtype=self.dtype,
+                              device=self.device)
+        part = self.part[:1] if systematic else self.part
+        u = philox.resample_uniform(self.dtype, particle=part, segment=m, support=self.sup,
+                                    row=self.row, key=self.key)
+        return u[0] if self.common else u
 
 
 def _resample_index(w, u):
@@ -217,26 +274,30 @@ class SDESim(NamedTuple):
     state_mean: torch.Tensor  # [S, R, NO, nstates] mean pre-bolus state
 
 
-def _march(spec: SDESpec, rows: OccasionArrays, p: torch.Tensor, segs,
-           generator: torch.Generator, names, observe, per_row: bool = False) -> None:
+def _march(spec: SDESpec, rows: OccasionArrays, p: torch.Tensor, segs, noise: _Noise,
+           names, observe, per_row: bool = False, lanes=None) -> None:
     """The segment loop shared by the filter and the prediction march.
 
     ``p`` [S, n_params] (or, with ``per_row``, [1, R, n_params]); ``segs``
-    the streams of ``build_segments`` for ``p``. At each segment
-    ``observe(m, X, t, out)`` is handed the clouds ``X`` [S, R, P, n] before
-    the bolus (observation before dose), the breakpoint times ``t`` [S, R]
-    and the batched ``out`` closure, and returns the clouds to go on with;
-    then the bolus lands in its destination state and the segment is
-    propagated with adaptive Euler-Maruyama.
+    the streams of ``build_segments`` for ``p``; ``noise`` the draws. At
+    each segment ``observe(m, X, t, out)`` is handed the clouds ``X`` [S,
+    R, P, n] before the bolus (observation before dose), the breakpoint
+    times ``t`` [S, R] and the batched ``out`` closure, and returns the
+    clouds to go on with; then the bolus lands in its destination state and
+    the segment is propagated with adaptive Euler-Maruyama. Under
+    ``torch.export`` the drift and diffusion are the closures' traced lane
+    programs ``lanes`` (``lanes.py::SdeLanes``) and a segment without a
+    span is masked rather than skipped.
     """
     fd, dev = p.dtype, p.device
     R = rows.obs_t.shape[0]
     M = segs.t.shape[-1]
     S, P, n = p.shape[0], int(spec.nparticles), spec.nstates
     drift, diffusion, out, init = _batched_closures(spec, rows, names, fd, dev, per_row)
+    exporting = torch.compiler.is_exporting()
+    if exporting:
+        drift, diffusion = lanes.bind(rows.cov_t, rows.cov_v, rows.cov_fixed)
     coupled = spec.em_control == "coupled"
-    common = spec.noise == "common"
-    cell_shape = (R, P) if common else (S, R, P)
     dest = torch.as_tensor(spec.bolus_dest if spec.bolus_dest is not None
                            else tuple(range(spec.ninput)), dtype=torch.int64,
                            device=dev)
@@ -249,11 +310,6 @@ def _march(spec: SDESpec, rows: OccasionArrays, p: torch.Tensor, segs,
         x0 = rows.init_mask.to(fd)[None, :, None] * init(p)  # [S, R, n]
         X = X + x0[:, :, None, :]
 
-    def draw_normals():
-        z = torch.randn((2 if coupled else 3, *cell_shape, n), generator=generator,
-                        dtype=fd, device=dev)
-        return z if not common else z[:, None]
-
     for m in range(M):
         t = sr(segs.t[..., m])
         X = observe(m, X, t, out)
@@ -264,11 +320,11 @@ def _march(spec: SDESpec, rows: OccasionArrays, p: torch.Tensor, segs,
 
         # propagate
         dt = sr(segs.dt[..., m])
-        if bool((dt > 0.0).any()):
+        if exporting or bool((dt > 0.0).any()):
             rateiv = segs.rateiv[..., m, :]
             rateiv = rateiv.expand((S,) + tuple(rateiv.shape[-2:]))
             X_prop = _em_segment(drift, diffusion, X, p, t, t + dt, rateiv,
-                                 draw_normals, coupled)
+                                 lambda trial, m=m: noise.normals(m, trial), coupled)
             X = torch.where((dt > 0.0)[..., None, None], X_prop, X)
 
 
@@ -301,7 +357,10 @@ def simulate_occasion_sde(spec: SDESpec, rows: OccasionArrays, p: torch.Tensor,
         states.append(X.mean(dim=2))
         return X
 
-    _march(spec, rows, p, segs, generator, names, record, per_row)
+    noise = _Noise(generator, None, p.shape[0], rows.obs_t.shape[0], int(spec.nparticles),
+                   spec.nstates, spec.noise == "common", spec.em_control == "coupled",
+                   p.dtype, p.device)
+    _march(spec, rows, p, segs, noise, names, record, per_row)
     pred_all = torch.stack(preds, dim=-1)  # [S, R, M]
     state_all = torch.stack(states, dim=2)  # [S, R, M, n]
     S, R, _, n = state_all.shape
@@ -314,7 +373,8 @@ def simulate_occasion_sde(spec: SDESpec, rows: OccasionArrays, p: torch.Tensor,
 
 def simulate_occasion_sde_ll(spec: SDESpec, rows: OccasionArrays, p: torch.Tensor,
                              em_kind, em_factor, em_poly,
-                             generator: torch.Generator, cov_names=()) -> torch.Tensor:
+                             generator: Optional[torch.Generator], cov_names=(),
+                             philox_seed: Optional[int] = None, lanes=None) -> torch.Tensor:
     """Particle-filter log-likelihood of every row at every support point.
 
     ``rows``: OccasionArrays of tensors with a leading row axis R; ``p``:
@@ -324,6 +384,13 @@ def simulate_occasion_sde_ll(spec: SDESpec, rows: OccasionArrays, p: torch.Tenso
     through a per-row :class:`~.grid.CovView`. With lag or fa every support
     sorts its own lag-shifted segments ([S, R, M] streams, JAX
     ``engine/sde.py:185-210``). Returns [S, R].
+
+    ``philox_seed`` (internal; the exported program's draws, ``SDE._ll_rows``
+    under ``torch.export``) draws from the Philox counters of that seed
+    instead of ``generator``: eagerly it gives the artifact's numbers.
+    Under export an observation no row weighs is masked rather than
+    skipped, and ``lanes`` (``lanes.py::SdeLanes``, traced beforehand)
+    gives the drift and diffusion.
     """
     from ..likelihood.loglik import observation_sigmas
 
@@ -333,7 +400,9 @@ def simulate_occasion_sde_ll(spec: SDESpec, rows: OccasionArrays, p: torch.Tenso
     R = rows.obs_t.shape[0]
     S, P = p.shape[0], int(spec.nparticles)
     n = spec.nstates
-    cell_shape = (R, P) if spec.noise == "common" else (S, R, P)
+    noise = _Noise(generator, philox_seed, S, R, P, n, spec.noise == "common",
+                   spec.em_control == "coupled", fd, dev)
+    exporting = torch.compiler.is_exporting()
 
     sigma_obs, active_obs = observation_sigmas(rows, em_kind, em_factor, em_poly)
     pos = segs.obs_pos
@@ -358,7 +427,7 @@ def simulate_occasion_sde_ll(spec: SDESpec, rows: OccasionArrays, p: torch.Tenso
         # observation before bolus: weight, record, resample
         nonlocal ll
         weighted = sr(seg_active[..., m])  # [S, R]
-        if not bool(weighted.any()):
+        if not exporting and not bool(weighted.any()):
             return X
         y_all = out(X, p, t)  # [S, R, P, nout]
         idx = sr(seg_outeq[..., m]).view(S, R, 1, 1).expand(S, R, P, 1)
@@ -372,14 +441,12 @@ def simulate_occasion_sde_ll(spec: SDESpec, rows: OccasionArrays, p: torch.Tenso
         q = torch.where(wv, q, torch.ones_like(q))
         sum_q = q.sum(dim=-1)  # [S, R]
         w = q / torch.clamp(sum_q, min=tiny)[..., None]
-        u_shape = (cell_shape[:-1] + (1,) if spec.resampling == "systematic"
-                   else cell_shape)
-        U = torch.rand(u_shape, generator=generator, dtype=fd, device=dev)
+        U = noise.uniforms(m, spec.resampling == "systematic")
         ridx = _resample_index(w, resample_positions(U, P).expand(S, R, P))
         X_rs = torch.gather(X, 2, ridx[..., None].expand(S, R, P, n))
         ll = ll + torch.where(weighted, torch.log(torch.clamp(sum_q / P, min=tiny)),
                               torch.zeros_like(sum_q))
         return torch.where(wv[..., None], X_rs, X)
 
-    _march(spec, rows, p, segs, generator, names, weigh)
+    _march(spec, rows, p, segs, noise, names, weigh, lanes=lanes)
     return ll

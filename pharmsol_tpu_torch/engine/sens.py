@@ -11,7 +11,7 @@ p_dot))]`` (:func:`augmented_equation`, an ordinary :class:`ODE` of twice the
 states) instead of a derivative of the adaptive stepper. Where the RHS
 generator (``ops/rhs_codegen.py``) traces the closure, the augmented RHS is
 that trace differentiated symbolically and run as one straight-line program
-on every lane at once (:class:`_Program`); otherwise its tangent half is
+on every lane at once (``lanes.py::LaneProgram``); otherwise its tangent half is
 ``torch.func.jvp`` of the closure, lane by lane under ``vmap``, a dearer
 call. The augmented model's adaptive error norm covers
 the sensitivity states, as the JAX package's does: both march the same step
@@ -44,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from .grid import OccasionArrays
+from .lanes import LaneProgram
 from .sim import as_vector, simulate_occasion
 
 __all__ = ["SENS_DEPTH", "augmented_equation", "make_sens_pred", "supports_forward_sens"]
@@ -60,55 +61,6 @@ def supports_forward_sens(eq) -> bool:
     if getattr(eq, "kind", None) != "ode":
         return False
     return eq._lag is None and eq._fa is None
-
-
-class _Program:
-    """A traced RHS graph (``ops/rhs_codegen.py``'s symbolic scalars) as
-    straight-line torch operations on tensors with any leading dims: the
-    closure's arguments by name, ``x``, ``p``, ``b``, ``rateiv`` indexed
-    along their last axis, ``t`` as it is. Broadcasts, so one program serves
-    every lane of a march at once and a single lane under ``vmap``."""
-
-    def __init__(self, outputs):
-        from ..ops.rhs_codegen import _TORCH_BINARY, _TORCH_UNARY, _topo
-
-        slot = {}
-        self.leaves, self.steps = [], []
-
-        def ref(node):
-            if node.op == "const":
-                return ("c", float(node.value))
-            if node.op == "bconst":
-                return ("c", bool(node.value))
-            if id(node) not in slot:  # a leaf
-                slot[id(node)] = len(slot)
-                self.leaves.append((slot[id(node)], node.op, node.value))
-            return ("s", slot[id(node)])
-
-        for node in _topo(outputs):
-            args = [ref(a) for a in node.args]
-            fn = (torch.where if node.op == "where" else _TORCH_UNARY.get(node.op)
-                  or _TORCH_BINARY[node.op])
-            slot[id(node)] = len(slot)
-            self.steps.append((slot[id(node)], fn, args))
-        self.outputs = [ref(o) for o in outputs]
-        self.n_slots = len(slot)
-
-    def __call__(self, **leaves) -> torch.Tensor:
-        vals = [None] * self.n_slots
-        for i, name, idx in self.leaves:
-            leaf = leaves[name]
-            vals[i] = leaf if idx is None else leaf[..., idx]
-
-        def get(a):
-            return vals[a[1]] if a[0] == "s" else a[1]
-
-        for i, fn, args in self.steps:
-            vals[i] = fn(*[get(a) for a in args])
-        base = leaves["x"][..., 0]
-        outs = [get(o) for o in self.outputs]
-        outs = [o if isinstance(o, torch.Tensor) else torch.full_like(base, o) for o in outs]
-        return torch.stack(torch.broadcast_tensors(base, *outs)[1:], dim=-1)
 
 
 def _traced_rhs(eq, n_params: int):
@@ -144,7 +96,7 @@ def _symbolic_aug_rhs(graph, n: int, n_params: int):
     except PharmsolError:
         return None
     aug = list(graph) + [Sym("add", (a, b)) for a, b in zip(tx, tp)]
-    program = _Program(aug)
+    program = LaneProgram(aug)
 
     def aug_diffeq(x_aug, p_aug, t, b, rateiv, cov):
         return program(x=x_aug, p=p_aug, t=t, b=b, rateiv=rateiv)

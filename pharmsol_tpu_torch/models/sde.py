@@ -40,6 +40,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..engine.lanes import SdeLanes
 from ..engine.sde import SDESim, SDESpec, simulate_occasion_sde, simulate_occasion_sde_ll
 from ..metadata import ModelKind, RouteInputPolicy, ValidatedModelMetadata
 from .equation import EquationBase
@@ -92,6 +93,8 @@ class SDE(EquationBase):
         # generated CUDA drift and diffusion, by (support columns, inputs,
         # covariates and their modes)
         self._sde_cache: Dict[tuple, object] = {}
+        # the exported filter's lane programs, by (support columns, covariates)
+        self._lanes: Dict[tuple, SdeLanes] = {}
 
     def _model_kind(self) -> ModelKind:
         return ModelKind.SDE
@@ -99,6 +102,7 @@ class SDE(EquationBase):
     def _invalidate(self):
         super()._invalidate()
         self._sde_cache = {}
+        self._lanes = {}
 
     # -- options (sde/mod.rs) ----------------------------------------------------
     def with_nparticles(self, n: int):
@@ -192,7 +196,22 @@ class SDE(EquationBase):
     def _sim_rows(self, rows, p, cov_names) -> SDESim:
         return simulate_occasion_sde(self.spec, rows, p, self._generator(p.device), cov_names)
 
+    def _export_lanes(self, n_params: int, cov_names) -> SdeLanes:
+        """The drift and diffusion lane programs an exported filter runs,
+        traced on first use: ``export_psi`` asks before it traces the
+        program."""
+        key = (int(n_params), tuple(cov_names))
+        if key not in self._lanes:
+            self._lanes[key] = SdeLanes(self._drift, self._diffusion, self._nstates,
+                                        key[0], self._ndrugs, key[1])
+        return self._lanes[key]
+
     def _ll_rows(self, rows, p, em_kind, em_factor, em_poly, cov_names):
+        if torch.compiler.is_exporting():
+            # a traced program draws from the Philox counters of the seed
+            return simulate_occasion_sde_ll(self.spec, rows, p, em_kind, em_factor, em_poly,
+                                            None, cov_names, philox_seed=self._seed,
+                                            lanes=self._export_lanes(p.shape[-1], cov_names))
         return simulate_occasion_sde_ll(self.spec, rows, p, em_kind, em_factor, em_poly,
                                         self._generator(p.device), cov_names)
 

@@ -19,12 +19,17 @@ The tuples are flattened into positional tensors before tracing, so no
 NamedTuple needs a serialization registration (the JAX package registers
 ``OccasionArrays``, ``Segments`` and ``OccasionSim``).
 
-What exports: the closed forms (with every feature of the general engine)
-and ODE models under ``expm``. The adaptive ODE solvers (dopri5, tsit5 and
-the stiff ones) choose their steps by reading device values on the host,
-and the SDE particle filter draws from a host generator; ``torch.export``
-cannot trace either, so :func:`export_psi` refuses those models with
-PharmsolError, where the JAX package's ``lax.while_loop`` programs export.
+What exports: the closed forms (with every feature of the general engine),
+ODE models under every solver, and SDE models. The adaptive marches (dopri5,
+tsit5, the ESDIRK pairs and BDF, the particle filter's Euler-Maruyama) trace
+as one ``while_loop`` per segment (``engine/lanes.py::march``), the RHS, the
+implicit solvers' Jacobian and the SDE's drift and diffusion as the
+closures' traced lane programs (``engine/lanes.py``), covariate reads
+included; the SDE draws from the Philox counters of the model's seed, fixed
+at export time as the JAX package fixes ``PRNGKey(seed)``. A closure the RHS
+tracer cannot express (a Python ``if`` or ``math.*`` on a traced value,
+data-dependent indexing, an operation it lacks) is refused with
+PharmsolError naming the construct, where the JAX package may trace it.
 """
 
 from __future__ import annotations
@@ -107,19 +112,22 @@ def load_exported(source) -> Callable:
     return call
 
 
-def _check_exportable(equation) -> None:
+def _check_exportable(equation, n_params: int, cov_names) -> None:
+    """Trace the closures that the exported marches run as lane programs;
+    raise PharmsolError naming the construct where the tracer cannot
+    express one."""
     from ..engine.ode import EXPM_SOLVERS
 
     kind = getattr(equation, "kind", None)
-    if kind == "sde":
-        raise PharmsolError(
-            "export_psi: the SDE particle filter draws from a host generator and "
-            "resamples by data-dependent indices, which torch.export cannot trace")
-    if kind == "ode" and equation._opts.solver not in EXPM_SOLVERS:
-        raise PharmsolError(
-            f"export_psi: the adaptive solver `{equation._opts.solver}` reads its "
-            f"step control on the host between steps, which torch.export cannot "
-            f"trace; closed forms and ODE models under `expm` export")
+    try:
+        # traced here, before torch.export (whose fake tensors the tracer's
+        # check against the closure cannot read); the marches reuse them
+        if kind == "ode" and equation._opts.solver not in EXPM_SOLVERS:
+            equation.spec.propagate_carry.lanes(n_params, equation._ndrugs, cov_names)
+        elif kind == "sde":
+            equation._export_lanes(n_params, cov_names)
+    except PharmsolError as e:
+        raise PharmsolError(f"export_psi: {e}") from None
 
 
 def export_psi(equation, grid, support_shape: Sequence[int], lowered_em,
@@ -129,13 +137,16 @@ def export_psi(equation, grid, support_shape: Sequence[int], lowered_em,
     ``support_shape`` = (n_support, n_params), traced on ``device`` (default:
     the card) in the working dtype. The program takes ``(rows, row_subject,
     support, em_kind, em_factor, em_poly)`` and returns psi [n_subjects,
-    n_support], as the JAX package's artifact."""
+    n_support], as the JAX package's artifact. Closed forms, ODE models
+    under every solver and SDE models export (an SDE's draws fixed by its
+    seed); a closure the RHS tracer cannot express raises PharmsolError
+    naming the construct."""
     from ..engine.grid import to_tensors
     from ..likelihood.matrix import lowered_tensors
 
-    _check_exportable(equation)
-    dev, fd = resolve_device(device), float_dtype()
     names = tuple(grid.cov_names)
+    _check_exportable(equation, int(support_shape[-1]), names)
+    dev, fd = resolve_device(device), float_dtype()
     n_subjects = grid.n_subjects
 
     def psi(rows, row_subject, support, em_kind, em_factor, em_poly):

@@ -742,7 +742,11 @@ COV_MODES = ("const", "affine")
 class _SymCov:
     """The covariate argument while tracing: ``cov(name, t)`` is the leaf
     ``cov_a[i]`` for a constant covariate and ``cov_a[i] + cov_b[i] * t``
-    for an affine one, with ``t`` the time the closure passed."""
+    for an affine one, with ``t`` the time the closure passed. In mode
+    ``read`` (the exported programs' traces, never a CUDA header) it is the
+    node ``cov`` of that time: the program reads every lane's row at it
+    (``engine/lanes.py::CovLanes``); the check against the closure takes it
+    as affine."""
 
     def __init__(self, names, modes):
         self._index = {n: i for i, n in enumerate(names)}
@@ -755,6 +759,8 @@ class _SymCov:
                 f"the closure reads unknown covariate `{name}` (the data carries "
                 f"{sorted(self._index) or 'none'})"
             )
+        if self._modes[i] == "read":
+            return Sym("cov", (_num(t),), value=i)
         a = Sym("cov_a", value=i)
         if self._modes[i] == "const":
             return a
@@ -887,6 +893,9 @@ def evaluate(outputs: List[Sym], **leaves) -> torch.Tensor:
         args = [get(a) for a in node.args]
         if node.op == "where":
             val[id(node)] = torch.where(*args)
+        elif node.op == "cov":  # a read-mode covariate, checked as affine
+            val[id(node)] = (leaves["cov_a"][..., node.value]
+                             + leaves["cov_b"][..., node.value] * args[0])
         elif node.op in _TORCH_UNARY:
             val[id(node)] = _TORCH_UNARY[node.op](args[0])
         else:
@@ -1001,6 +1010,12 @@ def _jvp_where(node, c, a, b, da, db):
     return Sym("where", (c, zero if da is None else da, zero if db is None else db))
 
 
+def _jvp_cov(node, t, dt):
+    if dt is None:
+        return None
+    raise PharmsolError("the RHS reads a covariate at a time that depends on the state")
+
+
 # operation -> rule(node, *operands, *operand tangents) -> tangent or None
 _JVP_RULES = {
     "add": lambda node, a, b, da, db: _t_add(da, db),
@@ -1054,6 +1069,7 @@ _JVP_RULES = {
         "mul", (node, Sym("mul", (node, node))))))),
     "reciprocal": lambda node, a, da: _t_scale(da, Sym("neg", (Sym("mul", (node, node)),))),
     "sign": lambda node, a, da: None,  # piecewise constant
+    "cov": _jvp_cov,  # a read-mode covariate: constant unless its time moves
 }
 
 
@@ -1343,11 +1359,12 @@ def _check_against_closure(fn, outputs, args, n_out: int, what: str, covs,
 
 
 def _traced(fn, args, n_out: int, what: str, family: str, covs,
-            stacked: bool = True) -> tuple:
+            stacked: bool = True, target: str = "run in the CUDA kernel") -> tuple:
     """Trace and check one closure in the first style that takes it, lanes
     and then (where ``stacked``) value vectors, as the JAX plan tries
     ``make_lane_rhs`` and then ``make_stacked_rhs``: ``(outputs, style)``;
-    PharmsolError with the reason when the generator cannot express it."""
+    PharmsolError with the reason when the generator cannot express it
+    (``the {family} {what} cannot {target}: ...``)."""
 
     def attempt(vectors: bool):
         return _trace(fn, args, n_out, f"the {what}", covs, vectors=vectors)
@@ -1370,10 +1387,10 @@ def _traced(fn, args, n_out: int, what: str, family: str, covs,
             outputs, style = attempt(True), "stacked"
         _check_against_closure(fn, outputs, args, n_out, what, covs, style)
     except PharmsolError as e:
-        raise PharmsolError(f"the {family} {what} cannot run in the CUDA kernel: {e}") from None
+        raise PharmsolError(f"the {family} {what} cannot {target}: {e}") from None
     except Exception as e:
         raise PharmsolError(
-            f"the {family} {what} cannot run in the CUDA kernel: tracing it "
+            f"the {family} {what} cannot {target}: tracing it "
             f"failed ({type(e).__name__}: {e})"
         ) from None
     return outputs, style

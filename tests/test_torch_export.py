@@ -5,9 +5,9 @@ The JAX package's ``tests/test_aux.py::test_export_roundtrip`` on the port:
 shapes (``torch.export``), the artifact is saved, loaded and run, and its
 psi is held within 1e-12 relative to the port's ``log_likelihood_matrix``
 and to the JAX package's exported artifact run on the same numpy inputs
-(float64, on the CPU). An ODE model under ``expm`` exports too. The adaptive
-solvers and the SDE particle filter are refused with PharmsolError, where
-the JAX package exports them (a divergence recorded in ROADMAP Queue 3).
+(float64, on the CPU). An ODE model under ``expm`` exports too; the
+adaptive solvers and the SDE particle filter are held in
+``test_torch_export_ode*.py`` and ``test_torch_export_sde.py``.
 """
 
 import math
@@ -22,7 +22,6 @@ from pharmsol_tpu.ops import export_psi as jax_export_psi
 from pharmsol_tpu.ops import load_exported as jax_load_exported
 
 import pharmsol_tpu_torch as pt
-from pharmsol_tpu_torch.errors import PharmsolError
 from pharmsol_tpu_torch.likelihood.matrix import log_likelihood_matrix
 from pharmsol_tpu_torch.ops import export_psi, load_exported
 
@@ -110,23 +109,3 @@ def test_export_expm_ode():
     want = log_likelihood_matrix(model, pt.Data(subjects), support, _ems(pt),
                                  engine="general", device="cpu")
     assert _rel(psi, want) <= REL
-
-
-def test_export_refuses_the_adaptive_solvers_and_the_sde():
-    def rhs(x, p, t, b, rateiv, cov):
-        return torch.stack([-p[0] * x[0] + b[0], p[0] * x[0] - p[1] * x[1]])
-
-    subjects = _subjects(pt, n=1, times=(1.0,))
-    for solver in ("dopri5", "tsit5", "bdf"):
-        model = pt.ODE(rhs, out=lambda x, p, t, cov: x[1:2] / p[2], nstates=2, ndrugs=1,
-                       nout=1).with_solver(solver)
-        lowered = _ems(pt).lower(model.resolve_output_label, model.nouteqs())
-        with pytest.raises(PharmsolError, match=f"adaptive solver `{solver}`"):
-            export_psi(model, model.lower(subjects), (2, 3), lowered, device="cpu")
-    sde = pt.SDE(drift=lambda x, p, t, rateiv, cov: torch.stack([-p[0] * x[0] + rateiv[0]]),
-                 diffusion=lambda p, t, cov: torch.stack([p[0] * 0.1]),
-                 out=lambda x, p, t, cov: x[0:1] / p[1], nparticles=16, nstates=1,
-                 ndrugs=1, nout=1)
-    lowered = _ems(pt).lower(sde.resolve_output_label, sde.nouteqs())
-    with pytest.raises(PharmsolError, match="SDE particle filter"):
-        export_psi(sde, sde.lower(subjects), (2, 2), lowered, device="cpu")

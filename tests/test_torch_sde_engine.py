@@ -287,7 +287,7 @@ def test_runaway_cell_poisons_without_spinning():
     start = time.perf_counter()
     out = engine_sde._em_segment(
         lambda X, p, t, r: X * X, lambda p, t: torch.ones((1, 1, 1)), X, None, t0,
-        t0 + 10.0, None, lambda: torch.randn((3, 1, 1, 16, 1)), coupled=False)
+        t0 + 10.0, None, lambda trial: torch.randn((3, 1, 1, 16, 1)), coupled=False)
     assert torch.isnan(out).all()
     assert time.perf_counter() - start < 60.0
 
